@@ -1,0 +1,82 @@
+"""Weights into the port: JAX param trees and files -> reference state dicts.
+
+The port's ``SiT`` uses the reference (vit-pytorch) state-dict layout, so a
+reference ``.pth`` loads as it is. A JAX param tree -- e.g. read from the
+flat npz that ``surface_vision_transformers_tpu.checkpoints.orbax_io.
+save_params_npz`` writes, keys joined with ``/`` -- maps onto it here, the
+same mapping as the JAX package's ``checkpoints.torch_import.
+sit_params_to_torch``: flax Dense kernels (in, out) transpose to torch
+Linear weights (out, in), LayerNorm scale/bias become weight/bias.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def load_params_npz(path: str | os.PathLike) -> dict:
+    """Nested dict of numpy arrays from a ``/``-keyed flat npz."""
+    out: dict = {}
+    with np.load(path) as z:
+        for name in z.files:
+            *parents, leaf = name.split("/")
+            cur = out
+            for p in parents:
+                cur = cur.setdefault(p, {})
+            cur[leaf] = z[name]
+    return out
+
+
+def load_torch_state_dict(path: str | os.PathLike) -> dict[str, torch.Tensor]:
+    """A reference ``.pt``/``.pth`` file: a bare state dict or one under
+    ``model_state_dict``. Read with ``weights_only=True``: tensors and plain
+    containers only, no arbitrary unpickling."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "model_state_dict" in obj:
+        obj = obj["model_state_dict"]
+    return dict(obj)
+
+
+def state_dict_from_jax(
+    params: Mapping[str, Any], depth: int
+) -> dict[str, torch.Tensor]:
+    """A JAX SiT param tree (nested dict of arrays, optionally under
+    ``params``) -> reference-layout state dict of float tensors."""
+    p = params["params"] if "params" in params else params
+
+    def t(a):  # flax (in, out) kernel -> torch (out, in) weight
+        return torch.from_numpy(np.array(np.asarray(a).T, order="C"))
+
+    def c(a):
+        return torch.from_numpy(np.array(a))
+
+    out = {
+        "to_patch_embedding.1.weight": t(p["patch_embedding_kernel"]),
+        "to_patch_embedding.1.bias": c(p["patch_embedding_bias"]),
+        "pos_embedding": c(p["pos_embedding"]),
+        "cls_token": c(p["cls_token"]),
+    }
+    enc = p["encoder"]
+    for i in range(depth):
+        a, m = enc[f"layers_{i}_attn"], enc[f"layers_{i}_mlp"]
+        pre = f"transformer.layers.{i}"
+        out[f"{pre}.0.norm.weight"] = c(a["norm"]["scale"])
+        out[f"{pre}.0.norm.bias"] = c(a["norm"]["bias"])
+        out[f"{pre}.0.fn.to_qkv.weight"] = t(a["to_qkv"]["kernel"])
+        out[f"{pre}.0.fn.to_out.0.weight"] = t(a["to_out"]["kernel"])
+        out[f"{pre}.0.fn.to_out.0.bias"] = c(a["to_out"]["bias"])
+        out[f"{pre}.1.norm.weight"] = c(m["norm"]["scale"])
+        out[f"{pre}.1.norm.bias"] = c(m["norm"]["bias"])
+        out[f"{pre}.1.fn.net.0.weight"] = t(m["fc1"]["kernel"])
+        out[f"{pre}.1.fn.net.0.bias"] = c(m["fc1"]["bias"])
+        out[f"{pre}.1.fn.net.3.weight"] = t(m["fc2"]["kernel"])
+        out[f"{pre}.1.fn.net.3.bias"] = c(m["fc2"]["bias"])
+    out["mlp_head.0.weight"] = c(p["head_norm"]["scale"])
+    out["mlp_head.0.bias"] = c(p["head_norm"]["bias"])
+    out["mlp_head.1.weight"] = t(p["head"]["kernel"])
+    out["mlp_head.1.bias"] = c(p["head"]["bias"])
+    return out

@@ -1,0 +1,42 @@
+"""Shared CLI plumbing: ``python -m surface_vision_transformers_tpu_torch.cli.
+<tool> <config> [--set dotted.key=value ...] [--device DEV]``, the JAX
+package's positional-config UX plus an explicit device."""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from surface_vision_transformers_tpu_torch.utils.config import read_config_file
+
+
+def _parse_value(text: str):
+    """JSON scalars and lists (64, 1e-05, true, "x", [1, 2]); anything else
+    stays a string."""
+    try:
+        return json.loads(text)
+    except ValueError:
+        return text
+
+
+def parse_config(description: str, argv=None) -> tuple[dict, str]:
+    """(raw config dict with overrides applied, device)."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("config", help="path to the YAML (or .json) config")
+    p.add_argument(
+        "--set", action="append", default=[], metavar="dotted.key=value",
+        help="override a config value (repeatable), e.g. --set training.bs=64")
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; there is no fallback "
+        "when it is missing)")
+    args = p.parse_args(argv)
+    raw = read_config_file(args.config)
+    for ov in args.set:
+        key, _, val = ov.partition("=")
+        *parents, leaf = key.split(".")
+        cur = raw
+        for k in parents:
+            cur = cur.setdefault(k, {})
+        cur[leaf] = _parse_value(val)
+    return raw, args.device

@@ -1,0 +1,167 @@
+"""The serving forward: a SiT's blocks through the fused-block kernels.
+
+Counterpart of ``surface_vision_transformers_tpu.models.fused``
+(``fused_forward``, ``predict``). In order: patch embed (plain PyTorch) ->
+CLS + positions -> depth-1 x ``fused_block`` -> ``fused_block_cls`` (CLS
+pooling; under mean pooling every block is ``fused_block``) -> float32
+LayerNorm and head.
+
+Differences from the JAX path, by design:
+
+* The sequence is not padded. The TPU kernels need N % 8 == 0 (321 -> 328
+  with keys >= 321 masked); the CUDA kernels mask their ragged edges, so
+  they run at N = 321 and skip the 2% of padding rows.
+* No on-device micro-batching (``_INFER_MICROBATCH`` / ``lax.map``): it
+  answered a TPU compile and scheduling effect, and an eager launch chain
+  over a large batch has neither. A batch runs as one chain.
+* Weights are prepared once per model (``prepare_weights``): contiguous
+  compute-dtype copies in the kernels' layout, the patch-embedding
+  normalisation folded in. Nothing is transposed per forward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from surface_vision_transformers_tpu_torch.models.sit import SiT
+from surface_vision_transformers_tpu_torch.ops.fused_block import (
+    fused_block,
+    fused_block_cls,
+)
+from surface_vision_transformers_tpu_torch.ops.patchify import (
+    embed_weights,
+    gather_embed,
+    rearrange_patched,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedWeights:
+    """A SiT's parameters laid out for ``fused_forward`` on one device."""
+
+    dtype: torch.dtype
+    raw_embed: tuple | None  # (flat vertex ids, (C, V, dim) kernel, bias)
+    patched_embed: tuple  # ((dim, V*C) weight, bias), compute dtype
+    cls_token: torch.Tensor
+    pos_embedding: torch.Tensor
+    blocks: list  # per block: the 11 fused_block parameters, in order
+    head_norm: tuple  # float32 (weight, bias)
+    head: tuple  # float32 (weight, bias)
+
+
+@torch.no_grad()
+def prepare_weights(model: SiT) -> FusedWeights:
+    """Lay out ``model``'s parameters for ``fused_forward`` on the device
+    they are on: matrices in the compute dtype, LayerNorm parameters and
+    biases in float32, all contiguous."""
+    dt = model.dtype
+    lin = model.to_patch_embedding[1]
+    raw_embed = None
+    if model.patch_table is not None:
+        flat = torch.as_tensor(model.patch_table.reshape(-1), dtype=torch.long,
+                               device=lin.weight.device)
+        raw_embed = (flat, *embed_weights(
+            lin.weight.detach().t(), lin.bias.detach(), model.patch_table.shape[1],
+            means=model.norm_means, stds=model.norm_stds, compute_dtype=dt))
+
+    def mat(w):
+        return w.detach().to(dt).contiguous()
+
+    def vec(v):
+        return v.detach().float().contiguous()
+
+    blocks = []
+    for attn, ff in model.transformer.layers:
+        a, m = attn.fn, ff.fn
+        blocks.append((
+            vec(attn.norm.weight), vec(attn.norm.bias), mat(a.to_qkv.weight),
+            mat(a.to_out[0].weight), vec(a.to_out[0].bias),
+            vec(ff.norm.weight), vec(ff.norm.bias),
+            mat(m.net[0].weight), vec(m.net[0].bias),
+            mat(m.net[3].weight), vec(m.net[3].bias),
+        ))
+    return FusedWeights(
+        dtype=dt,
+        raw_embed=raw_embed,
+        patched_embed=(mat(lin.weight), lin.bias.detach().to(dt)),
+        cls_token=mat(model.cls_token),
+        pos_embedding=mat(model.pos_embedding),
+        blocks=blocks,
+        head_norm=(vec(model.mlp_head[0].weight), vec(model.mlp_head[0].bias)),
+        head=(vec(model.mlp_head[1].weight), vec(model.mlp_head[1].bias)),
+    )
+
+
+def fused_forward(
+    model: SiT, x: torch.Tensor, weights: FusedWeights | None = None, *,
+    mesh=None, quant: str | None = None, scan_blocks: bool = False,
+) -> torch.Tensor:
+    """Inference forward: raw (B, C, G) or pre-patched (B, C, L, V) input
+    -> (B, num_classes) float32. ``weights`` from ``prepare_weights``
+    (prepared here when omitted). On CUDA every block is a kernel launch;
+    on the CPU the blocks run their plain versions."""
+    if mesh is not None:
+        raise NotImplementedError("fused_forward under a mesh is not ported yet")
+    if quant is not None:
+        raise NotImplementedError(f"quant={quant!r} serving is not ported yet")
+    if scan_blocks:
+        raise NotImplementedError("scan_blocks is not ported")
+    w = weights if weights is not None else prepare_weights(model)
+    if x.dim() == 3:
+        if w.raw_embed is None:
+            raise ValueError("raw (B, C, G) input requires patch_table to be set")
+        tokens = gather_embed(x, *w.raw_embed)
+    else:
+        tokens = F.linear(rearrange_patched(x).to(w.dtype), *w.patched_embed)
+    B, n = tokens.shape[0], tokens.shape[1]
+    h = torch.cat([w.cls_token.expand(B, -1, -1), tokens], dim=1)
+    h = h + w.pos_embedding[:, : n + 1]
+    kw = dict(heads=model.heads, dim_head=model.dim_head)
+    cls_last = model.pool == "cls"
+    for i, blk in enumerate(w.blocks):
+        if cls_last and i == len(w.blocks) - 1:
+            h = fused_block_cls(h, *blk, **kw)
+        else:
+            h = fused_block(h, *blk, **kw)
+    pooled = h.mean(dim=1) if model.pool == "mean" else h[:, 0]
+    out = F.layer_norm(pooled.float(), (model.dim,), *w.head_norm, eps=1e-5)
+    return F.linear(out, *w.head)
+
+
+def _device(device) -> torch.device:
+    """The requested device; a CUDA request without CUDA raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is False")
+    return dev
+
+
+@torch.inference_mode()
+def predict(model: SiT, data, *, device, batch_size: int = 256,
+            quant: str | None = None) -> np.ndarray:
+    """Batched serving on ``device``: (S, ...) numpy input -> (S,
+    num_classes) numpy float32. Moves ``model`` to ``device``, prepares its
+    weights once, and runs ``fused_forward`` over batches of ``batch_size``,
+    the ragged last one padded with zeros. Kernels run where ``device`` is
+    CUDA; a CPU device runs the plain versions. Asking for CUDA where there
+    is none raises."""
+    dev = _device(device)
+    model.to(dev)
+    w = prepare_weights(model)
+    n = data.shape[0]
+    outs = []
+    for s in range(0, n, batch_size):
+        chunk = np.asarray(data[s: s + batch_size], dtype=np.float32)
+        pad = batch_size - chunk.shape[0]
+        if pad:
+            chunk = np.concatenate(
+                [chunk, np.zeros((pad, *chunk.shape[1:]), np.float32)])
+        out = fused_forward(model, torch.from_numpy(chunk).to(dev), w,
+                            quant=quant)
+        outs.append(out.cpu().numpy()[: batch_size - pad])
+    return np.concatenate(outs, axis=0)

@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+
+The sources in ``csrc/`` compile on first use into ``_build/`` beside this
+package, under a name keyed on a hash of the sources and the compiler flags,
+so a fresh checkout builds once and an edited source rebuilds. The library
+has a plain C interface (no PyTorch headers), which keeps the build to
+seconds. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found: building the CUDA kernels needs the CUDA toolkit "
+        "(on PATH, under $CUDA_HOME, or at /usr/local/cuda)"
+    )
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libsvt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/`` unless this source hash is already built. The
+    compiler's report (registers, shared memory, spills per kernel) is kept
+    beside the library as ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed with exit code {res.returncode}:\n{res.stderr}"
+        )
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry's C signature."""
+    lib = ctypes.CDLL(str(build()))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.svt_fused_block.argtypes = [P] * 18 + [I] * 7 + [F, I, P]
+    lib.svt_fused_block.restype = I
+    lib.svt_fused_block_cls.argtypes = [P] * 19 + [I] * 8 + [F, I, P]
+    lib.svt_fused_block_cls.restype = I
+    lib.svt_error_string.argtypes = [I]
+    lib.svt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err:
+        msg = library().svt_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {err})")
