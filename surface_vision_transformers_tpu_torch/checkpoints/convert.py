@@ -1,4 +1,5 @@
-"""Weights into the port: JAX param trees and files -> reference state dicts.
+"""Weights between the port and the JAX package: JAX param trees and files
+<-> reference state dicts.
 
 The port's ``SiT`` uses the reference (vit-pytorch) state-dict layout, so a
 reference ``.pth`` loads as it is. A JAX param tree -- e.g. read from the
@@ -7,6 +8,9 @@ save_params_npz`` writes, keys joined with ``/`` -- maps onto it here, the
 same mapping as the JAX package's ``checkpoints.torch_import.
 sit_params_to_torch``: flax Dense kernels (in, out) transpose to torch
 Linear weights (out, in), LayerNorm scale/bias become weight/bias.
+``jax_params_from_state_dict`` and ``save_params_npz`` are the inverse, so
+the JAX package's ``run_testing`` reads the port's ``best_params.npz`` and
+the port reads the JAX package's.
 """
 
 from __future__ import annotations
@@ -80,3 +84,56 @@ def state_dict_from_jax(
     out["mlp_head.1.weight"] = t(p["head"]["kernel"])
     out["mlp_head.1.bias"] = c(p["head"]["bias"])
     return out
+
+
+def jax_params_from_state_dict(
+    state: Mapping[str, torch.Tensor], depth: int
+) -> dict[str, Any]:
+    """Inverse of ``state_dict_from_jax``: reference-layout state dict ->
+    JAX SiT param tree of float32 numpy arrays (flax (in, out) kernels)."""
+
+    def c(k):
+        return state[k].detach().cpu().float().numpy().copy()
+
+    def t(k):  # torch (out, in) weight -> flax (in, out) kernel
+        return np.ascontiguousarray(c(k).T)
+
+    enc = {}
+    for i in range(depth):
+        pre = f"transformer.layers.{i}"
+        enc[f"layers_{i}_attn"] = {
+            "norm": {"scale": c(f"{pre}.0.norm.weight"), "bias": c(f"{pre}.0.norm.bias")},
+            "to_qkv": {"kernel": t(f"{pre}.0.fn.to_qkv.weight")},
+            "to_out": {"kernel": t(f"{pre}.0.fn.to_out.0.weight"),
+                       "bias": c(f"{pre}.0.fn.to_out.0.bias")},
+        }
+        enc[f"layers_{i}_mlp"] = {
+            "norm": {"scale": c(f"{pre}.1.norm.weight"), "bias": c(f"{pre}.1.norm.bias")},
+            "fc1": {"kernel": t(f"{pre}.1.fn.net.0.weight"), "bias": c(f"{pre}.1.fn.net.0.bias")},
+            "fc2": {"kernel": t(f"{pre}.1.fn.net.3.weight"), "bias": c(f"{pre}.1.fn.net.3.bias")},
+        }
+    return {
+        "patch_embedding_kernel": t("to_patch_embedding.1.weight"),
+        "patch_embedding_bias": c("to_patch_embedding.1.bias"),
+        "pos_embedding": c("pos_embedding"),
+        "cls_token": c("cls_token"),
+        "encoder": enc,
+        "head_norm": {"scale": c("mlp_head.0.weight"), "bias": c("mlp_head.0.bias")},
+        "head": {"kernel": t("mlp_head.1.weight"), "bias": c("mlp_head.1.bias")},
+    }
+
+
+def save_params_npz(path: str | os.PathLike, tree: Mapping[str, Any]) -> None:
+    """A nested dict of arrays -> flat npz with ``/``-joined keys (the JAX
+    package's ``save_params_npz`` format; read back by ``load_params_npz``)."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+
+    walk(tree, "")
+    np.savez(path, **flat)

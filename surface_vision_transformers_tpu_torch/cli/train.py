@@ -1,0 +1,27 @@
+"""Supervised training CLI::
+
+    python -m surface_vision_transformers_tpu_torch.cli.train cfg.yml \
+        [--set training.epochs=10] [--device cuda]
+
+Runs ``train.runner.run_training`` and prints its results dict; the run
+folder lands under ``logging.folder_to_save_model``.
+"""
+
+from surface_vision_transformers_tpu_torch.cli._common import parse_config
+
+
+def main(argv=None) -> None:
+    raw, device = parse_config("SiT supervised phenotype-regression training "
+                               "(PyTorch/CUDA)", argv)
+    from surface_vision_transformers_tpu_torch.train.runner import run_training
+    from surface_vision_transformers_tpu_torch.utils.config import from_dict
+
+    exp = from_dict(raw)
+    if exp.is_pretraining:
+        raise SystemExit("config contains a pretraining_mpp block; MPP "
+                         "pretraining is not ported yet")
+    print(run_training(exp, device=device))
+
+
+if __name__ == "__main__":
+    main()

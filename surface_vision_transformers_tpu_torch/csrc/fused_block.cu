@@ -11,7 +11,10 @@
 //   LN1 -> QKV GEMM -> attention -> out-proj GEMM (+bias +residual)
 //   -> LN2 -> fc1 GEMM (+bias, erf-GELU) -> fc2 GEMM (+bias +residual).
 // The CLS variant runs LN1 and the K/V GEMM over every row and the rest on
-// the first `rows` (<= 8) rows of each sample only.
+// the first `rows` (<= 8) rows of each sample only. The training entries
+// (svt_fused_block[_cls]_train_fwd) run the same chain and also keep what
+// the backward (fused_block_bwd.cu) reads: LN statistics, the fp32 fc1
+// pre-activation and the attention row log-sum-exp.
 //
 // Bounds on this card: at SiT-tiny (dim 192, mlp 768, N 321) the four GEMMs
 // are ~70% of the FLOPs and run on bf16 tensor cores (mma.sync m16n8k16,
@@ -32,90 +35,22 @@
 // after its last launch (or the first failing one), 0 on success. Nothing
 // synchronises and nothing allocates: the caller passes outputs and scratch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; copies zeros when `pred` is false (src-size 0).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  int src_size = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem), "r"(src_size));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> bf16x2 (lo in the low half, as mma fragments expect).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// Logical row r of a strided row set -> physical row:
-// (r / rpg) * gstride + r % rpg. Identity when rpg == M, gstride == 0; the
-// first `rows` rows of each N-row sample when rpg == rows, gstride == N.
-__device__ __forceinline__ long long map_row(int r, int rpg, int gstride) {
-  return (long long)(r / rpg) * gstride + (r % rpg);
-}
+using namespace svt;
 
 // ---------------------------------------------------------------------------
-// LayerNorm: one warp per row, fp32 statistics (two-pass), bf16 out.
+// LayerNorm: one warp per row, fp32 statistics (two-pass), bf16 out. With
+// `stats` set (training), (mean, rstd) of each row are kept for the backward.
 
 constexpr int LN_THREADS = 256;
 
 __global__ void __launch_bounds__(LN_THREADS)
     layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ beta, bf16* __restrict__ y, int rows, int dim,
-                      float eps) {
+                      float eps, float* __restrict__ stats) {
   const int row = (blockIdx.x * LN_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -129,6 +64,10 @@ __global__ void __launch_bounds__(LN_THREADS)
     v += d * d;
   }
   const float rstd = rsqrtf(warp_sum(v) / dim + eps);
+  if (stats != nullptr && lane == 0) {
+    stats[2LL * row] = mu;
+    stats[2LL * row + 1] = rstd;
+  }
   bf16* yr = y + (long long)row * dim;
   for (int i = lane; i < dim; i += 32)
     yr[i] = __float2bfloat16((__bfloat162float(xr[i]) - mu) * rstd * gamma[i] + beta[i]);
@@ -149,7 +88,8 @@ __global__ void __launch_bounds__(G_THREADS)
     gemm_kernel(const bf16* __restrict__ A, int lda, int a_rpg, int a_gstride,
                 const bf16* __restrict__ W, const float* __restrict__ bias,
                 const bf16* __restrict__ R, int ldr, int r_rpg, int r_gstride,
-                bf16* __restrict__ C, int ldc, int M, int N, int K) {
+                bf16* __restrict__ C, int ldc, int M, int N, int K,
+                float* __restrict__ Cpre) {
   __shared__ __align__(16) bf16 sA[2][GBM * GLD];
   __shared__ __align__(16) bf16 sB[2][GBN * GLD];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -238,6 +178,8 @@ __global__ void __launch_bounds__(G_THREADS)
           v1 += bias[c + 1];
         }
         if (EPI == EPI_BIAS_GELU) {
+          if (Cpre != nullptr)  // training: the fp32 pre-activation, for GELU'
+            *reinterpret_cast<float2*>(Cpre + (long long)r * ldc + c) = make_float2(v0, v1);
           v0 = gelu_erf(v0);
           v1 = gelu_erf(v1);
         }
@@ -261,37 +203,10 @@ __global__ void __launch_bounds__(G_THREADS)
 // p = exp(s - max) in fp32, sums it in fp32, rounds it to bf16 for P.V, and
 // divides the fp32 P.V by the sum at the end, as the TPU kernel does.
 
-constexpr int ATT_DH = 64, ATT_BQ = 64, ATT_BK = 32, ATT_LD = ATT_DH + 8, ATT_THREADS = 128;
-
-__host__ __device__ inline int att_keys_padded(int n) { return (n + ATT_BK - 1) / ATT_BK * ATT_BK; }
-
-__host__ __device__ inline size_t att_smem_bytes(int n) {
-  return (size_t)(ATT_BQ + 2 * att_keys_padded(n)) * ATT_LD * sizeof(bf16);
-}
-
-// s[4][4]: scores of this warp's 16 query rows against keys kb .. kb+31.
-__device__ __forceinline__ void score_chunk(float s[4][4], const uint32_t qf[4][4],
-                                            const bf16* sK, int kb, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int np = 0; np < 2; ++np)
-#pragma unroll
-    for (int ks = 0; ks < ATT_DH / 16; ++ks) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, sK + (kb + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ATT_LD + ks * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-      mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
-    }
-}
-
 __global__ void __launch_bounds__(ATT_THREADS)
     attention_kernel(const bf16* __restrict__ Q, int ldq, int nq, const bf16* __restrict__ Kp,
                      const bf16* __restrict__ Vp, int ldkv, int n, bf16* __restrict__ O, int ldo,
-                     int valid_len, float scale) {
+                     int valid_len, float scale, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char att_smem[];
   const int nk = att_keys_padded(n);
   bf16* sQ = reinterpret_cast<bf16*>(att_smem);
@@ -399,6 +314,11 @@ __global__ void __launch_bounds__(ATT_THREADS)
   }
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
   const int r_lo = qr0 + g, r_hi = qr0 + g + 8;
+  if (lse != nullptr && t == 0) {  // training: row log-sum-exp for the backward
+    float* lrow = lse + ((long long)b * gridDim.y + h) * nq;
+    if (r_lo < nq) lrow[r_lo] = m_lo + logf(l_lo);
+    if (r_hi < nq) lrow[r_hi] = m_hi + logf(l_hi);
+  }
 #pragma unroll
   for (int nt = 0; nt < ATT_DH / 8; ++nt) {
     const int d = hoff + nt * 8 + 2 * t;
@@ -415,41 +335,104 @@ __global__ void __launch_bounds__(ATT_THREADS)
 // Host-side launch helpers (all on `stream`, no synchronisation).
 
 cudaError_t launch_ln(const bf16* x, const float* g, const float* b, bf16* y, int rows, int dim,
-                      float eps, cudaStream_t st) {
+                      float eps, float* stats, cudaStream_t st) {
   const int per_block = LN_THREADS / 32;
   layer_norm_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, st>>>(x, g, b, y, rows,
-                                                                              dim, eps);
+                                                                              dim, eps, stats);
   return cudaGetLastError();
 }
 
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, int lda, int a_rpg, int a_gstride, const bf16* W,
                         const float* bias, const bf16* R, int ldr, int r_rpg, int r_gstride,
-                        bf16* C, int ldc, int M, int N, int K, cudaStream_t st) {
+                        bf16* C, int ldc, int M, int N, int K, cudaStream_t st,
+                        float* Cpre = nullptr) {
   dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
   gemm_kernel<EPI><<<grid, G_THREADS, 0, st>>>(A, lda, a_rpg, a_gstride, W, bias, R, ldr, r_rpg,
-                                               r_gstride, C, ldc, M, N, K);
+                                               r_gstride, C, ldc, M, N, K, Cpre);
   return cudaGetLastError();
 }
 
 cudaError_t launch_attention(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V,
                              int ldkv, int n, bf16* O, int ldo, int B, int heads, int valid_len,
-                             float scale, cudaStream_t st) {
+                             float scale, float* lse, cudaStream_t st) {
   const size_t smem = att_smem_bytes(n);
   cudaError_t e = cudaFuncSetAttribute(attention_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((nq + ATT_BQ - 1) / ATT_BQ, heads, B);
   attention_kernel<<<grid, ATT_THREADS, smem, st>>>(Q, ldq, nq, K, V, ldkv, n, O, ldo, valid_len,
-                                                    scale);
+                                                    scale, lse);
   return cudaGetLastError();
 }
 
-#define SVT_TRY(expr)                    \
-  do {                                   \
-    cudaError_t e_ = (expr);             \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
+// What a training forward keeps for the backward (fused_block_bwd.cu). The
+// serving forward passes none: h2 then reuses h1's buffer and nothing else is
+// written. Every pointer below is the forward's own value, so the backward
+// differentiates exactly the function the forward computed.
+struct Saves {
+  bf16* h2;      // LN2 output (rows, dim); serving: nullptr -> h1's buffer
+  float* stats1; // LN1 (mean, rstd) per row
+  float* stats2; // LN2 (mean, rstd) per row
+  float* fpre;   // fc1 pre-activation (rows, mlp), fp32
+  float* lse;    // attention row log-sum-exp (B, heads, query rows)
+};
+
+int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out, void* b_out,
+              void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2, void* b_fc2,
+              void* out, bf16* h, bf16* qkv, bf16* attn, bf16* x1, bf16* f, const Saves& s,
+              int B, int N, int dim, int heads, int dim_head, int mlp, int valid_len, float eps,
+              int device, void* stream) {
+  if (dim_head != ATT_DH) return (int)cudaErrorInvalidValue;
+  SVT_TRY(cudaSetDevice(device));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * N, hd = heads * dim_head;
+  bf16* h2 = s.h2 != nullptr ? s.h2 : h;
+
+  SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1, st));
+  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, M, 0, (const bf16*)w_qkv, nullptr, nullptr, 0, 1, 0, qkv,
+                                3 * hd, M, 3 * hd, dim, st));
+  SVT_TRY(launch_attention(qkv, 3 * hd, N, qkv + hd, qkv + 2 * hd, 3 * hd, N, attn, hd, B, heads,
+                           valid_len, 1.0f / sqrtf((float)dim_head), s.lse, st));
+  SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, M, 0, (const bf16*)w_out, (const float*)b_out, xb,
+                                    dim, M, 0, x1, dim, M, dim, hd, st));
+  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, M, dim, eps, s.stats2, st));
+  SVT_TRY(launch_gemm<EPI_BIAS_GELU>(h2, dim, M, 0, (const bf16*)w_fc1, (const float*)b_fc1,
+                                     nullptr, 0, 1, 0, f, mlp, M, mlp, dim, st, s.fpre));
+  SVT_TRY(launch_gemm<EPI_BIAS_RES>(f, mlp, M, 0, (const bf16*)w_fc2, (const float*)b_fc2, x1, dim,
+                                    M, 0, static_cast<bf16*>(out), dim, M, dim, mlp, st));
+  return (int)cudaSuccess;
+}
+
+int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out,
+                  void* b_out, void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2,
+                  void* b_fc2, void* out, bf16* h, bf16* kv, bf16* q, bf16* attn, bf16* x1,
+                  bf16* f, const Saves& s, int B, int N, int rows, int dim, int heads,
+                  int dim_head, int mlp, int valid_len, float eps, int device, void* stream) {
+  if (dim_head != ATT_DH || rows < 1 || rows > N) return (int)cudaErrorInvalidValue;
+  SVT_TRY(cudaSetDevice(device));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * N, Mt = B * rows, hd = heads * dim_head;
+  const bf16* wq = static_cast<const bf16*>(w_qkv);
+  const bf16* wkv = wq + (long long)hd * dim;
+  bf16* h2 = s.h2 != nullptr ? s.h2 : h;
+
+  SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1, st));
+  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, M, 0, wkv, nullptr, nullptr, 0, 1, 0, kv, 2 * hd, M,
+                                2 * hd, dim, st));
+  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, rows, N, wq, nullptr, nullptr, 0, 1, 0, q, hd, Mt, hd,
+                                dim, st));
+  SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, valid_len,
+                           1.0f / sqrtf((float)dim_head), s.lse, st));
+  SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, Mt, 0, (const bf16*)w_out, (const float*)b_out, xb,
+                                    dim, rows, N, x1, dim, Mt, dim, hd, st));
+  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, Mt, dim, eps, s.stats2, st));
+  SVT_TRY(launch_gemm<EPI_BIAS_GELU>(h2, dim, Mt, 0, (const bf16*)w_fc1, (const float*)b_fc1,
+                                     nullptr, 0, 1, 0, f, mlp, Mt, mlp, dim, st, s.fpre));
+  SVT_TRY(launch_gemm<EPI_BIAS_RES>(f, mlp, Mt, 0, (const bf16*)w_fc2, (const float*)b_fc2, x1,
+                                    dim, Mt, 0, static_cast<bf16*>(out), dim, Mt, dim, mlp, st));
+  return (int)cudaSuccess;
+}
 
 }  // namespace
 
@@ -466,30 +449,27 @@ int svt_fused_block(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out,
                     void* out, void* ws_h, void* ws_qkv, void* ws_attn, void* ws_x1, void* ws_f,
                     int B, int N, int dim, int heads, int dim_head, int mlp, int valid_len,
                     float eps, int device, void* stream) {
-  if (dim_head != ATT_DH) return (int)cudaErrorInvalidValue;
-  SVT_TRY(cudaSetDevice(device));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N, hd = heads * dim_head;
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* h = static_cast<bf16*>(ws_h);
-  bf16* qkv = static_cast<bf16*>(ws_qkv);
-  bf16* attn = static_cast<bf16*>(ws_attn);
-  bf16* x1 = static_cast<bf16*>(ws_x1);
-  bf16* f = static_cast<bf16*>(ws_f);
+  return block_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1,
+                   w_fc2, b_fc2, out, (bf16*)ws_h, (bf16*)ws_qkv, (bf16*)ws_attn, (bf16*)ws_x1,
+                   (bf16*)ws_f, Saves{}, B, N, dim, heads, dim_head, mlp, valid_len, eps, device,
+                   stream);
+}
 
-  SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, st));
-  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, M, 0, (const bf16*)w_qkv, nullptr, nullptr, 0, 1, 0, qkv,
-                                3 * hd, M, 3 * hd, dim, st));
-  SVT_TRY(launch_attention(qkv, 3 * hd, N, qkv + hd, qkv + 2 * hd, 3 * hd, N, attn, hd, B, heads,
-                           valid_len, 1.0f / sqrtf((float)dim_head), st));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, M, 0, (const bf16*)w_out, (const float*)b_out, xb,
-                                    dim, M, 0, x1, dim, M, dim, hd, st));
-  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h, M, dim, eps, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_GELU>(h, dim, M, 0, (const bf16*)w_fc1, (const float*)b_fc1,
-                                     nullptr, 0, 1, 0, f, mlp, M, mlp, dim, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(f, mlp, M, 0, (const bf16*)w_fc2, (const float*)b_fc2, x1, dim,
-                                    M, 0, static_cast<bf16*>(out), dim, M, dim, mlp, st));
-  return (int)cudaSuccess;
+// The training forward: svt_fused_block's arithmetic, with every buffer the
+// backward reads kept (the order of ops/fused_block.py's TRAIN_SAVED): h1,
+// qkv, attn (bf16), lse (B, heads, N) fp32, x1, h2 (bf16), fpre (B*N, mlp)
+// fp32, f (bf16), stats1, stats2 (B*N, 2) fp32.
+int svt_fused_block_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out,
+                              void* b_out, void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1,
+                              void* w_fc2, void* b_fc2, void* out, void* h1, void* qkv,
+                              void* attn, void* lse, void* x1, void* h2, void* fpre, void* f,
+                              void* stats1, void* stats2, int B, int N, int dim,
+                              int heads, int dim_head, int mlp, int valid_len, float eps,
+                              int device, void* stream) {
+  const Saves s{(bf16*)h2, (float*)stats1, (float*)stats2, (float*)fpre, (float*)lse};
+  return block_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1,
+                   w_fc2, b_fc2, out, (bf16*)h1, (bf16*)qkv, (bf16*)attn, (bf16*)x1, (bf16*)f, s,
+                   B, N, dim, heads, dim_head, mlp, valid_len, eps, device, stream);
 }
 
 // The final block under CLS pooling: x (B, N, dim) -> out (B, rows, dim),
@@ -503,35 +483,28 @@ int svt_fused_block_cls(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_
                         void* ws_attn, void* ws_x1, void* ws_f, int B, int N, int rows, int dim,
                         int heads, int dim_head, int mlp, int valid_len, float eps, int device,
                         void* stream) {
-  if (dim_head != ATT_DH || rows < 1 || rows > N) return (int)cudaErrorInvalidValue;
-  SVT_TRY(cudaSetDevice(device));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N, Mt = B * rows, hd = heads * dim_head;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wq = static_cast<const bf16*>(w_qkv);
-  const bf16* wkv = wq + (long long)hd * dim;
-  bf16* h = static_cast<bf16*>(ws_h);
-  bf16* kv = static_cast<bf16*>(ws_kv);
-  bf16* q = static_cast<bf16*>(ws_q);
-  bf16* attn = static_cast<bf16*>(ws_attn);
-  bf16* x1 = static_cast<bf16*>(ws_x1);
-  bf16* f = static_cast<bf16*>(ws_f);
+  return block_cls_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1,
+                       b_fc1, w_fc2, b_fc2, out, (bf16*)ws_h, (bf16*)ws_kv, (bf16*)ws_q,
+                       (bf16*)ws_attn, (bf16*)ws_x1, (bf16*)ws_f, Saves{}, B, N, rows, dim, heads,
+                       dim_head, mlp, valid_len, eps, device, stream);
+}
 
-  SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, st));
-  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, M, 0, wkv, nullptr, nullptr, 0, 1, 0, kv, 2 * hd, M,
-                                2 * hd, dim, st));
-  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, rows, N, wq, nullptr, nullptr, 0, 1, 0, q, hd, Mt, hd,
-                                dim, st));
-  SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, valid_len,
-                           1.0f / sqrtf((float)dim_head), st));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, Mt, 0, (const bf16*)w_out, (const float*)b_out, xb,
-                                    dim, rows, N, x1, dim, Mt, dim, hd, st));
-  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h, Mt, dim, eps, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_GELU>(h, dim, Mt, 0, (const bf16*)w_fc1, (const float*)b_fc1,
-                                     nullptr, 0, 1, 0, f, mlp, Mt, mlp, dim, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(f, mlp, Mt, 0, (const bf16*)w_fc2, (const float*)b_fc2, x1,
-                                    dim, Mt, 0, static_cast<bf16*>(out), dim, Mt, dim, mlp, st));
-  return (int)cudaSuccess;
+// Training forward of the CLS block: as svt_fused_block_cls, keeping (the
+// order of TRAIN_SAVED_CLS) h1 (B*N, dim), kv (B*N, 2hd), q, attn
+// (B*rows, hd), lse (B, heads, rows) fp32, x1, h2 (B*rows, dim), fpre
+// (B*rows, mlp) fp32, f, stats1 (B*N, 2) and stats2 (B*rows, 2) fp32.
+int svt_fused_block_cls_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out,
+                                  void* b_out, void* ln2_s, void* ln2_b, void* w_fc1,
+                                  void* b_fc1, void* w_fc2, void* b_fc2, void* out, void* h1,
+                                  void* kv, void* q, void* attn, void* lse, void* x1, void* h2,
+                                  void* fpre, void* f, void* stats1, void* stats2, int B, int N,
+                                  int rows, int dim, int heads, int dim_head, int mlp,
+                                  int valid_len, float eps, int device, void* stream) {
+  const Saves s{(bf16*)h2, (float*)stats1, (float*)stats2, (float*)fpre, (float*)lse};
+  return block_cls_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1,
+                       b_fc1, w_fc2, b_fc2, out, (bf16*)h1, (bf16*)kv, (bf16*)q, (bf16*)attn,
+                       (bf16*)x1, (bf16*)f, s, B, N, rows, dim, heads, dim_head, mlp, valid_len,
+                       eps, device, stream);
 }
 
 }  // extern "C"

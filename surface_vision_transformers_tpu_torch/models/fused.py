@@ -1,10 +1,13 @@
-"""The serving forward: a SiT's blocks through the fused-block kernels.
+"""A SiT's forward through the fused-block kernels, for serving and for
+training.
 
 Counterpart of ``surface_vision_transformers_tpu.models.fused``
-(``fused_forward``, ``predict``). In order: patch embed (plain PyTorch) ->
-CLS + positions -> depth-1 x ``fused_block`` -> ``fused_block_cls`` (CLS
-pooling; under mean pooling every block is ``fused_block``) -> float32
-LayerNorm and head.
+(``fused_forward``, ``predict``, ``fused_train_forward``). In order: patch
+embed (plain PyTorch) -> CLS + positions -> depth-1 x ``fused_block`` ->
+``fused_block_cls`` (CLS pooling; under mean pooling every block is
+``fused_block``) -> float32 LayerNorm and head. ``fused_train_forward`` is
+the same chain under autograd, with the blocks' backward on the backward
+kernels (``ops.fused_block.fused_block_train``).
 
 Differences from the JAX path, by design:
 
@@ -31,6 +34,8 @@ from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.ops.fused_block import (
     fused_block,
     fused_block_cls,
+    fused_block_cls_train,
+    fused_block_train,
 )
 from surface_vision_transformers_tpu_torch.ops.patchify import (
     embed_weights,
@@ -51,6 +56,19 @@ class FusedWeights:
     blocks: list  # per block: the 11 fused_block parameters, in order
     head_norm: tuple  # float32 (weight, bias)
     head: tuple  # float32 (weight, bias)
+
+
+def block_parameters(model: SiT) -> list[tuple]:
+    """Per block, the 11 ``fused_block`` parameters of ``model`` in order
+    (the module's own tensors, torch layout)."""
+    out = []
+    for attn, ff in model.transformer.layers:
+        a, m = attn.fn, ff.fn
+        out.append((attn.norm.weight, attn.norm.bias, a.to_qkv.weight,
+                    a.to_out[0].weight, a.to_out[0].bias, ff.norm.weight,
+                    ff.norm.bias, m.net[0].weight, m.net[0].bias,
+                    m.net[3].weight, m.net[3].bias))
+    return out
 
 
 @torch.no_grad()
@@ -74,16 +92,8 @@ def prepare_weights(model: SiT) -> FusedWeights:
     def vec(v):
         return v.detach().float().contiguous()
 
-    blocks = []
-    for attn, ff in model.transformer.layers:
-        a, m = attn.fn, ff.fn
-        blocks.append((
-            vec(attn.norm.weight), vec(attn.norm.bias), mat(a.to_qkv.weight),
-            mat(a.to_out[0].weight), vec(a.to_out[0].bias),
-            vec(ff.norm.weight), vec(ff.norm.bias),
-            mat(m.net[0].weight), vec(m.net[0].bias),
-            mat(m.net[3].weight), vec(m.net[3].bias),
-        ))
+    blocks = [tuple(mat(p) if p.dim() == 2 else vec(p) for p in blk)
+              for blk in block_parameters(model)]
     return FusedWeights(
         dtype=dt,
         raw_embed=raw_embed,
@@ -130,6 +140,46 @@ def fused_forward(
     pooled = h.mean(dim=1) if model.pool == "mean" else h[:, 0]
     out = F.layer_norm(pooled.float(), (model.dim,), *w.head_norm, eps=1e-5)
     return F.linear(out, *w.head)
+
+
+def fused_train_forward(model: SiT, x: torch.Tensor, *, mesh=None,
+                        scan_blocks: bool = False) -> torch.Tensor:
+    """Differentiable forward: raw (B, C, G) or pre-patched (B, C, L, V)
+    input -> (B, num_classes) float32, with gradients flowing to every
+    parameter of ``model`` (the float32 masters; matrices are cast to
+    ``model.dtype`` inside each step). Embedding, CLS + positions, pooling
+    and head are plain PyTorch under autograd; every block is
+    ``fused_block_train`` (the last ``fused_block_cls_train`` under CLS
+    pooling): kernels forward and backward on CUDA, plain versions on the
+    CPU."""
+    if mesh is not None:
+        raise NotImplementedError("fused_train_forward under a mesh is not ported yet")
+    if scan_blocks:
+        raise NotImplementedError("scan_blocks is not ported")
+    dt = model.dtype
+    lin = model.to_patch_embedding[1]
+    if x.dim() == 3:
+        if model.patch_table is None:
+            raise ValueError("raw (B, C, G) input requires patch_table to be set")
+        flat = torch.as_tensor(model.patch_table.reshape(-1), dtype=torch.long,
+                               device=x.device)
+        tokens = gather_embed(x, flat, *embed_weights(
+            lin.weight.t(), lin.bias, model.patch_table.shape[1],
+            means=model.norm_means, stds=model.norm_stds, compute_dtype=dt))
+    else:
+        tokens = F.linear(rearrange_patched(x).to(dt), lin.weight.to(dt),
+                          lin.bias.to(dt))
+    h = model.embed_tokens(tokens)
+    kw = dict(heads=model.heads, dim_head=model.dim_head)
+    blocks = block_parameters(model)
+    for i, blk in enumerate(blocks):
+        last_cls = model.pool == "cls" and i == len(blocks) - 1
+        h = (fused_block_cls_train if last_cls else fused_block_train)(h, *blk, **kw)
+    pooled = h.mean(dim=1) if model.pool == "mean" else h[:, 0]
+    norm, head = model.mlp_head
+    out = F.layer_norm(pooled.float(), (model.dim,), norm.weight.float(),
+                       norm.bias.float(), eps=1e-5)
+    return F.linear(out, head.weight.float(), head.bias.float())
 
 
 def _device(device) -> torch.device:

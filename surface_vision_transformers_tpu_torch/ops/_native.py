@@ -86,6 +86,16 @@ def library() -> ctypes.CDLL:
     lib.svt_fused_block.restype = I
     lib.svt_fused_block_cls.argtypes = [P] * 19 + [I] * 8 + [F, I, P]
     lib.svt_fused_block_cls.restype = I
+    lib.svt_fused_block_train_fwd.argtypes = [P] * 23 + [I] * 7 + [F, I, P]
+    lib.svt_fused_block_train_fwd.restype = I
+    lib.svt_fused_block_cls_train_fwd.argtypes = [P] * 24 + [I] * 8 + [F, I, P]
+    lib.svt_fused_block_cls_train_fwd.restype = I
+    lib.svt_fused_block_bwd.argtypes = [P] * 38 + [I] * 8 + [P]
+    lib.svt_fused_block_bwd.restype = I
+    lib.svt_fused_block_cls_bwd.argtypes = [P] * 40 + [I] * 9 + [P]
+    lib.svt_fused_block_cls_bwd.restype = I
+    lib.svt_block_bwd_workspace.argtypes = [I] * 7
+    lib.svt_block_bwd_workspace.restype = ctypes.c_longlong
     lib.svt_error_string.argtypes = [I]
     lib.svt_error_string.restype = ctypes.c_char_p
     return lib

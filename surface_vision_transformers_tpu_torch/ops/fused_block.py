@@ -1,4 +1,8 @@
-"""Transformer-block forward for inference: Hopper kernels and plain versions.
+"""Transformer-block forward and backward: Hopper kernels and plain versions.
+
+The training half (``fused_block_train``, ``fused_block_cls_train`` and
+their backwards ``fused_block_bwd`` / ``fused_block_cls_bwd``, CUDA in
+``csrc/fused_block_bwd.cu``) is described at its section below.
 
 ``fused_block`` replaces the TPU kernel
 ``surface_vision_transformers_tpu/ops/pallas/fused_block.py::fused_block``
@@ -54,11 +58,15 @@ _CLS_ROWS = 8
 # -- plain versions ------------------------------------------------------------
 
 
-def _layer_norm(x, scale, bias, eps):
+def _layer_norm(x, scale, bias, eps, saved=None, key=None):
+    """fp32 LayerNorm; with ``saved``, (mean, rstd) per row go to saved[key]."""
     h = x.float()
     mu = h.mean(-1, keepdim=True)
     var = (h - mu).square().mean(-1, keepdim=True)
-    return (h - mu) * torch.rsqrt(var + eps) * scale + bias
+    rstd = torch.rsqrt(var + eps)
+    if saved is not None:
+        saved[key] = torch.cat([mu, rstd], -1)
+    return (h - mu) * rstd * scale + bias
 
 
 def _mm(a, w):
@@ -67,64 +75,87 @@ def _mm(a, w):
     return a.float() @ w.float().t()
 
 
-def _attention(q, k, v, heads, dim_head, valid_len, dt):
+def _heads(t, heads, dim_head):
+    """(B, L, H*dh) -> (B, H, L, dh) float32."""
+    return t.reshape(t.shape[0], t.shape[1], heads, dim_head).transpose(1, 2).float()
+
+
+def _merge_heads(t, dt):
+    """(B, H, L, dh) -> (B, L, H*dh) in ``dt``."""
+    B, H, L, dh = t.shape
+    return t.to(dt).transpose(1, 2).reshape(B, L, H * dh)
+
+
+def _attention(q, k, v, heads, dim_head, valid_len, dt, saved=None):
     """(B, nq, H*dh) queries against (B, n, H*dh) keys/values, keys
     >= valid_len masked; shifted fp32 softmax, P rounded to ``dt`` before
-    P.V, the sum divided out after it (as the TPU kernel does)."""
-    B = q.shape[0]
-
-    def split(t):
-        return t.reshape(B, t.shape[1], heads, dim_head).transpose(1, 2).float()
-
-    s = split(q) @ split(k).transpose(-1, -2) * dim_head ** -0.5
+    P.V, the sum divided out after it (as the TPU kernel does). With
+    ``saved``, the row log-sum-exp (B, H, nq) goes to saved["lse"]."""
+    s = (_heads(q, heads, dim_head) @ _heads(k, heads, dim_head).transpose(-1, -2)
+         * dim_head ** -0.5)
     if valid_len < k.shape[1]:
         s[..., valid_len:] = float("-inf")
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    o = (p.to(dt).float() @ split(v)) / p.sum(-1, keepdim=True)
-    return o.to(dt).transpose(1, 2).reshape(B, q.shape[1], heads * dim_head)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if saved is not None:
+        saved["lse"] = (m + torch.log(l)).squeeze(-1)
+    o = (p.to(dt).float() @ _heads(v, heads, dim_head)) / l
+    return _merge_heads(o, dt)
 
 
 def _out_proj_mlp(x, attn, w_out, b_out, ln2_scale, ln2_bias,
-                  w_fc1, b_fc1, w_fc2, b_fc2, eps, dt):
+                  w_fc1, b_fc1, w_fc2, b_fc2, eps, dt, saved=None):
     x1 = (x.float() + (_mm(attn, w_out) + b_out)).to(dt)
-    h2 = _layer_norm(x1, ln2_scale, ln2_bias, eps).to(dt)
-    f = F.gelu(_mm(h2, w_fc1) + b_fc1).to(dt)  # exact erf
+    h2 = _layer_norm(x1, ln2_scale, ln2_bias, eps, saved, "stats2").to(dt)
+    fpre = _mm(h2, w_fc1) + b_fc1
+    f = F.gelu(fpre).to(dt)  # exact erf
+    if saved is not None:
+        saved.update(attn=attn, x1=x1, h2=h2, fpre=fpre, f=f)
     return (x1.float() + (_mm(f, w_fc2) + b_fc2)).to(dt)
 
 
 def fused_block_reference(
     x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, saved: dict | None = None,
 ):
     """Plain PyTorch ``fused_block``: x (B, N, dim) -> (B, N, dim) in
-    x.dtype. In float32 nothing is rounded."""
+    x.dtype. In float32 nothing is rounded. ``saved``, when a dict, receives
+    what the backward reads (``TRAIN_SAVED``), as the training kernel keeps
+    it."""
     dt, hd = x.dtype, heads * dim_head
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps).to(dt)
+    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps, saved, "stats1").to(dt)
     qkv = _mm(h, w_qkv).to(dt)
     attn = _attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
-                      heads, dim_head, vl, dt)
+                      heads, dim_head, vl, dt, saved)
+    if saved is not None:
+        saved.update(h1=h, qkv=qkv)
     return _out_proj_mlp(x, attn, w_out, b_out, ln2_scale, ln2_bias,
-                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt)
+                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved)
 
 
 def fused_block_cls_reference(
     x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, saved: dict | None = None,
 ):
     """Plain PyTorch ``fused_block_cls``: x (B, N, dim) -> the block's first
-    min(8, N) output rows (B, rows, dim); row 0 is the CLS token."""
+    min(8, N) output rows (B, rows, dim); row 0 is the CLS token. ``saved``
+    as in ``fused_block_reference`` (``TRAIN_SAVED_CLS``)."""
     dt, hd = x.dtype, heads * dim_head
     rows = min(_CLS_ROWS, x.shape[1])
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps).to(dt)
+    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps, saved, "stats1").to(dt)
     kv = _mm(h, w_qkv[hd:]).to(dt)
     q = _mm(h[:, :rows], w_qkv[:hd]).to(dt)
-    attn = _attention(q, kv[..., :hd], kv[..., hd:], heads, dim_head, vl, dt)
+    attn = _attention(q, kv[..., :hd], kv[..., hd:], heads, dim_head, vl, dt,
+                      saved)
+    if saved is not None:
+        saved.update(h1=h, kv=kv, q=q)
     return _out_proj_mlp(x[:, :rows], attn, w_out, b_out, ln2_scale, ln2_bias,
-                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt)
+                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved)
 
 
 # -- kernel wrappers -------------------------------------------------------------
@@ -252,3 +283,345 @@ def fused_block_cls(
 
 
 fused_block_cls.launches = 0
+
+
+# -- training: forward with saves, backward --------------------------------------
+#
+# ``fused_block_train`` / ``fused_block_cls_train`` replace the JAX package's
+# ``fused_block_train`` / ``fused_block_cls_train`` (custom VJPs over the TPU
+# backward kernels ``_block_bwd`` / ``_block_bwd_split`` and
+# ``_block_cls_bwd`` / ``_block_cls_bwd_split``). The forward is the serving
+# kernel chain keeping its intermediates (``TRAIN_SAVED``); the backward is
+# ``csrc/fused_block_bwd.cu``, the gradient of this port's forward (erf-GELU,
+# shifted softmax; see the kernel source). Weight gradients come out in
+# float32, in the torch (out, in) layout.
+
+# What the training forward keeps, by name (shapes for x (B, N, dim)):
+# h1 (B, N, dim), qkv (B, N, 3hd), attn (B, N, hd), lse (B, H, N) fp32,
+# x1, h2 (B, N, dim), fpre (B, N, mlp) fp32, f (B, N, mlp), stats1, stats2
+# (B, N, 2) fp32 (LayerNorm mean, rstd). The CLS block keeps kv (B, N, 2hd)
+# and q (B, rows, hd) in place of qkv, and x1, h2, fpre, f, attn, stats2 and
+# lse on its B*rows top rows only.
+TRAIN_SAVED = ("h1", "qkv", "attn", "lse", "x1", "h2", "fpre", "f", "stats1",
+               "stats2")
+TRAIN_SAVED_CLS = ("h1", "kv", "q", "attn", "lse", "x1", "h2", "fpre", "f",
+                   "stats1", "stats2")
+_MAX_BWD_DIM = 384  # the LayerNorm backward holds a row in 12 values a lane
+
+
+def _gelu_grad(f):
+    """d/df of exact-erf GELU at the fp32 pre-activation."""
+    return (0.5 * (1.0 + torch.erf(f * 0.7071067811865476))
+            + f * 0.3989422804014327 * torch.exp(-0.5 * f * f))
+
+
+def _tmm(a, b):
+    """a^T b over all leading (row) dims, fp32: the weight-gradient
+    products (exact products of the operands, fp32 sums)."""
+    return a.reshape(-1, a.shape[-1]).float().t() @ b.reshape(-1, b.shape[-1]).float()
+
+
+def _colsum(t):
+    return t.reshape(-1, t.shape[-1]).float().sum(0)
+
+
+def _ln_bwd(dh, x, stats, scale):
+    """LayerNorm backward from the kept (mean, rstd): (dx, dscale, dbias)."""
+    n = (x.float() - stats[..., :1]) * stats[..., 1:]
+    d = dh * scale
+    dx = (d - d.mean(-1, keepdim=True) - n * (d * n).mean(-1, keepdim=True)) \
+        * stats[..., 1:]
+    return dx, _colsum(dh * n), _colsum(dh)
+
+
+def _attention_bwd(q, k, v, o, do, lse, heads, dim_head, valid_len, dt):
+    """Backward of ``_attention`` from its LSE: P = exp(s - lse) for keys
+    and query rows < valid_len (other query rows contribute nothing, as in
+    the TPU kernel), delta = rowsum(dO . O), dS = P (dP - delta) * scale;
+    P and dS rounded to ``dt`` before their products. -> dq, dk, dv."""
+    scale = dim_head ** -0.5
+    qh, kh, vh = (_heads(t, heads, dim_head) for t in (q, k, v))
+    doh = _heads(do, heads, dim_head)
+    p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse[..., None])
+    keep = ((torch.arange(q.shape[1]) < valid_len)[:, None]
+            & (torch.arange(k.shape[1]) < valid_len)[None, :]).to(p.device)
+    p = torch.where(keep, p, 0.0)
+    delta = (doh * _heads(o, heads, dim_head)).sum(-1, keepdim=True)
+    dv = p.to(dt).float().transpose(-1, -2) @ doh
+    ds = (p * (doh @ vh.transpose(-1, -2) - delta) * scale).to(dt).float()
+    return (_merge_heads(ds @ kh, dt), _merge_heads(ds.transpose(-1, -2) @ qh, dt),
+            _merge_heads(dv, dt))
+
+
+def _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt):
+    """g = dL/dout -> dx1 (fp32) and the MLP / LN2 / out-bias gradients."""
+    gf = g.float()
+    df1 = (gf @ w_fc2.float()) * _gelu_grad(sv["fpre"])
+    df1b = df1.to(dt)
+    dx1_ln, d_ln2_s, d_ln2_b = _ln_bwd(df1b.float() @ w_fc1.float(), sv["x1"],
+                                       sv["stats2"], ln2_s)
+    dx1 = gf + dx1_ln
+    grads = dict(d_ln2_s=d_ln2_s, d_ln2_b=d_ln2_b, d_wfc1=_tmm(df1b, sv["h2"]),
+                 d_bfc1=_colsum(df1), d_wfc2=_tmm(g, sv["f"]), d_bfc2=_colsum(gf),
+                 d_bout=_colsum(dx1))
+    return dx1, grads
+
+
+def _grads_tuple(dx, d_ln1_s, d_ln1_b, d_wqkv, d_wout, gr):
+    return (dx, d_ln1_s, d_ln1_b, d_wqkv, d_wout, gr["d_bout"], gr["d_ln2_s"],
+            gr["d_ln2_b"], gr["d_wfc1"], gr["d_bfc1"], gr["d_wfc2"], gr["d_bfc2"])
+
+
+def _block_bwd_plain(x, g, params, sv, heads, dim_head, valid_len):
+    dt, hd = x.dtype, heads * dim_head
+    ln1_s, w_qkv, w_out, ln2_s, w_fc1, w_fc2 = (params[i] for i in (0, 2, 3, 5, 7, 9))
+    dx1, gr = _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt)
+    dx1b = dx1.to(dt)
+    da = (dx1b.float() @ w_out.float()).to(dt)
+    qkv = sv["qkv"]
+    dqkv = torch.cat(_attention_bwd(
+        qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], sv["attn"], da,
+        sv["lse"], heads, dim_head, valid_len, dt), -1)
+    dx_ln, d_ln1_s, d_ln1_b = _ln_bwd(dqkv.float() @ w_qkv.float(), x,
+                                      sv["stats1"], ln1_s)
+    return _grads_tuple((dx1 + dx_ln).to(dt), d_ln1_s, d_ln1_b,
+                        _tmm(dqkv, sv["h1"]), _tmm(dx1b, sv["attn"]), gr)
+
+
+def _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, valid_len):
+    dt, hd, rows = x.dtype, heads * dim_head, g.shape[1]
+    ln1_s, w_qkv, w_out, ln2_s, w_fc1, w_fc2 = (params[i] for i in (0, 2, 3, 5, 7, 9))
+    dx1, gr = _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt)
+    dx1b = dx1.to(dt)
+    da = (dx1b.float() @ w_out.float()).to(dt)
+    kv, h1 = sv["kv"], sv["h1"]
+    dq, dk, dv = _attention_bwd(sv["q"], kv[..., :hd], kv[..., hd:], sv["attn"], da,
+                                sv["lse"], heads, dim_head, valid_len, dt)
+    dkv = torch.cat([dk, dv], -1)
+    dh1 = dkv.float() @ w_qkv[hd:].float()
+    dh1[:, :rows] += dq.float() @ w_qkv[:hd].float()
+    dx_ln, d_ln1_s, d_ln1_b = _ln_bwd(dh1, x, sv["stats1"], ln1_s)
+    dx_ln[:, :rows] += dx1
+    d_wqkv = torch.cat([_tmm(dq, h1[:, :rows]), _tmm(dkv, h1)], 0)
+    return _grads_tuple(dx_ln.to(dt), d_ln1_s, d_ln1_b, d_wqkv,
+                        _tmm(dx1b, sv["attn"]), gr)
+
+
+def fused_block_bwd_reference(
+    x, g, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
+    w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
+    valid_len: int | None = None, ln_eps: float = 1e-5,
+):
+    """Plain PyTorch backward of ``fused_block`` at the kernel's rounding
+    points: the plain forward (keeping ``TRAIN_SAVED``), then explicit
+    gradients. -> (dx, and the 11 parameter gradients in parameter order,
+    float32, matrices in the torch (out, in) layout)."""
+    params = (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
+              w_fc1, b_fc1, w_fc2, b_fc2)
+    vl = x.shape[1] if valid_len is None else int(valid_len)
+    sv = {}
+    fused_block_reference(x, *params, heads=heads, dim_head=dim_head,
+                          valid_len=vl, ln_eps=ln_eps, saved=sv)
+    return _block_bwd_plain(x, g, params, sv, heads, dim_head, vl)
+
+
+def fused_block_cls_bwd_reference(
+    x, g, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
+    w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
+    valid_len: int | None = None, ln_eps: float = 1e-5,
+):
+    """Plain PyTorch backward of ``fused_block_cls``: g (B, rows, dim) on the
+    top rows -> dx (B, N, dim) and the 11 parameter gradients."""
+    params = (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
+              w_fc1, b_fc1, w_fc2, b_fc2)
+    vl = x.shape[1] if valid_len is None else int(valid_len)
+    sv = {}
+    fused_block_cls_reference(x, *params, heads=heads, dim_head=dim_head,
+                              valid_len=vl, ln_eps=ln_eps, saved=sv)
+    return _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, vl)
+
+
+def train_forward(x, *params, heads: int, dim_head: int,
+                  valid_len: int | None = None, ln_eps: float = 1e-5,
+                  cls: bool = False):
+    """The block forward (``fused_block``, or ``fused_block_cls`` with
+    ``cls``) keeping what its backward reads: -> (out, saved dict of
+    ``TRAIN_SAVED`` / ``TRAIN_SAVED_CLS``). CPU tensors run the plain
+    version; CUDA tensors the forward kernel chain with saves, counted as a
+    launch of ``fused_block`` / ``fused_block_cls``."""
+    vl = x.shape[1] if valid_len is None else int(valid_len)
+    if _dispatch(x) == "cpu":
+        sv = {}
+        ref = fused_block_cls_reference if cls else fused_block_reference
+        out = ref(x, *params, heads=heads, dim_head=dim_head, valid_len=vl,
+                  ln_eps=ln_eps, saved=sv)
+        return out, sv
+    _check_cuda_args(x, params, heads, dim_head, vl)
+    lib = _native.library()
+    B, N, dim = x.shape
+    hd, mlp, H = heads * dim_head, params[7].shape[0], heads
+    rows = min(_CLS_ROWS, N) if cls else N
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = {
+        "h1": ((B, N, dim), bf), "qkv": ((B, N, 3 * hd), bf),
+        "kv": ((B, N, 2 * hd), bf), "q": ((B, rows, hd), bf),
+        "attn": ((B, rows, hd), bf), "lse": ((B, H, rows), f32),
+        "x1": ((B, rows, dim), bf), "h2": ((B, rows, dim), bf),
+        "fpre": ((B, rows, mlp), f32), "f": ((B, rows, mlp), bf),
+        "stats1": ((B, N, 2), f32), "stats2": ((B, rows, 2), f32),
+    }
+    names = TRAIN_SAVED_CLS if cls else TRAIN_SAVED
+    sv = {k: torch.empty(shapes[k][0], dtype=shapes[k][1], device=x.device)
+          for k in names}
+    out = x.new_empty((B, rows, dim))
+    ptrs = [t.data_ptr() for t in (x, *params, out, *(sv[k] for k in names))]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if cls:
+        _native.check(lib.svt_fused_block_cls_train_fwd(
+            *ptrs, B, N, rows, dim, heads, dim_head, mlp, vl, ln_eps,
+            x.device.index, stream))
+        fused_block_cls.launches += 1
+    else:
+        _native.check(lib.svt_fused_block_train_fwd(
+            *ptrs, B, N, dim, heads, dim_head, mlp, vl, ln_eps,
+            x.device.index, stream))
+        fused_block.launches += 1
+    return out, sv
+
+
+def _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls):
+    _check_cuda_args(x, params, heads, dim_head, vl)
+    B, N, dim = x.shape
+    rows = min(_CLS_ROWS, N) if cls else N
+    if dim > _MAX_BWD_DIM:
+        raise NotImplementedError(
+            f"the backward kernels take dim <= {_MAX_BWD_DIM}, got {dim}")
+    if (g.dtype != torch.bfloat16 or tuple(g.shape) != (B, rows, dim)
+            or not g.is_contiguous() or g.device != x.device):
+        raise ValueError(f"g must be a contiguous bfloat16 {(B, rows, dim)} "
+                         f"tensor on {x.device}")
+    names = TRAIN_SAVED_CLS if cls else TRAIN_SAVED
+    if set(sv) != set(names) or any(
+            not sv[k].is_contiguous() or sv[k].device != x.device for k in names):
+        raise ValueError(f"saved must hold contiguous {names} on {x.device}")
+
+
+def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
+    vl = x.shape[1] if valid_len is None else int(valid_len)
+    if _dispatch(x) == "cpu":
+        plain = _block_cls_bwd_plain if cls else _block_bwd_plain
+        return plain(x, g, params, sv, heads, dim_head, vl)
+    _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls)
+    lib = _native.library()
+    B, N, dim = x.shape
+    hd, mlp = heads * dim_head, params[7].shape[0]
+    rows = min(_CLS_ROWS, N) if cls else N
+    M, Mr = B * N, B * rows
+    dev = x.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dx = torch.empty_like(x)
+    grads = [f32(*p.shape) for p in params]
+    ln1_s, _, w_qkv, w_out, _, ln2_s, _, w_fc1, _, w_fc2, _ = params
+    scratch = [x.new_empty((Mr, mlp)), f32(M, dim), f32(Mr, dim),
+               x.new_empty((Mr, dim)), x.new_empty((Mr, hd))]
+    if cls:
+        scratch += [x.new_empty((Mr, hd)), x.new_empty((M, 2 * hd))]
+    else:
+        scratch += [x.new_empty((M, 3 * hd))]
+    scratch += [f32(B, heads, rows),
+                f32(lib.svt_block_bwd_workspace(B, N, rows, dim, heads,
+                                                dim_head, mlp))]
+    names = TRAIN_SAVED_CLS if cls else TRAIN_SAVED
+    ptrs = [t.data_ptr() for t in (
+        x, g, ln1_s, w_qkv, w_out, ln2_s, w_fc1, w_fc2,
+        *(sv[k] for k in names), dx, *grads, *scratch)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if cls:
+        _native.check(lib.svt_fused_block_cls_bwd(
+            *ptrs, B, N, rows, dim, heads, dim_head, mlp, vl, dev.index, stream))
+        fused_block_cls_bwd.launches += 1
+    else:
+        _native.check(lib.svt_fused_block_bwd(
+            *ptrs, B, N, dim, heads, dim_head, mlp, vl, dev.index, stream))
+        fused_block_bwd.launches += 1
+    return (dx, *grads)
+
+
+def fused_block_bwd(x, g, *params, saved, heads: int, dim_head: int,
+                    valid_len: int | None = None):
+    """Backward of the training ``fused_block``: x and g = dL/dout (B, N,
+    dim), the 11 block parameters, ``saved`` from the training forward.
+    -> (dx, 11 float32 parameter gradients). CPU tensors run the plain
+    backward; CUDA tensors launch the kernel chain (bfloat16)."""
+    return _block_bwd(x, g, params, saved, heads, dim_head, valid_len, cls=False)
+
+
+fused_block_bwd.launches = 0
+
+
+def fused_block_cls_bwd(x, g, *params, saved, heads: int, dim_head: int,
+                        valid_len: int | None = None):
+    """Backward of the training ``fused_block_cls``: g (B, rows, dim) ->
+    (dx (B, N, dim), 11 float32 parameter gradients). Dispatch as
+    ``fused_block_bwd``."""
+    return _block_bwd(x, g, params, saved, heads, dim_head, valid_len, cls=True)
+
+
+fused_block_cls_bwd.launches = 0
+
+
+class _BlockTrain(torch.autograd.Function):
+    """Differentiable block over master parameters of any float dtype: the
+    matrices are cast to x.dtype (the compute dtype) inside, the vectors to
+    float32, and the gradients come back in the masters' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, heads, dim_head, valid_len, ln_eps, cls, *masters):
+        params = tuple(
+            (m.to(x.dtype) if m.dim() == 2 else m.float()).contiguous()
+            for m in masters)
+        vl = x.shape[1] if valid_len is None else int(valid_len)
+        out, sv = train_forward(x.contiguous(), *params, heads=heads,
+                                dim_head=dim_head, valid_len=vl, ln_eps=ln_eps,
+                                cls=cls)
+        ctx.state = (x.contiguous(), params, sv, heads, dim_head, vl, cls)
+        ctx.dtypes = [m.dtype for m in masters]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, params, sv, heads, dim_head, vl, cls = ctx.state
+        del ctx.state  # the kept activations go as soon as they are used
+        bwd = fused_block_cls_bwd if cls else fused_block_bwd
+        dx, *grads = bwd(x, g.to(x.dtype).contiguous(), *params, saved=sv,
+                         heads=heads, dim_head=dim_head, valid_len=vl)
+        return (dx, None, None, None, None, None,
+                *(d.to(t) for d, t in zip(grads, ctx.dtypes)))
+
+
+def fused_block_train(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
+                      ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int,
+                      dim_head: int, valid_len: int | None = None,
+                      ln_eps: float = 1e-5):
+    """Differentiable ``fused_block`` (the JAX package's
+    ``fused_block_train``): x (B, N, dim) in the compute dtype, parameters
+    as masters (e.g. float32 ``nn.Parameter``s, torch layout). The backward
+    is ``fused_block_bwd``."""
+    return _BlockTrain.apply(x, heads, dim_head, valid_len, ln_eps, False,
+                             ln1_scale, ln1_bias, w_qkv, w_out, b_out,
+                             ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2)
+
+
+def fused_block_cls_train(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out,
+                          ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
+                          heads: int, dim_head: int,
+                          valid_len: int | None = None, ln_eps: float = 1e-5):
+    """Differentiable ``fused_block_cls`` (the JAX package's
+    ``fused_block_cls_train``): x (B, N, dim) -> (B, min(8, N), dim); the
+    backward is ``fused_block_cls_bwd``."""
+    return _BlockTrain.apply(x, heads, dim_head, valid_len, ln_eps, True,
+                             ln1_scale, ln1_bias, w_qkv, w_out, b_out,
+                             ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2)

@@ -1,26 +1,56 @@
-"""Test-time evaluation workflow (counterpart of
-``surface_vision_transformers_tpu.train.runner.run_testing`` for regression
-configs): load a split and a checkpoint, serve it through ``predict``, report
-the MAE and write ``results.csv`` of (pred, target) rows in split order.
+"""Training and test-time workflows for regression configs (counterparts
+of ``surface_vision_transformers_tpu.train.runner.run_training`` and
+``run_testing``).
+
+``run_training``: load the splits, build the model (seeded init, or the
+``weights.ssl_mpp`` npz / .pth under ``training.load_weights_ssl``), train
+epoch by epoch with ``train.trainer.Trainer``, validate every
+``training.val_epoch`` epochs and at the last, and keep the best: on each
+improvement ``best_params.npz`` (the weights evaluation used, in the JAX
+package's params-npz format) and ``preds.csv`` are written at once, so a run
+that dies keeps its best. At the end ``final_params.npz``,
+``hparams_results.yml`` (the config plus results and ``phases_s``) and,
+under ``training.testing``, ``test_preds.csv`` from the best weights.
+Not ported (they raise): resume and full-state checkpoints
+(``training.ckpt_every``), ImageNet initialisation, streaming input,
+meshes, augmentation, MPP.
+
+``run_testing``: load a split and a checkpoint, serve it through
+``predict``, report the MAE and write ``results.csv`` of (pred, target) rows
+in split order.
 """
 
 from __future__ import annotations
 
+import copy
 import csv
+import math
+import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from surface_vision_transformers_tpu_torch.checkpoints.convert import (
+    jax_params_from_state_dict,
     load_params_npz,
     load_torch_state_dict,
+    save_params_npz,
     state_dict_from_jax,
 )
 from surface_vision_transformers_tpu_torch.data import npy as npy_io
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table
-from surface_vision_transformers_tpu_torch.models.fused import predict
+from surface_vision_transformers_tpu_torch.models.fused import _device, predict
 from surface_vision_transformers_tpu_torch.models.sit import SiT
-from surface_vision_transformers_tpu_torch.utils.config import Experiment
+from surface_vision_transformers_tpu_torch.obs.logging import (
+    MetricLogger,
+    run_folder_name,
+)
+from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+from surface_vision_transformers_tpu_torch.utils.config import (
+    Experiment,
+    dump_config_with_results,
+)
 
 
 def load_state_dict_any(path: str, depth: int) -> dict:
@@ -83,3 +113,147 @@ def run_testing(exp: Experiment, *, device) -> dict:
     write_preds_csv(out_dir / "results.csv", preds, labels)
     return {"n": int(data.shape[0]), "split": split,
             "mae": float(np.mean(np.abs(preds - labels.reshape(-1))))}
+
+
+def load_datasets(exp: Experiment, splits=None) -> dict:
+    """{split: (data, labels)} from the configured data path: train and
+    validation, and test under ``training.testing``."""
+    if splits is None:
+        splits = ("train", "validation") + (("test",) if exp.training.testing else ())
+    path = exp.data.resolved_data_path()
+    return {s: npy_io.load_split(path, s) for s in splits}
+
+
+def _refuse_unported(exp: Experiment) -> None:
+    tp = exp.raw.get("tpu", {})
+    checks = [
+        (exp.is_pretraining, "MPP pretraining"),
+        (exp.augment, "augmentation"),
+        (exp.data.streaming == "on", "streaming input (data.streaming: on)"),
+        (exp.training.ckpt_every > 0, "rolling full-state checkpoints (training.ckpt_every)"),
+        (exp.training.load_weights_imagenet, "ImageNet initialisation"),
+        (any(int(tp.get(k, 1)) > 1 for k in ("mesh_fsdp", "mesh_model", "mesh_pipe"))
+         or bool(tp.get("seq_sharding", False)), "meshes (tpu.mesh_*, seq_sharding)"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _load_initial_weights(exp: Experiment, model: SiT) -> None:
+    """``training.load_weights_ssl``: the parameters that ``weights.ssl_mpp``
+    (a params npz or a reference .pth) shares with the model."""
+    if not exp.training.load_weights_ssl or exp.ssl_weights_path in ("", ".."):
+        return
+    state = load_state_dict_any(exp.ssl_weights_path, exp.model.depth)
+    own = model.state_dict()
+    shared = {k: v for k, v in state.items() if k in own}
+    if not shared:
+        raise ValueError(
+            f"SSL checkpoint {exp.ssl_weights_path!r} shares no parameter with "
+            "the model (wrong depth/format?)")
+    model.load_state_dict(shared, strict=False)
+
+
+def _save_npz(path: Path, model: SiT, depth: int) -> None:
+    save_params_npz(path, {"params": jax_params_from_state_dict(model.state_dict(), depth)})
+
+
+def run_training(exp: Experiment, *, device, datasets: dict | None = None,
+                 progress: bool = True) -> dict:
+    """Supervised regression training per ``exp`` on ``device`` (a CUDA
+    request without CUDA raises). Returns the results dict that also lands
+    in ``hparams_results.yml``."""
+    _refuse_unported(exp)
+    dev = _device(device)
+    t_start = time.time()
+    phases = {k: 0.0 for k in ("setup", "data_upload", "first_epoch", "train",
+                               "val", "ckpt", "test")}
+    datasets = datasets or load_datasets(exp)
+    for name, (d, lab) in datasets.items():
+        if d.shape[0] != np.shape(lab)[0]:
+            raise ValueError(f"{name}: {d.shape[0]} samples vs {np.shape(lab)[0]} labels")
+    train_data, train_labels = datasets["train"]
+    val_data, val_labels = datasets.get("validation", (None, None))
+
+    run_dir = Path(exp.logging_folder) / run_folder_name(exp)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    logger = MetricLogger(run_dir)
+    try:
+        table = None
+        if train_data.ndim == 3:
+            table = load_patch_table(exp.ico, exp.sub_ico).indices
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(exp.training.seed)
+            model = SiT.from_config(exp, patch_table=table)
+        _load_initial_weights(exp, model)
+        model.to(dev)
+        trainer = Trainer(exp, model)
+
+        t_up = time.time()
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+        d_train, l_train = put(train_data), put(train_labels)
+        d_val = l_val = None
+        if val_data is not None:
+            d_val, l_val = put(val_data), put(val_labels)
+        phases["data_upload"] = time.time() - t_up
+        phases["setup"] = time.time() - t_start - phases["data_upload"]
+
+        depth, epochs = exp.model.depth, exp.training.epochs
+        best, best_epoch, best_state = math.inf, -1, None
+        for epoch in range(epochs):
+            t_ep = time.time()
+            m = trainer.train_epoch(d_train, l_train)
+            phases["first_epoch" if epoch == 0 else "train"] += time.time() - t_ep
+            if not math.isfinite(m.loss):
+                raise FloatingPointError(
+                    f"non-finite training loss at epoch {epoch}: {m.loss} "
+                    "(check data/labels and LR)")
+            logger.log(epoch, m.as_dict(), prefix="train/")
+            if progress and (epoch % 5 == 0 or epoch == epochs - 1):
+                print(f"epoch {epoch}: train loss {m.loss:.5f} mae {m.mae:.5f}", flush=True)
+            if d_val is None or ((epoch + 1) % exp.training.val_epoch
+                                 and epoch != epochs - 1):
+                continue
+            t_val = time.time()
+            vm, preds = trainer.evaluate(d_val, l_val)
+            phases["val"] += time.time() - t_val
+            logger.log(epoch, vm.as_dict(), prefix="val/")
+            if progress:
+                print(f"epoch {epoch}: val mae {vm.mae:.5f}", flush=True)
+            if vm.mae < best:
+                best, best_epoch = vm.mae, epoch
+                t_ck = time.time()
+                best_state = copy.deepcopy(trainer.eval_model().state_dict())
+                if exp.training.save_ckpt:
+                    _save_npz(run_dir / "best_params.npz", trainer.eval_model(), depth)
+                write_preds_csv(run_dir / "preds.csv", preds, val_labels)
+                phases["ckpt"] += time.time() - t_ck
+
+        t_ck = time.time()
+        if exp.training.save_ckpt:
+            _save_npz(run_dir / "final_params.npz", model, depth)
+        phases["ckpt"] += time.time() - t_ck
+        results = {"best_mae": float(best), "best_epoch": int(best_epoch),
+                   "epochs": int(epochs), "run_dir": str(run_dir),
+                   "wall_s": round(time.time() - t_start, 2),
+                   "training_finished": True, "streaming": False}
+
+        if exp.training.testing and "test" in datasets:
+            t_test = time.time()
+            if best_state is not None:  # the best weights, as the reference tests
+                trainer.eval_model().load_state_dict(best_state)
+            test_data, test_labels = datasets["test"]
+            tm, preds = trainer.evaluate(put(test_data), put(test_labels))
+            write_preds_csv(run_dir / "test_preds.csv", preds, test_labels)
+            results["test_mae"] = float(tm.mae)
+            phases["test"] = time.time() - t_test
+
+        results["phases_s"] = {k: round(v, 2) for k, v in phases.items()}
+        dump_config_with_results(exp, results, run_dir / "hparams_results.yml")
+        return results
+    finally:
+        logger.close()

@@ -1,14 +1,19 @@
-"""Typed configuration for the serving path, over the JAX package's YAML
-schema (``surface_vision_transformers_tpu.utils.config``), so its config
-files load unmodified.
+"""Typed configuration for serving and supervised training, over the JAX
+package's YAML schema (``surface_vision_transformers_tpu.utils.config``), so
+its config files load unmodified.
 
-Only the keys serving reads are parsed: ``resolution``, ``transformer``
-(architecture), ``data`` (location and split), ``testing.path_to_ckpt``,
-``training.bs`` / ``bs_val``, ``pretraining_mpp`` / ``SSL`` (to refuse MPP
-configs) and, under ``tpu``, ``compute_dtype`` and ``quant``. ``tpu.scan_blocks`` is a TPU compile-time knob that leaves the
-outputs bitwise unchanged; eager PyTorch has nothing to compile, so it is
-not read. A ``.json`` file is read with the standard library; anything else
-with PyYAML, imported only when needed.
+Only the keys the port reads are parsed, with the JAX package's validation:
+``resolution``, ``transformer`` (architecture, dropout), ``data`` (location,
+split, streaming), ``training`` (batch sizes, epochs, validation cadence,
+loss, EMA, gradient accumulation, checkpoints, initialisation, seed),
+``optimisation`` / ``SGD`` / ``Adam`` / ``AdamW`` / ``StepLR`` /
+``CosineDecay`` (optimizer and schedule), ``logging.folder_to_save_model``,
+``weights``, ``testing.path_to_ckpt``, ``augmentation.enabled``,
+``pretraining_mpp`` / ``SSL`` (to refuse MPP configs) and, under ``tpu``,
+``compute_dtype`` and ``quant``. ``tpu.scan_blocks`` is a TPU compile-time
+knob that leaves the outputs bitwise unchanged; eager PyTorch has nothing to
+compile, so it is not read. A ``.json`` file is read with the standard
+library; anything else with PyYAML, imported only when needed.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ class ModelConfig:
     num_patches: int = 320
     num_vertices: int = 153
     model: str = "SiT"
+    dropout: float = 0.0
+    emb_dropout: float = 0.0
 
     def __post_init__(self):
         if self.pool not in ("cls", "mean"):
@@ -43,13 +50,66 @@ class ModelConfig:
         if self.model not in ("SiT", "MS-SiT"):
             raise ValueError(f"unknown model {self.model!r}")
 
+    @property
+    def size_name(self) -> str:
+        return {192: "tiny", 384: "small", 768: "base"}.get(self.dim, f"d{self.dim}")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer and schedule (``optimisation:`` and the optimizer's block)."""
+
+    name: str = "SGD"
+    lr: float = 1e-5
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    nesterov: bool = False
+    schedule: str = "constant"  # 'constant' | 'step' | 'cosine' | 'warmup_cosine'
+    step_size: int = 1000
+    step_decay: float = 0.5
+    cosine_t_max: int = 5000
+    cosine_eta_min: float = 1e-4
+    warmup_steps: int = 0
+    grad_clip: float = 0.0  # global-norm clip before the update; 0 = off
+
+    def __post_init__(self):
+        if self.name not in ("SGD", "Adam", "AdamW"):
+            raise ValueError(f"unknown optimiser {self.name!r}")
+        if self.grad_clip < 0:
+            raise ValueError("optimisation.grad_clip must be >= 0")
+        if self.schedule not in ("constant", "step", "cosine", "warmup_cosine"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainingConfig:
-    """The batch sizes serving reads (``training:`` block)."""
+    """Run hyperparameters (``training:`` block)."""
 
     bs: int = 256
     bs_val: int = 0  # 0 -> bs
+    grad_accum: int = 1  # microbatches per step, weight-sum scaled
+    ema: float = 0.0  # EMA decay of the weights for evaluation; 0 = off
+    ckpt_every: int = 0  # rolling full-state checkpoints: not ported
+    epochs: int = 100
+    val_epoch: int = 10
+    l1loss: bool = False
+    testing: bool = False
+    save_ckpt: bool = True
+    finetuning: bool = True
+    load_weights_ssl: bool = False
+    load_weights_imagenet: bool = False
+    dataset_ssl: str = "dhcp"
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.grad_accum < 1:
+            raise ValueError("training.grad_accum must be >= 1")
+        if not 0.0 <= self.ema < 1.0:
+            raise ValueError("training.ema must be in [0, 1)")
+        if self.bs % self.grad_accum:
+            raise ValueError(
+                f"training.bs ({self.bs}) must be divisible by "
+                f"training.grad_accum ({self.grad_accum})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +121,12 @@ class DataConfig:
     task: str = "scan_age"
     configuration: str = "template"
     split: str = "train"
+    streaming: str = "auto"  # the port loads splits whole; 'on' is refused
+
+    def __post_init__(self):
+        if self.streaming not in ("auto", "on", "off"):
+            raise ValueError(
+                f"data.streaming must be 'auto'|'on'|'off', got {self.streaming!r}")
 
     def resolved_data_path(self) -> str:
         if "{}" in self.data_path:
@@ -70,17 +136,23 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Experiment:
-    """Resolved serving configuration."""
+    """Resolved configuration."""
 
     model: ModelConfig
     training: TrainingConfig
     data: DataConfig
+    optim: OptimConfig = OptimConfig()
     compute_dtype: str = "bfloat16"
     quant: str = "none"
     is_pretraining: bool = False  # an MPP (``pretraining_mpp``) config
+    augment: bool = False  # ``augmentation.enabled``
     ico: int = 6
     sub_ico: int = 2
     ckpt_path: str = ""
+    logging_folder: str = "logs/SiT"
+    ssl_weights_path: str = ""
+    imagenet_weights: str = ""
+    raw: dict = dataclasses.field(default_factory=dict, hash=False, compare=False)
 
 
 def _get(d: dict, path: str, default):
@@ -123,16 +195,53 @@ def from_dict(raw: dict) -> Experiment:
         num_patches=num_patches,
         num_vertices=num_vertices,
         model=t.get("model", "SiT"),
+        dropout=float(t.get("dropout", 0.0)),
+        emb_dropout=float(t.get("emb_dropout", 0.0)),
+    )
+    opt_name = _get(raw, "optimisation.optimiser", "SGD")
+    opt_block = raw.get(opt_name, {})
+    optim = OptimConfig(
+        name=opt_name,
+        lr=float(_get(raw, "training.LR", 1e-5)),
+        weight_decay=float(opt_block.get("weight_decay", 0.0)),
+        momentum=float(opt_block.get("momentum", 0.9)),
+        nesterov=bool(opt_block.get("nesterov", False)),
+        schedule=_get(raw, "optimisation.schedule", "constant"),
+        step_size=int(_get(raw, "StepLR.stepsize", 1000)),
+        step_decay=float(_get(raw, "StepLR.decay", 0.5)),
+        cosine_t_max=int(_get(raw, "CosineDecay.T_max", 5000)),
+        cosine_eta_min=float(_get(raw, "CosineDecay.eta_min", 1e-4)),
+        warmup_steps=int(_get(raw, "optimisation.warmup_steps", 0)),
+        grad_clip=float(_get(raw, "optimisation.grad_clip", 0.0)),
     )
     tr = raw.get("training", {})
-    training = TrainingConfig(bs=int(tr.get("bs", 256)),
-                              bs_val=int(tr.get("bs_val", 0)))
+    training = TrainingConfig(
+        bs=int(tr.get("bs", 256)),
+        bs_val=int(tr.get("bs_val", 0)),
+        grad_accum=int(tr.get("grad_accum", 1)),
+        ema=float(tr.get("ema", 0.0)),
+        ckpt_every=int(tr.get("ckpt_every", 0)),
+        epochs=int(tr.get("epochs", 100)),
+        val_epoch=int(tr.get("val_epoch", 10)),
+        l1loss=bool(tr.get("l1loss", False)),
+        testing=bool(tr.get("testing", False)),
+        save_ckpt=bool(tr.get("save_ckpt", True)),
+        finetuning=bool(tr.get("finetuning", True)),
+        load_weights_ssl=bool(tr.get("load_weights_ssl", False)),
+        load_weights_imagenet=bool(tr.get("load_weights_imagenet", False)),
+        dataset_ssl=tr.get("dataset_ssl", "dhcp"),
+        seed=int(tr.get("seed", 0)),
+    )
     d = raw.get("data", {})
+    streaming = d.get("streaming", "auto")
+    if isinstance(streaming, bool):  # YAML `streaming: true`
+        streaming = "on" if streaming else "off"
     data = DataConfig(
         data_path=d.get("data_path", ""),
         task=d.get("task", "scan_age"),
         configuration=d.get("configuration", "template"),
         split=d.get("split", "train"),
+        streaming=str(streaming),
     )
     tp = raw.get("tpu", {})
     quant = str(tp.get("quant", "none"))
@@ -142,12 +251,18 @@ def from_dict(raw: dict) -> Experiment:
         model=model,
         training=training,
         data=data,
+        optim=optim,
         compute_dtype=str(tp.get("compute_dtype", "bfloat16")),
         quant=quant,
         is_pretraining="pretraining_mpp" in raw or raw.get("SSL") == "mpp",
+        augment=bool(_get(raw, "augmentation.enabled", False)),
         ico=ico,
         sub_ico=sub_ico,
         ckpt_path=str(_get(raw, "testing.path_to_ckpt", "")),
+        logging_folder=str(_get(raw, "logging.folder_to_save_model", "logs/SiT")),
+        ssl_weights_path=str(_get(raw, "weights.ssl_mpp", "")),
+        imagenet_weights=str(_get(raw, "weights.imagenet", "")),
+        raw=raw,
     )
 
 
@@ -163,3 +278,16 @@ def read_config_file(path: str | os.PathLike) -> dict:
 
 def load_config(path: str | os.PathLike) -> Experiment:
     return from_dict(read_config_file(path))
+
+
+def dump_config_with_results(exp: Experiment, results: dict,
+                             path: str | os.PathLike) -> None:
+    """The run's config with a ``results`` block, as YAML (the JAX
+    package's ``hparams_results.yml``)."""
+    import yaml
+
+    out = dict(exp.raw)
+    out["results"] = results
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(out, f, sort_keys=False)
