@@ -5,9 +5,10 @@
 
 Drives the port's serving and training paths
 (surface_vision_transformers_tpu_torch) at the full width of SiT-tiny
-(ico-6 sub-ico-2, dim 192, depth 12, 3 heads, mlp 768) with random weights
-made from a numpy seed. Phases, one line each; any failure raises, so the
-script exits non-zero and prints no result:
+(ico-6 sub-ico-2, dim 192, depth 12, 3 heads, mlp 768) and of SiT-base
+(ico-6 sub-ico-3, below) with random weights made from a numpy seed.
+Phases, one line each; any failure raises, so the script exits non-zero
+and prints no result:
 
 1. device  -- a CUDA device is required; prints the card and power limit.
 2. build   -- compiles the kernels in csrc/ (nvcc, sm_90a) and loads them.
@@ -46,8 +47,39 @@ script exits non-zero and prints no result:
               and ``cli.test`` on best_params.npz reports the best epoch's
               val MAE.
 
-Then a JSON line of per-kernel results, and last
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Phases 9-13 run SiT-base on the sub-ico-3 grid
+(``configs/training/sit_base_subico3.yml``: dim 768, depth 12, 12 heads,
+mlp 3072, 1280 patches x 45 vertices, N = 1281 unpadded, the generated
+table) at full depth and width:
+
+9. flash-kernels -- ``flash_attention`` forward and backward against the
+              float32 and bf16 plain versions at B=16, 12 heads: N=1281,
+              N=1288 with valid_len 1281, and 8 queries against 1281 keys;
+              then at the training path's B=128, N=1281 with q/k/v read
+              through the packed qkv's strides; controls (softmax scale
+              x1.1, key mask ignored, the last K/V tile skipped); CUDA-event
+              times at B=128 beside the plain version and SDPA.
+10. base-kernels -- fused_block, fused_block_cls, fused_block_cls_bwd and the
+              recompute route's 12 gradients at SiT-base width, N=1281 and
+              the config's bs 128, against the float32 and bf16 plain
+              versions (run 16 samples at a time), with phase 3's and 6's
+              controls; times at B=32 beside the eager bf16 block.
+11. base-slice -- ``predict`` (80 surfaces, batch 64) against the eager bf16
+              model with controls; surfaces/s at B=64 and B=128.
+12. base-train -- four SGD steps of ``Trainer`` at B=8 against the eager bf16
+              SiT under autograd (losses, every parameter's update, a
+              control), launches per step by the route rule (11 recompute
+              backwards, 11 + 11 flash_attention, 1 fused_block_cls_bwd);
+              then four steps at the config's bs 128 (surfaces/s, peak
+              memory), the same four steps with every block on the chain
+              route for comparison, and a torch.profiler breakdown of one
+              step.
+13. base-entry -- ``cli.train`` with the shipped config (2 epochs on a small
+              synthetic split, ``--set`` overrides), then ``cli.test`` on its
+              best_params.npz.
+
+Each phase prints its seconds. Then a JSON line of per-kernel results, and
+last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +106,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 SOURCE = "surface_vision_transformers_tpu_torch/csrc/fused_block.cu"
 BWD_SOURCE = "surface_vision_transformers_tpu_torch/csrc/fused_block_bwd.cu"
+FLASH_SOURCE = "surface_vision_transformers_tpu_torch/csrc/flash_attention.cu"
+FLASH_TPU = "surface_vision_transformers_tpu/ops/pallas/flash_attention.py"
 REPLACES = {
     "fused_block": "surface_vision_transformers_tpu/ops/pallas/fused_block.py:251",
     "fused_block_cls": "surface_vision_transformers_tpu/ops/pallas/fused_block.py:1381",
@@ -122,10 +156,43 @@ TRAIN_LR, TRAIN_STEPS, TRAIN_B = 1e-4, 10, 256
 # 1.0.
 TRAIN_LOSS_TOL = 1e-3  # relative, per step, kernel path vs eager bf16
 TRAIN_UPD_TOL = 0.05  # max |update difference| / max |eager update|, per tensor
+# Phases 9-13: SiT-base on the sub-ico-3 grid, the shipped config.
+BASE_CFG = ROOT / "configs/training/sit_base_subico3.yml"
+# flash_attention cases (B, H, Nq, Nk, valid_len): SiT-base's N, the JAX
+# package's padded N with its mask, the CLS block's 8 query rows, and last
+# the training path's own call (bs 128, q/k/v read through the packed qkv's
+# strides), on whose tensors the times are taken.
+FLASH_MAIN = (128, 12, 1281, 1281, 1281)
+FLASH_CASES = [(16, 12, 1281, 1281, 1281), (16, 12, 1288, 1288, 1281),
+               (16, 12, 8, 1281, 1281), FLASH_MAIN]
+# Gates set as phases 4 and 7 set theirs, from readings on an H100: the
+# prediction gap read 0.0082-0.0097 (std across surfaces 0.14-0.16), the
+# controls 0.079 and more; the largest per-step loss gap 1.9e-4 and the
+# worst per-tensor update gap 0.0108 of the largest eager update, the
+# control 6.8e-3 and 1.0.
+BASE_SLICE_TOL = 0.03  # |kernel path - eager bf16| in SiT-base predictions
+BASE_TRAIN_B, BASE_TRAIN_STEPS = 8, 4  # the eager comparison's batch and steps
+BASE_RATE_STEPS = 4  # steps of the kernel path alone at the config's bs 128
+BASE_LOSS_TOL = 1e-3  # relative, per step
+BASE_UPD_TOL = 0.05  # max |update difference| / max |eager update|, per tensor
+
+
+PHASE_STARTS: dict = {}  # phase name -> host time it started
+
+
+def start(name: str) -> None:
+    PHASE_STARTS[name] = time.perf_counter()
 
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def phase_seconds(t_end: float) -> str:
+    """Seconds from each phase's start to the next one's."""
+    names = list(PHASE_STARTS)
+    ends = [PHASE_STARTS[n] for n in names[1:]] + [t_end]
+    return ", ".join(f"{n} {e - PHASE_STARTS[n]:.1f}" for n, e in zip(names, ends))
 
 
 def bf16_step(x: float) -> float:
@@ -151,10 +218,13 @@ def cuda_ms(fn, reps: int = 25) -> float:
     return times[len(times) // 2]
 
 
-def jax_shaped_params(rng, num_vertices: int, num_channels: int = 4) -> dict:
+def jax_shaped_params(rng, num_vertices: int, num_channels: int = 4,
+                      width=(DIM, DEPTH, HEADS, MLP), n_tokens: int = N_TOKENS) -> dict:
     """A numpy tree shaped like the JAX SiT's params (flax (in, out)
-    kernels): torch-Linear-style uniform init, perturbed LayerNorms, and
-    the attention gains above."""
+    kernels) at ``width`` = (dim, depth, heads, mlp): torch-Linear-style
+    uniform init, perturbed LayerNorms, and the attention gains above."""
+    dim, depth, heads, mlp = width
+    hd = heads * DH
 
     def lin(fan_in, fan_out, bias=True, gain=1.0):
         b = 1.0 / np.sqrt(fan_in)
@@ -164,24 +234,24 @@ def jax_shaped_params(rng, num_vertices: int, num_channels: int = 4) -> dict:
         return d
 
     def ln():
-        return {"scale": (1 + 0.1 * rng.standard_normal(DIM)).astype(np.float32),
-                "bias": (0.1 * rng.standard_normal(DIM)).astype(np.float32)}
+        return {"scale": (1 + 0.1 * rng.standard_normal(dim)).astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(dim)).astype(np.float32)}
 
-    pe = lin(num_channels * num_vertices, DIM)
+    pe = lin(num_channels * num_vertices, dim)
     enc = {}
-    for i in range(DEPTH):
-        qkv = lin(DIM, 3 * HD, bias=False)
-        qkv["kernel"][:, :2 * HD] *= QK_GAIN
+    for i in range(depth):
+        qkv = lin(dim, 3 * hd, bias=False)
+        qkv["kernel"][:, :2 * hd] *= QK_GAIN
         enc[f"layers_{i}_attn"] = {"norm": ln(), "to_qkv": qkv,
-                                   "to_out": lin(HD, DIM, gain=OUT_GAIN)}
-        enc[f"layers_{i}_mlp"] = {"norm": ln(), "fc1": lin(DIM, MLP),
-                                  "fc2": lin(MLP, DIM)}
+                                   "to_out": lin(hd, dim, gain=OUT_GAIN)}
+        enc[f"layers_{i}_mlp"] = {"norm": ln(), "fc1": lin(dim, mlp),
+                                  "fc2": lin(mlp, dim)}
     return {
         "patch_embedding_kernel": pe["kernel"],
         "patch_embedding_bias": pe["bias"],
-        "pos_embedding": (POS_STD * rng.standard_normal((1, N_TOKENS, DIM))).astype(np.float32),
-        "cls_token": rng.standard_normal((1, 1, DIM)).astype(np.float32),
-        "encoder": enc, "head_norm": ln(), "head": lin(DIM, 1),
+        "pos_embedding": (POS_STD * rng.standard_normal((1, n_tokens, dim))).astype(np.float32),
+        "cls_token": rng.standard_normal((1, 1, dim)).astype(np.float32),
+        "encoder": enc, "head_norm": ln(), "head": lin(dim, 1),
     }
 
 
@@ -196,16 +266,17 @@ def flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def zero_keys_reference(fb, x, p, rows):
+def zero_keys_reference(fb, x, p, rows, heads=HEADS):
     """The block in float32 as it would come out if the attention kernel
-    left its zero-filled keys (N up to a multiple of 32) unmasked."""
-    N = x.shape[1]
+    left its zero-filled keys (N up to a multiple of its 64-key K/V tiles)
+    unmasked."""
+    N, hd = x.shape[1], heads * DH
     h = fb._layer_norm(x, p[0], p[1], 1e-5)
     qkv = fb._mm(h, p[2])
-    pad = -(-N // 32) * 32
-    kv = F.pad(qkv[..., HD:], (0, 0, 0, pad - N))
-    attn = fb._attention(qkv[:, :rows, :HD], kv[..., :HD], kv[..., HD:],
-                         HEADS, DH, pad, x.dtype)
+    pad = -(-N // 64) * 64
+    kv = F.pad(qkv[..., hd:], (0, 0, 0, pad - N))
+    attn = fb._attention(qkv[:, :rows, :hd], kv[..., :hd], kv[..., hd:],
+                         heads, DH, pad, x.dtype)
     return fb._out_proj_mlp(x[:, :rows], attn, *p[3:], 1e-5, x.dtype)
 
 
@@ -356,13 +427,57 @@ def ln_bwd_without_mean(fb):
     return ln_bwd
 
 
+def sliced(fn, *batched, chunk: int = 16):
+    """``fn`` on ``chunk`` samples of each batched argument at a time (the
+    plain versions hold float32 scores), the results joined: tensors
+    concatenated along the batch; of a backward's 12 outputs, dx
+    concatenated and the parameter gradients summed."""
+    outs = [fn(*(t[s:s + chunk] for t in batched))
+            for s in range(0, batched[0].shape[0], chunk)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return (torch.cat([o[0] for o in outs]),
+            *(sum(o[i] for o in outs) for i in range(1, len(outs[0]))))
+
+
+def bwd_control(fb, x, g, pr, heads, vl, cls, got, vl_bwd, chunk=None, **patches):
+    """|got| against the float32 plain backward with ``patches`` applied to
+    the plain functions (and keys up to ``vl_bwd`` in the backward), as the
+    worst ratio to the gate (``grad_bound_ratio``); the plain backward runs
+    ``chunk`` samples at a time (default: the whole batch)."""
+    kw = dict(heads=heads, dim_head=DH)
+    fwd = fb.fused_block_cls_reference if cls else fb.fused_block_reference
+
+    def plain(xs, gs):
+        sv32 = {}
+        fwd(xs.float(), *pr, valid_len=vl, saved=sv32, **kw)
+        bwd = fb._block_cls_bwd_plain if cls else fb._block_bwd_plain
+        return bwd(xs.float(), gs.float(), pr, sv32, heads, DH, vl_bwd)
+
+    with contextlib.ExitStack() as stack:
+        for k, v in patches.items():
+            stack.enter_context(mock.patch.object(fb, k, v))
+        return grad_bound_ratio(got, sliced(plain, x, g, chunk=chunk or x.shape[0]), vl)[0]
+
+
+def bwd_controls(fb, control) -> dict:
+    """The backward gate's controls: a wrong softmax scale, a LayerNorm
+    backward without its mean term."""
+    attn_bwd = fb._attention_bwd
+    return {
+        "softmax scale x1.1 in the backward": control(
+            _attention_bwd=lambda q, *a: attn_bwd(q * 1.1, *a)),
+        "LayerNorm backward without its mean term": control(
+            _ln_bwd=ln_bwd_without_mean(fb)),
+    }
+
+
 def phase_train_kernels(rng, fb, sit_module) -> dict:
     """Phase 6: each backward kernel at B=256 against the float32 and the
     bf16 plain backward on the same bf16 inputs, at SiT-tiny and SiT-small
     width; times at SiT-tiny beside the eager bf16 block's autograd
     backward."""
     results = {}
-    attn_bwd = fb._attention_bwd
     for width, (dim, heads, mlp) in WIDTHS.items():
         p32 = [t.cuda() for t in block_params(rng, dim, heads, mlp)]
         pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p32]
@@ -390,23 +505,10 @@ def phase_train_kernels(rng, fb, sit_module) -> dict:
                 rplain, _ = grad_bound_ratio(ref_bf, ref32, vl)
 
                 def control(vl_bwd=vl, **patches):
-                    with contextlib.ExitStack() as stack:
-                        for k, v in patches.items():
-                            stack.enter_context(mock.patch.object(fb, k, v))
-                        sv32 = {}
-                        fwd = fb.fused_block_cls_reference if cls else fb.fused_block_reference
-                        fwd(x.float(), *pr, valid_len=vl, saved=sv32, **kw)
-                        bwd = fb._block_cls_bwd_plain if cls else fb._block_bwd_plain
-                        return grad_bound_ratio(got, bwd(x.float(), g.float(), pr, sv32,
-                                                         heads, DH, vl_bwd), vl)[0]
+                    return bwd_control(fb, x, g, pr, heads, vl, cls, got, vl_bwd, **patches)
 
                 if N == N_TOKENS:
-                    controls = {
-                        "softmax scale x1.1 in the backward": control(
-                            _attention_bwd=lambda q, *a: attn_bwd(q * 1.1, *a)),
-                        "LayerNorm backward without its mean term": control(
-                            _ln_bwd=ln_bwd_without_mean(fb)),
-                    }
+                    controls = bwd_controls(fb, control)
                 else:
                     controls = {"keys 321..327 unmasked in the backward": control(vl_bwd=N)}
                 phase("train-kernels", f"{name} {width} B={B} N={N} valid_len={vl}: "
@@ -465,6 +567,30 @@ def eager_backward_ms(sit_module, p32, x, g, heads, dim, mlp, cls) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, [xr, *params], g, retain_graph=True))
 
 
+def run_steps(step_fn, model, start, batches, steps):
+    """``steps`` calls of step_fn on alternating batches -> (losses, mean
+    step time in s over steps 2..steps on the host clock, one synchronize at
+    each end of that window; CUDA-event time in ms of each of those steps;
+    parameter updates from ``start``)."""
+    losses, events = [], []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i >= 1:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        xb, yb = batches[i % len(batches)]
+        losses.append(step_fn(xb, yb))
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (steps - 1)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    update = {k: (p.detach() - start[k]).float() for k, p in model.named_parameters()}
+    return [float(v) for v in losses], step_s, step_ms, update
+
+
 def phase_train(table) -> dict:
     """Phase 7: ten optimizer steps of the port's trainer (kernels forward
     and backward) against the eager bf16 SiT under autograd, from the same
@@ -491,26 +617,7 @@ def phase_train(table) -> dict:
     start = init.state_dict()
 
     def run(step_fn, model):
-        """-> (losses, mean step time in s over steps 2..TRAIN_STEPS on the
-        host clock, one synchronize at each end of that window; CUDA-event
-        time in ms of each of those steps; parameter updates)."""
-        losses, events = [], []
-        for i in range(TRAIN_STEPS):
-            if i == 1:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            if i >= 1:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
-            xb, yb = batches[i % 2]
-            losses.append(step_fn(xb, yb))
-        events.append(torch.cuda.Event(enable_timing=True))
-        events[-1].record()
-        torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 1)
-        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        update = {k: (p.detach() - start[k]).float() for k, p in model.named_parameters()}
-        return [float(v) for v in losses], step_s, step_ms, update
+        return run_steps(step_fn, model, start, batches, TRAIN_STEPS)
 
     def kernel_path(hook_block=None):
         model = copy.deepcopy(init)
@@ -532,9 +639,7 @@ def phase_train(table) -> dict:
             return loss.detach()
         return run(step, model)
 
-    counters = {"fused_block": fb.fused_block, "fused_block_cls": fb.fused_block_cls,
-                "fused_block_bwd": fb.fused_block_bwd,
-                "fused_block_cls_bwd": fb.fused_block_cls_bwd}
+    counters = kernel_counters(fb)
     for c in counters.values():
         c.launches = 0
     k_loss, k_s, k_ms, k_upd = kernel_path()
@@ -548,7 +653,8 @@ def phase_train(table) -> dict:
 
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_loss, e_loss))
     want = {"fused_block": 11 * TRAIN_STEPS, "fused_block_cls": TRAIN_STEPS,
-            "fused_block_bwd": 11 * TRAIN_STEPS, "fused_block_cls_bwd": TRAIN_STEPS}
+            "fused_block_bwd": 11 * TRAIN_STEPS, "fused_block_cls_bwd": TRAIN_STEPS,
+            "fused_block_recompute_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0}
     phase("train", f"{TRAIN_STEPS} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={TRAIN_B}: "
           f"launches {launches}, expected {want}")
     phase("train", "losses kernel path " + " ".join(f"{v:.6g}" for v in k_loss))
@@ -626,8 +732,544 @@ def phase_train_entry() -> None:
             raise AssertionError("cli.test disagrees with the best epoch's val MAE")
 
 
+def ptxas_report(log_path: Path) -> str:
+    """Registers per kernel and any spills, from the build's ``-Xptxas=-v``
+    report."""
+    regs, spills, name = {}, [], None
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "ln_bwd",
+                                     "gemm_bwd", "gemm_kernel", "layer_norm", "reduce")
+                         if k in mangled), mangled[:40])
+        elif name and "registers" in line:
+            regs[name] = max(regs.get(name, 0), int(line.split("Used ")[1].split()[0]))
+        elif name and "spill" in line and " 0 bytes spill stores" not in line:
+            spills.append(f"{name}: {line.strip()}")
+    return (", ".join(f"{k} {v} registers" for k, v in sorted(regs.items()))
+            + "; spills: " + ("; ".join(spills) or "none"))
+
+
+def kernel_counters(fb) -> dict:
+    """Every kernel wrapper's launch counter (and the recompute route's), by
+    kernel name."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    return {"fused_block": fb.fused_block, "fused_block_cls": fb.fused_block_cls,
+            "fused_block_bwd": fb.fused_block_bwd,
+            "fused_block_cls_bwd": fb.fused_block_cls_bwd,
+            "fused_block_recompute_bwd": fb.fused_block_recompute_bwd,
+            "flash_attention": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def zero_counts(fb) -> dict:
+    counters = kernel_counters(fb)
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def read_counts(counters) -> dict:
+    return {k: c.launches for k, c in counters.items()}
+
+
+def phase_flash(rng) -> dict:
+    """Phase 9: flash_attention forward and backward against the float32
+    and bf16 plain versions on the same bf16 inputs, with controls; then
+    CUDA-event times at the training path's shape beside the plain version
+    and SDPA."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    def t(shape, sc=1.0):
+        return torch.from_numpy((sc * rng.standard_normal(shape)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+
+    def outputs(q, k, v, do, vl, dtype=None):
+        """(o, dq, dk, dv) of the plain versions, in ``dtype`` (float32: the
+        exact reference; None: the inputs' bf16), 16 samples at a time (the
+        plain versions hold float32 scores)."""
+        parts = []
+        for s in range(0, q.shape[0], 16):
+            a = [x[s:s + 16].to(dtype) if dtype else x[s:s + 16] for x in (q, k, v, do)]
+            o, lse = fa.flash_attention_reference(*a[:3], vl)
+            parts.append([o, *fa.flash_attention_bwd_reference(*a[:3], o, lse, a[3], vl)])
+        return [torch.cat(p) for p in zip(*parts)]
+
+    def ratio(got, want, ref32):
+        """Largest |got - want| over BOUND_STEPS bf16 steps at the largest
+        |ref32| of each output."""
+        return max((a.float() - b.float()).abs().max().item()
+                   / (BOUND_STEPS * bf16_step(r.abs().max().item()))
+                   for a, b, r in zip(got, want, ref32))
+
+    def packed(B, H, N):
+        """q, k, v and do as the recompute route hands them to the kernel:
+        (B, H, N, dh) views of the packed (B, N, 3*H*dh) qkv and of the
+        (B, N, H*dh) attention-output cotangent."""
+        qkv = torch.cat([t((B, N, 2, H, DH), 1.5), t((B, N, 1, H, DH))], 2)
+        return (*(x.transpose(1, 2) for x in qkv.unbind(2)),
+                t((B, N, H, DH)).transpose(1, 2))
+
+    for B, H, nq, nk, vl in FLASH_CASES:
+        if (B, H, nq, nk, vl) == FLASH_MAIN:
+            q, k, v, do = packed(B, H, nq)
+        else:
+            q, k, v = t((B, H, nq, DH), 1.5), t((B, H, nk, DH), 1.5), t((B, H, nk, DH))
+            do = t((B, H, nq, DH))
+        o, lse = fa.flash_attention_fwd(q, k, v, vl)
+        got = [o, *fa.flash_attention_bwd(q, k, v, o, lse, do, vl)]
+        ref32 = outputs(q, k, v, do, vl, torch.float32)
+        ref_bf = outputs(q, k, v, do, vl)
+        r32, rbf, rplain = ratio(got, ref32, ref32), ratio(got, ref_bf, ref32), ratio(
+            ref_bf, ref32, ref32)
+        del ref_bf
+        errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref32)]
+        last = (min(vl, nk) - 1) // 64 * 64  # the last 64-key K/V tile dropped
+        controls = {"last K/V tile skipped": ratio(
+            got, outputs(q, k, v, do, last, torch.float32), ref32)}
+        if nk > vl:
+            controls[f"key mask ignored (keys {vl}..{nk - 1})"] = ratio(
+                got, outputs(q, k, v, do, nk, torch.float32), ref32)
+        else:
+            controls["softmax scale x1.1"] = ratio(
+                got, outputs(q.float() * 1.1, k, v, do, vl, torch.float32), ref32)
+        main = (B, H, nq, nk, vl) == FLASH_MAIN
+        phase("flash-kernels", f"B={B} H={H} Nq={nq} Nk={nk} valid_len={vl}"
+              f"{' (packed q/k/v strides, the training path)' if main else ''}: worst "
+              f"|err|/bound over o, dq, dk, dv vs fp32 plain {r32:.4g} (plain bf16 "
+              f"{rplain:.4g}), vs plain bf16 {rbf:.4g}, bound {BOUND_STEPS} bf16 steps at "
+              f"each output's largest value; max abs err o {errs[0]:.6g}, dq/dk/dv "
+              f"{max(errs[1:]):.6g}; controls (must exceed 1): "
+              + ", ".join(f"{k_} {v_:.4g}" for k_, v_ in controls.items()))
+        if not all(bool(torch.isfinite(x).all()) for x in got) or max(r32, rbf) > 1:
+            raise AssertionError("flash_attention disagrees with its plain version")
+        if min(controls.values()) <= 1:
+            raise AssertionError("flash_attention: a control passed the gate")
+        if main:
+            abs_err = {"fwd": errs[0], "bwd": max(errs[1:])}
+        del got, ref32
+        torch.cuda.empty_cache()
+
+    # times at the training path's shape, on the main case's tensors
+    B, H, N = FLASH_MAIN[:3]
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    chunks = range(0, B, 16)  # the plain versions in slices that fit memory
+    ms = {"fwd": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+          "bwd": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))}
+    plain = {"fwd": cuda_ms(lambda: [fa.flash_attention_reference(
+                 q[s:s + 16], k[s:s + 16], v[s:s + 16]) for s in chunks], reps=3),
+             "bwd": cuda_ms(lambda: [fa.flash_attention_bwd_reference(
+                 q[s:s + 16], k[s:s + 16], v[s:s + 16], o[s:s + 16], lse[s:s + 16],
+                 do[s:s + 16]) for s in chunks], reps=3)}
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+    library = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+               "bwd": cuda_ms(lambda: torch.autograd.grad(
+                   sdpa_out, (qr, kr, vr), do, retain_graph=True))}
+    flops = 4 * B * H * N * N * DH
+    io = nbytes_of(q, k, v, o, lse)
+    bounds = {"fwd": bound_ms(flops, io),
+              "bwd": bound_ms(2.5 * flops, io + nbytes_of(do, q, k, v))}
+    results = {}
+    for key, name, line in (("fwd", "flash_attention", 265), ("bwd", "flash_attention_bwd", 233)):
+        b_ms, b_by = bounds[key]
+        phase("flash-kernels", f"{name} B={B} H={H} N={N}: kernel {ms[key]:.4f} ms, plain "
+              f"{plain[key]:.4f} ms (8 slices of 16), SDPA {library[key]:.4f} ms (median of "
+              f"25, CUDA events; plain of 3); bound {b_ms:.4f} ms by {b_by}")
+        results[name] = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                         "replaces": f"{FLASH_TPU}:{line}", "max_abs_err": abs_err[key],
+                         "ms": ms[key], "plain_ms": plain[key], "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": library[key]}
+    return results
+
+
+def phase_base_kernels(rng, fb, sit_module, m, bs) -> None:
+    """Phase 10: at SiT-base width, N = 1281 and the config's batch ``bs``
+    (the shapes the training path gives them), fused_block and
+    fused_block_cls (streamed attention), fused_block_cls_bwd (LayerNorm
+    backward at dim 768, streamed dQ pass) and the recompute route's 12
+    gradients, each against the float32 and the bf16 plain version on the
+    same bf16 inputs (run 16 samples at a time), with phase 3's and phase
+    6's controls; times at B=32 beside the eager bf16 block."""
+    dim, heads, mlp, hd = m.dim, m.heads, m.mlp_dim, m.heads * m.dim_head
+    N = m.num_patches + 1
+    p32 = [x.cuda() for x in block_params(rng, dim, heads, mlp)]
+    pb = [(x.bfloat16() if x.dim() == 2 else x).contiguous() for x in p32]
+    pr = [x.float() for x in pb]
+    q_scaled = list(pr)
+    q_scaled[2] = pr[2].clone()
+    q_scaled[2][:hd] *= 1.1
+    kw = dict(heads=heads, dim_head=DH)
+    B = bs
+    x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    for name, kernel, plain in (("fused_block", fb.fused_block, fb.fused_block_reference),
+                                ("fused_block_cls", fb.fused_block_cls,
+                                 fb.fused_block_cls_reference)):
+        got = kernel(x, *pb, **kw).float()
+
+        def dist(fn):
+            return (got - sliced(fn, x)).abs().max().item()
+
+        ref32 = sliced(lambda xs: plain(xs.float(), *pr, **kw), x)
+        err = (got - ref32).abs().max().item()
+        err_bf16 = dist(lambda xs: plain(xs, *pb, **kw).float())
+        bound = BOUND_STEPS * bf16_step(ref32.abs().max().item())
+        del ref32
+        controls = {
+            "softmax scale x1.1": dist(lambda xs: plain(xs.float(), *q_scaled, **kw)),
+            "zero-filled keys to 1344 unmasked": dist(lambda xs: zero_keys_reference(
+                fb, xs.float(), pr, got.shape[1], heads))}
+        phase("base-kernels", f"{name} SiT-base B={B} N={N}: max abs err vs fp32 plain "
+              f"{err:.6g}, vs plain bf16 {err_bf16:.6g}, bound {bound:.6g} ({BOUND_STEPS} "
+              "bf16 steps at the largest output); controls (must exceed the bound): "
+              + ", ".join(f"{k_} {v_:.6g}" for k_, v_ in controls.items()))
+        if not bool(torch.isfinite(got).all()) or max(err, err_bf16) > bound:
+            raise AssertionError(f"{name} disagrees with its plain version at SiT-base")
+        if min(controls.values()) <= bound:
+            raise AssertionError(f"{name}: a control passed the gate at SiT-base")
+    for name, cls in (("fused_block_cls_bwd", True), ("fused_block_recompute_bwd", False)):
+        rows = 8 if cls else N
+        g = torch.from_numpy((G_SCALE * rng.standard_normal((B, rows, dim))).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        if cls:
+            _, sv = fb.train_forward(x, *pb, cls=True, **kw)
+            got = fb.fused_block_cls_bwd(x, g, *pb, saved=sv, **kw)
+            del sv
+        else:  # float32 masters, as the trainer passes them
+            got = fb.fused_block_recompute_bwd(x, g, *p32, **kw)
+        plain = fb.fused_block_cls_bwd_reference if cls else fb.fused_block_bwd_reference
+        ref32 = sliced(lambda xs, gs: plain(xs.float(), gs.float(), *pr, **kw), x, g)
+        r32, err = grad_bound_ratio(got, ref32, N)
+        rbf, _ = grad_bound_ratio(got, sliced(lambda xs, gs: plain(xs, gs, *pb, **kw), x, g), N)
+        controls = bwd_controls(fb, lambda **patches: bwd_control(
+            fb, x, g, pr, heads, N, cls, got, N, chunk=16, **patches))
+        phase("base-kernels", f"{name} SiT-base B={B} N={N}: worst |err|/bound over the 12 "
+              f"gradients vs fp32 plain {r32:.4g}, vs plain bf16 {rbf:.4g}; max abs err "
+              f"{err:.6g}; controls (must exceed 1): "
+              + ", ".join(f"{k_} {v_:.4g}" for k_, v_ in controls.items()))
+        if not all(bool(torch.isfinite(a).all()) for a in got) or max(r32, rbf) > 1:
+            raise AssertionError(f"{name} disagrees with its plain backward at SiT-base")
+        if min(controls.values()) <= 1:
+            raise AssertionError(f"{name}: a control passed the gate at SiT-base")
+        del got, ref32
+        torch.cuda.empty_cache()
+
+    # times at B = 32 (the eager block's fp32 scores fit)
+    B = 32
+    x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    layer = sit_module.SiT(dim=dim, depth=1, heads=heads, mlp_dim=mlp, dim_head=DH,
+                           num_patches=N - 1, dtype=torch.bfloat16).cuda().transformer.layers[0]
+
+    def eager(xx):
+        attn, ff = layer
+        x1 = xx + attn(xx)
+        return x1 + ff(x1)
+
+    g = torch.from_numpy((G_SCALE * rng.standard_normal((B, N, dim))).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    g8 = g[:, :8].contiguous()
+    _, sv = fb.train_forward(x, *pb, cls=True, **kw)
+    with torch.inference_mode():
+        times = {"fused_block": cuda_ms(lambda: fb.fused_block(x, *pb, **kw), reps=10),
+                 "fused_block_cls": cuda_ms(lambda: fb.fused_block_cls(x, *pb, **kw), reps=10),
+                 "eager block forward": cuda_ms(lambda: eager(x), reps=10)}
+    times["fused_block_cls_bwd"] = cuda_ms(
+        lambda: fb.fused_block_cls_bwd(x, g8, *pb, saved=sv, **kw), reps=10)
+    times["fused_block_recompute_bwd"] = cuda_ms(
+        lambda: fb.fused_block_recompute_bwd(x, g, *p32, **kw), reps=10)
+    del sv
+    times["eager block autograd backward"] = eager_backward_ms(
+        sit_module, p32, x, g, heads, dim, mlp, False)
+    phase("base-kernels", f"SiT-base B={B} N={N}, CUDA-event medians of 10 (ms): "
+          + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in times.items()))
+    fwd_f, bwd_f = block_flops(B, N, N, dim, heads, mlp, False)
+    phase("base-kernels", f"bounds at B={B}: block forward {bound_ms(fwd_f, 0)[0]:.4f} ms, "
+          f"backward {bound_ms(bwd_f, 0)[0]:.4f} ms by operations")
+    del x, g, g8, layer
+    torch.cuda.empty_cache()
+
+
+def phase_base_slice(rng, fb, fused, exp, table, state) -> None:
+    """Phase 11: ``predict`` at SiT-base sub-ico-3, full depth and width,
+    against the eager bf16 model, with controls; surfaces/s at the config's
+    bs_val 64 and bs 128."""
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+
+    m = exp.model
+    model = SiT.from_config(exp, patch_table=table, dtype=torch.bfloat16)
+    model.load_state_dict(state, strict=True)
+    model = model.eval().cuda()
+    w = fused.prepare_weights(model)
+    data = rng.standard_normal((80, 4, 40962)).astype(np.float32)
+    counters = zero_counts(fb)
+    preds = fused.predict(model, data, device="cuda", batch_size=64)
+    launches = read_counts(counters)
+    want = {k: 0 for k in counters}
+    want.update(fused_block=(m.depth - 1) * 2, fused_block_cls=2)
+    phase("base-slice", f"predict(80 surfaces, batch 64): launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError("the SiT-base serving path did not launch as expected")
+    if preds.shape != (80, 1) or not np.isfinite(preds).all():
+        raise AssertionError(f"bad SiT-base predictions: shape {preds.shape}")
+    with torch.inference_mode():
+        x = torch.from_numpy(data).cuda()
+        plain = torch.cat([model(x[s:s + 64]) for s in (0, 64)]).float().cpu().numpy()
+        dropped = dataclasses.replace(w, blocks=w.blocks[:6] + w.blocks[7:])
+        controls = {"block 6 dropped": fused.fused_forward(model, x[:64], dropped)}
+        saved = fused.fused_block, fused.fused_block_cls
+        cut = int(0.9 * (m.num_patches + 1))
+        fused.fused_block = functools.partial(saved[0], valid_len=cut)
+        fused.fused_block_cls = functools.partial(saved[1], valid_len=cut)
+        try:
+            controls[f"keys >= {cut} masked"] = fused.fused_forward(model, x[:64], w)
+        finally:
+            fused.fused_block, fused.fused_block_cls = saved
+    controls = {k: float(np.abs(v.cpu().numpy() - plain[:64]).max()) for k, v in controls.items()}
+    err = float(np.abs(preds - plain).max())
+    phase("base-slice", f"predictions |kernel - eager bf16| max {err:.6g} (tol "
+          f"{BASE_SLICE_TOL}); std across surfaces {plain.std():.4g}; controls (must exceed "
+          "the tol): " + ", ".join(f"{k} {v:.6g}" for k, v in controls.items()))
+    if err > BASE_SLICE_TOL:
+        raise AssertionError("the SiT-base kernel path disagrees with the eager path")
+    if min(controls.values()) <= BASE_SLICE_TOL:
+        raise AssertionError("a SiT-base slice control passed the gate")
+    del x
+    with torch.inference_mode():
+        for B in (64, 128):
+            xb = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(np.float32)).to(
+                "cuda", torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            k_ms = cuda_ms(lambda: fused.fused_forward(model, xb, w), reps=5)
+            k_mem = torch.cuda.max_memory_allocated() / 2**30
+            p_ms = cuda_ms(lambda: model(xb), reps=3)
+            phase("base-slice", f"B={B} raw bf16 input on device: kernel path {k_ms:.3f} ms = "
+                  f"{B / k_ms * 1e3:.1f} surfaces/s (peak {k_mem:.2f} GiB allocated), eager "
+                  f"bf16 {p_ms:.3f} ms = {B / p_ms * 1e3:.1f} surfaces/s (median of 5 / 3)")
+            del xb
+    del model, w
+    torch.cuda.empty_cache()
+
+
+def phase_base_train(fb, exp, table) -> dict:
+    """Phase 12: a few SGD steps of ``Trainer`` at SiT-base sub-ico-3 (the
+    recompute route for blocks 0-10, the CLS chain for block 11) against
+    the eager bf16 SiT under autograd at B=8, with a control; then the
+    kernel path alone at the config's bs 128, and the same steps on the
+    chain route beside it. -> the launches of the bs-128 run."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.train.losses import weighted_mse
+    from surface_vision_transformers_tpu_torch.train.optim import Optimizer
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    m = exp.model
+    blocks = m.depth - 1
+    optim = config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        init = SiT.from_config(exp, patch_table=table, dtype=torch.bfloat16).cuda()
+    start = init.state_dict()
+
+    def batches_of(bs, n_batches, seed):
+        data, labels = make_regression_dataset(n_batches * bs, raw_vertices=40962, seed=seed)
+        data, labels = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+        return [(data[s:s + bs], labels[s:s + bs]) for s in range(0, n_batches * bs, bs)]
+
+    def kernel_path(bs, batches, steps, hook_block=None):
+        model = copy.deepcopy(init)
+        if hook_block is not None:
+            wt = model.transformer.layers[hook_block][1].fn.net[0].weight
+            wt.register_hook(torch.zeros_like)  # control: that block's dW_fc1 zeroed
+        trainer = Trainer(dataclasses.replace(
+            exp, training=config.TrainingConfig(bs=bs), optim=optim), model)
+        ones = torch.ones(bs, device="cuda")
+        return run_steps(lambda xb, yb: trainer.optimizer_step(xb, yb, ones)[0], model,
+                         start, batches, steps)
+
+    def eager_path(batches, steps):
+        model = copy.deepcopy(init)
+        opt = Optimizer(optim, model.parameters())
+
+        def step(xb, yb):
+            opt.zero_grad()
+            loss = weighted_mse(model(xb).reshape(-1), yb)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        return run_steps(step, model, start, batches, steps)
+
+    B, steps = BASE_TRAIN_B, BASE_TRAIN_STEPS
+    small = batches_of(B, 2, SEED + 2)
+    counters = zero_counts(fb)
+    k_loss, k_s, _, k_upd = kernel_path(B, small, steps)
+    launches = read_counts(counters)
+    e_loss, e_s, _, e_upd = eager_path(small, steps)
+    c_loss, _, _, c_upd = kernel_path(B, small, steps, hook_block=5)
+
+    def upd_ratio(upd):
+        return max(((upd[k] - e_upd[k]).abs().max() / e_upd[k].abs().max()).item()
+                   for k in e_upd)
+
+    per_step = {k: 0 for k in counters}
+    per_step.update(fused_block=blocks, fused_block_cls=1, fused_block_cls_bwd=1,
+                    fused_block_recompute_bwd=blocks, flash_attention=blocks,
+                    flash_attention_bwd=blocks)
+    want = {k: v * steps for k, v in per_step.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_loss, e_loss))
+    phase("base-train", f"{steps} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={B}: "
+          f"launches {launches}, expected {want}")
+    phase("base-train", "losses kernel path " + " ".join(f"{v:.6g}" for v in k_loss))
+    phase("base-train", "losses eager bf16  " + " ".join(f"{v:.6g}" for v in e_loss))
+    phase("base-train", f"max relative loss gap {loss_err:.4g} (tol {BASE_LOSS_TOL}); worst "
+          f"|update - eager update| / max |eager update| over the parameters "
+          f"{upd_ratio(k_upd):.4g} (tol {BASE_UPD_TOL}); control, block 5's dW_fc1 zeroed: "
+          f"{upd_ratio(c_upd):.4g} (must exceed the tol), loss gap "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(c_loss, e_loss)):.4g}; steps 2..{steps} "
+          f"at B={B}: kernel path {k_s * 1e3:.1f} ms a step, eager bf16 {e_s * 1e3:.1f} ms")
+    if launches != want:
+        raise AssertionError("the SiT-base training path did not launch as the route rule says")
+    if not all(math.isfinite(v) for v in k_loss) or k_loss[-1] >= k_loss[0]:
+        raise AssertionError("the SiT-base training loss did not fall")
+    if loss_err > BASE_LOSS_TOL or upd_ratio(k_upd) > BASE_UPD_TOL:
+        raise AssertionError("the SiT-base kernel training path disagrees with the eager path")
+    if upd_ratio(c_upd) <= BASE_UPD_TOL:
+        raise AssertionError("the SiT-base training control passed the gate")
+    del k_upd, e_upd, c_upd, small
+    torch.cuda.empty_cache()
+
+    # the kernel path alone at the config's batch size
+    bs = exp.training.bs
+    big = batches_of(bs, 2, SEED + 3)
+    counters = zero_counts(fb)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, step_ms, _ = kernel_path(bs, big, BASE_RATE_STEPS)
+    launches = read_counts(counters)
+    phase("base-train", f"B={bs}, {BASE_RATE_STEPS} steps: launches {launches}; losses "
+          + " ".join(f"{v:.6g}" for v in losses) + f"; steps 2..{BASE_RATE_STEPS} as one "
+          f"window (host clock, synchronized at both ends): {step_s * 1e3:.1f} ms a step = "
+          f"{bs / step_s:.2f} training surfaces/s; per-step CUDA-event times "
+          + " ".join(f"{v:.1f}" for v in step_ms) + f" ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    want = {k: v * BASE_RATE_STEPS for k, v in per_step.items()}
+    if launches != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError("the SiT-base training path at bs 128 did not run as expected")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # For comparison only, not the main path: the same steps with every
+    # block on the chain route (forward keeping its activations,
+    # fused_block_bwd), which the route rule gives SiT-base no block of.
+    counters = zero_counts(fb)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(fb, "uses_recompute", lambda n_tokens, dim: False):
+        c_losses, c_step_s, c_step_ms, _ = kernel_path(bs, big, BASE_RATE_STEPS)
+    c_launches = read_counts(counters)
+    phase("base-train", f"B={bs}, {BASE_RATE_STEPS} steps, every block on the chain route "
+          f"(comparison): launches {c_launches}; losses "
+          + " ".join(f"{v:.6g}" for v in c_losses) + f" (max relative gap to the recompute "
+          f"route {max(abs(a - b) / abs(b) for a, b in zip(c_losses, losses)):.4g}); steps "
+          f"2..{BASE_RATE_STEPS}: {c_step_s * 1e3:.1f} ms a step = {bs / c_step_s:.2f} "
+          "training surfaces/s; per-step CUDA-event times "
+          + " ".join(f"{v:.1f}" for v in c_step_ms) + f" ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; recompute route "
+          f"(above): {step_s * 1e3:.1f} ms a step, peak {peak:.2f} GiB")
+    if c_launches["fused_block_bwd"] != blocks * BASE_RATE_STEPS:
+        raise AssertionError("the chain-route comparison did not take the chain")
+    torch.cuda.empty_cache()
+    model = copy.deepcopy(init)
+    trainer = Trainer(dataclasses.replace(
+        exp, training=config.TrainingConfig(bs=bs), optim=optim), model)
+    ones = torch.ones(bs, device="cuda")
+    profile_step(lambda: trainer.optimizer_step(*big[0], ones), bs)
+    del big, model, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_step(step_fn, bs) -> None:
+    """torch.profiler over one call of ``step_fn`` (a training step at
+    ``bs``) after a warm-up call: device time by kernel, and their sum
+    against the step's CUDA-event time (the rest is the device's idle
+    share)."""
+    from torch.autograd import DeviceType
+
+    step_fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        a.record()
+        step_fn()
+        b.record()
+        torch.cuda.synchronize()
+    step_ms = a.elapsed_time(b)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    phase("base-train", f"torch.profiler, one step at B={bs}: {step_ms:.1f} ms (CUDA events, "
+          f"profiler on), kernels {busy:.1f} ms of device time (idle share "
+          f"{max(0.0, 1 - busy / step_ms):.3f}); top kernels (ms, share of device time):")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
+        ms_e = e.self_device_time_total / 1e3
+        phase("base-train", f"  {ms_e:9.2f} {ms_e / max(busy, 1e-9):6.1%} x{e.count:<4d} "
+              f"{e.key[:100]}")
+
+
+def phase_base_entry() -> None:
+    """Phase 13: cli.train with the shipped SiT-base config (2 epochs on a
+    small synthetic split, ``--set`` overrides), then cli.test on its
+    best_params.npz, in subprocesses."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data, labels = make_regression_dataset(80, raw_vertices=40962, seed=SEED + 4)
+        for split, sl in (("train", slice(0, 64)), ("validation", slice(64, 80))):
+            np.save(tmp / f"{split}_data.npy", data[sl])
+            np.save(tmp / f"{split}_labels.npy", labels[sl])
+        del data
+        # the recipe's LR 1e-5: at LR 1e-4 the 8 steps overshoot and the val
+        # MAE rose (4.80 -> 5.28) in a first reading on an H100
+        sets = [f"data.data_path={tmp}", "data.split=validation", "training.bs=16",
+                "training.bs_val=8", "training.epochs=2", "training.val_epoch=1",
+                f"logging.folder_to_save_model={tmp / 'runs'}"]
+
+        def cli(tool, *extra):
+            t0 = time.perf_counter()
+            args = [a for s_ in (*sets, *extra) for a in ("--set", s_)]
+            res = subprocess.run(
+                [sys.executable, "-m", f"surface_vision_transformers_tpu_torch.cli.{tool}",
+                 str(BASE_CFG), "--device", "cuda", *args],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if res.returncode:
+                raise AssertionError(f"cli.{tool} failed ({res.returncode}):\n{res.stderr}")
+            return ast.literal_eval(res.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+        results, t_train = cli("train")
+        run_dir = Path(results["run_dir"])
+        missing = [f for f in ("best_params.npz", "preds.csv", "hparams_results.yml",
+                               "final_params.npz") if not (run_dir / f).exists()]
+        with open(run_dir / "metrics_val.csv") as f:
+            val_mae = [float(r["val/mae"]) for r in csv.DictReader(f)]
+        tested, t_test = cli("test", f"testing.path_to_ckpt={run_dir / 'best_params.npz'}")
+        phase("base-entry", f"cli.train {BASE_CFG.relative_to(ROOT)} in {t_train:.1f} s: val "
+              "MAE by epoch " + " ".join(f"{v:.6g}" for v in val_mae) + f", best "
+              f"{results['best_mae']:.6g} at epoch {results['best_epoch']}; phases_s "
+              f"{results['phases_s']}; files missing: {missing or 'none'}; cli.test in "
+              f"{t_test:.1f} s on best_params.npz: {tested} (must equal the best val MAE)")
+        if missing or len(val_mae) != 2 or not val_mae[-1] < val_mae[0]:
+            raise AssertionError("cli.train did not train SiT-base as expected")
+        best = results["best_mae"]
+        if tested["n"] != 16 or abs(tested["mae"] - best) > 1e-4 * best:
+            raise AssertionError("cli.test disagrees with the best epoch's val MAE")
+
+
 def main() -> None:
     # -- 1. device
+    start("device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     smi = subprocess.run(
@@ -650,12 +1292,14 @@ def main() -> None:
     from surface_vision_transformers_tpu_torch.ops import fused_block as fb
 
     # -- 2. build
+    start("build")
     cached = _native.library_path().exists()
     t0 = time.perf_counter()
     _native.build()
     _native.library()
     phase("build", f"{time.perf_counter() - t0:.2f} s "
           f"({'already built' if cached else 'nvcc'}) -> {_native.library_path().name}")
+    phase("build", "ptxas: " + ptxas_report(_native.library_path().with_suffix(".log")))
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -673,23 +1317,25 @@ def main() -> None:
     w = fused.prepare_weights(model)
 
     # -- 3. kernels
+    start("kernels")
     kernels = phase_kernels(rng, fb, w.blocks[0], model.transformer.layers[0])
 
     # -- 4. slice
+    start("slice")
     data = rng.standard_normal((300, 4, 40962)).astype(np.float32)
-    fb.fused_block.launches = fb.fused_block_cls.launches = 0
+    counters = zero_counts(fb)
     preds = fused.predict(model, data, device="cuda", batch_size=256)
-    launches = {"fused_block": fb.fused_block.launches,
-                "fused_block_cls": fb.fused_block_cls.launches}
+    launches = read_counts(counters)
     n_batches = 2
-    want = {"fused_block": (DEPTH - 1) * n_batches, "fused_block_cls": n_batches}
+    want = {k: 0 for k in counters}
+    want.update(fused_block=(DEPTH - 1) * n_batches, fused_block_cls=n_batches)
     phase("slice", f"predict(300 surfaces, batch 256): launches {launches}, "
           f"expected {want}")
     if launches != want:
         raise AssertionError("the main path did not launch every kernel as expected")
     if preds.shape != (300, 1) or not np.isfinite(preds).all():
         raise AssertionError(f"bad predictions: shape {preds.shape}")
-    for name in kernels:
+    for name in ("fused_block", "fused_block_cls"):
         kernels[name]["launches"] = launches[name]
 
     with torch.inference_mode():
@@ -732,6 +1378,7 @@ def main() -> None:
             del xb
 
     # -- 5. entry point
+    start("entry")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         n, bs_val = 40, 16
@@ -789,6 +1436,7 @@ def main() -> None:
             raise AssertionError("cli.test's MAE disagrees with the plain path")
 
     # -- 6. train-kernels
+    start("train-kernels")
     from surface_vision_transformers_tpu_torch.models import sit as sit_module
 
     del model, plain32, w
@@ -796,13 +1444,51 @@ def main() -> None:
     kernels.update(phase_train_kernels(rng, fb, sit_module))
 
     # -- 7. train (the training path; every count zeroed just before it)
+    start("train")
     launches = phase_train(table)
     for name in ("fused_block_bwd", "fused_block_cls_bwd"):
         kernels[name]["launches"] = launches[name]
     torch.cuda.empty_cache()
 
     # -- 8. train-entry
+    start("train-entry")
     phase_train_entry()
+
+    # -- 9. flash-kernels
+    start("flash-kernels")
+    kernels.update(phase_flash(rng))
+
+    # -- 10. base-kernels
+    start("base-kernels")
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    exp = config.load_config(BASE_CFG)
+    phase_base_kernels(rng, fb, sit_module, exp.model, exp.training.bs)
+
+    # -- 11. base-slice
+    start("base-slice")
+    t_phase = time.perf_counter()
+    t3 = load_patch_table(exp.ico, exp.sub_ico)
+    m = exp.model
+    phase("base-slice", f"{BASE_CFG.relative_to(ROOT)}: dim {m.dim}, depth {m.depth}, heads "
+          f"{m.heads}, mlp {m.mlp_dim}, {m.num_patches} patches x {m.num_vertices} vertices "
+          f"(N = {m.num_patches + 1}, unpadded), table {t3.ordering} order, generated in "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    tree = jax_shaped_params(rng, m.num_vertices, width=(m.dim, m.depth, m.heads, m.mlp_dim),
+                             n_tokens=m.num_patches + 1)
+    phase_base_slice(rng, fb, fused, exp, t3.indices, state_dict_from_jax(tree, m.depth))
+    del tree
+
+    # -- 12. base-train (every count zeroed just before each run)
+    start("base-train")
+    launches = phase_base_train(fb, exp, t3.indices)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kernels[name]["launches"] = launches[name]
+
+    # -- 13. base-entry
+    start("base-entry")
+    phase_base_entry()
+    print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

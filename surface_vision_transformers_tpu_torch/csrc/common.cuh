@@ -1,5 +1,6 @@
-// PTX helpers and small device functions shared by the block kernels
-// (fused_block.cu: forward; fused_block_bwd.cu: backward).
+// PTX helpers and small device functions shared by the kernels
+// (fused_block.cu: block forward; fused_block_bwd.cu: block backward;
+// flash_attention.cu: attention, forward and backward).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,12 +84,6 @@ __device__ __forceinline__ long long map_row(int r, int rpg, int gstride) {
 // -- attention, head dim 64 (forward and backward)
 
 constexpr int ATT_DH = 64, ATT_BQ = 64, ATT_BK = 32, ATT_LD = ATT_DH + 8, ATT_THREADS = 128;
-
-__host__ __device__ inline int att_keys_padded(int n) { return (n + ATT_BK - 1) / ATT_BK * ATT_BK; }
-
-__host__ __device__ inline size_t att_smem_bytes(int n) {
-  return (size_t)(ATT_BQ + 2 * att_keys_padded(n)) * ATT_LD * sizeof(bf16);
-}
 
 // s[4][4]: scores of this warp's 16 query rows against keys kb .. kb+31.
 __device__ __forceinline__ void score_chunk(float s[4][4], const uint32_t qf[4][4],

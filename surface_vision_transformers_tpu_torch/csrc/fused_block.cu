@@ -11,7 +11,9 @@
 //   LN1 -> QKV GEMM -> attention -> out-proj GEMM (+bias +residual)
 //   -> LN2 -> fc1 GEMM (+bias, erf-GELU) -> fc2 GEMM (+bias +residual).
 // The CLS variant runs LN1 and the K/V GEMM over every row and the rest on
-// the first `rows` (<= 8) rows of each sample only. The training entries
+// the first `rows` (<= 8) rows of each sample only. Attention is the
+// streamed kernel of flash_attention.cu, at any N (SiT-tiny's 321, SiT-base
+// on sub-ico 3's 1,281). The training entries
 // (svt_fused_block[_cls]_train_fwd) run the same chain and also keep what
 // the backward (fused_block_bwd.cu) reads: LN statistics, the fp32 fc1
 // pre-activation and the attention row log-sum-exp.
@@ -35,7 +37,7 @@
 // after its last launch (or the first failing one), 0 on success. Nothing
 // synchronises and nothing allocates: the caller passes outputs and scratch.
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -196,142 +198,6 @@ __global__ void __launch_bounds__(G_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// Attention, head dim 64: one CTA per (query tile of 64, head, sample).
-// The sample's K and V for this head sit in shared memory (rows >= n
-// zero-filled up to a multiple of 32); each of the 4 warps owns 16 query
-// rows. Pass 1 finds the exact row max over the unmasked keys, pass 2 forms
-// p = exp(s - max) in fp32, sums it in fp32, rounds it to bf16 for P.V, and
-// divides the fp32 P.V by the sum at the end, as the TPU kernel does.
-
-__global__ void __launch_bounds__(ATT_THREADS)
-    attention_kernel(const bf16* __restrict__ Q, int ldq, int nq, const bf16* __restrict__ Kp,
-                     const bf16* __restrict__ Vp, int ldkv, int n, bf16* __restrict__ O, int ldo,
-                     int valid_len, float scale, float* __restrict__ lse) {
-  extern __shared__ __align__(16) unsigned char att_smem[];
-  const int nk = att_keys_padded(n);
-  bf16* sQ = reinterpret_cast<bf16*>(att_smem);
-  bf16* sK = sQ + ATT_BQ * ATT_LD;
-  bf16* sV = sK + nk * ATT_LD;
-  const int q0 = blockIdx.x * ATT_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hoff = h * ATT_DH;
-
-  for (int c = tid; c < ATT_BQ * (ATT_DH / 8); c += ATT_THREADS) {
-    const int r = c >> 3, dc = (c & 7) * 8;
-    const bool ok = q0 + r < nq;
-    const bf16* src = ok ? Q + ((long long)b * nq + q0 + r) * ldq + hoff + dc : Q;
-    cp_async16(sQ + r * ATT_LD + dc, src, ok);
-  }
-  for (int c = tid; c < nk * (ATT_DH / 8); c += ATT_THREADS) {
-    const int r = c >> 3, dc = (c & 7) * 8;
-    const bool ok = r < n;
-    const long long off = ((long long)b * n + r) * ldkv + hoff + dc;
-    cp_async16(sK + r * ATT_LD + dc, ok ? Kp + off : Kp, ok);
-    cp_async16(sV + r * ATT_LD + dc, ok ? Vp + off : Vp, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int qr0 = q0 + warp * 16;
-  if (qr0 >= nq) return;
-
-  uint32_t qf[ATT_DH / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < ATT_DH / 16; ++ks)
-    ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * ATT_LD + ks * 16 + (lane >> 4) * 8);
-
-  const int g = lane >> 2, t = lane & 3;
-  const int kend = min(valid_len, n);
-  const int nchunks = (kend + ATT_BK - 1) / ATT_BK;
-
-  // Pass 1: exact row max (rows g and g + 8 of this warp's 16).
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-  for (int ch = 0; ch < nchunks; ++ch) {
-    float s[4][4];
-    score_chunk(s, qf, sK, ch * ATT_BK, lane);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = ch * ATT_BK + nt * 8 + 2 * t;
-      if (col < kend) {
-        m_lo = fmaxf(m_lo, s[nt][0] * scale);
-        m_hi = fmaxf(m_hi, s[nt][2] * scale);
-      }
-      if (col + 1 < kend) {
-        m_lo = fmaxf(m_lo, s[nt][1] * scale);
-        m_hi = fmaxf(m_hi, s[nt][3] * scale);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, o));
-    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, o));
-  }
-
-  // Pass 2: P = exp(s - max), l = sum P (fp32), O += bf16(P) . V.
-  float acc[ATT_DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  float l_lo = 0.f, l_hi = 0.f;
-  for (int ch = 0; ch < nchunks; ++ch) {
-    float s[4][4];
-    score_chunk(s, qf, sK, ch * ATT_BK, lane);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = ch * ATT_BK + nt * 8 + 2 * t;
-      const bool ok0 = col < kend, ok1 = col + 1 < kend;
-      s[nt][0] = ok0 ? __expf(s[nt][0] * scale - m_lo) : 0.f;
-      s[nt][1] = ok1 ? __expf(s[nt][1] * scale - m_lo) : 0.f;
-      s[nt][2] = ok0 ? __expf(s[nt][2] * scale - m_hi) : 0.f;
-      s[nt][3] = ok1 ? __expf(s[nt][3] * scale - m_hi) : 0.f;
-      l_lo += s[nt][0] + s[nt][1];
-      l_hi += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // 16 keys per mma k-step
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pf[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pf[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pf[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const int key = ch * ATT_BK + j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dp = 0; dp < ATT_DH / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sV + key * ATT_LD + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pf, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pf, vf[2], vf[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
-  }
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  const int r_lo = qr0 + g, r_hi = qr0 + g + 8;
-  if (lse != nullptr && t == 0) {  // training: row log-sum-exp for the backward
-    float* lrow = lse + ((long long)b * gridDim.y + h) * nq;
-    if (r_lo < nq) lrow[r_lo] = m_lo + logf(l_lo);
-    if (r_hi < nq) lrow[r_hi] = m_hi + logf(l_hi);
-  }
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt) {
-    const int d = hoff + nt * 8 + 2 * t;
-    if (r_lo < nq)
-      *reinterpret_cast<__nv_bfloat162*>(O + ((long long)b * nq + r_lo) * ldo + d) =
-          __floats2bfloat162_rn(acc[nt][0] * inv_lo, acc[nt][1] * inv_lo);
-    if (r_hi < nq)
-      *reinterpret_cast<__nv_bfloat162*>(O + ((long long)b * nq + r_hi) * ldo + d) =
-          __floats2bfloat162_rn(acc[nt][2] * inv_hi, acc[nt][3] * inv_hi);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Host-side launch helpers (all on `stream`, no synchronisation).
 
 cudaError_t launch_ln(const bf16* x, const float* g, const float* b, bf16* y, int rows, int dim,
@@ -353,17 +219,14 @@ cudaError_t launch_gemm(const bf16* A, int lda, int a_rpg, int a_gstride, const 
   return cudaGetLastError();
 }
 
+// Attention on the packed activations (B, rows, ld), head h at columns
+// h * 64: the streamed kernel of flash_attention.cu (K and V through shared
+// memory in 64-key tiles, online softmax, any N).
 cudaError_t launch_attention(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V,
                              int ldkv, int n, bf16* O, int ldo, int B, int heads, int valid_len,
-                             float scale, float* lse, cudaStream_t st) {
-  const size_t smem = att_smem_bytes(n);
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((nq + ATT_BQ - 1) / ATT_BQ, heads, B);
-  attention_kernel<<<grid, ATT_THREADS, smem, st>>>(Q, ldq, nq, K, V, ldkv, n, O, ldo, valid_len,
-                                                    scale, lse);
-  return cudaGetLastError();
+                             float* lse, cudaStream_t st) {
+  return flash_fwd(packed(Q, nq, ldq), packed(K, n, ldkv), packed(V, n, ldkv), packed(O, nq, ldo),
+                   lse, B, heads, nq, n, valid_len, st);
 }
 
 // What a training forward keeps for the backward (fused_block_bwd.cu). The
@@ -393,7 +256,7 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
   SVT_TRY(launch_gemm<EPI_NONE>(h, dim, M, 0, (const bf16*)w_qkv, nullptr, nullptr, 0, 1, 0, qkv,
                                 3 * hd, M, 3 * hd, dim, st));
   SVT_TRY(launch_attention(qkv, 3 * hd, N, qkv + hd, qkv + 2 * hd, 3 * hd, N, attn, hd, B, heads,
-                           valid_len, 1.0f / sqrtf((float)dim_head), s.lse, st));
+                           valid_len, s.lse, st));
   SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, M, 0, (const bf16*)w_out, (const float*)b_out, xb,
                                     dim, M, 0, x1, dim, M, dim, hd, st));
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, M, dim, eps, s.stats2, st));
@@ -423,7 +286,7 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   SVT_TRY(launch_gemm<EPI_NONE>(h, dim, rows, N, wq, nullptr, nullptr, 0, 1, 0, q, hd, Mt, hd,
                                 dim, st));
   SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, valid_len,
-                           1.0f / sqrtf((float)dim_head), s.lse, st));
+                           s.lse, st));
   SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, Mt, 0, (const bf16*)w_out, (const float*)b_out, xb,
                                     dim, rows, N, x1, dim, Mt, dim, hd, st));
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, Mt, dim, eps, s.stats2, st));

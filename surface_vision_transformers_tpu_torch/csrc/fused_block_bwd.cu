@@ -29,6 +29,7 @@
 //   dW_fc1 = df1^T h2         dh2 = df1 W_fc1 -> LN2 backward (+ g) = dx1
 //   dW_out = dx1^T attn       da = dx1 W_out
 //   attention backward: dQ pass (and delta = rowsum(dO . O)), dK/dV pass
+//                       (flash_attention.cu's streamed kernels: any N)
 //   dW_qkv = dqkv^T h1        dh1 = dqkv W_qkv -> LN1 backward (+ dx1) = dx
 // Rounding points follow the TPU kernel: bf16 df1, dx1, da, P (for dV), dS,
 // dq/dk/dv and dx; fp32 weight/vector gradients, dh, the LN backward and
@@ -62,7 +63,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -270,27 +271,29 @@ __global__ void reduce_kernel(const float* __restrict__ part, int P, long long s
 // with res the row's residual cotangent: row r = (sample r / seg, i = r % seg)
 // has one iff i < res_seg, at res[(r / seg) * res_seg + i]. Column sums per
 // CTA, in fixed order: [cta][q][dim] for q = sum dh*n, sum dh, sum res,
-// sum out (the first nsum of them).
+// sum out (the first nsum of them). A lane holds C values of a row: C = 12
+// up to dim 384, C = 24 up to dim 768 (SiT-base), so the smaller widths keep
+// their registers.
 
-constexpr int LNB_WARPS = 8, LNB_ROWS = 32, LNB_MAXC = 12;  // dim <= 384
+constexpr int LNB_WARPS = 8, LNB_ROWS = 32, LNB_MAX_DIM = 768;
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 
-template <typename RT>
+template <typename RT, int C>
 __global__ void __launch_bounds__(LNB_WARPS * 32)
     ln_bwd_kernel(const float* __restrict__ dh, const bf16* __restrict__ x,
                   const float* __restrict__ stats, const float* __restrict__ gamma,
                   const RT* __restrict__ res, int seg, int res_seg, float* __restrict__ out_f,
                   bf16* __restrict__ out_b, float* __restrict__ colpart, int nsum, int rows,
                   int dim) {
-  __shared__ float sred[4][LNB_MAXC * 32];
+  __shared__ float sred[4][C * 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[4][LNB_MAXC];
+  float acc[4][C];
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int j = 0; j < LNB_MAXC; ++j) acc[q][j] = 0.f;
+    for (int j = 0; j < C; ++j) acc[q][j] = 0.f;
 
   const int r0 = (blockIdx.x * LNB_WARPS + warp) * LNB_ROWS;
   for (int rr = 0; rr < LNB_ROWS; ++rr) {
@@ -298,10 +301,10 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
     if (r >= rows) break;
     const float mu = stats[2LL * r], rstd = stats[2LL * r + 1];
     const long long off = (long long)r * dim;
-    float n[LNB_MAXC], d[LNB_MAXC];
+    float n[C], d[C];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < LNB_MAXC; ++j) {
+    for (int j = 0; j < C; ++j) {
       const int c = lane + 32 * j;
       n[j] = d[j] = 0.f;
       if (c < dim) {
@@ -319,7 +322,7 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
     const int i = r % seg;
     const RT* rrow = i < res_seg ? res + ((long long)(r / seg) * res_seg + i) * dim : nullptr;
 #pragma unroll
-    for (int j = 0; j < LNB_MAXC; ++j) {
+    for (int j = 0; j < C; ++j) {
       const int c = lane + 32 * j;
       if (c < dim) {
         const float rv = rrow != nullptr ? to_f(rrow[c]) : 0.f;
@@ -337,7 +340,7 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int j = 0; j < LNB_MAXC; ++j) {
+        for (int j = 0; j < C; ++j) {
           const int c = lane + 32 * j;
           if (q < nsum && c < dim) sred[q][c] = (w == 0 ? 0.f : sred[q][c]) + acc[q][j];
         }
@@ -346,262 +349,6 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
   for (int q = 0; q < nsum; ++q)
     for (int c = threadIdx.x; c < dim; c += blockDim.x)
       colpart[((long long)blockIdx.x * nsum + q) * dim + c] = sred[q][c];
-}
-
-// ---------------------------------------------------------------------------
-// Attention backward, head dim 64, from the forward's LSE: P = exp(s*scale -
-// lse) for keys < valid_len and query rows < valid_len (others contribute
-// nothing, as in the TPU kernel), delta = rowsum(dO . O),
-// dS = P (dP - delta) * scale. Two passes, no atomics (the split of the TPU
-// package's _bwd_tiled): a query pass for dQ (it also writes delta) and a
-// key pass for dK and dV.
-
-// dQ: one CTA per (query tile of 64, head, sample); the sample's K and V for
-// this head in shared memory, as in the forward; each warp owns 16 queries.
-__global__ void __launch_bounds__(ATT_THREADS)
-    attn_bwd_dq_kernel(const bf16* __restrict__ Q, int ldq, int nq, const bf16* __restrict__ Kp,
-                       const bf16* __restrict__ Vp, int ldkv, int n, const bf16* __restrict__ O,
-                       const bf16* __restrict__ dO, int ldo, const float* __restrict__ lse,
-                       float* __restrict__ delta, bf16* __restrict__ dQ, int lddq, int valid_len,
-                       float scale) {
-  extern __shared__ __align__(16) unsigned char att_smem[];
-  const int nk = att_keys_padded(n);
-  bf16* sQ = reinterpret_cast<bf16*>(att_smem);  // Q tile, then dO tile
-  bf16* sK = sQ + ATT_BQ * ATT_LD;
-  bf16* sV = sK + nk * ATT_LD;
-  const int q0 = blockIdx.x * ATT_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hoff = h * ATT_DH;
-  const long long hrow = ((long long)b * gridDim.y + h) * nq;
-
-  for (int c = tid; c < ATT_BQ * (ATT_DH / 8); c += ATT_THREADS) {
-    const int r = c >> 3, dc = (c & 7) * 8;
-    const bool ok = q0 + r < nq;
-    const bf16* src = ok ? Q + ((long long)b * nq + q0 + r) * ldq + hoff + dc : Q;
-    cp_async16(sQ + r * ATT_LD + dc, src, ok);
-  }
-  for (int c = tid; c < nk * (ATT_DH / 8); c += ATT_THREADS) {
-    const int r = c >> 3, dc = (c & 7) * 8;
-    const bool ok = r < n;
-    const long long off = ((long long)b * n + r) * ldkv + hoff + dc;
-    cp_async16(sK + r * ATT_LD + dc, ok ? Kp + off : Kp, ok);
-    cp_async16(sV + r * ATT_LD + dc, ok ? Vp + off : Vp, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int qr0 = q0 + warp * 16;
-  const bool active = qr0 < nq;
-  uint32_t qf[ATT_DH / 16][4], of[ATT_DH / 16][4];
-  if (active)
-#pragma unroll
-    for (int ks = 0; ks < ATT_DH / 16; ++ks)
-      ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * ATT_LD + ks * 16 + (lane >> 4) * 8);
-  __syncthreads();
-  for (int c = tid; c < ATT_BQ * (ATT_DH / 8); c += ATT_THREADS) {
-    const int r = c >> 3, dc = (c & 7) * 8;
-    const bool ok = q0 + r < nq;
-    const bf16* src = ok ? dO + ((long long)b * nq + q0 + r) * ldo + hoff + dc : dO;
-    cp_async16(sQ + r * ATT_LD + dc, src, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (!active) return;
-#pragma unroll
-  for (int ks = 0; ks < ATT_DH / 16; ++ks)
-    ldmatrix_x4(of[ks], sQ + (warp * 16 + (lane & 15)) * ATT_LD + ks * 16 + (lane >> 4) * 8);
-
-  // delta for the warp's 16 rows: lane pair (2i, 2i+1) sums row i's halves
-  const int drow = qr0 + (lane >> 1);
-  float dsum = 0.f;
-  if (drow < nq) {
-    const long long off = ((long long)b * nq + drow) * ldo + hoff + (lane & 1) * 32;
-#pragma unroll 8
-    for (int d = 0; d < 32; ++d) dsum += __bfloat162float(dO[off + d]) * __bfloat162float(O[off + d]);
-  }
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-  if (drow < nq && (lane & 1) == 0) delta[hrow + drow] = dsum;
-
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = qr0 + g, r_hi = qr0 + g + 8;
-  const float dl_lo = __shfl_sync(0xffffffffu, dsum, 2 * g);
-  const float dl_hi = __shfl_sync(0xffffffffu, dsum, 2 * (g + 8));
-  const int qend = min(valid_len, nq);
-  const bool ok_lo = r_lo < qend, ok_hi = r_hi < qend;
-  const float l_lo = ok_lo ? lse[hrow + r_lo] : 0.f;
-  const float l_hi = ok_hi ? lse[hrow + r_hi] : 0.f;
-  const int kend = min(valid_len, n);
-  const int nchunks = (kend + ATT_BK - 1) / ATT_BK;
-
-  float acc[ATT_DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  for (int ch = 0; ch < nchunks; ++ch) {
-    float s[4][4], dp[4][4];
-    score_chunk(s, qf, sK, ch * ATT_BK, lane);
-    score_chunk(dp, of, sV, ch * ATT_BK, lane);  // dP = dO . V^T
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = ch * ATT_BK + nt * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const bool ok = (col + (e & 1)) < kend && (lo ? ok_lo : ok_hi);
-        const float pr = ok ? __expf(s[nt][e] * scale - (lo ? l_lo : l_hi)) : 0.f;
-        s[nt][e] = pr * (dp[nt][e] - (lo ? dl_lo : dl_hi)) * scale;  // dS
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // dQ += dS . K, 16 keys per mma k-step
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pf[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pf[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pf[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const int key = ch * ATT_BK + j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dq = 0; dq < ATT_DH / 16; ++dq) {
-        uint32_t kf[4];
-        ldmatrix_x4_trans(kf, sK + key * ATT_LD + dq * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dq], pf, kf[0], kf[1]);
-        mma_bf16(acc[2 * dq + 1], pf, kf[2], kf[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt) {
-    const int d = hoff + nt * 8 + 2 * t;
-    if (r_lo < nq)
-      *reinterpret_cast<__nv_bfloat162*>(dQ + ((long long)b * nq + r_lo) * lddq + d) =
-          __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    if (r_hi < nq)
-      *reinterpret_cast<__nv_bfloat162*>(dQ + ((long long)b * nq + r_hi) * lddq + d) =
-          __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
-  }
-}
-
-// dK, dV: one CTA per (key tile of 64, head, sample), each warp owning 16
-// keys (their K and V rows as mma A fragments in registers); the CTA walks
-// the sample's queries in chunks of 32, staging Q, dO, lse and delta.
-constexpr int KV_BK = 64, KV_QC = 32;
-
-__global__ void __launch_bounds__(ATT_THREADS)
-    attn_bwd_dkdv_kernel(const bf16* __restrict__ Q, int ldq, int nq,
-                         const bf16* __restrict__ Kp, const bf16* __restrict__ Vp, int ldkv, int n,
-                         const bf16* __restrict__ dO, int ldo, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dK,
-                         bf16* __restrict__ dV, int lddkv, int valid_len, float scale) {
-  __shared__ __align__(16) bf16 sK[KV_BK * ATT_LD];
-  __shared__ __align__(16) bf16 sV[KV_BK * ATT_LD];
-  __shared__ __align__(16) bf16 sQc[KV_QC * ATT_LD];
-  __shared__ __align__(16) bf16 sdO[KV_QC * ATT_LD];
-  __shared__ float sL[KV_QC], sD[KV_QC];
-  const int k0 = blockIdx.x * KV_BK, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hoff = h * ATT_DH;
-  const long long hrow = ((long long)b * gridDim.y + h) * nq;
-
-  for (int c = tid; c < KV_BK * (ATT_DH / 8); c += ATT_THREADS) {
-    const int r = c >> 3, dc = (c & 7) * 8;
-    const bool ok = k0 + r < n;
-    const long long off = ((long long)b * n + k0 + r) * ldkv + hoff + dc;
-    cp_async16(sK + r * ATT_LD + dc, ok ? Kp + off : Kp, ok);
-    cp_async16(sV + r * ATT_LD + dc, ok ? Vp + off : Vp, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t kf[ATT_DH / 16][4], vf[ATT_DH / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < ATT_DH / 16; ++ks) {
-    ldmatrix_x4(kf[ks], sK + (warp * 16 + (lane & 15)) * ATT_LD + ks * 16 + (lane >> 4) * 8);
-    ldmatrix_x4(vf[ks], sV + (warp * 16 + (lane & 15)) * ATT_LD + ks * 16 + (lane >> 4) * 8);
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
-  const int kend = min(valid_len, n), qend = min(valid_len, nq);
-  float dv[ATT_DH / 8][4], dk[ATT_DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[nt][e] = dk[nt][e] = 0.f;
-
-  for (int qb = 0; qb < qend; qb += KV_QC) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int c = tid; c < KV_QC * (ATT_DH / 8); c += ATT_THREADS) {
-      const int r = c >> 3, dc = (c & 7) * 8;
-      const bool ok = qb + r < nq;
-      const long long qo = ((long long)b * nq + qb + r);
-      cp_async16(sQc + r * ATT_LD + dc, ok ? Q + qo * ldq + hoff + dc : Q, ok);
-      cp_async16(sdO + r * ATT_LD + dc, ok ? dO + qo * ldo + hoff + dc : dO, ok);
-    }
-    if (tid < KV_QC) {
-      const bool ok = qb + tid < nq;
-      sL[tid] = ok ? lse[hrow + qb + tid] : 0.f;
-      sD[tid] = ok ? delta[hrow + qb + tid] : 0.f;
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float st[4][4], dpt[4][4];  // S^T and dP^T: 16 keys x 32 queries
-    score_chunk(st, kf, sQc, 0, lane);
-    score_chunk(dpt, vf, sdO, 0, lane);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nt * 8 + 2 * t + (e & 1);
-        const int key = e < 2 ? key_lo : key_hi;
-        const bool ok = key < kend && qb + ql < qend;
-        const float pr = ok ? __expf(st[nt][e] * scale - sL[ql]) : 0.f;
-        st[nt][e] = pr;
-        dpt[nt][e] = pr * (dpt[nt][e] - sD[ql]) * scale;  // dS^T
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // 16 queries per mma k-step
-      uint32_t pf[4], sf[4];
-      pf[0] = pack_bf16(st[2 * j][0], st[2 * j][1]);
-      pf[1] = pack_bf16(st[2 * j][2], st[2 * j][3]);
-      pf[2] = pack_bf16(st[2 * j + 1][0], st[2 * j + 1][1]);
-      pf[3] = pack_bf16(st[2 * j + 1][2], st[2 * j + 1][3]);
-      sf[0] = pack_bf16(dpt[2 * j][0], dpt[2 * j][1]);
-      sf[1] = pack_bf16(dpt[2 * j][2], dpt[2 * j][3]);
-      sf[2] = pack_bf16(dpt[2 * j + 1][0], dpt[2 * j + 1][1]);
-      sf[3] = pack_bf16(dpt[2 * j + 1][2], dpt[2 * j + 1][3]);
-      const int qrow = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dq = 0; dq < ATT_DH / 16; ++dq) {
-        uint32_t of[4], qf[4];
-        ldmatrix_x4_trans(of, sdO + qrow * ATT_LD + dq * 16 + (lane >> 4) * 8);
-        mma_bf16(dv[2 * dq], pf, of[0], of[1]);  // dV += P^T . dO
-        mma_bf16(dv[2 * dq + 1], pf, of[2], of[3]);
-        ldmatrix_x4_trans(qf, sQc + qrow * ATT_LD + dq * 16 + (lane >> 4) * 8);
-        mma_bf16(dk[2 * dq], sf, qf[0], qf[1]);  // dK += dS^T . Q
-        mma_bf16(dk[2 * dq + 1], sf, qf[2], qf[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt) {
-    const int d = hoff + nt * 8 + 2 * t;
-    if (key_lo < n) {
-      const long long o = ((long long)b * n + key_lo) * lddkv + d;
-      *reinterpret_cast<__nv_bfloat162*>(dK + o) = __floats2bfloat162_rn(dk[nt][0], dk[nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dV + o) = __floats2bfloat162_rn(dv[nt][0], dv[nt][1]);
-    }
-    if (key_hi < n) {
-      const long long o = ((long long)b * n + key_hi) * lddkv + d;
-      *reinterpret_cast<__nv_bfloat162*>(dK + o) = __floats2bfloat162_rn(dk[nt][2], dk[nt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dV + o) = __floats2bfloat162_rn(dv[nt][2], dv[nt][3]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -683,29 +430,24 @@ cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const flo
                    const RT* res, int seg, int res_seg, float* out_f, bf16* out_b, int rows,
                    int dim, float* part, int nsum, float* const* vecs, cudaStream_t st) {
   const int ctas = ln_bwd_ctas(rows);
-  ln_bwd_kernel<RT><<<ctas, LNB_WARPS * 32, 0, st>>>(dh, x, stats, gamma, res, seg, res_seg,
-                                                     out_f, out_b, part, nsum, rows, dim);
+  auto kernel = dim <= 384 ? ln_bwd_kernel<RT, 12> : ln_bwd_kernel<RT, 24>;
+  kernel<<<ctas, LNB_WARPS * 32, 0, st>>>(dh, x, stats, gamma, res, seg, res_seg, out_f, out_b,
+                                          part, nsum, rows, dim);
   cudaError_t e = cudaGetLastError();
   for (int q = 0; q < nsum && e == cudaSuccess; ++q)
     e = reduce(part + (long long)q * dim, ctas, (long long)nsum * dim, dim, vecs[q], st);
   return e;
 }
 
+// The attention backward on the chain's packed activations (B, rows, ld),
+// head h at columns h * 64: the streamed kernels of flash_attention.cu.
 cudaError_t attn_bwd(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V, int ldkv, int n,
                      const bf16* O, const bf16* dO, int ldo, const float* lse, float* delta,
                      bf16* dQ, int lddq, bf16* dK, bf16* dV, int lddkv, int B, int heads,
-                     int valid_len, float scale, cudaStream_t st) {
-  const size_t smem = att_smem_bytes(n);
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  attn_bwd_dq_kernel<<<dim3(ceil_div(nq, ATT_BQ), heads, B), ATT_THREADS, smem, st>>>(
-      Q, ldq, nq, K, V, ldkv, n, O, dO, ldo, lse, delta, dQ, lddq, valid_len, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<<<dim3(ceil_div(n, KV_BK), heads, B), ATT_THREADS, 0, st>>>(
-      Q, ldq, nq, K, V, ldkv, n, dO, ldo, lse, delta, dK, dV, lddkv, valid_len, scale);
-  return cudaGetLastError();
+                     int valid_len, cudaStream_t st) {
+  return flash_bwd(packed(Q, nq, ldq), packed(K, n, ldkv), packed(V, n, ldkv), packed(O, nq, ldo),
+                   packed(dO, nq, ldo), lse, delta, packed(dQ, nq, lddq), packed(dK, n, lddkv),
+                   packed(dV, n, lddkv), B, heads, nq, n, valid_len, st);
 }
 
 // The MLP branch of either block over its Mr rows (all B*N rows, or the CLS
@@ -764,11 +506,10 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                         void* da, void* dqkv, void* delta, void* ws, int B, int N, int dim,
                         int heads, int dim_head, int mlp, int valid_len, int device,
                         void* stream) {
-  if (dim_head != ATT_DH || dim > LNB_MAXC * 32) return (int)cudaErrorInvalidValue;
+  if (dim_head != ATT_DH || dim > LNB_MAX_DIM) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * dim_head;
-  const float scale = 1.0f / sqrtf((float)dim_head);
   float* part = static_cast<float*>(ws);
   bf16* dx1b_ = static_cast<bf16*>(dx1b);
   bf16* dqkv_ = static_cast<bf16*>(dqkv);
@@ -787,7 +528,7 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                            st));
   SVT_TRY(attn_bwd(qkv_, 3 * hd, N, qkv_ + hd, qkv_ + 2 * hd, 3 * hd, N, (const bf16*)attn,
                    (const bf16*)da, hd, (const float*)lse, (float*)delta, dqkv_, 3 * hd,
-                   dqkv_ + hd, dqkv_ + 2 * hd, 3 * hd, B, heads, valid_len, scale, st));
+                   dqkv_ + hd, dqkv_ + 2 * hd, 3 * hd, B, heads, valid_len, st));
   SVT_TRY(weight_grad(dqkv_, 3 * hd, (const bf16*)h1, dim, 1, 1, 3 * hd, dim, M, (float*)d_wqkv,
                       part, st));
   SVT_TRY(gemm_nn<BE_F32>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd, (float*)dh, nullptr,
@@ -814,12 +555,11 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                             void* dq, void* dkv, void* delta, void* ws, int B, int N, int rows,
                             int dim, int heads, int dim_head, int mlp, int valid_len, int device,
                             void* stream) {
-  if (dim_head != ATT_DH || dim > LNB_MAXC * 32 || rows < 1 || rows > N)
+  if (dim_head != ATT_DH || dim > LNB_MAX_DIM || rows < 1 || rows > N)
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, Mt = B * rows, hd = heads * dim_head;
-  const float scale = 1.0f / sqrtf((float)dim_head);
   float* part = static_cast<float*>(ws);
   const bf16* wq = static_cast<const bf16*>(w_qkv);
   const bf16* wkv = wq + (long long)hd * dim;
@@ -842,7 +582,7 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                            st));
   SVT_TRY(attn_bwd((const bf16*)q, hd, rows, kv_, kv_ + hd, 2 * hd, N, (const bf16*)attn,
                    (const bf16*)da, hd, (const float*)lse, (float*)delta, dq_, hd, dkv_,
-                   dkv_ + hd, 2 * hd, B, heads, valid_len, scale, st));
+                   dkv_ + hd, 2 * hd, B, heads, valid_len, st));
   // dW_qkv rows [0, hd) from the top rows' dq, rows [hd, 3hd) from every row's dk/dv
   SVT_TRY(weight_grad(dq_, hd, (const bf16*)h1, dim, rows, N, hd, dim, Mt, (float*)d_wqkv, part,
                       st));

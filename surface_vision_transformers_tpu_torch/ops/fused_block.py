@@ -19,13 +19,12 @@ through HBM, about ten times the bytes of the block's input and output.
 Measured at SiT-tiny (PERF.md), the GEMMs reach about a tenth of the bf16
 tensor-core peak and stay well under HBM bandwidth: this first version is
 bounded by its simple ``mma.sync`` tiling, not by either roofline. The
-design keeps what fits on chip per CTA: the attention kernel stages one
-(sample, head)'s whole K and V in shared memory (~100 KB at N=321, past the
-48 KB default, so it opts into dynamic shared memory) and never writes the
-score matrix; the GEMM epilogues fold bias, GELU and the residual into the
-store. The CLS variant computes Q, attention and the MLP for the first
-``rows`` (<= 8) rows of each sample only, reading them through a strided
-row map instead of a gather.
+design keeps what fits on chip per CTA: attention is the streamed kernel of
+``csrc/flash_attention.cu`` (K and V through shared memory in 64-key
+tiles, any N), which never writes the score matrix; the GEMM epilogues fold
+bias, GELU and the residual into the store. The CLS variant computes Q,
+attention and the MLP for the first ``rows`` (<= 8) rows of each sample
+only, reading them through a strided row map instead of a gather.
 
 Numerics: the TPU kernel's rounding points (bf16 after LN, QKV, P, P.V, x1
 and GELU; fp32 LN statistics, scores, softmax sums and epilogues) with exact
@@ -46,12 +45,12 @@ import torch
 import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.ops import _native
+from surface_vision_transformers_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
+)
 
-# Attention stages K and V of one (sample, head) plus a 64-row Q tile, each
-# row padded to 72 bf16, in at most the 232,448 bytes of shared memory a
-# Hopper block may opt into: keys padded to 32 must satisfy
-# (64 + 2 * keys) * 144 <= 232448.
-MAX_SEQ_LEN = 768
 _CLS_ROWS = 8
 
 
@@ -76,8 +75,8 @@ def _mm(a, w):
 
 
 def _heads(t, heads, dim_head):
-    """(B, L, H*dh) -> (B, H, L, dh) float32."""
-    return t.reshape(t.shape[0], t.shape[1], heads, dim_head).transpose(1, 2).float()
+    """(B, L, H*dh) -> (B, H, L, dh), a view in t's dtype."""
+    return t.reshape(t.shape[0], t.shape[1], heads, dim_head).transpose(1, 2)
 
 
 def _merge_heads(t, dt):
@@ -87,20 +86,13 @@ def _merge_heads(t, dt):
 
 
 def _attention(q, k, v, heads, dim_head, valid_len, dt, saved=None):
-    """(B, nq, H*dh) queries against (B, n, H*dh) keys/values, keys
-    >= valid_len masked; shifted fp32 softmax, P rounded to ``dt`` before
-    P.V, the sum divided out after it (as the TPU kernel does). With
-    ``saved``, the row log-sum-exp (B, H, nq) goes to saved["lse"]."""
-    s = (_heads(q, heads, dim_head) @ _heads(k, heads, dim_head).transpose(-1, -2)
-         * dim_head ** -0.5)
-    if valid_len < k.shape[1]:
-        s[..., valid_len:] = float("-inf")
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
+    """(B, nq, H*dh) queries against (B, n, H*dh) keys/values in ``dt``:
+    ``flash_attention_reference`` per head. With ``saved``, the row
+    log-sum-exp (B, H, nq) goes to saved["lse"]."""
+    o, lse = flash_attention_reference(
+        *(_heads(t, heads, dim_head) for t in (q, k, v)), valid_len)
     if saved is not None:
-        saved["lse"] = (m + torch.log(l)).squeeze(-1)
-    o = (p.to(dt).float() @ _heads(v, heads, dim_head)) / l
+        saved["lse"] = lse
     return _merge_heads(o, dt)
 
 
@@ -177,10 +169,6 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
             f"the attention kernel is built for dim_head 64, got {dim_head}")
     if dim % 8 or mlp % 8:
         raise NotImplementedError("dim and mlp_dim must be multiples of 8")
-    if N > MAX_SEQ_LEN:
-        raise NotImplementedError(
-            f"sequence length {N} > {MAX_SEQ_LEN}: K/V of one head no longer "
-            "fit the attention kernel's shared memory")
     if not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside [1, {N}]")
     shapes = {
@@ -295,6 +283,17 @@ fused_block_cls.launches = 0
 # ``csrc/fused_block_bwd.cu``, the gradient of this port's forward (erf-GELU,
 # shifted softmax; see the kernel source). Weight gradients come out in
 # float32, in the torch (out, in) layout.
+#
+# The route of a non-CLS block is a fixed function of its shape
+# (``uses_recompute``), chosen where the JAX package chooses: where a Pallas
+# backward fits the TPU's VMEM (every width up to SiT-base at N <= 768 --
+# SiT-tiny, SiT-small) the chain above runs; beyond (SiT-base on sub-ico 3,
+# N = 1,281), where the JAX package falls back to ``jax.vjp`` of
+# ``_xla_block_ref(attn="flash")``, the forward is the serving ``fused_block``
+# keeping only x and the backward recomputes the block under autograd
+# (``fused_block_recompute_bwd``): torch GEMMs and LayerNorms around the
+# ``flash_attention`` kernel. The CLS block always takes the chain, as the
+# JAX package takes ``_block_cls_bwd_split`` there.
 
 # What the training forward keeps, by name (shapes for x (B, N, dim)):
 # h1 (B, N, dim), qkv (B, N, 3hd), attn (B, N, hd), lse (B, H, N) fp32,
@@ -306,7 +305,15 @@ TRAIN_SAVED = ("h1", "qkv", "attn", "lse", "x1", "h2", "fpre", "f", "stats1",
                "stats2")
 TRAIN_SAVED_CLS = ("h1", "kv", "q", "attn", "lse", "x1", "h2", "fpre", "f",
                    "stats1", "stats2")
-_MAX_BWD_DIM = 384  # the LayerNorm backward holds a row in 12 values a lane
+_MAX_BWD_DIM = 768  # the LayerNorm backward holds a row in 24 values a lane
+CHAIN_MAX_SEQ_LEN = 768
+
+
+def uses_recompute(n_tokens: int, dim: int) -> bool:
+    """Whether a non-CLS block of this shape trains on the recompute route
+    (else the chain): beyond ``CHAIN_MAX_SEQ_LEN`` tokens or
+    ``_MAX_BWD_DIM`` width."""
+    return n_tokens > CHAIN_MAX_SEQ_LEN or dim > _MAX_BWD_DIM
 
 
 def _gelu_grad(f):
@@ -335,22 +342,12 @@ def _ln_bwd(dh, x, stats, scale):
 
 
 def _attention_bwd(q, k, v, o, do, lse, heads, dim_head, valid_len, dt):
-    """Backward of ``_attention`` from its LSE: P = exp(s - lse) for keys
-    and query rows < valid_len (other query rows contribute nothing, as in
-    the TPU kernel), delta = rowsum(dO . O), dS = P (dP - delta) * scale;
-    P and dS rounded to ``dt`` before their products. -> dq, dk, dv."""
-    scale = dim_head ** -0.5
-    qh, kh, vh = (_heads(t, heads, dim_head) for t in (q, k, v))
-    doh = _heads(do, heads, dim_head)
-    p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse[..., None])
-    keep = ((torch.arange(q.shape[1]) < valid_len)[:, None]
-            & (torch.arange(k.shape[1]) < valid_len)[None, :]).to(p.device)
-    p = torch.where(keep, p, 0.0)
-    delta = (doh * _heads(o, heads, dim_head)).sum(-1, keepdim=True)
-    dv = p.to(dt).float().transpose(-1, -2) @ doh
-    ds = (p * (doh @ vh.transpose(-1, -2) - delta) * scale).to(dt).float()
-    return (_merge_heads(ds @ kh, dt), _merge_heads(ds.transpose(-1, -2) @ qh, dt),
-            _merge_heads(dv, dt))
+    """Backward of ``_attention`` from its LSE
+    (``flash_attention_bwd_reference`` per head). -> dq, dk, dv."""
+    grads = flash_attention_bwd_reference(
+        *(_heads(t, heads, dim_head) for t in (q, k, v, o)), lse,
+        _heads(do, heads, dim_head), valid_len)
+    return tuple(_merge_heads(t, dt) for t in grads)
 
 
 def _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt):
@@ -573,31 +570,126 @@ def fused_block_cls_bwd(x, g, *params, saved, heads: int, dim_head: int,
 fused_block_cls_bwd.launches = 0
 
 
+def _mm32(a, b):
+    """a @ b for 2-D operands in the compute dtype, the product in float32:
+    what the tensor cores give for bf16 operands with fp32 accumulation."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _Linear32(torch.autograd.Function):
+    """a @ w.T with both operands rounded to ``dt`` inside and a float32
+    product. Its backward rounds the cotangent to ``dt`` and returns float32
+    gradients for a and w (cast to their own dtypes by autograd): the
+    rounding points of the block chain (bf16 df1, dx1, dqkv; fp32 dh and
+    weight gradients)."""
+
+    @staticmethod
+    def forward(ctx, a, w, dt):
+        ab, wb = a.to(dt), w.to(dt)
+        ctx.save_for_backward(ab, wb)
+        ctx.dt = dt
+        return _mm32(ab.reshape(-1, ab.shape[-1]), wb.t()).reshape(*a.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, gc):
+        ab, wb = ctx.saved_tensors
+        gb = gc.to(ctx.dt).reshape(-1, gc.shape[-1])
+        da = _mm32(gb, wb).reshape(ab.shape)
+        dw = _mm32(gb.t(), ab.reshape(-1, ab.shape[-1]))
+        return da, dw, None
+
+
+class _Round(torch.autograd.Function):
+    """t rounded to ``dt``, kept in t's dtype; the gradient passes unrounded
+    (the chain keeps dx1 in float32 across the rounding of x1)."""
+
+    @staticmethod
+    def forward(ctx, t, dt):
+        return t.to(dt).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def block_recompute(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
+                    ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int,
+                    dim_head: int, valid_len: int | None = None,
+                    ln_eps: float = 1e-5):
+    """``fused_block`` in torch ops under autograd (the counterpart of the
+    JAX package's ``_xla_block_ref(attn="flash")``), at the chain's rounding
+    points in x.dtype: bf16 LN outputs, qkv, x1 and GELU output, fp32 fc1
+    pre-activation, exact-erf GELU. Attention is ``flash_attention`` (the
+    kernel on CUDA). Parameters of any float dtype (matrices cast to x.dtype
+    inside, gradients in their own dtypes)."""
+    dt, (B, N, dim) = x.dtype, x.shape
+    vl = N if valid_len is None else int(valid_len)
+    xf = x.float()
+    h = F.layer_norm(xf, (dim,), ln1_scale.float(), ln1_bias.float(), ln_eps)
+    qkv = _Linear32.apply(h, w_qkv, dt).to(dt)
+    q, k, v = (t.transpose(1, 2) for t in
+               qkv.view(B, N, 3, heads, dim_head).unbind(2))
+    attn = flash_attention(q, k, v, vl).transpose(1, 2).reshape(B, N, heads * dim_head)
+    x1 = _Round.apply(xf + _Linear32.apply(attn, w_out, dt) + b_out.float(), dt)
+    h2 = F.layer_norm(x1, (dim,), ln2_scale.float(), ln2_bias.float(), ln_eps)
+    f = F.gelu(_Linear32.apply(h2, w_fc1, dt) + b_fc1.float())
+    return (x1 + _Linear32.apply(f, w_fc2, dt) + b_fc2.float()).to(dt)
+
+
+def fused_block_recompute_bwd(x, g, *params, heads: int, dim_head: int,
+                              valid_len: int | None = None, ln_eps: float = 1e-5):
+    """The recompute route's backward of ``fused_block``: ``block_recompute``
+    from x, then autograd with cotangent g. -> (dx, the 11 parameter
+    gradients in the parameters' dtypes). On CUDA, counted in ``launches``."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        ps = [p.detach().requires_grad_() for p in params]
+        out = block_recompute(xr, *ps, heads=heads, dim_head=dim_head,
+                              valid_len=valid_len, ln_eps=ln_eps)
+        grads = torch.autograd.grad(out, [xr, *ps], g)
+    if x.device.type == "cuda":
+        fused_block_recompute_bwd.launches += 1
+    return grads
+
+
+fused_block_recompute_bwd.launches = 0
+
+
 class _BlockTrain(torch.autograd.Function):
     """Differentiable block over master parameters of any float dtype: the
     matrices are cast to x.dtype (the compute dtype) inside, the vectors to
-    float32, and the gradients come back in the masters' dtypes."""
+    float32, and the gradients come back in the masters' dtypes. The route
+    (chain or recompute) follows ``uses_recompute``."""
 
     @staticmethod
     def forward(ctx, x, heads, dim_head, valid_len, ln_eps, cls, *masters):
         params = tuple(
             (m.to(x.dtype) if m.dim() == 2 else m.float()).contiguous()
             for m in masters)
+        x = x.contiguous()
         vl = x.shape[1] if valid_len is None else int(valid_len)
-        out, sv = train_forward(x.contiguous(), *params, heads=heads,
-                                dim_head=dim_head, valid_len=vl, ln_eps=ln_eps,
-                                cls=cls)
-        ctx.state = (x.contiguous(), params, sv, heads, dim_head, vl, cls)
-        ctx.dtypes = [m.dtype for m in masters]
+        kw = dict(heads=heads, dim_head=dim_head, valid_len=vl, ln_eps=ln_eps)
+        ctx.dtypes, ctx.cls = [m.dtype for m in masters], cls
+        if not cls and uses_recompute(x.shape[1], x.shape[2]):
+            ctx.state = (x, masters, None, kw)
+            return fused_block(x, *params, **kw)
+        out, sv = train_forward(x, *params, cls=cls, **kw)
+        ctx.state = (x, params, sv, kw)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, params, sv, heads, dim_head, vl, cls = ctx.state
+        x, params, sv, kw = ctx.state
         del ctx.state  # the kept activations go as soon as they are used
-        bwd = fused_block_cls_bwd if cls else fused_block_bwd
-        dx, *grads = bwd(x, g.to(x.dtype).contiguous(), *params, saved=sv,
-                         heads=heads, dim_head=dim_head, valid_len=vl)
+        g = g.to(x.dtype).contiguous()
+        if sv is None:
+            dx, *grads = fused_block_recompute_bwd(x, g, *params, **kw)
+        else:
+            del kw["ln_eps"]
+            bwd = fused_block_cls_bwd if ctx.cls else fused_block_bwd
+            dx, *grads = bwd(x, g, *params, saved=sv, **kw)
         return (dx, None, None, None, None, None,
                 *(d.to(t) for d, t in zip(grads, ctx.dtypes)))
 

@@ -197,6 +197,8 @@ def test_port_imports_without_jax():
                "print(len(sys.modules))\n")
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 20
+    assert {"surface_vision_transformers_tpu_torch.ops.flash_attention",
+            "surface_vision_transformers_tpu_torch.geometry.icosphere"} <= set(mods)
 
 
 def test_no_file_of_the_port_imports_jax():
