@@ -6,7 +6,8 @@
 Drives the port's serving and training paths
 (surface_vision_transformers_tpu_torch) at the full width of SiT-tiny
 (ico-6 sub-ico-2, dim 192, depth 12, 3 heads, mlp 768) and of SiT-base
-(ico-6 sub-ico-3, below) with random weights made from a numpy seed.
+(ico-6 sub-ico-3, below), and its MPP pretraining and dropout training
+(phases 14-19), with random weights made from a numpy seed.
 Phases, one line each; any failure raises, so the script exits non-zero
 and prints no result:
 
@@ -74,9 +75,49 @@ table) at full depth and width:
               memory), the same four steps with every block on the chain
               route for comparison, and a torch.profiler breakdown of one
               step.
-13. base-entry -- ``cli.train`` with the shipped config (2 epochs on a small
-              synthetic split, ``--set`` overrides), then ``cli.test`` on its
-              best_params.npz.
+13. base-entry -- ``cli.train`` with the shipped config cut to 4 blocks (2
+              epochs on a small synthetic split, ``--set`` overrides), then
+              ``cli.test`` on its best_params.npz.
+
+Phases 14-19 run the modular attention path and masked-patch pretraining
+(MPP) of SiT-tiny (``configs/pretraining/sit_tiny_mpp.yml``: the width
+above, N = 321, bs 32, bs_val 32) and supervised training with dropout:
+
+14. qkv-kernels -- ``flash_attention_qkv`` forward and backward (q, k, v and
+              dq, dk, dv through the packed (B, N, 3*H*dh) strides) against the
+              float32 and bf16 plain versions at B = 32 and 256, N = 321, and
+              N = 384 with valid_len 321; controls (last K/V tile skipped,
+              softmax scale x1.1, key mask ignored); times beside the plain
+              versions and SDPA on the same views.
+15. dropout-kernels -- ``flash_attention_qkv_dropout`` (rate 0.1) forward and
+              backward against the plain versions fed ``dropout_keep_mask`` of
+              the same seed, at B = 256, N = 321 and B = 32, N = 384 / 321;
+              controls (another seed's mask, the mask dropped in the backward
+              only); the kept share read off the forward's own output; times
+              beside the plain versions and SDPA with dropout_p.
+16. tiled  -- ``flash_attention_tiled`` at B = 2, 3 heads, N = 5,121 (sub-ico
+              4) against the plain versions with controls and times; then a
+              modular SiT-tiny-width model at that length (depth cut to 2)
+              trained three steps through it against plain attention.
+17. mpp-slice -- ten fused MPP steps (``fused_mpp_loss``) and ten modular ones
+              on the attention kernels (``tpu.fused_train: false``) against
+              the modular MPP with plain attention on identical corruption
+              (per-step loss, every parameter's update, a control), launches
+              per step; a frozen-decoder run; the validation loss through
+              ``flash_attention_qkv`` against the plain path with a control;
+              training surfaces/s at bs 32 and 256, evaluation at B = 32 and
+              256.
+18. dropout-train -- ten steps of SiT-tiny with dropout 0.1 at B = 256 on the
+              dropout kernel against plain attention on identical masks and
+              dropout streams, with a control; launches; the rate beside
+              phase 7's fused step.
+19. pretrain-entry -- ``cli.pretrain`` with the shipped MPP config, ``cli.test``
+              on its best_params.npz (the best val loss), and ``cli.train``
+              with the shipped supervised config finetuning from its
+              encoder_best_params.npz.
+
+The eager baselines of phases 3-12 run plain attention (``attn_backend=
+"plain"``), as their gates were set on it.
 
 Each phase prints its seconds. Then a JSON line of per-kernel results, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -90,6 +131,8 @@ import copy
 import csv
 import dataclasses
 import functools
+import importlib
+import io
 import json
 import math
 import subprocess
@@ -174,14 +217,20 @@ BASE_SLICE_TOL = 0.03  # |kernel path - eager bf16| in SiT-base predictions
 BASE_TRAIN_B, BASE_TRAIN_STEPS = 8, 4  # the eager comparison's batch and steps
 BASE_RATE_STEPS = 4  # steps of the kernel path alone at the config's bs 128
 BASE_LOSS_TOL = 1e-3  # relative, per step
+# Phase 13's CLI run cuts the shipped SiT-base config to 4 blocks: model
+# set-up and checkpoint writes at full depth took ~20 of its 50 s (NVIDIA
+# H100 80GB HBM3, 700 W).
+BASE_ENTRY_DEPTH = 4
 BASE_UPD_TOL = 0.05  # max |update difference| / max |eager update|, per tensor
 
 
 PHASE_STARTS: dict = {}  # phase name -> host time it started
+T0 = time.perf_counter()
 
 
 def start(name: str) -> None:
     PHASE_STARTS[name] = time.perf_counter()
+    print(f"-- {name} (at {PHASE_STARTS[name] - T0:.1f} s)", flush=True)
 
 
 def phase(name: str, msg: str) -> None:
@@ -216,6 +265,26 @@ def cuda_ms(fn, reps: int = 25) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: its CUDA kernels' time under
+    torch.profiler, summed over ``reps`` calls (after two warm-up calls) and
+    divided by ``reps``. Unlike a CUDA-event window it leaves out the gaps
+    where the device waits for the host's next launch."""
+    from torch.autograd import DeviceType
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / reps
 
 
 def jax_shaped_params(rng, num_vertices: int, num_channels: int = 4,
@@ -551,7 +620,8 @@ def eager_backward_ms(sit_module, p32, x, g, heads, dim, mlp, cls) -> float:
     """CUDA-event time of the eager bf16 SiT block's autograd backward (the
     whole block; its top rows under CLS), from float32 masters."""
     m = sit_module.SiT(dim=dim, depth=1, heads=heads, mlp_dim=mlp, dim_head=DH,
-                       num_patches=x.shape[1] - 1, dtype=torch.bfloat16).cuda()
+                       num_patches=x.shape[1] - 1, dtype=torch.bfloat16,
+                       attn_backend="plain").cuda()
     from surface_vision_transformers_tpu_torch.models.fused import block_parameters
 
     params = block_parameters(m)[0]
@@ -613,7 +683,7 @@ def phase_train(table) -> dict:
         optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED)
-        init = SiT(patch_table=table, dtype=torch.bfloat16).cuda()
+        init = SiT(patch_table=table, dtype=torch.bfloat16, attn_backend="plain").cuda()
     start = init.state_dict()
 
     def run(step_fn, model):
@@ -639,11 +709,9 @@ def phase_train(table) -> dict:
             return loss.detach()
         return run(step, model)
 
-    counters = kernel_counters(fb)
-    for c in counters.values():
-        c.launches = 0
+    counters = zero_counts(fb)
     k_loss, k_s, k_ms, k_upd = kernel_path()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_counts(counters)
     e_loss, e_s, e_ms, e_upd = eager_path()
     c_loss, _, _, c_upd = kernel_path(hook_block=5)
 
@@ -652,9 +720,9 @@ def phase_train(table) -> dict:
                    for k in e_upd)
 
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_loss, e_loss))
-    want = {"fused_block": 11 * TRAIN_STEPS, "fused_block_cls": TRAIN_STEPS,
-            "fused_block_bwd": 11 * TRAIN_STEPS, "fused_block_cls_bwd": TRAIN_STEPS,
-            "fused_block_recompute_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0}
+    want = {k: 0 for k in counters}
+    want.update(fused_block=11 * TRAIN_STEPS, fused_block_cls=TRAIN_STEPS,
+                fused_block_bwd=11 * TRAIN_STEPS, fused_block_cls_bwd=TRAIN_STEPS)
     phase("train", f"{TRAIN_STEPS} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={TRAIN_B}: "
           f"launches {launches}, expected {want}")
     phase("train", "losses kernel path " + " ".join(f"{v:.6g}" for v in k_loss))
@@ -679,7 +747,7 @@ def phase_train(table) -> dict:
         raise AssertionError("the kernel training path disagrees with the eager path")
     if upd_ratio(c_upd) <= TRAIN_UPD_TOL:
         raise AssertionError("the training control passed the gate")
-    return launches
+    return launches, k_s
 
 
 def phase_train_entry() -> None:
@@ -760,7 +828,13 @@ def kernel_counters(fb) -> dict:
             "fused_block_cls_bwd": fb.fused_block_cls_bwd,
             "fused_block_recompute_bwd": fb.fused_block_recompute_bwd,
             "flash_attention": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd}
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "flash_attention_qkv": fa.flash_attention_qkv_fwd,
+            "flash_attention_qkv_bwd": fa.flash_attention_qkv_bwd,
+            "flash_attention_qkv_dropout": fa.flash_attention_qkv_dropout_fwd,
+            "flash_attention_qkv_dropout_bwd": fa.flash_attention_qkv_dropout_bwd,
+            "flash_attention_tiled": fa.flash_attention_tiled_fwd,
+            "flash_attention_tiled_bwd": fa.flash_attention_tiled_bwd}
 
 
 def zero_counts(fb) -> dict:
@@ -961,7 +1035,8 @@ def phase_base_kernels(rng, fb, sit_module, m, bs) -> None:
     x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(
         np.float32)).to("cuda", torch.bfloat16)
     layer = sit_module.SiT(dim=dim, depth=1, heads=heads, mlp_dim=mlp, dim_head=DH,
-                           num_patches=N - 1, dtype=torch.bfloat16).cuda().transformer.layers[0]
+                           num_patches=N - 1, dtype=torch.bfloat16,
+                           attn_backend="plain").cuda().transformer.layers[0]
 
     def eager(xx):
         attn, ff = layer
@@ -999,7 +1074,7 @@ def phase_base_slice(rng, fb, fused, exp, table, state) -> None:
     from surface_vision_transformers_tpu_torch.models.sit import SiT
 
     m = exp.model
-    model = SiT.from_config(exp, patch_table=table, dtype=torch.bfloat16)
+    model = SiT.from_config(exp, patch_table=table, dtype=torch.bfloat16, attn_backend="plain")
     model.load_state_dict(state, strict=True)
     model = model.eval().cuda()
     w = fused.prepare_weights(model)
@@ -1071,7 +1146,8 @@ def phase_base_train(fb, exp, table) -> dict:
     optim = config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED)
-        init = SiT.from_config(exp, patch_table=table, dtype=torch.bfloat16).cuda()
+        init = SiT.from_config(exp, patch_table=table, dtype=torch.bfloat16,
+                               attn_backend="plain").cuda()
     start = init.state_dict()
 
     def batches_of(bs, n_batches, seed):
@@ -1219,9 +1295,9 @@ def profile_step(step_fn, bs) -> None:
 
 
 def phase_base_entry() -> None:
-    """Phase 13: cli.train with the shipped SiT-base config (2 epochs on a
-    small synthetic split, ``--set`` overrides), then cli.test on its
-    best_params.npz, in subprocesses."""
+    """Phase 13: cli.train with the shipped SiT-base config cut to
+    BASE_ENTRY_DEPTH blocks (2 epochs on a small synthetic split, ``--set``
+    overrides), then cli.test on its best_params.npz, in subprocesses."""
     from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1235,6 +1311,7 @@ def phase_base_entry() -> None:
         # MAE rose (4.80 -> 5.28) in a first reading on an H100
         sets = [f"data.data_path={tmp}", "data.split=validation", "training.bs=16",
                 "training.bs_val=8", "training.epochs=2", "training.val_epoch=1",
+                f"transformer.depth={BASE_ENTRY_DEPTH}",
                 f"logging.folder_to_save_model={tmp / 'runs'}"]
 
         def cli(tool, *extra):
@@ -1255,7 +1332,8 @@ def phase_base_entry() -> None:
         with open(run_dir / "metrics_val.csv") as f:
             val_mae = [float(r["val/mae"]) for r in csv.DictReader(f)]
         tested, t_test = cli("test", f"testing.path_to_ckpt={run_dir / 'best_params.npz'}")
-        phase("base-entry", f"cli.train {BASE_CFG.relative_to(ROOT)} in {t_train:.1f} s: val "
+        phase("base-entry", f"cli.train {BASE_CFG.relative_to(ROOT)} (depth {BASE_ENTRY_DEPTH}) "
+              f"in {t_train:.1f} s: val "
               "MAE by epoch " + " ".join(f"{v:.6g}" for v in val_mae) + f", best "
               f"{results['best_mae']:.6g} at epoch {results['best_epoch']}; phases_s "
               f"{results['phases_s']}; files missing: {missing or 'none'}; cli.test in "
@@ -1265,6 +1343,659 @@ def phase_base_entry() -> None:
         best = results["best_mae"]
         if tested["n"] != 16 or abs(tested["mae"] - best) > 1e-4 * best:
             raise AssertionError("cli.test disagrees with the best epoch's val MAE")
+
+
+# Phases 14-19: the modular attention path and MPP pretraining of SiT-tiny
+# (configs/pretraining/sit_tiny_mpp.yml: the width above, N = 321, bs 32,
+# bs_val 32), and supervised SiT-tiny training with dropout.
+MPP_CFG = ROOT / "configs/pretraining/sit_tiny_mpp.yml"
+TRAIN_CFG = ROOT / "configs/training/sit_tiny_scan_age.yml"
+# flash_attention_qkv cases (B, N, valid_len): the config's bs_val, the
+# training batch of phase 7, and the JAX package's padded N with its mask.
+QKV_CASES = [(32, 321, 321), (256, 321, 321), (32, 384, 321)]
+DROP_RATE, DROP_SEED = 0.1, 1234
+# Phases 14-16 time the attention kernels (and SDPA) by their device time
+# under torch.profiler (``device_ms``): at N=321 a CUDA-event window around
+# a call, or around ten back-to-back calls, measured the wrapper's host work
+# rather than the kernel. Phase 14 prints the wrappers' per-call time beside.
+DROP_CASES = [(256, 321, 321), (32, 384, 321)]
+# The keep fraction read off the dropout forward's own output (q = 0, v = 1:
+# each row's output is its kept share / (1 - rate)) may differ from the
+# mask's exact share by the bf16 rounding of o (2^-9 relative) and must sit
+# within 0.01 of 1 - rate.
+KEEP_TOL = 3e-3
+TILED_SHAPE = (2, 3, 5121)  # (B, heads, N): sub-ico 4, 5,120 patches + CLS
+TILED_DEPTH, TILED_STEPS = 2, 3  # the modular slice through the tiled entry
+MPP_STEPS = 10
+# Gates as phase 7's (relative per-step loss, per-tensor update against the
+# plain path) and the validation loss through the kernel against the plain
+# one, set from readings on an NVIDIA H100 80GB HBM3 at 700 W: MPP steps
+# against plain attention read loss gaps 1.15e-3 to 2.3e-3 (losses ~6-29 at
+# the seeded weights) and update gaps 0.012-0.024, the control 1.0 (its loss
+# gap 2.0e-3 passes the loss gate; the update gate rejects it); the
+# validation loss read 4.9e-5 and 6.3e-5 from the plain path, a control
+# masking keys >= 289 only 1.0e-3.
+MPP_LOSS_TOL, MPP_UPD_TOL, MPP_VAL_TOL = 5e-3, 0.05, 5e-4
+DROP_TRAIN_B, DROP_STEPS = 256, 10
+
+
+def step_ratio(got, want, ref32) -> float:
+    """Largest |got - want| over BOUND_STEPS bf16 steps at the largest
+    |ref32| of each output."""
+    return max((a.float() - b.float()).abs().max().item()
+               / (BOUND_STEPS * bf16_step(r.abs().max().item()))
+               for a, b, r in zip(got, want, ref32))
+
+
+def bf16_randn(rng, shape, scale=1.0):
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+
+
+def packed_qkv(rng, B, N):
+    """A packed (B, N, 3*H*dh) qkv at SiT-tiny width (q and k scaled as the
+    seeded weights' attention gains make them) and an output cotangent."""
+    qkv = torch.cat([bf16_randn(rng, (B, N, 2 * HD), 1.5), bf16_randn(rng, (B, N, HD))], -1)
+    return qkv, bf16_randn(rng, (B, N, HD))
+
+
+def qkv_plain(fa, qkv, do, vl, dtype=None, keep=None, keep_bwd=True, scale=1.0):
+    """(o, dqkv) of the packed plain versions in ``dtype`` (float32: the
+    exact reference; None: the inputs' bf16), 32 samples at a time; dropout
+    with ``keep`` (in the backward too unless ``keep_bwd`` is False)."""
+    parts = []
+    for s in range(0, qkv.shape[0], 32):
+        x, g = qkv[s:s + 32], do[s:s + 32]
+        if dtype is not None:
+            x, g = x.to(dtype), g.to(dtype)
+        if scale != 1.0:
+            x = torch.cat([x[..., :HD] * scale, x[..., HD:]], -1)
+        kp = None if keep is None else keep[s:s + 32]
+        rate = DROP_RATE if keep is not None else 0.0
+        o, lse = fa.flash_attention_qkv_reference(x, HEADS, vl, kp, rate)
+        d = fa.flash_attention_qkv_bwd_reference(
+            x, o, lse, g, HEADS, vl, kp if keep_bwd else None, rate if keep_bwd else 0.0)
+        parts.append((o, d))
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def attention_bound(B, H, nq, nk, tensors_fwd, tensors_bwd):
+    """(forward, backward) bounds: the forward's two products (Q.K^T, P.V),
+    the backward's four (dV, dP, dQ, dK), over keys and rows a run needs;
+    bytes of the inputs read and outputs written once."""
+    flops = 4 * B * H * nq * nk * DH
+    return bound_ms(flops, nbytes_of(*tensors_fwd)), bound_ms(2 * flops, nbytes_of(*tensors_bwd))
+
+
+def kernel_row(name, source_line, err, ms, plain_ms, bound, library_ms) -> dict:
+    return {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": f"{FLASH_TPU}:{source_line}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
+def phase_qkv(rng) -> dict:
+    """Phase 14: flash_attention_qkv forward and backward against the
+    float32 and bf16 plain versions at B = 32 and 256, N = 321, and N = 384
+    with valid_len 321, with controls; CUDA-event times beside the plain
+    versions and SDPA on the same views."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    results, times = {}, {}
+    for B, N, vl in QKV_CASES:
+        qkv, do = packed_qkv(rng, B, N)
+        o, lse = fa.flash_attention_qkv_fwd(qkv, HEADS, vl)
+        got = [o, fa.flash_attention_qkv_bwd(qkv, o, lse, do, HEADS, vl)]
+        ref32 = qkv_plain(fa, qkv, do, vl, torch.float32)
+        r32, rbf = step_ratio(got, ref32, ref32), step_ratio(got, qkv_plain(fa, qkv, do, vl), ref32)
+        errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref32)]
+        last = (vl - 1) // 64 * 64
+        controls = {"last K/V tile skipped": step_ratio(
+            got, qkv_plain(fa, qkv, do, last, torch.float32), ref32)}
+        if N > vl:
+            controls[f"key mask ignored (keys {vl}..{N - 1})"] = step_ratio(
+                got, qkv_plain(fa, qkv, do, N, torch.float32), ref32)
+        else:
+            controls["softmax scale x1.1"] = step_ratio(
+                got, qkv_plain(fa, qkv, do, vl, torch.float32, scale=1.1), ref32)
+        phase("qkv-kernels", f"B={B} N={N} valid_len={vl} (q/k/v and dq/dk/dv through the "
+              f"packed strides): worst |err|/bound over o, dqkv vs fp32 plain {r32:.4g}, vs "
+              f"plain bf16 {rbf:.4g}, bound {BOUND_STEPS} bf16 steps at each output's "
+              f"largest value; max abs err o {errs[0]:.6g}, dqkv {errs[1]:.6g}; controls "
+              "(must exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in controls.items()))
+        if not all(bool(torch.isfinite(x).all()) for x in got) or max(r32, rbf) > 1:
+            raise AssertionError("flash_attention_qkv disagrees with its plain version")
+        if min(controls.values()) <= 1:
+            raise AssertionError("flash_attention_qkv: a control passed the gate")
+        if N == vl:
+            q, k, v = fa.split_qkv(qkv, HEADS)
+            do4 = do.view(B, N, HEADS, DH).transpose(1, 2)
+            qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+            t = {"fwd": device_ms(lambda: fa.flash_attention_qkv_fwd(qkv, HEADS)),
+                 "bwd": device_ms(lambda: fa.flash_attention_qkv_bwd(qkv, o, lse, do, HEADS)),
+                 "plain_fwd": cuda_ms(lambda: fa.flash_attention_qkv_reference(qkv, HEADS),
+                                      reps=3),
+                 "plain_bwd": cuda_ms(lambda: fa.flash_attention_qkv_bwd_reference(
+                     qkv, o, lse, do, HEADS), reps=3),
+                 "sdpa_fwd": device_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                 "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
+                     sdpa_out, (qr, kr, vr), do4, retain_graph=True))}
+            bounds = attention_bound(B, HEADS, N, N, (qkv, o, lse), (qkv, o, lse, do, got[1]))
+            phase("qkv-kernels", f"B={B} N={N}: forward kernel {t['fwd']:.4f} ms, plain "
+                  f"{t['plain_fwd']:.4f}, SDPA {t['sdpa_fwd']:.4f}, bound {bounds[0][0]:.4f} ms "
+                  f"by {bounds[0][1]}; backward kernel {t['bwd']:.4f} ms, plain "
+                  f"{t['plain_bwd']:.4f}, SDPA {t['sdpa_bwd']:.4f}, bound {bounds[1][0]:.4f} ms "
+                  f"by {bounds[1][1]} (device time under torch.profiler, mean of 10 calls; plain: "
+                  "CUDA-event median of 3)")
+            call = (cuda_ms(lambda: fa.flash_attention_qkv_fwd(qkv, HEADS)),
+                    cuda_ms(lambda: fa.flash_attention_qkv_bwd(qkv, o, lse, do, HEADS)))
+            phase("qkv-kernels", f"B={B} N={N}: a wrapper call, host work included (CUDA-event "
+                  f"median of 25): forward {call[0]:.4f} ms, backward {call[1]:.4f} ms")
+            times[B] = (t, bounds, errs)
+            del sdpa_out, qr, kr, vr
+        del got, ref32
+        torch.cuda.empty_cache()
+    t, bounds, errs = times[32]  # the MPP validation batch
+    results["flash_attention_qkv"] = kernel_row(
+        "flash_attention_qkv", 462, errs[0], t["fwd"], t["plain_fwd"], bounds[0], t["sdpa_fwd"])
+    results["flash_attention_qkv_bwd"] = kernel_row(
+        "flash_attention_qkv_bwd", 427, errs[1], t["bwd"], t["plain_bwd"], bounds[1],
+        t["sdpa_bwd"])
+    return results
+
+
+def keep_fraction(fa, B, N, vl) -> tuple[float, float]:
+    """The dropout forward's kept share of the valid scores, read off its own
+    output at q = 0 (uniform P) and v = 1: (measured, the mask's exact
+    share)."""
+    qkv = torch.zeros((B, N, 3 * HD), device="cuda", dtype=torch.bfloat16)
+    qkv[..., 2 * HD:] = 1.0
+    qkv[..., HD:2 * HD] = torch.randn((B, N, HD), device="cuda").bfloat16()
+    o, _ = fa.flash_attention_qkv_dropout_fwd(qkv, HEADS, vl, DROP_RATE, DROP_SEED)
+    keep = fa.dropout_keep_mask(DROP_SEED, B, HEADS, N, N, DROP_RATE, device="cuda")
+    return ((o.float().mean() * (1 - DROP_RATE)).item(),
+            keep[..., :vl].float().mean().item())
+
+
+def phase_dropout(rng) -> dict:
+    """Phase 15: flash_attention_qkv_dropout forward and backward against
+    the float32 and bf16 plain versions fed ``dropout_keep_mask`` of the
+    same seed, with controls (another seed's mask; the mask dropped in the
+    backward only); the keep fraction off the forward's output; times
+    beside the plain versions and SDPA with dropout_p."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    for B, N, vl in DROP_CASES:
+        qkv, do = packed_qkv(rng, B, N)
+        o, lse = fa.flash_attention_qkv_dropout_fwd(qkv, HEADS, vl, DROP_RATE, DROP_SEED)
+        got = [o, fa.flash_attention_qkv_dropout_bwd(qkv, o, lse, do, HEADS, vl, DROP_RATE,
+                                                     DROP_SEED)]
+        keep = fa.dropout_keep_mask(DROP_SEED, B, HEADS, N, N, DROP_RATE, device="cuda")
+        ref32 = qkv_plain(fa, qkv, do, vl, torch.float32, keep)
+        r32 = step_ratio(got, ref32, ref32)
+        rbf = step_ratio(got, qkv_plain(fa, qkv, do, vl, keep=keep), ref32)
+        errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref32)]
+        other = fa.dropout_keep_mask(DROP_SEED + 1, B, HEADS, N, N, DROP_RATE, device="cuda")
+        controls = {
+            "another seed's mask": step_ratio(got, qkv_plain(fa, qkv, do, vl, torch.float32,
+                                                             other), ref32),
+            "mask dropped in the backward only": step_ratio(
+                got[1:], qkv_plain(fa, qkv, do, vl, torch.float32, keep, keep_bwd=False)[1:],
+                ref32[1:])}
+        measured, exact = keep_fraction(fa, B, N, vl)
+        phase("dropout-kernels", f"B={B} N={N} valid_len={vl} rate {DROP_RATE} seed {DROP_SEED}: "
+              f"worst |err|/bound over o, dqkv vs fp32 plain on the same mask {r32:.4g}, vs "
+              f"plain bf16 {rbf:.4g}; max abs err o {errs[0]:.6g}, dqkv {errs[1]:.6g}; kept "
+              f"share off the forward's output {measured:.6f} (mask {exact:.6f}, 1 - rate "
+              f"{1 - DROP_RATE}); controls (must exceed 1): "
+              + ", ".join(f"{k} {v:.4g}" for k, v in controls.items()))
+        if not all(bool(torch.isfinite(x).all()) for x in got) or max(r32, rbf) > 1:
+            raise AssertionError("flash_attention_qkv_dropout disagrees with its plain version")
+        if min(controls.values()) <= 1:
+            raise AssertionError("flash_attention_qkv_dropout: a control passed the gate")
+        if abs(measured - exact) > KEEP_TOL or abs(measured - (1 - DROP_RATE)) > 0.01:
+            raise AssertionError("the dropout kernel keeps the wrong share of the scores")
+        if B == DROP_TRAIN_B:
+            q, k, v = fa.split_qkv(qkv, HEADS)
+            do4 = do.view(B, N, HEADS, DH).transpose(1, 2)
+            qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qr, kr, vr, dropout_p=DROP_RATE)
+            t = {"fwd": device_ms(lambda: fa.flash_attention_qkv_dropout_fwd(
+                     qkv, HEADS, vl, DROP_RATE, DROP_SEED)),
+                 "bwd": device_ms(lambda: fa.flash_attention_qkv_dropout_bwd(
+                     qkv, o, lse, do, HEADS, vl, DROP_RATE, DROP_SEED)),
+                 "plain_fwd": cuda_ms(lambda: fa.flash_attention_qkv_reference(
+                     qkv, HEADS, vl, keep, DROP_RATE), reps=3),
+                 "plain_bwd": cuda_ms(lambda: fa.flash_attention_qkv_bwd_reference(
+                     qkv, o, lse, do, HEADS, vl, keep, DROP_RATE), reps=3),
+                 "sdpa_fwd": device_ms(lambda: F.scaled_dot_product_attention(
+                     q, k, v, dropout_p=DROP_RATE)),
+                 "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
+                     sdpa_out, (qr, kr, vr), do4, retain_graph=True))}
+            bounds = attention_bound(B, HEADS, N, N, (qkv, o, lse), (qkv, o, lse, do, got[1]))
+            phase("dropout-kernels", f"B={B} N={N}: forward kernel {t['fwd']:.4f} ms, plain "
+                  f"(mask given) {t['plain_fwd']:.4f}, SDPA dropout_p={DROP_RATE} "
+                  f"{t['sdpa_fwd']:.4f}, bound {bounds[0][0]:.4f} ms by {bounds[0][1]}; "
+                  f"backward kernel {t['bwd']:.4f} ms, plain {t['plain_bwd']:.4f}, SDPA "
+                  f"{t['sdpa_bwd']:.4f}, bound {bounds[1][0]:.4f} ms by {bounds[1][1]} "
+                  "(tensor-core products only; device time under torch.profiler, mean of 10 "
+                  "calls; plain: CUDA-event median of 3)")
+            rows = {"flash_attention_qkv_dropout": kernel_row(
+                        "flash_attention_qkv_dropout", 761, errs[0], t["fwd"], t["plain_fwd"],
+                        bounds[0], t["sdpa_fwd"]),
+                    "flash_attention_qkv_dropout_bwd": kernel_row(
+                        "flash_attention_qkv_dropout_bwd", 724, errs[1], t["bwd"],
+                        t["plain_bwd"], bounds[1], t["sdpa_bwd"])}
+            del sdpa_out, qr, kr, vr
+        del got, ref32, keep, other
+        torch.cuda.empty_cache()
+    return rows
+
+
+def upd_ratio(upd, ref) -> float:
+    """Worst |update - reference update| / max |reference update| over the
+    parameters the reference moved."""
+    return max(((upd[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
+               for k in ref if ref[k].abs().max() > 0)
+
+
+def trainer_run(exp, model, start, batches, steps, hook_block=None):
+    """``steps`` optimizer steps of ``Trainer(exp, model)`` on alternating
+    batches (``run_steps``); with ``hook_block`` that block's dW_fc1 is
+    zeroed (the control)."""
+    from surface_vision_transformers_tpu_torch.models.mpp import MPP
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    enc = model.transformer if isinstance(model, MPP) else model
+    if hook_block is not None:
+        enc.transformer.layers[hook_block][1].fn.net[0].weight.register_hook(torch.zeros_like)
+    trainer = Trainer(exp, model)
+    ones = torch.ones(batches[0][0].shape[0], device="cuda")
+    return run_steps(lambda xb, yb: trainer.optimizer_step(xb, yb, ones)[0], model, start,
+                     batches, steps)
+
+
+def gate_runs(name, label, run, plain, control, loss_tol, upd_tol) -> None:
+    """Phase 7's gate: per-step losses and every parameter's update of
+    ``run`` against ``plain``; ``control`` must fail the update gate."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run[0], plain[0]))
+    c_loss = max(abs(a - b) / abs(b) for a, b in zip(control[0], plain[0]))
+    r, c = upd_ratio(run[3], plain[3]), upd_ratio(control[3], plain[3])
+    phase(name, f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0]))
+    phase(name, f"{label}: plain   " + " ".join(f"{v:.6g}" for v in plain[0]))
+    phase(name, f"{label}: max relative loss gap {loss_err:.4g} (tol {loss_tol}); worst "
+          f"|update - plain update| / max |plain update| {r:.4g} (tol {upd_tol}); control, "
+          f"one block's dW_fc1 zeroed: {c:.4g} (must exceed the tol), loss gap {c_loss:.4g}")
+    if not all(math.isfinite(v) for v in run[0]) or loss_err > loss_tol or r > upd_tol:
+        raise AssertionError(f"{label} disagrees with the plain path")
+    if c <= upd_tol:
+        raise AssertionError(f"{label}: the control passed the gate")
+
+
+def phase_tiled(rng, fb) -> dict:
+    """Phase 16: flash_attention_tiled at N = 5,121 against the float32 and
+    bf16 plain versions with controls and times; then the modular SiT at
+    that length (depth cut to 2) trained through it (``tpu.fused_train:
+    false``) against plain attention, with the launches. -> kernel rows."""
+    from surface_vision_transformers_tpu_torch.geometry import patch_grid
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    B, H, N = TILED_SHAPE
+    q, k, v = bf16_randn(rng, (B, H, N, DH), 1.5), bf16_randn(rng, (B, H, N, DH), 1.5), \
+        bf16_randn(rng, (B, H, N, DH))
+    do = bf16_randn(rng, (B, H, N, DH))
+
+    def plain(dtype=None, vl=None, scale=1.0):
+        a = [x.to(dtype) if dtype else x for x in (q, k, v, do)]
+        o_, lse_ = fa.flash_attention_reference(a[0] * scale, *a[1:3], vl)
+        return [o_, *fa.flash_attention_bwd_reference(a[0] * scale, *a[1:3], o_, lse_, a[3], vl)]
+
+    o, lse = fa.flash_attention_tiled_fwd(q, k, v)
+    got = [o, *fa.flash_attention_tiled_bwd(q, k, v, o, lse, do)]
+    ref32 = plain(torch.float32)
+    r32, rbf = step_ratio(got, ref32, ref32), step_ratio(got, plain(), ref32)
+    errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref32)]
+    controls = {"last K/V tile skipped": step_ratio(got, plain(torch.float32, (N - 1) // 64 * 64),
+                                                    ref32),
+                "softmax scale x1.1": step_ratio(got, plain(torch.float32, scale=1.1), ref32)}
+    phase("tiled", f"B={B} H={H} N={N}: worst |err|/bound over o, dq, dk, dv vs fp32 plain "
+          f"{r32:.4g}, vs plain bf16 {rbf:.4g}; max abs err o {errs[0]:.6g}, dq/dk/dv "
+          f"{max(errs[1:]):.6g}; controls (must exceed 1): "
+          + ", ".join(f"{k_} {v_:.4g}" for k_, v_ in controls.items()))
+    if not all(bool(torch.isfinite(x).all()) for x in got) or max(r32, rbf) > 1:
+        raise AssertionError("flash_attention_tiled disagrees with its plain version")
+    if min(controls.values()) <= 1:
+        raise AssertionError("flash_attention_tiled: a control passed the gate")
+    del ref32, got
+    torch.cuda.empty_cache()
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+    t = {"fwd": device_ms(lambda: fa.flash_attention_tiled_fwd(q, k, v)),
+         "bwd": device_ms(lambda: fa.flash_attention_tiled_bwd(q, k, v, o, lse, do)),
+         "plain_fwd": cuda_ms(lambda: fa.flash_attention_reference(q, k, v), reps=3),
+         "plain_bwd": cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do),
+                              reps=3),
+         "sdpa_fwd": device_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+         "sdpa_bwd": device_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do,
+                                                         retain_graph=True))}
+    bounds = attention_bound(B, H, N, N, (q, k, v, o, lse), (q, k, v, o, lse, do, q, k, v))
+    phase("tiled", f"B={B} H={H} N={N}: forward kernel {t['fwd']:.4f} ms, plain "
+          f"{t['plain_fwd']:.4f}, SDPA {t['sdpa_fwd']:.4f}, bound {bounds[0][0]:.4f} ms by "
+          f"{bounds[0][1]}; backward kernel {t['bwd']:.4f} ms, plain {t['plain_bwd']:.4f}, "
+          f"SDPA {t['sdpa_bwd']:.4f}, bound {bounds[1][0]:.4f} ms by {bounds[1][1]} (device "
+          "time under torch.profiler, mean of 10 calls; plain: CUDA-event median of 3)")
+    rows = {"flash_attention_tiled": kernel_row("flash_attention_tiled", 1015, errs[0], t["fwd"],
+                                                t["plain_fwd"], bounds[0], t["sdpa_fwd"]),
+            "flash_attention_tiled_bwd": kernel_row(
+                "flash_attention_tiled_bwd", 966, max(errs[1:]), t["bwd"], t["plain_bwd"],
+                bounds[1], t["sdpa_bwd"])}
+    del sdpa_out, qr, kr, vr, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    # the modular SiT at sub-ico 4 (pre-patched input), trained through the
+    # tiled entry: blocks' attention via multi_head_attention beyond 1536
+    L, V = patch_grid(6, 4)
+    exp = config.Experiment(
+        model=config.ModelConfig(depth=TILED_DEPTH, num_patches=L, num_vertices=V),
+        training=config.TrainingConfig(bs=B), data=config.DataConfig(),
+        optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9), fused_train=False)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        start = {k_: v_.cuda() for k_, v_ in SiT.from_config(exp).state_dict().items()}
+
+    def model(backend):
+        m = SiT.from_config(exp, attn_backend=backend)
+        m.load_state_dict(start)
+        return m.cuda()
+
+    batches = [(torch.from_numpy(rng.standard_normal((B, 4, L, V)).astype(np.float32)).cuda(),
+                torch.full((B,), 35.0, device="cuda")) for _ in range(2)]
+    counters = zero_counts(fb)
+    run = trainer_run(exp, model("auto"), start, batches, TILED_STEPS)
+    launches = read_counts(counters)
+    plain_run = trainer_run(exp, model("plain"), start, batches, TILED_STEPS)
+    control = trainer_run(exp, model("auto"), start, batches, TILED_STEPS, hook_block=1)
+    want = {k_: 0 for k_ in counters}
+    want.update(flash_attention_tiled=TILED_DEPTH * TILED_STEPS,
+                flash_attention_tiled_bwd=TILED_DEPTH * TILED_STEPS)
+    phase("tiled", f"modular SiT-tiny width, depth {TILED_DEPTH}, N={L + 1}, B={B}, "
+          f"{TILED_STEPS} SGD steps (tpu.fused_train false): launches {launches}, expected {want}")
+    gate_runs("tiled", "tiled slice", run, plain_run, control, MPP_LOSS_TOL, MPP_UPD_TOL)
+    if launches != want:
+        raise AssertionError("the long-sequence path did not launch the tiled kernels")
+    for name in rows:
+        rows[name]["launches"] = launches[name]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mpp_models(rng, exp, table):
+    """(start state, make(backend, exp)) for MPP of SiT-tiny at the config's
+    width with seeded weights (phase 3's gains; mask token and head as the
+    reference initialises them)."""
+    from surface_vision_transformers_tpu_torch.checkpoints.convert import (
+        mpp_state,
+        state_dict_from_jax,
+    )
+    from surface_vision_transformers_tpu_torch.models.mpp import MPP
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.train.runner import load_model_state
+
+    m = exp.model
+    state = mpp_state(state_dict_from_jax(jax_shaped_params(rng, m.num_vertices), m.depth))
+    pd, b = 4 * m.num_vertices, 1.0 / np.sqrt(m.dim)
+    state["mask_token"] = torch.from_numpy(rng.standard_normal((1, 1, pd)).astype(np.float32))
+    state["to_original.weight"] = torch.from_numpy(rng.uniform(-b, b, (pd, m.dim)).astype(
+        np.float32))
+    state["to_original.bias"] = torch.from_numpy(rng.uniform(-b, b, pd).astype(np.float32))
+
+    def make(backend="auto", e=exp):
+        mp = e.mpp
+        model = MPP(SiT.from_config(e, patch_table=table, attn_backend=backend),
+                    mask_prob=mp.mask_prob, replace_prob=mp.replace_prob, swap_prob=mp.swap_prob)
+        load_model_state(model, state)
+        return model.cuda()
+
+    return {k: v.cuda() for k, v in make().state_dict().items()}, make
+
+
+def phase_mpp(rng, fb, table) -> dict:
+    """Phase 17: MPP of SiT-tiny per the shipped config: 10 fused steps
+    (``fused_mpp_loss``) and 10 modular steps with the kernels
+    (``tpu.fused_train: false``) against the modular MPP with plain
+    attention on identical corruption, with a control and the launches; a
+    frozen-decoder run; the validation loss through ``flash_attention_qkv``
+    against the plain path with a control; training and evaluation
+    surfaces/s. -> the attention kernels' main-path launches."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.models import sit as sit_module
+    from surface_vision_transformers_tpu_torch.models.mpp import mpp_target
+    from surface_vision_transformers_tpu_torch.train.trainer import evaluate_mpp
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    exp = config.load_config(MPP_CFG)
+    bs, bs_val = exp.training.bs, exp.training.bs_val
+    start, make = mpp_models(rng, exp, table)
+    raw, _ = make_regression_dataset(512, raw_vertices=40962, seed=SEED + 5)
+    with torch.no_grad():
+        tokens = mpp_target(make().transformer, torch.from_numpy(raw).cuda())
+    del raw
+    small = [(tokens[s:s + bs], None) for s in (0, bs)]
+    modular = dataclasses.replace(exp, fused_train=False)
+
+    counters = zero_counts(fb)
+    fused_run = trainer_run(exp, make(), start, small, MPP_STEPS)
+    fused_launches = read_counts(counters)
+    plain_run = trainer_run(modular, make("plain"), start, small, MPP_STEPS)
+    counters = zero_counts(fb)
+    mod_run = trainer_run(modular, make(), start, small, MPP_STEPS)
+    mod_launches = read_counts(counters)
+    control = trainer_run(exp, make(), start, small, MPP_STEPS, hook_block=5)
+    blocks = exp.model.depth
+    want_fused = {k: 0 for k in counters}
+    want_fused.update(fused_block=blocks * MPP_STEPS, fused_block_bwd=blocks * MPP_STEPS)
+    want_mod = {k: 0 for k in counters}
+    want_mod.update(flash_attention_qkv=blocks * MPP_STEPS,
+                    flash_attention_qkv_bwd=blocks * MPP_STEPS)
+    phase("mpp-slice", f"{MPP_CFG.relative_to(ROOT)}: {MPP_STEPS} SGD steps (LR "
+          f"{exp.optim.lr}, momentum {exp.optim.momentum}) at bs {bs}, mask/replace/swap "
+          f"{exp.mpp.mask_prob}/{exp.mpp.replace_prob}/{exp.mpp.swap_prob}; launches fused "
+          f"{fused_launches} (expected {want_fused}); modular with the kernels {mod_launches} "
+          f"(expected {want_mod})")
+    gate_runs("mpp-slice", "fused MPP (fused_mpp_loss)", fused_run, plain_run, control,
+              MPP_LOSS_TOL, MPP_UPD_TOL)
+    gate_runs("mpp-slice", "modular MPP with the attention kernels", mod_run, plain_run,
+              control, MPP_LOSS_TOL, MPP_UPD_TOL)
+    if fused_launches != want_fused or mod_launches != want_mod:
+        raise AssertionError("the MPP training paths did not launch as expected")
+    # steps 0, 2, 4, 6, 8 and 1, 3, 5, 7, 9 see the same batch
+    if not fused_run[0][8] < fused_run[0][0] or not fused_run[0][9] < fused_run[0][1]:
+        raise AssertionError("the MPP training loss did not fall")
+
+    frozen_exp = dataclasses.replace(exp, mpp=dataclasses.replace(exp.mpp,
+                                                                  optimize_decoder=False))
+    model = make(e=frozen_exp)
+    trainer_run(frozen_exp, model, start, small, 3)
+    decoder = ("to_original.weight", "to_original.bias", "mask_token")
+    after = model.state_dict()
+    same = all(torch.equal(after[k], start[k]) for k in decoder)
+    moved = not torch.equal(after["transformer.transformer.layers.0.0.fn.to_qkv.weight"],
+                            start["transformer.transformer.layers.0.0.fn.to_qkv.weight"])
+    phase("mpp-slice", f"optimize_decoder false, 3 fused steps: to_original and mask_token "
+          f"bit-identical {same}; the encoder moved {moved}")
+    if not same or not moved:
+        raise AssertionError("the frozen decoder moved, or the encoder did not")
+
+    val = tokens[:2 * bs_val]
+    k_model, p_model = make().eval(), make("plain").eval()
+    counters = zero_counts(fb)
+    k_loss = evaluate_mpp(k_model, val, bs_val)
+    val_launches = read_counts(counters)
+    p_loss = evaluate_mpp(p_model, val, bs_val)
+    real = sit_module.flash_attention_qkv
+    controls = {}
+    for label, fn in (("keys >= 161 masked", lambda qkv, heads, vl: real(qkv, heads, 161)),
+                      ("softmax scale x1.1", lambda qkv, heads, vl: real(
+                          torch.cat([qkv[..., :HD] * 1.1, qkv[..., HD:]], -1), heads, vl))):
+        with mock.patch.object(sit_module, "flash_attention_qkv", fn):
+            controls[label] = abs(evaluate_mpp(k_model, val, bs_val) - p_loss) / p_loss
+    gap = abs(k_loss - p_loss) / p_loss
+    want_val = {k: 0 for k in counters}
+    want_val.update(flash_attention_qkv=blocks * 2)
+    phase("mpp-slice", f"validation ({2 * bs_val} surfaces, bs_val {bs_val}, fixed corruption): "
+          f"loss through flash_attention_qkv {k_loss:.6g}, plain attention {p_loss:.6g}, "
+          f"relative gap {gap:.4g} (tol {MPP_VAL_TOL}); controls (must exceed the tol): "
+          + ", ".join(f"{k_} {v_:.4g}" for k_, v_ in controls.items())
+          + f"; launches {val_launches}, expected {want_val}")
+    if not math.isfinite(k_loss) or gap > MPP_VAL_TOL or val_launches != want_val:
+        raise AssertionError("MPP validation through the kernel disagrees with the plain path")
+    if min(controls.values()) <= MPP_VAL_TOL:
+        raise AssertionError("an MPP validation control passed the gate")
+
+    big = [(tokens[s:s + 256], None) for s in (0, 256)]
+    torch.cuda.reset_peak_memory_stats()
+    big_run = trainer_run(exp, make(), start, big, MPP_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for B, run in ((bs, fused_run), (256, big_run)):
+        phase("mpp-slice", f"fused MPP training at B={B}, steps 2..{MPP_STEPS} as one window "
+              f"(host clock, synchronized at both ends): {run[1] * 1e3:.3f} ms a step = "
+              f"{B / run[1]:.1f} surfaces/s; per-step CUDA-event times "
+              + " ".join(f"{v:.2f}" for v in run[2]) + " ms"
+              + (f"; peak {peak:.2f} GiB allocated" if B == 256 else ""))
+    phase("mpp-slice", f"modular MPP with the attention kernels at B={bs}: {mod_run[1] * 1e3:.3f} "
+          f"ms a step = {bs / mod_run[1]:.1f} surfaces/s; plain attention "
+          f"{plain_run[1] * 1e3:.3f} ms = {bs / plain_run[1]:.1f} surfaces/s")
+    for B in (bs_val, 256):
+        evaluate_mpp(k_model, tokens, B)  # warm-up
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_mpp(k_model, tokens, B)
+            secs.append(time.perf_counter() - t0)
+        secs.sort()
+        phase("mpp-slice", f"MPP evaluation of {tokens.shape[0]} surfaces at B={B} (median of 3, "
+              f"host clock): {secs[1] * 1e3:.2f} ms = {tokens.shape[0] / secs[1]:.1f} surfaces/s")
+    del tokens, small, big
+    torch.cuda.empty_cache()
+    return {"flash_attention_qkv": val_launches["flash_attention_qkv"],
+            "flash_attention_qkv_bwd": mod_launches["flash_attention_qkv_bwd"]}
+
+
+def phase_dropout_train(fb, table, fused_step_s) -> dict:
+    """Phase 18: ten SGD steps of ``Trainer`` on SiT-tiny with dropout 0.1 at
+    B = 256 (the modular path, attention on flash_attention_qkv_dropout)
+    against the same model with plain attention, both drawing identical
+    masks and dropout streams (``DropoutRNG`` of one seed; the plain route
+    takes the kernel's mask), with a control; the launches; the rate beside
+    phase 7's fused step without dropout. -> the launches."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    data, labels = make_regression_dataset(2 * DROP_TRAIN_B, raw_vertices=40962, seed=SEED)
+    data, labels = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+    batches = [(data[s:s + DROP_TRAIN_B], labels[s:s + DROP_TRAIN_B]) for s in (0, DROP_TRAIN_B)]
+    exp = config.Experiment(
+        model=config.ModelConfig(dropout=DROP_RATE), training=config.TrainingConfig(
+            bs=DROP_TRAIN_B), data=config.DataConfig(),
+        optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        start = SiT(patch_table=table, dropout=DROP_RATE).state_dict()
+
+    def model(backend):
+        m = SiT(patch_table=table, dtype=torch.bfloat16, dropout=DROP_RATE, attn_backend=backend)
+        m.load_state_dict(start)
+        return m.cuda()
+
+    start = {k: v.cuda() for k, v in start.items()}
+    counters = zero_counts(fb)
+    run = trainer_run(exp, model("auto"), start, batches, DROP_STEPS)
+    launches = read_counts(counters)
+    plain_run = trainer_run(exp, model("plain"), start, batches, DROP_STEPS)
+    control = trainer_run(exp, model("auto"), start, batches, DROP_STEPS, hook_block=5)
+    want = {k: 0 for k in counters}
+    want.update(flash_attention_qkv_dropout=DEPTH * DROP_STEPS,
+                flash_attention_qkv_dropout_bwd=DEPTH * DROP_STEPS)
+    phase("dropout-train", f"{DROP_STEPS} SGD steps (momentum 0.9, LR {TRAIN_LR}) at "
+          f"B={DROP_TRAIN_B}, dropout {DROP_RATE}: launches {launches}, expected {want}")
+    gate_runs("dropout-train", "dropout kernel path", run, plain_run, control, TRAIN_LOSS_TOL,
+              TRAIN_UPD_TOL)
+    if launches != want:
+        raise AssertionError("the dropout training path did not launch as expected")
+    if not run[0][-1] < run[0][0]:
+        raise AssertionError("the dropout training loss did not fall")
+    phase("dropout-train", f"steps 2..{DROP_STEPS} as one window (host clock): dropout kernel "
+          f"path {run[1] * 1e3:.3f} ms a step = {DROP_TRAIN_B / run[1]:.1f} surfaces/s; plain "
+          f"attention with dropout {plain_run[1] * 1e3:.3f} ms = "
+          f"{DROP_TRAIN_B / plain_run[1]:.1f}; phase 7's fused step without dropout "
+          f"{fused_step_s * 1e3:.3f} ms = {DROP_TRAIN_B / fused_step_s:.1f} surfaces/s "
+          f"({run[1] / fused_step_s:.3f}x its time); per-step CUDA-event times "
+          + " ".join(f"{v:.2f}" for v in run[2]) + " ms")
+    del data, labels, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pretrain_entry() -> None:
+    """Phase 19: cli.pretrain with the shipped MPP config on a synthetic
+    split, cli.test on the MPP config (the run's best val loss), and
+    cli.train finetuning from its encoder_best_params.npz with the shipped
+    supervised config."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data, labels = make_regression_dataset(96, raw_vertices=40962, seed=SEED + 6)
+        for split, sl in (("train", slice(0, 64)), ("validation", slice(64, 96))):
+            np.save(tmp / f"{split}_data.npy", data[sl])
+            np.save(tmp / f"{split}_labels.npy", labels[sl])
+        del data
+        common = [f"data.data_path={tmp}", "data.split=validation", "training.epochs=2",
+                  "training.val_epoch=1", f"logging.folder_to_save_model={tmp / 'runs'}"]
+
+        def cli(tool, cfg, *extra):
+            """The CLI's ``main`` with these arguments, in this process (phases
+            5, 8 and 13 run ``python -m`` in subprocesses); -> (the results
+            dict it prints last, seconds)."""
+            mod = importlib.import_module(f"surface_vision_transformers_tpu_torch.cli.{tool}")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mod.main([str(cfg), "--device", "cuda",
+                          *[a for s_ in (*common, *extra) for a in ("--set", s_)]])
+            last = out.getvalue().strip().splitlines()[-1]
+            return ast.literal_eval(last), time.perf_counter() - t0
+
+        pre, t_pre = cli("pretrain", MPP_CFG)
+        run_dir = Path(pre["run_dir"])
+        missing = [f for f in ("best_params.npz", "encoder_best_params.npz", "final_params.npz",
+                               "encoder_final_params.npz", "hparams_results.yml")
+                   if not (run_dir / f).exists()]
+        with open(run_dir / "metrics_val.csv") as f:
+            val_loss = [float(r["val/loss"]) for r in csv.DictReader(f)]
+        tested, t_test = cli("test", MPP_CFG,
+                             f"testing.path_to_ckpt={run_dir / 'best_params.npz'}")
+        ft, t_ft = cli("train", TRAIN_CFG, "training.bs=32", "training.bs_val=32",
+                       "training.load_weights_ssl=true",
+                       f"weights.ssl_mpp={run_dir / 'encoder_best_params.npz'}")
+        phase("pretrain-entry", f"cli.pretrain {MPP_CFG.relative_to(ROOT)} in {t_pre:.1f} s: val "
+              "loss by epoch " + " ".join(f"{v:.6g}" for v in val_loss) + f", best "
+              f"{pre['best_loss']:.6g} at epoch {pre['best_epoch']}; files missing: "
+              f"{missing or 'none'}; cli.test on best_params.npz in {t_test:.1f} s: {tested} "
+              f"(must equal the best val loss); cli.train {TRAIN_CFG.relative_to(ROOT)} from "
+              f"encoder_best_params.npz in {t_ft:.1f} s: best val MAE {ft['best_mae']:.6g}, run "
+              f"{Path(ft['run_dir']).name}")
+        if missing or len(val_loss) != 2 or not all(math.isfinite(v) for v in val_loss):
+            raise AssertionError("cli.pretrain did not pretrain as expected")
+        if tested["n"] != 32 or abs(tested["loss"] - pre["best_loss"]) > 1e-4 * pre["best_loss"]:
+            raise AssertionError("cli.test disagrees with the best epoch's val loss")
+        if not math.isfinite(ft["best_mae"]) or "-ssl-" not in Path(ft["run_dir"]).name:
+            raise AssertionError("cli.train did not finetune from the MPP encoder")
 
 
 def main() -> None:
@@ -1307,9 +2038,9 @@ def main() -> None:
     tree = jax_shaped_params(rng, table.shape[1])
     state = state_dict_from_jax(tree, DEPTH)
 
-    def sit(dtype):
+    def sit(dtype):  # the plain path: eager SiT, plain attention
         m = SiT(dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP, dim_head=DH,
-                patch_table=table, dtype=dtype)
+                patch_table=table, dtype=dtype, attn_backend="plain")
         m.load_state_dict(state, strict=True)
         return m.eval().to(dev)
 
@@ -1445,7 +2176,7 @@ def main() -> None:
 
     # -- 7. train (the training path; every count zeroed just before it)
     start("train")
-    launches = phase_train(table)
+    launches, fused_step_s = phase_train(table)
     for name in ("fused_block_bwd", "fused_block_cls_bwd"):
         kernels[name]["launches"] = launches[name]
     torch.cuda.empty_cache()
@@ -1488,6 +2219,33 @@ def main() -> None:
     # -- 13. base-entry
     start("base-entry")
     phase_base_entry()
+
+    # -- 14. qkv-kernels
+    start("qkv-kernels")
+    kernels.update(phase_qkv(rng))
+
+    # -- 15. dropout-kernels
+    start("dropout-kernels")
+    kernels.update(phase_dropout(rng))
+
+    # -- 16. tiled (its slice zeroes the counts just before it)
+    start("tiled")
+    kernels.update(phase_tiled(rng, fb))
+
+    # -- 17. mpp-slice (every count zeroed just before each run)
+    start("mpp-slice")
+    for name, n in phase_mpp(rng, fb, table).items():
+        kernels[name]["launches"] = n
+
+    # -- 18. dropout-train
+    start("dropout-train")
+    launches = phase_dropout_train(fb, table, fused_step_s)
+    for name in ("flash_attention_qkv_dropout", "flash_attention_qkv_dropout_bwd"):
+        kernels[name]["launches"] = launches[name]
+
+    # -- 19. pretrain-entry
+    start("pretrain-entry")
+    phase_pretrain_entry()
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

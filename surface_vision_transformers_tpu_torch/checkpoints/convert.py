@@ -11,6 +11,13 @@ Linear weights (out, in), LayerNorm scale/bias become weight/bias.
 ``jax_params_from_state_dict`` and ``save_params_npz`` are the inverse, so
 the JAX package's ``run_testing`` reads the port's ``best_params.npz`` and
 the port reads the JAX package's.
+
+MPP: the JAX tree ``{"encoder": SiT tree, "mask_token", "to_original"}``
+maps onto the reference MPP state dict (``transformer.*`` for the encoder,
+``mask_token``, ``to_original.{weight,bias}``), as the JAX package's
+``checkpoints.torch_import.mpp_params_from_torch`` maps it;
+``encoder_state`` and ``mpp_state`` move a state dict between the two
+layouts.
 """
 
 from __future__ import annotations
@@ -79,10 +86,11 @@ def state_dict_from_jax(
         out[f"{pre}.1.fn.net.0.bias"] = c(m["fc1"]["bias"])
         out[f"{pre}.1.fn.net.3.weight"] = t(m["fc2"]["kernel"])
         out[f"{pre}.1.fn.net.3.bias"] = c(m["fc2"]["bias"])
-    out["mlp_head.0.weight"] = c(p["head_norm"]["scale"])
-    out["mlp_head.0.bias"] = c(p["head_norm"]["bias"])
-    out["mlp_head.1.weight"] = t(p["head"]["kernel"])
-    out["mlp_head.1.bias"] = c(p["head"]["bias"])
+    if "head" in p:  # an MPP's encoder tree has no head
+        out["mlp_head.0.weight"] = c(p["head_norm"]["scale"])
+        out["mlp_head.0.bias"] = c(p["head_norm"]["bias"])
+        out["mlp_head.1.weight"] = t(p["head"]["kernel"])
+        out["mlp_head.1.bias"] = c(p["head"]["bias"])
     return out
 
 
@@ -90,7 +98,8 @@ def jax_params_from_state_dict(
     state: Mapping[str, torch.Tensor], depth: int
 ) -> dict[str, Any]:
     """Inverse of ``state_dict_from_jax``: reference-layout state dict ->
-    JAX SiT param tree of float32 numpy arrays (flax (in, out) kernels)."""
+    JAX SiT param tree of float32 numpy arrays (flax (in, out) kernels);
+    ``head_norm`` / ``head`` when the state has ``mlp_head``."""
 
     def c(k):
         return state[k].detach().cpu().float().numpy().copy()
@@ -112,15 +121,65 @@ def jax_params_from_state_dict(
             "fc1": {"kernel": t(f"{pre}.1.fn.net.0.weight"), "bias": c(f"{pre}.1.fn.net.0.bias")},
             "fc2": {"kernel": t(f"{pre}.1.fn.net.3.weight"), "bias": c(f"{pre}.1.fn.net.3.bias")},
         }
-    return {
+    out = {
         "patch_embedding_kernel": t("to_patch_embedding.1.weight"),
         "patch_embedding_bias": c("to_patch_embedding.1.bias"),
         "pos_embedding": c("pos_embedding"),
         "cls_token": c("cls_token"),
         "encoder": enc,
-        "head_norm": {"scale": c("mlp_head.0.weight"), "bias": c("mlp_head.0.bias")},
-        "head": {"kernel": t("mlp_head.1.weight"), "bias": c("mlp_head.1.bias")},
     }
+    if "mlp_head.1.weight" in state:
+        out["head_norm"] = {"scale": c("mlp_head.0.weight"), "bias": c("mlp_head.0.bias")}
+        out["head"] = {"kernel": t("mlp_head.1.weight"), "bias": c("mlp_head.1.bias")}
+    return out
+
+
+def mpp_state_dict_from_jax(params: Mapping[str, Any], depth: int) -> dict[str, torch.Tensor]:
+    """A JAX MPP param tree (optionally under ``params``) -> reference MPP
+    state dict, without the encoder's head (the tree has none;
+    ``train.runner.load_model_state`` keeps the model's own)."""
+    p = params["params"] if "params" in params else params
+    out = mpp_state(state_dict_from_jax(p["encoder"], depth))
+    out["mask_token"] = torch.from_numpy(np.array(p["mask_token"]))
+    out["to_original.weight"] = torch.from_numpy(
+        np.array(np.asarray(p["to_original"]["kernel"]).T, order="C"))
+    out["to_original.bias"] = torch.from_numpy(np.array(p["to_original"]["bias"]))
+    return out
+
+
+def jax_params_from_mpp_state_dict(state: Mapping[str, torch.Tensor],
+                                   depth: int) -> dict[str, Any]:
+    """Inverse of ``mpp_state_dict_from_jax``. The encoder's head, which MPP
+    never runs (a reference state dict carries it), is left out, as the JAX
+    MPP tree has none."""
+    def c(k):
+        return state[k].detach().cpu().float().numpy().copy()
+
+    enc = {k: v for k, v in encoder_state(state).items() if not k.startswith("mlp_head.")}
+    return {"encoder": jax_params_from_state_dict(enc, depth),
+            "mask_token": c("mask_token"),
+            "to_original": {"kernel": np.ascontiguousarray(c("to_original.weight").T),
+                            "bias": c("to_original.bias")}}
+
+
+def is_mpp_state(state: Mapping[str, Any]) -> bool:
+    """Whether a state dict is in the MPP layout (encoder under
+    ``transformer.``)."""
+    return "mask_token" in state or any(k.startswith("transformer.transformer.")
+                                        for k in state)
+
+
+def encoder_state(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The SiT state dict inside an MPP one (a SiT one is returned as is)."""
+    if not is_mpp_state(state):
+        return dict(state)
+    n = len("transformer.")
+    return {k[n:]: v for k, v in state.items() if k.startswith("transformer.")}
+
+
+def mpp_state(sit_state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A SiT state dict nested as an MPP encoder's."""
+    return {f"transformer.{k}": v for k, v in sit_state.items()}
 
 
 def save_params_npz(path: str | os.PathLike, tree: Mapping[str, Any]) -> None:

@@ -1,0 +1,26 @@
+"""MPP pretraining CLI::
+
+    python -m surface_vision_transformers_tpu_torch.cli.pretrain mpp.yml \
+        [--set training.epochs=10] [--device cuda]
+
+Forces the MPP task (``SSL: mpp``), runs ``train.runner.run_training`` and
+prints its results dict; the run folder under
+``logging.folder_to_save_model`` gets ``best_params.npz`` and
+``encoder_best_params.npz`` (the encoder alone, for ``cli.train`` with
+``training.load_weights_ssl``).
+"""
+
+from surface_vision_transformers_tpu_torch.cli._common import parse_config
+
+
+def main(argv=None) -> None:
+    raw, device = parse_config("SiT masked-patch pretraining (PyTorch/CUDA)", argv)
+    raw.setdefault("SSL", "mpp")  # force the MPP task
+    from surface_vision_transformers_tpu_torch.train.runner import run_training
+    from surface_vision_transformers_tpu_torch.utils.config import from_dict
+
+    print(run_training(from_dict(raw), device=device))
+
+
+if __name__ == "__main__":
+    main()

@@ -18,8 +18,7 @@ def main(argv=None) -> None:
 
     exp = from_dict(raw)
     if exp.is_pretraining:
-        raise SystemExit("config contains a pretraining_mpp block; MPP "
-                         "pretraining is not ported yet")
+        raise SystemExit("config contains a pretraining_mpp block; use cli.pretrain")
     print(run_training(exp, device=device))
 
 

@@ -81,6 +81,25 @@ __device__ __forceinline__ long long map_row(int r, int rpg, int gstride) {
   return (long long)(r / rpg) * gstride + (r % rpg);
 }
 
+// Philox4x32-10 (Salmon et al., SC'11): four 32-bit words from a 128-bit
+// counter {c0, c1, 0, 0} and a 64-bit key {k0, k1}. The port's plain torch
+// copy is ops/flash_attention.py::philox4x32.
+__device__ __forceinline__ uint4 philox4x32(uint32_t c0, uint32_t c1, uint32_t k0, uint32_t k1) {
+  uint32_t c2 = 0, c3 = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
 // -- attention, head dim 64 (forward and backward)
 
 constexpr int ATT_DH = 64, ATT_BQ = 64, ATT_BK = 32, ATT_LD = ATT_DH + 8, ATT_THREADS = 128;

@@ -21,7 +21,29 @@
 //            K and V rows as fragments and walks the queries in chunks of 32
 //            (double-buffered), dV += P^T dO, dK += dS^T Q.
 // No atomics: outputs repeat bit for bit from run to run. The block chains
-// call the same launchers on their packed activations (flash_attention.cuh).
+// call the same launchers on their packed activations (flash_attention.cuh),
+// and so does flash_attention_qkv on the packed (B, N, 3 H 64) qkv, through
+// strides, writing dq, dk and dv into one packed gradient.
+//
+// Dropout (flash_attention_qkv_dropout, replacing _fwd_packed_drop /
+// _bwd_packed_drop) is a compile-time flag on all three kernels. The TPU
+// kernel regenerates its mask from the Mosaic PRNG seeded per (batch, head)
+// over the whole (N, N) tile; here the three passes tile the scores three
+// ways (64 x 64 forward, 64 x 32 dQ, 16 keys x 32 queries dK/dV), so the
+// keep bit of score (b, h, row, col) is a pure function of its absolute
+// coordinates: word col & 3 of Philox4x32-10 at counter {row, col / 4} under
+// key {seed, b * heads + h} (common.cuh), kept when >= threshold. A counter
+// built from tile or block indices would give a forward and a backward that
+// disagree, which no forward-only check sees. The row max, the sum l and lse
+// are the undropped softmax's; O = keep(P) V / l / (1 - rate); dV = P~^T dO
+// with P~ = keep(P) / (1 - rate); dP = keep(dO V^T) / (1 - rate); dS =
+// P (dP - delta) / 8. delta = rowsum(dO . O) stays the right correction
+// because O is the dropped output the forward returned (rowsum(P dP) =
+// dO . (P~ V)). Each thread draws one Philox (ten rounds of two 32-bit
+// multiplies with their high halves) per two scores in the forward and the
+// dQ pass and one per score in the dK/dV pass (a thread's consecutive scores
+// there are consecutive queries, which share no counter): integer work the
+// no-dropout kernels do not have; PERF.md has its cost beside theirs.
 //
 // Numerics: scores, softmax, sums and accumulators in fp32; P rounded to
 // bf16 before P.V and divided by the sum after it; P and dS rounded to bf16
@@ -99,6 +121,19 @@ __device__ __forceinline__ void mma_pv(float acc[ATT_DH / 8][4], const uint32_t 
   }
 }
 
+// Dropout words of scores (row, col) and (row, col + 1), col even.
+__device__ __forceinline__ uint2 drop_pair(const Dropout& dr, uint32_t bh, int row, int col) {
+  const uint4 w = philox4x32((uint32_t)row, (uint32_t)col >> 2, dr.seed, bh);
+  return (col & 2) ? make_uint2(w.z, w.w) : make_uint2(w.x, w.y);
+}
+
+// The dropout word of score (row, col).
+__device__ __forceinline__ uint32_t drop_word(const Dropout& dr, uint32_t bh, int row, int col) {
+  const uint4 w = philox4x32((uint32_t)row, (uint32_t)col >> 2, dr.seed, bh);
+  const int e = col & 3;
+  return e == 0 ? w.x : e == 1 ? w.y : e == 2 ? w.z : w.w;
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -121,9 +156,10 @@ __device__ __forceinline__ void mask_keys(float (*s)[4], int nt_count, int kb, i
   }
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(ATT_THREADS)
     flash_fwd_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
-                     float* __restrict__ lse, int nq, int nk, int valid_len) {
+                     float* __restrict__ lse, int nq, int nk, int valid_len, const Dropout dr) {
   __shared__ __align__(16) bf16 sQ[ATT_BQ * ATT_LD];
   __shared__ __align__(16) bf16 sK[2][FA_BK * ATT_LD];
   __shared__ __align__(16) bf16 sV[2][FA_BK * ATT_LD];
@@ -196,6 +232,19 @@ __global__ void __launch_bounds__(ATT_THREADS)
         l_lo += s[nt][0] + s[nt][1];
         l_hi += s[nt][2] + s[nt][3];
       }
+      if constexpr (DROP) {  // l keeps the undropped sum; P.V takes keep(P)
+        const uint32_t bh = (uint32_t)(b * gridDim.y + h);
+        const int r_lo = q0 + warp * 16 + g;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = tile * FA_BK + nt * 8 + 2 * t;
+          const uint2 lo = drop_pair(dr, bh, r_lo, col), hi = drop_pair(dr, bh, r_lo + 8, col);
+          if (lo.x < dr.threshold) s[nt][0] = 0.f;
+          if (lo.y < dr.threshold) s[nt][1] = 0.f;
+          if (hi.x < dr.threshold) s[nt][2] = 0.f;
+          if (hi.y < dr.threshold) s[nt][3] = 0.f;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {  // O += bf16(P) . V, 16 keys per k-step
         uint32_t pf[4];
@@ -209,7 +258,8 @@ __global__ void __launch_bounds__(ATT_THREADS)
 
   l_lo = quad_sum(l_lo);
   l_hi = quad_sum(l_hi);
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  const float inv_lo = (DROP ? dr.inv_keep : 1.f) / l_lo;
+  const float inv_hi = (DROP ? dr.inv_keep : 1.f) / l_hi;
   const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
   if (lse != nullptr && t == 0) {
     float* lrow = lse + ((long long)b * gridDim.y + h) * nq;
@@ -231,11 +281,12 @@ __global__ void __launch_bounds__(ATT_THREADS)
 // dQ pass. Per 32 keys of a tile: S = Q K^T, dP = dO V^T, P = exp(S/8 -
 // lse) on keys < kend and rows < qend (the others' lse is taken as +inf, so
 // P = 0), dS = P (dP - delta) / 8, dQ += bf16(dS) K.
+template <bool DROP>
 __global__ void __launch_bounds__(ATT_THREADS)
     flash_bwd_dq_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
                         const Strided d_o, const float* __restrict__ lse,
                         float* __restrict__ delta, const Strided dq, int nq, int nk,
-                        int valid_len) {
+                        int valid_len, const Dropout dr) {
   __shared__ __align__(16) bf16 sQ[ATT_BQ * ATT_LD];  // the Q tile, then the dO tile
   __shared__ __align__(16) bf16 sK[2][FA_BK * ATT_LD];
   __shared__ __align__(16) bf16 sV[2][FA_BK * ATT_LD];
@@ -308,6 +359,18 @@ __global__ void __launch_bounds__(ATT_THREADS)
         score_chunk(s, qf, sK[st], half * ATT_BK, lane);
         score_chunk(dp, of, sV[st], half * ATT_BK, lane);  // dP = dO . V^T
         if (kb + ATT_BK > kend) mask_keys(s, 4, kb, kend, t);
+        if constexpr (DROP) {  // dP = keep(dO . V^T) / (1 - rate)
+          const uint32_t bh = (uint32_t)(b * gridDim.y + h);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int col = kb + nt * 8 + 2 * t;
+            const uint2 lo = drop_pair(dr, bh, r_lo, col), hi = drop_pair(dr, bh, r_hi, col);
+            dp[nt][0] = lo.x >= dr.threshold ? dp[nt][0] * dr.inv_keep : 0.f;
+            dp[nt][1] = lo.y >= dr.threshold ? dp[nt][1] * dr.inv_keep : 0.f;
+            dp[nt][2] = hi.x >= dr.threshold ? dp[nt][2] * dr.inv_keep : 0.f;
+            dp[nt][3] = hi.y >= dr.threshold ? dp[nt][3] * dr.inv_keep : 0.f;
+          }
+        }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const float p0 = exp2_approx(fmaf(s[nt][0], kScaleLog2, -l_lo));
@@ -345,10 +408,12 @@ __global__ void __launch_bounds__(ATT_THREADS)
 // dK/dV pass: S^T and dP^T for the warp's 16 keys x a chunk of 32 queries.
 // Queries >= qend get lse = +inf (P = 0); keys >= kend are masked in the
 // warps that hold any.
+template <bool DROP>
 __global__ void __launch_bounds__(ATT_THREADS)
     flash_bwd_dkdv_kernel(const Strided q, const Strided k, const Strided v, const Strided d_o,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          const Strided dk, const Strided dv, int nq, int nk, int valid_len) {
+                          const Strided dk, const Strided dv, int nq, int nk, int valid_len,
+                          const Dropout dr) {
   __shared__ __align__(16) bf16 sK[KV_BK * ATT_LD];
   __shared__ __align__(16) bf16 sV[KV_BK * ATT_LD];
   __shared__ __align__(16) bf16 sQc[2][KV_QC * ATT_LD];
@@ -414,8 +479,15 @@ __global__ void __launch_bounds__(ATT_THREADS)
       for (int e = 0; e < 4; ++e) {
         const int ql = nt * 8 + 2 * t + (e & 1);
         const float pr = exp2_approx(fmaf(s[nt][e], kScaleLog2, -sL[st][ql]));
-        s[nt][e] = pr;
-        dp[nt][e] = pr * (dp[nt][e] - sD[st][ql]) * kScale;  // dS^T
+        if constexpr (DROP) {  // P~ = keep(P) / (1 - rate) for dV; keep(dP) / (1 - rate)
+          const bool kept = drop_word(dr, (uint32_t)(b * gridDim.y + h), c * KV_QC + ql,
+                                      e < 2 ? key_lo : key_hi) >= dr.threshold;
+          s[nt][e] = kept ? pr * dr.inv_keep : 0.f;
+          dp[nt][e] = pr * ((kept ? dp[nt][e] * dr.inv_keep : 0.f) - sD[st][ql]) * kScale;
+        } else {
+          s[nt][e] = pr;
+          dp[nt][e] = pr * (dp[nt][e] - sD[st][ql]) * kScale;  // dS^T
+        }
       }
     }
 #pragma unroll
@@ -453,22 +525,43 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 namespace svt {
 
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
-                      int nq, int nk, int valid_len, cudaStream_t st) {
-  flash_fwd_kernel<<<dim3(ceil_div(nq, ATT_BQ), heads, B), ATT_THREADS, 0, st>>>(
-      q, k, v, o, lse, nq, nk, valid_len);
+                      int nq, int nk, int valid_len, cudaStream_t st, Dropout dr) {
+  const dim3 grid(ceil_div(nq, ATT_BQ), heads, B);
+  if (dr.on)
+    flash_fwd_kernel<true><<<grid, ATT_THREADS, 0, st>>>(q, k, v, o, lse, nq, nk, valid_len, dr);
+  else
+    flash_fwd_kernel<false><<<grid, ATT_THREADS, 0, st>>>(q, k, v, o, lse, nq, nk, valid_len, dr);
   return cudaGetLastError();
 }
 
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
                       float* delta, Strided dq, Strided dk, Strided dv, int B, int heads, int nq,
-                      int nk, int valid_len, cudaStream_t st) {
-  flash_bwd_dq_kernel<<<dim3(ceil_div(nq, ATT_BQ), heads, B), ATT_THREADS, 0, st>>>(
-      q, k, v, o, d_o, lse, delta, dq, nq, nk, valid_len);
+                      int nk, int valid_len, cudaStream_t st, Dropout dr) {
+  const dim3 grid_q(ceil_div(nq, ATT_BQ), heads, B), grid_k(ceil_div(nk, KV_BK), heads, B);
+  if (dr.on)
+    flash_bwd_dq_kernel<true><<<grid_q, ATT_THREADS, 0, st>>>(q, k, v, o, d_o, lse, delta, dq,
+                                                              nq, nk, valid_len, dr);
+  else
+    flash_bwd_dq_kernel<false><<<grid_q, ATT_THREADS, 0, st>>>(q, k, v, o, d_o, lse, delta, dq,
+                                                               nq, nk, valid_len, dr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<<<dim3(ceil_div(nk, KV_BK), heads, B), ATT_THREADS, 0, st>>>(
-      q, k, v, d_o, lse, delta, dk, dv, nq, nk, valid_len);
+  if (dr.on)
+    flash_bwd_dkdv_kernel<true><<<grid_k, ATT_THREADS, 0, st>>>(q, k, v, d_o, lse, delta, dk,
+                                                                dv, nq, nk, valid_len, dr);
+  else
+    flash_bwd_dkdv_kernel<false><<<grid_k, ATT_THREADS, 0, st>>>(q, k, v, d_o, lse, delta, dk,
+                                                                 dv, nq, nk, valid_len, dr);
   return cudaGetLastError();
+}
+
+Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) {
+  Dropout dr;
+  dr.seed = seed;
+  dr.threshold = threshold;
+  dr.inv_keep = inv_keep;
+  dr.on = on;
+  return dr;
 }
 
 }  // namespace svt
@@ -478,21 +571,26 @@ extern "C" {
 // flash_attention forward: q (B, heads, nq, 64), k and v (B, heads, nk, 64),
 // o (B, heads, nq, 64), each bf16 at (batch, head, row) strides in elements
 // with its last dimension contiguous; lse (B, heads, nq) fp32 contiguous.
+// Dropout on the probabilities when `drop` (seed, threshold on the Philox
+// word, inv_keep = 1 / (1 - rate)).
 int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
                             long long o_sb, long long o_sh, long long o_sr, void* lse, int B,
-                            int heads, int nq, int nk, int valid_len, int device, void* stream) {
+                            int heads, int nq, int nk, int valid_len, unsigned seed,
+                            unsigned threshold, float inv_keep, int drop, int device,
+                            void* stream) {
   SVT_TRY(cudaSetDevice(device));
   return (int)flash_fwd({(bf16*)q, q_sb, q_sh, q_sr}, {(bf16*)k, k_sb, k_sh, k_sr},
                         {(bf16*)v, v_sb, v_sh, v_sr}, {(bf16*)o, o_sb, o_sh, o_sr},
                         (float*)lse, B, heads, nq, nk, valid_len,
-                        static_cast<cudaStream_t>(stream));
+                        static_cast<cudaStream_t>(stream),
+                        make_dropout(seed, threshold, inv_keep, drop));
 }
 
 // flash_attention backward: the forward's operands, o and lse, the output
 // cotangent d_o (as o) -> dq (as q), dk, dv (as k); delta (B, heads, nq) fp32
-// scratch.
+// scratch. Dropout as the forward's, which gave o.
 int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
@@ -502,6 +600,7 @@ int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q
                             long long dq_sr, void* dk, long long dk_sb, long long dk_sh,
                             long long dk_sr, void* dv, long long dv_sb, long long dv_sh,
                             long long dv_sr, int B, int heads, int nq, int nk, int valid_len,
+                            unsigned seed, unsigned threshold, float inv_keep, int drop,
                             int device, void* stream) {
   SVT_TRY(cudaSetDevice(device));
   return (int)flash_bwd({(bf16*)q, q_sb, q_sh, q_sr}, {(bf16*)k, k_sb, k_sh, k_sr},
@@ -509,7 +608,8 @@ int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q
                         {(bf16*)d_o, do_sb, do_sh, do_sr}, (const float*)lse, (float*)delta,
                         {(bf16*)dq, dq_sb, dq_sh, dq_sr}, {(bf16*)dk, dk_sb, dk_sh, dk_sr},
                         {(bf16*)dv, dv_sb, dv_sh, dv_sr}, B, heads, nq, nk, valid_len,
-                        static_cast<cudaStream_t>(stream));
+                        static_cast<cudaStream_t>(stream),
+                        make_dropout(seed, threshold, inv_keep, drop));
 }
 
 }  // extern "C"

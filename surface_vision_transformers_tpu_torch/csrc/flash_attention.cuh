@@ -22,15 +22,28 @@ inline Strided packed(const bf16* p, int rows, int ld) {
   return Strided{const_cast<bf16*>(p), (long long)rows * ld, ATT_DH, ld};
 }
 
+// Dropout on the softmax probabilities (flash_attention_qkv_dropout): score
+// (b, h, row, col) is kept when word (col & 3) of
+// Philox4x32-10(counter {row, col / 4, 0, 0}, key {seed, b * heads + h})
+// is >= threshold; kept probabilities are scaled by inv_keep. Off unless
+// `on`.
+struct Dropout {
+  uint32_t seed = 0, threshold = 0;
+  float inv_keep = 1.f;
+  int on = 0;
+};
+
 // O = softmax(Q K^T / 8) V over keys < valid_len, lse = the row log-sum-exp
-// (B, heads, nq) fp32 (skipped when nullptr).
+// (B, heads, nq) fp32 (skipped when nullptr). With dropout, the max, the
+// sum and lse are the undropped softmax's and O = keep(P) V / l * inv_keep.
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
-                      int nq, int nk, int valid_len, cudaStream_t st);
+                      int nq, int nk, int valid_len, cudaStream_t st, Dropout dr = Dropout{});
 
 // The backward from the forward's O and lse: dQ and delta = rowsum(dO . O)
-// (B, heads, nq) fp32, then dK and dV. Two passes, no atomics.
+// (B, heads, nq) fp32, then dK and dV. Two passes, no atomics. With
+// dropout, O must be the dropped output the forward returned.
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
                       float* delta, Strided dq, Strided dk, Strided dv, int B, int heads, int nq,
-                      int nk, int valid_len, cudaStream_t st);
+                      int nk, int valid_len, cudaStream_t st, Dropout dr = Dropout{});
 
 }  // namespace svt

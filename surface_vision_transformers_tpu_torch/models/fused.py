@@ -2,12 +2,15 @@
 training.
 
 Counterpart of ``surface_vision_transformers_tpu.models.fused``
-(``fused_forward``, ``predict``, ``fused_train_forward``). In order: patch
+(``fused_forward``, ``predict``, ``fused_train_forward``,
+``fused_mpp_loss``). In order: patch
 embed (plain PyTorch) -> CLS + positions -> depth-1 x ``fused_block`` ->
 ``fused_block_cls`` (CLS pooling; under mean pooling every block is
 ``fused_block``) -> float32 LayerNorm and head. ``fused_train_forward`` is
 the same chain under autograd, with the blocks' backward on the backward
-kernels (``ops.fused_block.fused_block_train``).
+kernels (``ops.fused_block.fused_block_train``). ``fused_mpp_loss`` is the
+MPP training loss over the same blocks (every one ``fused_block_train``, no
+CLS block) and a reconstruction head with its own backward.
 
 Differences from the JAX path, by design:
 
@@ -30,8 +33,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.ops.fused_block import (
+    _mm32,
     fused_block,
     fused_block_cls,
     fused_block_cls_train,
@@ -180,6 +185,73 @@ def fused_train_forward(model: SiT, x: torch.Tensor, *, mesh=None,
     out = F.layer_norm(pooled.float(), (model.dim,), norm.weight.float(),
                        norm.bias.float(), eps=1e-5)
     return F.linear(out, head.weight.float(), head.bias.float())
+
+
+def _fused_encoder_blocks(model: SiT, h: torch.Tensor) -> torch.Tensor:
+    """Every block of ``model`` as ``fused_block_train`` (no CLS block):
+    (B, N, dim) -> (B, N, dim) in the compute dtype."""
+    kw = dict(heads=model.heads, dim_head=model.dim_head)
+    for blk in block_parameters(model):
+        h = fused_block_train(h, *blk, **kw)
+    return h
+
+
+class _MaskedMSERecon(torch.autograd.Function):
+    """sum(maskw * (h W^T + b - target)^2) * inv_denom with h and W rounded
+    to the compute dtype ``cdt`` and a float32 product (the JAX package's
+    ``_masked_mse_recon``). Autograd of that expression would keep the
+    float32 reconstruction residual and run both gradient GEMMs on a float32
+    cotangent; this saves only the masked residual in ``cdt`` and feeds the
+    gradient GEMMs ``cdt`` operands. In float32 it is autograd's result.
+    ``maskw`` holds the 0/1 mask times any 0/1 sample weights."""
+
+    @staticmethod
+    def forward(ctx, h, weight, bias, target, maskw, inv_denom, cdt):
+        B, L, dim = h.shape
+        hd, wd = h.to(cdt).reshape(-1, dim), weight.to(cdt)
+        recon = _mm32(hd, wd.t()) + bias.float()
+        d = recon - target.float().reshape(recon.shape)
+        masked_d = d * maskw.reshape(-1, 1)
+        ctx.save_for_backward(hd, wd, masked_d.to(cdt), inv_denom)
+        ctx.meta = h.shape, h.dtype, weight.dtype, bias.dtype
+        return (masked_d * d).sum() * inv_denom
+
+    @staticmethod
+    def backward(ctx, g):
+        hd, wd, masked_d, inv_denom = ctx.saved_tensors
+        shape, h_dt, w_dt, b_dt = ctx.meta
+        gb = 2.0 * g * inv_denom  # d recon = gb * masked_d
+        dh = (_mm32(masked_d, wd) * gb).to(h_dt).reshape(shape)
+        dw = (_mm32(masked_d.t(), hd) * gb).to(w_dt)
+        db = (masked_d.float().sum(0) * gb).to(b_dt)
+        return dh, dw, db, None, None, None, None
+
+
+def fused_mpp_loss(mpp: MPP, batch, generator=None, sample_weights=None, *,
+                   corruption=None) -> torch.Tensor:
+    """The MPP loss of ``mpp.forward`` over the fused-block encoder, for
+    training: corruption (from ``generator``, or ``corruption`` = (corrupted,
+    mask, n_masked) given), the shared embedding, every block
+    ``fused_block_train``, the reconstruction head and the masked MSE over
+    B * n_masked * patch_dim (B the weight sum under ``sample_weights``), as
+    one differentiable scalar. Kernels on CUDA, plain versions on the CPU."""
+    enc = mpp.transformer
+    dt = enc.dtype
+    target = mpp_target(enc, batch)
+    corrupted, mask, n_masked = (corruption if corruption is not None
+                                 else mpp.corrupt(target, generator))
+    lin = enc.to_patch_embedding[1]
+    tokens = F.linear(corrupted.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+    h = _fused_encoder_blocks(enc, enc.embed_tokens(tokens))[:, 1:]
+    maskw = mask.float()
+    if sample_weights is not None:
+        maskw = maskw * sample_weights[:, None]
+        batch_count = torch.clamp(sample_weights.sum(), min=1e-9)
+    else:
+        batch_count = torch.tensor(float(target.shape[0]), device=target.device)
+    inv_denom = 1.0 / (batch_count * n_masked * enc.patch_dim)
+    head = mpp.to_original
+    return _MaskedMSERecon.apply(h, head.weight, head.bias, target, maskw, inv_denom, dt)
 
 
 def _device(device) -> torch.device:

@@ -1,0 +1,145 @@
+"""Masked-patch pretraining (MPP), eager PyTorch.
+
+Counterpart of ``surface_vision_transformers_tpu.models.mpp``
+(``exact_count_mask``, ``corrupt_sequence``, ``MPP``): BERT-style corruption
+of the patch-token sequence -- exactly ceil(mask_prob * L) positions masked
+per row, a swap_prob / (1 - replace_prob) share of them swapped with a
+random position of the same row, a replace_prob share then replaced by a
+learned mask token -- the shared SiT embedding and encoder on the corrupted
+sequence, a linear head back to the patches, and the MSE on the masked
+positions over the static denominator B * n_masked * patch_dim.
+
+Randomness comes from an explicit ``torch.Generator`` on the tokens'
+device. The swap is a plain gather: the JAX package's one-hot GEMM and
+``exact_linear_move`` worked around bf16 MXU passes on the TPU, and a gather
+moves float32 values exactly on the GPU. The state dict keeps the reference
+layout (``transformer.*``, ``to_original.{weight,bias}``, ``mask_token``),
+so reference MPP ``.pth`` files load with ``strict=True``. Training runs
+the fused encoder (``models.fused.fused_mpp_loss``); this module is the
+modular path (validation, ``run_testing``, dropout, float32).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
+from surface_vision_transformers_tpu_torch.ops.patchify import (
+    normalize_tokens,
+    patchify,
+    rearrange_patched,
+)
+
+
+def exact_count_mask(batch: int, seq_len: int, prob: float, *, generator,
+                     device=None):
+    """(batch, seq_len) bool with exactly ceil(prob * seq_len) True per row,
+    the positions uniform (the top-k of uniform draws). -> (mask,
+    n_masked)."""
+    n_masked = math.ceil(prob * seq_len)
+    rand = torch.rand((batch, seq_len), generator=generator, device=device)
+    idx = rand.topk(n_masked, dim=1).indices
+    mask = torch.zeros((batch, seq_len), dtype=torch.bool, device=device)
+    return mask.scatter_(1, idx, True), n_masked
+
+
+def corrupt_sequence(tokens, mask_token, *, mask_prob: float, replace_prob: float,
+                     swap_prob: float, generator):
+    """Corrupt (B, L, D) patch tokens. -> (corrupted (B, L, D), mask (B, L)
+    bool, n_masked). Positions outside the mask are never touched."""
+    B, L, D = tokens.shape
+    dev = tokens.device
+
+    def uniform():
+        return torch.rand((B, L), generator=generator, device=dev)
+
+    mask, n_masked = exact_count_mask(B, L, mask_prob, generator=generator, device=dev)
+    corrupted = tokens
+    if swap_prob > 0:
+        # replace_prob == 1 is reachable; every masked token is replaced then
+        swap_sel = mask & (uniform() < swap_prob / max(1.0 - replace_prob, 1e-9))
+        rand_idx = torch.randint(0, L, (B, L), generator=generator, device=dev)
+        idx = torch.where(swap_sel, rand_idx, torch.arange(L, device=dev))
+        corrupted = corrupted.gather(1, idx[:, :, None].expand(B, L, D))
+    repl_sel = mask & (uniform() < replace_prob)
+    corrupted = torch.where(repl_sel[:, :, None], mask_token.to(corrupted.dtype), corrupted)
+    return corrupted, mask, n_masked
+
+
+def mpp_target(encoder: SiT, batch):
+    """The reconstruction target (B, L, patch_dim) of pre-patched (B, C, L,
+    V), raw (B, C, G) (gathered through the encoder's table and normalised
+    as its embedding is) or already flattened (B, L, patch_dim) input."""
+    if batch.dim() == 4:
+        return rearrange_patched(batch)
+    if batch.dim() == 3 and batch.shape[-1] == encoder.patch_dim:
+        return batch
+    if batch.dim() == 3:
+        if encoder.patch_table is None:
+            raise ValueError("raw (B, C, G) input requires the encoder's patch_table")
+        target = patchify(batch, encoder.patch_table)
+        if encoder.norm_means is not None:
+            target = normalize_tokens(target, encoder.norm_means, encoder.norm_stds)
+        return target
+    raise ValueError(f"bad MPP input shape {tuple(batch.shape)}")
+
+
+def masked_mse(recon, target, mask, n_masked: int | None, sample_weights=None):
+    """sum over masked positions of (recon - target)^2 / (B n_masked
+    patch_dim); with ``sample_weights`` weight-0 samples count for nothing
+    and B is their sum. ``n_masked`` None: the mask's own count."""
+    err = (recon - target.float()).square()
+    masked = torch.where(mask[:, :, None], err, 0.0)
+    if sample_weights is not None:
+        masked = masked * sample_weights[:, None, None]
+        batch_count = torch.clamp(sample_weights.sum(), min=1e-9)
+    else:
+        batch_count = target.shape[0]
+    if n_masked is None:
+        return masked.sum() / torch.clamp(mask.sum() * target.shape[-1], min=1)
+    return masked.sum() / (batch_count * n_masked * target.shape[-1])
+
+
+class MPP(nn.Module):
+    """MPP around a (shared) SiT encoder. ``forward(batch, generator)`` ->
+    (loss, reconstruction (B, L, patch_dim) float32)."""
+
+    def __init__(self, encoder: SiT, mask_prob: float = 0.75, replace_prob: float = 0.8,
+                 swap_prob: float = 0.02):
+        super().__init__()
+        self.transformer = encoder
+        self.mask_prob, self.replace_prob, self.swap_prob = mask_prob, replace_prob, swap_prob
+        self.mask_token = nn.Parameter(torch.randn(1, 1, encoder.patch_dim))
+        self.to_original = nn.Linear(encoder.dim, encoder.patch_dim)
+
+    @property
+    def encoder(self) -> SiT:
+        return self.transformer
+
+    def corrupt(self, target, generator):
+        return corrupt_sequence(target, self.mask_token, mask_prob=self.mask_prob,
+                                replace_prob=self.replace_prob, swap_prob=self.swap_prob,
+                                generator=generator)
+
+    def forward(self, batch, generator=None, *, rng: DropoutRNG | None = None,
+                fixed_mask=None, fixed_corrupted=None, sample_weights=None):
+        """``generator`` draws the corruption; ``fixed_mask`` /
+        ``fixed_corrupted`` give it instead (the loss then divides by the
+        mask's own count); ``rng`` turns dropout on."""
+        enc = self.transformer
+        target = mpp_target(enc, batch)
+        if fixed_mask is not None:
+            mask, corrupted, n_masked = fixed_mask, fixed_corrupted, None
+        else:
+            corrupted, mask, n_masked = self.corrupt(target, generator)
+        lin = enc.to_patch_embedding[1]
+        tokens = F.linear(corrupted.to(enc.dtype), lin.weight.to(enc.dtype),
+                          lin.bias.to(enc.dtype))
+        h = enc.transformer(enc.embed_tokens(tokens, rng=rng), rng=rng)
+        recon = F.linear(h[:, 1:].float(), self.to_original.weight.float(),
+                         self.to_original.bias.float())
+        return masked_mse(recon, target, mask, n_masked, sample_weights), recon

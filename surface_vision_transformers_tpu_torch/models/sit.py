@@ -1,4 +1,4 @@
-"""SiT -- Surface Vision Transformer, eager PyTorch.
+"""SiT -- Surface Vision Transformer, eager PyTorch: the modular path.
 
 Counterpart of ``surface_vision_transformers_tpu.models.sit.SiT`` with the
 reference (vit-pytorch) module tree, so reference ``.pth`` files and
@@ -12,7 +12,22 @@ Inputs are pre-patched (B, C, L, V) or, with ``patch_table`` set, raw
 (B, C, G) vertex arrays patchified (and, with ``norm_means``/``norm_stds``,
 normalised) on the fly. ``dtype`` is the compute dtype: LayerNorm, scores
 and softmax run in float32, the matmuls in ``dtype``, as the JAX model does.
-This is the plain path; serving runs ``models.fused.fused_forward``.
+
+Attention (``Attention``, after the JAX ``Attention``): with
+``attn_backend="auto"`` CUDA bfloat16 activations take the kernels --
+``flash_attention_qkv`` on the packed qkv, ``flash_attention_qkv_dropout``
+when dropout is on, ``multi_head_attention`` (the tiled entry) beyond
+``MAX_PACKED_SEQ`` tokens; ``"plain"``, float32 compute and CPU tensors take
+``plain_attention``. The sequence is not padded (the kernels mask ragged
+edges), so there is no ``seq_pad``; meshes and sequence sharding are not
+ported.
+
+Dropout (``dropout``, ``emb_dropout``) sits where the reference has it: on
+the attention probabilities, after the out-projection, after the GELU,
+after fc2, and after the positions. It is on only when a forward gets a
+``DropoutRNG`` (the JAX ``deterministic=False`` with a dropout rng), which
+draws every mask and kernel seed from explicit generators. Serving and the
+fused training path run ``models.fused``.
 """
 
 from __future__ import annotations
@@ -22,10 +37,46 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from surface_vision_transformers_tpu_torch.ops.attention import (
+    MAX_PACKED_SEQ,
+    kernel_route,
+    multi_head_attention,
+    plain_attention,
+)
+from surface_vision_transformers_tpu_torch.ops.flash_attention import (
+    dropout_keep_mask,
+    flash_attention_qkv,
+    flash_attention_qkv_dropout,
+    merge_heads,
+    split_qkv,
+)
 from surface_vision_transformers_tpu_torch.ops.patchify import (
     fused_patch_embed,
     rearrange_patched,
 )
+
+
+class DropoutRNG:
+    """The randomness of a training forward with dropout: keep masks drawn
+    on ``device`` from a generator there, attention-kernel seeds from a host
+    generator (so no seed waits on the device), both seeded by ``seed``. Two
+    instances with one seed draw the same masks and seeds in the same
+    order."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.masks = torch.Generator(device=self.device).manual_seed(seed)
+        self.seeds = torch.Generator().manual_seed(seed)
+
+    def kernel_seed(self) -> int:
+        return int(torch.randint(0, 2**31 - 1, (), generator=self.seeds))
+
+    def drop(self, x, rate: float):
+        """Inverted dropout of ``x`` at ``rate`` (a no-op at rate 0)."""
+        if not rate:
+            return x
+        keep = torch.rand(x.shape, generator=self.masks, device=self.device) >= rate
+        return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
 
 
 def _linear(x, lin: nn.Linear):
@@ -50,54 +101,76 @@ class _PreNorm(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.fn = fn
 
-    def forward(self, x):
-        return self.fn(_layer_norm(x, self.norm).to(x.dtype))
+    def forward(self, x, **kw):
+        return self.fn(_layer_norm(x, self.norm).to(x.dtype), **kw)
 
 
 class Attention(nn.Module):
-    def __init__(self, dim, heads, dim_head):
+    def __init__(self, dim, heads, dim_head, dropout=0.0, attn_backend="auto"):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.dropout, self.attn_backend = dropout, attn_backend
         self.to_qkv = nn.Linear(dim, 3 * heads * dim_head, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim))
+        # index 1 is the reference's (weightless) dropout slot
+        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim), nn.Identity())
 
-    def forward(self, h):
-        B, N, _ = h.shape
-        q, k, v = (
-            t.reshape(B, N, self.heads, self.dim_head).transpose(1, 2)
-            for t in _linear(h, self.to_qkv).chunk(3, dim=-1)
-        )
-        s = (q.float() @ k.float().transpose(-1, -2)) * self.dim_head ** -0.5
-        o = s.softmax(-1).to(v.dtype) @ v
-        return _linear(o.transpose(1, 2).reshape(B, N, -1), self.to_out[0])
+    def forward(self, h, *, valid_len=None, rng: DropoutRNG | None = None):
+        N = h.shape[1]
+        qkv = _linear(h, self.to_qkv)  # (B, N, 3 H dh), [q | k | v]
+        drop = self.dropout if rng is not None else 0.0
+        if kernel_route(self.attn_backend, qkv) and (drop or N <= MAX_PACKED_SEQ):
+            if drop:
+                out = flash_attention_qkv_dropout(qkv, self.heads, valid_len, drop,
+                                                  rng.kernel_seed())
+            else:
+                out = flash_attention_qkv(qkv, self.heads, valid_len)
+        else:
+            q, k, v = split_qkv(qkv, self.heads)
+            if drop:  # the mask the dropout kernel would draw for this seed
+                keep = dropout_keep_mask(rng.kernel_seed(), *q.shape[:3], N, drop,
+                                         device=q.device)
+                o = plain_attention(q, k, v, valid_len, keep, drop)
+            else:
+                o = multi_head_attention(q, k, v, valid_len, backend=self.attn_backend)
+            out = merge_heads(o)
+        out = _linear(out, self.to_out[0])
+        return rng.drop(out, drop) if drop else out
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim, hidden_dim):
+    def __init__(self, dim, hidden_dim, dropout=0.0):
         super().__init__()
-        # indices 0 and 3 hold the reference checkpoint's weights
+        self.dropout = dropout
+        # indices 0 and 3 hold the reference checkpoint's weights; 2 and 4 are
+        # its (weightless) dropout slots
         self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(),
                                  nn.Identity(), nn.Linear(hidden_dim, dim),
                                  nn.Identity())
 
-    def forward(self, h):
+    def forward(self, h, *, rng: DropoutRNG | None = None):
+        drop = self.dropout if rng is not None else 0.0
         f = F.gelu(_linear(h, self.net[0]).float()).to(h.dtype)
-        return _linear(f, self.net[3])
+        if drop:
+            f = rng.drop(f, drop)
+        f = _linear(f, self.net[3])
+        return rng.drop(f, drop) if drop else f
 
 
 class _Transformer(nn.Module):
-    def __init__(self, dim, depth, heads, dim_head, mlp_dim):
+    def __init__(self, dim, depth, heads, dim_head, mlp_dim, dropout=0.0,
+                 attn_backend="auto"):
         super().__init__()
         self.layers = nn.ModuleList(
-            nn.ModuleList([_PreNorm(dim, Attention(dim, heads, dim_head)),
-                           _PreNorm(dim, FeedForward(dim, mlp_dim))])
+            nn.ModuleList([_PreNorm(dim, Attention(dim, heads, dim_head, dropout,
+                                                   attn_backend)),
+                           _PreNorm(dim, FeedForward(dim, mlp_dim, dropout))])
             for _ in range(depth)
         )
 
-    def forward(self, x):
+    def forward(self, x, *, valid_len=None, rng: DropoutRNG | None = None):
         for attn, ff in self.layers:
-            x = x + attn(x)
-            x = x + ff(x)
+            x = x + attn(x, valid_len=valid_len, rng=rng)
+            x = x + ff(x, rng=rng)
         return x
 
 
@@ -107,8 +180,8 @@ class SiT(nn.Module):
     def __init__(
         self, *, dim=192, depth=12, heads=3, mlp_dim=768, pool="cls",
         num_patches=320, num_classes=1, num_channels=4, num_vertices=153,
-        dim_head=64, patch_table=None, norm_means=None, norm_stds=None,
-        dtype=torch.bfloat16,
+        dim_head=64, dropout=0.0, emb_dropout=0.0, attn_backend="auto",
+        patch_table=None, norm_means=None, norm_stds=None, dtype=torch.bfloat16,
     ):
         super().__init__()
         if pool not in ("cls", "mean"):
@@ -120,16 +193,22 @@ class SiT(nn.Module):
         self.patch_table = None if patch_table is None else np.asarray(patch_table)
         self.norm_means, self.norm_stds = norm_means, norm_stds
         self.dtype = dtype
+        self.dropout, self.emb_dropout, self.attn_backend = dropout, emb_dropout, attn_backend
         self.to_patch_embedding = nn.Sequential(
             _PatchFlatten(), nn.Linear(num_channels * num_vertices, dim))
         self.pos_embedding = nn.Parameter(torch.randn(1, num_patches + 1, dim))
         self.cls_token = nn.Parameter(torch.randn(1, 1, dim))
-        self.transformer = _Transformer(dim, depth, heads, dim_head, mlp_dim)
+        self.transformer = _Transformer(dim, depth, heads, dim_head, mlp_dim, dropout,
+                                        attn_backend)
         self.mlp_head = nn.Sequential(nn.LayerNorm(dim, eps=1e-5),
                                       nn.Linear(dim, num_classes))
 
-    def embed(self, x):
-        """Input -> (B, L+1, dim) tokens in the compute dtype (CLS + pos)."""
+    @property
+    def patch_dim(self) -> int:
+        return self.num_channels * self.num_vertices
+
+    def embed_patches(self, x):
+        """Input -> (B, L, dim) embedded patches in the compute dtype."""
         lin = self.to_patch_embedding[1]
         if x.dim() == 3:
             if self.patch_table is None:
@@ -143,21 +222,28 @@ class SiT(nn.Module):
         else:
             raise ValueError(
                 f"expected 3D raw or 4D pre-patched input, got {tuple(x.shape)}")
-        return self.embed_tokens(tokens)
+        return tokens
 
-    def embed_tokens(self, tokens):
-        """(B, L, dim) embedded patches -> (B, L+1, dim) with CLS and pos."""
+    def embed_tokens(self, tokens, *, rng: DropoutRNG | None = None):
+        """(B, L, dim) embedded patches -> (B, L+1, dim) with CLS, pos and
+        (given ``rng``) embedding dropout."""
         B, n, _ = tokens.shape
         cls = self.cls_token.to(tokens.dtype).expand(B, -1, -1)
         h = torch.cat([cls, tokens], dim=1)
-        return h + self.pos_embedding[:, : n + 1].to(tokens.dtype)
+        h = h + self.pos_embedding[:, : n + 1].to(tokens.dtype)
+        return rng.drop(h, self.emb_dropout) if rng is not None else h
 
-    def encode(self, x):
+    def embed(self, x, *, rng: DropoutRNG | None = None):
+        """Input -> (B, L+1, dim) tokens in the compute dtype (CLS + pos)."""
+        return self.embed_tokens(self.embed_patches(x), rng=rng)
+
+    def encode(self, x, *, rng: DropoutRNG | None = None):
         """Input -> (B, L+1, dim) encoded sequence."""
-        return self.transformer(self.embed(x))
+        return self.transformer(self.embed(x, rng=rng), rng=rng)
 
-    def forward(self, x):
-        h = self.encode(x)
+    def forward(self, x, *, rng: DropoutRNG | None = None):
+        """-> (B, num_classes) float32; dropout on only with ``rng``."""
+        h = self.encode(x, rng=rng)
         pooled = h.mean(dim=1) if self.pool == "mean" else h[:, 0]
         return _linear(_layer_norm(pooled, self.mlp_head[0]), self.mlp_head[1])
 
@@ -170,7 +256,8 @@ class SiT(nn.Module):
         kw = dict(dim=m.dim, depth=m.depth, heads=m.heads, mlp_dim=m.mlp_dim,
                   pool=m.pool, num_patches=m.num_patches,
                   num_classes=m.num_classes, num_channels=m.num_channels,
-                  num_vertices=m.num_vertices, dim_head=m.dim_head)
+                  num_vertices=m.num_vertices, dim_head=m.dim_head,
+                  dropout=m.dropout, emb_dropout=m.emb_dropout)
         if hasattr(cfg, "compute_dtype"):
             kw["dtype"] = getattr(torch, cfg.compute_dtype)
         kw.update(overrides)

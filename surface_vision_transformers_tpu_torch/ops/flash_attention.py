@@ -19,6 +19,18 @@ its outputs as (B, H, N, dh) views of (B, N, H, dh) storage, where merging
 the heads back is free. What bounds it, and its times: the kernel source and
 PERF.md.
 
+``flash_attention_qkv`` replaces ``flash_attention_qkv`` of the same TPU
+file (``_fwd_packed``, ``_bwd_packed``): the kernels read q, k and v as
+strided views of the packed (B, N, 3*H*dh) qkv and write dq, dk and dv into
+one packed gradient. ``flash_attention_qkv_dropout`` replaces
+``flash_attention_qkv_dropout`` (``_fwd_packed_drop``, ``_bwd_packed_drop``):
+the same kernels compiled with dropout, the mask drawn by a Philox
+generator from (seed, sample, head, row, col) in every pass, so the
+backward regenerates it. ``flash_attention_tiled`` replaces
+``flash_attention_tiled`` (``_fwd_tiled``, ``_bwd_tiled``), the long-sequence
+entry, over the same streamed kernels. Each public wrapper counts its
+launches in ``<wrapper>.launches``.
+
 Dispatch: tensors on the CPU run the plain versions beside the kernel; CUDA
 tensors launch the kernel or raise. There is no fallback.
 """
@@ -40,34 +52,116 @@ def _masked_scores(q, k, valid_len):
     return s
 
 
-def flash_attention_reference(q, k, v, valid_len: int | None = None):
+def _inv_keep(rate):
+    return 1.0 / (1.0 - rate)
+
+
+def flash_attention_reference(q, k, v, valid_len: int | None = None, keep=None,
+                              rate: float = 0.0):
     """Plain forward: -> (o (B, H, Nq, dh) in q.dtype, lse (B, H, Nq)
-    float32). In float32 nothing is rounded."""
+    float32). In float32 nothing is rounded. With ``keep`` (a (B, H, Nq, Nk)
+    bool mask), dropout at ``rate`` on the probabilities: lse and the sum
+    are the undropped softmax's, o = keep(P) V / l / (1 - rate)."""
     vl = k.shape[-2] if valid_len is None else int(valid_len)
     s = _masked_scores(q, k, vl)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
+    lse = (m + torch.log(l)).squeeze(-1)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
     o = (p.to(q.dtype).float() @ v.float()) / l
-    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    if keep is not None:
+        o = o * _inv_keep(rate)
+    return o.to(q.dtype), lse
 
 
-def flash_attention_bwd_reference(q, k, v, o, lse, do, valid_len: int | None = None):
+def flash_attention_bwd_reference(q, k, v, o, lse, do, valid_len: int | None = None,
+                                  keep=None, rate: float = 0.0):
     """Plain backward from the forward's o and lse: P = exp(s - lse) on keys
     and query rows < valid_len (0 elsewhere), delta = rowsum(dO . O),
     dS = P (dP - delta) / sqrt(dh); P and dS rounded to q.dtype before their
-    products. -> (dq, dk, dv) in q.dtype."""
+    products. -> (dq, dk, dv) in q.dtype. With ``keep``: dV = P~^T dO with
+    P~ = keep(P) / (1 - rate), dP = keep(dO V^T) / (1 - rate); o must be the
+    dropped output."""
     vl = k.shape[-2] if valid_len is None else int(valid_len)
     dt = q.dtype
     p = torch.exp(_masked_scores(q, k, vl) - lse[..., None])
     p[..., vl:, :] = 0.0
     dof = do.float()
     delta = (dof * o.float()).sum(-1, keepdim=True)
-    dv = p.to(dt).float().transpose(-1, -2) @ dof
-    ds = (p * (dof @ v.float().transpose(-1, -2) - delta) * q.shape[-1] ** -0.5)
-    ds = ds.to(dt).float()
+    dp = dof @ v.float().transpose(-1, -2)
+    pv = p
+    if keep is not None:
+        pv = torch.where(keep, p * _inv_keep(rate), 0.0)
+        dp = torch.where(keep, dp * _inv_keep(rate), 0.0)
+    dv = pv.to(dt).float().transpose(-1, -2) @ dof
+    ds = (p * (dp - delta) * q.shape[-1] ** -0.5).to(dt).float()
     return ((ds @ k.float()).to(dt), (ds.transpose(-1, -2) @ q.float()).to(dt),
             dv.to(dt))
+
+
+# -- dropout bits ------------------------------------------------------------------
+#
+# The kernels draw the keep bit of score (b, h, row, col) as word col & 3 of
+# Philox4x32-10 at counter {row, col // 4, 0, 0} under key {seed, b * H + h}
+# (csrc/common.cuh), kept when >= round(rate * 2^32). The same generator in
+# plain torch integer arithmetic follows, so a CPU run and the card draw the
+# same masks. Its bits are not the TPU's (the Mosaic PRNG): tests against the
+# JAX package feed its host mask (``_keep_mask_host``) to the plain versions.
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, a):
+    """(hi, lo) 32-bit halves of m * a for uint32 values held in int64: the
+    product is formed from 16-bit pieces, so nothing exceeds 2^49."""
+    x, y = m * (a >> 16), m * (a & 0xFFFF)
+    z = x + (y >> 16)
+    return z >> 16, ((z & 0xFFFF) << 16) | (y & 0xFFFF)
+
+
+def philox4x32(c0, c1, k0, k1):
+    """Philox4x32-10 of counters {c0, c1, 0, 0} under keys {k0, k1}: int64
+    tensors (broadcast together) holding uint32 values -> four int64
+    tensors of uint32 words."""
+    c0, c1, k0, k1 = (torch.as_tensor(t, dtype=torch.int64) for t in (c0, c1, k0, k1))
+    c2 = c3 = torch.zeros((), dtype=torch.int64, device=c0.device)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate: float) -> int:
+    """The keep threshold on a uint32 word (the JAX package's
+    ``_dropout_consts``)."""
+    return min(int(round(rate * 2**32)), 2**32 - 1)
+
+
+def _seed32(seed) -> int:
+    return int(seed) & _U32
+
+
+def dropout_keep_mask(seed, B: int, H: int, nq: int, nk: int, rate: float,
+                      device="cpu") -> torch.Tensor:
+    """(B, H, nq, nk) bool: the keep mask the dropout kernels draw for
+    ``seed`` at ``rate``, built in chunks of (sample, head) pairs."""
+    thr, groups = dropout_threshold(rate), (nk + 3) // 4
+    rows = torch.arange(nq, device=device).view(1, nq, 1)
+    cols = torch.arange(groups, device=device).view(1, 1, groups)
+    key0 = torch.tensor(_seed32(seed), dtype=torch.int64, device=device)
+    out = torch.empty((B * H, nq, nk), dtype=torch.bool, device=device)
+    chunk = max(1, 2**22 // (nq * groups))
+    for s in range(0, B * H, chunk):
+        bh = torch.arange(s, min(s + chunk, B * H), device=device).view(-1, 1, 1)
+        words = torch.stack(philox4x32(rows, cols, key0, bh), -1)
+        out[s:s + chunk] = words.reshape(bh.shape[0], nq, 4 * groups)[..., :nk] >= thr
+    return out.view(B, H, nq, nk)
 
 
 # -- kernel wrappers -------------------------------------------------------------
@@ -114,12 +208,19 @@ def _dispatch(t):
     return t.device.type
 
 
-def flash_attention_fwd(q, k, v, valid_len: int | None = None):
-    """The forward: -> (o (B, H, Nq, dh), lse (B, H, Nq) float32). CPU
-    tensors run ``flash_attention_reference``; CUDA tensors the kernel."""
-    vl = k.shape[-2] if valid_len is None else int(valid_len)
+def _drop_args(rate, seed):
+    """The C entries' dropout arguments (seed, threshold, 1/(1-rate), on)."""
+    if not rate:
+        return 0, 0, 1.0, 0
+    return _seed32(seed), dropout_threshold(rate), _inv_keep(rate), 1
+
+
+def _fwd(q, k, v, vl, rate=0.0, seed=0):
+    """The forward on either device (no launch count): the kernel on CUDA,
+    the plain version (with the kernel's dropout mask) on the CPU."""
     if _dispatch(q) == "cpu":
-        return flash_attention_reference(q, k, v, vl)
+        keep = None if not rate else dropout_keep_mask(seed, *q.shape[:3], k.shape[2], rate)
+        return flash_attention_reference(q, k, v, vl, keep, rate)
     _check_cuda(q, k, v, vl)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, H, nq, _ = q.shape
@@ -127,22 +228,22 @@ def flash_attention_fwd(q, k, v, valid_len: int | None = None):
     lse = torch.empty((B, H, nq), dtype=torch.float32, device=q.device)
     _native.check(_native.library().svt_flash_attention_fwd(
         *_operand(q), *_operand(k), *_operand(v), *_operand(o), lse.data_ptr(),
-        B, H, nq, k.shape[2], vl, q.device.index,
+        B, H, nq, k.shape[2], vl, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
-    flash_attention_fwd.launches += 1
     return o, lse
 
 
-flash_attention_fwd.launches = 0
-
-
-def flash_attention_bwd(q, k, v, o, lse, do, valid_len: int | None = None):
-    """The backward from the forward's o and lse and the output cotangent
-    do: -> (dq, dk, dv). CPU tensors run ``flash_attention_bwd_reference``;
-    CUDA tensors the kernel's two passes."""
-    vl = k.shape[-2] if valid_len is None else int(valid_len)
+def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
+    """The backward on either device (no launch count), into ``out`` (three
+    (B, H, N, dh) views) when given."""
     if _dispatch(q) == "cpu":
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, vl)
+        keep = None if not rate else dropout_keep_mask(seed, *q.shape[:3], k.shape[2], rate)
+        grads = flash_attention_bwd_reference(q, k, v, o, lse, do, vl, keep, rate)
+        if out is None:
+            return grads
+        for dst, g in zip(out, grads):
+            dst.copy_(g)
+        return out
     _check_cuda(q, k, v, vl, ("o", o), ("do", do))
     B, H, nq, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:
@@ -151,32 +252,74 @@ def flash_attention_bwd(q, k, v, o, lse, do, valid_len: int | None = None):
         raise ValueError(f"lse must be a contiguous float32 {(B, H, nq)} tensor")
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     nk = k.shape[2]
-    dq, dk, dv = _heads_last_empty(q, nq), _heads_last_empty(k, nk), _heads_last_empty(k, nk)
+    if out is None:
+        out = _heads_last_empty(q, nq), _heads_last_empty(k, nk), _heads_last_empty(k, nk)
     delta = torch.empty_like(lse)
     _native.check(_native.library().svt_flash_attention_bwd(
         *_operand(q), *_operand(k), *_operand(v), *_operand(o), *_operand(do),
-        lse.data_ptr(), delta.data_ptr(), *_operand(dq), *_operand(dk), *_operand(dv),
-        B, H, nq, nk, vl, q.device.index, torch.cuda.current_stream(q.device).cuda_stream))
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+        lse.data_ptr(), delta.data_ptr(), *(x for t in out for x in _operand(t)),
+        B, H, nq, nk, vl, *_drop_args(rate, seed), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream))
+    return out
 
 
-flash_attention_bwd.launches = 0
+def _counted(fn):
+    """Count ``fn``'s kernel launches (calls on CUDA tensors) in
+    ``fn.launches``."""
+    def wrapper(t, *args, **kw):
+        out = fn(t, *args, **kw)
+        if t.device.type == "cuda":
+            wrapper.launches += 1
+        return out
+    wrapper.launches = 0
+    wrapper.__name__, wrapper.__qualname__, wrapper.__doc__ = fn.__name__, fn.__qualname__, fn.__doc__
+    return wrapper
+
+
+def _vl(k, valid_len):
+    return k.shape[-2] if valid_len is None else int(valid_len)
+
+
+@_counted
+def flash_attention_fwd(q, k, v, valid_len: int | None = None):
+    """The forward: -> (o (B, H, Nq, dh), lse (B, H, Nq) float32). CPU
+    tensors run ``flash_attention_reference``; CUDA tensors the kernel."""
+    return _fwd(q, k, v, _vl(k, valid_len))
+
+
+@_counted
+def flash_attention_bwd(q, k, v, o, lse, do, valid_len: int | None = None):
+    """The backward from the forward's o and lse and the output cotangent
+    do: -> (dq, dk, dv). CPU tensors run ``flash_attention_bwd_reference``;
+    CUDA tensors the kernel's two passes."""
+    return _bwd(q, k, v, o, lse, do, _vl(k, valid_len))
+
+
+@_counted
+def flash_attention_tiled_fwd(q, k, v, valid_len: int | None = None):
+    """``flash_attention_fwd`` as the long-sequence entry counts it."""
+    return _fwd(q, k, v, _vl(k, valid_len))
+
+
+@_counted
+def flash_attention_tiled_bwd(q, k, v, o, lse, do, valid_len: int | None = None):
+    """``flash_attention_bwd`` as the long-sequence entry counts it."""
+    return _bwd(q, k, v, o, lse, do, _vl(k, valid_len))
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, valid_len):
-        o, lse = flash_attention_fwd(q, k, v, valid_len)
+    def forward(ctx, q, k, v, valid_len, fwd, bwd):
+        o, lse = fwd(q, k, v, valid_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.valid_len = valid_len
+        ctx.valid_len, ctx.bwd = valid_len, bwd
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.to(o.dtype), ctx.valid_len)
-        return dq, dk, dv, None
+        dq, dk, dv = ctx.bwd(q, k, v, o, lse, do.to(o.dtype), ctx.valid_len)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, valid_len: int | None = None):
@@ -184,4 +327,149 @@ def flash_attention(q, k, v, valid_len: int | None = None):
     q (B, H, Nq, dh), k and v (B, H, Nk, dh) -> (B, H, Nq, dh); keys >=
     ``valid_len`` (default Nk) masked. Forward ``flash_attention_fwd``,
     backward ``flash_attention_bwd``, which keeps o and the row LSE."""
-    return _FlashAttention.apply(q, k, v, valid_len)
+    return _FlashAttention.apply(q, k, v, valid_len, flash_attention_fwd,
+                                 flash_attention_bwd)
+
+
+def flash_attention_tiled(q, k, v, valid_len: int | None = None):
+    """The JAX package's ``flash_attention_tiled``, its entry for N > 1536:
+    the same function as ``flash_attention`` (the streamed kernels take any
+    N; the TPU needed a second kernel only because a whole (N, N) score tile
+    no longer fits VMEM), counted apart in ``flash_attention_tiled_fwd`` /
+    ``_bwd``. The backward keeps the forward's o where the TPU recomputes
+    it."""
+    return _FlashAttention.apply(q, k, v, valid_len, flash_attention_tiled_fwd,
+                                 flash_attention_tiled_bwd)
+
+
+# -- packed qkv: flash_attention_qkv, flash_attention_qkv_dropout ------------------
+
+
+def split_qkv(qkv, heads: int):
+    """(B, N, 3*H*dh) packed [q | k | v] -> q, k, v as (B, H, N, dh) views."""
+    B, N, F = qkv.shape
+    if F % (3 * heads):
+        raise ValueError(f"feature dim {F} not divisible by 3*heads")
+    t = qkv.view(B, N, 3, heads, F // (3 * heads))
+    return [t[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def merge_heads(t):
+    """(B, H, N, dh) -> (B, N, H*dh); free when t is a heads-last view."""
+    B, H, N, dh = t.shape
+    return t.transpose(1, 2).reshape(B, N, H * dh)
+
+
+def _heads_of(t, heads):
+    """(B, N, H*dh) -> (B, H, N, dh), a view where the strides allow."""
+    B, N, F = t.shape
+    return t.reshape(B, N, heads, F // heads).transpose(1, 2)
+
+
+def flash_attention_qkv_reference(qkv, heads: int, valid_len: int | None = None,
+                                  keep=None, rate: float = 0.0):
+    """Plain packed forward: qkv (B, N, 3*H*dh) -> (o (B, N, H*dh), lse
+    (B, H, N) float32); dropout with an explicit ``keep`` mask as
+    ``flash_attention_reference``."""
+    q, k, v = split_qkv(qkv, heads)
+    o, lse = flash_attention_reference(q, k, v, valid_len, keep, rate)
+    return merge_heads(o), lse
+
+
+def flash_attention_qkv_bwd_reference(qkv, o, lse, do, heads: int,
+                                      valid_len: int | None = None, keep=None,
+                                      rate: float = 0.0):
+    """Plain packed backward -> dqkv (B, N, 3*H*dh) in the [dq | dk | dv]
+    layout of qkv."""
+    q, k, v = split_qkv(qkv, heads)
+    grads = flash_attention_bwd_reference(q, k, v, _heads_of(o, heads), lse,
+                                          _heads_of(do, heads), valid_len, keep, rate)
+    return torch.cat([merge_heads(g) for g in grads], -1)
+
+
+def _qkv_fwd(qkv, heads, valid_len, rate=0.0, seed=0):
+    q, k, v = split_qkv(qkv, heads)
+    o, lse = _fwd(q, k, v, _vl(k, valid_len), rate, seed)
+    return merge_heads(o), lse
+
+
+def _qkv_bwd(qkv, o, lse, do, heads, valid_len, rate=0.0, seed=0):
+    """dqkv, written by the kernel straight into one (B, N, 3*H*dh) tensor
+    through the strides of its dq, dk and dv views."""
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    q, k, v = split_qkv(qkv, heads)
+    _bwd(q, k, v, _heads_of(o, heads), lse, _heads_of(do.to(o.dtype), heads),
+         _vl(k, valid_len), rate, seed, out=split_qkv(dqkv, heads))
+    return dqkv
+
+
+@_counted
+def flash_attention_qkv_fwd(qkv, heads: int, valid_len: int | None = None):
+    """Packed forward: qkv (B, N, 3*H*dh) -> (o (B, N, H*dh), lse (B, H, N)
+    float32). CUDA tensors launch the kernel on q, k and v read through the
+    strides of qkv; CPU tensors run the plain version."""
+    return _qkv_fwd(qkv, heads, valid_len)
+
+
+@_counted
+def flash_attention_qkv_bwd(qkv, o, lse, do, heads: int, valid_len: int | None = None):
+    """Packed backward -> dqkv (B, N, 3*H*dh), [dq | dk | dv]."""
+    return _qkv_bwd(qkv, o, lse, do, heads, valid_len)
+
+
+@_counted
+def flash_attention_qkv_dropout_fwd(qkv, heads: int, valid_len, rate: float, seed):
+    """``flash_attention_qkv_fwd`` with dropout at ``rate`` on the
+    probabilities, the mask drawn from ``seed`` (``dropout_keep_mask``)."""
+    return _qkv_fwd(qkv, heads, valid_len, rate, seed)
+
+
+@_counted
+def flash_attention_qkv_dropout_bwd(qkv, o, lse, do, heads: int, valid_len, rate: float,
+                                    seed):
+    """The dropout backward, the mask regenerated from ``seed``; o is the
+    forward's (dropped) output."""
+    return _qkv_bwd(qkv, o, lse, do, heads, valid_len, rate, seed)
+
+
+class _FlashAttentionQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, heads, valid_len, rate, seed):
+        if rate:
+            o, lse = flash_attention_qkv_dropout_fwd(qkv, heads, valid_len, rate, seed)
+        else:
+            o, lse = flash_attention_qkv_fwd(qkv, heads, valid_len)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.args = heads, valid_len, rate, seed
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse = ctx.saved_tensors
+        heads, valid_len, rate, seed = ctx.args
+        if rate:
+            dqkv = flash_attention_qkv_dropout_bwd(qkv, o, lse, do, heads, valid_len, rate,
+                                                   seed)
+        else:
+            dqkv = flash_attention_qkv_bwd(qkv, o, lse, do, heads, valid_len)
+        return dqkv, None, None, None, None
+
+
+def flash_attention_qkv(qkv, heads: int, valid_len: int | None = None):
+    """Differentiable packed attention (the JAX package's
+    ``flash_attention_qkv``): qkv (B, N, 3*H*dh) in [q | k | v] order ->
+    (B, N, H*dh); keys >= ``valid_len`` masked, query rows >= valid_len get
+    P = 0 in the backward; dqkv comes back in the [dq | dk | dv] layout.
+    Any N: the TPU kernel's N % 128 == 0 is not needed."""
+    return _FlashAttentionQKV.apply(qkv, heads, valid_len, 0.0, 0)
+
+
+def flash_attention_qkv_dropout(qkv, heads: int, valid_len: int | None, rate: float,
+                                seed):
+    """``flash_attention_qkv`` with dropout on the softmax probabilities
+    (the JAX package's ``flash_attention_qkv_dropout``): 0 < rate < 1,
+    inverted scaling 1 / (1 - rate); ``seed`` (an int, or an integer tensor
+    read on the host) keys the mask, which the backward regenerates."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must be in (0, 1), got {rate}")
+    return _FlashAttentionQKV.apply(qkv, heads, valid_len, float(rate), _seed32(seed))

@@ -1,23 +1,28 @@
-"""Training and test-time workflows for regression configs (counterparts
-of ``surface_vision_transformers_tpu.train.runner.run_training`` and
-``run_testing``).
+"""Training and test-time workflows for regression and MPP configs
+(counterparts of ``surface_vision_transformers_tpu.train.runner.
+run_training`` and ``run_testing``).
 
 ``run_training``: load the splits, build the model (seeded init, or the
-``weights.ssl_mpp`` npz / .pth under ``training.load_weights_ssl``), train
-epoch by epoch with ``train.trainer.Trainer``, validate every
-``training.val_epoch`` epochs and at the last, and keep the best: on each
-improvement ``best_params.npz`` (the weights evaluation used, in the JAX
-package's params-npz format) and ``preds.csv`` are written at once, so a run
-that dies keeps its best. At the end ``final_params.npz``,
+``weights.ssl_mpp`` npz / .pth under ``training.load_weights_ssl``; an MPP
+run initialised from a SiT checkpoint nests it as its encoder), train epoch
+by epoch with ``train.trainer.Trainer``, validate every
+``training.val_epoch`` epochs and at the last, and keep the best by the val
+MAE (regression) or the val loss (MPP): on each improvement
+``best_params.npz`` (the weights evaluation used, in the JAX package's
+params-npz format) and ``preds.csv`` (regression) or
+``encoder_best_params.npz`` (MPP, the encoder alone for finetuning) are
+written at once, so a run that dies keeps its best. At the end
+``final_params.npz`` (and ``encoder_final_params.npz``),
 ``hparams_results.yml`` (the config plus results and ``phases_s``) and,
-under ``training.testing``, ``test_preds.csv`` from the best weights.
-Not ported (they raise): resume and full-state checkpoints
-(``training.ckpt_every``), ImageNet initialisation, streaming input,
-meshes, augmentation, MPP.
+under ``training.testing``, the test metric from the best weights
+(regression also ``test_preds.csv``). Not ported (they raise): resume and
+full-state checkpoints (``training.ckpt_every``), ImageNet initialisation,
+streaming input, meshes, augmentation.
 
-``run_testing``: load a split and a checkpoint, serve it through
-``predict``, report the MAE and write ``results.csv`` of (pred, target) rows
-in split order.
+``run_testing``: load a split and a checkpoint; regression serves it
+through ``predict``, reports the MAE and writes ``results.csv`` of (pred,
+target) rows in split order; MPP reports the loss under the evaluation's
+fixed corruption and writes nothing.
 """
 
 from __future__ import annotations
@@ -32,21 +37,27 @@ import numpy as np
 import torch
 
 from surface_vision_transformers_tpu_torch.checkpoints.convert import (
+    encoder_state,
+    is_mpp_state,
+    jax_params_from_mpp_state_dict,
     jax_params_from_state_dict,
     load_params_npz,
     load_torch_state_dict,
+    mpp_state,
+    mpp_state_dict_from_jax,
     save_params_npz,
     state_dict_from_jax,
 )
 from surface_vision_transformers_tpu_torch.data import npy as npy_io
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table
 from surface_vision_transformers_tpu_torch.models.fused import _device, predict
+from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.obs.logging import (
     MetricLogger,
     run_folder_name,
 )
-from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+from surface_vision_transformers_tpu_torch.train.trainer import Trainer, evaluate_mpp
 from surface_vision_transformers_tpu_torch.utils.config import (
     Experiment,
     dump_config_with_results,
@@ -54,9 +65,9 @@ from surface_vision_transformers_tpu_torch.utils.config import (
 
 
 def load_state_dict_any(path: str, depth: int) -> dict:
-    """Reference-layout state dict from a JAX params ``.npz`` or a
-    reference ``.pt``/``.pth`` file. Orbax checkpoint directories need JAX
-    to read and are refused."""
+    """Reference-layout state dict (SiT, or MPP when the file holds one)
+    from a JAX params ``.npz`` or a reference ``.pt``/``.pth`` file. Orbax
+    checkpoint directories need JAX to read and are refused."""
     p = Path(path)
     if p.is_dir():
         raise ValueError(
@@ -65,8 +76,41 @@ def load_state_dict_any(path: str, depth: int) -> dict:
             "reference .pt/.pth state dicts")
     if p.suffix == ".npz":
         tree = load_params_npz(p)
-        return state_dict_from_jax(tree.get("params", tree), depth)
+        tree = tree.get("params", tree)
+        if "mask_token" in tree:
+            return mpp_state_dict_from_jax(tree, depth)
+        return state_dict_from_jax(tree, depth)
     return load_torch_state_dict(p)
+
+
+def build_model(exp: Experiment, table=None) -> SiT | MPP:
+    """The config's model with float32 parameters: a SiT, wrapped in an MPP
+    for an MPP config."""
+    model = SiT.from_config(exp, patch_table=table)
+    if exp.is_pretraining:
+        m = exp.mpp
+        model = MPP(model, mask_prob=m.mask_prob, replace_prob=m.replace_prob,
+                    swap_prob=m.swap_prob)
+    return model
+
+
+def load_model_state(model: SiT | MPP, state: dict) -> None:
+    """Load ``state`` strictly; an MPP's encoder head, which MPP never runs
+    and JAX MPP trees do not hold, keeps the model's values where the state
+    lacks it."""
+    if isinstance(model, MPP):
+        own = {k: v for k, v in model.state_dict().items()
+               if k.startswith("transformer.mlp_head.")}
+        state = {**own, **state}
+    model.load_state_dict(state, strict=True)
+
+
+def _as_layout(state: dict, model) -> dict:
+    """``state`` in ``model``'s layout: an MPP checkpoint's encoder for a
+    SiT, a SiT checkpoint nested as the encoder of an MPP."""
+    if isinstance(model, MPP):
+        return state if is_mpp_state(state) else mpp_state(state)
+    return encoder_state(state)
 
 
 def write_preds_csv(path, preds, targets) -> None:
@@ -80,11 +124,10 @@ def write_preds_csv(path, preds, targets) -> None:
 def run_testing(exp: Experiment, *, device) -> dict:
     """Evaluate on ``exp.data.split`` (default 'validation') at
     ``training.bs_val`` (0 -> ``training.bs``) on ``device``, with the
-    weights at ``testing.path_to_ckpt`` (loaded strictly)."""
-    if exp.is_pretraining or exp.model.num_classes != 1:
-        raise NotImplementedError(
-            "run_testing covers regression configs only; MPP evaluation is "
-            "not ported yet")
+    weights at ``testing.path_to_ckpt`` (loaded strictly). MPP configs
+    report the reconstruction loss (``loss``) and write no results.csv."""
+    if not exp.is_pretraining and exp.model.num_classes != 1:
+        raise NotImplementedError("run_testing covers scalar regression and MPP configs")
     if not exp.ckpt_path:
         raise ValueError(
             "run_testing needs weights: set testing.path_to_ckpt (a params "
@@ -95,14 +138,21 @@ def run_testing(exp: Experiment, *, device) -> dict:
     table = None
     if data.ndim == 3:
         table = load_patch_table(exp.ico, exp.sub_ico).indices
-    model = SiT.from_config(exp, patch_table=table)
-    model.load_state_dict(
-        load_state_dict_any(exp.ckpt_path, exp.model.depth), strict=True)
+    model = build_model(exp, table)
+    load_model_state(model, _as_layout(load_state_dict_any(exp.ckpt_path, exp.model.depth),
+                                       model))
     model.eval()
+    bs = exp.training.bs_val or exp.training.bs
+    if exp.is_pretraining:
+        dev = _device(device)
+        model.to(dev)
+        tokens = mpp_target(model.transformer, torch.from_numpy(data).to(dev))
+        return {"n": int(data.shape[0]), "split": split,
+                "loss": evaluate_mpp(model, tokens, bs)}
 
     preds = predict(
         model, data, device=device,
-        batch_size=exp.training.bs_val or exp.training.bs,
+        batch_size=bs,
         quant=None if exp.quant == "none" else exp.quant,
     ).reshape(-1)
 
@@ -127,7 +177,6 @@ def load_datasets(exp: Experiment, splits=None) -> dict:
 def _refuse_unported(exp: Experiment) -> None:
     tp = exp.raw.get("tpu", {})
     checks = [
-        (exp.is_pretraining, "MPP pretraining"),
         (exp.augment, "augmentation"),
         (exp.data.streaming == "on", "streaming input (data.streaming: on)"),
         (exp.training.ckpt_every > 0, "rolling full-state checkpoints (training.ckpt_every)"),
@@ -140,12 +189,12 @@ def _refuse_unported(exp: Experiment) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def _load_initial_weights(exp: Experiment, model: SiT) -> None:
+def _load_initial_weights(exp: Experiment, model: SiT | MPP) -> None:
     """``training.load_weights_ssl``: the parameters that ``weights.ssl_mpp``
-    (a params npz or a reference .pth) shares with the model."""
+    (a params npz or a reference .pth, SiT or MPP) shares with the model."""
     if not exp.training.load_weights_ssl or exp.ssl_weights_path in ("", ".."):
         return
-    state = load_state_dict_any(exp.ssl_weights_path, exp.model.depth)
+    state = _as_layout(load_state_dict_any(exp.ssl_weights_path, exp.model.depth), model)
     own = model.state_dict()
     shared = {k: v for k, v in state.items() if k in own}
     if not shared:
@@ -155,15 +204,24 @@ def _load_initial_weights(exp: Experiment, model: SiT) -> None:
     model.load_state_dict(shared, strict=False)
 
 
-def _save_npz(path: Path, model: SiT, depth: int) -> None:
-    save_params_npz(path, {"params": jax_params_from_state_dict(model.state_dict(), depth)})
+def _save_npz(path: Path, model: SiT | MPP, depth: int) -> None:
+    """``model``'s params npz; an MPP's encoder alone (without the head MPP
+    never runs, as the JAX package writes it) also goes to
+    ``encoder_<name>`` beside it, for finetuning."""
+    state = model.state_dict()
+    if not isinstance(model, MPP):
+        save_params_npz(path, {"params": jax_params_from_state_dict(state, depth)})
+        return
+    tree = jax_params_from_mpp_state_dict(state, depth)
+    save_params_npz(path, {"params": tree})
+    save_params_npz(path.with_name("encoder_" + path.name), {"params": tree["encoder"]})
 
 
 def run_training(exp: Experiment, *, device, datasets: dict | None = None,
                  progress: bool = True) -> dict:
-    """Supervised regression training per ``exp`` on ``device`` (a CUDA
-    request without CUDA raises). Returns the results dict that also lands
-    in ``hparams_results.yml``."""
+    """Supervised regression or MPP training per ``exp`` on ``device`` (a
+    CUDA request without CUDA raises). Returns the results dict that also
+    lands in ``hparams_results.yml``."""
     _refuse_unported(exp)
     dev = _device(device)
     t_start = time.time()
@@ -185,7 +243,7 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
             table = load_patch_table(exp.ico, exp.sub_ico).indices
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(exp.training.seed)
-            model = SiT.from_config(exp, patch_table=table)
+            model = build_model(exp, table)
         _load_initial_weights(exp, model)
         model.to(dev)
         trainer = Trainer(exp, model)
@@ -203,6 +261,8 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
         phases["setup"] = time.time() - t_start - phases["data_upload"]
 
         depth, epochs = exp.model.depth, exp.training.epochs
+        is_mpp = exp.is_pretraining
+        metric = "loss" if is_mpp else "mae"
         best, best_epoch, best_state = math.inf, -1, None
         for epoch in range(epochs):
             t_ep = time.time()
@@ -214,7 +274,8 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
                     "(check data/labels and LR)")
             logger.log(epoch, m.as_dict(), prefix="train/")
             if progress and (epoch % 5 == 0 or epoch == epochs - 1):
-                print(f"epoch {epoch}: train loss {m.loss:.5f} mae {m.mae:.5f}", flush=True)
+                print(f"epoch {epoch}: train loss {m.loss:.5f} {metric} "
+                      f"{getattr(m, metric):.5f}", flush=True)
             if d_val is None or ((epoch + 1) % exp.training.val_epoch
                                  and epoch != epochs - 1):
                 continue
@@ -222,22 +283,24 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
             vm, preds = trainer.evaluate(d_val, l_val)
             phases["val"] += time.time() - t_val
             logger.log(epoch, vm.as_dict(), prefix="val/")
+            score = getattr(vm, metric)
             if progress:
-                print(f"epoch {epoch}: val mae {vm.mae:.5f}", flush=True)
-            if vm.mae < best:
-                best, best_epoch = vm.mae, epoch
+                print(f"epoch {epoch}: val {metric} {score:.5f}", flush=True)
+            if score < best:
+                best, best_epoch = score, epoch
                 t_ck = time.time()
                 best_state = copy.deepcopy(trainer.eval_model().state_dict())
                 if exp.training.save_ckpt:
                     _save_npz(run_dir / "best_params.npz", trainer.eval_model(), depth)
-                write_preds_csv(run_dir / "preds.csv", preds, val_labels)
+                if not is_mpp:
+                    write_preds_csv(run_dir / "preds.csv", preds, val_labels)
                 phases["ckpt"] += time.time() - t_ck
 
         t_ck = time.time()
         if exp.training.save_ckpt:
             _save_npz(run_dir / "final_params.npz", model, depth)
         phases["ckpt"] += time.time() - t_ck
-        results = {"best_mae": float(best), "best_epoch": int(best_epoch),
+        results = {f"best_{metric}": float(best), "best_epoch": int(best_epoch),
                    "epochs": int(epochs), "run_dir": str(run_dir),
                    "wall_s": round(time.time() - t_start, 2),
                    "training_finished": True, "streaming": False}
@@ -248,8 +311,9 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
                 trainer.eval_model().load_state_dict(best_state)
             test_data, test_labels = datasets["test"]
             tm, preds = trainer.evaluate(put(test_data), put(test_labels))
-            write_preds_csv(run_dir / "test_preds.csv", preds, test_labels)
-            results["test_mae"] = float(tm.mae)
+            if not is_mpp:
+                write_preds_csv(run_dir / "test_preds.csv", preds, test_labels)
+            results[f"test_{metric}"] = float(getattr(tm, metric))
             phases["test"] = time.time() - t_test
 
         results["phases_s"] = {k: round(v, 2) for k, v in phases.items()}

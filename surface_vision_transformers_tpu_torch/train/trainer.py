@@ -1,10 +1,16 @@
-"""Supervised regression training (the regression subset of
-``surface_vision_transformers_tpu.train.trainer.Trainer``).
+"""Supervised regression and MPP pretraining (counterpart of
+``surface_vision_transformers_tpu.train.trainer.Trainer`` without meshes).
 
-The model holds float32 master parameters on the training device; every
-step runs ``models.fused.fused_train_forward`` (bf16 compute, the block
-kernels forward and backward on CUDA), a weighted loss, and the optimizer
-from ``train.optim``. As in the JAX package:
+The model holds float32 master parameters on the training device: a ``SiT``
+for regression, an ``MPP`` around one for pretraining. Every step runs a
+forward, a weighted loss, and the optimizer from ``train.optim``. The route
+(``Trainer.uses_fused_train``, the JAX ``_use_fused_train`` without its mesh
+terms): bfloat16 compute, no dropout and ``tpu.fused_train`` take the
+fused-block kernels forward and backward (``fused_train_forward``,
+``fused_mpp_loss``); everything else -- float32 compute, dropout > 0 --
+runs the modular model under autograd, its attention on the attention
+kernels (``flash_attention_qkv[_dropout]``) for CUDA bfloat16. As in the
+JAX package:
 
 * an epoch permutes the device-resident dataset once (here from a
   ``torch.Generator`` seeded by ``training.seed``), then reads contiguous
@@ -14,10 +20,16 @@ from ``train.optim``. As in the JAX package:
   are combined in proportion to their weight sums (exact for the weighted
   means);
 * ``training.ema`` keeps an exponential moving average of the weights that
-  evaluation uses.
+  evaluation uses;
+* MPP tokenises a dataset once per run (``mpp_tokens``), draws each step's
+  corruption from a generator seeded by ``training.seed``, evaluates with a
+  fixed corruption per batch (a generator seeded from (1234, batch index)),
+  reports the loss as its metric, and under ``optimize_decoder: false``
+  leaves ``to_original`` and ``mask_token`` untouched;
+* dropout masks and attention-kernel seeds come from a ``DropoutRNG``
+  seeded by ``training.seed``.
 
-Not ported here (they raise): MPP pretraining, meshes and pipelines,
-augmentation, dropout > 0 (it runs the modular attention path).
+Not ported here (they raise): meshes and pipelines, augmentation.
 """
 
 from __future__ import annotations
@@ -31,10 +43,12 @@ import torch
 
 from surface_vision_transformers_tpu_torch.models.fused import (
     fused_forward,
+    fused_mpp_loss,
     fused_train_forward,
     prepare_weights,
 )
-from surface_vision_transformers_tpu_torch.models.sit import SiT
+from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
+from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
 from surface_vision_transformers_tpu_torch.train.losses import get_loss_fn
 from surface_vision_transformers_tpu_torch.train.optim import Optimizer
 from surface_vision_transformers_tpu_torch.utils.config import Experiment
@@ -59,33 +73,93 @@ def batch_weights(n: int, bs: int) -> np.ndarray:
     return w
 
 
-class Trainer:
-    """Trains ``model`` (a ``SiT`` with float32 parameters, already on its
-    device) on regression targets per ``exp``."""
+def eval_generator(i: int, device) -> torch.Generator:
+    """The fixed corruption of MPP evaluation batch ``i`` (the JAX
+    package's fold_in(PRNGKey(1234), i))."""
+    return torch.Generator(device=device).manual_seed((1234 << 32) + i)
 
-    def __init__(self, exp: Experiment, model: SiT):
-        if exp.is_pretraining:
-            raise NotImplementedError("MPP pretraining is not ported yet")
+
+@torch.no_grad()
+def evaluate_mpp(model: MPP, tokens: torch.Tensor, bs: int) -> float:
+    """The MPP loss over (n, L, patch_dim) ``tokens`` in clamped contiguous
+    batches of ``bs``, each with its fixed corruption (``eval_generator``),
+    weighted by sample: the modular MPP, its attention on
+    ``flash_attention_qkv`` for CUDA bfloat16."""
+    n = tokens.shape[0]
+    bs = min(bs, n)
+    w = torch.from_numpy(batch_weights(n, bs)).to(tokens.device)
+    loss_sum = 0.0
+    for i in range(w.shape[0]):
+        s = min(i * bs, n - bs)
+        loss, _ = model(tokens[s:s + bs], eval_generator(i, tokens.device),
+                        sample_weights=w[i])
+        loss_sum = loss_sum + loss * w[i].sum()
+    return float(loss_sum) / n
+
+
+class Trainer:
+    """Trains ``model`` (float32 parameters, already on its device): a
+    ``SiT`` on regression targets, or an ``MPP`` under an MPP config."""
+
+    def __init__(self, exp: Experiment, model: SiT | MPP):
         if exp.augment:
             raise NotImplementedError("augmentation is not ported yet")
-        if exp.model.dropout or exp.model.emb_dropout:
-            raise NotImplementedError(
-                "dropout > 0 runs the modular attention path, not ported yet")
-        if model.num_classes != 1:
+        self.task = "mpp" if exp.is_pretraining else "regression"
+        if isinstance(model, MPP) != (self.task == "mpp"):
+            raise TypeError(f"a {self.task} config trains "
+                            f"{'an MPP' if self.task == 'mpp' else 'a SiT'}, got "
+                            f"{type(model).__name__}")
+        self.encoder = model.transformer if self.task == "mpp" else model
+        if self.task == "regression" and model.num_classes != 1:
             raise NotImplementedError("the trainer covers scalar regression only")
+        if self.task == "mpp" and not exp.mpp.optimize_decoder:
+            # the reference's optimizer never sees the decoder: no update at all
+            for p in (model.to_original.weight, model.to_original.bias, model.mask_token):
+                p.requires_grad_(False)
         self.exp = exp
         self.model = model
         self.loss_fn = get_loss_fn(exp.training.l1loss)
         self.optimizer = Optimizer(exp.optim, model.parameters())
         self.ema_model = copy.deepcopy(model) if exp.training.ema > 0 else None
-        self.generator = torch.Generator().manual_seed(exp.training.seed)
+        seed = exp.training.seed
+        self.generator = torch.Generator().manual_seed(seed)  # epoch permutations
+        device = next(model.parameters()).device
+        self.corruption = torch.Generator(device=device).manual_seed(seed)
+        self.rng = (DropoutRNG(seed, device)
+                    if self.encoder.dropout or self.encoder.emb_dropout else None)
+        self._token_cache: dict[int, tuple] = {}
 
-    def eval_model(self) -> SiT:
+    def uses_fused_train(self) -> bool:
+        """The fused-block training route: bfloat16 compute, no dropout,
+        ``tpu.fused_train``. Otherwise the modular model under autograd."""
+        return (self.exp.fused_train and self.encoder.dtype == torch.bfloat16
+                and self.rng is None)
+
+    def eval_model(self) -> SiT | MPP:
         """The weights evaluation uses: the EMA shadow when enabled."""
         return self.ema_model if self.ema_model is not None else self.model
 
+    def mpp_tokens(self, data: torch.Tensor) -> torch.Tensor:
+        """MPP: the dataset as reconstruction targets (B, L, patch_dim),
+        computed once per dataset tensor; other tasks get ``data`` back."""
+        if self.task != "mpp" or (data.dim() == 3 and data.shape[-1] == self.encoder.patch_dim):
+            return data
+        cached = self._token_cache.get(id(data))
+        if cached is None or cached[0] is not data:
+            cached = (data, mpp_target(self.encoder, data))
+            self._token_cache[id(data)] = cached
+        return cached[1]
+
     def _loss(self, batch, targets, weights):
-        preds = fused_train_forward(self.model, batch)
+        fused = self.uses_fused_train()
+        if self.task == "mpp":
+            if fused:
+                loss = fused_mpp_loss(self.model, batch, self.corruption, weights)
+            else:
+                loss, _ = self.model(batch, self.corruption, rng=self.rng,
+                                     sample_weights=weights)
+            return loss, loss  # MPP has no MAE; the loss stands in
+        preds = fused_train_forward(self.model, batch) if fused else self.model(batch, rng=self.rng)
         preds = preds.reshape(preds.shape[0], -1).squeeze(-1)
         loss = self.loss_fn(preds, targets, weights)
         mae = ((preds - targets.reshape(preds.shape)).abs() * weights).sum() / (
@@ -93,8 +167,9 @@ class Trainer:
         return loss, mae
 
     def optimizer_step(self, batch, targets, weights):
-        """One optimizer step on a batch (microbatched under grad_accum).
-        -> (loss, weighted |err| sum), device scalars."""
+        """One optimizer step on a batch (microbatched under grad_accum);
+        ``targets`` None under MPP. -> (loss, weighted |err| sum), device
+        scalars."""
         self.optimizer.zero_grad()
         accum = self.exp.training.grad_accum
         if accum <= 1 or batch.shape[0] % accum:
@@ -107,7 +182,8 @@ class Trainer:
             loss = mae = 0.0
             for k in range(accum):
                 sl = slice(k * mbs, (k + 1) * mbs)
-                l_k, m_k = self._loss(batch[sl], targets[sl], weights[sl])
+                l_k, m_k = self._loss(batch[sl], None if targets is None else targets[sl],
+                                      weights[sl])
                 w_k = weights[sl].sum()
                 (l_k * (w_k / w_tot)).backward()
                 loss = loss + l_k.detach() * w_k
@@ -121,37 +197,48 @@ class Trainer:
                     e.copy_(e * d + p * (1.0 - d))
         return loss, mae * weights.sum()
 
-    def train_epoch(self, data: torch.Tensor, targets: torch.Tensor) -> EpochMetrics:
+    def train_epoch(self, data: torch.Tensor, targets: torch.Tensor | None = None
+                    ) -> EpochMetrics:
         """One pass over ``data`` (on the training device) in a fresh
         permutation. Metrics are fetched from the device once, at the end."""
+        data = self.mpp_tokens(data)
         n = data.shape[0]
         bs = min(self.exp.training.bs, n)
         perm = torch.randperm(n, generator=self.generator).to(data.device)
-        data_p, targets_p = data[perm], targets[perm]
+        data_p = data[perm]
+        targets_p = None if targets is None else targets[perm]
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
         losses, mae_sums = [], []
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)
-            loss, mae_sum = self.optimizer_step(data_p[s:s + bs], targets_p[s:s + bs], w[i])
+            loss, mae_sum = self.optimizer_step(
+                data_p[s:s + bs], None if targets_p is None else targets_p[s:s + bs], w[i])
             losses.append(loss)
             mae_sums.append(mae_sum)
         loss = torch.stack(losses).mean().item()
         return EpochMetrics(loss=loss, mae=torch.stack(mae_sums).sum().item() / n)
 
     @torch.no_grad()
-    def evaluate(self, data: torch.Tensor, targets: torch.Tensor):
-        """The whole split at ``training.bs_val`` (0 -> ``bs``) through
-        ``fused_forward``. -> (EpochMetrics with the MSE as loss,
-        predictions in row order as numpy)."""
+    def evaluate(self, data: torch.Tensor, targets: torch.Tensor | None = None):
+        """The whole split at ``training.bs_val`` (0 -> ``bs``). Regression:
+        ``fused_forward`` (bfloat16) or the modular model -> (EpochMetrics
+        with the MSE as loss, predictions in row order as numpy). MPP: the
+        modular MPP on each batch's fixed corruption -> (EpochMetrics with
+        the loss as both metrics, None)."""
         model = self.eval_model()
-        weights = prepare_weights(model)
+        bs_val = self.exp.training.bs_val or self.exp.training.bs
+        if self.task == "mpp":
+            loss = evaluate_mpp(model, self.mpp_tokens(data), bs_val)
+            return EpochMetrics(loss=loss, mae=loss), None
         n = data.shape[0]
-        bs = min(self.exp.training.bs_val or self.exp.training.bs, n)
+        bs = min(bs_val, n)
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
+        weights = prepare_weights(model) if model.dtype == torch.bfloat16 else None
         preds, sq_sum, err_sum = [], 0.0, 0.0
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)
-            p = fused_forward(model, data[s:s + bs], weights)
+            xb = data[s:s + bs]
+            p = fused_forward(model, xb, weights) if weights is not None else model(xb)
             p = p.reshape(p.shape[0], -1).squeeze(-1)
             d = p - targets[s:s + bs].reshape(p.shape)
             sq_sum = sq_sum + (d.square() * w[i]).sum()

@@ -9,8 +9,9 @@ loss, EMA, gradient accumulation, checkpoints, initialisation, seed),
 ``optimisation`` / ``SGD`` / ``Adam`` / ``AdamW`` / ``StepLR`` /
 ``CosineDecay`` (optimizer and schedule), ``logging.folder_to_save_model``,
 ``weights``, ``testing.path_to_ckpt``, ``augmentation.enabled``,
-``pretraining_mpp`` / ``SSL`` (to refuse MPP configs) and, under ``tpu``,
-``compute_dtype`` and ``quant``. ``tpu.scan_blocks`` is a TPU compile-time
+``pretraining_mpp`` / ``SSL`` (masked-patch pretraining: the corruption
+rates and ``optimize_decoder``) and, under ``tpu``, ``compute_dtype``,
+``fused_train`` and ``quant``. ``tpu.scan_blocks`` is a TPU compile-time
 knob that leaves the outputs bitwise unchanged; eager PyTorch has nothing to
 compile, so it is not read. A ``.json`` file is read with the standard
 library; anything else with PyYAML, imported only when needed.
@@ -82,6 +83,27 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MPPConfig:
+    """Masked-patch-pretraining corruption (``pretraining_mpp:`` block), with
+    the JAX package's validation. ``optimize_decoder: false`` freezes the
+    reconstruction head and the mask token (the reference's optimizer never
+    saw them)."""
+
+    mask_prob: float = 0.75
+    replace_prob: float = 0.8
+    swap_prob: float = 0.02
+    optimize_decoder: bool = True
+
+    def __post_init__(self):
+        for k in ("mask_prob", "replace_prob", "swap_prob"):
+            if not 0.0 <= getattr(self, k) <= 1.0:
+                raise ValueError(f"pretraining_mpp.{k} must be in [0, 1]")
+        if self.swap_prob > 0 and self.replace_prob >= 1.0:
+            # the swap rate swap_prob / (1 - replace_prob) is undefined at 1
+            raise ValueError("pretraining_mpp.swap_prob > 0 requires replace_prob < 1")
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainingConfig:
     """Run hyperparameters (``training:`` block)."""
 
@@ -144,7 +166,8 @@ class Experiment:
     optim: OptimConfig = OptimConfig()
     compute_dtype: str = "bfloat16"
     quant: str = "none"
-    is_pretraining: bool = False  # an MPP (``pretraining_mpp``) config
+    mpp: MPPConfig | None = None  # an MPP (``pretraining_mpp`` or ``SSL: mpp``) config
+    fused_train: bool = True  # ``tpu.fused_train``: the fused-block training route
     augment: bool = False  # ``augmentation.enabled``
     ico: int = 6
     sub_ico: int = 2
@@ -153,6 +176,10 @@ class Experiment:
     ssl_weights_path: str = ""
     imagenet_weights: str = ""
     raw: dict = dataclasses.field(default_factory=dict, hash=False, compare=False)
+
+    @property
+    def is_pretraining(self) -> bool:
+        return self.mpp is not None
 
 
 def _get(d: dict, path: str, default):
@@ -247,6 +274,15 @@ def from_dict(raw: dict) -> Experiment:
     quant = str(tp.get("quant", "none"))
     if quant not in ("none", "int8"):
         raise ValueError(f"tpu.quant must be 'none' or 'int8', got {quant!r}")
+    mpp = None
+    if "pretraining_mpp" in raw or raw.get("SSL") == "mpp":
+        m = raw.get("pretraining_mpp") or {}
+        mpp = MPPConfig(
+            mask_prob=float(m.get("mask_prob", 0.75)),
+            replace_prob=float(m.get("replace_prob", 0.8)),
+            swap_prob=float(m.get("swap_prob", 0.02)),
+            optimize_decoder=bool(m.get("optimize_decoder", True)),
+        )
     return Experiment(
         model=model,
         training=training,
@@ -254,7 +290,8 @@ def from_dict(raw: dict) -> Experiment:
         optim=optim,
         compute_dtype=str(tp.get("compute_dtype", "bfloat16")),
         quant=quant,
-        is_pretraining="pretraining_mpp" in raw or raw.get("SSL") == "mpp",
+        mpp=mpp,
+        fused_train=bool(tp.get("fused_train", True)),
         augment=bool(_get(raw, "augmentation.enabled", False)),
         ico=ico,
         sub_ico=sub_ico,

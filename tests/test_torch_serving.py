@@ -150,8 +150,9 @@ def test_run_testing_refuses_what_it_cannot_serve(tmp_path):
     cfg["testing"]["path_to_ckpt"] = str(tmp_path)
     with pytest.raises(ValueError, match="directory"):
         trunner.run_testing(from_dict(cfg), device="cpu")
-    cfg["pretraining_mpp"] = {"mask_prob": 0.5}
-    with pytest.raises(NotImplementedError, match="MPP"):
+    cfg["testing"]["path_to_ckpt"] = str(tmp_path / "best_params.npz")
+    cfg["transformer"] = dict(cfg["transformer"], num_classes=2)
+    with pytest.raises(NotImplementedError, match="regression and MPP"):
         trunner.run_testing(from_dict(cfg), device="cpu")
 
 
@@ -198,6 +199,9 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 20
     assert {"surface_vision_transformers_tpu_torch.ops.flash_attention",
+            "surface_vision_transformers_tpu_torch.ops.attention",
+            "surface_vision_transformers_tpu_torch.models.mpp",
+            "surface_vision_transformers_tpu_torch.cli.pretrain",
             "surface_vision_transformers_tpu_torch.geometry.icosphere"} <= set(mods)
 
 

@@ -226,13 +226,18 @@ def test_grad_accum_and_ema():
 
 @pytest.mark.parametrize("change,match", [
     (dict(augment=True), "augmentation"),
-    (dict(is_pretraining=True), "MPP"),
+    (dict(mpp=config.MPPConfig()), "MPP"),
     (dict(model=config.ModelConfig(dim=16, depth=2, heads=2, mlp_dim=32, dim_head=8,
-                                   num_patches=20, num_vertices=15, dropout=0.1)), "dropout"),
+                                   num_patches=20, num_vertices=15, num_classes=2)),
+     "scalar regression"),
 ])
 def test_unported_training_modes_raise(change, match):
+    """Augmentation and classification heads are not ported; an MPP config
+    trains an MPP, not a bare SiT."""
     _, _, model, exp = _small_setup()
-    with pytest.raises(NotImplementedError, match=match):
+    if "model" in change:
+        model = SiT(dtype=torch.float32, **{**CFG, "num_classes": 2})
+    with pytest.raises((NotImplementedError, TypeError), match=match):
         Trainer(dataclasses.replace(exp, **change), model)
 
 
