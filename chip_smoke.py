@@ -116,6 +116,33 @@ above, N = 321, bs 32, bs_val 32) and supervised training with dropout:
               with the shipped supervised config finetuning from its
               encoder_best_params.npz.
 
+Phases 20-23 run W8A8 int8 serving (``tpu.quant: int8``) of SiT-base on
+sub-ico 3 and the gather-fused patch embedding:
+
+20. int8-kernels -- the int8 chain's row quantizer (codes and scales) and
+              int8 GEMM (int32 accumulators) bitwise against their plain
+              versions at SiT-base shapes (M = 64 x 1281, K 768 and 3072);
+              ``fused_block_int8`` against the float32 and bf16 plain int8
+              block at dim 768 / N 1281 / B 64, dim 384 / N 321 / B 256,
+              N 328 / valid_len 321 and N 64, with controls (one scale per
+              tensor, valid_len ignored, x1 rounded to bf16); times beside
+              ``fused_block``, ``torch._int_mm`` per GEMM and the bounds,
+              and int8 against bf16 block times at dim 192, 384 and 768.
+21. patch-embed -- ``patch_embed`` against the float32 and bf16 plain
+              versions at sub-ico 2 (B 256, dim 192 and 384) and sub-ico 3
+              (B 64, dim 768), with controls (the table shifted by one
+              patch, (c v) order); times beside the plain version and
+              index_select + matmul.
+22. int8-slice -- SiT-base ``predict(quant="int8")`` at bs_val 64: launches
+              (11 fused_block_int8, 1 fused_block_cls, 1 patch_embed a
+              batch), against the float32 eager model (rel-L2 under 0.02)
+              and bf16 ``predict``, with a control; int8 and bf16
+              surfaces/s and peak memory at B 64 and 128.
+23. int8-entry -- ``cli.test`` on the SiT-base config cut to 4 blocks with
+              ``--set tpu.quant=int8`` (results.csv equal to ``predict``),
+              and on a SiT-tiny config, where int8 falls back to bf16 with
+              one notice.
+
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
 
@@ -180,7 +207,8 @@ X_SCALE = 0.1  # phase-3 block input: LayerNorm makes the branches scale-free
 BOUND_STEPS = 2
 # Slice gate on |kernel path - eager bf16| in predictions (std 0.30 across
 # surfaces): three times the largest reading on an H100, 0.0098; the
-# controls read 0.24 and more.
+# controls read 0.24 and more. With the gather-fused embed (its bias added
+# before its one rounding, the eager model's after) it reads 0.0168.
 SLICE_TOL = 0.03
 # Phase 6: each backward output within BWD_STEPS bf16 steps, at its largest
 # |float32 plain| value, of the float32 and of the bf16 plain backward.
@@ -722,7 +750,8 @@ def phase_train(table) -> dict:
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_loss, e_loss))
     want = {k: 0 for k in counters}
     want.update(fused_block=11 * TRAIN_STEPS, fused_block_cls=TRAIN_STEPS,
-                fused_block_bwd=11 * TRAIN_STEPS, fused_block_cls_bwd=TRAIN_STEPS)
+                fused_block_bwd=11 * TRAIN_STEPS, fused_block_cls_bwd=TRAIN_STEPS,
+                patch_embed=TRAIN_STEPS)
     phase("train", f"{TRAIN_STEPS} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={TRAIN_B}: "
           f"launches {launches}, expected {want}")
     phase("train", "losses kernel path " + " ".join(f"{v:.6g}" for v in k_loss))
@@ -808,7 +837,8 @@ def ptxas_report(log_path: Path) -> str:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "ln_bwd",
-                                     "gemm_bwd", "gemm_kernel", "layer_norm", "reduce")
+                                     "gemm_bwd", "int8_gemm", "gemm_kernel", "layer_norm",
+                                     "reduce", "ln_quant", "quant_rows", "patch_embed")
                          if k in mangled), mangled[:40])
         elif name and "registers" in line:
             regs[name] = max(regs.get(name, 0), int(line.split("Used ")[1].split()[0]))
@@ -822,6 +852,8 @@ def kernel_counters(fb) -> dict:
     """Every kernel wrapper's launch counter (and the recompute route's), by
     kernel name."""
     from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+    from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8
+    from surface_vision_transformers_tpu_torch.ops import patch_embed as pe
 
     return {"fused_block": fb.fused_block, "fused_block_cls": fb.fused_block_cls,
             "fused_block_bwd": fb.fused_block_bwd,
@@ -834,7 +866,8 @@ def kernel_counters(fb) -> dict:
             "flash_attention_qkv_dropout": fa.flash_attention_qkv_dropout_fwd,
             "flash_attention_qkv_dropout_bwd": fa.flash_attention_qkv_dropout_bwd,
             "flash_attention_tiled": fa.flash_attention_tiled_fwd,
-            "flash_attention_tiled_bwd": fa.flash_attention_tiled_bwd}
+            "flash_attention_tiled_bwd": fa.flash_attention_tiled_bwd,
+            "fused_block_int8": fbi8.fused_block_int8, "patch_embed": pe.patch_embed}
 
 
 def zero_counts(fb) -> dict:
@@ -1061,8 +1094,13 @@ def phase_base_kernels(rng, fb, sit_module, m, bs) -> None:
     phase("base-kernels", f"SiT-base B={B} N={N}, CUDA-event medians of 10 (ms): "
           + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in times.items()))
     fwd_f, bwd_f = block_flops(B, N, N, dim, heads, mlp, False)
+    cls_f, cls_b = block_flops(B, N, N, dim, heads, mlp, True)
+    io_fwd = nbytes_of(x, *pb) + B * 8 * dim * 2  # the CLS block writes its 8 top rows
+    io_bwd = nbytes_of(x, g8, *pb) + x.numel() * 2 + 4 * sum(t.numel() for t in pb)
     phase("base-kernels", f"bounds at B={B}: block forward {bound_ms(fwd_f, 0)[0]:.4f} ms, "
-          f"backward {bound_ms(bwd_f, 0)[0]:.4f} ms by operations")
+          f"backward {bound_ms(bwd_f, 0)[0]:.4f} ms by operations; fused_block_cls "
+          "{:.4f} ms by {}, fused_block_cls_bwd {:.4f} ms by {} (inputs read and outputs "
+          "written once)".format(*bound_ms(cls_f, io_fwd), *bound_ms(cls_b, io_bwd)))
     del x, g, g8, layer
     torch.cuda.empty_cache()
 
@@ -1083,7 +1121,7 @@ def phase_base_slice(rng, fb, fused, exp, table, state) -> None:
     preds = fused.predict(model, data, device="cuda", batch_size=64)
     launches = read_counts(counters)
     want = {k: 0 for k in counters}
-    want.update(fused_block=(m.depth - 1) * 2, fused_block_cls=2)
+    want.update(fused_block=(m.depth - 1) * 2, fused_block_cls=2, patch_embed=2)
     phase("base-slice", f"predict(80 surfaces, batch 64): launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError("the SiT-base serving path did not launch as expected")
@@ -1193,7 +1231,7 @@ def phase_base_train(fb, exp, table) -> dict:
     per_step = {k: 0 for k in counters}
     per_step.update(fused_block=blocks, fused_block_cls=1, fused_block_cls_bwd=1,
                     fused_block_recompute_bwd=blocks, flash_attention=blocks,
-                    flash_attention_bwd=blocks)
+                    flash_attention_bwd=blocks, patch_embed=1)
     want = {k: v * steps for k, v in per_step.items()}
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_loss, e_loss))
     phase("base-train", f"{steps} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={B}: "
@@ -1920,7 +1958,7 @@ def phase_dropout_train(fb, table, fused_step_s) -> dict:
     control = trainer_run(exp, model("auto"), start, batches, DROP_STEPS, hook_block=5)
     want = {k: 0 for k in counters}
     want.update(flash_attention_qkv_dropout=DEPTH * DROP_STEPS,
-                flash_attention_qkv_dropout_bwd=DEPTH * DROP_STEPS)
+                flash_attention_qkv_dropout_bwd=DEPTH * DROP_STEPS, patch_embed=DROP_STEPS)
     phase("dropout-train", f"{DROP_STEPS} SGD steps (momentum 0.9, LR {TRAIN_LR}) at "
           f"B={DROP_TRAIN_B}, dropout {DROP_RATE}: launches {launches}, expected {want}")
     gate_runs("dropout-train", "dropout kernel path", run, plain_run, control, TRAIN_LOSS_TOL,
@@ -1998,6 +2036,483 @@ def phase_pretrain_entry() -> None:
             raise AssertionError("cli.train did not finetune from the MPP encoder")
 
 
+# Phases 20-23: W8A8 int8 serving (``tpu.quant: int8``) of SiT-base on
+# sub-ico 3, and the gather-fused patch embedding.
+INT8_SOURCE = "surface_vision_transformers_tpu_torch/csrc/fused_block_int8.cu"
+EMBED_SOURCE = "surface_vision_transformers_tpu_torch/csrc/patch_embed.cu"
+INT8_TPU = "surface_vision_transformers_tpu/ops/pallas/fused_block_int8.py:145"
+EMBED_TPU = "surface_vision_transformers_tpu/ops/pallas/patch_embed.py:34"
+PEAK_INT8 = 1979e12  # the H100 SXM's dense int8 tensor-core peak (NVIDIA's data sheet)
+# fused_block_int8 cases (dim, heads, mlp, B, N, valid_len): SiT-base on
+# sub-ico 3 at its bs_val, SiT-small width at SiT-tiny's N, the JAX package's
+# padded N with its mask, and one 64-key tile (N = 64), where the attention
+# kernel rounds P against the row's final max as the plain version does, so
+# the chain matches the bf16 plain run but for rare code flips and a control
+# that only double-rounds the output can be told apart.
+INT8_CASES = [(768, 12, 3072, 64, 1281, 1281), (384, 6, 1536, 256, 321, 321),
+              (384, 6, 1536, 64, 328, 321), (384, 6, 1536, 512, 64, 64)]
+# Block times, int8 against the bf16 fused_block, at three widths (dim,
+# heads, mlp, B, N): the card's own crossover, beside the JAX package's
+# INT8_MIN_DIM = 384.
+INT8_RATE_CASES = [(192, 3, 768, 256, 321), (384, 6, 1536, 256, 321), (768, 12, 3072, 64, 1281)]
+# fused_block_int8 gates, set from readings on an NVIDIA H100 80GB HBM3 at
+# 700 W. A code that lands on the other side of a rounding boundary in the
+# kernel and in the plain version moves a whole row by a quantization step,
+# so the kernel sits up to 3.5 bf16 steps (at the largest output) from the
+# bf16 plain int8 block, where the bf16 blocks of phase 3 sit within one;
+# the controls are held by what moves them. (i) max |err| against the fp32
+# and the bf16 plain run: readings 1.61-3.50 steps (the plain bf16 run
+# reads up to 3.47 from the fp32 one), valid_len ignored 25.7-27.8.
+# (ii) rel-L2 against the fp32 plain run over the bf16 plain run's own:
+# readings 1.000 (0.0101-0.0128 each), one scale per tensor 1.78-2.12,
+# valid_len ignored 7.3-7.4. (iii) at N = 64 the share of outputs that
+# differ from the bf16 plain run: readings 0.027-0.031, x1 rounded to bf16
+# 0.694-0.702 (its max and rel-L2 sit with the kernel's: a double rounding
+# moves an output by one step at most).
+INT8_STEPS, INT8_REL_RATIO, INT8_SHARE = 6, 1.25, 0.05
+EMBED_CASES = [(2, 256, 192), (2, 256, 384), (3, 64, 768)]  # (sub_ico, B, dim)
+# int8 SiT-base predictions against the fp32 eager model, rel-L2. At these
+# seeded weights (attention O(1) of every block, twelve blocks) bf16
+# ``predict`` itself reads 0.024-0.029 and int8 0.031-0.058 (two draws of
+# the weights), above tests/test_int8.py's 0.02 for a two-block model; the
+# gate is set from those readings (an NVIDIA H100 80GB HBM3 at 700 W), the
+# control (a block dropped) read 1.69-2.16.
+INT8_SLICE_REL = 0.08
+INT8_SLICE_N = 128  # SiT-base surfaces served at bs_val 64 (two batches)
+
+
+def int8_block_params(rng, dim, heads, mlp):
+    """(fused_block_int8's 15 parameters, fused_block's 11 in bf16) on the
+    card from phase 10's seeded block, the int8 codes quantized from
+    float32."""
+    from surface_vision_transformers_tpu_torch.ops.quant import quantize_block_weights
+
+    p = [t.cuda() for t in block_params(rng, dim, heads, mlp)]
+    q = quantize_block_weights(p[2], p[3], p[7], p[9])
+    p8 = (p[0], p[1], *q[:4], p[4], p[5], p[6], q[4], q[5], p[8], q[6], q[7], p[10])
+    return p8, [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p]
+
+
+def per_tensor_rows(h):
+    """A control's activation quantizer: one scale for the whole tensor in
+    place of one per row."""
+    from surface_vision_transformers_tpu_torch.ops import quant
+
+    hf = h.float()
+    absmax = hf.abs().amax().reshape([1] * hf.dim()).expand(*hf.shape[:-1], 1)
+    return quant._quantize(hf, absmax)
+
+
+def int8_block_x1_rounded(fb, x, p, heads, vl):
+    """The plain int8 block with x1 rounded to bf16 (a control)."""
+    from surface_vision_transformers_tpu_torch.ops.quant import int8_mm_reference as mm
+
+    (ln1_s, ln1_b, q_qkv, s_qkv, q_out, s_out, b_out, ln2_s, ln2_b,
+     q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2) = p
+    hd, dt = heads * DH, x.dtype
+    qkv = mm(fb._layer_norm(x, ln1_s, ln1_b, 1e-5), q_qkv, s_qkv).to(dt)
+    attn = fb._attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], heads, DH, vl, dt)
+    x1 = (x.float() + (mm(attn, q_out, s_out) + b_out)).bfloat16().float()
+    f = F.gelu(mm(fb._layer_norm(x1, ln2_s, ln2_b, 1e-5), q_fc1, s_fc1) + b_fc1)
+    return (x1 + (mm(f, q_fc2, s_fc2) + b_fc2)).to(dt)
+
+
+def int8_block_ops(B, N, vl, dim, heads, mlp):
+    """(int8 GEMM operations, bf16 attention operations) of one block; the
+    attention products over the rows and keys < valid_len."""
+    hd = heads * DH
+    return 2 * B * N * (dim * 3 * hd + hd * dim + 2 * dim * mlp), 4 * B * heads * vl * vl * DH
+
+
+def phase_int8_kernels(rng, fb) -> dict:
+    """Phase 20: the int8 chain's row quantizer and GEMM bitwise against
+    their plain versions at SiT-base shapes; fused_block_int8 against the
+    float32 and bf16 plain int8 block with controls; times beside
+    fused_block, ``torch._int_mm`` and the bounds. -> the kernel's row."""
+    from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8
+    from surface_vision_transformers_tpu_torch.ops import quant
+
+    failures = []
+    M = 64 * 1281  # SiT-base rows at bs_val 64
+    for K, dt in ((768, torch.float32), (3072, torch.float32), (768, torch.bfloat16)):
+        h = torch.randn((M, K), device="cuda", dtype=torch.float32) * 3.0
+        h[0] = 0.0  # an all-zero row: the 1e-30 floor
+        h[1, :] = (torch.arange(K, device="cuda") % 255 - 127 + 0.5).float()  # half steps
+        h = h.to(dt)
+        q, s = fbi8.quant_rows_kernel(h)
+        qp, sp = quant.quant_rows(h)
+        bad = int((q != qp).sum()) + int((s != sp.reshape(-1)).sum())
+        phase("int8-kernels", f"row quantizer M={M} K={K} {str(dt)[6:]}: {bad} of "
+              f"{q.numel() + s.numel()} codes and scales differ from the plain version "
+              f"(must be 0); zero row scale {s[0].item():.6g}")
+        if bad:
+            failures.append(f"row quantizer K={K} {dt}")
+    times = {}
+    gemms = {"qkv": (2304, 768), "out": (768, 768), "fc1": (3072, 768), "fc2": (768, 3072)}
+    for name, (n_out, K) in gemms.items():
+        qa = torch.randint(-127, 128, (M, K), device="cuda", dtype=torch.int8)
+        qa[:64] = 127
+        qw = torch.randint(-127, 128, (n_out, K), device="cuda", dtype=torch.int8)
+        qw[:8] = 127
+        acc = fbi8.int8_gemm_kernel(qa, qw)
+        bad = int((acc != quant.int8_product(qa, qw)).sum())
+        phase("int8-kernels", f"int8 GEMM {name} M={M} N={n_out} K={K}: {bad} int32 "
+              f"accumulators differ from the exact product (must be 0); largest "
+              f"|acc| {acc.abs().max().item()}")
+        if bad:
+            failures.append(f"int8 GEMM {name}")
+        ms = cuda_ms(lambda: fbi8.int8_gemm_kernel(qa, qw))
+        try:
+            lib = cuda_ms(lambda: torch._int_mm(qa, qw.t()))
+        except RuntimeError as e:  # a yardstick only: report what the library refused
+            lib, why = None, str(e).splitlines()[0]
+            phase("int8-kernels", f"torch._int_mm refused {name}: {why}")
+        b = max(2 * M * n_out * K / PEAK_INT8, (qa.numel() + qw.numel() + 4 * acc.numel())
+                / PEAK_BYTES) * 1e3
+        times[name] = (ms, lib, b)
+        phase("int8-kernels", f"int8 GEMM {name}: kernel {ms:.4f} ms, torch._int_mm "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
+              f"({2 * M * n_out * K / 1e9:.1f} G int8 operations; CUDA-event medians of 25)")
+        del qa, qw, acc
+    torch.cuda.empty_cache()
+
+    row = None
+    for dim, heads, mlp, B, N, vl in INT8_CASES:
+        p8, _ = int8_block_params(rng, dim, heads, mlp)
+        kw = dict(heads=heads, dim_head=DH)
+        x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        got = fbi8.fused_block_int8(x, *p8, valid_len=vl, **kw).float()
+        chunk = 16 if N > 400 else 64
+
+        def plain(fn=fbi8.fused_block_int8_reference, dtype=None, valid=vl):
+            return sliced(lambda xs: fn(xs.to(dtype) if dtype else xs, *p8, valid_len=valid,
+                                        **kw).float(), x, chunk=chunk)
+
+        ref32, ref_bf = plain(dtype=torch.float32), plain()
+        rows = slice(0, vl)
+
+        def steps(a, r=ref32):
+            return ((a - r)[:, rows].abs().max() / bf16_step(r[:, rows].abs().max().item())).item()
+
+        def rel(a, r=ref32):
+            return (torch.linalg.vector_norm((a - r)[:, rows])
+                    / torch.linalg.vector_norm(r[:, rows])).item()
+
+        def share(a, r=ref_bf):
+            return (a[:, rows] != r[:, rows]).float().mean().item()
+
+        cases = {"kernel": got, "plain bf16": ref_bf}
+        if N == vl and N > 64:
+            with mock.patch.object(quant, "quant_rows", per_tensor_rows):
+                cases["control: one scale per tensor"] = plain(dtype=torch.float32)
+        if N > vl:
+            cases["control: valid_len ignored"] = plain(dtype=torch.float32, valid=N)
+        if N == 64:
+            cases["control: x1 rounded to bf16"] = sliced(
+                lambda xs: int8_block_x1_rounded(fb, xs, p8, heads, vl).float(), x, chunk=chunk)
+        for label, a in cases.items():
+            phase("int8-kernels", f"dim {dim} B={B} N={N} valid_len={vl}: {label}: max |err| vs "
+                  f"fp32 plain {steps(a):.3f} bf16 steps at the largest output, vs plain bf16 "
+                  f"{steps(a, ref_bf):.3f}; rel-L2 vs fp32 plain {rel(a):.4g}; share of outputs "
+                  f"differing from plain bf16 {share(a):.4f}")
+        rel_bf = rel(ref_bf)
+
+        def passes(a):
+            """The three gates: max steps, rel-L2 ratio, and at N = 64 the share."""
+            return (bool(torch.isfinite(a).all()) and max(steps(a), steps(a, ref_bf)) <= INT8_STEPS
+                    and rel(a) <= INT8_REL_RATIO * rel_bf and (N > 64 or share(a) <= INT8_SHARE))
+
+        phase("int8-kernels", f"dim {dim} N={N}: gates max {INT8_STEPS} bf16 steps vs both, "
+              f"rel-L2 vs fp32 plain <= {INT8_REL_RATIO} x plain bf16's {rel_bf:.4g}"
+              + (f", share <= {INT8_SHARE}" if N == 64 else "") + "; every control must fail one")
+        if not passes(got):
+            failures.append(f"fused_block_int8 dim {dim} N={N} failed its gates")
+        failures += [f"fused_block_int8 dim {dim} N={N}: {k} passed the gates"
+                     for k, v in cases.items() if k.startswith("control") and passes(v)]
+        if (dim, B, N) == (768, 64, 1281):
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: fbi8.fused_block_int8(x, *p8, **kw), reps=10)
+                plain_ms = cuda_ms(lambda: [fbi8.fused_block_int8_reference(
+                    x[s:s + 16], *p8, **kw) for s in range(0, B, 16)], reps=3)
+            g_ops, a_ops = int8_block_ops(B, N, vl, dim, heads, mlp)
+            nbytes = nbytes_of(x, *p8) + x.numel() * 2
+            t_ops = (g_ops / PEAK_INT8 + a_ops / PEAK_FLOPS) * 1e3
+            b_ms, b_by = max((t_ops, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+            phase("int8-kernels", f"fused_block_int8 SiT-base B={B} N={N}: kernel {ms:.4f} ms, "
+                  f"plain int8 block (bf16, 4 slices of 16) {plain_ms:.4f} ms (CUDA-event medians "
+                  f"of 10 / 3); bound {b_ms:.4f} ms by {b_by} ({g_ops / 1e12:.3f} T int8 "
+                  f"operations + {a_ops / 1e12:.3f} TFLOP attention, {nbytes / 1e6:.1f} MB); "
+                  "the four GEMMs alone (kernel / torch._int_mm / bound, ms): "
+                  + ", ".join(f"{k} {t[0]:.4f} / {'n/a' if t[1] is None else f'{t[1]:.4f}'} / "
+                              f"{t[2]:.4f}" for k, t in times.items()))
+            row = {"name": "fused_block_int8", "route": "cuda", "source": INT8_SOURCE,
+                   "replaces": INT8_TPU, "max_abs_err": (got - ref32).abs().max().item(),
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+        del got, ref32, ref_bf, cases, x
+        torch.cuda.empty_cache()
+
+    for dim, heads, mlp, B, N in INT8_RATE_CASES:
+        p8, pb = int8_block_params(rng, dim, heads, mlp)
+        kw = dict(heads=heads, dim_head=DH)
+        x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        with torch.inference_mode():
+            t8 = cuda_ms(lambda: fbi8.fused_block_int8(x, *p8, **kw), reps=10)
+            t16 = cuda_ms(lambda: fb.fused_block(x, *pb, **kw), reps=10)
+        phase("int8-kernels", f"crossover, dim {dim} mlp {mlp} B={B} N={N}: fused_block_int8 "
+              f"{t8:.4f} ms, fused_block (bf16) {t16:.4f} ms, ratio bf16/int8 {t16 / t8:.3f} "
+              "(CUDA-event medians of 10)")
+        del x
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("int8 kernels: " + "; ".join(failures))
+    return row
+
+
+def embed_plain_cv(x, idx, w, b):
+    """The plain embedding with the tokens in (c v) order in place of (v c)
+    (a control)."""
+    B, C, _ = x.shape
+    L, V = idx.shape
+    t = x.index_select(2, idx.reshape(-1)).reshape(B, C, L, V).permute(0, 2, 1, 3)
+    t = t.reshape(B, L, C * V).to(w.dtype).float()
+    return (t @ w[:, :C * V].float().t() + b).to(w.dtype)
+
+
+def phase_patch_embed(rng, embed_launches) -> dict:
+    """Phase 21: the gather-fused patch_embed against the float32 and bf16
+    plain versions at sub-ico 2 (B=256, dim 192 and 384) and sub-ico 3
+    (B=64, dim 768), with controls; times beside the plain version,
+    index_select + torch.matmul, and the bound. -> the kernel's row (at
+    phase 4's shape, with phase 4's launches)."""
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.ops import patch_embed as pe
+
+    failures, row = [], None
+    for sub_ico, B, dim in EMBED_CASES:
+        table = load_patch_table(6, sub_ico).indices
+        L, V = table.shape
+        idx = pe.table_tensor(table, "cuda")
+        x = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(np.float32)).cuda()
+        bd = 1.0 / np.sqrt(4 * V)
+        kernel = torch.from_numpy(rng.uniform(-bd, bd, (4 * V, dim)).astype(np.float32)).cuda()
+        bias = torch.from_numpy(rng.uniform(-bd, bd, dim).astype(np.float32)).cuda()
+        means = rng.uniform(-1, 1, (1, 4, 1)).astype(np.float32)
+        stds = rng.uniform(0.5, 2, (1, 4, 1)).astype(np.float32)
+        w, b = pe.embed_matrix(kernel, bias, V, means=means, stds=stds)
+        got = pe.patch_embed(x, idx, w, b).float()
+        ref32 = pe.patch_embed_reference(x, idx, w.float(), b).float()
+        ref_bf = pe.patch_embed_reference(x, idx, w, b).float()
+        step = bf16_step(ref32.abs().max().item())
+        errs = {"vs fp32 plain": (got - ref32).abs().max().item(),
+                "vs plain bf16": (got - ref_bf).abs().max().item(),
+                "plain bf16 vs fp32 plain": (ref_bf - ref32).abs().max().item()}
+        controls = {
+            "table shifted by one patch": (got - pe.patch_embed_reference(
+                x, idx.roll(1, 0), w, b).float()).abs().max().item(),
+            "(c v) order": (got - embed_plain_cv(x, idx, w, b).float()).abs().max().item()}
+        phase("patch-embed", f"sub-ico {sub_ico} ({L} x {V}, K {4 * V} -> {w.shape[1]}) B={B} "
+              f"dim {dim}: max |err| " + ", ".join(f"{k} {v / step:.3f}" for k, v in errs.items())
+              + f" bf16 steps at the largest output (gate {BOUND_STEPS}); controls: "
+              + ", ".join(f"{k} {v / step:.1f}" for k, v in controls.items()))
+        if not bool(torch.isfinite(got).all()) or max(errs["vs fp32 plain"],
+                                                      errs["vs plain bf16"]) > BOUND_STEPS * step:
+            failures.append(f"patch_embed sub-ico {sub_ico} dim {dim}")
+        if min(controls.values()) <= BOUND_STEPS * step:
+            failures.append(f"patch_embed sub-ico {sub_ico} dim {dim}: a control passed the gate")
+        flat = idx.reshape(-1)
+        wt = w[:, :4 * V].t()
+
+        def library():  # index_select + torch.matmul: the library form
+            t = x.index_select(2, flat).view(B, 4, L, V).permute(0, 2, 3, 1).reshape(B, L, 4 * V)
+            return torch.addmm(b.bfloat16(), t.bfloat16().reshape(B * L, -1), wt)
+
+        ms = cuda_ms(lambda: pe.patch_embed(x, idx, w, b))
+        plain_ms = cuda_ms(lambda: pe.patch_embed_reference(x, idx, w, b), reps=5)
+        lib_ms = cuda_ms(library)
+        flops = 2 * B * L * 4 * V * dim
+        nbytes = nbytes_of(x, idx, w, b) + got.numel() * 2
+        b_ms, b_by = bound_ms(flops, nbytes)
+        phase("patch-embed", f"sub-ico {sub_ico} B={B} dim {dim}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, index_select + addmm {lib_ms:.4f} ms (CUDA-event medians of "
+              f"25 / 5 / 25); bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        if (sub_ico, B, dim) == (2, 256, 192):
+            row = {"name": "patch_embed", "route": "cuda", "source": EMBED_SOURCE,
+                   "replaces": EMBED_TPU, "launches": embed_launches,
+                   "max_abs_err": errs["vs fp32 plain"], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        del x, got, ref32, ref_bf
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return row
+
+
+def phase_int8_slice(rng, fb, fused, exp, table, state, tiny) -> int:
+    """Phase 22: SiT-base ``predict(quant="int8")`` at bs_val 64 with the
+    launches per forward, against the float32 eager model and bf16
+    ``predict``, with a control; int8 and bf16 surfaces/s and peak memory
+    at B=64 and 128, and of the SiT-tiny model ``tiny`` at B=256 (below the
+    crossover, where the trainer and the CLI serve bf16). -> fused_block_int8's
+    launches."""
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+
+    m = exp.model
+    model = SiT.from_config(exp, patch_table=table, dtype=torch.bfloat16, attn_backend="plain")
+    model.load_state_dict(state, strict=True)
+    model = model.eval().cuda()
+    data = rng.standard_normal((INT8_SLICE_N, 4, 40962)).astype(np.float32)
+    bs = exp.training.bs_val
+    n_batches = INT8_SLICE_N // bs
+    counters = zero_counts(fb)
+    preds8 = fused.predict(model, data, device="cuda", batch_size=bs, quant="int8")
+    launches = read_counts(counters)
+    want = {k: 0 for k in counters}
+    want.update(fused_block_int8=(m.depth - 1) * n_batches, fused_block_cls=n_batches,
+                patch_embed=n_batches)
+    phase("int8-slice", f"predict({INT8_SLICE_N} surfaces, batch {bs}, quant int8): launches "
+          f"{launches}, expected {want}")
+    if launches != want:
+        raise AssertionError("the int8 serving path did not launch as expected")
+    preds16 = fused.predict(model, data, device="cuda", batch_size=bs)
+    w8 = fused.prepare_weights(model, "int8")
+    plain32 = SiT.from_config(exp, patch_table=table, dtype=torch.float32, attn_backend="plain")
+    plain32.load_state_dict(state, strict=True)
+    plain32 = plain32.eval().cuda()
+    with torch.inference_mode():
+        x = torch.from_numpy(data).cuda()
+        ref = torch.cat([plain32(x[s:s + bs]) for s in range(0, INT8_SLICE_N, bs)]).cpu().numpy()
+        dropped = dataclasses.replace(w8, blocks=w8.blocks[:6] + w8.blocks[7:])
+        control = fused.fused_forward(model, x[:bs], dropped, quant="int8").cpu().numpy()
+    del plain32, x
+
+    def rel(a, r):
+        return float(np.linalg.norm(a - r) / np.linalg.norm(r))
+
+    r8, r16, rc = rel(preds8, ref), rel(preds16, ref), rel(control, ref[:bs])
+    phase("int8-slice", f"predictions vs the fp32 eager model: int8 rel-L2 {r8:.4g} (tol "
+          f"{INT8_SLICE_REL}; tests/test_int8.py's two-block bound is 0.02), max |gap| "
+          f"{np.abs(preds8 - ref).max():.6g}; bf16 predict rel-L2 "
+          f"{r16:.4g}, max |gap| {np.abs(preds16 - ref).max():.6g}; int8 vs bf16 max |gap| "
+          f"{np.abs(preds8 - preds16).max():.6g}; std across surfaces {ref.std():.4g}, mean "
+          f"{ref.mean():.4g}; control, block 6 dropped: rel-L2 {rc:.4g} (must exceed the tol)")
+    if not np.isfinite(preds8).all() or r8 > INT8_SLICE_REL:
+        raise AssertionError("the int8 serving path disagrees with the fp32 model")
+    if rc <= INT8_SLICE_REL:
+        raise AssertionError("the int8 slice control passed the gate")
+    w16 = fused.prepare_weights(model)
+    with torch.inference_mode():
+        for B in (64, 128):
+            xb = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(np.float32)).to(
+                "cuda", torch.bfloat16)
+            res = {}
+            for label, w, q in (("int8", w8, "int8"), ("bf16", w16, None)):
+                torch.cuda.reset_peak_memory_stats()
+                t = cuda_ms(lambda: fused.fused_forward(model, xb, w, quant=q), reps=5)
+                res[label] = (t, torch.cuda.max_memory_allocated() / 2**30)
+            phase("int8-slice", f"B={B} raw bf16 input on device: " + ", ".join(
+                f"{k} {t:.3f} ms = {B / t * 1e3:.1f} surfaces/s (peak {g:.2f} GiB allocated)"
+                for k, (t, g) in res.items()) + f"; int8/bf16 rate {res['bf16'][0] / res['int8'][0]:.3f} "
+                "(CUDA-event medians of 5)")
+            del xb
+    del model, w8, w16
+    w8, w16 = fused.prepare_weights(tiny, "int8"), fused.prepare_weights(tiny)
+    with torch.inference_mode():
+        xb = torch.from_numpy(rng.standard_normal((256, 4, 40962)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        t8 = cuda_ms(lambda: fused.fused_forward(tiny, xb, w8, quant="int8"), reps=10)
+        t16 = cuda_ms(lambda: fused.fused_forward(tiny, xb, w16), reps=10)
+    phase("int8-slice", f"SiT-tiny B=256 raw bf16 input on device: int8 {t8:.3f} ms = "
+          f"{256 / t8 * 1e3:.1f} surfaces/s, bf16 {t16:.3f} ms = {256 / t16 * 1e3:.1f} "
+          f"surfaces/s; int8/bf16 rate {t16 / t8:.3f} (CUDA-event medians of 10)")
+    del xb, w8, w16
+    torch.cuda.empty_cache()
+    return launches["fused_block_int8"]
+
+
+def phase_int8_entry(fb, tiny_cfg, tiny_tree, tiny_data, tiny_labels) -> None:
+    """Phase 23: ``cli.test`` on the SiT-base config cut to
+    BASE_ENTRY_DEPTH blocks with ``--set tpu.quant=int8`` (results.csv must
+    equal ``predict(quant="int8")``, the launches per batch those of int8
+    serving), then on a SiT-tiny config with and without int8: the notice
+    and the bf16 MAE."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.train.runner import build_model, load_state_dict_any
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    def cli(cfg, *sets):
+        """cli.test's ``main`` in this process -> (its stdout lines, seconds)."""
+        mod = importlib.import_module("surface_vision_transformers_tpu_torch.cli.test")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main([str(cfg), "--device", "cuda", *[a for s_ in sets for a in ("--set", s_)]])
+        return out.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        n, bs_val = 16, 8
+        data, labels = make_regression_dataset(n, raw_vertices=40962, seed=SEED + 7)
+        np.save(tmp / "validation_data.npy", data)
+        np.save(tmp / "validation_labels.npy", labels)
+        exp = config.load_config(BASE_CFG)
+        m = exp.model
+        tree = jax_shaped_params(np.random.default_rng(SEED + 7), m.num_vertices,
+                                 width=(m.dim, BASE_ENTRY_DEPTH, m.heads, m.mlp_dim),
+                                 n_tokens=m.num_patches + 1)
+        np.savez(tmp / "best_params.npz", **flatten({"params": tree}))
+        sets = [f"data.data_path={tmp}", "data.split=validation", f"training.bs_val={bs_val}",
+                f"transformer.depth={BASE_ENTRY_DEPTH}",
+                f"testing.path_to_ckpt={tmp / 'best_params.npz'}", "tpu.quant=int8"]
+        counters = zero_counts(fb)
+        lines, secs = cli(BASE_CFG, *sets)
+        launches = read_counts(counters)
+        reported = ast.literal_eval(lines[-1])
+        with open(tmp / "results.csv") as f:
+            cli_preds = np.array([float(r["pred"]) for r in csv.DictReader(f)], np.float32)
+        exp4 = dataclasses.replace(exp, model=dataclasses.replace(m, depth=BASE_ENTRY_DEPTH))
+        from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+
+        model = build_model(exp4, load_patch_table(exp.ico, exp.sub_ico).indices)
+        model.load_state_dict(load_state_dict_any(str(tmp / "best_params.npz"),
+                                                  BASE_ENTRY_DEPTH), strict=True)
+        same = fused.predict(model.eval(), data, device="cuda", batch_size=bs_val,
+                             quant="int8").reshape(-1)
+        want = {k: 0 for k in counters}
+        want.update(fused_block_int8=(BASE_ENTRY_DEPTH - 1) * 2, fused_block_cls=2,
+                    patch_embed=2)
+        err = float(np.abs(cli_preds - same).max())
+        phase("int8-entry", f"cli.test {BASE_CFG.relative_to(ROOT)} --set tpu.quant=int8 "
+              f"(depth {BASE_ENTRY_DEPTH}) in {secs:.1f} s: {reported}; launches {launches}, "
+              f"expected {want}; |results.csv - predict(quant int8)| max {err:.6g} (must be 0); "
+              f"notice printed: {any('INT8_MIN_DIM' in ln for ln in lines)} (must be False)")
+        if launches != want or err != 0 or len(cli_preds) != n:
+            raise AssertionError("cli.test int8 on SiT-base disagrees with predict")
+        if any("INT8_MIN_DIM" in ln for ln in lines):
+            raise AssertionError("cli.test printed the fallback notice at dim 768")
+        del model
+
+        (tmp / "tiny").mkdir()
+        np.save(tmp / "tiny" / "validation_data.npy", tiny_data)
+        np.save(tmp / "tiny" / "validation_labels.npy", tiny_labels)
+        np.savez(tmp / "tiny" / "best_params.npz", **flatten({"params": tiny_tree}))
+        cfg = dict(tiny_cfg, data={"data_path": str(tmp / "tiny"), "split": "validation"},
+                   testing={"path_to_ckpt": str(tmp / "tiny" / "best_params.npz")})
+        (tmp / "tiny.json").write_text(json.dumps(cfg))
+        lines8, _ = cli(tmp / "tiny.json", "tpu.quant=int8")
+        lines16, _ = cli(tmp / "tiny.json")
+        notice = [ln for ln in lines8 if "INT8_MIN_DIM" in ln]
+        r8, r16 = ast.literal_eval(lines8[-1]), ast.literal_eval(lines16[-1])
+        phase("int8-entry", f"cli.test SiT-tiny (dim {DIM}) --set tpu.quant=int8: {r8}, notice "
+              f"{notice}; without quant: {r16} (the MAE must be equal)")
+        if len(notice) != 1 or r8 != r16:
+            raise AssertionError("SiT-tiny int8 did not fall back to bf16 with one notice")
+
+
 def main() -> None:
     # -- 1. device
     start("device")
@@ -2059,7 +2574,8 @@ def main() -> None:
     launches = read_counts(counters)
     n_batches = 2
     want = {k: 0 for k in counters}
-    want.update(fused_block=(DEPTH - 1) * n_batches, fused_block_cls=n_batches)
+    want.update(fused_block=(DEPTH - 1) * n_batches, fused_block_cls=n_batches,
+                patch_embed=n_batches)
     phase("slice", f"predict(300 surfaces, batch 256): launches {launches}, "
           f"expected {want}")
     if launches != want:
@@ -2068,6 +2584,7 @@ def main() -> None:
         raise AssertionError(f"bad predictions: shape {preds.shape}")
     for name in ("fused_block", "fused_block_cls"):
         kernels[name]["launches"] = launches[name]
+    embed_launches = launches["patch_embed"]
 
     with torch.inference_mode():
         x = torch.from_numpy(data).to(dev)
@@ -2165,6 +2682,7 @@ def main() -> None:
             raise AssertionError("cli.test's MAE disagrees with its results.csv")
         if err_ref > SLICE_TOL or abs(mae_cli - mae_plain) > err_ref + 1e-6:
             raise AssertionError("cli.test's MAE disagrees with the plain path")
+        tiny_entry = (cfg, tree, sub, labels)  # phase 23 serves them again
 
     # -- 6. train-kernels
     start("train-kernels")
@@ -2207,7 +2725,8 @@ def main() -> None:
           f"{time.perf_counter() - t_phase:.2f} s")
     tree = jax_shaped_params(rng, m.num_vertices, width=(m.dim, m.depth, m.heads, m.mlp_dim),
                              n_tokens=m.num_patches + 1)
-    phase_base_slice(rng, fb, fused, exp, t3.indices, state_dict_from_jax(tree, m.depth))
+    base_state = state_dict_from_jax(tree, m.depth)
+    phase_base_slice(rng, fb, fused, exp, t3.indices, base_state)
     del tree
 
     # -- 12. base-train (every count zeroed just before each run)
@@ -2246,6 +2765,24 @@ def main() -> None:
     # -- 19. pretrain-entry
     start("pretrain-entry")
     phase_pretrain_entry()
+
+    # -- 20. int8-kernels
+    start("int8-kernels")
+    kernels["fused_block_int8"] = phase_int8_kernels(rng, fb)
+
+    # -- 21. patch-embed
+    start("patch-embed")
+    kernels["patch_embed"] = phase_patch_embed(rng, embed_launches)
+
+    # -- 22. int8-slice (every count zeroed just before it)
+    start("int8-slice")
+    kernels["fused_block_int8"]["launches"] = phase_int8_slice(
+        rng, fb, fused, exp, t3.indices, base_state, sit(torch.bfloat16))
+    del base_state
+
+    # -- 23. int8-entry
+    start("int8-entry")
+    phase_int8_entry(fb, *tiny_entry)
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

@@ -3,14 +3,17 @@ training.
 
 Counterpart of ``surface_vision_transformers_tpu.models.fused``
 (``fused_forward``, ``predict``, ``fused_train_forward``,
-``fused_mpp_loss``). In order: patch
-embed (plain PyTorch) -> CLS + positions -> depth-1 x ``fused_block`` ->
-``fused_block_cls`` (CLS pooling; under mean pooling every block is
-``fused_block``) -> float32 LayerNorm and head. ``fused_train_forward`` is
-the same chain under autograd, with the blocks' backward on the backward
-kernels (``ops.fused_block.fused_block_train``). ``fused_mpp_loss`` is the
-MPP training loss over the same blocks (every one ``fused_block_train``, no
-CLS block) and a reconstruction head with its own backward.
+``fused_mpp_loss``). In order: patch embed (raw input on CUDA in bf16: the
+gather-fused ``ops.patch_embed`` kernel; else plain PyTorch) -> CLS +
+positions -> depth-1 x ``fused_block`` (``fused_block_int8`` under
+``quant="int8"``) -> ``fused_block_cls`` (CLS pooling, bf16 under either
+quant; under mean pooling every block is ``fused_block`` or
+``fused_block_int8``) -> float32 LayerNorm and head.
+``fused_train_forward`` is the same chain under autograd, with the blocks'
+backward on the backward kernels (``ops.fused_block.fused_block_train``).
+``fused_mpp_loss`` is the MPP training loss over the same blocks (every one
+``fused_block_train``, no CLS block) and a reconstruction head with its own
+backward.
 
 Differences from the JAX path, by design:
 
@@ -22,7 +25,14 @@ Differences from the JAX path, by design:
   over a large batch has neither. A batch runs as one chain.
 * Weights are prepared once per model (``prepare_weights``): contiguous
   compute-dtype copies in the kernels' layout, the patch-embedding
-  normalisation folded in. Nothing is transposed per forward.
+  normalisation folded in, and under ``quant="int8"`` the int8 codes and
+  scales of every int8 block, quantized from the float32 parameters as the
+  JAX package quantizes from its uncast tree. Nothing is transposed or
+  quantized per forward.
+
+``resolve_quant`` is the JAX trainer's crossover rule (``_resolve_quant``):
+``tpu.quant: int8`` serves int8 from ``INT8_MIN_DIM`` on and bf16, with a
+notice, below it.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
 from surface_vision_transformers_tpu_torch.models.sit import SiT
+from surface_vision_transformers_tpu_torch.ops.attention import kernel_route
 from surface_vision_transformers_tpu_torch.ops.fused_block import (
     _mm32,
     fused_block,
@@ -42,11 +53,40 @@ from surface_vision_transformers_tpu_torch.ops.fused_block import (
     fused_block_cls_train,
     fused_block_train,
 )
+from surface_vision_transformers_tpu_torch.ops.fused_block_int8 import fused_block_int8
+from surface_vision_transformers_tpu_torch.ops.patch_embed import (
+    embed_matrix,
+    patch_embed,
+    patch_embed_train,
+)
 from surface_vision_transformers_tpu_torch.ops.patchify import (
     embed_weights,
     gather_embed,
     rearrange_patched,
 )
+from surface_vision_transformers_tpu_torch.ops.quant import quantize_block_weights
+
+# The JAX package's int8 crossover (``models/fused_mssit.py::INT8_MIN_DIM``),
+# kept so that a config means the same in both packages: ``tpu.quant: int8``
+# serves int8 from this width on.
+INT8_MIN_DIM = 384
+QUANTS = (None, "int8")
+
+
+def resolve_quant(quant: str, dim: int, notice: bool = True) -> str | None:
+    """``tpu.quant`` with the crossover applied: "none" -> None (bf16);
+    "int8" -> "int8" from ``INT8_MIN_DIM`` on, else None and, with
+    ``notice``, one printed line saying so."""
+    if quant == "none":
+        return None
+    if quant != "int8":
+        raise ValueError(f"unknown quant mode {quant!r}")
+    if dim < INT8_MIN_DIM:
+        if notice:
+            print(f"tpu.quant: int8 requested but dim {dim} < INT8_MIN_DIM "
+                  f"{INT8_MIN_DIM}: serving bf16 instead", flush=True)
+        return None
+    return quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +94,17 @@ class FusedWeights:
     """A SiT's parameters laid out for ``fused_forward`` on one device."""
 
     dtype: torch.dtype
-    raw_embed: tuple | None  # (flat vertex ids, (C, V, dim) kernel, bias)
+    # the kernel: (int32 (L, V) table, (dim, Kp) weight, float32 bias);
+    # plain: (flat vertex ids, (C, V, dim) kernel, bias)
+    raw_embed: tuple | None
+    embed_kernel: bool  # raw input through ``patch_embed`` (CUDA, bf16)
     patched_embed: tuple  # ((dim, V*C) weight, bias), compute dtype
     cls_token: torch.Tensor
     pos_embedding: torch.Tensor
-    blocks: list  # per block: the 11 fused_block parameters, in order
+    # per block: the 11 fused_block parameters, in order; under quant int8
+    # the 15 fused_block_int8 parameters for every block but a CLS one
+    blocks: list
+    quant: str | None
     head_norm: tuple  # float32 (weight, bias)
     head: tuple  # float32 (weight, bias)
 
@@ -76,20 +122,36 @@ def block_parameters(model: SiT) -> list[tuple]:
     return out
 
 
+def _int8_block(blk, vec) -> tuple:
+    """The 15 ``fused_block_int8`` parameters of one block's 11, its four
+    matrices quantized from their float32 values."""
+    (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1, w_fc2, b_fc2) = blk
+    q_qkv, s_qkv, q_out, s_out, q_fc1, s_fc1, q_fc2, s_fc2 = quantize_block_weights(
+        w_qkv, w_out, w_fc1, w_fc2)
+    return (vec(ln1_s), vec(ln1_b), q_qkv, s_qkv, q_out, s_out, vec(b_out), vec(ln2_s),
+            vec(ln2_b), q_fc1, s_fc1, vec(b_fc1), q_fc2, s_fc2, vec(b_fc2))
+
+
 @torch.no_grad()
-def prepare_weights(model: SiT) -> FusedWeights:
+def prepare_weights(model: SiT, quant: str | None = None) -> FusedWeights:
     """Lay out ``model``'s parameters for ``fused_forward`` on the device
     they are on: matrices in the compute dtype, LayerNorm parameters and
-    biases in float32, all contiguous."""
+    biases in float32, all contiguous; with ``quant="int8"`` every block but
+    a final CLS one as int8 codes and float32 scales."""
+    if quant not in QUANTS:
+        raise ValueError(f"unknown quant mode {quant!r}")
     dt = model.dtype
     lin = model.to_patch_embedding[1]
+    embed_kernel = kernel_route("auto", lin.weight, dt)
     raw_embed = None
     if model.patch_table is not None:
-        flat = torch.as_tensor(model.patch_table.reshape(-1), dtype=torch.long,
-                               device=lin.weight.device)
-        raw_embed = (flat, *embed_weights(
-            lin.weight.detach().t(), lin.bias.detach(), model.patch_table.shape[1],
-            means=model.norm_means, stds=model.norm_stds, compute_dtype=dt))
+        args = (lin.weight.detach().t(), lin.bias.detach(), model.patch_table.shape[1])
+        stats = dict(means=model.norm_means, stds=model.norm_stds, compute_dtype=dt)
+        if embed_kernel:
+            raw_embed = (model.patch_index, *embed_matrix(*args, **stats))
+        else:
+            flat = model.patch_index.reshape(-1).long()
+            raw_embed = (flat, *embed_weights(*args, **stats))
 
     def mat(w):
         return w.detach().to(dt).contiguous()
@@ -97,11 +159,19 @@ def prepare_weights(model: SiT) -> FusedWeights:
     def vec(v):
         return v.detach().float().contiguous()
 
-    blocks = [tuple(mat(p) if p.dim() == 2 else vec(p) for p in blk)
-              for blk in block_parameters(model)]
+    params = block_parameters(model)
+    cls_last = model.pool == "cls"
+    blocks = []
+    for i, blk in enumerate(params):
+        if quant == "int8" and not (cls_last and i == len(params) - 1):
+            blocks.append(_int8_block(blk, vec))
+        else:
+            blocks.append(tuple(mat(p) if p.dim() == 2 else vec(p) for p in blk))
     return FusedWeights(
         dtype=dt,
         raw_embed=raw_embed,
+        embed_kernel=embed_kernel,
+        quant=quant,
         patched_embed=(mat(lin.weight), lin.bias.detach().to(dt)),
         cls_token=mat(model.cls_token),
         pos_embedding=mat(model.pos_embedding),
@@ -116,20 +186,24 @@ def fused_forward(
     mesh=None, quant: str | None = None, scan_blocks: bool = False,
 ) -> torch.Tensor:
     """Inference forward: raw (B, C, G) or pre-patched (B, C, L, V) input
-    -> (B, num_classes) float32. ``weights`` from ``prepare_weights``
-    (prepared here when omitted). On CUDA every block is a kernel launch;
-    on the CPU the blocks run their plain versions."""
+    -> (B, num_classes) float32. ``weights`` from ``prepare_weights`` with
+    the same ``quant`` (prepared here when omitted). ``quant="int8"``: every
+    block but a final CLS one is ``fused_block_int8``. On CUDA the
+    embedding and every block is a kernel launch; on the CPU they run their
+    plain versions."""
+    if quant not in QUANTS:
+        raise ValueError(f"unknown quant mode {quant!r}")
     if mesh is not None:
         raise NotImplementedError("fused_forward under a mesh is not ported yet")
-    if quant is not None:
-        raise NotImplementedError(f"quant={quant!r} serving is not ported yet")
     if scan_blocks:
         raise NotImplementedError("scan_blocks is not ported")
-    w = weights if weights is not None else prepare_weights(model)
+    w = weights if weights is not None else prepare_weights(model, quant)
+    if w.quant != quant:
+        raise ValueError(f"weights were prepared for quant={w.quant!r}, not {quant!r}")
     if x.dim() == 3:
         if w.raw_embed is None:
             raise ValueError("raw (B, C, G) input requires patch_table to be set")
-        tokens = gather_embed(x, *w.raw_embed)
+        tokens = (patch_embed if w.embed_kernel else gather_embed)(x, *w.raw_embed)
     else:
         tokens = F.linear(rearrange_patched(x).to(w.dtype), *w.patched_embed)
     B, n = tokens.shape[0], tokens.shape[1]
@@ -140,6 +214,8 @@ def fused_forward(
     for i, blk in enumerate(w.blocks):
         if cls_last and i == len(w.blocks) - 1:
             h = fused_block_cls(h, *blk, **kw)
+        elif quant == "int8":
+            h = fused_block_int8(h, *blk, **kw)
         else:
             h = fused_block(h, *blk, **kw)
     pooled = h.mean(dim=1) if model.pool == "mean" else h[:, 0]
@@ -152,8 +228,10 @@ def fused_train_forward(model: SiT, x: torch.Tensor, *, mesh=None,
     """Differentiable forward: raw (B, C, G) or pre-patched (B, C, L, V)
     input -> (B, num_classes) float32, with gradients flowing to every
     parameter of ``model`` (the float32 masters; matrices are cast to
-    ``model.dtype`` inside each step). Embedding, CLS + positions, pooling
-    and head are plain PyTorch under autograd; every block is
+    ``model.dtype`` inside each step). The raw-input embedding is
+    ``model.embed_patches`` on the kernel route (``patch_embed`` on CUDA in
+    bf16, its backward plain); CLS + positions,
+    pooling and head are plain PyTorch under autograd; every block is
     ``fused_block_train`` (the last ``fused_block_cls_train`` under CLS
     pooling): kernels forward and backward on CUDA, plain versions on the
     CPU."""
@@ -166,11 +244,7 @@ def fused_train_forward(model: SiT, x: torch.Tensor, *, mesh=None,
     if x.dim() == 3:
         if model.patch_table is None:
             raise ValueError("raw (B, C, G) input requires patch_table to be set")
-        flat = torch.as_tensor(model.patch_table.reshape(-1), dtype=torch.long,
-                               device=x.device)
-        tokens = gather_embed(x, flat, *embed_weights(
-            lin.weight.t(), lin.bias, model.patch_table.shape[1],
-            means=model.norm_means, stds=model.norm_stds, compute_dtype=dt))
+        tokens = model.embed_patches(x, backend="auto")
     else:
         tokens = F.linear(rearrange_patched(x).to(dt), lin.weight.to(dt),
                           lin.bias.to(dt))
@@ -268,13 +342,13 @@ def predict(model: SiT, data, *, device, batch_size: int = 256,
             quant: str | None = None) -> np.ndarray:
     """Batched serving on ``device``: (S, ...) numpy input -> (S,
     num_classes) numpy float32. Moves ``model`` to ``device``, prepares its
-    weights once, and runs ``fused_forward`` over batches of ``batch_size``,
+    weights once (for ``quant``), and runs ``fused_forward`` over batches of ``batch_size``,
     the ragged last one padded with zeros. Kernels run where ``device`` is
     CUDA; a CPU device runs the plain versions. Asking for CUDA where there
     is none raises."""
     dev = _device(device)
     model.to(dev)
-    w = prepare_weights(model)
+    w = prepare_weights(model, quant)
     n = data.shape[0]
     outs = []
     for s in range(0, n, batch_size):

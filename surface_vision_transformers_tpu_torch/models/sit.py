@@ -10,7 +10,9 @@ LayerNorm + Linear head.
 
 Inputs are pre-patched (B, C, L, V) or, with ``patch_table`` set, raw
 (B, C, G) vertex arrays patchified (and, with ``norm_means``/``norm_stds``,
-normalised) on the fly. ``dtype`` is the compute dtype: LayerNorm, scores
+normalised) on the fly: with ``attn_backend="auto"`` on CUDA in bfloat16 by
+the gather-fused ``patch_embed`` kernel (``ops.patch_embed``), else by the
+plain gather and contraction. ``dtype`` is the compute dtype: LayerNorm, scores
 and softmax run in float32, the matmuls in ``dtype``, as the JAX model does.
 
 Attention (``Attention``, after the JAX ``Attention``): with
@@ -49,6 +51,10 @@ from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     flash_attention_qkv_dropout,
     merge_heads,
     split_qkv,
+)
+from surface_vision_transformers_tpu_torch.ops.patch_embed import (
+    patch_embed_train,
+    table_tensor,
 )
 from surface_vision_transformers_tpu_torch.ops.patchify import (
     fused_patch_embed,
@@ -191,6 +197,9 @@ class SiT(nn.Module):
         self.num_patches, self.num_vertices = num_patches, num_vertices
         self.num_channels, self.num_classes = num_channels, num_classes
         self.patch_table = None if patch_table is None else np.asarray(patch_table)
+        # the table on the model's device, for the kernels (not in the state dict)
+        self.register_buffer("patch_index", None if patch_table is None else table_tensor(
+            patch_table, "cpu"), persistent=False)
         self.norm_means, self.norm_stds = norm_means, norm_stds
         self.dtype = dtype
         self.dropout, self.emb_dropout, self.attn_backend = dropout, emb_dropout, attn_backend
@@ -207,12 +216,18 @@ class SiT(nn.Module):
     def patch_dim(self) -> int:
         return self.num_channels * self.num_vertices
 
-    def embed_patches(self, x):
-        """Input -> (B, L, dim) embedded patches in the compute dtype."""
+    def embed_patches(self, x, *, backend: str | None = None):
+        """Input -> (B, L, dim) embedded patches in the compute dtype; raw
+        input on the ``patch_embed`` kernel where ``backend`` (default
+        ``attn_backend``) routes to the kernels."""
         lin = self.to_patch_embedding[1]
         if x.dim() == 3:
             if self.patch_table is None:
                 raise ValueError("raw (B, C, G) input requires patch_table to be set")
+            if kernel_route(backend or self.attn_backend, x, self.dtype):
+                return patch_embed_train(x, self.patch_index, lin.weight.t(), lin.bias,
+                                         means=self.norm_means, stds=self.norm_stds,
+                                         compute_dtype=self.dtype)
             tokens = fused_patch_embed(
                 x, self.patch_table, lin.weight.t(), lin.bias,
                 means=self.norm_means, stds=self.norm_stds,

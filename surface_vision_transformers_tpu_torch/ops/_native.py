@@ -2,9 +2,10 @@
 
 The sources in ``csrc/`` compile on first use into ``_build/`` beside this
 package, under a name keyed on a hash of the sources and the compiler flags,
-so a fresh checkout builds once and an edited source rebuilds. The library
-has a plain C interface (no PyTorch headers), which keeps the build to
-seconds. Nothing here runs at import time.
+so a fresh checkout builds once and an edited source rebuilds. Each ``.cu``
+compiles in its own nvcc process, all started together, and one link makes
+the library. It has a plain C interface (no PyTorch headers), which keeps
+the build to seconds. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -55,25 +56,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/`` unless this source hash is already built. The
-    compiler's report (registers, shared memory, spills per kernel) is kept
-    beside the library as ``.log``."""
+    """Compile ``csrc/`` unless this source hash is already built: one nvcc
+    per source in parallel, then a link. The compilers' reports (registers,
+    shared memory, spills per kernel) are kept beside the library as
+    ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{res.stderr}"
-        )
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj, log = tmp / f"{src.stem}.o", tmp / f"{src.stem}.log"
+            with open(log, "w") as f:
+                proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                        stdout=f, stderr=subprocess.STDOUT)
+            jobs.append((src, obj, log, proc))
+        failed = [src.name for src, _, _, proc in jobs if proc.wait()]
+        report = "".join(f"== {src.name}\n{log.read_text()}" for src, _, log, _ in jobs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{report}")
+        lib = tmp / out.name
+        res = subprocess.run([nvcc, "-shared", "-o", str(lib), *(str(o) for _, o, _, _ in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"linking the kernels failed ({res.returncode}):\n{res.stderr}")
+        out.with_suffix(".log").write_text(report)
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
     return out
 
 
@@ -102,6 +113,14 @@ def library() -> ctypes.CDLL:
     lib.svt_flash_attention_fwd.restype = I
     lib.svt_flash_attention_bwd.argtypes = S * 5 + [P, P] + S * 3 + [I] * 5 + D + [I, P]
     lib.svt_flash_attention_bwd.restype = I
+    lib.svt_fused_block_int8.argtypes = [P] * 23 + [I] * 7 + [F, I, P]
+    lib.svt_fused_block_int8.restype = I
+    lib.svt_quant_rows.argtypes = [P, I, P, P, I, I, I, P]
+    lib.svt_quant_rows.restype = I
+    lib.svt_int8_gemm_s32.argtypes = [P, P, P, I, I, I, I, P]
+    lib.svt_int8_gemm_s32.restype = I
+    lib.svt_patch_embed.argtypes = [P, I] + [P] * 4 + [I] * 7 + [I, P]
+    lib.svt_patch_embed.restype = I
     lib.svt_error_string.argtypes = [I]
     lib.svt_error_string.restype = ctypes.c_char_p
     return lib

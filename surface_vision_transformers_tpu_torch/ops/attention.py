@@ -30,11 +30,13 @@ MAX_PACKED_SEQ = 1536
 BACKENDS = ("auto", "plain")
 
 
-def kernel_route(backend: str, t: torch.Tensor) -> bool:
-    """Whether ``backend`` sends tensors like ``t`` to the kernels."""
+def kernel_route(backend: str, t: torch.Tensor, dtype: torch.dtype | None = None) -> bool:
+    """Whether ``backend`` sends tensors like ``t`` (computing in ``dtype``,
+    default t's) to the kernels."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected one of {BACKENDS}")
-    return backend == "auto" and t.is_cuda and t.dtype == torch.bfloat16
+    dt = t.dtype if dtype is None else dtype
+    return backend == "auto" and t.is_cuda and dt == torch.bfloat16
 
 
 def plain_attention(q, k, v, valid_len: int | None = None, keep=None, rate: float = 0.0):

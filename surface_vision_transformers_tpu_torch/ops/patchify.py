@@ -1,10 +1,11 @@
 """Icosahedral patchification and the patch embedding, in plain PyTorch.
 
-Counterpart of ``surface_vision_transformers_tpu.ops.patchify``. The JAX
-package computes the embedding in XLA outside any Pallas kernel (its
-``backend="auto"`` resolves to the gather + ``dot_general`` form), so it
-stays plain PyTorch here: a vertex gather, then one contraction over
-(channel, vertex) against the kernel reordered to (C, V, dim).
+Counterpart of ``surface_vision_transformers_tpu.ops.patchify``: the JAX
+package's default (``backend="auto"``) embedding, a vertex gather, then one
+contraction over (channel, vertex) against the kernel reordered to (C, V,
+dim). The port runs it on the CPU and on the "plain" attention backend; on
+CUDA in bf16 the raw-input embedding is the gather-fused kernel of
+``ops.patch_embed`` (the JAX ``backend="pallas"`` function).
 
 Token layout is the reference's ``Rearrange('b c n v -> b n (v c)')``:
 feature index v * C + c (channel fastest). Kernels are in the JAX layout,

@@ -20,7 +20,8 @@ full-state checkpoints (``training.ckpt_every``), ImageNet initialisation,
 streaming input, meshes, augmentation.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
-through ``predict``, reports the MAE and writes ``results.csv`` of (pred,
+through ``predict`` (``tpu.quant`` under the crossover rule,
+``resolve_quant``), reports the MAE and writes ``results.csv`` of (pred,
 target) rows in split order; MPP reports the loss under the evaluation's
 fixed corruption and writes nothing.
 """
@@ -50,7 +51,7 @@ from surface_vision_transformers_tpu_torch.checkpoints.convert import (
 )
 from surface_vision_transformers_tpu_torch.data import npy as npy_io
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table
-from surface_vision_transformers_tpu_torch.models.fused import _device, predict
+from surface_vision_transformers_tpu_torch.models.fused import _device, predict, resolve_quant
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.obs.logging import (
@@ -150,11 +151,8 @@ def run_testing(exp: Experiment, *, device) -> dict:
         return {"n": int(data.shape[0]), "split": split,
                 "loss": evaluate_mpp(model, tokens, bs)}
 
-    preds = predict(
-        model, data, device=device,
-        batch_size=bs,
-        quant=None if exp.quant == "none" else exp.quant,
-    ).reshape(-1)
+    preds = predict(model, data, device=device, batch_size=bs,
+                    quant=resolve_quant(exp.quant, exp.model.dim)).reshape(-1)
 
     out_dir = Path(exp.ckpt_path)
     if out_dir.is_file() or out_dir.suffix in (".npz", ".pt", ".pth"):

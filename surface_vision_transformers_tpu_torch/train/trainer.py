@@ -27,7 +27,10 @@ JAX package:
   reports the loss as its metric, and under ``optimize_decoder: false``
   leaves ``to_original`` and ``mask_token`` untouched;
 * dropout masks and attention-kernel seeds come from a ``DropoutRNG``
-  seeded by ``training.seed``.
+  seeded by ``training.seed``;
+* regression evaluation in bfloat16 serves through ``fused_forward`` with
+  ``tpu.quant`` under the crossover rule (``resolve_quant``: int8 from
+  ``INT8_MIN_DIM`` on, else bf16 and a notice printed once per trainer).
 
 Not ported here (they raise): meshes and pipelines, augmentation.
 """
@@ -46,6 +49,7 @@ from surface_vision_transformers_tpu_torch.models.fused import (
     fused_mpp_loss,
     fused_train_forward,
     prepare_weights,
+    resolve_quant,
 )
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
@@ -128,12 +132,19 @@ class Trainer:
         self.rng = (DropoutRNG(seed, device)
                     if self.encoder.dropout or self.encoder.emb_dropout else None)
         self._token_cache: dict[int, tuple] = {}
+        self._quant_noticed = False
 
     def uses_fused_train(self) -> bool:
         """The fused-block training route: bfloat16 compute, no dropout,
         ``tpu.fused_train``. Otherwise the modular model under autograd."""
         return (self.exp.fused_train and self.encoder.dtype == torch.bfloat16
                 and self.rng is None)
+
+    def serving_quant(self) -> str | None:
+        """``tpu.quant`` for fused evaluation under the crossover rule; the
+        notice of a fallback to bf16 is printed once per trainer."""
+        notice, self._quant_noticed = not self._quant_noticed, True
+        return resolve_quant(self.exp.quant, self.encoder.dim, notice)
 
     def eval_model(self) -> SiT | MPP:
         """The weights evaluation uses: the EMA shadow when enabled."""
@@ -221,7 +232,8 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, data: torch.Tensor, targets: torch.Tensor | None = None):
         """The whole split at ``training.bs_val`` (0 -> ``bs``). Regression:
-        ``fused_forward`` (bfloat16) or the modular model -> (EpochMetrics
+        ``fused_forward`` (bfloat16, ``serving_quant``) or the modular
+        model -> (EpochMetrics
         with the MSE as loss, predictions in row order as numpy). MPP: the
         modular MPP on each batch's fixed corruption -> (EpochMetrics with
         the loss as both metrics, None)."""
@@ -233,12 +245,16 @@ class Trainer:
         n = data.shape[0]
         bs = min(bs_val, n)
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
-        weights = prepare_weights(model) if model.dtype == torch.bfloat16 else None
+        quant = weights = None
+        if model.dtype == torch.bfloat16:
+            quant = self.serving_quant()
+            weights = prepare_weights(model, quant)
         preds, sq_sum, err_sum = [], 0.0, 0.0
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)
             xb = data[s:s + bs]
-            p = fused_forward(model, xb, weights) if weights is not None else model(xb)
+            p = (fused_forward(model, xb, weights, quant=quant) if weights is not None
+                 else model(xb))
             p = p.reshape(p.shape[0], -1).squeeze(-1)
             d = p - targets[s:s + bs].reshape(p.shape)
             sq_sum = sq_sum + (d.square() * w[i]).sum()

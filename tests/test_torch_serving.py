@@ -91,12 +91,13 @@ def test_predict_on_missing_cuda_raises(jax_params, monkeypatch):
                        device="cuda")
 
 
-@pytest.mark.parametrize("kwarg", [dict(mesh=object()), dict(quant="int8"),
-                                   dict(scan_blocks=True)])
-def test_out_of_scope_modes_raise(kwarg):
+@pytest.mark.parametrize("kwarg,error", [(dict(mesh=object()), NotImplementedError),
+                                         (dict(quant="int4"), ValueError),
+                                         (dict(scan_blocks=True), NotImplementedError)])
+def test_out_of_scope_modes_raise(kwarg, error):
     model = SiT(dtype=torch.float32, num_patches=20, num_vertices=15,
                 **TRANSFORMER)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         tfused.fused_forward(model, torch.zeros(1, 4, 20, 15), **kwarg)
 
 
@@ -200,6 +201,9 @@ def test_port_imports_without_jax():
     assert len(mods) >= 20
     assert {"surface_vision_transformers_tpu_torch.ops.flash_attention",
             "surface_vision_transformers_tpu_torch.ops.attention",
+            "surface_vision_transformers_tpu_torch.ops.fused_block_int8",
+            "surface_vision_transformers_tpu_torch.ops.patch_embed",
+            "surface_vision_transformers_tpu_torch.ops.quant",
             "surface_vision_transformers_tpu_torch.models.mpp",
             "surface_vision_transformers_tpu_torch.cli.pretrain",
             "surface_vision_transformers_tpu_torch.geometry.icosphere"} <= set(mods)
