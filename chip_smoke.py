@@ -142,6 +142,19 @@ sub-ico 3 and the gather-fused patch embedding:
               ``--set tpu.quant=int8`` (results.csv equal to ``predict``),
               and on a SiT-tiny config, where int8 falls back to bf16 with
               one notice.
+24. fp32-entry -- ``cli.test --set tpu.compute_dtype=float32 --device cuda``
+              on the SiT-tiny config of phase 5: float32 serves the modular
+              model (no kernel launches), results.csv equal to in-process
+              float32 ``predict`` bit for bit.
+
+Phases 9 and 14-16 also check that the attention backward repeats bit for
+bit: two calls on the same inputs give identical dq, dk and dv, and the
+same comparison tells a call with one dO element raised by 1 apart; and
+that summing the plain version's per-key-block dQ shares in the reverse
+order changes dq's bf16 bits at that shape, so a dQ sum taken out of order
+would not repeat either. Phase 9 then runs the backward while a kernel on
+another stream holds all multiprocessors but one: it must finish, equal
+to its run on the idle card, before that kernel ends.
 
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
@@ -461,13 +474,23 @@ def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def attention_flops(B, H, nq, nk):
+    """(forward, backward) operations of attention over nq query rows and nk
+    keys (those a run needs): the forward's two products (Q.K^T, P.V); the
+    backward's five, 2.5x the forward's, since its inputs are q, k, v, o,
+    lse and dO: S = Q.K^T again, dP, dV, dQ, dK. Every attention bound of
+    this script counts them here."""
+    fwd = 4 * B * H * nq * nk * DH
+    return fwd, 2.5 * fwd
+
+
 def block_flops(B, N, vl, dim, heads, mlp, cls):
     """(forward, backward) operations of one block at these shapes; the
     attention products count only the rows and keys < valid_len that this
-    input needs. Forward: the four GEMMs and Q.K^T, P.V; backward: dX and dW
-    of each GEMM and the attention's four gradient products (dV, dP, dQ,
-    dK). What a design recomputes (the kernels recompute S from the kept
-    LSE) is its own cost, not part of the bound."""
+    input needs. Forward: the four GEMMs and the attention's forward;
+    backward: dX and dW of each GEMM and the attention's backward
+    (``attention_flops``). What a design keeps or recomputes beyond that is
+    its own cost, not part of the bound."""
     hd, M = heads * DH, B * N
     rows = min(8, N) if cls else N
     Mt = B * rows
@@ -475,8 +498,8 @@ def block_flops(B, N, vl, dim, heads, mlp, cls):
         gemm = 2 * (M * dim * 2 * hd + Mt * dim * hd + Mt * hd * dim + 2 * Mt * dim * mlp)
     else:
         gemm = 2 * M * (dim * 3 * hd + hd * dim + 2 * dim * mlp)
-    prod = 2 * B * heads * min(rows, vl) * min(N, vl) * DH
-    return gemm + 2 * prod, 2 * gemm + 4 * prod
+    att_f, att_b = attention_flops(B, heads, min(rows, vl), min(N, vl))
+    return gemm + att_f, 2 * gemm + att_b
 
 
 def grad_bound_ratio(got, ref32, vl):
@@ -836,9 +859,10 @@ def ptxas_report(log_path: Path) -> str:
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "ln_bwd",
-                                     "gemm_bwd", "int8_gemm", "gemm_kernel", "layer_norm",
-                                     "reduce", "ln_quant", "quant_rows", "patch_embed")
+            name = next((k for k in ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
+                                     "flash_bwd_kernel", "ln_bwd", "gemm_bwd", "int8_gemm",
+                                     "gemm_kernel", "layer_norm", "reduce", "ln_quant",
+                                     "quant_rows", "patch_embed")
                          if k in mangled), mangled[:40])
         elif name and "registers" in line:
             regs[name] = max(regs.get(name, 0), int(line.split("Used ")[1].split()[0]))
@@ -953,10 +977,16 @@ def phase_flash(rng) -> dict:
             raise AssertionError("flash_attention disagrees with its plain version")
         if min(controls.values()) <= 1:
             raise AssertionError("flash_attention: a control passed the gate")
+        repeat_check("flash-kernels", f"B={B} H={H} Nq={nq} Nk={nk} valid_len={vl}",
+                     lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, vl),
+                     lambda: fa.flash_attention_bwd(q, k, v, o, lse, bump(do), vl),
+                     lambda: order_control(q, k, v, o, lse, do, vl))
         if main:
             abs_err = {"fwd": errs[0], "bwd": max(errs[1:])}
         del got, ref32
         torch.cuda.empty_cache()
+
+    busy_card(fa)
 
     # times at the training path's shape, on the main case's tensors
     B, H, N = FLASH_MAIN[:3]
@@ -974,10 +1004,8 @@ def phase_flash(rng) -> dict:
     library = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                "bwd": cuda_ms(lambda: torch.autograd.grad(
                    sdpa_out, (qr, kr, vr), do, retain_graph=True))}
-    flops = 4 * B * H * N * N * DH
-    io = nbytes_of(q, k, v, o, lse)
-    bounds = {"fwd": bound_ms(flops, io),
-              "bwd": bound_ms(2.5 * flops, io + nbytes_of(do, q, k, v))}
+    bounds = dict(zip(("fwd", "bwd"), attention_bound(B, H, N, N, (q, k, v, o, lse),
+                                                      (q, k, v, o, lse, do, q, k, v))))
     results = {}
     for key, name, line in (("fwd", "flash_attention", 265), ("bwd", "flash_attention_bwd", 233)):
         b_ms, b_by = bounds[key]
@@ -991,11 +1019,97 @@ def phase_flash(rng) -> dict:
     return results
 
 
+# A kernel that holds its multiprocessor for a while: one CTA per SM (its
+# shared memory leaves no room for a backward CTA beside it).
+HOLD_SRC = r"""
+#include <cuda_runtime.h>
+
+__global__ void hold(long long ns) {
+  long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  do {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while (t - t0 < ns);
+}
+
+extern "C" int hold_sms(int ctas, int smem, long long ns, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(hold, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  hold<<<ctas, 32, smem, (cudaStream_t)stream>>>(ns);
+  return (int)cudaGetLastError();
+}
+"""
+HOLD_MS = 300  # how long the other stream's kernel holds its multiprocessors
+BUSY_SHAPE = (1, 12, 1281)  # (B, H, N): SiT-base attention, 12 (sample, head)s x 21 key blocks
+HOLD_SMEM = 200 * 1024  # with a backward CTA's ~99 KB, over an SM's 228 KB
+
+
+def busy_card(fa) -> None:
+    """The attention backward while a kernel on another stream holds every
+    multiprocessor but one: its key blocks wait only for blocks of lower
+    index, never for the whole (sample, head) to be on the card, so it must
+    finish on that one SM, equal bit for bit to its run on the idle card,
+    before the other kernel ends. Its inputs come from a generator of its
+    own, so the phases after it draw the data their gates were set on."""
+    import ctypes
+
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    B, H, N = BUSY_SHAPE
+    rng = np.random.default_rng(SEED + 1)
+    q, k, v = bf16_randn(rng, (B, H, N, DH), 1.5), bf16_randn(rng, (B, H, N, DH), 1.5), \
+        bf16_randn(rng, (B, H, N, DH))
+    do = bf16_randn(rng, (B, H, N, DH))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    idle = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    idle_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib_path = Path(tmp) / "hold.cu", Path(tmp) / "libhold.so"
+        src.write_text(HOLD_SRC)
+        subprocess.run([_native._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)], check=True,
+                       capture_output=True, timeout=300)
+        lib = ctypes.CDLL(str(lib_path))
+    lib.hold_sms.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    side = torch.cuda.Stream()
+    stream = ctypes.c_void_p(side.cuda_stream)
+    # a first launch loads the holding kernel's module, which would wait for
+    # the card to go idle if it came while the backward runs
+    err = lib.hold_sms(1, HOLD_SMEM, 0, stream)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        ev[0].record()
+        err = err or lib.hold_sms(sms - 1, HOLD_SMEM, HOLD_MS * 1_000_000, stream)
+        ev[1].record()
+    if err:
+        raise AssertionError(f"busy card: the holding kernel did not launch (CUDA error {err})")
+    time.sleep(0.01)  # the holding kernel takes its SMs before the backward is issued
+    ev[2].record()
+    busy = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    ev[3].record()
+    torch.cuda.synchronize()
+    hold_ms, done_ms, bwd_ms = (ev[0].elapsed_time(ev[1]), ev[0].elapsed_time(ev[3]),
+                                ev[2].elapsed_time(ev[3]))
+    same = all(torch.equal(a, b) for a, b in zip(idle, busy))
+    phase("flash-kernels", f"busy card: B={B} H={H} N={N} backward while {sms - 1} of {sms} "
+          f"SMs are held for {HOLD_MS} ms by a kernel on another stream: done {done_ms:.2f} ms "
+          f"after that kernel's start, which ended at {hold_ms:.2f} ms (must be later); the "
+          f"backward took {bwd_ms:.3f} ms, {bwd_ms / idle_ms:.1f}x its {idle_ms:.4f} ms on "
+          f"the idle card (CUDA events); equal to the idle card's dq, dk, dv bit for bit "
+          f"{same} (must be True)")
+    if not same:
+        raise AssertionError("busy card: the backward's outputs differ from the idle card's")
+    if done_ms >= hold_ms:
+        raise AssertionError("busy card: the backward waited for the other stream's kernel")
+
+
 def phase_base_kernels(rng, fb, sit_module, m, bs) -> None:
     """Phase 10: at SiT-base width, N = 1281 and the config's batch ``bs``
     (the shapes the training path gives them), fused_block and
     fused_block_cls (streamed attention), fused_block_cls_bwd (LayerNorm
-    backward at dim 768, streamed dQ pass) and the recompute route's 12
+    backward at dim 768, the attention backward) and the recompute route's 12
     gradients, each against the float32 and the bf16 plain version on the
     same bf16 inputs (run 16 samples at a time), with phase 3's and phase
     6's controls; times at B=32 beside the eager bf16 block."""
@@ -1415,6 +1529,14 @@ MPP_STEPS = 10
 # masking keys >= 289 only 1.0e-3.
 MPP_LOSS_TOL, MPP_UPD_TOL, MPP_VAL_TOL = 5e-3, 0.05, 5e-4
 DROP_TRAIN_B, DROP_STEPS = 256, 10
+# The recorded times of the rows whose attention backward is now the wgmma
+# design, under the two-pass mma.sync backward it replaced (PERF.md section
+# 6; this script on an NVIDIA H100 80GB HBM3 at 700 W): a record printed
+# beside this run's times, not a measurement of this run, so it stays out
+# of the kernels line.
+TWO_PASS_MS = {"flash_attention_bwd": 9.9093, "flash_attention_qkv_bwd": 0.0912,
+          "flash_attention_qkv_dropout_bwd": 0.7603, "flash_attention_tiled_bwd": 0.6243,
+          "fused_block_bwd": 2.6721}
 
 
 def step_ratio(got, want, ref32) -> float:
@@ -1423,6 +1545,68 @@ def step_ratio(got, want, ref32) -> float:
     return max((a.float() - b.float()).abs().max().item()
                / (BOUND_STEPS * bf16_step(r.abs().max().item()))
                for a, b, r in zip(got, want, ref32))
+
+
+def bump(t):
+    """A copy of t with its first element raised by 1."""
+    out = t.clone()
+    idx = (0,) * out.dim()
+    out[idx] = out[idx].float() + 1.0
+    return out
+
+
+ORDER_ELEMENTS = 1 << 18  # dq elements order_control looks at, at least
+
+
+def order_control(q, k, v, o, lse, do, vl) -> tuple[int, int]:
+    """(differing, total) bf16 elements of dq when the plain backward's
+    per-64-key-block dQ shares dS K (float32, dS rounded to bf16 as the
+    kernel rounds it; no dropout) are summed over the blocks in reverse
+    order instead of 0, 1, ...: on the first samples of the (B, H, N, dh)
+    operands (two, or more up to ORDER_ELEMENTS dq elements: an order
+    change moves only a few dq elements in 10^5 across a bf16 step)."""
+    B, H, nq, dh = q.shape
+    samples = min(B, max(2, -(-ORDER_ELEMENTS // (H * nq * dh))))
+    q, k, v, o, do = (x[:samples].float() for x in (q, k, v, o, do))
+    s = q @ k.transpose(-1, -2) * 0.125
+    s[..., vl:] = float("-inf")
+    p = torch.exp(s - lse[:samples, ..., None])
+    p[..., vl:, :] = 0.0
+    ds = (p * (do @ v.transpose(-1, -2) - (do * o).sum(-1, keepdim=True)) * 0.125)
+    ds = ds.to(torch.bfloat16).float()
+    shares = [ds[..., c:c + 64] @ k[..., c:c + 64, :] for c in range(0, min(vl, k.shape[-2]), 64)]
+    ahead = functools.reduce(torch.add, shares).to(torch.bfloat16)
+    back = functools.reduce(torch.add, shares[::-1]).to(torch.bfloat16)
+    return int((ahead != back).sum()), ahead.numel()
+
+
+def repeat_check(name, label, call, perturbed, order) -> None:
+    """The backward repeats bit for bit: two calls of ``call`` on the same
+    inputs give identical outputs. Two controls the comparison must tell
+    apart: ``perturbed``, the call with one dO element raised by 1, and
+    ``order`` (``order_control`` on the call's inputs), the plain dQ summed
+    over the key blocks in reverse order, which shows that at this shape
+    the order of the dQ sum reaches dq's bf16 bits."""
+    first, again, moved = call(), call(), perturbed()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    control = all(torch.equal(a, b) for a, b in zip(first, moved))
+    differ, total = order()
+    phase(name, f"{label}: two backward calls on the same inputs bitwise identical {same} "
+          f"(must be True); controls: one dO element raised by 1, identical {control} "
+          f"(must be False); plain dQ shares summed over the key blocks in reverse order, "
+          f"{differ} of {total} bf16 elements of dq differ (must be > 0)")
+    if not same:
+        raise AssertionError(f"{name}: the backward does not repeat bit for bit")
+    if control:
+        raise AssertionError(f"{name}: the repeat check did not tell a perturbed input apart")
+    if differ == 0:
+        raise AssertionError(f"{name}: the order of the dQ sum does not reach dq's bits")
+
+
+def heads4(t):
+    """(B, N, H*dh) -> (B, H, N, dh) view."""
+    B, N, _ = t.shape
+    return t.view(B, N, HEADS, DH).transpose(1, 2)
 
 
 def bf16_randn(rng, shape, scale=1.0):
@@ -1458,11 +1642,10 @@ def qkv_plain(fa, qkv, do, vl, dtype=None, keep=None, keep_bwd=True, scale=1.0):
 
 
 def attention_bound(B, H, nq, nk, tensors_fwd, tensors_bwd):
-    """(forward, backward) bounds: the forward's two products (Q.K^T, P.V),
-    the backward's four (dV, dP, dQ, dK), over keys and rows a run needs;
-    bytes of the inputs read and outputs written once."""
-    flops = 4 * B * H * nq * nk * DH
-    return bound_ms(flops, nbytes_of(*tensors_fwd)), bound_ms(2 * flops, nbytes_of(*tensors_bwd))
+    """(forward, backward) bounds: ``attention_flops`` over keys and rows a
+    run needs; bytes of the inputs read and outputs written once."""
+    fwd, bwd = attention_flops(B, H, nq, nk)
+    return bound_ms(fwd, nbytes_of(*tensors_fwd)), bound_ms(bwd, nbytes_of(*tensors_bwd))
 
 
 def kernel_row(name, source_line, err, ms, plain_ms, bound, library_ms) -> dict:
@@ -1505,9 +1688,14 @@ def phase_qkv(rng) -> dict:
             raise AssertionError("flash_attention_qkv disagrees with its plain version")
         if min(controls.values()) <= 1:
             raise AssertionError("flash_attention_qkv: a control passed the gate")
+        repeat_check("qkv-kernels", f"B={B} N={N} valid_len={vl}",
+                     lambda: (fa.flash_attention_qkv_bwd(qkv, o, lse, do, HEADS, vl),),
+                     lambda: (fa.flash_attention_qkv_bwd(qkv, o, lse, bump(do), HEADS, vl),),
+                     lambda: order_control(*fa.split_qkv(qkv, HEADS), heads4(o), lse,
+                                           heads4(do), vl))
         if N == vl:
             q, k, v = fa.split_qkv(qkv, HEADS)
-            do4 = do.view(B, N, HEADS, DH).transpose(1, 2)
+            do4 = heads4(do)
             qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
             sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
             t = {"fwd": device_ms(lambda: fa.flash_attention_qkv_fwd(qkv, HEADS)),
@@ -1594,9 +1782,16 @@ def phase_dropout(rng) -> dict:
             raise AssertionError("flash_attention_qkv_dropout: a control passed the gate")
         if abs(measured - exact) > KEEP_TOL or abs(measured - (1 - DROP_RATE)) > 0.01:
             raise AssertionError("the dropout kernel keeps the wrong share of the scores")
+        repeat_check("dropout-kernels", f"B={B} N={N} valid_len={vl} rate {DROP_RATE}",
+                     lambda: (fa.flash_attention_qkv_dropout_bwd(
+                         qkv, o, lse, do, HEADS, vl, DROP_RATE, DROP_SEED),),
+                     lambda: (fa.flash_attention_qkv_dropout_bwd(
+                         qkv, o, lse, bump(do), HEADS, vl, DROP_RATE, DROP_SEED),),
+                     lambda: order_control(*fa.split_qkv(qkv, HEADS), heads4(o), lse,
+                                           heads4(do), vl))
         if B == DROP_TRAIN_B:
             q, k, v = fa.split_qkv(qkv, HEADS)
-            do4 = do.view(B, N, HEADS, DH).transpose(1, 2)
+            do4 = heads4(do)
             qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
             sdpa_out = F.scaled_dot_product_attention(qr, kr, vr, dropout_p=DROP_RATE)
             t = {"fwd": device_ms(lambda: fa.flash_attention_qkv_dropout_fwd(
@@ -1707,6 +1902,10 @@ def phase_tiled(rng, fb) -> dict:
         raise AssertionError("flash_attention_tiled disagrees with its plain version")
     if min(controls.values()) <= 1:
         raise AssertionError("flash_attention_tiled: a control passed the gate")
+    repeat_check("tiled", f"B={B} H={H} N={N}",
+                 lambda: fa.flash_attention_tiled_bwd(q, k, v, o, lse, do),
+                 lambda: fa.flash_attention_tiled_bwd(q, k, v, o, lse, bump(do)),
+                 lambda: order_control(q, k, v, o, lse, do, N))
     del ref32, got
     torch.cuda.empty_cache()
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
@@ -2513,6 +2712,63 @@ def phase_int8_entry(fb, tiny_cfg, tiny_tree, tiny_data, tiny_labels) -> None:
             raise AssertionError("SiT-tiny int8 did not fall back to bf16 with one notice")
 
 
+def phase_fp32_entry(fb, tiny_cfg, tiny_tree, tiny_data, tiny_labels) -> None:
+    """Phase 24: ``cli.test <cfg> --set tpu.compute_dtype=float32 --device
+    cuda`` on SiT-tiny. float32 serves through the modular model, as the
+    JAX trainer's ``_use_fused_inference`` (bfloat16 only) routes it, so no
+    kernel launches; results.csv must equal in-process float32 serving
+    (``predict`` of the float32 model) bit for bit, and the printed MAE the
+    csv's."""
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.train.runner import build_model, load_state_dict_any
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "validation_data.npy", tiny_data)
+        np.save(tmp / "validation_labels.npy", tiny_labels)
+        np.savez(tmp / "best_params.npz", **flatten({"params": tiny_tree}))
+        cfg = dict(tiny_cfg, data={"data_path": str(tmp), "split": "validation"},
+                   testing={"path_to_ckpt": str(tmp / "best_params.npz")})
+        (tmp / "cfg.json").write_text(json.dumps(cfg))
+        mod = importlib.import_module("surface_vision_transformers_tpu_torch.cli.test")
+        out = io.StringIO()
+        counters = zero_counts(fb)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main([str(tmp / "cfg.json"), "--set", "tpu.compute_dtype=float32",
+                      "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        launches = read_counts(counters)
+        reported = ast.literal_eval(out.getvalue().strip().splitlines()[-1])
+        with open(tmp / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        cli_preds = np.array([float(r["pred"]) for r in rows], np.float32)
+        targets = np.array([float(r["target"]) for r in rows], np.float32)
+        exp = config.from_dict(dict(cfg, tpu={"compute_dtype": "float32"}))
+        model = build_model(exp, load_patch_table(exp.ico, exp.sub_ico).indices)
+        model.load_state_dict(load_state_dict_any(str(tmp / "best_params.npz"),
+                                                  exp.model.depth), strict=True)
+        bs_val = exp.training.bs_val or exp.training.bs
+        same = fused.predict(model.eval(), tiny_data, device="cuda",
+                             batch_size=bs_val).reshape(-1)
+        err = float(np.abs(cli_preds - same).max())
+        shifted = float(np.abs(cli_preds - np.roll(same, 1)).max())  # control
+        mae = float(np.abs(cli_preds - targets).mean())
+        want = {k: 0 for k in counters}
+        phase("fp32-entry", f"cli.test --set tpu.compute_dtype=float32 --device cuda in "
+              f"{secs:.1f} s: {reported}; results.csv {len(rows)} rows; launches {launches}, "
+              f"expected {want}; |results.csv - float32 predict| max {err:.6g} (must be 0; "
+              f"control, rows shifted by one: {shifted:.6g}); MAE of the csv {mae:.6f}")
+        if len(rows) != len(tiny_labels) or not np.array_equal(targets, tiny_labels):
+            raise AssertionError("float32 cli.test: results.csv rows out of order")
+        if launches != want or err != 0 or shifted == 0:
+            raise AssertionError("float32 cli.test disagrees with in-process float32 serving")
+        if abs(reported["mae"] - mae) > 1e-6:
+            raise AssertionError("float32 cli.test's MAE disagrees with its results.csv")
+
+
 def main() -> None:
     # -- 1. device
     start("device")
@@ -2783,6 +3039,15 @@ def main() -> None:
     # -- 23. int8-entry
     start("int8-entry")
     phase_int8_entry(fb, *tiny_entry)
+
+    # -- 24. fp32-entry
+    start("fp32-entry")
+    phase_fp32_entry(fb, *tiny_entry)
+    phase("records", "the attention backward rows, this run's ms beside the two-pass "
+          "mma.sync backward's recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at "
+          "700 W; a record, not measured in this run): " + ", ".join(
+              f"{k_} {kernels[k_]['ms']:.4f} (two-pass {v_})"
+              for k_, v_ in TWO_PASS_MS.items()))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

@@ -7,61 +7,104 @@
 // backward, where query rows >= valid_len contribute nothing.
 //
 // The TPU kernel holds a (sample, head)'s whole (N, N) fp32 score tile in
-// VMEM (N <= 1536). An H100 block has 227 KB of shared memory, so here K and
-// V stream through it in tiles of 64 keys (double-buffered cp.async) and the
-// score matrix never exists, so no sequence length is refused:
-//   forward  one CTA per (64 queries, head, sample); each of 4 warps holds
-//            16 query rows as mma fragments and an online softmax (running
-//            max and sum, the accumulator rescaled per tile); writes O and
-//            lse = m + log l.
-//   dQ pass  one CTA per (64 queries, head, sample): delta = rowsum(dO . O),
-//            then P = exp(s - lse), dS = P (dP - delta) / 8 and dQ += dS K
-//            over the K/V tiles.
-//   dK/dV    one CTA per (64 keys, head, sample): each warp holds 16 keys'
-//            K and V rows as fragments and walks the queries in chunks of 32
-//            (double-buffered), dV += P^T dO, dK += dS^T Q.
-// No atomics: outputs repeat bit for bit from run to run. The block chains
-// call the same launchers on their packed activations (flash_attention.cuh),
-// and so does flash_attention_qkv on the packed (B, N, 3 H 64) qkv, through
-// strides, writing dq, dk and dv into one packed gradient.
+// VMEM (N <= 1536). An H100 block has 227 KB of shared memory, so here the
+// scores stream through it in 64 x 64 tiles and the score matrix never
+// exists, so no sequence length is refused.
+//
+// Forward: one CTA per (64 queries, head, sample); K and V tiles of 64 keys
+// double-buffered with cp.async; each of 4 warps holds 16 query rows as
+// mma.sync m16n8k16 fragments and an online softmax (running max and sum,
+// the accumulator rescaled per tile); writes O and lse = m + log l.
+//
+// Backward, three launches:
+//   delta    delta = rowsum(dO . O), eight threads a row, 16-byte loads.
+//   main     one CTA per (64 keys, head, sample): a warpgroup that computes
+//            and a warp that writes dQ. K and V stay in shared memory; Q and
+//            dO stream in 64-row tiles through a two-stage ring filled by
+//            TMA (the operands' strides become 4-D tensor maps). Per tile,
+//            each score tile is computed once: S = Q K^T and dP = dO V^T
+//            (wgmma, operands in shared memory), P = exp(S/8 - lse), P~ and
+//            dS = P (dP - delta) / 8 in registers; P~ and dS go to shared
+//            memory for dV += P~^T dO and dK += dS^T Q (wgmma, read
+//            MN-major), and dS stays in registers as the A operand of the
+//            tile's dQ share dS K. Five products where the two-pass mma.sync
+//            design this replaces ran seven, and one exp per score where it
+//            ran two.
+//   dq       adds the fp32 dQ sums and rounds them into dq.
+// dQ is summed in a fixed order, so every output repeats bit for bit from
+// run to run (no unordered atomics). The warpgroup leaves each tile's dQ
+// share in shared memory; the writer adds it into an fp32 sum in the
+// workspace with one bulk copy / bulk reduce-add of the copy engine, once a
+// turn counter says the add before it has landed. The adds into a tile go
+// in increasing key-block order and alternate between two sums (the dq pass
+// adds them), so an add waits only for the one two places before it: the
+// chain's latency (the reduce, its release, the next block's poll) then
+// hides under two steps of work where it did not under one. When there are
+// as many key blocks as query tiles, block kb walks tiles kb, kb - 1, ...
+// (wrapping), so that its turn at each tile comes as its predecessor's add
+// there lands; the blocks past the wrap (kb < tile) then add into two sums
+// of their own, in order. Either way a block waits only for blocks of lower
+// index in its (sample, head), so the backward needs none of its blocks on
+// the card together: it progresses on whatever multiprocessors another
+// stream or process leaves it, down to one. That rests on the card starting
+// a grid's CTAs in index order, as CUDA does in practice without promising
+// it (split-K semaphores rest on the same). Handing each CTA its key block
+// from an atomic ticket, start order by construction, made the main pass
+// slower at every shape tried (PERF.md).
+//
+// Ragged edges: a key tile's ragged side is its key dimension, which is the
+// N of S and dP and the K of dQ: keys >= valid_len take P = 0 and dQ skips
+// the 16-key steps wholly past them; query rows >= valid_len take lse =
+// +inf, so their P is 0 without a test per score, and dV / dK skip the
+// 16-query steps wholly past them. Rows past the tensors are zero-filled by
+// the loads.
+//
+// The block chains call the same launchers on their packed activations
+// (flash_attention.cuh), and so does flash_attention_qkv on the packed (B,
+// N, 3 H 64) qkv, through strides, writing dq, dk and dv into one packed
+// gradient.
 //
 // Dropout (flash_attention_qkv_dropout, replacing _fwd_packed_drop /
-// _bwd_packed_drop) is a compile-time flag on all three kernels. The TPU
-// kernel regenerates its mask from the Mosaic PRNG seeded per (batch, head)
-// over the whole (N, N) tile; here the three passes tile the scores three
-// ways (64 x 64 forward, 64 x 32 dQ, 16 keys x 32 queries dK/dV), so the
-// keep bit of score (b, h, row, col) is a pure function of its absolute
-// coordinates: word col & 3 of Philox4x32-10 at counter {row, col / 4} under
-// key {seed, b * heads + h} (common.cuh), kept when >= threshold. A counter
-// built from tile or block indices would give a forward and a backward that
-// disagree, which no forward-only check sees. The row max, the sum l and lse
-// are the undropped softmax's; O = keep(P) V / l / (1 - rate); dV = P~^T dO
-// with P~ = keep(P) / (1 - rate); dP = keep(dO V^T) / (1 - rate); dS =
-// P (dP - delta) / 8. delta = rowsum(dO . O) stays the right correction
-// because O is the dropped output the forward returned (rowsum(P dP) =
-// dO . (P~ V)). Each thread draws one Philox (ten rounds of two 32-bit
-// multiplies with their high halves) per two scores in the forward and the
-// dQ pass and one per score in the dK/dV pass (a thread's consecutive scores
-// there are consecutive queries, which share no counter): integer work the
-// no-dropout kernels do not have; PERF.md has its cost beside theirs.
+// _bwd_packed_drop) is a compile-time flag on the forward and the main
+// backward pass. The TPU kernel regenerates its mask from the Mosaic PRNG
+// seeded per (batch, head) over the whole (N, N) tile; here the keep bit of
+// score (b, h, row, col) is a pure function of its absolute coordinates:
+// word col & 3 of Philox4x32-10 at counter {row, col / 4} under key {seed,
+// b * heads + h} (common.cuh), kept when >= threshold, so the forward and
+// the backward draw the same mask however they tile the scores. The row
+// max, the sum l and lse are the undropped softmax's; O = keep(P) V / l / (1
+// - rate); dV = P~^T dO with P~ = keep(P) / (1 - rate); dP = keep(dO V^T) /
+// (1 - rate); dS = P (dP - delta) / 8. delta = rowsum(dO . O) stays the
+// right correction because O is the dropped output the forward returned
+// (rowsum(P dP) = dO . (P~ V)). A Philox4x32-10 call is ten rounds of two
+// 32-bit multiplies with their high halves, so the draws are integer work
+// the no-dropout kernels do not have. The backward's key tile holds its
+// keys in a permuted column order (kperm) that gives each thread four
+// consecutive keys of a query row: one call per four scores, each word
+// drawn once per backward. The forward draws one per two scores.
 //
 // Numerics: scores, softmax, sums and accumulators in fp32; P rounded to
-// bf16 before P.V and divided by the sum after it; P and dS rounded to bf16
-// before their products. The forward's P is relative to the running max, so
-// it can differ from the TPU kernel's (relative to the final max) in the last
-// bf16 bit. exp(s / 8 - m) is formed as 2^(s * log2(e) / 8 - m log2(e)), one
-// fused multiply-add and one ex2 per score; only the tile holding the last
-// valid key is masked; rows >= valid_len take lse = +inf in the backward, so
-// their P is 0 without a test per score.
+// bf16 before P.V and divided by the sum after it; P~ and dS rounded to bf16
+// before their products; dQ summed in fp32 and rounded once. The forward's
+// P is relative to the running max, so it can differ from the TPU kernel's
+// (relative to the final max) in the last bf16 bit. exp(s / 8 - m) is
+// formed as 2^(s * log2(e) / 8 - m log2(e)), one fused multiply-add and one
+// ex2 per score.
 //
 // What bounds it on this card: at SiT-base (B 128, 12 heads, N 1281) the
 // forward is 4 B H N^2 64 = 0.65 TFLOP against 0.3 GB of q, k, v, o, lse,
-// so operations bound it (0.65 ms at the bf16 peak); the backward does 2.5x
-// the operations, and its two passes recompute P twice. At dh = 64 each
-// score costs as much in the exp unit and the fp32 pipe as in the tensor
-// cores, hence the short per-score instruction path. This version runs
-// mma.sync m16n8k16 (no wgmma/TMA, no warp specialisation); PERF.md has its
-// times beside SDPA's.
+// so operations bound it (0.65 ms at the bf16 peak); the backward's five
+// products are 2.5x that (1.6 ms). At dh = 64 each score costs about as much
+// in the exp unit and the fp32 pipe as in the tensor cores, and a 64 x 64
+// tile's products are short, so the main pass is bound by latency: the
+// waits at each step's barriers and TMA, the products, and the dQ adds'
+// chain. The dQ sums cost fp32 workspace traffic (up to four sums of B H N
+// 64 floats, written once and read once by the dq pass) that the function's
+// own bytes do not count. PERF.md has the times beside SDPA's and the bound.
+
+#include <cuda.h>
+
+#include <algorithm>
 
 #include "flash_attention.cuh"
 
@@ -70,10 +113,11 @@ namespace {
 using namespace svt;
 
 constexpr int FA_BK = 64;              // keys per streamed K/V tile
-constexpr int KV_BK = 64, KV_QC = 32;  // dK/dV pass: keys per CTA, queries per chunk
 constexpr float kScale = 0.125f;       // 1 / sqrt(64), exact
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kScaleLog2 = kScale * kLog2e;  // exp(s / 8 - x) = 2^(s * kScaleLog2 - x log2 e)
+
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // 2^x on the special-function unit; 2^-inf = 0.
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -125,13 +169,6 @@ __device__ __forceinline__ void mma_pv(float acc[ATT_DH / 8][4], const uint32_t 
 __device__ __forceinline__ uint2 drop_pair(const Dropout& dr, uint32_t bh, int row, int col) {
   const uint4 w = philox4x32((uint32_t)row, (uint32_t)col >> 2, dr.seed, bh);
   return (col & 2) ? make_uint2(w.z, w.w) : make_uint2(w.x, w.y);
-}
-
-// The dropout word of score (row, col).
-__device__ __forceinline__ uint32_t drop_word(const Dropout& dr, uint32_t bh, int row, int col) {
-  const uint4 w = philox4x32((uint32_t)row, (uint32_t)col >> 2, dr.seed, bh);
-  const int e = col & 3;
-  return e == 0 ? w.x : e == 1 ? w.y : e == 2 ? w.z : w.w;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -278,247 +315,533 @@ __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-// dQ pass. Per 32 keys of a tile: S = Q K^T, dP = dO V^T, P = exp(S/8 -
-// lse) on keys < kend and rows < qend (the others' lse is taken as +inf, so
-// P = 0), dS = P (dP - delta) / 8, dQ += bf16(dS) K.
-template <bool DROP>
-__global__ void __launch_bounds__(ATT_THREADS)
-    flash_bwd_dq_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
-                        const Strided d_o, const float* __restrict__ lse,
-                        float* __restrict__ delta, const Strided dq, int nq, int nk,
-                        int valid_len, const Dropout dr) {
-  __shared__ __align__(16) bf16 sQ[ATT_BQ * ATT_LD];  // the Q tile, then the dO tile
-  __shared__ __align__(16) bf16 sK[2][FA_BK * ATT_LD];
-  __shared__ __align__(16) bf16 sV[2][FA_BK * ATT_LD];
-  const int q0 = blockIdx.x * ATT_BQ, h = blockIdx.y, b = blockIdx.z;
+// -- backward --------------------------------------------------------------
+//
+// Three launches: delta = rowsum(dO . O) (and the dQ turn counters zeroed);
+// the main pass, one CTA (a compute warpgroup and a writer warp) per (64
+// keys, head, sample) walking the query tiles; the dq pass, which adds the
+// fp32 dQ sums and rounds to bf16. See the header.
+
+constexpr int BWD_BK = 64, BWD_BQ = 64;    // keys per CTA, queries per step
+constexpr int BWD_STAGES = 2;              // Q / dO tiles: this step's and the next one's
+constexpr int BWD_SLOTS = 2;               // dQ shares between the warpgroup and the writer
+constexpr int BWD_THREADS = 128 + 32;      // one compute warpgroup + the writer warp
+constexpr int BWD_TILE = BWD_BQ * ATT_DH;  // floats of one query tile's dQ share
+constexpr int BWD_CHAINS = 4;              // ordered sums per query tile (see add_place)
+
+// Shared memory of the main pass: 64-row bf16 tiles in the 128-byte swizzle.
+template <int DH>
+struct BwdSmem {
+  static_assert(DH == 64, "the tiles are 128-byte rows: dh 32 needs the 64-byte swizzle");
+  bf16 k[BWD_BK * DH], v[BWD_BK * DH];          // key rows in the permuted order kperm()
+  bf16 q[BWD_STAGES][BWD_BQ * DH], d_o[BWD_STAGES][BWD_BQ * DH];  // ring filled by TMA
+  bf16 p[BWD_BQ * BWD_BK], ds[BWD_BQ * BWD_BK];  // P~ and dS of the step, [query][key column]
+  float4 dq[BWD_SLOTS][BWD_TILE / 4];           // dQ shares, in the accumulator's order (below)
+  uint64_t loaded[BWD_STAGES];                  // a Q / dO stage has landed
+  uint64_t full[BWD_SLOTS], empty[BWD_SLOTS];   // a share written / read by the copy engine
+};
+
+// A dQ share, and the sums in the workspace, are laid out as the warpgroup
+// holds them: float4 m of thread i (d[4m .. 4m + 3]: rows 16 (i / 32) + (i
+// % 32) / 4 and 8 below, columns 8m + 2 (i % 4) and the next) at m * 128 +
+// i, so the threads' stores are conflict-free and one bulk copy moves a
+// tile; flash_bwd_dq_kernel undoes it.
+
+// Key column c of a tile holds key kperm(c): the columns a thread holds
+// (2t, 2t + 1, 8 + 2t, 9 + 2t of each 16) are then the four consecutive keys
+// 4t .. 4t + 3, one Philox counter.
+__device__ __forceinline__ int kperm(int c) {
+  return (c & 48) | ((c & 6) << 1) | ((c >> 2) & 2) | (c & 1);
+}
+
+// Key rows k0 .. k0 + 63 of (b, h) into a swizzled tile, row r holding key
+// k0 + kperm(r); zeros past n.
+__device__ __forceinline__ void load_key_tile(bf16* dst, const Strided& t, int b, int h, int k0,
+                                              int n, int tid) {
+  for (int i = tid; i < 64 * 8; i += 128) {
+    const int r = i >> 3, ch = i & 7;
+    const int src = k0 + kperm(r);
+    const bool ok = src < n;
+    cp_async16(dst + sw128(r, ch * 8), ok ? t.row(b, h, src) + ch * 8 : t.p, ok);
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive and expect `bytes` from the copy engine in the current phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`; a wait
+// far beyond any kernel's run traps, as wait_turn's does.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (long long n = 0; !done; ++n) {
+    if (n > (1ll << 28)) __trap();
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"(smem_u32(bar)), "r"(parity)
+                 : "memory");
+  }
+}
+
+// One 64-row tile of a 4-D tensor map (columns; rows and heads in the map's
+// order; samples) into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& m, uint64_t* bar, int row,
+                                         int h, int b, bool heads_first) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&m)), "r"(0), "r"(heads_first ? h : row),
+      "r"(heads_first ? row : h), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The compute warpgroup's own barrier (the writer warp does not take part).
+__device__ __forceinline__ void wg_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+// delta = rowsum(dO . O) over (B, heads, nq) rows, eight threads a row, one
+// 16-byte load of each operand per thread; zeroes the nsem turn counters.
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const Strided o, const Strided d_o, float* __restrict__ delta,
+                           int* __restrict__ sems, long long nsem, int heads, int nq,
+                           long long rows) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid < nsem) sems[gid] = 0;
+  const long long r = gid >> 3;
+  const int part = threadIdx.x & 7;
+  float s = 0.f;
+  if (r < rows) {
+    const int row = (int)(r % nq), bh = (int)(r / nq);
+    const uint4 a = *reinterpret_cast<const uint4*>(o.row(bh / heads, bh % heads, row) + part * 8);
+    const uint4 c =
+        *reinterpret_cast<const uint4*>(d_o.row(bh / heads, bh % heads, row) + part * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(c2[i]);
+      s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  if (r < rows && part == 0) delta[r] = s;
+}
+
+// The query tile key block kb takes at `step`. Rotated (as many key blocks
+// as query tiles), block kb walks tiles kb, kb - 1, ..., 0, nqt - 1, ...:
+// in step with its neighbours, block kb reaches a tile the step after block
+// kb - 1 did (past the wrap, block 0 the step after block nqt - 1).
+// Otherwise tiles go in order.
+__device__ __forceinline__ int step_tile(int kb, int step, int nqt, bool rotate) {
+  return rotate ? (kb - step + nqt) % nqt : step;
+}
+
+// Which of the BWD_CHAINS sums of `tile` block kb adds into, and its rank
+// there (how many adds into that sum come before it). The adds go in runs
+// of increasing block index, each run alternating between two sums, so an
+// add waits only for the add two places before it in its run: the chain's
+// latency (the copy engine's reduce, its release, the next block's poll)
+// overlaps the next step's work. In order, one run: blocks 0, 1, ...
+// Rotated, two: blocks tile, tile + 1, ... (sums 0, 1), then the blocks
+// past the wrap, 0, 1, ..., tile - 1 (sums 2, 3), so that no block waits
+// for one of higher index.
+__device__ __forceinline__ int2 add_place(int kb, int tile, bool rotate) {
+  const bool wrapped = rotate && kb < tile;
+  const int pos = rotate && !wrapped ? kb - tile : kb;  // place in its run
+  return make_int2(2 * wrapped + (pos & 1), pos >> 1);
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Spin until *p == v. A wait far beyond any kernel's run (seconds) traps, so
+// a broken order fails the launch instead of hanging the card.
+__device__ __forceinline__ void wait_turn(const int* p, int v) {
+  for (long long n = 0; ld_acquire(p) != v; ++n) {
+    if (n > (1ll << 26)) __trap();
+    __nanosleep(32);
+  }
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The writer (one thread): the share of each step into its tile's sum once
+// the add before it in that sum is done, with one bulk copy (the first add)
+// or bulk reduce-add, then the turn passes on. sums: (BWD_CHAINS, B *
+// heads, nqt_all) tiles; sems: (BWD_CHAINS, B * heads, nqt_all) counters.
+__device__ __forceinline__ void dq_writer(BwdSmem<ATT_DH>& sm, float* sums, int* sems,
+                                          long long chain_tiles, int kb, int nqt,
+                                          bool rotate) {
+  for (int step = 0; step < nqt; ++step) {
+    const int slot = step % BWD_SLOTS, tile = step_tile(kb, step, nqt, rotate);
+    const int2 place = add_place(kb, tile, rotate);
+    const int chain = place.x, rank = place.y;
+    int* sem = sems + chain * chain_tiles + tile;
+    if (rank > 0) {  // wait for the turn first: the slot is held only while it is read
+      wait_turn(sem, rank);
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    }
+    mbar_wait(&sm.full[slot], (step / BWD_SLOTS) & 1);
+    float* dst = sums + (chain * chain_tiles + tile) * BWD_TILE;
+    const uint32_t src = smem_u32(sm.dq[slot]);
+    if (rank == 0)
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+                   "r"(src), "r"(BWD_TILE * 4)
+                   : "memory");
+    else
+      asm volatile(
+          "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+              dst),
+          "r"(src), "r"(BWD_TILE * 4)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    mbar_arrive(&sm.empty[slot]);  // the slot may be refilled
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    st_release(sem, rank + 1);
+  }
+}
+
+// The main pass, key block blockIdx.x. Per query tile: S = Q K^T and dP =
+// dO V^T (wgmma, both operands in shared memory); P = exp(S/8 - lse), the
+// keep bits, P~ and dS in registers; P~ and dS to shared memory; dV += P~^T
+// dO, dK += dS^T Q (wgmma, P~ and dS read MN-major) and the tile's dQ share
+// dS K (wgmma, dS from registers), which goes to shared memory for the
+// writer warp.
+template <bool DROP, int DH>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do, bool hf_q, bool hf_do,
+                     const Strided k, const Strided v, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ sums,
+                     int* __restrict__ sems, const Strided dk, const Strided dv, int nq, int nk,
+                     int valid_len, bool rotate, const Dropout dr) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const long long hrow = ((long long)b * gridDim.y + h) * nq;
-  const int qr0 = q0 + warp * 16;
-  const bool active = qr0 < nq;
-  const int qend = min(valid_len, nq), kend = min(valid_len, nk);
-  const int ntiles = q0 < qend ? (kend + FA_BK - 1) / FA_BK : 0;
+  const int bh = b * heads + h;
+  const long long hrow = (long long)bh * nq;
+  const int kend = min(valid_len, nk), qend = min(valid_len, nq);
+  const int nqt = ceil_div(qend, BWD_BQ), nqt_all = ceil_div(nq, BWD_BQ);
+  const int kb = blockIdx.x, k0 = kb * BWD_BK;
+  const int steps = k0 < kend ? nqt : 0;  // a block past kend holds no valid key
+  const int r0 = warp * 16 + g, r1 = r0 + 8;  // this thread's rows of a 64-row accumulator
 
-  load_tile(sQ, q, b, h, q0, ATT_BQ, nq, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[ATT_DH / 16][4], of[ATT_DH / 16][4];
-  if (active) load_frags(qf, sQ + warp * 16 * ATT_LD, lane);
-  __syncthreads();
-  load_tile(sQ, d_o, b, h, q0, ATT_BQ, nq, tid);
-  if (ntiles > 0) {
-    load_tile(sK[0], k, b, h, 0, FA_BK, nk, tid);
-    load_tile(sV[0], v, b, h, 0, FA_BK, nk, tid);
-  }
-  cp_async_commit();
-
-  // delta for the warp's 16 rows: lane pair (2i, 2i+1) sums row i's halves
-  const int drow = qr0 + (lane >> 1);
-  float dsum = 0.f;
-  if (drow < nq) {
-    const bf16* orow = o.row(b, h, drow) + (lane & 1) * 32;
-    const bf16* grow = d_o.row(b, h, drow) + (lane & 1) * 32;
-#pragma unroll 8
-    for (int d = 0; d < 32; ++d) dsum += __bfloat162float(grow[d]) * __bfloat162float(orow[d]);
-  }
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-  if (drow < nq && (lane & 1) == 0) delta[hrow + drow] = dsum;
-  const float dl_lo = __shfl_sync(0xffffffffu, dsum, 2 * g);
-  const float dl_hi = __shfl_sync(0xffffffffu, dsum, 2 * (g + 8));
-  const int r_lo = qr0 + g, r_hi = r_lo + 8;
-  const float l_lo = r_lo < qend ? lse[hrow + r_lo] * kLog2e : INFINITY;
-  const float l_hi = r_hi < qend ? lse[hrow + r_hi] * kLog2e : INFINITY;
-
-  float acc[ATT_DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  cp_async_wait<0>();
-  __syncthreads();
-  if (active) load_frags(of, sQ + warp * 16 * ATT_LD, lane);
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int st = tile & 1;
-    if (tile + 1 < ntiles) {
-      load_tile(sK[st ^ 1], k, b, h, (tile + 1) * FA_BK, FA_BK, nk, tid);
-      load_tile(sV[st ^ 1], v, b, h, (tile + 1) * FA_BK, FA_BK, nk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (tid == 0) {
+    for (int i = 0; i < BWD_SLOTS; ++i) {
+      mbar_init(&sm.full[i], 128);
+      mbar_init(&sm.empty[i], 1);
     }
-    __syncthreads();
-    if (active) {
+    for (int i = 0; i < BWD_STAGES; ++i) mbar_init(&sm.loaded[i], 1);
+  }
+  __syncthreads();
+  if (warp == 4) {  // the writer
+    const long long chain_tiles = (long long)gridDim.z * heads * nqt_all;
+    if (lane == 0 && steps > 0)
+      dq_writer(sm, sums + (long long)bh * nqt_all * BWD_TILE, sems + (long long)bh * nqt_all,
+                chain_tiles, kb, nqt, rotate);
+    return;
+  }
+
+  // Q and dO rows of step s (one thread issues)
+  auto load_step = [&](int s) {
+    const int st = s % BWD_STAGES, q0 = step_tile(kb, s, nqt, rotate) * BWD_BQ;
+    mbar_expect(&sm.loaded[st], 2 * BWD_BQ * DH * 2);
+    tma_tile(sm.q[st], tm_q, &sm.loaded[st], q0, h, b, hf_q);
+    tma_tile(sm.d_o[st], tm_do, &sm.loaded[st], q0, h, b, hf_do);
+  };
+  if (tid == 0 && steps > 0) load_step(0);  // each step then fetches the next one's
+
+  float s[32], dp[32], dva[32], dka[32];
 #pragma unroll
-      for (int half = 0; half < FA_BK / ATT_BK; ++half) {
-        const int kb = tile * FA_BK + half * ATT_BK;
-        float s[4][4], dp[4][4];
-        score_chunk(s, qf, sK[st], half * ATT_BK, lane);
-        score_chunk(dp, of, sV[st], half * ATT_BK, lane);  // dP = dO . V^T
-        if (kb + ATT_BK > kend) mask_keys(s, 4, kb, kend, t);
-        if constexpr (DROP) {  // dP = keep(dO . V^T) / (1 - rate)
-          const uint32_t bh = (uint32_t)(b * gridDim.y + h);
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = dva[i] = dka[i] = 0.f;
+  if (steps > 0) {
+    const int kvalid = min(BWD_BK, kend - k0);
+    load_key_tile(sm.k, k, b, h, k0, nk, tid);
+    load_key_tile(sm.v, v, b, h, k0, nk, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();
+    wg_sync();  // K and V are in shared memory
+
+    for (int step = 0; step < nqt; ++step) {
+      const int st = step % BWD_STAGES, q0 = step_tile(kb, step, nqt, rotate) * BWD_BQ;
+      // rows >= qend take lse = +inf, so P = 0
+      const float ml0 = q0 + r0 < qend ? lse[hrow + q0 + r0] * kLog2e : INFINITY;
+      const float ml1 = q0 + r1 < qend ? lse[hrow + q0 + r1] * kLog2e : INFINITY;
+      const float dl0 = q0 + r0 < qend ? delta[hrow + q0 + r0] : 0.f;
+      const float dl1 = q0 + r1 < qend ? delta[hrow + q0 + r1] : 0.f;
+      if (step > 0) wg_sync();  // every thread is past the last step, whose stage is refilled
+      if (tid == 0 && step + 1 < steps) load_step(step + 1);
+      mbar_wait(&sm.loaded[st], (step / BWD_STAGES) & 1);  // this step's tile landed
+
+      // S = Q K^T, dP = dO V^T
+      wg_fence();
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int col = kb + nt * 8 + 2 * t;
-            const uint2 lo = drop_pair(dr, bh, r_lo, col), hi = drop_pair(dr, bh, r_hi, col);
-            dp[nt][0] = lo.x >= dr.threshold ? dp[nt][0] * dr.inv_keep : 0.f;
-            dp[nt][1] = lo.y >= dr.threshold ? dp[nt][1] * dr.inv_keep : 0.f;
-            dp[nt][2] = hi.x >= dr.threshold ? dp[nt][2] * dr.inv_keep : 0.f;
-            dp[nt][3] = hi.y >= dr.threshold ? dp[nt][3] * dr.inv_keep : 0.f;
+      for (int ks = 0; ks < DH / 16; ++ks)
+        wgmma_ss<0, 0>(s, sw128_desc(sm.q[st] + ks * 16), sw128_desc(sm.k + ks * 16), ks);
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks)
+        wgmma_ss<0, 0>(dp, sw128_desc(sm.d_o[st] + ks * 16), sw128_desc(sm.v + ks * 16), ks);
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(s);
+      wg_hold(dp);
+
+      // P, keep bits, P~, dS
+      uint32_t dsf[4][4];  // dS as the A fragments of dQ, one per 16 key columns
+#pragma unroll
+      for (int G = 0; G < 4; ++G) {
+        // the thread's keys 16G + 4t + e of rows r0 (x[0][e]) and r1 (x[1][e])
+        float x[2][4], y[2][4];
+        const int i0 = 8 * G, i1 = 8 * G + 4;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          x[rr][0] = s[i0 + 2 * rr];
+          x[rr][1] = s[i0 + 2 * rr + 1];
+          x[rr][2] = s[i1 + 2 * rr];
+          x[rr][3] = s[i1 + 2 * rr + 1];
+          y[rr][0] = dp[i0 + 2 * rr];
+          y[rr][1] = dp[i0 + 2 * rr + 1];
+          y[rr][2] = dp[i1 + 2 * rr];
+          y[rr][3] = dp[i1 + 2 * rr + 1];
+        }
+        const int key = k0 + 16 * G + 4 * t;
+        if (kvalid < BWD_BK) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key + e >= kend) x[0][e] = x[1][e] = -INFINITY;
+        }
+        uint32_t keep[2] = {0xFu, 0xFu};
+        if constexpr (DROP) {  // one Philox4x32-10 gives the four keys' words
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const uint4 w = philox4x32((uint32_t)(q0 + (rr ? r1 : r0)), (uint32_t)key >> 2,
+                                       dr.seed, (uint32_t)bh);
+            keep[rr] = (w.x >= dr.threshold) | (w.y >= dr.threshold) << 1 |
+                       (w.z >= dr.threshold) << 2 | (w.w >= dr.threshold) << 3;
+          }
+        }
+        float pt[2][4], dsv[2][4];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float ml = rr ? ml1 : ml0, dl = rr ? dl1 : dl0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pr = exp2_approx(fmaf(x[rr][e], kScaleLog2, -ml));
+            if constexpr (DROP) {
+              const bool kept = (keep[rr] >> e) & 1;
+              pt[rr][e] = kept ? pr * dr.inv_keep : 0.f;
+              dsv[rr][e] = pr * ((kept ? y[rr][e] * dr.inv_keep : 0.f) - dl) * kScale;
+            } else {
+              pt[rr][e] = pr;
+              dsv[rr][e] = pr * (y[rr][e] - dl) * kScale;
+            }
           }
         }
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const float p0 = exp2_approx(fmaf(s[nt][0], kScaleLog2, -l_lo));
-          const float p1 = exp2_approx(fmaf(s[nt][1], kScaleLog2, -l_lo));
-          const float p2 = exp2_approx(fmaf(s[nt][2], kScaleLog2, -l_hi));
-          const float p3 = exp2_approx(fmaf(s[nt][3], kScaleLog2, -l_hi));
-          s[nt][0] = p0 * (dp[nt][0] - dl_lo) * kScale;  // dS
-          s[nt][1] = p1 * (dp[nt][1] - dl_lo) * kScale;
-          s[nt][2] = p2 * (dp[nt][2] - dl_hi) * kScale;
-          s[nt][3] = p3 * (dp[nt][3] - dl_hi) * kScale;
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {  // dQ += dS . K, 16 keys per k-step
-          uint32_t pf[4];
-          pack_p(pf, s, j);
-          mma_pv(acc, pf, sK[st], half * ATT_BK + j * 16, lane);
+        for (int rr = 0; rr < 2; ++rr) {
+          const int row = rr ? r1 : r0;
+          const uint32_t d01 = pack_bf16(dsv[rr][0], dsv[rr][1]);
+          const uint32_t d23 = pack_bf16(dsv[rr][2], dsv[rr][3]);
+          *reinterpret_cast<uint32_t*>(sm.p + sw128(row, 16 * G + 2 * t)) =
+              pack_bf16(pt[rr][0], pt[rr][1]);
+          *reinterpret_cast<uint32_t*>(sm.p + sw128(row, 16 * G + 8 + 2 * t)) =
+              pack_bf16(pt[rr][2], pt[rr][3]);
+          *reinterpret_cast<uint32_t*>(sm.ds + sw128(row, 16 * G + 2 * t)) = d01;
+          *reinterpret_cast<uint32_t*>(sm.ds + sw128(row, 16 * G + 8 + 2 * t)) = d23;
+          dsf[G][rr] = d01;
+          dsf[G][2 + rr] = d23;
         }
       }
-    }
-    __syncthreads();
-  }
-  if (!active) return;
+      fence_async_smem();
+      wg_sync();  // P~ and dS are in shared memory
+
+      // dV += P~^T dO, dK += dS^T Q over the valid queries; dQ share = dS K
+      const int qsteps = min(BWD_BQ, qend - q0 + 15) / 16, ksteps = (kvalid + 15) / 16;
+      wg_fence();
 #pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt) {
-    const int d = nt * 8 + 2 * t;
-    if (r_lo < nq)
-      *reinterpret_cast<__nv_bfloat162*>(dq.row(b, h, r_lo) + d) =
-          __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    if (r_hi < nq)
-      *reinterpret_cast<__nv_bfloat162*>(dq.row(b, h, r_hi) + d) =
-          __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+      for (int kq = 0; kq < BWD_BQ / 16; ++kq) {
+        if (kq < qsteps) {
+          wgmma_ss<1, 1>(dva, sw128_desc(sm.p + kq * 16 * BWD_BK),
+                         sw128_desc(sm.d_o[st] + kq * 16 * DH), 1);
+          wgmma_ss<1, 1>(dka, sw128_desc(sm.ds + kq * 16 * BWD_BK),
+                         sw128_desc(sm.q[st] + kq * 16 * DH), 1);
+        }
+      }
+#pragma unroll
+      for (int G = 0; G < 4; ++G)
+        if (G < ksteps)  // S is spent: it takes the dQ share
+          wgmma_rs<1>(s, dsf[G], sw128_desc(sm.k + G * 16 * DH), G);
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(dva);
+      wg_hold(dka);
+      wg_hold(s);
+
+      // the share to a free slot for the writer
+      const int slot = step % BWD_SLOTS;
+      if (step >= BWD_SLOTS) mbar_wait(&sm.empty[slot], (step / BWD_SLOTS - 1) & 1);
+#pragma unroll
+      for (int m = 0; m < DH / 8; ++m)
+        sm.dq[slot][m * 128 + tid] =
+            make_float4(s[4 * m], s[4 * m + 1], s[4 * m + 2], s[4 * m + 3]);
+      fence_async_smem();
+      mbar_arrive(&sm.full[slot]);
+    }
+  }
+
+  // dK, dV: accumulator row m is key k0 + kperm(m); keys >= kend are 0
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = k0 + kperm(rr ? r1 : r0);
+    if (key >= nk) continue;
+    bf16* dkr = dk.row(b, h, key);
+    bf16* dvr = dv.row(b, h, key);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int d = 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dkr + d) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * rr], dka[4 * j + 2 * rr + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvr + d) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * rr], dva[4 * j + 2 * rr + 1]);
+    }
   }
 }
 
-// dK/dV pass: S^T and dP^T for the warp's 16 keys x a chunk of 32 queries.
-// Queries >= qend get lse = +inf (P = 0); keys >= kend are masked in the
-// warps that hold any.
+__device__ __forceinline__ void add4(float4& a, const float4& x) {
+  a.x += x.x;
+  a.y += x.y;
+  a.z += x.z;
+  a.w += x.w;
+}
+
+// dq = bf16((sum 0 + sum 1) + (sum 2 + sum 3)) through dq's strides, each
+// sum only where its turn counter says it took an add: one thread per
+// float4 of a tile (rows r and r + 8, two columns); rows >= qend (never
+// summed) are 0.
+__global__ void __launch_bounds__(256)
+    flash_bwd_dq_kernel(const float* __restrict__ sums, const int* __restrict__ sems,
+                        const Strided dq, int heads, int nq, int qend, long long chunks) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= chunks) return;
+  const int nqt_all = ceil_div(nq, BWD_BQ);
+  const long long tile = c / (BWD_TILE / 4);
+  const int within = (int)(c % (BWD_TILE / 4)), i = within % 128;
+  const int bh = (int)(tile / nqt_all), q0 = (int)(tile % nqt_all) * BWD_BQ;
+  const int lane = i & 31, row = q0 + 16 * (i >> 5) + (lane >> 2);
+  const int col = 8 * (within / 128) + 2 * (lane & 3);
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), w = a;
+  if (row < qend) {
+    const long long tiles = chunks / (BWD_TILE / 4);
+    const float4* s4 = reinterpret_cast<const float4*>(sums);
+    if (sems[tile]) a = s4[c];
+    if (sems[tiles + tile]) add4(a, s4[c + chunks]);
+    if (sems[2 * tiles + tile]) {
+      w = s4[c + 2 * chunks];
+      if (sems[3 * tiles + tile]) add4(w, s4[c + 3 * chunks]);
+      add4(a, w);
+    }
+  }
+  const int b = bh / heads, h = bh % heads;
+  if (row < nq)
+    *reinterpret_cast<uint32_t*>(dq.row(b, h, row) + col) = pack_bf16(a.x, a.y);
+  if (row + 8 < nq)
+    *reinterpret_cast<uint32_t*>(dq.row(b, h, row + 8) + col) =
+        row + 8 < qend ? pack_bf16(a.z, a.w) : 0u;
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A TMA map of the (B, heads, n, 64) operand t, 64 x 64 boxes in the
+// 128-byte swizzle; the two middle dimensions in increasing stride (heads
+// first for the packed (B, n, heads * 64) layouts).
+cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
+                       bool heads_first) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[4] = {ATT_DH, (cuuint64_t)(heads_first ? heads : n),
+                              (cuuint64_t)(heads_first ? n : heads), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(heads_first ? t.sh : t.sr) * 2,
+                                 (cuuint64_t)(heads_first ? t.sr : t.sh) * 2,
+                                 (cuuint64_t)t.sb * 2};
+  const cuuint32_t box[4] = {ATT_DH, heads_first ? 1u : 64u, heads_first ? 64u : 1u, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, t.p, dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <bool DROP>
-__global__ void __launch_bounds__(ATT_THREADS)
-    flash_bwd_dkdv_kernel(const Strided q, const Strided k, const Strided v, const Strided d_o,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const Strided dk, const Strided dv, int nq, int nk, int valid_len,
-                          const Dropout dr) {
-  __shared__ __align__(16) bf16 sK[KV_BK * ATT_LD];
-  __shared__ __align__(16) bf16 sV[KV_BK * ATT_LD];
-  __shared__ __align__(16) bf16 sQc[2][KV_QC * ATT_LD];
-  __shared__ __align__(16) bf16 sdO[2][KV_QC * ATT_LD];
-  __shared__ float sL[2][KV_QC], sD[2][KV_QC];
-  const int k0 = blockIdx.x * KV_BK, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const long long hrow = ((long long)b * gridDim.y + h) * nq;
-  const int kend = min(valid_len, nk), qend = min(valid_len, nq);
-  const int nchunks = k0 < kend ? (qend + KV_QC - 1) / KV_QC : 0;
-
-  auto load_chunk = [&](int st, int qb) {
-    load_tile(sQc[st], q, b, h, qb, KV_QC, nq, tid);
-    load_tile(sdO[st], d_o, b, h, qb, KV_QC, nq, tid);
-    if (tid < KV_QC) {
-      const bool ok = qb + tid < qend;
-      sL[st][tid] = ok ? lse[hrow + qb + tid] * kLog2e : INFINITY;
-      sD[st][tid] = ok ? delta[hrow + qb + tid] : 0.f;
-    }
-  };
-
-  load_tile(sK, k, b, h, k0, KV_BK, nk, tid);
-  load_tile(sV, v, b, h, k0, KV_BK, nk, tid);
-  if (nchunks > 0) load_chunk(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t kf[ATT_DH / 16][4], vf[ATT_DH / 16][4];
-  load_frags(kf, sK + warp * 16 * ATT_LD, lane);
-  load_frags(vf, sV + warp * 16 * ATT_LD, lane);
-
-  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
-  const bool mask = k0 + warp * 16 + 16 > kend;  // this warp holds keys >= kend
-  float dva[ATT_DH / 8][4], dka[ATT_DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dva[nt][e] = dka[nt][e] = 0.f;
-
-  for (int c = 0; c < nchunks; ++c) {
-    const int st = c & 1;
-    if (c + 1 < nchunks) {
-      load_chunk(st ^ 1, (c + 1) * KV_QC);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];  // S^T and dP^T: 16 keys x 32 queries
-    score_chunk(s, kf, sQc[st], 0, lane);
-    score_chunk(dp, vf, sdO[st], 0, lane);
-    if (mask)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (key_lo >= kend) s[nt][0] = s[nt][1] = -INFINITY;
-        if (key_hi >= kend) s[nt][2] = s[nt][3] = -INFINITY;
-      }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nt * 8 + 2 * t + (e & 1);
-        const float pr = exp2_approx(fmaf(s[nt][e], kScaleLog2, -sL[st][ql]));
-        if constexpr (DROP) {  // P~ = keep(P) / (1 - rate) for dV; keep(dP) / (1 - rate)
-          const bool kept = drop_word(dr, (uint32_t)(b * gridDim.y + h), c * KV_QC + ql,
-                                      e < 2 ? key_lo : key_hi) >= dr.threshold;
-          s[nt][e] = kept ? pr * dr.inv_keep : 0.f;
-          dp[nt][e] = pr * ((kept ? dp[nt][e] * dr.inv_keep : 0.f) - sD[st][ql]) * kScale;
-        } else {
-          s[nt][e] = pr;
-          dp[nt][e] = pr * (dp[nt][e] - sD[st][ql]) * kScale;  // dS^T
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // 16 queries per k-step
-      uint32_t pf[4], sf[4];
-      pack_p(pf, s, j);
-      pack_p(sf, dp, j);
-      mma_pv(dva, pf, sdO[st], j * 16, lane);  // dV += P^T . dO
-      mma_pv(dka, sf, sQc[st], j * 16, lane);  // dK += dS^T . Q
-    }
-    __syncthreads();  // this stage is refilled two chunks on
+cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const Strided& k,
+                            const Strided& v, const Strided& d_o, const float* lse,
+                            const float* delta, float* sums, int* sems, const Strided& dk,
+                            const Strided& dv, int B, int heads, int nq, int nk, int valid_len,
+                            const Dropout& dr) {
+  constexpr int smem = sizeof(BwdSmem<ATT_DH>) + 1024;  // + alignment to 1024 bytes
+  // The shared-memory limit, set once per device (a launch's host work
+  // counts where the kernels are short).
+  static bool ready[16];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || !ready[dev]) {
+    e = cudaFuncSetAttribute(flash_bwd_kernel<DROP, ATT_DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) ready[dev] = true;
   }
-#pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt) {
-    const int d = nt * 8 + 2 * t;
-    if (key_lo < nk) {
-      *reinterpret_cast<__nv_bfloat162*>(dk.row(b, h, key_lo) + d) =
-          __floats2bfloat162_rn(dka[nt][0], dka[nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv.row(b, h, key_lo) + d) =
-          __floats2bfloat162_rn(dva[nt][0], dva[nt][1]);
-    }
-    if (key_hi < nk) {
-      *reinterpret_cast<__nv_bfloat162*>(dk.row(b, h, key_hi) + d) =
-          __floats2bfloat162_rn(dka[nt][2], dka[nt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv.row(b, h, key_hi) + d) =
-          __floats2bfloat162_rn(dva[nt][2], dva[nt][3]);
-    }
-  }
+  const int qt = ceil_div(std::min(valid_len, nq), BWD_BQ);
+  const int kt = ceil_div(std::min(valid_len, nk), BWD_BK);
+  const bool rotate = qt == kt;
+  const bool hf_q = q.sh < q.sr, hf_do = d_o.sh < d_o.sr;
+  CUtensorMap tm_q, tm_do;
+  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_do, d_o, B, heads, nq, hf_do)) != cudaSuccess) return e;
+  flash_bwd_kernel<DROP, ATT_DH><<<grid, BWD_THREADS, smem, st>>>(
+      tm_q, tm_do, hf_q, hf_do, k, v, lse, delta, sums, sems, dk, dv, nq, nk, valid_len, rotate,
+      dr);
+  return cudaGetLastError();
 }
-
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
@@ -534,24 +857,32 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
   return cudaGetLastError();
 }
 
+long long flash_bwd_workspace(int B, int heads, int nq) {
+  // the sums and a turn counter per sum and tile
+  return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) * (BWD_TILE + 1);
+}
+
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
-                      float* delta, Strided dq, Strided dk, Strided dv, int B, int heads, int nq,
-                      int nk, int valid_len, cudaStream_t st, Dropout dr) {
-  const dim3 grid_q(ceil_div(nq, ATT_BQ), heads, B), grid_k(ceil_div(nk, KV_BK), heads, B);
-  if (dr.on)
-    flash_bwd_dq_kernel<true><<<grid_q, ATT_THREADS, 0, st>>>(q, k, v, o, d_o, lse, delta, dq,
-                                                              nq, nk, valid_len, dr);
-  else
-    flash_bwd_dq_kernel<false><<<grid_q, ATT_THREADS, 0, st>>>(q, k, v, o, d_o, lse, delta, dq,
-                                                               nq, nk, valid_len, dr);
+                      float* delta, float* ws, Strided dq, Strided dk, Strided dv, int B,
+                      int heads, int nq, int nk, int valid_len, cudaStream_t st, Dropout dr) {
+  const long long rows = (long long)B * heads * nq;
+  const long long tiles = (long long)B * heads * ceil_div(nq, BWD_BQ);  // per chain
+  float* sums = ws;
+  int* sems = reinterpret_cast<int*>(ws + BWD_CHAINS * tiles * BWD_TILE);
+  const long long threads = std::max(rows * 8, BWD_CHAINS * tiles);
+  flash_bwd_delta_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      o, d_o, delta, sems, BWD_CHAINS * tiles, heads, nq, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (dr.on)
-    flash_bwd_dkdv_kernel<true><<<grid_k, ATT_THREADS, 0, st>>>(q, k, v, d_o, lse, delta, dk,
-                                                                dv, nq, nk, valid_len, dr);
-  else
-    flash_bwd_dkdv_kernel<false><<<grid_k, ATT_THREADS, 0, st>>>(q, k, v, d_o, lse, delta, dk,
-                                                                 dv, nq, nk, valid_len, dr);
+  const dim3 grid(ceil_div(nk, BWD_BK), heads, B);
+  e = dr.on ? launch_bwd_main<true>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv, B,
+                                    heads, nq, nk, valid_len, dr)
+            : launch_bwd_main<false>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv, B,
+                                     heads, nq, nk, valid_len, dr);
+  if (e != cudaSuccess) return e;
+  const long long chunks = tiles * (BWD_TILE / 4);
+  flash_bwd_dq_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
+      sums, sems, dq, heads, nq, std::min(valid_len, nq), chunks);
   return cudaGetLastError();
 }
 
@@ -590,13 +921,15 @@ int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q
 
 // flash_attention backward: the forward's operands, o and lse, the output
 // cotangent d_o (as o) -> dq (as q), dk, dv (as k); delta (B, heads, nq) fp32
-// scratch. Dropout as the forward's, which gave o.
+// scratch; ws svt_flash_attention_bwd_workspace(B, heads, nq) floats of
+// scratch (the fp32 dQ sums and their turn counters). Dropout as the
+// forward's, which gave o.
 int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
                             long long o_sb, long long o_sh, long long o_sr, void* d_o,
                             long long do_sb, long long do_sh, long long do_sr, void* lse,
-                            void* delta, void* dq, long long dq_sb, long long dq_sh,
+                            void* delta, void* ws, void* dq, long long dq_sb, long long dq_sh,
                             long long dq_sr, void* dk, long long dk_sb, long long dk_sh,
                             long long dk_sr, void* dv, long long dv_sb, long long dv_sh,
                             long long dv_sr, int B, int heads, int nq, int nk, int valid_len,
@@ -606,10 +939,16 @@ int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q
   return (int)flash_bwd({(bf16*)q, q_sb, q_sh, q_sr}, {(bf16*)k, k_sb, k_sh, k_sr},
                         {(bf16*)v, v_sb, v_sh, v_sr}, {(bf16*)o, o_sb, o_sh, o_sr},
                         {(bf16*)d_o, do_sb, do_sh, do_sr}, (const float*)lse, (float*)delta,
-                        {(bf16*)dq, dq_sb, dq_sh, dq_sr}, {(bf16*)dk, dk_sb, dk_sh, dk_sr},
-                        {(bf16*)dv, dv_sb, dv_sh, dv_sr}, B, heads, nq, nk, valid_len,
-                        static_cast<cudaStream_t>(stream),
+                        (float*)ws, {(bf16*)dq, dq_sb, dq_sh, dq_sr},
+                        {(bf16*)dk, dk_sb, dk_sh, dk_sr}, {(bf16*)dv, dv_sb, dv_sh, dv_sr}, B,
+                        heads, nq, nk, valid_len, static_cast<cudaStream_t>(stream),
                         make_dropout(seed, threshold, inv_keep, drop));
+}
+
+
+// Floats of scratch svt_flash_attention_bwd needs in `ws`.
+long long svt_flash_attention_bwd_workspace(int B, int heads, int nq) {
+  return flash_bwd_workspace(B, heads, nq);
 }
 
 }  // extern "C"

@@ -39,11 +39,17 @@ struct Dropout {
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
                       int nq, int nk, int valid_len, cudaStream_t st, Dropout dr = Dropout{});
 
-// The backward from the forward's O and lse: dQ and delta = rowsum(dO . O)
-// (B, heads, nq) fp32, then dK and dV. Two passes, no atomics. With
-// dropout, O must be the dropped output the forward returned.
+// The backward from the forward's O and lse -> dQ, dK, dV; delta =
+// rowsum(dO . O) (B, heads, nq) fp32 and ws (flash_bwd_workspace floats:
+// the fp32 dQ sums and their turn counters) are scratch. Sums in a fixed
+// order, so the outputs repeat bit for bit. With dropout, O must be the
+// dropped output the forward returned.
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
-                      float* delta, Strided dq, Strided dk, Strided dv, int B, int heads, int nq,
-                      int nk, int valid_len, cudaStream_t st, Dropout dr = Dropout{});
+                      float* delta, float* ws, Strided dq, Strided dk, Strided dv, int B,
+                      int heads, int nq, int nk, int valid_len, cudaStream_t st,
+                      Dropout dr = Dropout{});
+
+// Floats of scratch flash_bwd needs in ws for (B, heads, nq) query rows.
+long long flash_bwd_workspace(int B, int heads, int nq);
 
 }  // namespace svt

@@ -28,8 +28,9 @@
 //   dW_fc2 = g^T f            dgl = g W_fc2 -> df1 = dgl * GELU'(fpre)
 //   dW_fc1 = df1^T h2         dh2 = df1 W_fc1 -> LN2 backward (+ g) = dx1
 //   dW_out = dx1^T attn       da = dx1 W_out
-//   attention backward: dQ pass (and delta = rowsum(dO . O)), dK/dV pass
-//                       (flash_attention.cu's streamed kernels: any N)
+//   attention backward: delta = rowsum(dO . O), then one wgmma pass over key
+//                       blocks and the dq pass (flash_attention.cu: any N;
+//                       its dQ sums use ws)
 //   dW_qkv = dqkv^T h1        dh1 = dqkv W_qkv -> LN1 backward (+ dx1) = dx
 // Rounding points follow the TPU kernel: bf16 df1, dx1, da, P (for dV), dS,
 // dq/dk/dv and dx; fp32 weight/vector gradients, dh, the LN backward and
@@ -443,11 +444,11 @@ cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const flo
 // head h at columns h * 64: the streamed kernels of flash_attention.cu.
 cudaError_t attn_bwd(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V, int ldkv, int n,
                      const bf16* O, const bf16* dO, int ldo, const float* lse, float* delta,
-                     bf16* dQ, int lddq, bf16* dK, bf16* dV, int lddkv, int B, int heads,
-                     int valid_len, cudaStream_t st) {
+                     float* ws, bf16* dQ, int lddq, bf16* dK, bf16* dV, int lddkv, int B,
+                     int heads, int valid_len, cudaStream_t st) {
   return flash_bwd(packed(Q, nq, ldq), packed(K, n, ldkv), packed(V, n, ldkv), packed(O, nq, ldo),
-                   packed(dO, nq, ldo), lse, delta, packed(dQ, nq, lddq), packed(dK, n, lddkv),
-                   packed(dV, n, lddkv), B, heads, nq, n, valid_len, st);
+                   packed(dO, nq, ldo), lse, delta, ws, packed(dQ, nq, lddq),
+                   packed(dK, n, lddkv), packed(dV, n, lddkv), B, heads, nq, n, valid_len, st);
 }
 
 // The MLP branch of either block over its Mr rows (all B*N rows, or the CLS
@@ -474,7 +475,8 @@ int mlp_branch_bwd(const bf16* g, const bf16* w_fc1, const bf16* w_fc2, const fl
 extern "C" {
 
 // Floats of fp32 workspace (`ws`) the backward entries need: the largest set
-// of split-K or column partials any one of their steps holds.
+// of split-K or column partials any one of their steps holds, or the
+// attention backward's dQ sums.
 long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, int dim_head,
                                   int mlp) {
   const int M = B * N, Mt = B * rows, hd = heads * dim_head;
@@ -486,7 +488,7 @@ long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, in
     need = std::max(need, (long long)dw_splits(s[0], s[1], s[2]) * s[0] * s[1]);
   need = std::max(need, (long long)ceil_div(M, BBM) * mlp);
   need = std::max(need, (long long)ln_bwd_ctas(M) * 4 * dim);
-  return need;
+  return std::max(need, flash_bwd_workspace(B, heads, rows));  // the attention's dQ sums
 }
 
 // Backward of svt_fused_block_train_fwd. In: x (B, N, dim) and g = dL/dout
@@ -527,7 +529,7 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
   SVT_TRY(gemm_nn<BE_BF16>(dx1b_, dim, (const bf16*)w_out, M, hd, dim, nullptr, (bf16*)da, hd,
                            st));
   SVT_TRY(attn_bwd(qkv_, 3 * hd, N, qkv_ + hd, qkv_ + 2 * hd, 3 * hd, N, (const bf16*)attn,
-                   (const bf16*)da, hd, (const float*)lse, (float*)delta, dqkv_, 3 * hd,
+                   (const bf16*)da, hd, (const float*)lse, (float*)delta, part, dqkv_, 3 * hd,
                    dqkv_ + hd, dqkv_ + 2 * hd, 3 * hd, B, heads, valid_len, st));
   SVT_TRY(weight_grad(dqkv_, 3 * hd, (const bf16*)h1, dim, 1, 1, 3 * hd, dim, M, (float*)d_wqkv,
                       part, st));
@@ -581,7 +583,7 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
   SVT_TRY(gemm_nn<BE_BF16>(dx1b_, dim, (const bf16*)w_out, Mt, hd, dim, nullptr, (bf16*)da, hd,
                            st));
   SVT_TRY(attn_bwd((const bf16*)q, hd, rows, kv_, kv_ + hd, 2 * hd, N, (const bf16*)attn,
-                   (const bf16*)da, hd, (const float*)lse, (float*)delta, dq_, hd, dkv_,
+                   (const bf16*)da, hd, (const float*)lse, (float*)delta, part, dq_, hd, dkv_,
                    dkv_ + hd, 2 * hd, B, heads, valid_len, st));
   // dW_qkv rows [0, hd) from the top rows' dq, rows [hd, 3hd) from every row's dk/dv
   SVT_TRY(weight_grad(dq_, hd, (const bf16*)h1, dim, rows, N, hd, dim, Mt, (float*)d_wqkv, part,

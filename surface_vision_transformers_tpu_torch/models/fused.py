@@ -89,6 +89,20 @@ def resolve_quant(quant: str, dim: int, notice: bool = True) -> str | None:
     return quant
 
 
+def serves_fused(model) -> bool:
+    """Whether ``model`` serves through ``fused_forward``: bfloat16 only,
+    as the JAX trainer's ``_use_fused_inference`` routes; any other dtype
+    serves through the model's own forward."""
+    return model.dtype == torch.bfloat16
+
+
+def serving_quant(model, quant: str, notice: bool = True) -> str | None:
+    """``tpu.quant`` for serving ``model``: under the crossover rule
+    (``resolve_quant``) where it serves fused, else None (the model's own
+    forward takes no quant)."""
+    return resolve_quant(quant, model.dim, notice) if serves_fused(model) else None
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedWeights:
     """A SiT's parameters laid out for ``fused_forward`` on one device."""
@@ -341,14 +355,19 @@ def _device(device) -> torch.device:
 def predict(model: SiT, data, *, device, batch_size: int = 256,
             quant: str | None = None) -> np.ndarray:
     """Batched serving on ``device``: (S, ...) numpy input -> (S,
-    num_classes) numpy float32. Moves ``model`` to ``device``, prepares its
-    weights once (for ``quant``), and runs ``fused_forward`` over batches of ``batch_size``,
-    the ragged last one padded with zeros. Kernels run where ``device`` is
-    CUDA; a CPU device runs the plain versions. Asking for CUDA where there
-    is none raises."""
+    num_classes) numpy float32. Moves ``model`` to ``device`` and runs it
+    over batches of ``batch_size``, the ragged last one padded with zeros. A
+    bfloat16 model serves through ``fused_forward`` (weights prepared once,
+    for ``quant``); any other dtype through the model's own forward, where
+    ``quant`` has no effect: the JAX ``predict`` and trainer route by dtype
+    the same way. Kernels run where ``device`` is CUDA; a CPU device runs
+    the plain versions. Asking for CUDA where there is none raises."""
+    if quant not in QUANTS:
+        raise ValueError(f"unknown quant mode {quant!r}")
     dev = _device(device)
     model.to(dev)
-    w = prepare_weights(model, quant)
+    fused = serves_fused(model)
+    w = prepare_weights(model, quant) if fused else None
     n = data.shape[0]
     outs = []
     for s in range(0, n, batch_size):
@@ -357,7 +376,8 @@ def predict(model: SiT, data, *, device, batch_size: int = 256,
         if pad:
             chunk = np.concatenate(
                 [chunk, np.zeros((pad, *chunk.shape[1:]), np.float32)])
-        out = fused_forward(model, torch.from_numpy(chunk).to(dev), w,
-                            quant=quant)
+        x = torch.from_numpy(chunk).to(dev)
+        with torch.no_grad():
+            out = fused_forward(model, x, w, quant=quant) if fused else model(x)
         outs.append(out.cpu().numpy()[: batch_size - pad])
     return np.concatenate(outs, axis=0)

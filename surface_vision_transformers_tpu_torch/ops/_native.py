@@ -111,8 +111,10 @@ def library() -> ctypes.CDLL:
     D = [ctypes.c_uint, ctypes.c_uint, F, I]  # dropout: seed, threshold, 1/(1-rate), on
     lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 5 + D + [I, P]
     lib.svt_flash_attention_fwd.restype = I
-    lib.svt_flash_attention_bwd.argtypes = S * 5 + [P, P] + S * 3 + [I] * 5 + D + [I, P]
+    lib.svt_flash_attention_bwd.argtypes = S * 5 + [P, P, P] + S * 3 + [I] * 5 + D + [I, P]
     lib.svt_flash_attention_bwd.restype = I
+    lib.svt_flash_attention_bwd_workspace.argtypes = [I] * 3
+    lib.svt_flash_attention_bwd_workspace.restype = ctypes.c_longlong
     lib.svt_fused_block_int8.argtypes = [P] * 23 + [I] * 7 + [F, I, P]
     lib.svt_fused_block_int8.restype = I
     lib.svt_quant_rows.argtypes = [P, I, P, P, I, I, I, P]

@@ -13,11 +13,13 @@ after it; the backward forms P from the kept LSE.
 
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/flash_attention.cu``) streams K
 and V through shared memory in tiles with an online softmax, so it takes any
-sequence length; dh = 64, bfloat16. It reads its operands through (batch,
-head, row) strides, so views of packed activations need no copy, and writes
-its outputs as (B, H, N, dh) views of (B, N, H, dh) storage, where merging
-the heads back is free. What bounds it, and its times: the kernel source and
-PERF.md.
+sequence length; dh = 64, bfloat16. The backward streams the queries past
+each 64-key block once (wgmma) and sums dq in a fixed order in an fp32
+workspace the wrapper allocates, so its outputs repeat bit for bit. It reads
+its operands through (batch, head, row) strides, so views of packed
+activations need no copy, and writes its outputs as (B, H, N, dh) views of
+(B, N, H, dh) storage, where merging the heads back is free. What bounds it,
+and its times: the kernel source and PERF.md.
 
 ``flash_attention_qkv`` replaces ``flash_attention_qkv`` of the same TPU
 file (``_fwd_packed``, ``_bwd_packed``): the kernels read q, k and v as
@@ -254,10 +256,13 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
     nk = k.shape[2]
     if out is None:
         out = _heads_last_empty(q, nq), _heads_last_empty(k, nk), _heads_last_empty(k, nk)
+    lib = _native.library()
     delta = torch.empty_like(lse)
-    _native.check(_native.library().svt_flash_attention_bwd(
+    ws = torch.empty(lib.svt_flash_attention_bwd_workspace(B, H, nq), dtype=torch.float32,
+                     device=q.device)
+    _native.check(lib.svt_flash_attention_bwd(
         *_operand(q), *_operand(k), *_operand(v), *_operand(o), *_operand(do),
-        lse.data_ptr(), delta.data_ptr(), *(x for t in out for x in _operand(t)),
+        lse.data_ptr(), delta.data_ptr(), ws.data_ptr(), *(x for t in out for x in _operand(t)),
         B, H, nq, nk, vl, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
     return out
@@ -291,7 +296,7 @@ def flash_attention_fwd(q, k, v, valid_len: int | None = None):
 def flash_attention_bwd(q, k, v, o, lse, do, valid_len: int | None = None):
     """The backward from the forward's o and lse and the output cotangent
     do: -> (dq, dk, dv). CPU tensors run ``flash_attention_bwd_reference``;
-    CUDA tensors the kernel's two passes."""
+    CUDA tensors the kernel (a delta pre-pass, one main pass, a dq pass)."""
     return _bwd(q, k, v, o, lse, do, _vl(k, valid_len))
 
 

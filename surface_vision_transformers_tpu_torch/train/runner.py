@@ -14,16 +14,18 @@ params-npz format) and ``preds.csv`` (regression) or
 written at once, so a run that dies keeps its best. At the end
 ``final_params.npz`` (and ``encoder_final_params.npz``),
 ``hparams_results.yml`` (the config plus results and ``phases_s``) and,
-under ``training.testing``, the test metric from the best weights
-(regression also ``test_preds.csv``). Not ported (they raise): resume and
-full-state checkpoints (``training.ckpt_every``), ImageNet initialisation,
-streaming input, meshes, augmentation.
+under ``training.testing``, the test metric (regression also
+``test_preds.csv``) from the best weights when ``training.save_ckpt`` keeps
+them, else from the final ones, as the JAX package tests. Not ported (they
+raise): resume and full-state checkpoints (``training.ckpt_every``),
+ImageNet initialisation, streaming input, meshes, augmentation.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
-through ``predict`` (``tpu.quant`` under the crossover rule,
-``resolve_quant``), reports the MAE and writes ``results.csv`` of (pred,
-target) rows in split order; MPP reports the loss under the evaluation's
-fixed corruption and writes nothing.
+through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
+crossover rule, ``serving_quant``; float32: the modular model), reports the
+MAE and writes ``results.csv`` of (pred, target) rows in split order; MPP
+reports the loss under the evaluation's fixed corruption and writes
+nothing.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from surface_vision_transformers_tpu_torch.checkpoints.convert import (
 )
 from surface_vision_transformers_tpu_torch.data import npy as npy_io
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table
-from surface_vision_transformers_tpu_torch.models.fused import _device, predict, resolve_quant
+from surface_vision_transformers_tpu_torch.models.fused import _device, predict, serving_quant
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.obs.logging import (
@@ -152,7 +154,7 @@ def run_testing(exp: Experiment, *, device) -> dict:
                 "loss": evaluate_mpp(model, tokens, bs)}
 
     preds = predict(model, data, device=device, batch_size=bs,
-                    quant=resolve_quant(exp.quant, exp.model.dim)).reshape(-1)
+                    quant=serving_quant(model, exp.quant)).reshape(-1)
 
     out_dir = Path(exp.ckpt_path)
     if out_dir.is_file() or out_dir.suffix in (".npz", ".pt", ".pth"):
@@ -287,8 +289,8 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
             if score < best:
                 best, best_epoch = score, epoch
                 t_ck = time.time()
-                best_state = copy.deepcopy(trainer.eval_model().state_dict())
                 if exp.training.save_ckpt:
+                    best_state = copy.deepcopy(trainer.eval_model().state_dict())
                     _save_npz(run_dir / "best_params.npz", trainer.eval_model(), depth)
                 if not is_mpp:
                     write_preds_csv(run_dir / "preds.csv", preds, val_labels)
@@ -305,7 +307,9 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
 
         if exp.training.testing and "test" in datasets:
             t_test = time.time()
-            if best_state is not None:  # the best weights, as the reference tests
+            # the best weights where they were saved, else the final ones (JAX:
+            # save_ckpt and best_epoch >= 0)
+            if best_state is not None:
                 trainer.eval_model().load_state_dict(best_state)
             test_data, test_labels = datasets["test"]
             tm, preds = trainer.evaluate(put(test_data), put(test_labels))

@@ -49,7 +49,8 @@ from surface_vision_transformers_tpu_torch.models.fused import (
     fused_mpp_loss,
     fused_train_forward,
     prepare_weights,
-    resolve_quant,
+    serves_fused,
+    serving_quant,
 )
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
@@ -140,11 +141,11 @@ class Trainer:
         return (self.exp.fused_train and self.encoder.dtype == torch.bfloat16
                 and self.rng is None)
 
-    def serving_quant(self) -> str | None:
-        """``tpu.quant`` for fused evaluation under the crossover rule; the
-        notice of a fallback to bf16 is printed once per trainer."""
+    def serving_quant(self, model) -> str | None:
+        """``tpu.quant`` for evaluating ``model`` (``fused.serving_quant``);
+        the notice of a fallback to bf16 is printed once per trainer."""
         notice, self._quant_noticed = not self._quant_noticed, True
-        return resolve_quant(self.exp.quant, self.encoder.dim, notice)
+        return serving_quant(model, self.exp.quant, notice)
 
     def eval_model(self) -> SiT | MPP:
         """The weights evaluation uses: the EMA shadow when enabled."""
@@ -245,10 +246,8 @@ class Trainer:
         n = data.shape[0]
         bs = min(bs_val, n)
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
-        quant = weights = None
-        if model.dtype == torch.bfloat16:
-            quant = self.serving_quant()
-            weights = prepare_weights(model, quant)
+        quant = self.serving_quant(model)
+        weights = prepare_weights(model, quant) if serves_fused(model) else None
         preds, sq_sum, err_sum = [], 0.0, 0.0
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)

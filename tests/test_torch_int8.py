@@ -253,12 +253,14 @@ def _split(d: Path, n: int, seed: int):
 
 
 def _testing_cfg(data_dir, ckpt, quant_mode):
+    """A bfloat16 serving config: ``tpu.quant`` reaches only the fused
+    route, which serves bfloat16 (float32 serves the modular model)."""
     return {"resolution": {"ico": 6, "sub_ico": 2},
             "transformer": {"dim": 32, "depth": 2, "heads": 2, "mlp_dim": 64, "dim_head": 16},
             "training": {"bs": 4, "bs_val": 2},
             "data": {"data_path": str(data_dir), "split": "validation"},
             "testing": {"path_to_ckpt": str(ckpt)},
-            "tpu": {"compute_dtype": "float32", "quant": quant_mode}}
+            "tpu": {"compute_dtype": "bfloat16", "quant": quant_mode}}
 
 
 @pytest.fixture

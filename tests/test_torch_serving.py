@@ -143,6 +143,73 @@ def test_run_testing_matches_jax(jax_params, tmp_path):
                                atol=1e-4, rtol=0)
 
 
+def _counting(monkeypatch):
+    """Count the serving routes: ``fused_forward`` and the modular
+    ``SiT.forward``."""
+    calls = {"fused": 0, "modular": 0}
+    real_fused, real_forward = tfused.fused_forward, SiT.forward
+
+    def fused(*a, **kw):
+        calls["fused"] += 1
+        return real_fused(*a, **kw)
+
+    def forward(self, x):
+        calls["modular"] += 1
+        return real_forward(self, x)
+
+    monkeypatch.setattr(tfused, "fused_forward", fused)
+    monkeypatch.setattr(SiT, "forward", forward)
+    return calls
+
+
+def test_run_testing_float32_serves_the_modular_model_as_jax(jax_params, tmp_path,
+                                                              monkeypatch):
+    """float32 ``run_testing`` takes ``Trainer.evaluate``'s route, the
+    modular SiT forward, as the JAX trainer's ``_use_fused_inference``
+    (bfloat16 only) does: ``fused_block`` takes bfloat16 alone on CUDA. Its
+    MAE and results.csv are the JAX ``run_testing``'s on the same params npz
+    and split; bfloat16 still serves through ``fused_forward``."""
+    _split(tmp_path / "data", 5, 6)
+    for side in ("jax", "torch"):
+        (tmp_path / side).mkdir()
+        orbax_io.save_params_npz(tmp_path / side / "best_params.npz", jax_params)
+    want = jax_runner.run_testing(jax_from_dict(
+        _raw_cfg(tmp_path / "data", tmp_path / "jax" / "best_params.npz")))
+    calls = _counting(monkeypatch)
+    cfg = _raw_cfg(tmp_path / "data", tmp_path / "torch" / "best_params.npz")
+    got = trunner.run_testing(from_dict(cfg), device="cpu")
+    assert calls == {"fused": 0, "modular": 3}  # 5 surfaces at bs_val 2
+    assert abs(got["mae"] - want["mae"]) < 1e-4
+    rows_t = _csv(tmp_path / "torch" / "results.csv")
+    rows_j = _csv(tmp_path / "jax" / "results.csv")
+    assert [t for _, t in rows_t] == [t for _, t in rows_j]
+    np.testing.assert_allclose([p for p, _ in rows_t], [p for p, _ in rows_j],
+                               atol=1e-4, rtol=0)
+    cfg["tpu"]["compute_dtype"] = "bfloat16"
+    calls.update(fused=0, modular=0)
+    trunner.run_testing(from_dict(cfg), device="cpu")
+    assert calls == {"fused": 3, "modular": 0}
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "modular"),
+                                         (torch.bfloat16, "fused")])
+def test_predict_routes_by_dtype(jax_params, table_sub2, monkeypatch, dtype, route):
+    """``predict`` serves bfloat16 through ``fused_forward`` and any other
+    dtype through the model's own forward (the JAX ``predict``'s rule), the
+    same numbers either way in float32."""
+    model = SiT(dtype=dtype, patch_table=table_sub2.indices, num_patches=320,
+                num_vertices=153, **TRANSFORMER)
+    model.load_state_dict(state_dict_from_jax(jax_params, 2), strict=True)
+    x = _raw(3, 9)
+    calls = _counting(monkeypatch)
+    got = tfused.predict(model, x, device="cpu", batch_size=2)
+    assert got.shape == (3, 1) and np.isfinite(got).all()
+    assert calls[route] == 2 and sum(calls.values()) == 2
+    if dtype == torch.float32:
+        np.testing.assert_allclose(
+            got, tfused.fused_forward(model, torch.from_numpy(x)).numpy(), atol=1e-5, rtol=0)
+
+
 def test_run_testing_refuses_what_it_cannot_serve(tmp_path):
     _split(tmp_path / "data", 2, 4)
     cfg = _raw_cfg(tmp_path / "data", "")

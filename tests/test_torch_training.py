@@ -317,6 +317,35 @@ def test_jax_run_testing_reads_the_ports_checkpoint(trained):
     assert abs(tres["mae"] - got["best_mae"]) < 1e-4
 
 
+def test_run_training_without_checkpoints_tests_the_final_state(tmp_path):
+    """Under ``training.save_ckpt: false`` the end-of-run test scores the
+    final weights, as the JAX ``run_training`` does (it restores the best
+    only when ``save_ckpt`` and ``best_epoch >= 0``). Validation every
+    epoch; the learning rate is raised so that the best epoch (1) is not the
+    last (3), where the final and the best weights score far apart."""
+    m = JaxSiT(dtype=jnp.float32, num_patches=320, num_vertices=153, **TRANSFORMER)
+    init = jax.tree.map(np.asarray, m.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 320, 153))))
+    orbax_io.save_params_npz(tmp_path / "init.npz", init)
+    d, lab = make_regression_dataset(18, seed=3)
+    ds = {"train": (d[:8], lab[:8]), "validation": (d[8:14], lab[8:14]),
+          "test": (d[14:], lab[14:])}
+
+    def cfg(root):
+        c = _train_cfg(root, tmp_path / "init.npz")
+        c["training"].update(val_epoch=1, LR=6e-3, save_ckpt=False, testing=True)
+        return c
+
+    want = jax_runner.run_training(jax_config.from_dict(cfg(tmp_path / "jax")), datasets=ds,
+                                   progress=False)
+    got = runner.run_training(config.from_dict(cfg(tmp_path / "torch")), datasets=ds,
+                              device="cpu", progress=False)
+    assert got["best_epoch"] == want["best_epoch"] == 1 < got["epochs"] - 1
+    assert not (Path(got["run_dir"]) / "best_params.npz").exists()
+    assert abs(got["test_mae"] - want["test_mae"]) < 1e-4
+    np.testing.assert_allclose(_csv(Path(got["run_dir"]) / "test_preds.csv"),
+                               _csv(Path(want["run_dir"]) / "test_preds.csv"), atol=1e-4)
+
+
 def test_run_training_refuses_unported_modes(tmp_path):
     base = _train_cfg(tmp_path, tmp_path / "none.npz")
     for key, val, match in [("training.ckpt_every", 2, "ckpt_every"),
