@@ -58,8 +58,12 @@ table) at full depth and width:
               N=1288 with valid_len 1281, and 8 queries against 1281 keys;
               then at the training path's B=128, N=1281 with q/k/v read
               through the packed qkv's strides; controls (softmax scale
-              x1.1, key mask ignored, the last K/V tile skipped); CUDA-event
-              times at B=128 beside the plain version and SDPA.
+              x1.1, key mask ignored, the last K/V tile skipped); the forward
+              alone at the edges of its tiling (one row short of and past a
+              query tile, valid_len inside and on the edge of a key tile,
+              the packed strides), a control beside each; CUDA-event times
+              at B=128 beside the plain version and SDPA, and the forward at
+              SiT-base's serving batch (B=64) beside SDPA.
 10. base-kernels -- fused_block, fused_block_cls, fused_block_cls_bwd and the
               recompute route's 12 gradients at SiT-base width, N=1281 and
               the config's bs 128, against the float32 and bf16 plain
@@ -88,7 +92,9 @@ above, N = 321, bs 32, bs_val 32) and supervised training with dropout:
               float32 and bf16 plain versions at B = 32 and 256, N = 321, and
               N = 384 with valid_len 321; controls (last K/V tile skipped,
               softmax scale x1.1, key mask ignored); times beside the plain
-              versions and SDPA on the same views.
+              versions and SDPA on the same views; the host time of the
+              forward's C entry (its three TMA maps encoded, the launch
+              enqueued).
 15. dropout-kernels -- ``flash_attention_qkv_dropout`` (rate 0.1) forward and
               backward against the plain versions fed ``dropout_keep_mask`` of
               the same seed, at B = 256, N = 321 and B = 32, N = 384 / 321;
@@ -106,7 +112,8 @@ above, N = 321, bs 32, bs_val 32) and supervised training with dropout:
               per step; a frozen-decoder run; the validation loss through
               ``flash_attention_qkv`` against the plain path with a control;
               training surfaces/s at bs 32 and 256, evaluation at B = 32 and
-              256.
+              256; the modular gate's loss gap at four more data seeds
+              (printed, not gated).
 18. dropout-train -- ten steps of SiT-tiny with dropout 0.1 at B = 256 on the
               dropout kernel against plain attention on identical masks and
               dropout streams, with a control; launches; the rate beside
@@ -159,8 +166,12 @@ to its run on the idle card, before that kernel ends.
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
 
-Each phase prints its seconds. Then a JSON line of per-kernel results, and
-last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Each phase prints its seconds. Then two records lines: the attention
+backward and forward rows beside their recorded times under the mma.sync
+kernels they replaced (a record, not measured in the run), the forward
+rows with their ratio to SDPA in this run and their share of the bound.
+Then a JSON line of per-kernel results, and last ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -175,6 +186,7 @@ import importlib
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -249,6 +261,30 @@ BASE_CFG = ROOT / "configs/training/sit_base_subico3.yml"
 FLASH_MAIN = (128, 12, 1281, 1281, 1281)
 FLASH_CASES = [(16, 12, 1281, 1281, 1281), (16, 12, 1288, 1288, 1281),
                (16, 12, 8, 1281, 1281), FLASH_MAIN]
+# The forward at the edges of its tiling (csrc/flash_attention.cu's rule:
+# query tiles of 192 rows past 512 keys where that grid fills the card
+# twice, else 64; key tiles of 128 past 512 keys, else 64), forward only,
+# (B, H, Nq, Nk, valid_len, packed): one row short of and one past a
+# 192-row tile, valid_len inside a 128-key tile and on its edge with Nk >
+# valid_len; the same at 64-row and 64-key tiles; the packed qkv strides at
+# both. Inputs from a generator of their own, so that the phases after
+# phase 9 draw the data their gates were set on.
+FWD_EDGES = [(32, 12, 191, 600, 577, False), (16, 12, 193, 648, 640, False),
+             (32, 12, 63, 330, 321, False), (32, 12, 65, 328, 320, False),
+             (16, 12, 640, 640, 577, True), (64, 3, 127, 127, 127, True)]
+FWD_SERVE_B = 64  # SiT-base bs_val: the forward timed beside SDPA there too
+# The forward rows' times under the mma.sync forward this design replaced,
+# each read by the timer its row uses here (PERF.md section 6, NVIDIA H100
+# 80GB HBM3 at 700 W): flash_attention at B=128 by this script's CUDA
+# events on the mma.sync tree; the others by scripts/flash_fwd_compare.py
+# (device_ms, the mma.sync tree's kernel built beside this one's). A record
+# printed beside this run's, not a measurement of this run.
+MMA_SYNC_FWD_MS = {"flash_attention": 3.1813, "flash_attention B=64": 1.4657,
+                   "flash_attention_qkv": 0.0298, "flash_attention_qkv B=256": 0.1420,
+                   "flash_attention_qkv_dropout": 0.3157, "flash_attention_tiled": 0.1898}
+# Forward rows of this run for the records line: name -> (ms, SDPA ms,
+# bound ms), filled by phases 9 and 14-16.
+FWD_RECORDS: dict = {}
 # Gates set as phases 4 and 7 set theirs, from readings on an H100: the
 # prediction gap read 0.0082-0.0097 (std across surfaces 0.14-0.16), the
 # controls 0.079 and more; the largest per-step loss gap 1.9e-4 and the
@@ -309,23 +345,39 @@ def cuda_ms(fn, reps: int = 25) -> float:
 
 
 def device_ms(fn, reps: int = 10) -> float:
-    """Device time of one call of ``fn`` in ms: its CUDA kernels' time under
-    torch.profiler, summed over ``reps`` calls (after two warm-up calls) and
-    divided by ``reps``. Unlike a CUDA-event window it leaves out the gaps
-    where the device waits for the host's next launch."""
-    from torch.autograd import DeviceType
+    """Device time of one call of ``fn`` in ms: CUDA events around ``reps``
+    calls queued on the stream behind a kernel that holds it (``HOLD_SRC``,
+    one CTA) until they are all enqueued, so the device runs them back to
+    back and never waits for the host's next launch; after two warm-up
+    calls. Not torch.profiler's sum of kernel times: late in this script's
+    run that read short kernels up to five times below their device time,
+    some below their bound."""
+    import ctypes
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    hold_ns = int((2 * enqueue_s + 0.005) * 1e9)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    err = hold_lib().hold_sms(1, 0, hold_ns,
+                              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"device_ms: the holding kernel did not launch (CUDA error {err})")
+    if queued_s * 1e9 >= hold_ns:
+        raise AssertionError("device_ms: the calls were not all queued before the hold ended")
+    return a.elapsed_time(b) / reps
 
 
 def jax_shaped_params(rng, num_vertices: int, num_channels: int = 4,
@@ -859,11 +911,11 @@ def ptxas_report(log_path: Path) -> str:
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
-                                     "flash_bwd_kernel", "ln_bwd", "gemm_bwd", "int8_gemm",
-                                     "gemm_kernel", "layer_norm", "reduce", "ln_quant",
-                                     "quant_rows", "patch_embed")
-                         if k in mangled), mangled[:40])
+            fwd = re.search(r"flash_fwd_kernelILi(\d)ELi(\d+)ELb(\d)E", mangled)
+            name = f"flash_fwd<{','.join(fwd.groups())}>" if fwd else next((k for k in (
+                "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_kernel", "ln_bwd", "gemm_bwd",
+                "int8_gemm", "gemm_kernel", "layer_norm", "reduce", "ln_quant", "quant_rows",
+                "patch_embed") if k in mangled), mangled[:40])
         elif name and "registers" in line:
             regs[name] = max(regs.get(name, 0), int(line.split("Used ")[1].split()[0]))
         elif name and "spill" in line and " 0 bytes spill stores" not in line:
@@ -987,6 +1039,7 @@ def phase_flash(rng) -> dict:
         torch.cuda.empty_cache()
 
     busy_card(fa)
+    fwd_edges(fa)
 
     # times at the training path's shape, on the main case's tensors
     B, H, N = FLASH_MAIN[:3]
@@ -1006,6 +1059,18 @@ def phase_flash(rng) -> dict:
                    sdpa_out, (qr, kr, vr), do, retain_graph=True))}
     bounds = dict(zip(("fwd", "bwd"), attention_bound(B, H, N, N, (q, k, v, o, lse),
                                                       (q, k, v, o, lse, do, q, k, v))))
+    FWD_RECORDS["flash_attention"] = (ms["fwd"], library["fwd"], bounds["fwd"][0])
+    # the forward at the serving batch (SiT-base bs_val), on the first samples
+    qs, ks, vs = (x[:FWD_SERVE_B] for x in (q, k, v))
+    serve = (device_ms(lambda: fa.flash_attention_fwd(qs, ks, vs)),
+             device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+             attention_bound(FWD_SERVE_B, H, N, N, (qs, ks, vs, o[:FWD_SERVE_B],
+                                                     lse[:FWD_SERVE_B]), ())[0][0])
+    FWD_RECORDS[f"flash_attention B={FWD_SERVE_B}"] = serve
+    phase("flash-kernels", f"flash_attention forward at B={FWD_SERVE_B} H={H} N={N} (SiT-base "
+          f"serving; device time, mean of 10 queued calls): kernel {serve[0]:.4f} ms, "
+          f"SDPA {serve[1]:.4f} ms ({serve[0] / serve[1]:.3f}x), bound {serve[2]:.4f} ms "
+          f"({serve[2] / serve[0]:.1%} of it)")
     results = {}
     for key, name, line in (("fwd", "flash_attention", 265), ("bwd", "flash_attention_bwd", 233)):
         b_ms, b_by = bounds[key]
@@ -1017,6 +1082,59 @@ def phase_flash(rng) -> dict:
                          "ms": ms[key], "plain_ms": plain[key], "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": library[key]}
     return results
+
+
+def fwd_gate(fa, q, k, v, vl) -> tuple[float, float, dict]:
+    """The forward against the float32 and bf16 plain forwards on the same
+    inputs (16 samples at a time): (worst |err| over BOUND_STEPS bf16 steps
+    at the largest |fp32 output| against either, max abs err, controls
+    that must exceed 1: the key mask ignored where Nk > valid_len, else the
+    softmax scale x1.1)."""
+    o, _ = fa.flash_attention_fwd(q, k, v, vl)
+
+    def plain(dtype, vl_=vl, scale=1.0):
+        return torch.cat([fa.flash_attention_reference(
+            (q[s:s + 16].to(dtype) if dtype else q[s:s + 16]) * scale,
+            *(x[s:s + 16].to(dtype) if dtype else x[s:s + 16] for x in (k, v)), vl_)[0]
+            for s in range(0, q.shape[0], 16)])
+
+    ref32 = plain(torch.float32)
+    bound = BOUND_STEPS * bf16_step(ref32.abs().max().item())
+    err32 = (o.float() - ref32).abs().max().item()
+    ratio = max(err32, (o.float() - plain(None).float()).abs().max().item()) / bound
+    nk = k.shape[2]
+    ctrl = (plain(torch.float32, nk) if nk > vl else plain(torch.float32, scale=1.1))
+    label = f"key mask ignored (keys {vl}..{nk - 1})" if nk > vl else "softmax scale x1.1"
+    controls = {label: (o.float() - ctrl).abs().max().item() / bound}
+    if not bool(torch.isfinite(o).all()):
+        ratio = math.inf
+    return ratio, err32, controls
+
+
+def fwd_edges(fa) -> None:
+    """The forward at the edges of its tiling (FWD_EDGES), each held to the
+    two-step gate against the fp32 and bf16 plain forwards with a control
+    that must fail it."""
+    rng = np.random.default_rng(SEED + 2)
+    for B, H, nq, nk, vl, packed in FWD_EDGES:
+        if packed:  # (B, H, N, dh) views of a packed (B, N, 3*H*dh) qkv, N = Nq = Nk
+            qkv = torch.cat([bf16_randn(rng, (B, nq, 2, H, DH), 1.5),
+                             bf16_randn(rng, (B, nq, 1, H, DH))], 2)
+            q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        else:
+            q, k, v = (bf16_randn(rng, (B, H, nq, DH), 1.5), bf16_randn(rng, (B, H, nk, DH), 1.5),
+                       bf16_randn(rng, (B, H, nk, DH)))
+        ratio, err, controls = fwd_gate(fa, q, k, v, vl)
+        phase("flash-kernels", f"forward edge B={B} H={H} Nq={nq} Nk={k.shape[2]} valid_len={vl}"
+              f"{' (packed qkv strides)' if packed else ''}: worst |err|/bound vs fp32 and bf16 "
+              f"plain {ratio:.4g} (bound {BOUND_STEPS} bf16 steps), max abs err {err:.6g}; "
+              "control (must exceed 1): " + ", ".join(f"{k_} {v_:.4g}"
+                                                     for k_, v_ in controls.items()))
+        if ratio > 1:
+            raise AssertionError("flash_attention's forward disagrees with its plain version at "
+                                 "a tiling edge")
+        if min(controls.values()) <= 1:
+            raise AssertionError("flash_attention's forward: an edge control passed the gate")
 
 
 # A kernel that holds its multiprocessor for a while: one CTA per SM (its
@@ -1044,6 +1162,24 @@ BUSY_SHAPE = (1, 12, 1281)  # (B, H, N): SiT-base attention, 12 (sample, head)s 
 HOLD_SMEM = 200 * 1024  # with a backward CTA's ~99 KB, over an SM's 228 KB
 
 
+@functools.cache
+def hold_lib():
+    """HOLD_SRC built with nvcc into a shared library and loaded, once."""
+    import ctypes
+
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib_path = Path(tmp) / "hold.cu", Path(tmp) / "libhold.so"
+        src.write_text(HOLD_SRC)
+        subprocess.run([_native._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)], check=True,
+                       capture_output=True, timeout=300)
+        lib = ctypes.CDLL(str(lib_path))
+    lib.hold_sms.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    return lib
+
+
 def busy_card(fa) -> None:
     """The attention backward while a kernel on another stream holds every
     multiprocessor but one: its key blocks wait only for blocks of lower
@@ -1053,8 +1189,6 @@ def busy_card(fa) -> None:
     own, so the phases after it draw the data their gates were set on."""
     import ctypes
 
-    from surface_vision_transformers_tpu_torch.ops import _native
-
     B, H, N = BUSY_SHAPE
     rng = np.random.default_rng(SEED + 1)
     q, k, v = bf16_randn(rng, (B, H, N, DH), 1.5), bf16_randn(rng, (B, H, N, DH), 1.5), \
@@ -1063,14 +1197,7 @@ def busy_card(fa) -> None:
     o, lse = fa.flash_attention_fwd(q, k, v)
     idle = fa.flash_attention_bwd(q, k, v, o, lse, do)
     idle_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
-    with tempfile.TemporaryDirectory() as tmp:
-        src, lib_path = Path(tmp) / "hold.cu", Path(tmp) / "libhold.so"
-        src.write_text(HOLD_SRC)
-        subprocess.run([_native._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                        "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)], check=True,
-                       capture_output=True, timeout=300)
-        lib = ctypes.CDLL(str(lib_path))
-    lib.hold_sms.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib = hold_lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     side = torch.cuda.Stream()
     stream = ctypes.c_void_p(side.cuda_stream)
@@ -1507,9 +1634,10 @@ TRAIN_CFG = ROOT / "configs/training/sit_tiny_scan_age.yml"
 QKV_CASES = [(32, 321, 321), (256, 321, 321), (32, 384, 321)]
 DROP_RATE, DROP_SEED = 0.1, 1234
 # Phases 14-16 time the attention kernels (and SDPA) by their device time
-# under torch.profiler (``device_ms``): at N=321 a CUDA-event window around
-# a call, or around ten back-to-back calls, measured the wrapper's host work
-# rather than the kernel. Phase 14 prints the wrappers' per-call time beside.
+# (``device_ms``: calls queued behind a holding kernel): at N=321 a
+# CUDA-event window around a call, or around ten back-to-back calls,
+# measured the wrapper's host work rather than the kernel. Phase 14 prints
+# the wrappers' per-call time beside.
 DROP_CASES = [(256, 321, 321), (32, 384, 321)]
 # The keep fraction read off the dropout forward's own output (q = 0, v = 1:
 # each row's output is its kept share / (1 - rate)) may differ from the
@@ -1528,6 +1656,8 @@ MPP_STEPS = 10
 # validation loss read 4.9e-5 and 6.3e-5 from the plain path, a control
 # masking keys >= 289 only 1.0e-3.
 MPP_LOSS_TOL, MPP_UPD_TOL, MPP_VAL_TOL = 5e-3, 0.05, 5e-4
+# Four more data seeds for the modular gate's margin (its own data: SEED + 5).
+MPP_MARGIN_SEEDS = (SEED + 11, SEED + 12, SEED + 13, SEED + 14)
 DROP_TRAIN_B, DROP_STEPS = 256, 10
 # The recorded times of the rows whose attention backward is now the wgmma
 # design, under the two-pass mma.sync backward it replaced (PERF.md section
@@ -1712,16 +1842,21 @@ def phase_qkv(rng) -> dict:
                   f"{t['plain_fwd']:.4f}, SDPA {t['sdpa_fwd']:.4f}, bound {bounds[0][0]:.4f} ms "
                   f"by {bounds[0][1]}; backward kernel {t['bwd']:.4f} ms, plain "
                   f"{t['plain_bwd']:.4f}, SDPA {t['sdpa_bwd']:.4f}, bound {bounds[1][0]:.4f} ms "
-                  f"by {bounds[1][1]} (device time under torch.profiler, mean of 10 calls; plain: "
+                  f"by {bounds[1][1]} (device time, mean of 10 queued calls; plain: "
                   "CUDA-event median of 3)")
             call = (cuda_ms(lambda: fa.flash_attention_qkv_fwd(qkv, HEADS)),
                     cuda_ms(lambda: fa.flash_attention_qkv_bwd(qkv, o, lse, do, HEADS)))
             phase("qkv-kernels", f"B={B} N={N}: a wrapper call, host work included (CUDA-event "
                   f"median of 25): forward {call[0]:.4f} ms, backward {call[1]:.4f} ms")
+            FWD_RECORDS["flash_attention_qkv" + ("" if B == 32 else f" B={B}")] = (
+                t["fwd"], t["sdpa_fwd"], bounds[0][0])
             times[B] = (t, bounds, errs)
             del sdpa_out, qr, kr, vr
         del got, ref32
         torch.cuda.empty_cache()
+    host_us = fwd_host_us(fa)
+    phase("qkv-kernels", f"the forward's C entry on the host (three TMA maps encoded, the launch "
+          f"enqueued; B=1 H=1 N=64, mean of 200 calls, host clock): {host_us:.2f} us a call")
     t, bounds, errs = times[32]  # the MPP validation batch
     results["flash_attention_qkv"] = kernel_row(
         "flash_attention_qkv", 462, errs[0], t["fwd"], t["plain_fwd"], bounds[0], t["sdpa_fwd"])
@@ -1729,6 +1864,29 @@ def phase_qkv(rng) -> dict:
         "flash_attention_qkv_bwd", 427, errs[1], t["bwd"], t["plain_bwd"], bounds[1],
         t["sdpa_bwd"])
     return results
+
+
+def fwd_host_us(fa) -> float:
+    """Host microseconds of one call of the forward's C entry: its three
+    tensor maps encoded and the kernel enqueued, at a shape whose kernel
+    is short (mean over 200 calls, synchronised only at the end)."""
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    q = torch.zeros((1, 1, 64, DH), device="cuda", dtype=torch.bfloat16)
+    o, lse = torch.empty_like(q), torch.empty((1, 1, 64), device="cuda")
+    args = [*fa._operand(q), *fa._operand(q), *fa._operand(q), *fa._operand(o),
+            lse.data_ptr(), 1, 1, 64, 64, 64, *fa._drop_args(0.0, 0), 0,
+            torch.cuda.current_stream().cuda_stream]
+    lib = _native.library()
+    for _ in range(10):
+        _native.check(lib.svt_flash_attention_fwd(*args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        lib.svt_flash_attention_fwd(*args)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / 200 * 1e6
 
 
 def keep_fraction(fa, B, N, vl) -> tuple[float, float]:
@@ -1812,8 +1970,9 @@ def phase_dropout(rng) -> dict:
                   f"{t['sdpa_fwd']:.4f}, bound {bounds[0][0]:.4f} ms by {bounds[0][1]}; "
                   f"backward kernel {t['bwd']:.4f} ms, plain {t['plain_bwd']:.4f}, SDPA "
                   f"{t['sdpa_bwd']:.4f}, bound {bounds[1][0]:.4f} ms by {bounds[1][1]} "
-                  "(tensor-core products only; device time under torch.profiler, mean of 10 "
-                  "calls; plain: CUDA-event median of 3)")
+                  "(tensor-core products only; device time, mean of 10 queued calls; plain: "
+                  "CUDA-event median of 3)")
+            FWD_RECORDS["flash_attention_qkv_dropout"] = (t["fwd"], t["sdpa_fwd"], bounds[0][0])
             rows = {"flash_attention_qkv_dropout": kernel_row(
                         "flash_attention_qkv_dropout", 761, errs[0], t["fwd"], t["plain_fwd"],
                         bounds[0], t["sdpa_fwd"]),
@@ -1923,7 +2082,8 @@ def phase_tiled(rng, fb) -> dict:
           f"{t['plain_fwd']:.4f}, SDPA {t['sdpa_fwd']:.4f}, bound {bounds[0][0]:.4f} ms by "
           f"{bounds[0][1]}; backward kernel {t['bwd']:.4f} ms, plain {t['plain_bwd']:.4f}, "
           f"SDPA {t['sdpa_bwd']:.4f}, bound {bounds[1][0]:.4f} ms by {bounds[1][1]} (device "
-          "time under torch.profiler, mean of 10 calls; plain: CUDA-event median of 3)")
+          "time, mean of 10 queued calls; plain: CUDA-event median of 3)")
+    FWD_RECORDS["flash_attention_tiled"] = (t["fwd"], t["sdpa_fwd"], bounds[0][0])
     rows = {"flash_attention_tiled": kernel_row("flash_attention_tiled", 1015, errs[0], t["fwd"],
                                                 t["plain_fwd"], bounds[0], t["sdpa_fwd"]),
             "flash_attention_tiled_bwd": kernel_row(
@@ -2118,6 +2278,24 @@ def phase_mpp(rng, fb, table) -> dict:
               f"host clock): {secs[1] * 1e3:.2f} ms = {tokens.shape[0] / secs[1]:.1f} surfaces/s")
     del tokens, small, big
     torch.cuda.empty_cache()
+
+    # The modular gate's margin: the same ten steps on MPP_MARGIN_SEEDS'
+    # data, printed beside the gate's own reading (the gate stays on its
+    # own data).
+    gaps = []
+    for seed in MPP_MARGIN_SEEDS:
+        raw, _ = make_regression_dataset(2 * bs, raw_vertices=40962, seed=seed)
+        with torch.no_grad():
+            tok = mpp_target(make().transformer, torch.from_numpy(raw).cuda())
+        data = [(tok[s_:s_ + bs], None) for s_ in (0, bs)]
+        k_run = trainer_run(modular, make(), start, data, MPP_STEPS)
+        p_run = trainer_run(modular, make("plain"), start, data, MPP_STEPS)
+        gaps.append(max(abs(a - b) / abs(b) for a, b in zip(k_run[0], p_run[0])))
+    own = max(abs(a - b) / abs(b) for a, b in zip(mod_run[0], plain_run[0]))
+    phase("mpp-slice", f"modular MPP gate's margin: max relative loss gap over {MPP_STEPS} steps "
+          f"{own:.6f} at the gate's data (seed {SEED + 5}); at data seeds "
+          + ", ".join(f"{sd} {g:.6f}" for sd, g in zip(MPP_MARGIN_SEEDS, gaps))
+          + f" (tol {MPP_LOSS_TOL}; printed, not gated)")
     return {"flash_attention_qkv": val_launches["flash_attention_qkv"],
             "flash_attention_qkv_bwd": mod_launches["flash_attention_qkv_bwd"]}
 
@@ -3048,6 +3226,15 @@ def main() -> None:
           "700 W; a record, not measured in this run): " + ", ".join(
               f"{k_} {kernels[k_]['ms']:.4f} (two-pass {v_})"
               for k_, v_ in TWO_PASS_MS.items()))
+    def fwd_record(name):
+        ms, sdpa, bound = FWD_RECORDS[name]
+        return f"{ms:.4f}, {ms / sdpa:.3f}x SDPA, {bound / ms:.1%} of the bound"
+
+    phase("records", "the attention forward rows, this run's ms, ratio to SDPA in this call "
+          "and share of the bound, beside the mma.sync forward's recorded ms (PERF.md section "
+          "6, NVIDIA H100 80GB HBM3 at 700 W; a record, not measured in this run): "
+          + "; ".join(f"{k_} {fwd_record(k_)} (mma.sync {v_})"
+                      for k_, v_ in MMA_SYNC_FWD_MS.items()))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

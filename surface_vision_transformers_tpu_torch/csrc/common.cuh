@@ -131,10 +131,19 @@ template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// Keep the compiler from touching accumulators across an asynchronous wgmma.
-__device__ __forceinline__ void wg_hold(float (&d)[32]) {
+// Keep the compiler from touching accumulators (or A fragments) across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void wg_hold(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_hold(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 // Generic-proxy shared-memory writes (st.shared, cp.async) -> visible to wgmma.
 __device__ __forceinline__ void fence_async_smem() {
@@ -164,6 +173,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
                : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+#define SVT_WG_D64                                                                           \
+  SVT_WG_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),          \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),          \
+      "+f"(d[62]), "+f"(d[63])
+#define SVT_WG_R64                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// The n128 form: d (64 x 128) (+)= A (64 x 16) B (16 x 128); the same
+// thread layout, columns 8 j + 2 t + (e & 1) for j < 16.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SVT_WG_R64
+               ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+               : SVT_WG_D64
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // The same with A from registers, as an mma.sync m16k16 fragment per warp
 // (rows 16 w .. 16 w + 15).
 template <int TB>
@@ -178,26 +211,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 // -- attention, head dim 64 (forward and backward)
 
-constexpr int ATT_DH = 64, ATT_BQ = 64, ATT_LD = ATT_DH + 8, ATT_THREADS = 128;
-
-// s[4][4]: scores of this warp's 16 query rows against keys kb .. kb+31.
-__device__ __forceinline__ void score_chunk(float s[4][4], const uint32_t qf[4][4],
-                                            const bf16* sK, int kb, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int np = 0; np < 2; ++np)
-#pragma unroll
-    for (int ks = 0; ks < ATT_DH / 16; ++ks) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, sK + (kb + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ATT_LD + ks * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-      mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
-    }
-}
+constexpr int ATT_DH = 64;
 
 }  // namespace svt
 

@@ -8,13 +8,31 @@
 //
 // The TPU kernel holds a (sample, head)'s whole (N, N) fp32 score tile in
 // VMEM (N <= 1536). An H100 block has 227 KB of shared memory, so here the
-// scores stream through it in 64 x 64 tiles and the score matrix never
-// exists, so no sequence length is refused.
+// scores stream through it in tiles (forward 64 x 64 or 64 x 128 per
+// warpgroup, backward 64 x 64) and the score matrix never exists, so no sequence
+// length is refused.
 //
-// Forward: one CTA per (64 queries, head, sample); K and V tiles of 64 keys
-// double-buffered with cp.async; each of 4 warps holds 16 query rows as
-// mma.sync m16n8k16 fragments and an online softmax (running max and sum,
-// the accumulator rescaled per tile); writes O and lse = m + log l.
+// Forward: one CTA per (64 W queries, head, sample): a producer warpgroup,
+// one thread of which issues every load by TMA (the operands' strides
+// become 4-D tensor maps, made per call and passed as grid constants), Q
+// once and K and V in tiles of BK keys through a two-stage ring with full
+// and empty mbarriers, K and V apart; it gives its registers to the W
+// consumer warpgroups (setmaxnreg), which own 64 query rows each and run
+// the products on wgmma: S = Q K^T with both operands in shared memory,
+// then P, rounded to bf16 in registers, as the A operand of O += P V, V
+// read MN-major from its swizzled tile. Each consumer overlaps its softmax
+// with its tensor-core work (tile j + 1's S is issued before tile j's P.V,
+// and the softmax waits for S alone); the warpgroups of a CTA, or the CTAs
+// of an SM, overlap each other's softmax and products. Three tilings, by
+// shape: past 512 keys, BK = 128 and W = 3 (192 queries, one CTA per SM)
+// where that grid still fills the card twice, else W = 1 (two CTAs per SM;
+// the CLS block's 8 queries, the long-sequence entry's few (sample,
+// head)s); up to 512 keys, BK = 64 and W = 1 (three CTAs per SM, whose
+// short loops' prologues and epilogues overlap). PERF.md has the tilings
+// measured beside these and lost (two warpgroups taking turns to issue
+// their products among them). O leaves through the warpgroup's Q tile in
+// 16-byte row pieces; lse = m / 8 + log l when asked for. No CTA depends
+// on another.
 //
 // Backward, three launches:
 //   delta    delta = rowsum(dO . O), eight threads a row, 16-byte loads.
@@ -52,8 +70,13 @@
 // from an atomic ticket, start order by construction, made the main pass
 // slower at every shape tried (PERF.md).
 //
-// Ragged edges: a key tile's ragged side is its key dimension, which is the
-// N of S and dP and the K of dQ: keys >= valid_len take P = 0 and dQ skips
+// Ragged edges, forward: rows past a tensor are zero-filled by TMA; keys in
+// [valid_len, nk) are real data and take -inf before the row max; the last
+// tile's 16-key P.V steps wholly past valid_len are skipped; query rows
+// >= nq are never written.
+//
+// Ragged edges, backward: a key tile's ragged side is its key dimension,
+// the N of S and dP and the K of dQ: keys >= valid_len take P = 0 and dQ skips
 // the 16-key steps wholly past them; query rows >= valid_len take lse =
 // +inf, so their P is 0 without a test per score, and dV / dK skip the
 // 16-query steps wholly past them. Rows past the tensors are zero-filled by
@@ -81,7 +104,10 @@
 // the no-dropout kernels do not have. The backward's key tile holds its
 // keys in a permuted column order (kperm) that gives each thread four
 // consecutive keys of a query row: one call per four scores, each word
-// drawn once per backward. The forward draws one per two scores.
+// drawn once per backward. The forward keeps the keys in order: in the
+// wgmma layout threads 2u and 2u + 1 hold keys 4u .. 4u + 3 of rows g and
+// g + 8, so the even one draws row g, the odd one row g + 8, and a shuffle
+// swaps the halves; also one call per four scores.
 //
 // Numerics: scores, softmax, sums and accumulators in fp32; P rounded to
 // bf16 before P.V and divided by the sum after it; P~ and dS rounded to bf16
@@ -95,8 +121,12 @@
 // forward is 4 B H N^2 64 = 0.65 TFLOP against 0.3 GB of q, k, v, o, lse,
 // so operations bound it (0.65 ms at the bf16 peak); the backward's five
 // products are 2.5x that (1.6 ms). At dh = 64 each score costs about as much
-// in the exp unit and the fp32 pipe as in the tensor cores, and a 64 x 64
-// tile's products are short, so the main pass is bound by latency: the
+// in the exp unit and the fp32 pipe as in the tensor cores (per SM and
+// clock, 16 ex2 against 4096 bf16 operations, 128 per score in the
+// forward), so the forward comes near its bound only where the softmax
+// hides wholly under the products: hence the overlap within and between
+// warpgroups. In the backward a 64 x 64 tile's products are short, so the
+// main pass is bound by latency: the
 // waits at each step's barriers and TMA, the products, and the dQ adds'
 // chain. The dQ sums cost fp32 workspace traffic (up to four sums of B H N
 // 64 floats, written once and read once by the dq pass) that the function's
@@ -112,7 +142,6 @@ namespace {
 
 using namespace svt;
 
-constexpr int FA_BK = 64;              // keys per streamed K/V tile
 constexpr float kScale = 0.125f;       // 1 / sqrt(64), exact
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kScaleLog2 = kScale * kLog2e;  // exp(s / 8 - x) = 2^(s * kScaleLog2 - x log2 e)
@@ -126,51 +155,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Copy rows r0 .. r0 + rows - 1 of (b, h) into a [rows][ATT_LD] tile; rows
-// >= n are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* dst, const Strided& t, int b, int h, int r0,
-                                          int rows, int n, int tid) {
-  for (int c = tid; c < rows * (ATT_DH / 8); c += ATT_THREADS) {
-    const int r = c >> 3, dc = (c & 7) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * ATT_LD + dc, ok ? t.row(b, h, r0 + r) + dc : t.p, ok);
-  }
-}
-
-// 16 rows of a [.][ATT_LD] tile as four m16k16 A fragments (dh = 64).
-__device__ __forceinline__ void load_frags(uint32_t f[ATT_DH / 16][4], const bf16* s, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < ATT_DH / 16; ++ks)
-    ldmatrix_x4(f[ks], s + (lane & 15) * ATT_LD + ks * 16 + (lane >> 4) * 8);
-}
-
-// The two m16k16 fragments of P (rows g, g + 8; 16 keys from s[2j], s[2j+1]).
-__device__ __forceinline__ void pack_p(uint32_t pf[4], float (*s)[4], int j) {
-  pf[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-  pf[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-  pf[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-  pf[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-}
-
-// acc (16 x 64) += P (16 x 16 keys) . T[keys key0 .. key0 + 15][0 .. 63].
-__device__ __forceinline__ void mma_pv(float acc[ATT_DH / 8][4], const uint32_t pf[4],
-                                       const bf16* sT, int key0, int lane) {
-  const int key = key0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int dp = 0; dp < ATT_DH / 16; ++dp) {
-    uint32_t f[4];
-    ldmatrix_x4_trans(f, sT + key * ATT_LD + dp * 16 + (lane >> 4) * 8);
-    mma_bf16(acc[2 * dp], pf, f[0], f[1]);
-    mma_bf16(acc[2 * dp + 1], pf, f[2], f[3]);
-  }
-}
-
-// Dropout words of scores (row, col) and (row, col + 1), col even.
-__device__ __forceinline__ uint2 drop_pair(const Dropout& dr, uint32_t bh, int row, int col) {
-  const uint4 w = philox4x32((uint32_t)row, (uint32_t)col >> 2, dr.seed, bh);
-  return (col & 2) ? make_uint2(w.z, w.w) : make_uint2(w.x, w.y);
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -181,137 +165,364 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Keys kb .. kb + 63 of a fragment row set: those >= kend to -inf (only the
-// last tile has any).
-__device__ __forceinline__ void mask_keys(float (*s)[4], int nt_count, int kb, int kend, int t) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    if (nt >= nt_count) break;
-    const int col = kb + nt * 8 + 2 * t;
-    if (col >= kend) s[nt][0] = s[nt][2] = -INFINITY;
-    if (col + 1 >= kend) s[nt][1] = s[nt][3] = -INFINITY;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive and expect `bytes` from the copy engine in the current phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`; a wait
+// far beyond any kernel's run traps, as wait_turn's does.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (long long n = 0; !done; ++n) {
+    if (n > (1ll << 28)) __trap();
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"(smem_u32(bar)), "r"(parity)
+                 : "memory");
   }
 }
 
-template <bool DROP>
-__global__ void __launch_bounds__(ATT_THREADS)
-    flash_fwd_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
-                     float* __restrict__ lse, int nq, int nk, int valid_len, const Dropout dr) {
-  __shared__ __align__(16) bf16 sQ[ATT_BQ * ATT_LD];
-  __shared__ __align__(16) bf16 sK[2][FA_BK * ATT_LD];
-  __shared__ __align__(16) bf16 sV[2][FA_BK * ATT_LD];
-  const int q0 = blockIdx.x * ATT_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// One tile of a 4-D tensor map (columns; rows and heads in the map's order;
+// samples) into shared memory, counted on `bar`; the map's box sets its rows.
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& m, uint64_t* bar, int row,
+                                         int h, int b, bool heads_first) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&m)), "r"(0), "r"(heads_first ? h : row),
+      "r"(heads_first ? row : h), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A named barrier among `n` threads (id 0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A warpgroup's register budget (all four warps execute it).
+template <int R>
+__device__ __forceinline__ void set_max_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void set_max_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// -- forward -----------------------------------------------------------------
+//
+// One CTA per (64 NWG queries, head, sample): warpgroup 0 is the producer
+// (one thread issues every TMA load), warpgroups 1 .. NWG each own 64 query
+// rows. Q lands once; K and V tiles of BK keys stream through a ring of
+// FWD_STAGES stages, K and V with their own full / empty barriers, so a
+// stage's K is refilled as soon as S has read it.
+
+constexpr int FWD_STAGES = 2;     // K / V ring depth
+constexpr int FWD_PRODUCER_REGS = 24;
+constexpr int FWD_WG_BAR = 1;     // named barriers 1 .. NWG: one warpgroup's own
+
+// CTAs per SM and the consumers' registers of a (warpgroups, key tile)
+// variant: the producer gives back all but 24 of its registers and the
+// consumers take the rest of the CTA's share of the SM's 65536.
+template <int NWG, int BK>
+struct FwdCfg {
+  static constexpr int threads = (NWG + 1) * 128;
+  static constexpr int ctas = NWG == 1 ? (BK == 64 ? 3 : 2) : 1;
+  static constexpr int regs = 65536 / (ctas * threads) / 8 * 8;  // at launch
+  static constexpr int consumer_regs =
+      (regs * threads - FWD_PRODUCER_REGS * 128) / (NWG * 128) / 8 * 8;
+  static_assert(consumer_regs <= 256, "setmaxnreg takes at most 256");
+};
+
+// Built with -DSVT_FWD_PROFILE (scripts/flash_fwd_breakdown.py), each
+// consumer warpgroup adds the cycles it spends in each part of its loop to
+// fwd_profile: the loop's own branch, S issued (K awaited), P.V issued (V awaited), S
+// awaited, the softmax, P.V awaited, the rescale and packing, and the whole
+// loop. Otherwise the marks compile to nothing.
+#ifdef SVT_FWD_PROFILE
+__device__ unsigned long long fwd_profile[8];
+#define SVT_FWD_MARK(i)            \
+  do {                             \
+    const long long c_ = clock64(); \
+    prof[i] += c_ - prof_t;        \
+    prof_t = c_;                   \
+  } while (0)
+#else
+#define SVT_FWD_MARK(i) \
+  do {                  \
+  } while (0)
+#endif
+
+template <int NWG, int BK>
+struct FwdSmem {
+  bf16 q[NWG][64 * ATT_DH];  // a warpgroup's Q tile; its O on the way out
+  bf16 k[FWD_STAGES][BK * ATT_DH], v[FWD_STAGES][BK * ATT_DH];
+  uint64_t q_full, k_full[FWD_STAGES], v_full[FWD_STAGES];
+  uint64_t k_empty[FWD_STAGES], v_empty[FWD_STAGES];
+};
+
+// Tile scores s (raw Q.K of keys key0 + column) -> P = exp(s / 8 - m / 8)
+// in place, with the running row max m and sum l (this thread's columns)
+// carried over and the old max's rescale factor a returned per row. With
+// MASK (the tile that holds valid_len), columns >= kvalid take P = 0. With
+// dropout, P is then zeroed where the keep bit is clear (l stays the
+// undropped sum). Maxima and sums run in four chains per row.
+template <int SA, bool DROP, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[SA], float (&m)[2], float (&l)[2],
+                                             float (&a)[2], int kvalid, int key0, int row,
+                                             uint32_t bh, const Dropout& dr, int t) {
+  if constexpr (MASK) {
+#pragma unroll
+    for (int j = 0; j < SA / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t + (e & 1) >= kvalid) s[4 * j + e] = -INFINITY;
+  }
+  float mx[2][4], sum[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mx[r][c] = fmaxf(s[4 * c + 2 * r], s[4 * c + 2 * r + 1]);
+      sum[r][c] = 0.f;
+    }
+#pragma unroll
+  for (int j = 4; j < SA / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r][j & 3] = fmaxf(mx[r][j & 3], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // every tile holds a key < kend: the new max is finite
+    const float mn =
+        fmaxf(m[r], quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))));
+    a[r] = exp2_approx((m[r] - mn) * kScaleLog2);  // 0 at the first tile
+    m[r] = mn;
+    ms[r] = mn * kScaleLog2;
+  }
+#pragma unroll
+  for (int j = 0; j < SA / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], kScaleLog2, -ms[e >> 1]));
+      sum[e >> 1][j & 3] += s[4 * j + e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * a[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+  if constexpr (DROP) {
+    // Keys 4u .. 4u + 3 of a group of 8 share a Philox counter; threads 2u
+    // and 2u + 1 hold them for rows g and g + 8. The even thread draws row
+    // g, the odd one row g + 8, and one shuffle swaps the halves the other
+    // needs: one call per four scores.
+    const bool odd = t & 1;
+#pragma unroll
+    for (int j = 0; j < SA / 4; ++j) {
+      const uint4 w = philox4x32((uint32_t)(row + (odd ? 8 : 0)),
+                                 (uint32_t)(key0 + 8 * j) / 4 + (t >> 1), dr.seed, bh);
+      const uint32_t lo = (w.x >= dr.threshold) | (w.y >= dr.threshold) << 1;
+      const uint32_t hi = (w.z >= dr.threshold) | (w.w >= dr.threshold) << 1;
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 1);
+      const uint32_t k0 = odd ? got : lo, k1 = odd ? hi : got;  // rows g, g + 8
+      if (!(k0 & 1)) s[4 * j] = 0.f;
+      if (!(k0 & 2)) s[4 * j + 1] = 0.f;
+      if (!(k1 & 1)) s[4 * j + 2] = 0.f;
+      if (!(k1 & 2)) s[4 * j + 3] = 0.f;
+    }
+  }
+}
+
+// P (fp32 accumulator layout) -> bf16 A fragments, one per 16 keys.
+template <int SA>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[SA / 8][4], const float (&s)[SA]) {
+#pragma unroll
+  for (int kk = 0; kk < SA / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+template <int NWG, int BK, bool DROP>
+__global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::ctas)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, bool hf_q, bool hf_k, bool hf_v,
+                     const Strided o, float* __restrict__ lse, int nq, int nk, int valid_len,
+                     const Dropout dr) {
+  constexpr int SA = BK / 2;  // score accumulators per thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  FwdSmem<NWG, BK>& sm = *reinterpret_cast<FwdSmem<NWG, BK>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int q0 = blockIdx.x * 64 * NWG;
+  const int kend = min(valid_len, nk), ntiles = ceil_div(kend, BK);
+  const int active = min(NWG, ceil_div(nq - q0, 64));  // warpgroups holding query rows
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int i = 0; i < FWD_STAGES; ++i) {
+      mbar_init(&sm.k_full[i], 1);
+      mbar_init(&sm.v_full[i], 1);
+      mbar_init(&sm.k_empty[i], active);
+      mbar_init(&sm.v_empty[i], active);
+    }
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    set_max_regs_dec<FWD_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect(&sm.q_full, active * 64 * ATT_DH * 2);
+      for (int w = 0; w < active; ++w)
+        tma_tile(sm.q[w], tm_q, &sm.q_full, q0 + 64 * w, h, b, hf_q);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % FWD_STAGES, use = j / FWD_STAGES;
+        if (use > 0) mbar_wait(&sm.k_empty[st], (use - 1) & 1);
+        mbar_expect(&sm.k_full[st], BK * ATT_DH * 2);
+        tma_tile(sm.k[st], tm_k, &sm.k_full[st], j * BK, h, b, hf_k);
+        if (use > 0) mbar_wait(&sm.v_empty[st], (use - 1) & 1);
+        mbar_expect(&sm.v_full[st], BK * ATT_DH * 2);
+        tma_tile(sm.v[st], tm_v, &sm.v_full[st], j * BK, h, b, hf_v);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: query rows q0 + 64 w ..
+  set_max_regs_inc<FwdCfg<NWG, BK>::consumer_regs>();
+  const int w = wg - 1;
+  if (w >= active) return;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int kend = min(valid_len, nk);
-  const int ntiles = (kend + FA_BK - 1) / FA_BK;
-  const bool active = q0 + warp * 16 < nq;
+  const int row0 = q0 + 64 * w, row = row0 + 16 * warp + g;  // this thread's rows: row, row + 8
+  const uint32_t bh = (uint32_t)(b * heads + h);
 
-  load_tile(sQ, q, b, h, q0, ATT_BQ, nq, tid);
-  load_tile(sK[0], k, b, h, 0, FA_BK, nk, tid);
-  load_tile(sV[0], v, b, h, 0, FA_BK, nk, tid);
-  cp_async_commit();
+  float acc[32], s[SA], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
+  uint32_t p[SA / 8][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const bf16* sq = sm.q[w];
 
-  uint32_t qf[ATT_DH / 16][4];
-  float acc[ATT_DH / 8][4];
+  auto issue_s = [&](int j) {  // S = Q K_j^T
+    const int st = j % FWD_STAGES;
+    mbar_wait(&sm.k_full[st], (j / FWD_STAGES) & 1);
+    wg_fence();
 #pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt)
+    for (int ks = 0; ks < ATT_DH / 16; ++ks)
+      wgmma_ss<0, 0>(s, sw128_desc(sq + ks * 16), sw128_desc(sm.k[st] + ks * 16), ks);
+    wg_commit();
+  };
+  auto issue_pv = [&](int j, int ksteps) {  // O += P V_j, V read MN-major
+    const int st = j % FWD_STAGES;
+    mbar_wait(&sm.v_full[st], (j / FWD_STAGES) & 1);
+    wg_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  // running row max of the raw scores Q.K, and sum of exp(s / 8 - max / 8)
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+    for (int kk = 0; kk < BK / 16; ++kk)
+      if (kk < ksteps) wgmma_rs<1>(acc, p[kk], sw128_desc(sm.v[st] + kk * 16 * ATT_DH), 1);
+    wg_commit();
+  };
+  auto release = [&](uint64_t* bar) {
+    if (tid == 0) mbar_arrive(bar);
+  };
 
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int st = tile & 1;
-    if (tile + 1 < ntiles) {
-      load_tile(sK[st ^ 1], k, b, h, (tile + 1) * FA_BK, FA_BK, nk, tid);
-      load_tile(sV[st ^ 1], v, b, h, (tile + 1) * FA_BK, FA_BK, nk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      if (tile == 0) load_frags(qf, sQ + warp * 16 * ATT_LD, lane);
-      float s[8][4];
-      score_chunk(s, qf, sK[st], 0, lane);
-      score_chunk(s + 4, qf, sK[st], 32, lane);
-      if ((tile + 1) * FA_BK > kend) mask_keys(s, 8, tile * FA_BK, kend, t);
-      // this tile's row max (every tile started holds a key < kend: finite)
-      float tm_lo = -INFINITY, tm_hi = -INFINITY;
+  mbar_wait(&sm.q_full, 0);
+  issue_s(0);
+  wg_wait<0>();
+  wg_hold(s);
+  release(&sm.k_empty[0]);
+  auto softmax = [&](int j) {  // tile j's scores in s -> P
+    if (kend - j * BK < BK)
+      softmax_tile<SA, DROP, true>(s, m, l, a, kend - j * BK, j * BK, row, bh, dr, t);
+    else
+      softmax_tile<SA, DROP, false>(s, m, l, a, BK, j * BK, row, bh, dr, t);
+  };
+  softmax(0);
+  pack_p<SA>(p, s);
+  // Tile j's P.V runs while tile j + 1's softmax does: S of j + 1 is issued
+  // first, then P.V of j, then the softmax waits for S alone.
+#ifdef SVT_FWD_PROFILE
+  unsigned long long prof[7] = {0, 0, 0, 0, 0, 0, 0};
+  const long long prof_t0 = clock64();
+  long long prof_t = prof_t0;
+#endif
+  for (int j = 0; j + 1 < ntiles; ++j) {
+    SVT_FWD_MARK(0);
+    issue_s(j + 1);
+    SVT_FWD_MARK(1);
+    issue_pv(j, BK / 16);
+    SVT_FWD_MARK(2);
+    wg_wait<1>();
+    wg_hold(s);
+    SVT_FWD_MARK(3);
+    release(&sm.k_empty[(j + 1) % FWD_STAGES]);
+    softmax(j + 1);
+    SVT_FWD_MARK(4);
+    wg_wait<0>();
+    wg_hold(acc);
+    wg_hold(p);
+    SVT_FWD_MARK(5);
+    release(&sm.v_empty[j % FWD_STAGES]);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        tm_lo = fmaxf(tm_lo, fmaxf(s[nt][0], s[nt][1]));
-        tm_hi = fmaxf(tm_hi, fmaxf(s[nt][2], s[nt][3]));
-      }
-      const float mn_lo = fmaxf(m_lo, quad_max(tm_lo)), mn_hi = fmaxf(m_hi, quad_max(tm_hi));
-      const float a_lo = exp2_approx((m_lo - mn_lo) * kScaleLog2);  // 0 at tile 0
-      const float a_hi = exp2_approx((m_hi - mn_hi) * kScaleLog2);
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-      l_lo *= a_lo;
-      l_hi *= a_hi;
-#pragma unroll
-      for (int nt = 0; nt < ATT_DH / 8; ++nt) {
-        acc[nt][0] *= a_lo;
-        acc[nt][1] *= a_lo;
-        acc[nt][2] *= a_hi;
-        acc[nt][3] *= a_hi;
-      }
-      const float ms_lo = m_lo * kScaleLog2, ms_hi = m_hi * kScaleLog2;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {  // P = exp(s/8 - m/8); masked: 2^-inf = 0
-        s[nt][0] = exp2_approx(fmaf(s[nt][0], kScaleLog2, -ms_lo));
-        s[nt][1] = exp2_approx(fmaf(s[nt][1], kScaleLog2, -ms_lo));
-        s[nt][2] = exp2_approx(fmaf(s[nt][2], kScaleLog2, -ms_hi));
-        s[nt][3] = exp2_approx(fmaf(s[nt][3], kScaleLog2, -ms_hi));
-        l_lo += s[nt][0] + s[nt][1];
-        l_hi += s[nt][2] + s[nt][3];
-      }
-      if constexpr (DROP) {  // l keeps the undropped sum; P.V takes keep(P)
-        const uint32_t bh = (uint32_t)(b * gridDim.y + h);
-        const int r_lo = q0 + warp * 16 + g;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = tile * FA_BK + nt * 8 + 2 * t;
-          const uint2 lo = drop_pair(dr, bh, r_lo, col), hi = drop_pair(dr, bh, r_lo + 8, col);
-          if (lo.x < dr.threshold) s[nt][0] = 0.f;
-          if (lo.y < dr.threshold) s[nt][1] = 0.f;
-          if (hi.x < dr.threshold) s[nt][2] = 0.f;
-          if (hi.y < dr.threshold) s[nt][3] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // O += bf16(P) . V, 16 keys per k-step
-        uint32_t pf[4];
-        pack_p(pf, s, j);
-        mma_pv(acc, pf, sV[st], j * 16, lane);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
+    for (int i = 0; i < 32; ++i) acc[i] *= a[(i >> 1) & 1];
+    pack_p<SA>(p, s);
+    SVT_FWD_MARK(6);
   }
-  if (!active) return;
+#ifdef SVT_FWD_PROFILE
+  if (tid == 0) {
+    for (int i = 0; i < 7; ++i) atomicAdd(&fwd_profile[i], prof[i]);
+    atomicAdd(&fwd_profile[7], (unsigned long long)(clock64() - prof_t0));
+  }
+#endif
+  const int klast = kend - (ntiles - 1) * BK;  // keys of the last tile
+  issue_pv(ntiles - 1, ceil_div(klast, 16));   // 16-key steps wholly past them skipped
+  wg_wait<0>();
+  wg_hold(acc);
 
-  l_lo = quad_sum(l_lo);
-  l_hi = quad_sum(l_hi);
-  const float inv_lo = (DROP ? dr.inv_keep : 1.f) / l_lo;
-  const float inv_hi = (DROP ? dr.inv_keep : 1.f) / l_hi;
-  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+  // O = acc / l (x 1 / (1 - rate)), lse = m / 8 + log l
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = (DROP ? dr.inv_keep : 1.f) / l[r];
+  }
   if (lse != nullptr && t == 0) {
-    float* lrow = lse + ((long long)b * gridDim.y + h) * nq;
-    if (r_lo < nq) lrow[r_lo] = m_lo * kScale + logf(l_lo);
-    if (r_hi < nq) lrow[r_hi] = m_hi * kScale + logf(l_hi);
+    float* lrow = lse + (long long)bh * nq;
+    if (row < nq) lrow[row] = m[0] * kScale + logf(l[0]);
+    if (row + 8 < nq) lrow[row + 8] = m[1] * kScale + logf(l[1]);
   }
+  // O through this warpgroup's Q tile (its last reader, the last S, is
+  // done), then out in 16-byte row pieces
+  bf16* so = sm.q[w];
 #pragma unroll
-  for (int nt = 0; nt < ATT_DH / 8; ++nt) {
-    const int d = nt * 8 + 2 * t;
-    if (r_lo < nq)
-      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, r_lo) + d) =
-          __floats2bfloat162_rn(acc[nt][0] * inv_lo, acc[nt][1] * inv_lo);
-    if (r_hi < nq)
-      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, r_hi) + d) =
-          __floats2bfloat162_rn(acc[nt][2] * inv_hi, acc[nt][3] * inv_hi);
+  for (int j = 0; j < ATT_DH / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(so + sw128(16 * warp + g + 8 * r, 8 * j + 2 * t)) =
+          pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+  bar_sync(FWD_WG_BAR + w, 128);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 16 * i + (tid >> 3), c = (tid & 7) * 8;
+    if (row0 + r < nq)
+      *reinterpret_cast<uint4*>(o.row(b, h, row0 + r) + c) =
+          *reinterpret_cast<const uint4*>(so + sw128(r, c));
   }
 }
 
@@ -364,52 +575,6 @@ __device__ __forceinline__ void load_key_tile(bf16* dst, const Strided& t, int b
     const bool ok = src < n;
     cp_async16(dst + sw128(r, ch * 8), ok ? t.row(b, h, src) + ch * 8 : t.p, ok);
   }
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Arrive and expect `bytes` from the copy engine in the current phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`; a wait
-// far beyond any kernel's run traps, as wait_turn's does.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (long long n = 0; !done; ++n) {
-    if (n > (1ll << 28)) __trap();
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done)
-                 : "r"(smem_u32(bar)), "r"(parity)
-                 : "memory");
-  }
-}
-
-// One 64-row tile of a 4-D tensor map (columns; rows and heads in the map's
-// order; samples) into shared memory, counted on `bar`.
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& m, uint64_t* bar, int row,
-                                         int h, int b, bool heads_first) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(&m)), "r"(0), "r"(heads_first ? h : row),
-      "r"(heads_first ? row : h), "r"(b), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // The compute warpgroup's own barrier (the writer warp does not take part).
@@ -783,11 +948,11 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A TMA map of the (B, heads, n, 64) operand t, 64 x 64 boxes in the
+// A TMA map of the (B, heads, n, 64) operand t, boxes of `rows` x 64 in the
 // 128-byte swizzle; the two middle dimensions in increasing stride (heads
 // first for the packed (B, n, heads * 64) layouts).
 cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
-                       bool heads_first) {
+                       bool heads_first, int rows = 64) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -803,7 +968,8 @@ cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n
   const cuuint64_t strides[3] = {(cuuint64_t)(heads_first ? t.sh : t.sr) * 2,
                                  (cuuint64_t)(heads_first ? t.sr : t.sh) * 2,
                                  (cuuint64_t)t.sb * 2};
-  const cuuint32_t box[4] = {ATT_DH, heads_first ? 1u : 64u, heads_first ? 64u : 1u, 1};
+  const cuuint32_t box[4] = {ATT_DH, heads_first ? 1u : (cuuint32_t)rows,
+                             heads_first ? (cuuint32_t)rows : 1u, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, t.p, dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -843,18 +1009,86 @@ cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const 
   return cudaGetLastError();
 }
 
+// TMA reads an operand, and the forward writes O in 16-byte pieces: the
+// base and every stride on 16 bytes.
+bool aligned16(const Strided& t) {
+  return (reinterpret_cast<uintptr_t>(t.p) & 15) == 0 && t.sb % 8 == 0 && t.sh % 8 == 0 &&
+         t.sr % 8 == 0;
+}
+
+template <int NWG, int BK, bool DROP>
+cudaError_t launch_fwd(cudaStream_t st, const Strided& q, const Strided& k, const Strided& v,
+                       const Strided& o, float* lse, int B, int heads, int nq, int nk,
+                       int valid_len, const Dropout& dr) {
+  constexpr int smem = sizeof(FwdSmem<NWG, BK>) + 1024;  // + alignment to 1024 bytes
+  static bool ready[16];  // the shared-memory limit, set once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || !ready[dev]) {
+    e = cudaFuncSetAttribute(flash_fwd_kernel<NWG, BK, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) ready[dev] = true;
+  }
+  const bool hf_q = q.sh < q.sr, hf_k = k.sh < k.sr, hf_v = v.sh < v.sr;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, 64)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, BK)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, BK)) != cudaSuccess) return e;
+  const dim3 grid(ceil_div(nq, 64 * NWG), heads, B);
+  flash_fwd_kernel<NWG, BK, DROP><<<grid, FwdCfg<NWG, BK>::threads, smem, st>>>(
+      tm_q, tm_k, tm_v, hf_q, hf_k, hf_v, o, lse, nq, nk, valid_len, dr);
+  return cudaGetLastError();
+}
+
+// Multiprocessors of the current device (read once per device).
+int sm_count() {
+  static int count[16];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev < 16 && count[dev]) return count[dev];
+  int n = 132;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) n = 132;
+  if (dev < 16) count[dev] = n;
+  return n;
+}
+
+// The tiling by shape (flash_fwd): 64-key tiles and one consumer warpgroup
+// up to 512 keys; past them 128-key tiles and three warpgroups (wide) or
+// one.
+template <bool DROP>
+cudaError_t launch_rule(bool long_keys, bool wide, cudaStream_t st, const Strided& q,
+                        const Strided& k, const Strided& v, const Strided& o, float* lse, int B,
+                        int heads, int nq, int nk, int valid_len, const Dropout& dr) {
+  if (!long_keys)
+    return launch_fwd<1, 64, DROP>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
+  if (wide)
+    return launch_fwd<3, 128, DROP>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
+  return launch_fwd<1, 128, DROP>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
+}
+
 }  // namespace
 
 namespace svt {
 
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
                       int nq, int nk, int valid_len, cudaStream_t st, Dropout dr) {
-  const dim3 grid(ceil_div(nq, ATT_BQ), heads, B);
-  if (dr.on)
-    flash_fwd_kernel<true><<<grid, ATT_THREADS, 0, st>>>(q, k, v, o, lse, nq, nk, valid_len, dr);
-  else
-    flash_fwd_kernel<false><<<grid, ATT_THREADS, 0, st>>>(q, k, v, o, lse, nq, nk, valid_len, dr);
-  return cudaGetLastError();
+  if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1) return cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return cudaErrorMisalignedAddress;
+  // The tiling, from the tilings measured on an H100 (PERF.md): past 512
+  // keys, 128-key tiles and three consumer warpgroups (192 queries) where
+  // that grid still fills the card twice; else one warpgroup (64 queries,
+  // two or three CTAs per SM, whose prologues and epilogues overlap each
+  // other's loops), with 64-key tiles up to 512 keys.
+  const bool long_keys = std::min(valid_len, nk) > 512;
+  const bool wide = long_keys && nq > 64 &&
+                    (long long)ceil_div(nq, 192) * heads * B >= 2ll * sm_count();
+  return dr.on ? launch_rule<true>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq, nk,
+                                   valid_len, dr)
+               : launch_rule<false>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq, nk,
+                                    valid_len, dr);
 }
 
 long long flash_bwd_workspace(int B, int heads, int nq) {
@@ -945,6 +1179,16 @@ int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q
                         make_dropout(seed, threshold, inv_keep, drop));
 }
 
+
+#ifdef SVT_FWD_PROFILE
+// The profile's eight sums of cycles into out, then zeroed.
+int svt_flash_fwd_profile(unsigned long long* out) {
+  SVT_TRY(cudaMemcpyFromSymbol(out, fwd_profile, sizeof(fwd_profile)));
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  SVT_TRY(cudaMemcpyToSymbol(fwd_profile, zero, sizeof(zero)));
+  return (int)cudaDeviceSynchronize();
+}
+#endif
 
 // Floats of scratch svt_flash_attention_bwd needs in `ws`.
 long long svt_flash_attention_bwd_workspace(int B, int heads, int nq) {

@@ -1,6 +1,7 @@
 // Streamed attention, head dim 64 (flash_attention.cu): the launchers the
-// block chains (fused_block.cu, fused_block_bwd.cu) share with the public
-// flash_attention entries.
+// block chains (fused_block.cu, fused_block_int8.cu, fused_block_bwd.cu)
+// share with the public flash_attention entries. Both directions read
+// their operands by TMA and run their products on wgmma.
 #pragma once
 
 #include "common.cuh"
@@ -8,9 +9,11 @@
 namespace svt {
 
 // One attention operand: element (b, h, r, d) of a (batch, head, row, 64)
-// bf16 tensor lives at p[b * sb + h * sh + r * sr + d]. Rows start on 16
-// bytes (the callers check), so one kernel reads both a (B, H, N, 64) tensor
-// and a head's 64 columns of the chain's packed (B, N, heads * 64) rows.
+// bf16 tensor lives at p[b * sb + h * sh + r * sr + d]. The base and the
+// strides are on 16 bytes (the callers see to it; the forward refuses
+// others with cudaErrorMisalignedAddress, as TMA must), so one kernel reads
+// both a (B, H, N, 64) tensor and a head's 64 columns of the chain's packed
+// (B, N, heads * 64) rows.
 struct Strided {
   bf16* p;
   long long sb, sh, sr;
@@ -36,6 +39,10 @@ struct Dropout {
 // O = softmax(Q K^T / 8) V over keys < valid_len, lse = the row log-sum-exp
 // (B, heads, nq) fp32 (skipped when nullptr). With dropout, the max, the
 // sum and lse are the undropped softmax's and O = keep(P) V / l * inv_keep.
+// One kernel: a producer warpgroup (one thread issues the TMA loads), one
+// or three consumer warpgroups of 64 query rows on wgmma; the tiling by
+// shape is in flash_attention.cu.
+// A base or stride off 16 bytes returns cudaErrorMisalignedAddress.
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
                       int nq, int nk, int valid_len, cudaStream_t st, Dropout dr = Dropout{});
 

@@ -221,7 +221,7 @@ cudaError_t launch_gemm(const bf16* A, int lda, int a_rpg, int a_gstride, const 
 
 // Attention on the packed activations (B, rows, ld), head h at columns
 // h * 64: the streamed kernel of flash_attention.cu (K and V through shared
-// memory in 64-key tiles, online softmax, any N).
+// memory in 64- or 128-key tiles by TMA, wgmma, online softmax, any N).
 cudaError_t launch_attention(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V,
                              int ldkv, int n, bf16* O, int ldo, int B, int heads, int valid_len,
                              float* lse, cudaStream_t st) {

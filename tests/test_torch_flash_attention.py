@@ -4,8 +4,14 @@ as ``tests/test_kernels.py`` runs it), and its autograd function and
 dispatch.
 
 Cases: B=2, H=2, dh=64, N=72 with valid_len 70, and 8 queries against 72
-keys. The cotangent is nonzero on every row, so the rows >= valid_len that
-both sides drop are exercised. Tolerances, of the largest |JAX| value of
+keys; then the edges of the kernel's tiling at these lengths (up to 512
+keys: query tiles of 64 rows, key tiles of 64): 129 = 2 * 64 + 1 queries,
+one past a query tile, against 136 keys with valid_len 130 inside the third
+key tile, and 64 queries (one whole query tile) against 257 keys with
+valid_len 256 on a key-tile edge. The card-side gates hold the kernel
+against the plain versions at such shapes, so these hold the plain versions
+against JAX there. The cotangent is nonzero on every row, so the rows >=
+valid_len that both sides drop are exercised. Tolerances, of the largest |JAX| value of
 each output: float32 2e-5 (the same algorithm, sums in another order);
 bfloat16 two bf16 steps (delta is rowsum(dO . O) here and rowsum(P . dP) in
 the JAX kernel: the same quantity, rounded at other points).
@@ -24,7 +30,8 @@ from surface_vision_transformers_tpu.ops.pallas.flash_attention import (
 )
 from surface_vision_transformers_tpu_torch.ops import flash_attention as tfa
 
-CASES = {"N72_vl70": (2, 2, 72, 72, 70), "Nq8_Nk72": (2, 2, 8, 72, 70)}
+CASES = {"N72_vl70": (2, 2, 72, 72, 70), "Nq8_Nk72": (2, 2, 8, 72, 70),
+         "Nq129_Nk136_vl130": (1, 2, 129, 136, 130), "Nq64_Nk257_vl256": (1, 2, 64, 257, 256)}
 DH = 64
 
 
