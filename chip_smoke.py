@@ -153,6 +153,22 @@ sub-ico 3 and the gather-fused patch embedding:
               on the SiT-tiny config of phase 5: float32 serves the modular
               model (no kernel launches), results.csv equal to in-process
               float32 ``predict`` bit for bit.
+25. block-gemms -- the block chains' GEMMs alone (``csrc/gemm.cuh``, one
+              engine behind every product of ``fused_block`` and
+              ``fused_block_bwd``): the forward's four at SiT-tiny B=256
+              (M = 82,176) and SiT-base B=32 (M = 40,992, not a multiple of
+              128), the backward's eight (four dX with their epilogues, four
+              split-K weight gradients) at SiT-tiny B=256, each against the
+              fp32 plain product with its epilogue (bf16 outputs within one
+              bf16 step at the largest output, fp32 outputs within 2e-4 of
+              it), a control with the last 64-deep k-step dropped that the
+              gate must reject, times beside ``torch.mm(out_dtype=float32)``
+              (timed, never used) and the bound; ``fused_block_bwd`` bitwise
+              equal across two calls at SiT-tiny B=256 (controls: one
+              cotangent element raised by 1; the plain dW_fc2's split
+              partials summed in reverse order move fp32 bits);
+              ``fused_block`` and ``fused_block_bwd`` timed at the MPP
+              config's bs 32.
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -166,10 +182,11 @@ to its run on the idle card, before that kernel ends.
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
 
-Each phase prints its seconds. Then two records lines: the attention
-backward and forward rows beside their recorded times under the mma.sync
-kernels they replaced (a record, not measured in the run), the forward
-rows with their ratio to SDPA in this run and their share of the bound.
+Each phase prints its seconds. Then three records lines: the attention
+backward and forward rows and the block rows beside their recorded times
+under the mma.sync kernels they replaced (a record, not measured in the
+run), the forward rows with their ratio to SDPA in this run and their share
+of the bound.
 Then a JSON line of per-kernel results, and last ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -554,6 +571,24 @@ def block_flops(B, N, vl, dim, heads, mlp, cls):
     return gemm + att_f, 2 * gemm + att_b
 
 
+def chain_bytes(B, N, dim, heads, mlp) -> tuple[int, int, int]:
+    """HBM bytes the block chains move at these shapes (csrc/fused_block.cu,
+    fused_block_bwd.cu: each launch reads its inputs and writes its outputs
+    once, the weights aside): (serving forward, training forward with its
+    saves, backward without the attention's fp32 dQ workspace). The chain
+    design's own floor, beside the function's bound (block_flops)."""
+    M, hd, bf, f4 = B * N, heads * DH, 2, 4
+    x, qkv, att, hid = M * dim * bf, M * 3 * hd * bf, M * hd * bf, M * mlp * bf
+    fwd = ((x + x) + (x + qkv) + (qkv + att) + (att + x + x) + (x + x) + (x + hid)
+           + (hid + x + x))  # LN1, qkv, attention, out-proj, LN2, fc1, fc2
+    train = fwd + 2 * hid + 2 * M * 2 * f4 + B * heads * N * f4  # fpre, stats, lse
+    bwd = ((x + hid) + (x + 2 * hid + hid) + (hid + x) + (hid + 2 * x)  # dW_fc2, df1, dW_fc1, dh
+           + (2 * x + x + x + 2 * x + x) + (x + att) + (x + att)  # LN2 bwd, dW_out, da
+           + (qkv + att + att + qkv) + (qkv + x) + (qkv + 2 * x)  # attention, dW_qkv, dh
+           + (2 * x + x + 2 * x + x))  # LN1 bwd -> dx
+    return fwd, train, bwd
+
+
 def grad_bound_ratio(got, ref32, vl):
     """Largest |a - ref32| over its bound (BWD_STEPS bf16 steps at the
     largest |ref32|) across the 12 gradients, dx on the rows < valid_len;
@@ -904,6 +939,10 @@ def phase_train_entry() -> None:
             raise AssertionError("cli.test disagrees with the best epoch's val MAE")
 
 
+GEMM_EPIS = ("F_NONE", "F_GELU", "F_RES", "B_PART", "B_F32", "B_BF16", "B_GELU_GRAD",
+             "B_ADD_F32")  # csrc/gemm.cuh's epilogues, in order
+
+
 def ptxas_report(log_path: Path) -> str:
     """Registers per kernel and any spills, from the build's ``-Xptxas=-v``
     report."""
@@ -912,10 +951,12 @@ def ptxas_report(log_path: Path) -> str:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             fwd = re.search(r"flash_fwd_kernelILi(\d)ELi(\d+)ELb(\d)E", mangled)
-            name = f"flash_fwd<{','.join(fwd.groups())}>" if fwd else next((k for k in (
-                "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_kernel", "ln_bwd", "gemm_bwd",
-                "int8_gemm", "gemm_kernel", "layer_norm", "reduce", "ln_quant", "quant_rows",
-                "patch_embed") if k in mangled), mangled[:40])
+            gemm = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)E", mangled)
+            name = (f"flash_fwd<{','.join(fwd.groups())}>" if fwd else
+                    f"gemm<{gemm[1]},{gemm[2]},{GEMM_EPIS[int(gemm[3])]}>" if gemm else next((
+                        k for k in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_kernel",
+                                    "ln_bwd", "int8_gemm", "layer_norm", "reduce", "ln_quant",
+                                    "quant_rows", "patch_embed") if k in mangled), mangled[:40]))
         elif name and "registers" in line:
             regs[name] = max(regs.get(name, 0), int(line.split("Used ")[1].split()[0]))
         elif name and "spill" in line and " 0 bytes spill stores" not in line:
@@ -1232,7 +1273,7 @@ def busy_card(fa) -> None:
         raise AssertionError("busy card: the backward waited for the other stream's kernel")
 
 
-def phase_base_kernels(rng, fb, sit_module, m, bs) -> None:
+def phase_base_kernels(rng, fb, sit_module, m, bs) -> dict:
     """Phase 10: at SiT-base width, N = 1281 and the config's batch ``bs``
     (the shapes the training path gives them), fused_block and
     fused_block_cls (streamed attention), fused_block_cls_bwd (LayerNorm
@@ -1334,6 +1375,7 @@ def phase_base_kernels(rng, fb, sit_module, m, bs) -> None:
         sit_module, p32, x, g, heads, dim, mlp, False)
     phase("base-kernels", f"SiT-base B={B} N={N}, CUDA-event medians of 10 (ms): "
           + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in times.items()))
+    base_times = dict(times)
     fwd_f, bwd_f = block_flops(B, N, N, dim, heads, mlp, False)
     cls_f, cls_b = block_flops(B, N, N, dim, heads, mlp, True)
     io_fwd = nbytes_of(x, *pb) + B * 8 * dim * 2  # the CLS block writes its 8 top rows
@@ -1344,6 +1386,7 @@ def phase_base_kernels(rng, fb, sit_module, m, bs) -> None:
           "written once)".format(*bound_ms(cls_f, io_fwd), *bound_ms(cls_b, io_bwd)))
     del x, g, g8, layer
     torch.cuda.empty_cache()
+    return base_times
 
 
 def phase_base_slice(rng, fb, fused, exp, table, state) -> None:
@@ -2947,6 +2990,215 @@ def phase_fp32_entry(fb, tiny_cfg, tiny_tree, tiny_data, tiny_labels) -> None:
             raise AssertionError("float32 cli.test's MAE disagrees with its results.csv")
 
 
+GEMM_SOURCE = "surface_vision_transformers_tpu_torch/csrc/gemm.cuh"
+GEMM_FP32_REL = 2e-4  # fp32 outputs: |err| / max |ref|; the first run of the engine read <= 4.8e-5
+GEMM_TINY_M = 256 * N_TOKENS  # SiT-tiny rows at B=256
+GEMM_BASE_M = 32 * 1281  # SiT-base rows at B=32 (not a multiple of 128)
+MPP_BS = 32  # the MPP config's batch: fused_block / fused_block_bwd timed there once
+# The mma.sync block chains' recorded times (PERF.md section 6, the parent
+# design's final run, NVIDIA H100 80GB HBM3 at 700 W): a record, not measured
+# in this run.
+MMA_SYNC_BLOCK_MS = {"fused_block": 0.9515, "fused_block SiT-base B=32": 4.1880,
+                     "fused_block_cls": 0.3550, "fused_block_bwd": 2.4956,
+                     "fused_block_cls_bwd": 0.9076}
+
+
+def gemm_inputs(rng, M, N, K, a_scale=1.0):
+    """bf16 A (M, K) ~ N(0, a_scale^2) (LayerNorm outputs and the like) and
+    W (N, K) ~ U(+-1/sqrt(K)), the seeded weights' scale."""
+    a = bf16_randn(rng, (M, K), a_scale)
+    w = torch.from_numpy(rng.uniform(-1, 1, (N, K)).astype(np.float32) / np.sqrt(K)).to(
+        "cuda", torch.bfloat16)
+    return a, w
+
+
+def gemm_gate(got, ref, fp32) -> tuple[float, bool]:
+    """(measure, passes): bf16 outputs within one bf16 step at the largest
+    |ref|; fp32 outputs within GEMM_FP32_REL of it."""
+    err = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    m = err / top if fp32 else err / bf16_step(top)
+    return m, bool(math.isfinite(err)) and m <= (GEMM_FP32_REL if fp32 else 1.0)
+
+
+def phase_block_gemms(rng, fb) -> dict:
+    """Phase 25: the block chains' GEMMs alone (csrc/gemm.cuh). Each of the
+    forward's four products at SiT-tiny B=256 and SiT-base B=32, and each of
+    the backward's eight at SiT-tiny B=256, against the fp32 plain product
+    of the same bf16 operands with its epilogue: bf16 outputs within one
+    bf16 step at the largest output, fp32 outputs within GEMM_FP32_REL of
+    it; control: the plain product without its last 64-deep k-step, which
+    the gate must reject. CUDA-event times beside torch.mm(out_dtype=fp32)
+    on the same operands (timed, never used) and the bound. Then
+    fused_block_bwd repeats bit for bit at SiT-tiny B=256 (a control with one
+    cotangent element raised by 1; the plain dW_fc2's split partials summed
+    in reverse order shown to move fp32 bits), and fused_block /
+    fused_block_bwd timed at the MPP config's bs 32. -> per-GEMM rows."""
+    rows, failures = [], []
+    f32 = torch.float32
+
+    def check(label, outs, plains, controls, ms, lib_ms, flops, nbytes):
+        """outs / plains: [(tensor, fp32?)]; controls: plain outputs that
+        must fail."""
+        measures = [gemm_gate(o, p, fp32) for (o, fp32), (p, _) in zip(outs, plains)]
+        ctl = [gemm_gate(outs[0][0], c, outs[0][1]) for c in controls]
+        b_ms, b_by = bound_ms(flops, nbytes)
+        unit = lambda fp32: "rel" if fp32 else "bf16 steps"
+        phase("block-gemms", f"{label}: " + ", ".join(
+            f"{m:.4g} {unit(fp32)}" for (m, _), (_, fp32) in zip(measures, outs))
+              + " (gates: 1 bf16 step, " + f"{GEMM_FP32_REL} rel); control, last k-step "
+              f"dropped: {', '.join(f'{m:.4g}' for m, _ in ctl)} (must fail); kernel {ms:.4f} "
+              f"ms, torch.mm {lib_ms:.4f} ms ({lib_ms / ms:.3f}x the kernel's speed), bound "
+              f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        if not all(ok for _, ok in measures):
+            failures.append(label)
+        if any(ok for _, ok in ctl):
+            failures.append(f"{label}: a control passed")
+        rows.append({"gemm": label, "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+
+    def drop_last(t, dim):
+        t = t.clone()
+        t.narrow(dim, t.shape[dim] - 64, 64).zero_()
+        return t
+
+    # the forward's four, at SiT-tiny B=256 and SiT-base B=32
+    for width, M, (dim, mlp, hd) in (("SiT-tiny", GEMM_TINY_M, (192, 768, 192)),
+                                     ("SiT-base", GEMM_BASE_M, (768, 3072, 768))):
+        for name, N, K in (("qkv", 3 * hd, dim), ("out", dim, hd), ("fc1", mlp, dim),
+                           ("fc2", dim, mlp)):
+            a, w = gemm_inputs(rng, M, N, K)
+            bias = torch.from_numpy((0.1 * rng.standard_normal(N)).astype(np.float32)).cuda()
+            res = bf16_randn(rng, (M, N)) if name in ("out", "fc2") else None
+            label = f"forward {name} {width} M={M} N={N} K={K}"
+
+            def kernel(aa=a):
+                return fb.block_gemm(aa, w, bias if name != "qkv" else None, res,
+                                     gelu=name == "fc1")
+
+            def plain(aa=a):
+                return fb.gemm_reference(aa.float(), w.float(), bias if name != "qkv" else None,
+                                         res, gelu=name == "fc1")
+
+            got, ref, ctl = kernel(), plain(), plain(drop_last(a, 1))
+            if name == "fc1":
+                outs, plains = [(got[0], False), (got[1], True)], [(ref[0], False), (ref[1], True)]
+                ctl = [ctl[0]]
+            else:
+                outs, plains, ctl = [(got, False)], [(ref, False)], [ctl]
+            del got, ref
+            ms = cuda_ms(kernel)
+            lib_ms = cuda_ms(lambda: torch.mm(a, w.t(), out_dtype=f32))
+            out_bytes = M * N * 2 + (M * N * 4 if name == "fc1" else 0)
+            nbytes = nbytes_of(a, w, bias) + out_bytes + (nbytes_of(res) if res is not None else 0)
+            check(label, outs, plains, ctl, ms, lib_ms, 2 * M * N * K, nbytes)
+            del a, w, res, outs, plains, ctl
+            torch.cuda.empty_cache()
+
+    # the backward's eight, at SiT-tiny B=256: four dX products, four dW
+    M, dim, mlp, hd = GEMM_TINY_M, DIM, MLP, HD
+    for name, N, K, kind in (("df1 = g W_fc2, * GELU'", mlp, dim, "gelu"),
+                             ("dh = df1 W_fc1", dim, mlp, "f32"),
+                             ("da = dx1 W_out", hd, dim, "bf16"),
+                             ("dh = dqkv W_qkv", dim, 3 * hd, "f32")):
+        a = bf16_randn(rng, (M, K), 0.01)  # a cotangent; w the (out = K, in = N) weight
+        w = torch.from_numpy(rng.uniform(-1, 1, (K, N)).astype(np.float32) / np.sqrt(N)).to(
+            "cuda", torch.bfloat16)
+        pre = torch.from_numpy(rng.standard_normal((M, N)).astype(np.float32)).cuda() \
+            if kind == "gelu" else None
+        out_dtype = f32 if kind == "f32" else torch.bfloat16
+        label = f"backward {name} M={M} N={N} K={K}"
+
+        def kernel(aa=a):
+            return fb.block_gemm_nn(aa, w, pre, out_dtype=out_dtype)
+
+        def plain(aa=a):
+            return fb.gemm_nn_reference(aa.float(), w.float(), pre, out_dtype=f32)
+
+        got, ref, ctl = kernel(), plain(), plain(drop_last(a, 1))
+        if kind == "gelu":
+            outs, plains, ctl = [(got[0], False), (got[1], True)], [(ref[0], False),
+                                                                     (ref[1], True)], [ctl[0]]
+        else:
+            outs, plains, ctl = [(got, kind == "f32")], [(ref, kind == "f32")], [ctl]
+        del got, ref
+        ms = cuda_ms(kernel)
+        lib_ms = cuda_ms(lambda: torch.mm(a, w, out_dtype=f32))
+        nbytes = nbytes_of(a, w) + M * N * (4 if kind == "f32" else 2) + (
+            nbytes_of(pre) + 4 * N if pre is not None else 0)
+        check(label, outs, plains, ctl, ms, lib_ms, 2 * M * N * K, nbytes)
+        del a, w, pre, outs, plains, ctl
+        torch.cuda.empty_cache()
+    for name, m_out, n_out in (("dW_fc2 = g^T f", dim, mlp), ("dW_fc1 = df1^T h2", mlp, dim),
+                               ("dW_out = dx1^T attn", dim, hd),
+                               ("dW_qkv = dqkv^T h1", 3 * hd, dim)):
+        a, b = bf16_randn(rng, (M, m_out), 0.01), bf16_randn(rng, (M, n_out))
+        label = f"backward {name} Mout={m_out} Nout={n_out} K={M}"
+        got = fb.block_weight_grad(a, b)
+        ref = fb.weight_grad_reference(a, b)
+        ctl = fb.weight_grad_reference(drop_last(a, 0), b)
+        ms = cuda_ms(lambda: fb.block_weight_grad(a, b))
+        lib_ms = cuda_ms(lambda: torch.mm(a.t(), b, out_dtype=f32))
+        check(label, [(got, True)], [(ref, True)], [ctl], ms, lib_ms, 2 * M * m_out * n_out,
+              nbytes_of(a, b, got))
+        del a, b, got, ref, ctl
+        torch.cuda.empty_cache()
+
+    for width, (B, N, dim, heads, mlp) in (("SiT-tiny", (256, N_TOKENS, DIM, HEADS, MLP)),
+                                           ("SiT-base", (32, 1281, 768, 12, 3072))):
+        fwd_b, train_b, bwd_b = chain_bytes(B, N, dim, heads, mlp)
+        phase("block-gemms", f"{width} B={B} N={N}: the chains' round trips through HBM "
+              f"(chain_bytes) {fwd_b / 1e9:.3f} GB serving forward = "
+              f"{fwd_b / PEAK_BYTES * 1e3:.4f} ms, {train_b / 1e9:.3f} GB training forward = "
+              f"{train_b / PEAK_BYTES * 1e3:.4f} ms, {bwd_b / 1e9:.3f} GB backward = "
+              f"{bwd_b / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s")
+
+    # fused_block_bwd repeats bit for bit at SiT-tiny B=256
+    p = [t.cuda() for t in block_params(rng, DIM, HEADS, MLP)]
+    pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p]
+    kw = dict(heads=HEADS, dim_head=DH)
+    for B, label in ((256, "SiT-tiny B=256"), (MPP_BS, f"SiT-tiny B={MPP_BS} (MPP's bs)")):
+        x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N_TOKENS, DIM)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        g = bf16_randn(rng, (B, N_TOKENS, DIM), G_SCALE)
+        _, sv = fb.train_forward(x, *pb, **kw)
+        if B == 256:
+            first = fb.fused_block_bwd(x, g, *pb, saved=sv, **kw)
+            again = fb.fused_block_bwd(x, g, *pb, saved=sv, **kw)
+            moved = fb.fused_block_bwd(x, bump(g), *pb, saved=sv, **kw)
+            same = all(torch.equal(u, v) for u, v in zip(first, again))
+            control = all(torch.equal(u, v) for u, v in zip(first, moved))
+            # the order of a split-K sum reaches fp32 bits: dW_fc2's partials
+            gm, fm = g.reshape(-1, DIM).float(), sv["f"].reshape(-1, MLP).float()
+            chunk = -(-gm.shape[0] // 16)
+            parts = [gm[s:s + chunk].t() @ fm[s:s + chunk] for s in range(0, gm.shape[0], chunk)]
+            ahead = functools.reduce(torch.add, parts)
+            back = functools.reduce(torch.add, parts[::-1])
+            differ = int((ahead != back).sum())
+            phase("block-gemms", f"fused_block_bwd {label}: two calls on the same inputs "
+                  f"bitwise identical {same} (must be True); controls: one cotangent element "
+                  f"raised by 1, identical {control} (must be False); the plain dW_fc2 as 16 "
+                  f"split partials summed in reverse order, {differ} of {ahead.numel()} fp32 "
+                  "elements differ (must be > 0)")
+            if not same or control or differ == 0:
+                failures.append("fused_block_bwd bitwise repeat")
+            del first, again, moved, parts, ahead, back
+        else:
+            with torch.inference_mode():
+                f_ms = cuda_ms(lambda: fb.fused_block(x, *pb, **kw))
+            b_ms = cuda_ms(lambda: fb.fused_block_bwd(x, g, *pb, saved=sv, **kw))
+            fwd_f, bwd_f = block_flops(B, N_TOKENS, N_TOKENS, DIM, HEADS, MLP, False)
+            phase("block-gemms", f"{label}: fused_block {f_ms:.4f} ms (bound "
+                  f"{bound_ms(fwd_f, 0)[0]:.4f} ms by operations), fused_block_bwd {b_ms:.4f} "
+                  f"ms (bound {bound_ms(bwd_f, 0)[0]:.4f} ms); CUDA-event medians of 25")
+        del x, g, sv
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("block GEMMs: " + "; ".join(failures))
+    return rows
+
+
 def main() -> None:
     # -- 1. device
     start("device")
@@ -3146,7 +3398,7 @@ def main() -> None:
     from surface_vision_transformers_tpu_torch.utils import config
 
     exp = config.load_config(BASE_CFG)
-    phase_base_kernels(rng, fb, sit_module, exp.model, exp.training.bs)
+    base_times = phase_base_kernels(rng, fb, sit_module, exp.model, exp.training.bs)
 
     # -- 11. base-slice
     start("base-slice")
@@ -3221,6 +3473,10 @@ def main() -> None:
     # -- 24. fp32-entry
     start("fp32-entry")
     phase_fp32_entry(fb, *tiny_entry)
+
+    # -- 25. block-gemms
+    start("block-gemms")
+    gemm_rows = phase_block_gemms(rng, fb)
     phase("records", "the attention backward rows, this run's ms beside the two-pass "
           "mma.sync backward's recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at "
           "700 W; a record, not measured in this run): " + ", ".join(
@@ -3235,6 +3491,18 @@ def main() -> None:
           "6, NVIDIA H100 80GB HBM3 at 700 W; a record, not measured in this run): "
           + "; ".join(f"{k_} {fwd_record(k_)} (mma.sync {v_})"
                       for k_, v_ in MMA_SYNC_FWD_MS.items()))
+    block_ms = {"fused_block": kernels["fused_block"]["ms"],
+                "fused_block SiT-base B=32": base_times["fused_block"],
+                "fused_block_cls": kernels["fused_block_cls"]["ms"],
+                "fused_block_bwd": kernels["fused_block_bwd"]["ms"],
+                "fused_block_cls_bwd": kernels["fused_block_cls_bwd"]["ms"]}
+    phase("records", "the block rows, this run's ms beside the mma.sync "
+          "GEMMs' recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W; a record, "
+          "not measured in this run): " + "; ".join(
+              f"{k_} {block_ms[k_]:.4f} (mma.sync {v_})" for k_, v_ in MMA_SYNC_BLOCK_MS.items())
+          + "; the GEMMs alone against torch.mm, ms: " + "; ".join(
+              f"{r_['gemm'].split(' M')[0]} {r_['ms']:.4f} / {r_['library_ms']:.4f}"
+              for r_ in gemm_rows))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

@@ -1,8 +1,10 @@
 // PTX helpers and small device functions shared by the kernels
 // (fused_block.cu: block forward; fused_block_bwd.cu: block backward;
-// flash_attention.cu: attention, forward and backward).
+// flash_attention.cu: attention, forward and backward; gemm.cuh: the block
+// GEMMs), and the host side of their TMA tensor maps.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,12 +34,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
@@ -115,9 +111,10 @@ __device__ __forceinline__ int sw128(int r, int c) {
 }
 
 // Matrix descriptor of a swizzled tile at p (128-byte swizzle, 8-row groups
-// 1024 bytes apart).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+// 1024 bytes apart). `lbo` matters only to an MN-major operand wider than 64
+// (M or N): the bytes from one [rows][64] tile of it to the next.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo = 16) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -148,6 +145,133 @@ __device__ __forceinline__ void wg_hold(uint32_t (&a)[N][4]) {
 // Generic-proxy shared-memory writes (st.shared, cp.async) -> visible to wgmma.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- mbarriers, TMA, named barriers and register budgets (warp-specialised
+// kernels: flash_attention.cu's forward and backward, gemm.cuh)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive and expect `bytes` from the copy engine in the current phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`; a wait
+// far beyond any kernel's run traps rather than hangs.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (long long n = 0; !done; ++n) {
+    if (n > (1ll << 28)) __trap();
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"(smem_u32(bar)), "r"(parity)
+                 : "memory");
+  }
+}
+
+// One box of a 3-D / 4-D tensor map at these coordinates (innermost first)
+// into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap& m, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&m)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap& m, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&m)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of shared memory out to a 3-D tensor map by TMA (rows and columns
+// past the tensor's edges are not written), in the thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap& m, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&m)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of the thread's bulk groups are still reading shared
+// memory (READ) or still pending at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A named barrier among `n` threads (id 0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A warpgroup's register budget (all four warps execute it).
+template <int R>
+__device__ __forceinline__ void set_max_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void set_max_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A TMA map of a bf16 (or `type`) tensor of `rank` dimensions (innermost
+// first, strides in bytes of dimensions 1..rank-1), boxes of `box` elements
+// in the 128-byte swizzle, zero fill past the edges. cuTensorMapEncodeTiled
+// is found through the runtime (cudaGetDriverEntryPoint), so nothing links
+// against libcuda.
+inline cudaError_t encode_tiled(CUtensorMap* m, int rank, const void* p, const cuuint64_t* dims,
+                                const cuuint64_t* strides, const cuuint32_t* box,
+                                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(m, type, (cuuint32_t)rank,
+                            const_cast<void*>(p), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 #define SVT_WG_D32                                                                            \
@@ -194,6 +318,34 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
                "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SVT_WG_R64
                ", %64, %65, p, 1, 1, %67, %68;\n}\n"
                : SVT_WG_D64
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+#define SVT_WG_D96 \
+  SVT_WG_D64, "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+      "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), \
+      "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), \
+      "+f"(d[94]), "+f"(d[95])
+#define SVT_WG_R96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95}"
+
+// The n192 form (the block GEMMs' tile width): d (64 x 192) (+)= A (64 x 16)
+// B (16 x 192); the same thread layout, columns 8 j + 2 t + (e & 1) for j <
+// 24. An MN-major B spans three [16][64] pieces, `lbo` bytes apart in its
+// descriptor.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " SVT_WG_R96
+               ", %96, %97, p, 1, 1, %99, %100;\n}\n"
+               : SVT_WG_D96
                : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

@@ -165,65 +165,11 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Arrive and expect `bytes` from the copy engine in the current phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`; a wait
-// far beyond any kernel's run traps, as wait_turn's does.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (long long n = 0; !done; ++n) {
-    if (n > (1ll << 28)) __trap();
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done)
-                 : "r"(smem_u32(bar)), "r"(parity)
-                 : "memory");
-  }
-}
-
 // One tile of a 4-D tensor map (columns; rows and heads in the map's order;
 // samples) into shared memory, counted on `bar`; the map's box sets its rows.
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& m, uint64_t* bar, int row,
                                          int h, int b, bool heads_first) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(&m)), "r"(0), "r"(heads_first ? h : row),
-      "r"(heads_first ? row : h), "r"(b), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// A named barrier among `n` threads (id 0 is __syncthreads').
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// A warpgroup's register budget (all four warps execute it).
-template <int R>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+  tma_load_4d(dst, m, bar, 0, heads_first ? h : row, heads_first ? row : h, b);
 }
 
 // -- forward -----------------------------------------------------------------
@@ -943,26 +889,11 @@ __global__ void __launch_bounds__(256)
         row + 8 < qend ? pack_bf16(a.z, a.w) : 0u;
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // A TMA map of the (B, heads, n, 64) operand t, boxes of `rows` x 64 in the
 // 128-byte swizzle; the two middle dimensions in increasing stride (heads
 // first for the packed (B, n, heads * 64) layouts).
 cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
                        bool heads_first, int rows = 64) {
-  static EncodeTiledFn encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
   const cuuint64_t dims[4] = {ATT_DH, (cuuint64_t)(heads_first ? heads : n),
                               (cuuint64_t)(heads_first ? n : heads), (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(heads_first ? t.sh : t.sr) * 2,
@@ -970,11 +901,7 @@ cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n
                                  (cuuint64_t)t.sb * 2};
   const cuuint32_t box[4] = {ATT_DH, heads_first ? 1u : (cuuint32_t)rows,
                              heads_first ? (cuuint32_t)rows : 1u, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, t.p, dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tiled(m, 4, t.p, dims, strides, box);
 }
 
 template <bool DROP>

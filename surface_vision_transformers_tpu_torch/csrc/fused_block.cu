@@ -19,13 +19,14 @@
 // pre-activation and the attention row log-sum-exp.
 //
 // Bounds on this card: at SiT-tiny (dim 192, mlp 768, N 321) the four GEMMs
-// are ~70% of the FLOPs and run on bf16 tensor cores (mma.sync m16n8k16,
-// fp32 accumulation); every intermediate makes one round trip through HBM,
-// so the chain moves ~10x the bytes of the block's input and output.
-// Measured on an H100 (PERF.md), a GEMM here reaches ~100 TFLOP/s, a tenth
-// of the bf16 peak, far from HBM bandwidth too: the simple mma.sync tiling
-// bounds this version. wgmma, TMA, deeper pipelines, LN folded into the GEMM
-// prologues and intermediates kept on chip are later work.
+// are ~70% of the FLOPs; every intermediate makes one round trip through HBM,
+// so the chain moves ~10x the bytes of the block's input and output (0.82 GB
+// at B=256: 0.25 ms at 3.35 TB/s). The GEMMs run on gemm.cuh's engine: a
+// persistent, warp-specialised kernel (one producer thread loading A and W
+// tiles by TMA into an mbarrier ring, two consumer warpgroups on m64n192k16
+// wgmma) with the bias / erf-GELU / residual epilogues fused into a store
+// by TMA. LN folded into the GEMM prologues and intermediates kept on chip
+// are later work.
 //
 // Numerics follow the TPU kernel's rounding points (bf16 after LN, QKV,
 // P, P.V, x1, GELU; fp32 statistics, scores, softmax sums and epilogues),
@@ -38,6 +39,7 @@
 // synchronises and nothing allocates: the caller passes outputs and scratch.
 
 #include "flash_attention.cuh"
+#include "gemm.cuh"
 
 namespace {
 
@@ -76,128 +78,6 @@ __global__ void __launch_bounds__(LN_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: C[M, N] = A[M, K] . W[N, K]^T (+ epilogue), W in torch Linear layout.
-// 128x64 CTA tile, 4 warps of 32x64, K steps of 32 through a two-stage
-// cp.async ring; the ragged M, N and K edges are zero-filled / masked.
-// Needs K % 8 == 0, N % 8 == 0 and 16-byte aligned rows (checked by the host).
-
-enum { EPI_NONE = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RES = 2 };
-
-constexpr int GBM = 128, GBN = 64, GBK = 32, GLD = GBK + 8, G_THREADS = 128;
-
-template <int EPI>
-__global__ void __launch_bounds__(G_THREADS)
-    gemm_kernel(const bf16* __restrict__ A, int lda, int a_rpg, int a_gstride,
-                const bf16* __restrict__ W, const float* __restrict__ bias,
-                const bf16* __restrict__ R, int ldr, int r_rpg, int r_gstride,
-                bf16* __restrict__ C, int ldc, int M, int N, int K,
-                float* __restrict__ Cpre) {
-  __shared__ __align__(16) bf16 sA[2][GBM * GLD];
-  __shared__ __align__(16) bf16 sB[2][GBN * GLD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
-  const int KT = (K + GBK - 1) / GBK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * GBK;
-#pragma unroll
-    for (int i = 0; i < (GBM * GBK / 8) / G_THREADS; ++i) {
-      const int c = tid + i * G_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gr = m0 + r, gk = k0 + kc;
-      const bool ok = gr < M && gk < K;
-      const bf16* src = ok ? A + map_row(gr, a_rpg, a_gstride) * lda + gk : A;
-      cp_async16(&sA[stage][r * GLD + kc], src, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < (GBN * GBK / 8) / G_THREADS; ++i) {
-      const int c = tid + i * G_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gn = n0 + r, gk = k0 + kc;
-      const bool ok = gn < N && gk < K;
-      const bf16* src = ok ? W + (long long)gn * K + gk : W;
-      cp_async16(&sB[stage][r * GLD + kc], src, ok);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load_stage((kt + 1) & 1, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* a_s = sA[kt & 1];
-    const bf16* b_s = sB[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(af[mi], a_s + (warp * 32 + mi * 16 + (lane & 15)) * GLD + kk +
-                                (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, b_s + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * GLD + kk +
-                             ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nj], af[mi], bfr[0], bfr[1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + warp * 32 + mi * 16 + g + half * 8;
-      if (r >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int c = n0 + ni * 8 + 2 * t;
-        if (c >= N) continue;
-        float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
-        if (EPI != EPI_NONE) {
-          v0 += bias[c];
-          v1 += bias[c + 1];
-        }
-        if (EPI == EPI_BIAS_GELU) {
-          if (Cpre != nullptr)  // training: the fp32 pre-activation, for GELU'
-            *reinterpret_cast<float2*>(Cpre + (long long)r * ldc + c) = make_float2(v0, v1);
-          v0 = gelu_erf(v0);
-          v1 = gelu_erf(v1);
-        }
-        if (EPI == EPI_BIAS_RES) {
-          const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(
-              R + map_row(r, r_rpg, r_gstride) * ldr + c);
-          v0 += __low2float(rv);
-          v1 += __high2float(rv);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(C + (long long)r * ldc + c) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-}
-
-// ---------------------------------------------------------------------------
 // Host-side launch helpers (all on `stream`, no synchronisation).
 
 cudaError_t launch_ln(const bf16* x, const float* g, const float* b, bf16* y, int rows, int dim,
@@ -208,15 +88,33 @@ cudaError_t launch_ln(const bf16* x, const float* g, const float* b, bf16* y, in
   return cudaGetLastError();
 }
 
+// The chain's products on gemm.cuh's engine: C = epi(A W^T), W (N, K) in
+// the torch Linear layout; A's rows through (rpg, gstride) as map_row
+// (rpg 0: A's own rows).
 template <int EPI>
-cudaError_t launch_gemm(const bf16* A, int lda, int a_rpg, int a_gstride, const bf16* W,
-                        const float* bias, const bf16* R, int ldr, int r_rpg, int r_gstride,
-                        bf16* C, int ldc, int M, int N, int K, cudaStream_t st,
-                        float* Cpre = nullptr) {
-  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  gemm_kernel<EPI><<<grid, G_THREADS, 0, st>>>(A, lda, a_rpg, a_gstride, W, bias, R, ldr, r_rpg,
-                                               r_gstride, C, ldc, M, N, K, Cpre);
-  return cudaGetLastError();
+cudaError_t launch_gemm(const bf16* A, int M, int K, int rpg, int gstride, const bf16* W, int N,
+                        gemm::Epilogue ep, cudaStream_t st) {
+  return gemm::linear<EPI>(gemm::Operand{A, M, K, K, rpg, gstride}, W, N, ep, st);
+}
+
+gemm::Epilogue out_bf16(bf16* C, int ldc, const float* bias = nullptr, float* pre = nullptr) {
+  gemm::Epilogue ep;
+  ep.cb = C;
+  ep.ldc = ldc;
+  ep.bias = bias;
+  ep.pre = pre;
+  return ep;
+}
+
+// C = A W^T + bias + R, R's rows through (rpg, gstride).
+gemm::Epilogue out_res(bf16* C, int ldc, const float* bias, const bf16* R, int ldr, int rpg,
+                       int gstride) {
+  gemm::Epilogue ep = out_bf16(C, ldc, bias);
+  ep.res = R;
+  ep.ldr = ldr;
+  ep.r_rpg = rpg;
+  ep.r_gstride = gstride;
+  return ep;
 }
 
 // Attention on the packed activations (B, rows, ld), head h at columns
@@ -253,17 +151,18 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
   bf16* h2 = s.h2 != nullptr ? s.h2 : h;
 
   SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1, st));
-  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, M, 0, (const bf16*)w_qkv, nullptr, nullptr, 0, 1, 0, qkv,
-                                3 * hd, M, 3 * hd, dim, st));
+  SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, (const bf16*)w_qkv, 3 * hd,
+                                    out_bf16(qkv, 3 * hd), st));
   SVT_TRY(launch_attention(qkv, 3 * hd, N, qkv + hd, qkv + 2 * hd, 3 * hd, N, attn, hd, B, heads,
                            valid_len, s.lse, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, M, 0, (const bf16*)w_out, (const float*)b_out, xb,
-                                    dim, M, 0, x1, dim, M, dim, hd, st));
+  SVT_TRY(launch_gemm<gemm::F_RES>(attn, M, hd, 0, 0, (const bf16*)w_out, dim,
+                                   out_res(x1, dim, (const float*)b_out, xb, dim, M, 0), st));
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, M, dim, eps, s.stats2, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_GELU>(h2, dim, M, 0, (const bf16*)w_fc1, (const float*)b_fc1,
-                                     nullptr, 0, 1, 0, f, mlp, M, mlp, dim, st, s.fpre));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(f, mlp, M, 0, (const bf16*)w_fc2, (const float*)b_fc2, x1, dim,
-                                    M, 0, static_cast<bf16*>(out), dim, M, dim, mlp, st));
+  SVT_TRY(launch_gemm<gemm::F_GELU>(h2, M, dim, 0, 0, (const bf16*)w_fc1, mlp,
+                                    out_bf16(f, mlp, (const float*)b_fc1, s.fpre), st));
+  SVT_TRY(launch_gemm<gemm::F_RES>(
+      f, M, mlp, 0, 0, (const bf16*)w_fc2, dim,
+      out_res(static_cast<bf16*>(out), dim, (const float*)b_fc2, x1, dim, M, 0), st));
   return (int)cudaSuccess;
 }
 
@@ -281,19 +180,18 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   bf16* h2 = s.h2 != nullptr ? s.h2 : h;
 
   SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1, st));
-  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, M, 0, wkv, nullptr, nullptr, 0, 1, 0, kv, 2 * hd, M,
-                                2 * hd, dim, st));
-  SVT_TRY(launch_gemm<EPI_NONE>(h, dim, rows, N, wq, nullptr, nullptr, 0, 1, 0, q, hd, Mt, hd,
-                                dim, st));
+  SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, wkv, 2 * hd, out_bf16(kv, 2 * hd), st));
+  SVT_TRY(launch_gemm<gemm::F_NONE>(h, Mt, dim, rows, N, wq, hd, out_bf16(q, hd), st));
   SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, valid_len,
                            s.lse, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(attn, hd, Mt, 0, (const bf16*)w_out, (const float*)b_out, xb,
-                                    dim, rows, N, x1, dim, Mt, dim, hd, st));
+  SVT_TRY(launch_gemm<gemm::F_RES>(attn, Mt, hd, 0, 0, (const bf16*)w_out, dim,
+                                   out_res(x1, dim, (const float*)b_out, xb, dim, rows, N), st));
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, Mt, dim, eps, s.stats2, st));
-  SVT_TRY(launch_gemm<EPI_BIAS_GELU>(h2, dim, Mt, 0, (const bf16*)w_fc1, (const float*)b_fc1,
-                                     nullptr, 0, 1, 0, f, mlp, Mt, mlp, dim, st, s.fpre));
-  SVT_TRY(launch_gemm<EPI_BIAS_RES>(f, mlp, Mt, 0, (const bf16*)w_fc2, (const float*)b_fc2, x1,
-                                    dim, Mt, 0, static_cast<bf16*>(out), dim, Mt, dim, mlp, st));
+  SVT_TRY(launch_gemm<gemm::F_GELU>(h2, Mt, dim, 0, 0, (const bf16*)w_fc1, mlp,
+                                    out_bf16(f, mlp, (const float*)b_fc1, s.fpre), st));
+  SVT_TRY(launch_gemm<gemm::F_RES>(
+      f, Mt, mlp, 0, 0, (const bf16*)w_fc2, dim,
+      out_res(static_cast<bf16*>(out), dim, (const float*)b_fc2, x1, dim, Mt, 0), st));
   return (int)cudaSuccess;
 }
 
@@ -369,5 +267,31 @@ int svt_fused_block_cls_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv
                        (bf16*)x1, (bf16*)f, s, B, N, rows, dim, heads, dim_head, mlp, valid_len,
                        eps, device, stream);
 }
+
+// One forward product of the chain alone, for holding it against its plain
+// version: C (M, N) bf16 = epi(A (M, K) . W (N, K)^T) with epi 0 = none,
+// 1 = bias + erf-GELU (with Cpre set, the fp32 pre-activation kept there),
+// 2 = bias + the residual R (M, N).
+int svt_block_gemm(int epi, void* A, void* W, void* bias, void* R, void* C, void* Cpre, int M,
+                   int N, int K, int device, void* stream) {
+  SVT_TRY(cudaSetDevice(device));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* a = static_cast<const bf16*>(A);
+  const bf16* w = static_cast<const bf16*>(W);
+  bf16* c = static_cast<bf16*>(C);
+  if (epi == 0) return (int)launch_gemm<gemm::F_NONE>(a, M, K, 0, 0, w, N, out_bf16(c, N), st);
+  if (epi == 1)
+    return (int)launch_gemm<gemm::F_GELU>(a, M, K, 0, 0, w, N,
+                                          out_bf16(c, N, (const float*)bias, (float*)Cpre), st);
+  if (epi == 2)
+    return (int)launch_gemm<gemm::F_RES>(
+        a, M, K, 0, 0, w, N, out_res(c, N, (const float*)bias, (const bf16*)R, N, M, 0), st);
+  return (int)cudaErrorInvalidValue;
+}
+
+#ifdef SVT_GEMM_PROFILE
+// The engine's cycle counts (gemm.cuh), read and zeroed.
+int svt_gemm_profile(unsigned long long* out) { return svt::gemm::profile_read(out); }
+#endif
 
 }  // extern "C"

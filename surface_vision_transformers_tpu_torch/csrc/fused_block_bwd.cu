@@ -41,23 +41,20 @@
 // at the 989 TFLOP/s bf16 peak; its own inputs and outputs (x, g, weights,
 // dx, the 11 gradients) are ~97 MB, 0.03 ms at 3.35 TB/s, so the bound is
 // the operations'. Reading back what the forward kept (~0.6 GB, 0.18 ms of
-// HBM traffic) is this design's cost, not the bound's. The GEMMs use the
-// forward's mma.sync
-// m16n8k16 tiling (128x64x32, two-stage cp.async), so the same ~10% of peak
-// is expected; wgmma/TMA are later work.
+// HBM traffic) is this design's cost, not the bound's.
 //
-// Operand layouts: the forward's GEMM reads W[n][k] (K contiguous). Here
-// dX = dY W reads W as (K=out, N=in) with N contiguous, and dW = dY^T X
-// reads both operands along M (the rows). Both are staged in shared memory
-// in their global layout and turned into mma fragments with ldmatrix.trans;
-// nothing is transposed in device memory.
+// Every product runs on gemm.cuh's engine (TMA into an mbarrier ring, two
+// consumer warpgroups on m64n192k16 wgmma, a persistent grid).
+// dX = dY W reads W as (K = out, N = in), N-major; dW = dY^T X reads both
+// operands along the token rows, MN-major; nothing is transposed in device
+// memory.
 //
 // Weight gradients reduce over M = B*N = 82,176 rows into small matrices
-// (dW_out is 192x192: six 128x64 tiles). The M reduction is split over
-// gridDim.z into fp32 partials (about two waves of 132 SMs in all) and a
+// (dW_out is 192x192: two 128x192 tiles). The M reduction is split into
+// fp32 partials (about one wave of 132 SMs of tiles, gemm::split_k) and a
 // second pass sums them in a fixed order; column sums (bias and LN
-// gradients) are per-CTA partials reduced the same way. No atomics: results
-// repeat bit for bit from run to run.
+// gradients) are per-tile partials reduced the same way. No atomics:
+// results repeat bit for bit from run to run.
 //
 // C interface, loaded with ctypes, as fused_block.cu: each entry returns 0 or
 // the first CUDA error, synchronises nothing and allocates nothing.
@@ -65,195 +62,14 @@
 #include <algorithm>
 
 #include "flash_attention.cuh"
+#include "gemm.cuh"
 
 namespace {
 
 using namespace svt;
 
 // ---------------------------------------------------------------------------
-// GEMM: C[M, N] = sum_k A(m, k) B(k, n), bf16 operands, fp32 accumulation.
-//   A_KM false: A(m, k) = A[m * lda + k]  (dY rows; the dX products)
-//   A_KM true:  A(m, k) = A[k * lda + m]  (dY^T; the dW products, K = rows)
-//   B(k, n) = B[map_row(k) * ldb + n]     (N contiguous: a torch (out, in)
-//                                          weight, or the activations X)
-// Split-K over gridDim.z in chunks of k_chunk (a multiple of BBK).
-
-enum { BE_PART = 0, BE_F32 = 1, BE_BF16 = 2, BE_GELU_GRAD = 3, BE_ADD_F32 = 4 };
-
-constexpr int BBM = 128, BBN = 64, BBK = 32, B_THREADS = 128;
-constexpr int LDA_MK = BBK + 8, LDA_KM = BBM + 8, LDB_KN = BBN + 8;
-constexpr int TARGET_CTAS = 264;  // two waves of the H100's 132 SMs
-
-struct GemmArgs {
-  const bf16* A;
-  int lda;
-  const bf16* B;
-  int ldb, b_rpg, b_gstride;
-  int M, N, K, k_chunk;
-  float* Cf;  // BE_PART: partials [split][M][N]; BE_F32, BE_ADD_F32: C (ldc)
-  bf16* Cb;   // BE_BF16, BE_GELU_GRAD: C (ldc)
-  int ldc, c_rpg, c_gstride;  // output row map (BE_ADD_F32)
-  const float* pre;           // BE_GELU_GRAD: fp32 pre-activation (ldc)
-  float* colpart;             // BE_GELU_GRAD: column sums per M tile [tile][N]
-};
-
-template <bool A_KM, int EPI>
-__global__ void __launch_bounds__(B_THREADS) gemm_bwd_kernel(const GemmArgs p) {
-  constexpr int A_ELEMS = A_KM ? BBK * LDA_KM : BBM * LDA_MK;
-  __shared__ __align__(16) bf16 sA[2][A_ELEMS];
-  __shared__ __align__(16) bf16 sB[2][BBK * LDB_KN];
-  __shared__ float sCol[4][BBN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BBN, m0 = blockIdx.y * BBM;
-  const int kbeg = blockIdx.z * p.k_chunk;
-  const int kend = min(p.K, kbeg + p.k_chunk);
-  const int KT = kend > kbeg ? (kend - kbeg + BBK - 1) / BBK : 0;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kbeg + kt * BBK;
-    if (A_KM) {
-#pragma unroll
-      for (int i = 0; i < (BBK * BBM / 8) / B_THREADS; ++i) {
-        const int c = tid + i * B_THREADS;
-        const int kr = c >> 4, mc = (c & 15) * 8;
-        const int gk = k0 + kr, gm = m0 + mc;
-        const bool ok = gk < kend && gm < p.M;
-        const bf16* src = ok ? p.A + (long long)gk * p.lda + gm : p.A;
-        cp_async16(&sA[stage][kr * LDA_KM + mc], src, ok);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < (BBM * BBK / 8) / B_THREADS; ++i) {
-        const int c = tid + i * B_THREADS;
-        const int r = c >> 2, kc = (c & 3) * 8;
-        const int gm = m0 + r, gk = k0 + kc;
-        const bool ok = gm < p.M && gk < kend;
-        const bf16* src = ok ? p.A + (long long)gm * p.lda + gk : p.A;
-        cp_async16(&sA[stage][r * LDA_MK + kc], src, ok);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < (BBK * BBN / 8) / B_THREADS; ++i) {
-      const int c = tid + i * B_THREADS;
-      const int kr = c >> 3, nc = (c & 7) * 8;
-      const int gk = k0 + kr, gn = n0 + nc;
-      const bool ok = gk < kend && gn < p.N;
-      const bf16* src = ok ? p.B + map_row(gk, p.b_rpg, p.b_gstride) * p.ldb + gn : p.B;
-      cp_async16(&sB[stage][kr * LDB_KN + nc], src, ok);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  if (KT > 0) {
-    load_stage(0, 0);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load_stage((kt + 1) & 1, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* a_s = sA[kt & 1];
-    const bf16* b_s = sB[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < BBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        if (A_KM) {
-          // stored [k][m]: matrix j covers m + (j & 1) * 8, k + (j >> 1) * 8
-          const int j = lane >> 3;
-          ldmatrix_x4_trans(af[mi], a_s + (kk + (j >> 1) * 8 + (lane & 7)) * LDA_KM + warp * 32 +
-                                        mi * 16 + (j & 1) * 8);
-        } else {
-          ldmatrix_x4(af[mi], a_s + (warp * 32 + mi * 16 + (lane & 15)) * LDA_MK + kk +
-                                  (lane >> 4) * 8);
-        }
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, b_s + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB_KN +
-                                   nj * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nj], af[mi], bfr[0], bfr[1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-  float cs[8][2];
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) cs[ni][0] = cs[ni][1] = 0.f;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + warp * 32 + mi * 16 + g + half * 8;
-      if (r >= p.M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int c = n0 + ni * 8 + 2 * t;
-        if (c >= p.N) continue;
-        float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
-        if (EPI == BE_PART) {
-          *reinterpret_cast<float2*>(p.Cf + ((long long)blockIdx.z * p.M + r) * p.N + c) =
-              make_float2(v0, v1);
-        } else if (EPI == BE_F32) {
-          *reinterpret_cast<float2*>(p.Cf + (long long)r * p.ldc + c) = make_float2(v0, v1);
-        } else if (EPI == BE_ADD_F32) {
-          float2* dst = reinterpret_cast<float2*>(
-              p.Cf + map_row(r, p.c_rpg, p.c_gstride) * p.ldc + c);
-          float2 o = *dst;
-          o.x += v0;
-          o.y += v1;
-          *dst = o;
-        } else {
-          if (EPI == BE_GELU_GRAD) {
-            const float2 f = *reinterpret_cast<const float2*>(p.pre + (long long)r * p.ldc + c);
-            v0 *= gelu_erf_grad(f.x);
-            v1 *= gelu_erf_grad(f.y);
-            cs[ni][0] += v0;
-            cs[ni][1] += v1;
-          }
-          *reinterpret_cast<__nv_bfloat162*>(p.Cb + (long long)r * p.ldc + c) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-
-  if (EPI == BE_GELU_GRAD) {  // fp32 column sums of this tile, fixed order
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v = cs[ni][j];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0) sCol[warp][ni * 8 + 2 * t + j] = v;
-      }
-    __syncthreads();
-    if (tid < BBN && n0 + tid < p.N)
-      p.colpart[(long long)blockIdx.y * p.N + n0 + tid] =
-          ((sCol[0][tid] + sCol[1][tid]) + sCol[2][tid]) + sCol[3][tid];
-  }
-}
+// Fixed-order sums of partials.
 
 // out[i] = sum_{q < P} part[q * stride + i], summed in order q = 0, 1, ...
 __global__ void reduce_kernel(const float* __restrict__ part, int P, long long stride, int count,
@@ -357,13 +173,12 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// Splits of a dW product's K = rows: about TARGET_CTAS CTAs in all.
+// Splits of a dW product's K (the token rows): gemm::split_k's rule.
 int dw_splits(int Mout, int Nout, int K) {
-  const int tiles = ceil_div(Mout, BBM) * ceil_div(Nout, BBN);
-  return std::max(1, std::min(ceil_div(TARGET_CTAS, tiles), ceil_div(K, BBK)));
+  int splits, chunk;
+  gemm::split_k(Mout, Nout, K, &splits, &chunk);
+  return splits;
 }
-
-int dw_k_chunk(int K, int splits) { return ceil_div(ceil_div(K, splits), BBK) * BBK; }
 
 int ln_bwd_ctas(int rows) { return ceil_div(rows, LNB_WARPS * LNB_ROWS); }
 
@@ -374,54 +189,34 @@ cudaError_t reduce(const float* part, int P, long long stride, int count, float*
 }
 
 // out (Mout, Nout) fp32 = A^T B: A (K rows, lda) holds the Mout columns,
-// B (K rows through its row map, ldb) the Nout columns.
+// B (K rows through its row map, ldb) the Nout columns; split-K partials in
+// `part`, then summed in order.
 cudaError_t weight_grad(const bf16* A, int lda, const bf16* B, int ldb, int b_rpg, int b_gstride,
                         int Mout, int Nout, int K, float* out, float* part, cudaStream_t st) {
-  const int s = dw_splits(Mout, Nout, K);
-  GemmArgs p{};
-  p.A = A;
-  p.lda = lda;
-  p.B = B;
-  p.ldb = ldb;
-  p.b_rpg = b_rpg;
-  p.b_gstride = b_gstride;
-  p.M = Mout;
-  p.N = Nout;
-  p.K = K;
-  p.k_chunk = dw_k_chunk(K, s);
-  p.Cf = part;
-  dim3 grid(ceil_div(Nout, BBN), ceil_div(Mout, BBM), s);
-  gemm_bwd_kernel<true, BE_PART><<<grid, B_THREADS, 0, st>>>(p);
-  cudaError_t e = cudaGetLastError();
+  int s = 0;
+  const cudaError_t e = gemm::weight_grad_partials(gemm::Operand{A, K, Mout, lda},
+                                                   gemm::Operand{B, K, Nout, ldb, b_rpg, b_gstride},
+                                                   part, &s, st);
   if (e != cudaSuccess) return e;
   return reduce(part, s, (long long)Mout * Nout, Mout * Nout, out, st);
 }
 
-// C (M, N) = A W: A (M, K) row-major (lda), W the torch (out=K, in=N) weight.
+// C (M, N) = A W: A (M, K) row-major (lda), W the torch (out=K, in=N) weight;
+// fp32 C (Cf), bf16 C (Cb), bf16 C * gelu'(pre) with per-tile column sums
+// (colpart), or fp32 C added into Cf's rows through (c_rpg, c_gstride).
 template <int EPI>
 cudaError_t gemm_nn(const bf16* A, int lda, const bf16* W, int M, int N, int K, float* Cf,
                     bf16* Cb, int ldc, cudaStream_t st, const float* pre = nullptr,
                     float* colpart = nullptr, int c_rpg = 1, int c_gstride = 1) {
-  GemmArgs p{};
-  p.A = A;
-  p.lda = lda;
-  p.B = W;
-  p.ldb = N;
-  p.b_rpg = p.b_gstride = 1;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.k_chunk = K;
-  p.Cf = Cf;
-  p.Cb = Cb;
-  p.ldc = ldc;
-  p.c_rpg = c_rpg;
-  p.c_gstride = c_gstride;
-  p.pre = pre;
-  p.colpart = colpart;
-  dim3 grid(ceil_div(N, BBN), ceil_div(M, BBM), 1);
-  gemm_bwd_kernel<false, EPI><<<grid, B_THREADS, 0, st>>>(p);
-  return cudaGetLastError();
+  gemm::Epilogue ep;
+  ep.cf = Cf;
+  ep.cb = Cb;
+  ep.ldc = ldc;
+  ep.pre = const_cast<float*>(pre);
+  ep.colpart = colpart;
+  ep.c_rpg = c_rpg;
+  ep.c_gstride = c_gstride;
+  return gemm::linear_dx<EPI>(gemm::Operand{A, M, K, lda}, W, N, ep, st);
 }
 
 // LayerNorm backward over `rows` rows, then its column sums into vecs[q]
@@ -459,11 +254,12 @@ int mlp_branch_bwd(const bf16* g, const bf16* w_fc1, const bf16* w_fc2, const fl
                    float* d_bfc1, float* d_wfc2, float* d_bfc2, float* d_bout, bf16* df1,
                    float* dh, float* dx1, bf16* dx1b, float* part, int Mr, int seg, int dim,
                    int mlp, cudaStream_t st) {
-  SVT_TRY(weight_grad(g, dim, f, mlp, 1, 1, dim, mlp, Mr, d_wfc2, part, st));
-  SVT_TRY(gemm_nn<BE_GELU_GRAD>(g, dim, w_fc2, Mr, mlp, dim, nullptr, df1, mlp, st, fpre, part));
-  SVT_TRY(reduce(part, ceil_div(Mr, BBM), mlp, mlp, d_bfc1, st));
-  SVT_TRY(weight_grad(df1, mlp, h2, dim, 1, 1, mlp, dim, Mr, d_wfc1, part, st));
-  SVT_TRY(gemm_nn<BE_F32>(df1, mlp, w_fc1, Mr, dim, mlp, dh, nullptr, dim, st));
+  SVT_TRY(weight_grad(g, dim, f, mlp, 0, 0, dim, mlp, Mr, d_wfc2, part, st));
+  SVT_TRY(gemm_nn<gemm::B_GELU_GRAD>(g, dim, w_fc2, Mr, mlp, dim, nullptr, df1, mlp, st, fpre,
+                                     part));
+  SVT_TRY(reduce(part, ceil_div(Mr, gemm::BM), mlp, mlp, d_bfc1, st));
+  SVT_TRY(weight_grad(df1, mlp, h2, dim, 0, 0, mlp, dim, Mr, d_wfc1, part, st));
+  SVT_TRY(gemm_nn<gemm::B_F32>(df1, mlp, w_fc1, Mr, dim, mlp, dh, nullptr, dim, st));
   float* const vecs[4] = {d_ln2_s, d_ln2_b, d_bfc2, d_bout};
   SVT_TRY(ln_bwd<bf16>(dh, x1, stats2, ln2_s, g, seg, seg, dx1, dx1b, Mr, dim, part, 4, vecs,
                        st));
@@ -486,7 +282,7 @@ long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, in
                        {hd, dim, Mt},     {2 * hd, dim, M}};
   for (const auto& s : dw)
     need = std::max(need, (long long)dw_splits(s[0], s[1], s[2]) * s[0] * s[1]);
-  need = std::max(need, (long long)ceil_div(M, BBM) * mlp);
+  need = std::max(need, (long long)ceil_div(M, gemm::BM) * mlp);
   need = std::max(need, (long long)ln_bwd_ctas(M) * 4 * dim);
   return std::max(need, flash_bwd_workspace(B, heads, rows));  // the attention's dQ sums
 }
@@ -524,17 +320,17 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
       (float*)d_bfc2, (float*)d_bout, (bf16*)df1, (float*)dh, (float*)dx1, dx1b_, part, M, N, dim,
       mlp, st);
   if (err) return err;
-  SVT_TRY(weight_grad(dx1b_, dim, (const bf16*)attn, hd, 1, 1, dim, hd, M, (float*)d_wout, part,
+  SVT_TRY(weight_grad(dx1b_, dim, (const bf16*)attn, hd, 0, 0, dim, hd, M, (float*)d_wout, part,
                       st));
-  SVT_TRY(gemm_nn<BE_BF16>(dx1b_, dim, (const bf16*)w_out, M, hd, dim, nullptr, (bf16*)da, hd,
+  SVT_TRY(gemm_nn<gemm::B_BF16>(dx1b_, dim, (const bf16*)w_out, M, hd, dim, nullptr, (bf16*)da, hd,
                            st));
   SVT_TRY(attn_bwd(qkv_, 3 * hd, N, qkv_ + hd, qkv_ + 2 * hd, 3 * hd, N, (const bf16*)attn,
                    (const bf16*)da, hd, (const float*)lse, (float*)delta, part, dqkv_, 3 * hd,
                    dqkv_ + hd, dqkv_ + 2 * hd, 3 * hd, B, heads, valid_len, st));
-  SVT_TRY(weight_grad(dqkv_, 3 * hd, (const bf16*)h1, dim, 1, 1, 3 * hd, dim, M, (float*)d_wqkv,
+  SVT_TRY(weight_grad(dqkv_, 3 * hd, (const bf16*)h1, dim, 0, 0, 3 * hd, dim, M, (float*)d_wqkv,
                       part, st));
-  SVT_TRY(gemm_nn<BE_F32>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd, (float*)dh, nullptr,
-                          dim, st));
+  SVT_TRY(gemm_nn<gemm::B_F32>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd, (float*)dh,
+                               nullptr, dim, st));
   float* const vecs[2] = {(float*)d_ln1_s, (float*)d_ln1_b};
   SVT_TRY(ln_bwd<float>((const float*)dh, (const bf16*)x, (const float*)stats1,
                         (const float*)ln1_s, (const float*)dx1, N, N, nullptr, (bf16*)dx, M, dim,
@@ -578,9 +374,9 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
       (float*)d_bfc2, (float*)d_bout, (bf16*)df1, dh_, (float*)dx1, dx1b_, part, Mt, rows, dim,
       mlp, st);
   if (err) return err;
-  SVT_TRY(weight_grad(dx1b_, dim, (const bf16*)attn, hd, 1, 1, dim, hd, Mt, (float*)d_wout, part,
+  SVT_TRY(weight_grad(dx1b_, dim, (const bf16*)attn, hd, 0, 0, dim, hd, Mt, (float*)d_wout, part,
                       st));
-  SVT_TRY(gemm_nn<BE_BF16>(dx1b_, dim, (const bf16*)w_out, Mt, hd, dim, nullptr, (bf16*)da, hd,
+  SVT_TRY(gemm_nn<gemm::B_BF16>(dx1b_, dim, (const bf16*)w_out, Mt, hd, dim, nullptr, (bf16*)da, hd,
                            st));
   SVT_TRY(attn_bwd((const bf16*)q, hd, rows, kv_, kv_ + hd, 2 * hd, N, (const bf16*)attn,
                    (const bf16*)da, hd, (const float*)lse, (float*)delta, part, dq_, hd, dkv_,
@@ -588,16 +384,53 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
   // dW_qkv rows [0, hd) from the top rows' dq, rows [hd, 3hd) from every row's dk/dv
   SVT_TRY(weight_grad(dq_, hd, (const bf16*)h1, dim, rows, N, hd, dim, Mt, (float*)d_wqkv, part,
                       st));
-  SVT_TRY(weight_grad(dkv_, 2 * hd, (const bf16*)h1, dim, 1, 1, 2 * hd, dim, M,
+  SVT_TRY(weight_grad(dkv_, 2 * hd, (const bf16*)h1, dim, 0, 0, 2 * hd, dim, M,
                       (float*)d_wqkv + (long long)hd * dim, part, st));
-  SVT_TRY(gemm_nn<BE_F32>(dkv_, 2 * hd, wkv, M, dim, 2 * hd, dh_, nullptr, dim, st));
-  SVT_TRY(gemm_nn<BE_ADD_F32>(dq_, hd, wq, Mt, dim, hd, dh_, nullptr, dim, st, nullptr, nullptr,
-                              rows, N));
+  SVT_TRY(gemm_nn<gemm::B_F32>(dkv_, 2 * hd, wkv, M, dim, 2 * hd, dh_, nullptr, dim, st));
+  SVT_TRY(gemm_nn<gemm::B_ADD_F32>(dq_, hd, wq, Mt, dim, hd, dh_, nullptr, dim, st, nullptr,
+                                   nullptr, rows, N));
   float* const vecs[2] = {(float*)d_ln1_s, (float*)d_ln1_b};
   SVT_TRY(ln_bwd<float>(dh_, (const bf16*)x, (const float*)stats1, (const float*)ln1_s,
                         (const float*)dx1, N, rows, nullptr, (bf16*)dx, M, dim, part, 2, vecs,
                         st));
   return (int)cudaSuccess;
 }
+
+// The backward's products alone, for holding them against their plain
+// versions. C (M, N) = A (M, K) W, W the torch (out = K, in = N) weight:
+// epi 0 = fp32 C into Cf, 1 = bf16 C into Cb, 2 = bf16 C * gelu'(pre) into
+// Cb (pre fp32 (M, N)) with the column sums of each 128-row tile into
+// colpart (ceil(M / 128), N).
+int svt_block_gemm_nn(int epi, void* A, void* W, void* Cf, void* Cb, void* pre, void* colpart,
+                      int M, int N, int K, int device, void* stream) {
+  SVT_TRY(cudaSetDevice(device));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* a = static_cast<const bf16*>(A);
+  const bf16* w = static_cast<const bf16*>(W);
+  if (epi == 0) return (int)gemm_nn<gemm::B_F32>(a, K, w, M, N, K, (float*)Cf, nullptr, N, st);
+  if (epi == 1) return (int)gemm_nn<gemm::B_BF16>(a, K, w, M, N, K, nullptr, (bf16*)Cb, N, st);
+  if (epi == 2)
+    return (int)gemm_nn<gemm::B_GELU_GRAD>(a, K, w, M, N, K, nullptr, (bf16*)Cb, N, st,
+                                           (const float*)pre, (float*)colpart);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out (Mout, Nout) fp32 = A^T B over K rows: A (K, Mout), B (K, Nout) bf16;
+// part: svt_block_weight_grad_workspace floats.
+int svt_block_weight_grad(void* A, void* B, void* out, void* part, int Mout, int Nout, int K,
+                          int device, void* stream) {
+  SVT_TRY(cudaSetDevice(device));
+  return (int)weight_grad((const bf16*)A, Mout, (const bf16*)B, Nout, 0, 0, Mout, Nout, K,
+                          (float*)out, (float*)part, static_cast<cudaStream_t>(stream));
+}
+
+long long svt_block_weight_grad_workspace(int Mout, int Nout, int K) {
+  return (long long)dw_splits(Mout, Nout, K) * Mout * Nout;
+}
+
+#ifdef SVT_GEMM_PROFILE
+// The engine's cycle counts (gemm.cuh), read and zeroed.
+int svt_gemm_profile_bwd(unsigned long long* out) { return svt::gemm::profile_read(out); }
+#endif
 
 }  // extern "C"

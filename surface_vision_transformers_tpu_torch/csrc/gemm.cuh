@@ -1,0 +1,641 @@
+// The block GEMM engine (Hopper, sm_90a): one warp-specialised, persistent
+// wgmma + TMA kernel behind every GEMM of the block chains -- the forward's
+// four products (fused_block.cu: qkv, out-projection, fc1, fc2, and the CLS
+// block's K/V and Q), the backward's dX products and its split-K weight
+// gradients (fused_block_bwd.cu).
+//
+// A CTA is three warpgroups on one SM (one CTA per SM, a persistent grid of
+// min(tiles, SMs) CTAs walking the output tiles in order, N-tiles fastest,
+// so the CTAs working at once share their A rows in L2):
+//   producer   one thread starts every load by TMA: the A and B tiles of
+//              each 64-deep k-step into a ring of STAGES stages with full
+//              and empty mbarriers, running ahead across tile boundaries, so
+//              the next tile's operands land while the consumers finish the
+//              last one's epilogue; it gives its registers to the consumers
+//              (setmaxnreg).
+//   consumers  two warpgroups of 64 output rows each: per k-step four
+//              m64n192k16 wgmma (bf16 in, fp32 accumulators in registers,
+//              one group kept in flight), then the epilogue. A bf16 output
+//              goes through shared memory (sm.c) and out by TMA, so the
+//              warpgroup starts its next tile while the copy engine writes
+//              this one; a residual, or df1's fp32 pre-activation (in
+//              32-column chunks through the ring's last stage, which its
+//              epilogue takes over), comes in by TMA from the tile's start,
+//              under its products. Stores and loads made by the threads
+//              themselves (4- or 8-byte pieces of 8 rows a warp) ran the
+//              epilogue at a fraction of HBM's rate: the SM's outstanding
+//              requests, not the bytes, set their pace.
+// Tiles: BM = 128 rows (two warpgroups) x BN = 192 columns x BK = 64 deep
+// per stage; 40 KB a stage, four stages (three for df1) beside the 48 KB
+// through which a bf16 C leaves (sm.c). The rule is fixed, not searched: N = 192 covers a
+// whole dim-192 output in one wgmma (n <= 256, a multiple of 8), and every
+// SiT width is a multiple of 192 (dim 192, 384, 768; qkv 576 .. 2304; mlp
+// 768 .. 3072), so no N-tile is ragged on a model's path. At SiT-tiny K is
+// 192 (three k-steps): a tile's products are short beside its epilogue, and
+// the persistent walk with the ring running ahead is what keeps the loads
+// of the next tile going under it. A warpgroup whose 64 rows lie wholly
+// past M skips its epilogue (not its products: a branch around wgmma that
+// the compiler cannot prove uniform serialises them, ptxas C7518).
+//
+// Operands stay in their global layout; nothing is transposed in device
+// memory. Each sits in shared memory as 128-byte-swizzled [rows][64] bf16
+// tiles written by TMA (common.cuh):
+//   K-major (TA / TB = 0): rows = M or N, 64 columns of K; the forward's A
+//              (activations) and W (torch Linear layout), the dX products' A.
+//   MN-major (TA / TB = 1): rows = 64 of K, columns 64 of M or N; the dX
+//              products' W read as (K = out, N = in), and both operands of
+//              the weight gradients, read along the token rows. An MN-major
+//              B spans three such tiles, 8 KB apart (the descriptor's LBO).
+// Each operand's rows can go through a row map (map_row in common.cuh): the
+// CLS block's Q GEMM reads the first `rows` rows of each N-row sample, its
+// out-projection that many rows of x as the residual, and its dW_q the same
+// rows of h1. The tensor map is then 3-D (64 columns, rows of a group,
+// groups), which needs `rows` to divide the box (the host checks; the CLS
+// block's 8 rows do). The ragged edges of M, N and K are zero-filled by TMA
+// and skipped by the epilogue and the TMA stores.
+//
+// Epilogues (fp32 math on the accumulators, then one rounding; the rounding
+// points of the chains they serve):
+//   F_NONE       bf16 C                          (qkv, K/V, Q)
+//   F_GELU       bf16 gelu(C + bias); with `pre`, the fp32 C + bias kept
+//                for the backward                (fc1)
+//   F_RES        bf16 C + bias + R, R through its row map (out-proj, fc2)
+//   B_PART       fp32 partial of split s at part[s][M][N] (dW, split-K)
+//   B_F32        fp32 C                          (dh)
+//   B_BF16       bf16 C                          (da)
+//   B_GELU_GRAD  bf16 C * gelu'(pre), and the fp32 column sums of each
+//                128-row tile at colpart[tile][N] (df1 and d_bfc1)
+//   B_ADD_F32    fp32 C added into Cf through its row map (the CLS block's
+//                dq W_q into dh's top rows)
+// No atomics anywhere: the split-K partials and the column sums are summed
+// in a fixed order (fused_block_bwd.cu's reduce), so every result repeats
+// bit for bit from run to run.
+//
+// Split-K (weight gradients only): a dW is at most 3072 x 768, reduced over
+// the B * N token rows, so the K range splits into chunks (multiples of
+// 64) until the tiles fill whole waves of 132 SMs (split_k). The rule
+// depends on the shape alone, so the sums' order, and the results, are the
+// same on any card.
+//
+// What bounds it: at SiT-tiny widths (K or N = 192) a product does 60-150
+// operations per byte of its own input and output, below the card's 295, so
+// HBM bounds it; at SiT-base widths (K = 768, 3072) the operations bound
+// qkv and fc2. scripts/block_gemm_breakdown.py (built with
+// -DSVT_GEMM_PROFILE) reads the cycles of each part of the walk.
+#pragma once
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace svt {
+namespace gemm {
+namespace {  // each including source gets its own copy: no symbol of the engine is shared
+
+constexpr int BM = 128, BN = 192, BK = 64;
+constexpr int NWG = BM / 64;          // consumer warpgroups
+constexpr int STAGES = 4;
+constexpr int THREADS = (NWG + 1) * 128;
+constexpr int PRODUCER_REGS = 40;
+constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;  // one CTA per SM
+constexpr int CONSUMER_REGS = (LAUNCH_REGS * THREADS - PRODUCER_REGS * 128) / (NWG * 128) / 8 * 8;
+static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes at most 256");
+constexpr int TARGET_TILES = 132;     // split-K aims at one wave of an H100's SMs
+constexpr int COL_BAR = 1;            // named barrier of the consumer warpgroups
+constexpr int WG_BAR = 2;             // named barriers 2, 3: one consumer warpgroup's own
+constexpr int IDENTITY = 1 << 30;     // a row map's group size when there is none
+constexpr int STAGE_BYTES = (BM + BN) * BK * 2;
+
+enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_ADD_F32 };
+
+// A bf16 operand in device memory: `rows` rows of `cols` contiguous values,
+// `ld` values apart; logical row r lives at physical row
+// (r / rpg) * gstride + r % rpg (rpg 0: r itself).
+struct Operand {
+  const bf16* p;
+  int rows, cols, ld;
+  int rpg = 0, gstride = 0;
+};
+
+// What the epilogue reads and writes (unused fields stay null / 0).
+struct Epilogue {
+  const float* bias = nullptr;
+  const bf16* res = nullptr;  // F_RES: residual (ldr), through (r_rpg, r_gstride)
+  int ldr = 0, r_rpg = 1, r_gstride = 1;
+  bf16* cb = nullptr;         // bf16 C (ldc)
+  float* cf = nullptr;        // fp32 C (ldc; B_PART: the partials)
+  int ldc = 0, c_rpg = 1, c_gstride = 1;  // B_ADD_F32: C's row map
+  float* pre = nullptr;       // F_GELU: fp32 C + bias out; B_GELU_GRAD: the forward's, in
+  float* colpart = nullptr;   // B_GELU_GRAD: column sums per 128-row tile
+};
+
+// The tile walk, as the device sees it.
+struct Walk {
+  int M, N, K, k_chunk, splits;
+  int a_rpg, b_rpg, r_rpg;  // the tensor maps' rows per group (IDENTITY: none)
+};
+
+struct Smem {
+  bf16 a[STAGES][BM * BK];
+  bf16 b[STAGES][BN * BK];
+  bf16 c[BN / 64][BM * 64];  // a tile's bf16 output on its way out, [128][64] blocks
+  float col[NWG * 4][BN];    // B_GELU_GRAD: each warp's column sums
+  float bias[NWG][BN];       // F_GELU, F_RES: each warpgroup's copy of the tile's bias
+  uint64_t full[STAGES], empty[STAGES];
+  uint64_t res_full[NWG];    // F_RES: a warpgroup's residual block has landed in sm.c
+  uint64_t pre_full[NWG][2];  // B_GELU_GRAD: a pre-activation chunk has landed
+};
+
+// Whether an epilogue writes a bf16 C (through shared memory and TMA).
+__host__ __device__ constexpr bool bf16_out(int epi) {
+  return epi == F_NONE || epi == F_GELU || epi == F_RES || epi == B_BF16 || epi == B_GELU_GRAD;
+}
+
+// B_GELU_GRAD reads an fp32 pre-activation as large as its output twice
+// over: it comes by TMA in 32-column chunks, two in flight a warpgroup, in
+// the ring's last stage (a[3] for warpgroup 0, b[3] for warpgroup 1), so
+// that epilogue's ring has one stage fewer.
+__host__ __device__ constexpr int stages(int epi) {
+  return epi == B_GELU_GRAD ? STAGES - 1 : STAGES;
+}
+constexpr int PRE_COLS = 32, PRE_CHUNK = 64 * PRE_COLS;  // a chunk: 64 rows x 32 fp32
+__device__ __forceinline__ float* pre_buf(Smem& sm, int wg, int b) {
+  return reinterpret_cast<float*>(wg == 0 ? sm.a[STAGES - 1] : sm.b[STAGES - 1]) + b * PRE_CHUNK;
+}
+
+__host__ __device__ __forceinline__ int cdiv(long long a, long long b) {
+  return (int)((a + b - 1) / b);
+}
+
+struct Tile {
+  int m0, n0, split, mt, k0, ksteps;
+};
+
+// Built with -DSVT_GEMM_PROFILE (scripts/block_gemm_breakdown.py), the
+// consumer warpgroups add the cycles of each part of their walk to
+// gemm_profile: waiting for a stage to land, starting a k-step's wgmma,
+// waiting for the k-step before it (and releasing its stage), waiting for a
+// tile's last k-step, the epilogue, and the whole walk; the producer adds
+// its waits for a free stage and its whole walk. Otherwise the marks
+// compile to nothing.
+#ifdef SVT_GEMM_PROFILE
+__device__ unsigned long long gemm_profile[8];
+#define SVT_GEMM_MARK(i)            \
+  do {                              \
+    const long long c_ = clock64(); \
+    prof[i] += c_ - prof_t;         \
+    prof_t = c_;                    \
+  } while (0)
+#else
+#define SVT_GEMM_MARK(i) \
+  do {                   \
+  } while (0)
+#endif
+
+__device__ __forceinline__ Tile tile_at(int tile, const Walk& w) {
+  const int nt_n = cdiv(w.N, BN), mt_n = cdiv(w.M, BM);
+  Tile t;
+  const int nt = tile % nt_n, rest = tile / nt_n;
+  t.mt = rest % mt_n;
+  t.split = rest / mt_n;
+  t.m0 = t.mt * BM;
+  t.n0 = nt * BN;
+  t.k0 = t.split * w.k_chunk;
+  t.ksteps = cdiv(min(w.K, t.k0 + w.k_chunk) - t.k0, BK);
+  return t;
+}
+
+// The producer's loads of one k-step: A then B, by row coordinate through
+// the maps' groups.
+template <int TA, int TB>
+__device__ __forceinline__ void load_stage(Smem& sm, int st, const CUtensorMap& tm_a,
+                                           const CUtensorMap& tm_b, const Walk& w, int m0,
+                                           int n0, int k0) {
+  uint64_t* bar = &sm.full[st];
+  if (TA == 0) {
+    tma_load_3d(sm.a[st], tm_a, bar, k0, m0 % w.a_rpg, m0 / w.a_rpg);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NWG; ++i)
+      tma_load_3d(sm.a[st] + i * 64 * BK, tm_a, bar, m0 + 64 * i, k0 % w.a_rpg, k0 / w.a_rpg);
+  }
+  if (TB == 0) {
+    tma_load_3d(sm.b[st], tm_b, bar, k0, n0 % w.b_rpg, n0 / w.b_rpg);
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      tma_load_3d(sm.b[st] + j * 64 * BK, tm_b, bar, n0 + 64 * j, k0 % w.b_rpg, k0 / w.b_rpg);
+  }
+}
+
+// One pre-activation chunk (64 rows from row0, 32 fp32 columns from col0)
+// into warpgroup wg's buffer b.
+__device__ __forceinline__ void load_pre(Smem& sm, const CUtensorMap& tm, int wg, int b, int col0,
+                                         int row0) {
+  mbar_expect(&sm.pre_full[wg][b], PRE_CHUNK * 4);
+  tma_load_3d(pre_buf(sm, wg, b), tm, &sm.pre_full[wg][b], col0, row0, 0);
+}
+
+// Before a tile's last products are awaited: sm.c is made free (the last
+// tile's copy out has read it), and F_GELU and F_RES stage the tile's 192
+// bias values into sm.bias[wg] (thread i < 48: values 4 i .. 4 i + 3), so
+// that no load waits in the epilogue behind a store the compiler cannot
+// prove apart. (F_RES's residual block comes by TMA into sm.c at the tile's
+// start, where the output then replaces it.)
+template <int EPI>
+__device__ __forceinline__ void stage(const Epilogue& ep, const Walk& w, const Tile& tl, int wg,
+                                      int tid, Smem& sm) {
+  if (bf16_out(EPI)) {
+    if (tid == 0) bulk_wait_read<0>();
+    bar_sync(WG_BAR + wg, 128);
+  }
+  if ((EPI == F_GELU || EPI == F_RES) && tid < BN / 4) {
+    const int c = tl.n0 + 4 * tid;
+    *reinterpret_cast<float4*>(&sm.bias[wg][4 * tid]) =
+        c < w.N ? *reinterpret_cast<const float4*>(ep.bias + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The epilogue of one warpgroup's 64 x 192 accumulators (thread: rows
+// r0 + g and r0 + g + 8, columns 8 j + 2 t, + 1), after stage(). A bf16 C
+// goes through sm.c (128-byte swizzled [rows][64] blocks, conflict-free
+// writes) and out by TMA, which skips rows and columns past the tensor's
+// edges: the warpgroup moves on to its next tile while the copy engine
+// writes this one. fp32 outputs are stored from the registers, 32 bytes a
+// row a quad.
+template <int EPI>
+__device__ __forceinline__ void epilogue(const float (&acc)[96], const Epilogue& ep,
+                                         const CUtensorMap& tm_c, const CUtensorMap& tm_e,
+                                         const Walk& w, const Tile& tl, int n, bool live, int wg,
+                                         int warp, int g, int t, int tid, Smem& sm) {
+  if (EPI == F_GELU || EPI == F_RES) bar_sync(WG_BAR + wg, 128);  // what stage() wrote
+  if (EPI == B_GELU_GRAD) {  // by pre-activation chunk: 32 columns, both row halves
+#pragma unroll
+    for (int q = 0; q < BN / PRE_COLS; ++q) {
+      const int b = q & 1;
+      mbar_wait(&sm.pre_full[wg][b], (3 * n + (q >> 1)) & 1);  // each buffer: 3 chunks a tile
+      const float* pb = pre_buf(sm, wg, b);
+      float s[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rl = 16 * warp + g + 8 * half;  // row in the warpgroup's 64
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * q + jj, cl = 8 * jj + 2 * t;  // cl: column in the chunk
+          // the chunk's 128-byte rows in the 128-byte swizzle: 16-byte piece cl / 4
+          // of row rl at piece (cl / 4) ^ (rl % 8)
+          const float2 pv = *reinterpret_cast<const float2*>(
+              pb + rl * PRE_COLS + ((((cl >> 2) ^ (rl & 7)) << 2) | (cl & 3)));
+          // rows past M and columns past N hold zeros in acc (TMA filled A and B)
+          const float v0 = acc[4 * j + 2 * half] * gelu_erf_grad(pv.x);
+          const float v1 = acc[4 * j + 2 * half + 1] * gelu_erf_grad(pv.y);
+          s[jj][0] += v0;
+          s[jj][1] += v1;
+          *reinterpret_cast<uint32_t*>(sm.c[j >> 3] +
+                                       sw128(64 * wg + rl, 8 * (j & 7) + 2 * t)) =
+              pack_bf16(v0, v1);
+        }
+      }
+      // the chunk's column sums over the warp's 16 rows, in a fixed order
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = s[jj][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) sm.col[4 * wg + warp][8 * (4 * q + jj) + 2 * t + e] = v;
+        }
+      bar_sync(WG_BAR + wg, 128);  // buffer b read: the chunk two on may land in it
+      if (tid == 0 && q + 2 < BN / PRE_COLS)
+        load_pre(sm, tm_e, wg, b, tl.n0 + PRE_COLS * (q + 2), tl.m0 + 64 * wg);
+    }
+  }
+  if (EPI != B_GELU_GRAD && live) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rl = 64 * wg + 16 * warp + g + 8 * half;  // row in the tile
+      const int r = tl.m0 + rl;
+      const bool row_ok = r < w.M;
+#pragma unroll
+      for (int j = 0; j < 24; ++j) {
+        const int c = tl.n0 + 8 * j + 2 * t;
+        const bool ok = row_ok && c < w.N;
+        float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+        const long long o = (long long)r * ep.ldc + c;
+        float2 bz = make_float2(0.f, 0.f);
+        if (EPI == F_GELU || EPI == F_RES)
+          bz = *reinterpret_cast<const float2*>(&sm.bias[wg][8 * j + 2 * t]);
+        if (EPI == F_GELU) {
+          v0 += bz.x;
+          v1 += bz.y;
+          if (ep.pre != nullptr && ok)  // training: the fp32 pre-activation, for GELU'
+            *reinterpret_cast<float2*>(ep.pre + o) = make_float2(v0, v1);
+          v0 = gelu_erf(v0);
+          v1 = gelu_erf(v1);
+        } else if (EPI == F_RES) {
+          const __nv_bfloat162 rb = *reinterpret_cast<const __nv_bfloat162*>(
+              sm.c[j >> 3] + sw128(rl, 8 * (j & 7) + 2 * t));
+          v0 = v0 + bz.x + __low2float(rb);
+          v1 = v1 + bz.y + __high2float(rb);
+        } else if (EPI == B_PART) {
+          if (ok)
+            *reinterpret_cast<float2*>(ep.cf + ((long long)tl.split * w.M + r) * w.N + c) =
+                make_float2(v0, v1);
+        } else if (EPI == B_F32) {
+          if (ok) *reinterpret_cast<float2*>(ep.cf + o) = make_float2(v0, v1);
+        } else if (EPI == B_ADD_F32) {
+          if (ok) {
+            float2* dst = reinterpret_cast<float2*>(
+                ep.cf + map_row(r, ep.c_rpg, ep.c_gstride) * ep.ldc + c);
+            float2 a = *dst;
+            a.x += v0;
+            a.y += v1;
+            *dst = a;
+          }
+        }
+        if (bf16_out(EPI))
+          *reinterpret_cast<uint32_t*>(sm.c[j >> 3] + sw128(rl, 8 * (j & 7) + 2 * t)) =
+              pack_bf16(v0, v1);
+      }
+    }
+  }
+  if (bf16_out(EPI)) {  // this warpgroup's 64 rows out by TMA, one box per 64 columns
+    fence_async_smem();
+    bar_sync(WG_BAR + wg, 128);
+    if (live && tid == 0) {
+#pragma unroll
+      for (int b = 0; b < BN / 64; ++b)
+        if (tl.n0 + 64 * b < w.N)
+          tma_store_3d(tm_c, sm.c[b] + 64 * wg * 64, tl.n0 + 64 * b, tl.m0 + 64 * wg, 0);
+      bulk_commit();
+    }
+  }
+  if (EPI == B_GELU_GRAD) {  // fp32 column sums of the 128-row tile, fixed order
+    bar_sync(COL_BAR, NWG * 128);
+    for (int c = (threadIdx.x - 128); c < BN; c += NWG * 128) {
+      if (tl.n0 + c >= w.N) continue;
+      float s = sm.col[0][c];
+#pragma unroll
+      for (int i = 1; i < NWG * 4; ++i) s += sm.col[i][c];
+      ep.colpart[(long long)tl.mt * w.N + tl.n0 + c] = s;
+    }
+    bar_sync(COL_BAR, NWG * 128);  // sm.col free for the next tile
+  }
+}
+
+template <int TA, int TB, int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                const __grid_constant__ CUtensorMap tm_c, const __grid_constant__ CUtensorMap tm_e,
+                const Walk w, const Epilogue ep) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                      ~uintptr_t(1023));
+  const int tiles = cdiv(w.M, BM) * cdiv(w.N, BN) * w.splits;
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it
+  // uniform: a branch it cannot prove uniform around wgmma serialises them
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages(EPI); ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], NWG);
+    }
+    for (int i = 0; i < NWG; ++i) {
+      mbar_init(&sm.res_full[i], 1);
+      mbar_init(&sm.pre_full[i][0], 1);
+      mbar_init(&sm.pre_full[i][1], 1);
+    }
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    set_max_regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+#ifdef SVT_GEMM_PROFILE
+      unsigned long long prof[2] = {0, 0};
+      const long long prof_t0 = clock64();
+      long long prof_t = prof_t0;
+#endif
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const Tile tl = tile_at(tile, w);
+        for (int kt = 0; kt < tl.ksteps; ++kt, ++it) {
+          const int st = it % stages(EPI), use = it / stages(EPI);
+          SVT_GEMM_MARK(1);
+          if (use > 0) mbar_wait(&sm.empty[st], (use - 1) & 1);
+          SVT_GEMM_MARK(0);
+          mbar_expect(&sm.full[st], STAGE_BYTES);
+          load_stage<TA, TB>(sm, st, tm_a, tm_b, w, tl.m0, tl.n0, tl.k0 + kt * BK);
+        }
+      }
+#ifdef SVT_GEMM_PROFILE
+      atomicAdd(&gemm_profile[6], prof[0]);
+      atomicAdd(&gemm_profile[7], (unsigned long long)(clock64() - prof_t0));
+#endif
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 c .. 64 c + 63 of each tile
+  set_max_regs_inc<CONSUMER_REGS>();
+  const int c = wg - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+#ifdef SVT_GEMM_PROFILE
+  unsigned long long prof[6] = {0, 0, 0, 0, 0, 0};
+  const long long prof_t0 = clock64();
+  long long prof_t = prof_t0;
+#endif
+  int it = 0;
+  for (int tile = blockIdx.x, n = 0; tile < tiles; tile += gridDim.x, ++n) {
+    const Tile tl = tile_at(tile, w);
+    const bool live = tl.m0 + 64 * c < w.M;
+    if (EPI == F_RES && tid == 0) {  // this tile's residual block into sm.c, under its products
+      bulk_wait_read<0>();          // once the last tile's copy out has read sm.c
+      mbar_expect(&sm.res_full[c], BN * 64 * 2);
+      const int r0 = tl.m0 + 64 * c;
+#pragma unroll
+      for (int b = 0; b < BN / 64; ++b)
+        tma_load_3d(sm.c[b] + 64 * c * 64, tm_e, &sm.res_full[c], tl.n0 + 64 * b,
+                    r0 % w.r_rpg, r0 / w.r_rpg);
+    }
+    if (EPI == B_GELU_GRAD && tid == 0)  // the first two pre-activation chunks, likewise
+      for (int b = 0; b < 2; ++b) load_pre(sm, tm_e, c, b, tl.n0 + PRE_COLS * b, tl.m0 + 64 * c);
+    int prev = 0;
+    for (int kt = 0; kt < tl.ksteps; ++kt, ++it) {
+      const int st = it % stages(EPI);
+      SVT_GEMM_MARK(5);
+      mbar_wait(&sm.full[st], (it / stages(EPI)) & 1);
+      SVT_GEMM_MARK(0);
+      // every warpgroup runs its products, rows past M included (TMA
+      // zero-filled them; the epilogue skips them): no branch around wgmma
+      const bf16* a = sm.a[st] + c * 64 * BK;
+      wg_hold(acc);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        const uint64_t da = sw128_desc(a + (TA ? ks * 16 * 64 : ks * 16));
+        const uint64_t db =
+            sw128_desc(sm.b[st] + (TB ? ks * 16 * 64 : ks * 16), TB ? 64 * BK * 2 : 16);
+        wgmma_ss<TA, TB>(acc, da, db, kt > 0 || ks > 0);
+      }
+      wg_commit();
+      wg_hold(acc);
+      SVT_GEMM_MARK(1);
+      if (kt > 0) wg_wait<1>();  // the k-step before this one is done with its stage
+      if (kt > 0 && tid == 0) mbar_arrive(&sm.empty[prev]);
+      prev = st;
+      SVT_GEMM_MARK(2);
+    }
+    stage<EPI>(ep, w, tl, c, tid, sm);
+    wg_wait<0>();
+    wg_hold(acc);
+    if (tid == 0) mbar_arrive(&sm.empty[prev]);
+    SVT_GEMM_MARK(3);
+    if (EPI == F_RES) mbar_wait(&sm.res_full[c], n & 1);
+    epilogue<EPI>(acc, ep, tm_c, tm_e, w, tl, n, live, c, warp, g, t, tid, sm);
+    SVT_GEMM_MARK(4);
+  }
+  if (bf16_out(EPI) && tid == 0) bulk_wait<0>();  // the last copy out done
+#ifdef SVT_GEMM_PROFILE
+  if (tid == 0) {
+    for (int i = 0; i < 5; ++i) atomicAdd(&gemm_profile[i], prof[i]);
+    atomicAdd(&gemm_profile[5], (unsigned long long)(clock64() - prof_t0));
+  }
+#endif
+}
+
+// -- host side -----------------------------------------------------------------
+
+// Splits of a weight gradient's K (the token rows), in chunks of whole
+// k-steps: the fewest that fill the waves of TARGET_TILES tiles to 95%
+// (e.g. 8 tiles -> 16 splits, 72 -> 11), each chunk at least 8 k-steps.
+inline void split_k(int M, int N, int K, int* splits, int* chunk) {
+  const int tiles = cdiv(M, BM) * cdiv(N, BN);
+  const int most = std::max(1, cdiv(K, BK) / 8);
+  int s = 1;
+  while (s < most &&
+         (double)tiles * s < 0.95 * TARGET_TILES * cdiv((long long)tiles * s, TARGET_TILES))
+    ++s;
+  *chunk = cdiv(cdiv(K, s), BK) * BK;
+  *splits = cdiv(K, *chunk);
+}
+
+// The 3-D TMA map of an operand (64 columns x box_rows rows a box; with a
+// row map, groups of rpg rows `gstride` rows apart, box_rows / rpg groups a
+// box). -> the rows per group the device indexes with.
+inline cudaError_t operand_map(CUtensorMap* m, const Operand& o, int box_rows, int* rpg_dev) {
+  const bool grouped = o.rpg > 0 && o.rpg < o.rows;
+  if (reinterpret_cast<uintptr_t>(o.p) % 16 || (o.ld * 2) % 16 ||
+      (grouped && ((long long)o.gstride * o.ld * 2) % 16))
+    return cudaErrorMisalignedAddress;
+  if (grouped && box_rows % o.rpg) return cudaErrorInvalidValue;
+  const int rpg = grouped ? o.rpg : o.rows;
+  const cuuint64_t dims[3] = {(cuuint64_t)o.cols, (cuuint64_t)rpg,
+                              (cuuint64_t)(grouped ? cdiv(o.rows, o.rpg) : 1)};
+  const cuuint64_t strides[2] = {(cuuint64_t)o.ld * 2,
+                                 (cuuint64_t)(grouped ? o.gstride : o.rows) * o.ld * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)(grouped ? o.rpg : box_rows),
+                             (cuuint32_t)(grouped ? box_rows / o.rpg : 1)};
+  *rpg_dev = grouped ? o.rpg : IDENTITY;
+  return encode_tiled(m, 3, o.p, dims, strides, box);
+}
+
+// C (M, N) = A B over K, A (TA: 0 = (M, K) rows, 1 = (K, M) rows) and B
+// (TB: 0 = (N, K) rows, 1 = (K, N) rows), split over K when `split`.
+template <int TA, int TB, int EPI>
+cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool split,
+                const Epilogue& ep, cudaStream_t st) {
+  constexpr int smem = sizeof(Smem) + 1024;  // + alignment to 1024 bytes
+  // per device, once: the shared-memory limit and the SM count
+  static bool ready[16];
+  static int sms[16];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    e = cudaFuncSetAttribute(gemm_kernel<TA, TB, EPI>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    ready[dev] = true;
+  }
+  Walk w{M, N, K, cdiv(K, BK) * BK, 1, IDENTITY, IDENTITY, IDENTITY};
+  if (split) split_k(M, N, K, &w.splits, &w.k_chunk);
+  CUtensorMap tm_a, tm_b, tm_c, tm_e;
+  if ((e = operand_map(&tm_a, a, TA ? 64 : BM, &w.a_rpg)) != cudaSuccess) return e;
+  if ((e = operand_map(&tm_b, b, TB ? 64 : BN, &w.b_rpg)) != cudaSuccess) return e;
+  int unused;
+  tm_c = tm_e = tm_a;  // unused unless the epilogue has a bf16 C / reads a tile by TMA
+  if (bf16_out(EPI)) {  // the bf16 C, written in [64][64] boxes
+    if ((e = operand_map(&tm_c, Operand{ep.cb, M, N, ep.ldc}, 64, &unused)) != cudaSuccess)
+      return e;
+  }
+  if (EPI == F_RES) {  // the residual, read in [64][64] boxes through its row map
+    const bool grouped = ep.r_gstride != ep.r_rpg && ep.r_rpg < M;
+    const Operand r{ep.res, M, N, ep.ldr, grouped ? ep.r_rpg : 0, ep.r_gstride};
+    if ((e = operand_map(&tm_e, r, 64, &w.r_rpg)) != cudaSuccess) return e;
+  }
+  if (EPI == B_GELU_GRAD) {  // the fp32 pre-activation, read in [64][32] boxes
+    if (reinterpret_cast<uintptr_t>(ep.pre) % 16 || (ep.ldc * 4) % 16)
+      return cudaErrorMisalignedAddress;
+    const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)M, 1};
+    const cuuint64_t strides[2] = {(cuuint64_t)ep.ldc * 4, (cuuint64_t)M * ep.ldc * 4};
+    const cuuint32_t box[3] = {PRE_COLS, 64, 1};
+    if ((e = encode_tiled(&tm_e, 3, ep.pre, dims, strides, box,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) != cudaSuccess)
+      return e;
+  }
+  const int tiles = cdiv(M, BM) * cdiv(N, BN) * w.splits;
+  gemm_kernel<TA, TB, EPI>
+      <<<std::min(tiles, sms[dev]), THREADS, smem, st>>>(tm_a, tm_b, tm_c, tm_e, w, ep);
+  return cudaGetLastError();
+}
+
+// The forward's products: C (M, N) = epi(A W^T), A (M, K) through its row
+// map, W (N, K) in the torch Linear layout.
+template <int EPI>
+cudaError_t linear(const Operand& a, const bf16* w, int N, const Epilogue& ep, cudaStream_t st) {
+  return run<0, 0, EPI>(a, Operand{w, N, a.cols, a.cols}, a.rows, N, a.cols, false, ep, st);
+}
+
+// The backward's dX products: C (M, N) = epi(A W), A (M, K), W the torch
+// (out = K, in = N) weight read N-major.
+template <int EPI>
+cudaError_t linear_dx(const Operand& a, const bf16* w, int N, const Epilogue& ep,
+                      cudaStream_t st) {
+  return run<0, 1, EPI>(a, Operand{w, a.cols, N, N}, a.rows, N, a.cols, false, ep, st);
+}
+
+// The weight gradients' split-K partials: part[s] (Mout, Nout) = the s-th
+// K chunk of A^T B, A (K rows, Mout columns), B (K rows through its row
+// map, Nout columns). -> the number of splits (split_k) in *splits.
+inline cudaError_t weight_grad_partials(const Operand& a, const Operand& b, float* part,
+                                        int* splits, cudaStream_t st) {
+  int chunk;
+  split_k(a.cols, b.cols, a.rows, splits, &chunk);
+  Epilogue ep;
+  ep.cf = part;
+  return run<1, 1, B_PART>(a, b, a.cols, b.cols, a.rows, true, ep, st);
+}
+
+#ifdef SVT_GEMM_PROFILE
+// Copy gemm_profile to the host and zero it (after a synchronisation).
+inline int profile_read(unsigned long long* out) {
+  SVT_TRY(cudaMemcpyFromSymbol(out, gemm_profile, sizeof(gemm_profile)));
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  SVT_TRY(cudaMemcpyToSymbol(gemm_profile, zero, sizeof(zero)));
+  return 0;
+}
+#endif
+
+}  // namespace
+}  // namespace gemm
+}  // namespace svt

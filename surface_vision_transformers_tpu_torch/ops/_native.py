@@ -107,6 +107,14 @@ def library() -> ctypes.CDLL:
     lib.svt_fused_block_cls_bwd.restype = I
     lib.svt_block_bwd_workspace.argtypes = [I] * 7
     lib.svt_block_bwd_workspace.restype = ctypes.c_longlong
+    lib.svt_block_gemm.argtypes = [I] + [P] * 6 + [I] * 4 + [P]
+    lib.svt_block_gemm.restype = I
+    lib.svt_block_gemm_nn.argtypes = [I] + [P] * 6 + [I] * 4 + [P]
+    lib.svt_block_gemm_nn.restype = I
+    lib.svt_block_weight_grad.argtypes = [P] * 4 + [I] * 4 + [P]
+    lib.svt_block_weight_grad.restype = I
+    lib.svt_block_weight_grad_workspace.argtypes = [I] * 3
+    lib.svt_block_weight_grad_workspace.restype = ctypes.c_longlong
     S = [P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]  # strided operand
     D = [ctypes.c_uint, ctypes.c_uint, F, I]  # dropout: seed, threshold, 1/(1-rate), on
     lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 5 + D + [I, P]

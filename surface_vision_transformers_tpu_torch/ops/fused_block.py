@@ -8,23 +8,25 @@ their backwards ``fused_block_bwd`` / ``fused_block_cls_bwd``, CUDA in
 ``surface_vision_transformers_tpu/ops/pallas/fused_block.py::fused_block``
 (``_block_kernel``); ``fused_block_cls`` replaces ``fused_block_cls``
 (``_block_cls_kernel``) in the same file. Both kernels are CUDA C++ for
-``sm_90a`` in ``csrc/fused_block.cu``: a chain of LayerNorm, bf16
-tensor-core GEMM (``mma.sync``, fp32 accumulation, fused bias / erf-GELU /
-residual epilogues) and attention launches on the caller's stream.
+``sm_90a`` in ``csrc/fused_block.cu``: a chain of LayerNorm, GEMM and
+attention launches on the caller's stream. Every GEMM of the forward and
+backward chains runs on one engine (``csrc/gemm.cuh``): a persistent,
+warp-specialised kernel whose producer thread loads A and B tiles by TMA
+into an mbarrier ring for two consumer warpgroups on ``wgmma`` (m64n192k16,
+bf16 in, fp32 accumulators), with fused bias / erf-GELU / residual
+epilogues stored by TMA.
 
 What bounds them on the H100: the TPU kernel keeps a whole block in ~96 MB
 of VMEM, while an SM has 227 KB of shared memory, so every intermediate
 (LN output, QKV, attention output, x1, the MLP hidden) makes a round trip
-through HBM, about ten times the bytes of the block's input and output.
-Measured at SiT-tiny (PERF.md), the GEMMs reach about a tenth of the bf16
-tensor-core peak and stay well under HBM bandwidth: this first version is
-bounded by its simple ``mma.sync`` tiling, not by either roofline. The
-design keeps what fits on chip per CTA: attention is the streamed kernel of
-``csrc/flash_attention.cu`` (K and V through shared memory in 64-key
-tiles, any N), which never writes the score matrix; the GEMM epilogues fold
-bias, GELU and the residual into the store. The CLS variant computes Q,
-attention and the MLP for the first ``rows`` (<= 8) rows of each sample
-only, reading them through a strided row map instead of a gather.
+through HBM, about ten times the bytes of the block's input and output. At
+SiT-tiny widths (192) the GEMMs sit below the card's operations-per-byte
+line, so those bytes bound them; at SiT-base widths (768) the operations
+do. Attention is the streamed kernel of ``csrc/flash_attention.cu`` (K and
+V through shared memory in 64- or 128-key tiles, any N), which never writes
+the score matrix. The CLS variant computes Q, attention and the MLP for the
+first ``rows`` (<= 8) rows of each sample only, reading them through a
+strided row map (a 3-D TMA map) instead of a gather.
 
 Numerics: the TPU kernel's rounding points (bf16 after LN, QKV, P, P.V, x1
 and GELU; fp32 LN statistics, scores, softmax sums and epilogues) with exact
@@ -192,10 +194,22 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("every parameter must be contiguous and on "
                              f"{x.device}")
-    for t in (x, w_qkv, w_out, w_fc1, w_fc2):
-        if t.data_ptr() % 16:  # the kernels load rows in 16-byte pieces
-            raise ValueError("x and the weight matrices must start on a "
-                             "16-byte boundary")
+    check_tma_operands(x, w_qkv, w_out, w_fc1, w_fc2)
+
+
+def check_tma_operands(*tensors, cls_rows: int | None = None):
+    """Raise on what the GEMM engine's TMA loads do not take: each operand
+    must start on 16 bytes (its rows are multiples of 8 values, checked with
+    the shapes), and the CLS block's row count must divide 64, the rows of
+    its row-mapped tiles (min(8, N): every N >= 8, or 1, 2, 4)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the block kernels' operands must start on a 16-byte "
+                             "boundary (TMA)")
+    if cls_rows is not None and 64 % cls_rows:
+        raise NotImplementedError(
+            f"the CLS block kernels read {cls_rows} rows a sample through 64-row "
+            "tiles: the row count must divide 64 (N >= 8, or N in 1, 2, 4)")
 
 
 def _dispatch(x):
@@ -254,9 +268,10 @@ def fused_block_cls(
                                          dim_head=dim_head, valid_len=vl,
                                          ln_eps=ln_eps)
     _check_cuda_args(x, params, heads, dim_head, vl)
-    lib = _native.library()
     B, N, dim = x.shape
     rows = min(_CLS_ROWS, N)
+    check_tma_operands(cls_rows=rows)
+    lib = _native.library()
     hd, mlp, Mt = heads * dim_head, w_fc1.shape[0], B * rows
     out = x.new_empty((B, rows, dim))
     ws = [x.new_empty(s) for s in ((B * N, dim), (B * N, 2 * hd), (Mt, hd),
@@ -454,10 +469,12 @@ def train_forward(x, *params, heads: int, dim_head: int,
                   ln_eps=ln_eps, saved=sv)
         return out, sv
     _check_cuda_args(x, params, heads, dim_head, vl)
-    lib = _native.library()
     B, N, dim = x.shape
     hd, mlp, H = heads * dim_head, params[7].shape[0], heads
     rows = min(_CLS_ROWS, N) if cls else N
+    if cls:
+        check_tma_operands(cls_rows=rows)
+    lib = _native.library()
     bf, f32 = torch.bfloat16, torch.float32
     shapes = {
         "h1": ((B, N, dim), bf), "qkv": ((B, N, 3 * hd), bf),
@@ -501,6 +518,7 @@ def _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls):
     if set(sv) != set(names) or any(
             not sv[k].is_contiguous() or sv[k].device != x.device for k in names):
         raise ValueError(f"saved must hold contiguous {names} on {x.device}")
+    check_tma_operands(g, *sv.values(), cls_rows=rows if cls else None)
 
 
 def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
@@ -568,6 +586,128 @@ def fused_block_cls_bwd(x, g, *params, saved, heads: int, dim_head: int,
 
 
 fused_block_cls_bwd.launches = 0
+
+
+# -- the chains' products alone ---------------------------------------------------
+#
+# Every GEMM of the chains above runs on one engine (``csrc/gemm.cuh``). These
+# entries run one product with its epilogue by itself, so that each can be
+# held against its plain version and timed at the chain's shapes; the chains
+# do not call them. CPU tensors run the plain versions (exact products of the
+# operands, float32 sums); CUDA tensors launch the engine or raise.
+
+
+def _check_gemm_operands(*tensors):
+    for t in tensors:
+        if (t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous()
+                or t.shape[1] % 8):
+            raise ValueError("GEMM operands must be contiguous bfloat16 matrices whose "
+                             "rows are multiples of 8 values")
+    check_tma_operands(*tensors)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def gemm_reference(a, w, bias=None, residual=None, *, gelu=False):
+    """Plain ``block_gemm``: (a @ w.T [+ bias, erf-GELU | + bias + residual]
+    in float32, the bf16 output; with ``gelu`` also the float32
+    pre-activation)."""
+    c = _mm(a, w)
+    if gelu:
+        pre = c + bias
+        return F.gelu(pre).to(a.dtype), pre
+    if residual is not None:
+        c = c + bias + residual.float()
+    return c.to(a.dtype)
+
+
+def block_gemm(a, w, bias=None, residual=None, *, gelu=False):
+    """The forward chain's product: a (M, K) @ w.T, w (N, K) in the torch
+    Linear layout, bf16 out: plain (qkv), + bias then erf-GELU (fc1, in its
+    training form: also the float32 pre-activation), or + bias + residual
+    (M, N) (out-projection, fc2). -> C, or (C, pre) with ``gelu``. CPU
+    tensors run ``gemm_reference``."""
+    if a.device.type == "cpu":
+        return gemm_reference(a, w, bias, residual, gelu=gelu)
+    _check_gemm_operands(a, w, *([residual] if residual is not None else []))
+    (M, K), N = a.shape, w.shape[0]
+    if w.shape[1] != K or (residual is not None and tuple(residual.shape) != (M, N)):
+        raise ValueError("a (M, K), w (N, K) and the residual (M, N) must agree")
+    c = a.new_empty((M, N))
+    pre = torch.empty((M, N), dtype=torch.float32, device=a.device) if gelu else None
+    epi = 1 if gelu else 2 if residual is not None else 0
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (a, w, bias, residual, c, pre)]
+    _native.check(_native.library().svt_block_gemm(
+        epi, *ptrs, M, N, K, a.device.index, _stream(a)))
+    return (c, pre) if gelu else c
+
+
+def gemm_nn_reference(a, w, pre=None, *, out_dtype=torch.bfloat16):
+    """Plain ``block_gemm_nn``: a @ w in float32, rounded to ``out_dtype``;
+    with ``pre``, times GELU'(pre), with the float32 column sums."""
+    c = a.float() @ w.float()
+    if pre is None:
+        return c.to(out_dtype)
+    c = c * _gelu_grad(pre)
+    return c.to(a.dtype), c.sum(0)
+
+
+def block_gemm_nn(a, w, pre=None, *, out_dtype=torch.bfloat16):
+    """The backward chain's dX product: a (M, K) @ w, w the torch (out = K,
+    in = N) weight read as it lies: float32 C (dh) or bf16 C (da), or with
+    ``pre`` (float32 (M, N)) bf16 C * GELU'(pre) and its float32 column sums
+    (df1 and d_bfc1: the kernel's sums of each 128-row tile, added here by
+    torch). CPU tensors run ``gemm_nn_reference``."""
+    if a.device.type == "cpu":
+        return gemm_nn_reference(a, w, pre, out_dtype=out_dtype)
+    _check_gemm_operands(a, w)
+    (M, K), N = a.shape, w.shape[1]
+    if w.shape[0] != K:
+        raise ValueError("a (M, K) and w (K, N) must agree")
+    f32 = dict(dtype=torch.float32, device=a.device)
+    if pre is not None:
+        if pre.dtype != torch.float32 or tuple(pre.shape) != (M, N) or not pre.is_contiguous():
+            raise ValueError("pre must be a contiguous float32 (M, N) tensor")
+        c, part = a.new_empty((M, N)), torch.empty((-(-M // 128), N), **f32)
+        _native.check(_native.library().svt_block_gemm_nn(
+            2, a.data_ptr(), w.data_ptr(), None, c.data_ptr(), pre.data_ptr(),
+            part.data_ptr(), M, N, K, a.device.index, _stream(a)))
+        return c, part.sum(0)
+    c = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    fp32 = out_dtype == torch.float32
+    _native.check(_native.library().svt_block_gemm_nn(
+        0 if fp32 else 1, a.data_ptr(), w.data_ptr(), c.data_ptr() if fp32 else None,
+        None if fp32 else c.data_ptr(), None, None, M, N, K, a.device.index, _stream(a)))
+    return c
+
+
+def weight_grad_reference(a, b):
+    """Plain ``block_weight_grad``: a^T b in float32."""
+    return a.float().t() @ b.float()
+
+
+def block_weight_grad(a, b):
+    """The backward chain's weight gradient: a (K, Mout)^T @ b (K, Nout)
+    over the K token rows, float32 (Mout, Nout); split over K into partials
+    that are added in a fixed order. CPU tensors run
+    ``weight_grad_reference``."""
+    if a.device.type == "cpu":
+        return weight_grad_reference(a, b)
+    _check_gemm_operands(a, b)
+    (K, m_out), n_out = a.shape, b.shape[1]
+    if b.shape[0] != K:
+        raise ValueError("a (K, Mout) and b (K, Nout) must agree")
+    lib = _native.library()
+    out = torch.empty((m_out, n_out), dtype=torch.float32, device=a.device)
+    part = torch.empty((lib.svt_block_weight_grad_workspace(m_out, n_out, K),),
+                       dtype=torch.float32, device=a.device)
+    _native.check(lib.svt_block_weight_grad(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), m_out, n_out, K,
+        a.device.index, _stream(a)))
+    return out
 
 
 def _mm32(a, b):

@@ -7,6 +7,9 @@ device dispatch.
 The JAX package routes dim <= 256 to the monolithic ``_block_bwd`` /
 ``_block_cls_bwd`` and dim > 256 to the split ``_block_bwd_split`` /
 ``_block_cls_bwd_split`` (``_prefer_split``); dims 32 and 272 hold both.
+Dim 192 (3 heads of 64, mlp 768, B=3, N=48) holds the edges of the CUDA
+GEMM engine's tiling (csrc/gemm.cuh): B*N = 144 rows, not a multiple of 64
+or 128; the CLS block's 24 rows; a 576-wide qkv.
 
 Tolerances, as the largest |port - JAX| over the largest |JAX| of each of
 the 12 gradients (dx on the rows < valid_len, where the cotangent lives):
@@ -32,6 +35,9 @@ from surface_vision_transformers_tpu_torch.ops import fused_block as tfb
 
 HEADS, DH, MLP = 2, 16, 64
 B, N, VALID = 2, 24, 19
+# dim -> (B, N, valid_len, heads, dim_head, mlp)
+SHAPES = {32: (B, N, VALID, HEADS, DH, MLP), 272: (B, N, VALID, HEADS, DH, MLP),
+          192: (3, 48, 43, 3, 64, 768)}
 ORDER = ("ln1_s", "ln1_b", "w_qkv", "w_out", "b_out", "ln2_s", "ln2_b",
          "w_fc1", "b_fc1", "w_fc2", "b_fc2")
 MATS = ("w_qkv", "w_out", "w_fc1", "w_fc2")
@@ -42,7 +48,8 @@ def _params(dim, seed):
     """Flax-layout block parameters from a numpy seed; Q/K and the
     out-projection scaled up so that attention moves the output."""
     r = np.random.default_rng(seed)
-    hd = HEADS * DH
+    _, _, _, heads, dh, mlp = SHAPES.get(dim, SHAPES[32])
+    hd = heads * dh
 
     def u(shape, fan_in, gain=1.0):
         b = gain / np.sqrt(fan_in)
@@ -55,9 +62,9 @@ def _params(dim, seed):
     (ln1_s, ln1_b), (ln2_s, ln2_b) = ln(), ln()
     return dict(ln1_s=ln1_s, ln1_b=ln1_b, w_qkv=u((dim, 3 * hd), dim, 2.0),
                 w_out=u((hd, dim), hd, 4.0), b_out=u((dim,), hd),
-                ln2_s=ln2_s, ln2_b=ln2_b, w_fc1=u((dim, MLP), dim),
-                b_fc1=u((MLP,), dim), w_fc2=u((MLP, dim), MLP),
-                b_fc2=u((dim,), MLP))
+                ln2_s=ln2_s, ln2_b=ln2_b, w_fc1=u((dim, mlp), dim),
+                b_fc1=u((mlp,), dim), w_fc2=u((mlp, dim), mlp),
+                b_fc2=u((dim,), mlp))
 
 
 def _torch_args(p, dt):
@@ -66,27 +73,30 @@ def _torch_args(p, dt):
 
 
 def _inputs(dim, cls, seed):
+    b, n, valid = SHAPES.get(dim, SHAPES[32])[:3]
     r = np.random.default_rng(seed)
-    x = r.standard_normal((B, N, dim)).astype(np.float32)
-    g = r.standard_normal((B, 8 if cls else N, dim)).astype(np.float32)
-    g[:, VALID:] = 0.0  # padding rows carry no cotangent
+    x = r.standard_normal((b, n, dim)).astype(np.float32)
+    g = r.standard_normal((b, 8 if cls else n, dim)).astype(np.float32)
+    g[:, valid:] = 0.0  # padding rows carry no cotangent
     return x, g
 
 
 def _jax_grads(p, x, g, cls, jdt):
+    _, _, valid, heads, dh, _ = SHAPES.get(x.shape[-1], SHAPES[32])
     fn = jfb.fused_block_cls_train if cls else jfb.fused_block_train
     args = [jnp.asarray(p[k]).astype(jdt) if k in MATS else jnp.asarray(p[k])
             for k in ORDER]
-    out, vjp = jax.vjp(lambda xx, *a: fn(xx, *a, HEADS, DH, VALID),
+    out, vjp = jax.vjp(lambda xx, *a: fn(xx, *a, heads, dh, valid),
                        jnp.asarray(x).astype(jdt), *args)
     return [np.asarray(t.astype(jnp.float32))
             for t in vjp(jnp.asarray(g).astype(out.dtype))]
 
 
 def _port_grads(p, x, g, cls, tdt):
+    _, _, valid, heads, dh, _ = SHAPES.get(x.shape[-1], SHAPES[32])
     ref = tfb.fused_block_cls_bwd_reference if cls else tfb.fused_block_bwd_reference
     got = ref(torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt),
-              *_torch_args(p, tdt), heads=HEADS, dim_head=DH, valid_len=VALID)
+              *_torch_args(p, tdt), heads=heads, dim_head=dh, valid_len=valid)
     # torch (out, in) -> flax (in, out) for the matrices
     return [t.float().numpy().T if n in MATS else t.float().numpy()
             for n, t in zip(NAMES, got)]
@@ -94,9 +104,10 @@ def _port_grads(p, x, g, cls, tdt):
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("cls", [False, True], ids=["block", "cls_block"])
-@pytest.mark.parametrize("dim", [32, 272], ids=["monolithic", "split"])
+@pytest.mark.parametrize("dim", [32, 272, 192], ids=["monolithic", "split", "gemm_edges"])
 def test_backward_matches_jax_vjp(dim, cls, dtype, tol):
     assert jfb._prefer_split(dim) == (dim > 256)
+    valid = SHAPES[dim][2]
     p = _params(dim, seed=dim)
     x, g = _inputs(dim, cls, seed=dim + 1)
     want = _jax_grads(p, x, g, cls, getattr(jnp, dtype))
@@ -104,7 +115,7 @@ def test_backward_matches_jax_vjp(dim, cls, dtype, tol):
     for name, a, b in zip(NAMES, got, want):
         assert a.shape == b.shape, name
         if name == "dx":
-            a, b = a[:, :VALID], b[:, :VALID]
+            a, b = a[:, :valid], b[:, :valid]
         err = np.abs(a - b).max() / np.abs(b).max()
         assert err <= tol, f"{name}: {err:.3g} > {tol}"
 

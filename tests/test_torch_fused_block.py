@@ -14,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,10 +26,18 @@ from surface_vision_transformers_tpu_torch.ops import fused_block as tfb
 DIM, HEADS, DH, MLP = 32, 2, 16, 64
 B, N, VALID = 3, 24, 19
 HD = HEADS * DH
+# (B, N, valid_len, dim, heads, dim_head, mlp): the small shape, and one at
+# the edges of the CUDA GEMM engine's tiling (csrc/gemm.cuh): B*N = 144 rows,
+# not a multiple of 64 or 128; the CLS block's 3 * 8 = 24 rows; dim 192 with
+# a 576-wide qkv (the JAX kernels need N % 8 == 0, so N = 48, not 43).
+SMALL = (B, N, VALID, DIM, HEADS, DH, MLP)
+GEMM_EDGES = (3, 48, 43, 192, 3, 64, 768)
 
 
-def _params(seed=0):
+def _params(seed=0, shape=SMALL):
     """Flax-layout block parameters from a numpy seed."""
+    dim, heads, dh, mlp = shape[3:]
+    hd = heads * dh
     r = np.random.default_rng(seed)
 
     def u(shape, fan_in):
@@ -36,14 +45,14 @@ def _params(seed=0):
         return r.uniform(-b, b, shape).astype(np.float32)
 
     return dict(
-        ln1_s=(1 + 0.1 * r.standard_normal(DIM)).astype(np.float32),
-        ln1_b=(0.1 * r.standard_normal(DIM)).astype(np.float32),
-        w_qkv=u((DIM, 3 * HD), DIM), w_out=u((HD, DIM), HD),
-        b_out=u((DIM,), HD),
-        ln2_s=(1 + 0.1 * r.standard_normal(DIM)).astype(np.float32),
-        ln2_b=(0.1 * r.standard_normal(DIM)).astype(np.float32),
-        w_fc1=u((DIM, MLP), DIM), b_fc1=u((MLP,), DIM),
-        w_fc2=u((MLP, DIM), MLP), b_fc2=u((DIM,), MLP),
+        ln1_s=(1 + 0.1 * r.standard_normal(dim)).astype(np.float32),
+        ln1_b=(0.1 * r.standard_normal(dim)).astype(np.float32),
+        w_qkv=u((dim, 3 * hd), dim), w_out=u((hd, dim), hd),
+        b_out=u((dim,), hd),
+        ln2_s=(1 + 0.1 * r.standard_normal(dim)).astype(np.float32),
+        ln2_b=(0.1 * r.standard_normal(dim)).astype(np.float32),
+        w_fc1=u((dim, mlp), dim), b_fc1=u((mlp,), dim),
+        w_fc2=u((mlp, dim), mlp), b_fc2=u((dim,), mlp),
     )
 
 
@@ -63,33 +72,45 @@ def _torch_args(p, dt):
             if k in MATS else torch.from_numpy(p[k]) for k in ORDER]
 
 
-def _x(seed=1):
+def _x(seed=1, shape=SMALL):
+    b, n, _, dim = shape[:4]
     return np.random.default_rng(seed).standard_normal(
-        (B, N, DIM)).astype(np.float32)
+        (b, n, dim)).astype(np.float32)
 
 
-KERNELS = {
-    "fused_block": (jfb.fused_block, tfb.fused_block_reference, VALID),
-    "fused_block_cls": (jfb.fused_block_cls, tfb.fused_block_cls_reference, 8),
+KERNELS = {  # name -> (JAX kernel, plain version, CLS?, shape)
+    "fused_block": (jfb.fused_block, tfb.fused_block_reference, False, SMALL),
+    "fused_block_cls": (jfb.fused_block_cls, tfb.fused_block_cls_reference, True, SMALL),
+    "fused_block-gemm_edges": (jfb.fused_block, tfb.fused_block_reference, False,
+                               GEMM_EDGES),
+    "fused_block_cls-gemm_edges": (jfb.fused_block_cls, tfb.fused_block_cls_reference,
+                                   True, GEMM_EDGES),
 }
+
+
+def _case(name):
+    """-> (JAX kernel, plain version, rows compared, output rows, shape,
+    kwargs)."""
+    jfn, tfn, cls, shape = KERNELS[name]
+    b, n, valid, dim, heads, dh, _ = shape
+    kw = dict(heads=heads, dim_head=dh, valid_len=valid)
+    return jfn, tfn, 8 if cls else valid, 8 if cls else n, shape, kw
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_reference_matches_jax_fp32(name):
-    jfn, tfn, rows = KERNELS[name]
-    p, x = _params(), _x()
-    kw = dict(heads=HEADS, dim_head=DH, valid_len=VALID)
+    jfn, tfn, rows, out_rows, shape, kw = _case(name)
+    p, x = _params(shape=shape), _x(shape=shape)
     want = np.asarray(jfn(jnp.asarray(x), *_jax_args(p, jnp.float32), **kw))
     got = tfn(torch.from_numpy(x), *_torch_args(p, torch.float32), **kw).numpy()
-    assert got.shape == (B, rows if name == "fused_block_cls" else N, DIM)
+    assert got.shape == (shape[0], out_rows, shape[3])
     np.testing.assert_allclose(got[:, :rows], want[:, :rows], atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_reference_matches_jax_bf16(name):
-    jfn, tfn, rows = KERNELS[name]
-    p, x = _params(2), _x(3)
-    kw = dict(heads=HEADS, dim_head=DH, valid_len=VALID)
+    jfn, tfn, rows, _, shape, kw = _case(name)
+    p, x = _params(2, shape), _x(3, shape)
     want = np.asarray(
         jfn(jnp.asarray(x).astype(jnp.bfloat16), *_jax_args(p, jnp.bfloat16),
             **kw).astype(jnp.float32))
@@ -143,3 +164,145 @@ def test_import_loads_neither_triton_nor_the_kernels():
                          cwd=Path(__file__).resolve().parent.parent)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# -- the block GEMMs alone (csrc/gemm.cuh's products, plain versions) ---------------
+#
+# At the engine's edges: M = 144 rows (B*N of GEMM_EDGES, not a multiple of 64
+# or 128), a 576-wide qkv over K = 192, fc1's 768 and fc2's 192 columns. The
+# JAX side computes the same function with float32 products at HIGHEST
+# precision and jax.nn.gelu(approximate=False). Tolerances: float32 2e-5 of
+# the largest output (only the order of float32 sums differs); bfloat16 two
+# bf16 steps at the largest output (one rounding each, after float32 sums in
+# other orders).
+
+GEMM_M = GEMM_EDGES[0] * GEMM_EDGES[1]
+
+
+def _gemm_operands(seed, m, n, k):
+    r = np.random.default_rng(seed)
+    a = r.standard_normal((m, k)).astype(np.float32)
+    w = r.uniform(-1, 1, (n, k)).astype(np.float32) / np.sqrt(k)
+    bias = (0.1 * r.standard_normal(n)).astype(np.float32)
+    res = r.standard_normal((m, n)).astype(np.float32)
+    return a, w, bias, res
+
+
+def _bf16_steps(x):
+    return 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
+
+
+def _assert_close(got, want, dtype):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max(), rtol=0)
+    else:
+        np.testing.assert_allclose(got, want, atol=2 * _bf16_steps(want), rtol=0)
+
+
+def _jnp(x, dtype):
+    return jnp.asarray(x).astype(getattr(jnp, dtype))
+
+
+def _jax_dot(a, b):
+    return jnp.dot(a.astype(jnp.float32), b.astype(jnp.float32),
+                   precision=jax.lax.Precision.HIGHEST)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue,n,k", [("none", 576, 192), ("gelu", 768, 192),
+                                          ("residual", 192, 768)],
+                         ids=["qkv", "fc1", "fc2"])
+def test_gemm_reference_matches_jax(epilogue, n, k, dtype):
+    """``gemm_reference`` (the forward chain's products with their epilogues)
+    against the same function in JAX."""
+    a, w, bias, res = _gemm_operands(11, GEMM_M, n, k)
+    ta, tw = (torch.from_numpy(t).to(getattr(torch, dtype)) for t in (a, w))
+    ja, jw = _jnp(a, dtype), _jnp(w, dtype)
+    c = _jax_dot(ja, jw.T)
+    if epilogue == "gelu":
+        got, pre = tfb.gemm_reference(ta, tw, torch.from_numpy(bias), gelu=True)
+        want_pre = c + bias
+        _assert_close(pre.numpy(), want_pre, "float32")
+        want = jax.nn.gelu(want_pre, approximate=False).astype(ja.dtype)
+    elif epilogue == "residual":
+        tr = torch.from_numpy(res).to(getattr(torch, dtype))
+        got = tfb.gemm_reference(ta, tw, torch.from_numpy(bias), tr)
+        want = (c + bias + _jnp(res, dtype).astype(jnp.float32)).astype(ja.dtype)
+    else:
+        got = tfb.gemm_reference(ta, tw)
+        want = c.astype(ja.dtype)
+    assert got.dtype == getattr(torch, dtype)
+    _assert_close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "gelu_grad"])
+def test_gemm_nn_reference_matches_jax(kind):
+    """``gemm_nn_reference`` (the backward's dX products: a @ w with w the
+    (out, in) weight; df1 with GELU' and its column sums) against JAX."""
+    dtype = "float32" if kind == "float32" else "bfloat16"
+    r = np.random.default_rng(12)
+    k, n = 192, 768
+    a = (0.01 * r.standard_normal((GEMM_M, k))).astype(np.float32)
+    w = (r.uniform(-1, 1, (k, n)) / np.sqrt(n)).astype(np.float32)
+    pre = r.standard_normal((GEMM_M, n)).astype(np.float32)
+    ta, tw = (torch.from_numpy(t).to(getattr(torch, dtype)) for t in (a, w))
+    c = _jax_dot(_jnp(a, dtype), _jnp(w, dtype))
+    if kind == "gelu_grad":
+        got, colsum = tfb.gemm_nn_reference(ta, tw, torch.from_numpy(pre))
+        gelu_grad = jax.vmap(jax.vmap(jax.grad(lambda v: jax.nn.gelu(v, approximate=False))))
+        d = c * gelu_grad(jnp.asarray(pre))
+        _assert_close(colsum.numpy(), d.sum(0), "float32")
+        want = d.astype(jnp.bfloat16)
+    else:
+        got = tfb.gemm_nn_reference(ta, tw, out_dtype=getattr(torch, kind))
+        want = c.astype(getattr(jnp, kind))
+    _assert_close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weight_grad_reference_matches_jax(dtype):
+    """``weight_grad_reference`` (a^T b over the token rows, float32) against
+    JAX, at dW_qkv's shape over the edge case's 144 rows."""
+    r = np.random.default_rng(13)
+    a = (0.01 * r.standard_normal((GEMM_M, 576))).astype(np.float32)
+    b = r.standard_normal((GEMM_M, 192)).astype(np.float32)
+    got = tfb.weight_grad_reference(*(torch.from_numpy(t).to(getattr(torch, dtype))
+                                      for t in (a, b)))
+    assert got.dtype == torch.float32
+    _assert_close(got.numpy(), _jax_dot(_jnp(a, dtype).T, _jnp(b, dtype)), "float32")
+
+
+def test_gemm_wrappers_run_the_plain_versions_on_cpu():
+    a, w, bias, res = (torch.from_numpy(t).bfloat16() if t.ndim == 2 else torch.from_numpy(t)
+                       for t in _gemm_operands(14, 40, 192, 64))
+    torch.testing.assert_close(tfb.block_gemm(a, w), tfb.gemm_reference(a, w), atol=0, rtol=0)
+    torch.testing.assert_close(tfb.block_gemm(a, w, bias, res),
+                               tfb.gemm_reference(a, w, bias, res), atol=0, rtol=0)
+    for got, want in zip(tfb.block_gemm(a, w, bias, gelu=True),
+                         tfb.gemm_reference(a, w, bias, gelu=True)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    wt = w.t().contiguous()
+    torch.testing.assert_close(tfb.block_gemm_nn(w, wt, out_dtype=torch.float32),
+                               tfb.gemm_nn_reference(w, wt, out_dtype=torch.float32),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(tfb.block_weight_grad(a, res.bfloat16()),
+                               tfb.weight_grad_reference(a, res.bfloat16()), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("offset,rows,error", [
+    (0, None, None), (8, None, None), (1, None, ValueError), (4, None, ValueError),
+    (0, 8, None), (0, 4, None), (0, 2, None), (0, 1, None),
+    (0, 3, NotImplementedError), (0, 5, NotImplementedError), (0, 7, NotImplementedError),
+])
+def test_check_tma_operands(offset, rows, error):
+    """The host checks of what the GEMM engine's TMA loads take: bases on 16
+    bytes (a bf16 view ``offset`` values into an aligned buffer) and a CLS
+    row count that divides 64."""
+    t = torch.zeros(64, dtype=torch.bfloat16)[offset:offset + 16]
+    if error is None:
+        tfb.check_tma_operands(t, cls_rows=rows)
+    else:
+        with pytest.raises(error):
+            tfb.check_tma_operands(t, cls_rows=rows)
