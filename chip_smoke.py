@@ -127,8 +127,17 @@ Phases 20-23 run W8A8 int8 serving (``tpu.quant: int8``) of SiT-base on
 sub-ico 3 and the gather-fused patch embedding:
 
 20. int8-kernels -- the int8 chain's row quantizer (codes and scales) and
-              int8 GEMM (int32 accumulators) bitwise against their plain
-              versions at SiT-base shapes (M = 64 x 1281, K 768 and 3072);
+              int8 GEMM on the engine (Q_S32: int32 accumulators) bitwise
+              against their plain versions at SiT-base shapes (M = 64 x
+              1281, K 768 and 3072) and at K 192 (82,176 and 1,000 rows);
+              qkv, out-projection and fc2 with their dequantizing epilogues
+              bitwise against the plain dequantized product (bias,
+              residuals, roundings); a scan over every float of what fc1's
+              epilogues assume
+              (gelu_erf non-decreasing above 0 and bounded below it, codes
+              by reciprocal equal to codes by division); fc1 and f's
+              quantization (two passes, no fp32 f) bitwise against
+              ``quant_rows`` of the plain f at SiT-base and SiT-tiny widths;
               ``fused_block_int8`` against the float32 and bf16 plain int8
               block at dim 768 / N 1281 / B 64, dim 384 / N 321 / B 256,
               N 328 / valid_len 321 and N 64, with controls (one scale per
@@ -182,11 +191,11 @@ to its run on the idle card, before that kernel ends.
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
 
-Each phase prints its seconds. Then three records lines: the attention
-backward and forward rows and the block rows beside their recorded times
-under the mma.sync kernels they replaced (a record, not measured in the
-run), the forward rows with their ratio to SDPA in this run and their share
-of the bound.
+Each phase prints its seconds. Then four records lines: the attention
+backward and forward rows, the block rows and the int8 rows beside their
+recorded times under the mma.sync kernels they replaced (a record, not
+measured in the run), the forward rows with their ratio to SDPA in this run
+and their share of the bound, the int8 GEMMs beside ``torch._int_mm``.
 Then a JSON line of per-kernel results, and last ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -940,7 +949,8 @@ def phase_train_entry() -> None:
 
 
 GEMM_EPIS = ("F_NONE", "F_GELU", "F_RES", "B_PART", "B_F32", "B_BF16", "B_GELU_GRAD",
-             "B_ADD_F32")  # csrc/gemm.cuh's epilogues, in order
+             "B_ADD_F32", "Q_S32", "Q_BF16", "Q_RES_F32", "Q_GELU_MAX", "Q_GELU_Q8",
+             "Q_RES_BF16")  # csrc/gemm.cuh's epilogues, in order
 
 
 def ptxas_report(log_path: Path) -> str:
@@ -951,14 +961,17 @@ def ptxas_report(log_path: Path) -> str:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             fwd = re.search(r"flash_fwd_kernelILi(\d)ELi(\d+)ELb(\d)E", mangled)
-            gemm = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)E", mangled)
+            gemm = re.search(r"gemm_kernelI(13__nv_bfloat16|a)Li(\d)ELi(\d)ELi(\d+)E", mangled)
             name = (f"flash_fwd<{','.join(fwd.groups())}>" if fwd else
-                    f"gemm<{gemm[1]},{gemm[2]},{GEMM_EPIS[int(gemm[3])]}>" if gemm else next((
+                    f"gemm<{'int8' if gemm[1] == 'a' else 'bf16'},{gemm[2]},{gemm[3]},"
+                    f"{GEMM_EPIS[int(gemm[4])]}>" if gemm else next((
                         k for k in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_kernel",
-                                    "ln_bwd", "int8_gemm", "layer_norm", "reduce", "ln_quant",
-                                    "quant_rows", "patch_embed") if k in mangled), mangled[:40]))
-        elif name and "registers" in line:
-            regs[name] = max(regs.get(name, 0), int(line.split("Used ")[1].split()[0]))
+                                    "ln_bwd", "layer_norm", "reduce", "ln_quant",
+                                    "quant_rows", "gelu_scan", "div_scan", "patch_embed")
+                        if k in mangled), mangled[:40]))
+        elif name and re.search(r"Used \d+ registers", line):
+            used = int(re.search(r"Used (\d+) registers", line)[1])
+            regs[name] = max(regs.get(name, 0), used)
         elif name and "spill" in line and " 0 bytes spill stores" not in line:
             spills.append(f"{name}: {line.strip()}")
     return (", ".join(f"{k} {v} registers" for k, v in sorted(regs.items()))
@@ -2490,6 +2503,25 @@ INT8_RATE_CASES = [(192, 3, 768, 256, 321), (384, 6, 1536, 256, 321), (768, 12, 
 # 0.694-0.702 (its max and rel-L2 sit with the kernel's: a double rounding
 # moves an output by one step at most).
 INT8_STEPS, INT8_REL_RATIO, INT8_SHARE = 6, 1.25, 0.05
+# The chain's int8 GEMM held bit for bit against the exact product (name:
+# (M, N, K)): the four SiT-base products at bs_val 64 (timed beside
+# torch._int_mm), SiT-tiny's qkv (K = 192: one and a half 128-deep k-steps)
+# at B=256 and at 1,000 rows (a ragged last tile).
+INT8_GEMMS = {"qkv": (64 * 1281, 2304, 768), "out": (64 * 1281, 768, 768),
+              "fc1": (64 * 1281, 3072, 768), "fc2": (64 * 1281, 768, 3072),
+              "qkv K=192": (256 * 321, 576, 192), "qkv K=192 M=1000": (1000, 576, 192)}
+# Row scales at which the scan of fc1's arithmetic (svt_int8_scan) holds the
+# codes by reciprocal against those by division: the all-zero row's 1e-30 /
+# 127, both sides of the 2^-60 where quant_recip rescales, and scales from
+# 1e-12 to 1234.5 (at every float v in [0, 128 s]).
+INT8_SCAN_SCALES = [1e-30 / 127, 2.0 ** -70, 2.0 ** -61, 2.0 ** -60, 1e-12, 2.0 ** -7, 1 / 127,
+                    0.0213, 1.0, 7.77, 1234.5]
+# The int8 block and its GEMMs under the mma.sync s8 design this one
+# replaced (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W): a record
+# printed beside this run's, not a measurement of this run.
+MMA_SYNC_INT8_MS = {"fused_block_int8": 5.8335, "qkv": 0.9488, "out": 0.3495, "fc1": 1.2722,
+                    "fc2": 1.0784}
+INT8_RECORDS: dict = {}  # this run's: name -> (ms, torch._int_mm ms, bound ms)
 EMBED_CASES = [(2, 256, 192), (2, 256, 384), (3, 64, 768)]  # (sub_ico, B, dim)
 # int8 SiT-base predictions against the fp32 eager model, rel-L2. At these
 # seeded weights (attention O(1) of every block, twelve blocks) bf16
@@ -2553,7 +2585,7 @@ def phase_int8_kernels(rng, fb) -> dict:
     from surface_vision_transformers_tpu_torch.ops import quant
 
     failures = []
-    M = 64 * 1281  # SiT-base rows at bs_val 64
+    M = 64 * 1281  # SiT-base rows at bs_val 64 (the last 128-row tile half full)
     for K, dt in ((768, torch.float32), (3072, torch.float32), (768, torch.bfloat16)):
         h = torch.randn((M, K), device="cuda", dtype=torch.float32) * 3.0
         h[0] = 0.0  # an all-zero row: the 1e-30 floor
@@ -2568,19 +2600,20 @@ def phase_int8_kernels(rng, fb) -> dict:
         if bad:
             failures.append(f"row quantizer K={K} {dt}")
     times = {}
-    gemms = {"qkv": (2304, 768), "out": (768, 768), "fc1": (3072, 768), "fc2": (768, 3072)}
-    for name, (n_out, K) in gemms.items():
-        qa = torch.randint(-127, 128, (M, K), device="cuda", dtype=torch.int8)
+    for name, (m, n_out, K) in INT8_GEMMS.items():
+        qa = torch.randint(-127, 128, (m, K), device="cuda", dtype=torch.int8)
         qa[:64] = 127
         qw = torch.randint(-127, 128, (n_out, K), device="cuda", dtype=torch.int8)
         qw[:8] = 127
         acc = fbi8.int8_gemm_kernel(qa, qw)
         bad = int((acc != quant.int8_product(qa, qw)).sum())
-        phase("int8-kernels", f"int8 GEMM {name} M={M} N={n_out} K={K}: {bad} int32 "
+        phase("int8-kernels", f"int8 GEMM (Q_S32) {name} M={m} N={n_out} K={K}: {bad} int32 "
               f"accumulators differ from the exact product (must be 0); largest "
               f"|acc| {acc.abs().max().item()}")
         if bad:
             failures.append(f"int8 GEMM {name}")
+        if m != M:
+            continue
         ms = cuda_ms(lambda: fbi8.int8_gemm_kernel(qa, qw))
         try:
             lib = cuda_ms(lambda: torch._int_mm(qa, qw.t()))
@@ -2594,6 +2627,64 @@ def phase_int8_kernels(rng, fb) -> dict:
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
               f"({2 * M * n_out * K / 1e9:.1f} G int8 operations; CUDA-event medians of 25)")
         del qa, qw, acc
+    torch.cuda.empty_cache()
+    INT8_RECORDS.update(times)
+
+    # the chain's products with their epilogues, bitwise against the plain
+    # dequantized product (int8_mm_reference's arithmetic), at SiT-base widths
+    for kind, n_out, K in (("qkv", 2304, 768), ("out", 768, 768), ("fc2", 768, 3072)):
+        h = torch.randn((M, K), device="cuda") * 2.0
+        qa, sa = quant.quant_rows(h)
+        qw, sw = quant.quantize_weight_int8(
+            (torch.rand((n_out, K), device="cuda") * 2 - 1) * K ** -0.5)
+        b = torch.randn(n_out, device="cuda") * 0.5
+        deq = quant.int8_mm_reference(h, qw, sw)
+        r = torch.randn((M, n_out), device="cuda")
+        if kind == "qkv":
+            got, want = fbi8.int8_block_gemm(kind, qa, sa.reshape(-1), qw, sw), deq.bfloat16()
+        elif kind == "out":  # x1 = x + (. + b_out), x bf16, x1 fp32
+            r = r.bfloat16()
+            got, want = fbi8.int8_block_gemm(kind, qa, sa.reshape(-1), qw, sw, b, r), \
+                r.float() + (deq + b)
+        else:  # out = (x1 + (. + b_fc2)) in bf16, x1 fp32
+            got, want = fbi8.int8_block_gemm(kind, qa, sa.reshape(-1), qw, sw, b, r), \
+                (r + (deq + b)).bfloat16()
+        bad = int((got != want).sum())
+        phase("int8-kernels", f"int8 GEMM {kind} with its epilogue M={M} N={n_out} K={K}: {bad} "
+              f"of {got.numel()} outputs differ from the plain version (must be 0)")
+        if bad:
+            failures.append(f"int8 GEMM {kind} epilogue")
+        del h, qa, qw, deq, r, got, want
+    torch.cuda.empty_cache()
+
+    scan = fbi8.int8_scan(torch.tensor(INT8_SCAN_SCALES, device="cuda"))
+    phase("int8-kernels", f"every float: gelu_erf decreases to the next float above 0 at "
+          f"{scan['gelu_decreases']} (must be 0); max |gelu_erf| below 0 "
+          f"{scan['gelu_neg_max']:.8g} (must be <= the kernel's bound "
+          f"{scan['gelu_neg_bound']:.8g}); codes by reciprocal "
+          f"differing from codes by division over every v in [0, 128 s] at "
+          f"{len(INT8_SCAN_SCALES)} scales: {scan['codes_differ']} (must be 0)")
+    if scan["gelu_decreases"] or scan["gelu_neg_max"] > scan["gelu_neg_bound"] \
+            or scan["codes_differ"]:
+        failures.append("the scan of fc1's arithmetic")
+    for m, mlp, K in ((M, 3072, 768), (256 * 321, 768, 192)):  # SiT-base's fc1, SiT-tiny's
+        h = torch.randn((m, K), device="cuda") * 2.0  # LN2's output
+        h[0] = 0.0  # an all-zero row: f = GELU(b_fc1)
+        h[1, 0] = 1e3  # a row whose codes are mostly 0
+        qa, sa = quant.quant_rows(h)
+        qw, sw = quant.quantize_weight_int8(
+            (torch.rand((mlp, K), device="cuda") * 2 - 1) * K ** -0.5)
+        b = torch.randn(mlp, device="cuda") * 0.5
+        q, sc = fbi8.fc1_codes_kernel(qa, sa.reshape(-1), qw, sw, b)
+        f = F.gelu(quant.int8_mm_reference(h, qw, sw) + b)  # the plain block's f, in fp32
+        qp, sp = quant.quant_rows(f)
+        bad = int((q != qp).sum()) + int((sc != sp.reshape(-1)).sum())
+        phase("int8-kernels", f"fc1 + f's quantization (two passes, no fp32 f) M={m} mlp={mlp} "
+              f"K={K}: {bad} of {q.numel() + sc.numel()} codes and scales differ from "
+              "quant_rows of the plain f (must be 0)")
+        if bad:
+            failures.append(f"fc1 codes mlp={mlp}")
+        del h, qa, qw, q, f, qp
     torch.cuda.empty_cache()
 
     row = None
@@ -2666,6 +2757,7 @@ def phase_int8_kernels(rng, fb) -> dict:
                   "the four GEMMs alone (kernel / torch._int_mm / bound, ms): "
                   + ", ".join(f"{k} {t[0]:.4f} / {'n/a' if t[1] is None else f'{t[1]:.4f}'} / "
                               f"{t[2]:.4f}" for k, t in times.items()))
+            INT8_RECORDS["fused_block_int8"] = (ms, None, b_ms)
             row = {"name": "fused_block_int8", "route": "cuda", "source": INT8_SOURCE,
                    "replaces": INT8_TPU, "max_abs_err": (got - ref32).abs().max().item(),
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -3503,6 +3595,13 @@ def main() -> None:
           + "; the GEMMs alone against torch.mm, ms: " + "; ".join(
               f"{r_['gemm'].split(' M')[0]} {r_['ms']:.4f} / {r_['library_ms']:.4f}"
               for r_ in gemm_rows))
+    phase("records", "the int8 rows, this run's ms beside the mma.sync s8 design's recorded "
+          "ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W; a record, not measured in "
+          "this run), with torch._int_mm and the bound of this run: " + "; ".join(
+              f"{k_} {INT8_RECORDS[k_][0]:.4f} (mma.sync {v_}"
+              + ("" if INT8_RECORDS[k_][1] is None
+                 else f"; torch._int_mm {INT8_RECORDS[k_][1]:.4f}")
+              + f"; bound {INT8_RECORDS[k_][2]:.4f})" for k_, v_ in MMA_SYNC_INT8_MS.items()))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

@@ -3,8 +3,9 @@
 
     python3 scripts/block_gemm_breakdown.py
 
-Builds ``fused_block.cu``, ``fused_block_bwd.cu`` and ``flash_attention.cu``
-of ``surface_vision_transformers_tpu_torch/csrc`` a second time with
+Builds ``fused_block.cu``, ``fused_block_bwd.cu``, ``fused_block_int8.cu`` and
+``flash_attention.cu`` of ``surface_vision_transformers_tpu_torch/csrc`` a
+second time with
 ``-DSVT_GEMM_PROFILE`` (into a temporary directory), which makes the
 engine's warpgroups (``csrc/gemm.cuh``) add up, with ``clock64``, the cycles
 each part of their walk over the output tiles takes: for the consumers,
@@ -13,8 +14,9 @@ k-step before it, waiting for a tile's last k-step, the epilogue, and the
 rest (the walk's own bookkeeping); for the producer, the share of its walk
 spent waiting for a free stage. Runs each GEMM of ``chip_smoke.py`` phase 25
 (the forward's four at SiT-tiny B=256 and SiT-base B=32, the backward's
-eight at SiT-tiny B=256) on random operands and prints the shares beside
-the kernel's CUDA-event time with and without the marks.
+eight at SiT-tiny B=256) and the int8 block's (qkv, out, fc1's two passes,
+fc2 at SiT-base B=64, phase 20's block) on random operands and prints the
+shares beside the kernel's CUDA-event time with and without the marks.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 
@@ -35,9 +37,11 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import cuda_ms  # noqa: E402
 from surface_vision_transformers_tpu_torch.ops import _native  # noqa: E402
 from surface_vision_transformers_tpu_torch.ops import fused_block as fb  # noqa: E402
+from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8  # noqa: E402
+from surface_vision_transformers_tpu_torch.ops import quant  # noqa: E402
 
 PARTS = ("await stage", "start wgmma", "await k-step", "await last k-step", "epilogue")
-TINY_M, BASE_M = 256 * 321, 32 * 1281
+TINY_M, BASE_M, INT8_M = 256 * 321, 32 * 1281, 64 * 1281
 
 
 def cases(rng):
@@ -70,6 +74,19 @@ def cases(rng):
         a, b = bf((M, m_out), 0.01), bf((M, n_out))
         yield (f"backward {name} Mout={m_out} Nout={n_out} K={M}",
                lambda a=a, b=b: fb.block_weight_grad(a, b))
+    M, dim, mlp, hd = INT8_M, 768, 3072, 768
+    for name, N, K in (("qkv", 3 * hd, dim), ("out", dim, hd), ("fc1_max", mlp, dim),
+                       ("fc1_q8", mlp, dim), ("fc2", dim, mlp)):
+        qa, sa = quant.quant_rows(torch.randn((M, K), device="cuda"))
+        qw, sw = quant.quantize_weight_int8(torch.randn((N, K), device="cuda") * K ** -0.5)
+        bias = torch.randn(N, device="cuda") * 0.1
+        res = (bf((M, N)) if name == "out" else torch.randn((M, N), device="cuda")
+               if name == "fc2" else None)
+        part = fbi8.int8_block_gemm("fc1_max", qa, sa.reshape(-1), qw, sw, bias) \
+            if name == "fc1_q8" else None
+        yield (f"int8 {name} M={M} N={N} K={K}",
+               lambda a=(name, qa, sa.reshape(-1), qw, sw, bias, res, part):
+               fbi8.int8_block_gemm(*a[:7], part=a[7]))
 
 
 def main() -> None:
@@ -83,7 +100,8 @@ def main() -> None:
         so = Path(tmp) / "libgemm_profile.so"
         res = subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-DSVT_GEMM_PROFILE",
                               "-shared", "-o", str(so), *(str(_native.CSRC_DIR / f) for f in (
-                                  "fused_block.cu", "fused_block_bwd.cu", "flash_attention.cu"))],
+                                  "fused_block.cu", "fused_block_bwd.cu", "fused_block_int8.cu",
+                                  "flash_attention.cu"))],
                              check=True, capture_output=True, text=True, timeout=900)
         report = (res.stdout + res.stderr).replace("\n    ", " ")
         print("\n".join(l for l in report.splitlines() if "C75" in l), flush=True)
@@ -92,18 +110,20 @@ def main() -> None:
                             ("svt_block_gemm_nn", plain_lib.svt_block_gemm_nn.argtypes),
                             ("svt_block_weight_grad", plain_lib.svt_block_weight_grad.argtypes),
                             ("svt_block_weight_grad_workspace",
-                             plain_lib.svt_block_weight_grad_workspace.argtypes)):
+                             plain_lib.svt_block_weight_grad_workspace.argtypes),
+                            ("svt_int8_block_gemm", plain_lib.svt_int8_block_gemm.argtypes)):
         fn = getattr(prof_lib, entry)
         fn.argtypes = argtypes
         fn.restype = getattr(plain_lib, entry).restype
     prof_lib.svt_error_string.restype = ctypes.c_char_p
-    sums = {k: (ctypes.c_ulonglong * 8)() for k in ("fwd", "bwd")}
-    readers = {"fwd": prof_lib.svt_gemm_profile, "bwd": prof_lib.svt_gemm_profile_bwd}
+    sums = {k: (ctypes.c_ulonglong * 8)() for k in ("fwd", "bwd", "int8")}
+    readers = {"fwd": prof_lib.svt_gemm_profile, "bwd": prof_lib.svt_gemm_profile_bwd,
+               "int8": prof_lib.svt_gemm_profile_int8}
     for r in readers.values():
         r.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     rng = np.random.default_rng(0)
     for label, call in cases(rng):
-        which = "fwd" if label.startswith("forward") else "bwd"
+        which = label.split()[0].replace("forward", "fwd").replace("backward", "bwd")
         times = {}
         for name, lib in (("plain", plain_lib), ("marked", prof_lib)):
             _native.library = lambda lib=lib: lib

@@ -64,6 +64,57 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
+// An upper bound of |gelu_erf(v)| over every negative float (the largest
+// is 0.16997, near v = -0.75). Over v >= 0 gelu_erf is non-decreasing, so
+// the largest |gelu_erf| of a set of values is gelu_erf of their maximum
+// whenever that reaches this bound. chip_smoke.py phase 20 scans every
+// float for both properties (svt_int8_scan).
+constexpr float GELU_NEG_MAX = 0.17f;
+
+// The int8 chain's quantization (fused_block_int8.cu; ops/quant.py is the
+// plain version), bit for bit the JAX arithmetic: scale = max(absmax,
+// 1e-30) / 127 and code = clamp(rint(v / scale), -127, 127), both IEEE
+// divisions, rint half to even.
+__device__ __forceinline__ float quant_scale(float absmax) {
+  return __fdiv_rn(fmaxf(absmax, 1e-30f), 127.0f);
+}
+
+__device__ __forceinline__ int quant_code(float v, float scale) {
+  return max(-127, min(127, __float2int_rn(__fdiv_rn(v, scale))));
+}
+
+// v / s rounded to nearest even, as __fdiv_rn, from r = 1 / s rounded to
+// nearest: v r, then two Markstein corrections, each residual v - s q exact
+// by FMA while it stays a normal float; the second starts from a faithful
+// quotient, so it returns the correctly rounded one.
+__device__ __forceinline__ float div_rn(float v, float s, float r) {
+  float q = __fmul_rn(v, r);
+  q = __fmaf_rn(__fmaf_rn(-q, s, v), r, q);
+  return __fmaf_rn(__fmaf_rn(-q, s, v), r, q);
+}
+
+// A row's scale in the form quant_code_r takes, made once per row: (k, s k,
+// 1 / (s k)) with k = 2^64 below s = 2^-60 (powers of two: exact), so that
+// every residual that can move a code is a normal float.
+struct QuantRecip {
+  float k, s, r;
+};
+__device__ __forceinline__ QuantRecip quant_recip(float scale) {
+  const float k = scale < 0x1p-60f ? 0x1p64f : 1.f;
+  const float s = __fmul_rn(scale, k);
+  return QuantRecip{k, s, __frcp_rn(s)};
+}
+
+// quant_code without a division per value: the same code for every v
+// (svt_int8_scan checks every v up to 128 s at a set of scales). The
+// quotient is clamped to +-127 (before rounding: the bounds are integers)
+// and rounded half to even by adding 1.5 * 2^23, whose float has unit
+// spacing; its low bits are then the code (no float-to-int conversion).
+__device__ __forceinline__ int quant_code_r(float v, const QuantRecip& q) {
+  const float t = fminf(fmaxf(div_rn(__fmul_rn(v, q.k), q.s, q.r), -127.f), 127.f);
+  return __float_as_int(__fadd_rn(t, 12582912.f)) - 0x4B400000;
+}
+
 // d/dv of gelu_erf: 0.5 (1 + erf(v / sqrt 2)) + v phi(v).
 __device__ __forceinline__ float gelu_erf_grad(float v) {
   return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
@@ -134,6 +185,11 @@ template <int N>
 __device__ __forceinline__ void wg_hold(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_hold(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void wg_hold(uint32_t (&a)[N][4]) {
@@ -250,12 +306,15 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 // A TMA map of a bf16 (or `type`) tensor of `rank` dimensions (innermost
 // first, strides in bytes of dimensions 1..rank-1), boxes of `box` elements
-// in the 128-byte swizzle, zero fill past the edges. cuTensorMapEncodeTiled
-// is found through the runtime (cudaGetDriverEntryPoint), so nothing links
-// against libcuda.
+// in the 128-byte (or `swizzle`) swizzle, zero fill past the edges. int8
+// tensors map as CU_TENSOR_MAP_DATA_TYPE_UINT8 (CUtensorMapDataType has no
+// signed 8-bit type; TMA moves bytes and fills with zero bytes).
+// cuTensorMapEncodeTiled is found through the runtime
+// (cudaGetDriverEntryPoint), so nothing links against libcuda.
 inline cudaError_t encode_tiled(CUtensorMap* m, int rank, const void* p, const cuuint64_t* dims,
                                 const cuuint64_t* strides, const cuuint32_t* box,
-                                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -269,7 +328,7 @@ inline cudaError_t encode_tiled(CUtensorMap* m, int rank, const void* p, const c
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(m, type, (cuuint32_t)rank,
                             const_cast<void*>(p), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -347,6 +406,38 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t da, uint64_t d
                ", %96, %97, p, 1, 1, %99, %100;\n}\n"
                : SVT_WG_D96
                : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+#define SVT_WG_I96 \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), \
+  "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), \
+  "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), \
+  "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), \
+  "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), \
+  "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), \
+  "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), \
+  "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), \
+  "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), \
+  "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), \
+  "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), \
+  "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), \
+  "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), \
+  "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), \
+  "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), \
+  "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+
+// The int8 form (the W8A8 block's GEMMs): d (64 x 192) s32 (+)= A (64 x 32)
+// B (32 x 192) s8, both K-major from shared memory (s8 wgmma takes no
+// transpose): [rows][128] int8 tiles in the 128-byte swizzle, byte for byte
+// the bf16 [rows][64] tiles, so a k32 step starts 32 bytes in as a bf16
+// k16 step does and the descriptors are the same. The accumulators' thread
+// layout is the bf16 form's.
+__device__ __forceinline__ void wgmma_s8(int (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 " SVT_WG_R96
+               ", %96, %97, p;\n}\n"
+               : SVT_WG_I96
+               : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // The same with A from registers, as an mma.sync m16k16 fragment per warp

@@ -6,64 +6,98 @@
 //
 // The TPU kernel keeps a block in VMEM and quantizes each activation tile
 // in place. Here the block is a chain of launches on the caller's stream:
-//   LN1 + row quantization (bf16 x) -> int8 QKV GEMM, dequantized to bf16
+//   LN1 + row quantization (bf16 x) -> int8 qkv GEMM, dequantized to bf16
 //   -> streamed attention (flash_attention.cu) on the packed qkv
 //   -> row quantization of the bf16 attention output
 //   -> int8 out-proj GEMM + bias + x -> x1 (fp32, not rounded)
-//   -> LN2 + row quantization (fp32 x1) -> int8 fc1 GEMM + bias, erf-GELU
-//      -> f (fp32) -> row quantization of f
+//   -> LN2 + row quantization (fp32 x1)
+//   -> int8 fc1 GEMM, pass 1: each row's max |erf-GELU(. + bias)| over
+//      each 192-column tile -> partials (mlp / 192, M) fp32
+//   -> int8 fc1 GEMM, pass 2: the same products and f again, quantized by
+//      the row scale the partials give -> f's int8 codes and row scales
 //   -> int8 fc2 GEMM + bias + x1 -> out (bf16).
-// A row's int8 scale needs the absmax of the whole row first. The GEMM tiles
-// split the attention output across heads and f across MLP columns, so
-// those two are quantized by a separate row pass; LN1 and LN2 hold whole
-// rows and quantize as they normalise.
+// The four GEMMs run on gemm.cuh's engine with int8 operands (a persistent
+// CTA per SM, a TMA producer and a four-stage mbarrier ring, two consumer
+// warpgroups on m64n192k32 s8 wgmma, int32 accumulators, outputs out by
+// TMA); the epilogues (Q_* in gemm.cuh) dequantize and fuse bias, GELU,
+// the residuals and f's quantization.
+//
+// A row's int8 scale needs the absmax of the whole row first. LN1 and LN2
+// hold whole rows and quantize as they normalise (row passes, one warp a
+// row, 16-byte loads, the row read from L1 for the statistics, the absmax
+// and the codes); the attention output spans every head, which no GEMM tile
+// holds, so it has a row pass of its own. f spans every MLP column: the
+// maximum is associative, so pass 1 takes it per 192-column tile exactly
+// and pass 2 recomputes f (the int32 products are exact, the epilogue
+// deterministic) and writes the codes quant_rows(f) would give, bit for
+// bit. f never lives in device memory in fp32: the price is fc1's products
+// twice.
 //
 // Quantization, bit for bit the JAX arithmetic (ops/quant.py is the plain
-// version): scale = max(absmax, 1e-30) / 127 and code = clamp(rint(v /
-// scale), -127, 127), both IEEE divisions (__fdiv_rn), rint half to even
-// (__float2int_rn). Rows past valid_len are quantized too; an all-zero row
-// gets scale 1e-30 / 127 and codes 0, no NaN.
-//
-// The GEMM: C[M, N] = A[M, K] . W[N, K]^T on int8 tensor cores
-// (mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32), int32 accumulators, W
-// in the torch Linear (out, in) layout with K contiguous. The tiling is
-// fused_block.cu's bf16 GEMM in bytes: a 128 x 64 CTA tile, 4 warps of
-// 32 x 64, K steps of 64 int8 (64 bytes, the bf16 kernel's 32 elements)
-// through a two-stage cp.async ring. An int8 16 x 32 tile is a b16 16 x 16
-// tile byte for byte, so ldmatrix on the int8 tiles viewed as b16 gives the
-// s8 fragments (A: rows g / g+8, bytes 4t..4t+3 and 16+4t..; B: bytes
-// 4t..4t+3 and 16+4t.. of row n = g). Epilogue: (float(acc) * s_row) *
-// s_col (int32 -> fp32 rounded to nearest, __int2float_rn), then bias,
-// GELU and residuals in fp32; a raw variant writes the int32 accumulators
-// (svt_int8_gemm_s32, to hold them bitwise against the plain product).
+// version; common.cuh's quant_scale / quant_code): scale = max(absmax,
+// 1e-30) / 127 and code = clamp(rint(v / scale), -127, 127), both IEEE
+// divisions, rint half to even. Rows past valid_len are quantized too; an
+// all-zero row gets scale 1e-30 / 127 and codes 0, no NaN.
 //
 // Bounds on this card, SiT-base (dim 768, mlp 3072, N 1281) at bs 64: the
-// four GEMMs are 0.87 T int8 operations (0.44 ms at the 1,979 TOP/s dense
-// int8 peak) and attention 0.16 TFLOP of bf16 products (0.16 ms at 989
-// TFLOP/s); the block's own input and output are 0.25 GB (0.08 ms at 3.35
-// TB/s), so operations bound it. The chain also writes and reads back the
-// fp32 x1 and f (2.0 GB of f at bs 128) and the int8 rows: bytes a later
-// version keeps on chip by fusing the quantization into the GEMMs.
+// four GEMMs are 1.161 T int8 operations (0.587 ms at the 1,979 TOP/s dense
+// int8 peak) and attention 0.323 TFLOP of bf16 products (0.326 ms at 989
+// TFLOP/s), 0.913 ms together; the block's own input and output are 0.25
+// GB (0.08 ms at 3.35 TB/s), so operations bound it. The chain's own round
+// trips through HBM beside that: qkv (0.38 GB), the attention output, x1
+// in fp32 (0.25 GB, written once and read twice) and the int8 rows; no
+// (M, mlp) fp32 tensor.
 //
 // C interface, loaded with ctypes: every entry returns cudaGetLastError()
 // after its last launch (or the first failing one), 0 on success. Nothing
 // synchronises and nothing allocates.
 
 #include <stdint.h>
+#include <string.h>
 
 #include "flash_attention.cuh"
+#include "gemm.cuh"
 
 namespace {
 
 using namespace svt;
 
 // ---------------------------------------------------------------------------
-// Row quantization: one warp per row.
+// Row passes: one warp per row, 16 bytes a lane a load (8 bf16 or 4 fp32:
+// rows must be multiples of 16 bytes, the wrapper checks).
 
 constexpr int RQ_THREADS = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void load16(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __low2float(h[i]);
+    v[2 * i + 1] = __high2float(h[i]);
+  }
+}
+
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+
+// V codes of V values at q (V = 8: 8 bytes, V = 4: 4 bytes).
+template <int V>
+__device__ __forceinline__ void store_codes(int8_t* q, const float (&v)[V], float scale) {
+  uint32_t w[2] = {0, 0};
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    w[e >> 2] |= (uint32_t)(quant_code(v[e], scale) & 0xff) << (8 * (e & 3));
+  if (V == 8)
+    *reinterpret_cast<uint2*>(q) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(q) = w[0];
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -71,30 +105,29 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float quant_scale(float absmax) {
-  return __fdiv_rn(fmaxf(absmax, 1e-30f), 127.0f);
-}
-
-__device__ __forceinline__ int8_t quant_code(float v, float scale) {
-  const int q = __float2int_rn(__fdiv_rn(v, scale));
-  return static_cast<int8_t>(max(-127, min(127, q)));
-}
-
 // q = codes of each row of h (rows, cols), s = the row scales.
 template <typename T>
 __global__ void __launch_bounds__(RQ_THREADS)
     quant_rows_kernel(const T* __restrict__ h, int8_t* __restrict__ q, float* __restrict__ s,
                       int rows, int cols) {
+  constexpr int V = 16 / sizeof(T);
   const int row = (blockIdx.x * RQ_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const T* hr = h + (long long)row * cols;
-  float a = 0.f;
-  for (int i = lane; i < cols; i += 32) a = fmaxf(a, fabsf(to_f32(hr[i])));
+  float a = 0.f, v[V];
+  for (int i = V * lane; i < cols; i += 32 * V) {
+    load16(hr + i, v);
+#pragma unroll
+    for (int e = 0; e < V; ++e) a = fmaxf(a, fabsf(v[e]));
+  }
   const float sc = quant_scale(warp_max(a));
   if (lane == 0) s[row] = sc;
   int8_t* qr = q + (long long)row * cols;
-  for (int i = lane; i < cols; i += 32) qr[i] = quant_code(to_f32(hr[i]), sc);
+  for (int i = V * lane; i < cols; i += 32 * V) {
+    load16(hr + i, v);
+    store_codes<V>(qr + i, v, sc);
+  }
 }
 
 // LayerNorm in fp32 (two-pass statistics, as fused_block.cu's) quantized
@@ -105,169 +138,87 @@ __global__ void __launch_bounds__(RQ_THREADS)
     ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                     const float* __restrict__ beta, int8_t* __restrict__ q,
                     float* __restrict__ s, int rows, int dim, float eps) {
+  constexpr int V = 16 / sizeof(T);
   const int row = (blockIdx.x * RQ_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const T* xr = x + (long long)row * dim;
+  float v[V], g[V], b[V];
   float sum = 0.f;
-  for (int i = lane; i < dim; i += 32) sum += to_f32(xr[i]);
+  for (int i = V * lane; i < dim; i += 32 * V) {
+    load16(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < V; ++e) sum += v[e];
+  }
   const float mu = warp_sum(sum) / dim;
   float var = 0.f;
-  for (int i = lane; i < dim; i += 32) {
-    const float d = to_f32(xr[i]) - mu;
-    var += d * d;
+  for (int i = V * lane; i < dim; i += 32 * V) {
+    load16(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float d = v[e] - mu;
+      var += d * d;
+    }
   }
   const float rstd = rsqrtf(warp_sum(var) / dim + eps);
+  auto normed = [&](int i) {  // v <- the normalised values at columns i .. i + V - 1
+    load16(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < V; e += 4) {
+      load16(gamma + i + e, *reinterpret_cast<float(*)[4]>(g + e));
+      load16(beta + i + e, *reinterpret_cast<float(*)[4]>(b + e));
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = (v[e] - mu) * rstd * g[e] + b[e];
+  };
   float a = 0.f;
-  for (int i = lane; i < dim; i += 32)
-    a = fmaxf(a, fabsf((to_f32(xr[i]) - mu) * rstd * gamma[i] + beta[i]));
+  for (int i = V * lane; i < dim; i += 32 * V) {
+    normed(i);
+#pragma unroll
+    for (int e = 0; e < V; ++e) a = fmaxf(a, fabsf(v[e]));
+  }
   const float sc = quant_scale(warp_max(a));
   if (lane == 0) s[row] = sc;
   int8_t* qr = q + (long long)row * dim;
-  for (int i = lane; i < dim; i += 32)
-    qr[i] = quant_code((to_f32(xr[i]) - mu) * rstd * gamma[i] + beta[i], sc);
+  for (int i = V * lane; i < dim; i += 32 * V) {
+    normed(i);
+    store_codes<V>(qr + i, v, sc);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// int8 GEMM with dequantizing epilogues. Needs K % 16 == 0, N % 8 == 0 and
-// 16-byte aligned rows (the host checks K % 32 == 0).
+// What fc1's epilogues assume of their arithmetic, scanned over every float
+// (svt_int8_scan): out[0] counts the finite v >= 0 whose successor w has
+// gelu_erf(w) < gelu_erf(v), out[1] takes the bits of the largest
+// |gelu_erf(v)| over every finite v < 0 (to be held to GELU_NEG_MAX), and
+// out[2] counts the floats v in [0, 128 s], for each scale s in `scales`,
+// whose quant_code_r differs from quant_code (the codes are odd in v).
 
-enum {
-  Q_EPI_S32 = 0,       // int32 accumulators
-  Q_EPI_BF16 = 1,      // dequantized, bf16 (qkv)
-  Q_EPI_RES_F32 = 2,   // bf16 R + (dequantized + bias), fp32 (x1)
-  Q_EPI_GELU_F32 = 3,  // erf-GELU(dequantized + bias), fp32 (f)
-  Q_EPI_RES_BF16 = 4,  // fp32 R + (dequantized + bias), bf16 (out)
-};
-
-constexpr int QBM = 128, QBN = 64, QBK = 64, QLD = QBK + 16, Q_THREADS = 128;
-
-// c += a (16x32 s8, row) * b (32x8 s8, col); int32 accumulators.
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__global__ void gelu_scan_kernel(unsigned* out) {
+  unsigned bad = 0, neg = 0;
+  for (unsigned b = blockIdx.x * blockDim.x + threadIdx.x; b < 0x7F7FFFFFu;
+       b += gridDim.x * blockDim.x) {
+    const float v = __uint_as_float(b), w = __uint_as_float(b + 1);
+    bad += gelu_erf(w) < gelu_erf(v);
+    neg = max(neg, __float_as_uint(fabsf(gelu_erf(-w))));
+  }
+  atomicAdd(&out[0], bad);
+  atomicMax(&out[1], neg);
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(Q_THREADS)
-    int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
-                     const int8_t* __restrict__ W, const float* __restrict__ sw,
-                     const float* __restrict__ bias, const void* __restrict__ R,
-                     void* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) int8_t sA[2][QBM * QLD];
-  __shared__ __align__(16) int8_t sB[2][QBN * QLD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * QBN, m0 = blockIdx.y * QBM;
-  const int KT = (K + QBK - 1) / QBK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * QBK;
-#pragma unroll
-    for (int i = 0; i < (QBM * QBK / 16) / Q_THREADS; ++i) {
-      const int c = tid + i * Q_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int gr = m0 + r, gk = k0 + kc;
-      const bool ok = gr < M && gk < K;
-      cp_async16(&sA[stage][r * QLD + kc], ok ? A + (long long)gr * K + gk : A, ok);
+__global__ void div_scan_kernel(const float* scales, int n, unsigned* out) {
+  unsigned bad = 0;
+  for (int i = 0; i < n; ++i) {
+    const float s = scales[i];
+    const QuantRecip q = quant_recip(s);
+    const unsigned top = __float_as_uint(128.f * s);
+    for (unsigned b = blockIdx.x * blockDim.x + threadIdx.x; b <= top;
+         b += gridDim.x * blockDim.x) {
+      const float v = __uint_as_float(b);
+      bad += quant_code_r(v, q) != quant_code(v, s);
     }
-#pragma unroll
-    for (int i = 0; i < (QBN * QBK / 16) / Q_THREADS; ++i) {
-      const int c = tid + i * Q_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int gn = n0 + r, gk = k0 + kc;
-      const bool ok = gn < N && gk < K;
-      cp_async16(&sB[stage][r * QLD + kc], ok ? W + (long long)gn * K + gk : W, ok);
-    }
-  };
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load_stage((kt + 1) & 1, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* a_s = sA[kt & 1];
-    const int8_t* b_s = sB[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < QBK; kk += 32) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(af[mi], a_s + (warp * 32 + mi * 16 + (lane & 15)) * QLD + kk +
-                                (lane >> 4) * 16);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, b_s + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * QLD + kk +
-                             ((lane >> 3) & 1) * 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_s8(acc[mi][2 * nj], af[mi], bfr[0], bfr[1]);
-          mma_s8(acc[mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
   }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + warp * 32 + mi * 16 + g + half * 8;
-      if (r >= M) continue;
-      const long long o = (long long)r * N;
-      const float s_row = EPI == Q_EPI_S32 ? 0.f : sa[r];
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int c = n0 + ni * 8 + 2 * t;
-        if (c >= N) continue;
-        const int a0 = acc[mi][ni][2 * half], a1 = acc[mi][ni][2 * half + 1];
-        if (EPI == Q_EPI_S32) {
-          *reinterpret_cast<int2*>(static_cast<int*>(C) + o + c) = make_int2(a0, a1);
-          continue;
-        }
-        float v0 = __int2float_rn(a0) * s_row * sw[c];
-        float v1 = __int2float_rn(a1) * s_row * sw[c + 1];
-        if (EPI == Q_EPI_BF16) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + o + c) =
-              __floats2bfloat162_rn(v0, v1);
-          continue;
-        }
-        v0 += bias[c];
-        v1 += bias[c + 1];
-        if (EPI == Q_EPI_RES_F32) {
-          const __nv_bfloat162 rv =
-              *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(R) + o + c);
-          *reinterpret_cast<float2*>(static_cast<float*>(C) + o + c) =
-              make_float2(__low2float(rv) + v0, __high2float(rv) + v1);
-        } else if (EPI == Q_EPI_GELU_F32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(C) + o + c) =
-              make_float2(gelu_erf(v0), gelu_erf(v1));
-        } else {  // Q_EPI_RES_BF16
-          const float2 rv = *reinterpret_cast<const float2*>(static_cast<const float*>(R) + o + c);
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + o + c) =
-              __floats2bfloat162_rn(rv.x + v0, rv.y + v1);
-        }
-      }
-    }
+  atomicAdd(&out[2], bad);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,13 +240,33 @@ cudaError_t launch_ln_quant(const T* x, const float* g, const float* b, int8_t* 
   return cudaGetLastError();
 }
 
+// One int8 product on the engine: C (M, N) = epi(A (M, K) . W (N, K)^T),
+// A's rows with their scales sa, W's with sw.
 template <int EPI>
-cudaError_t launch_int8_gemm(const int8_t* A, const float* sa, const int8_t* W, const float* sw,
-                             const float* bias, const void* R, void* C, int M, int N, int K,
-                             cudaStream_t st) {
-  dim3 grid((N + QBN - 1) / QBN, (M + QBM - 1) / QBM);
-  int8_gemm_kernel<EPI><<<grid, Q_THREADS, 0, st>>>(A, sa, W, sw, bias, R, C, M, N, K);
-  return cudaGetLastError();
+cudaError_t int8_gemm(const int8_t* A, const float* sa, const int8_t* W, const float* sw, int M,
+                      int N, int K, gemm::Epilogue ep, cudaStream_t st) {
+  ep.sa = sa;
+  ep.sw = sw;
+  return gemm::linear<EPI>(gemm::Operand{A, M, K, K}, W, N, ep, st);
+}
+
+// Partials of fc1's row absmax: one per row and 192-column tile.
+int fc1_parts(int mlp) { return gemm::cdiv(mlp, gemm::BN); }
+
+// fc1 and f's quantization: f = erf-GELU(dequantized A W^T + bias) is never
+// stored; pass 1 writes part (fc1_parts(N), M) fp32, pass 2 the codes q
+// (M, N) int8 and the row scales s (M,).
+cudaError_t fc1_codes(const int8_t* A, const float* sa, const int8_t* W, const float* sw,
+                      const float* bias, float* part, int8_t* q, float* s, int M, int N, int K,
+                      cudaStream_t st) {
+  gemm::Epilogue ep;
+  ep.bias = bias;
+  ep.part = part;
+  ep.cq = q;
+  ep.sq = s;
+  ep.ldc = N;
+  const cudaError_t e = int8_gemm<gemm::Q_GELU_MAX>(A, sa, W, sw, M, N, K, ep, st);
+  return e != cudaSuccess ? e : int8_gemm<gemm::Q_GELU_Q8>(A, sa, W, sw, M, N, K, ep, st);
 }
 
 }  // namespace
@@ -305,50 +276,66 @@ extern "C" {
 // x (B, N, dim) bf16 -> out (B, N, dim) bf16. Weights int8 in the torch
 // Linear layout (out, in) with fp32 (out,) scales: q_qkv (3hd, dim), q_out
 // (dim, hd), q_fc1 (mlp, dim), q_fc2 (dim, mlp); LN parameters and biases
-// fp32. Scratch: q8 (B*N, max(dim, hd, mlp)) int8, s (B*N,) fp32, qkv
-// (B*N, 3hd) and attn (B*N, hd) bf16, x1 (B*N, dim) and f (B*N, mlp) fp32.
+// fp32. Scratch: qa (B*N, max(dim, hd)) int8 and sa (B*N,) fp32 (LN1's,
+// the attention output's and LN2's codes), qf (B*N, mlp) int8 and sf
+// (B*N,) fp32 (f's), part (parts, B*N) fp32 with parts = ceil(mlp / 192)
+// (any other count returns cudaErrorInvalidValue), qkv (B*N, 3hd) and attn
+// (B*N, hd) bf16, x1 (B*N, dim) fp32. dim and mlp multiples of 16.
 int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s_qkv,
                          void* q_out, void* s_out, void* b_out, void* ln2_s, void* ln2_b,
                          void* q_fc1, void* s_fc1, void* b_fc1, void* q_fc2, void* s_fc2,
-                         void* b_fc2, void* out, void* ws_q8, void* ws_s, void* ws_qkv,
-                         void* ws_attn, void* ws_x1, void* ws_f, int B, int N, int dim, int heads,
-                         int dim_head, int mlp, int valid_len, float eps, int device,
-                         void* stream) {
-  if (dim_head != ATT_DH) return (int)cudaErrorInvalidValue;
+                         void* b_fc2, void* out, void* ws_qa, void* ws_sa, void* ws_qf,
+                         void* ws_sf, void* ws_part, void* ws_qkv, void* ws_attn, void* ws_x1,
+                         int B, int N, int dim, int heads, int dim_head, int mlp, int parts,
+                         int valid_len, float eps, int device, void* stream) {
+  if (dim_head != ATT_DH || parts != fc1_parts(mlp) || dim % 16 || mlp % 16)
+    return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * dim_head;
   const bf16* xb = static_cast<const bf16*>(x);
-  int8_t* q8 = static_cast<int8_t*>(ws_q8);
-  float* s = static_cast<float*>(ws_s);
+  int8_t* qa = static_cast<int8_t*>(ws_qa);
+  float* sa = static_cast<float*>(ws_sa);
+  int8_t* qf = static_cast<int8_t*>(ws_qf);
+  float* sf = static_cast<float*>(ws_sf);
   bf16* qkv = static_cast<bf16*>(ws_qkv);
   bf16* attn = static_cast<bf16*>(ws_attn);
   float* x1 = static_cast<float*>(ws_x1);
-  float* f = static_cast<float*>(ws_f);
   auto i8 = [](void* p) { return static_cast<const int8_t*>(p); };
   auto f32 = [](void* p) { return static_cast<const float*>(p); };
 
-  SVT_TRY(launch_ln_quant(xb, f32(ln1_s), f32(ln1_b), q8, s, M, dim, eps, st));
-  SVT_TRY(launch_int8_gemm<Q_EPI_BF16>(q8, s, i8(q_qkv), f32(s_qkv), nullptr, nullptr, qkv, M,
-                                       3 * hd, dim, st));
+  SVT_TRY(launch_ln_quant(xb, f32(ln1_s), f32(ln1_b), qa, sa, M, dim, eps, st));
+  gemm::Epilogue e_qkv;
+  e_qkv.cb = qkv;
+  e_qkv.ldc = 3 * hd;
+  SVT_TRY(int8_gemm<gemm::Q_BF16>(qa, sa, i8(q_qkv), f32(s_qkv), M, 3 * hd, dim, e_qkv, st));
   SVT_TRY(flash_fwd(packed(qkv, N, 3 * hd), packed(qkv + hd, N, 3 * hd),
                     packed(qkv + 2 * hd, N, 3 * hd), packed(attn, N, hd), nullptr, B, heads, N, N,
                     valid_len, st));
-  SVT_TRY(launch_quant_rows(static_cast<const bf16*>(attn), q8, s, M, hd, st));
-  SVT_TRY(launch_int8_gemm<Q_EPI_RES_F32>(q8, s, i8(q_out), f32(s_out), f32(b_out), xb, x1, M,
-                                          dim, hd, st));
-  SVT_TRY(launch_ln_quant(static_cast<const float*>(x1), f32(ln2_s), f32(ln2_b), q8, s, M, dim,
+  SVT_TRY(launch_quant_rows(static_cast<const bf16*>(attn), qa, sa, M, hd, st));
+  gemm::Epilogue e_out;
+  e_out.bias = f32(b_out);
+  e_out.res = xb;
+  e_out.ldr = dim;
+  e_out.cf = x1;
+  e_out.ldc = dim;
+  SVT_TRY(int8_gemm<gemm::Q_RES_F32>(qa, sa, i8(q_out), f32(s_out), M, dim, hd, e_out, st));
+  SVT_TRY(launch_ln_quant(static_cast<const float*>(x1), f32(ln2_s), f32(ln2_b), qa, sa, M, dim,
                           eps, st));
-  SVT_TRY(launch_int8_gemm<Q_EPI_GELU_F32>(q8, s, i8(q_fc1), f32(s_fc1), f32(b_fc1), nullptr, f,
-                                           M, mlp, dim, st));
-  SVT_TRY(launch_quant_rows(static_cast<const float*>(f), q8, s, M, mlp, st));
-  SVT_TRY(launch_int8_gemm<Q_EPI_RES_BF16>(q8, s, i8(q_fc2), f32(s_fc2), f32(b_fc2), x1, out, M,
-                                           dim, mlp, st));
+  SVT_TRY(fc1_codes(qa, sa, i8(q_fc1), f32(s_fc1), f32(b_fc1), static_cast<float*>(ws_part), qf,
+                    sf, M, mlp, dim, st));
+  gemm::Epilogue e_fc2;
+  e_fc2.bias = f32(b_fc2);
+  e_fc2.resf = x1;
+  e_fc2.ldr = dim;
+  e_fc2.cb = static_cast<bf16*>(out);
+  e_fc2.ldc = dim;
+  SVT_TRY(int8_gemm<gemm::Q_RES_BF16>(qf, sf, i8(q_fc2), f32(s_fc2), M, dim, mlp, e_fc2, st));
   return (int)cudaSuccess;
 }
 
 // The chain's row quantizer alone: h (rows, cols) fp32 (h_is_f32) or bf16
-// -> q (rows, cols) int8, s (rows,) fp32.
+// -> q (rows, cols) int8, s (rows,) fp32; rows of a multiple of 16 bytes.
 int svt_quant_rows(void* h, int h_is_f32, void* q, void* s, int rows, int cols, int device,
                    void* stream) {
   SVT_TRY(cudaSetDevice(device));
@@ -359,14 +346,82 @@ int svt_quant_rows(void* h, int h_is_f32, void* q, void* s, int rows, int cols, 
   return (int)launch_quant_rows(static_cast<const bf16*>(h), qq, ss, rows, cols, st);
 }
 
-// The chain's int8 GEMM alone, int32 accumulators out: A (M, K) . W (N, K)^T
-// -> acc (M, N).
+// The chain's int8 product alone, int32 accumulators out (Q_S32): A (M, K)
+// . W (N, K)^T -> acc (M, N); K a multiple of 16, N of 4.
 int svt_int8_gemm_s32(void* A, void* W, void* acc, int M, int N, int K, int device,
                       void* stream) {
   SVT_TRY(cudaSetDevice(device));
-  return (int)launch_int8_gemm<Q_EPI_S32>(static_cast<const int8_t*>(A), nullptr,
-                                          static_cast<const int8_t*>(W), nullptr, nullptr,
-                                          nullptr, acc, M, N, K, static_cast<cudaStream_t>(stream));
+  gemm::Epilogue ep;
+  ep.cf = static_cast<float*>(acc);
+  ep.ldc = N;
+  return (int)int8_gemm<gemm::Q_S32>(static_cast<const int8_t*>(A), nullptr,
+                                     static_cast<const int8_t*>(W), nullptr, M, N, K, ep,
+                                     static_cast<cudaStream_t>(stream));
 }
+
+// One of the chain's products alone, on A (M, K) int8 with row scales sa
+// and W (N, K) int8 with sw: epi 1 = qkv (C bf16), 2 = out-projection (C
+// fp32 = R bf16 + (. + bias)), 3 = fc1's pass 1 (part (ceil(N / 192), M)),
+// 4 = fc1's pass 2 (from part: C int8 codes, sq (M,) their scales), 5 = fc2
+// (C bf16 = R fp32 + (. + bias)), 6 = fc1 and f's quantization as the chain
+// runs it (passes 1 and 2: C, sq, part).
+int svt_int8_block_gemm(int epi, void* A, void* sa, void* W, void* sw, void* bias, void* R,
+                        void* C, void* part, void* sq, int M, int N, int K, int device,
+                        void* stream) {
+  SVT_TRY(cudaSetDevice(device));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* a = static_cast<const int8_t*>(A);
+  const int8_t* w = static_cast<const int8_t*>(W);
+  const float* s_a = static_cast<const float*>(sa);
+  const float* s_w = static_cast<const float*>(sw);
+  gemm::Epilogue ep;
+  ep.bias = static_cast<const float*>(bias);
+  ep.ldc = N;
+  ep.ldr = N;
+  ep.part = static_cast<float*>(part);
+  ep.cq = static_cast<int8_t*>(C);
+  ep.sq = static_cast<float*>(sq);
+  switch (epi) {
+    case 1:
+      ep.cb = static_cast<bf16*>(C);
+      return (int)int8_gemm<gemm::Q_BF16>(a, s_a, w, s_w, M, N, K, ep, st);
+    case 2:
+      ep.res = static_cast<const bf16*>(R);
+      ep.cf = static_cast<float*>(C);
+      return (int)int8_gemm<gemm::Q_RES_F32>(a, s_a, w, s_w, M, N, K, ep, st);
+    case 3:
+      return (int)int8_gemm<gemm::Q_GELU_MAX>(a, s_a, w, s_w, M, N, K, ep, st);
+    case 4:
+      return (int)int8_gemm<gemm::Q_GELU_Q8>(a, s_a, w, s_w, M, N, K, ep, st);
+    case 5:
+      ep.resf = static_cast<const float*>(R);
+      ep.cb = static_cast<bf16*>(C);
+      return (int)int8_gemm<gemm::Q_RES_BF16>(a, s_a, w, s_w, M, N, K, ep, st);
+    case 6:
+      return (int)fc1_codes(a, s_a, w, s_w, ep.bias, ep.part, ep.cq, ep.sq, M, N, K, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The scans above into out[0..2] (zeroed first), out[3] = the bits of
+// GELU_NEG_MAX: scales (n,) fp32 on the device.
+int svt_int8_scan(void* scales, int n, void* out, int device, void* stream) {
+  SVT_TRY(cudaSetDevice(device));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned* o = static_cast<unsigned*>(out);
+  unsigned init[4] = {0, 0, 0, 0};
+  memcpy(&init[3], &GELU_NEG_MAX, sizeof(float));
+  SVT_TRY(cudaMemcpyAsync(o, init, sizeof(init), cudaMemcpyHostToDevice, st));
+  gelu_scan_kernel<<<1024, 256, 0, st>>>(o);
+  SVT_TRY(cudaGetLastError());
+  div_scan_kernel<<<1024, 256, 0, st>>>(static_cast<const float*>(scales), n, o);
+  return (int)cudaGetLastError();
+}
+
+#ifdef SVT_GEMM_PROFILE
+// The engine's cycle counts (gemm.cuh) in this source's instances, read and
+// zeroed.
+int svt_gemm_profile_int8(unsigned long long* out) { return svt::gemm::profile_read(out); }
+#endif
 
 }  // extern "C"

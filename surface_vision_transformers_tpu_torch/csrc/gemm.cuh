@@ -2,20 +2,29 @@
 // wgmma + TMA kernel behind every GEMM of the block chains -- the forward's
 // four products (fused_block.cu: qkv, out-projection, fc1, fc2, and the CLS
 // block's K/V and Q), the backward's dX products and its split-K weight
-// gradients (fused_block_bwd.cu).
+// gradients (fused_block_bwd.cu), and the W8A8 block's four int8 products
+// (fused_block_int8.cu: qkv, out-projection, fc1 in two passes, fc2).
+//
+// One kernel, templated on the operands' element type: bf16 (m64n192k16
+// wgmma, fp32 accumulators) or int8 (m64n192k32 s8 wgmma, int32
+// accumulators). A stage is 128 bytes deep per row either way (BK = 64 bf16
+// or 128 int8), so the tiles, the swizzle, the descriptors, the ring and
+// the walk are the same bytes; an int8 stage runs four k32 products where
+// a bf16 one runs four k16.
 //
 // A CTA is three warpgroups on one SM (one CTA per SM, a persistent grid of
 // min(tiles, SMs) CTAs walking the output tiles in order, N-tiles fastest,
 // so the CTAs working at once share their A rows in L2):
 //   producer   one thread starts every load by TMA: the A and B tiles of
-//              each 64-deep k-step into a ring of STAGES stages with full
+//              each 128-byte-deep k-step into a ring of STAGES stages with full
 //              and empty mbarriers, running ahead across tile boundaries, so
 //              the next tile's operands land while the consumers finish the
 //              last one's epilogue; it gives its registers to the consumers
 //              (setmaxnreg).
 //   consumers  two warpgroups of 64 output rows each: per k-step four
-//              m64n192k16 wgmma (bf16 in, fp32 accumulators in registers,
-//              one group kept in flight), then the epilogue. A bf16 output
+//              m64n192k16 wgmma (bf16 in, fp32 accumulators in registers;
+//              int8: m64n192k32, int32 accumulators; one group kept in
+//              flight), then the epilogue. A bf16 output
 //              goes through shared memory (sm.c) and out by TMA, so the
 //              warpgroup starts its next tile while the copy engine writes
 //              this one; a residual, or df1's fp32 pre-activation (in
@@ -25,13 +34,15 @@
 //              themselves (4- or 8-byte pieces of 8 rows a warp) ran the
 //              epilogue at a fraction of HBM's rate: the SM's outstanding
 //              requests, not the bytes, set their pace.
-// Tiles: BM = 128 rows (two warpgroups) x BN = 192 columns x BK = 64 deep
-// per stage; 40 KB a stage, four stages (three for df1) beside the 48 KB
-// through which a bf16 C leaves (sm.c). The rule is fixed, not searched: N = 192 covers a
+// Tiles: BM = 128 rows (two warpgroups) x BN = 192 columns x 128 bytes
+// deep per stage; 40 KB a stage, four stages (three where an fp32 tile is
+// read in chunks: df1, the int8 fc2) beside the 48 KB through which an
+// output leaves (sm.c). The rule is fixed, not searched: N = 192 covers a
 // whole dim-192 output in one wgmma (n <= 256, a multiple of 8), and every
 // SiT width is a multiple of 192 (dim 192, 384, 768; qkv 576 .. 2304; mlp
 // 768 .. 3072), so no N-tile is ragged on a model's path. At SiT-tiny K is
-// 192 (three k-steps): a tile's products are short beside its epilogue, and
+// 192 (three k-steps; int8: one and a half, the rest zero-filled by TMA):
+// a tile's products are short beside its epilogue, and
 // the persistent walk with the ring running ahead is what keeps the loads
 // of the next tile going under it. A warpgroup whose 64 rows lie wholly
 // past M skips its epilogue (not its products: a branch around wgmma that
@@ -39,7 +50,8 @@
 //
 // Operands stay in their global layout; nothing is transposed in device
 // memory. Each sits in shared memory as 128-byte-swizzled [rows][64] bf16
-// tiles written by TMA (common.cuh):
+// (or [rows][128] int8) tiles written by TMA (common.cuh); int8 operands
+// are K-major only, the one layout s8 wgmma takes:
 //   K-major (TA / TB = 0): rows = M or N, 64 columns of K; the forward's A
 //              (activations) and W (torch Linear layout), the dX products' A.
 //   MN-major (TA / TB = 1): rows = 64 of K, columns 64 of M or N; the dX
@@ -67,6 +79,25 @@
 //                128-row tile at colpart[tile][N] (df1 and d_bfc1)
 //   B_ADD_F32    fp32 C added into Cf through its row map (the CLS block's
 //                dq W_q into dh's top rows)
+// and on int8 operands, each dequantized as (float(acc) * sa[row]) *
+// sw[col], then + bias, then the residual, every rounding written out
+// (__fmul_rn, __fadd_rn) so that no contraction moves a value from the
+// plain version's (ops/quant.py::int8_mm_reference):
+//   Q_S32        the int32 accumulators            (svt_int8_gemm_s32)
+//   Q_BF16       bf16 dequantized                  (qkv)
+//   Q_RES_F32    fp32 R + (dequantized + bias), R bf16 (x1)
+//   Q_GELU_MAX   f = erf-GELU(dequantized + bias); writes only each row's
+//                max |f| over the tile's columns, part[N-tile][M] (fc1,
+//                pass 1; GELU once per thread and row where GELU_NEG_MAX
+//                allows, common.cuh)
+//   Q_GELU_Q8    the same f, quantized by the row scale max(part) / 127
+//                (quant_code_r: no division per value): int8 codes and
+//                the row scales (fc1, pass 2: the codes of quant_rows(f),
+//                with no fp32 f in device memory)
+//   Q_RES_BF16   bf16 R + (dequantized + bias), R fp32 (fc2)
+// fp32 and int32 outputs leave through sm.c by TMA as bf16 ones do, in two
+// halves of 96 columns (sm.c holds half a tile of 4-byte values), int8
+// codes in [64][64] boxes in the 64-byte swizzle.
 // No atomics anywhere: the split-K partials and the column sums are summed
 // in a fixed order (fused_block_bwd.cu's reduce), so every result repeats
 // bit for bit from run to run.
@@ -80,11 +111,13 @@
 // What bounds it: at SiT-tiny widths (K or N = 192) a product does 60-150
 // operations per byte of its own input and output, below the card's 295, so
 // HBM bounds it; at SiT-base widths (K = 768, 3072) the operations bound
-// qkv and fc2. scripts/block_gemm_breakdown.py (built with
-// -DSVT_GEMM_PROFILE) reads the cycles of each part of the walk.
+// qkv and fc2 (in int8 too: 1,979 TOP/s, 590 operations a byte of HBM).
+// scripts/block_gemm_breakdown.py (built with -DSVT_GEMM_PROFILE) reads the
+// cycles of each part of the walk.
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -92,7 +125,10 @@ namespace svt {
 namespace gemm {
 namespace {  // each including source gets its own copy: no symbol of the engine is shared
 
-constexpr int BM = 128, BN = 192, BK = 64;
+constexpr int BM = 128, BN = 192;
+constexpr int ROW_BYTES = 128;        // a stage's depth: BK<bf16> = 64, BK<int8_t> = 128
+template <typename T>
+constexpr int BK = ROW_BYTES / (int)sizeof(T);
 constexpr int NWG = BM / 64;          // consumer warpgroups
 constexpr int STAGES = 4;
 constexpr int THREADS = (NWG + 1) * 128;
@@ -104,15 +140,16 @@ constexpr int TARGET_TILES = 132;     // split-K aims at one wave of an H100's S
 constexpr int COL_BAR = 1;            // named barrier of the consumer warpgroups
 constexpr int WG_BAR = 2;             // named barriers 2, 3: one consumer warpgroup's own
 constexpr int IDENTITY = 1 << 30;     // a row map's group size when there is none
-constexpr int STAGE_BYTES = (BM + BN) * BK * 2;
+constexpr int STAGE_BYTES = (BM + BN) * ROW_BYTES;
 
-enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_ADD_F32 };
+enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_ADD_F32,
+           Q_S32, Q_BF16, Q_RES_F32, Q_GELU_MAX, Q_GELU_Q8, Q_RES_BF16 };
 
-// A bf16 operand in device memory: `rows` rows of `cols` contiguous values,
-// `ld` values apart; logical row r lives at physical row
-// (r / rpg) * gstride + r % rpg (rpg 0: r itself).
+// An operand in device memory (bf16 or int8, the engine's element type):
+// `rows` rows of `cols` contiguous values, `ld` values apart; logical row r
+// lives at physical row (r / rpg) * gstride + r % rpg (rpg 0: r itself).
 struct Operand {
-  const bf16* p;
+  const void* p;
   int rows, cols, ld;
   int rpg = 0, gstride = 0;
 };
@@ -120,13 +157,19 @@ struct Operand {
 // What the epilogue reads and writes (unused fields stay null / 0).
 struct Epilogue {
   const float* bias = nullptr;
-  const bf16* res = nullptr;  // F_RES: residual (ldr), through (r_rpg, r_gstride)
+  const bf16* res = nullptr;  // F_RES, Q_RES_F32: residual (ldr), through (r_rpg, r_gstride)
   int ldr = 0, r_rpg = 1, r_gstride = 1;
   bf16* cb = nullptr;         // bf16 C (ldc)
-  float* cf = nullptr;        // fp32 C (ldc; B_PART: the partials)
+  float* cf = nullptr;        // fp32 C (ldc; B_PART: the partials; Q_S32: the int32 C)
   int ldc = 0, c_rpg = 1, c_gstride = 1;  // B_ADD_F32: C's row map
   float* pre = nullptr;       // F_GELU: fp32 C + bias out; B_GELU_GRAD: the forward's, in
   float* colpart = nullptr;   // B_GELU_GRAD: column sums per 128-row tile
+  const float* resf = nullptr;  // Q_RES_BF16: the fp32 residual (ldr)
+  const float* sa = nullptr;  // Q_*: A's row scales (M,)
+  const float* sw = nullptr;  // Q_*: W's column scales (N,)
+  float* part = nullptr;      // Q_GELU_MAX out, Q_GELU_Q8 in: max |f| per row and N-tile
+  int8_t* cq = nullptr;       // Q_GELU_Q8: the int8 codes (ldc)
+  float* sq = nullptr;        // Q_GELU_Q8: their row scales (M,)
 };
 
 // The tile walk, as the device sees it.
@@ -136,28 +179,43 @@ struct Walk {
 };
 
 struct Smem {
-  bf16 a[STAGES][BM * BK];
-  bf16 b[STAGES][BN * BK];
-  bf16 c[BN / 64][BM * 64];  // a tile's bf16 output on its way out, [128][64] blocks
+  unsigned char a[STAGES][BM * ROW_BYTES];  // [128][64] bf16 or [128][128] int8
+  unsigned char b[STAGES][BN * ROW_BYTES];
+  bf16 c[BN / 64][BM * 64];  // a tile's output on its way out, [128][64] bf16 blocks
   float col[NWG * 4][BN];    // B_GELU_GRAD: each warp's column sums
-  float bias[NWG][BN];       // F_GELU, F_RES: each warpgroup's copy of the tile's bias
+  float bias[NWG][BN];       // F_GELU, F_RES, Q_*: each warpgroup's copy of the tile's bias
+  float cs[NWG][BN];         // Q_*: the same of the column scales
+  float rs[NWG][4][64];      // Q_*: A's row scales; Q_GELU_Q8: the codes' QuantRecip
   uint64_t full[STAGES], empty[STAGES];
-  uint64_t res_full[NWG];    // F_RES: a warpgroup's residual block has landed in sm.c
-  uint64_t pre_full[NWG][2];  // B_GELU_GRAD: a pre-activation chunk has landed
+  uint64_t res_full[NWG];    // res_tile(): a warpgroup's residual block has landed in sm.c
+  uint64_t pre_full[NWG][2];  // chunked(): an fp32 chunk has landed
 };
 
 // Whether an epilogue writes a bf16 C (through shared memory and TMA).
 __host__ __device__ constexpr bool bf16_out(int epi) {
-  return epi == F_NONE || epi == F_GELU || epi == F_RES || epi == B_BF16 || epi == B_GELU_GRAD;
+  return epi == F_NONE || epi == F_GELU || epi == F_RES || epi == B_BF16 ||
+         epi == B_GELU_GRAD || epi == Q_BF16 || epi == Q_RES_BF16;
 }
+// ... a 4-byte C (fp32 or int32), in two halves of the tile.
+__host__ __device__ constexpr bool w32_out(int epi) { return epi == Q_S32 || epi == Q_RES_F32; }
+// ... any C through shared memory and TMA.
+__host__ __device__ constexpr bool smem_out(int epi) {
+  return bf16_out(epi) || w32_out(epi) || epi == Q_GELU_Q8;
+}
+// The int8 epilogues, and those of them that dequantize (all but Q_S32).
+__host__ __device__ constexpr bool int8_epi(int epi) { return epi >= Q_S32; }
+__host__ __device__ constexpr bool dequant(int epi) { return epi > Q_S32; }
+// A bf16 residual block comes by TMA into sm.c at the tile's start.
+__host__ __device__ constexpr bool res_tile(int epi) { return epi == F_RES || epi == Q_RES_F32; }
 
 // B_GELU_GRAD reads an fp32 pre-activation as large as its output twice
-// over: it comes by TMA in 32-column chunks, two in flight a warpgroup, in
-// the ring's last stage (a[3] for warpgroup 0, b[3] for warpgroup 1), so
-// that epilogue's ring has one stage fewer.
-__host__ __device__ constexpr int stages(int epi) {
-  return epi == B_GELU_GRAD ? STAGES - 1 : STAGES;
+// over, Q_RES_BF16 an fp32 residual: it comes by TMA in 32-column chunks,
+// two in flight a warpgroup, in the ring's last stage (a[3] for warpgroup
+// 0, b[3] for warpgroup 1), so that epilogue's ring has one stage fewer.
+__host__ __device__ constexpr bool chunked(int epi) {
+  return epi == B_GELU_GRAD || epi == Q_RES_BF16;
 }
+__host__ __device__ constexpr int stages(int epi) { return chunked(epi) ? STAGES - 1 : STAGES; }
 constexpr int PRE_COLS = 32, PRE_CHUNK = 64 * PRE_COLS;  // a chunk: 64 rows x 32 fp32
 __device__ __forceinline__ float* pre_buf(Smem& sm, int wg, int b) {
   return reinterpret_cast<float*>(wg == 0 ? sm.a[STAGES - 1] : sm.b[STAGES - 1]) + b * PRE_CHUNK;
@@ -192,6 +250,7 @@ __device__ unsigned long long gemm_profile[8];
   } while (0)
 #endif
 
+template <typename T>
 __device__ __forceinline__ Tile tile_at(int tile, const Walk& w) {
   const int nt_n = cdiv(w.N, BN), mt_n = cdiv(w.M, BM);
   Tile t;
@@ -201,12 +260,12 @@ __device__ __forceinline__ Tile tile_at(int tile, const Walk& w) {
   t.m0 = t.mt * BM;
   t.n0 = nt * BN;
   t.k0 = t.split * w.k_chunk;
-  t.ksteps = cdiv(min(w.K, t.k0 + w.k_chunk) - t.k0, BK);
+  t.ksteps = cdiv(min(w.K, t.k0 + w.k_chunk) - t.k0, BK<T>);
   return t;
 }
 
 // The producer's loads of one k-step: A then B, by row coordinate through
-// the maps' groups.
+// the maps' groups (k0 in elements).
 template <int TA, int TB>
 __device__ __forceinline__ void load_stage(Smem& sm, int st, const CUtensorMap& tm_a,
                                            const CUtensorMap& tm_b, const Walk& w, int m0,
@@ -217,14 +276,16 @@ __device__ __forceinline__ void load_stage(Smem& sm, int st, const CUtensorMap& 
   } else {
 #pragma unroll
     for (int i = 0; i < NWG; ++i)
-      tma_load_3d(sm.a[st] + i * 64 * BK, tm_a, bar, m0 + 64 * i, k0 % w.a_rpg, k0 / w.a_rpg);
+      tma_load_3d(sm.a[st] + i * 64 * ROW_BYTES, tm_a, bar, m0 + 64 * i, k0 % w.a_rpg,
+                  k0 / w.a_rpg);
   }
   if (TB == 0) {
     tma_load_3d(sm.b[st], tm_b, bar, k0, n0 % w.b_rpg, n0 / w.b_rpg);
   } else {
 #pragma unroll
     for (int j = 0; j < BN / 64; ++j)
-      tma_load_3d(sm.b[st] + j * 64 * BK, tm_b, bar, n0 + 64 * j, k0 % w.b_rpg, k0 / w.b_rpg);
+      tma_load_3d(sm.b[st] + j * 64 * ROW_BYTES, tm_b, bar, n0 + 64 * j, k0 % w.b_rpg,
+                  k0 / w.b_rpg);
   }
 }
 
@@ -236,23 +297,48 @@ __device__ __forceinline__ void load_pre(Smem& sm, const CUtensorMap& tm, int wg
   tma_load_3d(pre_buf(sm, wg, b), tm, &sm.pre_full[wg][b], col0, row0, 0);
 }
 
+__device__ __forceinline__ float4 load4(const float* p, int c, int n) {
+  return c < n ? *reinterpret_cast<const float4*>(p + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 // Before a tile's last products are awaited: sm.c is made free (the last
-// tile's copy out has read it), and F_GELU and F_RES stage the tile's 192
-// bias values into sm.bias[wg] (thread i < 48: values 4 i .. 4 i + 3), so
-// that no load waits in the epilogue behind a store the compiler cannot
-// prove apart. (F_RES's residual block comes by TMA into sm.c at the tile's
-// start, where the output then replaces it.)
+// tile's copy out has read it), and F_GELU, F_RES and the dequantizing
+// epilogues stage the tile's 192 bias values into sm.bias[wg] (thread i <
+// 48: values 4 i .. 4 i + 3), so that no load waits in the epilogue behind
+// a store the compiler cannot prove apart. (F_RES's and Q_RES_F32's
+// residual block comes by TMA into sm.c at the tile's start, where the
+// output then replaces it.) The dequantizing epilogues also stage the
+// column scales (threads 64-111) and the row scales of A (threads < 64);
+// Q_GELU_Q8 reduces each row's partial maxima to its scale, kept as
+// quant_recip's (threads 64-127, one row each), and writes the scales from
+// the tile at column 0.
 template <int EPI>
 __device__ __forceinline__ void stage(const Epilogue& ep, const Walk& w, const Tile& tl, int wg,
                                       int tid, Smem& sm) {
-  if (bf16_out(EPI)) {
+  if (smem_out(EPI)) {
     if (tid == 0) bulk_wait_read<0>();
     bar_sync(WG_BAR + wg, 128);
   }
-  if ((EPI == F_GELU || EPI == F_RES) && tid < BN / 4) {
-    const int c = tl.n0 + 4 * tid;
-    *reinterpret_cast<float4*>(&sm.bias[wg][4 * tid]) =
-        c < w.N ? *reinterpret_cast<const float4*>(ep.bias + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  if ((EPI == F_GELU || EPI == F_RES || (dequant(EPI) && EPI != Q_BF16)) && tid < BN / 4)
+    *reinterpret_cast<float4*>(&sm.bias[wg][4 * tid]) = load4(ep.bias, tl.n0 + 4 * tid, w.N);
+  if (dequant(EPI)) {
+    const int i = tid & 63, r = tl.m0 + 64 * wg + i;
+    if (tid < 64) {
+      sm.rs[wg][0][i] = r < w.M ? ep.sa[r] : 0.f;
+    } else {
+      if (i < BN / 4)
+        *reinterpret_cast<float4*>(&sm.cs[wg][4 * i]) = load4(ep.sw, tl.n0 + 4 * i, w.N);
+      if (EPI == Q_GELU_Q8 && r < w.M) {
+        float a = 0.f;
+        for (int p = 0; p < cdiv(w.N, BN); ++p) a = fmaxf(a, ep.part[(long long)p * w.M + r]);
+        const float sc = quant_scale(a);
+        const QuantRecip qr = quant_recip(sc);
+        sm.rs[wg][1][i] = qr.k;
+        sm.rs[wg][2][i] = qr.s;
+        sm.rs[wg][3][i] = qr.r;
+        if (tl.n0 == 0) ep.sq[r] = sc;
+      }
+    }
   }
 }
 
@@ -385,11 +471,191 @@ __device__ __forceinline__ void epilogue(const float (&acc)[96], const Epilogue&
   }
 }
 
-template <int TA, int TB, int EPI>
+// An int8 accumulator dequantized: (float(acc) * s_row) * s_col, each
+// product rounded (no contraction), as int8_mm_reference.
+__device__ __forceinline__ float deq(int acc, float s_row, float s_col) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
+}
+// fc1's f from its accumulator: erf-GELU(dequantized + bias). Both passes
+// compute it with this one function, so pass 2 quantizes the values whose
+// maxima pass 1 took.
+__device__ __forceinline__ float fc1_value(int acc, float s_row, float s_col, float bias) {
+  return gelu_erf(__fadd_rn(deq(acc, s_row, s_col), bias));
+}
+
+// The epilogue of one warpgroup's 64 x 192 int32 accumulators (the layout
+// of epilogue()), after stage(). Rows past M and columns past N hold zeros
+// (TMA filled A and B); nothing is written for them.
+template <int EPI>
+__device__ __forceinline__ void epilogue_q(int (&acc)[96], const Epilogue& ep,
+                                           const CUtensorMap& tm_c, const CUtensorMap& tm_e,
+                                           const Walk& w, const Tile& tl, int n, bool live,
+                                           int wg, int warp, int g, int t, int tid, Smem& sm) {
+  if (dequant(EPI)) bar_sync(WG_BAR + wg, 128);  // what stage() wrote
+  // by column pair (j, 2 t) outermost: its two scales and biases (float2)
+  // serve both of the thread's rows, rl[0] and rl[1] in the warpgroup's 64
+  const int rl[2] = {16 * warp + g, 16 * warp + g + 8};
+  const float sr[2] = {sm.rs[wg][0][rl[0]], sm.rs[wg][0][rl[1]]};
+  auto col2 = [&](const float* p, int c) { return *reinterpret_cast<const float2*>(p + c); };
+  if (EPI == Q_RES_BF16) {  // by residual chunk: 32 columns, both row halves
+#pragma unroll
+    for (int q = 0; q < BN / PRE_COLS; ++q) {
+      const int b = q & 1;
+      mbar_wait(&sm.pre_full[wg][b], (3 * n + (q >> 1)) & 1);  // each buffer: 3 chunks a tile
+      const float* pb = pre_buf(sm, wg, b);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * q + jj, cl = 8 * jj + 2 * t, c = 8 * j + 2 * t;
+        const float2 s2 = col2(sm.cs[wg], c), b2 = col2(sm.bias[wg], c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 rv = *reinterpret_cast<const float2*>(
+              pb + rl[h] * PRE_COLS + ((((cl >> 2) ^ (rl[h] & 7)) << 2) | (cl & 3)));
+          const float v0 = __fadd_rn(rv.x, __fadd_rn(deq(acc[4 * j + 2 * h], sr[h], s2.x), b2.x));
+          const float v1 =
+              __fadd_rn(rv.y, __fadd_rn(deq(acc[4 * j + 2 * h + 1], sr[h], s2.y), b2.y));
+          *reinterpret_cast<uint32_t*>(sm.c[j >> 3] +
+                                       sw128(64 * wg + rl[h], 8 * (j & 7) + 2 * t)) =
+              pack_bf16(v0, v1);
+        }
+      }
+      bar_sync(WG_BAR + wg, 128);  // buffer b read: the chunk two on may land in it
+      if (tid == 0 && q + 2 < BN / PRE_COLS)
+        load_pre(sm, tm_e, wg, b, tl.n0 + PRE_COLS * (q + 2), tl.m0 + 64 * wg);
+    }
+  } else if (EPI == Q_GELU_MAX) {
+    // each row's max |f| over the tile's columns. f = gelu_erf(v) is
+    // non-decreasing over v >= 0 and below GELU_NEG_MAX in magnitude over
+    // v < 0 (common.cuh), so a thread's max |f| over its 48 values of a row
+    // is gelu_erf of their largest v when that reaches GELU_NEG_MAX; else
+    // (every v below ~0.29) it takes each |f|.
+    float vmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 s2 = col2(sm.cs[wg], c), b2 = col2(sm.bias[wg], c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tl.n0 + c < w.N)
+          vmax[h] = fmaxf(vmax[h], __fadd_rn(deq(acc[4 * j + 2 * h], sr[h], s2.x), b2.x));
+        if (tl.n0 + c + 1 < w.N)
+          vmax[h] = fmaxf(vmax[h], __fadd_rn(deq(acc[4 * j + 2 * h + 1], sr[h], s2.y), b2.y));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = vmax[h] > 0.f ? gelu_erf(vmax[h]) : 0.f;
+      if (m < GELU_NEG_MAX) {
+        m = 0.f;
+#pragma unroll
+        for (int j = 0; j < 24; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            if (tl.n0 + c < w.N)
+              m = fmaxf(m, fabsf(fc1_value(acc[4 * j + 2 * h + e], sr[h], sm.cs[wg][c],
+                                           sm.bias[wg][c])));
+          }
+      }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const int r = tl.m0 + 64 * wg + rl[h];
+      if (t == 0 && r < w.M) ep.part[(long long)(tl.n0 / BN) * w.M + r] = m;
+    }
+  } else if (EPI == Q_GELU_Q8) {  // codes into sm.c: [64][64] int8 boxes, 64-byte swizzle
+    const QuantRecip qr[2] = {{sm.rs[wg][1][rl[0]], sm.rs[wg][2][rl[0]], sm.rs[wg][3][rl[0]]},
+                              {sm.rs[wg][1][rl[1]], sm.rs[wg][2][rl[1]], sm.rs[wg][3][rl[1]]}};
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int c = 8 * j + 2 * t, cb = c & 63;
+      const float2 s2 = col2(sm.cs[wg], c), b2 = col2(sm.bias[wg], c);
+      unsigned char* box = reinterpret_cast<unsigned char*>(sm.c[j >> 3] + 64 * wg * 64);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q0 = quant_code_r(fc1_value(acc[4 * j + 2 * h], sr[h], s2.x, b2.x), qr[h]);
+        const int q1 = quant_code_r(fc1_value(acc[4 * j + 2 * h + 1], sr[h], s2.y, b2.y), qr[h]);
+        *reinterpret_cast<uint16_t*>(
+            box + rl[h] * 64 + ((((cb >> 4) ^ ((rl[h] >> 1) & 3)) << 4) | (cb & 15))) =
+            (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
+      }
+    }
+  } else if (EPI == Q_BF16) {
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const float2 s2 = col2(sm.cs[wg], 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(sm.c[j >> 3] + sw128(64 * wg + rl[h], 8 * (j & 7) + 2 * t)) =
+            pack_bf16(deq(acc[4 * j + 2 * h], sr[h], s2.x),
+                      deq(acc[4 * j + 2 * h + 1], sr[h], s2.y));
+    }
+  } else if (EPI == Q_RES_F32) {  // the fp32 values into acc (as bits), reading the residual
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 s2 = col2(sm.cs[wg], c), b2 = col2(sm.bias[wg], c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 rb = *reinterpret_cast<const __nv_bfloat162*>(
+            sm.c[j >> 3] + sw128(64 * wg + rl[h], 8 * (j & 7) + 2 * t));
+        int& a0 = acc[4 * j + 2 * h];
+        int& a1 = acc[4 * j + 2 * h + 1];
+        a0 = __float_as_int(__fadd_rn(__low2float(rb), __fadd_rn(deq(a0, sr[h], s2.x), b2.x)));
+        a1 = __float_as_int(__fadd_rn(__high2float(rb), __fadd_rn(deq(a1, sr[h], s2.y), b2.y)));
+      }
+    }
+  }
+  if (w32_out(EPI)) {  // 4-byte values out by TMA, columns 0-95 then 96-191
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && tid == 0) bulk_wait_read<0>();  // the first half's copy out has read sm.c
+      bar_sync(WG_BAR + wg, 128);  // (h = 0: Q_RES_F32's residual is read)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rl = 16 * warp + g + 8 * half;
+#pragma unroll
+        for (int jj = 0; jj < 12; ++jj) {
+          const int j = 12 * h + jj, cc = 8 * jj + 2 * t, c32 = cc & 31;
+          // [64][32] 4-byte boxes, 128-byte swizzle: 16-byte piece c32 / 4 of row
+          // rl at piece (c32 / 4) ^ (rl % 8)
+          int* box = reinterpret_cast<int*>(sm.c[cc >> 5] + 64 * wg * 64);
+          *reinterpret_cast<int2*>(box + rl * 32 + ((((c32 >> 2) ^ (rl & 7)) << 2) | (c32 & 3))) =
+              make_int2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+      }
+      fence_async_smem();
+      bar_sync(WG_BAR + wg, 128);
+      if (live && tid == 0) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          if (tl.n0 + 96 * h + 32 * b < w.N)
+            tma_store_3d(tm_c, sm.c[b] + 64 * wg * 64, tl.n0 + 96 * h + 32 * b, tl.m0 + 64 * wg,
+                         0);
+        bulk_commit();
+      }
+    }
+  }
+  if (bf16_out(EPI) || EPI == Q_GELU_Q8) {  // this warpgroup's 64 rows out, one box per 64 columns
+    fence_async_smem();
+    bar_sync(WG_BAR + wg, 128);
+    if (live && tid == 0) {
+#pragma unroll
+      for (int b = 0; b < BN / 64; ++b)
+        if (tl.n0 + 64 * b < w.N)
+          tma_store_3d(tm_c, sm.c[b] + 64 * wg * 64, tl.n0 + 64 * b, tl.m0 + 64 * wg, 0);
+      bulk_commit();
+    }
+  }
+}
+
+template <typename T, int TA, int TB, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                 const __grid_constant__ CUtensorMap tm_c, const __grid_constant__ CUtensorMap tm_e,
                 const Walk w, const Epilogue ep) {
+  constexpr bool I8 = sizeof(T) == 1;
+  static_assert(I8 == int8_epi(EPI) && (!I8 || (TA == 0 && TB == 0)),
+                "int8 epilogues take K-major int8 operands, the others bf16");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                       ~uintptr_t(1023));
@@ -421,14 +687,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 #endif
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const Tile tl = tile_at(tile, w);
+        const Tile tl = tile_at<T>(tile, w);
         for (int kt = 0; kt < tl.ksteps; ++kt, ++it) {
           const int st = it % stages(EPI), use = it / stages(EPI);
           SVT_GEMM_MARK(1);
           if (use > 0) mbar_wait(&sm.empty[st], (use - 1) & 1);
           SVT_GEMM_MARK(0);
           mbar_expect(&sm.full[st], STAGE_BYTES);
-          load_stage<TA, TB>(sm, st, tm_a, tm_b, w, tl.m0, tl.n0, tl.k0 + kt * BK);
+          load_stage<TA, TB>(sm, st, tm_a, tm_b, w, tl.m0, tl.n0, tl.k0 + kt * BK<T>);
         }
       }
 #ifdef SVT_GEMM_PROFILE
@@ -443,9 +709,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   set_max_regs_inc<CONSUMER_REGS>();
   const int c = wg - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  float acc[96];
+  typename std::conditional<I8, int, float>::type acc[96];
 #pragma unroll
-  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 96; ++i) acc[i] = 0;
 #ifdef SVT_GEMM_PROFILE
   unsigned long long prof[6] = {0, 0, 0, 0, 0, 0};
   const long long prof_t0 = clock64();
@@ -453,9 +719,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 #endif
   int it = 0;
   for (int tile = blockIdx.x, n = 0; tile < tiles; tile += gridDim.x, ++n) {
-    const Tile tl = tile_at(tile, w);
+    const Tile tl = tile_at<T>(tile, w);
     const bool live = tl.m0 + 64 * c < w.M;
-    if (EPI == F_RES && tid == 0) {  // this tile's residual block into sm.c, under its products
+    if (res_tile(EPI) && tid == 0) {  // this tile's residual block into sm.c, under its products
       bulk_wait_read<0>();          // once the last tile's copy out has read sm.c
       mbar_expect(&sm.res_full[c], BN * 64 * 2);
       const int r0 = tl.m0 + 64 * c;
@@ -464,7 +730,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         tma_load_3d(sm.c[b] + 64 * c * 64, tm_e, &sm.res_full[c], tl.n0 + 64 * b,
                     r0 % w.r_rpg, r0 / w.r_rpg);
     }
-    if (EPI == B_GELU_GRAD && tid == 0)  // the first two pre-activation chunks, likewise
+    if (chunked(EPI) && tid == 0)  // the first two fp32 chunks, likewise
       for (int b = 0; b < 2; ++b) load_pre(sm, tm_e, c, b, tl.n0 + PRE_COLS * b, tl.m0 + 64 * c);
     int prev = 0;
     for (int kt = 0; kt < tl.ksteps; ++kt, ++it) {
@@ -474,15 +740,20 @@ __global__ void __launch_bounds__(THREADS, 1)
       SVT_GEMM_MARK(0);
       // every warpgroup runs its products, rows past M included (TMA
       // zero-filled them; the epilogue skips them): no branch around wgmma
-      const bf16* a = sm.a[st] + c * 64 * BK;
+      // (a k16 bf16 / k32 int8 step: 32 bytes along a K-major row, 16 rows
+      // of an MN-major tile)
+      const unsigned char* a = sm.a[st] + c * 64 * ROW_BYTES;
       wg_hold(acc);
       wg_fence();
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        const uint64_t da = sw128_desc(a + (TA ? ks * 16 * 64 : ks * 16));
-        const uint64_t db =
-            sw128_desc(sm.b[st] + (TB ? ks * 16 * 64 : ks * 16), TB ? 64 * BK * 2 : 16);
-        wgmma_ss<TA, TB>(acc, da, db, kt > 0 || ks > 0);
+      for (int ks = 0; ks < ROW_BYTES / 32; ++ks) {
+        const uint64_t da = sw128_desc(a + (TA ? ks * 16 * ROW_BYTES : ks * 32));
+        const uint64_t db = sw128_desc(sm.b[st] + (TB ? ks * 16 * ROW_BYTES : ks * 32),
+                                       TB ? 64 * ROW_BYTES : 16);
+        if constexpr (I8)
+          wgmma_s8(acc, da, db, kt > 0 || ks > 0);
+        else
+          wgmma_ss<TA, TB>(acc, da, db, kt > 0 || ks > 0);
       }
       wg_commit();
       wg_hold(acc);
@@ -497,11 +768,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     wg_hold(acc);
     if (tid == 0) mbar_arrive(&sm.empty[prev]);
     SVT_GEMM_MARK(3);
-    if (EPI == F_RES) mbar_wait(&sm.res_full[c], n & 1);
-    epilogue<EPI>(acc, ep, tm_c, tm_e, w, tl, n, live, c, warp, g, t, tid, sm);
+    if (res_tile(EPI)) mbar_wait(&sm.res_full[c], n & 1);
+    if constexpr (I8)
+      epilogue_q<EPI>(acc, ep, tm_c, tm_e, w, tl, n, live, c, warp, g, t, tid, sm);
+    else
+      epilogue<EPI>(acc, ep, tm_c, tm_e, w, tl, n, live, c, warp, g, t, tid, sm);
     SVT_GEMM_MARK(4);
   }
-  if (bf16_out(EPI) && tid == 0) bulk_wait<0>();  // the last copy out done
+  if (smem_out(EPI) && tid == 0) bulk_wait<0>();  // the last copy out done
 #ifdef SVT_GEMM_PROFILE
   if (tid == 0) {
     for (int i = 0; i < 5; ++i) atomicAdd(&gemm_profile[i], prof[i]);
@@ -517,38 +791,57 @@ __global__ void __launch_bounds__(THREADS, 1)
 // (e.g. 8 tiles -> 16 splits, 72 -> 11), each chunk at least 8 k-steps.
 inline void split_k(int M, int N, int K, int* splits, int* chunk) {
   const int tiles = cdiv(M, BM) * cdiv(N, BN);
-  const int most = std::max(1, cdiv(K, BK) / 8);
+  const int most = std::max(1, cdiv(K, BK<bf16>) / 8);
   int s = 1;
   while (s < most &&
          (double)tiles * s < 0.95 * TARGET_TILES * cdiv((long long)tiles * s, TARGET_TILES))
     ++s;
-  *chunk = cdiv(cdiv(K, s), BK) * BK;
+  *chunk = cdiv(cdiv(K, s), BK<bf16>) * BK<bf16>;
   *splits = cdiv(K, *chunk);
 }
 
-// The 3-D TMA map of an operand (64 columns x box_rows rows a box; with a
-// row map, groups of rpg rows `gstride` rows apart, box_rows / rpg groups a
-// box). -> the rows per group the device indexes with.
-inline cudaError_t operand_map(CUtensorMap* m, const Operand& o, int box_rows, int* rpg_dev) {
+// The 3-D TMA map of a bf16 or int8 operand (128 bytes of columns x
+// box_rows rows a box; with a row map, groups of rpg rows `gstride` rows
+// apart, box_rows / rpg groups a box). -> the rows per group the device
+// indexes with.
+template <typename T>
+cudaError_t operand_map(CUtensorMap* m, const Operand& o, int box_rows, int* rpg_dev) {
+  constexpr int E = sizeof(T);
   const bool grouped = o.rpg > 0 && o.rpg < o.rows;
-  if (reinterpret_cast<uintptr_t>(o.p) % 16 || (o.ld * 2) % 16 ||
-      (grouped && ((long long)o.gstride * o.ld * 2) % 16))
+  if (reinterpret_cast<uintptr_t>(o.p) % 16 || (o.ld * E) % 16 ||
+      (grouped && ((long long)o.gstride * o.ld * E) % 16))
     return cudaErrorMisalignedAddress;
   if (grouped && box_rows % o.rpg) return cudaErrorInvalidValue;
   const int rpg = grouped ? o.rpg : o.rows;
   const cuuint64_t dims[3] = {(cuuint64_t)o.cols, (cuuint64_t)rpg,
                               (cuuint64_t)(grouped ? cdiv(o.rows, o.rpg) : 1)};
-  const cuuint64_t strides[2] = {(cuuint64_t)o.ld * 2,
-                                 (cuuint64_t)(grouped ? o.gstride : o.rows) * o.ld * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)(grouped ? o.rpg : box_rows),
+  const cuuint64_t strides[2] = {(cuuint64_t)o.ld * E,
+                                 (cuuint64_t)(grouped ? o.gstride : o.rows) * o.ld * E};
+  const cuuint32_t box[3] = {(cuuint32_t)BK<T>, (cuuint32_t)(grouped ? o.rpg : box_rows),
                              (cuuint32_t)(grouped ? box_rows / o.rpg : 1)};
   *rpg_dev = grouped ? o.rpg : IDENTITY;
-  return encode_tiled(m, 3, o.p, dims, strides, box);
+  return encode_tiled(m, 3, o.p, dims, strides, box,
+                      E == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+// The 3-D TMA map of an (M, N) tensor of 4-byte values, `ld` apart, read or
+// written in [64][32] boxes (128-byte swizzle), or of int8 codes in [64][64]
+// boxes (64-byte swizzle).
+inline cudaError_t plain_map(CUtensorMap* m, const void* p, int M, int N, int ld, int esize) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 || ((long long)ld * esize) % 16)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)M, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * esize, (cuuint64_t)M * ld * esize};
+  const cuuint32_t box[3] = {esize == 4 ? (cuuint32_t)PRE_COLS : 64u, 64, 1};
+  return esize == 4 ? encode_tiled(m, 3, p, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
+                    : encode_tiled(m, 3, p, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                   CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // C (M, N) = A B over K, A (TA: 0 = (M, K) rows, 1 = (K, M) rows) and B
-// (TB: 0 = (N, K) rows, 1 = (K, N) rows), split over K when `split`.
-template <int TA, int TB, int EPI>
+// (TB: 0 = (N, K) rows, 1 = (K, N) rows) of element type T, split over K
+// when `split`.
+template <typename T, int TA, int TB, int EPI>
 cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool split,
                 const Epilogue& ep, cudaStream_t st) {
   constexpr int smem = sizeof(Smem) + 1024;  // + alignment to 1024 bytes
@@ -560,50 +853,47 @@ cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool sp
   if (e != cudaSuccess) return e;
   if (dev >= 16) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    e = cudaFuncSetAttribute(gemm_kernel<TA, TB, EPI>,
+    e = cudaFuncSetAttribute(gemm_kernel<T, TA, TB, EPI>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     ready[dev] = true;
   }
-  Walk w{M, N, K, cdiv(K, BK) * BK, 1, IDENTITY, IDENTITY, IDENTITY};
+  Walk w{M, N, K, cdiv(K, BK<T>) * BK<T>, 1, IDENTITY, IDENTITY, IDENTITY};
   if (split) split_k(M, N, K, &w.splits, &w.k_chunk);
   CUtensorMap tm_a, tm_b, tm_c, tm_e;
-  if ((e = operand_map(&tm_a, a, TA ? 64 : BM, &w.a_rpg)) != cudaSuccess) return e;
-  if ((e = operand_map(&tm_b, b, TB ? 64 : BN, &w.b_rpg)) != cudaSuccess) return e;
+  if ((e = operand_map<T>(&tm_a, a, TA ? 64 : BM, &w.a_rpg)) != cudaSuccess) return e;
+  if ((e = operand_map<T>(&tm_b, b, TB ? 64 : BN, &w.b_rpg)) != cudaSuccess) return e;
   int unused;
-  tm_c = tm_e = tm_a;  // unused unless the epilogue has a bf16 C / reads a tile by TMA
+  tm_c = tm_e = tm_a;  // unused unless the epilogue writes C / reads a tile by TMA
   if (bf16_out(EPI)) {  // the bf16 C, written in [64][64] boxes
-    if ((e = operand_map(&tm_c, Operand{ep.cb, M, N, ep.ldc}, 64, &unused)) != cudaSuccess)
+    if ((e = operand_map<bf16>(&tm_c, Operand{ep.cb, M, N, ep.ldc}, 64, &unused)) != cudaSuccess)
       return e;
   }
-  if (EPI == F_RES) {  // the residual, read in [64][64] boxes through its row map
+  if (w32_out(EPI) && (e = plain_map(&tm_c, ep.cf, M, N, ep.ldc, 4)) != cudaSuccess) return e;
+  if (EPI == Q_GELU_Q8 && (e = plain_map(&tm_c, ep.cq, M, N, ep.ldc, 1)) != cudaSuccess) return e;
+  if (res_tile(EPI)) {  // the residual, read in [64][64] boxes through its row map
     const bool grouped = ep.r_gstride != ep.r_rpg && ep.r_rpg < M;
     const Operand r{ep.res, M, N, ep.ldr, grouped ? ep.r_rpg : 0, ep.r_gstride};
-    if ((e = operand_map(&tm_e, r, 64, &w.r_rpg)) != cudaSuccess) return e;
+    if ((e = operand_map<bf16>(&tm_e, r, 64, &w.r_rpg)) != cudaSuccess) return e;
   }
-  if (EPI == B_GELU_GRAD) {  // the fp32 pre-activation, read in [64][32] boxes
-    if (reinterpret_cast<uintptr_t>(ep.pre) % 16 || (ep.ldc * 4) % 16)
-      return cudaErrorMisalignedAddress;
-    const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)M, 1};
-    const cuuint64_t strides[2] = {(cuuint64_t)ep.ldc * 4, (cuuint64_t)M * ep.ldc * 4};
-    const cuuint32_t box[3] = {PRE_COLS, 64, 1};
-    if ((e = encode_tiled(&tm_e, 3, ep.pre, dims, strides, box,
-                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) != cudaSuccess)
-      return e;
-  }
+  // the fp32 pre-activation / residual, read in [64][32] boxes
+  if (EPI == B_GELU_GRAD && (e = plain_map(&tm_e, ep.pre, M, N, ep.ldc, 4)) != cudaSuccess)
+    return e;
+  if (EPI == Q_RES_BF16 && (e = plain_map(&tm_e, ep.resf, M, N, ep.ldr, 4)) != cudaSuccess)
+    return e;
   const int tiles = cdiv(M, BM) * cdiv(N, BN) * w.splits;
-  gemm_kernel<TA, TB, EPI>
+  gemm_kernel<T, TA, TB, EPI>
       <<<std::min(tiles, sms[dev]), THREADS, smem, st>>>(tm_a, tm_b, tm_c, tm_e, w, ep);
   return cudaGetLastError();
 }
 
 // The forward's products: C (M, N) = epi(A W^T), A (M, K) through its row
-// map, W (N, K) in the torch Linear layout.
-template <int EPI>
-cudaError_t linear(const Operand& a, const bf16* w, int N, const Epilogue& ep, cudaStream_t st) {
-  return run<0, 0, EPI>(a, Operand{w, N, a.cols, a.cols}, a.rows, N, a.cols, false, ep, st);
+// map, W (N, K) in the torch Linear layout; bf16 or int8 operands (T).
+template <int EPI, typename T>
+cudaError_t linear(const Operand& a, const T* w, int N, const Epilogue& ep, cudaStream_t st) {
+  return run<T, 0, 0, EPI>(a, Operand{w, N, a.cols, a.cols}, a.rows, N, a.cols, false, ep, st);
 }
 
 // The backward's dX products: C (M, N) = epi(A W), A (M, K), W the torch
@@ -611,7 +901,7 @@ cudaError_t linear(const Operand& a, const bf16* w, int N, const Epilogue& ep, c
 template <int EPI>
 cudaError_t linear_dx(const Operand& a, const bf16* w, int N, const Epilogue& ep,
                       cudaStream_t st) {
-  return run<0, 1, EPI>(a, Operand{w, a.cols, N, N}, a.rows, N, a.cols, false, ep, st);
+  return run<bf16, 0, 1, EPI>(a, Operand{w, a.cols, N, N}, a.rows, N, a.cols, false, ep, st);
 }
 
 // The weight gradients' split-K partials: part[s] (Mout, Nout) = the s-th
@@ -623,7 +913,7 @@ inline cudaError_t weight_grad_partials(const Operand& a, const Operand& b, floa
   split_k(a.cols, b.cols, a.rows, splits, &chunk);
   Epilogue ep;
   ep.cf = part;
-  return run<1, 1, B_PART>(a, b, a.cols, b.cols, a.rows, true, ep, st);
+  return run<bf16, 1, 1, B_PART>(a, b, a.cols, b.cols, a.rows, true, ep, st);
 }
 
 #ifdef SVT_GEMM_PROFILE

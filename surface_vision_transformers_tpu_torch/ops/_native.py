@@ -123,12 +123,16 @@ def library() -> ctypes.CDLL:
     lib.svt_flash_attention_bwd.restype = I
     lib.svt_flash_attention_bwd_workspace.argtypes = [I] * 3
     lib.svt_flash_attention_bwd_workspace.restype = ctypes.c_longlong
-    lib.svt_fused_block_int8.argtypes = [P] * 23 + [I] * 7 + [F, I, P]
+    lib.svt_fused_block_int8.argtypes = [P] * 25 + [I] * 8 + [F, I, P]
     lib.svt_fused_block_int8.restype = I
     lib.svt_quant_rows.argtypes = [P, I, P, P, I, I, I, P]
     lib.svt_quant_rows.restype = I
     lib.svt_int8_gemm_s32.argtypes = [P, P, P, I, I, I, I, P]
     lib.svt_int8_gemm_s32.restype = I
+    lib.svt_int8_block_gemm.argtypes = [I] + [P] * 9 + [I] * 3 + [I, P]
+    lib.svt_int8_block_gemm.restype = I
+    lib.svt_int8_scan.argtypes = [P, I, P, I, P]
+    lib.svt_int8_scan.restype = I
     lib.svt_patch_embed.argtypes = [P, I] + [P] * 4 + [I] * 7 + [I, P]
     lib.svt_patch_embed.restype = I
     lib.svt_error_string.argtypes = [I]

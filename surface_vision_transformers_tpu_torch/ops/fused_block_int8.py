@@ -19,13 +19,15 @@ bf16 blocks (ROADMAP queue 3): exact erf-GELU where the TPU kernel has
 tanh-GELU, and the shifted softmax where it has the clamped unshifted one.
 
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/fused_block_int8.cu``) is a
-chain on the caller's stream: LayerNorm + row quantization, an int8
-tensor-core GEMM (``mma.sync.m16n8k32`` s8 x s8 -> s32) with dequantizing
-epilogues, the streamed attention kernel of ``csrc/flash_attention.cu`` on
-the packed qkv, and a row-quantization pass over the attention output and
-over the GELU output (a row's absmax spans every head and every MLP
-column, which no GEMM tile holds). What bounds it on the card: the kernel
-source and PERF.md.
+chain on the caller's stream: LayerNorm + row quantization, the four int8
+GEMMs on ``csrc/gemm.cuh``'s engine (TMA, ``wgmma`` m64n192k32 s8 x s8 ->
+s32) with dequantizing epilogues, the streamed attention kernel of
+``csrc/flash_attention.cu`` on the packed qkv, and a row-quantization pass
+over the attention output (a row's absmax spans every head). fc1 runs
+twice: pass 1 keeps each row's max |f| per 192-column tile, pass 2
+quantizes f with the row scale those give, so f never lives in device
+memory in float32 (``fc1_codes_reference`` is that arithmetic in plain
+PyTorch). What bounds it on the card: the kernel source and PERF.md.
 
 Weights: int8 (out, in) contiguous (the torch Linear layout, K contiguous
 as the tensor cores' B operand reads it), float32 (out,) scales, float32
@@ -46,9 +48,11 @@ from surface_vision_transformers_tpu_torch.ops.fused_block import (
     _dispatch,
     _layer_norm,
 )
-from surface_vision_transformers_tpu_torch.ops.quant import int8_mm_reference
+from surface_vision_transformers_tpu_torch.ops import quant
+from surface_vision_transformers_tpu_torch.ops.quant import int8_mm_reference, int8_product
 
-INT8_K_STEP = 32  # the s8 MMA's K step: dim, heads * 64 and mlp are multiples
+INT8_ROW_ALIGN = 16  # dim and mlp: int8 rows of a multiple of 16 bytes, as TMA reads them
+GEMM_BN = 192  # csrc/gemm.cuh's BN: fc1 pass 1 keeps one absmax partial per row and BN columns
 
 
 def fused_block_int8_reference(
@@ -84,9 +88,10 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
     if dim_head != 64:
         raise NotImplementedError(
             f"the attention kernel is built for dim_head 64, got {dim_head}")
-    if dim % INT8_K_STEP or mlp % INT8_K_STEP:
+    if dim % INT8_ROW_ALIGN or mlp % INT8_ROW_ALIGN:
         raise NotImplementedError(
-            f"dim and mlp_dim must be multiples of {INT8_K_STEP} (the s8 MMA's K step)")
+            f"dim and mlp_dim must be multiples of {INT8_ROW_ALIGN} (int8 rows on 16 bytes, "
+            "as TMA reads them)")
     if not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside [1, {N}]")
     mats = {"q_qkv": (q_qkv, s_qkv, (3 * hd, dim)), "q_out": (q_out, s_out, (dim, hd)),
@@ -106,9 +111,22 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
     for name, (v, n) in vectors.items():
         if tuple(v.shape) != (n,) or v.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 ({n},), got {v.dtype} {tuple(v.shape)}")
-    for t in params:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"every parameter must be contiguous and on {x.device}")
+    for t in params:  # the engine stages scales and biases as float4: 16 bytes
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"every parameter must be contiguous, on {x.device} and on "
+                             "16 bytes")
+
+
+def int8_workspace(M: int, dim: int, hd: int, mlp: int) -> dict:
+    """The chain's scratch for M rows -> name: (shape, dtype), in the C
+    entry's order: the int8 rows of LN1, the attention output and LN2 (qa,
+    sa), f's codes and scales (qf, sf), fc1's absmax partials (part), qkv
+    and the attention output in bfloat16, x1 in float32. No (M, mlp)
+    float32 f."""
+    i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
+    return {"qa": ((M, max(dim, hd)), i8), "sa": ((M,), f32), "qf": ((M, mlp), i8),
+            "sf": ((M,), f32), "part": ((-(-mlp // GEMM_BN), M), f32),
+            "qkv": ((M, 3 * hd), b16), "attn": ((M, hd), b16), "x1": ((M, dim), f32)}
 
 
 def fused_block_int8(
@@ -132,14 +150,11 @@ def fused_block_int8(
     hd, mlp, M = heads * dim_head, q_fc1.shape[0], B * N
     dev = x.device
     out = torch.empty_like(x)
-    ws = [torch.empty((M, max(dim, hd, mlp)), dtype=torch.int8, device=dev),
-          torch.empty((M,), dtype=torch.float32, device=dev),
-          x.new_empty((M, 3 * hd)), x.new_empty((M, hd)),
-          torch.empty((M, dim), dtype=torch.float32, device=dev),
-          torch.empty((M, mlp), dtype=torch.float32, device=dev)]
+    spec = int8_workspace(M, dim, hd, mlp)
+    ws = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in spec.values()]
     _native.check(lib.svt_fused_block_int8(
         *[t.data_ptr() for t in (x, *params, out, *ws)],
-        B, N, dim, heads, dim_head, mlp, vl, ln_eps, dev.index,
+        B, N, dim, heads, dim_head, mlp, spec["part"][0][0], vl, ln_eps, dev.index,
         torch.cuda.current_stream(dev).cuda_stream))
     fused_block_int8.launches += 1
     return out
@@ -151,13 +166,20 @@ fused_block_int8.launches = 0
 # -- the chain's parts, for holding them bitwise against the plain versions ----
 
 
+def _on_16(t: torch.Tensor) -> bool:
+    """Contiguous, on 16 bytes, rows of a multiple of 16 bytes."""
+    return t.is_contiguous() and t.data_ptr() % 16 == 0 \
+        and (t.shape[-1] * t.element_size()) % 16 == 0
+
+
 def quant_rows_kernel(h: torch.Tensor):
     """The chain's row quantizer on a CUDA (M, K) float32 or bfloat16
-    tensor -> (int8 (M, K), float32 (M,) scales); ``ops.quant.quant_rows``
-    is its plain version."""
-    if not h.is_cuda or h.dim() != 2 or not h.is_contiguous() \
-            or h.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("h must be a contiguous CUDA (M, K) float32 or bfloat16 tensor")
+    tensor, rows of a multiple of 16 bytes -> (int8 (M, K), float32 (M,)
+    scales); ``ops.quant.quant_rows`` is its plain version."""
+    if not h.is_cuda or h.dim() != 2 or h.dtype not in (torch.float32, torch.bfloat16) \
+            or not _on_16(h):
+        raise ValueError("h must be a contiguous CUDA (M, K) float32 or bfloat16 tensor on "
+                         "16 bytes, its rows a multiple of 16 bytes")
     M, K = h.shape
     q = torch.empty((M, K), dtype=torch.int8, device=h.device)
     s = torch.empty((M,), dtype=torch.float32, device=h.device)
@@ -167,19 +189,110 @@ def quant_rows_kernel(h: torch.Tensor):
     return q, s
 
 
+def _check_int8_operands(q_a, q_w):
+    for t in (q_a, q_w):
+        if not t.is_cuda or t.dtype != torch.int8 or t.dim() != 2 or not _on_16(t):
+            raise ValueError("operands must be contiguous CUDA int8 (rows, K) tensors on 16 "
+                             f"bytes, K a multiple of {INT8_ROW_ALIGN}")
+    if q_w.shape[1] != q_a.shape[1]:
+        raise ValueError("q_a (M, K) and q_w (Nout, K) must agree in K")
+
+
 def int8_gemm_kernel(q_a: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
     """The chain's int8 GEMM with the int32 accumulators written out: CUDA
-    int8 (M, K) rows against int8 (Nout, K) codes -> int32 (M, Nout);
-    ``ops.quant.int8_product`` is its plain version."""
+    int8 (M, K) rows against int8 (Nout, K) codes -> int32 (M, Nout), K a
+    multiple of 16 and Nout of 4; ``ops.quant.int8_product`` is its plain
+    version."""
+    _check_int8_operands(q_a, q_w)
     M, K = q_a.shape
     n_out = q_w.shape[0]
-    for t in (q_a, q_w):
-        if not t.is_cuda or t.dtype != torch.int8 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("operands must be contiguous CUDA int8 tensors on 16 bytes")
-    if q_w.shape[1] != K or K % INT8_K_STEP or n_out % 8:
-        raise ValueError(f"K must match and be a multiple of {INT8_K_STEP}, Nout of 8")
+    if n_out % 4:
+        raise ValueError("Nout must be a multiple of 4 (int32 rows on 16 bytes)")
     acc = torch.empty((M, n_out), dtype=torch.int32, device=q_a.device)
     _native.check(_native.library().svt_int8_gemm_s32(
         q_a.data_ptr(), q_w.data_ptr(), acc.data_ptr(), M, n_out, K, q_a.device.index,
         torch.cuda.current_stream(q_a.device).cuda_stream))
     return acc
+
+
+def fc1_codes_reference(q_a, s_a, q_w, s_w, bias):
+    """Plain fc1 and f's quantization as the chain's two passes compute
+    them: f = erf-GELU((float(q_a q_w^T) * s_a) * s_w + bias) in float32,
+    each row's absmax per ``GEMM_BN`` columns (pass 1), the codes by the
+    scale of their maximum (pass 2) -> (int8 (M, Nout), float32 (M,))."""
+    acc = int8_product(q_a, q_w).float()
+    f = F.gelu(acc * s_a.reshape(-1, 1) * s_w + bias)
+    return quant.quant_rows_from_partials(f, quant.row_absmax_partials(f, GEMM_BN))
+
+
+# svt_int8_block_gemm's products (``csrc/fused_block_int8.cu``)
+INT8_GEMMS = {"qkv": 1, "out": 2, "fc1_max": 3, "fc1_q8": 4, "fc2": 5, "fc1_codes": 6}
+
+
+def int8_block_gemm(kind: str, q_a, s_a, q_w, s_w, bias=None, residual=None, part=None):
+    """One of the chain's products alone on CUDA tensors, A = q_a (M, K)
+    int8 with row scales s_a (M,), W = q_w (Nout, K) int8 with s_w (Nout,):
+    "qkv" -> bf16 dequantized; "out" -> float32 residual (bf16 (M, Nout))
+    + (dequantized + bias); "fc1_max" -> fc1's absmax partials
+    (ceil(Nout / 192), M); "fc1_q8" (from ``part``) and "fc1_codes" (both
+    passes) -> (int8 codes (M, Nout), float32 (M,) scales); "fc2" -> bf16
+    residual (float32 (M, Nout)) + (dequantized + bias)."""
+    _check_int8_operands(q_a, q_w)
+    (M, K), n_out = q_a.shape, q_w.shape[0]
+    if n_out % INT8_ROW_ALIGN:
+        raise ValueError(f"Nout must be a multiple of {INT8_ROW_ALIGN}")
+    dev = q_a.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    parts = (-(-n_out // GEMM_BN), M)
+    need = {"s_a": (s_a, (M,), torch.float32), "s_w": (s_w, (n_out,), torch.float32)}
+    if kind != "qkv":
+        need["bias"] = (bias, (n_out,), torch.float32)
+    if kind in ("out", "fc2"):
+        need["residual"] = (residual, (M, n_out),
+                            torch.bfloat16 if kind == "out" else torch.float32)
+    if kind == "fc1_q8":
+        need["part"] = (part, parts, torch.float32)
+    for name, (t, shape, dt) in need.items():
+        if t is None or tuple(t.shape) != shape or t.dtype != dt or t.device != dev \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kind}: {name} must be a contiguous {dt} {shape} tensor on "
+                             f"{dev}, on 16 bytes")
+    c = sq = None
+    if kind in ("fc1_max", "fc1_q8", "fc1_codes"):
+        part = torch.empty(parts, **f32) if part is None else part
+        if kind != "fc1_max":
+            c = torch.empty((M, n_out), dtype=torch.int8, device=dev)
+            sq = torch.empty((M,), **f32)
+    else:
+        c = torch.empty((M, n_out), dtype=torch.float32 if kind == "out" else torch.bfloat16,
+                        device=dev)
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (q_a, s_a, q_w, s_w, bias, residual, c, part, sq)]
+    _native.check(_native.library().svt_int8_block_gemm(
+        INT8_GEMMS[kind], *ptrs, M, n_out, K, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream))
+    return part if kind == "fc1_max" else (c, sq) if sq is not None else c
+
+
+def fc1_codes_kernel(q_a, s_a, q_w, s_w, bias):
+    """The chain's fc1 and f's quantization (passes 1 and 2) on CUDA
+    tensors -> (int8 (M, Nout) codes, float32 (M,) scales);
+    ``fc1_codes_reference`` is its plain version."""
+    return int8_block_gemm("fc1_codes", q_a, s_a, q_w, s_w, bias)
+
+
+def int8_scan(scales: torch.Tensor) -> dict:
+    """What fc1's epilogues assume of their arithmetic, scanned on the card
+    over every float (``svt_int8_scan``): the count of v >= 0 where
+    ``gelu_erf`` decreases to the next float (must be 0), the largest
+    |gelu_erf| over v < 0 and the bound the kernel takes for it
+    (``GELU_NEG_MAX``), and the count of floats v in [0, 128 s], for each
+    CUDA float32 scale s, whose code by reciprocal and corrections
+    (``quant_code_r``) differs from the code by IEEE division (must be 0)."""
+    out = torch.zeros(4, dtype=torch.int32, device=scales.device)
+    _native.check(_native.library().svt_int8_scan(
+        scales.data_ptr(), scales.numel(), out.data_ptr(), scales.device.index,
+        torch.cuda.current_stream(scales.device).cuda_stream))
+    o = out.cpu()
+    return {"gelu_decreases": int(o[0]), "gelu_neg_max": float(o[1:2].view(torch.float32)),
+            "gelu_neg_bound": float(o[3:4].view(torch.float32)), "codes_differ": int(o[2])}

@@ -24,12 +24,19 @@ import torch
 _FLOOR = 1e-30  # the scale of an all-zero row: no division by zero, codes 0
 
 
-def _quantize(v: torch.Tensor, absmax: torch.Tensor):
+def _scale(absmax: torch.Tensor) -> torch.Tensor:
     # a tensor divisor: CUDA torch turns division by a Python scalar into a
     # multiply by its reciprocal, which is not the IEEE quotient
-    s = torch.clamp(absmax, min=_FLOOR) / torch.full_like(absmax, 127.0)
-    q = torch.clamp(torch.round(v / s), -127, 127).to(torch.int8)
-    return q, s
+    return torch.clamp(absmax, min=_FLOOR) / torch.full_like(absmax, 127.0)
+
+
+def _codes(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(v / s), -127, 127).to(torch.int8)
+
+
+def _quantize(v: torch.Tensor, absmax: torch.Tensor):
+    s = _scale(absmax)
+    return _codes(v, s), s
 
 
 def quantize_weight_int8(w: torch.Tensor):
@@ -54,6 +61,23 @@ def quant_rows(h: torch.Tensor):
     (int8 (..., K), float32 (..., 1) scales)."""
     hf = h.float()
     return _quantize(hf, hf.abs().amax(dim=-1, keepdim=True))
+
+
+def row_absmax_partials(h: torch.Tensor, tile: int) -> torch.Tensor:
+    """Each row's max |h| over each ``tile``-column slice of (M, K) ``h``,
+    taken in float32 -> (ceil(K / tile), M): what the CUDA chain's fc1 pass
+    1 writes for f, one partial per row and 192-column GEMM tile."""
+    hf = h.float().abs()
+    return torch.stack([hf[:, c:c + tile].amax(dim=1) for c in range(0, hf.shape[1], tile)])
+
+
+def quant_rows_from_partials(h: torch.Tensor, part: torch.Tensor):
+    """``quant_rows`` of (M, K) ``h`` with each row's absmax taken as the
+    maximum of its partials (T, M) -> (int8 (M, K), float32 (M,) scales):
+    the CUDA chain's fc1 pass 2. The maximum is exact in any grouping, so
+    these are ``quant_rows``' codes and scales bit for bit."""
+    s = _scale(part.amax(dim=0))
+    return _codes(h.float(), s.reshape(-1, 1)), s
 
 
 def int8_product(q_a: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
