@@ -6,8 +6,9 @@
 Drives the port's serving and training paths
 (surface_vision_transformers_tpu_torch) at the full width of SiT-tiny
 (ico-6 sub-ico-2, dim 192, depth 12, 3 heads, mlp 768) and of SiT-base
-(ico-6 sub-ico-3, below), and its MPP pretraining and dropout training
-(phases 14-19), with random weights made from a numpy seed.
+(ico-6 sub-ico-3, below), its MPP pretraining and dropout training
+(phases 14-19), and MS-SiT serving (phases 26-28), with random weights
+made from a numpy seed.
 Phases, one line each; any failure raises, so the script exits non-zero
 and prints no result:
 
@@ -179,6 +180,40 @@ sub-ico 3 and the gather-fused patch embedding:
               ``fused_block`` and ``fused_block_bwd`` timed at the MPP
               config's bs 32.
 
+Phases 26-28 run MS-SiT serving (``configs/training/mssit_scan_age.yml``:
+ico 6 patched at sub-ico 5, 20,480 patches x 6 vertices, stage dims 96 /
+192 / 384 / 768 with heads 3 / 6 / 12 / 24, so head dim 32 throughout;
+window 64, global_max 512, axial cross-mixing, mean pooling) at bs_val 64,
+full width and depth:
+
+26. mssit-kernels -- at the folded shapes a batch of 64 gives the kernels
+              (models/mssit.py's stage_plan and fold_tokens: (20,480, 64,
+              96), (4,096, 320, 96), (5,120, 64, 192), (4,096, 80, 192),
+              (1,280, 64, 384), (4,096, 20, 384), (64, 320, 768)): the
+              attention forward at dh 32 alone (also past 512 keys and with
+              a key mask), ``fused_block`` at each fold and
+              ``fused_block_int8`` at stages 2-3 against their float32 and
+              bf16 plain versions (phase 3's and phase 20's gates),
+              ``patch_embed`` at sub-ico 5 (K = 24, dim 96), and stage 0's
+              four GEMMs alone (N 288 and 96, K 96: ragged against the
+              engine's tiles) under phase 25's gate; controls (the dh-64
+              scale 1/8 at dh 32, the last K/V tile skipped at N = 320, the
+              last half k-step dropped at K = 96, and phase 20's and 21's);
+              times beside the bound, SDPA at dh 32 for the attention.
+27. mssit-slice -- ``predict`` on 100 raw surfaces at batch 64 (the last
+              padded), bf16 and int8: launches (1 patch_embed and 12
+              fused_block a batch; int8 1, 4 and 8 fused_block_int8),
+              against the eager bf16 model (plain attention, batches of 8)
+              and, int8, the float32 one, with controls (block 5 dropped,
+              stage 0's axial fold run as the window fold); surfaces/s and
+              peak memory at B=64 and 128.
+28. mssit-entry -- ``cli.test`` on the shipped MS-SiT config in a
+              subprocess (a synthetic npy split, a params npz written from
+              the port's weights), bf16 and ``--set tpu.quant=int8``:
+              results.csv equal to ``predict`` bit for bit; ``--set
+              tpu.compute_dtype=float32``: the modular model, no launches,
+              equal to float32 ``predict``.
+
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
 same comparison tells a call with one dO element raised by 1 apart; and
@@ -191,11 +226,12 @@ to its run on the idle card, before that kernel ends.
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
 
-Each phase prints its seconds. Then four records lines: the attention
+Each phase prints its seconds. Then five records lines: the attention
 backward and forward rows, the block rows and the int8 rows beside their
 recorded times under the mma.sync kernels they replaced (a record, not
 measured in the run), the forward rows with their ratio to SDPA in this run
-and their share of the bound, the int8 GEMMs beside ``torch._int_mm``.
+and their share of the bound, the int8 GEMMs beside ``torch._int_mm``; and
+the MS-SiT path's kernels at dh 32 with their library times and bounds.
 Then a JSON line of per-kernel results, and last ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -552,31 +588,31 @@ def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def attention_flops(B, H, nq, nk):
+def attention_flops(B, H, nq, nk, dh=DH):
     """(forward, backward) operations of attention over nq query rows and nk
     keys (those a run needs): the forward's two products (Q.K^T, P.V); the
     backward's five, 2.5x the forward's, since its inputs are q, k, v, o,
     lse and dO: S = Q.K^T again, dP, dV, dQ, dK. Every attention bound of
     this script counts them here."""
-    fwd = 4 * B * H * nq * nk * DH
+    fwd = 4 * B * H * nq * nk * dh
     return fwd, 2.5 * fwd
 
 
-def block_flops(B, N, vl, dim, heads, mlp, cls):
+def block_flops(B, N, vl, dim, heads, mlp, cls, dh=DH):
     """(forward, backward) operations of one block at these shapes; the
     attention products count only the rows and keys < valid_len that this
     input needs. Forward: the four GEMMs and the attention's forward;
     backward: dX and dW of each GEMM and the attention's backward
     (``attention_flops``). What a design keeps or recomputes beyond that is
     its own cost, not part of the bound."""
-    hd, M = heads * DH, B * N
+    hd, M = heads * dh, B * N
     rows = min(8, N) if cls else N
     Mt = B * rows
     if cls:
         gemm = 2 * (M * dim * 2 * hd + Mt * dim * hd + Mt * hd * dim + 2 * Mt * dim * mlp)
     else:
         gemm = 2 * M * (dim * 3 * hd + hd * dim + 2 * dim * mlp)
-    att_f, att_b = attention_flops(B, heads, min(rows, vl), min(N, vl))
+    att_f, att_b = attention_flops(B, heads, min(rows, vl), min(N, vl), dh)
     return gemm + att_f, 2 * gemm + att_b
 
 
@@ -613,10 +649,10 @@ def grad_bound_ratio(got, ref32, vl):
     return worst, abs_err
 
 
-def block_params(rng, dim, heads, mlp):
+def block_params(rng, dim, heads, mlp, dh=DH):
     """The 11 block parameters (torch layout, float32) with the attention
     gains of the phase-3 weights."""
-    hd = heads * DH
+    hd = heads * dh
 
     def u(shape, fan_in, gain=1.0):
         b = gain / np.sqrt(fan_in)
@@ -1931,7 +1967,7 @@ def fwd_host_us(fa) -> float:
     q = torch.zeros((1, 1, 64, DH), device="cuda", dtype=torch.bfloat16)
     o, lse = torch.empty_like(q), torch.empty((1, 1, 64), device="cuda")
     args = [*fa._operand(q), *fa._operand(q), *fa._operand(q), *fa._operand(o),
-            lse.data_ptr(), 1, 1, 64, 64, 64, *fa._drop_args(0.0, 0), 0,
+            lse.data_ptr(), 1, 1, 64, 64, 64, DH, *fa._drop_args(0.0, 0), 0,
             torch.cuda.current_stream().cuda_stream]
     lib = _native.library()
     for _ in range(10):
@@ -2533,13 +2569,13 @@ INT8_SLICE_REL = 0.08
 INT8_SLICE_N = 128  # SiT-base surfaces served at bs_val 64 (two batches)
 
 
-def int8_block_params(rng, dim, heads, mlp):
+def int8_block_params(rng, dim, heads, mlp, dh=DH):
     """(fused_block_int8's 15 parameters, fused_block's 11 in bf16) on the
     card from phase 10's seeded block, the int8 codes quantized from
     float32."""
     from surface_vision_transformers_tpu_torch.ops.quant import quantize_block_weights
 
-    p = [t.cuda() for t in block_params(rng, dim, heads, mlp)]
+    p = [t.cuda() for t in block_params(rng, dim, heads, mlp, dh)]
     q = quantize_block_weights(p[2], p[3], p[7], p[9])
     p8 = (p[0], p[1], *q[:4], p[4], p[5], p[6], q[4], q[5], p[8], q[6], q[7], p[10])
     return p8, [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p]
@@ -2555,25 +2591,25 @@ def per_tensor_rows(h):
     return quant._quantize(hf, absmax)
 
 
-def int8_block_x1_rounded(fb, x, p, heads, vl):
+def int8_block_x1_rounded(fb, x, p, heads, vl, dh=DH):
     """The plain int8 block with x1 rounded to bf16 (a control)."""
     from surface_vision_transformers_tpu_torch.ops.quant import int8_mm_reference as mm
 
     (ln1_s, ln1_b, q_qkv, s_qkv, q_out, s_out, b_out, ln2_s, ln2_b,
      q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2) = p
-    hd, dt = heads * DH, x.dtype
+    hd, dt = heads * dh, x.dtype
     qkv = mm(fb._layer_norm(x, ln1_s, ln1_b, 1e-5), q_qkv, s_qkv).to(dt)
-    attn = fb._attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], heads, DH, vl, dt)
+    attn = fb._attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], heads, dh, vl, dt)
     x1 = (x.float() + (mm(attn, q_out, s_out) + b_out)).bfloat16().float()
     f = F.gelu(mm(fb._layer_norm(x1, ln2_s, ln2_b, 1e-5), q_fc1, s_fc1) + b_fc1)
     return (x1 + (mm(f, q_fc2, s_fc2) + b_fc2)).to(dt)
 
 
-def int8_block_ops(B, N, vl, dim, heads, mlp):
+def int8_block_ops(B, N, vl, dim, heads, mlp, dh=DH):
     """(int8 GEMM operations, bf16 attention operations) of one block; the
     attention products over the rows and keys < valid_len."""
-    hd = heads * DH
-    return 2 * B * N * (dim * 3 * hd + hd * dim + 2 * dim * mlp), 4 * B * heads * vl * vl * DH
+    hd = heads * dh
+    return 2 * B * N * (dim * 3 * hd + hd * dim + 2 * dim * mlp), 4 * B * heads * vl * vl * dh
 
 
 def phase_int8_kernels(rng, fb) -> dict:
@@ -3291,6 +3327,602 @@ def phase_block_gemms(rng, fb) -> dict:
     return rows
 
 
+# Phases 26-28: MS-SiT serving (configs/training/mssit_scan_age.yml: ico 6
+# patched at sub-ico 5, 20,480 patches x 6 vertices; stage dims 96 / 192 /
+# 384 / 768 with heads 3 / 6 / 12 / 24, so head dim 32 in every stage;
+# window 64, global_max 512, axial cross-mixing, mlp ratio 4; mean pooling)
+# at its bs_val 64, full width and depth.
+MSSIT_CFG = ROOT / "configs/training/mssit_scan_age.yml"
+MSSIT_DH = 32
+# The folds a batch of 64 gives the block kernels (stage, sequences, N, dim,
+# heads, blocks a batch): models/mssit.py's stage_plan and fold_tokens.
+MSSIT_FOLDS = [(0, 20480, 64, 96, 3, 1), (0, 4096, 320, 96, 3, 1),
+               (1, 5120, 64, 192, 6, 1), (1, 4096, 80, 192, 6, 1),
+               (2, 1280, 64, 384, 12, 3), (2, 4096, 20, 384, 12, 3),
+               (3, 64, 320, 768, 24, 2)]
+MSSIT_ROW_FOLD = (0, 4096, 320, 96, 3, 1)  # the bf16 rows' shape: stage 0's axial fold
+MSSIT_INT8_ROW_FOLD = (3, 64, 320, 768, 24, 2)  # the int8 row's: stage 3's global attention
+# The attention forward at dh 32 past 512 keys, where its other two tilings
+# run (csrc/flash_attention.cu: 192 queries a CTA where that grid fills the
+# card twice, else 64; 128-key tiles), and with valid_len inside a key tile.
+MSSIT_ATT_EDGES = [(32, 3, 1281, 1281), (2, 3, 1281, 1281), (16, 6, 200, 150)]
+# The dh-64 softmax scale 1/8 applied at dh 32 (a control): q scaled by
+# (1/8) / 32^-0.5.
+MSSIT_SCALE_64 = 0.125 / MSSIT_DH ** -0.5
+MSSIT_SLICE_N = 100  # surfaces served at bs_val 64: two batches, the last padded
+MSSIT_EAGER_B = 8  # the eager models' batch (their fp32 scores at B=64 reach ~5 GB a fold)
+# Phase 27's gates, set from readings on an NVIDIA H100 80GB HBM3 at 700 W at
+# these seeded weights, whose predictions vary little across surfaces (std
+# 0.027 about a mean of -0.445: the head pools 320 LayerNormed tokens):
+# |kernel path - eager bf16| read 0.0056, its controls 0.053 (stage 0's
+# axial fold run as the window fold) and 0.44 (block 5 dropped); the int8
+# predictions' rel-L2 from the fp32 eager model read 0.0139 (bf16's 0.0088),
+# the controls 0.054 and 0.84. Phase 22's 0.08 would pass the fold control.
+MSSIT_SLICE_TOL = 0.015  # |kernel path - eager bf16| in MS-SiT predictions
+MSSIT_INT8_REL = 0.03  # int8 predictions' rel-L2 from the fp32 eager model
+MSSIT_ENTRY_N = 80  # cli.test surfaces: two batches of 64, the last padded
+MSSIT_RECORDS: dict = {}  # this run's dh-32 times for the records line
+
+
+def dev_randn(g, shape, scale=1.0) -> torch.Tensor:
+    """bf16 N(0, scale^2) made on the card from the generator ``g``: the
+    MS-SiT folds' activations run to hundreds of millions of values."""
+    return (scale * torch.randn(shape, generator=g, device="cuda")).bfloat16()
+
+
+def mssit_chunk(N, dim, heads, budget=2**29) -> int:
+    """Sequences per slice of a plain run at a fold: its fp32 scores and
+    MLP hidden within ~``budget`` bytes."""
+    return max(1, budget // max(heads * N * N * 4, N * 4 * dim * 4 * 2))
+
+
+def mssit_state(rng, model) -> dict:
+    """A seeded state dict for the port's MS-SiT ``model``, the phase-3
+    weights' recipe: torch-Linear-style uniform init, perturbed
+    LayerNorms, positions N(0, POS_STD), and the attention gains (q and k
+    rows of every qkv x QK_GAIN, every out-projection x OUT_GAIN)."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    out = {}
+    for name, shape in shapes.items():
+        if name.endswith("norm.weight"):
+            v = 1 + 0.1 * rng.standard_normal(shape)
+        elif name.endswith("norm.bias"):
+            v = 0.1 * rng.standard_normal(shape)
+        elif name == "pos_embedding":
+            v = POS_STD * rng.standard_normal(shape)
+        else:  # a Linear weight (out, in), or its bias
+            fan_in = shape[1] if len(shape) == 2 else shapes[name[:-4] + "weight"][1]
+            b = 1.0 / np.sqrt(fan_in)
+            v = rng.uniform(-b, b, shape)
+            if name.endswith("to_qkv.weight"):
+                v[: 2 * shape[0] // 3] *= QK_GAIN
+            elif name.endswith("to_out.weight"):
+                v *= OUT_GAIN
+        out[name] = torch.from_numpy(np.asarray(v, np.float32))
+    return out
+
+
+def mssit_gate(got, ref32, ref_bf, controls) -> tuple[float, dict]:
+    """(worst |err| over BOUND_STEPS bf16 steps at the largest |fp32
+    output| against the fp32 and bf16 plain runs, each control's |err| over
+    the same bound: must exceed 1)."""
+    bound = BOUND_STEPS * bf16_step(ref32.abs().max().item())
+    err = max((got - ref32).abs().max().item(), (got - ref_bf).abs().max().item())
+    ratio = err / bound if bool(torch.isfinite(got).all()) else math.inf
+    return ratio, {k: (got - v).abs().max().item() / bound for k, v in controls.items()}
+
+
+def phase_mssit_kernels(rng, fb) -> dict:
+    """Phase 26: every kernel of the MS-SiT serving path at the shapes a
+    batch of 64 gives it (MSSIT_FOLDS), against its float32 and bf16 plain
+    versions (BOUND_STEPS bf16 steps at the largest output; fused_block_int8
+    under phase 20's gates), with controls that must fail: the attention
+    forward alone at dh 32 (and past 512 keys), fused_block at each fold,
+    fused_block_int8 at stages 2 and 3, patch_embed at sub-ico 5, and stage
+    0's four GEMMs alone (their ragged N and K edges) under phase 25's gate.
+    Times by CUDA events beside the bound, SDPA at dh 32 for the attention
+    (timed, never used). -> rows by kernel name (launches filled by phase
+    27)."""
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+    from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8
+    from surface_vision_transformers_tpu_torch.ops import patch_embed as pe
+    from surface_vision_transformers_tpu_torch.ops import quant
+
+    failures, rows, dh = [], {}, MSSIT_DH
+    name = "mssit-kernels"
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+
+    def record(label, ok, ratio, controls):
+        if not ok:
+            failures.append(label)
+        if any(v <= 1 for v in controls.values()):
+            failures.append(f"{label}: a control passed the gate")
+
+    # -- the attention forward at dh 32, alone, on the packed qkv as the chains hold it
+    def att_plain(qkv, heads, vl, dtype, scale=1.0):
+        hd = heads * dh
+
+        def one(x):
+            x = x.to(dtype) if dtype is not None else x
+            if scale != 1.0:
+                x = torch.cat([x[..., :hd] * scale, x[..., hd:]], -1)
+            return fa.flash_attention_qkv_reference(x, heads, vl)[0].float()
+        return sliced(one, qkv, chunk=mssit_chunk(qkv.shape[1], hd, heads))
+
+    att_cases = [(Bf, heads, N, N) for _, Bf, N, _, heads, _ in MSSIT_FOLDS] + MSSIT_ATT_EDGES
+    for Bf, heads, N, vl in att_cases:
+        hd = heads * dh
+        qkv = torch.cat([dev_randn(g, (Bf, N, 2 * hd), 1.5), dev_randn(g, (Bf, N, hd))], -1)
+        o, lse = fa.flash_attention_qkv_fwd(qkv, heads, vl)
+        o = o.float()
+        ref32, ref_bf = att_plain(qkv, heads, vl, torch.float32), att_plain(qkv, heads, vl, None)
+        controls = {"dh-64 scale 1/8": att_plain(qkv, heads, vl, torch.float32, MSSIT_SCALE_64)}
+        if N == 320:
+            controls["last K/V tile skipped"] = att_plain(qkv, heads, 256, torch.float32)
+        if N > vl:
+            controls["key mask ignored"] = att_plain(qkv, heads, N, torch.float32)
+        ratio, ctl = mssit_gate(o, ref32, ref_bf, controls)
+        label = f"attention forward dh 32 Bf={Bf} H={heads} N={N} valid_len={vl}"
+        msg = (f"{label}: worst |err|/bound vs fp32 and bf16 plain {ratio:.4g} (bound "
+               f"{BOUND_STEPS} bf16 steps), max abs err {(o - ref32).abs().max().item():.6g}; "
+               "controls (must exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in ctl.items()))
+        record(label, ratio <= 1, ratio, ctl)
+        if (Bf, heads, N, vl) in [(f[1], f[4], f[2], f[2]) for f in MSSIT_FOLDS]:
+            q, k, v = fa.split_qkv(qkv, heads)
+            with torch.inference_mode():
+                ms = device_ms(lambda: fa.flash_attention_qkv_fwd(qkv, heads, vl))
+                sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            flops = attention_flops(Bf, heads, N, N, dh)[0]
+            b_ms, b_by = bound_ms(flops, nbytes_of(qkv) + o.numel() * 2 + lse.numel() * 4)
+            msg += (f"; kernel {ms:.4f} ms, SDPA {sdpa:.4f} ms ({ms / sdpa:.3f}x), bound "
+                    f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%})")
+            MSSIT_RECORDS[f"attention Bf={Bf} H={heads} N={N}"] = (ms, sdpa, b_ms)
+            if (Bf, N, heads) == MSSIT_ROW_FOLD[1:3] + MSSIT_ROW_FOLD[4:5]:
+                plain_ms = cuda_ms(lambda: att_plain(qkv, heads, vl, None), reps=3)
+                msg += f", plain {plain_ms:.4f} ms"
+                rows["flash_attention_fwd dh32"] = {
+                    "name": "flash_attention_fwd dh32", "route": "cuda", "source": FLASH_SOURCE,
+                    "replaces": f"{FLASH_TPU}:203", "max_abs_err": (o - ref32).abs().max().item(),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": sdpa}
+        phase(name, msg + " (device_ms: ten calls queued behind a hold)")
+        del qkv, o, lse, ref32, ref_bf, controls
+        torch.cuda.empty_cache()
+
+    # -- fused_block at dh 32, at every fold
+    for stage, Bf, N, dim, heads, per_batch in MSSIT_FOLDS:
+        mlp, hd = 4 * dim, heads * dh
+        p32 = [t.cuda() for t in block_params(rng, dim, heads, mlp, dh)]
+        pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p32]
+        kw = dict(heads=heads, dim_head=dh)
+        x = dev_randn(g, (Bf, N, dim), X_SCALE)
+        chunk = mssit_chunk(N, dim, heads)
+        got = fb.fused_block(x, *pb, **kw).float()
+
+        def plain(params, dtype=torch.float32, vl=N):
+            return sliced(lambda xs: fb.fused_block_reference(
+                xs.to(dtype) if dtype else xs, *params, valid_len=vl, **kw).float(), x,
+                chunk=chunk)
+
+        scaled = list(p32)
+        scaled[2] = p32[2].clone()
+        scaled[2][:hd] *= MSSIT_SCALE_64
+        controls = {"dh-64 scale 1/8": plain(scaled)}
+        if N == 320:
+            controls["last K/V tile skipped"] = plain(p32, vl=256)
+        ref32 = plain(p32)
+        ratio, ctl = mssit_gate(got, ref32, plain(pb, None), controls)
+        label = f"fused_block dh 32 stage {stage} ({Bf}, {N}, {dim})"
+        record(label, ratio <= 1, ratio, ctl)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fb.fused_block(x, *pb, **kw), reps=10)
+        flops = block_flops(Bf, N, N, dim, heads, mlp, False, dh)[0]
+        b_ms, b_by = bound_ms(flops, nbytes_of(x, *pb) + x.numel() * 2)
+        phase(name, f"{label}, {per_batch} a batch: worst |err|/bound vs fp32 and bf16 plain "
+              f"{ratio:.4g}, max abs err {(got - ref32).abs().max().item():.6g}; controls "
+              "(must exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in ctl.items())
+              + f"; kernel {ms:.4f} ms (CUDA-event median of 10), bound {b_ms:.4f} ms by "
+              f"{b_by} ({b_ms / ms:.1%}; {flops / 1e9:.1f} GFLOP)")
+        MSSIT_RECORDS[f"fused_block stage {stage} ({Bf}, {N}, {dim})"] = (ms, None, b_ms)
+        if (stage, Bf, N) == MSSIT_ROW_FOLD[:3]:
+            with torch.inference_mode():
+                plain_ms = cuda_ms(lambda: plain(pb, None), reps=3)
+            rows["fused_block dh32"] = {
+                "name": "fused_block dh32", "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES["fused_block"],
+                "max_abs_err": (got - ref32).abs().max().item(), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del x, got, ref32, controls, p32, pb, scaled
+        torch.cuda.empty_cache()
+
+    # -- fused_block_int8 at dh 32, stages 2 and 3, under phase 20's gates
+    for stage, Bf, N, dim, heads, per_batch in [f for f in MSSIT_FOLDS if f[3] >= 384]:
+        mlp, hd = 4 * dim, heads * dh
+        p8, _ = int8_block_params(rng, dim, heads, mlp, dh)
+        kw = dict(heads=heads, dim_head=dh)
+        x = dev_randn(g, (Bf, N, dim), X_SCALE)
+        chunk = mssit_chunk(N, dim, heads)
+        got = fbi8.fused_block_int8(x, *p8, **kw).float()
+
+        def plain(params=p8, dtype=None):
+            return sliced(lambda xs: fbi8.fused_block_int8_reference(
+                xs.to(dtype) if dtype else xs, *params, **kw).float(), x, chunk=chunk)
+
+        ref32, ref_bf = plain(dtype=torch.float32), plain()
+        scaled = list(p8)
+        scaled[3] = p8[3].clone()
+        scaled[3][:hd] *= MSSIT_SCALE_64  # the q rows' dequantization scales
+        cases = {"kernel": got, "plain bf16": ref_bf,
+                 "control: dh-64 scale 1/8": plain(scaled, torch.float32)}
+        if N > 64:
+            with mock.patch.object(quant, "quant_rows", per_tensor_rows):
+                cases["control: one scale per tensor"] = plain(dtype=torch.float32)
+        else:
+            cases["control: x1 rounded to bf16"] = sliced(
+                lambda xs: int8_block_x1_rounded(fb, xs, p8, heads, N, dh).float(), x,
+                chunk=chunk)
+
+        def steps(a, r=ref32):
+            return ((a - r).abs().max() / bf16_step(r.abs().max().item())).item()
+
+        def rel(a, r=ref32):
+            return (torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r)).item()
+
+        def share(a):
+            return (a != ref_bf).float().mean().item()
+
+        rel_bf = rel(ref_bf)
+
+        def passes(a):
+            return (bool(torch.isfinite(a).all()) and max(steps(a), steps(a, ref_bf)) <= INT8_STEPS
+                    and rel(a) <= INT8_REL_RATIO * rel_bf and (N > 64 or share(a) <= INT8_SHARE))
+
+        label = f"fused_block_int8 dh 32 stage {stage} ({Bf}, {N}, {dim})"
+        for k_, a in cases.items():
+            phase(name, f"{label}: {k_}: max |err| vs fp32 plain {steps(a):.3f} bf16 steps at the "
+                  f"largest output, vs plain bf16 {steps(a, ref_bf):.3f}; rel-L2 vs fp32 plain "
+                  f"{rel(a):.4g}; share of outputs differing from plain bf16 {share(a):.4f}")
+        if not passes(got):
+            failures.append(label)
+        failures += [f"{label}: {k_} passed the gates" for k_, v in cases.items()
+                     if k_.startswith("control") and passes(v)]
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fbi8.fused_block_int8(x, *p8, **kw), reps=10)
+        g_ops, a_ops = int8_block_ops(Bf, N, N, dim, heads, mlp, dh)
+        t_ops = (g_ops / PEAK_INT8 + a_ops / PEAK_FLOPS) * 1e3
+        b_ms, b_by = max((t_ops, "operations"),
+                         ((nbytes_of(x, *p8) + x.numel() * 2) / PEAK_BYTES * 1e3, "bytes"))
+        phase(name, f"{label}, {per_batch} a batch: gates max {INT8_STEPS} bf16 steps vs both, "
+              f"rel-L2 <= {INT8_REL_RATIO} x plain bf16's {rel_bf:.4g}"
+              + (f", share <= {INT8_SHARE}" if N <= 64 else "")
+              + f"; kernel {ms:.4f} ms (CUDA-event median of 10), bound {b_ms:.4f} ms by {b_by}")
+        MSSIT_RECORDS[f"fused_block_int8 stage {stage} ({Bf}, {N}, {dim})"] = (ms, None, b_ms)
+        if (stage, Bf, N) == MSSIT_INT8_ROW_FOLD[:3]:
+            with torch.inference_mode():
+                plain_ms = cuda_ms(lambda: plain(), reps=3)
+            rows["fused_block_int8 dh32"] = {
+                "name": "fused_block_int8 dh32", "route": "cuda", "source": INT8_SOURCE,
+                "replaces": INT8_TPU, "max_abs_err": (got - ref32).abs().max().item(), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del x, got, ref32, ref_bf, cases, p8, scaled
+        torch.cuda.empty_cache()
+
+    # -- patch_embed at sub-ico 5: L = 20,480, V = 6, K = 24 (one 64-deep step), dim 96
+    table = load_patch_table(6, 5).indices
+    L, V = table.shape
+    idx = pe.table_tensor(table, "cuda")
+    B, dim = 64, 96
+    x = torch.randn((B, 4, 40962), generator=g, device="cuda")
+    bd = 1.0 / np.sqrt(4 * V)
+    kern = torch.from_numpy(rng.uniform(-bd, bd, (4 * V, dim)).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.uniform(-bd, bd, dim).astype(np.float32)).cuda()
+    w, b = pe.embed_matrix(kern, bias, V, means=rng.uniform(-1, 1, (1, 4, 1)).astype(np.float32),
+                           stds=rng.uniform(0.5, 2, (1, 4, 1)).astype(np.float32))
+    got = pe.patch_embed(x, idx, w, b).float()
+    ref32 = pe.patch_embed_reference(x, idx, w.float(), b).float()
+    ref_bf = pe.patch_embed_reference(x, idx, w, b).float()
+    controls = {"table shifted by one patch": pe.patch_embed_reference(
+                    x, idx.roll(1, 0), w, b).float(),
+                "(c v) order": embed_plain_cv(x, idx, w, b).float()}
+    ratio, ctl = mssit_gate(got, ref32, ref_bf, controls)
+    label = f"patch_embed sub-ico 5 ({L} x {V}, K {4 * V} -> {w.shape[1]}) B={B} dim {dim}"
+    record(label, ratio <= 1, ratio, ctl)
+    flat, wt = idx.reshape(-1), w[:, :4 * V].t()
+
+    def library():  # index_select + addmm: the library form
+        t = x.index_select(2, flat).view(B, 4, L, V).permute(0, 2, 3, 1).reshape(B, L, 4 * V)
+        return torch.addmm(b.bfloat16(), t.bfloat16().reshape(B * L, -1), wt)
+
+    ms = cuda_ms(lambda: pe.patch_embed(x, idx, w, b))
+    plain_ms = cuda_ms(lambda: pe.patch_embed_reference(x, idx, w, b), reps=5)
+    lib_ms = cuda_ms(library)
+    flops = 2 * B * L * 4 * V * dim
+    b_ms, b_by = bound_ms(flops, nbytes_of(x, idx, w, b) + got.numel() * 2)
+    phase(name, f"{label}: worst |err|/bound vs fp32 and bf16 plain {ratio:.4g}; controls "
+          "(must exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in ctl.items())
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select + addmm {lib_ms:.4f} "
+          f"ms (CUDA-event medians of 25 / 5 / 25), bound {b_ms:.4f} ms by {b_by}")
+    MSSIT_RECORDS["patch_embed sub-ico 5"] = (ms, lib_ms, b_ms)
+    rows["patch_embed sub-ico 5"] = {
+        "name": "patch_embed sub-ico 5", "route": "cuda", "source": EMBED_SOURCE,
+        "replaces": EMBED_TPU, "max_abs_err": (got - ref32).abs().max().item(), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    del x, got, ref32, ref_bf, controls
+    torch.cuda.empty_cache()
+
+    # -- stage 0's four GEMMs alone: N 288 (qkv) and 96 (out, fc2) ragged against
+    # the 192-column tiles, K 96 (qkv, out, fc1) half a 64-deep step past one
+    M, dim, mlp = 64 * 20480, 96, 384
+    for gname, N, K in (("qkv", 3 * dim, dim), ("out", dim, dim), ("fc1", mlp, dim),
+                        ("fc2", dim, mlp)):
+        a = dev_randn(g, (M, K))
+        wg = torch.from_numpy(rng.uniform(-1, 1, (N, K)).astype(np.float32) / np.sqrt(K)).to(
+            "cuda", torch.bfloat16)
+        bias = torch.from_numpy((0.1 * rng.standard_normal(N)).astype(np.float32)).cuda()
+        res = dev_randn(g, (M, N)) if gname in ("out", "fc2") else None
+        bz = bias if gname != "qkv" else None
+
+        def kernel(aa=a):
+            return fb.block_gemm(aa, wg, bz, res, gelu=gname == "fc1")
+
+        def plain(aa=a):
+            return fb.gemm_reference(aa.float(), wg.float(), bz, res, gelu=gname == "fc1")
+
+        cut = a.clone()
+        drop = 32 if K == 96 else 64  # the last half step of K = 96, else the last step
+        cut[:, K - drop:] = 0
+        got, ref, ctl = kernel(), plain(), plain(cut)
+        if gname == "fc1":
+            measures = [gemm_gate(got[0], ref[0], False), gemm_gate(got[1], ref[1], True)]
+            control = gemm_gate(got[0], ctl[0], False)
+        else:
+            measures, control = [gemm_gate(got, ref, False)], gemm_gate(got, ctl, False)
+        ms = cuda_ms(kernel)
+        lib_ms = cuda_ms(lambda: torch.mm(a, wg.t(), out_dtype=torch.float32))
+        out_bytes = M * N * 2 + (M * N * 4 if gname == "fc1" else 0)
+        nbytes = nbytes_of(a, wg, bias) + out_bytes + (nbytes_of(res) if res is not None else 0)
+        b_ms, b_by = bound_ms(2 * M * N * K, nbytes)
+        label = f"stage-0 GEMM {gname} M={M} N={N} K={K}"
+        phase(name, f"{label}: " + ", ".join(f"{m:.4g}" for m, _ in measures)
+              + f" (bf16 steps; fc1's fp32 pre-activation rel, gate {GEMM_FP32_REL}; gate 1 "
+              f"bf16 step); control, the last {drop} of K dropped: {control[0]:.4g} (must fail); "
+              f"kernel {ms:.4f} ms, torch.mm {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+              f"({b_ms / ms:.1%})")
+        if not all(ok for _, ok in measures):
+            failures.append(label)
+        if control[1]:
+            failures.append(f"{label}: the control passed")
+        MSSIT_RECORDS[label] = (ms, lib_ms, b_ms)
+        del a, wg, res, got, ref, ctl, cut
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("MS-SiT kernels: " + "; ".join(failures))
+    return rows
+
+
+def mssit_models(rng):
+    """(the shipped MS-SiT config, its canonical sub-ico-5 table, the bf16
+    model with plain attention on the card (the kernel path ignores the
+    attention backend), its float32 twin, the seeded state dict)."""
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    exp = config.load_config(MSSIT_CFG)
+    table = load_patch_table(exp.ico, exp.sub_ico).indices
+    model = MSSiT.from_config(exp, patch_table=table, attn_backend="plain")
+    state = mssit_state(rng, model)
+    model.load_state_dict(state, strict=True)
+    plain32 = MSSiT.from_config(exp, patch_table=table, attn_backend="plain",
+                                dtype=torch.float32)
+    plain32.load_state_dict(state, strict=True)
+    return exp, table, model.eval().cuda(), plain32.eval().cuda(), state
+
+
+def phase_mssit_slice(rng, fb, fused, models) -> dict:
+    """Phase 27: ``predict`` of the MS-SiT at bs_val 64 on MSSIT_SLICE_N raw
+    surfaces (the last batch padded), bf16 and int8: launches a batch (1
+    patch_embed and 12 fused_block; int8: 1, 4 and 8 fused_block_int8),
+    agreement with the eager bf16 model (plain attention, batches of
+    MSSIT_EAGER_B) and, int8, with the float32 one, each with controls
+    (block 5 dropped; stage 0's axial fold as the window fold); surfaces/s
+    and peak memory at B=64 and 128. -> the launches of each run."""
+    from surface_vision_transformers_tpu_torch.models import fused_mssit as fm
+
+    exp, table, model, plain32, _ = models
+    bs, n = exp.training.bs_val, MSSIT_SLICE_N
+    n_batches = -(-n // bs)
+    data = rng.standard_normal((n, 4, 40962)).astype(np.float32)
+    runs = {}
+    for label, q, want_blocks in (("bf16", None, {"fused_block": 12}),
+                                  ("int8", "int8", {"fused_block": 4, "fused_block_int8": 8})):
+        counters = zero_counts(fb)
+        preds = fused.predict(model, data, device="cuda", batch_size=bs, quant=q)
+        launches = read_counts(counters)
+        want = {k: 0 for k in counters}
+        want["patch_embed"] = n_batches
+        want.update({k: v * n_batches for k, v in want_blocks.items()})
+        phase("mssit-slice", f"predict({n} surfaces, batch {bs}, {label}): launches {launches}, "
+              f"expected {want}")
+        if launches != want:
+            raise AssertionError(f"the MS-SiT {label} serving path did not launch as expected")
+        if preds.shape != (n, 1) or not np.isfinite(preds).all():
+            raise AssertionError(f"bad MS-SiT predictions: shape {preds.shape}")
+        runs[label] = (preds, launches)
+
+    x = torch.from_numpy(data).cuda()
+    with torch.inference_mode():
+        eager = torch.cat([model(x[s:s + MSSIT_EAGER_B]) for s in range(0, n, MSSIT_EAGER_B)])
+        ref32 = torch.cat([plain32(x[s:s + MSSIT_EAGER_B])
+                           for s in range(0, n, MSSIT_EAGER_B)]).cpu().numpy()
+        eager = eager.float().cpu().numpy()
+        controls, controls8 = {}, {}
+        for quant_, out in ((None, controls), ("int8", controls8)):
+            w = fm.prepare_mssit_weights(model, quant_)
+            block = "fused_block_int8" if quant_ else "fused_block"
+            real, calls = getattr(fm, block), []
+
+            def drop5(xx, *a, real=real, calls=calls, **k):  # the sixth block launched: stage 2's
+                calls.append(1)
+                return xx if len(calls) == (2 if quant_ else 6) else real(xx, *a, **k)
+
+            with mock.patch.object(fm, block, drop5):
+                out["block 5 dropped"] = fm.fused_mssit_forward(model, x[:bs], w, quant=quant_)
+            real_plan = fm.stage_plan
+
+            def window_only(m):
+                plan = real_plan(m)
+                plan[0] = dict(plan[0], mixes=["window"] * len(plan[0]["mixes"]))
+                return plan
+
+            with mock.patch.object(fm, "stage_plan", window_only):
+                out["stage 0 axial fold as the window fold"] = fm.fused_mssit_forward(
+                    model, x[:bs], w, quant=quant_)
+            for k_ in out:
+                out[k_] = out[k_].float().cpu().numpy()
+    del x
+    preds, preds8 = runs["bf16"][0], runs["int8"][0]
+    err = float(np.abs(preds - eager).max())
+    ctl = {k: float(np.abs(v - eager[:bs]).max()) for k, v in controls.items()}
+
+    def rel(a, r):
+        return float(np.linalg.norm(a - r) / np.linalg.norm(r))
+
+    phase("mssit-slice", f"bf16 predictions |kernel - eager bf16| max {err:.6g} (tol "
+          f"{MSSIT_SLICE_TOL}); vs fp32 eager: kernel {np.abs(preds - ref32).max():.6g} (rel-L2 "
+          f"{rel(preds, ref32):.4g}), eager bf16 {np.abs(eager - ref32).max():.6g}; std across "
+          f"surfaces {ref32.std():.4g}, mean {ref32.mean():.4g}; controls (must exceed the tol): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in ctl.items()))
+    if err > MSSIT_SLICE_TOL:
+        raise AssertionError("the MS-SiT kernel path disagrees with the eager bf16 model")
+    if min(ctl.values()) <= MSSIT_SLICE_TOL:
+        raise AssertionError("an MS-SiT slice control passed the gate")
+    r8 = rel(preds8, ref32)
+    ctl8 = {k: rel(v, ref32[:bs]) for k, v in controls8.items()}
+    phase("mssit-slice", f"int8 predictions vs the fp32 eager model: rel-L2 {r8:.4g} (tol "
+          f"{MSSIT_INT8_REL}), max |gap| {np.abs(preds8 - ref32).max():.6g}; bf16 rel-L2 "
+          f"{rel(preds, ref32):.4g}; int8 vs bf16 max |gap| {np.abs(preds8 - preds).max():.6g}; "
+          "controls (rel-L2, must exceed the tol): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in ctl8.items()))
+    if not np.isfinite(preds8).all() or r8 > MSSIT_INT8_REL:
+        raise AssertionError("the MS-SiT int8 path disagrees with the fp32 model")
+    if min(ctl8.values()) <= MSSIT_INT8_REL:
+        raise AssertionError("an MS-SiT int8 control passed the gate")
+
+    w16, w8 = fm.prepare_mssit_weights(model), fm.prepare_mssit_weights(model, "int8")
+    with torch.inference_mode():
+        for B in (64, 128):
+            xb = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(np.float32)).to(
+                "cuda", torch.bfloat16)
+            res = {}
+            for label, w, q in (("bf16", w16, None), ("int8", w8, "int8")):
+                torch.cuda.reset_peak_memory_stats()
+                t = cuda_ms(lambda: fm.fused_mssit_forward(model, xb, w, quant=q), reps=5)
+                res[label] = (t, torch.cuda.max_memory_allocated() / 2**30)
+            if B == 64:
+                torch.cuda.reset_peak_memory_stats()
+                t = cuda_ms(lambda: torch.cat([model(xb[s:s + MSSIT_EAGER_B])
+                                               for s in range(0, B, MSSIT_EAGER_B)]), reps=3)
+                res[f"eager bf16 (plain attention, batches of {MSSIT_EAGER_B})"] = (
+                    t, torch.cuda.max_memory_allocated() / 2**30)
+            phase("mssit-slice", f"B={B} raw bf16 input on device: " + ", ".join(
+                f"{k} {t:.3f} ms = {B / t * 1e3:.1f} surfaces/s (peak {g:.2f} GiB allocated)"
+                for k, (t, g) in res.items())
+                + f"; int8/bf16 rate {res['bf16'][0] / res['int8'][0]:.3f} (CUDA-event medians "
+                "of 5, eager 3)")
+            del xb
+    del w16, w8
+    torch.cuda.empty_cache()
+    return {k: v[1] for k, v in runs.items()}
+
+
+def phase_mssit_entry(fb, fused, models) -> None:
+    """Phase 28: ``cli.test`` on ``configs/training/mssit_scan_age.yml`` (a
+    synthetic npy split of MSSIT_ENTRY_N raw surfaces, a params npz written
+    from the port's weights), in a subprocess, bf16 and ``--set
+    tpu.quant=int8``: results.csv equal to in-process ``predict`` bit for
+    bit; then ``--set tpu.compute_dtype=float32`` in process: the modular
+    model, no kernel launches, results.csv equal to float32 ``predict`` bit
+    for bit."""
+    from surface_vision_transformers_tpu_torch.checkpoints.convert import (
+        jax_params_from_mssit_state_dict,
+    )
+    from surface_vision_transformers_tpu_torch.train.runner import build_model, load_state_dict_any
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    exp, table, model, _, state = models
+    rng = np.random.default_rng(SEED + 5)
+    n, bs = MSSIT_ENTRY_N, exp.training.bs_val
+    sub = rng.standard_normal((n, 4, 40962)).astype(np.float32)
+    labels = rng.uniform(30, 45, n).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "validation_data.npy", sub)
+        np.save(tmp / "validation_labels.npy", labels)
+        tree = jax_params_from_mssit_state_dict(state, model)
+        np.savez(tmp / "best_params.npz", **flatten({"params": tree}))
+        raw = config.read_config_file(MSSIT_CFG)
+        raw["data"] = {"data_path": str(tmp), "split": "validation"}
+        raw["testing"] = {"path_to_ckpt": str(tmp / "best_params.npz")}
+        (tmp / "cfg.json").write_text(json.dumps(raw))
+
+        def csv_preds():
+            with open(tmp / "results.csv") as f:
+                rows = list(csv.DictReader(f))
+            targets = np.array([float(r["target"]) for r in rows], np.float32)
+            if len(rows) != n or not np.array_equal(targets, labels):
+                raise AssertionError(f"results.csv: {len(rows)} rows, targets out of order")
+            return np.array([float(r["pred"]) for r in rows], np.float32)
+
+        for label, extra, q in (("bf16", [], None), ("int8", ["--set", "tpu.quant=int8"], "int8")):
+            cmd = [sys.executable, "-m", "surface_vision_transformers_tpu_torch.cli.test",
+                   str(tmp / "cfg.json"), "--device", "cuda", *extra]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if res.returncode:
+                raise AssertionError(f"cli.test ({label}) failed ({res.returncode}):\n{res.stderr}")
+            reported = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+            got = csv_preds()
+            same = fused.predict(model, sub, device="cuda", batch_size=bs, quant=q).reshape(-1)
+            err = float(np.abs(got - same).max())
+            shifted = float(np.abs(got - np.roll(same, 1)).max())
+            mae = float(np.abs(got - labels).mean())
+            phase("mssit-entry", f"cli.test {MSSIT_CFG.relative_to(ROOT)} ({label}) in "
+                  f"{time.perf_counter() - t0:.1f} s: {reported}; |results.csv - predict(batch "
+                  f"{bs}{', int8' if q else ''})| max {err:.6g} (must be 0; control, rows shifted "
+                  f"by one: {shifted:.6g}); MAE of the csv {mae:.6f}")
+            if err != 0 or shifted == 0 or abs(reported["mae"] - mae) > 1e-6:
+                raise AssertionError(f"MS-SiT cli.test ({label}) disagrees with predict")
+
+        mod = importlib.import_module("surface_vision_transformers_tpu_torch.cli.test")
+        out = io.StringIO()
+        counters = zero_counts(fb)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main([str(tmp / "cfg.json"), "--set", "tpu.compute_dtype=float32",
+                      "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        launches = read_counts(counters)
+        reported = ast.literal_eval(out.getvalue().strip().splitlines()[-1])
+        got = csv_preds()
+        exp32 = config.from_dict(dict(raw, tpu={"compute_dtype": "float32"}))
+        model32 = build_model(exp32, table)
+        model32.load_state_dict(load_state_dict_any(str(tmp / "best_params.npz"), 0), strict=True)
+        same = fused.predict(model32.eval(), sub, device="cuda", batch_size=bs).reshape(-1)
+        err = float(np.abs(got - same).max())
+        shifted = float(np.abs(got - np.roll(same, 1)).max())
+        want = {k: 0 for k in counters}
+        phase("mssit-entry", f"cli.test --set tpu.compute_dtype=float32 --device cuda in "
+              f"{secs:.1f} s: {reported}; launches {launches}, expected {want}; |results.csv - "
+              f"float32 predict| max {err:.6g} (must be 0; control, rows shifted by one: "
+              f"{shifted:.6g})")
+        if launches != want or err != 0 or shifted == 0:
+            raise AssertionError("float32 MS-SiT cli.test disagrees with float32 predict")
+        del model32
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # -- 1. device
     start("device")
@@ -3569,6 +4201,31 @@ def main() -> None:
     # -- 25. block-gemms
     start("block-gemms")
     gemm_rows = phase_block_gemms(rng, fb)
+
+    # -- 26. mssit-kernels (a generator of their own: phases 26-27 draw the
+    # data their gates were set on, whatever the phases before them draw)
+    start("mssit-kernels")
+    ms_rng = np.random.default_rng(SEED)
+    mssit_rows = phase_mssit_kernels(ms_rng, fb)
+
+    # -- 27. mssit-slice (every count zeroed just before each run)
+    start("mssit-slice")
+    ms_models = mssit_models(ms_rng)
+    ms_launches = phase_mssit_slice(ms_rng, fb, fused, ms_models)
+    bf16_run, int8_run = ms_launches["bf16"], ms_launches["int8"]
+    # one dh-32 attention forward runs inside every fused_block launch
+    for row_name, n_ in (("flash_attention_fwd dh32", bf16_run["fused_block"]),
+                         ("fused_block dh32", bf16_run["fused_block"]),
+                         ("fused_block_int8 dh32", int8_run["fused_block_int8"]),
+                         ("patch_embed sub-ico 5", bf16_run["patch_embed"])):
+        mssit_rows[row_name]["launches"] = n_
+    kernels.update(mssit_rows)
+
+    # -- 28. mssit-entry
+    start("mssit-entry")
+    phase_mssit_entry(fb, fused, ms_models)
+    del ms_models
+    torch.cuda.empty_cache()
     phase("records", "the attention backward rows, this run's ms beside the two-pass "
           "mma.sync backward's recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at "
           "700 W; a record, not measured in this run): " + ", ".join(
@@ -3602,6 +4259,10 @@ def main() -> None:
               + ("" if INT8_RECORDS[k_][1] is None
                  else f"; torch._int_mm {INT8_RECORDS[k_][1]:.4f}")
               + f"; bound {INT8_RECORDS[k_][2]:.4f})" for k_, v_ in MMA_SYNC_INT8_MS.items()))
+    phase("records", "the MS-SiT path's kernels at dh 32 in this run (phase 26), ms / library "
+          "ms (SDPA, index_select + addmm, torch.mm) / bound ms: " + "; ".join(
+              f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
+              f"{'-' if t_[2] is None else f'{t_[2]:.4f}'}" for k_, t_ in MSSIT_RECORDS.items()))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

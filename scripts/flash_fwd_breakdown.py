@@ -44,7 +44,7 @@ def declare(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     S = [P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]
     D = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, I]
-    lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 5 + D + [I, P]
+    lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 6 + D + [I, P]
     lib.svt_flash_attention_fwd.restype = I
     return lib
 

@@ -5,7 +5,9 @@
 
 Builds ``surface_vision_transformers_tpu_torch/csrc/flash_attention.cu`` of
 OTHER_CHECKOUT alone into a temporary library (its C entry
-``svt_flash_attention_fwd`` must take this tree's arguments) beside this
+``svt_flash_attention_fwd`` must take this tree's arguments, the head dim
+after ``valid_len``: a checkout from before it took them cannot be
+compared) beside this
 tree's kernels, then times the forward at the shapes of ``chip_smoke.py``'s
 forward rows through this tree's wrappers on either library, with one timer
 (``chip_smoke.device_ms``: ten calls queued behind a holding kernel), in the
@@ -51,7 +53,7 @@ def declare(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     S = [P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]
     D = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, I]
-    lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 5 + D + [I, P]
+    lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 6 + D + [I, P]
     lib.svt_flash_attention_fwd.restype = I
     return lib
 

@@ -12,6 +12,26 @@ Linear weights (out, in), LayerNorm scale/bias become weight/bias.
 the JAX package's ``run_testing`` reads the port's ``best_params.npz`` and
 the port reads the JAX package's.
 
+MS-SiT: the reference ships no MS-SiT, so the port's ``models.mssit.MSSiT``
+state dict is the port's own layout. ``mssit_state_dict_from_jax`` maps the
+JAX ``MSSiT`` tree onto it and ``jax_params_from_mssit_state_dict`` back:
+
+JAX tree -> port state dict:
+
+- ``patch_embedding_kernel`` (C*V, dim), ``patch_embedding_bias`` ->
+  ``patch_embedding.weight`` (dim, C*V), ``patch_embedding.bias``;
+- ``pos_embedding`` (1, T0, dim) -> ``pos_embedding``;
+- ``stage_{s}_block_{i}_attn/{norm,to_qkv,to_out}`` ->
+  ``stages.{s}.blocks.{i}.0.norm``, ``.0.fn.to_qkv``, ``.0.fn.to_out``;
+- ``stage_{s}_block_{i}_mlp/{norm,fc1,fc2}`` ->
+  ``stages.{s}.blocks.{i}.1.norm``, ``.1.fn.net.0``, ``.1.fn.net.3``;
+- ``stage_{s}_merge/{norm,reduce}`` -> ``stages.{s}.merge.norm``,
+  ``.merge.reduce`` (no bias);
+- ``head_norm``, ``head`` -> ``head_norm``, ``head``.
+
+LayerNorm ``scale``/``bias`` become ``weight``/``bias``; flax Dense kernels
+(in, out) transpose to torch (out, in) weights.
+
 MPP: the JAX tree ``{"encoder": SiT tree, "mask_token", "to_original"}``
 maps onto the reference MPP state dict (``transformer.*`` for the encoder,
 ``mask_token``, ``to_original.{weight,bias}``), as the JAX package's
@@ -131,6 +151,85 @@ def jax_params_from_state_dict(
     if "mlp_head.1.weight" in state:
         out["head_norm"] = {"scale": c("mlp_head.0.weight"), "bias": c("mlp_head.0.bias")}
         out["head"] = {"kernel": t("mlp_head.1.weight"), "bias": c("mlp_head.1.bias")}
+    return out
+
+
+# (JAX leaf path, port key suffix, transpose) of one MS-SiT block's halves
+_MSSIT_BLOCK = (
+    ("attn/norm/scale", "0.norm.weight", False), ("attn/norm/bias", "0.norm.bias", False),
+    ("attn/to_qkv/kernel", "0.fn.to_qkv.weight", True),
+    ("attn/to_out/kernel", "0.fn.to_out.weight", True),
+    ("attn/to_out/bias", "0.fn.to_out.bias", False),
+    ("mlp/norm/scale", "1.norm.weight", False), ("mlp/norm/bias", "1.norm.bias", False),
+    ("mlp/fc1/kernel", "1.fn.net.0.weight", True), ("mlp/fc1/bias", "1.fn.net.0.bias", False),
+    ("mlp/fc2/kernel", "1.fn.net.3.weight", True), ("mlp/fc2/bias", "1.fn.net.3.bias", False),
+)
+_MSSIT_MERGE = (("norm/scale", "norm.weight", False), ("norm/bias", "norm.bias", False),
+                ("reduce/kernel", "reduce.weight", True))
+_MSSIT_TOP = (("patch_embedding_kernel", "patch_embedding.weight", True),
+              ("patch_embedding_bias", "patch_embedding.bias", False),
+              ("pos_embedding", "pos_embedding", False),
+              ("head_norm/scale", "head_norm.weight", False),
+              ("head_norm/bias", "head_norm.bias", False),
+              ("head/kernel", "head.weight", True), ("head/bias", "head.bias", False))
+
+
+def _mssit_pairs(depths) -> list[tuple[str, str, bool]]:
+    """(JAX leaf path, port key, transpose) of every MS-SiT parameter, for
+    stages of ``depths`` blocks."""
+    pairs = list(_MSSIT_TOP)
+    for s, depth in enumerate(depths):
+        for i in range(depth):
+            pairs += [(f"stage_{s}_block_{i}_{j}",
+                       f"stages.{s}.blocks.{i}.{k}", t) for j, k, t in _MSSIT_BLOCK]
+        if s < len(depths) - 1:
+            pairs += [(f"stage_{s}_merge/{j}", f"stages.{s}.merge.{k}", t)
+                      for j, k, t in _MSSIT_MERGE]
+    return pairs
+
+
+def is_mssit_tree(params: Mapping[str, Any]) -> bool:
+    """Whether a JAX param tree (optionally under ``params``) is an MS-SiT's."""
+    p = params.get("params", params)
+    return "stage_0_block_0_attn" in p
+
+
+def _mssit_depths(p: Mapping[str, Any]) -> list[int]:
+    """Blocks per stage of a JAX MS-SiT tree, read off its keys."""
+    depths = []
+    while f"stage_{len(depths)}_block_0_attn" in p:
+        s = len(depths)
+        depths.append(sum(1 for k in p if k.startswith(f"stage_{s}_block_")
+                          and k.endswith("_attn")))
+    return depths
+
+
+def mssit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A JAX ``MSSiT`` param tree (nested dict of arrays, optionally under
+    ``params``) -> the port's ``MSSiT`` state dict (the table above)."""
+    p = params["params"] if "params" in params else params
+    out = {}
+    for path, key, transpose in _mssit_pairs(_mssit_depths(p)):
+        node = p
+        for part in path.split("/"):
+            node = node[part]
+        a = np.asarray(node)
+        out[key] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+    return out
+
+
+def jax_params_from_mssit_state_dict(state: Mapping[str, torch.Tensor],
+                                     model) -> dict[str, Any]:
+    """Inverse of ``mssit_state_dict_from_jax``: the port's ``MSSiT`` state
+    dict (of ``model``'s depths) -> JAX tree of float32 numpy arrays."""
+    out: dict = {}
+    for path, key, transpose in _mssit_pairs(model.depths):
+        a = state[key].detach().cpu().float().numpy()
+        *parents, leaf = path.split("/")
+        node = out
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a.T) if transpose else a.copy()
     return out
 
 

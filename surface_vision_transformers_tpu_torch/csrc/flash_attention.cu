@@ -1,4 +1,5 @@
-// Hopper (sm_90a) streamed attention, head dim 64, forward and backward.
+// Hopper (sm_90a) streamed attention, forward (head dim 32 or 64) and
+// backward (head dim 64).
 //
 // Replaces the TPU kernel
 // surface_vision_transformers_tpu/ops/pallas/flash_attention.py::flash_attention
@@ -69,6 +70,24 @@
 // it (split-K semaphores rest on the same). Handing each CTA its key block
 // from an atomic ticket, start order by construction, made the main pass
 // slower at every shape tried (PERF.md).
+//
+// Head dim 32 (MS-SiT: 96 / 3 ... 768 / 24), forward only, without dropout:
+// the kernel is the dh-64 one with the head's columns narrower. Its tensor
+// maps declare dh = 32 columns and keep the 64-column box, so TMA zero-fills
+// columns 32-63 of every [rows][64] tile: the tiles, the 128-byte swizzle,
+// the descriptors, the ring and its byte counts stay those of dh 64. S = Q
+// K^T runs dh / 16 = 2 k16 steps; P V runs on the 64-column V tile, whose
+// zero half gives zero output columns that are never written. That spends
+// half of P V's tensor work and half the tiles' shared memory on zeros,
+// where the 64-byte swizzle (32-column tiles, a second descriptor layout
+// and an n32 wgmma) would not: chosen because at dh 32 each score costs
+// 128 tensor-core operations against one ex2 (at 4096 and 16 per SM and
+// clock) and an FMA chain, so the softmax, not the tensor cores, bounds the
+// kernel, and the padded products hide under it (PERF.md has its times at
+// MS-SiT's shapes). The softmax scale 1 / sqrt(32) = 2^-2.5 is not a float:
+// lse takes it rounded once to fp32 (as the plain version's fp32 multiply
+// does), the exponent the double product 2^-2.5 log2(e) rounded once
+// (FwdScale). The tiling rule is the same for both dh.
 //
 // Ragged edges, forward: rows past a tensor are zero-filled by TMA; keys in
 // [valid_len, nk) are real data and take -inf before the row max; the last
@@ -145,6 +164,21 @@ using namespace svt;
 constexpr float kScale = 0.125f;       // 1 / sqrt(64), exact
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kScaleLog2 = kScale * kLog2e;  // exp(s / 8 - x) = 2^(s * kScaleLog2 - x log2 e)
+
+// The forward's softmax scale 1 / sqrt(DH) (lse) and its product with
+// log2(e) (the exponent): exact at dh 64; at dh 32, 2^-2.5 rounded once to
+// fp32 and the double product 2^-2.5 log2(e) rounded once.
+template <int DH>
+struct FwdScale;
+template <>
+struct FwdScale<64> {
+  static constexpr float scale = kScale, slog2 = kScaleLog2;
+};
+template <>
+struct FwdScale<32> {
+  static constexpr float scale = 0.17677669529663688f;
+  static constexpr float slog2 = (float)(0.17677669529663688 * 1.4426950408889634);
+};
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
@@ -224,13 +258,13 @@ struct FwdSmem {
   uint64_t k_empty[FWD_STAGES], v_empty[FWD_STAGES];
 };
 
-// Tile scores s (raw Q.K of keys key0 + column) -> P = exp(s / 8 - m / 8)
+// Tile scores s (raw Q.K of keys key0 + column) -> P = exp((s - m) / sqrt(DH))
 // in place, with the running row max m and sum l (this thread's columns)
 // carried over and the old max's rescale factor a returned per row. With
 // MASK (the tile that holds valid_len), columns >= kvalid take P = 0. With
 // dropout, P is then zeroed where the keep bit is clear (l stays the
 // undropped sum). Maxima and sums run in four chains per row.
-template <int SA, bool DROP, bool MASK>
+template <int SA, bool DROP, bool MASK, int DH>
 __device__ __forceinline__ void softmax_tile(float (&s)[SA], float (&m)[2], float (&l)[2],
                                              float (&a)[2], int kvalid, int key0, int row,
                                              uint32_t bh, const Dropout& dr, int t) {
@@ -259,15 +293,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[SA], float (&m)[2], floa
   for (int r = 0; r < 2; ++r) {  // every tile holds a key < kend: the new max is finite
     const float mn =
         fmaxf(m[r], quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))));
-    a[r] = exp2_approx((m[r] - mn) * kScaleLog2);  // 0 at the first tile
+    a[r] = exp2_approx((m[r] - mn) * FwdScale<DH>::slog2);  // 0 at the first tile
     m[r] = mn;
-    ms[r] = mn * kScaleLog2;
+    ms[r] = mn * FwdScale<DH>::slog2;
   }
 #pragma unroll
   for (int j = 0; j < SA / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], kScaleLog2, -ms[e >> 1]));
+      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], FwdScale<DH>::slog2, -ms[e >> 1]));
       sum[e >> 1][j & 3] += s[4 * j + e];
     }
 #pragma unroll
@@ -304,7 +338,7 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[SA / 8][4], const float (&s
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-template <int NWG, int BK, bool DROP>
+template <int NWG, int BK, bool DROP, int DH>
 __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::ctas)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -371,7 +405,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
     mbar_wait(&sm.k_full[st], (j / FWD_STAGES) & 1);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < ATT_DH / 16; ++ks)
+    for (int ks = 0; ks < DH / 16; ++ks)  // the tiles' columns past DH are zero
       wgmma_ss<0, 0>(s, sw128_desc(sq + ks * 16), sw128_desc(sm.k[st] + ks * 16), ks);
     wg_commit();
   };
@@ -395,9 +429,9 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   release(&sm.k_empty[0]);
   auto softmax = [&](int j) {  // tile j's scores in s -> P
     if (kend - j * BK < BK)
-      softmax_tile<SA, DROP, true>(s, m, l, a, kend - j * BK, j * BK, row, bh, dr, t);
+      softmax_tile<SA, DROP, true, DH>(s, m, l, a, kend - j * BK, j * BK, row, bh, dr, t);
     else
-      softmax_tile<SA, DROP, false>(s, m, l, a, BK, j * BK, row, bh, dr, t);
+      softmax_tile<SA, DROP, false, DH>(s, m, l, a, BK, j * BK, row, bh, dr, t);
   };
   softmax(0);
   pack_p<SA>(p, s);
@@ -441,7 +475,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   wg_wait<0>();
   wg_hold(acc);
 
-  // O = acc / l (x 1 / (1 - rate)), lse = m / 8 + log l
+  // O = acc / l (x 1 / (1 - rate)), lse = m / sqrt(DH) + log l
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -450,22 +484,23 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   }
   if (lse != nullptr && t == 0) {
     float* lrow = lse + (long long)bh * nq;
-    if (row < nq) lrow[row] = m[0] * kScale + logf(l[0]);
-    if (row + 8 < nq) lrow[row + 8] = m[1] * kScale + logf(l[1]);
+    if (row < nq) lrow[row] = m[0] * FwdScale<DH>::scale + logf(l[0]);
+    if (row + 8 < nq) lrow[row + 8] = m[1] * FwdScale<DH>::scale + logf(l[1]);
   }
-  // O through this warpgroup's Q tile (its last reader, the last S, is
-  // done), then out in 16-byte row pieces
+  // O's DH columns through this warpgroup's Q tile (its last reader, the
+  // last S, is done), then out in 16-byte row pieces
   bf16* so = sm.q[w];
 #pragma unroll
-  for (int j = 0; j < ATT_DH / 8; ++j)
+  for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<uint32_t*>(so + sw128(16 * warp + g + 8 * r, 8 * j + 2 * t)) =
           pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
   bar_sync(FWD_WG_BAR + w, 128);
+  constexpr int PIECES = DH / 8;  // of a row
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 16 * i + (tid >> 3), c = (tid & 7) * 8;
+  for (int i = 0; i < 64 * PIECES / 128; ++i) {
+    const int r = (128 / PIECES) * i + tid / PIECES, c = (tid % PIECES) * 8;
     if (row0 + r < nq)
       *reinterpret_cast<uint4*>(o.row(b, h, row0 + r) + c) =
           *reinterpret_cast<const uint4*>(so + sw128(r, c));
@@ -889,12 +924,13 @@ __global__ void __launch_bounds__(256)
         row + 8 < qend ? pack_bf16(a.z, a.w) : 0u;
 }
 
-// A TMA map of the (B, heads, n, 64) operand t, boxes of `rows` x 64 in the
-// 128-byte swizzle; the two middle dimensions in increasing stride (heads
-// first for the packed (B, n, heads * 64) layouts).
+// A TMA map of the (B, heads, n, dh) operand t, boxes of `rows` x 64 in the
+// 128-byte swizzle (columns past dh zero-filled); the two middle dimensions
+// in increasing stride (heads first for the packed (B, n, heads * dh)
+// layouts).
 cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
-                       bool heads_first, int rows = 64) {
-  const cuuint64_t dims[4] = {ATT_DH, (cuuint64_t)(heads_first ? heads : n),
+                       bool heads_first, int rows = 64, int dh = ATT_DH) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)(heads_first ? heads : n),
                               (cuuint64_t)(heads_first ? n : heads), (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(heads_first ? t.sh : t.sr) * 2,
                                  (cuuint64_t)(heads_first ? t.sr : t.sh) * 2,
@@ -943,7 +979,7 @@ bool aligned16(const Strided& t) {
          t.sr % 8 == 0;
 }
 
-template <int NWG, int BK, bool DROP>
+template <int NWG, int BK, bool DROP, int DH>
 cudaError_t launch_fwd(cudaStream_t st, const Strided& q, const Strided& k, const Strided& v,
                        const Strided& o, float* lse, int B, int heads, int nq, int nk,
                        int valid_len, const Dropout& dr) {
@@ -953,18 +989,18 @@ cudaError_t launch_fwd(cudaStream_t st, const Strided& q, const Strided& k, cons
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_kernel<NWG, BK, DROP>,
+    e = cudaFuncSetAttribute(flash_fwd_kernel<NWG, BK, DROP, DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     if (dev < 16) ready[dev] = true;
   }
   const bool hf_q = q.sh < q.sr, hf_k = k.sh < k.sr, hf_v = v.sh < v.sr;
   CUtensorMap tm_q, tm_k, tm_v;
-  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, 64)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, BK)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, BK)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, 64, DH)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, BK, DH)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, BK, DH)) != cudaSuccess) return e;
   const dim3 grid(ceil_div(nq, 64 * NWG), heads, B);
-  flash_fwd_kernel<NWG, BK, DROP><<<grid, FwdCfg<NWG, BK>::threads, smem, st>>>(
+  flash_fwd_kernel<NWG, BK, DROP, DH><<<grid, FwdCfg<NWG, BK>::threads, smem, st>>>(
       tm_q, tm_k, tm_v, hf_q, hf_k, hf_v, o, lse, nq, nk, valid_len, dr);
   return cudaGetLastError();
 }
@@ -983,16 +1019,16 @@ int sm_count() {
 
 // The tiling by shape (flash_fwd): 64-key tiles and one consumer warpgroup
 // up to 512 keys; past them 128-key tiles and three warpgroups (wide) or
-// one.
-template <bool DROP>
+// one; the same for both head dims.
+template <bool DROP, int DH>
 cudaError_t launch_rule(bool long_keys, bool wide, cudaStream_t st, const Strided& q,
                         const Strided& k, const Strided& v, const Strided& o, float* lse, int B,
                         int heads, int nq, int nk, int valid_len, const Dropout& dr) {
   if (!long_keys)
-    return launch_fwd<1, 64, DROP>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
+    return launch_fwd<1, 64, DROP, DH>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
   if (wide)
-    return launch_fwd<3, 128, DROP>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
-  return launch_fwd<1, 128, DROP>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
+    return launch_fwd<3, 128, DROP, DH>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
+  return launch_fwd<1, 128, DROP, DH>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
 }
 
 }  // namespace
@@ -1000,8 +1036,10 @@ cudaError_t launch_rule(bool long_keys, bool wide, cudaStream_t st, const Stride
 namespace svt {
 
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
-                      int nq, int nk, int valid_len, cudaStream_t st, Dropout dr) {
+                      int nq, int nk, int valid_len, int dh, cudaStream_t st, Dropout dr) {
   if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1) return cudaErrorInvalidValue;
+  // dh 32 is built without dropout (MS-SiT serves with none)
+  if (dh != ATT_DH && (dh != 32 || dr.on)) return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return cudaErrorMisalignedAddress;
   // The tiling, from the tilings measured on an H100 (PERF.md): past 512
@@ -1012,10 +1050,13 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
   const bool long_keys = std::min(valid_len, nk) > 512;
   const bool wide = long_keys && nq > 64 &&
                     (long long)ceil_div(nq, 192) * heads * B >= 2ll * sm_count();
-  return dr.on ? launch_rule<true>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq, nk,
-                                   valid_len, dr)
-               : launch_rule<false>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq, nk,
-                                    valid_len, dr);
+  if (dh == 32)
+    return launch_rule<false, 32>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq, nk,
+                                  valid_len, dr);
+  return dr.on ? launch_rule<true, ATT_DH>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
+                                           nk, valid_len, dr)
+               : launch_rule<false, ATT_DH>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
+                                            nk, valid_len, dr);
 }
 
 long long flash_bwd_workspace(int B, int heads, int nq) {
@@ -1060,22 +1101,22 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) 
 
 extern "C" {
 
-// flash_attention forward: q (B, heads, nq, 64), k and v (B, heads, nk, 64),
-// o (B, heads, nq, 64), each bf16 at (batch, head, row) strides in elements
-// with its last dimension contiguous; lse (B, heads, nq) fp32 contiguous.
-// Dropout on the probabilities when `drop` (seed, threshold on the Philox
-// word, inv_keep = 1 / (1 - rate)).
+// flash_attention forward: q (B, heads, nq, dh), k and v (B, heads, nk,
+// dh), o (B, heads, nq, dh), each bf16 at (batch, head, row) strides in
+// elements with its last dimension contiguous; lse (B, heads, nq) fp32
+// contiguous; dh 32 or 64. Dropout on the probabilities when `drop` (seed,
+// threshold on the Philox word, inv_keep = 1 / (1 - rate); dh 64 only).
 int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
                             long long o_sb, long long o_sh, long long o_sr, void* lse, int B,
-                            int heads, int nq, int nk, int valid_len, unsigned seed,
+                            int heads, int nq, int nk, int valid_len, int dh, unsigned seed,
                             unsigned threshold, float inv_keep, int drop, int device,
                             void* stream) {
   SVT_TRY(cudaSetDevice(device));
   return (int)flash_fwd({(bf16*)q, q_sb, q_sh, q_sr}, {(bf16*)k, k_sb, k_sh, k_sr},
                         {(bf16*)v, v_sb, v_sh, v_sr}, {(bf16*)o, o_sb, o_sh, o_sr},
-                        (float*)lse, B, heads, nq, nk, valid_len,
+                        (float*)lse, B, heads, nq, nk, valid_len, dh,
                         static_cast<cudaStream_t>(stream),
                         make_dropout(seed, threshold, inv_keep, drop));
 }

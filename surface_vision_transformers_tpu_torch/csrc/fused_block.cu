@@ -13,10 +13,13 @@
 // The CLS variant runs LN1 and the K/V GEMM over every row and the rest on
 // the first `rows` (<= 8) rows of each sample only. Attention is the
 // streamed kernel of flash_attention.cu, at any N (SiT-tiny's 321, SiT-base
-// on sub-ico 3's 1,281). The training entries
-// (svt_fused_block[_cls]_train_fwd) run the same chain and also keep what
-// the backward (fused_block_bwd.cu) reads: LN statistics, the fp32 fc1
-// pre-activation and the attention row log-sum-exp.
+// on sub-ico 3's 1,281, MS-SiT's folded windows of 20 to 320) and head dim
+// 64 or, in svt_fused_block's serving chain, 32 (MS-SiT); the CLS block and
+// the training forward keep dh 64, the only width their backward takes.
+// The training entries (svt_fused_block[_cls]_train_fwd) run the same chain
+// and also keep what the backward (fused_block_bwd.cu) reads: LN
+// statistics, the fp32 fc1 pre-activation and the attention row
+// log-sum-exp.
 //
 // Bounds on this card: at SiT-tiny (dim 192, mlp 768, N 321) the four GEMMs
 // are ~70% of the FLOPs; every intermediate makes one round trip through HBM,
@@ -118,13 +121,13 @@ gemm::Epilogue out_res(bf16* C, int ldc, const float* bias, const bf16* R, int l
 }
 
 // Attention on the packed activations (B, rows, ld), head h at columns
-// h * 64: the streamed kernel of flash_attention.cu (K and V through shared
+// h * dh: the streamed kernel of flash_attention.cu (K and V through shared
 // memory in 64- or 128-key tiles by TMA, wgmma, online softmax, any N).
 cudaError_t launch_attention(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V,
-                             int ldkv, int n, bf16* O, int ldo, int B, int heads, int valid_len,
-                             float* lse, cudaStream_t st) {
-  return flash_fwd(packed(Q, nq, ldq), packed(K, n, ldkv), packed(V, n, ldkv), packed(O, nq, ldo),
-                   lse, B, heads, nq, n, valid_len, st);
+                             int ldkv, int n, bf16* O, int ldo, int B, int heads, int dh,
+                             int valid_len, float* lse, cudaStream_t st) {
+  return flash_fwd(packed(Q, nq, ldq, dh), packed(K, n, ldkv, dh), packed(V, n, ldkv, dh),
+                   packed(O, nq, ldo, dh), lse, B, heads, nq, n, valid_len, dh, st);
 }
 
 // What a training forward keeps for the backward (fused_block_bwd.cu). The
@@ -144,7 +147,9 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
               void* out, bf16* h, bf16* qkv, bf16* attn, bf16* x1, bf16* f, const Saves& s,
               int B, int N, int dim, int heads, int dim_head, int mlp, int valid_len, float eps,
               int device, void* stream) {
-  if (dim_head != ATT_DH) return (int)cudaErrorInvalidValue;
+  // dh 32 serves only: the backward (fused_block_bwd.cu) takes dh 64
+  if (dim_head != ATT_DH && (dim_head != 32 || s.stats1 != nullptr))
+    return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * dim_head;
@@ -154,7 +159,7 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
   SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, (const bf16*)w_qkv, 3 * hd,
                                     out_bf16(qkv, 3 * hd), st));
   SVT_TRY(launch_attention(qkv, 3 * hd, N, qkv + hd, qkv + 2 * hd, 3 * hd, N, attn, hd, B, heads,
-                           valid_len, s.lse, st));
+                           dim_head, valid_len, s.lse, st));
   SVT_TRY(launch_gemm<gemm::F_RES>(attn, M, hd, 0, 0, (const bf16*)w_out, dim,
                                    out_res(x1, dim, (const float*)b_out, xb, dim, M, 0), st));
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, M, dim, eps, s.stats2, st));
@@ -182,8 +187,8 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1, st));
   SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, wkv, 2 * hd, out_bf16(kv, 2 * hd), st));
   SVT_TRY(launch_gemm<gemm::F_NONE>(h, Mt, dim, rows, N, wq, hd, out_bf16(q, hd), st));
-  SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, valid_len,
-                           s.lse, st));
+  SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, ATT_DH,
+                           valid_len, s.lse, st));
   SVT_TRY(launch_gemm<gemm::F_RES>(attn, Mt, hd, 0, 0, (const bf16*)w_out, dim,
                                    out_res(x1, dim, (const float*)b_out, xb, dim, rows, N), st));
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, Mt, dim, eps, s.stats2, st));
@@ -201,7 +206,8 @@ extern "C" {
 
 const char* svt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// x (B, N, dim) -> out (B, N, dim). Weights in torch Linear layout (out, in),
+// x (B, N, dim) -> out (B, N, dim), dim_head 32 or 64. Weights in torch
+// Linear layout (out, in),
 // bf16: w_qkv (3hd, dim), w_out (dim, hd), w_fc1 (mlp, dim), w_fc2 (dim, mlp);
 // LN parameters and biases fp32. Scratch: h (B*N, dim), qkv (B*N, 3hd),
 // attn (B*N, hd), x1 (B*N, dim), f (B*N, mlp), all bf16.

@@ -288,7 +288,8 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
                          void* ws_sf, void* ws_part, void* ws_qkv, void* ws_attn, void* ws_x1,
                          int B, int N, int dim, int heads, int dim_head, int mlp, int parts,
                          int valid_len, float eps, int device, void* stream) {
-  if (dim_head != ATT_DH || parts != fc1_parts(mlp) || dim % 16 || mlp % 16)
+  if ((dim_head != ATT_DH && dim_head != 32) || parts != fc1_parts(mlp) || dim % 16 ||
+      mlp % 16)
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -309,9 +310,9 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
   e_qkv.cb = qkv;
   e_qkv.ldc = 3 * hd;
   SVT_TRY(int8_gemm<gemm::Q_BF16>(qa, sa, i8(q_qkv), f32(s_qkv), M, 3 * hd, dim, e_qkv, st));
-  SVT_TRY(flash_fwd(packed(qkv, N, 3 * hd), packed(qkv + hd, N, 3 * hd),
-                    packed(qkv + 2 * hd, N, 3 * hd), packed(attn, N, hd), nullptr, B, heads, N, N,
-                    valid_len, st));
+  SVT_TRY(flash_fwd(packed(qkv, N, 3 * hd, dim_head), packed(qkv + hd, N, 3 * hd, dim_head),
+                    packed(qkv + 2 * hd, N, 3 * hd, dim_head), packed(attn, N, hd, dim_head),
+                    nullptr, B, heads, N, N, valid_len, dim_head, st));
   SVT_TRY(launch_quant_rows(static_cast<const bf16*>(attn), qa, sa, M, hd, st));
   gemm::Epilogue e_out;
   e_out.bias = f32(b_out);

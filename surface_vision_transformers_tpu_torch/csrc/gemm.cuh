@@ -40,7 +40,11 @@
 // output leaves (sm.c). The rule is fixed, not searched: N = 192 covers a
 // whole dim-192 output in one wgmma (n <= 256, a multiple of 8), and every
 // SiT width is a multiple of 192 (dim 192, 384, 768; qkv 576 .. 2304; mlp
-// 768 .. 3072), so no N-tile is ragged on a model's path. At SiT-tiny K is
+// 768 .. 3072), so no SiT N-tile is ragged. MS-SiT's first stage is: at dim
+// 96 the qkv output is 288 columns (one and a half tiles), out-projection
+// and fc2 96 (half a tile), and qkv and fc1 read K = 96 (one and a half
+// k-steps); chip_smoke.py phase 26 holds these four against their plain
+// products. At SiT-tiny K is
 // 192 (three k-steps; int8: one and a half, the rest zero-filled by TMA):
 // a tile's products are short beside its epilogue, and
 // the persistent walk with the ring running ahead is what keeps the loads

@@ -1,5 +1,6 @@
 """A SiT's forward through the fused-block kernels, for serving and for
-training.
+training (an MS-SiT's serving forward is ``models.fused_mssit``, which
+builds on this module's weight layout and quant rule).
 
 Counterpart of ``surface_vision_transformers_tpu.models.fused``
 (``fused_forward``, ``predict``, ``fused_train_forward``,
@@ -44,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
+from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.ops.attention import kernel_route
 from surface_vision_transformers_tpu_torch.ops.fused_block import (
@@ -73,15 +75,16 @@ INT8_MIN_DIM = 384
 QUANTS = (None, "int8")
 
 
-def resolve_quant(quant: str, dim: int, notice: bool = True) -> str | None:
+def resolve_quant(quant: str, dim: int | None, notice: bool = True) -> str | None:
     """``tpu.quant`` with the crossover applied: "none" -> None (bf16);
-    "int8" -> "int8" from ``INT8_MIN_DIM`` on, else None and, with
-    ``notice``, one printed line saying so."""
+    "int8" -> "int8" from ``INT8_MIN_DIM`` on (or for any ``dim`` None:
+    a model that gates its own stages), else None and, with ``notice``, one
+    printed line saying so."""
     if quant == "none":
         return None
     if quant != "int8":
         raise ValueError(f"unknown quant mode {quant!r}")
-    if dim < INT8_MIN_DIM:
+    if dim is not None and dim < INT8_MIN_DIM:
         if notice:
             print(f"tpu.quant: int8 requested but dim {dim} < INT8_MIN_DIM "
                   f"{INT8_MIN_DIM}: serving bf16 instead", flush=True)
@@ -90,17 +93,21 @@ def resolve_quant(quant: str, dim: int, notice: bool = True) -> str | None:
 
 
 def serves_fused(model) -> bool:
-    """Whether ``model`` serves through ``fused_forward``: bfloat16 only,
-    as the JAX trainer's ``_use_fused_inference`` routes; any other dtype
-    serves through the model's own forward."""
+    """Whether ``model`` serves through the kernels (``fused_forward``, or
+    ``fused_mssit_forward`` for an MS-SiT): bfloat16 only, as the JAX
+    trainer's ``_use_fused_inference`` routes; any other dtype serves
+    through the model's own forward."""
     return model.dtype == torch.bfloat16
 
 
 def serving_quant(model, quant: str, notice: bool = True) -> str | None:
-    """``tpu.quant`` for serving ``model``: under the crossover rule
-    (``resolve_quant``) where it serves fused, else None (the model's own
-    forward takes no quant)."""
-    return resolve_quant(quant, model.dim, notice) if serves_fused(model) else None
+    """``tpu.quant`` for serving ``model`` where it serves fused, else None
+    (the model's own forward takes no quant): a SiT under the crossover rule
+    (``resolve_quant``); an MS-SiT as it is, since its stages gate
+    themselves by width (the JAX ``_resolve_quant``)."""
+    if not serves_fused(model):
+        return None
+    return resolve_quant(quant, None if isinstance(model, MSSiT) else model.dim, notice)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +143,7 @@ def block_parameters(model: SiT) -> list[tuple]:
     return out
 
 
-def _int8_block(blk, vec) -> tuple:
+def int8_block(blk) -> tuple:
     """The 15 ``fused_block_int8`` parameters of one block's 11, its four
     matrices quantized from their float32 values."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1, w_fc2, b_fc2) = blk
@@ -144,6 +151,46 @@ def _int8_block(blk, vec) -> tuple:
         w_qkv, w_out, w_fc1, w_fc2)
     return (vec(ln1_s), vec(ln1_b), q_qkv, s_qkv, q_out, s_out, vec(b_out), vec(ln2_s),
             vec(ln2_b), q_fc1, s_fc1, vec(b_fc1), q_fc2, s_fc2, vec(b_fc2))
+
+
+def embed_layout(model, lin) -> tuple:
+    """The embedding ``lin`` of ``model`` (a SiT or an MS-SiT) laid out for
+    serving: (raw_embed, embed_kernel, patched_embed) as ``FusedWeights``
+    holds them."""
+    dt = model.dtype
+    embed_kernel = kernel_route("auto", lin.weight, dt)
+    raw_embed = None
+    if model.patch_table is not None:
+        args = (lin.weight.detach().t(), lin.bias.detach(), model.patch_table.shape[1])
+        stats = dict(means=model.norm_means, stds=model.norm_stds, compute_dtype=dt)
+        if embed_kernel:
+            raw_embed = (model.patch_index, *embed_matrix(*args, **stats))
+        else:
+            flat = model.patch_index.reshape(-1).long()
+            raw_embed = (flat, *embed_weights(*args, **stats))
+    return raw_embed, embed_kernel, (mat(lin.weight, dt), lin.bias.detach().to(dt))
+
+
+def embed_tokens(x, raw_embed, embed_kernel, patched_embed, dt) -> torch.Tensor:
+    """Raw (B, C, G) or pre-patched (B, C, L, V) input -> (B, L, dim) in
+    ``dt`` through an ``embed_layout``: the ``patch_embed`` kernel, the
+    plain gather, or the linear embedding of the patched tokens."""
+    if x.dim() == 3:
+        if raw_embed is None:
+            raise ValueError("raw (B, C, G) input requires patch_table to be set")
+        return (patch_embed if embed_kernel else gather_embed)(x, *raw_embed)
+    return F.linear(rearrange_patched(x).to(dt), *patched_embed)
+
+
+def mat(w, dt) -> torch.Tensor:
+    """A matrix as the kernels take it: contiguous, in the compute dtype."""
+    return w.detach().to(dt).contiguous()
+
+
+def vec(v) -> torch.Tensor:
+    """A LayerNorm parameter or bias as the kernels take it: contiguous
+    float32."""
+    return v.detach().float().contiguous()
 
 
 @torch.no_grad()
@@ -155,40 +202,23 @@ def prepare_weights(model: SiT, quant: str | None = None) -> FusedWeights:
     if quant not in QUANTS:
         raise ValueError(f"unknown quant mode {quant!r}")
     dt = model.dtype
-    lin = model.to_patch_embedding[1]
-    embed_kernel = kernel_route("auto", lin.weight, dt)
-    raw_embed = None
-    if model.patch_table is not None:
-        args = (lin.weight.detach().t(), lin.bias.detach(), model.patch_table.shape[1])
-        stats = dict(means=model.norm_means, stds=model.norm_stds, compute_dtype=dt)
-        if embed_kernel:
-            raw_embed = (model.patch_index, *embed_matrix(*args, **stats))
-        else:
-            flat = model.patch_index.reshape(-1).long()
-            raw_embed = (flat, *embed_weights(*args, **stats))
-
-    def mat(w):
-        return w.detach().to(dt).contiguous()
-
-    def vec(v):
-        return v.detach().float().contiguous()
-
+    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.to_patch_embedding[1])
     params = block_parameters(model)
     cls_last = model.pool == "cls"
     blocks = []
     for i, blk in enumerate(params):
         if quant == "int8" and not (cls_last and i == len(params) - 1):
-            blocks.append(_int8_block(blk, vec))
+            blocks.append(int8_block(blk))
         else:
-            blocks.append(tuple(mat(p) if p.dim() == 2 else vec(p) for p in blk))
+            blocks.append(tuple(mat(p, dt) if p.dim() == 2 else vec(p) for p in blk))
     return FusedWeights(
         dtype=dt,
         raw_embed=raw_embed,
         embed_kernel=embed_kernel,
         quant=quant,
-        patched_embed=(mat(lin.weight), lin.bias.detach().to(dt)),
-        cls_token=mat(model.cls_token),
-        pos_embedding=mat(model.pos_embedding),
+        patched_embed=patched_embed,
+        cls_token=mat(model.cls_token, dt),
+        pos_embedding=mat(model.pos_embedding, dt),
         blocks=blocks,
         head_norm=(vec(model.mlp_head[0].weight), vec(model.mlp_head[0].bias)),
         head=(vec(model.mlp_head[1].weight), vec(model.mlp_head[1].bias)),
@@ -214,12 +244,7 @@ def fused_forward(
     w = weights if weights is not None else prepare_weights(model, quant)
     if w.quant != quant:
         raise ValueError(f"weights were prepared for quant={w.quant!r}, not {quant!r}")
-    if x.dim() == 3:
-        if w.raw_embed is None:
-            raise ValueError("raw (B, C, G) input requires patch_table to be set")
-        tokens = (patch_embed if w.embed_kernel else gather_embed)(x, *w.raw_embed)
-    else:
-        tokens = F.linear(rearrange_patched(x).to(w.dtype), *w.patched_embed)
+    tokens = embed_tokens(x, w.raw_embed, w.embed_kernel, w.patched_embed, w.dtype)
     B, n = tokens.shape[0], tokens.shape[1]
     h = torch.cat([w.cls_token.expand(B, -1, -1), tokens], dim=1)
     h = h + w.pos_embedding[:, : n + 1]
@@ -352,13 +377,14 @@ def _device(device) -> torch.device:
 
 
 @torch.inference_mode()
-def predict(model: SiT, data, *, device, batch_size: int = 256,
+def predict(model: SiT | MSSiT, data, *, device, batch_size: int = 256,
             quant: str | None = None) -> np.ndarray:
     """Batched serving on ``device``: (S, ...) numpy input -> (S,
     num_classes) numpy float32. Moves ``model`` to ``device`` and runs it
     over batches of ``batch_size``, the ragged last one padded with zeros. A
-    bfloat16 model serves through ``fused_forward`` (weights prepared once,
-    for ``quant``); any other dtype through the model's own forward, where
+    bfloat16 model serves through ``fused_forward`` (an MS-SiT through
+    ``models.fused_mssit.fused_mssit_forward``), weights prepared once for
+    ``quant``; any other dtype through the model's own forward, where
     ``quant`` has no effect: the JAX ``predict`` and trainer route by dtype
     the same way. Kernels run where ``device`` is CUDA; a CPU device runs
     the plain versions. Asking for CUDA where there is none raises."""
@@ -367,7 +393,15 @@ def predict(model: SiT, data, *, device, batch_size: int = 256,
     dev = _device(device)
     model.to(dev)
     fused = serves_fused(model)
-    w = prepare_weights(model, quant) if fused else None
+    forward, w = fused_forward, None
+    if fused and isinstance(model, MSSiT):
+        # fused_mssit builds on this module, so it is imported here
+        from surface_vision_transformers_tpu_torch.models import fused_mssit
+
+        forward, w = (fused_mssit.fused_mssit_forward,
+                      fused_mssit.prepare_mssit_weights(model, quant))
+    elif fused:
+        w = prepare_weights(model, quant)
     n = data.shape[0]
     outs = []
     for s in range(0, n, batch_size):
@@ -378,6 +412,6 @@ def predict(model: SiT, data, *, device, batch_size: int = 256,
                 [chunk, np.zeros((pad, *chunk.shape[1:]), np.float32)])
         x = torch.from_numpy(chunk).to(dev)
         with torch.no_grad():
-            out = fused_forward(model, x, w, quant=quant) if fused else model(x)
+            out = forward(model, x, w, quant=quant) if fused else model(x)
         outs.append(out.cpu().numpy()[: batch_size - pad])
     return np.concatenate(outs, axis=0)

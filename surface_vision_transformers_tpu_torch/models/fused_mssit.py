@@ -1,0 +1,155 @@
+"""An MS-SiT's serving forward through the block kernels.
+
+Counterpart of ``surface_vision_transformers_tpu.models.fused_mssit``
+(``fused_mssit_forward``). Everything in a pre-norm block but attention is
+token-local, and MS-SiT's attention is local to a token group, so a
+windowed block on (B, T, dim) is a plain block on the groups folded into
+the batch (``models.mssit.fold_tokens``): per stage, each block folds,
+runs ``fused_block`` (``fused_block_int8`` where ``quant="int8"`` and the
+stage is at least ``models.fused.INT8_MIN_DIM`` wide) and unfolds. The
+embedding is the SiT path's (``patch_embed`` for raw input on CUDA in
+bf16); the merges between stages (reshape, float32 LayerNorm, bias-free
+matmul) and the head (float32 LayerNorm, mean, Linear) stay plain torch, as
+the JAX package leaves them to XLA.
+
+At ``mssit_scan_age.yml`` (ico 6, sub-ico 5, dims 96 / 192 / 384 / 768,
+heads 3 / 6 / 12 / 24, window 64, ``global_max`` 512, axial cross-mixing)
+every block runs at head dim 32: a batch of 64 surfaces launches one
+``patch_embed`` and twelve ``fused_block`` (four, and eight
+``fused_block_int8``, under int8) on folds of (20,480, 64, 96), (4,096,
+320, 96), (5,120, 64, 192), (4,096, 80, 192), (1,280, 64, 384), (4,096, 20,
+384) and (64, 320, 768).
+
+Differences from the JAX path, by design: the folded groups are not padded
+to N % 8 (the kernels mask their ragged edges; the axial fold of stage 2
+runs at N = 20, not 24), and the weights are prepared once
+(``prepare_mssit_weights``), as ``models.fused.prepare_weights`` does for
+a SiT. Meshes and ``scan_blocks`` (a TPU compile-time knob) raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from surface_vision_transformers_tpu_torch.models import fused
+from surface_vision_transformers_tpu_torch.models.fused import (
+    QUANTS,
+    embed_layout,
+    embed_tokens,
+    int8_block,
+    mat,
+    vec,
+)
+from surface_vision_transformers_tpu_torch.models.mssit import (
+    MSSiT,
+    fold_tokens,
+    stage_plan,
+    unfold_tokens,
+)
+from surface_vision_transformers_tpu_torch.ops.fused_block import fused_block
+from surface_vision_transformers_tpu_torch.ops.fused_block_int8 import fused_block_int8
+
+
+@dataclasses.dataclass(frozen=True)
+class StageWeights:
+    """One stage's parameters laid out for the block kernels."""
+
+    quant: str | None  # "int8" where the stage's blocks run fused_block_int8
+    # per block: the 11 fused_block parameters, or the 15 fused_block_int8 ones
+    blocks: list
+    merge: tuple | None  # float32 LayerNorm (weight, bias), reduce weight; None last
+
+
+@dataclasses.dataclass(frozen=True)
+class MSSiTWeights:
+    """An MS-SiT's parameters laid out for ``fused_mssit_forward`` on one
+    device."""
+
+    dtype: torch.dtype
+    quant: str | None
+    raw_embed: tuple | None  # as models.fused.FusedWeights
+    embed_kernel: bool
+    patched_embed: tuple
+    pos_embedding: torch.Tensor
+    stages: list  # StageWeights per stage
+    head_norm: tuple  # float32 (weight, bias)
+    head: tuple  # float32 (weight, bias)
+
+
+def block_parameters(stage) -> list[tuple]:
+    """Per block of an MS-SiT stage, its 11 ``fused_block`` parameters in
+    order (the module's own tensors, torch layout)."""
+    return [(attn.norm.weight, attn.norm.bias, attn.fn.to_qkv.weight, attn.fn.to_out.weight,
+             attn.fn.to_out.bias, ff.norm.weight, ff.norm.bias, ff.fn.net[0].weight,
+             ff.fn.net[0].bias, ff.fn.net[3].weight, ff.fn.net[3].bias)
+            for attn, ff in stage.blocks]
+
+
+@torch.no_grad()
+def prepare_mssit_weights(model: MSSiT, quant: str | None = None) -> MSSiTWeights:
+    """Lay out ``model``'s parameters for ``fused_mssit_forward`` on the
+    device they are on: matrices in the compute dtype, LayerNorm parameters
+    and biases in float32; with ``quant="int8"`` the blocks of every stage at
+    least ``INT8_MIN_DIM`` wide as int8 codes and float32 scales (read when
+    the weights are prepared)."""
+    if quant not in QUANTS:
+        raise ValueError(f"unknown quant mode {quant!r}")
+    dt = model.dtype
+    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.patch_embedding)
+    stages = []
+    for st, stage in zip(stage_plan(model), model.stages):
+        q = quant if quant and st["dim"] >= fused.INT8_MIN_DIM else None
+        blocks = [int8_block(blk) if q else
+                  tuple(mat(p, dt) if p.dim() == 2 else vec(p) for p in blk)
+                  for blk in block_parameters(stage)]
+        mg = stage.merge
+        merge = (None if mg is None else
+                 (vec(mg.norm.weight), vec(mg.norm.bias), mat(mg.reduce.weight, dt)))
+        stages.append(StageWeights(quant=q, blocks=blocks, merge=merge))
+    return MSSiTWeights(
+        dtype=dt, quant=quant, raw_embed=raw_embed, embed_kernel=embed_kernel,
+        patched_embed=patched_embed, pos_embedding=mat(model.pos_embedding, dt),
+        stages=stages, head_norm=(vec(model.head_norm.weight), vec(model.head_norm.bias)),
+        head=(vec(model.head.weight), vec(model.head.bias)))
+
+
+def fused_mssit_forward(model: MSSiT, x: torch.Tensor, weights: MSSiTWeights | None = None,
+                        *, quant: str | None = None, mesh=None,
+                        scan_blocks: bool = False) -> torch.Tensor:
+    """Inference forward: raw (B, C, G), pre-patched (B, C, T0, V) or
+    flattened (B, T0, C*V) input -> (B, num_classes) float32. ``weights``
+    from ``prepare_mssit_weights`` with the same ``quant`` (prepared here
+    when omitted). On CUDA the embedding and every block is a kernel launch;
+    on the CPU they run their plain versions."""
+    if quant not in QUANTS:
+        raise ValueError(f"unknown quant mode {quant!r}")
+    if mesh is not None:
+        raise NotImplementedError("fused_mssit_forward under a mesh is not ported yet")
+    if scan_blocks:
+        raise NotImplementedError("scan_blocks is not ported")
+    w = weights if weights is not None else prepare_mssit_weights(model, quant)
+    if w.quant != quant:
+        raise ValueError(f"weights were prepared for quant={w.quant!r}, not {quant!r}")
+    if x.dim() == 3 and x.shape[-1] == model.patch_dim:  # flattened patch tokens
+        tokens = F.linear(x.to(w.dtype), *w.patched_embed)
+    else:
+        tokens = embed_tokens(x, w.raw_embed, w.embed_kernel, w.patched_embed, w.dtype)
+    h = tokens + w.pos_embedding
+    for st, sw in zip(stage_plan(model), w.stages):
+        B, T, dim = h.shape
+        kw = dict(heads=st["heads"], dim_head=dim // st["heads"])
+        block = fused_block_int8 if sw.quant else fused_block
+        for mix, blk in zip(st["mixes"], sw.blocks):
+            folded = fold_tokens(h, st["window"], mix)
+            out = block(folded, *blk, **kw)
+            h = out if folded is h else unfold_tokens(out, B, T, st["window"], mix)
+        if sw.merge is not None:
+            ln_w, ln_b, reduce = sw.merge
+            y = F.layer_norm(h.reshape(B, T // 4, 4 * dim).float(), (4 * dim,), ln_w, ln_b,
+                             eps=1e-5)
+            h = F.linear(y.to(w.dtype), reduce)
+    pooled = F.layer_norm(h.float(), (h.shape[-1],), *w.head_norm, eps=1e-5).mean(dim=1)
+    return F.linear(pooled, *w.head)

@@ -96,6 +96,20 @@ def _layer_norm(x, ln: nn.LayerNorm):
                         ln.bias.float(), ln.eps)
 
 
+def embed_raw(model, lin: nn.Linear, x, backend: str):
+    """Raw (B, C, G) vertex input -> (B, L, dim) embedded patches in
+    ``model.dtype`` through the linear embedding ``lin`` ((dim, V*C)): the
+    ``patch_embed`` kernel where ``backend`` routes to the kernels, else the
+    plain gather and contraction. ``model`` holds ``patch_table``,
+    ``patch_index``, ``norm_means``, ``norm_stds`` and ``dtype``."""
+    if model.patch_table is None:
+        raise ValueError("raw (B, C, G) input requires patch_table to be set")
+    stats = dict(means=model.norm_means, stds=model.norm_stds, compute_dtype=model.dtype)
+    if kernel_route(backend, x, model.dtype):
+        return patch_embed_train(x, model.patch_index, lin.weight.t(), lin.bias, **stats)
+    return fused_patch_embed(x, model.patch_table, lin.weight.t(), lin.bias, **stats)
+
+
 class _PatchFlatten(nn.Module):
     def forward(self, x):
         return rearrange_patched(x)
@@ -222,22 +236,10 @@ class SiT(nn.Module):
         ``attn_backend``) routes to the kernels."""
         lin = self.to_patch_embedding[1]
         if x.dim() == 3:
-            if self.patch_table is None:
-                raise ValueError("raw (B, C, G) input requires patch_table to be set")
-            if kernel_route(backend or self.attn_backend, x, self.dtype):
-                return patch_embed_train(x, self.patch_index, lin.weight.t(), lin.bias,
-                                         means=self.norm_means, stds=self.norm_stds,
-                                         compute_dtype=self.dtype)
-            tokens = fused_patch_embed(
-                x, self.patch_table, lin.weight.t(), lin.bias,
-                means=self.norm_means, stds=self.norm_stds,
-                compute_dtype=self.dtype)
-        elif x.dim() == 4:
-            tokens = _linear(rearrange_patched(x).to(self.dtype), lin)
-        else:
-            raise ValueError(
-                f"expected 3D raw or 4D pre-patched input, got {tuple(x.shape)}")
-        return tokens
+            return embed_raw(self, lin, x, backend or self.attn_backend)
+        if x.dim() == 4:
+            return _linear(rearrange_patched(x).to(self.dtype), lin)
+        raise ValueError(f"expected 3D raw or 4D pre-patched input, got {tuple(x.shape)}")
 
     def embed_tokens(self, tokens, *, rng: DropoutRNG | None = None):
         """(B, L, dim) embedded patches -> (B, L+1, dim) with CLS, pos and
@@ -267,7 +269,8 @@ class SiT(nn.Module):
         """Build from a ``utils.config.Experiment`` (or a ModelConfig)."""
         m = getattr(cfg, "model", cfg)
         if m.model != "SiT":
-            raise NotImplementedError(f"{m.model} is not ported yet")
+            raise ValueError(f"SiT.from_config on a {m.model} config (MS-SiT: "
+                             "models.mssit.MSSiT.from_config)")
         kw = dict(dim=m.dim, depth=m.depth, heads=m.heads, mlp_dim=m.mlp_dim,
                   pool=m.pool, num_patches=m.num_patches,
                   num_classes=m.num_classes, num_channels=m.num_channels,

@@ -117,7 +117,7 @@ def library() -> ctypes.CDLL:
     lib.svt_block_weight_grad_workspace.restype = ctypes.c_longlong
     S = [P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]  # strided operand
     D = [ctypes.c_uint, ctypes.c_uint, F, I]  # dropout: seed, threshold, 1/(1-rate), on
-    lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 5 + D + [I, P]
+    lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 6 + D + [I, P]
     lib.svt_flash_attention_fwd.restype = I
     lib.svt_flash_attention_bwd.argtypes = S * 5 + [P, P, P] + S * 3 + [I] * 5 + D + [I, P]
     lib.svt_flash_attention_bwd.restype = I

@@ -13,7 +13,10 @@ after it; the backward forms P from the kept LSE.
 
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/flash_attention.cu``) streams K
 and V through shared memory in tiles with an online softmax, so it takes any
-sequence length; dh = 64, bfloat16. The backward streams the queries past
+sequence length, bfloat16. The forward takes dh 64 and, without dropout,
+dh 32 (MS-SiT's heads); the backward dh 64, and at dh 32 raises
+``NotImplementedError`` (MS-SiT training is a later part of the port). The
+plain versions take any dh. The backward streams the queries past
 each 64-key block once (wgmma) and sums dq in a fixed order in an fp32
 workspace the wrapper allocates, so its outputs repeat bit for bit. It reads
 its operands through (batch, head, row) strides, so views of packed
@@ -43,7 +46,8 @@ import torch
 
 from surface_vision_transformers_tpu_torch.ops import _native
 
-_DH = 64
+FWD_DIM_HEADS = (32, 64)  # the forward kernel's head dims (32 without dropout)
+BWD_DIM_HEAD = 64  # the backward kernel's
 
 
 def _masked_scores(q, k, valid_len):
@@ -189,14 +193,30 @@ def _heads_last_empty(like, n):
     return like.new_empty((B, n, H, dh)).transpose(1, 2)
 
 
-def _check_cuda(q, k, v, valid_len, *extra):
+def check_dim_head(dh: int, *, backward: bool = False, dropout: bool = False) -> None:
+    """Raise ``NotImplementedError`` on a head dim the kernels are not built
+    for: the forward takes 32 and 64 (32 without dropout), the backward 64."""
+    if backward and dh == 32:
+        raise NotImplementedError(
+            "the attention backward at dim_head 32 is not ported yet: it comes with "
+            "MS-SiT training, the next part of the port")
+    if backward or dropout:
+        if dh != BWD_DIM_HEAD:
+            raise NotImplementedError(
+                f"the attention {'backward' if backward else 'dropout forward'} kernel is "
+                f"built for dim_head {BWD_DIM_HEAD}, got {dh}")
+    elif dh not in FWD_DIM_HEADS:
+        raise NotImplementedError(
+            f"the attention forward kernel is built for dim_head {FWD_DIM_HEADS}, got {dh}")
+
+
+def _check_cuda(q, k, v, valid_len, *extra, backward=False, dropout=False):
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.dtype != torch.bfloat16 or t.dim() != 4 or t.device != q.device:
             raise ValueError(f"{name} must be a bfloat16 (B, H, N, dh) tensor on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     B, H, _, dh = q.shape
-    if dh != _DH:
-        raise NotImplementedError(f"the attention kernel is built for dh {_DH}, got {dh}")
+    check_dim_head(dh, backward=backward, dropout=dropout)
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != dh:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
@@ -223,14 +243,14 @@ def _fwd(q, k, v, vl, rate=0.0, seed=0):
     if _dispatch(q) == "cpu":
         keep = None if not rate else dropout_keep_mask(seed, *q.shape[:3], k.shape[2], rate)
         return flash_attention_reference(q, k, v, vl, keep, rate)
-    _check_cuda(q, k, v, vl)
+    _check_cuda(q, k, v, vl, dropout=bool(rate))
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    B, H, nq, _ = q.shape
+    B, H, nq, dh = q.shape
     o = _heads_last_empty(q, nq)
     lse = torch.empty((B, H, nq), dtype=torch.float32, device=q.device)
     _native.check(_native.library().svt_flash_attention_fwd(
         *_operand(q), *_operand(k), *_operand(v), *_operand(o), lse.data_ptr(),
-        B, H, nq, k.shape[2], vl, *_drop_args(rate, seed), q.device.index,
+        B, H, nq, k.shape[2], vl, dh, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
     return o, lse
 
@@ -246,7 +266,7 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         for dst, g in zip(out, grads):
             dst.copy_(g)
         return out
-    _check_cuda(q, k, v, vl, ("o", o), ("do", do))
+    _check_cuda(q, k, v, vl, ("o", o), ("do", do), backward=True)
     B, H, nq, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("o and do must have q's shape")

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.ops import _native
 from surface_vision_transformers_tpu_torch.ops.flash_attention import (
+    FWD_DIM_HEADS,
     flash_attention,
     flash_attention_bwd_reference,
     flash_attention_reference,
@@ -155,8 +156,38 @@ def fused_block_cls_reference(
 # -- kernel wrappers -------------------------------------------------------------
 
 
-def _check_cuda_args(x, params, heads, dim_head, valid_len):
-    """Validate everything the kernels assume; raise on anything else."""
+def check_dim_head(dim_head: int, serving: bool) -> None:
+    """Raise ``NotImplementedError`` on a head dim the chain is not built
+    for: the serving ``fused_block`` takes 32 (MS-SiT) and 64; the CLS block
+    and the training chains 64, the one width their backward takes."""
+    if serving and dim_head in FWD_DIM_HEADS:
+        return
+    if dim_head == 32:
+        raise NotImplementedError(
+            "dim_head 32 runs in the serving fused_block only: the CLS block and "
+            "training at dim_head 32 are not ported yet (MS-SiT training, the next "
+            "part of the port)")
+    if dim_head != 64:
+        raise NotImplementedError(
+            f"the block kernels are built for dim_head 32 or 64, got {dim_head}")
+
+
+def check_vectors(vectors: dict) -> None:
+    """Raise unless each float32 vector (name: (tensor, length)) has its
+    length, is contiguous and starts on 16 bytes: the GEMM engine stages
+    biases as float4 (``csrc/gemm.cuh``)."""
+    for name, (v, n) in vectors.items():
+        if tuple(v.shape) != (n,) or v.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 ({n},), got "
+                             f"{v.dtype} {tuple(v.shape)}")
+        if not v.is_contiguous() or v.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start on 16 bytes "
+                             "(the engine loads it as float4)")
+
+
+def _check_cuda_args(x, params, heads, dim_head, valid_len, serving=False):
+    """Validate everything the kernels assume; raise on anything else.
+    ``serving``: the serving ``fused_block``, which also takes dim_head 32."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b,
      w_fc1, b_fc1, w_fc2, b_fc2) = params
     if x.dtype != torch.bfloat16:
@@ -166,9 +197,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
     B, N, dim = x.shape
     hd = heads * dim_head
     mlp = w_fc1.shape[0]
-    if dim_head != 64:
-        raise NotImplementedError(
-            f"the attention kernel is built for dim_head 64, got {dim_head}")
+    check_dim_head(dim_head, serving)
     if dim % 8 or mlp % 8:
         raise NotImplementedError("dim and mlp_dim must be multiples of 8")
     if not 1 <= valid_len <= N:
@@ -182,14 +211,10 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
             raise ValueError(
                 f"{name} must be bfloat16 {shape} (torch Linear layout), got "
                 f"{w.dtype} {tuple(w.shape)}")
-    vectors = {"ln1_scale": (ln1_s, dim), "ln1_bias": (ln1_b, dim),
-               "b_out": (b_out, dim), "ln2_scale": (ln2_s, dim),
-               "ln2_bias": (ln2_b, dim), "b_fc1": (b_fc1, mlp),
-               "b_fc2": (b_fc2, dim)}
-    for name, (v, n) in vectors.items():
-        if tuple(v.shape) != (n,) or v.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 ({n},), got "
-                             f"{v.dtype} {tuple(v.shape)}")
+    check_vectors({"ln1_scale": (ln1_s, dim), "ln1_bias": (ln1_b, dim),
+                   "b_out": (b_out, dim), "ln2_scale": (ln2_s, dim),
+                   "ln2_bias": (ln2_b, dim), "b_fc1": (b_fc1, mlp),
+                   "b_fc2": (b_fc2, dim)})
     for t in params:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("every parameter must be contiguous and on "
@@ -234,7 +259,7 @@ def fused_block(
         return fused_block_reference(x, *params, heads=heads,
                                      dim_head=dim_head, valid_len=vl,
                                      ln_eps=ln_eps)
-    _check_cuda_args(x, params, heads, dim_head, vl)
+    _check_cuda_args(x, params, heads, dim_head, vl, serving=True)
     lib = _native.library()
     B, N, dim = x.shape
     hd, mlp, M = heads * dim_head, w_fc1.shape[0], B * N
@@ -635,6 +660,12 @@ def block_gemm(a, w, bias=None, residual=None, *, gelu=False):
     (M, K), N = a.shape, w.shape[0]
     if w.shape[1] != K or (residual is not None and tuple(residual.shape) != (M, N)):
         raise ValueError("a (M, K), w (N, K) and the residual (M, N) must agree")
+    if bias is not None:
+        if bias.device != a.device:
+            raise ValueError(f"bias must be on {a.device}")
+        check_vectors({"bias": (bias, N)})
+    elif gelu or residual is not None:
+        raise ValueError("the GELU and residual epilogues add a bias")
     c = a.new_empty((M, N))
     pre = torch.empty((M, N), dtype=torch.float32, device=a.device) if gelu else None
     epi = 1 if gelu else 2 if residual is not None else 0

@@ -47,6 +47,7 @@ from surface_vision_transformers_tpu_torch.ops.fused_block import (
     _attention,
     _dispatch,
     _layer_norm,
+    check_dim_head,
 )
 from surface_vision_transformers_tpu_torch.ops import quant
 from surface_vision_transformers_tpu_torch.ops.quant import int8_mm_reference, int8_product
@@ -85,9 +86,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
         raise ValueError("x must be a contiguous (B, N, dim) tensor on 16 bytes")
     B, N, dim = x.shape
     hd, mlp = heads * dim_head, q_fc1.shape[0]
-    if dim_head != 64:
-        raise NotImplementedError(
-            f"the attention kernel is built for dim_head 64, got {dim_head}")
+    check_dim_head(dim_head, serving=True)
     if dim % INT8_ROW_ALIGN or mlp % INT8_ROW_ALIGN:
         raise NotImplementedError(
             f"dim and mlp_dim must be multiples of {INT8_ROW_ALIGN} (int8 rows on 16 bytes, "

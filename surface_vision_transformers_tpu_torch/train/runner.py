@@ -18,11 +18,13 @@ under ``training.testing``, the test metric (regression also
 ``test_preds.csv``) from the best weights when ``training.save_ckpt`` keeps
 them, else from the final ones, as the JAX package tests. Not ported (they
 raise): resume and full-state checkpoints (``training.ckpt_every``),
-ImageNet initialisation, streaming input, meshes, augmentation.
+ImageNet initialisation, streaming input, meshes, augmentation, and any
+MS-SiT config (MS-SiT training and MPP are not ported yet).
 
 ``run_testing``: load a split and a checkpoint; regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
-crossover rule, ``serving_quant``; float32: the modular model), reports the
+crossover rule, ``serving_quant``; float32: the modular model; an MS-SiT
+config the same way, its stages gating int8 by width), reports the
 MAE and writes ``results.csv`` of (pred, target) rows in split order; MPP
 reports the loss under the evaluation's fixed corruption and writes
 nothing.
@@ -42,6 +44,8 @@ import torch
 from surface_vision_transformers_tpu_torch.checkpoints.convert import (
     encoder_state,
     is_mpp_state,
+    is_mssit_tree,
+    mssit_state_dict_from_jax,
     jax_params_from_mpp_state_dict,
     jax_params_from_state_dict,
     load_params_npz,
@@ -55,6 +59,7 @@ from surface_vision_transformers_tpu_torch.data import npy as npy_io
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table
 from surface_vision_transformers_tpu_torch.models.fused import _device, predict, serving_quant
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
+from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.obs.logging import (
     MetricLogger,
@@ -68,9 +73,10 @@ from surface_vision_transformers_tpu_torch.utils.config import (
 
 
 def load_state_dict_any(path: str, depth: int) -> dict:
-    """Reference-layout state dict (SiT, or MPP when the file holds one)
-    from a JAX params ``.npz`` or a reference ``.pt``/``.pth`` file. Orbax
-    checkpoint directories need JAX to read and are refused."""
+    """Reference-layout state dict (SiT, or MPP when the file holds one; the
+    port's MS-SiT layout for an MS-SiT tree) from a JAX params ``.npz`` or a
+    ``.pt``/``.pth`` file. Orbax checkpoint directories need JAX to read and
+    are refused."""
     p = Path(path)
     if p.is_dir():
         raise ValueError(
@@ -82,13 +88,20 @@ def load_state_dict_any(path: str, depth: int) -> dict:
         tree = tree.get("params", tree)
         if "mask_token" in tree:
             return mpp_state_dict_from_jax(tree, depth)
+        if is_mssit_tree(tree):
+            return mssit_state_dict_from_jax(tree)
         return state_dict_from_jax(tree, depth)
     return load_torch_state_dict(p)
 
 
-def build_model(exp: Experiment, table=None) -> SiT | MPP:
-    """The config's model with float32 parameters: a SiT, wrapped in an MPP
-    for an MPP config."""
+def build_model(exp: Experiment, table=None) -> SiT | MSSiT | MPP:
+    """The config's model with float32 parameters: a SiT (an MSSiT under
+    ``transformer.model: MS-SiT``), wrapped in an MPP for an MPP config."""
+    if exp.model.model == "MS-SiT":
+        if exp.is_pretraining:
+            raise NotImplementedError("MS-SiT MPP (masked-window pretraining) is not "
+                                      "ported yet")
+        return MSSiT.from_config(exp, patch_table=table)
     model = SiT.from_config(exp, patch_table=table)
     if exp.is_pretraining:
         m = exp.mpp
@@ -177,6 +190,7 @@ def load_datasets(exp: Experiment, splits=None) -> dict:
 def _refuse_unported(exp: Experiment) -> None:
     tp = exp.raw.get("tpu", {})
     checks = [
+        (exp.model.model == "MS-SiT", "MS-SiT training"),
         (exp.augment, "augmentation"),
         (exp.data.streaming == "on", "streaming input (data.streaming: on)"),
         (exp.training.ckpt_every > 0, "rolling full-state checkpoints (training.ckpt_every)"),

@@ -2,7 +2,10 @@
 ``surface_vision_transformers_tpu.train.trainer.Trainer`` without meshes).
 
 The model holds float32 master parameters on the training device: a ``SiT``
-for regression, an ``MPP`` around one for pretraining. Every step runs a
+for regression, an ``MPP`` around one for pretraining. An ``MSSiT`` is
+served (``evaluate``: bfloat16 through ``fused_mssit_forward``, ``tpu.quant``
+handed on as it is, since its stages gate themselves by width) but not
+trained: MS-SiT training is not ported yet, and a step raises. Every step runs a
 forward, a weighted loss, and the optimizer from ``train.optim``. The route
 (``Trainer.uses_fused_train``, the JAX ``_use_fused_train`` without its mesh
 terms): bfloat16 compute, no dropout and ``tpu.fused_train`` take the
@@ -52,7 +55,12 @@ from surface_vision_transformers_tpu_torch.models.fused import (
     serves_fused,
     serving_quant,
 )
+from surface_vision_transformers_tpu_torch.models.fused_mssit import (
+    fused_mssit_forward,
+    prepare_mssit_weights,
+)
 from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
+from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
 from surface_vision_transformers_tpu_torch.train.losses import get_loss_fn
 from surface_vision_transformers_tpu_torch.train.optim import Optimizer
@@ -104,9 +112,10 @@ def evaluate_mpp(model: MPP, tokens: torch.Tensor, bs: int) -> float:
 
 class Trainer:
     """Trains ``model`` (float32 parameters, already on its device): a
-    ``SiT`` on regression targets, or an ``MPP`` under an MPP config."""
+    ``SiT`` on regression targets, or an ``MPP`` under an MPP config; serves
+    an ``MSSiT``."""
 
-    def __init__(self, exp: Experiment, model: SiT | MPP):
+    def __init__(self, exp: Experiment, model: SiT | MSSiT | MPP):
         if exp.augment:
             raise NotImplementedError("augmentation is not ported yet")
         self.task = "mpp" if exp.is_pretraining else "regression"
@@ -182,6 +191,8 @@ class Trainer:
         """One optimizer step on a batch (microbatched under grad_accum);
         ``targets`` None under MPP. -> (loss, weighted |err| sum), device
         scalars."""
+        if isinstance(self.encoder, MSSiT):
+            raise NotImplementedError("MS-SiT training is not ported yet")
         self.optimizer.zero_grad()
         accum = self.exp.training.grad_accum
         if accum <= 1 or batch.shape[0] % accum:
@@ -233,8 +244,8 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, data: torch.Tensor, targets: torch.Tensor | None = None):
         """The whole split at ``training.bs_val`` (0 -> ``bs``). Regression:
-        ``fused_forward`` (bfloat16, ``serving_quant``) or the modular
-        model -> (EpochMetrics
+        ``fused_forward`` (``fused_mssit_forward`` for an MS-SiT; bfloat16,
+        ``serving_quant``) or the modular model -> (EpochMetrics
         with the MSE as loss, predictions in row order as numpy). MPP: the
         modular MPP on each batch's fixed corruption -> (EpochMetrics with
         the loss as both metrics, None)."""
@@ -247,12 +258,15 @@ class Trainer:
         bs = min(bs_val, n)
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
         quant = self.serving_quant(model)
-        weights = prepare_weights(model, quant) if serves_fused(model) else None
+        mssit = isinstance(model, MSSiT)
+        forward, weights = fused_mssit_forward if mssit else fused_forward, None
+        if serves_fused(model):
+            weights = (prepare_mssit_weights if mssit else prepare_weights)(model, quant)
         preds, sq_sum, err_sum = [], 0.0, 0.0
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)
             xb = data[s:s + bs]
-            p = (fused_forward(model, xb, weights, quant=quant) if weights is not None
+            p = (forward(model, xb, weights, quant=quant) if weights is not None
                  else model(xb))
             p = p.reshape(p.shape[0], -1).squeeze(-1)
             d = p - targets[s:s + bs].reshape(p.shape)

@@ -3,7 +3,8 @@ package's YAML schema (``surface_vision_transformers_tpu.utils.config``), so
 its config files load unmodified.
 
 Only the keys the port reads are parsed, with the JAX package's validation:
-``resolution``, ``transformer`` (architecture, dropout), ``data`` (location,
+``resolution``, ``transformer`` (architecture, dropout), ``mssit`` (the
+MS-SiT hierarchy, read when ``transformer.model: MS-SiT``), ``data`` (location,
 split, streaming), ``training`` (batch sizes, epochs, validation cadence,
 loss, EMA, gradient accumulation, checkpoints, initialisation, seed),
 ``optimisation`` / ``SGD`` / ``Adam`` / ``AdamW`` / ``StepLR`` /
@@ -54,6 +55,27 @@ class ModelConfig:
     @property
     def size_name(self) -> str:
         return {192: "tiny", 384: "small", 768: "base"}.get(self.dim, f"d{self.dim}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MSSiTConfig:
+    """MS-SiT hierarchy (``mssit:`` block; read when ``transformer.model:
+    MS-SiT``). ``resolution.sub_ico`` is the finest patch level of this
+    family (ico 6 / sub_ico 5: 20,480 tokens)."""
+
+    embed_dim: int = 96
+    depths: tuple = (2, 2, 6, 2)
+    heads: tuple = (3, 6, 12, 24)
+    window: int = 64  # tokens per attention window (a power of 4)
+    global_max: int = 512  # stages at or below this many tokens attend globally
+    cross_mix: str = "axial"  # 'axial' | 'parent' | 'none'
+    mlp_ratio: float = 4.0
+
+    def __post_init__(self):
+        if len(self.depths) != len(self.heads):
+            raise ValueError("mssit.depths and mssit.heads lengths differ")
+        if self.cross_mix not in ("axial", "parent", "none"):
+            raise ValueError(f"unknown mssit.cross_mix {self.cross_mix!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +186,7 @@ class Experiment:
     training: TrainingConfig
     data: DataConfig
     optim: OptimConfig = OptimConfig()
+    mssit: MSSiTConfig = MSSiTConfig()
     compute_dtype: str = "bfloat16"
     quant: str = "none"
     mpp: MPPConfig | None = None  # an MPP (``pretraining_mpp`` or ``SSL: mpp``) config
@@ -283,11 +306,22 @@ def from_dict(raw: dict) -> Experiment:
             swap_prob=float(m.get("swap_prob", 0.02)),
             optimize_decoder=bool(m.get("optimize_decoder", True)),
         )
+    ms = raw.get("mssit", {})
+    mssit = MSSiTConfig(
+        embed_dim=int(ms.get("embed_dim", 96)),
+        depths=tuple(int(d) for d in ms.get("depths", (2, 2, 6, 2))),
+        heads=tuple(int(h) for h in ms.get("heads", (3, 6, 12, 24))),
+        window=int(ms.get("window", 64)),
+        global_max=int(ms.get("global_max", 512)),
+        cross_mix=str(ms.get("cross_mix", "axial")),
+        mlp_ratio=float(ms.get("mlp_ratio", 4.0)),
+    )
     return Experiment(
         model=model,
         training=training,
         data=data,
         optim=optim,
+        mssit=mssit,
         compute_dtype=str(tp.get("compute_dtype", "bfloat16")),
         quant=quant,
         mpp=mpp,

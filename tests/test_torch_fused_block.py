@@ -306,3 +306,47 @@ def test_check_tma_operands(offset, rows, error):
     else:
         with pytest.raises(error):
             tfb.check_tma_operands(t, cls_rows=rows)
+
+
+def _cuda_check_args(dim_head=64, heads=1):
+    """bf16 block arguments for the CUDA wrappers' checks, reached with CPU
+    tensors; every tensor a fresh torch allocation (on 64 bytes)."""
+    shape = (B, N, VALID, DIM, heads, dim_head, MLP)
+    x = torch.zeros((B, N, DIM), dtype=torch.bfloat16)
+    args = [t.clone() for t in _torch_args(_params(0, shape), torch.bfloat16)]
+    return x, [a.float() if a.dim() == 1 else a for a in args]
+
+
+@pytest.mark.parametrize("name", ["ln1_s", "ln1_b", "b_out", "ln2_s", "ln2_b",
+                                  "b_fc1", "b_fc2"])
+def test_bf16_wrapper_refuses_fp32_vectors_off_16_bytes(name):
+    """The engine stages the fp32 biases as float4 (csrc/gemm.cuh), so a
+    bias view 4 bytes into its storage would fault on the card: the bf16
+    block wrappers refuse it, as the int8 wrapper does, and ``block_gemm``'s
+    check (``check_vectors``) refuses it too."""
+    x, args = _cuda_check_args()
+    tfb._check_cuda_args(x, args, 1, 64, VALID)  # aligned: taken
+    i = ORDER.index(name)
+    off = torch.zeros(args[i].numel() + 1)[1:]  # 4 bytes into a fresh allocation
+    off.copy_(args[i])
+    assert off.data_ptr() % 16 == 4 and off.is_contiguous()
+    args[i] = off
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfb._check_cuda_args(x, args, 1, 64, VALID)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfb.check_vectors({"bias": (off, off.numel())})
+
+
+@pytest.mark.parametrize("dim_head,heads,serving,error", [
+    (64, 1, True, None), (64, 1, False, None), (32, 2, True, None),
+    (32, 2, False, NotImplementedError), (16, 4, True, NotImplementedError),
+])
+def test_bf16_wrapper_head_dims(dim_head, heads, serving, error):
+    """The serving ``fused_block`` takes dim_head 32 (MS-SiT) and 64; the CLS
+    block and the training chains 64, their backward's one width."""
+    x, args = _cuda_check_args(dim_head, heads)
+    if error is None:
+        tfb._check_cuda_args(x, args, heads, dim_head, VALID, serving=serving)
+    else:
+        with pytest.raises(error, match="dim_head"):
+            tfb._check_cuda_args(x, args, heads, dim_head, VALID, serving=serving)

@@ -247,8 +247,8 @@ def test_int8_workspace_holds_no_float32_f():
 def test_int8_wrapper_argument_checks():
     """What the CUDA wrapper refuses, reached with CPU tensors: rows the
     engine's TMA cannot read (dim or mlp off 16), a head width other than
-    64, a bad valid_len, non-int8 codes, a bias off 16 bytes; the part
-    wrappers take CUDA tensors only."""
+    32 or 64 (32 is MS-SiT's: taken), a bad valid_len, non-int8 codes, a
+    bias off 16 bytes; the part wrappers take CUDA tensors only."""
     rng = np.random.default_rng(6)
 
     def params(dim, heads, mlp):
@@ -265,8 +265,9 @@ def test_int8_wrapper_argument_checks():
                              params(200, 3, 768), 3, 64, 10)
     with pytest.raises(NotImplementedError, match="multiples of 16"):
         tq8._check_cuda_args(x, params(192, 3, 760), 3, 64, 10)
-    with pytest.raises(NotImplementedError, match="dim_head 64"):
-        tq8._check_cuda_args(x, params(192, 3, 768), 6, 32, 10)
+    tq8._check_cuda_args(x, params(192, 3, 768), 6, 32, 10)  # dh 32: taken
+    with pytest.raises(NotImplementedError, match="dim_head 32 or 64"):
+        tq8._check_cuda_args(x, params(192, 3, 768), 4, 48, 10)
     with pytest.raises(ValueError, match="valid_len"):
         tq8._check_cuda_args(x, params(192, 3, 768), 3, 64, 11)
     with pytest.raises(TypeError, match="bfloat16"):
