@@ -7,8 +7,8 @@ Drives the port's serving and training paths
 (surface_vision_transformers_tpu_torch) at the full width of SiT-tiny
 (ico-6 sub-ico-2, dim 192, depth 12, 3 heads, mlp 768) and of SiT-base
 (ico-6 sub-ico-3, below), its MPP pretraining and dropout training
-(phases 14-19), and MS-SiT serving (phases 26-28), with random weights
-made from a numpy seed.
+(phases 14-19), MS-SiT serving (phases 26-28), and MS-SiT training and
+MPP (phases 29-32), with random weights made from a numpy seed.
 Phases, one line each; any failure raises, so the script exits non-zero
 and prints no result:
 
@@ -214,6 +214,41 @@ full width and depth:
               tpu.compute_dtype=float32``: the modular model, no launches,
               equal to float32 ``predict``.
 
+Phases 29-32 run MS-SiT training and masked-window pretraining (MPP) at the
+same width and depth, every block at dh 32:
+
+29. mssit-train-kernels -- the route ``uses_recompute`` gives each fold (the
+              chain at every one); at the folds of a batch of 64 (and at
+              valid_len inside a key block) the attention backward at dh 32
+              through ``flash_attention_qkv``'s packed strides, and
+              ``fused_block_bwd`` after the training forward, against their
+              float32 and bf16 plain versions (phase 14's and phase 6's
+              gates) with controls (the dh-64 scale 1/8, the last key block
+              skipped, the key mask ignored; the softmax scale x1.1 and the
+              LayerNorm backward's mean term dropped); bitwise repeats of
+              both, with an order control for the attention; times beside
+              the bound, SDPA's backward, the eager block's autograd
+              backward and the chain's floor.
+30. mssit-train -- ``mssit_scan_age.yml``: four SGD steps of ``Trainer``
+              (``fused_mssit_train_forward``) at a batch of 8 against the
+              eager bf16 MSSiT under autograd (losses 1e-3, every update
+              5%, or where eager bf16 is itself farther from the eager
+              float32 update, within 1.25x its distance; a control: one
+              block's dW_fc1 zeroed), 12 fused_block +
+              12 fused_block_bwd + 1 patch_embed a step; then ten steps at
+              the config's bs 64 with its AdamW: training surfaces/s (steps
+              2..10, CUDA events beside), peak memory, where a step goes,
+              a torch.profiler step.
+31. mssit-pretrain -- ``mssit_mpp.yml`` the same way (MPP gate 5e-3, bs 32,
+              ``fused_mssit_mpp_loss``; no patch_embed: the corrupted tokens
+              are embedded by a plain product).
+32. mssit-train-entry -- ``cli.train`` / ``cli.pretrain`` on the two
+              configs (two epochs, 64 + 64 synthetic surfaces) and ``cli.train
+              --set tpu.fused_train=False`` (the modular bf16 model on
+              ``flash_attention_qkv``, forward and backward; batch 16), each
+              in a subprocess, equal to ``run_training`` in this process,
+              whose launches show the route.
+
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
 same comparison tells a call with one dO element raised by 1 apart; and
@@ -226,12 +261,13 @@ to its run on the idle card, before that kernel ends.
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
 
-Each phase prints its seconds. Then five records lines: the attention
+Each phase prints its seconds. Then six records lines: the attention
 backward and forward rows, the block rows and the int8 rows beside their
 recorded times under the mma.sync kernels they replaced (a record, not
 measured in the run), the forward rows with their ratio to SDPA in this run
 and their share of the bound, the int8 GEMMs beside ``torch._int_mm``; and
-the MS-SiT path's kernels at dh 32 with their library times and bounds.
+the MS-SiT serving and training paths' kernels at dh 32 with their library
+or eager times and bounds.
 Then a JSON line of per-kernel results, and last ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -616,13 +652,13 @@ def block_flops(B, N, vl, dim, heads, mlp, cls, dh=DH):
     return gemm + att_f, 2 * gemm + att_b
 
 
-def chain_bytes(B, N, dim, heads, mlp) -> tuple[int, int, int]:
+def chain_bytes(B, N, dim, heads, mlp, dh=DH) -> tuple[int, int, int]:
     """HBM bytes the block chains move at these shapes (csrc/fused_block.cu,
     fused_block_bwd.cu: each launch reads its inputs and writes its outputs
     once, the weights aside): (serving forward, training forward with its
     saves, backward without the attention's fp32 dQ workspace). The chain
     design's own floor, beside the function's bound (block_flops)."""
-    M, hd, bf, f4 = B * N, heads * DH, 2, 4
+    M, hd, bf, f4 = B * N, heads * dh, 2, 4
     x, qkv, att, hid = M * dim * bf, M * 3 * hd * bf, M * hd * bf, M * mlp * bf
     fwd = ((x + x) + (x + qkv) + (qkv + att) + (att + x + x) + (x + x) + (x + hid)
            + (hid + x + x))  # LN1, qkv, attention, out-proj, LN2, fc1, fc2
@@ -692,19 +728,19 @@ def sliced(fn, *batched, chunk: int = 16):
             *(sum(o[i] for o in outs) for i in range(1, len(outs[0]))))
 
 
-def bwd_control(fb, x, g, pr, heads, vl, cls, got, vl_bwd, chunk=None, **patches):
+def bwd_control(fb, x, g, pr, heads, vl, cls, got, vl_bwd, chunk=None, dh=DH, **patches):
     """|got| against the float32 plain backward with ``patches`` applied to
     the plain functions (and keys up to ``vl_bwd`` in the backward), as the
     worst ratio to the gate (``grad_bound_ratio``); the plain backward runs
     ``chunk`` samples at a time (default: the whole batch)."""
-    kw = dict(heads=heads, dim_head=DH)
+    kw = dict(heads=heads, dim_head=dh)
     fwd = fb.fused_block_cls_reference if cls else fb.fused_block_reference
 
     def plain(xs, gs):
         sv32 = {}
         fwd(xs.float(), *pr, valid_len=vl, saved=sv32, **kw)
         bwd = fb._block_cls_bwd_plain if cls else fb._block_bwd_plain
-        return bwd(xs.float(), gs.float(), pr, sv32, heads, DH, vl_bwd)
+        return bwd(xs.float(), gs.float(), pr, sv32, heads, dh, vl_bwd)
 
     with contextlib.ExitStack() as stack:
         for k, v in patches.items():
@@ -799,10 +835,10 @@ def phase_train_kernels(rng, fb, sit_module) -> dict:
     return results
 
 
-def eager_backward_ms(sit_module, p32, x, g, heads, dim, mlp, cls) -> float:
+def eager_backward_ms(sit_module, p32, x, g, heads, dim, mlp, cls, dh=DH, reps=25) -> float:
     """CUDA-event time of the eager bf16 SiT block's autograd backward (the
     whole block; its top rows under CLS), from float32 masters."""
-    m = sit_module.SiT(dim=dim, depth=1, heads=heads, mlp_dim=mlp, dim_head=DH,
+    m = sit_module.SiT(dim=dim, depth=1, heads=heads, mlp_dim=mlp, dim_head=dh,
                        num_patches=x.shape[1] - 1, dtype=torch.bfloat16,
                        attn_backend="plain").cuda()
     from surface_vision_transformers_tpu_torch.models.fused import block_parameters
@@ -817,7 +853,8 @@ def eager_backward_ms(sit_module, p32, x, g, heads, dim, mlp, cls) -> float:
     out = x1 + ff(x1)
     if cls:
         out = out[:, :g.shape[1]]
-    return cuda_ms(lambda: torch.autograd.grad(out, [xr, *params], g, retain_graph=True))
+    return cuda_ms(lambda: torch.autograd.grad(out, [xr, *params], g, retain_graph=True),
+                   reps=reps)
 
 
 def run_steps(step_fn, model, start, batches, steps):
@@ -1637,7 +1674,7 @@ def phase_base_train(fb, exp, table) -> dict:
     return launches
 
 
-def profile_step(step_fn, bs) -> None:
+def profile_step(step_fn, bs, name="base-train") -> None:
     """torch.profiler over one call of ``step_fn`` (a training step at
     ``bs``) after a warm-up call: device time by kernel, and their sum
     against the step's CUDA-event time (the rest is the device's idle
@@ -1656,12 +1693,12 @@ def profile_step(step_fn, bs) -> None:
     step_ms = a.elapsed_time(b)
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    phase("base-train", f"torch.profiler, one step at B={bs}: {step_ms:.1f} ms (CUDA events, "
+    phase(name, f"torch.profiler, one step at B={bs}: {step_ms:.1f} ms (CUDA events, "
           f"profiler on), kernels {busy:.1f} ms of device time (idle share "
           f"{max(0.0, 1 - busy / step_ms):.3f}); top kernels (ms, share of device time):")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
         ms_e = e.self_device_time_total / 1e3
-        phase("base-train", f"  {ms_e:9.2f} {ms_e / max(busy, 1e-9):6.1%} x{e.count:<4d} "
+        phase(name, f"  {ms_e:9.2f} {ms_e / max(busy, 1e-9):6.1%} x{e.count:<4d} "
               f"{e.key[:100]}")
 
 
@@ -1790,11 +1827,12 @@ def order_control(q, k, v, o, lse, do, vl) -> tuple[int, int]:
     B, H, nq, dh = q.shape
     samples = min(B, max(2, -(-ORDER_ELEMENTS // (H * nq * dh))))
     q, k, v, o, do = (x[:samples].float() for x in (q, k, v, o, do))
-    s = q @ k.transpose(-1, -2) * 0.125
+    scale = dh ** -0.5
+    s = q @ k.transpose(-1, -2) * scale
     s[..., vl:] = float("-inf")
     p = torch.exp(s - lse[:samples, ..., None])
     p[..., vl:, :] = 0.0
-    ds = (p * (do @ v.transpose(-1, -2) - (do * o).sum(-1, keepdim=True)) * 0.125)
+    ds = (p * (do @ v.transpose(-1, -2) - (do * o).sum(-1, keepdim=True)) * scale)
     ds = ds.to(torch.bfloat16).float()
     shares = [ds[..., c:c + 64] @ k[..., c:c + 64, :] for c in range(0, min(vl, k.shape[-2]), 64)]
     ahead = functools.reduce(torch.add, shares).to(torch.bfloat16)
@@ -2077,11 +2115,16 @@ def phase_dropout(rng) -> dict:
     return rows
 
 
+def upd_ratios(upd, ref) -> dict:
+    """|update - reference update| / max |reference update| of each
+    parameter the reference moved."""
+    return {k: ((upd[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
+            for k in ref if ref[k].abs().max() > 0}
+
+
 def upd_ratio(upd, ref) -> float:
-    """Worst |update - reference update| / max |reference update| over the
-    parameters the reference moved."""
-    return max(((upd[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
-               for k in ref if ref[k].abs().max() > 0)
+    """The worst of ``upd_ratios``."""
+    return max(upd_ratios(upd, ref).values())
 
 
 def trainer_run(exp, model, start, batches, steps, hook_block=None):
@@ -2108,8 +2151,10 @@ def gate_runs(name, label, run, plain, control, loss_tol, upd_tol) -> None:
     r, c = upd_ratio(run[3], plain[3]), upd_ratio(control[3], plain[3])
     phase(name, f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0]))
     phase(name, f"{label}: plain   " + " ".join(f"{v:.6g}" for v in plain[0]))
+    worst = sorted(upd_ratios(run[3], plain[3]).items(), key=lambda kv: -kv[1])[:3]
     phase(name, f"{label}: max relative loss gap {loss_err:.4g} (tol {loss_tol}); worst "
-          f"|update - plain update| / max |plain update| {r:.4g} (tol {upd_tol}); control, "
+          f"|update - plain update| / max |plain update| {r:.4g} (tol {upd_tol}; the worst "
+          "three: " + ", ".join(f"{k} {v:.4g}" for k, v in worst) + f"); control, "
           f"one block's dW_fc1 zeroed: {c:.4g} (must exceed the tol), loss gap {c_loss:.4g}")
     if not all(math.isfinite(v) for v in run[0]) or loss_err > loss_tol or r > upd_tol:
         raise AssertionError(f"{label} disagrees with the plain path")
@@ -3923,6 +3968,517 @@ def phase_mssit_entry(fb, fused, models) -> None:
     torch.cuda.empty_cache()
 
 
+
+# Phases 29-32: MS-SiT training and MPP at mssit_scan_age.yml / mssit_mpp.yml (dh 32).
+# Phase 29's cases beyond the folds: valid_len inside a key block (the
+# backward's key mask and its query rows past valid_len), and the folds
+# with five key blocks, where the bitwise repeat's order control can show
+# that the dQ sum's order reaches dq's bits.
+MSSIT_BWD_EDGES = [(256, 6, 80, 70), (64, 3, 320, 300)]  # (sequences, heads, N, valid_len)
+MSSIT_REPEAT_FOLDS = [(4096, 3, 320), (64, 24, 320)]  # (sequences, heads, N)
+MSSIT_BWD_RECORDS: dict = {}  # this run's dh-32 backward times for the records line
+
+
+def mssit_qkv_plain(fa, qkv, do, heads, vl, dtype=None, scale=1.0):
+    """(o, dqkv) of the packed plain versions (``qkv_plain`` at MS-SiT's
+    heads, any dh) in ``dtype`` (None: the inputs' bf16), q scaled by
+    ``scale`` (a control), sliced by ``mssit_chunk``."""
+    hd = qkv.shape[-1] // 3
+
+    def one(x, g):
+        if dtype is not None:
+            x, g = x.to(dtype), g.to(dtype)
+        if scale != 1.0:
+            x = torch.cat([x[..., :hd] * scale, x[..., hd:]], -1)
+        o, lse = fa.flash_attention_qkv_reference(x, heads, vl)
+        return o.float(), fa.flash_attention_qkv_bwd_reference(x, o, lse, g, heads, vl).float()
+
+    chunk = mssit_chunk(qkv.shape[1], hd, heads)
+    parts = [one(qkv[s:s + chunk], do[s:s + chunk]) for s in range(0, qkv.shape[0], chunk)]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
+    """Phase 29: the MS-SiT training path's kernels at dh 32 at the shapes a
+    batch of 64 gives them (MSSIT_FOLDS): the attention backward (through
+    ``flash_attention_qkv``'s packed strides, as the modular model and the
+    chains hold it) and ``fused_block_bwd`` after the training forward,
+    each against its float32 and bf16 plain versions under the gates of
+    phases 14 and 6, with controls that must fail; bitwise repeats; the
+    route ``uses_recompute`` gives each fold; times beside the bound, SDPA's
+    backward (attention) and the eager bf16 block's autograd backward.
+    -> rows by kernel name (launches filled by phase 30)."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    name, dh, rows = "mssit-train-kernels", MSSIT_DH, {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    routes = {f"({Bf}, {N}, {dim})": fb.uses_recompute(N, dim)
+              for _, Bf, N, dim, _, _ in MSSIT_FOLDS}
+    phase(name, "uses_recompute at each fold (False: the chain route, training forward "
+          "keeping its activations, then fused_block_bwd): "
+          + ", ".join(f"{k} {v}" for k, v in routes.items()))
+    if any(routes.values()):
+        raise AssertionError("an MS-SiT fold left the chain route")
+
+    # -- the attention backward at dh 32, through the packed strides
+    cases = [(Bf, heads, N, N) for _, Bf, N, _, heads, _ in MSSIT_FOLDS] + MSSIT_BWD_EDGES
+    for Bf, heads, N, vl in cases:
+        hd = heads * dh
+        qkv = torch.cat([dev_randn(g, (Bf, N, 2 * hd), 1.5), dev_randn(g, (Bf, N, hd))], -1)
+        do = dev_randn(g, (Bf, N, hd))
+        o, lse = fa.flash_attention_qkv_fwd(qkv, heads, vl)
+        got = [o, fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads, vl)]
+        ref32 = mssit_qkv_plain(fa, qkv, do, heads, vl, torch.float32)
+        r32 = step_ratio(got, ref32, ref32)
+        rbf = step_ratio(got, mssit_qkv_plain(fa, qkv, do, heads, vl), ref32)
+        err = (got[1].float() - ref32[1]).abs().max().item()
+        controls = {"dh-64 scale 1/8": step_ratio(
+            got, mssit_qkv_plain(fa, qkv, do, heads, vl, torch.float32, MSSIT_SCALE_64), ref32)}
+        if vl > 64:
+            last = (vl - 1) // 64 * 64
+            controls["last key block skipped"] = step_ratio(
+                got, mssit_qkv_plain(fa, qkv, do, heads, last, torch.float32), ref32)
+        if N > vl:
+            controls["key mask ignored"] = step_ratio(
+                got, mssit_qkv_plain(fa, qkv, do, heads, N, torch.float32), ref32)
+        label = f"attention backward dh 32 Bf={Bf} H={heads} N={N} valid_len={vl}"
+        msg = (f"{label}: worst |err|/bound over o, dqkv vs fp32 plain {r32:.4g}, vs plain "
+               f"bf16 {rbf:.4g} (bound {BOUND_STEPS} bf16 steps at each output's largest "
+               f"value), max abs err dqkv {err:.6g}; controls (must exceed 1): "
+               + ", ".join(f"{k} {v:.4g}" for k, v in controls.items()))
+        if not all(bool(torch.isfinite(t).all()) for t in got) or max(r32, rbf) > 1:
+            raise AssertionError(f"{label}: disagrees with its plain version\n{msg}")
+        if min(controls.values()) <= 1:
+            raise AssertionError(f"{label}: a control passed the gate\n{msg}")
+        if N == vl:
+            q, k, v = fa.split_qkv(qkv, heads)
+            do4 = do.view(Bf, N, heads, dh).transpose(1, 2)
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+            ms = device_ms(lambda: fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads))
+            sdpa = device_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do4,
+                                                         retain_graph=True))
+            b_ms, b_by = bound_ms(attention_flops(Bf, heads, N, N, dh)[1],
+                                  nbytes_of(qkv, o, lse, do, got[1]))
+            msg += (f"; kernel {ms:.4f} ms, SDPA backward {sdpa:.4f} ms ({ms / sdpa:.3f}x), "
+                    f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%}) (device_ms)")
+            MSSIT_BWD_RECORDS[f"attention backward Bf={Bf} H={heads} N={N}"] = (ms, sdpa, b_ms)
+            if (Bf, N, heads) == MSSIT_ROW_FOLD[1:3] + MSSIT_ROW_FOLD[4:5]:
+                chunk = mssit_chunk(N, hd, heads)
+
+                def plain_bwd():
+                    return [fa.flash_attention_qkv_bwd_reference(
+                        qkv[s:s + chunk], o[s:s + chunk], lse[s:s + chunk], do[s:s + chunk],
+                        heads) for s in range(0, Bf, chunk)]
+                plain_ms = cuda_ms(plain_bwd, reps=3)
+                msg += f", plain bf16 backward {plain_ms:.4f} ms"
+                rows["flash_attention_bwd dh32"] = {
+                    "name": "flash_attention_bwd dh32", "route": "cuda",
+                    "source": FLASH_SOURCE, "replaces": f"{FLASH_TPU}:233",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": sdpa}
+            del sdpa_out, qr, kr, vr
+        phase(name, msg)
+        if (Bf, heads, N) in MSSIT_REPEAT_FOLDS:
+            o4 = o.view(Bf, N, heads, dh).transpose(1, 2)
+            do4 = do.view(Bf, N, heads, dh).transpose(1, 2)
+            repeat_check(name, f"attention backward dh 32 Bf={Bf} H={heads} N={N}",
+                         lambda: (fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads),),
+                         lambda: (fa.flash_attention_qkv_bwd(qkv, o, lse, bump(do), heads),),
+                         lambda: order_control(*fa.split_qkv(qkv, heads), o4, lse, do4, N))
+        del qkv, do, o, lse, got, ref32
+        torch.cuda.empty_cache()
+
+    # -- fused_block_bwd at dh 32 after the training forward, at every fold
+    for stage, Bf, N, dim, heads, per_batch in MSSIT_FOLDS:
+        mlp = 4 * dim
+        p32 = [t.cuda() for t in block_params(rng, dim, heads, mlp, dh)]
+        pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p32]
+        pr = [t.float() for t in pb]  # the bf16 values, in float32
+        kw = dict(heads=heads, dim_head=dh)
+        x, gy = dev_randn(g, (Bf, N, dim), X_SCALE), dev_randn(g, (Bf, N, dim), G_SCALE)
+        out, sv = fb.train_forward(x, *pb, **kw)
+        same_fwd = bool(torch.equal(out, fb.fused_block(x, *pb, **kw)))
+        got = fb.fused_block_bwd(x, gy, *pb, saved=sv, **kw)
+        chunk = mssit_chunk(N, dim, heads)
+        ref32 = sliced(lambda xs, gs: fb.fused_block_bwd_reference(
+            xs.float(), gs.float(), *pr, **kw), x, gy, chunk=chunk)
+        ref_bf = sliced(lambda xs, gs: fb.fused_block_bwd_reference(xs, gs, *pb, **kw), x, gy,
+                        chunk=chunk)
+        r32, err = grad_bound_ratio(got, ref32, N)
+        rbf, _ = grad_bound_ratio(got, ref_bf, N)
+        rplain, _ = grad_bound_ratio(ref_bf, ref32, N)
+        del ref32, ref_bf
+        controls = bwd_controls(fb, lambda **patches: bwd_control(
+            fb, x, gy, pr, heads, N, False, got, N, chunk=chunk, dh=dh, **patches))
+        label = f"fused_block_bwd dh 32 stage {stage} ({Bf}, {N}, {dim})"
+        msg = (f"{label}, {per_batch} a batch: worst |err|/bound over the 12 gradients vs fp32 "
+               f"plain {r32:.4g} (plain bf16 {rplain:.4g}), vs plain bf16 {rbf:.4g}, bound "
+               f"{BWD_STEPS} bf16 steps at each gradient's largest value; max abs err "
+               f"{err:.6g}; training forward == serving forward: {same_fwd}; controls (must "
+               "exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in controls.items()))
+        if not all(bool(torch.isfinite(t).all()) for t in got) or max(r32, rbf) > 1:
+            raise AssertionError(f"{label} disagrees with its plain backward\n{msg}")
+        if not same_fwd:
+            raise AssertionError(f"{label}: the training forward changed the forward's output")
+        if min(controls.values()) <= 1:
+            raise AssertionError(f"{label}: a control passed the gate\n{msg}")
+        f_ms = cuda_ms(lambda: fb.train_forward(x, *pb, **kw), reps=10)
+        k_ms = cuda_ms(lambda: fb.fused_block_bwd(x, gy, *pb, saved=sv, **kw), reps=10)
+        e_ms = eager_backward_ms(sit_module, p32, x, gy, heads, dim, mlp, False, dh=dh, reps=5)
+        flops = block_flops(Bf, N, N, dim, heads, mlp, False, dh)[1]
+        b_ms, b_by = bound_ms(flops, nbytes_of(x, gy, *pb, *got))
+        _, train_b, bwd_b = chain_bytes(Bf, N, dim, heads, mlp, dh)
+        floor_ms = bwd_b / PEAK_BYTES * 1e3
+        msg += (f"; training forward {f_ms:.4f} ms, backward kernel {k_ms:.4f} ms, eager bf16 "
+                f"block autograd backward {e_ms:.4f} ms (CUDA-event medians of 10 / 10 / 5); "
+                f"bound {b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%}; {flops / 1e9:.1f} GFLOP), "
+                f"chain floor {floor_ms:.4f} ms ({bwd_b / 1e9:.3f} GB; training forward "
+                f"{train_b / 1e9:.3f} GB)")
+        MSSIT_BWD_RECORDS[f"fused_block_bwd stage {stage} ({Bf}, {N}, {dim})"] = (
+            k_ms, e_ms, b_ms)
+        MSSIT_BWD_RECORDS[f"training fused_block stage {stage} ({Bf}, {N}, {dim})"] = (
+            f_ms, None, None)
+        if (stage, Bf, N) == MSSIT_ROW_FOLD[:3]:
+            again = fb.fused_block_bwd(x, gy, *pb, saved=sv, **kw)
+            moved = fb.fused_block_bwd(x, bump(gy), *pb, saved=sv, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            control = all(torch.equal(a, b) for a, b in zip(got, moved))
+            msg += (f"; two calls bitwise identical {same} (must be True), control: one g "
+                    f"element raised by 1, identical {control} (must be False)")
+            if not same or control:
+                raise AssertionError(f"{label}: the backward does not repeat bit for bit\n{msg}")
+            rows["fused_block_bwd dh32"] = {
+                "name": "fused_block_bwd dh32", "route": "cuda", "source": BWD_SOURCE,
+                "replaces": REPLACES["fused_block_bwd"], "max_abs_err": err, "ms": k_ms,
+                "plain_ms": e_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            del again, moved
+        phase(name, msg)
+        del x, gy, out, sv, got, p32, pb, pr
+        torch.cuda.empty_cache()
+    return rows
+
+# Phases 30-31 compare the training paths at a cut batch (the eager model's
+# fp32 scores reach ~5 GB a fold at 64) with SGD, momentum 0.9, whose
+# update gate reads every parameter (Adam moves every element by about the
+# learning rate, so a gradient near zero flips an update's sign); the rate
+# runs take the shipped configs' batch and their AdamW.
+MSSIT_MPP_CFG = ROOT / "configs/pretraining/mssit_mpp.yml"
+MSSIT_TRAIN_B, MSSIT_TRAIN_STEPS = 8, 4
+MSSIT_RATE_STEPS = 10
+MSSIT_LOSS_TOL, MSSIT_MPP_LOSS_TOL, MSSIT_UPD_TOL = 1e-3, 5e-3, 0.05
+# A tensor whose eager bf16 update is itself farther than MSSIT_UPD_TOL from
+# the eager float32 update is held to that distance instead: the kernel
+# path's update within MSSIT_FP32_MARGIN times it of the float32 one. On an
+# H100 (NVIDIA H100 80GB HBM3, 700 W) only MPP's pos_embedding was such a
+# tensor: its gradient, a sum over the batch that cancels, rounded to bf16
+# in both bf16 paths, read 0.118 between them and 0.235 from float32 for
+# each; every other tensor read <= 0.029 (MPP) and <= 0.0068 (regression)
+# between the two bf16 paths.
+MSSIT_FP32_MARGIN = 1.25
+MSSIT_CONTROL_BLOCK = (2, 1)  # (stage, block) whose dW_fc1 the controls zero
+
+
+def mssit_training_model(exp, table, state):
+    """A model of ``exp`` (an MSSiT, or an MPPMSSiT under MPP) on the card
+    with float32 masters from ``state`` (the encoder's, seeded), attention
+    on the plain route (the kernel path ignores it; the eager path runs
+    it)."""
+    from surface_vision_transformers_tpu_torch.train.runner import build_model
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)  # MPP's mask token and decoder
+        model = build_model(exp, table)
+    enc = model.encoder if exp.is_pretraining else model
+    for m in enc.modules():
+        if hasattr(m, "attn_backend"):
+            m.attn_backend = "plain"
+    enc.load_state_dict(state, strict=True)
+    return model.cuda()
+
+
+def mssit_run(exp, init, start, batches, steps, *, eager=False, hook=False):
+    """``steps`` optimizer steps from ``init``'s copy on alternating
+    ``batches`` (``run_steps``): through ``Trainer`` (the kernel path), or
+    with ``eager`` the modular model under autograd with the same optimizer
+    (MPP: the same corruption stream, a generator seeded as the trainer's);
+    ``hook`` zeroes one block's dW_fc1 (the control)."""
+    from surface_vision_transformers_tpu_torch.train.losses import weighted_mse
+    from surface_vision_transformers_tpu_torch.train.optim import Optimizer
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    model = copy.deepcopy(init)
+    mpp = exp.is_pretraining
+    enc = model.encoder if mpp else model
+    if hook:
+        s_, b_ = MSSIT_CONTROL_BLOCK
+        enc.stages[s_].blocks[b_][1].fn.net[0].weight.register_hook(torch.zeros_like)
+    ones = torch.ones(batches[0][0].shape[0], device="cuda")
+    if not eager:
+        trainer = Trainer(exp, model)
+        step = lambda xb, yb: trainer.optimizer_step(xb, yb, ones)[0]  # noqa: E731
+        return run_steps(step, model, start, batches, steps)
+    opt = Optimizer(exp.optim, [p for p in model.parameters() if p.requires_grad])
+    gen = torch.Generator(device="cuda").manual_seed(exp.training.seed)
+
+    def step(xb, yb):
+        opt.zero_grad()
+        loss = (model(xb, gen, sample_weights=ones)[0] if mpp
+                else weighted_mse(model(xb).reshape(-1), yb))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return run_steps(step, model, start, batches, steps)
+
+
+def mssit_update_gate(run, plain, fp32) -> tuple[bool, dict, dict]:
+    """(every tensor passes, the worst ratios against eager bf16, the
+    tensors held to the float32 rule with (kernel, eager bf16) distances
+    to the float32 update): a tensor passes within MSSIT_UPD_TOL of the
+    eager bf16 update, or, where eager bf16 is itself farther than that
+    from eager float32, within MSSIT_FP32_MARGIN of eager bf16's distance
+    to it."""
+    to_bf, to_32, bf_32 = (upd_ratios(a[3], b[3]) for a, b in
+                           ((run, plain), (run, fp32), (plain, fp32)))
+    held = {k: (to_32[k], bf_32[k]) for k in to_bf
+            if bf_32.get(k, 0.0) > MSSIT_UPD_TOL}
+    ok = all(v <= MSSIT_UPD_TOL or (k in held and held[k][0] <= MSSIT_FP32_MARGIN * held[k][1])
+             for k, v in to_bf.items())
+    return ok, dict(sorted(to_bf.items(), key=lambda kv: -kv[1])[:3]), held
+
+
+def mssit_step_breakdown(name, step_ms) -> None:
+    """Where a step's device time goes, from phase 29's per-fold times of
+    the training forward and fused_block_bwd (at a batch of 64) times the
+    blocks at each fold; the rest is the embed, the folds' copies, the
+    merges, the head, the loss and the optimizer."""
+    parts = {}
+    for stage, Bf, N, dim, _, per_batch in MSSIT_FOLDS:
+        fold = f"stage {stage} ({Bf}, {N}, {dim})"
+        fwd = MSSIT_BWD_RECORDS[f"training fused_block {fold}"][0]
+        bwd = MSSIT_BWD_RECORDS[f"fused_block_bwd {fold}"][0]
+        parts[f"stage {stage}"] = parts.get(f"stage {stage}", 0.0) + per_batch * (fwd + bwd)
+    blocks = sum(parts.values())
+    phase(name, f"a step at 64 from phase 29's block times (training forward + backward x "
+          "blocks): " + ", ".join(f"{k} {v:.2f} ms ({v / step_ms:.1%})" for k, v in parts.items())
+          + f"; the blocks {blocks:.2f} ms of the median step {step_ms:.2f} ms, the rest "
+          f"{step_ms - blocks:.2f} ms (embed, fold copies, merges, head, loss, optimizer)")
+
+
+def phase_mssit_training(name, fb, exp, table, state, batches_of, loss_tol) -> dict:
+    """Phases 30 and 31 (regression / MPP per ``exp``): MSSIT_TRAIN_STEPS
+    SGD steps of ``Trainer`` at B = MSSIT_TRAIN_B (fused_block_train on
+    every fold) against the eager bf16 model under autograd from the same
+    masters and batches, per-step losses within ``loss_tol`` relative and
+    every parameter's update within MSSIT_UPD_TOL (``mssit_update_gate``:
+    a tensor that eager bf16 itself updates farther than that from eager
+    float32 is held to its distance), a control (one block's dW_fc1 zeroed)
+    failing; launches per step (12 fused_block, 12
+    fused_block_bwd, a patch_embed for raw regression input); then
+    MSSIT_RATE_STEPS steps at the config's batch with its AdamW: training
+    surfaces/s (host window of steps 2..10, CUDA-event times beside), peak
+    device memory, the launches, a breakdown and a torch.profiler step.
+    -> the launches of the rate run."""
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    mpp = exp.is_pretraining
+    sgd = config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9)
+    B, steps = MSSIT_TRAIN_B, MSSIT_TRAIN_STEPS
+    gated = dataclasses.replace(exp, training=dataclasses.replace(exp.training, bs=B),
+                                optim=sgd)
+    init = mssit_training_model(exp, table, state)
+    start = {k: v.clone() for k, v in init.state_dict().items()}
+    small = batches_of(B, 2, SEED + 30)
+    counters = zero_counts(fb)
+    run = mssit_run(gated, init, start, small, steps)
+    launches = read_counts(counters)
+    plain = mssit_run(gated, init, start, small, steps, eager=True)
+    g32 = dataclasses.replace(gated, compute_dtype="float32")
+    fp32 = mssit_run(g32, mssit_training_model(g32, table, state), start, small, steps,
+                     eager=True)
+    control = mssit_run(gated, init, start, small, steps, hook=True)
+    per_step = {k: 0 for k in counters}
+    per_step.update(fused_block=12, fused_block_bwd=12, patch_embed=0 if mpp else 1)
+    want = {k: v * steps for k, v in per_step.items()}
+    phase(name, f"{steps} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={B} (cut from bs "
+          f"{exp.training.bs}): launches {launches}, expected {want}")
+    for label, r_ in (("kernel path", run), ("eager bf16 ", plain), ("eager fp32 ", fp32)):
+        phase(name, f"losses {label} " + " ".join(f"{v:.6g}" for v in r_[0]))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run[0], plain[0]))
+    ok, worst, held = mssit_update_gate(run, plain, fp32)
+    c_ok, c_worst, _ = mssit_update_gate(control, plain, fp32)
+    phase(name, f"kernel path vs eager bf16 (plain attention): max relative loss gap "
+          f"{loss_err:.4g} (tol {loss_tol}); worst |update - eager update| / max |eager "
+          f"update|: " + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + f" (tol "
+          f"{MSSIT_UPD_TOL}); held to the float32 rule (kernel / eager bf16 distance to the "
+          f"fp32 update, kernel within {MSSIT_FP32_MARGIN}x): "
+          + (", ".join(f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in held.items()) or "none")
+          + f"; gate passed {ok}; control, one block's dW_fc1 zeroed: worst "
+          + ", ".join(f"{k} {v:.4g}" for k, v in c_worst.items()) + f", gate passed {c_ok} (must "
+          "be False)")
+    if not all(math.isfinite(v) for v in run[0]) or loss_err > loss_tol or not ok:
+        raise AssertionError(f"{name}: the kernel path disagrees with the eager path")
+    if c_ok:
+        raise AssertionError(f"{name}: the control passed the gate")
+    if launches != want:
+        raise AssertionError(f"{name}: the training path did not launch as expected")
+    # steps 0 and 2 see the same batch (MPP: under another corruption)
+    if not mpp and not run[0][-2] < run[0][0]:
+        raise AssertionError(f"{name}: the training loss did not fall")
+    del run, plain, fp32, control, small
+    torch.cuda.empty_cache()
+
+    bs = exp.training.bs
+    big = batches_of(bs, 2, SEED + 31)
+    counters = zero_counts(fb)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, step_ms, _ = mssit_run(exp, init, start, big, MSSIT_RATE_STEPS)
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: v * MSSIT_RATE_STEPS for k, v in per_step.items()}
+    phase(name, f"bs {bs}, {MSSIT_RATE_STEPS} steps ({exp.optim.name}, LR {exp.optim.lr}): "
+          f"launches {launches}, expected {want}; losses " + " ".join(f"{v:.6g}" for v in losses)
+          + f"; steps 2..{MSSIT_RATE_STEPS} as one window (host clock, synchronized at both "
+          f"ends): {step_s * 1e3:.2f} ms a step = {bs / step_s:.2f} training surfaces/s; "
+          f"per-step CUDA-event times median {np.median(step_ms):.2f} ms: "
+          + " ".join(f"{v:.2f}" for v in step_ms) + f" ms; peak {peak:.2f} GiB allocated")
+    if launches != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: the training path at bs {bs} did not run as expected")
+    if not mpp:
+        mssit_step_breakdown(name, float(np.median(step_ms)))
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    model = copy.deepcopy(init)
+    trainer = Trainer(exp, model)
+    ones = torch.ones(bs, device="cuda")
+    profile_step(lambda: trainer.optimizer_step(big[0][0], big[0][1], ones), bs, name)
+    del big, model, trainer, init
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mssit_configs(rng):
+    """(regression exp, MPP exp, the canonical sub-ico-5 table, the seeded
+    encoder state): the shipped MS-SiT configs at full width and depth."""
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    exp, mpp_exp = config.load_config(MSSIT_CFG), config.load_config(MSSIT_MPP_CFG)
+    table = load_patch_table(exp.ico, exp.sub_ico).indices
+    state = mssit_state(rng, MSSiT.from_config(exp, patch_table=table))
+    return exp, mpp_exp, table, state
+
+
+def phase_mssit_train(fb, exp, table, state) -> dict:
+    """Phase 30: ``mssit_scan_age.yml`` training (``phase_mssit_training``)
+    on raw surfaces with a planted label."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+
+    def batches_of(bs, n, seed):
+        data, labels = make_regression_dataset(n * bs, raw_vertices=40962, seed=seed)
+        data, labels = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+        return [(data[s:s + bs], labels[s:s + bs]) for s in range(0, n * bs, bs)]
+
+    phase("mssit-train", f"{MSSIT_CFG.relative_to(ROOT)}: dims {exp.mssit.embed_dim}.., depths "
+          f"{exp.mssit.depths}, heads {exp.mssit.heads}, dh 32, bs {exp.training.bs}, "
+          f"{exp.optim.name} LR {exp.optim.lr}")
+    return phase_mssit_training("mssit-train", fb, exp, table, state, batches_of, MSSIT_LOSS_TOL)
+
+
+def phase_mssit_pretrain(fb, exp, table, state) -> dict:
+    """Phase 31: ``mssit_mpp.yml`` masked-window pretraining
+    (``phase_mssit_training``, the MPP gate) on the finest-grid tokens of
+    raw surfaces."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.models.mpp_mssit import mssit_target_tokens
+    from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
+
+    enc = MSSiT.from_config(exp, patch_table=table)  # its table, for the targets
+
+    def batches_of(bs, n, seed):
+        data, _ = make_regression_dataset(n * bs, raw_vertices=40962, seed=seed)
+        with torch.no_grad():
+            tokens = mssit_target_tokens(enc, torch.from_numpy(data).cuda())
+        return [(tokens[s:s + bs], None) for s in range(0, n * bs, bs)]
+
+    m = exp.mpp
+    phase("mssit-pretrain", f"{MSSIT_MPP_CFG.relative_to(ROOT)}: bs {exp.training.bs}, "
+          f"{exp.optim.name} LR {exp.optim.lr}, mask/replace/swap {m.mask_prob}/"
+          f"{m.replace_prob}/{m.swap_prob} of windows of 64, decoder 768 -> 64 x 24")
+    return phase_mssit_training("mssit-pretrain", fb, exp, table, state, batches_of,
+                                MSSIT_MPP_LOSS_TOL)
+
+
+def phase_mssit_train_entry(fb) -> None:
+    """Phase 32: ``cli.train`` and ``cli.pretrain`` on the two shipped
+    MS-SiT configs (two epochs on a synthetic split of 64 + 64 raw
+    surfaces), and ``cli.train --set tpu.fused_train=False`` (the modular
+    bf16 model, its attention on ``flash_attention_qkv`` forward and
+    backward; batch cut to 16), each in a subprocess and equal to
+    ``run_training`` in this process on the same ``--set`` overrides, whose
+    launches show the route."""
+    from surface_vision_transformers_tpu_torch.cli._common import parse_config
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.train.runner import run_training
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data, labels = make_regression_dataset(128, raw_vertices=40962, seed=SEED + 32)
+        for split, sl in (("train", slice(0, 64)), ("validation", slice(64, 128))):
+            np.save(tmp / f"{split}_data.npy", data[sl])
+            np.save(tmp / f"{split}_labels.npy", labels[sl])
+        del data
+        runs = [("train", MSSIT_CFG, [], "fused"),
+                ("pretrain", MSSIT_MPP_CFG, [], "fused"),
+                ("train", MSSIT_CFG, ["tpu.fused_train=False", "training.bs=16",
+                                      "training.bs_val=16"], "modular")]
+        for i, (tool, cfg, extra, route) in enumerate(runs):
+            sets = [f"data.data_path={tmp}", "training.epochs=2", "training.val_epoch=1",
+                    f"logging.folder_to_save_model={tmp / f'cli{i}'}", *extra]
+            argv = [str(cfg), "--device", "cuda", *[a for s_ in sets for a in ("--set", s_)]]
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", f"surface_vision_transformers_tpu_torch.cli.{tool}",
+                 *argv], cwd=ROOT, capture_output=True, text=True, timeout=900)
+            if res.returncode:
+                raise AssertionError(f"cli.{tool} failed ({res.returncode}):\n{res.stderr}")
+            cli = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+            t_cli = time.perf_counter() - t0
+            raw, _ = parse_config("in-process", argv)
+            raw["logging"]["folder_to_save_model"] = str(tmp / f"in{i}")
+            if tool == "pretrain":
+                raw.setdefault("SSL", "mpp")
+            exp = config.from_dict(raw)
+            counters = zero_counts(fb)
+            t0 = time.perf_counter()
+            mine = run_training(exp, device="cuda", progress=False)
+            launches = read_counts(counters)
+            metric = "best_loss" if tool == "pretrain" else "best_mae"
+            vals = []
+            for d in (cli["run_dir"], mine["run_dir"]):
+                with open(Path(d) / "metrics_val.csv") as f:
+                    vals.append([float(r[f"val/{metric[5:]}"]) for r in csv.DictReader(f)])
+            steps = 2 * -(-64 // exp.training.bs)
+            bwd = launches["fused_block_bwd"], launches["flash_attention_qkv_bwd"]
+            want_bwd = (12 * steps, 0) if route == "fused" else (0, 12 * steps)
+            phase("mssit-train-entry", f"cli.{tool} {Path(cfg).relative_to(ROOT)} "
+                  f"{' '.join('--set ' + e for e in extra)} in {t_cli:.1f} s: {metric} "
+                  f"{cli[metric]!r} at epoch {cli['best_epoch']}, val by epoch {vals[0]}; "
+                  f"in process ({time.perf_counter() - t0:.1f} s): {mine[metric]!r}, val "
+                  f"{vals[1]} (must be equal); tpu.fused_train read as {exp.fused_train}; "
+                  f"launches in process {launches}; fused_block_bwd / flash_attention_qkv_bwd "
+                  f"{bwd}, expected {want_bwd} ({route} route)")
+            if vals[0] != vals[1] or cli[metric] != mine[metric] or len(vals[0]) != 2:
+                raise AssertionError(f"cli.{tool} disagrees with the in-process run")
+            if not all(math.isfinite(v) for v in vals[0]) or bwd != want_bwd:
+                raise AssertionError(f"cli.{tool} did not train on the {route} route")
+            if exp.fused_train != (route == "fused"):
+                raise AssertionError("--set tpu.fused_train was not read as YAML reads it")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # -- 1. device
     start("device")
@@ -4226,6 +4782,27 @@ def main() -> None:
     phase_mssit_entry(fb, fused, ms_models)
     del ms_models
     torch.cuda.empty_cache()
+
+    # -- 29. mssit-train-kernels (a generator of its own, as phases 26-27)
+    start("mssit-train-kernels")
+    kernels.update(phase_mssit_train_kernels(np.random.default_rng(SEED + 29), fb, sit_module))
+
+    # -- 30. mssit-train (every count zeroed just before each run)
+    start("mssit-train")
+    ms_exp, ms_mpp_exp, ms_table, ms_state = mssit_configs(np.random.default_rng(SEED + 30))
+    train_launches = phase_mssit_train(fb, ms_exp, ms_table, ms_state)
+    # one dh-32 attention backward runs inside every fused_block_bwd launch
+    for row_name in ("fused_block_bwd dh32", "flash_attention_bwd dh32"):
+        kernels[row_name]["launches"] = train_launches["fused_block_bwd"]
+
+    # -- 31. mssit-pretrain (every count zeroed just before each run)
+    start("mssit-pretrain")
+    phase_mssit_pretrain(fb, ms_mpp_exp, ms_table, ms_state)
+    del ms_state
+
+    # -- 32. mssit-train-entry
+    start("mssit-train-entry")
+    phase_mssit_train_entry(fb)
     phase("records", "the attention backward rows, this run's ms beside the two-pass "
           "mma.sync backward's recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at "
           "700 W; a record, not measured in this run): " + ", ".join(
@@ -4259,10 +4836,14 @@ def main() -> None:
               + ("" if INT8_RECORDS[k_][1] is None
                  else f"; torch._int_mm {INT8_RECORDS[k_][1]:.4f}")
               + f"; bound {INT8_RECORDS[k_][2]:.4f})" for k_, v_ in MMA_SYNC_INT8_MS.items()))
-    phase("records", "the MS-SiT path's kernels at dh 32 in this run (phase 26), ms / library "
-          "ms (SDPA, index_select + addmm, torch.mm) / bound ms: " + "; ".join(
-              f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
-              f"{'-' if t_[2] is None else f'{t_[2]:.4f}'}" for k_, t_ in MSSIT_RECORDS.items()))
+    for label_, records_, other_ in (
+            ("the MS-SiT path's kernels at dh 32 in this run (phase 26)", MSSIT_RECORDS,
+             "SDPA, index_select + addmm, torch.mm"),
+            ("the MS-SiT training path's kernels at dh 32 in this run (phase 29)",
+             MSSIT_BWD_RECORDS, "SDPA's backward, the eager block's autograd backward")):
+        phase("records", f"{label_}, ms / other ms ({other_}) / bound ms: " + "; ".join(
+            f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
+            f"{'-' if t_[2] is None else f'{t_[2]:.4f}'}" for k_, t_ in records_.items()))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

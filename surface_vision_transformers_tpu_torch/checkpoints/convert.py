@@ -30,7 +30,9 @@ JAX tree -> port state dict:
 - ``head_norm``, ``head`` -> ``head_norm``, ``head``.
 
 LayerNorm ``scale``/``bias`` become ``weight``/``bias``; flax Dense kernels
-(in, out) transpose to torch (out, in) weights.
+(in, out) transpose to torch (out, in) weights. A tree without
+``head_norm`` / ``head`` (an MPP encoder's, or the ``encoder_*.npz`` an MPP
+run writes for finetuning) maps onto the state dict without those keys.
 
 MPP: the JAX tree ``{"encoder": SiT tree, "mask_token", "to_original"}``
 maps onto the reference MPP state dict (``transformer.*`` for the encoder,
@@ -38,6 +40,13 @@ maps onto the reference MPP state dict (``transformer.*`` for the encoder,
 ``checkpoints.torch_import.mpp_params_from_torch`` maps it;
 ``encoder_state`` and ``mpp_state`` move a state dict between the two
 layouts.
+
+MPP of an MS-SiT: the JAX ``MPPMSSiT`` tree ``{"encoder": MSSiT tree
+without the head, "mask_token", "to_original"}`` maps onto the port's
+``models.mpp_mssit.MPPMSSiT`` state dict (``encoder.*`` in the MS-SiT
+layout above, ``mask_token``, ``to_original.{weight,bias}``) by
+``mpp_mssit_state_dict_from_jax``, and back by
+``jax_params_from_mpp_mssit_state_dict``.
 """
 
 from __future__ import annotations
@@ -174,10 +183,11 @@ _MSSIT_TOP = (("patch_embedding_kernel", "patch_embedding.weight", True),
               ("head/kernel", "head.weight", True), ("head/bias", "head.bias", False))
 
 
-def _mssit_pairs(depths) -> list[tuple[str, str, bool]]:
+def _mssit_pairs(depths, head: bool = True) -> list[tuple[str, str, bool]]:
     """(JAX leaf path, port key, transpose) of every MS-SiT parameter, for
-    stages of ``depths`` blocks."""
-    pairs = list(_MSSIT_TOP)
+    stages of ``depths`` blocks; without ``head_norm`` / ``head`` unless
+    ``head``."""
+    pairs = [t for t in _MSSIT_TOP if head or not t[0].startswith("head")]
     for s, depth in enumerate(depths):
         for i in range(depth):
             pairs += [(f"stage_{s}_block_{i}_{j}",
@@ -209,7 +219,7 @@ def mssit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tens
     ``params``) -> the port's ``MSSiT`` state dict (the table above)."""
     p = params["params"] if "params" in params else params
     out = {}
-    for path, key, transpose in _mssit_pairs(_mssit_depths(p)):
+    for path, key, transpose in _mssit_pairs(_mssit_depths(p), "head" in p):
         node = p
         for part in path.split("/"):
             node = node[part]
@@ -219,11 +229,12 @@ def mssit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tens
 
 
 def jax_params_from_mssit_state_dict(state: Mapping[str, torch.Tensor],
-                                     model) -> dict[str, Any]:
+                                     model, head: bool = True) -> dict[str, Any]:
     """Inverse of ``mssit_state_dict_from_jax``: the port's ``MSSiT`` state
-    dict (of ``model``'s depths) -> JAX tree of float32 numpy arrays."""
+    dict (of ``model``'s depths) -> JAX tree of float32 numpy arrays, the
+    head left out unless ``head``."""
     out: dict = {}
-    for path, key, transpose in _mssit_pairs(model.depths):
+    for path, key, transpose in _mssit_pairs(model.depths, head):
         a = state[key].detach().cpu().float().numpy()
         *parents, leaf = path.split("/")
         node = out
@@ -261,24 +272,68 @@ def jax_params_from_mpp_state_dict(state: Mapping[str, torch.Tensor],
                             "bias": c("to_original.bias")}}
 
 
+def mpp_mssit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A JAX ``MPPMSSiT`` param tree (optionally under ``params``) -> the
+    port's ``MPPMSSiT`` state dict, without the encoder's head (the tree has
+    none; ``train.runner.load_model_state`` keeps the model's own)."""
+    p = params["params"] if "params" in params else params
+    out = mpp_state(mssit_state_dict_from_jax(p["encoder"]), MSSIT_ENCODER)
+    out["mask_token"] = torch.from_numpy(np.array(p["mask_token"]))
+    out["to_original.weight"] = torch.from_numpy(
+        np.array(np.asarray(p["to_original"]["kernel"]).T, order="C"))
+    out["to_original.bias"] = torch.from_numpy(np.array(p["to_original"]["bias"]))
+    return out
+
+
+def jax_params_from_mpp_mssit_state_dict(state: Mapping[str, torch.Tensor],
+                                         encoder) -> dict[str, Any]:
+    """Inverse of ``mpp_mssit_state_dict_from_jax`` (``encoder``: the MS-SiT
+    whose depths the state holds); the encoder's head is left out, as the
+    JAX tree has none."""
+    def c(k):
+        return state[k].detach().cpu().float().numpy().copy()
+
+    return {"encoder": jax_params_from_mssit_state_dict(encoder_state(state), encoder,
+                                                        head=False),
+            "mask_token": c("mask_token"),
+            "to_original": {"kernel": np.ascontiguousarray(c("to_original.weight").T),
+                            "bias": c("to_original.bias")}}
+
+
+def is_mpp_mssit_tree(params: Mapping[str, Any]) -> bool:
+    """Whether a JAX param tree (optionally under ``params``) is an
+    ``MPPMSSiT``'s."""
+    p = params.get("params", params)
+    return "mask_token" in p and is_mssit_tree(p["encoder"])
+
+
+# The prefix of the encoder's keys in an MPP state dict: ``transformer.``
+# (the reference MPP of a SiT) or ``encoder.`` (the port's MPPMSSiT).
+SIT_ENCODER, MSSIT_ENCODER = "transformer.", "encoder."
+
+
 def is_mpp_state(state: Mapping[str, Any]) -> bool:
-    """Whether a state dict is in the MPP layout (encoder under
-    ``transformer.``)."""
-    return "mask_token" in state or any(k.startswith("transformer.transformer.")
-                                        for k in state)
+    """Whether a state dict is in an MPP layout (a SiT encoder under
+    ``transformer.``, an MS-SiT one under ``encoder.``)."""
+    return "mask_token" in state or any(
+        k.startswith(("transformer.transformer.", MSSIT_ENCODER)) for k in state)
 
 
 def encoder_state(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The SiT state dict inside an MPP one (a SiT one is returned as is)."""
+    """The encoder's state dict inside an MPP one (an encoder's is returned
+    as is)."""
     if not is_mpp_state(state):
         return dict(state)
-    n = len("transformer.")
-    return {k[n:]: v for k, v in state.items() if k.startswith("transformer.")}
+    prefix = MSSIT_ENCODER if any(k.startswith(MSSIT_ENCODER) for k in state) else SIT_ENCODER
+    n = len(prefix)
+    return {k[n:]: v for k, v in state.items() if k.startswith(prefix)}
 
 
-def mpp_state(sit_state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """A SiT state dict nested as an MPP encoder's."""
-    return {f"transformer.{k}": v for k, v in sit_state.items()}
+def mpp_state(state: Mapping[str, torch.Tensor],
+              prefix: str = SIT_ENCODER) -> dict[str, torch.Tensor]:
+    """An encoder's state dict nested as an MPP's (``prefix``: SiT's
+    ``transformer.`` or MS-SiT's ``encoder.``)."""
+    return {f"{prefix}{k}": v for k, v in state.items()}
 
 
 def save_params_npz(path: str | os.PathLike, tree: Mapping[str, Any]) -> None:

@@ -5,18 +5,16 @@ package's positional-config UX plus an explicit device."""
 from __future__ import annotations
 
 import argparse
-import json
 
 from surface_vision_transformers_tpu_torch.utils.config import read_config_file
 
 
 def _parse_value(text: str):
-    """JSON scalars and lists (64, 1e-05, true, "x", [1, 2]); anything else
-    stays a string."""
-    try:
-        return json.loads(text)
-    except ValueError:
-        return text
+    """A value as YAML reads it, as the JAX CLI parses ``--set`` (64, 1.0e-5,
+    false / no / off, ~ for None, [1, 2], any other word as a string)."""
+    import yaml
+
+    return yaml.safe_load(text)
 
 
 def parse_config(description: str, argv=None) -> tuple[dict, str]:

@@ -14,7 +14,8 @@ from surface_vision_transformers_tpu_torch.cli._common import parse_config
 
 
 def main(argv=None) -> None:
-    raw, device = parse_config("SiT masked-patch pretraining (PyTorch/CUDA)", argv)
+    raw, device = parse_config("SiT masked-patch / MS-SiT masked-window pretraining "
+                               "(PyTorch/CUDA)", argv)
     raw.setdefault("SSL", "mpp")  # force the MPP task
     from surface_vision_transformers_tpu_torch.train.runner import run_training
     from surface_vision_transformers_tpu_torch.utils.config import from_dict

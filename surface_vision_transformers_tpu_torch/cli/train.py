@@ -11,7 +11,7 @@ from surface_vision_transformers_tpu_torch.cli._common import parse_config
 
 
 def main(argv=None) -> None:
-    raw, device = parse_config("SiT supervised phenotype-regression training "
+    raw, device = parse_config("SiT / MS-SiT supervised phenotype-regression training "
                                "(PyTorch/CUDA)", argv)
     from surface_vision_transformers_tpu_torch.train.runner import run_training
     from surface_vision_transformers_tpu_torch.utils.config import from_dict

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) streamed attention, forward (head dim 32 or 64) and
-// backward (head dim 64).
+// Hopper (sm_90a) streamed attention, forward and backward, head dim 32 or
+// 64.
 //
 // Replaces the TPU kernel
 // surface_vision_transformers_tpu/ops/pallas/flash_attention.py::flash_attention
@@ -71,8 +71,8 @@
 // from an atomic ticket, start order by construction, made the main pass
 // slower at every shape tried (PERF.md).
 //
-// Head dim 32 (MS-SiT: 96 / 3 ... 768 / 24), forward only, without dropout:
-// the kernel is the dh-64 one with the head's columns narrower. Its tensor
+// Head dim 32 (MS-SiT: 96 / 3 ... 768 / 24), without dropout: each kernel
+// is the dh-64 one with the head's columns narrower. Its tensor
 // maps declare dh = 32 columns and keep the 64-column box, so TMA zero-fills
 // columns 32-63 of every [rows][64] tile: the tiles, the 128-byte swizzle,
 // the descriptors, the ring and its byte counts stay those of dh 64. S = Q
@@ -87,7 +87,21 @@
 // MS-SiT's shapes). The softmax scale 1 / sqrt(32) = 2^-2.5 is not a float:
 // lse takes it rounded once to fp32 (as the plain version's fp32 multiply
 // does), the exponent the double product 2^-2.5 log2(e) rounded once
-// (FwdScale). The tiling rule is the same for both dh.
+// (SoftmaxScale). The tiling rule is the same for both dh.
+//
+// The backward at dh 32 takes the same design: Q and dO arrive by TMA
+// through 32-column maps in 64-column boxes, K and V by cp.async with the
+// 16-byte pieces past column 32 zero-filled, so every tile, the swizzle,
+// the descriptors and the ring's byte counts stay those of dh 64. S and dP
+// run dh / 16 = 2 k16 steps; dV, dK and the dQ share run on the padded
+// tiles (their columns 32-63 come out zero and are never written), so half
+// of those three products' tensor work is on zeros; the kernel is bound by
+// latency, not by the tensor cores (below). The dQ shares, the fp32 sums in
+// the workspace and the dq pass carry dh columns, so the fixed-order sum
+// moves no zeros. P = 2^(s * SoftmaxScale::slog2 - lse log2 e) and dS
+// = P (dP - delta) SoftmaxScale::scale use the forward's two roundings of
+// the scale, so the backward forms the probabilities the forward's lse
+// describes; at dh 64 both are the exact 1/8 and the kernel is unchanged.
 //
 // Ragged edges, forward: rows past a tensor are zero-filled by TMA; keys in
 // [valid_len, nk) are real data and take -inf before the row max; the last
@@ -165,17 +179,18 @@ constexpr float kScale = 0.125f;       // 1 / sqrt(64), exact
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kScaleLog2 = kScale * kLog2e;  // exp(s / 8 - x) = 2^(s * kScaleLog2 - x log2 e)
 
-// The forward's softmax scale 1 / sqrt(DH) (lse) and its product with
-// log2(e) (the exponent): exact at dh 64; at dh 32, 2^-2.5 rounded once to
-// fp32 and the double product 2^-2.5 log2(e) rounded once.
+// The softmax scale 1 / sqrt(DH) (lse, and dS in the backward) and its
+// product with log2(e) (the exponent), both directions: exact at dh 64; at
+// dh 32, 2^-2.5 rounded once to fp32 and the double product 2^-2.5 log2(e)
+// rounded once.
 template <int DH>
-struct FwdScale;
+struct SoftmaxScale;
 template <>
-struct FwdScale<64> {
+struct SoftmaxScale<64> {
   static constexpr float scale = kScale, slog2 = kScaleLog2;
 };
 template <>
-struct FwdScale<32> {
+struct SoftmaxScale<32> {
   static constexpr float scale = 0.17677669529663688f;
   static constexpr float slog2 = (float)(0.17677669529663688 * 1.4426950408889634);
 };
@@ -293,15 +308,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[SA], float (&m)[2], floa
   for (int r = 0; r < 2; ++r) {  // every tile holds a key < kend: the new max is finite
     const float mn =
         fmaxf(m[r], quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))));
-    a[r] = exp2_approx((m[r] - mn) * FwdScale<DH>::slog2);  // 0 at the first tile
+    a[r] = exp2_approx((m[r] - mn) * SoftmaxScale<DH>::slog2);  // 0 at the first tile
     m[r] = mn;
-    ms[r] = mn * FwdScale<DH>::slog2;
+    ms[r] = mn * SoftmaxScale<DH>::slog2;
   }
 #pragma unroll
   for (int j = 0; j < SA / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], FwdScale<DH>::slog2, -ms[e >> 1]));
+      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], SoftmaxScale<DH>::slog2, -ms[e >> 1]));
       sum[e >> 1][j & 3] += s[4 * j + e];
     }
 #pragma unroll
@@ -484,8 +499,8 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   }
   if (lse != nullptr && t == 0) {
     float* lrow = lse + (long long)bh * nq;
-    if (row < nq) lrow[row] = m[0] * FwdScale<DH>::scale + logf(l[0]);
-    if (row + 8 < nq) lrow[row + 8] = m[1] * FwdScale<DH>::scale + logf(l[1]);
+    if (row < nq) lrow[row] = m[0] * SoftmaxScale<DH>::scale + logf(l[0]);
+    if (row + 8 < nq) lrow[row + 8] = m[1] * SoftmaxScale<DH>::scale + logf(l[1]);
   }
   // O's DH columns through this warpgroup's Q tile (its last reader, the
   // last S, is done), then out in 16-byte row pieces
@@ -518,15 +533,20 @@ constexpr int BWD_BK = 64, BWD_BQ = 64;    // keys per CTA, queries per step
 constexpr int BWD_STAGES = 2;              // Q / dO tiles: this step's and the next one's
 constexpr int BWD_SLOTS = 2;               // dQ shares between the warpgroup and the writer
 constexpr int BWD_THREADS = 128 + 32;      // one compute warpgroup + the writer warp
-constexpr int BWD_TILE = BWD_BQ * ATT_DH;  // floats of one query tile's dQ share
+constexpr int BWD_TILE = BWD_BQ * ATT_DH;  // floats of a dQ share's slot (dh 64)
 constexpr int BWD_CHAINS = 4;              // ordered sums per query tile (see add_place)
 
-// Shared memory of the main pass: 64-row bf16 tiles in the 128-byte swizzle.
+// Floats of one query tile's dQ share, and of a sum in the workspace, at DH.
 template <int DH>
+__host__ __device__ constexpr int bwd_tile() {
+  return BWD_BQ * DH;
+}
+
+// Shared memory of the main pass: 64-row bf16 tiles of 64 columns in the
+// 128-byte swizzle, at either dh (at dh 32 columns 32-63 hold zeros).
 struct BwdSmem {
-  static_assert(DH == 64, "the tiles are 128-byte rows: dh 32 needs the 64-byte swizzle");
-  bf16 k[BWD_BK * DH], v[BWD_BK * DH];          // key rows in the permuted order kperm()
-  bf16 q[BWD_STAGES][BWD_BQ * DH], d_o[BWD_STAGES][BWD_BQ * DH];  // ring filled by TMA
+  bf16 k[BWD_BK * ATT_DH], v[BWD_BK * ATT_DH];  // key rows in the permuted order kperm()
+  bf16 q[BWD_STAGES][BWD_BQ * ATT_DH], d_o[BWD_STAGES][BWD_BQ * ATT_DH];  // ring filled by TMA
   bf16 p[BWD_BQ * BWD_BK], ds[BWD_BQ * BWD_BK];  // P~ and dS of the step, [query][key column]
   float4 dq[BWD_SLOTS][BWD_TILE / 4];           // dQ shares, in the accumulator's order (below)
   uint64_t loaded[BWD_STAGES];                  // a Q / dO stage has landed
@@ -537,7 +557,8 @@ struct BwdSmem {
 // holds them: float4 m of thread i (d[4m .. 4m + 3]: rows 16 (i / 32) + (i
 // % 32) / 4 and 8 below, columns 8m + 2 (i % 4) and the next) at m * 128 +
 // i, so the threads' stores are conflict-free and one bulk copy moves a
-// tile; flash_bwd_dq_kernel undoes it.
+// tile; flash_bwd_dq_kernel undoes it. At dh 32 the share is the first half
+// (m < 4: columns 0-31).
 
 // Key column c of a tile holds key kperm(c): the columns a thread holds
 // (2t, 2t + 1, 8 + 2t, 9 + 2t of each 16) are then the four consecutive keys
@@ -547,13 +568,14 @@ __device__ __forceinline__ int kperm(int c) {
 }
 
 // Key rows k0 .. k0 + 63 of (b, h) into a swizzled tile, row r holding key
-// k0 + kperm(r); zeros past n.
+// k0 + kperm(r); zeros past n and past column DH.
+template <int DH>
 __device__ __forceinline__ void load_key_tile(bf16* dst, const Strided& t, int b, int h, int k0,
                                               int n, int tid) {
   for (int i = tid; i < 64 * 8; i += 128) {
     const int r = i >> 3, ch = i & 7;
     const int src = k0 + kperm(r);
-    const bool ok = src < n;
+    const bool ok = src < n && ch < DH / 8;
     cp_async16(dst + sw128(r, ch * 8), ok ? t.row(b, h, src) + ch * 8 : t.p, ok);
   }
 }
@@ -561,16 +583,18 @@ __device__ __forceinline__ void load_key_tile(bf16* dst, const Strided& t, int b
 // The compute warpgroup's own barrier (the writer warp does not take part).
 __device__ __forceinline__ void wg_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
 
-// delta = rowsum(dO . O) over (B, heads, nq) rows, eight threads a row, one
+// delta = rowsum(dO . O) over (B, heads, nq) rows, DH / 8 threads a row, one
 // 16-byte load of each operand per thread; zeroes the nsem turn counters.
+template <int DH>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta_kernel(const Strided o, const Strided d_o, float* __restrict__ delta,
                            int* __restrict__ sems, long long nsem, int heads, int nq,
                            long long rows) {
+  constexpr int PARTS = DH / 8;  // threads of a row
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid < nsem) sems[gid] = 0;
-  const long long r = gid >> 3;
-  const int part = threadIdx.x & 7;
+  const long long r = gid / PARTS;
+  const int part = threadIdx.x % PARTS;
   float s = 0.f;
   if (r < rows) {
     const int row = (int)(r % nq), bh = (int)(r / nq);
@@ -585,9 +609,8 @@ __global__ void __launch_bounds__(256)
       s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
     }
   }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  s += __shfl_xor_sync(0xffffffffu, s, 4);
+#pragma unroll
+  for (int x = 1; x < PARTS; x *= 2) s += __shfl_xor_sync(0xffffffffu, s, x);
   if (r < rows && part == 0) delta[r] = s;
 }
 
@@ -637,10 +660,13 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 // The writer (one thread): the share of each step into its tile's sum once
 // the add before it in that sum is done, with one bulk copy (the first add)
 // or bulk reduce-add, then the turn passes on. sums: (BWD_CHAINS, B *
-// heads, nqt_all) tiles; sems: (BWD_CHAINS, B * heads, nqt_all) counters.
-__device__ __forceinline__ void dq_writer(BwdSmem<ATT_DH>& sm, float* sums, int* sems,
+// heads, nqt_all) tiles of bwd_tile<DH>() floats; sems: (BWD_CHAINS, B *
+// heads, nqt_all) counters.
+template <int DH>
+__device__ __forceinline__ void dq_writer(BwdSmem& sm, float* sums, int* sems,
                                           long long chain_tiles, int kb, int nqt,
                                           bool rotate) {
+  constexpr int TILE = bwd_tile<DH>();
   for (int step = 0; step < nqt; ++step) {
     const int slot = step % BWD_SLOTS, tile = step_tile(kb, step, nqt, rotate);
     const int2 place = add_place(kb, tile, rotate);
@@ -651,17 +677,17 @@ __device__ __forceinline__ void dq_writer(BwdSmem<ATT_DH>& sm, float* sums, int*
       asm volatile("fence.proxy.async.global;\n" ::: "memory");
     }
     mbar_wait(&sm.full[slot], (step / BWD_SLOTS) & 1);
-    float* dst = sums + (chain * chain_tiles + tile) * BWD_TILE;
+    float* dst = sums + (chain * chain_tiles + tile) * TILE;
     const uint32_t src = smem_u32(sm.dq[slot]);
     if (rank == 0)
       asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-                   "r"(src), "r"(BWD_TILE * 4)
+                   "r"(src), "r"(TILE * 4)
                    : "memory");
     else
       asm volatile(
           "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
               dst),
-          "r"(src), "r"(BWD_TILE * 4)
+          "r"(src), "r"(TILE * 4)
           : "memory");
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -687,7 +713,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
                      int* __restrict__ sems, const Strided dk, const Strided dv, int nq, int nk,
                      int valid_len, bool rotate, const Dropout dr) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -711,15 +737,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
   if (warp == 4) {  // the writer
     const long long chain_tiles = (long long)gridDim.z * heads * nqt_all;
     if (lane == 0 && steps > 0)
-      dq_writer(sm, sums + (long long)bh * nqt_all * BWD_TILE, sems + (long long)bh * nqt_all,
-                chain_tiles, kb, nqt, rotate);
+      dq_writer<DH>(sm, sums + (long long)bh * nqt_all * bwd_tile<DH>(),
+                    sems + (long long)bh * nqt_all, chain_tiles, kb, nqt, rotate);
     return;
   }
 
   // Q and dO rows of step s (one thread issues)
   auto load_step = [&](int s) {
     const int st = s % BWD_STAGES, q0 = step_tile(kb, s, nqt, rotate) * BWD_BQ;
-    mbar_expect(&sm.loaded[st], 2 * BWD_BQ * DH * 2);
+    mbar_expect(&sm.loaded[st], 2 * BWD_BQ * ATT_DH * 2);  // whole boxes, zero fill included
     tma_tile(sm.q[st], tm_q, &sm.loaded[st], q0, h, b, hf_q);
     tma_tile(sm.d_o[st], tm_do, &sm.loaded[st], q0, h, b, hf_do);
   };
@@ -730,8 +756,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = dva[i] = dka[i] = 0.f;
   if (steps > 0) {
     const int kvalid = min(BWD_BK, kend - k0);
-    load_key_tile(sm.k, k, b, h, k0, nk, tid);
-    load_key_tile(sm.v, v, b, h, k0, nk, tid);
+    load_key_tile<DH>(sm.k, k, b, h, k0, nk, tid);
+    load_key_tile<DH>(sm.v, v, b, h, k0, nk, tid);
     cp_async_commit();
     cp_async_wait<0>();
     fence_async_smem();
@@ -801,14 +827,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
           const float ml = rr ? ml1 : ml0, dl = rr ? dl1 : dl0;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float pr = exp2_approx(fmaf(x[rr][e], kScaleLog2, -ml));
+            const float pr = exp2_approx(fmaf(x[rr][e], SoftmaxScale<DH>::slog2, -ml));
             if constexpr (DROP) {
               const bool kept = (keep[rr] >> e) & 1;
               pt[rr][e] = kept ? pr * dr.inv_keep : 0.f;
-              dsv[rr][e] = pr * ((kept ? y[rr][e] * dr.inv_keep : 0.f) - dl) * kScale;
+              dsv[rr][e] =
+                  pr * ((kept ? y[rr][e] * dr.inv_keep : 0.f) - dl) * SoftmaxScale<DH>::scale;
             } else {
               pt[rr][e] = pr;
-              dsv[rr][e] = pr * (y[rr][e] - dl) * kScale;
+              dsv[rr][e] = pr * (y[rr][e] - dl) * SoftmaxScale<DH>::scale;
             }
           }
         }
@@ -837,15 +864,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
       for (int kq = 0; kq < BWD_BQ / 16; ++kq) {
         if (kq < qsteps) {
           wgmma_ss<1, 1>(dva, sw128_desc(sm.p + kq * 16 * BWD_BK),
-                         sw128_desc(sm.d_o[st] + kq * 16 * DH), 1);
+                         sw128_desc(sm.d_o[st] + kq * 16 * ATT_DH), 1);
           wgmma_ss<1, 1>(dka, sw128_desc(sm.ds + kq * 16 * BWD_BK),
-                         sw128_desc(sm.q[st] + kq * 16 * DH), 1);
+                         sw128_desc(sm.q[st] + kq * 16 * ATT_DH), 1);
         }
       }
 #pragma unroll
       for (int G = 0; G < 4; ++G)
         if (G < ksteps)  // S is spent: it takes the dQ share
-          wgmma_rs<1>(s, dsf[G], sw128_desc(sm.k + G * 16 * DH), G);
+          wgmma_rs<1>(s, dsf[G], sw128_desc(sm.k + G * 16 * ATT_DH), G);
       wg_commit();
       wg_wait<0>();
       wg_hold(dva);
@@ -893,20 +920,22 @@ __device__ __forceinline__ void add4(float4& a, const float4& x) {
 // sum only where its turn counter says it took an add: one thread per
 // float4 of a tile (rows r and r + 8, two columns); rows >= qend (never
 // summed) are 0.
+template <int DH>
 __global__ void __launch_bounds__(256)
     flash_bwd_dq_kernel(const float* __restrict__ sums, const int* __restrict__ sems,
                         const Strided dq, int heads, int nq, int qend, long long chunks) {
+  constexpr int TILE4 = bwd_tile<DH>() / 4;
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= chunks) return;
   const int nqt_all = ceil_div(nq, BWD_BQ);
-  const long long tile = c / (BWD_TILE / 4);
-  const int within = (int)(c % (BWD_TILE / 4)), i = within % 128;
+  const long long tile = c / TILE4;
+  const int within = (int)(c % TILE4), i = within % 128;
   const int bh = (int)(tile / nqt_all), q0 = (int)(tile % nqt_all) * BWD_BQ;
   const int lane = i & 31, row = q0 + 16 * (i >> 5) + (lane >> 2);
   const int col = 8 * (within / 128) + 2 * (lane & 3);
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f), w = a;
   if (row < qend) {
-    const long long tiles = chunks / (BWD_TILE / 4);
+    const long long tiles = chunks / TILE4;
     const float4* s4 = reinterpret_cast<const float4*>(sums);
     if (sems[tile]) a = s4[c];
     if (sems[tiles + tile]) add4(a, s4[c + chunks]);
@@ -940,13 +969,13 @@ cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n
   return encode_tiled(m, 4, t.p, dims, strides, box);
 }
 
-template <bool DROP>
+template <bool DROP, int DH>
 cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const Strided& k,
                             const Strided& v, const Strided& d_o, const float* lse,
                             const float* delta, float* sums, int* sems, const Strided& dk,
                             const Strided& dv, int B, int heads, int nq, int nk, int valid_len,
                             const Dropout& dr) {
-  constexpr int smem = sizeof(BwdSmem<ATT_DH>) + 1024;  // + alignment to 1024 bytes
+  constexpr int smem = sizeof(BwdSmem) + 1024;  // + alignment to 1024 bytes
   // The shared-memory limit, set once per device (a launch's host work
   // counts where the kernels are short).
   static bool ready[16];
@@ -954,7 +983,7 @@ cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const 
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_bwd_kernel<DROP, ATT_DH>,
+    e = cudaFuncSetAttribute(flash_bwd_kernel<DROP, DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     if (dev < 16) ready[dev] = true;
@@ -964,9 +993,9 @@ cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const 
   const bool rotate = qt == kt;
   const bool hf_q = q.sh < q.sr, hf_do = d_o.sh < d_o.sr;
   CUtensorMap tm_q, tm_do;
-  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_do, d_o, B, heads, nq, hf_do)) != cudaSuccess) return e;
-  flash_bwd_kernel<DROP, ATT_DH><<<grid, BWD_THREADS, smem, st>>>(
+  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, BWD_BQ, DH)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_do, d_o, B, heads, nq, hf_do, BWD_BQ, DH)) != cudaSuccess) return e;
+  flash_bwd_kernel<DROP, DH><<<grid, BWD_THREADS, smem, st>>>(
       tm_q, tm_do, hf_q, hf_do, k, v, lse, delta, sums, sems, dk, dv, nq, nk, valid_len, rotate,
       dr);
   return cudaGetLastError();
@@ -1031,6 +1060,34 @@ cudaError_t launch_rule(bool long_keys, bool wide, cudaStream_t st, const Stride
   return launch_fwd<1, 128, DROP, DH>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
 }
 
+// The three launches at head dim DH (see the header).
+template <int DH>
+cudaError_t bwd_launches(const Strided& q, const Strided& k, const Strided& v, const Strided& o,
+                         const Strided& d_o, const float* lse, float* delta, float* ws,
+                         const Strided& dq, const Strided& dk, const Strided& dv, int B,
+                         int heads, int nq, int nk, int valid_len, cudaStream_t st,
+                         const Dropout& dr) {
+  const long long rows = (long long)B * heads * nq;
+  const long long tiles = (long long)B * heads * ceil_div(nq, BWD_BQ);  // per chain
+  float* sums = ws;
+  int* sems = reinterpret_cast<int*>(ws + BWD_CHAINS * tiles * bwd_tile<DH>());
+  const long long threads = std::max(rows * (DH / 8), BWD_CHAINS * tiles);
+  flash_bwd_delta_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      o, d_o, delta, sems, BWD_CHAINS * tiles, heads, nq, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid(ceil_div(nk, BWD_BK), heads, B);
+  e = dr.on ? launch_bwd_main<true, DH>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv,
+                                        B, heads, nq, nk, valid_len, dr)
+            : launch_bwd_main<false, DH>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv,
+                                         B, heads, nq, nk, valid_len, dr);
+  if (e != cudaSuccess) return e;
+  const long long chunks = tiles * (bwd_tile<DH>() / 4);
+  flash_bwd_dq_kernel<DH><<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
+      sums, sems, dq, heads, nq, std::min(valid_len, nq), chunks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 namespace svt {
@@ -1059,33 +1116,22 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
                                             nk, valid_len, dr);
 }
 
-long long flash_bwd_workspace(int B, int heads, int nq) {
+long long flash_bwd_workspace(int B, int heads, int nq, int dh) {
   // the sums and a turn counter per sum and tile
-  return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) * (BWD_TILE + 1);
+  return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) * ((long long)BWD_BQ * dh + 1);
 }
 
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
                       float* delta, float* ws, Strided dq, Strided dk, Strided dv, int B,
-                      int heads, int nq, int nk, int valid_len, cudaStream_t st, Dropout dr) {
-  const long long rows = (long long)B * heads * nq;
-  const long long tiles = (long long)B * heads * ceil_div(nq, BWD_BQ);  // per chain
-  float* sums = ws;
-  int* sems = reinterpret_cast<int*>(ws + BWD_CHAINS * tiles * BWD_TILE);
-  const long long threads = std::max(rows * 8, BWD_CHAINS * tiles);
-  flash_bwd_delta_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
-      o, d_o, delta, sems, BWD_CHAINS * tiles, heads, nq, rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const dim3 grid(ceil_div(nk, BWD_BK), heads, B);
-  e = dr.on ? launch_bwd_main<true>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv, B,
-                                    heads, nq, nk, valid_len, dr)
-            : launch_bwd_main<false>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv, B,
-                                     heads, nq, nk, valid_len, dr);
-  if (e != cudaSuccess) return e;
-  const long long chunks = tiles * (BWD_TILE / 4);
-  flash_bwd_dq_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
-      sums, sems, dq, heads, nq, std::min(valid_len, nq), chunks);
-  return cudaGetLastError();
+                      int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
+                      Dropout dr) {
+  if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1) return cudaErrorInvalidValue;
+  if (dh == 32 && !dr.on)  // dh 32 is built without dropout (MS-SiT trains with none)
+    return bwd_launches<32>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
+                            valid_len, st, dr);
+  if (dh != ATT_DH) return cudaErrorInvalidValue;
+  return bwd_launches<ATT_DH>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
+                              valid_len, st, dr);
 }
 
 Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) {
@@ -1122,10 +1168,10 @@ int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q
 }
 
 // flash_attention backward: the forward's operands, o and lse, the output
-// cotangent d_o (as o) -> dq (as q), dk, dv (as k); delta (B, heads, nq) fp32
-// scratch; ws svt_flash_attention_bwd_workspace(B, heads, nq) floats of
-// scratch (the fp32 dQ sums and their turn counters). Dropout as the
-// forward's, which gave o.
+// cotangent d_o (as o) -> dq (as q), dk, dv (as k); dh 32 or 64; delta (B,
+// heads, nq) fp32 scratch; ws svt_flash_attention_bwd_workspace(B, heads,
+// nq, dh) floats of scratch (the fp32 dQ sums and their turn counters).
+// Dropout as the forward's, which gave o (dh 64 only).
 int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
@@ -1135,7 +1181,7 @@ int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q
                             long long dq_sr, void* dk, long long dk_sb, long long dk_sh,
                             long long dk_sr, void* dv, long long dv_sb, long long dv_sh,
                             long long dv_sr, int B, int heads, int nq, int nk, int valid_len,
-                            unsigned seed, unsigned threshold, float inv_keep, int drop,
+                            int dh, unsigned seed, unsigned threshold, float inv_keep, int drop,
                             int device, void* stream) {
   SVT_TRY(cudaSetDevice(device));
   return (int)flash_bwd({(bf16*)q, q_sb, q_sh, q_sr}, {(bf16*)k, k_sb, k_sh, k_sr},
@@ -1143,7 +1189,7 @@ int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q
                         {(bf16*)d_o, do_sb, do_sh, do_sr}, (const float*)lse, (float*)delta,
                         (float*)ws, {(bf16*)dq, dq_sb, dq_sh, dq_sr},
                         {(bf16*)dk, dk_sb, dk_sh, dk_sr}, {(bf16*)dv, dv_sb, dv_sh, dv_sr}, B,
-                        heads, nq, nk, valid_len, static_cast<cudaStream_t>(stream),
+                        heads, nq, nk, valid_len, dh, static_cast<cudaStream_t>(stream),
                         make_dropout(seed, threshold, inv_keep, drop));
 }
 
@@ -1158,9 +1204,9 @@ int svt_flash_fwd_profile(unsigned long long* out) {
 }
 #endif
 
-// Floats of scratch svt_flash_attention_bwd needs in `ws`.
-long long svt_flash_attention_bwd_workspace(int B, int heads, int nq) {
-  return flash_bwd_workspace(B, heads, nq);
+// Floats of scratch svt_flash_attention_bwd needs in `ws` at head dim dh.
+long long svt_flash_attention_bwd_workspace(int B, int heads, int nq, int dh) {
+  return flash_bwd_workspace(B, heads, nq, dh);
 }
 
 }  // extern "C"

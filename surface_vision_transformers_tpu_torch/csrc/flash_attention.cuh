@@ -1,8 +1,8 @@
 // Streamed attention (flash_attention.cu): the launchers the block chains
 // (fused_block.cu, fused_block_int8.cu, fused_block_bwd.cu) share with the
 // public flash_attention entries. Both directions read their operands by
-// TMA and run their products on wgmma. The forward takes head dims 32 and
-// 64, the backward 64.
+// TMA and run their products on wgmma. Both take head dims 32 and 64
+// (dropout at 64 only).
 #pragma once
 
 #include "common.cuh"
@@ -49,17 +49,19 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
                       int nq, int nk, int valid_len, int dh, cudaStream_t st,
                       Dropout dr = Dropout{});
 
-// The backward (dh 64) from the forward's O and lse -> dQ, dK, dV; delta =
-// rowsum(dO . O) (B, heads, nq) fp32 and ws (flash_bwd_workspace floats:
-// the fp32 dQ sums and their turn counters) are scratch. Sums in a fixed
-// order, so the outputs repeat bit for bit. With dropout, O must be the
-// dropped output the forward returned.
+// The backward from the forward's O and lse -> dQ, dK, dV, dh 32 or 64 (32
+// without dropout); delta = rowsum(dO . O) (B, heads, nq) fp32 and ws
+// (flash_bwd_workspace floats: the fp32 dQ sums and their turn counters)
+// are scratch. Sums in a fixed order, so the outputs repeat bit for bit.
+// With dropout, O must be the dropped output the forward returned. Another
+// dh returns cudaErrorInvalidValue.
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
                       float* delta, float* ws, Strided dq, Strided dk, Strided dv, int B,
-                      int heads, int nq, int nk, int valid_len, cudaStream_t st,
+                      int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
                       Dropout dr = Dropout{});
 
-// Floats of scratch flash_bwd needs in ws for (B, heads, nq) query rows.
-long long flash_bwd_workspace(int B, int heads, int nq);
+// Floats of scratch flash_bwd needs in ws for (B, heads, nq) query rows at
+// head dim dh.
+long long flash_bwd_workspace(int B, int heads, int nq, int dh);
 
 }  // namespace svt

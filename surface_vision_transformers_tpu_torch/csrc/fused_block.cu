@@ -14,8 +14,8 @@
 // the first `rows` (<= 8) rows of each sample only. Attention is the
 // streamed kernel of flash_attention.cu, at any N (SiT-tiny's 321, SiT-base
 // on sub-ico 3's 1,281, MS-SiT's folded windows of 20 to 320) and head dim
-// 64 or, in svt_fused_block's serving chain, 32 (MS-SiT); the CLS block and
-// the training forward keep dh 64, the only width their backward takes.
+// 64 or 32 (MS-SiT, serving and training); the CLS block keeps dh 64, the
+// only width its backward takes (no MS-SiT pools by CLS).
 // The training entries (svt_fused_block[_cls]_train_fwd) run the same chain
 // and also keep what the backward (fused_block_bwd.cu) reads: LN
 // statistics, the fp32 fc1 pre-activation and the attention row
@@ -147,9 +147,7 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
               void* out, bf16* h, bf16* qkv, bf16* attn, bf16* x1, bf16* f, const Saves& s,
               int B, int N, int dim, int heads, int dim_head, int mlp, int valid_len, float eps,
               int device, void* stream) {
-  // dh 32 serves only: the backward (fused_block_bwd.cu) takes dh 64
-  if (dim_head != ATT_DH && (dim_head != 32 || s.stats1 != nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (dim_head != ATT_DH && dim_head != 32) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * dim_head;

@@ -7,7 +7,11 @@
 //                          _attn_bwd_kernel)            -> svt_fused_block_bwd
 //   fused_block_cls_train  backward: _block_cls_bwd (_block_cls_bwd_kernel)
 //                          and _block_cls_bwd_split     -> svt_fused_block_cls_bwd
-// Both JAX routes compute the same gradients; one chain serves every width.
+// Both JAX routes compute the same gradients; one chain serves every width,
+// at head dim 64 or (svt_fused_block_bwd: MS-SiT's blocks) 32. MS-SiT's
+// first stage (dim 96, qkv 288) makes the dX products' N and K and the
+// weight gradients' Mout and Nout ragged against the engine's 128 x 192
+// tiles; TMA zero-fills them and the epilogues skip them, as in the forward.
 //
 // It computes the gradient of the port's own forward (fused_block.cu: exact
 // erf-GELU, shifted softmax), not of the TPU kernel's tanh-GELU / clamped
@@ -236,14 +240,15 @@ cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const flo
 }
 
 // The attention backward on the chain's packed activations (B, rows, ld),
-// head h at columns h * 64: the streamed kernels of flash_attention.cu.
+// head h at columns h * dh: the streamed kernels of flash_attention.cu.
 cudaError_t attn_bwd(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V, int ldkv, int n,
                      const bf16* O, const bf16* dO, int ldo, const float* lse, float* delta,
                      float* ws, bf16* dQ, int lddq, bf16* dK, bf16* dV, int lddkv, int B,
-                     int heads, int valid_len, cudaStream_t st) {
-  return flash_bwd(packed(Q, nq, ldq), packed(K, n, ldkv), packed(V, n, ldkv), packed(O, nq, ldo),
-                   packed(dO, nq, ldo), lse, delta, ws, packed(dQ, nq, lddq),
-                   packed(dK, n, lddkv), packed(dV, n, lddkv), B, heads, nq, n, valid_len, st);
+                     int heads, int dh, int valid_len, cudaStream_t st) {
+  return flash_bwd(packed(Q, nq, ldq, dh), packed(K, n, ldkv, dh), packed(V, n, ldkv, dh),
+                   packed(O, nq, ldo, dh), packed(dO, nq, ldo, dh), lse, delta, ws,
+                   packed(dQ, nq, lddq, dh), packed(dK, n, lddkv, dh), packed(dV, n, lddkv, dh), B,
+                   heads, nq, n, valid_len, dh, st);
 }
 
 // The MLP branch of either block over its Mr rows (all B*N rows, or the CLS
@@ -284,7 +289,7 @@ long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, in
     need = std::max(need, (long long)dw_splits(s[0], s[1], s[2]) * s[0] * s[1]);
   need = std::max(need, (long long)ceil_div(M, gemm::BM) * mlp);
   need = std::max(need, (long long)ln_bwd_ctas(M) * 4 * dim);
-  return std::max(need, flash_bwd_workspace(B, heads, rows));  // the attention's dQ sums
+  return std::max(need, flash_bwd_workspace(B, heads, rows, dim_head));  // the attention's dQ sums
 }
 
 // Backward of svt_fused_block_train_fwd. In: x (B, N, dim) and g = dL/dout
@@ -304,7 +309,8 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                         void* da, void* dqkv, void* delta, void* ws, int B, int N, int dim,
                         int heads, int dim_head, int mlp, int valid_len, int device,
                         void* stream) {
-  if (dim_head != ATT_DH || dim > LNB_MAX_DIM) return (int)cudaErrorInvalidValue;
+  if ((dim_head != ATT_DH && dim_head != 32) || dim > LNB_MAX_DIM)
+    return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * dim_head;
@@ -326,7 +332,7 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                            st));
   SVT_TRY(attn_bwd(qkv_, 3 * hd, N, qkv_ + hd, qkv_ + 2 * hd, 3 * hd, N, (const bf16*)attn,
                    (const bf16*)da, hd, (const float*)lse, (float*)delta, part, dqkv_, 3 * hd,
-                   dqkv_ + hd, dqkv_ + 2 * hd, 3 * hd, B, heads, valid_len, st));
+                   dqkv_ + hd, dqkv_ + 2 * hd, 3 * hd, B, heads, dim_head, valid_len, st));
   SVT_TRY(weight_grad(dqkv_, 3 * hd, (const bf16*)h1, dim, 0, 0, 3 * hd, dim, M, (float*)d_wqkv,
                       part, st));
   SVT_TRY(gemm_nn<gemm::B_F32>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd, (float*)dh,
@@ -380,7 +386,7 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                            st));
   SVT_TRY(attn_bwd((const bf16*)q, hd, rows, kv_, kv_ + hd, 2 * hd, N, (const bf16*)attn,
                    (const bf16*)da, hd, (const float*)lse, (float*)delta, part, dq_, hd, dkv_,
-                   dkv_ + hd, 2 * hd, B, heads, valid_len, st));
+                   dkv_ + hd, 2 * hd, B, heads, ATT_DH, valid_len, st));
   // dW_qkv rows [0, hd) from the top rows' dq, rows [hd, 3hd) from every row's dk/dv
   SVT_TRY(weight_grad(dq_, hd, (const bf16*)h1, dim, rows, N, hd, dim, Mt, (float*)d_wqkv, part,
                       st));

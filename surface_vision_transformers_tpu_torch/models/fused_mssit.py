@@ -1,7 +1,9 @@
-"""An MS-SiT's serving forward through the block kernels.
+"""An MS-SiT's forward through the block kernels, for serving and for
+training (regression and masked-window pretraining).
 
 Counterpart of ``surface_vision_transformers_tpu.models.fused_mssit``
-(``fused_mssit_forward``). Everything in a pre-norm block but attention is
+(``fused_mssit_forward``, ``fused_mssit_train_forward``,
+``fused_mssit_mpp_loss``). Everything in a pre-norm block but attention is
 token-local, and MS-SiT's attention is local to a token group, so a
 windowed block on (B, T, dim) is a plain block on the groups folded into
 the batch (``models.mssit.fold_tokens``): per stage, each block folds,
@@ -10,7 +12,10 @@ stage is at least ``models.fused.INT8_MIN_DIM`` wide) and unfolds. The
 embedding is the SiT path's (``patch_embed`` for raw input on CUDA in
 bf16); the merges between stages (reshape, float32 LayerNorm, bias-free
 matmul) and the head (float32 LayerNorm, mean, Linear) stay plain torch, as
-the JAX package leaves them to XLA.
+the JAX package leaves them to XLA. The training forwards run the same
+folds with every block ``fused_block_train`` (the training forward keeping
+its activations, the backward ``fused_block_bwd``, both at dh 32), and the
+embedding, merges and head under autograd.
 
 At ``mssit_scan_age.yml`` (ico 6, sub-ico 5, dims 96 / 192 / 384 / 768,
 heads 3 / 6 / 12 / 24, window 64, ``global_max`` 512, axial cross-mixing)
@@ -18,13 +23,18 @@ every block runs at head dim 32: a batch of 64 surfaces launches one
 ``patch_embed`` and twelve ``fused_block`` (four, and eight
 ``fused_block_int8``, under int8) on folds of (20,480, 64, 96), (4,096,
 320, 96), (5,120, 64, 192), (4,096, 80, 192), (1,280, 64, 384), (4,096, 20,
-384) and (64, 320, 768).
+384) and (64, 320, 768); a training step adds twelve ``fused_block_bwd``
+(every fold takes the chain route: ``ops.fused_block.uses_recompute`` is
+false at N <= 320 and dim <= 768), and MPP (``mssit_mpp.yml``) embeds the
+corrupted tokens with a plain product, so it launches no ``patch_embed``.
 
 Differences from the JAX path, by design: the folded groups are not padded
 to N % 8 (the kernels mask their ragged edges; the axial fold of stage 2
-runs at N = 20, not 24), and the weights are prepared once
+runs at N = 20, not 24), and the weights are prepared once for serving
 (``prepare_mssit_weights``), as ``models.fused.prepare_weights`` does for
-a SiT. Meshes and ``scan_blocks`` (a TPU compile-time knob) raise.
+a SiT (training casts the float32 masters inside each block, as
+``fused_block_train`` does). Meshes and ``scan_blocks`` (a TPU
+compile-time knob) raise.
 """
 
 from __future__ import annotations
@@ -37,11 +47,16 @@ import torch.nn.functional as F
 from surface_vision_transformers_tpu_torch.models import fused
 from surface_vision_transformers_tpu_torch.models.fused import (
     QUANTS,
+    _MaskedMSERecon,
     embed_layout,
     embed_tokens,
     int8_block,
     mat,
     vec,
+)
+from surface_vision_transformers_tpu_torch.models.mpp_mssit import (
+    MPPMSSiT,
+    corruption_window,
 )
 from surface_vision_transformers_tpu_torch.models.mssit import (
     MSSiT,
@@ -49,7 +64,11 @@ from surface_vision_transformers_tpu_torch.models.mssit import (
     stage_plan,
     unfold_tokens,
 )
-from surface_vision_transformers_tpu_torch.ops.fused_block import fused_block
+from surface_vision_transformers_tpu_torch.ops.fused_block import (
+    _Linear32,
+    fused_block,
+    fused_block_train,
+)
 from surface_vision_transformers_tpu_torch.ops.fused_block_int8 import fused_block_int8
 
 
@@ -116,6 +135,13 @@ def prepare_mssit_weights(model: MSSiT, quant: str | None = None) -> MSSiTWeight
         head=(vec(model.head.weight), vec(model.head.bias)))
 
 
+def _unported(mesh, scan_blocks) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the fused MS-SiT paths under a mesh are not ported yet")
+    if scan_blocks:
+        raise NotImplementedError("scan_blocks is not ported")
+
+
 def fused_mssit_forward(model: MSSiT, x: torch.Tensor, weights: MSSiTWeights | None = None,
                         *, quant: str | None = None, mesh=None,
                         scan_blocks: bool = False) -> torch.Tensor:
@@ -126,10 +152,7 @@ def fused_mssit_forward(model: MSSiT, x: torch.Tensor, weights: MSSiTWeights | N
     on the CPU they run their plain versions."""
     if quant not in QUANTS:
         raise ValueError(f"unknown quant mode {quant!r}")
-    if mesh is not None:
-        raise NotImplementedError("fused_mssit_forward under a mesh is not ported yet")
-    if scan_blocks:
-        raise NotImplementedError("scan_blocks is not ported")
+    _unported(mesh, scan_blocks)
     w = weights if weights is not None else prepare_mssit_weights(model, quant)
     if w.quant != quant:
         raise ValueError(f"weights were prepared for quant={w.quant!r}, not {quant!r}")
@@ -153,3 +176,73 @@ def fused_mssit_forward(model: MSSiT, x: torch.Tensor, weights: MSSiTWeights | N
             h = F.linear(y.to(w.dtype), reduce)
     pooled = F.layer_norm(h.float(), (h.shape[-1],), *w.head_norm, eps=1e-5).mean(dim=1)
     return F.linear(pooled, *w.head)
+
+
+def _train_stages(model: MSSiT, h: torch.Tensor) -> torch.Tensor:
+    """Embedded tokens (B, T0, embed_dim) -> the final stage's tokens, every
+    block ``fused_block_train`` on its folds (the JAX ``_stages(train=True)``
+    without padding), the merges plain under autograd."""
+    for st, stage in zip(stage_plan(model), model.stages):
+        B, T, dim = h.shape
+        kw = dict(heads=st["heads"], dim_head=dim // st["heads"])
+        for mix, blk in zip(st["mixes"], block_parameters(stage)):
+            folded = fold_tokens(h, st["window"], mix)
+            out = fused_block_train(folded, *blk, **kw)
+            h = out if folded is h else unfold_tokens(out, B, T, st["window"], mix)
+        if stage.merge is not None:
+            h = stage.merge(h)
+    return h
+
+
+def fused_mssit_train_forward(model: MSSiT, x: torch.Tensor, *, mesh=None,
+                              scan_blocks: bool = False) -> torch.Tensor:
+    """Differentiable forward: raw (B, C, G), pre-patched or flattened input
+    -> (B, num_classes) float32, gradients flowing to every parameter of
+    ``model`` (the float32 masters, cast to ``model.dtype`` inside each
+    block). The embedding is ``model.embed`` on the kernel route (raw input
+    on CUDA in bf16: the ``patch_embed`` kernel, its backward plain); every
+    block is ``fused_block_train`` (kernels forward and backward on CUDA,
+    plain versions on the CPU); merges and head are plain PyTorch under
+    autograd."""
+    _unported(mesh, scan_blocks)
+    return model.head_forward(_train_stages(model, model.embed(x, backend="auto")))
+
+
+def fused_mssit_mpp_loss(mpp: MPPMSSiT, batch, generator=None, sample_weights=None, *,
+                         corruption=None, mesh=None, scan_blocks: bool = False):
+    """The masked-window MPP loss of ``mpp.forward`` over the fused-block
+    encoder, for training (the JAX ``fused_mssit_mpp_loss``): the
+    corruption (from ``generator``, or ``corruption`` = (corrupted, mask,
+    n_masked) given), the shared embedding of the corrupted tokens, every
+    block ``fused_block_train``, the decoder and the masked MSE over B *
+    n_masked * W * patch_dim (B the weight sum under ``sample_weights``), as
+    one differentiable scalar. Where the corruption window W is a multiple
+    of ``up`` (the finest tokens under a final-stage token; at the shipped
+    config W = up = 64) the mask is constant on each final-stage token and
+    the loss runs through ``models.fused._MaskedMSERecon``, with its own
+    backward; else the plain expression under autograd."""
+    _unported(mesh, scan_blocks)
+    enc = mpp.encoder
+    dt, P = enc.dtype, enc.patch_dim
+    target = mpp.target(batch)
+    W = corruption_window(enc)
+    corrupted, mask, n_masked = (corruption if corruption is not None
+                                 else mpp.corrupt(target, generator))
+    feats = _train_stages(enc, enc.embed(corrupted))
+    B, T_last = feats.shape[:2]
+    up = enc.num_patches // T_last
+    maskw = mask.float()
+    if sample_weights is not None:
+        maskw = maskw * sample_weights[:, None]
+        batch_count = torch.clamp(sample_weights.sum(), min=1e-9)
+    else:
+        batch_count = torch.tensor(float(B), device=target.device)
+    inv_denom = 1.0 / (batch_count * n_masked * W * P)
+    head = mpp.to_original
+    if W % up == 0:
+        return _MaskedMSERecon.apply(feats, head.weight, head.bias,
+                                     target.reshape(B, T_last, up * P),
+                                     maskw.reshape(B, T_last, up)[:, :, 0], inv_denom, dt)
+    recon = (_Linear32.apply(feats, head.weight, dt) + head.bias.float()).reshape(
+        B, enc.num_patches, P)
+    return ((recon - target.float()).square() * maskw[:, :, None]).sum() * inv_denom

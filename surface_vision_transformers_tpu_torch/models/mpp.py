@@ -120,6 +120,9 @@ class MPP(nn.Module):
     def encoder(self) -> SiT:
         return self.transformer
 
+    def target(self, batch):
+        return mpp_target(self.transformer, batch)
+
     def corrupt(self, target, generator):
         return corrupt_sequence(target, self.mask_token, mask_prob=self.mask_prob,
                                 replace_prob=self.replace_prob, swap_prob=self.swap_prob,
@@ -131,7 +134,7 @@ class MPP(nn.Module):
         ``fixed_corrupted`` give it instead (the loss then divides by the
         mask's own count); ``rng`` turns dropout on."""
         enc = self.transformer
-        target = mpp_target(enc, batch)
+        target = self.target(batch)
         if fixed_mask is not None:
             mask, corrupted, n_masked = fixed_mask, fixed_corrupted, None
         else:

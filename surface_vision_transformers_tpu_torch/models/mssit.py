@@ -26,10 +26,18 @@ model does. ``WindowAttention`` folds the windows into the batch
 (``fold_tokens``) and follows the attention route rule
 (``ops.attention.kernel_route``): CUDA bfloat16 with ``attn_backend="auto"``
 runs ``flash_attention_qkv`` on the folded packed qkv (head dim 32 at every
-shipped stage); float32, ``"plain"`` and CPU tensors run
-``plain_attention``. The kernels' backward at dim_head 32 raises
-``NotImplementedError``: MS-SiT training is the next part of the port.
-Serving runs ``models.fused_mssit``.
+shipped stage, forward and backward); float32, ``"plain"`` and CPU tensors
+run ``plain_attention``. Under dropout the weights take the plain softmax
+and their dropout there, whatever the route, as the JAX ``WindowAttention``
+(``_use_packed_kernel`` is off under dropout), so MS-SiT needs no dropout
+kernel. Dropout (``dropout``, ``emb_dropout``) sits where the JAX model has
+it: on the attention weights, after the out-projection, after the GELU and
+after fc2 (the SiT ``FeedForward``), after the positions; it is on only when
+a forward gets a ``DropoutRNG``. ``forward(x, features=True)`` returns the
+final stage's tokens before the head, the MPP decoder's input
+(``models.mpp_mssit``). Serving runs ``models.fused_mssit``, and so does
+bfloat16 training without dropout (``fused_mssit_train_forward``); this
+module is the float32 and the dropout path.
 
 The state dict is the port's own (the reference ships SiT only, so no
 ``.pth`` exists to match): ``patch_embedding``, ``pos_embedding``,
@@ -45,6 +53,7 @@ import torch
 from torch import nn
 
 from surface_vision_transformers_tpu_torch.models.sit import (
+    DropoutRNG,
     FeedForward,
     _layer_norm,
     _linear,
@@ -129,26 +138,36 @@ def unfold_tokens(y: torch.Tensor, B: int, T: int, window: int, mix: str) -> tor
 class WindowAttention(nn.Module):
     """Multi-head attention within the token groups ``fold_tokens`` makes
     for ``mix`` (the pre-norm is the enclosing ``_PreNorm``'s): a bias-free
-    fused qkv projection, attention per group, a biased out-projection."""
+    fused qkv projection, attention per group, a biased out-projection.
+    With ``rng`` and ``dropout`` > 0: the plain softmax, dropout on its
+    weights and after the out-projection (the JAX route rule takes no
+    kernel then)."""
 
-    def __init__(self, dim, heads, dim_head, window, mix="window", attn_backend="auto"):
+    def __init__(self, dim, heads, dim_head, window, mix="window", attn_backend="auto",
+                 dropout=0.0):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         self.window, self.mix, self.attn_backend = window, mix, attn_backend
         self.to_qkv = nn.Linear(dim, 3 * heads * dim_head, bias=False)
         self.to_out = nn.Linear(heads * dim_head, dim)
 
-    def forward(self, h):
+    def forward(self, h, *, rng: DropoutRNG | None = None):
         B, T, _ = h.shape
+        drop = self.dropout if rng is not None else 0.0
         qkv = _linear(h, self.to_qkv)  # (B, T, 3 H dh), [q | k | v]
         folded = fold_tokens(qkv, self.window, self.mix)
-        if kernel_route(self.attn_backend, folded):
+        if drop:
+            q, k, v = split_qkv(folded, self.heads)
+            keep = rng.keep(q.shape[:3] + (k.shape[2],), drop)
+            out = merge_heads(plain_attention(q, k, v, None, keep, drop))
+        elif kernel_route(self.attn_backend, folded):
             out = flash_attention_qkv(folded, self.heads)
         else:
             out = merge_heads(plain_attention(*split_qkv(folded, self.heads)))
         if folded is not qkv:
             out = unfold_tokens(out, B, T, self.window, self.mix)
-        return _linear(out, self.to_out)
+        out = _linear(out, self.to_out)
+        return rng.drop(out, drop) if drop else out
 
 
 class PatchMerge(nn.Module):
@@ -168,27 +187,27 @@ class PatchMerge(nn.Module):
 
 
 class _Stage(nn.Module):
-    def __init__(self, st: dict, mlp_ratio: float, attn_backend: str, merge: bool):
+    def __init__(self, st: dict, mlp_ratio: float, attn_backend: str, merge: bool,
+                 dropout: float = 0.0):
         super().__init__()
         dim, heads = st["dim"], st["heads"]
         self.blocks = nn.ModuleList(
             nn.ModuleList([
                 _PreNorm(dim, WindowAttention(dim, heads, dim // heads, st["window"], mix,
-                                              attn_backend)),
-                _PreNorm(dim, FeedForward(dim, int(dim * mlp_ratio)))])
+                                              attn_backend, dropout)),
+                _PreNorm(dim, FeedForward(dim, int(dim * mlp_ratio), dropout))])
             for mix in st["mixes"])
         self.merge = PatchMerge(dim) if merge else None
 
-    def forward(self, x):
+    def forward(self, x, *, rng: DropoutRNG | None = None):
         for attn, ff in self.blocks:
-            x = x + attn(x)
-            x = x + ff(x)
+            x = x + attn(x, rng=rng)
+            x = x + ff(x, rng=rng)
         return x if self.merge is None else self.merge(x)
 
 
 class MSSiT(nn.Module):
-    """Multiscale Surface Vision Transformer (inference; training is not
-    ported yet)."""
+    """Multiscale Surface Vision Transformer."""
 
     def __init__(
         self, *, ico=6, patch_level=5, num_channels=4, num_vertices=6, embed_dim=96,
@@ -215,7 +234,8 @@ class MSSiT(nn.Module):
         self.pos_embedding = nn.Parameter(0.02 * torch.randn(1, self.num_patches, embed_dim))
         plan = stage_plan(self)
         self.stages = nn.ModuleList(
-            _Stage(st, mlp_ratio, attn_backend, merge=st["stage"] < len(plan) - 1)
+            _Stage(st, mlp_ratio, attn_backend, merge=st["stage"] < len(plan) - 1,
+                   dropout=dropout)
             for st in plan)
         last = self.stage_dims()[-1]
         self.head_norm = nn.LayerNorm(last, eps=1e-5)
@@ -268,17 +288,30 @@ class MSSiT(nn.Module):
             return _linear(t.to(self.dtype), self.patch_embedding)
         raise ValueError(f"expected 3D raw or 4D pre-patched input, got {tuple(x.shape)}")
 
-    def forward(self, x):
-        """-> (B, num_classes) float32."""
-        tokens = self.embed_patches(x)
+    def embed(self, x, *, rng: DropoutRNG | None = None, backend: str | None = None):
+        """Input -> (B, T0, embed_dim) tokens with positions (and, given
+        ``rng``, embedding dropout) in the compute dtype; ``backend`` as
+        ``embed_patches``."""
+        tokens = self.embed_patches(x, backend=backend)
         if tokens.shape[1] != self.num_patches:
             raise ValueError(f"input has {tokens.shape[1]} patches, model expects "
                              f"{self.num_patches}")
         h = tokens + self.pos_embedding.to(tokens.dtype)
+        return rng.drop(h, self.emb_dropout) if rng is not None else h
+
+    def head_forward(self, h):
+        """Final-stage tokens -> (B, num_classes) float32: float32
+        LayerNorm, mean over the tokens, Linear."""
+        return _linear(_layer_norm(h, self.head_norm).mean(dim=1), self.head)
+
+    def forward(self, x, *, rng: DropoutRNG | None = None, features: bool = False):
+        """-> (B, num_classes) float32; with ``features`` the final stage's
+        tokens (B, T_last, dim_last) before the head. Dropout on only with
+        ``rng``."""
+        h = self.embed(x, rng=rng)
         for stage in self.stages:
-            h = stage(h)
-        pooled = _layer_norm(h, self.head_norm).mean(dim=1)
-        return _linear(pooled, self.head)
+            h = stage(h, rng=rng)
+        return h if features else self.head_forward(h)
 
     @classmethod
     def from_config(cls, cfg, **overrides) -> "MSSiT":

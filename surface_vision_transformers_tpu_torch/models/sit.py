@@ -77,12 +77,15 @@ class DropoutRNG:
     def kernel_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (), generator=self.seeds))
 
+    def keep(self, shape, rate: float) -> torch.Tensor:
+        """A keep mask of ``shape`` at ``rate``: True with probability 1 - rate."""
+        return torch.rand(shape, generator=self.masks, device=self.device) >= rate
+
     def drop(self, x, rate: float):
         """Inverted dropout of ``x`` at ``rate`` (a no-op at rate 0)."""
         if not rate:
             return x
-        keep = torch.rand(x.shape, generator=self.masks, device=self.device) >= rate
-        return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
+        return torch.where(self.keep(x.shape, rate), x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
 
 
 def _linear(x, lin: nn.Linear):

@@ -119,9 +119,9 @@ def library() -> ctypes.CDLL:
     D = [ctypes.c_uint, ctypes.c_uint, F, I]  # dropout: seed, threshold, 1/(1-rate), on
     lib.svt_flash_attention_fwd.argtypes = S * 4 + [P] + [I] * 6 + D + [I, P]
     lib.svt_flash_attention_fwd.restype = I
-    lib.svt_flash_attention_bwd.argtypes = S * 5 + [P, P, P] + S * 3 + [I] * 5 + D + [I, P]
+    lib.svt_flash_attention_bwd.argtypes = S * 5 + [P, P, P] + S * 3 + [I] * 6 + D + [I, P]
     lib.svt_flash_attention_bwd.restype = I
-    lib.svt_flash_attention_bwd_workspace.argtypes = [I] * 3
+    lib.svt_flash_attention_bwd_workspace.argtypes = [I] * 4
     lib.svt_flash_attention_bwd_workspace.restype = ctypes.c_longlong
     lib.svt_fused_block_int8.argtypes = [P] * 25 + [I] * 8 + [F, I, P]
     lib.svt_fused_block_int8.restype = I

@@ -13,10 +13,10 @@ after it; the backward forms P from the kept LSE.
 
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/flash_attention.cu``) streams K
 and V through shared memory in tiles with an online softmax, so it takes any
-sequence length, bfloat16. The forward takes dh 64 and, without dropout,
-dh 32 (MS-SiT's heads); the backward dh 64, and at dh 32 raises
-``NotImplementedError`` (MS-SiT training is a later part of the port). The
-plain versions take any dh. The backward streams the queries past
+sequence length, bfloat16. Both directions take dh 64 and, without
+dropout, dh 32 (MS-SiT's heads: 32-column operands in the 64-column tiles,
+the padding zero-filled by the loads). The plain versions take any dh. The
+backward streams the queries past
 each 64-key block once (wgmma) and sums dq in a fixed order in an fp32
 workspace the wrapper allocates, so its outputs repeat bit for bit. It reads
 its operands through (batch, head, row) strides, so views of packed
@@ -46,8 +46,8 @@ import torch
 
 from surface_vision_transformers_tpu_torch.ops import _native
 
-FWD_DIM_HEADS = (32, 64)  # the forward kernel's head dims (32 without dropout)
-BWD_DIM_HEAD = 64  # the backward kernel's
+DIM_HEADS = (32, 64)  # the kernels' head dims (32 without dropout)
+DROPOUT_DIM_HEAD = 64  # the dropout kernels'
 
 
 def _masked_scores(q, k, valid_len):
@@ -193,30 +193,25 @@ def _heads_last_empty(like, n):
     return like.new_empty((B, n, H, dh)).transpose(1, 2)
 
 
-def check_dim_head(dh: int, *, backward: bool = False, dropout: bool = False) -> None:
+def check_dim_head(dh: int, *, dropout: bool = False) -> None:
     """Raise ``NotImplementedError`` on a head dim the kernels are not built
-    for: the forward takes 32 and 64 (32 without dropout), the backward 64."""
-    if backward and dh == 32:
+    for: forward and backward take 32 and 64, with dropout 64 only."""
+    if dropout and dh != DROPOUT_DIM_HEAD:
         raise NotImplementedError(
-            "the attention backward at dim_head 32 is not ported yet: it comes with "
-            "MS-SiT training, the next part of the port")
-    if backward or dropout:
-        if dh != BWD_DIM_HEAD:
-            raise NotImplementedError(
-                f"the attention {'backward' if backward else 'dropout forward'} kernel is "
-                f"built for dim_head {BWD_DIM_HEAD}, got {dh}")
-    elif dh not in FWD_DIM_HEADS:
+            f"the attention dropout kernels are built for dim_head {DROPOUT_DIM_HEAD}, "
+            f"got {dh}")
+    if dh not in DIM_HEADS:
         raise NotImplementedError(
-            f"the attention forward kernel is built for dim_head {FWD_DIM_HEADS}, got {dh}")
+            f"the attention kernels are built for dim_head {DIM_HEADS}, got {dh}")
 
 
-def _check_cuda(q, k, v, valid_len, *extra, backward=False, dropout=False):
+def _check_cuda(q, k, v, valid_len, *extra, dropout=False):
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.dtype != torch.bfloat16 or t.dim() != 4 or t.device != q.device:
             raise ValueError(f"{name} must be a bfloat16 (B, H, N, dh) tensor on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     B, H, _, dh = q.shape
-    check_dim_head(dh, backward=backward, dropout=dropout)
+    check_dim_head(dh, dropout=dropout)
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != dh:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
@@ -266,8 +261,8 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         for dst, g in zip(out, grads):
             dst.copy_(g)
         return out
-    _check_cuda(q, k, v, vl, ("o", o), ("do", do), backward=True)
-    B, H, nq, _ = q.shape
+    _check_cuda(q, k, v, vl, ("o", o), ("do", do), dropout=bool(rate))
+    B, H, nq, dh = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("o and do must have q's shape")
     if lse.shape != (B, H, nq) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -278,12 +273,12 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         out = _heads_last_empty(q, nq), _heads_last_empty(k, nk), _heads_last_empty(k, nk)
     lib = _native.library()
     delta = torch.empty_like(lse)
-    ws = torch.empty(lib.svt_flash_attention_bwd_workspace(B, H, nq), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty(lib.svt_flash_attention_bwd_workspace(B, H, nq, dh),
+                     dtype=torch.float32, device=q.device)
     _native.check(lib.svt_flash_attention_bwd(
         *_operand(q), *_operand(k), *_operand(v), *_operand(o), *_operand(do),
         lse.data_ptr(), delta.data_ptr(), ws.data_ptr(), *(x for t in out for x in _operand(t)),
-        B, H, nq, nk, vl, *_drop_args(rate, seed), q.device.index,
+        B, H, nq, nk, vl, dh, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
     return out
 

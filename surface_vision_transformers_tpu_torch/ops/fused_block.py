@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.ops import _native
 from surface_vision_transformers_tpu_torch.ops.flash_attention import (
-    FWD_DIM_HEADS,
+    DIM_HEADS,
     flash_attention,
     flash_attention_bwd_reference,
     flash_attention_reference,
@@ -156,20 +156,17 @@ def fused_block_cls_reference(
 # -- kernel wrappers -------------------------------------------------------------
 
 
-def check_dim_head(dim_head: int, serving: bool) -> None:
+def check_dim_head(dim_head: int, cls: bool = False) -> None:
     """Raise ``NotImplementedError`` on a head dim the chain is not built
-    for: the serving ``fused_block`` takes 32 (MS-SiT) and 64; the CLS block
-    and the training chains 64, the one width their backward takes."""
-    if serving and dim_head in FWD_DIM_HEADS:
-        return
-    if dim_head == 32:
-        raise NotImplementedError(
-            "dim_head 32 runs in the serving fused_block only: the CLS block and "
-            "training at dim_head 32 are not ported yet (MS-SiT training, the next "
-            "part of the port)")
-    if dim_head != 64:
+    for: ``fused_block``, its training forward and ``fused_block_bwd`` take
+    32 (MS-SiT) and 64; the CLS block and its backward 64 (no MS-SiT pools
+    by CLS)."""
+    if dim_head not in DIM_HEADS:
         raise NotImplementedError(
             f"the block kernels are built for dim_head 32 or 64, got {dim_head}")
+    if cls and dim_head != 64:
+        raise NotImplementedError(
+            f"the CLS block kernels are built for dim_head 64, got {dim_head}")
 
 
 def check_vectors(vectors: dict) -> None:
@@ -185,9 +182,9 @@ def check_vectors(vectors: dict) -> None:
                              "(the engine loads it as float4)")
 
 
-def _check_cuda_args(x, params, heads, dim_head, valid_len, serving=False):
+def _check_cuda_args(x, params, heads, dim_head, valid_len, cls=False):
     """Validate everything the kernels assume; raise on anything else.
-    ``serving``: the serving ``fused_block``, which also takes dim_head 32."""
+    ``cls``: the CLS block's chains, which take dim_head 64 only."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b,
      w_fc1, b_fc1, w_fc2, b_fc2) = params
     if x.dtype != torch.bfloat16:
@@ -197,7 +194,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, serving=False):
     B, N, dim = x.shape
     hd = heads * dim_head
     mlp = w_fc1.shape[0]
-    check_dim_head(dim_head, serving)
+    check_dim_head(dim_head, cls)
     if dim % 8 or mlp % 8:
         raise NotImplementedError("dim and mlp_dim must be multiples of 8")
     if not 1 <= valid_len <= N:
@@ -259,7 +256,7 @@ def fused_block(
         return fused_block_reference(x, *params, heads=heads,
                                      dim_head=dim_head, valid_len=vl,
                                      ln_eps=ln_eps)
-    _check_cuda_args(x, params, heads, dim_head, vl, serving=True)
+    _check_cuda_args(x, params, heads, dim_head, vl)
     lib = _native.library()
     B, N, dim = x.shape
     hd, mlp, M = heads * dim_head, w_fc1.shape[0], B * N
@@ -292,7 +289,7 @@ def fused_block_cls(
         return fused_block_cls_reference(x, *params, heads=heads,
                                          dim_head=dim_head, valid_len=vl,
                                          ln_eps=ln_eps)
-    _check_cuda_args(x, params, heads, dim_head, vl)
+    _check_cuda_args(x, params, heads, dim_head, vl, cls=True)
     B, N, dim = x.shape
     rows = min(_CLS_ROWS, N)
     check_tma_operands(cls_rows=rows)
@@ -493,7 +490,7 @@ def train_forward(x, *params, heads: int, dim_head: int,
         out = ref(x, *params, heads=heads, dim_head=dim_head, valid_len=vl,
                   ln_eps=ln_eps, saved=sv)
         return out, sv
-    _check_cuda_args(x, params, heads, dim_head, vl)
+    _check_cuda_args(x, params, heads, dim_head, vl, cls)
     B, N, dim = x.shape
     hd, mlp, H = heads * dim_head, params[7].shape[0], heads
     rows = min(_CLS_ROWS, N) if cls else N
@@ -529,7 +526,7 @@ def train_forward(x, *params, heads: int, dim_head: int,
 
 
 def _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls):
-    _check_cuda_args(x, params, heads, dim_head, vl)
+    _check_cuda_args(x, params, heads, dim_head, vl, cls)
     B, N, dim = x.shape
     rows = min(_CLS_ROWS, N) if cls else N
     if dim > _MAX_BWD_DIM:

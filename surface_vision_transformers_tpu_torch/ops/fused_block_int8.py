@@ -86,7 +86,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
         raise ValueError("x must be a contiguous (B, N, dim) tensor on 16 bytes")
     B, N, dim = x.shape
     hd, mlp = heads * dim_head, q_fc1.shape[0]
-    check_dim_head(dim_head, serving=True)
+    check_dim_head(dim_head)
     if dim % INT8_ROW_ALIGN or mlp % INT8_ROW_ALIGN:
         raise NotImplementedError(
             f"dim and mlp_dim must be multiples of {INT8_ROW_ALIGN} (int8 rows on 16 bytes, "

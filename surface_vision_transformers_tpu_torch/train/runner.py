@@ -16,10 +16,12 @@ written at once, so a run that dies keeps its best. At the end
 ``hparams_results.yml`` (the config plus results and ``phases_s``) and,
 under ``training.testing``, the test metric (regression also
 ``test_preds.csv``) from the best weights when ``training.save_ckpt`` keeps
-them, else from the final ones, as the JAX package tests. Not ported (they
-raise): resume and full-state checkpoints (``training.ckpt_every``),
-ImageNet initialisation, streaming input, meshes, augmentation, and any
-MS-SiT config (MS-SiT training and MPP are not ported yet).
+them, else from the final ones, as the JAX package tests. An MS-SiT config
+(``transformer.model: MS-SiT``) trains an ``MSSiT``, or under MPP an
+``MPPMSSiT`` around one; its npz files are JAX ``MSSiT`` / ``MPPMSSiT``
+trees. Not ported (they raise): resume and full-state checkpoints
+(``training.ckpt_every``), ImageNet initialisation, streaming input, meshes,
+augmentation.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
@@ -42,23 +44,29 @@ import numpy as np
 import torch
 
 from surface_vision_transformers_tpu_torch.checkpoints.convert import (
+    MSSIT_ENCODER,
     encoder_state,
+    is_mpp_mssit_tree,
     is_mpp_state,
     is_mssit_tree,
-    mssit_state_dict_from_jax,
+    jax_params_from_mpp_mssit_state_dict,
     jax_params_from_mpp_state_dict,
+    jax_params_from_mssit_state_dict,
     jax_params_from_state_dict,
     load_params_npz,
     load_torch_state_dict,
+    mpp_mssit_state_dict_from_jax,
     mpp_state,
     mpp_state_dict_from_jax,
+    mssit_state_dict_from_jax,
     save_params_npz,
     state_dict_from_jax,
 )
 from surface_vision_transformers_tpu_torch.data import npy as npy_io
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table
 from surface_vision_transformers_tpu_torch.models.fused import _device, predict, serving_quant
-from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
+from surface_vision_transformers_tpu_torch.models.mpp import MPP
+from surface_vision_transformers_tpu_torch.models.mpp_mssit import MPPMSSiT
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.obs.logging import (
@@ -74,9 +82,9 @@ from surface_vision_transformers_tpu_torch.utils.config import (
 
 def load_state_dict_any(path: str, depth: int) -> dict:
     """Reference-layout state dict (SiT, or MPP when the file holds one; the
-    port's MS-SiT layout for an MS-SiT tree) from a JAX params ``.npz`` or a
-    ``.pt``/``.pth`` file. Orbax checkpoint directories need JAX to read and
-    are refused."""
+    port's MS-SiT / MPP-MS-SiT layout for such a tree) from a JAX params
+    ``.npz`` or a ``.pt``/``.pth`` file. Orbax checkpoint directories need
+    JAX to read and are refused."""
     p = Path(path)
     if p.is_dir():
         raise ValueError(
@@ -86,6 +94,8 @@ def load_state_dict_any(path: str, depth: int) -> dict:
     if p.suffix == ".npz":
         tree = load_params_npz(p)
         tree = tree.get("params", tree)
+        if is_mpp_mssit_tree(tree):
+            return mpp_mssit_state_dict_from_jax(tree)
         if "mask_token" in tree:
             return mpp_state_dict_from_jax(tree, depth)
         if is_mssit_tree(tree):
@@ -94,38 +104,41 @@ def load_state_dict_any(path: str, depth: int) -> dict:
     return load_torch_state_dict(p)
 
 
-def build_model(exp: Experiment, table=None) -> SiT | MSSiT | MPP:
+def build_model(exp: Experiment, table=None) -> SiT | MSSiT | MPP | MPPMSSiT:
     """The config's model with float32 parameters: a SiT (an MSSiT under
-    ``transformer.model: MS-SiT``), wrapped in an MPP for an MPP config."""
-    if exp.model.model == "MS-SiT":
-        if exp.is_pretraining:
-            raise NotImplementedError("MS-SiT MPP (masked-window pretraining) is not "
-                                      "ported yet")
-        return MSSiT.from_config(exp, patch_table=table)
-    model = SiT.from_config(exp, patch_table=table)
+    ``transformer.model: MS-SiT``), wrapped in an MPP (an MPPMSSiT) for an
+    MPP config."""
+    mssit = exp.model.model == "MS-SiT"
+    model = (MSSiT if mssit else SiT).from_config(exp, patch_table=table)
     if exp.is_pretraining:
         m = exp.mpp
-        model = MPP(model, mask_prob=m.mask_prob, replace_prob=m.replace_prob,
-                    swap_prob=m.swap_prob)
+        model = (MPPMSSiT if mssit else MPP)(model, mask_prob=m.mask_prob,
+                                             replace_prob=m.replace_prob,
+                                             swap_prob=m.swap_prob)
     return model
 
 
-def load_model_state(model: SiT | MPP, state: dict) -> None:
-    """Load ``state`` strictly; an MPP's encoder head, which MPP never runs
-    and JAX MPP trees do not hold, keeps the model's values where the state
-    lacks it."""
-    if isinstance(model, MPP):
-        own = {k: v for k, v in model.state_dict().items()
-               if k.startswith("transformer.mlp_head.")}
+# The keys of an MPP's encoder head, which MPP never runs and the JAX MPP
+# trees do not hold.
+_MPP_ENCODER_HEAD = ("transformer.mlp_head.", "encoder.head_norm.", "encoder.head.")
+
+
+def load_model_state(model, state: dict) -> None:
+    """Load ``state`` strictly; an MPP's encoder head keeps the model's
+    values where the state lacks it."""
+    if isinstance(model, (MPP, MPPMSSiT)):
+        own = {k: v for k, v in model.state_dict().items() if k.startswith(_MPP_ENCODER_HEAD)}
         state = {**own, **state}
     model.load_state_dict(state, strict=True)
 
 
 def _as_layout(state: dict, model) -> dict:
     """``state`` in ``model``'s layout: an MPP checkpoint's encoder for a
-    SiT, a SiT checkpoint nested as the encoder of an MPP."""
+    SiT or an MS-SiT, an encoder's checkpoint nested in an MPP."""
     if isinstance(model, MPP):
         return state if is_mpp_state(state) else mpp_state(state)
+    if isinstance(model, MPPMSSiT):
+        return state if is_mpp_state(state) else mpp_state(state, MSSIT_ENCODER)
     return encoder_state(state)
 
 
@@ -162,7 +175,7 @@ def run_testing(exp: Experiment, *, device) -> dict:
     if exp.is_pretraining:
         dev = _device(device)
         model.to(dev)
-        tokens = mpp_target(model.transformer, torch.from_numpy(data).to(dev))
+        tokens = model.target(torch.from_numpy(data).to(dev))
         return {"n": int(data.shape[0]), "split": split,
                 "loss": evaluate_mpp(model, tokens, bs)}
 
@@ -190,7 +203,6 @@ def load_datasets(exp: Experiment, splits=None) -> dict:
 def _refuse_unported(exp: Experiment) -> None:
     tp = exp.raw.get("tpu", {})
     checks = [
-        (exp.model.model == "MS-SiT", "MS-SiT training"),
         (exp.augment, "augmentation"),
         (exp.data.streaming == "on", "streaming input (data.streaming: on)"),
         (exp.training.ckpt_every > 0, "rolling full-state checkpoints (training.ckpt_every)"),
@@ -203,7 +215,7 @@ def _refuse_unported(exp: Experiment) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def _load_initial_weights(exp: Experiment, model: SiT | MPP) -> None:
+def _load_initial_weights(exp: Experiment, model) -> None:
     """``training.load_weights_ssl``: the parameters that ``weights.ssl_mpp``
     (a params npz or a reference .pth, SiT or MPP) shares with the model."""
     if not exp.training.load_weights_ssl or exp.ssl_weights_path in ("", ".."):
@@ -218,17 +230,23 @@ def _load_initial_weights(exp: Experiment, model: SiT | MPP) -> None:
     model.load_state_dict(shared, strict=False)
 
 
-def _save_npz(path: Path, model: SiT | MPP, depth: int) -> None:
-    """``model``'s params npz; an MPP's encoder alone (without the head MPP
-    never runs, as the JAX package writes it) also goes to
-    ``encoder_<name>`` beside it, for finetuning."""
+def _save_npz(path: Path, model, depth: int) -> None:
+    """``model``'s params npz, a JAX tree of its kind; an MPP's (an
+    MPPMSSiT's) encoder alone (without the head MPP never runs, as the JAX
+    package writes it) also goes to ``encoder_<name>`` beside it, for
+    finetuning."""
     state = model.state_dict()
-    if not isinstance(model, MPP):
-        save_params_npz(path, {"params": jax_params_from_state_dict(state, depth)})
-        return
-    tree = jax_params_from_mpp_state_dict(state, depth)
+    if isinstance(model, MSSiT):
+        tree = jax_params_from_mssit_state_dict(state, model)
+    elif isinstance(model, SiT):
+        tree = jax_params_from_state_dict(state, depth)
+    elif isinstance(model, MPPMSSiT):
+        tree = jax_params_from_mpp_mssit_state_dict(state, model.encoder)
+    else:
+        tree = jax_params_from_mpp_state_dict(state, depth)
     save_params_npz(path, {"params": tree})
-    save_params_npz(path.with_name("encoder_" + path.name), {"params": tree["encoder"]})
+    if "encoder" in tree:
+        save_params_npz(path.with_name("encoder_" + path.name), {"params": tree["encoder"]})
 
 
 def run_training(exp: Experiment, *, device, datasets: dict | None = None,

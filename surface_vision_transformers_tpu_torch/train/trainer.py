@@ -2,18 +2,20 @@
 ``surface_vision_transformers_tpu.train.trainer.Trainer`` without meshes).
 
 The model holds float32 master parameters on the training device: a ``SiT``
-for regression, an ``MPP`` around one for pretraining. An ``MSSiT`` is
-served (``evaluate``: bfloat16 through ``fused_mssit_forward``, ``tpu.quant``
-handed on as it is, since its stages gate themselves by width) but not
-trained: MS-SiT training is not ported yet, and a step raises. Every step runs a
-forward, a weighted loss, and the optimizer from ``train.optim``. The route
+or an ``MSSiT`` for regression, an ``MPP`` around a SiT or an ``MPPMSSiT``
+around an MS-SiT for pretraining. Every step runs a forward, a weighted
+loss, and the optimizer from ``train.optim``. The route
 (``Trainer.uses_fused_train``, the JAX ``_use_fused_train`` without its mesh
 terms): bfloat16 compute, no dropout and ``tpu.fused_train`` take the
 fused-block kernels forward and backward (``fused_train_forward``,
-``fused_mpp_loss``); everything else -- float32 compute, dropout > 0 --
-runs the modular model under autograd, its attention on the attention
-kernels (``flash_attention_qkv[_dropout]``) for CUDA bfloat16. As in the
-JAX package:
+``fused_mpp_loss``; for an MS-SiT ``fused_mssit_train_forward``,
+``fused_mssit_mpp_loss``); everything else -- float32 compute, dropout > 0,
+``tpu.fused_train: false`` -- runs the modular model under autograd, its
+attention on the attention kernels (``flash_attention_qkv[_dropout]``) for
+CUDA bfloat16 (an MS-SiT under dropout on the plain softmax, as in JAX).
+Evaluation of an MS-SiT serves it in bfloat16 through
+``fused_mssit_forward``, ``tpu.quant`` handed on as it is (its stages gate
+themselves by width). As in the JAX package:
 
 * an epoch permutes the device-resident dataset once (here from a
   ``torch.Generator`` seeded by ``training.seed``), then reads contiguous
@@ -57,9 +59,12 @@ from surface_vision_transformers_tpu_torch.models.fused import (
 )
 from surface_vision_transformers_tpu_torch.models.fused_mssit import (
     fused_mssit_forward,
+    fused_mssit_mpp_loss,
+    fused_mssit_train_forward,
     prepare_mssit_weights,
 )
-from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
+from surface_vision_transformers_tpu_torch.models.mpp import MPP
+from surface_vision_transformers_tpu_torch.models.mpp_mssit import MPPMSSiT
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
 from surface_vision_transformers_tpu_torch.train.losses import get_loss_fn
@@ -93,10 +98,10 @@ def eval_generator(i: int, device) -> torch.Generator:
 
 
 @torch.no_grad()
-def evaluate_mpp(model: MPP, tokens: torch.Tensor, bs: int) -> float:
+def evaluate_mpp(model: MPP | MPPMSSiT, tokens: torch.Tensor, bs: int) -> float:
     """The MPP loss over (n, L, patch_dim) ``tokens`` in clamped contiguous
     batches of ``bs``, each with its fixed corruption (``eval_generator``),
-    weighted by sample: the modular MPP, its attention on
+    weighted by sample: the modular MPP (or MPPMSSiT), its attention on
     ``flash_attention_qkv`` for CUDA bfloat16."""
     n = tokens.shape[0]
     bs = min(bs, n)
@@ -112,18 +117,18 @@ def evaluate_mpp(model: MPP, tokens: torch.Tensor, bs: int) -> float:
 
 class Trainer:
     """Trains ``model`` (float32 parameters, already on its device): a
-    ``SiT`` on regression targets, or an ``MPP`` under an MPP config; serves
-    an ``MSSiT``."""
+    ``SiT`` or an ``MSSiT`` on regression targets, or an ``MPP`` (an
+    ``MPPMSSiT``) under an MPP config."""
 
-    def __init__(self, exp: Experiment, model: SiT | MSSiT | MPP):
+    def __init__(self, exp: Experiment, model: SiT | MSSiT | MPP | MPPMSSiT):
         if exp.augment:
             raise NotImplementedError("augmentation is not ported yet")
         self.task = "mpp" if exp.is_pretraining else "regression"
-        if isinstance(model, MPP) != (self.task == "mpp"):
+        if isinstance(model, (MPP, MPPMSSiT)) != (self.task == "mpp"):
             raise TypeError(f"a {self.task} config trains "
-                            f"{'an MPP' if self.task == 'mpp' else 'a SiT'}, got "
-                            f"{type(model).__name__}")
-        self.encoder = model.transformer if self.task == "mpp" else model
+                            f"{'an MPP' if self.task == 'mpp' else 'a SiT or an MS-SiT'}, "
+                            f"got {type(model).__name__}")
+        self.encoder = model.encoder if self.task == "mpp" else model
         if self.task == "regression" and model.num_classes != 1:
             raise NotImplementedError("the trainer covers scalar regression only")
         if self.task == "mpp" and not exp.mpp.optimize_decoder:
@@ -156,7 +161,7 @@ class Trainer:
         notice, self._quant_noticed = not self._quant_noticed, True
         return serving_quant(model, self.exp.quant, notice)
 
-    def eval_model(self) -> SiT | MPP:
+    def eval_model(self) -> SiT | MSSiT | MPP | MPPMSSiT:
         """The weights evaluation uses: the EMA shadow when enabled."""
         return self.ema_model if self.ema_model is not None else self.model
 
@@ -167,20 +172,26 @@ class Trainer:
             return data
         cached = self._token_cache.get(id(data))
         if cached is None or cached[0] is not data:
-            cached = (data, mpp_target(self.encoder, data))
+            cached = (data, self.model.target(data))
             self._token_cache[id(data)] = cached
         return cached[1]
 
     def _loss(self, batch, targets, weights):
         fused = self.uses_fused_train()
+        mssit = isinstance(self.encoder, MSSiT)
         if self.task == "mpp":
             if fused:
-                loss = fused_mpp_loss(self.model, batch, self.corruption, weights)
+                loss = (fused_mssit_mpp_loss if mssit else fused_mpp_loss)(
+                    self.model, batch, self.corruption, weights)
             else:
                 loss, _ = self.model(batch, self.corruption, rng=self.rng,
                                      sample_weights=weights)
             return loss, loss  # MPP has no MAE; the loss stands in
-        preds = fused_train_forward(self.model, batch) if fused else self.model(batch, rng=self.rng)
+        if fused:
+            preds = (fused_mssit_train_forward if mssit else fused_train_forward)(
+                self.model, batch)
+        else:
+            preds = self.model(batch, rng=self.rng)
         preds = preds.reshape(preds.shape[0], -1).squeeze(-1)
         loss = self.loss_fn(preds, targets, weights)
         mae = ((preds - targets.reshape(preds.shape)).abs() * weights).sum() / (
@@ -191,8 +202,6 @@ class Trainer:
         """One optimizer step on a batch (microbatched under grad_accum);
         ``targets`` None under MPP. -> (loss, weighted |err| sum), device
         scalars."""
-        if isinstance(self.encoder, MSSiT):
-            raise NotImplementedError("MS-SiT training is not ported yet")
         self.optimizer.zero_grad()
         accum = self.exp.training.grad_accum
         if accum <= 1 or batch.shape[0] % accum:

@@ -337,16 +337,17 @@ def test_bf16_wrapper_refuses_fp32_vectors_off_16_bytes(name):
         tfb.check_vectors({"bias": (off, off.numel())})
 
 
-@pytest.mark.parametrize("dim_head,heads,serving,error", [
-    (64, 1, True, None), (64, 1, False, None), (32, 2, True, None),
-    (32, 2, False, NotImplementedError), (16, 4, True, NotImplementedError),
+@pytest.mark.parametrize("dim_head,heads,cls,error", [
+    (64, 1, False, None), (64, 1, True, None), (32, 2, False, None),
+    (32, 2, True, NotImplementedError), (16, 4, False, NotImplementedError),
 ])
-def test_bf16_wrapper_head_dims(dim_head, heads, serving, error):
-    """The serving ``fused_block`` takes dim_head 32 (MS-SiT) and 64; the CLS
-    block and the training chains 64, their backward's one width."""
+def test_bf16_wrapper_head_dims(dim_head, heads, cls, error):
+    """``fused_block``, its training forward and ``fused_block_bwd`` take
+    dim_head 32 (MS-SiT) and 64; the CLS block and its backward 64, the one
+    width no MS-SiT needs beyond."""
     x, args = _cuda_check_args(dim_head, heads)
     if error is None:
-        tfb._check_cuda_args(x, args, heads, dim_head, VALID, serving=serving)
+        tfb._check_cuda_args(x, args, heads, dim_head, VALID, cls=cls)
     else:
         with pytest.raises(error, match="dim_head"):
-            tfb._check_cuda_args(x, args, heads, dim_head, VALID, serving=serving)
+            tfb._check_cuda_args(x, args, heads, dim_head, VALID, cls=cls)

@@ -254,23 +254,24 @@ def test_attention_forward_dh32_matches_jax(dtype, N, valid):
     assert err <= _bound(want, dtype), err
 
 
-@pytest.mark.parametrize("dh,fwd,bwd", [(32, True, False), (64, True, True), (48, False, False)])
-def test_wrapper_head_dim_checks(dh, fwd, bwd):
+@pytest.mark.parametrize("dh,taken", [(32, True), (64, True), (48, False)])
+def test_wrapper_head_dim_checks_take_dh32_training(dh, taken):
     """What the CUDA wrappers take, reached through their checks with CPU
-    tensors: the attention forward dh 32 and 64 (the backward 64; at 32 it
-    names the training slice), ``fused_block`` and ``fused_block_int8`` in
-    serving dh 32 and 64, 48 nowhere."""
-    for check in (tfa.check_dim_head, lambda d: tfb.check_dim_head(d, serving=True)):
-        if fwd:
+    tensors: the attention (forward and backward), ``fused_block`` (serving,
+    its training forward and ``fused_block_bwd``) and ``fused_block_int8``
+    dh 32 and 64, 48 nowhere; the CLS block 64 only (no MS-SiT pools by
+    CLS)."""
+    for check in (tfa.check_dim_head, tfb.check_dim_head):
+        if taken:
             check(dh)
         else:
             with pytest.raises(NotImplementedError, match="dim_head"):
                 check(dh)
-    if bwd:
-        tfa.check_dim_head(dh, backward=True)
+    if dh == 64:
+        tfb.check_dim_head(dh, cls=True)
     else:
-        with pytest.raises(NotImplementedError, match="MS-SiT training" if dh == 32 else "64"):
-            tfa.check_dim_head(dh, backward=True)
+        with pytest.raises(NotImplementedError, match="dim_head"):
+            tfb.check_dim_head(dh, cls=True)
     heads = 192 // dh if 192 % dh == 0 else 4
     x = torch.zeros((2, 10, 192), dtype=torch.bfloat16)
     w = [torch.zeros(n, dtype=torch.float32) for n in (192, 192, 192, 192, 192, 768, 192)]
@@ -279,21 +280,27 @@ def test_wrapper_head_dim_checks(dh, fwd, bwd):
     params = (w[0], w[1], q8(3 * hd, 192), torch.ones(3 * hd), q8(192, hd), torch.ones(192),
               w[2], w[3], w[4], q8(768, 192), torch.ones(768), w[5], q8(192, 768),
               torch.ones(192), w[6])
-    if fwd:
+    if taken:
         tq8._check_cuda_args(x, params, heads, dh, 10)
     else:
         with pytest.raises(NotImplementedError, match="dim_head"):
             tq8._check_cuda_args(x, params, heads, dh, 10)
 
 
-def test_window_attention_backward_on_the_kernel_route_names_the_training_slice(monkeypatch):
-    """The CUDA backward's check at dh 32 raises before any launch."""
-    q = torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="MS-SiT training"):
-        tfa._check_cuda(q, q, q, 8, ("o", q), ("do", q), backward=True)
-    with pytest.raises(NotImplementedError, match="dim_head 64"):
-        tfa._check_cuda(q, q, q, 8, dropout=True)
+@pytest.mark.parametrize("dh", [32, 64])
+def test_attention_cuda_checks_take_the_dh32_backward(dh):
+    """The CUDA attention wrappers' checks, before any launch: the forward
+    and the backward (q, k, v, o, dO) pass at dh 32 as at 64; the dropout
+    kernels stay dh 64 only (MS-SiT's dropout runs the plain softmax, as in
+    JAX)."""
+    q = torch.zeros((1, 2, 8, dh), dtype=torch.bfloat16)
     tfa._check_cuda(q, q, q, 8)
+    tfa._check_cuda(q, q, q, 8, ("o", q), ("do", q))
+    if dh == 64:
+        tfa._check_cuda(q, q, q, 8, ("o", q), ("do", q), dropout=True)
+    else:
+        with pytest.raises(NotImplementedError, match="dim_head 64"):
+            tfa._check_cuda(q, q, q, 8, ("o", q), ("do", q), dropout=True)
 
 
 # -- run_testing and the CLIs ---------------------------------------------------------------------
@@ -398,11 +405,43 @@ def test_cli_test_on_mssit_without_jax(setup, tmp_path):
     assert len(outs[0]) == 3 and outs[0] == outs[1]
 
 
+def _shrink_args(data_dir, runs):
+    """``--set`` overrides that cut a shipped MS-SiT config to the test's
+    size (lists and numbers parsed as YAML, as the JAX CLI parses them):
+    ICO / LEVEL and ARCH, two epochs of batches of 2."""
+    sets = [f"resolution.ico={ICO}", f"resolution.sub_ico={LEVEL}",
+            f"data.data_path={data_dir}", f"logging.folder_to_save_model={runs}",
+            "training.bs=2", "training.bs_val=2", "training.epochs=2", "training.val_epoch=1"]
+    sets += [f"mssit.{k}={list(v) if isinstance(v, tuple) else v}" for k, v in ARCH.items()]
+    return [a for s in sets for a in ("--set", s)]
+
+
 @pytest.mark.parametrize("tool,config", [("train", "configs/training/mssit_scan_age.yml"),
                                          ("pretrain", "configs/pretraining/mssit_mpp.yml")])
-def test_cli_training_refuses_mssit(tool, config):
-    """``cli.train`` / ``cli.pretrain`` on the shipped MS-SiT configs raise
-    at once: MS-SiT training and MPP are not ported yet."""
-    out = _run_cli(tool, REPO / config)
-    assert out.returncode != 0
-    assert "NotImplementedError: MS-SiT training is not ported yet" in out.stderr
+def test_cli_training_runs_mssit_without_jax(tmp_path, tool, config):
+    """``cli.train`` / ``cli.pretrain`` on the shipped MS-SiT configs (cut to
+    the test's size by ``--set``; bfloat16: the fused blocks' plain
+    versions here) in a subprocess with JAX blocked: the results dict and
+    the run's files; after ``cli.pretrain``, ``cli.train`` finetunes from
+    its ``encoder_best_params.npz``."""
+    data = tmp_path / "data"
+    _split(data, 3, 7)
+    r = np.random.default_rng(8)
+    np.save(data / "train_data.npy", r.standard_normal((4, 4, 162)).astype(np.float32))
+    np.save(data / "train_labels.npy", r.uniform(30, 45, 4).astype(np.float32))
+    out = _run_cli(tool, REPO / config, *_shrink_args(data, tmp_path / "runs"))
+    assert out.returncode == 0, out.stderr
+    metric = "best_mae" if tool == "train" else "best_loss"
+    assert f"'{metric}'" in out.stdout.strip().splitlines()[-1]
+    (run_dir,) = (tmp_path / "runs").iterdir()
+    files = ["best_params.npz", "final_params.npz", "hparams_results.yml"]
+    files += ["preds.csv"] if tool == "train" else ["encoder_best_params.npz"]
+    for f in files:
+        assert (run_dir / f).exists(), f
+    if tool == "pretrain":
+        out = _run_cli("train", REPO / "configs/training/mssit_scan_age.yml",
+                       *_shrink_args(data, tmp_path / "finetune"),
+                       "--set", "training.load_weights_ssl=true",
+                       "--set", f"weights.ssl_mpp={run_dir / 'encoder_best_params.npz'}")
+        assert out.returncode == 0, out.stderr
+        assert "'best_mae'" in out.stdout.strip().splitlines()[-1]

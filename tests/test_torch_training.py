@@ -435,3 +435,58 @@ def test_cli_train_runs_without_jax(tmp_path):
     for f in ("best_params.npz", "final_params.npz", "preds.csv", "hparams_results.yml"):
         assert (run_dir / f).exists(), f
     assert len(_csv(run_dir / "preds.csv")) == 3
+
+
+# -- --set overrides: parsed as the JAX CLI parses them --------------------------------
+
+
+@pytest.mark.parametrize("key,text", [
+    ("training.testing", "False"), ("tpu.fused_train", "no"), ("training.save_ckpt", "off"),
+    ("training.l1loss", "True"), ("weights.ssl_mpp", "~"), ("training.LR", "1e-5"),
+])
+def test_set_overrides_parse_as_yaml(key, text):
+    """``--set key=value`` gives the value ``yaml.safe_load`` gives it, as
+    the JAX CLI parses it (``cli/_common.py``): YAML's false words read as
+    False, not as the true string "False"; ``~`` as None; ``1e-5`` (no
+    dot: not a YAML float) as the string, which ``from_dict`` casts. The
+    two configs build the same ``Experiment``."""
+    from surface_vision_transformers_tpu_torch.cli._common import parse_config
+
+    path = REPO / "configs/training/sit_tiny_scan_age.yml"
+    raw, device = parse_config("t", [str(path), "--set", f"{key}={text}", "--device", "cpu"])
+    want = yaml.safe_load(path.read_text())
+    block, leaf = key.split(".")
+    want.setdefault(block, {})[leaf] = yaml.safe_load(text)
+    assert device == "cpu" and raw == want
+    got, ref = config.from_dict(raw), config.from_dict(want)
+    assert got == ref
+    if text in ("False", "no", "off"):
+        assert not (got.training.testing and got.fused_train and got.training.save_ckpt)
+
+
+def test_cli_train_set_testing_false_runs_no_test(tmp_path, capsys):
+    """``cli.train --set training.testing=False`` on a config that tests at
+    the end of the run: no test metric, no test_preds.csv (the string
+    "False" read as true would test)."""
+    from surface_vision_transformers_tpu_torch.cli import train as cli_train
+
+    data_dir = tmp_path / "data"
+    data_dir.mkdir()
+    d, lab = make_regression_dataset(9, raw_vertices=40962, seed=7)
+    for split, sl in (("train", slice(0, 4)), ("validation", slice(4, 6)),
+                      ("test", slice(6, 9))):
+        np.save(data_dir / f"{split}_data.npy", d[sl])
+        np.save(data_dir / f"{split}_labels.npy", lab[sl])
+    cfg = {"resolution": {"ico": 6, "sub_ico": 2}, "transformer": dict(TRANSFORMER),
+           "training": {"bs": 4, "bs_val": 2, "epochs": 1, "val_epoch": 1, "LR": 1e-3,
+                        "testing": True},
+           "data": {"data_path": str(data_dir)},
+           "logging": {"folder_to_save_model": str(tmp_path / "runs")},
+           "tpu": {"compute_dtype": "float32"}}
+    (tmp_path / "cfg.yml").write_text(yaml.safe_dump(cfg))
+    cli_train.main([str(tmp_path / "cfg.yml"), "--device", "cpu",
+                    "--set", "training.testing=False"])
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "'best_mae'" in out and "test_mae" not in out
+    (run_dir,) = (tmp_path / "runs").iterdir()
+    assert (run_dir / "preds.csv").exists() and not (run_dir / "test_preds.csv").exists()
