@@ -442,15 +442,20 @@ def cuda_ms(fn, reps: int = 25) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, tries: int = 4) -> float:
     """Device time of one call of ``fn`` in ms: CUDA events around ``reps``
     calls queued on the stream behind a kernel that holds it (``HOLD_SRC``,
     one CTA) until they are all enqueued, so the device runs them back to
     back and never waits for the host's next launch; after two warm-up
     calls. Not torch.profiler's sum of kernel times: late in this script's
     run that read short kernels up to five times below their device time,
-    some below their bound."""
+    some below their bound. A run whose calls were not all queued before the
+    hold ended (the host stalled: the card's host shares its cores) is not
+    a measurement: it is run again behind a hold four times as long, up to
+    ``tries`` runs, and fails after that. The hold's length does not enter
+    the time, which starts when the hold ends."""
     import ctypes
+    import gc
 
     for _ in range(2):
         fn()
@@ -461,21 +466,31 @@ def device_ms(fn, reps: int = 10) -> float:
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     hold_ns = int((2 * enqueue_s + 0.005) * 1e9)
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    err = hold_lib().hold_sms(1, 0, hold_ns,
-                              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    t0 = time.perf_counter()
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    queued_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    if err:
-        raise AssertionError(f"device_ms: the holding kernel did not launch (CUDA error {err})")
-    if queued_s * 1e9 >= hold_ns:
-        raise AssertionError("device_ms: the calls were not all queued before the hold ended")
-    return a.elapsed_time(b) / reps
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    queued = []
+    for _ in range(tries):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        gc.collect()
+        gc.disable()
+        try:
+            err = hold_lib().hold_sms(1, 0, hold_ns, stream)
+            t0 = time.perf_counter()
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            queued_s = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"device_ms: the holding kernel did not launch (CUDA error {err})")
+        if queued_s * 1e9 < hold_ns:
+            return a.elapsed_time(b) / reps
+        queued.append(f"{queued_s * 1e3:.2f} ms queueing behind a {hold_ns / 1e6:.2f} ms hold")
+        hold_ns = 4 * max(hold_ns, int(queued_s * 1e9))
+    raise AssertionError("device_ms: the calls were not all queued before the hold ended, in "
+                         f"each of {tries} runs ({'; '.join(queued)})")
 
 
 def jax_shaped_params(rng, num_vertices: int, num_channels: int = 4,
@@ -652,12 +667,17 @@ def block_flops(B, N, vl, dim, heads, mlp, cls, dh=DH):
     return gemm + att_f, 2 * gemm + att_b
 
 
-def chain_bytes(B, N, dim, heads, mlp, dh=DH) -> tuple[int, int, int]:
+def chain_bytes(B, N, dim, heads, mlp, dh=DH, fused_ln=None) -> tuple[int, int, int]:
     """HBM bytes the block chains move at these shapes (csrc/fused_block.cu,
     fused_block_bwd.cu: each launch reads its inputs and writes its outputs
     once, the weights aside): (serving forward, training forward with its
     saves, backward without the attention's fp32 dQ workspace). The chain
-    design's own floor, beside the function's bound (block_flops)."""
+    design's own floor, beside the function's bound (block_flops). The
+    backward's LayerNorms run in dh's products' epilogues where
+    ``fused_ln`` (default: ``ln_in_epilogue(dim)``, this tree's rule), so
+    its fp32 dh (written and read back twice, 8 bf16 widths of x) never
+    moves; ``fused_ln=False`` counts the chain with standalone passes
+    (the design before the LayerNorm epilogues)."""
     M, hd, bf, f4 = B * N, heads * dh, 2, 4
     x, qkv, att, hid = M * dim * bf, M * 3 * hd * bf, M * hd * bf, M * mlp * bf
     fwd = ((x + x) + (x + qkv) + (qkv + att) + (att + x + x) + (x + x) + (x + hid)
@@ -667,6 +687,12 @@ def chain_bytes(B, N, dim, heads, mlp, dh=DH) -> tuple[int, int, int]:
            + (2 * x + x + x + 2 * x + x) + (x + att) + (x + att)  # LN2 bwd, dW_out, da
            + (qkv + att + att + qkv) + (qkv + x) + (qkv + 2 * x)  # attention, dW_qkv, dh
            + (2 * x + x + 2 * x + x))  # LN1 bwd -> dx
+    if fused_ln is None:
+        from surface_vision_transformers_tpu_torch.ops.fused_block import ln_in_epilogue
+
+        fused_ln = ln_in_epilogue(dim)
+    if fused_ln:
+        bwd -= 8 * x  # dh's fp32 write and read, at LN2 and at LN1
     return fwd, train, bwd
 
 
@@ -1022,8 +1048,8 @@ def phase_train_entry() -> None:
 
 
 GEMM_EPIS = ("F_NONE", "F_GELU", "F_RES", "B_PART", "B_F32", "B_BF16", "B_GELU_GRAD",
-             "B_ADD_F32", "Q_S32", "Q_BF16", "Q_RES_F32", "Q_GELU_MAX", "Q_GELU_Q8",
-             "Q_RES_BF16")  # csrc/gemm.cuh's epilogues, in order
+             "B_ADD_F32", "B_LN2", "B_LN1", "Q_S32", "Q_BF16", "Q_RES_F32", "Q_GELU_MAX",
+             "Q_GELU_Q8", "Q_RES_BF16")  # csrc/gemm.cuh's epilogues, in order
 
 
 def ptxas_report(log_path: Path) -> str:
@@ -1035,7 +1061,9 @@ def ptxas_report(log_path: Path) -> str:
             mangled = line.split("'")[1]
             fwd = re.search(r"flash_fwd_kernelILi(\d)ELi(\d+)ELb(\d)E", mangled)
             gemm = re.search(r"gemm_kernelI(13__nv_bfloat16|a)Li(\d)ELi(\d)ELi(\d+)E", mangled)
+            res = re.search(r"flash_bwd_resident_kernelILi(\d)E", mangled)
             name = (f"flash_fwd<{','.join(fwd.groups())}>" if fwd else
+                    f"flash_bwd_resident<{res[1]}>" if res else
                     f"gemm<{'int8' if gemm[1] == 'a' else 'bf16'},{gemm[2]},{gemm[3]},"
                     f"{GEMM_EPIS[int(gemm[4])]}>" if gemm else next((
                         k for k in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_kernel",
@@ -1307,20 +1335,21 @@ def hold_lib():
     return lib
 
 
-def busy_card(fa) -> None:
+def busy_card(fa, shape=BUSY_SHAPE, dh=DH, name="flash-kernels") -> None:
     """The attention backward while a kernel on another stream holds every
-    multiprocessor but one: its key blocks wait only for blocks of lower
-    index, never for the whole (sample, head) to be on the card, so it must
+    multiprocessor but one: the streamed kernel's key blocks wait only for
+    blocks of lower index, never for the whole (sample, head) to be on the
+    card, and the resident kernel's CTAs (dh 32) wait for none, so it must
     finish on that one SM, equal bit for bit to its run on the idle card,
     before the other kernel ends. Its inputs come from a generator of its
     own, so the phases after it draw the data their gates were set on."""
     import ctypes
 
-    B, H, N = BUSY_SHAPE
+    B, H, N = shape
     rng = np.random.default_rng(SEED + 1)
-    q, k, v = bf16_randn(rng, (B, H, N, DH), 1.5), bf16_randn(rng, (B, H, N, DH), 1.5), \
-        bf16_randn(rng, (B, H, N, DH))
-    do = bf16_randn(rng, (B, H, N, DH))
+    q, k, v = bf16_randn(rng, (B, H, N, dh), 1.5), bf16_randn(rng, (B, H, N, dh), 1.5), \
+        bf16_randn(rng, (B, H, N, dh))
+    do = bf16_randn(rng, (B, H, N, dh))
     o, lse = fa.flash_attention_fwd(q, k, v)
     idle = fa.flash_attention_bwd(q, k, v, o, lse, do)
     idle_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
@@ -1347,7 +1376,7 @@ def busy_card(fa) -> None:
     hold_ms, done_ms, bwd_ms = (ev[0].elapsed_time(ev[1]), ev[0].elapsed_time(ev[3]),
                                 ev[2].elapsed_time(ev[3]))
     same = all(torch.equal(a, b) for a, b in zip(idle, busy))
-    phase("flash-kernels", f"busy card: B={B} H={H} N={N} backward while {sms - 1} of {sms} "
+    phase(name, f"busy card: B={B} H={H} N={N} dh={dh} backward while {sms - 1} of {sms} "
           f"SMs are held for {HOLD_MS} ms by a kernel on another stream: done {done_ms:.2f} ms "
           f"after that kernel's start, which ended at {hold_ms:.2f} ms (must be later); the "
           f"backward took {bwd_ms:.3f} ms, {bwd_ms / idle_ms:.1f}x its {idle_ms:.4f} ms on "
@@ -3971,12 +4000,91 @@ def phase_mssit_entry(fb, fused, models) -> None:
 
 # Phases 29-32: MS-SiT training and MPP at mssit_scan_age.yml / mssit_mpp.yml (dh 32).
 # Phase 29's cases beyond the folds: valid_len inside a key block (the
-# backward's key mask and its query rows past valid_len), and the folds
-# with five key blocks, where the bitwise repeat's order control can show
-# that the dQ sum's order reaches dq's bits.
-MSSIT_BWD_EDGES = [(256, 6, 80, 70), (64, 3, 320, 300)]  # (sequences, heads, N, valid_len)
+# backward's key mask and its query rows past valid_len; the third past 320
+# keys, where the streamed kernels take dh 32; the last in a packed tile,
+# three sequences of 20 rows, each masked from row 15), and the folds with
+# five key blocks, where the bitwise repeat's order control can show that the dQ
+# sum's order reaches dq's bits.
+MSSIT_BWD_EDGES = [(256, 6, 80, 70), (64, 3, 320, 300), (32, 3, 400, 390),
+                   (4096, 12, 20, 15)]
 MSSIT_REPEAT_FOLDS = [(4096, 3, 320), (64, 24, 320)]  # (sequences, heads, N)
 MSSIT_BWD_RECORDS: dict = {}  # this run's dh-32 backward times for the records line
+MSSIT_BUSY_SHAPE = (64, 24, 320)  # (B, H, N): stage 3's fold, 1,536 resident CTAs
+LN_SUM_REL = 1e-3  # the LayerNorm epilogue's column sums (up to 1.3 M rows, another order)
+# The LayerNorm epilogue alone (M, dim, K of LN2's product, K of LN1's: 3 hd):
+# stage 0's axial fold, stage 1's window fold (dh 32), SiT-tiny at B = 256.
+LN_EPILOGUE_CASES = [(4096 * 320, 96, 384, 288), (5120 * 64, 192, 768, 576),
+                     (256 * N_TOKENS, 192, 768, 576)]
+
+
+def packed_mask_ignored(fa, qkv, do, heads, pack, vl):
+    """(o, dqkv) of the float32 plain versions with each packed tile's
+    sequences merged into one (``pack`` consecutive heads of a sample, the
+    resident backward's units), so that they see each other's keys: the
+    block-diagonal mask ignored, the key mask kept (a control). The merged
+    sequence takes each sequence's first ``vl`` rows first, so that its own
+    valid_len, pack * vl, masks the rest."""
+    Bf, N, F_ = qkv.shape
+    dh = F_ // (3 * heads)
+    idx = torch.arange(pack * N, device=qkv.device).view(pack, N)
+    order = torch.cat([idx[:, :vl].reshape(-1), idx[:, vl:].reshape(-1)])
+    q, k, v = (t.float().reshape(Bf, heads // pack, pack * N, dh)[:, :, order]
+               for t in fa.split_qkv(qkv, heads))
+    do4 = do.float().view(Bf, N, heads, dh).transpose(1, 2).reshape(
+        Bf, heads // pack, pack * N, dh)[:, :, order]
+    o, lse = fa.flash_attention_reference(q, k, v, pack * vl)
+    grads = fa.flash_attention_bwd_reference(q, k, v, o, lse, do4, pack * vl)
+    inv = torch.argsort(order)
+    back = [fa.merge_heads(t[:, :, inv].reshape(Bf, heads, N, dh)) for t in (o, *grads)]
+    return [back[0], torch.cat(back[1:], -1)]
+
+
+def ln_epilogue_gates(fb, g, name) -> None:
+    """The LayerNorm backward in dh's product's epilogue alone
+    (``block_gemm_ln``, both forms) against its plain version
+    (``gemm_ln_reference``) at LN_EPILOGUE_CASES: bf16 out within one bf16
+    step of the largest |out| (phase 25's rule), fp32 out within
+    GEMM_FP32_REL, the column sums within LN_SUM_REL of the largest |sum|;
+    a control with the residual left out must fail; times beside the dh
+    product alone (``block_gemm_nn``, fp32 C, as the chain with a
+    standalone LayerNorm pass runs it) and the epilogue's byte floor."""
+    for M, dim, k2, k1 in LN_EPILOGUE_CASES:
+        x = dev_randn(g, (M, dim))
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        stats = torch.cat([mu, torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + 1e-5)],
+                          -1).contiguous()
+        del xf, mu
+        gamma = (1 + 0.1 * torch.randn(dim, device="cuda", generator=g)).contiguous()
+        for ln, K in ((2, k2), (1, k1)):
+            a = dev_randn(g, (M, K), 0.05)
+            w = dev_randn(g, (K, dim), K ** -0.5)
+            res = (dev_randn(g, (M, dim), 0.5) if ln == 2
+                   else 0.5 * torch.randn(M, dim, device="cuda", generator=g))
+            got = fb.block_gemm_ln(a, w, x, stats, gamma, res)
+            ref = fb.gemm_ln_reference(a, w, x, stats, gamma, res)
+            m_b, ok_b = gemm_gate(got[1], ref[1], False)
+            m_f, ok_f = gemm_gate(got[0], ref[0], True) if ln == 2 else (0.0, True)
+            m_s = ((got[2] - ref[2]).abs().max() / ref[2].abs().max()).item()
+            control = gemm_gate(got[1], fb.gemm_ln_reference(
+                a, w, x, stats, gamma, torch.zeros_like(res))[1], False)
+            ms = device_ms(lambda: fb.block_gemm_ln(a, w, x, stats, gamma, res))
+            dh_ms = device_ms(lambda: fb.block_gemm_nn(a, w, out_dtype=torch.float32))
+            nbytes = nbytes_of(a, w, x, stats, gamma, res, *(t for t in got if t is not None))
+            label = f"LayerNorm epilogue LN{ln} M={M} dim={dim} K={K}"
+            msg = (f"{label}: bf16 out {m_b:.4g} bf16 steps (tol 1), fp32 out {m_f:.3g} "
+                   f"(tol {GEMM_FP32_REL}), column sums {m_s:.3g} (tol {LN_SUM_REL}); control, "
+                   f"the residual left out: {control[0]:.4g} bf16 steps (must exceed 1); "
+                   f"{ms:.4f} ms (device_ms), the dh product alone with fp32 C {dh_ms:.4f} ms; "
+                   f"byte floor {nbytes / PEAK_BYTES * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)")
+            phase(name, msg)
+            if not (ok_b and ok_f and math.isfinite(m_s) and m_s <= LN_SUM_REL):
+                raise AssertionError(f"{label} disagrees with its plain version")
+            if control[1]:
+                raise AssertionError(f"{label}: the control passed the gate")
+            del a, w, res, got, ref
+        del x, stats
+        torch.cuda.empty_cache()
 
 
 def mssit_qkv_plain(fa, qkv, do, heads, vl, dtype=None, scale=1.0):
@@ -3996,6 +4104,130 @@ def mssit_qkv_plain(fa, qkv, do, heads, vl, dtype=None, scale=1.0):
     chunk = mssit_chunk(qkv.shape[1], hd, heads)
     parts = [one(qkv[s:s + chunk], do[s:s + chunk]) for s in range(0, qkv.shape[0], chunk)]
     return [torch.cat(p) for p in zip(*parts)]
+
+
+# The block backward's launches as torch.profiler names them -> a part's name.
+_PART_KINDS = (("gemm_kernel", None), ("reduce_kernel", "reduce"),
+               ("reduce_chunks_kernel", "reduce"), ("ln_bwd_kernel", "LN bwd"),
+               ("flash_bwd_resident", "attention bwd (resident)"),
+               ("flash_bwd_delta", "attention delta"), ("flash_bwd_dq", "attention dq pass"),
+               ("flash_bwd_kernel", "attention main pass"))
+# the dX products by epilogue, and the weight gradients in chain order
+_DX_NAMES = {"B_GELU_GRAD": "df1 = g W_fc2 * GELU'", "B_F32": "dh (fp32)",
+             "B_BF16": "da = dx1 W_out", "B_LN2": "dh = df1 W_fc1 + LN2 bwd (epilogue)",
+             "B_LN1": "dh = dqkv W_qkv + LN1 bwd (epilogue)", "B_ADD_F32": "dh += dq W_q"}
+_DW_NAMES = ("dW_fc2", "dW_fc1", "dW_out", "dW_qkv")
+
+
+def chain_parts(call, reps: int = 3) -> list:
+    """torch.profiler over ``reps`` calls of ``call`` (one block backward),
+    one call a profiler session, after a warm-up call and a session that
+    takes whatever an earlier session left: each part's device time in
+    chain order, the mean over the sessions that saw the same launches ->
+    [(part, ms)], or [] when no two did. A part is one launch of the
+    chain's kernels from its first weight gradient on (other device work
+    is left out), or a run of reduce launches (the sums after one product);
+    parts are named by kernel and epilogue (GEMM_EPIS), the weight
+    gradients (B_PART) in chain order."""
+    from torch.autograd import DeviceType
+
+    def session(fn):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and any(key in e.name for key, _ in _PART_KINDS)),
+                    key=lambda e: e.time_range.start)
+        first = next((i for i, e in enumerate(ev) if "gemm_kernel" in e.name
+                      and re.search(r"gemm_kernel<[^>]*?(\d+)>", e.name)[1]
+                      == str(GEMM_EPIS.index("B_PART"))), len(ev))
+        return [(e.name, e.time_range.elapsed_us() / 1e3) for e in ev[first:]]
+
+    call()
+    torch.cuda.synchronize()
+    session(lambda: torch.zeros(1, device="cuda").add_(1))
+    runs = [session(call) for _ in range(reps)]
+    names = [tuple(n for n, _ in r) for r in runs]
+    common = max(set(names), key=names.count)
+    runs = [r for r, n in zip(runs, names) if n == common]
+    if len(runs) < 2 or not common:
+        return []
+    parts, dw = [], 0
+    for i, name in enumerate(common):
+        label = next((lab for key, lab in _PART_KINDS if key in name), name[:40])
+        if label is None:  # a GEMM: its epilogue from the template's last argument
+            epi = GEMM_EPIS[int(re.search(r"gemm_kernel<[^>]*?(\d+)>", name)[1])]
+            if epi == "B_PART":
+                label, dw = f"{_DW_NAMES[min(dw, 3)]} (split-K)", dw + 1
+            else:
+                label = _DX_NAMES.get(epi, epi)
+        ms = sum(r[i][1] for r in runs) / len(runs)
+        if label == "reduce" and parts and parts[-1][0].startswith("reduce"):
+            parts[-1] = (parts[-1][0], parts[-1][1] + ms, parts[-1][2] + 1)
+        else:
+            parts.append((f"reduce after {parts[-1][0].split(' (')[0]}" if label == "reduce"
+                          else label, ms, 1))
+    return [(f"{p} x{c}" if c > 1 else p, ms) for p, ms, c in parts]
+
+
+def part_floors(parts, B, N, dim, heads, mlp, dh=DH) -> list:
+    """The byte floor of each part of ``chain_parts`` (a fused_block_bwd at
+    these shapes), in ms at PEAK_BYTES: what the part reads and writes, each
+    once (a split-K product's partials, and the sums a reduce reads, are
+    its own bytes); None for the streamed attention's main and dq passes,
+    whose workspace traffic depends on the walk."""
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+
+    M, hd, f4 = B * N, heads * dh, 4
+    x, hid, qkv, att, stats = M * dim * 2, M * mlp * 2, M * 3 * hd * 2, M * hd * 2, M * 2 * f4
+    lse = B * heads * N * f4
+    ln_rows = -(-M // 128) if not fb.ln_in_epilogue(dim) else min(-(-M // 128), 132)
+    ln_ctas = min(fb._cdiv(fb._cdiv(M, 2), fb._LNB_WARPS), fb._LNB_CTAS)  # ln_bwd_ctas
+    dw = {"dW_fc2": (x, hid, dim, mlp), "dW_fc1": (hid, x, mlp, dim), "dW_out": (x, att, dim, hd),
+          "dW_qkv": (qkv, x, 3 * hd, dim)}
+    seen, out, last = {}, [], None
+    for label, _ in parts:
+        base = label.split(" x")[0]
+        k = seen[base] = seen.get(base, 0) + 1
+        name = base.split(" (")[0]
+        if name in dw:
+            a, b, mo, no = dw[name]
+            last = fb._split_k(mo, no, M) * mo * no * f4
+            nb = a + b + last
+        elif base.startswith("reduce after dW"):
+            nb = last + dw[base.split("after ")[1]][2] * dw[base.split("after ")[1]][3] * f4
+        elif base.startswith("df1"):
+            last = -(-M // 128) * mlp * f4
+            nb = x + 2 * hid + hid + last
+        elif base.startswith("reduce after df1"):
+            nb = last + mlp * f4
+        elif base.startswith("dh = df1"):
+            last = ln_rows * 4 * dim * f4
+            nb = hid + x + x + stats + 2 * x + x + last
+        elif base.startswith("dh = dqkv"):
+            last = ln_rows * 2 * dim * f4
+            nb = qkv + x + stats + 2 * x + x + last
+        elif base.startswith("reduce after dh = "):
+            nb = last + last // ln_rows
+        elif base == "dh (fp32)":
+            nb = (hid if k == 1 else qkv) + 2 * x
+        elif base == "LN bwd":  # LN2 then LN1
+            nsum = 4 if k == 1 else 2
+            last = ln_ctas * nsum * dim * f4
+            nb = 2 * x + x + stats + (x + 2 * x + x if k == 1 else 2 * x + x) + last
+        elif base == "reduce after LN bwd":
+            nb = last + last // ln_ctas
+        elif base.startswith("da ="):
+            nb = x + att
+        elif base == "attention bwd (resident)":
+            nb = qkv + att + att + lse + qkv
+        elif base == "attention delta":
+            nb = att + att + lse
+        else:
+            nb = None
+        out.append(None if nb is None else nb / PEAK_BYTES * 1e3)
+    return out
 
 
 def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
@@ -4041,6 +4273,9 @@ def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
         if N > vl:
             controls["key mask ignored"] = step_ratio(
                 got, mssit_qkv_plain(fa, qkv, do, heads, N, torch.float32), ref32)
+        if fa.resident_pack(N) > 1:
+            controls["packed tile's block-diagonal mask ignored"] = step_ratio(
+                got, packed_mask_ignored(fa, qkv, do, heads, fa.resident_pack(N), vl), ref32)
         label = f"attention backward dh 32 Bf={Bf} H={heads} N={N} valid_len={vl}"
         msg = (f"{label}: worst |err|/bound over o, dqkv vs fp32 plain {r32:.4g}, vs plain "
                f"bf16 {rbf:.4g} (bound {BOUND_STEPS} bf16 steps at each output's largest "
@@ -4089,7 +4324,11 @@ def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
         del qkv, do, o, lse, got, ref32
         torch.cuda.empty_cache()
 
+    busy_card(fa, MSSIT_BUSY_SHAPE, dh, name)
+    ln_epilogue_gates(fb, g, name)
+
     # -- fused_block_bwd at dh 32 after the training forward, at every fold
+    lib = fb._native.library()
     for stage, Bf, N, dim, heads, per_batch in MSSIT_FOLDS:
         mlp = 4 * dim
         p32 = [t.cuda() for t in block_params(rng, dim, heads, mlp, dh)]
@@ -4129,12 +4368,25 @@ def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
         flops = block_flops(Bf, N, N, dim, heads, mlp, False, dh)[1]
         b_ms, b_by = bound_ms(flops, nbytes_of(x, gy, *pb, *got))
         _, train_b, bwd_b = chain_bytes(Bf, N, dim, heads, mlp, dh)
+        bwd_parent = chain_bytes(Bf, N, dim, heads, mlp, dh, fused_ln=False)[2]
         floor_ms = bwd_b / PEAK_BYTES * 1e3
+        ws = (lib.svt_block_bwd_workspace(Bf, N, N, dim, heads, dh, mlp),
+              fb.block_bwd_workspace(Bf, N, N, dim, heads, dh, mlp))
+        dhf = ([lib.svt_block_bwd_dh_floats(Bf, N, dim, c) for c in (0, 1)],
+               [fb.block_bwd_dh_floats(Bf, N, dim, bool(c)) for c in (0, 1)])
         msg += (f"; training forward {f_ms:.4f} ms, backward kernel {k_ms:.4f} ms, eager bf16 "
                 f"block autograd backward {e_ms:.4f} ms (CUDA-event medians of 10 / 10 / 5); "
                 f"bound {b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%}; {flops / 1e9:.1f} GFLOP), "
-                f"chain floor {floor_ms:.4f} ms ({bwd_b / 1e9:.3f} GB; training forward "
-                f"{train_b / 1e9:.3f} GB)")
+                f"chain floor {floor_ms:.4f} ms ({bwd_b / 1e9:.3f} GB; with standalone LN "
+                f"passes {bwd_parent / PEAK_BYTES * 1e3:.4f} ms, {bwd_parent / 1e9:.3f} GB; "
+                f"training forward {train_b / 1e9:.3f} GB); workspace {ws[0]} floats "
+                f"(block_bwd_workspace's rule {ws[1]}, must be equal), dh scratch {dhf[0]} "
+                f"floats, block and CLS block (block_bwd_dh_floats's rule {dhf[1]}, must be "
+                f"equal)")
+        if ws[0] != ws[1]:
+            raise AssertionError(f"{label}: svt_block_bwd_workspace disagrees with its rule")
+        if dhf[0] != dhf[1]:
+            raise AssertionError(f"{label}: svt_block_bwd_dh_floats disagrees with its rule")
         MSSIT_BWD_RECORDS[f"fused_block_bwd stage {stage} ({Bf}, {N}, {dim})"] = (
             k_ms, e_ms, b_ms)
         MSSIT_BWD_RECORDS[f"training fused_block stage {stage} ({Bf}, {N}, {dim})"] = (
@@ -4156,6 +4408,14 @@ def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
         phase(name, msg)
         del x, gy, out, sv, got, p32, pb, pr
         torch.cuda.empty_cache()
+    # each part of the chain alone, in a process of its own (a fresh profiler)
+    res = subprocess.run([sys.executable, str(ROOT / "scripts" / "bwd_chain_parts.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        raise AssertionError(f"{name}: scripts/bwd_chain_parts.py failed after:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    for line in res.stdout.strip().splitlines()[1:]:
+        phase(name, f"parts of fused_block_bwd at {line}")
     return rows
 
 # Phases 30-31 compare the training paths at a cut batch (the eager model's

@@ -14,9 +14,12 @@ k-step before it, waiting for a tile's last k-step, the epilogue, and the
 rest (the walk's own bookkeeping); for the producer, the share of its walk
 spent waiting for a free stage. Runs each GEMM of ``chip_smoke.py`` phase 25
 (the forward's four at SiT-tiny B=256 and SiT-base B=32, the backward's
-eight at SiT-tiny B=256) and the int8 block's (qkv, out, fc1's two passes,
-fc2 at SiT-base B=64, phase 20's block) on random operands and prints the
-shares beside the kernel's CUDA-event time with and without the marks.
+eight at SiT-tiny B=256), MS-SiT stage 0's backward products at N = 96
+(half an engine tile: da, and dh with the LayerNorm backward in its
+epilogue, both forms) beside df1 at M = 4,096 x 320, and the int8 block's
+(qkv, out, fc1's two passes, fc2 at SiT-base B=64, phase 20's block) on
+random operands and prints the shares beside the kernel's CUDA-event time
+with and without the marks.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 
@@ -74,6 +77,22 @@ def cases(rng):
         a, b = bf((M, m_out), 0.01), bf((M, n_out))
         yield (f"backward {name} Mout={m_out} Nout={n_out} K={M}",
                lambda a=a, b=b: fb.block_weight_grad(a, b))
+    M, dim = 4096 * 320, 96  # MS-SiT stage 0's axial fold
+    a, w = bf((M, dim), 0.01), bf((dim, 4 * dim), (4 * dim) ** -0.5)
+    pre = torch.randn((M, 4 * dim), device="cuda")
+    yield (f"backward MS-SiT df1 M={M} N={4 * dim} K={dim}",
+           lambda a=a, w=w, pre=pre: fb.block_gemm_nn(a, w, pre))
+    a, w = bf((M, dim), 0.01), bf((dim, dim), dim ** -0.5)
+    yield (f"backward MS-SiT da M={M} N={dim} K={dim}",
+           lambda a=a, w=w: fb.block_gemm_nn(a, w, out_dtype=torch.bfloat16))
+    x = bf((M, dim))
+    stats = torch.stack([x.float().mean(-1), torch.rsqrt(x.float().var(-1) + 1e-5)], -1)
+    gamma = torch.ones(dim, device="cuda")
+    for name, K, res in (("dh + LN2 epilogue", 4 * dim, bf((M, dim))),
+                         ("dh + LN1 epilogue", 3 * dim, torch.randn((M, dim), device="cuda"))):
+        a, w = bf((M, K), 0.01), bf((K, dim), K ** -0.5)
+        yield (f"backward MS-SiT {name} M={M} N={dim} K={K}",
+               lambda a=a, w=w, res=res: fb.block_gemm_ln(a, w, x, stats, gamma, res))
     M, dim, mlp, hd = INT8_M, 768, 3072, 768
     for name, N, K in (("qkv", 3 * hd, dim), ("out", dim, hd), ("fc1_max", mlp, dim),
                        ("fc1_q8", mlp, dim), ("fc2", dim, mlp)):
@@ -111,6 +130,9 @@ def main() -> None:
                             ("svt_block_weight_grad", plain_lib.svt_block_weight_grad.argtypes),
                             ("svt_block_weight_grad_workspace",
                              plain_lib.svt_block_weight_grad_workspace.argtypes),
+                            ("svt_block_gemm_ln", plain_lib.svt_block_gemm_ln.argtypes),
+                            ("svt_block_gemm_ln_workspace",
+                             plain_lib.svt_block_gemm_ln_workspace.argtypes),
                             ("svt_int8_block_gemm", plain_lib.svt_int8_block_gemm.argtypes)):
         fn = getattr(prof_lib, entry)
         fn.argtypes = argtypes

@@ -7,7 +7,8 @@ Builds ``fused_block.cu``, ``fused_block_bwd.cu`` and ``flash_attention.cu``
 of OTHER_CHECKOUT's ``surface_vision_transformers_tpu_torch/csrc`` into one
 temporary library (its C entries ``svt_fused_block[_cls]``,
 ``svt_fused_block[_cls]_bwd`` and ``svt_block_bwd_workspace`` must take this
-tree's arguments) beside this tree's kernels, then times the block rows of
+tree's arguments; without ``svt_block_bwd_dh_floats`` its backwards get the
+full fp32 dh scratch) beside this tree's kernels, then times the block rows of
 PERF.md section 6 through this tree's wrappers on either library, with one
 timer (``chip_smoke.cuda_ms``: CUDA-event median of 25, 10 at SiT-base), in
 the order other, this, this, other:
@@ -59,10 +60,18 @@ ROWS = [("fused_block", "SiT-tiny", 256, 321), ("fused_block", "SiT-base", 32, 1
 
 
 def declare(lib, this_lib):
-    """The other library's entries, with this tree's C signatures."""
+    """The other library's entries, with this tree's C signatures. A
+    library without ``svt_block_bwd_dh_floats`` (from before the LayerNorm
+    epilogues) writes its fp32 dh at every width, so it gets the full dh."""
     for name in ENTRIES:
         fn, ref = getattr(lib, name), getattr(this_lib, name)
         fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    if not hasattr(lib, "svt_block_bwd_dh_floats"):
+        lib.svt_block_bwd_dh_floats = lambda B, N, dim, cls: B * N * dim
+    else:
+        ref = this_lib.svt_block_bwd_dh_floats
+        lib.svt_block_bwd_dh_floats.argtypes = ref.argtypes
+        lib.svt_block_bwd_dh_floats.restype = ref.restype
     return lib
 
 

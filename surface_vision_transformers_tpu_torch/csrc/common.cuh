@@ -452,6 +452,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// -- the n32 forms and the 64-byte swizzle (the resident attention backward
+// at head dim 32, flash_attention.cu)
+//
+// A [rows][32] bf16 tile (64-byte rows) in the 64-byte swizzle: the 16-byte
+// chunk c of row r sits at chunk c ^ ((r / 2) % 4), the tile starts on 512
+// bytes. As the 128-byte form, one tile serves as a K-major operand (rows =
+// M or N, the 32 columns = K; the k16 step s starts 32 s bytes in) and as an
+// MN-major one of width 32 (rows = K, the 32 columns = M or N; the k16 step
+// s starts 1024 s bytes in): 8-row groups 512 bytes apart either way.
+
+// Element offset of (r, c) in a swizzled [rows][32] bf16 tile.
+__device__ __forceinline__ int sw64(int r, int c) {
+  return r * 32 + ((((c >> 3) ^ ((r >> 1) & 3)) << 3) | (c & 7));
+}
+
+// Matrix descriptor of a 64-byte-swizzled tile at p (8-row groups 512
+// bytes apart; an operand 32 wide in M or N needs no leading offset).
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+#define SVT_WG_D16                                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+#define SVT_WG_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32) (+)= A (64 x 16) B (16 x 32), both from shared memory; the
+// thread layout of the n64 form, columns 8 j + 2 t + (e & 1) for j < 4.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SVT_WG_R16
+               ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+               : SVT_WG_D16
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same with A from registers (an mma.sync m16k16 fragment per warp).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SVT_WG_R16
+               ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+               : SVT_WG_D16
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // -- attention, head dim 64 (forward and backward)
 
 constexpr int ATT_DH = 64;

@@ -35,7 +35,27 @@
 // 16-byte row pieces; lse = m / 8 + log l when asked for. No CTA depends
 // on another.
 //
-// Backward, three launches:
+// Backward at head dim 32 up to 320 keys, queries = keys, without dropout
+// (every MS-SiT fold; resident_bwd), one launch: flash_bwd_resident_kernel
+// keeps a (sample, head)'s whole Q, K, V and dO in shared memory (5 x 320 x
+// 32 x 2 B would be 100 KB with O; O is read only for delta, by each thread
+// for its own rows). Its tiles are 32 columns wide in the 64-byte swizzle,
+// so S, dP (n32 halves of a 64-key block), dV, dK and the dQ share (n32)
+// spend no tensor work on zero columns. Warpgroup w owns query tile w and
+// its dQ in registers; in round r it takes key block (w + r) % T, so dQ sums
+// over the key blocks in a fixed order, and dK and dV sum over the rounds
+// in fp32 in shared memory (one warpgroup adds into a block in a round,
+// after the round before it: a turn counter per block, so the warpgroups
+// drift apart and one's softmax runs under another's products): no
+// workspace, no delta or dq pass, no atomics, and the outputs repeat bit
+// for bit by construction. Sequences of N <= 32 rows
+// go 64 / N to a tile under a block-diagonal mask (stage 2's axial fold: 3
+// of 20, 60 rows of 64), one tile a CTA. T = 1 .. 5 tiles, 128 T threads,
+// up to 201 KB of shared memory (T = 5: Q, K, V, dO 80 KB, the fp32 key
+// block sums 80 KB, a 64 x 64 staging tile a warpgroup for P~ and then dS).
+// PERF.md has its times against the streamed kernel's and SDPA's.
+//
+// Backward elsewhere (dh 64, dropout, past 320 keys), three launches:
 //   delta    delta = rowsum(dO . O), eight threads a row, 16-byte loads.
 //   main     one CTA per (64 keys, head, sample): a warpgroup that computes
 //            and a warp that writes dQ. K and V stay in shared memory; Q and
@@ -89,9 +109,10 @@
 // does), the exponent the double product 2^-2.5 log2(e) rounded once
 // (SoftmaxScale). The tiling rule is the same for both dh.
 //
-// The backward at dh 32 takes the same design: Q and dO arrive by TMA
-// through 32-column maps in 64-column boxes, K and V by cp.async with the
-// 16-byte pieces past column 32 zero-filled, so every tile, the swizzle,
+// The streamed backward at dh 32 (past 320 keys, or queries != keys) takes
+// the same design: Q and dO arrive by TMA through 32-column maps in
+// 64-column boxes, K and V by cp.async with the 16-byte pieces past column
+// 32 zero-filled, so every tile, the swizzle,
 // the descriptors and the ring's byte counts stay those of dh 64. S and dP
 // run dh / 16 = 2 k16 steps; dV, dK and the dQ share run on the padded
 // tiles (their columns 32-63 come out zero and are never written), so half
@@ -909,6 +930,338 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
   }
 }
 
+// -- backward, resident (head dim 32, N <= 320, no dropout) --------------------
+//
+// One CTA per unit: a (sample, head)'s whole sequence, or, where N <= 32,
+// pack = 64 / N of them side by side in one 64-row tile. Its Q, K, V and dO
+// (T = ceil(rows / 64) tiles of [rows][32] in the 64-byte swizzle) land once
+// by cp.async and stay; warpgroup w owns query tile w and its dQ
+// accumulators. In round r it takes key block kb = (w + r) % T: S and dP
+// (n32 halves of the 64-key block), P~ and dS in registers, the tile's dQ
+// share dS K added into its dQ registers, then dV = P~^T dO and dK = dS^T Q
+// through its own staging tile, added into key block kb's fp32 sums in
+// shared memory (one warpgroup adds into a block in a round, once the
+// block's turn counter says the round before it has). So every sum runs in
+// a fixed order (dQ over kb = w, w +
+// 1, ..; dK and dV over the rounds), no product spends tensor work on zero
+// columns, and nothing but the outputs goes to device memory: no workspace,
+// no delta or dq pass (delta comes from O and dO rows read by each thread
+// for its own rows).
+
+constexpr int RES_MAX_TILES = 5;  // 320 keys, MS-SiT's longest sequence
+// The one-tile kernel's CTAs per SM (its registers: 65536 / (128 x it)).
+constexpr int RES_T1_CTAS = 4;
+
+template <int T>
+struct ResSums {  // key block sums over the rounds
+  float4 dk[T][4 * 128], dv[T][4 * 128];
+  int turn[T];  // rounds whose adds into the block are in
+};
+template <>
+struct ResSums<1> {};  // one round: each block is written as it is made
+
+template <int T>
+struct ResSmem {
+  bf16 q[T * 64 * 32], k[T * 64 * 32], v[T * 64 * 32], d_o[T * 64 * 32];
+  bf16 stage[T][64 * 64];  // warpgroup w's P~, then its dS: [query][key], 128-byte swizzle
+  ResSums<T> sums;
+};
+
+// The unit's rows: tile row i holds row i % n of sequence u * pack + i / n
+// of B * heads (none past the pack or the last sequence).
+struct ResGeom {
+  int n, valid_len, pack, bh_total, heads;
+};
+
+// (sequence, row) of tile row i of unit u; x < 0 where the row holds none.
+__device__ __forceinline__ int2 res_row(int u, int i, const ResGeom& gm) {
+  const int seg = i / gm.n, bh = u * gm.pack + seg;
+  return seg < gm.pack && bh < gm.bh_total ? make_int2(bh, i - seg * gm.n) : make_int2(-1, 0);
+}
+
+// A 64 x 32 gradient tile (this thread's 16 accumulators, rows r0 and r0 +
+// 8) into rows row0 + .. of the unit, as bf16 (rows that hold no sequence
+// row skipped).
+__device__ __forceinline__ void res_store(const float (&d)[16], const Strided& out, int u, int row0,
+                                          int r0, int t, const ResGeom& gm) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int2 br = res_row(u, row0 + r0 + 8 * rr, gm);
+    if (br.x < 0) continue;
+    bf16* p = out.row(br.x / gm.heads, br.x % gm.heads, br.y);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j + 2 * t) = pack_bf16(d[4 * j + 2 * rr],
+                                                                  d[4 * j + 2 * rr + 1]);
+  }
+}
+
+// Round r's share of key block kb's dK or dV: stored into its sum at round
+// 0, added after it; at the last round the sum (+ the share) is rounded and
+// written to the block's key rows.
+template <int T>
+__device__ __forceinline__ void res_key_sum(float4* sum, float (&d)[16], int r, const Strided& out,
+                                            int u, int kb, int tid, int r0, int t,
+                                            const ResGeom& gm) {
+  if constexpr (T > 1) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      float4& a = sum[m * 128 + tid];
+      if (r == 0) {
+        a = make_float4(d[4 * m], d[4 * m + 1], d[4 * m + 2], d[4 * m + 3]);
+      } else if (r < T - 1) {
+        a.x += d[4 * m];
+        a.y += d[4 * m + 1];
+        a.z += d[4 * m + 2];
+        a.w += d[4 * m + 3];
+      } else {
+        d[4 * m] += a.x;
+        d[4 * m + 1] += a.y;
+        d[4 * m + 2] += a.z;
+        d[4 * m + 3] += a.w;
+      }
+    }
+    if (r < T - 1) return;
+  }
+  res_store(d, out, u, 64 * kb, r0, t, gm);
+}
+
+__device__ __forceinline__ int ld_acquire_cta(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared::cta.b32 %0, [%1];\n" : "=r"(v) : "r"(smem_u32(p)) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_cta(int* p, int v) {
+  asm volatile("st.release.cta.shared::cta.b32 [%0], %1;\n" ::"r"(smem_u32(p)), "r"(v) : "memory");
+}
+
+// Round r's turn at key block kb's sums: the warpgroup goes on once the
+// adds of rounds 0 .. r - 1 are in (one thread polls, then the warpgroup's
+// barrier). A wait far beyond any kernel's run traps rather than hangs.
+template <int T>
+__device__ __forceinline__ void res_turn(ResSmem<T>& sm, int kb, int r, int w, int tid) {
+  if constexpr (T > 1) {
+    if (r == 0) return;
+    if (tid == 0)
+      for (long long n = 0; ld_acquire_cta(&sm.sums.turn[kb]) != r; ++n) {
+        if (n > (1ll << 26)) __trap();
+        __nanosleep(20);
+      }
+    bar_sync(1 + w, 128);
+  }
+}
+
+// Key block kb's sum of dK (or dV) in shared memory (none at T = 1).
+template <int T>
+__device__ __forceinline__ float4* res_sum(ResSmem<T>& sm, bool is_dk, int kb) {
+  if constexpr (T > 1) return is_dk ? sm.sums.dk[kb] : sm.sums.dv[kb];
+  return nullptr;
+}
+
+template <int T>
+__global__ void __launch_bounds__(128 * T, T == 1 ? RES_T1_CTAS : T == 2 ? 2 : 1)
+    flash_bwd_resident_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
+                              const Strided d_o, const float* __restrict__ lse, const Strided dq,
+                              const Strided dk, const Strided dv, const ResGeom gm) {
+  constexpr int ROWS = 64 * T;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ResSmem<T>& sm = *reinterpret_cast<ResSmem<T>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int u = blockIdx.x;
+  // the warpgroup, broadcast so that the compiler sees it uniform (wgmma
+  // behind a branch it cannot prove uniform is serialised)
+  const int w = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's rows of a 64-row accumulator: r0, r0 + 8
+  // tile rows (queries or keys) at which P can be nonzero end here
+  const int span = gm.pack == 1 ? min(gm.valid_len, gm.n) : gm.pack * gm.n;
+
+  // Q, K, V, dO of the unit: 16-byte pieces, zeros where a row holds none
+  for (int idx = threadIdx.x; idx < 16 * ROWS; idx += 128 * T) {
+    const int which = idx / (4 * ROWS), i = (idx >> 2) % ROWS, ch = idx & 3;
+    const Strided src = which == 0 ? q : which == 1 ? k : which == 2 ? v : d_o;
+    bf16* dst = which == 0 ? sm.q : which == 1 ? sm.k : which == 2 ? sm.v : sm.d_o;
+    const int2 br = res_row(u, i, gm);
+    cp_async16(dst + sw64(i, ch * 8),
+               br.x >= 0 ? src.row(br.x / gm.heads, br.x % gm.heads, br.y) + ch * 8 : src.p,
+               br.x >= 0);
+  }
+  cp_async_commit();
+
+  // this thread's query rows: lse (+inf past valid_len, so P = 0 without a
+  // test per score), delta = rowsum(dO . O) over a quad (8 columns a thread)
+  float ml[2], dl[2];
+  int segr[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = 64 * w + r0 + 8 * rr;
+    const int2 br = res_row(u, i, gm);
+    const bool live = br.x >= 0 && br.y < gm.valid_len;
+    segr[rr] = i / gm.n;
+    float s = 0.f;
+    ml[rr] = INFINITY;
+    if (live) {
+      const int b = br.x / gm.heads, h = br.x % gm.heads;
+      ml[rr] = lse[(long long)br.x * gm.n + br.y] * kLog2e;
+      const uint4 a = *reinterpret_cast<const uint4*>(o.row(b, h, br.y) + 8 * t);
+      const uint4 c = *reinterpret_cast<const uint4*>(d_o.row(b, h, br.y) + 8 * t);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(c2[e]);
+        s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+      }
+    }
+    s = quad_sum(s);
+    dl[rr] = live ? s : 0.f;
+  }
+  if constexpr (T > 1)
+    if (threadIdx.x < T) sm.sums.turn[threadIdx.x] = 0;
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();  // the unit is in shared memory
+
+  const bf16* qt = sm.q + 64 * w * 32;
+  const bf16* dot = sm.d_o + 64 * w * 32;
+  bf16* stg = sm.stage[w];
+  const int qsteps = max(0, min(4, (span - 64 * w + 15) / 16));  // 16-query steps that can hold P
+  float dqa[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dqa[i] = 0.f;
+
+  for (int r = 0; r < T; ++r) {
+    const int kb = (w + r) % T;
+    const int ksteps = max(0, min(4, (span - 64 * kb + 15) / 16));
+    // which of this thread's 16 key columns (bit 8 h + 2 jj + e: column 32 h
+    // + 8 jj + 2 t + e of the block) rows r0 and r0 + 8 may see
+    uint32_t allow[2] = {0u, 0u};
+#pragma unroll
+    for (int bit = 0; bit < 16; ++bit) {
+      const int kc = 64 * kb + 32 * (bit >> 3) + 8 * ((bit >> 1) & 3) + 2 * t + (bit & 1);
+      if (gm.pack == 1) {
+        if (kc < span) {
+          allow[0] |= 1u << bit;
+          allow[1] |= 1u << bit;
+        }
+      } else {  // packed: a key of the row's own sequence, below valid_len
+        const int segk = kc / gm.n;
+        if (kc - segk * gm.n < gm.valid_len) {
+          allow[0] |= (uint32_t)(segk == segr[0]) << bit;
+          allow[1] |= (uint32_t)(segk == segr[1]) << bit;
+        }
+      }
+    }
+
+    uint32_t dsf[4][4];  // dS as the A fragments of dQ, one per 16 keys
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bf16* kh = sm.k + (64 * kb + 32 * h) * 32;
+      const bf16* vh = sm.v + (64 * kb + 32 * h) * 32;
+      float s[16], dp[16];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        wgmma_ss<0, 0>(s, sw64_desc(qt + ks * 16), sw64_desc(kh + ks * 16), ks);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        wgmma_ss<0, 0>(dp, sw64_desc(dot + ks * 16), sw64_desc(vh + ks * 16), ks);
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(s);
+      wg_hold(dp);
+      wg_hold(dqa);
+      // P, P~ to the staging tile, dS
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float pt[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * rr + e, bit = 8 * h + 2 * jj + e;
+            const float x = (allow[rr] >> bit) & 1 ? s[idx] : -INFINITY;
+            pt[e] = exp2_approx(fmaf(x, SoftmaxScale<32>::slog2, -ml[rr]));
+            dsv[e] = pt[e] * (dp[idx] - dl[rr]) * SoftmaxScale<32>::scale;
+          }
+          *reinterpret_cast<uint32_t*>(stg + sw128(r0 + 8 * rr, 32 * h + 8 * jj + 2 * t)) =
+              pack_bf16(pt[0], pt[1]);
+          dsf[2 * h + (jj >> 1)][2 * (jj & 1) + rr] = pack_bf16(dsv[0], dsv[1]);
+        }
+      // dQ += dS K over this half's keys (16-key steps past the span skipped)
+      wg_fence();
+#pragma unroll
+      for (int G = 2 * h; G < 2 * h + 2; ++G)
+        if (G < ksteps) wgmma_rs<1>(dqa, dsf[G], sw64_desc(sm.k + (64 * kb + 16 * G) * 32), 1);
+      wg_commit();
+    }
+    fence_async_smem();
+    bar_sync(1 + w, 128);  // the tile's P~ is in shared memory
+
+    // dV share = P~^T dO over the query steps that can hold P
+    float dvs[16], dks[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dvs[i] = dks[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq)
+      if (kq < qsteps)
+        wgmma_ss<1, 1>(dvs, sw128_desc(stg + kq * 16 * 64), sw64_desc(dot + kq * 16 * 32), 1);
+    wg_commit();
+    wg_wait<0>();  // also the dQ products: P~ is read, dsf free
+    wg_hold(dvs);
+    wg_hold(dqa);
+    // dS over P~, then dK share = dS^T Q
+#pragma unroll
+    for (int G = 0; G < 4; ++G)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        *reinterpret_cast<uint32_t*>(
+            stg + sw128(r0 + 8 * (kk & 1), 16 * G + 8 * (kk >> 1) + 2 * t)) = dsf[G][kk];
+    fence_async_smem();
+    bar_sync(1 + w, 128);
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq)
+      if (kq < qsteps)
+        wgmma_ss<1, 1>(dks, sw128_desc(stg + kq * 16 * 64), sw64_desc(qt + kq * 16 * 32), 1);
+    wg_commit();
+    res_turn(sm, kb, r, w, tid);
+    res_key_sum<T>(res_sum(sm, false, kb), dvs, r, dv, u, kb, tid, r0, t, gm);
+    wg_wait<0>();
+    wg_hold(dks);
+    res_key_sum<T>(res_sum(sm, true, kb), dks, r, dk, u, kb, tid, r0, t, gm);
+    if constexpr (T > 1) {
+      if (r + 1 < T) {  // the block's turn passes to round r + 1
+        bar_sync(1 + w, 128);
+        if (tid == 0) st_release_cta(&sm.sums.turn[kb], r + 1);
+      }
+    }
+  }
+  res_store(dqa, dq, u, 64 * w, r0, t, gm);
+}
+
+template <int T>
+cudaError_t launch_resident(const Strided& q, const Strided& k, const Strided& v, const Strided& o,
+                            const Strided& d_o, const float* lse, const Strided& dq,
+                            const Strided& dk, const Strided& dv, const ResGeom& gm, int units,
+                            cudaStream_t st) {
+  constexpr int smem = sizeof(ResSmem<T>) + 1024;  // + alignment to 1024 bytes
+  static bool ready[16];  // the shared-memory limit, set once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || !ready[dev]) {
+    e = cudaFuncSetAttribute(flash_bwd_resident_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) ready[dev] = true;
+  }
+  flash_bwd_resident_kernel<T><<<units, 128 * T, smem, st>>>(q, k, v, o, d_o, lse, dq, dk, dv, gm);
+  return cudaGetLastError();
+}
+
 __device__ __forceinline__ void add4(float4& a, const float4& x) {
   a.x += x.x;
   a.y += x.y;
@@ -1116,7 +1469,14 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
                                             nk, valid_len, dr);
 }
 
-long long flash_bwd_workspace(int B, int heads, int nq, int dh) {
+bool resident_bwd(int nq, int nk, int dh, bool dropout) {
+  return dh == 32 && !dropout && nq == nk && nq <= 64 * RES_MAX_TILES;
+}
+
+int resident_pack(int n) { return n <= 32 ? 64 / n : 1; }
+
+long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh) {
+  if (resident_bwd(nq, nk, dh, false)) return 0;  // (dh 32 runs without dropout)
   // the sums and a turn counter per sum and tile
   return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) * ((long long)BWD_BQ * dh + 1);
 }
@@ -1126,7 +1486,21 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
                       int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
                       Dropout dr) {
   if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1) return cudaErrorInvalidValue;
-  if (dh == 32 && !dr.on)  // dh 32 is built without dropout (MS-SiT trains with none)
+  if (resident_bwd(nq, nk, dh, dr.on)) {  // one launch, the sequence in shared memory
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(d_o))
+      return cudaErrorMisalignedAddress;
+    const int pack = resident_pack(nq);
+    const ResGeom gm{nq, valid_len, pack, B * heads, heads};
+    const int units = ceil_div(B * heads, pack);
+    switch (ceil_div(nq * pack, 64)) {
+      case 1: return launch_resident<1>(q, k, v, o, d_o, lse, dq, dk, dv, gm, units, st);
+      case 2: return launch_resident<2>(q, k, v, o, d_o, lse, dq, dk, dv, gm, units, st);
+      case 3: return launch_resident<3>(q, k, v, o, d_o, lse, dq, dk, dv, gm, units, st);
+      case 4: return launch_resident<4>(q, k, v, o, d_o, lse, dq, dk, dv, gm, units, st);
+      default: return launch_resident<5>(q, k, v, o, d_o, lse, dq, dk, dv, gm, units, st);
+    }
+  }
+  if (dh == 32 && !dr.on)  // dh 32 past 320 keys, or nq != nk: the streamed kernels
     return bwd_launches<32>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
                             valid_len, st, dr);
   if (dh != ATT_DH) return cudaErrorInvalidValue;
@@ -1170,8 +1544,9 @@ int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q
 // flash_attention backward: the forward's operands, o and lse, the output
 // cotangent d_o (as o) -> dq (as q), dk, dv (as k); dh 32 or 64; delta (B,
 // heads, nq) fp32 scratch; ws svt_flash_attention_bwd_workspace(B, heads,
-// nq, dh) floats of scratch (the fp32 dQ sums and their turn counters).
-// Dropout as the forward's, which gave o (dh 64 only).
+// nq, nk, dh) floats of scratch (the fp32 dQ sums and their turn counters;
+// none for the resident kernel). Dropout as the forward's, which gave o (dh
+// 64 only).
 int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
@@ -1204,9 +1579,10 @@ int svt_flash_fwd_profile(unsigned long long* out) {
 }
 #endif
 
-// Floats of scratch svt_flash_attention_bwd needs in `ws` at head dim dh.
-long long svt_flash_attention_bwd_workspace(int B, int heads, int nq, int dh) {
-  return flash_bwd_workspace(B, heads, nq, dh);
+// Floats of scratch svt_flash_attention_bwd needs in `ws` at head dim dh (0
+// where the resident kernel runs: dh 32, nq == nk <= 320).
+long long svt_flash_attention_bwd_workspace(int B, int heads, int nq, int nk, int dh) {
+  return flash_bwd_workspace(B, heads, nq, nk, dh);
 }
 
 }  // extern "C"

@@ -60,8 +60,15 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
                       int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
                       Dropout dr = Dropout{});
 
-// Floats of scratch flash_bwd needs in ws for (B, heads, nq) query rows at
-// head dim dh.
-long long flash_bwd_workspace(int B, int heads, int nq, int dh);
+// Floats of scratch flash_bwd needs in ws for (B, heads, nq) query rows
+// against nk keys at head dim dh: 0 where the resident kernel runs (dh 32,
+// no dropout, nq == nk <= 320: the whole sequence in one CTA's shared
+// memory, delta and dQ summed there, one launch).
+long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh);
+
+// Whether the backward at these shapes takes the resident kernel, and how
+// many sequences it packs into one 64-row tile (N <= 32).
+bool resident_bwd(int nq, int nk, int dh, bool dropout);
+int resident_pack(int n);
 
 }  // namespace svt

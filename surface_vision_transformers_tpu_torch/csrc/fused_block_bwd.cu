@@ -32,10 +32,15 @@
 //   dW_fc2 = g^T f            dgl = g W_fc2 -> df1 = dgl * GELU'(fpre)
 //   dW_fc1 = df1^T h2         dh2 = df1 W_fc1 -> LN2 backward (+ g) = dx1
 //   dW_out = dx1^T attn       da = dx1 W_out
-//   attention backward: delta = rowsum(dO . O), then one wgmma pass over key
-//                       blocks and the dq pass (flash_attention.cu: any N;
-//                       its dQ sums use ws)
+//   attention backward (flash_attention.cu: at dh 32 up to 320 keys one
+//                       resident launch; else a delta pass, one wgmma pass
+//                       over key blocks and the dq pass, its dQ sums in ws)
 //   dW_qkv = dqkv^T h1        dh1 = dqkv W_qkv -> LN1 backward (+ dx1) = dx
+// Up to dim LN_EPILOGUE_MAX_DIM (192: a GEMM tile holds whole rows) each
+// LayerNorm backward runs in the epilogue of the product that makes its dh
+// (gemm.cuh B_LN2, B_LN1), so dh never reaches device memory; wider blocks,
+// and the CLS block's LN1 (its dh is two products), write dh in fp32 and
+// run the standalone ln_bwd_kernel.
 // Rounding points follow the TPU kernel: bf16 df1, dx1, da, P (for dV), dS,
 // dq/dk/dv and dx; fp32 weight/vector gradients, dh, the LN backward and
 // every accumulator.
@@ -64,6 +69,7 @@
 // the first CUDA error, synchronises nothing and allocates nothing.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "flash_attention.cuh"
 #include "gemm.cuh"
@@ -85,73 +91,176 @@ __global__ void reduce_kernel(const float* __restrict__ part, int P, long long s
   out[i] = s;
 }
 
+// Many partials (the column sums of every 128-row tile: 10,240 at MS-SiT's
+// stage 0), where one thread a column would walk them all in turn: chunk
+// blockIdx.y of REDUCE_CHUNK partials summed in order into its first
+// partial's slot, for reduce_kernel to add the chunks in order. The order
+// depends on P alone.
+constexpr int REDUCE_CHUNK = 64, REDUCE_PASS_MIN = 1024;
+__global__ void reduce_chunks_kernel(float* __restrict__ part, int P, long long stride,
+                                     int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const int q0 = blockIdx.y * REDUCE_CHUNK, q1 = min(P, q0 + REDUCE_CHUNK);
+  float s = 0.f;
+  for (int q = q0; q < q1; ++q) s += part[q * stride + i];
+  part[q0 * stride + i] = s;
+}
+
 // ---------------------------------------------------------------------------
-// LayerNorm backward, one warp per row, LNB_ROWS rows per warp:
+// LayerNorm backward, standalone (dims above LN_EPILOGUE_MAX_DIM, and the CLS
+// block's LN1, whose dh is two products): a group of G warps per pair of
+// rows, both rows' loads issued before either row's sums, so that a group
+// keeps two rows in flight; groups walk the pairs with the grid's stride:
 //   n = (x - mean) * rstd, d = dh * gamma,
 //   out = (d - mean(d) - n * mean(d * n)) * rstd + res
 // with res the row's residual cotangent: row r = (sample r / seg, i = r % seg)
-// has one iff i < res_seg, at res[(r / seg) * res_seg + i]. Column sums per
-// CTA, in fixed order: [cta][q][dim] for q = sum dh*n, sum dh, sum res,
-// sum out (the first nsum of them). A lane holds C values of a row: C = 12
-// up to dim 384, C = 24 up to dim 768 (SiT-base), so the smaller widths keep
-// their registers.
+// has one iff i < res_seg, at res[(r / seg) * res_seg + i]. Thread L of a
+// group holds C4 pieces of 4 columns (4 (L + 32 G p) ..): 16-byte loads of dh
+// and of an fp32 residual, 8-byte ones of x and of a bf16 residual, kept
+// packed until used. Past dim 384 a row takes G = 2 warps, so that a thread
+// holds what it does at dim 384 (with one warp a row, dim 768 took 255
+// registers and spilled); the two warps' row sums meet in shared memory,
+// added in warp order, behind a barrier of the pair. Column sums per CTA, in
+// fixed order: [cta][q][dim] for q = sum dh*n, sum dh, and with NSUM 4 sum
+// res, sum out. At most LNB_CTAS CTAs, whatever the card, so that the sums'
+// order is the shape's alone: one an SM of an H100, all that fits (175-179
+// registers a thread); twice as many ran in two waves and left reduce twice
+// the partials (scripts/ln_bwd_tilings.py).
 
-constexpr int LNB_WARPS = 8, LNB_ROWS = 32, LNB_MAX_DIM = 768;
+constexpr int LNB_WARPS = 8, LNB_CTAS = 132, LNB_MAX_DIM = 768;
+constexpr int LN_EPILOGUE_MAX_DIM = gemm::BN;  // dims <= this fold LN into dh's product
 
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ void ld4(const float* p, float4& v) {
+  v = *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void ld4(const bf16* p, uint2& v) {
+  v = *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ float get(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float get(const uint2& v, int e) {
+  const uint32_t w = e < 2 ? v.x : v.y;
+  return __uint_as_float(e & 1 ? w & 0xFFFF0000u : w << 16);  // bf16 -> fp32
+}
 
-template <typename RT, int C>
+template <typename RT, int C4, int NSUM, int G>
 __global__ void __launch_bounds__(LNB_WARPS * 32)
     ln_bwd_kernel(const float* __restrict__ dh, const bf16* __restrict__ x,
                   const float* __restrict__ stats, const float* __restrict__ gamma,
                   const RT* __restrict__ res, int seg, int res_seg, float* __restrict__ out_f,
-                  bf16* __restrict__ out_b, float* __restrict__ colpart, int nsum, int rows,
-                  int dim) {
-  __shared__ float sred[4][C * 32];
+                  bf16* __restrict__ out_b, float* __restrict__ colpart, int rows, int dim) {
+  using Raw = typename std::conditional<sizeof(RT) == 4, float4, uint2>::type;
+  constexpr int GROUPS = LNB_WARPS / G;
+  __shared__ __align__(16) float sgam[LNB_MAX_DIM];
+  __shared__ float sred[NSUM][LNB_MAX_DIM];
+  __shared__ float4 srow[2][LNB_WARPS];  // a warp's row sums, by the pair's parity
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[4][C];
+  const int group = warp / G, L = (warp % G) * 32 + lane;
+  for (int c = threadIdx.x; c < dim; c += blockDim.x) sgam[c] = gamma[c];
+  __syncthreads();
+  float acc[NSUM][C4][4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
+  for (int q = 0; q < NSUM; ++q)
 #pragma unroll
-    for (int j = 0; j < C; ++j) acc[q][j] = 0.f;
+    for (int p = 0; p < C4; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][p][e] = 0.f;
 
-  const int r0 = (blockIdx.x * LNB_WARPS + warp) * LNB_ROWS;
-  for (int rr = 0; rr < LNB_ROWS; ++rr) {
-    const int r = r0 + rr;
-    if (r >= rows) break;
-    const float mu = stats[2LL * r], rstd = stats[2LL * r + 1];
-    const long long off = (long long)r * dim;
-    float n[C], d[C];
-    float s1 = 0.f, s2 = 0.f;
+  const int pairs = (rows + 1) / 2;
+  int parity = 0;
+  for (int pr = blockIdx.x * GROUPS + group; pr < pairs; pr += gridDim.x * GROUPS) {
+    float4 dv[2][C4];
+    uint2 xv[2][C4];
+    Raw rv[2][C4];
+    float mu[2], rstd[2];
+    bool has_res[2];
 #pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const int c = lane + 32 * j;
-      n[j] = d[j] = 0.f;
-      if (c < dim) {
-        const float dv = dh[off + c];
-        n[j] = (__bfloat162float(x[off + c]) - mu) * rstd;
-        d[j] = dv * gamma[c];
-        s1 += d[j];
-        s2 += d[j] * n[j];
-        acc[0][j] += dv * n[j];
-        acc[1][j] += dv;
+    for (int k = 0; k < 2; ++k) {  // both rows' loads first
+      const int r = 2 * pr + k;
+      const bool ok = r < rows;
+      const long long off = (long long)r * dim;
+      const int i = ok ? r % seg : 0;
+      const RT* rrow =
+          ok && i < res_seg ? res + ((long long)(r / seg) * res_seg + i) * dim : nullptr;
+      has_res[k] = rrow != nullptr;
+      const float2 st =
+          ok ? *reinterpret_cast<const float2*>(stats + 2LL * r) : make_float2(0.f, 0.f);
+      mu[k] = st.x;
+      rstd[k] = st.y;
+#pragma unroll
+      for (int p = 0; p < C4; ++p) {
+        const int c = 4 * (L + 32 * G * p);
+        const bool in = ok && c < dim;
+        dv[k][p] = make_float4(0.f, 0.f, 0.f, 0.f);
+        xv[k][p] = make_uint2(0u, 0u);
+        rv[k][p] = Raw{};
+        if (in) {
+          ld4(dh + off + c, dv[k][p]);
+          ld4(x + off + c, xv[k][p]);
+          if (has_res[k]) ld4(rrow + c, rv[k][p]);
+        }
       }
     }
-    s1 = warp_sum(s1) / dim;
-    s2 = warp_sum(s2) / dim;
-    const int i = r % seg;
-    const RT* rrow = i < res_seg ? res + ((long long)(r / seg) * res_seg + i) * dim : nullptr;
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const int c = lane + 32 * j;
-      if (c < dim) {
-        const float rv = rrow != nullptr ? to_f(rrow[c]) : 0.f;
-        const float o = (d[j] - s1 - n[j] * s2) * rstd + rv;
-        acc[2][j] += rv;
-        acc[3][j] += o;
-        if (out_f != nullptr) out_f[off + c] = o;
-        if (out_b != nullptr) out_b[off + c] = __float2bfloat16(o);
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int p = 0; p < C4; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 4 * (L + 32 * G * p) + e;
+          const float d = get(dv[k][p], e) * (c < dim ? sgam[c] : 0.f);
+          s1[k] += d;
+          s2[k] += d * ((get(xv[k][p], e) - mu[k]) * rstd[k]);
+        }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], o);
+        s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], o);
+      }
+    if constexpr (G == 2) {  // the pair's two halves, added in warp order
+      if (lane == 0) srow[parity][warp] = make_float4(s1[0], s2[0], s1[1], s2[1]);
+      bar_sync(1 + group, 64);
+      const float4 a = srow[parity][2 * group], b = srow[parity][2 * group + 1];
+      s1[0] = a.x + b.x;
+      s2[0] = a.y + b.y;
+      s1[1] = a.z + b.z;
+      s2[1] = a.w + b.w;
+      parity ^= 1;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = 2 * pr + k;
+      const long long off = (long long)r * dim;
+      const float m1 = s1[k] / dim, m2 = s2[k] / dim;
+#pragma unroll
+      for (int p = 0; p < C4; ++p) {
+        const int c = 4 * (L + 32 * G * p);
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dhv = get(dv[k][p], e), rres = has_res[k] ? get(rv[k][p], e) : 0.f;
+          const float n = (get(xv[k][p], e) - mu[k]) * rstd[k];
+          const float d = dhv * (c + e < dim ? sgam[c + e] : 0.f);
+          o[e] = (d - m1 - n * m2) * rstd[k] + rres;
+          acc[0][p][e] += dhv * n;
+          acc[1][p][e] += dhv;
+          if constexpr (NSUM == 4) {
+            acc[2][p][e] += rres;
+            acc[3][p][e] += r < rows ? o[e] : 0.f;
+          }
+        }
+        if (r < rows && c < dim) {
+          if (out_f != nullptr)
+            *reinterpret_cast<float4*>(out_f + off + c) = make_float4(o[0], o[1], o[2], o[3]);
+          if (out_b != nullptr)
+            *reinterpret_cast<uint2*>(out_b + off + c) =
+                make_uint2(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]));
+        }
       }
     }
   }
@@ -159,17 +268,19 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
   for (int w = 0; w < LNB_WARPS; ++w) {  // warps add in turn: fixed order
     if (warp == w)
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+      for (int q = 0; q < NSUM; ++q)
 #pragma unroll
-        for (int j = 0; j < C; ++j) {
-          const int c = lane + 32 * j;
-          if (q < nsum && c < dim) sred[q][c] = (w == 0 ? 0.f : sred[q][c]) + acc[q][j];
-        }
+        for (int p = 0; p < C4; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 4 * (L + 32 * G * p) + e;
+            if (c < dim) sred[q][c] = (w < G ? 0.f : sred[q][c]) + acc[q][p][e];
+          }
     __syncthreads();
   }
-  for (int q = 0; q < nsum; ++q)
+  for (int q = 0; q < NSUM; ++q)
     for (int c = threadIdx.x; c < dim; c += blockDim.x)
-      colpart[((long long)blockIdx.x * nsum + q) * dim + c] = sred[q][c];
+      colpart[((long long)blockIdx.x * NSUM + q) * dim + c] = sred[q][c];
 }
 
 // ---------------------------------------------------------------------------
@@ -184,10 +295,20 @@ int dw_splits(int Mout, int Nout, int K) {
   return splits;
 }
 
-int ln_bwd_ctas(int rows) { return ceil_div(rows, LNB_WARPS * LNB_ROWS); }
+int ln_bwd_ctas(int rows) { return std::min(ceil_div((rows + 1) / 2, LNB_WARPS), LNB_CTAS); }
 
-cudaError_t reduce(const float* part, int P, long long stride, int count, float* out,
-                   cudaStream_t st) {
+// The partials are scratch: past REDUCE_PASS_MIN of them, chunk passes
+// overwrite them with their chunks' sums until few are left.
+cudaError_t reduce(float* part, int P, long long stride, int count, float* out, cudaStream_t st) {
+  while (P > REDUCE_PASS_MIN) {
+    const int chunks = ceil_div(P, REDUCE_CHUNK);
+    reduce_chunks_kernel<<<dim3(ceil_div(count, 256), chunks), 256, 0, st>>>(part, P, stride,
+                                                                            count);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    P = chunks;
+    stride *= REDUCE_CHUNK;
+  }
   reduce_kernel<<<ceil_div(count, 256), 256, 0, st>>>(part, P, stride, count, out);
   return cudaGetLastError();
 }
@@ -223,16 +344,50 @@ cudaError_t gemm_nn(const bf16* A, int lda, const bf16* W, int M, int N, int K, 
   return gemm::linear_dx<EPI>(gemm::Operand{A, M, K, lda}, W, N, ep, st);
 }
 
+// dh = A W (A (M, K), W the torch (out = K, in = N = dim) weight) with the
+// LayerNorm backward in the product's epilogue (dim <= LN_EPILOGUE_MAX_DIM):
+// B_LN2 -> dx1 fp32 (out_f) and bf16 (out_b) with residual g (bf16); B_LN1
+// -> dx bf16 (out_b) with residual dx1 (fp32). Then its column sums into
+// vecs[q] (dscale, dbias; B_LN2 also sum res, sum out). dh never exists in
+// device memory.
+template <int EPI>
+cudaError_t gemm_ln(const bf16* A, int lda, const bf16* W, int M, int N, int K, const bf16* x,
+                    const float* stats, const float* gamma, const void* res, float* out_f,
+                    bf16* out_b, float* part, float* const* vecs, cudaStream_t st) {
+  gemm::Epilogue ep;
+  ep.bias = gamma;
+  ep.x = x;
+  ep.ldx = N;
+  ep.stats = stats;
+  ep.lres = res;
+  ep.ldr = N;
+  ep.cf = out_f;
+  ep.cb = out_b;
+  ep.ldc = N;
+  ep.colpart = part;
+  cudaError_t e = gemm::linear_dx<EPI>(gemm::Operand{A, M, K, lda}, W, N, ep, st);
+  constexpr int nsum = EPI == gemm::B_LN2 ? 4 : 2;
+  for (int q = 0; q < nsum && e == cudaSuccess; ++q)
+    e = reduce(part + (long long)q * N, gemm::ln_ctas(M), (long long)nsum * N, N, vecs[q], st);
+  return e;
+}
+
 // LayerNorm backward over `rows` rows, then its column sums into vecs[q]
 // (q < nsum: dscale, dbias, sum res, sum out).
 template <typename RT>
 cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const float* gamma,
                    const RT* res, int seg, int res_seg, float* out_f, bf16* out_b, int rows,
                    int dim, float* part, int nsum, float* const* vecs, cudaStream_t st) {
+  if (dim % 4 || (nsum != 2 && nsum != 4)) return cudaErrorInvalidValue;  // 4-column pieces
   const int ctas = ln_bwd_ctas(rows);
-  auto kernel = dim <= 384 ? ln_bwd_kernel<RT, 12> : ln_bwd_kernel<RT, 24>;
+  auto kernel = nsum == 2 ? (dim <= 256   ? ln_bwd_kernel<RT, 2, 2, 1>
+                             : dim <= 384 ? ln_bwd_kernel<RT, 3, 2, 1>
+                                          : ln_bwd_kernel<RT, 3, 2, 2>)
+                          : (dim <= 256   ? ln_bwd_kernel<RT, 2, 4, 1>
+                             : dim <= 384 ? ln_bwd_kernel<RT, 3, 4, 1>
+                                          : ln_bwd_kernel<RT, 3, 4, 2>);
   kernel<<<ctas, LNB_WARPS * 32, 0, st>>>(dh, x, stats, gamma, res, seg, res_seg, out_f, out_b,
-                                          part, nsum, rows, dim);
+                                          part, rows, dim);
   cudaError_t e = cudaGetLastError();
   for (int q = 0; q < nsum && e == cudaSuccess; ++q)
     e = reduce(part + (long long)q * dim, ctas, (long long)nsum * dim, dim, vecs[q], st);
@@ -264,8 +419,11 @@ int mlp_branch_bwd(const bf16* g, const bf16* w_fc1, const bf16* w_fc2, const fl
                                      part));
   SVT_TRY(reduce(part, ceil_div(Mr, gemm::BM), mlp, mlp, d_bfc1, st));
   SVT_TRY(weight_grad(df1, mlp, h2, dim, 0, 0, mlp, dim, Mr, d_wfc1, part, st));
-  SVT_TRY(gemm_nn<gemm::B_F32>(df1, mlp, w_fc1, Mr, dim, mlp, dh, nullptr, dim, st));
   float* const vecs[4] = {d_ln2_s, d_ln2_b, d_bfc2, d_bout};
+  if (dim <= LN_EPILOGUE_MAX_DIM)
+    return (int)gemm_ln<gemm::B_LN2>(df1, mlp, w_fc1, Mr, dim, mlp, x1, stats2, ln2_s, g, dx1,
+                                     dx1b, part, vecs, st);
+  SVT_TRY(gemm_nn<gemm::B_F32>(df1, mlp, w_fc1, Mr, dim, mlp, dh, nullptr, dim, st));
   SVT_TRY(ln_bwd<bf16>(dh, x1, stats2, ln2_s, g, seg, seg, dx1, dx1b, Mr, dim, part, 4, vecs,
                        st));
   return (int)cudaSuccess;
@@ -289,7 +447,15 @@ long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, in
     need = std::max(need, (long long)dw_splits(s[0], s[1], s[2]) * s[0] * s[1]);
   need = std::max(need, (long long)ceil_div(M, gemm::BM) * mlp);
   need = std::max(need, (long long)ln_bwd_ctas(M) * 4 * dim);
-  return std::max(need, flash_bwd_workspace(B, heads, rows, dim_head));  // the attention's dQ sums
+  // the attention's dQ sums (none for the resident backward)
+  return std::max(need, flash_bwd_workspace(B, heads, rows, N, dim_head));
+}
+
+// Floats of fp32 dh scratch the backward entries write (cls: the CLS
+// block's): B * N * dim where a standalone LayerNorm backward reads dh (dims
+// above LN_EPILOGUE_MAX_DIM, and the CLS block's LN1), else none.
+long long svt_block_bwd_dh_floats(int B, int N, int dim, int cls) {
+  return cls || dim > LN_EPILOGUE_MAX_DIM ? (long long)B * N * dim : 0;
 }
 
 // Backward of svt_fused_block_train_fwd. In: x (B, N, dim) and g = dL/dout
@@ -297,7 +463,9 @@ long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, in
 // dx (B, N, dim) bf16; d_ln1_s, d_ln1_b, d_bout, d_ln2_s, d_ln2_b, d_bfc1,
 // d_bfc2 (vectors) and d_wqkv (3hd, dim), d_wout (dim, hd), d_wfc1
 // (mlp, dim), d_wfc2 (dim, mlp), all fp32 in the torch (out, in) layout.
-// Scratch: df1 (B*N, mlp) bf16, dh (B*N, dim) fp32, dx1 (B*N, dim) fp32,
+// Scratch: df1 (B*N, mlp) bf16, dh (svt_block_bwd_dh_floats fp32: none up
+// to dim 192, where the LayerNorm backwards run in the epilogues of dh's
+// products and dh is never written), dx1 (B*N, dim) fp32,
 // dx1b (B*N, dim) bf16, da (B*N, hd) bf16, dqkv (B*N, 3hd) bf16, delta
 // (B, heads, N) fp32, ws (svt_block_bwd_workspace floats).
 int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out, void* ln2_s,
@@ -335,9 +503,13 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                    dqkv_ + hd, dqkv_ + 2 * hd, 3 * hd, B, heads, dim_head, valid_len, st));
   SVT_TRY(weight_grad(dqkv_, 3 * hd, (const bf16*)h1, dim, 0, 0, 3 * hd, dim, M, (float*)d_wqkv,
                       part, st));
+  float* const vecs[2] = {(float*)d_ln1_s, (float*)d_ln1_b};
+  if (dim <= LN_EPILOGUE_MAX_DIM)
+    return (int)gemm_ln<gemm::B_LN1>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd,
+                                     (const bf16*)x, (const float*)stats1, (const float*)ln1_s,
+                                     dx1, nullptr, (bf16*)dx, part, vecs, st);
   SVT_TRY(gemm_nn<gemm::B_F32>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd, (float*)dh,
                                nullptr, dim, st));
-  float* const vecs[2] = {(float*)d_ln1_s, (float*)d_ln1_b};
   SVT_TRY(ln_bwd<float>((const float*)dh, (const bf16*)x, (const float*)stats1,
                         (const float*)ln1_s, (const float*)dx1, N, N, nullptr, (bf16*)dx, M, dim,
                         part, 2, vecs, st));
@@ -419,6 +591,30 @@ int svt_block_gemm_nn(int epi, void* A, void* W, void* Cf, void* Cb, void* pre, 
     return (int)gemm_nn<gemm::B_GELU_GRAD>(a, K, w, M, N, K, nullptr, (bf16*)Cb, N, st,
                                            (const float*)pre, (float*)colpart);
   return (int)cudaErrorInvalidValue;
+}
+
+// The LayerNorm epilogue alone: dh = A (M, K) W (W the torch (out = K, in =
+// N) weight, N <= 192), then the LayerNorm backward of x's rows (bf16 (M,
+// N); stats (M, 2) fp32 mean, rstd; gamma (N,)) plus the residual cotangent
+// res: ln 2 = LN2's form (res bf16; out fp32 into Cf and bf16 into Cb; vecs
+// (4, N): sum dh n, sum dh, sum res, sum out), ln 1 = LN1's (res fp32; out
+// bf16 into Cb; vecs (2, N)). part: svt_block_gemm_ln_workspace floats.
+int svt_block_gemm_ln(int ln, void* A, void* W, void* x, void* stats, void* gamma, void* res,
+                      void* Cf, void* Cb, void* vecs, void* part, int M, int N, int K, int device,
+                      void* stream) {
+  if (N > LN_EPILOGUE_MAX_DIM || (ln != 1 && ln != 2)) return (int)cudaErrorInvalidValue;
+  SVT_TRY(cudaSetDevice(device));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* v = static_cast<float*>(vecs);
+  float* const rows[4] = {v, v + N, v + 2 * N, v + 3 * N};
+  auto launch = ln == 2 ? gemm_ln<gemm::B_LN2> : gemm_ln<gemm::B_LN1>;
+  return (int)launch((const bf16*)A, K, (const bf16*)W, M, N, K, (const bf16*)x,
+                     (const float*)stats, (const float*)gamma, res, (float*)Cf, (bf16*)Cb,
+                     (float*)part, rows, st);
+}
+
+long long svt_block_gemm_ln_workspace(int M, int N) {
+  return (long long)gemm::ln_ctas(M) * 4 * N;
 }
 
 // out (Mout, Nout) fp32 = A^T B over K rows: A (K, Mout), B (K, Nout) bf16;

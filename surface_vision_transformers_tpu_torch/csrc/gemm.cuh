@@ -83,6 +83,12 @@
 //                128-row tile at colpart[tile][N] (df1 and d_bfc1)
 //   B_ADD_F32    fp32 C added into Cf through its row map (the CLS block's
 //                dq W_q into dh's top rows)
+//   B_LN2        C is dh (N = dim <= BN: a tile holds whole rows); the
+//                LayerNorm backward of x's rows plus the bf16 residual g:
+//                dx1 fp32 into Cf and bf16 by TMA, and the column sums of
+//                dh n, dh, g and dx1 per CTA into colpart (ln_epilogue)
+//   B_LN1        the same with the fp32 residual dx1: bf16 dx, and the
+//                sums of dh n and dh
 // and on int8 operands, each dequantized as (float(acc) * sa[row]) *
 // sw[col], then + bias, then the residual, every rounding written out
 // (__fmul_rn, __fadd_rn) so that no contraction moves a value from the
@@ -146,7 +152,7 @@ constexpr int WG_BAR = 2;             // named barriers 2, 3: one consumer warpg
 constexpr int IDENTITY = 1 << 30;     // a row map's group size when there is none
 constexpr int STAGE_BYTES = (BM + BN) * ROW_BYTES;
 
-enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_ADD_F32,
+enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_ADD_F32, B_LN2, B_LN1,
            Q_S32, Q_BF16, Q_RES_F32, Q_GELU_MAX, Q_GELU_Q8, Q_RES_BF16 };
 
 // An operand in device memory (bf16 or int8, the engine's element type):
@@ -174,6 +180,13 @@ struct Epilogue {
   float* part = nullptr;      // Q_GELU_MAX out, Q_GELU_Q8 in: max |f| per row and N-tile
   int8_t* cq = nullptr;       // Q_GELU_Q8: the int8 codes (ldc)
   float* sq = nullptr;        // Q_GELU_Q8: their row scales (M,)
+  // B_LN2 / B_LN1: the LayerNorm's input rows x (bf16, ldx), its (mean,
+  // rstd) per row, gamma in `bias`, the residual cotangent (ldr: bf16 for
+  // B_LN2, fp32 for B_LN1); column sums per CTA into colpart
+  const bf16* x = nullptr;
+  int ldx = 0;
+  const float* stats = nullptr;
+  const void* lres = nullptr;
 };
 
 // The tile walk, as the device sees it.
@@ -195,10 +208,12 @@ struct Smem {
   uint64_t pre_full[NWG][2];  // chunked(): an fp32 chunk has landed
 };
 
+// The LayerNorm backwards folded into the product that makes dh.
+__host__ __device__ constexpr bool ln_epi(int epi) { return epi == B_LN2 || epi == B_LN1; }
 // Whether an epilogue writes a bf16 C (through shared memory and TMA).
 __host__ __device__ constexpr bool bf16_out(int epi) {
   return epi == F_NONE || epi == F_GELU || epi == F_RES || epi == B_BF16 ||
-         epi == B_GELU_GRAD || epi == Q_BF16 || epi == Q_RES_BF16;
+         epi == B_GELU_GRAD || epi == Q_BF16 || epi == Q_RES_BF16 || ln_epi(epi);
 }
 // ... a 4-byte C (fp32 or int32), in two halves of the tile.
 __host__ __device__ constexpr bool w32_out(int epi) { return epi == Q_S32 || epi == Q_RES_F32; }
@@ -209,18 +224,24 @@ __host__ __device__ constexpr bool smem_out(int epi) {
 // The int8 epilogues, and those of them that dequantize (all but Q_S32).
 __host__ __device__ constexpr bool int8_epi(int epi) { return epi >= Q_S32; }
 __host__ __device__ constexpr bool dequant(int epi) { return epi > Q_S32; }
-// A bf16 residual block comes by TMA into sm.c at the tile's start.
-__host__ __device__ constexpr bool res_tile(int epi) { return epi == F_RES || epi == Q_RES_F32; }
+// A bf16 residual block (the LayerNorm epilogues: x) comes by TMA into sm.c
+// at the tile's start.
+__host__ __device__ constexpr bool res_tile(int epi) {
+  return epi == F_RES || epi == Q_RES_F32 || ln_epi(epi);
+}
 
 // B_GELU_GRAD reads an fp32 pre-activation as large as its output twice
 // over, Q_RES_BF16 an fp32 residual: it comes by TMA in 32-column chunks,
 // two in flight a warpgroup, in the ring's last stage (a[3] for warpgroup
 // 0, b[3] for warpgroup 1), so that epilogue's ring has one stage fewer.
+// The LayerNorm epilogues read their residual cotangent the same way, in
+// chunks of 128-byte rows: 32 fp32 columns (B_LN1) or 64 bf16 (B_LN2).
 __host__ __device__ constexpr bool chunked(int epi) {
-  return epi == B_GELU_GRAD || epi == Q_RES_BF16;
+  return epi == B_GELU_GRAD || epi == Q_RES_BF16 || ln_epi(epi);
 }
 __host__ __device__ constexpr int stages(int epi) { return chunked(epi) ? STAGES - 1 : STAGES; }
 constexpr int PRE_COLS = 32, PRE_CHUNK = 64 * PRE_COLS;  // a chunk: 64 rows x 32 fp32
+__host__ __device__ constexpr int chunk_cols(int epi) { return epi == B_LN2 ? 64 : PRE_COLS; }
 __device__ __forceinline__ float* pre_buf(Smem& sm, int wg, int b) {
   return reinterpret_cast<float*>(wg == 0 ? sm.a[STAGES - 1] : sm.b[STAGES - 1]) + b * PRE_CHUNK;
 }
@@ -323,8 +344,16 @@ __device__ __forceinline__ void stage(const Epilogue& ep, const Walk& w, const T
     if (tid == 0) bulk_wait_read<0>();
     bar_sync(WG_BAR + wg, 128);
   }
-  if ((EPI == F_GELU || EPI == F_RES || (dequant(EPI) && EPI != Q_BF16)) && tid < BN / 4)
+  if ((EPI == F_GELU || EPI == F_RES || ln_epi(EPI) || (dequant(EPI) && EPI != Q_BF16)) &&
+      tid < BN / 4)
     *reinterpret_cast<float4*>(&sm.bias[wg][4 * tid]) = load4(ep.bias, tl.n0 + 4 * tid, w.N);
+  if (ln_epi(EPI) && tid >= 64) {  // each row's (mean, rstd); rows past M: 0
+    const int i = tid - 64, r = tl.m0 + 64 * wg + i;
+    const float2 st = r < w.M ? *reinterpret_cast<const float2*>(ep.stats + 2LL * r)
+                              : make_float2(0.f, 0.f);
+    sm.rs[wg][0][i] = st.x;
+    sm.rs[wg][1][i] = st.y;
+  }
   if (dequant(EPI)) {
     const int i = tid & 63, r = tl.m0 + 64 * wg + i;
     if (tid < 64) {
@@ -346,6 +375,158 @@ __device__ __forceinline__ void stage(const Epilogue& ep, const Walk& w, const T
   }
 }
 
+// The column sums over a warp's 16 rows of 48 values a thread (val(k): the
+// thread's two rows at column 8 (k >> 1) + 2 t + (k & 1)), reduce-scattered
+// over the eight lanes that hold a column: lane g keeps k = 6 g .. 6 g + 5,
+// each the sum over its 16 rows. 42 shuffles where a full reduction of each
+// value takes 144; the roles of the lanes fix the order of every addition.
+template <typename F>
+__device__ __forceinline__ void col_reduce(F val, int g, float (&out)[6]) {
+  const bool b2 = g & 4, b1 = g & 2, b0 = g & 1;
+  float w1[24], w2[12];
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const float a = val(i), b = val(24 + i);
+    w1[i] = (b2 ? b : a) + __shfl_xor_sync(0xffffffffu, b2 ? a : b, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    w2[i] = (b1 ? w1[12 + i] : w1[i]) + __shfl_xor_sync(0xffffffffu, b1 ? w1[i] : w1[12 + i], 8);
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    out[i] = (b0 ? w2[6 + i] : w2[i]) + __shfl_xor_sync(0xffffffffu, b0 ? w2[i] : w2[6 + i], 4);
+}
+// The column of the i-th value col_reduce leaves lane (g, t).
+__device__ __forceinline__ int col_of(int g, int t, int i) {
+  return 8 * (3 * g + (i >> 1)) + 2 * t + (i & 1);
+}
+
+// The LayerNorm backward in the epilogue of the product that makes dh (dim
+// = N <= BN, so a tile holds whole rows): acc is dh. With n = (x - mean)
+// rstd and d = dh gamma,
+//   out = (d - mean(d) - n mean(d n)) rstd + res
+// (B_LN2: res = g bf16, out fp32 into cf and bf16; B_LN1: res = dx1 fp32,
+// out bf16), as fused_block_bwd.cu's ln_bwd_kernel. x came into sm.c at the
+// tile's start, res comes in chunks through the ring's last stage; the row
+// sums are quad shuffles over the accumulator fragment. The column sums
+// (sum dh n, sum dh; B_LN2 also sum res, sum out) add into colacc across
+// the CTA's tiles (col_reduce), written once at the end of its walk. bf16
+// out replaces x in sm.c and leaves by TMA.
+template <int EPI>
+__device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep,
+                                            const CUtensorMap& tm_f, const Walk& w,
+                                            const Tile& tl, int n, int wg, int warp, int g,
+                                            int t, int tid, Smem& sm, float (&colacc)[4][6]) {
+  bar_sync(WG_BAR + wg, 128);  // what stage() wrote
+  const int rl[2] = {16 * warp + g, 16 * warp + g + 8};  // rows in the warpgroup's 64
+  const float mu[2] = {sm.rs[wg][0][rl[0]], sm.rs[wg][0][rl[1]]};
+  const float rs[2] = {sm.rs[wg][1][rl[0]], sm.rs[wg][1][rl[1]]};
+  auto x_at = [&](int h, int j) {  // x of row rl[h], columns 8 j + 2 t, + 1
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        sm.c[j >> 3] + sw128(64 * wg + rl[h], 8 * (j & 7) + 2 * t)));
+  };
+  auto gam = [&](int j) { return *reinterpret_cast<const float2*>(&sm.bias[wg][8 * j + 2 * t]); };
+  // row sums of d and d n; column groups wholly past N (half the tile at
+  // dim 96) are skipped here and below
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 24; ++j) {
+    if (8 * j >= w.N) break;
+    const float2 gm = gam(j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 xv = x_at(h, j);
+      const float d0 = acc[4 * j + 2 * h] * gm.x, d1 = acc[4 * j + 2 * h + 1] * gm.y;
+      s1[h] += d0 + d1;
+      s2[h] += d0 * ((xv.x - mu[h]) * rs[h]) + d1 * ((xv.y - mu[h]) * rs[h]);
+    }
+  }
+  const float inv_dim = 1.f / (float)w.N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s1[h] = (s1[h] + __shfl_xor_sync(0xffffffffu, s1[h], 1));
+    s1[h] = (s1[h] + __shfl_xor_sync(0xffffffffu, s1[h], 2)) * inv_dim;
+    s2[h] = (s2[h] + __shfl_xor_sync(0xffffffffu, s2[h], 1));
+    s2[h] = (s2[h] + __shfl_xor_sync(0xffffffffu, s2[h], 2)) * inv_dim;
+  }
+  // column sums of dh n and dh, before out replaces x
+  float part[6];
+  col_reduce([&](int k) {
+    const int j = k >> 1, e = k & 1;
+    float v = 0.f;
+    if (8 * j >= w.N) return v;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 xv = x_at(h, j);
+      v += acc[4 * j + 2 * h + e] * (((e ? xv.y : xv.x) - mu[h]) * rs[h]);
+    }
+    return v;
+  }, g, part);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) colacc[0][i] += part[i];
+  col_reduce([&](int k) {
+    const int j = k >> 1, e = k & 1;
+    return 8 * j >= w.N ? 0.f : acc[4 * j + e] + acc[4 * j + 2 + e];
+  }, g, part);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) colacc[1][i] += part[i];
+
+  // out, by residual chunk: CC columns, both row halves
+  constexpr int CC = chunk_cols(EPI), NCH = BN / CC;
+  const int nch = cdiv(w.N, CC);            // chunks holding columns < N
+#pragma unroll
+  for (int q = 0; q < NCH; ++q) {
+    if (q >= nch) break;
+    const int b = q & 1, uses = (nch + 1 - b) >> 1;  // uses of buffer b a tile
+    mbar_wait(&sm.pre_full[wg][b], (n * uses + (q >> 1)) & 1);
+    const float* pb = pre_buf(sm, wg, b);
+#pragma unroll
+    for (int jj = 0; jj < CC / 8; ++jj) {
+      const int j = (CC / 8) * q + jj, cl = 8 * jj + 2 * t, c = tl.n0 + 8 * j + 2 * t;
+      if (8 * j >= w.N) break;
+      const float2 gm = gam(j);
+      float2 rv[2], o[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (EPI == B_LN2)  // bf16 [64][64] in the 128-byte swizzle
+          rv[h] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              reinterpret_cast<const bf16*>(pb) + sw128(rl[h], cl)));
+        else  // fp32 [64][32] in the 128-byte swizzle
+          rv[h] = *reinterpret_cast<const float2*>(
+              pb + rl[h] * PRE_COLS + ((((cl >> 2) ^ (rl[h] & 7)) << 2) | (cl & 3)));
+        const float2 xv = x_at(h, j);
+        const float n0 = (xv.x - mu[h]) * rs[h], n1 = (xv.y - mu[h]) * rs[h];
+        o[h].x = (acc[4 * j + 2 * h] * gm.x - s1[h] - n0 * s2[h]) * rs[h] + rv[h].x;
+        o[h].y = (acc[4 * j + 2 * h + 1] * gm.y - s1[h] - n1 * s2[h]) * rs[h] + rv[h].y;
+        const int r = tl.m0 + 64 * wg + rl[h];
+        if (EPI == B_LN2 && r < w.M && c < w.N)
+          *reinterpret_cast<float2*>(ep.cf + (long long)r * ep.ldc + c) = o[h];
+        *reinterpret_cast<uint32_t*>(sm.c[j >> 3] + sw128(64 * wg + rl[h], 8 * (j & 7) + 2 * t)) =
+            pack_bf16(o[h].x, o[h].y);
+      }
+      if (EPI == B_LN2) {  // acc, spent, takes the two rows' sums of res and of out
+        acc[4 * j] = rv[0].x + rv[1].x;
+        acc[4 * j + 1] = rv[0].y + rv[1].y;
+        acc[4 * j + 2] = o[0].x + o[1].x;
+        acc[4 * j + 3] = o[0].y + o[1].y;
+      }
+    }
+    bar_sync(WG_BAR + wg, 128);  // buffer b read: the chunk two on may land in it
+    if (tid == 0 && q + 2 < nch)
+      load_pre(sm, tm_f, wg, b, tl.n0 + CC * (q + 2), tl.m0 + 64 * wg);
+  }
+  if (EPI == B_LN2) {  // column sums of res (d_bfc2) and out (d_bout)
+#pragma unroll
+    for (int s_ = 0; s_ < 2; ++s_) {
+      col_reduce([&](int k) {
+        return 8 * (k >> 1) >= w.N ? 0.f : acc[4 * (k >> 1) + 2 * s_ + (k & 1)];
+      }, g, part);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) colacc[2 + s_][i] += part[i];
+    }
+  }
+}
+
 // The epilogue of one warpgroup's 64 x 192 accumulators (thread: rows
 // r0 + g and r0 + g + 8, columns 8 j + 2 t, + 1), after stage(). A bf16 C
 // goes through sm.c (128-byte swizzled [rows][64] blocks, conflict-free
@@ -354,11 +535,14 @@ __device__ __forceinline__ void stage(const Epilogue& ep, const Walk& w, const T
 // writes this one. fp32 outputs are stored from the registers, 32 bytes a
 // row a quad.
 template <int EPI>
-__device__ __forceinline__ void epilogue(const float (&acc)[96], const Epilogue& ep,
+__device__ __forceinline__ void epilogue(float (&acc)[96], const Epilogue& ep,
                                          const CUtensorMap& tm_c, const CUtensorMap& tm_e,
-                                         const Walk& w, const Tile& tl, int n, bool live, int wg,
-                                         int warp, int g, int t, int tid, Smem& sm) {
+                                         const CUtensorMap& tm_f, const Walk& w, const Tile& tl,
+                                         int n, bool live, int wg, int warp, int g, int t,
+                                         int tid, Smem& sm, float (&colacc)[4][6]) {
   if (EPI == F_GELU || EPI == F_RES) bar_sync(WG_BAR + wg, 128);  // what stage() wrote
+  if constexpr (ln_epi(EPI))
+    ln_epilogue<EPI>(acc, ep, tm_f, w, tl, n, wg, warp, g, t, tid, sm, colacc);
   if (EPI == B_GELU_GRAD) {  // by pre-activation chunk: 32 columns, both row halves
 #pragma unroll
     for (int q = 0; q < BN / PRE_COLS; ++q) {
@@ -402,7 +586,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[96], const Epilogue&
         load_pre(sm, tm_e, wg, b, tl.n0 + PRE_COLS * (q + 2), tl.m0 + 64 * wg);
     }
   }
-  if (EPI != B_GELU_GRAD && live) {
+  if (EPI != B_GELU_GRAD && !ln_epi(EPI) && live) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int rl = 64 * wg + 16 * warp + g + 8 * half;  // row in the tile
@@ -656,7 +840,7 @@ template <typename T, int TA, int TB, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                 const __grid_constant__ CUtensorMap tm_c, const __grid_constant__ CUtensorMap tm_e,
-                const Walk w, const Epilogue ep) {
+                const __grid_constant__ CUtensorMap tm_f, const Walk w, const Epilogue ep) {
   constexpr bool I8 = sizeof(T) == 1;
   static_assert(I8 == int8_epi(EPI) && (!I8 || (TA == 0 && TB == 0)),
                 "int8 epilogues take K-major int8 operands, the others bf16");
@@ -716,6 +900,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   typename std::conditional<I8, int, float>::type acc[96];
 #pragma unroll
   for (int i = 0; i < 96; ++i) acc[i] = 0;
+  float colacc[4][6];  // the LayerNorm epilogues' column sums over the walk
+#pragma unroll
+  for (int i = 0; i < 24; ++i) colacc[i / 6][i % 6] = 0.f;
+  // the chunked epilogues' tensor map, chunk width and chunks a tile
+  const CUtensorMap& tm_ch = ln_epi(EPI) ? tm_f : tm_e;
+  const int nch = ln_epi(EPI) ? cdiv(w.N, chunk_cols(EPI)) : BN / PRE_COLS;
 #ifdef SVT_GEMM_PROFILE
   unsigned long long prof[6] = {0, 0, 0, 0, 0, 0};
   const long long prof_t0 = clock64();
@@ -734,8 +924,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         tma_load_3d(sm.c[b] + 64 * c * 64, tm_e, &sm.res_full[c], tl.n0 + 64 * b,
                     r0 % w.r_rpg, r0 / w.r_rpg);
     }
-    if (chunked(EPI) && tid == 0)  // the first two fp32 chunks, likewise
-      for (int b = 0; b < 2; ++b) load_pre(sm, tm_e, c, b, tl.n0 + PRE_COLS * b, tl.m0 + 64 * c);
+    if (chunked(EPI) && tid == 0)  // the first two chunks, likewise
+      for (int b = 0; b < 2 && b < nch; ++b)
+        load_pre(sm, tm_ch, c, b, tl.n0 + chunk_cols(EPI) * b, tl.m0 + 64 * c);
     int prev = 0;
     for (int kt = 0; kt < tl.ksteps; ++kt, ++it) {
       const int st = it % stages(EPI);
@@ -776,8 +967,26 @@ __global__ void __launch_bounds__(THREADS, 1)
     if constexpr (I8)
       epilogue_q<EPI>(acc, ep, tm_c, tm_e, w, tl, n, live, c, warp, g, t, tid, sm);
     else
-      epilogue<EPI>(acc, ep, tm_c, tm_e, w, tl, n, live, c, warp, g, t, tid, sm);
+      epilogue<EPI>(acc, ep, tm_c, tm_e, tm_f, w, tl, n, live, c, warp, g, t, tid, sm, colacc);
     SVT_GEMM_MARK(4);
+  }
+  if constexpr (ln_epi(EPI)) {
+    // the walk's column sums: each warp's by column into sm.col, then the
+    // eight warps' added in order into colpart[CTA][sum][N]
+    constexpr int NSUM = EPI == B_LN2 ? 4 : 2;
+#pragma unroll
+    for (int q = 0; q < NSUM; ++q) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) sm.col[4 * c + warp][col_of(g, t, i)] = colacc[q][i];
+      bar_sync(COL_BAR, NWG * 128);
+      for (int col = threadIdx.x - 128; col < w.N; col += NWG * 128) {
+        float v = sm.col[0][col];
+#pragma unroll
+        for (int i = 1; i < NWG * 4; ++i) v += sm.col[i][col];
+        ep.colpart[((long long)blockIdx.x * NSUM + q) * w.N + col] = v;
+      }
+      bar_sync(COL_BAR, NWG * 128);
+    }
   }
   if (smem_out(EPI) && tid == 0) bulk_wait<0>();  // the last copy out done
 #ifdef SVT_GEMM_PROFILE
@@ -789,6 +998,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // -- host side -----------------------------------------------------------------
+
+// CTAs of a LayerNorm epilogue's walk over M rows, each leaving one row of
+// column sums: at most TARGET_TILES whatever the card, so that the sums'
+// order, and the results, are the same on any card.
+inline int ln_ctas(int M) { return std::min(cdiv(M, BM), TARGET_TILES); }
 
 // Splits of a weight gradient's K (the token rows), in chunks of whole
 // k-steps: the fewest that fill the waves of TARGET_TILES tiles to 95%
@@ -866,18 +1080,26 @@ cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool sp
   }
   Walk w{M, N, K, cdiv(K, BK<T>) * BK<T>, 1, IDENTITY, IDENTITY, IDENTITY};
   if (split) split_k(M, N, K, &w.splits, &w.k_chunk);
-  CUtensorMap tm_a, tm_b, tm_c, tm_e;
+  CUtensorMap tm_a, tm_b, tm_c, tm_e, tm_f;
   if ((e = operand_map<T>(&tm_a, a, TA ? 64 : BM, &w.a_rpg)) != cudaSuccess) return e;
   if ((e = operand_map<T>(&tm_b, b, TB ? 64 : BN, &w.b_rpg)) != cudaSuccess) return e;
   int unused;
-  tm_c = tm_e = tm_a;  // unused unless the epilogue writes C / reads a tile by TMA
+  tm_c = tm_e = tm_f = tm_a;  // unused unless the epilogue writes C / reads a tile by TMA
   if (bf16_out(EPI)) {  // the bf16 C, written in [64][64] boxes
     if ((e = operand_map<bf16>(&tm_c, Operand{ep.cb, M, N, ep.ldc}, 64, &unused)) != cudaSuccess)
       return e;
   }
   if (w32_out(EPI) && (e = plain_map(&tm_c, ep.cf, M, N, ep.ldc, 4)) != cudaSuccess) return e;
   if (EPI == Q_GELU_Q8 && (e = plain_map(&tm_c, ep.cq, M, N, ep.ldc, 1)) != cudaSuccess) return e;
-  if (res_tile(EPI)) {  // the residual, read in [64][64] boxes through its row map
+  if (ln_epi(EPI)) {  // x in [64][64] boxes; the residual in chunks (bf16 [64][64], fp32 [64][32])
+    if (N > BN) return cudaErrorInvalidValue;  // a tile holds whole rows
+    if ((e = operand_map<bf16>(&tm_e, Operand{ep.x, M, N, ep.ldx}, 64, &w.r_rpg)) != cudaSuccess)
+      return e;
+    e = EPI == B_LN2 ? operand_map<bf16>(&tm_f, Operand{ep.lres, M, N, ep.ldr}, 64, &unused)
+                     : plain_map(&tm_f, ep.lres, M, N, ep.ldr, 4);
+    if (e != cudaSuccess) return e;
+  }
+  if (res_tile(EPI) && !ln_epi(EPI)) {  // the residual, read in [64][64] boxes through its row map
     const bool grouped = ep.r_gstride != ep.r_rpg && ep.r_rpg < M;
     const Operand r{ep.res, M, N, ep.ldr, grouped ? ep.r_rpg : 0, ep.r_gstride};
     if ((e = operand_map<bf16>(&tm_e, r, 64, &w.r_rpg)) != cudaSuccess) return e;
@@ -888,8 +1110,8 @@ cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool sp
   if (EPI == Q_RES_BF16 && (e = plain_map(&tm_e, ep.resf, M, N, ep.ldr, 4)) != cudaSuccess)
     return e;
   const int tiles = cdiv(M, BM) * cdiv(N, BN) * w.splits;
-  gemm_kernel<T, TA, TB, EPI>
-      <<<std::min(tiles, sms[dev]), THREADS, smem, st>>>(tm_a, tm_b, tm_c, tm_e, w, ep);
+  gemm_kernel<T, TA, TB, EPI><<<ln_epi(EPI) ? ln_ctas(M) : std::min(tiles, sms[dev]), THREADS,
+                                smem, st>>>(tm_a, tm_b, tm_c, tm_e, tm_f, w, ep);
   return cudaGetLastError();
 }
 

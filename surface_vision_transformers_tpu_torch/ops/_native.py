@@ -107,10 +107,16 @@ def library() -> ctypes.CDLL:
     lib.svt_fused_block_cls_bwd.restype = I
     lib.svt_block_bwd_workspace.argtypes = [I] * 7
     lib.svt_block_bwd_workspace.restype = ctypes.c_longlong
+    lib.svt_block_bwd_dh_floats.argtypes = [I] * 4
+    lib.svt_block_bwd_dh_floats.restype = ctypes.c_longlong
     lib.svt_block_gemm.argtypes = [I] + [P] * 6 + [I] * 4 + [P]
     lib.svt_block_gemm.restype = I
     lib.svt_block_gemm_nn.argtypes = [I] + [P] * 6 + [I] * 4 + [P]
     lib.svt_block_gemm_nn.restype = I
+    lib.svt_block_gemm_ln.argtypes = [I] + [P] * 10 + [I] * 4 + [P]
+    lib.svt_block_gemm_ln.restype = I
+    lib.svt_block_gemm_ln_workspace.argtypes = [I] * 2
+    lib.svt_block_gemm_ln_workspace.restype = ctypes.c_longlong
     lib.svt_block_weight_grad.argtypes = [P] * 4 + [I] * 4 + [P]
     lib.svt_block_weight_grad.restype = I
     lib.svt_block_weight_grad_workspace.argtypes = [I] * 3
@@ -121,7 +127,7 @@ def library() -> ctypes.CDLL:
     lib.svt_flash_attention_fwd.restype = I
     lib.svt_flash_attention_bwd.argtypes = S * 5 + [P, P, P] + S * 3 + [I] * 6 + D + [I, P]
     lib.svt_flash_attention_bwd.restype = I
-    lib.svt_flash_attention_bwd_workspace.argtypes = [I] * 4
+    lib.svt_flash_attention_bwd_workspace.argtypes = [I] * 5
     lib.svt_flash_attention_bwd_workspace.restype = ctypes.c_longlong
     lib.svt_fused_block_int8.argtypes = [P] * 25 + [I] * 8 + [F, I, P]
     lib.svt_fused_block_int8.restype = I

@@ -14,11 +14,13 @@ after it; the backward forms P from the kept LSE.
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/flash_attention.cu``) streams K
 and V through shared memory in tiles with an online softmax, so it takes any
 sequence length, bfloat16. Both directions take dh 64 and, without
-dropout, dh 32 (MS-SiT's heads: 32-column operands in the 64-column tiles,
-the padding zero-filled by the loads). The plain versions take any dh. The
-backward streams the queries past
-each 64-key block once (wgmma) and sums dq in a fixed order in an fp32
-workspace the wrapper allocates, so its outputs repeat bit for bit. It reads
+dropout, dh 32 (MS-SiT's heads). The plain versions take any dh. The
+backward at dh 32 up to 320 keys (``resident_bwd``: every MS-SiT fold) is
+one launch that keeps the whole sequence in shared memory, packing
+sequences of up to 32 rows into one tile (``resident_pack``); elsewhere it
+streams the queries past each 64-key block once (wgmma) and sums dq in a
+fixed order in an fp32 workspace the wrapper allocates
+(``bwd_workspace_floats``). Either way its outputs repeat bit for bit. It reads
 its operands through (batch, head, row) strides, so views of packed
 activations need no copy, and writes its outputs as (B, H, N, dh) views of
 (B, N, H, dh) storage, where merging the heads back is free. What bounds it,
@@ -48,6 +50,33 @@ from surface_vision_transformers_tpu_torch.ops import _native
 
 DIM_HEADS = (32, 64)  # the kernels' head dims (32 without dropout)
 DROPOUT_DIM_HEAD = 64  # the dropout kernels'
+RESIDENT_MAX_N = 320  # the resident backward's longest sequence: five 64-row tiles
+_BWD_TILE, _BWD_CHAINS = 64, 4  # the streamed backward's query tile and dQ sums per tile
+
+
+def resident_bwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
+    """Whether the backward at these shapes runs the resident kernel
+    (``csrc/flash_attention.cu``: one launch, the whole sequence in one
+    CTA's shared memory, delta and dQ summed there): head dim 32, no
+    dropout, as many queries as keys, at most ``RESIDENT_MAX_N``. Else the
+    streamed kernels (a delta pass, the main pass, a dq pass)."""
+    return dh == 32 and not dropout and nq == nk and nq <= RESIDENT_MAX_N
+
+
+def resident_pack(n: int) -> int:
+    """Sequences of n rows the resident backward packs into one 64-row
+    tile, under a block-diagonal mask: 64 // n where n <= 32, else 1."""
+    return 64 // n if n <= 32 else 1
+
+
+def bwd_workspace_floats(B: int, H: int, nq: int, nk: int, dh: int) -> int:
+    """Floats of fp32 scratch the backward asks for
+    (``svt_flash_attention_bwd_workspace``): none on the resident route;
+    else four dQ sums of a 64-query tile and their turn counters per
+    tile."""
+    if resident_bwd(nq, nk, dh):
+        return 0
+    return _BWD_CHAINS * B * H * -(-nq // _BWD_TILE) * (_BWD_TILE * dh + 1)
 
 
 def _masked_scores(q, k, valid_len):
@@ -273,7 +302,7 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         out = _heads_last_empty(q, nq), _heads_last_empty(k, nk), _heads_last_empty(k, nk)
     lib = _native.library()
     delta = torch.empty_like(lse)
-    ws = torch.empty(lib.svt_flash_attention_bwd_workspace(B, H, nq, dh),
+    ws = torch.empty(lib.svt_flash_attention_bwd_workspace(B, H, nq, nk, dh),
                      dtype=torch.float32, device=q.device)
     _native.check(lib.svt_flash_attention_bwd(
         *_operand(q), *_operand(k), *_operand(v), *_operand(o), *_operand(do),
@@ -311,7 +340,8 @@ def flash_attention_fwd(q, k, v, valid_len: int | None = None):
 def flash_attention_bwd(q, k, v, o, lse, do, valid_len: int | None = None):
     """The backward from the forward's o and lse and the output cotangent
     do: -> (dq, dk, dv). CPU tensors run ``flash_attention_bwd_reference``;
-    CUDA tensors the kernel (a delta pre-pass, one main pass, a dq pass)."""
+    CUDA tensors the kernel (the resident one where ``resident_bwd``, else
+    a delta pre-pass, one main pass, a dq pass)."""
     return _bwd(q, k, v, o, lse, do, _vl(k, valid_len))
 
 

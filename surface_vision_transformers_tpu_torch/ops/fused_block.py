@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from surface_vision_transformers_tpu_torch.ops import _native
 from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     DIM_HEADS,
+    bwd_workspace_floats,
     flash_attention,
     flash_attention_bwd_reference,
     flash_attention_reference,
@@ -344,6 +345,57 @@ TRAIN_SAVED_CLS = ("h1", "kv", "q", "attn", "lse", "x1", "h2", "fpre", "f",
                    "stats1", "stats2")
 _MAX_BWD_DIM = 768  # the LayerNorm backward holds a row in 24 values a lane
 CHAIN_MAX_SEQ_LEN = 768
+LN_EPILOGUE_MAX_DIM = 192  # the GEMM engine's tile width: a tile holds whole rows
+_GEMM_BM, _GEMM_BN, _GEMM_BK, _TARGET_TILES = 128, 192, 64, 132  # csrc/gemm.cuh
+# the standalone LayerNorm backward: two rows a group of warps (two warps past dim 384)
+_LNB_WARPS, _LNB_CTAS = 8, 132
+
+
+def ln_in_epilogue(dim: int) -> bool:
+    """Whether the backward chain folds its LayerNorm backwards into the
+    epilogue of the product that makes dh (``csrc/gemm.cuh``: B_LN2,
+    B_LN1), so that dh never reaches device memory: widths up to the
+    engine's 192-column tile, whatever the head dim (MS-SiT's stages 0-1,
+    SiT-tiny). The CLS block's LN1, whose dh is two products, and wider
+    blocks run the standalone LayerNorm backward."""
+    return dim <= LN_EPILOGUE_MAX_DIM
+
+
+def block_bwd_dh_floats(B: int, N: int, dim: int, cls: bool) -> int:
+    """Floats of fp32 dh scratch the backward chains write
+    (``svt_block_bwd_dh_floats``): B * N * dim where a standalone LayerNorm
+    backward reads dh (widths past ``ln_in_epilogue``, and the CLS block's
+    LN1), else none."""
+    return B * N * dim if cls or not ln_in_epilogue(dim) else 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split_k(m: int, n: int, k: int) -> int:
+    """``gemm::split_k``: the splits of a weight gradient's K."""
+    tiles = _cdiv(m, _GEMM_BM) * _cdiv(n, _GEMM_BN)
+    most, s = max(1, _cdiv(k, _GEMM_BK) // 8), 1
+    while s < most and tiles * s < 0.95 * _TARGET_TILES * _cdiv(tiles * s, _TARGET_TILES):
+        s += 1
+    chunk = _cdiv(_cdiv(k, s), _GEMM_BK) * _GEMM_BK
+    return _cdiv(k, chunk)
+
+
+def block_bwd_workspace(B: int, N: int, rows: int, dim: int, heads: int, dim_head: int,
+                        mlp: int) -> int:
+    """Floats of fp32 workspace the backward chains ask for
+    (``svt_block_bwd_workspace``): the largest set of split-K or column
+    partials one of their steps holds, or the attention backward's
+    (``bwd_workspace_floats``: none where the resident kernel runs)."""
+    M, Mt, hd = B * N, B * rows, heads * dim_head
+    dw = [(dim, mlp, Mt), (mlp, dim, Mt), (dim, hd, Mt), (dim, mlp, M), (mlp, dim, M),
+          (dim, hd, M), (3 * hd, dim, M), (hd, dim, Mt), (2 * hd, dim, M)]
+    need = max(_split_k(*s) * s[0] * s[1] for s in dw)
+    ln_ctas = min(_cdiv(_cdiv(M, 2), _LNB_WARPS), _LNB_CTAS)
+    need = max(need, _cdiv(M, _GEMM_BM) * mlp, ln_ctas * 4 * dim)
+    return max(need, bwd_workspace_floats(B, heads, rows, N, dim_head))
 
 
 def uses_recompute(n_tokens: int, dim: int) -> bool:
@@ -562,7 +614,10 @@ def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
     dx = torch.empty_like(x)
     grads = [f32(*p.shape) for p in params]
     ln1_s, _, w_qkv, w_out, _, ln2_s, _, w_fc1, _, w_fc2, _ = params
-    scratch = [x.new_empty((Mr, mlp)), f32(M, dim), f32(Mr, dim),
+    # dh (fp32, M x dim) only where a standalone LayerNorm backward reads it:
+    # the library says where, as it sizes the workspace
+    dh = f32(max(lib.svt_block_bwd_dh_floats(B, N, dim, int(cls)), 1))
+    scratch = [x.new_empty((Mr, mlp)), dh, f32(Mr, dim),
                x.new_empty((Mr, dim)), x.new_empty((Mr, hd))]
     if cls:
         scratch += [x.new_empty((Mr, hd)), x.new_empty((M, 2 * hd))]
@@ -710,6 +765,57 @@ def block_gemm_nn(a, w, pre=None, *, out_dtype=torch.bfloat16):
         0 if fp32 else 1, a.data_ptr(), w.data_ptr(), c.data_ptr() if fp32 else None,
         None if fp32 else c.data_ptr(), None, None, M, N, K, a.device.index, _stream(a)))
     return c
+
+
+def gemm_ln_reference(a, w, x, stats, gamma, res):
+    """Plain ``block_gemm_ln``: dh = a @ w in float32, then the LayerNorm
+    backward of x's rows from their (mean, rstd) plus the residual
+    cotangent res -> (out float32, out rounded to bfloat16, column sums
+    (2 or 4, dim) float32: sum dh n, sum dh, and where res is bfloat16
+    (LN2's form, res = g) sum res and sum out)."""
+    out, d_scale, d_bias = _ln_bwd(a.float() @ w.float(), x, stats, gamma)
+    out = out + res.float()
+    sums = [d_scale, d_bias]
+    if res.dtype == torch.bfloat16:
+        sums += [_colsum(res), _colsum(out)]
+    return out, out.to(torch.bfloat16), torch.stack(sums)
+
+
+def block_gemm_ln(a, w, x, stats, gamma, res):
+    """The backward chain's product with the LayerNorm backward in its
+    epilogue (``ln_in_epilogue`` widths): a (M, K) @ w (w the torch (out =
+    K, in = dim) weight) is dh, never written; the LayerNorm backward of x
+    (M, dim) bf16 from stats (M, 2) float32 and gamma (dim,) float32, plus
+    res (M, dim): bf16 (LN2: -> out float32 and bfloat16, 4 column sums)
+    or float32 (LN1: -> bfloat16 out, 2 sums; the kernel writes no float32
+    out, None in its place).
+    The column sums are the kernel's per-CTA partials added in order on the
+    card. CPU tensors run ``gemm_ln_reference``."""
+    if a.device.type == "cpu":
+        return gemm_ln_reference(a, w, x, stats, gamma, res)
+    _check_gemm_operands(a, w, x)
+    (M, K), dim = a.shape, w.shape[1]
+    lnk = 2 if res.dtype == torch.bfloat16 else 1
+    if (w.shape[0] != K or tuple(x.shape) != (M, dim) or tuple(res.shape) != (M, dim)
+            or not res.is_contiguous() or res.dtype not in (torch.bfloat16, torch.float32)
+            or tuple(stats.shape) != (M, 2) or stats.dtype != torch.float32
+            or not stats.is_contiguous()):
+        raise ValueError("a (M, K), w (K, dim), x and res (M, dim), stats (M, 2) must agree")
+    if not ln_in_epilogue(dim):
+        raise ValueError(f"the LayerNorm epilogue takes dim <= {LN_EPILOGUE_MAX_DIM}, got {dim}")
+    check_vectors({"gamma": (gamma, dim)})
+    check_tma_operands(res)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    lib = _native.library()
+    out_f = torch.empty((M, dim), **f32) if lnk == 2 else None
+    out_b = a.new_empty((M, dim))
+    sums = torch.empty((2 * lnk, dim), **f32)
+    part = torch.empty((lib.svt_block_gemm_ln_workspace(M, dim),), **f32)
+    _native.check(lib.svt_block_gemm_ln(
+        lnk, a.data_ptr(), w.data_ptr(), x.data_ptr(), stats.data_ptr(), gamma.data_ptr(),
+        res.data_ptr(), out_f.data_ptr() if out_f is not None else None, out_b.data_ptr(),
+        sums.data_ptr(), part.data_ptr(), M, dim, K, a.device.index, _stream(a)))
+    return out_f, out_b, sums
 
 
 def weight_grad_reference(a, b):

@@ -237,10 +237,51 @@ def test_gemm_reference_matches_jax(epilogue, n, k, dtype):
     _assert_close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype)
 
 
-@pytest.mark.parametrize("kind", ["float32", "bfloat16", "gelu_grad"])
+def _check_gemm_ln(ln, dim):
+    """``gemm_ln_reference`` in LN2's form (ln 2: K = mlp, the bf16 residual
+    g, four column sums) or LN1's (ln 1: K = qkv's width, the float32
+    residual dx1, two sums) against ``jnp.dot`` then the JAX kernel's
+    ``_ln_bwd`` plus the residual, from bf16 operands."""
+    r = np.random.default_rng(14 + dim + ln)
+    k = 4 * dim if ln == 2 else 3 * dim
+    a = (0.01 * r.standard_normal((GEMM_M, k))).astype(np.float32)
+    w = (r.uniform(-1, 1, (k, dim)) / np.sqrt(k)).astype(np.float32)
+    x = r.standard_normal((GEMM_M, dim)).astype(np.float32)
+    gamma = (1 + 0.1 * r.standard_normal(dim)).astype(np.float32)
+    res = (0.01 * r.standard_normal((GEMM_M, dim))).astype(np.float32)
+    ja, jw, jx = (_jnp(t, "bfloat16") for t in (a, w, x))
+    xf = jx.astype(jnp.float32)
+    mu = xf.mean(-1, keepdims=True)
+    rstd = jax.lax.rsqrt(((xf - mu) ** 2).mean(-1, keepdims=True) + 1e-5)
+    dx, dscale, dbias = jfb._ln_bwd(_jax_dot(ja, jw), (xf - mu) * rstd, rstd, jnp.asarray(gamma))
+    jres = _jnp(res, "bfloat16").astype(jnp.float32) if ln == 2 else jnp.asarray(res)
+    out = dx + jres
+    stats = torch.from_numpy(np.concatenate([np.asarray(mu), np.asarray(rstd)], -1))
+    tres = torch.from_numpy(res).bfloat16() if ln == 2 else torch.from_numpy(res)
+    got, got_b, sums = tfb.gemm_ln_reference(
+        *(torch.from_numpy(t).bfloat16() for t in (a, w, x)), stats, torch.from_numpy(gamma),
+        tres)
+    _assert_close(got.numpy(), out, "float32")
+    _assert_close(got_b.float().numpy(), np.asarray(out.astype(jnp.bfloat16).astype(jnp.float32)),
+                  "bfloat16")
+    want = [dscale[0], dbias[0]] + ([jres.sum(0), out.sum(0)] if ln == 2 else [])
+    assert tuple(sums.shape) == (len(want), dim)
+    for s_, w_ in zip(sums, want):
+        _assert_close(s_.numpy(), w_, "float32")
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "gelu_grad", "ln2-dim96",
+                                  "ln2-dim192", "ln1-dim96", "ln1-dim192"])
 def test_gemm_nn_reference_matches_jax(kind):
     """``gemm_nn_reference`` (the backward's dX products: a @ w with w the
-    (out, in) weight; df1 with GELU' and its column sums) against JAX."""
+    (out, in) weight; df1 with GELU' and its column sums) against JAX; and
+    at dims 96 and 192 the product that makes dh with the LayerNorm backward
+    in its epilogue (``_check_gemm_ln``): its float32 output and column sums
+    within 2e-5 of their largest value, the bf16 output within two bf16
+    steps."""
+    if kind.startswith("ln"):
+        _check_gemm_ln(int(kind[2]), int(kind.split("dim")[1]))
+        return
     dtype = "float32" if kind == "float32" else "bfloat16"
     r = np.random.default_rng(12)
     k, n = 192, 768
