@@ -199,10 +199,20 @@ full width and depth:
               engine's tiles) under phase 25's gate; controls (the dh-64
               scale 1/8 at dh 32, the last K/V tile skipped at N = 320, the
               last half k-step dropped at K = 96, and phase 20's and 21's);
-              times beside the bound, SDPA at dh 32 for the attention.
+              times beside the bound and the chain floor (now and with the
+              seven launches), SDPA at dh 32 for the attention; then the
+              fused chain's two kernels alone at stage 0's and 1's rows
+              (``block_mlp``, ``block_ln_gemm``: one bf16 step from their
+              plain versions; controls: the residual left out, GELU skipped
+              on one chunk, LN2's gamma ignored, LN1's gamma or beta
+              ignored), the C route against ``fuses_mlp``, and the resident
+              attention forward at its packing edges (N = 20 / 80 / 100
+              with valid_len 15 / 70 / 90; control: the block-diagonal mask
+              ignored) beside SDPA with the key mask.
 27. mssit-slice -- ``predict`` on 100 raw surfaces at batch 64 (the last
               padded), bf16 and int8: launches (1 patch_embed and 12
-              fused_block a batch; int8 1, 4 and 8 fused_block_int8),
+              fused_block a batch, of which stages 0-1's 4 run LN1 + qkv and
+              the fused MLP; int8 1, 4 and 8 fused_block_int8),
               against the eager bf16 model (plain attention, batches of 8)
               and, int8, the float32 one, with controls (block 5 dropped,
               stage 0's axial fold run as the window fold); surfaces/s and
@@ -667,7 +677,8 @@ def block_flops(B, N, vl, dim, heads, mlp, cls, dh=DH):
     return gemm + att_f, 2 * gemm + att_b
 
 
-def chain_bytes(B, N, dim, heads, mlp, dh=DH, fused_ln=None) -> tuple[int, int, int]:
+def chain_bytes(B, N, dim, heads, mlp, dh=DH, fused_ln=None,
+                fused_mlp=None) -> tuple[int, int, int]:
     """HBM bytes the block chains move at these shapes (csrc/fused_block.cu,
     fused_block_bwd.cu: each launch reads its inputs and writes its outputs
     once, the weights aside): (serving forward, training forward with its
@@ -677,12 +688,23 @@ def chain_bytes(B, N, dim, heads, mlp, dh=DH, fused_ln=None) -> tuple[int, int, 
     ``fused_ln`` (default: ``ln_in_epilogue(dim)``, this tree's rule), so
     its fp32 dh (written and read back twice, 8 bf16 widths of x) never
     moves; ``fused_ln=False`` counts the chain with standalone passes
-    (the design before the LayerNorm epilogues)."""
+    (the design before the LayerNorm epilogues). The forward runs four
+    launches where ``fused_mlp`` (default: ``fuses_mlp(dim, mlp)``, this
+    tree's rule, serving and training each): LN1 in the qkv product's
+    prologue and the MLP half as one kernel, so h, h2 and f move only where
+    the training form keeps them; ``fused_mlp=False`` counts the seven
+    launches (the design before)."""
     M, hd, bf, f4 = B * N, heads * dh, 2, 4
     x, qkv, att, hid = M * dim * bf, M * 3 * hd * bf, M * hd * bf, M * mlp * bf
-    fwd = ((x + x) + (x + qkv) + (qkv + att) + (att + x + x) + (x + x) + (x + hid)
-           + (hid + x + x))  # LN1, qkv, attention, out-proj, LN2, fc1, fc2
-    train = fwd + 2 * hid + 2 * M * 2 * f4 + B * heads * N * f4  # fpre, stats, lse
+    from surface_vision_transformers_tpu_torch.ops.fused_block import fuses_mlp
+
+    kept = 2 * hid + 2 * M * 2 * f4 + B * heads * N * f4  # fpre, stats, lse
+    seven = ((x + x) + (x + qkv) + (qkv + att) + (att + x + x) + (x + x) + (x + hid)
+             + (hid + x + x))  # LN1, qkv, attention, out-proj, LN2, fc1, fc2
+    four = (x + qkv) + (qkv + att) + (att + x + x) + (x + x)  # LN1 + qkv, .., the MLP half
+    fwd = four if (fuses_mlp(dim, mlp) if fused_mlp is None else fused_mlp) else seven
+    fused_t = fuses_mlp(dim, mlp, train=True) if fused_mlp is None else fused_mlp
+    train = (four + (x + x + hid) if fused_t else seven) + kept  # the four also write h1, h2, f
     bwd = ((x + hid) + (x + 2 * hid + hid) + (hid + x) + (hid + 2 * x)  # dW_fc2, df1, dW_fc1, dh
            + (2 * x + x + x + 2 * x + x) + (x + att) + (x + att)  # LN2 bwd, dW_out, da
            + (qkv + att + att + qkv) + (qkv + x) + (qkv + 2 * x)  # attention, dW_qkv, dh
@@ -1048,7 +1070,7 @@ def phase_train_entry() -> None:
 
 
 GEMM_EPIS = ("F_NONE", "F_GELU", "F_RES", "B_PART", "B_F32", "B_BF16", "B_GELU_GRAD",
-             "B_ADD_F32", "B_LN2", "B_LN1", "Q_S32", "Q_BF16", "Q_RES_F32", "Q_GELU_MAX",
+             "B_ADD_F32", "B_LN2", "B_LN1", "F_LNA", "Q_S32", "Q_BF16", "Q_RES_F32", "Q_GELU_MAX",
              "Q_GELU_Q8", "Q_RES_BF16")  # csrc/gemm.cuh's epilogues, in order
 
 
@@ -1062,8 +1084,11 @@ def ptxas_report(log_path: Path) -> str:
             fwd = re.search(r"flash_fwd_kernelILi(\d)ELi(\d+)ELb(\d)E", mangled)
             gemm = re.search(r"gemm_kernelI(13__nv_bfloat16|a)Li(\d)ELi(\d)ELi(\d+)E", mangled)
             res = re.search(r"flash_bwd_resident_kernelILi(\d)E", mangled)
+            mlp = re.search(r"fused_mlp_kernelILi(\d+)ELb(\d)E", mangled)
             name = (f"flash_fwd<{','.join(fwd.groups())}>" if fwd else
                     f"flash_bwd_resident<{res[1]}>" if res else
+                    f"fused_mlp<{mlp[1]},{'train' if mlp[2] == '1' else 'serve'}>" if mlp else
+                    "flash_fwd_resident" if "flash_fwd_resident" in mangled else
                     f"gemm<{'int8' if gemm[1] == 'a' else 'bf16'},{gemm[2]},{gemm[3]},"
                     f"{GEMM_EPIS[int(gemm[4])]}>" if gemm else next((
                         k for k in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_kernel",
@@ -3350,9 +3375,11 @@ def phase_block_gemms(rng, fb) -> dict:
     for width, (B, N, dim, heads, mlp) in (("SiT-tiny", (256, N_TOKENS, DIM, HEADS, MLP)),
                                            ("SiT-base", (32, 1281, 768, 12, 3072))):
         fwd_b, train_b, bwd_b = chain_bytes(B, N, dim, heads, mlp)
+        fwd7 = chain_bytes(B, N, dim, heads, mlp, fused_mlp=False)[0]
         phase("block-gemms", f"{width} B={B} N={N}: the chains' round trips through HBM "
               f"(chain_bytes) {fwd_b / 1e9:.3f} GB serving forward = "
-              f"{fwd_b / PEAK_BYTES * 1e3:.4f} ms, {train_b / 1e9:.3f} GB training forward = "
+              f"{fwd_b / PEAK_BYTES * 1e3:.4f} ms (the seven launches' {fwd7 / 1e9:.3f} GB), "
+              f"{train_b / 1e9:.3f} GB training forward = "
               f"{train_b / PEAK_BYTES * 1e3:.4f} ms, {bwd_b / 1e9:.3f} GB backward = "
               f"{bwd_b / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s")
 
@@ -3423,6 +3450,16 @@ MSSIT_ATT_EDGES = [(32, 3, 1281, 1281), (2, 3, 1281, 1281), (16, 6, 200, 150)]
 # The dh-64 softmax scale 1/8 applied at dh 32 (a control): q scaled by
 # (1/8) / 32^-0.5.
 MSSIT_SCALE_64 = 0.125 / MSSIT_DH ** -0.5
+# The resident attention forward at dh 32 at its packing edges (B, heads, N,
+# valid_len): three sequences of 20 rows a tile, each masked from row 15;
+# four of 80 (masked from 70) in five tiles, so that tiles cross sequences;
+# three of 100 (from 90) in five tiles. B * heads is a multiple of the pack,
+# so the "block-diagonal mask ignored" control merges whole units.
+MSSIT_FWD_PACK_EDGES = [(1024, 12, 20, 15), (1024, 6, 80, 70), (64, 3, 100, 90)]
+# The fused forward chain's kernels alone (stage, rows, dim, heads): a batch
+# of 64's stage 0 and stage 1 rows.
+MSSIT_FUSED_CASES = [(0, 64 * 20480, 96, 3), (1, 64 * 5120, 192, 6)]
+FUSED_SOURCE = "surface_vision_transformers_tpu_torch/csrc/fused_mlp.cu"
 MSSIT_SLICE_N = 100  # surfaces served at bs_val 64: two batches, the last padded
 MSSIT_EAGER_B = 8  # the eager models' batch (their fp32 scores at B=64 reach ~5 GB a fold)
 # Phase 27's gates, set from readings on an NVIDIA H100 80GB HBM3 at 700 W at
@@ -3484,6 +3521,203 @@ def mssit_gate(got, ref32, ref_bf, controls) -> tuple[float, dict]:
     err = max((got - ref32).abs().max().item(), (got - ref_bf).abs().max().item())
     ratio = err / bound if bool(torch.isfinite(got).all()) else math.inf
     return ratio, {k: (got - v).abs().max().item() / bound for k, v in controls.items()}
+
+
+def fwd_mask_ignored(fa, qkv, heads, pack, vl):
+    """o of the float32 plain attention with each of the resident forward's
+    units (``pack`` consecutive (sample, head) sequences) merged into one
+    sequence, so that they see each other's keys: the block-diagonal mask
+    ignored, the key mask kept (a control). The merged sequence takes each
+    sequence's first ``vl`` rows first, so that its own valid_len, pack *
+    vl, masks the rest."""
+    Bf, N, F_ = qkv.shape
+    dh, BH = F_ // (3 * heads), Bf * heads
+    idx = torch.arange(pack * N, device=qkv.device).view(pack, N)
+    order = torch.cat([idx[:, :vl].reshape(-1), idx[:, vl:].reshape(-1)])
+    q, k, v = (t.float().reshape(BH // pack, 1, pack * N, dh)[:, :, order]
+               for t in fa.split_qkv(qkv, heads))
+    o = fa.flash_attention_reference(q, k, v, pack * vl)[0]
+    return fa.merge_heads(o[:, :, torch.argsort(order)].reshape(Bf, heads, N, dh))
+
+
+def mlp_plain(fb, x1, ln_s, ln_b, w1, b1, w2, b2, residual=True, gelu_skip=None, gamma=True):
+    """``fused_block.mlp_reference`` with the controls the fused MLP's gate
+    must reject: the residual left out, GELU skipped on the 64 hidden
+    columns of chunk ``gelu_skip``, LN2's gamma ignored (all defaults: the
+    plain version itself)."""
+    dt = x1.dtype
+    h2 = fb._layer_norm(x1, ln_s if gamma else torch.ones_like(ln_s), ln_b, 1e-5).to(dt)
+    fpre = fb._mm(h2, w1) + b1
+    f = F.gelu(fpre)
+    if gelu_skip is not None:
+        f[..., 64 * gelu_skip:64 * gelu_skip + 64] = fpre[..., 64 * gelu_skip:64 * gelu_skip + 64]
+    out = fb._mm(f.to(dt), w2) + b2
+    return (x1.float() + out if residual else out).to(dt)
+
+
+def phase_fused_chain_parts(fb, failures, rows) -> None:
+    """Phase 26's part for the fused forward chain (dims 96 and 192): the
+    MLP half (``block_mlp``) and the qkv product with LN1 in its prologue
+    (``block_ln_gemm``) alone at stage 0's and stage 1's rows, each within
+    one bf16 step of its plain bf16 version, with controls that must fail
+    (the residual left out, GELU skipped on one chunk, LN2's gamma ignored;
+    LN1's gamma or beta ignored), the training forms' outputs equal to the
+    serving forms' and their saves beside the plain ones; times beside the
+    byte floor and the bound. Data from generators of their own (the phase's
+    other data stay as their gates were set on)."""
+    name, dh = "mssit-kernels", MSSIT_DH
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    lib = _native.library()
+    routes = {(d, t_): (bool(lib.svt_block_fused_mlp(d, 4 * d, int(t_))),
+                        fb.fuses_mlp(d, 4 * d, train=t_))
+              for d in (96, 192, 384, 768) for t_ in (False, True)}
+    phase(name, "the fused chain's route (svt_block_fused_mlp, fuses_mlp), by (dim, training): "
+          + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in routes.items()))
+    if any(a_ != b_ for a_, b_ in routes.values()):
+        failures.append("svt_block_fused_mlp disagrees with fuses_mlp")
+    frng = np.random.default_rng(SEED + 261)
+    fg = torch.Generator(device="cuda").manual_seed(SEED + 261)
+    for stage, M, dim, heads in MSSIT_FUSED_CASES:
+        mlp, hd = 4 * dim, heads * dh
+        p32 = [t.cuda() for t in block_params(frng, dim, heads, mlp, dh)]
+        pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p32]
+        x = dev_randn(fg, (M, dim))
+        args, args32 = pb[5:], p32[5:]
+        train = fb.fuses_mlp(dim, mlp, train=True)  # the training form: dim 96
+        with torch.inference_mode():
+            got = fb.block_mlp(x, *args)
+            got_t, sv = fb.block_mlp(x, *args, train=True) if train else (got, {})
+            ref, ref32 = mlp_plain(fb, x, *args), mlp_plain(fb, x.float(), *args32)
+            svr = {}
+            fb.mlp_reference(x, *args, saved=svr)
+            controls = {"residual left out": mlp_plain(fb, x, *args, residual=False),
+                        "GELU skipped on chunk 1": mlp_plain(fb, x, *args, gelu_skip=1),
+                        "LN2's gamma ignored": mlp_plain(fb, x, *args, gamma=False)}
+        m_, ok = gemm_gate(got, ref, False)
+        ctl = {k: gemm_gate(got, v, False) for k, v in controls.items()}
+        label = f"fused MLP stage {stage} M={M} dim {dim}"
+        saves = {k: gemm_gate(sv[k], svr[k], k in ("fpre", "stats2"))[0] for k in sv}
+        same = bool(torch.equal(got, got_t))
+        if not ok or not same:
+            failures.append(label)
+        failures += [f"{label}: control {k} passed" for k, (_, c_ok) in ctl.items() if c_ok]
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fb.block_mlp(x, *args), reps=10)
+            ms_t = cuda_ms(lambda: fb.block_mlp(x, *args, train=True), reps=10) if train else 0.
+            plain_ms = cuda_ms(lambda: fb.mlp_reference(x, *args), reps=3)
+        floor = (nbytes_of(x, *args) + x.numel() * 2) / PEAK_BYTES * 1e3
+        b_ms, b_by = bound_ms(4 * M * dim * mlp, nbytes_of(x, *args) + x.numel() * 2)
+        phase(name, f"{label}: {m_:.4g} bf16 steps from the plain bf16 version (gate 1), "
+              f"{gemm_gate(got, ref32, False)[0]:.4g} from fp32 plain, share equal to plain "
+              f"bf16 {(got == ref).float().mean().item():.6f}; controls (must exceed 1): "
+              + ", ".join(f"{k} {v[0]:.4g}" for k, v in ctl.items())
+              + (f"; training form: out equal {same}, saves vs plain (bf16 steps; fpre, stats2 "
+                 "rel): " + ", ".join(f"{k} {v:.3g}" for k, v in saves.items())
+                 + f", {ms_t:.4f} ms" if train else "; no training form at this width")
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"byte floor {floor:.4f} ms ({floor / ms:.1%}), bound {b_ms:.4f} ms by {b_by} "
+              f"({b_ms / ms:.1%})")
+        MSSIT_RECORDS[label] = (ms, None, b_ms)
+        if stage == 0:
+            rows["fused_mlp dh32"] = {
+                "name": "fused_mlp dh32", "route": "cuda", "source": FUSED_SOURCE,
+                "replaces": REPLACES["fused_block"],
+                "max_abs_err": (got.float() - ref32.float()).abs().max().item(), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del got, got_t, sv, svr, ref, ref32, controls
+        # the qkv product with LN1 in its prologue
+        ln_s, ln_b, w = pb[0], pb[1], pb[2]
+        with torch.inference_mode():
+            got = fb.block_ln_gemm(x, ln_s, ln_b, w)
+            got_t, h_t, st_t = fb.block_ln_gemm(x, ln_s, ln_b, w, train=True)  # any width
+            ref, h_r, st_r = fb.ln_gemm_reference(x, ln_s, ln_b, w)
+            ref32 = fb.ln_gemm_reference(x.float(), p32[0], p32[1], p32[2])[0]
+            controls = {"LN1's gamma ignored": fb.ln_gemm_reference(
+                            x, torch.ones_like(ln_s), ln_b, w)[0],
+                        "LN1's beta ignored": fb.ln_gemm_reference(
+                            x, ln_s, torch.zeros_like(ln_b), w)[0]}
+        m_, ok = gemm_gate(got, ref, False)
+        ctl = {k: gemm_gate(got, v, False) for k, v in controls.items()}
+        same = bool(torch.equal(got, got_t))
+        label = f"LN1 + qkv stage {stage} M={M} N={3 * hd} K={dim}"
+        if not ok or not same:
+            failures.append(label)
+        failures += [f"{label}: control {k} passed" for k, (_, c_ok) in ctl.items() if c_ok]
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fb.block_ln_gemm(x, ln_s, ln_b, w), reps=10)
+            plain_ms = cuda_ms(lambda: fb.ln_gemm_reference(x, ln_s, ln_b, w), reps=3)
+        out_bytes = M * 3 * hd * 2
+        floor = (nbytes_of(x, ln_s, ln_b, w) + out_bytes) / PEAK_BYTES * 1e3
+        b_ms, b_by = bound_ms(2 * M * dim * 3 * hd, nbytes_of(x, ln_s, ln_b, w) + out_bytes)
+        phase(name, f"{label}: {m_:.4g} bf16 steps from the plain bf16 version (gate 1), "
+              f"{gemm_gate(got, ref32, False)[0]:.4g} from fp32 plain, share equal to plain "
+              f"bf16 {(got == ref).float().mean().item():.6f}; controls (must exceed 1): "
+              + ", ".join(f"{k} {v[0]:.4g}" for k, v in ctl.items())
+              + f"; training form: out equal {same}, h1 share equal "
+              f"{(h_t == h_r).float().mean().item():.6f}, stats max |diff| "
+              f"{(st_t - st_r).abs().max().item():.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, byte floor {floor:.4f} ms ({floor / ms:.1%}), bound {b_ms:.4f} ms by {b_by} "
+              f"({b_ms / ms:.1%})")
+        MSSIT_RECORDS[label] = (ms, None, b_ms)
+        if stage == 0:
+            rows["ln_qkv dh32"] = {
+                "name": "ln_qkv dh32", "route": "cuda", "source": GEMM_SOURCE,
+                "replaces": REPLACES["fused_block"],
+                "max_abs_err": (got.float() - ref32.float()).abs().max().item(), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del x, got, got_t, h_t, st_t, ref, h_r, st_r, ref32, controls, p32, pb
+        torch.cuda.empty_cache()
+
+
+def phase_fwd_pack_edges(fa, failures) -> None:
+    """Phase 26's part for the resident attention forward at its packing
+    edges (MSSIT_FWD_PACK_EDGES): against the fp32 and bf16 plain versions
+    under the phase's gate, with controls (the dh-64 scale, the key mask
+    ignored, the block-diagonal mask ignored) that must fail; device times
+    beside SDPA's (with the key mask). Data from a generator of its own."""
+    name, dh = "mssit-kernels", MSSIT_DH
+    g = torch.Generator(device="cuda").manual_seed(SEED + 262)
+    for Bf, heads, N, vl in MSSIT_FWD_PACK_EDGES:
+        hd, pack = heads * dh, fa.fwd_pack(N)
+        qkv = torch.cat([dev_randn(g, (Bf, N, 2 * hd), 1.5), dev_randn(g, (Bf, N, hd))], -1)
+        with torch.inference_mode():
+            o, lse = fa.flash_attention_qkv_fwd(qkv, heads, vl)
+            o = o.float()
+
+            def plain(dtype, n_valid=vl, scale=1.0):
+                def one(x_):
+                    x_ = x_.to(dtype) if dtype is not None else x_
+                    if scale != 1.0:
+                        x_ = torch.cat([x_[..., :hd] * scale, x_[..., hd:]], -1)
+                    return fa.flash_attention_qkv_reference(x_, heads, n_valid)[0].float()
+                return sliced(one, qkv, chunk=mssit_chunk(N, hd, heads))
+
+            ref32, ref_bf = plain(torch.float32), plain(None)
+            controls = {"dh-64 scale 1/8": plain(torch.float32, scale=MSSIT_SCALE_64),
+                        "key mask ignored": plain(torch.float32, N),
+                        "block-diagonal mask ignored": fwd_mask_ignored(fa, qkv, heads, pack, vl)}
+        ratio, ctl = mssit_gate(o, ref32, ref_bf, controls)
+        label = (f"attention forward dh 32 packing edge Bf={Bf} H={heads} N={N} valid_len={vl} "
+                 f"({pack} sequences a unit)")
+        if not ratio <= 1:
+            failures.append(label)
+        if any(v <= 1 for v in ctl.values()):
+            failures.append(f"{label}: a control passed the gate")
+        q, k, v = fa.split_qkv(qkv, heads)
+        mask = (torch.arange(N, device="cuda") < vl).view(1, 1, 1, N)
+        with torch.inference_mode():
+            ms = device_ms(lambda: fa.flash_attention_qkv_fwd(qkv, heads, vl))
+            sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        b_ms, b_by = bound_ms(attention_flops(Bf, heads, N, vl, dh)[0],
+                              nbytes_of(qkv) + o.numel() * 2 + lse.numel() * 4)
+        phase(name, f"{label}: worst |err|/bound vs fp32 and bf16 plain {ratio:.4g}; controls "
+              "(must exceed 1): " + ", ".join(f"{k_} {v_:.4g}" for k_, v_ in ctl.items())
+              + f"; kernel {ms:.4f} ms, SDPA (key mask) {sdpa:.4f} ms ({ms / sdpa:.3f}x), bound "
+              f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%}) (device_ms)")
+        MSSIT_RECORDS[f"attention edge Bf={Bf} H={heads} N={N} valid_len={vl}"] = (ms, sdpa, b_ms)
+        del qkv, o, lse, ref32, ref_bf, controls, q, k, v
+        torch.cuda.empty_cache()
 
 
 def phase_mssit_kernels(rng, fb) -> dict:
@@ -3593,11 +3827,15 @@ def phase_mssit_kernels(rng, fb) -> dict:
             ms = cuda_ms(lambda: fb.fused_block(x, *pb, **kw), reps=10)
         flops = block_flops(Bf, N, N, dim, heads, mlp, False, dh)[0]
         b_ms, b_by = bound_ms(flops, nbytes_of(x, *pb) + x.numel() * 2)
+        floors = [chain_bytes(Bf, N, dim, heads, mlp, dh, fused_mlp=f_)[0] / PEAK_BYTES * 1e3
+                  for f_ in (None, False)]
         phase(name, f"{label}, {per_batch} a batch: worst |err|/bound vs fp32 and bf16 plain "
               f"{ratio:.4g}, max abs err {(got - ref32).abs().max().item():.6g}; controls "
               "(must exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in ctl.items())
               + f"; kernel {ms:.4f} ms (CUDA-event median of 10), bound {b_ms:.4f} ms by "
-              f"{b_by} ({b_ms / ms:.1%}; {flops / 1e9:.1f} GFLOP)")
+              f"{b_by} ({b_ms / ms:.1%}; {flops / 1e9:.1f} GFLOP), chain floor {floors[0]:.4f} "
+              f"ms ({floors[0] / ms:.1%}; fused chain: {fb.fuses_mlp(dim, mlp)}; the seven "
+              f"launches' {floors[1]:.4f} ms)")
         MSSIT_RECORDS[f"fused_block stage {stage} ({Bf}, {N}, {dim})"] = (ms, None, b_ms)
         if (stage, Bf, N) == MSSIT_ROW_FOLD[:3]:
             with torch.inference_mode():
@@ -3770,6 +4008,8 @@ def phase_mssit_kernels(rng, fb) -> dict:
         MSSIT_RECORDS[label] = (ms, lib_ms, b_ms)
         del a, wg, res, got, ref, ctl, cut
         torch.cuda.empty_cache()
+    phase_fused_chain_parts(fb, failures, rows)
+    phase_fwd_pack_edges(fa, failures)
     if failures:
         raise AssertionError("MS-SiT kernels: " + "; ".join(failures))
     return rows
@@ -3812,15 +4052,23 @@ def phase_mssit_slice(rng, fb, fused, models) -> dict:
     for label, q, want_blocks in (("bf16", None, {"fused_block": 12}),
                                   ("int8", "int8", {"fused_block": 4, "fused_block_int8": 8})):
         counters = zero_counts(fb)
+        fused_counters = {"block_mlp": fb.block_mlp, "block_ln_gemm": fb.block_ln_gemm}
+        for c_ in fused_counters.values():
+            c_.launches = 0
         preds = fused.predict(model, data, device="cuda", batch_size=bs, quant=q)
         launches = read_counts(counters)
+        fused_launches = read_counts(fused_counters)
         want = {k: 0 for k in counters}
         want["patch_embed"] = n_batches
         want.update({k: v * n_batches for k, v in want_blocks.items()})
+        # stages 0-1 (dims 96, 192) run the fused chain: LN1 + qkv and the MLP half
+        want_fused = {k: 4 * n_batches for k in fused_counters}
         phase("mssit-slice", f"predict({n} surfaces, batch {bs}, {label}): launches {launches}, "
-              f"expected {want}")
-        if launches != want:
+              f"expected {want}; the fused chain's kernels {fused_launches}, expected "
+              f"{want_fused}")
+        if launches != want or fused_launches != want_fused:
             raise AssertionError(f"the MS-SiT {label} serving path did not launch as expected")
+        launches.update(fused_launches)
         if preds.shape != (n, 1) or not np.isfinite(preds).all():
             raise AssertionError(f"bad MS-SiT predictions: shape {preds.shape}")
         runs[label] = (preds, launches)
@@ -5032,6 +5280,8 @@ def main() -> None:
     # one dh-32 attention forward runs inside every fused_block launch
     for row_name, n_ in (("flash_attention_fwd dh32", bf16_run["fused_block"]),
                          ("fused_block dh32", bf16_run["fused_block"]),
+                         ("fused_mlp dh32", bf16_run["block_mlp"]),
+                         ("ln_qkv dh32", bf16_run["block_ln_gemm"]),
                          ("fused_block_int8 dh32", int8_run["fused_block_int8"]),
                          ("patch_embed sub-ico 5", bf16_run["patch_embed"])):
         mssit_rows[row_name]["launches"] = n_

@@ -10,6 +10,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 namespace svt {
@@ -450,6 +452,136 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
                : SVT_WG_D32
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+#define SVT_WG_D48                                                                           \
+  SVT_WG_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),          \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+#define SVT_WG_R48                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+
+// The fused MLP's fc2 (fused_mlp.cu): d (64 x 96) (+)= A (64 x 16) from
+// registers (the GELU'd fc1 chunk as an mma.sync m16k16 fragment per warp)
+// B (16 x 96) from shared memory; columns 8 j + 2 t + (e & 1) for j < 12.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " SVT_WG_R48
+               ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+               : SVT_WG_D48
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// ... and the n192 form (j < 24).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " SVT_WG_R96
+               ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+               : SVT_WG_D96
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// f(j) for j = J .. N - 1 in order, j a compile-time constant in each call
+// (an array indexed by it stays in registers).
+template <int J, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (J < N) {
+    f(std::integral_constant<int, J>{});
+    static_for<J + 1, N>(f);
+  }
+}
+
+// The LayerNorm of a row held in shared memory by two threads (lanes 2 k
+// and 2 k + 1 of a warp, p = lane & 1), in place, giving fused_block.cu's
+// layer_norm_kernel's bits: there lane l sums the row's values l, l + 32, ..
+// in order and warp_sum adds the 32 partials by a butterfly (xor 16, 8, 4, 2,
+// 1), the same tree at every lane. Lane l's values are the columns of l's
+// parity, so the thread of parity p takes the partials of the 16 lanes 2 k +
+// p (tree16 adds them as the butterfly's first four levels do) and one
+// shuffle the other parity's: no chain of ten shuffles a row, and 16-byte
+// loads. NCH = dim / 8: chunk(j) points at the row's values 8 j .. 8 j + 7
+// (16 bytes, written back as normalised bf16); gamma_p and beta_p hold the
+// columns of the thread's parity (gamma_p[k] = gamma[2 k + p]). -> (mean,
+// rstd).
+__device__ __forceinline__ float tree16(const float (&s)[16]) {
+  return (((s[0] + s[8]) + (s[4] + s[12])) + ((s[2] + s[10]) + (s[6] + s[14]))) +
+         (((s[1] + s[9]) + (s[5] + s[13])) + ((s[3] + s[11]) + (s[7] + s[15])));
+}
+
+// Value 2 m + p of a chunk of 8 bf16 (no indexed register).
+__device__ __forceinline__ float pair_value(const uint4& c, int m, int p) {
+  const uint32_t wd = m == 0 ? c.x : m == 1 ? c.y : m == 2 ? c.z : c.w;
+  return __uint_as_float(p ? wd & 0xffff0000u : wd << 16);
+}
+
+// ln_row_pair's statistics alone: -> (mean, rstd) of the row.
+template <int NCH, typename Chunk>
+__device__ __forceinline__ float2 ln_stats_pair(Chunk chunk, int p, float eps) {
+  const int dim = 8 * NCH;  // an int, as layer_norm_kernel divides by
+  float s[16];
+  auto value = [&](const uint4& c, int m) { return pair_value(c, m, p); };
+#pragma unroll
+  for (int k = 0; k < 16; ++k) s[k] = 0.f;
+  static_for<0, NCH>([&](auto jc) {  // lane 2 k + p's values, in its order
+    constexpr int j = decltype(jc)::value;
+    const uint4 c = *reinterpret_cast<const uint4*>(chunk(j));
+#pragma unroll
+    for (int m = 0; m < 4; ++m) s[(4 * j + m) & 15] += value(c, m);
+  });
+  float mu = tree16(s);
+  mu = (mu + __shfl_xor_sync(0xffffffffu, mu, 1)) / dim;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) s[k] = 0.f;
+  static_for<0, NCH>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    const uint4 c = *reinterpret_cast<const uint4*>(chunk(j));
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      float d = value(c, m) - mu;
+      s[(4 * j + m) & 15] += d * d;
+    }
+  });
+  float var = tree16(s);
+  return make_float2(mu, rsqrtf((var + __shfl_xor_sync(0xffffffffu, var, 1)) / dim + eps));
+}
+
+// ln_row_pair's normalisation alone, from the row's (mean, rstd).
+template <int NCH, typename Chunk>
+__device__ __forceinline__ void ln_apply_pair(Chunk chunk, int p, const float* gamma_p,
+                                              const float* beta_p, float mu, float rstd) {
+  auto value = [&](const uint4& c, int m) { return pair_value(c, m, p); };
+  auto bits = [](float y) { return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(y)); };
+  static_for<0, NCH>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    bf16* cp = chunk(j);
+    const uint4 c = *reinterpret_cast<const uint4*>(cp);
+    const float4 g = *reinterpret_cast<const float4*>(gamma_p + 4 * j);
+    const float4 b = *reinterpret_cast<const float4*>(beta_p + 4 * j);
+    const uint32_t y0 = bits((value(c, 0) - mu) * rstd * g.x + b.x);
+    const uint32_t y1 = bits((value(c, 1) - mu) * rstd * g.y + b.y);
+    const uint32_t y2 = bits((value(c, 2) - mu) * rstd * g.z + b.z);
+    const uint32_t y3 = bits((value(c, 3) - mu) * rstd * g.w + b.w);
+    // y_m is value 8 j + 2 m + p; the thread writes words 2 p, 2 p + 1 of the
+    // chunk, each pairing a value of either parity: one shuffle swaps halves
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, p ? y0 | y1 << 16 : y2 | y3 << 16, 1);
+    const uint2 out = p ? make_uint2((got & 0xffffu) | y2 << 16, (got >> 16) | y3 << 16)
+                        : make_uint2(y0 | got << 16, y1 | (got & 0xffff0000u));
+    *reinterpret_cast<uint2*>(cp + 4 * p) = out;
+  });
+}
+
+template <int NCH, typename Chunk>
+__device__ __forceinline__ float2 ln_row_pair(Chunk chunk, int p, const float* gamma_p,
+                                              const float* beta_p, float eps) {
+  const float2 st = ln_stats_pair<NCH>(chunk, p, eps);
+  ln_apply_pair<NCH>(chunk, p, gamma_p, beta_p, st.x, st.y);
+  return st;
 }
 
 // -- the n32 forms and the 64-byte swizzle (the resident attention backward

@@ -91,29 +91,26 @@
 // from an atomic ticket, start order by construction, made the main pass
 // slower at every shape tried (PERF.md).
 //
-// Head dim 32 (MS-SiT: 96 / 3 ... 768 / 24), without dropout: each kernel
-// is the dh-64 one with the head's columns narrower. Its tensor
-// maps declare dh = 32 columns and keep the 64-column box, so TMA zero-fills
-// columns 32-63 of every [rows][64] tile: the tiles, the 128-byte swizzle,
-// the descriptors, the ring and its byte counts stay those of dh 64. S = Q
-// K^T runs dh / 16 = 2 k16 steps; P V runs on the 64-column V tile, whose
-// zero half gives zero output columns that are never written. That spends
-// half of P V's tensor work and half the tiles' shared memory on zeros,
-// where the 64-byte swizzle (32-column tiles, a second descriptor layout
-// and an n32 wgmma) would not: chosen because at dh 32 each score costs
-// 128 tensor-core operations against one ex2 (at 4096 and 16 per SM and
-// clock) and an FMA chain, so the softmax, not the tensor cores, bounds the
-// kernel, and the padded products hide under it (PERF.md has its times at
-// MS-SiT's shapes). The softmax scale 1 / sqrt(32) = 2^-2.5 is not a float:
-// lse takes it rounded once to fp32 (as the plain version's fp32 multiply
-// does), the exponent the double product 2^-2.5 log2(e) rounded once
-// (SoftmaxScale). The tiling rule is the same for both dh.
+// Forward at head dim 32 (MS-SiT: 96 / 3 ... 768 / 24), without dropout:
+// the kernel above on native 32-column tiles (tensor maps of 32-column
+// boxes in the 64-byte swizzle, S over two k16 steps, P V as n32 products:
+// no zero columns; the outputs are those of the dh-64 design with 32
+// columns zero-filled, bit for bit, which this replaced). Where queries =
+// keys <= 320 and the sequence is not a whole number of 64-row tiles
+// (resident_fwd: MS-SiT's axial folds of 20 and 80 rows),
+// flash_fwd_resident_kernel<KS> (below) lays sequences side by side in
+// units, so that no query tile is mostly empty. The softmax scale 1 /
+// sqrt(32) = 2^-2.5 is not a float: lse takes it rounded once to fp32 (as
+// the plain version's fp32 multiply does), the exponent the double product
+// 2^-2.5 log2(e) rounded once (SoftmaxScale). The tiling rule is the same
+// for both dh.
 //
-// The streamed backward at dh 32 (past 320 keys, or queries != keys) takes
-// the same design: Q and dO arrive by TMA through 32-column maps in
-// 64-column boxes, K and V by cp.async with the 16-byte pieces past column
-// 32 zero-filled, so every tile, the swizzle,
-// the descriptors and the ring's byte counts stay those of dh 64. S and dP
+// The streamed backward at dh 32 (past 320 keys, or queries != keys) keeps
+// the dh-64 tiles with the head's columns narrower: Q and dO arrive by TMA
+// through 32-column maps in 64-column boxes (TMA zero-fills the rest), K
+// and V by cp.async with the 16-byte pieces past column 32 zero-filled, so
+// every tile, the swizzle, the descriptors and the ring's byte counts stay
+// those of dh 64. S and dP
 // run dh / 16 = 2 k16 steps; dV, dK and the dQ share run on the padded
 // tiles (their columns 32-63 come out zero and are never written), so half
 // of those three products' tensor work is on zeros; the kernel is bound by
@@ -286,10 +283,12 @@ __device__ unsigned long long fwd_profile[8];
   } while (0)
 #endif
 
-template <int NWG, int BK>
+// Tiles of DH columns: [rows][64] in the 128-byte swizzle at dh 64, [rows][32]
+// in the 64-byte swizzle at dh 32 (native: no zero columns).
+template <int NWG, int BK, int DH>
 struct FwdSmem {
-  bf16 q[NWG][64 * ATT_DH];  // a warpgroup's Q tile; its O on the way out
-  bf16 k[FWD_STAGES][BK * ATT_DH], v[FWD_STAGES][BK * ATT_DH];
+  bf16 q[NWG][64 * DH];  // a warpgroup's Q tile; its O on the way out
+  bf16 k[FWD_STAGES][BK * DH], v[FWD_STAGES][BK * DH];
   uint64_t q_full, k_full[FWD_STAGES], v_full[FWD_STAGES];
   uint64_t k_empty[FWD_STAGES], v_empty[FWD_STAGES];
 };
@@ -383,7 +382,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
                      const Dropout dr) {
   constexpr int SA = BK / 2;  // score accumulators per thread
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  FwdSmem<NWG, BK>& sm = *reinterpret_cast<FwdSmem<NWG, BK>*>(
+  FwdSmem<NWG, BK, DH>& sm = *reinterpret_cast<FwdSmem<NWG, BK, DH>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int q0 = blockIdx.x * 64 * NWG;
@@ -405,16 +404,16 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   if (wg == 0) {  // the producer
     set_max_regs_dec<FWD_PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      mbar_expect(&sm.q_full, active * 64 * ATT_DH * 2);
+      mbar_expect(&sm.q_full, active * 64 * DH * 2);
       for (int w = 0; w < active; ++w)
         tma_tile(sm.q[w], tm_q, &sm.q_full, q0 + 64 * w, h, b, hf_q);
       for (int j = 0; j < ntiles; ++j) {
         const int st = j % FWD_STAGES, use = j / FWD_STAGES;
         if (use > 0) mbar_wait(&sm.k_empty[st], (use - 1) & 1);
-        mbar_expect(&sm.k_full[st], BK * ATT_DH * 2);
+        mbar_expect(&sm.k_full[st], BK * DH * 2);
         tma_tile(sm.k[st], tm_k, &sm.k_full[st], j * BK, h, b, hf_k);
         if (use > 0) mbar_wait(&sm.v_empty[st], (use - 1) & 1);
-        mbar_expect(&sm.v_full[st], BK * ATT_DH * 2);
+        mbar_expect(&sm.v_full[st], BK * DH * 2);
         tma_tile(sm.v[st], tm_v, &sm.v_full[st], j * BK, h, b, hf_v);
       }
     }
@@ -430,10 +429,10 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   const int row0 = q0 + 64 * w, row = row0 + 16 * warp + g;  // this thread's rows: row, row + 8
   const uint32_t bh = (uint32_t)(b * heads + h);
 
-  float acc[32], s[SA], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
+  float acc[DH / 2], s[SA], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
   uint32_t p[SA / 8][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
   const bf16* sq = sm.q[w];
 
   auto issue_s = [&](int j) {  // S = Q K_j^T
@@ -441,8 +440,12 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
     mbar_wait(&sm.k_full[st], (j / FWD_STAGES) & 1);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks)  // the tiles' columns past DH are zero
-      wgmma_ss<0, 0>(s, sw128_desc(sq + ks * 16), sw128_desc(sm.k[st] + ks * 16), ks);
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      if constexpr (DH == 32)
+        wgmma_ss<0, 0>(s, sw64_desc(sq + ks * 16), sw64_desc(sm.k[st] + ks * 16), ks);
+      else
+        wgmma_ss<0, 0>(s, sw128_desc(sq + ks * 16), sw128_desc(sm.k[st] + ks * 16), ks);
+    }
     wg_commit();
   };
   auto issue_pv = [&](int j, int ksteps) {  // O += P V_j, V read MN-major
@@ -450,8 +453,13 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
     mbar_wait(&sm.v_full[st], (j / FWD_STAGES) & 1);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      if (kk < ksteps) wgmma_rs<1>(acc, p[kk], sw128_desc(sm.v[st] + kk * 16 * ATT_DH), 1);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if (kk >= ksteps) continue;
+      if constexpr (DH == 32)
+        wgmma_rs<1>(acc, p[kk], sw64_desc(sm.v[st] + kk * 16 * DH), 1);
+      else
+        wgmma_rs<1>(acc, p[kk], sw128_desc(sm.v[st] + kk * 16 * DH), 1);
+    }
     wg_commit();
   };
   auto release = [&](uint64_t* bar) {
@@ -496,7 +504,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
     SVT_FWD_MARK(5);
     release(&sm.v_empty[j % FWD_STAGES]);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= a[(i >> 1) & 1];
+    for (int i = 0; i < DH / 2; ++i) acc[i] *= a[(i >> 1) & 1];
     pack_p<SA>(p, s);
     SVT_FWD_MARK(6);
   }
@@ -526,11 +534,12 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   // O's DH columns through this warpgroup's Q tile (its last reader, the
   // last S, is done), then out in 16-byte row pieces
   bf16* so = sm.q[w];
+  auto at = [](int r, int c) { return DH == 32 ? sw64(r, c) : sw128(r, c); };
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(so + sw128(16 * warp + g + 8 * r, 8 * j + 2 * t)) =
+      *reinterpret_cast<uint32_t*>(so + at(16 * warp + g + 8 * r, 8 * j + 2 * t)) =
           pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
   bar_sync(FWD_WG_BAR + w, 128);
   constexpr int PIECES = DH / 8;  // of a row
@@ -539,7 +548,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
     const int r = (128 / PIECES) * i + tid / PIECES, c = (tid % PIECES) * 8;
     if (row0 + r < nq)
       *reinterpret_cast<uint4*>(o.row(b, h, row0 + r) + c) =
-          *reinterpret_cast<const uint4*>(so + sw128(r, c));
+          *reinterpret_cast<const uint4*>(so + at(r, c));
   }
 }
 
@@ -1262,6 +1271,260 @@ cudaError_t launch_resident(const Strided& q, const Strided& k, const Strided& v
   return cudaGetLastError();
 }
 
+// -- forward, resident (head dim 32, N <= 320, no dropout) --------------------
+//
+// One CTA (one warpgroup) per 64-row query tile of a unit: `pack` sequences
+// of a fold side by side (ResGeom, res_row: tile row i holds row i % n of
+// sequence u * pack + i / n), so that no query tile is mostly empty: 64 / n
+// sequences of n <= 32 in one tile (stage 2's axial fold: 3 of 20), else
+// 320 / n of them across up to five tiles (stage 1's axial fold: four of
+// 80 in five full tiles, where one sequence a CTA ran 64 + 16 query rows
+// against 64 + 16 keys). The tile's Q and the keys its rows can see (from
+// the first row's sequence start to the last row's sequence end) land once
+// by cp.async in [rows][32] tiles of the 64-byte swizzle (a packed sequence
+// starts inside a swizzle atom, where no TMA box lands); then per step of
+// KS keys S = Q K^T (two k16 products of n = KS), the mask (each row sees
+// its own sequence's keys below valid_len: a block-diagonal mask where
+// sequences share the tile), the online softmax, P rounded to bf16 as the A
+// operand of O += P V (n32, V read MN-major). KS is 64 where the unit is one
+// tile, so that a row's max is over all its keys at once (a max found late
+// rescales P after its bf16 rounding: the W8A8 block's share gate at N = 20
+// saw it), else 32. No product spends tensor work on zero columns, and
+// shared memory holds 64 bytes a key where the dh-64 tiles held 128. O
+// leaves through the Q tile in 16-byte row pieces; lse = m / sqrt(32) + log
+// l, as the streamed kernel writes it. 72 registers, four CTAs an SM.
+
+constexpr int FWD_RES_MAX_ROWS = 320;  // a unit's rows: five 64-row tiles
+
+// Sequences of n rows a unit of the resident forward holds.
+__host__ __device__ __forceinline__ int fwd_pack(int n) {
+  return n <= 32 ? 64 / n : FWD_RES_MAX_ROWS / n;
+}
+
+// The keys (unit rows) query tile qt can see: [k0, k1), k0 on a 32-key half.
+__host__ __device__ __forceinline__ int2 fwd_key_range(int qt, const ResGeom& gm) {
+  const int rows = gm.pack * gm.n, first = 64 * qt;
+  const int last = (first + 64 < rows ? first + 64 : rows) - 1;
+  const int k0 = (first / gm.n) * gm.n & ~31;
+  return make_int2(k0, (last / gm.n) * gm.n + (gm.valid_len < gm.n ? gm.valid_len : gm.n));
+}
+
+// A thread's rows i0, i0 + 32, .. of unit u: each row's (sequence of the
+// unit, row in it) and (sample, head), stepped without a division.
+struct UnitRows {
+  int seg, rem, bh, b, h;
+  __device__ __forceinline__ UnitRows(int u, int i0, const ResGeom& gm) {
+    seg = i0 / gm.n;
+    rem = i0 - seg * gm.n;
+    bh = u * gm.pack + seg;
+    b = bh / gm.heads;
+    h = bh - b * gm.heads;
+  }
+  __device__ __forceinline__ bool live(const ResGeom& gm) const {
+    return seg < gm.pack && bh < gm.bh_total;
+  }
+  __device__ __forceinline__ void step(const ResGeom& gm) {
+    for (rem += 32; rem >= gm.n; rem -= gm.n) {
+      ++seg;
+      ++bh;
+      if (++h == gm.heads) h = 0, ++b;
+    }
+  }
+};
+
+// rows [i0, i0 + rows) of unit u of t into a [rows][32] tile: 16-byte
+// pieces (four a row, piece tid % 4 of rows tid / 4 + 32 k), zeros where a
+// row holds no sequence row
+__device__ __forceinline__ void load_rows(bf16* dst, const Strided t, int u, int i0, int rows,
+                                          const ResGeom& gm, int tid) {
+  const int ch = tid & 3;
+  UnitRows w(u, i0 + (tid >> 2), gm);
+  for (int i = tid >> 2; i < rows; i += 32, w.step(gm)) {
+    const bool ok = w.live(gm);
+    cp_async16(dst + sw64(i, 8 * ch), ok ? t.row(w.b, w.h, w.rem) + 8 * ch : t.p, ok);
+  }
+}
+
+// KS keys a step: 64 where the unit is one tile (sequences of N <= 32), so
+// that each row's softmax takes its max over all its keys at once, as the
+// streamed kernel's one 64-key tile did; else 32.
+template <int KS>
+__global__ void __launch_bounds__(128, 4)
+    flash_fwd_resident_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
+                              float* __restrict__ lse, const ResGeom gm, int tiles, int kcap) {
+  constexpr int SA = KS / 2;  // score accumulators per thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                     ~uintptr_t(1023));
+  bf16* sk = sq + 64 * 32;
+  bf16* sv = sk + kcap * 32;
+  const int u = blockIdx.x / tiles, qt = blockIdx.x - u * tiles;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = 64 * qt;
+  const int2 kr = fwd_key_range(qt, gm);
+  const int nh = (kr.y - kr.x + KS - 1) / KS;  // the tile's steps of KS keys
+
+  // Q's tile, then the keys' K and V: 16-byte pieces, zeros where a row holds none
+  load_rows(sq, q, u, q0, 64, gm, tid);
+  load_rows(sk, k, u, kr.x, KS * nh, gm, tid);
+  load_rows(sv, v, u, kr.x, KS * nh, gm, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+  // this thread's rows (r0, r0 + 8 of the tile): the keys each may see
+  const int r0 = 16 * warp + g;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = q0 + r0 + 8 * rr, seg = i / gm.n;
+    const bool live = seg < gm.pack && u * gm.pack + seg < gm.bh_total;
+    lo[rr] = live ? seg * gm.n : 0;
+    hi[rr] = live ? seg * gm.n + min(gm.valid_len, gm.n) : 0;
+  }
+
+  float acc[16], s[SA], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  uint32_t p[KS / 16][4];
+  auto issue_s = [&](int h) {  // S = Q K_h^T
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      wgmma_ss<0, 0>(s, sw64_desc(sq + ks * 16),
+                     sw64_desc(sk + KS * h * 32 + ks * 16), ks);
+    wg_commit();
+  };
+  auto issue_pv = [&](int h) {  // O += P V_h, V read MN-major
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk)
+      wgmma_rs<1>(acc, p[kk], sw64_desc(sv + (KS * h + 16 * kk) * 32), 1);
+    wg_commit();
+  };
+  auto softmax = [&](int h) {  // step h's scores in s -> P, with the rescale a
+    const int kh = kr.x + KS * h;  // the step's first key (unit row)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < SA / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kcol = kh + 8 * j + 2 * t + (e & 1), rr = e >> 1;
+        if (kcol < lo[rr] || kcol >= hi[rr]) s[4 * j + e] = -INFINITY;
+        mx[rr] = fmaxf(mx[rr], s[4 * j + e]);
+      }
+    float ms[2], sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float mn = fmaxf(m[rr], quad_max(mx[rr]));
+      // a row that has seen no key yet keeps l = 0 and O = 0
+      a[rr] = mn == -INFINITY ? 1.f : exp2_approx((m[rr] - mn) * SoftmaxScale<32>::slog2);
+      ms[rr] = mn == -INFINITY ? 0.f : mn * SoftmaxScale<32>::slog2;
+      m[rr] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < SA / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], SoftmaxScale<32>::slog2, -ms[e >> 1]));
+        sum[e >> 1][j & 1] += s[4 * j + e];
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * a[rr] + (sum[rr][0] + sum[rr][1]);
+  };
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  };
+
+  issue_s(0);
+  wg_wait<0>();
+  wg_hold(s);
+  softmax(0);
+  pack();
+  // step h's P.V runs while step h + 1's softmax does
+  for (int h = 0; h + 1 < nh; ++h) {
+    issue_s(h + 1);
+    issue_pv(h);
+    wg_wait<1>();
+    wg_hold(s);
+    softmax(h + 1);
+    wg_wait<0>();
+    wg_hold(acc);
+    wg_hold(p);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] *= a[(i >> 1) & 1];
+    pack();
+  }
+  issue_pv(nh - 1);
+  wg_wait<0>();
+  wg_hold(acc);
+  wg_hold(p);
+
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] = quad_sum(l[rr]);
+    inv[rr] = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
+    const int2 br = res_row(u, q0 + r0 + 8 * rr, gm);
+    if (lse != nullptr && t == 0 && br.x >= 0)
+      lse[(long long)br.x * gm.n + br.y] = m[rr] * SoftmaxScale<32>::scale + logf(l[rr]);
+  }
+  __syncthreads();  // every warp's last S has read the Q tile
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<uint32_t*>(sq + sw64(r0 + 8 * rr, 8 * j + 2 * t)) =
+          pack_bf16(acc[4 * j + 2 * rr] * inv[rr], acc[4 * j + 2 * rr + 1] * inv[rr]);
+  __syncthreads();
+  UnitRows rw(u, q0 + (tid >> 2), gm);
+  for (int i = tid >> 2; i < 64; i += 32, rw.step(gm))
+    if (rw.live(gm))
+      *reinterpret_cast<uint4*>(o.row(rw.b, rw.h, rw.rem) + 8 * (tid & 3)) =
+          *reinterpret_cast<const uint4*>(sq + sw64(i, 8 * (tid & 3)));
+}
+
+cudaError_t launch_fwd_resident(const Strided& q, const Strided& k, const Strided& v,
+                                const Strided& o, float* lse, int B, int heads, int n,
+                                int valid_len, cudaStream_t st) {
+  const int pack = fwd_pack(n);
+  const ResGeom gm{n, valid_len, pack, B * heads, heads};
+  const int tiles = ceil_div(pack * n, 64), units = ceil_div(B * heads, pack);
+  const int ks = tiles == 1 ? 64 : 32;  // keys a step
+  int kcap = 0;  // the most keys a tile loads
+  for (int qt = 0; qt < tiles; ++qt) {
+    const int2 kr = fwd_key_range(qt, gm);
+    kcap = std::max(kcap, ks * ceil_div(kr.y - kr.x, ks));
+  }
+  const int smem = 1024 + 2 * (64 + 2 * kcap) * 32;  // alignment, Q, K, V
+  static bool ready[16];  // the shared-memory limit, set once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || !ready[dev]) {
+    // keys: at most a unit's rows and the half before its first sequence
+    const int most = 1024 + 2 * (64 + 2 * (FWD_RES_MAX_ROWS + 32)) * 32;
+    e = cudaFuncSetAttribute(flash_fwd_resident_kernel<32>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_resident_kernel<64>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) ready[dev] = true;
+  }
+  if (ks == 64)
+    flash_fwd_resident_kernel<64><<<units * tiles, 128, smem, st>>>(q, k, v, o, lse, gm, tiles,
+                                                                     kcap);
+  else
+    flash_fwd_resident_kernel<32><<<units * tiles, 128, smem, st>>>(q, k, v, o, lse, gm, tiles,
+                                                                     kcap);
+  return cudaGetLastError();
+}
+
 __device__ __forceinline__ void add4(float4& a, const float4& x) {
   a.x += x.x;
   a.y += x.y;
@@ -1311,15 +1574,16 @@ __global__ void __launch_bounds__(256)
 // in increasing stride (heads first for the packed (B, n, heads * dh)
 // layouts).
 cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
-                       bool heads_first, int rows = 64, int dh = ATT_DH) {
+                       bool heads_first, int rows = 64, int dh = ATT_DH, bool native = false) {
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)(heads_first ? heads : n),
                               (cuuint64_t)(heads_first ? n : heads), (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(heads_first ? t.sh : t.sr) * 2,
                                  (cuuint64_t)(heads_first ? t.sr : t.sh) * 2,
                                  (cuuint64_t)t.sb * 2};
-  const cuuint32_t box[4] = {ATT_DH, heads_first ? 1u : (cuuint32_t)rows,
+  const cuuint32_t box[4] = {native ? (cuuint32_t)dh : ATT_DH, heads_first ? 1u : (cuuint32_t)rows,
                              heads_first ? (cuuint32_t)rows : 1u, 1};
-  return encode_tiled(m, 4, t.p, dims, strides, box);
+  return encode_tiled(m, 4, t.p, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      native && dh == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <bool DROP, int DH>
@@ -1365,7 +1629,7 @@ template <int NWG, int BK, bool DROP, int DH>
 cudaError_t launch_fwd(cudaStream_t st, const Strided& q, const Strided& k, const Strided& v,
                        const Strided& o, float* lse, int B, int heads, int nq, int nk,
                        int valid_len, const Dropout& dr) {
-  constexpr int smem = sizeof(FwdSmem<NWG, BK>) + 1024;  // + alignment to 1024 bytes
+  constexpr int smem = sizeof(FwdSmem<NWG, BK, DH>) + 1024;  // + alignment to 1024 bytes
   static bool ready[16];  // the shared-memory limit, set once per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1378,9 +1642,9 @@ cudaError_t launch_fwd(cudaStream_t st, const Strided& q, const Strided& k, cons
   }
   const bool hf_q = q.sh < q.sr, hf_k = k.sh < k.sr, hf_v = v.sh < v.sr;
   CUtensorMap tm_q, tm_k, tm_v;
-  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, 64, DH)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, BK, DH)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, BK, DH)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, 64, DH, true)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, BK, DH, true)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, BK, DH, true)) != cudaSuccess) return e;
   const dim3 grid(ceil_div(nq, 64 * NWG), heads, B);
   flash_fwd_kernel<NWG, BK, DROP, DH><<<grid, FwdCfg<NWG, BK>::threads, smem, st>>>(
       tm_q, tm_k, tm_v, hf_q, hf_k, hf_v, o, lse, nq, nk, valid_len, dr);
@@ -1452,6 +1716,8 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
   if (dh != ATT_DH && (dh != 32 || dr.on)) return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return cudaErrorMisalignedAddress;
+  if (resident_fwd(nq, nk, dh, dr.on))  // every MS-SiT fold: the sequences packed, one launch
+    return launch_fwd_resident(q, k, v, o, lse, B, heads, nq, valid_len, st);
   // The tiling, from the tilings measured on an H100 (PERF.md): past 512
   // keys, 128-key tiles and three consumer warpgroups (192 queries) where
   // that grid still fills the card twice; else one warpgroup (64 queries,
@@ -1467,6 +1733,10 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
                                            nk, valid_len, dr)
                : launch_rule<false, ATT_DH>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
                                             nk, valid_len, dr);
+}
+
+bool resident_fwd(int nq, int nk, int dh, bool dropout) {
+  return dh == 32 && !dropout && nq == nk && nq <= FWD_RES_MAX_ROWS && nq % 64 != 0;
 }
 
 bool resident_bwd(int nq, int nk, int dh, bool dropout) {

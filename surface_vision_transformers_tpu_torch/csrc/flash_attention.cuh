@@ -69,6 +69,11 @@ long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh);
 // Whether the backward at these shapes takes the resident kernel, and how
 // many sequences it packs into one 64-row tile (N <= 32).
 bool resident_bwd(int nq, int nk, int dh, bool dropout);
+
+// Whether the forward at these shapes takes its resident kernel (dh 32, no
+// dropout, nq == nk <= 320: every MS-SiT fold; sequences packed, see
+// flash_attention.cu); else the streamed kernel.
+bool resident_fwd(int nq, int nk, int dh, bool dropout);
 int resident_pack(int n);
 
 }  // namespace svt

@@ -28,8 +28,17 @@
 // persistent, warp-specialised kernel (one producer thread loading A and W
 // tiles by TMA into an mbarrier ring, two consumer warpgroups on m64n192k16
 // wgmma) with the bias / erf-GELU / residual epilogues fused into a store
-// by TMA. LN folded into the GEMM prologues and intermediates kept on chip
-// are later work.
+// by TMA.
+//
+// At dims 96 and 192 (fused_mlp_route: MS-SiT's stages 0-1, SiT-tiny; the
+// training form at dim 96) the chain is four launches: [LN1 + qkv] -> attention -> out-proj (+res) ->
+// [fused MLP]. LN1 runs in the qkv product's prologue (gemm.cuh F_LNA: a
+// tile's K-steps hold whole rows, normalised in the ring before its
+// products), and LN2 -> fc1 -> GELU -> fc2 (+res) is one kernel
+// (fused_mlp.cu), so h, h2 and f never reach device memory when serving:
+// at dim 96 the serving chain moves 13 widths of x where the seven launches
+// moved 26. Both reproduce the chain's arithmetic, so the outputs are the
+// same bits.
 //
 // Numerics follow the TPU kernel's rounding points (bf16 after LN, QKV,
 // P, P.V, x1, GELU; fp32 statistics, scores, softmax sums and epilogues),
@@ -42,6 +51,7 @@
 // synchronises and nothing allocates: the caller passes outputs and scratch.
 
 #include "flash_attention.cuh"
+#include "fused_mlp.cuh"
 #include "gemm.cuh"
 
 namespace {
@@ -153,13 +163,37 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
   const int M = B * N, hd = heads * dim_head;
   bf16* h2 = s.h2 != nullptr ? s.h2 : h;
 
-  SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1, st));
-  SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, (const bf16*)w_qkv, 3 * hd,
-                                    out_bf16(qkv, 3 * hd), st));
+  const bool fused = fused_mlp_route(dim, mlp, s.h2 != nullptr);
+  if (fused) {  // LN1 in qkv's prologue; the training form keeps h1 and its statistics
+    gemm::Epilogue ep = out_bf16(qkv, 3 * hd);
+    ep.ln_gamma = (const float*)ln1_s;
+    ep.ln_beta = (const float*)ln1_b;
+    ep.ln_eps = eps;
+    ep.ln_stats = s.stats1;
+    ep.ln_out = s.h2 != nullptr ? h : nullptr;
+    SVT_TRY(launch_gemm<gemm::F_LNA>(xb, M, dim, 0, 0, (const bf16*)w_qkv, 3 * hd, ep, st));
+  } else {
+    SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1,
+                      st));
+    SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, (const bf16*)w_qkv, 3 * hd,
+                                      out_bf16(qkv, 3 * hd), st));
+  }
   SVT_TRY(launch_attention(qkv, 3 * hd, N, qkv + hd, qkv + 2 * hd, 3 * hd, N, attn, hd, B, heads,
                            dim_head, valid_len, s.lse, st));
   SVT_TRY(launch_gemm<gemm::F_RES>(attn, M, hd, 0, 0, (const bf16*)w_out, dim,
                                    out_res(x1, dim, (const float*)b_out, xb, dim, M, 0), st));
+  if (fused) {  // LN2 -> fc1 -> GELU -> fc2 (+ x1): one kernel
+    MlpSaves ms;
+    if (s.h2 != nullptr) {
+      ms.h2 = s.h2;
+      ms.stats2 = s.stats2;
+      ms.fpre = s.fpre;
+      ms.f = f;
+    }
+    return (int)fused_mlp(x1, (const float*)ln2_s, (const float*)ln2_b, (const bf16*)w_fc1,
+                          (const float*)b_fc1, (const bf16*)w_fc2, (const float*)b_fc2,
+                          static_cast<bf16*>(out), M, dim, mlp, eps, ms, st);
+  }
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, M, dim, eps, s.stats2, st));
   SVT_TRY(launch_gemm<gemm::F_GELU>(h2, M, dim, 0, 0, (const bf16*)w_fc1, mlp,
                                     out_bf16(f, mlp, (const float*)b_fc1, s.fpre), st));
@@ -208,7 +242,8 @@ const char* svt_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 // Linear layout (out, in),
 // bf16: w_qkv (3hd, dim), w_out (dim, hd), w_fc1 (mlp, dim), w_fc2 (dim, mlp);
 // LN parameters and biases fp32. Scratch: h (B*N, dim), qkv (B*N, 3hd),
-// attn (B*N, hd), x1 (B*N, dim), f (B*N, mlp), all bf16.
+// attn (B*N, hd), x1 (B*N, dim), f (B*N, mlp), all bf16; where
+// svt_block_fused_mlp(dim, mlp, 0), h and f are not touched (any pointer).
 int svt_fused_block(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out, void* b_out,
                     void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2, void* b_fc2,
                     void* out, void* ws_h, void* ws_qkv, void* ws_attn, void* ws_x1, void* ws_f,
@@ -291,6 +326,48 @@ int svt_block_gemm(int epi, void* A, void* W, void* bias, void* R, void* C, void
     return (int)launch_gemm<gemm::F_RES>(
         a, M, K, 0, 0, w, N, out_res(c, N, (const float*)bias, (const bf16*)R, N, M, 0), st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Whether the block chains (train: the training forward) run LN1 in the qkv
+// product's prologue and the fused MLP kernel at this width
+// (fused_mlp_route): 1 or 0.
+int svt_block_fused_mlp(int dim, int mlp, int train) {
+  return fused_mlp_route(dim, mlp, train != 0) ? 1 : 0;
+}
+
+// The fused MLP half alone: out (M, dim) = x1 + fc2(GELU(fc1(LN2(x1)))),
+// as the chain runs it where svt_block_fused_mlp; with h2 set (training),
+// also h2 (M, dim) bf16, stats2 (M, 2), fpre (M, mlp) fp32 and f (M, mlp)
+// bf16.
+int svt_block_mlp(void* x1, void* gamma, void* beta, void* w1, void* b1, void* w2, void* b2,
+                  void* out, void* h2, void* stats2, void* fpre, void* f, int M, int dim,
+                  int mlp, float eps, int device, void* stream) {
+  SVT_TRY(cudaSetDevice(device));
+  MlpSaves s;
+  s.h2 = (bf16*)h2;
+  s.stats2 = (float*)stats2;
+  s.fpre = (float*)fpre;
+  s.f = (bf16*)f;
+  return (int)fused_mlp((const bf16*)x1, (const float*)gamma, (const float*)beta,
+                        (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
+                        (bf16*)out, M, dim, mlp, eps, s, static_cast<cudaStream_t>(stream));
+}
+
+// The qkv product with LN1 in its prologue alone: C (M, N) bf16 =
+// LN(x) W^T, x (M, K) with K = 96 or 192, W (N, K); with h set (training),
+// also the normalised rows h (M, K) bf16 and stats (M, 2) fp32.
+int svt_block_ln_gemm(void* x, void* gamma, void* beta, void* W, void* C, void* h, void* stats,
+                      int M, int N, int K, float eps, int device, void* stream) {
+  SVT_TRY(cudaSetDevice(device));
+  gemm::Epilogue ep = out_bf16(static_cast<bf16*>(C), N);
+  ep.ln_gamma = (const float*)gamma;
+  ep.ln_beta = (const float*)beta;
+  ep.ln_eps = eps;
+  ep.ln_stats = (float*)stats;
+  ep.ln_out = (bf16*)h;
+  if ((h == nullptr) != (stats == nullptr)) return (int)cudaErrorInvalidValue;
+  return (int)launch_gemm<gemm::F_LNA>((const bf16*)x, M, K, 0, 0, (const bf16*)W, N, ep,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 #ifdef SVT_GEMM_PROFILE

@@ -14,7 +14,8 @@
 //
 // A CTA is three warpgroups on one SM (one CTA per SM, a persistent grid of
 // min(tiles, SMs) CTAs walking the output tiles in order, N-tiles fastest,
-// so the CTAs working at once share their A rows in L2):
+// so the CTAs working at once share their A rows in L2; F_LNA walks whole
+// M-tiles, walk_tile):
 //   producer   one thread starts every load by TMA: the A and B tiles of
 //              each 128-byte-deep k-step into a ring of STAGES stages with full
 //              and empty mbarriers, running ahead across tile boundaries, so
@@ -89,6 +90,10 @@
 //                dh n, dh, g and dx1 per CTA into colpart (ln_epilogue)
 //   B_LN1        the same with the fp32 residual dx1: bf16 dx, and the
 //                sums of dh n and dh
+//   F_LNA        bf16 C, A's rows first normalised in place in the ring by
+//                the LayerNorm (K = dim 96 or 192: the tile's K-steps hold
+//                whole rows); the training form keeps them and their
+//                statistics (qkv with LN1 in its prologue, fused_block.cu)
 // and on int8 operands, each dequantized as (float(acc) * sa[row]) *
 // sw[col], then + bias, then the residual, every rounding written out
 // (__fmul_rn, __fadd_rn) so that no contraction moves a value from the
@@ -153,7 +158,7 @@ constexpr int IDENTITY = 1 << 30;     // a row map's group size when there is no
 constexpr int STAGE_BYTES = (BM + BN) * ROW_BYTES;
 
 enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_ADD_F32, B_LN2, B_LN1,
-           Q_S32, Q_BF16, Q_RES_F32, Q_GELU_MAX, Q_GELU_Q8, Q_RES_BF16 };
+           F_LNA, Q_S32, Q_BF16, Q_RES_F32, Q_GELU_MAX, Q_GELU_Q8, Q_RES_BF16 };
 
 // An operand in device memory (bf16 or int8, the engine's element type):
 // `rows` rows of `cols` contiguous values, `ld` values apart; logical row r
@@ -187,6 +192,14 @@ struct Epilogue {
   int ldx = 0;
   const float* stats = nullptr;
   const void* lres = nullptr;
+  // F_LNA: the LayerNorm of A's rows (gamma, beta fp32, eps) applied in the
+  // prologue; the training form keeps the normalised rows (ln_out, bf16 (M,
+  // K)) and each row's (mean, rstd) (ln_stats)
+  const float* ln_gamma = nullptr;
+  const float* ln_beta = nullptr;
+  float ln_eps = 0.f;
+  float* ln_stats = nullptr;
+  bf16* ln_out = nullptr;
 };
 
 // The tile walk, as the device sees it.
@@ -213,7 +226,8 @@ __host__ __device__ constexpr bool ln_epi(int epi) { return epi == B_LN2 || epi 
 // Whether an epilogue writes a bf16 C (through shared memory and TMA).
 __host__ __device__ constexpr bool bf16_out(int epi) {
   return epi == F_NONE || epi == F_GELU || epi == F_RES || epi == B_BF16 ||
-         epi == B_GELU_GRAD || epi == Q_BF16 || epi == Q_RES_BF16 || ln_epi(epi);
+         epi == B_GELU_GRAD || epi == Q_BF16 || epi == Q_RES_BF16 || ln_epi(epi) ||
+         epi == F_LNA;
 }
 // ... a 4-byte C (fp32 or int32), in two halves of the tile.
 __host__ __device__ constexpr bool w32_out(int epi) { return epi == Q_S32 || epi == Q_RES_F32; }
@@ -274,6 +288,21 @@ __device__ unsigned long long gemm_profile[8];
   do {                   \
   } while (0)
 #endif
+
+// The j-th tile a CTA walks, or -1 past its last: tiles blockIdx.x +
+// j gridDim.x (N-tiles fastest, so the CTAs at work at once share A rows in
+// L2); for F_LNA an M-tile's N-tiles one after the other on one CTA, M-tiles
+// blockIdx.x + k gridDim.x (the LayerNorm's statistics are found once an
+// M-tile).
+template <int EPI>
+__device__ __forceinline__ int walk_tile(int j, int nt_n, int mt_n, int tiles) {
+  if constexpr (EPI == F_LNA) {
+    const int m = blockIdx.x + (j / nt_n) * gridDim.x;
+    return m < mt_n ? m * nt_n + j % nt_n : -1;
+  }
+  const int t = blockIdx.x + j * gridDim.x;
+  return t < tiles ? t : -1;
+}
 
 template <typename T>
 __device__ __forceinline__ Tile tile_at(int tile, const Walk& w) {
@@ -524,6 +553,48 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep
 #pragma unroll
       for (int i = 0; i < 6; ++i) colacc[2 + s_][i] += part[i];
     }
+  }
+}
+
+// F_LNA's prologue: the LayerNorm of the warpgroup's 64 rows of A (K = dim
+// 96 or 192, so the tile's K-steps, all landed, hold whole rows) in place in
+// the ring's stages, before any product reads them: two threads a row,
+// layer_norm_kernel's sums in their order (common.cuh ln_row_pair), gamma
+// and beta from the warpgroup's copies in sm.bias and sm.cs (by column
+// parity: the even columns' first). A CTA walks an M-tile's N-tiles one
+// after the other (f_lna_tile), so the first finds each row's (mean, rstd)
+// and keeps them in sm.rs; the others only normalise. The training form
+// keeps the statistics and the normalised rows (by TMA from the stages,
+// tm_h) from the first N-tile.
+template <int NCH>
+__device__ __forceinline__ void ln_prologue(Smem& sm, int it, int nst, const Epilogue& ep,
+                                            const CUtensorMap& tm_h, const Walk& w,
+                                            const Tile& tl, int c, int tid) {
+  const int rr = tid >> 1, r = 64 * c + rr, p = tid & 1, row = tl.m0 + r;
+  auto chunk = [&](int j) {
+    return reinterpret_cast<bf16*>(sm.a[(it + (j >> 3)) % nst]) + sw128(r, 8 * (j & 7));
+  };
+  float2 st;
+  if (tl.n0 == 0) {
+    st = ln_stats_pair<NCH>(chunk, p, ep.ln_eps);
+    if (p == 0) {
+      sm.rs[c][0][rr] = st.x;
+      sm.rs[c][1][rr] = st.y;
+    }
+  } else {  // sm.rs holds them since the M-tile's first N-tile (a barrier ago)
+    st = make_float2(sm.rs[c][0][rr], sm.rs[c][1][rr]);
+  }
+  ln_apply_pair<NCH>(chunk, p, sm.bias[c] + p * (4 * NCH), sm.cs[c] + p * (4 * NCH), st.x,
+                     st.y);
+  const bool keep = ep.ln_out != nullptr && tl.n0 == 0;
+  if (keep && p == 0 && row < w.M) *reinterpret_cast<float2*>(ep.ln_stats + 2LL * row) = st;
+  fence_async_smem();
+  bar_sync(WG_BAR + c, 128);
+  if (keep && tid == 0) {  // the rows out, then the stages may be released
+    for (int kt = 0; kt < tl.ksteps; ++kt)
+      tma_store_3d(tm_h, sm.a[(it + kt) % nst] + 64 * c * ROW_BYTES, 64 * kt, tl.m0 + 64 * c, 0);
+    bulk_commit();
+    bulk_wait_read<0>();
   }
 }
 
@@ -847,7 +918,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                       ~uintptr_t(1023));
-  const int tiles = cdiv(w.M, BM) * cdiv(w.N, BN) * w.splits;
+  const int nt_n = cdiv(w.N, BN), mt_n = cdiv(w.M, BM), tiles = nt_n * mt_n * w.splits;
   // the warpgroup, broadcast from lane 0 so that the compiler sees it
   // uniform: a branch it cannot prove uniform around wgmma serialises them
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
@@ -874,7 +945,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       long long prof_t = prof_t0;
 #endif
       int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int j = 0, tile; (tile = walk_tile<EPI>(j, nt_n, mt_n, tiles)) >= 0; ++j) {
         const Tile tl = tile_at<T>(tile, w);
         for (int kt = 0; kt < tl.ksteps; ++kt, ++it) {
           const int st = it % stages(EPI), use = it / stages(EPI);
@@ -903,6 +974,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   float colacc[4][6];  // the LayerNorm epilogues' column sums over the walk
 #pragma unroll
   for (int i = 0; i < 24; ++i) colacc[i / 6][i % 6] = 0.f;
+  if constexpr (EPI == F_LNA) {  // the LayerNorm's gamma and beta, once a warpgroup
+    for (int i = tid; i < w.K; i += 128) {
+      sm.bias[c][(i & 1) * (w.K / 2) + (i >> 1)] = ep.ln_gamma[i];
+      sm.cs[c][(i & 1) * (w.K / 2) + (i >> 1)] = ep.ln_beta[i];
+    }
+    bar_sync(WG_BAR + c, 128);
+  }
   // the chunked epilogues' tensor map, chunk width and chunks a tile
   const CUtensorMap& tm_ch = ln_epi(EPI) ? tm_f : tm_e;
   const int nch = ln_epi(EPI) ? cdiv(w.N, chunk_cols(EPI)) : BN / PRE_COLS;
@@ -912,7 +990,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   long long prof_t = prof_t0;
 #endif
   int it = 0;
-  for (int tile = blockIdx.x, n = 0; tile < tiles; tile += gridDim.x, ++n) {
+  for (int n = 0, tile; (tile = walk_tile<EPI>(n, nt_n, mt_n, tiles)) >= 0; ++n) {
     const Tile tl = tile_at<T>(tile, w);
     const bool live = tl.m0 + 64 * c < w.M;
     if (res_tile(EPI) && tid == 0) {  // this tile's residual block into sm.c, under its products
@@ -927,6 +1005,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (chunked(EPI) && tid == 0)  // the first two chunks, likewise
       for (int b = 0; b < 2 && b < nch; ++b)
         load_pre(sm, tm_ch, c, b, tl.n0 + chunk_cols(EPI) * b, tl.m0 + 64 * c);
+    if constexpr (EPI == F_LNA) {  // LN of the tile's A rows, once all its K-steps landed
+      for (int kt = 0; kt < tl.ksteps; ++kt)
+        mbar_wait(&sm.full[(it + kt) % stages(EPI)], ((it + kt) / stages(EPI)) & 1);
+      if (w.K == 96)
+        ln_prologue<12>(sm, it, stages(EPI), ep, tm_e, w, tl, c, tid);
+      else
+        ln_prologue<24>(sm, it, stages(EPI), ep, tm_e, w, tl, c, tid);
+#pragma unroll
+      for (int i = 0; i < 96; ++i) acc[i] = 0;  // dead under the LayerNorm: its registers
+    }
     int prev = 0;
     for (int kt = 0; kt < tl.ksteps; ++kt, ++it) {
       const int st = it % stages(EPI);
@@ -1078,6 +1166,7 @@ cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool sp
     if (e != cudaSuccess) return e;
     ready[dev] = true;
   }
+  if (EPI == F_LNA && K != 96 && K != 192) return cudaErrorInvalidValue;  // whole rows a tile
   Walk w{M, N, K, cdiv(K, BK<T>) * BK<T>, 1, IDENTITY, IDENTITY, IDENTITY};
   if (split) split_k(M, N, K, &w.splits, &w.k_chunk);
   CUtensorMap tm_a, tm_b, tm_c, tm_e, tm_f;
@@ -1099,6 +1188,9 @@ cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool sp
                      : plain_map(&tm_f, ep.lres, M, N, ep.ldr, 4);
     if (e != cudaSuccess) return e;
   }
+  if (EPI == F_LNA && ep.ln_out != nullptr &&  // the training form's normalised rows
+      (e = operand_map<bf16>(&tm_e, Operand{ep.ln_out, M, K, K}, 64, &unused)) != cudaSuccess)
+    return e;
   if (res_tile(EPI) && !ln_epi(EPI)) {  // the residual, read in [64][64] boxes through its row map
     const bool grouped = ep.r_gstride != ep.r_rpg && ep.r_rpg < M;
     const Operand r{ep.res, M, N, ep.ldr, grouped ? ep.r_rpg : 0, ep.r_gstride};
@@ -1110,8 +1202,9 @@ cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool sp
   if (EPI == Q_RES_BF16 && (e = plain_map(&tm_e, ep.resf, M, N, ep.ldr, 4)) != cudaSuccess)
     return e;
   const int tiles = cdiv(M, BM) * cdiv(N, BN) * w.splits;
-  gemm_kernel<T, TA, TB, EPI><<<ln_epi(EPI) ? ln_ctas(M) : std::min(tiles, sms[dev]), THREADS,
-                                smem, st>>>(tm_a, tm_b, tm_c, tm_e, tm_f, w, ep);
+  const int ctas = ln_epi(EPI) ? ln_ctas(M)
+                   : std::min(EPI == F_LNA ? cdiv(M, BM) : tiles, sms[dev]);  // walk_tile
+  gemm_kernel<T, TA, TB, EPI><<<ctas, THREADS, smem, st>>>(tm_a, tm_b, tm_c, tm_e, tm_f, w, ep);
   return cudaGetLastError();
 }
 

@@ -117,6 +117,12 @@ def library() -> ctypes.CDLL:
     lib.svt_block_gemm_ln.restype = I
     lib.svt_block_gemm_ln_workspace.argtypes = [I] * 2
     lib.svt_block_gemm_ln_workspace.restype = ctypes.c_longlong
+    lib.svt_block_fused_mlp.argtypes = [I, I, I]
+    lib.svt_block_fused_mlp.restype = I
+    lib.svt_block_mlp.argtypes = [P] * 12 + [I] * 3 + [F, I, P]
+    lib.svt_block_mlp.restype = I
+    lib.svt_block_ln_gemm.argtypes = [P] * 7 + [I] * 3 + [F, I, P]
+    lib.svt_block_ln_gemm.restype = I
     lib.svt_block_weight_grad.argtypes = [P] * 4 + [I] * 4 + [P]
     lib.svt_block_weight_grad.restype = I
     lib.svt_block_weight_grad_workspace.argtypes = [I] * 3

@@ -14,8 +14,14 @@ after it; the backward forms P from the kept LSE.
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/flash_attention.cu``) streams K
 and V through shared memory in tiles with an online softmax, so it takes any
 sequence length, bfloat16. Both directions take dh 64 and, without
-dropout, dh 32 (MS-SiT's heads). The plain versions take any dh. The
-backward at dh 32 up to 320 keys (``resident_bwd``: every MS-SiT fold) is
+dropout, dh 32 (MS-SiT's heads). The plain versions take any dh. At dh 32
+the forward runs on 32-column tiles (no zero columns); where queries = keys
+<= 320 and the sequence is not a whole number of 64-row tiles
+(``resident_fwd``: MS-SiT's axial folds of 20 and 80) a kernel of its own
+lays sequences side by side (``fwd_pack``), so that no query tile is
+mostly empty: each CTA loads a 64-row query tile and the keys its rows can
+see, under a block-diagonal mask.
+The backward at dh 32 up to 320 keys (``resident_bwd``: every MS-SiT fold) is
 one launch that keeps the whole sequence in shared memory, packing
 sequences of up to 32 rows into one tile (``resident_pack``); elsewhere it
 streams the queries past each 64-key block once (wgmma) and sums dq in a
@@ -61,6 +67,25 @@ def resident_bwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     dropout, as many queries as keys, at most ``RESIDENT_MAX_N``. Else the
     streamed kernels (a delta pass, the main pass, a dq pass)."""
     return dh == 32 and not dropout and nq == nk and nq <= RESIDENT_MAX_N
+
+
+def resident_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
+    """Whether the forward at these shapes runs its resident kernel
+    (``csrc/flash_attention.cu``: one 64-row query tile a CTA, the keys its
+    rows see in shared memory, sequences packed): the shapes of
+    ``resident_bwd`` whose sequence is not a whole number of 64-row tiles
+    (MS-SiT's axial folds of 20 and 80 rows). Else the streamed kernel (K
+    and V through a ring of 64- or 128-key tiles; 32-column tiles at dh
+    32)."""
+    return resident_bwd(nq, nk, dh, dropout) and nq % 64 != 0
+
+
+def fwd_pack(n: int) -> int:
+    """Sequences of n rows the resident forward lays side by side (a unit,
+    whose 64-row query tiles may cross sequences under a block-diagonal
+    mask): 64 // n where n <= 32 (one tile), else 320 // n (up to five
+    tiles; stage 1's axial fold: four of 80 rows in five full tiles)."""
+    return 64 // n if n <= 32 else RESIDENT_MAX_N // n
 
 
 def resident_pack(n: int) -> int:

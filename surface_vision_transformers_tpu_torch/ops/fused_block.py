@@ -22,7 +22,10 @@ of VMEM, while an SM has 227 KB of shared memory, so every intermediate
 through HBM, about ten times the bytes of the block's input and output. At
 SiT-tiny widths (192) the GEMMs sit below the card's operations-per-byte
 line, so those bytes bound them; at SiT-base widths (768) the operations
-do. Attention is the streamed kernel of ``csrc/flash_attention.cu`` (K and
+do. At dims 96 and 192 (``fuses_mlp``) the forward is four launches: LN1
+in the qkv product's prologue and the MLP half as one kernel
+(``csrc/fused_mlp.cu``), so h, h2 and f stay out of HBM when serving, with
+the same bits. Attention is the streamed kernel of ``csrc/flash_attention.cu`` (K and
 V through shared memory in 64- or 128-key tiles, any N), which never writes
 the score matrix. The CLS variant computes Q, attention and the MLP for the
 first ``rows`` (<= 8) rows of each sample only, reading them through a
@@ -100,15 +103,37 @@ def _attention(q, k, v, heads, dim_head, valid_len, dt, saved=None):
     return _merge_heads(o, dt)
 
 
-def _out_proj_mlp(x, attn, w_out, b_out, ln2_scale, ln2_bias,
-                  w_fc1, b_fc1, w_fc2, b_fc2, eps, dt, saved=None):
-    x1 = (x.float() + (_mm(attn, w_out) + b_out)).to(dt)
-    h2 = _layer_norm(x1, ln2_scale, ln2_bias, eps, saved, "stats2").to(dt)
+def mlp_reference(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
+                  ln_eps: float = 1e-5, saved: dict | None = None):
+    """Plain MLP half of the block (``block_mlp``): x1 (..., dim) -> x1 +
+    fc2(GELU(fc1(LN2(x1)))) in x1.dtype, rounded where the kernels round
+    (h2, f, the output). ``saved``, when a dict, receives h2, fpre, f and
+    stats2, as the training forward keeps them."""
+    dt = x1.dtype
+    h2 = _layer_norm(x1, ln2_scale, ln2_bias, ln_eps, saved, "stats2").to(dt)
     fpre = _mm(h2, w_fc1) + b_fc1
     f = F.gelu(fpre).to(dt)  # exact erf
     if saved is not None:
-        saved.update(attn=attn, x1=x1, h2=h2, fpre=fpre, f=f)
+        saved.update(h2=h2, fpre=fpre, f=f)
     return (x1.float() + (_mm(f, w_fc2) + b_fc2)).to(dt)
+
+
+def ln_gemm_reference(x, ln_scale, ln_bias, w, *, ln_eps: float = 1e-5):
+    """Plain ``block_ln_gemm`` (the qkv product with LN1 in its
+    prologue): -> (LN(x) @ w.T rounded to x.dtype, LN(x) rounded, the
+    (mean, rstd) of each row, float32 (..., 2))."""
+    sv = {}
+    h = _layer_norm(x, ln_scale, ln_bias, ln_eps, sv, "stats").to(x.dtype)
+    return _mm(h, w).to(x.dtype), h, sv["stats"]
+
+
+def _out_proj_mlp(x, attn, w_out, b_out, ln2_scale, ln2_bias,
+                  w_fc1, b_fc1, w_fc2, b_fc2, eps, dt, saved=None):
+    x1 = (x.float() + (_mm(attn, w_out) + b_out)).to(dt)
+    if saved is not None:
+        saved.update(attn=attn, x1=x1)
+    return mlp_reference(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2,
+                         ln_eps=eps, saved=saved)
 
 
 def fused_block_reference(
@@ -122,12 +147,11 @@ def fused_block_reference(
     it."""
     dt, hd = x.dtype, heads * dim_head
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps, saved, "stats1").to(dt)
-    qkv = _mm(h, w_qkv).to(dt)
+    qkv, h, stats1 = ln_gemm_reference(x, ln1_scale, ln1_bias, w_qkv, ln_eps=ln_eps)
     attn = _attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
                       heads, dim_head, vl, dt, saved)
     if saved is not None:
-        saved.update(h1=h, qkv=qkv)
+        saved.update(h1=h, qkv=qkv, stats1=stats1)
     return _out_proj_mlp(x, attn, w_out, b_out, ln2_scale, ln2_bias,
                          w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved)
 
@@ -261,14 +285,19 @@ def fused_block(
     lib = _native.library()
     B, N, dim = x.shape
     hd, mlp, M = heads * dim_head, w_fc1.shape[0], B * N
+    fused = fuses_mlp(dim, mlp)
     out = torch.empty_like(x)
-    ws = [x.new_empty((M, c)) for c in (dim, 3 * hd, hd, dim, mlp)]
+    unused = x.new_empty(8)  # h and f: never touched where the chain fuses the MLP
+    ws = [unused if fused else x.new_empty((M, dim)), x.new_empty((M, 3 * hd)),
+          x.new_empty((M, hd)), x.new_empty((M, dim)),
+          unused if fused else x.new_empty((M, mlp))]
     _native.check(lib.svt_fused_block(
         *[t.data_ptr() for t in (x, *params, out, *ws)],
         B, N, dim, heads, dim_head, mlp, vl, ln_eps, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     ))
     fused_block.launches += 1
+    _count_fused(fused)
     return out
 
 
@@ -359,6 +388,23 @@ def ln_in_epilogue(dim: int) -> bool:
     SiT-tiny). The CLS block's LN1, whose dh is two products, and wider
     blocks run the standalone LayerNorm backward."""
     return dim <= LN_EPILOGUE_MAX_DIM
+
+
+FUSED_MLP_DIMS = (96, 192)  # csrc/fused_mlp.cu: fc2's output is one wgmma of n = dim
+
+
+def fuses_mlp(dim: int, mlp: int, train: bool = False) -> bool:
+    """Whether a forward chain (``train``: the training forward) runs LN1 in
+    the qkv product's prologue and LN2 -> fc1 -> GELU -> fc2 (+ residual) as
+    one kernel (``csrc/fused_mlp.cu``; ``svt_block_fused_mlp``): four
+    launches, h, h2 and f kept out of device memory when serving. Serving at
+    dims 96 and 192 (MS-SiT's stages 0-1, SiT-tiny), the hidden width a
+    multiple of 128 up to 4 dim; the training forward, which writes h1, h2,
+    f and fpre all the same, at dim 96 only (at dim 192 the seven launches
+    measured faster, PERF.md). Elsewhere, and in the CLS block, the seven
+    launches."""
+    return ((dim == 96 or (dim == 192 and not train)) and mlp % 128 == 0
+            and 128 <= mlp <= 4 * dim)
 
 
 def block_bwd_dh_floats(B: int, N: int, dim: int, cls: bool) -> int:
@@ -574,6 +620,7 @@ def train_forward(x, *params, heads: int, dim_head: int,
             *ptrs, B, N, dim, heads, dim_head, mlp, vl, ln_eps,
             x.device.index, stream))
         fused_block.launches += 1
+        _count_fused(fuses_mlp(dim, mlp, train=True))
     return out, sv
 
 
@@ -816,6 +863,79 @@ def block_gemm_ln(a, w, x, stats, gamma, res):
         res.data_ptr(), out_f.data_ptr() if out_f is not None else None, out_b.data_ptr(),
         sums.data_ptr(), part.data_ptr(), M, dim, K, a.device.index, _stream(a)))
     return out_f, out_b, sums
+
+
+def _count_fused(fused: bool) -> None:
+    """A forward chain at a ``fuses_mlp`` width launched its LN1 + qkv
+    product and its fused MLP once each."""
+    if fused:
+        block_ln_gemm.launches += 1
+        block_mlp.launches += 1
+
+
+def block_mlp(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
+              ln_eps: float = 1e-5, train: bool = False):
+    """The forward chain's MLP half as one kernel (``fuses_mlp`` widths):
+    x1 (M, dim) bf16 -> x1 + fc2(GELU(fc1(LN2(x1)))), weights in the torch
+    Linear layout; with ``train``, -> (out, {h2, stats2, fpre, f}), what the
+    training chain keeps. CPU tensors run ``mlp_reference``. ``launches``
+    counts the kernel's launches, here and inside the forward chains."""
+    if _dispatch(x1) == "cpu":
+        sv = {} if train else None
+        out = mlp_reference(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2,
+                            ln_eps=ln_eps, saved=sv)
+        return (out, sv) if train else out
+    _check_gemm_operands(x1, w_fc1, w_fc2)
+    (M, dim), mlp = x1.shape, w_fc1.shape[0]
+    if tuple(w_fc1.shape) != (mlp, dim) or tuple(w_fc2.shape) != (dim, mlp):
+        raise ValueError("x1 (M, dim), w_fc1 (mlp, dim) and w_fc2 (dim, mlp) must agree")
+    if not fuses_mlp(dim, mlp, train):
+        raise ValueError(f"the fused MLP takes dim in {FUSED_MLP_DIMS} (its training form 96) "
+                         f"and mlp a multiple of 128 up to 4 dim, got dim {dim}, mlp {mlp}")
+    check_vectors({"ln2_scale": (ln2_scale, dim), "ln2_bias": (ln2_bias, dim),
+                   "b_fc1": (b_fc1, mlp), "b_fc2": (b_fc2, dim)})
+    f32 = dict(dtype=torch.float32, device=x1.device)
+    out = torch.empty_like(x1)
+    sv = ({"h2": torch.empty_like(x1), "stats2": torch.empty((M, 2), **f32),
+           "fpre": torch.empty((M, mlp), **f32), "f": x1.new_empty((M, mlp))}
+          if train else {})
+    ptrs = [t.data_ptr() for t in (x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, out)]
+    ptrs += [sv[k].data_ptr() if train else None for k in ("h2", "stats2", "fpre", "f")]
+    _native.check(_native.library().svt_block_mlp(
+        *ptrs, M, dim, mlp, ln_eps, x1.device.index, _stream(x1)))
+    block_mlp.launches += 1
+    return (out, sv) if train else out
+
+
+block_mlp.launches = 0
+
+
+def block_ln_gemm(x, ln_scale, ln_bias, w, *, ln_eps: float = 1e-5, train: bool = False):
+    """The forward chain's qkv product with LN1 in its prologue
+    (``fuses_mlp`` widths): x (M, dim) bf16, dim 96 or 192, w (N, dim) ->
+    LN(x) @ w.T bf16; with ``train``, -> (C, LN(x) bf16, (mean, rstd) per
+    row float32), what the training chain keeps. CPU tensors run
+    ``ln_gemm_reference``. ``launches`` counts the kernel's launches, here
+    and inside the forward chains."""
+    if _dispatch(x) == "cpu":
+        c, h, stats = ln_gemm_reference(x, ln_scale, ln_bias, w, ln_eps=ln_eps)
+        return (c, h, stats) if train else c
+    _check_gemm_operands(x, w)
+    (M, K), N = x.shape, w.shape[0]
+    if w.shape[1] != K or K not in FUSED_MLP_DIMS:
+        raise ValueError(f"x (M, K) and w (N, K) must agree, K in {FUSED_MLP_DIMS}")
+    check_vectors({"ln_scale": (ln_scale, K), "ln_bias": (ln_bias, K)})
+    c = x.new_empty((M, N))
+    h = torch.empty_like(x) if train else None
+    stats = torch.empty((M, 2), dtype=torch.float32, device=x.device) if train else None
+    _native.check(_native.library().svt_block_ln_gemm(
+        *[t.data_ptr() if t is not None else None for t in (x, ln_scale, ln_bias, w, c, h, stats)],
+        M, N, K, ln_eps, x.device.index, _stream(x)))
+    block_ln_gemm.launches += 1
+    return (c, h, stats) if train else c
+
+
+block_ln_gemm.launches = 0
 
 
 def weight_grad_reference(a, b):

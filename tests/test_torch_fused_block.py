@@ -302,6 +302,146 @@ def test_gemm_nn_reference_matches_jax(kind):
     _assert_close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype)
 
 
+# -- the fused forward chain's parts (dims 96 and 192: csrc/fused_mlp.cu, the
+# qkv product with LN1 in its prologue) --------------------------------------
+#
+# The JAX side is the JAX kernel's LayerNorm (jfb._layer_norm) and jnp.dot at
+# HIGHEST precision with the port's rounding points (bf16 after LN and GELU
+# in bf16) and exact-erf GELU; tolerances as the GEMMs' above.
+
+
+def _mlp_operands(seed, dim, dtype):
+    r = np.random.default_rng(seed)
+    mlp = 4 * dim
+    x = r.standard_normal((GEMM_M, dim)).astype(np.float32)
+    g = (1 + 0.1 * r.standard_normal(dim)).astype(np.float32)
+    b = (0.1 * r.standard_normal(dim)).astype(np.float32)
+    w1 = (r.uniform(-1, 1, (mlp, dim)) / np.sqrt(dim)).astype(np.float32)
+    b1 = (0.1 * r.standard_normal(mlp)).astype(np.float32)
+    w2 = (r.uniform(-1, 1, (dim, mlp)) / np.sqrt(mlp)).astype(np.float32)
+    b2 = (0.1 * r.standard_normal(dim)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    torch_args = [torch.from_numpy(t).to(tdt) if t.ndim == 2 else torch.from_numpy(t)
+                  for t in (x, g, b, w1, b1, w2, b2)]
+    jax_args = [_jnp(t, dtype) if t.ndim == 2 else jnp.asarray(t) for t in (x, g, b, w1, b1, w2, b2)]
+    return torch_args, jax_args
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", [96, 192])
+@pytest.mark.parametrize("part", ["mlp", "ln_gemm"])
+def test_fused_chain_parts_match_jax(part, dim, dtype):
+    """``mlp_reference`` (LN2 -> fc1 -> GELU -> fc2 + the residual, the
+    fused MLP kernel's plain version) and ``ln_gemm_reference`` (LN1 then
+    the qkv product, its LN statistics and rows) against the same function
+    built in JAX at the widths the fused chain takes."""
+    (x, g, b, w1, b1, w2, b2), (jx, jg, jb, jw1, jb1, jw2, jb2) = _mlp_operands(
+        15 + dim, dim, dtype)
+    jdt = jx.dtype
+    h = jfb._layer_norm(jx, jg, jb, eps=1e-5).astype(jdt)
+    if part == "ln_gemm":
+        got, got_h, stats = tfb.ln_gemm_reference(x, g, b, w1, ln_eps=1e-5)
+        want = _jax_dot(h, jw1.T).astype(jdt)
+        _assert_close(got_h.float().numpy(), np.asarray(h.astype(jnp.float32)), dtype)
+        xf = jx.astype(jnp.float32)
+        mu = xf.mean(-1, keepdims=True)
+        rstd = jax.lax.rsqrt(((xf - mu) ** 2).mean(-1, keepdims=True) + 1e-5)
+        _assert_close(stats.numpy(), np.concatenate([np.asarray(mu), np.asarray(rstd)], -1),
+                      "float32")
+    else:
+        fpre = _jax_dot(h, jw1.T) + jb1
+        f = jax.nn.gelu(fpre, approximate=False).astype(jdt)
+        want = (jx.astype(jnp.float32) + (_jax_dot(f, jw2.T) + jb2)).astype(jdt)
+        sv = {}
+        got = tfb.mlp_reference(x, g, b, w1, b1, w2, b2, ln_eps=1e-5, saved=sv)
+        assert set(sv) == {"h2", "stats2", "fpre", "f"}
+        _assert_close(sv["fpre"].numpy(), np.asarray(fpre), "float32")
+    assert got.dtype == getattr(torch, dtype)
+    _assert_close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_half_then_mlp_half_is_the_block(dtype):
+    """The plain attention half (LN1 + qkv, attention, out-projection with
+    the residual) composed with the plain MLP half equals
+    ``fused_block_reference`` bit for bit, with what each keeps for the
+    backward: the fused chain's two new kernels split the block there."""
+    shape = (2, 20, 20, 96, 3, 32, 384)
+    p, x = _params(16, shape), torch.from_numpy(_x(17, shape))
+    tdt = getattr(torch, dtype)
+    x = x.to(tdt)
+    (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1, w_fc2,
+     b_fc2) = args = _torch_args(p, tdt)
+    kw = dict(heads=3, dim_head=32, valid_len=17)
+    want_sv = {}
+    want = tfb.fused_block_reference(x, *args, saved=want_sv, **kw)
+    qkv, h1, stats1 = tfb.ln_gemm_reference(x, ln1_s, ln1_b, w_qkv)
+    attn = tfb._attention(qkv[..., :96], qkv[..., 96:192], qkv[..., 192:], 3, 32, 17, tdt)
+    x1 = (x.float() + (tfb._mm(attn, w_out) + b_out)).to(tdt)
+    sv = {}
+    got = tfb.mlp_reference(x1, ln2_s, ln2_b, w_fc1, b_fc1, w_fc2, b_fc2, saved=sv)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for name, t in dict(h1=h1, stats1=stats1, qkv=qkv, attn=attn, x1=x1, **sv).items():
+        torch.testing.assert_close(t, want_sv[name], atol=0, rtol=0)
+
+
+def test_fused_chain_wrappers_run_the_plain_versions_on_cpu(monkeypatch):
+    """``block_mlp`` and ``block_ln_gemm`` run their plain versions on CPU
+    tensors (serving and training forms), count no launch there, refuse
+    other devices, and on the CUDA route call the library with no fallback
+    (a library that cannot load raises) and refuse the MLP's training form
+    at dim 192, which the kernel is not built for."""
+    (x, g, b, w1, b1, w2, b2), _ = _mlp_operands(18, 96, "bfloat16")
+    before = tfb.block_mlp.launches, tfb.block_ln_gemm.launches
+    torch.testing.assert_close(tfb.block_mlp(x, g, b, w1, b1, w2, b2),
+                               tfb.mlp_reference(x, g, b, w1, b1, w2, b2), atol=0, rtol=0)
+    out, sv = tfb.block_mlp(x, g, b, w1, b1, w2, b2, train=True)
+    want_sv = {}
+    torch.testing.assert_close(out, tfb.mlp_reference(x, g, b, w1, b1, w2, b2, saved=want_sv),
+                               atol=0, rtol=0)
+    for k in want_sv:
+        torch.testing.assert_close(sv[k], want_sv[k], atol=0, rtol=0)
+    for got, want in zip(tfb.block_ln_gemm(x, g, b, w1[:288], train=True),
+                         tfb.ln_gemm_reference(x, g, b, w1[:288])):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert (tfb.block_mlp.launches, tfb.block_ln_gemm.launches) == before
+    meta = torch.empty(x.shape, dtype=x.dtype, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfb.block_mlp(meta, g, b, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfb.block_ln_gemm(meta, g, b, w1)
+
+    def no_library():
+        raise RuntimeError("no CUDA device")
+
+    monkeypatch.setattr(tfb, "_dispatch", lambda t: "cuda")
+    monkeypatch.setattr(tfb._native, "library", no_library)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfb.block_mlp(x, g, b, w1, b1, w2, b2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfb.block_ln_gemm(x, g, b, w1[:288])
+    with pytest.raises(ValueError, match="training form"):  # built at dim 96 only
+        wide = torch.zeros((8, 192), dtype=torch.bfloat16)
+        tfb.block_mlp(wide, torch.ones(192), torch.zeros(192), torch.zeros((768, 192)).bfloat16(),
+                      torch.zeros(768), torch.zeros((192, 768)).bfloat16(), torch.zeros(192),
+                      train=True)
+    assert (tfb.block_mlp.launches, tfb.block_ln_gemm.launches) == before
+
+
+@pytest.mark.parametrize("dim,mlp,fused,fused_train", [
+    (96, 384, True, True), (192, 768, True, False), (384, 1536, False, False),
+    (768, 3072, False, False), (64, 256, False, False), (96, 320, False, False),
+    (192, 1536, False, False)])
+def test_fused_mlp_route(dim, mlp, fused, fused_train):
+    """The shape rule of the fused forward chain (``fuses_mlp``, mirroring
+    ``csrc/fused_mlp.cu``'s ``fused_mlp_route``): serving at MS-SiT's stages
+    0-1 (dims 96, 192) and SiT-tiny (192) takes it, the training forward at
+    dim 96 only; stages 2-3 and SiT-small / -base widths keep the seven
+    launches, as do widths or hidden sizes the kernel is not built for."""
+    assert tfb.fuses_mlp(dim, mlp) is fused
+    assert tfb.fuses_mlp(dim, mlp, train=True) is fused_train
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_weight_grad_reference_matches_jax(dtype):
     """``weight_grad_reference`` (a^T b over the token rows, float32) against

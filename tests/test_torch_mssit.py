@@ -239,7 +239,8 @@ def _bound(want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,valid", [(20, 20), (64, 64), (64, 50)])
+@pytest.mark.parametrize("N,valid", [(20, 20), (64, 64), (64, 50), (80, 80), (80, 70),
+                                     (320, 300), (20, 15)])
 def test_attention_forward_dh32_matches_jax(dtype, N, valid):
     """The attention forward's plain version at dh 32 (the CPU side of the
     kernel's wrapper) against the JAX ``flash_attention`` in interpret
@@ -252,6 +253,25 @@ def test_attention_forward_dh32_matches_jax(dtype, N, valid):
     got, _ = tfa.flash_attention_fwd(*(torch.from_numpy(t).to(tdt) for t in (q, k, v)), valid)
     err = np.abs(got.float().numpy() - want).max()
     assert err <= _bound(want, dtype), err
+
+
+@pytest.mark.parametrize("nq,nk,dh,dropout,resident,pack", [
+    (64, 64, 32, False, False, 0), (320, 320, 32, False, False, 0), (80, 80, 32, False, True, 4),
+    (20, 20, 32, False, True, 3), (100, 100, 32, False, True, 3), (321, 321, 32, False, False, 0),
+    (8, 321, 32, False, False, 0), (320, 320, 64, False, False, 0),
+    (320, 320, 32, True, False, 0)])
+def test_attention_forward_route_and_pack(nq, nk, dh, dropout, resident, pack):
+    """The forward's route rule (``resident_fwd``, as ``csrc/flash_attention.cu``
+    takes it): the MS-SiT folds whose sequences are not whole 64-row tiles
+    (dh 32, queries = keys <= 320, no dropout: the axial folds of 20 and 80
+    rows) run the resident kernel; the folds of 64 and 320 rows, longer
+    sequences, the CLS block's 8 queries, dh 64 and dropout the streamed
+    kernel. Its units (``fwd_pack``): three sequences of 20 in one tile,
+    four of 80 or three of 100 across five tiles."""
+    assert tfa.resident_fwd(nq, nk, dh, dropout) is resident
+    if resident:
+        assert tfa.fwd_pack(nq) == pack
+        assert tfa.fwd_pack(nq) * nq <= 320
 
 
 @pytest.mark.parametrize("dh,taken", [(32, True), (64, True), (48, False)])
