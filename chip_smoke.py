@@ -33,14 +33,23 @@ and prints no result:
               SiT-tiny and SiT-small width, against the float32 and the
               bf16 plain backward on the same bf16 inputs, with controls
               (softmax scale x1.1, key mask ignored, LayerNorm-backward mean
-              term dropped) the same gate must reject; CUDA-event times
-              beside the eager bf16 block's autograd backward.
+              term dropped; for the CLS block also the top rows' dq W_q
+              share left out of dh, one key tile's dK and dV skipped, delta
+              taken as 0) the same gate must reject; the CLS backward's dh
+              and workspace floats from the C entries against the Python
+              rules (its device kernels a call: phase 29), at SiT-tiny its
+              bitwise repeat (a one-element control) and its run beside a
+              kernel holding all SMs but one, and the same gates and CLS
+              controls at N = 12 and N = 8 (under 16 rows a sample LN1
+              leaves dkv W_kv's epilogue); CUDA-event times beside the
+              eager bf16 block's autograd backward.
 7. train   -- ten SGD-momentum steps of ``Trainer`` (``fused_train_forward``
               on the kernels) at full depth, B=256 raw surfaces with a
               planted label, against the eager bf16 ``SiT`` under autograd
               from the same float32 masters and batches: per-step losses and
               every parameter's update must agree, the loss must fall, the
-              kernels launch 11 + 1 times per step each way, and a control
+              kernels launch 11 + 1 times per step each way (the CLS
+              backward's few-query attention once), and a control
               (one block's dW_fc1 zeroed) must fail the update gate;
               steps/s and training surfaces/s of both paths.
 8. train-entry -- ``python -m surface_vision_transformers_tpu_torch.cli.train``
@@ -57,9 +66,13 @@ table) at full depth and width:
 9. flash-kernels -- ``flash_attention`` forward and backward against the
               float32 and bf16 plain versions at B=16, 12 heads: N=1281,
               N=1288 with valid_len 1281, and 8 queries against 1281 keys;
-              then at the training path's B=128, N=1281 with q/k/v read
+              8 queries against 321 keys at B=256, 3 heads (SiT-tiny's CLS
+              block; the few-query backward's workspace, none, its time
+              beside SDPA's backward and the bound); then at the
+              training path's B=128, N=1281 with q/k/v read
               through the packed qkv's strides; controls (softmax scale
-              x1.1, key mask ignored, the last K/V tile skipped); the forward
+              x1.1, key mask ignored, the last K/V tile skipped, delta taken
+              as 0 at 8 queries); the forward
               alone at the edges of its tiling (one row short of and past a
               query tile, valid_len inside and on the edge of a key tile,
               the packed strides), a control beside each; CUDA-event times
@@ -69,7 +82,8 @@ table) at full depth and width:
               recompute route's 12 gradients at SiT-base width, N=1281 and
               the config's bs 128, against the float32 and bf16 plain
               versions (run 16 samples at a time), with phase 3's and 6's
-              controls; times at B=32 beside the eager bf16 block.
+              controls (the CLS block's three too, and its route); times at
+              B=32 beside the eager bf16 block.
 11. base-slice -- ``predict`` (80 surfaces, batch 64) against the eager bf16
               model with controls; surfaces/s at B=64 and B=128.
 12. base-train -- four SGD steps of ``Trainer`` at B=8 against the eager bf16
@@ -238,7 +252,14 @@ same width and depth, every block at dh 32:
               LayerNorm backward's mean term dropped); bitwise repeats of
               both, with an order control for the attention; times beside
               the bound, SDPA's backward, the eager block's autograd
-              backward and the chain's floor.
+              backward and the chain's floor; then, in a process of its own
+              (``scripts/bwd_chain_parts.py``: the profiler of a long run
+              drops launches), each part of the block backward alone at the
+              folds and SiT-tiny, and of the CLS block's at SiT-tiny,
+              SiT-small width and SiT-base, whose device kernels a call are
+              held to its route (one few-query attention launch, LN1 in the
+              epilogue up to dim 192), as are the 8-query attention
+              backward's alone (one launch).
 30. mssit-train -- ``mssit_scan_age.yml``: four SGD steps of ``Trainer``
               (``fused_mssit_train_forward``) at a batch of 8 against the
               eager bf16 MSSiT under autograd (losses 1e-3, every update
@@ -266,7 +287,8 @@ that summing the plain version's per-key-block dQ shares in the reverse
 order changes dq's bf16 bits at that shape, so a dQ sum taken out of order
 would not repeat either. Phase 9 then runs the backward while a kernel on
 another stream holds all multiprocessors but one: it must finish, equal
-to its run on the idle card, before that kernel ends.
+to its run on the idle card, before that kernel ends; so does the
+few-query backward at SiT-tiny's and SiT-base's CLS shapes.
 
 The eager baselines of phases 3-12 run plain attention (``attn_backend=
 "plain"``), as their gates were set on it.
@@ -346,6 +368,7 @@ SLICE_TOL = 0.03
 # Phase 6: each backward output within BWD_STEPS bf16 steps, at its largest
 # |float32 plain| value, of the float32 and of the bf16 plain backward.
 BWD_STEPS = 2
+CLS_SMALL_N = (12, 8)  # the CLS backward below 16 rows a sample: LN1 standalone
 WIDTHS = {"SiT-tiny": (192, 3, 768), "SiT-small": (384, 6, 1536)}
 G_SCALE = 0.01  # scale of the seeded cotangents (the gate is relative)
 GRAD_NAMES = ("dx", "d_ln1_scale", "d_ln1_bias", "d_w_qkv", "d_w_out", "d_b_out",
@@ -363,12 +386,17 @@ TRAIN_UPD_TOL = 0.05  # max |update difference| / max |eager update|, per tensor
 # Phases 9-13: SiT-base on the sub-ico-3 grid, the shipped config.
 BASE_CFG = ROOT / "configs/training/sit_base_subico3.yml"
 # flash_attention cases (B, H, Nq, Nk, valid_len): SiT-base's N, the JAX
-# package's padded N with its mask, the CLS block's 8 query rows, and last
-# the training path's own call (bs 128, q/k/v read through the packed qkv's
-# strides), on whose tensors the times are taken.
+# package's padded N with its mask, the CLS block's 8 query rows (the
+# few-query backward) at SiT-base and at SiT-tiny's training batch, and
+# last the training path's own call (bs 128, q/k/v read through the packed
+# qkv's strides), on whose tensors the times are taken.
 FLASH_MAIN = (128, 12, 1281, 1281, 1281)
+FEW_TINY = (256, 3, 8, 321, 321)  # the SiT-tiny CLS block's attention: its timed row
 FLASH_CASES = [(16, 12, 1281, 1281, 1281), (16, 12, 1288, 1288, 1281),
-               (16, 12, 8, 1281, 1281), FLASH_MAIN]
+               (16, 12, 8, 1281, 1281), FEW_TINY, FLASH_MAIN]
+# the few-query backward beside a kernel holding all SMs but one: SiT-tiny's
+# and SiT-base's CLS blocks (B, H, Nq, Nk)
+FEW_BUSY_SHAPES = [(256, 3, 8, 321), (32, 12, 8, 1281)]
 # The forward at the edges of its tiling (csrc/flash_attention.cu's rule:
 # query tiles of 192 rows past 512 keys where that grid fills the card
 # twice, else 64; key tiles of 128 past 512 keys, else 64), forward only,
@@ -808,6 +836,122 @@ def bwd_controls(fb, control) -> dict:
     }
 
 
+def cls_bwd_controls(fb, control, vl, heads) -> dict:
+    """The CLS backward gate's controls on what this chain does its own way:
+    the top rows' dq W_q share left out of dh (LN1's epilogue), the last 64
+    valid keys' dK and dV skipped (one key tile of the few-query attention;
+    the ragged last tile holds 1 key at N = 321 or 1281, too few for the
+    block's gate to see), delta = rowsum(dO . O) taken as 0."""
+    attn_bwd, plain_cls = fb._attention_bwd, fb._block_cls_bwd_plain
+    first = max(vl - 64, 0)
+
+    def no_dq_share(x, g, params, sv, *a):
+        p = list(params)
+        p[2] = params[2].clone()
+        p[2][:heads * DH] = 0.0  # W_q, read by the backward only for dq W_q
+        return plain_cls(x, g, p, sv, *a)
+
+    def tile_skipped(*a):
+        dq, dk, dv = (t.clone() for t in attn_bwd(*a))
+        dk[:, first:vl] = 0.0
+        dv[:, first:vl] = 0.0
+        return dq, dk, dv
+
+    return {
+        "dq W_q share left out of dh": control(_block_cls_bwd_plain=no_dq_share),
+        f"dK, dV of keys {first}..{vl - 1} skipped": control(_attention_bwd=tile_skipped),
+        "delta taken as 0": control(_attention_bwd=lambda q, k, v, o, *a: attn_bwd(
+            q, k, v, torch.zeros_like(o), *a)),
+    }
+
+
+def cls_route(name, fb, label, B, N, dim, heads, mlp) -> str:
+    """The CLS backward's dh scratch and workspace floats from the C entries
+    against the Python rules (no dh where ``cls_ln1_in_epilogue``: up to dim
+    192 at N >= 16); its device kernels a call are counted in phase 29
+    (``cls_kernels``, in a process of its own). -> a line for the phase."""
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    lib, rows = _native.library(), min(8, N)
+    fused = fb.cls_ln1_in_epilogue(N, rows, dim)
+    dhf = (lib.svt_block_bwd_dh_floats(B, N, dim, rows), fb.block_bwd_dh_floats(B, N, dim, rows))
+    ws = (lib.svt_block_bwd_workspace(B, N, rows, dim, heads, DH, mlp),
+          fb.block_bwd_workspace(B, N, rows, dim, heads, DH, mlp))
+    msg = (f"{label}: LN1 in dkv W_kv's epilogue {fused}; dh scratch {dhf[0]} floats from the "
+           f"C entry, {dhf[1]} by the rule (0 where LN1 is in the epilogue, else B N dim); "
+           f"workspace {ws[0]}, rule {ws[1]} (each pair equal)")
+    if (dhf[0] == 0) is not fused:
+        raise AssertionError(f"{name}: the CLS backward's dh scratch does not follow its route")
+    if dhf[0] != dhf[1] or ws[0] != ws[1]:
+        raise AssertionError(f"{name}: a C entry disagrees with its rule\n{msg}")
+    return msg
+
+
+def cls_kernels(kernels, N, dim) -> str:
+    """One ``fused_block_cls_bwd`` call's device kernels (``device_kernels``)
+    against its route: one attention launch, the few-query kernel; where
+    ``cls_ln1_in_epilogue`` LN1 in dkv W_kv's epilogue (one B_LN1_TOP
+    product) and no standalone LayerNorm pass. -> a summary; raises where
+    they disagree."""
+    from surface_vision_transformers_tpu_torch.ops.fused_block import cls_ln1_in_epilogue
+
+    attn = [k for k in kernels if "flash_bwd" in k]
+    few = sum("flash_bwd_few_kernel" in k for k in attn)
+    epis = [GEMM_EPIS[int(m[1])] for k in kernels
+            if (m := re.search(r"gemm_kernel<[^>]*?(\d+)>", k))]
+    ln_pass = sum("ln_bwd_kernel" in k for k in kernels)
+    msg = (f"{len(kernels)} device kernels a call, {len(attn)} attention launches ({few} of "
+           f"flash_bwd_few_kernel), {epis.count('B_LN1_TOP')} LN1 epilogue products, {ln_pass} "
+           f"standalone LayerNorm passes")
+    if len(attn) != 1 or few != 1:
+        raise AssertionError(f"the CLS backward's attention is not one few-query launch: {msg}")
+    if cls_ln1_in_epilogue(N, 8, dim) and (ln_pass or epis.count("B_LN1_TOP") != 1):
+        raise AssertionError(f"the CLS backward's LN1 is not in dkv W_kv's epilogue: {msg}")
+    return msg
+
+
+def cls_small_n(rng, fb, pb, pr, dim, heads, mlp) -> None:
+    """The CLS backward where a sample has under 16 rows (N = 12 and N = 8,
+    its 8 top rows; ``CLS_SMALL_N``): two rows 8 apart can then both be top
+    rows, so LN1 leaves dkv W_kv's epilogue for the standalone pass
+    (``cls_ln1_in_epilogue``), and at N = 8 the attention is not the
+    few-query kernel's. Held against the float32 and bf16 plain backwards
+    with the CLS controls."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(heads=heads, dim_head=DH)
+    for N in CLS_SMALL_N:
+        B, rows = 256, min(8, N)
+        x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        g = torch.from_numpy((G_SCALE * rng.standard_normal((B, rows, dim))).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        _, sv = fb.train_forward(x, *pb, valid_len=N, cls=True, **kw)
+        got = fb.fused_block_cls_bwd(x, g, *pb, saved=sv, valid_len=N, **kw)
+        ref32 = fb.fused_block_cls_bwd_reference(x.float(), g.float(), *pr, valid_len=N, **kw)
+        ref_bf = fb.fused_block_cls_bwd_reference(x, g, *pb, valid_len=N, **kw)
+        r32, err = grad_bound_ratio(got, ref32, N)
+        rbf, _ = grad_bound_ratio(got, ref_bf, N)
+        rplain, _ = grad_bound_ratio(ref_bf, ref32, N)
+
+        def control(vl_bwd=N, **patches):
+            return bwd_control(fb, x, g, pr, heads, N, True, got, vl_bwd, **patches)
+
+        controls = cls_bwd_controls(fb, control, N, heads)
+        label = f"fused_block_cls_bwd SiT-tiny B={B} N={N}"
+        phase("train-kernels", cls_route("train-kernels", fb, label, B, N, dim, heads, mlp))
+        phase("train-kernels", f"{label} (few-query attention "
+              f"{fa.few_query_bwd(rows, N, DH)}): worst |err|/bound over the 12 gradients vs "
+              f"fp32 plain {r32:.4g} (plain bf16 {rplain:.4g}), vs plain bf16 {rbf:.4g}; max "
+              f"abs err {err:.6g}; controls (must exceed 1): "
+              + ", ".join(f"{k} {v:.4g}" for k, v in controls.items()))
+        if not all(bool(torch.isfinite(t).all()) for t in got) or max(r32, rbf) > 1:
+            raise AssertionError(f"{label} disagrees with its plain backward")
+        if min(controls.values()) <= 1:
+            raise AssertionError(f"{label}: a control passed the gate")
+        del x, g, sv, got, ref32, ref_bf
+
+
 def phase_train_kernels(rng, fb, sit_module) -> dict:
     """Phase 6: each backward kernel at B=256 against the float32 and the
     bf16 plain backward on the same bf16 inputs, at SiT-tiny and SiT-small
@@ -847,6 +991,11 @@ def phase_train_kernels(rng, fb, sit_module) -> dict:
                     controls = bwd_controls(fb, control)
                 else:
                     controls = {"keys 321..327 unmasked in the backward": control(vl_bwd=N)}
+                if cls:
+                    controls.update(cls_bwd_controls(fb, control, vl, heads))
+                    phase("train-kernels", cls_route(
+                        "train-kernels", fb, f"{name} {width} B={B} N={N}", B, N, dim, heads,
+                        mlp))
                 phase("train-kernels", f"{name} {width} B={B} N={N} valid_len={vl}: "
                       f"worst |err|/bound over the 12 gradients vs fp32 plain {r32:.4g} "
                       f"(plain bf16 {rplain:.4g}), vs plain bf16 {rbf:.4g}, bound "
@@ -860,6 +1009,22 @@ def phase_train_kernels(rng, fb, sit_module) -> dict:
                     raise AssertionError("the training forward changed the forward's output")
                 if min(controls.values()) <= 1:
                     raise AssertionError(f"{name}: a control passed the gate")
+                if cls and N == N_TOKENS and width == "SiT-tiny":
+                    # the CLS chain (its GEMMs' persistent grids, the few-query
+                    # attention, the fixed-order sums) repeats bit for bit and
+                    # needs no two of its CTAs on the card together
+                    def call(gg=g):
+                        return kernel(x, gg, *pb, saved=sv, valid_len=vl, **kw)
+                    again, moved = call(), call(bump(g))
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    control = all(torch.equal(a, b) for a, b in zip(got, moved))
+                    phase("train-kernels", f"{name} {width} B={B} N={N}: two calls bitwise "
+                          f"identical {same} (must be True), control: one g element raised by "
+                          f"1, identical {control} (must be False)")
+                    if not same or control:
+                        raise AssertionError(f"{name}: the backward does not repeat bit for bit")
+                    busy_run("train-kernels", f"{name} {width} B={B} N={N}", call)
+                    del again, moved
                 if N == N_TOKENS:
                     k_ms = cuda_ms(lambda: kernel(x, g, *pb, saved=sv, valid_len=vl, **kw))
                     e_ms = eager_backward_ms(sit_module, p32, x, g, heads, dim, mlp, cls)
@@ -880,6 +1045,8 @@ def phase_train_kernels(rng, fb, sit_module) -> dict:
                             "library_ms": None}
                 del out, serving, sv, got, ref32, ref_bf
                 torch.cuda.empty_cache()
+        if width == "SiT-tiny":
+            cls_small_n(rng, fb, pb, pr, dim, heads, mlp)
     return results
 
 
@@ -992,6 +1159,7 @@ def phase_train(table) -> dict:
     want.update(fused_block=11 * TRAIN_STEPS, fused_block_cls=TRAIN_STEPS,
                 fused_block_bwd=11 * TRAIN_STEPS, fused_block_cls_bwd=TRAIN_STEPS,
                 patch_embed=TRAIN_STEPS)
+    want["flash_attention_bwd 8 queries"] = TRAIN_STEPS  # one in each CLS backward
     phase("train", f"{TRAIN_STEPS} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={TRAIN_B}: "
           f"launches {launches}, expected {want}")
     phase("train", "losses kernel path " + " ".join(f"{v:.6g}" for v in k_loss))
@@ -1069,9 +1237,15 @@ def phase_train_entry() -> None:
             raise AssertionError("cli.test disagrees with the best epoch's val MAE")
 
 
-GEMM_EPIS = ("F_NONE", "F_GELU", "F_RES", "B_PART", "B_F32", "B_BF16", "B_GELU_GRAD",
-             "B_ADD_F32", "B_LN2", "B_LN1", "F_LNA", "Q_S32", "Q_BF16", "Q_RES_F32", "Q_GELU_MAX",
-             "Q_GELU_Q8", "Q_RES_BF16")  # csrc/gemm.cuh's epilogues, in order
+def gemm_epis(root: Path) -> tuple:
+    """The epilogues of the checkout at ``root`` in their enum order (its
+    ``csrc/gemm.cuh``): how its gemm_kernel instantiations number them."""
+    src = (root / "surface_vision_transformers_tpu_torch/csrc/gemm.cuh").read_text()
+    body = re.search(r"enum Epi \{([^}]*)\}", src)[1]
+    return tuple(n.strip() for n in body.split(",") if n.strip())
+
+
+GEMM_EPIS = gemm_epis(ROOT)  # this tree's
 
 
 def ptxas_report(log_path: Path) -> str:
@@ -1092,6 +1266,7 @@ def ptxas_report(log_path: Path) -> str:
                     f"gemm<{'int8' if gemm[1] == 'a' else 'bf16'},{gemm[2]},{gemm[3]},"
                     f"{GEMM_EPIS[int(gemm[4])]}>" if gemm else next((
                         k for k in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_kernel",
+                                    "flash_bwd_few",
                                     "ln_bwd", "layer_norm", "reduce", "ln_quant",
                                     "quant_rows", "gelu_scan", "div_scan", "patch_embed")
                         if k in mangled), mangled[:40]))
@@ -1117,6 +1292,9 @@ def kernel_counters(fb) -> dict:
             "fused_block_recompute_bwd": fb.fused_block_recompute_bwd,
             "flash_attention": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
+            # the few-query kernel, counted where it is launched (alone and
+            # in the CLS block's backward chain)
+            "flash_attention_bwd 8 queries": fa.few_query_bwd,
             "flash_attention_qkv": fa.flash_attention_qkv_fwd,
             "flash_attention_qkv_bwd": fa.flash_attention_qkv_bwd,
             "flash_attention_qkv_dropout": fa.flash_attention_qkv_dropout_fwd,
@@ -1137,6 +1315,63 @@ def read_counts(counters) -> dict:
     return {k: c.launches for k, c in counters.items()}
 
 
+def device_kernels(call, sessions: int = 3) -> list:
+    """Names of the device kernels one call of ``call`` launches, in order
+    (torch.profiler, after a warm-up call): the longest list of ``sessions``
+    calls, one a session (a session may drop a launch, never add one)."""
+    from torch.autograd import DeviceType
+
+    call()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(sessions):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        seen.append([e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)])
+    return max(seen, key=len)
+
+
+def few_route(name, fa, label, B, H, nq, nk) -> None:
+    """The few-query backward's workspace from the C entry against the
+    Python rule (``few_query_bwd``, ``bwd_workspace_floats``): none. Its
+    launches a call are counted in phase 29 (in a process of its own)."""
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    ws = (_native.library().svt_flash_attention_bwd_workspace(B, H, nq, nk, DH),
+          fa.bwd_workspace_floats(B, H, nq, nk, DH))
+    phase(name, f"{label}: few-query route (few_query_bwd {fa.few_query_bwd(nq, nk, DH)}): "
+          f"workspace {ws[0]} floats from the C entry, {ws[1]} by the rule (must be 0 and 0)")
+    if ws != (0, 0):
+        raise AssertionError(f"{name}: the few-query backward asks for a workspace")
+
+
+def few_query_row(fa, q, k, v, o, lse, do, err) -> dict:
+    """The kernels line's row of the few-query attention backward at these
+    operands (the SiT-tiny CLS block's 8 query rows against 321 keys):
+    device time beside the plain version, SDPA's backward and the bound."""
+    B, H, nq, _ = q.shape
+    nk = k.shape[2]
+    ms = device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+    plain_ms = cuda_ms(lambda: [fa.flash_attention_bwd_reference(
+        q[s:s + 16], k[s:s + 16], v[s:s + 16], o[s:s + 16], lse[s:s + 16], do[s:s + 16])
+        for s in range(0, B, 16)], reps=3)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+    library = device_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do, retain_graph=True))
+    b_ms, b_by = attention_bound(B, H, nq, nk, (q, k, v, o, lse), (q, k, v, o, lse, do, q, k, v))[1]
+    phase("flash-kernels", f"flash_attention_bwd B={B} H={H} Nq={nq} Nk={nk} (the few-query "
+          f"kernel; device time, mean of 10 queued calls): kernel {ms:.4f} ms, SDPA backward "
+          f"{library:.4f} ms ({ms / library:.3f}x), plain {plain_ms:.4f} ms (slices of 16, CUDA "
+          f"events, median of 3); bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it)")
+    return {"name": "flash_attention_bwd 8 queries", "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": f"{FLASH_TPU}:233", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+
+
 def phase_flash(rng) -> dict:
     """Phase 9: flash_attention forward and backward against the float32
     and bf16 plain versions on the same bf16 inputs, with controls; then
@@ -1148,15 +1383,17 @@ def phase_flash(rng) -> dict:
         return torch.from_numpy((sc * rng.standard_normal(shape)).astype(np.float32)).to(
             "cuda", torch.bfloat16)
 
-    def outputs(q, k, v, do, vl, dtype=None):
+    def outputs(q, k, v, do, vl, dtype=None, zero_delta=False):
         """(o, dq, dk, dv) of the plain versions, in ``dtype`` (float32: the
         exact reference; None: the inputs' bf16), 16 samples at a time (the
-        plain versions hold float32 scores)."""
+        plain versions hold float32 scores); ``zero_delta``: the backward
+        with delta = rowsum(dO . O) taken as 0 (a control)."""
         parts = []
         for s in range(0, q.shape[0], 16):
             a = [x[s:s + 16].to(dtype) if dtype else x[s:s + 16] for x in (q, k, v, do)]
             o, lse = fa.flash_attention_reference(*a[:3], vl)
-            parts.append([o, *fa.flash_attention_bwd_reference(*a[:3], o, lse, a[3], vl)])
+            ob = torch.zeros_like(o) if zero_delta else o
+            parts.append([o, *fa.flash_attention_bwd_reference(*a[:3], ob, lse, a[3], vl)])
         return [torch.cat(p) for p in zip(*parts)]
 
     def ratio(got, want, ref32):
@@ -1197,6 +1434,10 @@ def phase_flash(rng) -> dict:
         else:
             controls["softmax scale x1.1"] = ratio(
                 got, outputs(q.float() * 1.1, k, v, do, vl, torch.float32), ref32)
+        few = fa.few_query_bwd(nq, nk, DH)
+        if few:
+            controls["delta taken as 0"] = ratio(
+                got, outputs(q, k, v, do, vl, torch.float32, zero_delta=True), ref32)
         main = (B, H, nq, nk, vl) == FLASH_MAIN
         phase("flash-kernels", f"B={B} H={H} Nq={nq} Nk={nk} valid_len={vl}"
               f"{' (packed q/k/v strides, the training path)' if main else ''}: worst "
@@ -1213,12 +1454,19 @@ def phase_flash(rng) -> dict:
                      lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, vl),
                      lambda: fa.flash_attention_bwd(q, k, v, o, lse, bump(do), vl),
                      lambda: order_control(q, k, v, o, lse, do, vl))
+        if few:
+            few_route("flash-kernels", fa, f"B={B} H={H} Nq={nq} Nk={nk} valid_len={vl}", B, H,
+                      nq, nk)
+        if (B, H, nq, nk, vl) == FEW_TINY:
+            few_row = few_query_row(fa, q, k, v, o, lse, do, max(errs[1:]))
         if main:
             abs_err = {"fwd": errs[0], "bwd": max(errs[1:])}
         del got, ref32
         torch.cuda.empty_cache()
 
     busy_card(fa)
+    for shape in FEW_BUSY_SHAPES:
+        busy_card(fa, shape)
     fwd_edges(fa)
 
     # times at the training path's shape, on the main case's tensors
@@ -1251,7 +1499,7 @@ def phase_flash(rng) -> dict:
           f"serving; device time, mean of 10 queued calls): kernel {serve[0]:.4f} ms, "
           f"SDPA {serve[1]:.4f} ms ({serve[0] / serve[1]:.3f}x), bound {serve[2]:.4f} ms "
           f"({serve[2] / serve[0]:.1%} of it)")
-    results = {}
+    results = {"flash_attention_bwd 8 queries": few_row}
     for key, name, line in (("fwd", "flash_attention", 265), ("bwd", "flash_attention_bwd", 233)):
         b_ms, b_by = bounds[key]
         phase("flash-kernels", f"{name} B={B} H={H} N={N}: kernel {ms[key]:.4f} ms, plain "
@@ -1362,22 +1610,30 @@ def hold_lib():
 
 def busy_card(fa, shape=BUSY_SHAPE, dh=DH, name="flash-kernels") -> None:
     """The attention backward while a kernel on another stream holds every
-    multiprocessor but one: the streamed kernel's key blocks wait only for
-    blocks of lower index, never for the whole (sample, head) to be on the
-    card, and the resident kernel's CTAs (dh 32) wait for none, so it must
-    finish on that one SM, equal bit for bit to its run on the idle card,
-    before the other kernel ends. Its inputs come from a generator of its
-    own, so the phases after it draw the data their gates were set on."""
+    multiprocessor but one (``busy_run``): the streamed kernel's key blocks
+    wait only for blocks of lower index, never for the whole (sample, head)
+    to be on the card, and the resident and few-query kernels' CTAs wait for
+    none, so it must finish on that one SM. ``shape``: (B, H, N), or (B, H,
+    Nq, Nk). Its inputs come from a generator of its own, so the phases
+    after it draw the data their gates were set on."""
+    B, H, nq, N = shape if len(shape) == 4 else (*shape, shape[-1])
+    rng = np.random.default_rng(SEED + 1)
+    q, k, v = bf16_randn(rng, (B, H, nq, dh), 1.5), bf16_randn(rng, (B, H, N, dh), 1.5), \
+        bf16_randn(rng, (B, H, N, dh))
+    do = bf16_randn(rng, (B, H, nq, dh))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    busy_run(name, f"B={B} H={H} Nq={nq} Nk={N} dh={dh} backward",
+             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+
+
+def busy_run(name, label, call) -> None:
+    """``call`` (a backward) while a kernel on another stream holds every
+    multiprocessor but one: it must finish on that one SM, equal bit for bit
+    to its run on the idle card, before the other kernel ends."""
     import ctypes
 
-    B, H, N = shape
-    rng = np.random.default_rng(SEED + 1)
-    q, k, v = bf16_randn(rng, (B, H, N, dh), 1.5), bf16_randn(rng, (B, H, N, dh), 1.5), \
-        bf16_randn(rng, (B, H, N, dh))
-    do = bf16_randn(rng, (B, H, N, dh))
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    idle = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    idle_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+    idle = call()
+    idle_ms = cuda_ms(call)
     lib = hold_lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     side = torch.cuda.Stream()
@@ -1395,18 +1651,17 @@ def busy_card(fa, shape=BUSY_SHAPE, dh=DH, name="flash-kernels") -> None:
         raise AssertionError(f"busy card: the holding kernel did not launch (CUDA error {err})")
     time.sleep(0.01)  # the holding kernel takes its SMs before the backward is issued
     ev[2].record()
-    busy = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    busy = call()
     ev[3].record()
     torch.cuda.synchronize()
     hold_ms, done_ms, bwd_ms = (ev[0].elapsed_time(ev[1]), ev[0].elapsed_time(ev[3]),
                                 ev[2].elapsed_time(ev[3]))
     same = all(torch.equal(a, b) for a, b in zip(idle, busy))
-    phase(name, f"busy card: B={B} H={H} N={N} dh={dh} backward while {sms - 1} of {sms} "
-          f"SMs are held for {HOLD_MS} ms by a kernel on another stream: done {done_ms:.2f} ms "
-          f"after that kernel's start, which ended at {hold_ms:.2f} ms (must be later); the "
-          f"backward took {bwd_ms:.3f} ms, {bwd_ms / idle_ms:.1f}x its {idle_ms:.4f} ms on "
-          f"the idle card (CUDA events); equal to the idle card's dq, dk, dv bit for bit "
-          f"{same} (must be True)")
+    phase(name, f"busy card: {label} while {sms - 1} of {sms} SMs are held for {HOLD_MS} ms "
+          f"by a kernel on another stream: done {done_ms:.2f} ms after that kernel's start, "
+          f"which ended at {hold_ms:.2f} ms (must be later); the backward took {bwd_ms:.3f} "
+          f"ms, {bwd_ms / idle_ms:.1f}x its {idle_ms:.4f} ms on the idle card (CUDA events); "
+          f"equal to the idle card's outputs bit for bit {same} (must be True)")
     if not same:
         raise AssertionError("busy card: the backward's outputs differ from the idle card's")
     if done_ms >= hold_ms:
@@ -1472,8 +1727,14 @@ def phase_base_kernels(rng, fb, sit_module, m, bs) -> dict:
         ref32 = sliced(lambda xs, gs: plain(xs.float(), gs.float(), *pr, **kw), x, g)
         r32, err = grad_bound_ratio(got, ref32, N)
         rbf, _ = grad_bound_ratio(got, sliced(lambda xs, gs: plain(xs, gs, *pb, **kw), x, g), N)
-        controls = bwd_controls(fb, lambda **patches: bwd_control(
-            fb, x, g, pr, heads, N, cls, got, N, chunk=16, **patches))
+        def control(vl_bwd=N, **patches):
+            return bwd_control(fb, x, g, pr, heads, N, cls, got, vl_bwd, chunk=16, **patches)
+
+        controls = bwd_controls(fb, control)
+        if cls:
+            controls.update(cls_bwd_controls(fb, control, N, heads))
+            phase("base-kernels", cls_route(
+                "base-kernels", fb, f"{name} SiT-base B={B} N={N}", B, N, dim, heads, mlp))
         phase("base-kernels", f"{name} SiT-base B={B} N={N}: worst |err|/bound over the 12 "
               f"gradients vs fp32 plain {r32:.4g}, vs plain bf16 {rbf:.4g}; max abs err "
               f"{err:.6g}; controls (must exceed 1): "
@@ -1656,6 +1917,7 @@ def phase_base_train(fb, exp, table) -> dict:
     per_step.update(fused_block=blocks, fused_block_cls=1, fused_block_cls_bwd=1,
                     fused_block_recompute_bwd=blocks, flash_attention=blocks,
                     flash_attention_bwd=blocks, patch_embed=1)
+    per_step["flash_attention_bwd 8 queries"] = 1  # the CLS backward's
     want = {k: v * steps for k, v in per_step.items()}
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_loss, e_loss))
     phase("base-train", f"{steps} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={B}: "
@@ -4356,18 +4618,22 @@ def mssit_qkv_plain(fa, qkv, do, heads, vl, dtype=None, scale=1.0):
 
 # The block backward's launches as torch.profiler names them -> a part's name.
 _PART_KINDS = (("gemm_kernel", None), ("reduce_kernel", "reduce"),
-               ("reduce_chunks_kernel", "reduce"), ("ln_bwd_kernel", "LN bwd"),
+               ("reduce_chunks_kernel", "reduce"), ("reduce_sums_kernel", "reduce"),
+               ("ln_bwd_kernel", "LN bwd"),
                ("flash_bwd_resident", "attention bwd (resident)"),
+               ("flash_bwd_few", "attention bwd (few queries)"),
                ("flash_bwd_delta", "attention delta"), ("flash_bwd_dq", "attention dq pass"),
                ("flash_bwd_kernel", "attention main pass"))
 # the dX products by epilogue, and the weight gradients in chain order
 _DX_NAMES = {"B_GELU_GRAD": "df1 = g W_fc2 * GELU'", "B_F32": "dh (fp32)",
              "B_BF16": "da = dx1 W_out", "B_LN2": "dh = df1 W_fc1 + LN2 bwd (epilogue)",
-             "B_LN1": "dh = dqkv W_qkv + LN1 bwd (epilogue)", "B_ADD_F32": "dh += dq W_q"}
+             "B_LN1": "dh = dqkv W_qkv + LN1 bwd (epilogue)", "B_ADD_F32": "dh += dq W_q",
+             "B_LN1_TOP": "dh = dkv W_kv + dq W_q + LN1 bwd (epilogue)"}
 _DW_NAMES = ("dW_fc2", "dW_fc1", "dW_out", "dW_qkv")
+CLS_DW_NAMES = ("dW_fc2", "dW_fc1", "dW_out", "dW_q", "dW_kv")  # the CLS chain's
 
 
-def chain_parts(call, reps: int = 3) -> list:
+def chain_parts(call, reps: int = 3, dw_names=_DW_NAMES, epis=GEMM_EPIS) -> list:
     """torch.profiler over ``reps`` calls of ``call`` (one block backward),
     one call a profiler session, after a warm-up call and a session that
     takes whatever an earlier session left: each part's device time in
@@ -4375,8 +4641,10 @@ def chain_parts(call, reps: int = 3) -> list:
     [(part, ms)], or [] when no two did. A part is one launch of the
     chain's kernels from its first weight gradient on (other device work
     is left out), or a run of reduce launches (the sums after one product);
-    parts are named by kernel and epilogue (GEMM_EPIS), the weight
-    gradients (B_PART) in chain order."""
+    parts are named by kernel and epilogue (``epis``: this tree's GEMM_EPIS,
+    or ``gemm_epis`` of the checkout whose kernels run), the weight
+    gradients (B_PART) in chain order (``dw_names``: CLS_DW_NAMES for
+    ``fused_block_cls_bwd``)."""
     from torch.autograd import DeviceType
 
     def session(fn):
@@ -4389,7 +4657,7 @@ def chain_parts(call, reps: int = 3) -> list:
                     key=lambda e: e.time_range.start)
         first = next((i for i, e in enumerate(ev) if "gemm_kernel" in e.name
                       and re.search(r"gemm_kernel<[^>]*?(\d+)>", e.name)[1]
-                      == str(GEMM_EPIS.index("B_PART"))), len(ev))
+                      == str(epis.index("B_PART"))), len(ev))
         return [(e.name, e.time_range.elapsed_us() / 1e3) for e in ev[first:]]
 
     call()
@@ -4405,9 +4673,10 @@ def chain_parts(call, reps: int = 3) -> list:
     for i, name in enumerate(common):
         label = next((lab for key, lab in _PART_KINDS if key in name), name[:40])
         if label is None:  # a GEMM: its epilogue from the template's last argument
-            epi = GEMM_EPIS[int(re.search(r"gemm_kernel<[^>]*?(\d+)>", name)[1])]
+            epi = epis[int(re.search(r"gemm_kernel<[^>]*?(\d+)>", name)[1])]
             if epi == "B_PART":
-                label, dw = f"{_DW_NAMES[min(dw, 3)]} (split-K)", dw + 1
+                label = f"{dw_names[min(dw, len(dw_names) - 1)]} (split-K)"
+                dw += 1
             else:
                 label = _DX_NAMES.get(epi, epi)
         ms = sum(r[i][1] for r in runs) / len(runs)
@@ -4476,6 +4745,125 @@ def part_floors(parts, B, N, dim, heads, mlp, dh=DH) -> list:
             nb = None
         out.append(None if nb is None else nb / PEAK_BYTES * 1e3)
     return out
+
+
+def _cls_sizes(B, N, dim, heads, mlp, rows=8):
+    """Bytes of the CLS backward's tensors: every row's (x, kv, x's fp32
+    width, LN stats) and the B * rows top rows' (x, hidden, attention width,
+    LN stats, lse)."""
+    M, Mt, hd = B * N, B * rows, heads * DH
+    return dict(x=M * dim * 2, kv=M * 2 * hd * 2, xf=M * dim * 4, st=M * 8, xt=Mt * dim * 2,
+                ht=Mt * mlp * 2, at=Mt * hd * 2, stt=Mt * 8, lse=B * heads * rows * 4)
+
+
+def cls_part_floors(parts, B, N, dim, heads, mlp, rows=8) -> list:
+    """``part_floors`` for the parts of ``fused_block_cls_bwd`` (``chain_parts``
+    with ``CLS_DW_NAMES``): the MLP branch, dW_out, da and dW_q over the B *
+    rows top rows, the attention over rows queries and N keys, dW_kv and
+    LN1 over every row. An fp32 dh B_F32 writes is LN2's (past dim 192, the
+    top rows), the top rows' dq W_q share (before the product that adds it:
+    the LN1 epilogue B_LN1_TOP, or past dim 192 dkv W_kv's B_F32) or dkv
+    W_kv's over every row (which, in the earlier chain, dh += dq W_q then
+    read and wrote on the top rows); None for the streamed attention's main
+    and dq passes."""
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+
+    s = _cls_sizes(B, N, dim, heads, mlp, rows)
+    M, Mt, hd, f4 = B * N, B * rows, heads * DH, 4
+    xt, ht, at = s["xt"], s["ht"], s["at"]
+    ln_rows = min(-(-M // 128), 132)
+    ln_ctas = min(fb._cdiv(fb._cdiv(M, 2), fb._LNB_WARPS), fb._LNB_CTAS)
+    ln_ctas_t = min(fb._cdiv(fb._cdiv(Mt, 2), fb._LNB_WARPS), fb._LNB_CTAS)
+    dw = {"dW_fc2": (xt, ht, dim, mlp, Mt), "dW_fc1": (ht, xt, mlp, dim, Mt),
+          "dW_out": (xt, at, dim, hd, Mt), "dW_q": (at, xt, hd, dim, Mt),
+          "dW_kv": (s["kv"], s["x"], 2 * hd, dim, M)}
+    labels = [label.split(" x")[0] for label, _ in parts]
+    out, last, sums, f32_seen, ln_seen = [], 0, 0, 0, 0
+    for i, base in enumerate(labels):
+        name = base.split(" (")[0]
+        nxt = labels[i + 1] if i + 1 < len(labels) else ""
+        prev = labels[i - 1] if i else ""
+        if name in dw:
+            a, b, mo, no, k = dw[name]
+            last = fb._split_k(mo, no, k) * mo * no * f4
+            nb = a + b + last
+        elif base.startswith("reduce after dW"):
+            a, b, mo, no, k = dw[base.split("after ")[1]]
+            nb = last + mo * no * f4
+        elif base.startswith("df1"):
+            last = -(-Mt // 128) * mlp * f4
+            nb = xt + 2 * ht + ht + last
+        elif base.startswith("reduce after df1"):
+            nb = last + mlp * f4
+        elif base.startswith("dh = df1"):  # LN2 in the epilogue: df1, x1, stats, g -> dx1 fp32, bf16
+            last, sums = min(-(-Mt // 128), 132) * 4 * dim * f4, 4 * dim * f4
+            nb = ht + xt + s["stt"] + xt + 2 * xt + xt + last
+        elif base.startswith("dh = dkv"):  # B_LN1_TOP: dkv, x, stats, dq W_q, dx1 -> dx
+            last, sums = ln_rows * 2 * dim * f4, 2 * dim * f4
+            nb = s["kv"] + s["x"] + s["st"] + 2 * xt + 2 * xt + s["x"] + last
+        elif base.startswith("reduce after dh = ") or base == "reduce after LN bwd":
+            nb = last + sums
+        elif base == "dh (fp32)":
+            f32_seen += 1
+            if nxt.startswith("dh = dkv") or nxt == "dh (fp32)":  # the top rows' dq W_q share
+                nb = at + 2 * xt
+            elif f32_seen == 1 and dim > fb.LN_EPILOGUE_MAX_DIM:  # LN2's dh
+                nb = ht + 2 * xt
+            else:  # dkv W_kv over every row, plus the share where one was made before it
+                nb = s["kv"] + s["xf"] + (2 * xt if prev == "dh (fp32)" else 0)
+        elif base == "dh += dq W_q":
+            nb = at + 2 * 2 * xt
+        elif base == "LN bwd":  # LN2 (past dim 192) on the top rows, then LN1 on every row
+            ln_seen += 1
+            if ln_seen == 1 and dim > fb.LN_EPILOGUE_MAX_DIM:
+                last, sums = ln_ctas_t * 4 * dim * f4, 4 * dim * f4
+                nb = 2 * xt + xt + s["stt"] + xt + 2 * xt + xt + last
+            else:
+                last, sums = ln_ctas * 2 * dim * f4, 2 * dim * f4
+                nb = s["xf"] + s["x"] + s["st"] + 2 * xt + s["x"] + last
+        elif base.startswith("da ="):
+            nb = xt + at
+        elif base == "attention bwd (few queries)":  # q, o, dO, lse, k, v -> dq, dk, dv
+            nb = 4 * at + s["lse"] + 2 * s["kv"]
+        elif base == "attention delta":
+            nb = 2 * at + s["lse"]
+        else:
+            nb = None
+        out.append(None if nb is None else nb / PEAK_BYTES * 1e3)
+    return out
+
+
+def cls_chain_bytes(B, N, dim, heads, mlp, rows=8, ln1_epilogue=None) -> int:
+    """HBM bytes of ``fused_block_cls_bwd``'s chain (each launch's inputs read
+    and outputs written once, the weights, split-K partials, column sums and
+    the streamed attention's fp32 dQ sums aside), as ``chain_bytes`` counts
+    the full block's: the MLP branch on the top rows (LN2 in dh's epilogue
+    up to dim 192), dW_out, da, the attention backward (q, o, dO, k, v in;
+    dq, dk, dv out), dW_q, dW_kv, then LN1. Where ``ln1_epilogue`` (default:
+    ``cls_ln1_in_epilogue(N, rows, dim)``, this tree's rule) LN1 runs in dkv W_kv's
+    epilogue beside the top rows' fp32 dq W_q share; else dh is written in
+    fp32 over every row, the top rows' share added into it, and read back
+    by the standalone pass (past dim 192, and the design before at 192)."""
+    from surface_vision_transformers_tpu_torch.ops.fused_block import (
+        cls_ln1_in_epilogue,
+        ln_in_epilogue,
+    )
+
+    s = _cls_sizes(B, N, dim, heads, mlp, rows)
+    x, kv, xt, ht, at = s["x"], s["kv"], s["xt"], s["ht"], s["at"]
+    mlp_b = (xt + ht) + (xt + 2 * ht + ht) + (ht + xt)  # dW_fc2, df1, dW_fc1
+    if ln_in_epilogue(dim):
+        mlp_b += ht + xt + s["stt"] + xt + 2 * xt + xt  # dh with LN2 -> dx1 fp32 and bf16
+    else:
+        mlp_b += (ht + 2 * xt) + (2 * xt + xt + s["stt"] + xt + 2 * xt + xt)
+    rest = (xt + at) + (xt + at) + (4 * at + s["lse"] + 2 * kv) + (at + xt) + (kv + x)
+    if ln1_epilogue is None:
+        ln1_epilogue = cls_ln1_in_epilogue(N, rows, dim)
+    if ln1_epilogue:
+        ln1 = (at + 2 * xt) + (kv + x + s["st"] + 2 * xt + 2 * xt + x)
+    else:
+        ln1 = (kv + s["xf"]) + (at + 4 * xt) + (s["xf"] + x + s["st"] + 2 * xt + x)
+    return mlp_b + rest + ln1
 
 
 def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
@@ -4620,8 +5008,8 @@ def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
         floor_ms = bwd_b / PEAK_BYTES * 1e3
         ws = (lib.svt_block_bwd_workspace(Bf, N, N, dim, heads, dh, mlp),
               fb.block_bwd_workspace(Bf, N, N, dim, heads, dh, mlp))
-        dhf = ([lib.svt_block_bwd_dh_floats(Bf, N, dim, c) for c in (0, 1)],
-               [fb.block_bwd_dh_floats(Bf, N, dim, bool(c)) for c in (0, 1)])
+        dhf = ([lib.svt_block_bwd_dh_floats(Bf, N, dim, c) for c in (0, 8)],
+               [fb.block_bwd_dh_floats(Bf, N, dim, c) for c in (0, 8)])
         msg += (f"; training forward {f_ms:.4f} ms, backward kernel {k_ms:.4f} ms, eager bf16 "
                 f"block autograd backward {e_ms:.4f} ms (CUDA-event medians of 10 / 10 / 5); "
                 f"bound {b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%}; {flops / 1e9:.1f} GFLOP), "
@@ -4663,7 +5051,7 @@ def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
         raise AssertionError(f"{name}: scripts/bwd_chain_parts.py failed after:\n"
                              f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
     for line in res.stdout.strip().splitlines()[1:]:
-        phase(name, f"parts of fused_block_bwd at {line}")
+        phase(name, f"bwd_chain_parts.py: {line}")
     return rows
 
 # Phases 30-31 compare the training paths at a cut batch (the eager model's
@@ -5171,6 +5559,7 @@ def main() -> None:
     launches, fused_step_s = phase_train(table)
     for name in ("fused_block_bwd", "fused_block_cls_bwd"):
         kernels[name]["launches"] = launches[name]
+    few_launches = launches["flash_attention_bwd 8 queries"]  # its row comes in phase 9
     torch.cuda.empty_cache()
 
     # -- 8. train-entry
@@ -5180,6 +5569,7 @@ def main() -> None:
     # -- 9. flash-kernels
     start("flash-kernels")
     kernels.update(phase_flash(rng))
+    kernels["flash_attention_bwd 8 queries"]["launches"] = few_launches
 
     # -- 10. base-kernels
     start("base-kernels")

@@ -89,7 +89,8 @@ def main() -> None:
         so = Path(tmp) / "libblock_other.so"
         subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(so),
                         *(str(other_csrc / f) for f in ("fused_block.cu", "fused_block_bwd.cu",
-                                                        "flash_attention.cu"))],
+                                                        "flash_attention.cu", "fused_mlp.cu")
+                          if (other_csrc / f).exists())],
                        check=True, capture_output=True, timeout=900)
         other_lib = declare(ctypes.CDLL(str(so)), this_lib)
     libs = {"other": other_lib, "this": this_lib}

@@ -95,10 +95,12 @@ def main() -> None:
         so = Path(tmp) / "libbwd_other.so"
         subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(so),
                         *(str(other_csrc / f) for f in ("fused_block.cu", "fused_block_bwd.cu",
-                                                        "flash_attention.cu"))],
+                                                        "flash_attention.cu", "fused_mlp.cu")
+                          if (other_csrc / f).exists())],
                        check=True, capture_output=True, timeout=900)
         other_lib = Other(ctypes.CDLL(str(so)), this_lib)
     libs = {"other": other_lib, "this": this_lib}
+    epis = {"other": cs.gemm_epis(Path(sys.argv[1]).resolve()), "this": cs.gemm_epis(ROOT)}
 
     def run(name, fn):
         _native.library = lambda: libs[name]
@@ -163,7 +165,7 @@ def main() -> None:
               f"other {floors['other']:.4f} ms; max |this - other| / max |other|: dx "
               f"{diffs[0]:.3g}, worst parameter gradient {max(diffs[1:]):.3g}", flush=True)
         for n in ("other", "this"):
-            parts = run(n, lambda: cs.chain_parts(call))
+            parts = run(n, lambda: cs.chain_parts(call, epis=epis[n]))
             fl = cs.part_floors(parts, Bf, N, dim, heads, mlp, dh)
             print(f"{label} {n} parts (ms, byte floor): " + "; ".join(
                 f"{p} {m:.4f}" + ("" if f is None else f" ({f:.4f})")

@@ -123,13 +123,6 @@ __device__ __forceinline__ float gelu_erf_grad(float v) {
          v * 0.39894228040143268f * __expf(-0.5f * v * v);
 }
 
-// Logical row r of a strided row set -> physical row:
-// (r / rpg) * gstride + r % rpg. Identity when rpg == M, gstride == 0; the
-// first `rows` rows of each N-row sample when rpg == rows, gstride == N.
-__device__ __forceinline__ long long map_row(int r, int rpg, int gstride) {
-  return (long long)(r / rpg) * gstride + (r % rpg);
-}
-
 // Philox4x32-10 (Salmon et al., SC'11): four 32-bit words from a 128-bit
 // counter {c0, c1, 0, 0} and a 64-bit key {k0, k1}. The port's plain torch
 // copy is ops/flash_attention.py::philox4x32.
@@ -271,6 +264,13 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap& m, const void* s
           reinterpret_cast<uint64_t>(&m)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+// `bytes` (a multiple of 16) of shared memory out to global memory by the
+// copy engine, in the thread's bulk group (both addresses on 16 bytes).
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
+               "r"(smem_u32(smem)), "r"(bytes)
+               : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -632,6 +632,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
                ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
                : SVT_WG_D16
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// The n8 form (the few-query attention backward, flash_attention.cu: the
+// queries on the short side): d (64 x 8) (+)= A (64 x 16) B (16 x 8), both
+// from shared memory; thread (warp w, lane 4 g + t) holds d[e] = (row 16 w
+// + g + 8 (e >> 1), col 2 t + (e & 1)), the layout of an mma.sync m16n8
+// accumulator, so two of them make the A fragment of an m64k16 product.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, "
+               "p, 1, 1, %7, %8;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // -- attention, head dim 64 (forward and backward)

@@ -55,6 +55,14 @@
 // block sums 80 KB, a 64 x 64 staging tile a warpgroup for P~ and then dS).
 // PERF.md has its times against the streamed kernel's and SDPA's.
 //
+// Backward at head dim 64 for at most 8 queries against more keys, without
+// dropout (the CLS block's 8 query rows; few_query_bwd), one launch:
+// flash_bwd_few_kernel, one CTA a (sample, head), K and V streamed by
+// cp.async in 64-key tiles, every product with the queries on its short
+// side (m64n8 wgmma for S^T, dP^T and dQ^T; dV and dK from P^T and dS^T in
+// registers), dQ summed in registers over the key tiles in order: no
+// workspace, no delta or dq pass (below, at the kernel).
+//
 // Backward elsewhere (dh 64, dropout, past 320 keys), three launches:
 //   delta    delta = rowsum(dO . O), eight threads a row, 16-byte loads.
 //   main     one CTA per (64 keys, head, sample): a warpgroup that computes
@@ -1271,6 +1279,225 @@ cudaError_t launch_resident(const Strided& q, const Strided& k, const Strided& v
   return cudaGetLastError();
 }
 
+// -- backward, few queries (nq <= 8 < nk, head dim 64, no dropout) ------------
+//
+// The CLS block's 8 query rows against all N keys (few_query_bwd). One CTA,
+// one warpgroup, per (head, sample): its Q and dO rows land once, zero-padded
+// to 16 rows; it forms delta = rowsum(dO . O) and lse log2(e) for its rows
+// itself; K and V stream in 64-key tiles through a ring of FEW_STAGES by
+// cp.async. The queries are the short side of every product:
+//   S^T = K Q^T, dP^T = V dO^T    m64n8 (keys M, queries N)
+//   P^T, dS^T                      in the accumulators' registers
+//   dV = P^T dO, dK = dS^T Q       m64n64k16, A from those registers (the n8
+//                                  accumulator is the m16k8 half of an A
+//                                  fragment; queries 8-15 are zero)
+//   dQ^T += K^T dS^T               m64n8 (dh M, queries N), K read MN-major,
+//                                  dS^T through shared memory as [query][key]
+// Each key tile's dK and dV come from its own products alone and leave as
+// they are made, through the ring stage that held the tile's K and V, by
+// the copy engine in whole 128-byte rows; dQ^T sums over the key tiles in
+// registers, in key order, and is rounded once. One launch, no workspace, no turn counters or
+// atomics, no CTA waits for another: the outputs repeat bit for bit and the
+// kernel progresses on one multiprocessor. Keys >= valid_len take P = 0
+// (their dK, dV are 0; K and V load zeros past them), query rows >=
+// valid_len take lse = +inf (P = 0, dq 0). Where the streamed kernel ran
+// 64-row query tiles holding 8 rows (7/8 of its tensor work on padding)
+// and summed dQ across key blocks through the workspace, this one's bytes
+// are K and V read and dK and dV written once.
+
+constexpr int FEW_MAX_Q = 8;   // query rows: the n of the m64n8 products
+// The K / V ring's depth and CTAs an SM (~70 KB of shared memory each); 3
+// stages and 4 CTAs read within 3% of these at the CLS shapes, 2 and 5 up
+// to 7% slower (scripts/few_bwd_variants.py).
+constexpr int FEW_STAGES = 4;
+constexpr int FEW_CTAS = 3;
+
+struct FewSmem {
+  bf16 k[FEW_STAGES][64 * 64], v[FEW_STAGES][64 * 64];  // [key][dh], 128-byte swizzle
+  bf16 q[16 * 64], d_o[16 * 64];  // [query][dh], rows >= nq zero (dV's and dK's k16 depth)
+  bf16 ds[FEW_MAX_Q * 64];        // the tile's dS, [query][key], 128-byte swizzle
+  float ml[FEW_MAX_Q], dl[FEW_MAX_Q];  // per query: lse log2(e) (+inf past qend), delta
+};
+
+__global__ void __launch_bounds__(128, FEW_CTAS)
+    flash_bwd_few_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
+                         const Strided d_o, const float* __restrict__ lse, const Strided dq,
+                         const Strided dk, const Strided dv, int nq, int nk, int valid_len) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  FewSmem& sm = *reinterpret_cast<FewSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int h = blockIdx.x, b = blockIdx.y, heads = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's key (or dh) rows: r0, r0 + 8
+  const int kend = min(valid_len, nk), qend = min(valid_len, nq);
+  const int tiles = ceil_div(kend, 64);  // key tiles holding a valid key
+
+  // K and V of key tile j into its stage: 16-byte pieces, zeros past kend
+  auto load_tile = [&](int j) {
+    const int st = j % FEW_STAGES, k0 = 64 * j;
+    for (int i = tid; i < 64 * 8; i += 128) {
+      const int r = i >> 3, ch = i & 7;
+      const bool ok = k0 + r < kend;
+      cp_async16(sm.k[st] + sw128(r, ch * 8), ok ? k.row(b, h, k0 + r) + ch * 8 : k.p, ok);
+      cp_async16(sm.v[st] + sw128(r, ch * 8), ok ? v.row(b, h, k0 + r) + ch * 8 : v.p, ok);
+    }
+  };
+  {  // Q and dO, 16 rows (one piece a thread each), with the first key tile
+    const int r = tid >> 3, ch = tid & 7;
+    const bool ok = r < nq;
+    cp_async16(sm.q + sw128(r, ch * 8), ok ? q.row(b, h, r) + ch * 8 : q.p, ok);
+    cp_async16(sm.d_o + sw128(r, ch * 8), ok ? d_o.row(b, h, r) + ch * 8 : d_o.p, ok);
+  }
+  load_tile(0);
+  cp_async_commit();
+#pragma unroll
+  for (int j = 1; j < FEW_STAGES - 1; ++j) {
+    if (j < tiles) load_tile(j);
+    cp_async_commit();
+  }
+  {  // delta and lse of query row tid / 16: sixteen threads a row, 4 columns each
+    const int r = tid >> 4, part = tid & 15;
+    float s = 0.f;
+    if (r < qend) {
+      const uint2 a = *reinterpret_cast<const uint2*>(o.row(b, h, r) + 4 * part);
+      const uint2 c = *reinterpret_cast<const uint2*>(d_o.row(b, h, r) + 4 * part);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(c2[e]);
+        s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+      }
+    }
+#pragma unroll
+    for (int x = 1; x < 16; x *= 2) s += __shfl_xor_sync(0xffffffffu, s, x);
+    if (part == 0) {
+      sm.dl[r] = r < qend ? s : 0.f;
+      sm.ml[r] = r < qend ? lse[((long long)b * heads + h) * nq + r] * kLog2e : INFINITY;
+    }
+  }
+
+  float dqa[4] = {0.f, 0.f, 0.f, 0.f};  // dQ^T: rows dh r0, r0 + 8; columns queries 2t, 2t + 1
+  float dva[32], dka[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dva[i] = dka[i] = 0.f;
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % FEW_STAGES, k0 = 64 * j;
+    cp_async_wait<FEW_STAGES - 2>();  // this thread's pieces of tile j have landed
+    bulk_wait_read<0>();              // and its row of tile j - 1's dK or dV has left
+    fence_async_smem();
+    __syncthreads();  // everyone's; and every thread is done with tile j - 1's stage
+    if (j + FEW_STAGES - 1 < tiles) load_tile(j + FEW_STAGES - 1);
+    cp_async_commit();
+    const bf16* kt = sm.k[st];
+
+    // S^T = K Q^T, dP^T = V dO^T
+    float s[4], dp[4];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < ATT_DH / 16; ++ks)
+      wgmma_ss<0, 0>(s, sw128_desc(kt + ks * 16), sw128_desc(sm.q + ks * 16), ks);
+#pragma unroll
+    for (int ks = 0; ks < ATT_DH / 16; ++ks)
+      wgmma_ss<0, 0>(dp, sw128_desc(sm.v[st] + ks * 16), sw128_desc(sm.d_o + ks * 16), ks);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(s);
+    wg_hold(dp);
+
+    // P^T and dS^T (keys r0, r0 + 8; queries 2t, 2t + 1): A fragments of dV
+    // and dK (queries 8-15 zero), and dS^T into shared memory for dQ
+    float pv[4], dsv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kr = r0 + 8 * (e >> 1), qq = 2 * t + (e & 1);
+      const float x = k0 + kr < kend ? s[e] : -INFINITY;
+      pv[e] = exp2_approx(fmaf(x, kScaleLog2, -sm.ml[qq]));
+      dsv[e] = pv[e] * (dp[e] - sm.dl[qq]) * kScale;
+      sm.ds[sw128(qq, kr)] = __float2bfloat16(dsv[e]);
+    }
+    const uint32_t pa[4] = {pack_bf16(pv[0], pv[1]), pack_bf16(pv[2], pv[3]), 0u, 0u};
+    const uint32_t da[4] = {pack_bf16(dsv[0], dsv[1]), pack_bf16(dsv[2], dsv[3]), 0u, 0u};
+    fence_async_smem();
+    __syncthreads();  // dS^T is in shared memory
+
+    // dV = P^T dO, dK = dS^T Q (dO and Q read MN-major); dQ^T += K^T dS^T
+    wg_fence();
+    wgmma_rs<1>(dva, pa, sw128_desc(sm.d_o), 0);
+    wgmma_rs<1>(dka, da, sw128_desc(sm.q), 0);
+#pragma unroll
+    for (int G = 0; G < 4; ++G)
+      wgmma_ss<1, 0>(dqa, sw128_desc(kt + G * 16 * 64), sw128_desc(sm.ds + G * 16), 1);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(dva);
+    wg_hold(dka);
+    wg_hold(dqa);
+
+    // the tile's dK, dV rows (keys in [kend, nk) come out 0), through the
+    // stage its K and V held (read by now; refilled only after the next
+    // step's barrier, once these copies have read it) as [key][dh] rows,
+    // then out by the copy engine, a 128-byte row a thread, under the next
+    // step's work: stored from the accumulators in 4-byte pieces (8 rows'
+    // 16 bytes a warp's store) the kernel took 1.5x as long
+    // (scripts/few_bwd_variants.py)
+    __syncthreads();  // every warp is past the products that read the stage
+    bf16* const stg[2] = {sm.k[st], sm.v[st]};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int at = (r0 + 8 * rr) * 64 + 8 * jj + 2 * t;
+        *reinterpret_cast<uint32_t*>(stg[0] + at) =
+            pack_bf16(dka[4 * jj + 2 * rr], dka[4 * jj + 2 * rr + 1]);
+        *reinterpret_cast<uint32_t*>(stg[1] + at) =
+            pack_bf16(dva[4 * jj + 2 * rr], dva[4 * jj + 2 * rr + 1]);
+      }
+    fence_async_smem();
+    __syncthreads();
+    {
+      const int which = tid >> 6, r = tid & 63;
+      if (k0 + r < nk) bulk_store((which ? dv : dk).row(b, h, k0 + r), stg[which] + r * 64, 128);
+      bulk_commit();
+    }
+  }
+  cp_async_wait<0>();  // no copy may land after the CTA exits
+  bulk_wait<0>();
+  // keys past the last tile holding a valid key: dK = dV = 0
+  for (int i = tid; i < (nk - 64 * tiles) * 8; i += 128) {
+    const int key = 64 * tiles + (i >> 3), ch = i & 7;
+    *reinterpret_cast<uint4*>(dk.row(b, h, key) + ch * 8) = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(dv.row(b, h, key) + ch * 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // dQ, rounded once; query rows >= qend are 0
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int qq = 2 * t + (e & 1), d = r0 + 8 * (e >> 1);
+    if (qq < nq) dq.row(b, h, qq)[d] = __float2bfloat16(qq < qend ? dqa[e] : 0.f);
+  }
+}
+
+cudaError_t launch_few(const Strided& q, const Strided& k, const Strided& v, const Strided& o,
+                       const Strided& d_o, const float* lse, const Strided& dq, const Strided& dk,
+                       const Strided& dv, int B, int heads, int nq, int nk, int valid_len,
+                       cudaStream_t st) {
+  constexpr int smem = sizeof(FewSmem) + 1024;  // + alignment to 1024 bytes
+  static bool ready[16];  // the shared-memory limit, set once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || !ready[dev]) {
+    e = cudaFuncSetAttribute(flash_bwd_few_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) ready[dev] = true;
+  }
+  flash_bwd_few_kernel<<<dim3(heads, B), 128, smem, st>>>(q, k, v, o, d_o, lse, dq, dk, dv, nq,
+                                                         nk, valid_len);
+  return cudaGetLastError();
+}
+
 // -- forward, resident (head dim 32, N <= 320, no dropout) --------------------
 //
 // One CTA (one warpgroup) per 64-row query tile of a unit: `pack` sequences
@@ -1743,10 +1970,16 @@ bool resident_bwd(int nq, int nk, int dh, bool dropout) {
   return dh == 32 && !dropout && nq == nk && nq <= 64 * RES_MAX_TILES;
 }
 
+bool few_query_bwd(int nq, int nk, int dh, bool dropout) {
+  return dh == ATT_DH && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk;
+}
+
 int resident_pack(int n) { return n <= 32 ? 64 / n : 1; }
 
 long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh) {
-  if (resident_bwd(nq, nk, dh, false)) return 0;  // (dh 32 runs without dropout)
+  // one launch, no dQ sums (dh 32 runs without dropout; flash_bwd refuses
+  // dropout at the few-query shapes)
+  if (resident_bwd(nq, nk, dh, false) || few_query_bwd(nq, nk, dh, false)) return 0;
   // the sums and a turn counter per sum and tile
   return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) * ((long long)BWD_BQ * dh + 1);
 }
@@ -1769,6 +2002,15 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
       case 4: return launch_resident<4>(q, k, v, o, d_o, lse, dq, dk, dv, gm, units, st);
       default: return launch_resident<5>(q, k, v, o, d_o, lse, dq, dk, dv, gm, units, st);
     }
+  }
+  if (few_query_bwd(nq, nk, dh, false)) {  // one launch, the queries on the short side
+    // no entry asks for dropout here (flash_attention_qkv_dropout takes nq ==
+    // nk), and the workspace is sized for the few-query kernel: none
+    if (dr.on) return cudaErrorInvalidValue;
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(d_o) ||
+        !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
+      return cudaErrorMisalignedAddress;
+    return launch_few(q, k, v, o, d_o, lse, dq, dk, dv, B, heads, nq, nk, valid_len, st);
   }
   if (dh == 32 && !dr.on)  // dh 32 past 320 keys, or nq != nk: the streamed kernels
     return bwd_launches<32>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
@@ -1815,8 +2057,8 @@ int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q
 // cotangent d_o (as o) -> dq (as q), dk, dv (as k); dh 32 or 64; delta (B,
 // heads, nq) fp32 scratch; ws svt_flash_attention_bwd_workspace(B, heads,
 // nq, nk, dh) floats of scratch (the fp32 dQ sums and their turn counters;
-// none for the resident kernel). Dropout as the forward's, which gave o (dh
-// 64 only).
+// none for the resident and few-query kernels). Dropout as the forward's,
+// which gave o (dh 64, not at nq <= 8 < nk).
 int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
@@ -1850,7 +2092,8 @@ int svt_flash_fwd_profile(unsigned long long* out) {
 #endif
 
 // Floats of scratch svt_flash_attention_bwd needs in `ws` at head dim dh (0
-// where the resident kernel runs: dh 32, nq == nk <= 320).
+// where the resident kernel runs: dh 32, nq == nk <= 320; and the few-query
+// kernel: dh 64, nq <= 8 < nk).
 long long svt_flash_attention_bwd_workspace(int B, int heads, int nq, int nk, int dh) {
   return flash_bwd_workspace(B, heads, nq, nk, dh);
 }

@@ -63,12 +63,18 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
 // Floats of scratch flash_bwd needs in ws for (B, heads, nq) query rows
 // against nk keys at head dim dh: 0 where the resident kernel runs (dh 32,
 // no dropout, nq == nk <= 320: the whole sequence in one CTA's shared
-// memory, delta and dQ summed there, one launch).
+// memory, delta and dQ summed there, one launch) and where the few-query
+// kernel does (dh 64, no dropout, nq <= 8 < nk: the CLS block's 8 query
+// rows against every key, one CTA a (sample, head), one launch).
 long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh);
 
 // Whether the backward at these shapes takes the resident kernel, and how
 // many sequences it packs into one 64-row tile (N <= 32).
 bool resident_bwd(int nq, int nk, int dh, bool dropout);
+
+// Whether the backward at these shapes takes the few-query kernel (dh 64,
+// no dropout, nq <= 8 < nk); flash_bwd refuses dropout at such shapes.
+bool few_query_bwd(int nq, int nk, int dh, bool dropout);
 
 // Whether the forward at these shapes takes its resident kernel (dh 32, no
 // dropout, nq == nk <= 320: every MS-SiT fold; sequences packed, see

@@ -102,8 +102,8 @@ cudaError_t launch_ln(const bf16* x, const float* g, const float* b, bf16* y, in
 }
 
 // The chain's products on gemm.cuh's engine: C = epi(A W^T), W (N, K) in
-// the torch Linear layout; A's rows through (rpg, gstride) as map_row
-// (rpg 0: A's own rows).
+// the torch Linear layout; A's logical row r at physical row (r / rpg) *
+// gstride + r % rpg (rpg 0: A's own rows).
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, int M, int K, int rpg, int gstride, const bf16* W, int N,
                         gemm::Epilogue ep, cudaStream_t st) {

@@ -33,14 +33,18 @@
 //   dW_fc1 = df1^T h2         dh2 = df1 W_fc1 -> LN2 backward (+ g) = dx1
 //   dW_out = dx1^T attn       da = dx1 W_out
 //   attention backward (flash_attention.cu: at dh 32 up to 320 keys one
-//                       resident launch; else a delta pass, one wgmma pass
+//                       resident launch; the CLS block's 8 queries one
+//                       few-query launch; else a delta pass, one wgmma pass
 //                       over key blocks and the dq pass, its dQ sums in ws)
 //   dW_qkv = dqkv^T h1        dh1 = dqkv W_qkv -> LN1 backward (+ dx1) = dx
 // Up to dim LN_EPILOGUE_MAX_DIM (192: a GEMM tile holds whole rows) each
 // LayerNorm backward runs in the epilogue of the product that makes its dh
-// (gemm.cuh B_LN2, B_LN1), so dh never reaches device memory; wider blocks,
-// and the CLS block's LN1 (its dh is two products), write dh in fp32 and
-// run the standalone ln_bwd_kernel.
+// (gemm.cuh B_LN2, B_LN1), so dh never reaches device memory; the CLS
+// block's LN1, whose dh is dkv W_kv over every row plus dq W_q on the top
+// rows, makes the small fp32 dq W_q share first and adds it, with the top
+// rows' dx1, in dkv W_kv's epilogue (B_LN1_TOP) where cls_ln1_epilogue
+// says. Wider blocks, and the CLS block elsewhere, write dh in fp32 and run
+// the standalone ln_bwd_kernel.
 // Rounding points follow the TPU kernel: bf16 df1, dx1, da, P (for dV), dS,
 // dq/dk/dv and dx; fp32 weight/vector gradients, dh, the LN backward and
 // every accumulator.
@@ -107,11 +111,29 @@ __global__ void reduce_chunks_kernel(float* __restrict__ part, int P, long long 
   part[q0 * stride + i] = s;
 }
 
+// The column sums of a LayerNorm pass (gemm.cuh's epilogues, ln_bwd_kernel),
+// part[cta][q][count] for q < nsum, in one launch: out.p[q][i] = sum_{c < P}
+// part[c][q][i] in order c = 0, 1, ..., reduce_kernel's sums (blockIdx.y =
+// q), where a launch per q ran before.
+struct SumOuts {
+  float* p[4];
+};
+__global__ void reduce_sums_kernel(const float* __restrict__ part, int P, int nsum, int count,
+                                   SumOuts out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x, q = blockIdx.y;
+  if (i >= count) return;
+  const float* base = part + (long long)q * count;
+  const long long stride = (long long)nsum * count;
+  float s = 0.f;
+  for (int c = 0; c < P; ++c) s += base[c * stride + i];
+  out.p[q][i] = s;
+}
+
 // ---------------------------------------------------------------------------
-// LayerNorm backward, standalone (dims above LN_EPILOGUE_MAX_DIM, and the CLS
-// block's LN1, whose dh is two products): a group of G warps per pair of
-// rows, both rows' loads issued before either row's sums, so that a group
-// keeps two rows in flight; groups walk the pairs with the grid's stride:
+// LayerNorm backward, standalone (dims above LN_EPILOGUE_MAX_DIM): a group
+// of G warps per pair of rows, both rows' loads issued before either row's
+// sums, so that a group keeps two rows in flight; groups walk the pairs
+// with the grid's stride:
 //   n = (x - mean) * rstd, d = dh * gamma,
 //   out = (d - mean(d) - n * mean(d * n)) * rstd + res
 // with res the row's residual cotangent: row r = (sample r / seg, i = r % seg)
@@ -130,6 +152,17 @@ __global__ void reduce_chunks_kernel(float* __restrict__ part, int P, long long 
 
 constexpr int LNB_WARPS = 8, LNB_CTAS = 132, LNB_MAX_DIM = 768;
 constexpr int LN_EPILOGUE_MAX_DIM = gemm::BN;  // dims <= this fold LN into dh's product
+constexpr int CLS_MAX_ROWS = 8;  // the CLS block's top rows: min(8, N) of each sample
+
+// Whether the CLS block's LN1 backward runs in dkv W_kv's epilogue
+// (B_LN1_TOP): a tile holds whole rows, and of an epilogue thread's two
+// rows, 8 apart, at most one is a top row, which holds where rows <= 8 and
+// N >= rows + 8 (row r with r % N < rows has (r + 8) % N = r % N + 8 >=
+// rows). Else (N < 16 at 8 rows) dkv W_kv's fp32 product takes the top
+// rows' share (B_F32 with `top`) and the standalone ln_bwd reads it.
+bool cls_ln1_epilogue(int N, int rows, int dim) {
+  return dim <= LN_EPILOGUE_MAX_DIM && rows <= CLS_MAX_ROWS && N >= rows + 8;
+}
 
 __device__ __forceinline__ void ld4(const float* p, float4& v) {
   v = *reinterpret_cast<const float4*>(p);
@@ -313,48 +346,69 @@ cudaError_t reduce(float* part, int P, long long stride, int count, float* out, 
   return cudaGetLastError();
 }
 
+// The nsum column sums of a LayerNorm pass over P CTAs' partials
+// (part[cta][q][count]) into vecs[q], one launch.
+cudaError_t reduce_sums(const float* part, int P, int nsum, int count, float* const* vecs,
+                        cudaStream_t st) {
+  SumOuts out{};
+  for (int q = 0; q < nsum; ++q) out.p[q] = vecs[q];
+  reduce_sums_kernel<<<dim3(ceil_div(count, 256), nsum), 256, 0, st>>>(part, P, nsum, count, out);
+  return cudaGetLastError();
+}
+
 // out (Mout, Nout) fp32 = A^T B: A (K rows, lda) holds the Mout columns,
 // B (K rows through its row map, ldb) the Nout columns; split-K partials in
-// `part`, then summed in order.
+// `part`, then summed in order. Where K takes one split (the CLS block's
+// top rows at SiT-base: 256) the product writes `out` itself, no reduce.
 cudaError_t weight_grad(const bf16* A, int lda, const bf16* B, int ldb, int b_rpg, int b_gstride,
                         int Mout, int Nout, int K, float* out, float* part, cudaStream_t st) {
+  const bool whole = dw_splits(Mout, Nout, K) == 1;
   int s = 0;
   const cudaError_t e = gemm::weight_grad_partials(gemm::Operand{A, K, Mout, lda},
                                                    gemm::Operand{B, K, Nout, ldb, b_rpg, b_gstride},
-                                                   part, &s, st);
-  if (e != cudaSuccess) return e;
+                                                   whole ? out : part, &s, st);
+  if (e != cudaSuccess || whole) return e;
   return reduce(part, s, (long long)Mout * Nout, Mout * Nout, out, st);
 }
 
 // C (M, N) = A W: A (M, K) row-major (lda), W the torch (out=K, in=N) weight;
-// fp32 C (Cf), bf16 C (Cb), bf16 C * gelu'(pre) with per-tile column sums
-// (colpart), or fp32 C added into Cf's rows through (c_rpg, c_gstride).
+// fp32 C (Cf; plus the (B * top_rows, N) fp32 `top` on the first top_rows
+// rows of each top_seg-row sample), bf16 C (Cb), or bf16 C * gelu'(pre)
+// with per-tile column sums (colpart).
 template <int EPI>
 cudaError_t gemm_nn(const bf16* A, int lda, const bf16* W, int M, int N, int K, float* Cf,
                     bf16* Cb, int ldc, cudaStream_t st, const float* pre = nullptr,
-                    float* colpart = nullptr, int c_rpg = 1, int c_gstride = 1) {
+                    float* colpart = nullptr, const float* top = nullptr, int top_rows = 0,
+                    int top_seg = 1) {
   gemm::Epilogue ep;
   ep.cf = Cf;
   ep.cb = Cb;
   ep.ldc = ldc;
   ep.pre = const_cast<float*>(pre);
   ep.colpart = colpart;
-  ep.c_rpg = c_rpg;
-  ep.c_gstride = c_gstride;
+  ep.top = top;
+  ep.top_rows = top_rows;
+  ep.top_seg = top_seg;
   return gemm::linear_dx<EPI>(gemm::Operand{A, M, K, lda}, W, N, ep, st);
 }
 
 // dh = A W (A (M, K), W the torch (out = K, in = N = dim) weight) with the
 // LayerNorm backward in the product's epilogue (dim <= LN_EPILOGUE_MAX_DIM):
 // B_LN2 -> dx1 fp32 (out_f) and bf16 (out_b) with residual g (bf16); B_LN1
-// -> dx bf16 (out_b) with residual dx1 (fp32). Then its column sums into
+// -> dx bf16 (out_b) with residual dx1 (fp32); B_LN1_TOP the same where dh
+// and the residual dx1 ((B * top_rows, N) fp32 each) join on the first
+// top_rows rows of each top_seg-row sample only. Then its column sums into
 // vecs[q] (dscale, dbias; B_LN2 also sum res, sum out). dh never exists in
 // device memory.
 template <int EPI>
 cudaError_t gemm_ln(const bf16* A, int lda, const bf16* W, int M, int N, int K, const bf16* x,
                     const float* stats, const float* gamma, const void* res, float* out_f,
-                    bf16* out_b, float* part, float* const* vecs, cudaStream_t st) {
+                    bf16* out_b, float* part, float* const* vecs, cudaStream_t st,
+                    const float* top = nullptr, int top_rows = 0, int top_seg = 1) {
   gemm::Epilogue ep;
+  ep.top = top;
+  ep.top_rows = top_rows;
+  ep.top_seg = top_seg;
   ep.bias = gamma;
   ep.x = x;
   ep.ldx = N;
@@ -365,11 +419,9 @@ cudaError_t gemm_ln(const bf16* A, int lda, const bf16* W, int M, int N, int K, 
   ep.cb = out_b;
   ep.ldc = N;
   ep.colpart = part;
-  cudaError_t e = gemm::linear_dx<EPI>(gemm::Operand{A, M, K, lda}, W, N, ep, st);
-  constexpr int nsum = EPI == gemm::B_LN2 ? 4 : 2;
-  for (int q = 0; q < nsum && e == cudaSuccess; ++q)
-    e = reduce(part + (long long)q * N, gemm::ln_ctas(M), (long long)nsum * N, N, vecs[q], st);
-  return e;
+  const cudaError_t e = gemm::linear_dx<EPI>(gemm::Operand{A, M, K, lda}, W, N, ep, st);
+  if (e != cudaSuccess) return e;
+  return reduce_sums(part, gemm::ln_ctas(M), EPI == gemm::B_LN2 ? 4 : 2, N, vecs, st);
 }
 
 // LayerNorm backward over `rows` rows, then its column sums into vecs[q]
@@ -388,10 +440,9 @@ cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const flo
                                           : ln_bwd_kernel<RT, 3, 4, 2>);
   kernel<<<ctas, LNB_WARPS * 32, 0, st>>>(dh, x, stats, gamma, res, seg, res_seg, out_f, out_b,
                                           part, rows, dim);
-  cudaError_t e = cudaGetLastError();
-  for (int q = 0; q < nsum && e == cudaSuccess; ++q)
-    e = reduce(part + (long long)q * dim, ctas, (long long)nsum * dim, dim, vecs[q], st);
-  return e;
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return reduce_sums(part, ctas, nsum, dim, vecs, st);
 }
 
 // The attention backward on the chain's packed activations (B, rows, ld),
@@ -447,15 +498,25 @@ long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, in
     need = std::max(need, (long long)dw_splits(s[0], s[1], s[2]) * s[0] * s[1]);
   need = std::max(need, (long long)ceil_div(M, gemm::BM) * mlp);
   need = std::max(need, (long long)ln_bwd_ctas(M) * 4 * dim);
+  // the CLS block's top rows' fp32 dq W_q share (rows <= CLS_MAX_ROWS: a
+  // full block of so few rows is counted too), then (LN1 in the epilogue)
+  // the epilogue's column partials beside it
+  if (rows <= CLS_MAX_ROWS)
+    need = std::max(need, (long long)Mt * dim + (cls_ln1_epilogue(N, rows, dim)
+                                                     ? (long long)gemm::ln_ctas(M) * 2 * dim
+                                                     : 0));
   // the attention's dQ sums (none for the resident backward)
   return std::max(need, flash_bwd_workspace(B, heads, rows, N, dim_head));
 }
 
-// Floats of fp32 dh scratch the backward entries write (cls: the CLS
-// block's): B * N * dim where a standalone LayerNorm backward reads dh (dims
-// above LN_EPILOGUE_MAX_DIM, and the CLS block's LN1), else none.
-long long svt_block_bwd_dh_floats(int B, int N, int dim, int cls) {
-  return cls || dim > LN_EPILOGUE_MAX_DIM ? (long long)B * N * dim : 0;
+// Floats of fp32 dh scratch the backward entries write (cls_rows: the CLS
+// block's top rows, 0 for the full block): B * N * dim where a standalone
+// LayerNorm backward reads dh (dims above LN_EPILOGUE_MAX_DIM; the CLS
+// block where cls_ln1_epilogue is false), else none.
+long long svt_block_bwd_dh_floats(int B, int N, int dim, int cls_rows) {
+  const bool standalone =
+      cls_rows ? !cls_ln1_epilogue(N, cls_rows, dim) : dim > LN_EPILOGUE_MAX_DIM;
+  return standalone ? (long long)B * N * dim : 0;
 }
 
 // Backward of svt_fused_block_train_fwd. In: x (B, N, dim) and g = dL/dout
@@ -517,8 +578,10 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
 }
 
 // Backward of svt_fused_block_cls_train_fwd: g = dL/dout (B, rows, dim)
-// bf16. Outputs as svt_fused_block_bwd (dx covers all N rows). Scratch: df1
-// (B*rows, mlp) bf16, dh (B*N, dim) fp32, dx1 (B*rows, dim) fp32, dx1b
+// bf16, rows <= CLS_MAX_ROWS. Outputs as svt_fused_block_bwd (dx covers
+// all N rows). Scratch: df1 (B*rows, mlp) bf16, dh (svt_block_bwd_dh_floats
+// fp32: none where cls_ln1_epilogue, LN1 then in dkv W_kv's epilogue; the
+// top rows' dq W_q share sits at ws's head), dx1 (B*rows, dim) fp32, dx1b
 // (B*rows, dim) bf16, da (B*rows, hd) bf16, dq (B*rows, hd) bf16, dkv
 // (B*N, 2hd) bf16, delta (B, heads, rows) fp32, ws.
 int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
@@ -531,7 +594,7 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                             void* dq, void* dkv, void* delta, void* ws, int B, int N, int rows,
                             int dim, int heads, int dim_head, int mlp, int valid_len, int device,
                             void* stream) {
-  if (dim_head != ATT_DH || dim > LNB_MAX_DIM || rows < 1 || rows > N)
+  if (dim_head != ATT_DH || dim > LNB_MAX_DIM || rows < 1 || rows > std::min(N, CLS_MAX_ROWS))
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -564,10 +627,18 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                       st));
   SVT_TRY(weight_grad(dkv_, 2 * hd, (const bf16*)h1, dim, 0, 0, 2 * hd, dim, M,
                       (float*)d_wqkv + (long long)hd * dim, part, st));
-  SVT_TRY(gemm_nn<gemm::B_F32>(dkv_, 2 * hd, wkv, M, dim, 2 * hd, dh_, nullptr, dim, st));
-  SVT_TRY(gemm_nn<gemm::B_ADD_F32>(dq_, hd, wq, Mt, dim, hd, dh_, nullptr, dim, st, nullptr,
-                                   nullptr, rows, N));
+  // dh = dkv W_kv over every row + dq W_q on the top rows: the small fp32
+  // share first (at ws's head), added where dkv W_kv's product ends
   float* const vecs[2] = {(float*)d_ln1_s, (float*)d_ln1_b};
+  float* dqw = part;
+  SVT_TRY(gemm_nn<gemm::B_F32>(dq_, hd, wq, Mt, dim, hd, dqw, nullptr, dim, st));
+  if (cls_ln1_epilogue(N, rows, dim))  // with LN1's backward in the epilogue: dh never written
+    return (int)gemm_ln<gemm::B_LN1_TOP>(dkv_, 2 * hd, wkv, M, dim, 2 * hd, (const bf16*)x,
+                                         (const float*)stats1, (const float*)ln1_s, dx1,
+                                         nullptr, (bf16*)dx, part + (long long)Mt * dim, vecs,
+                                         st, dqw, rows, N);
+  SVT_TRY(gemm_nn<gemm::B_F32>(dkv_, 2 * hd, wkv, M, dim, 2 * hd, dh_, nullptr, dim, st, nullptr,
+                               nullptr, dqw, rows, N));
   SVT_TRY(ln_bwd<float>(dh_, (const bf16*)x, (const float*)stats1, (const float*)ln1_s,
                         (const float*)dx1, N, rows, nullptr, (bf16*)dx, M, dim, part, 2, vecs,
                         st));
@@ -610,7 +681,7 @@ int svt_block_gemm_ln(int ln, void* A, void* W, void* x, void* stats, void* gamm
   auto launch = ln == 2 ? gemm_ln<gemm::B_LN2> : gemm_ln<gemm::B_LN1>;
   return (int)launch((const bf16*)A, K, (const bf16*)W, M, N, K, (const bf16*)x,
                      (const float*)stats, (const float*)gamma, res, (float*)Cf, (bf16*)Cb,
-                     (float*)part, rows, st);
+                     (float*)part, rows, st, nullptr, 0, 1);
 }
 
 long long svt_block_gemm_ln_workspace(int M, int N) {

@@ -63,7 +63,8 @@
 //              products' W read as (K = out, N = in), and both operands of
 //              the weight gradients, read along the token rows. An MN-major
 //              B spans three such tiles, 8 KB apart (the descriptor's LBO).
-// Each operand's rows can go through a row map (map_row in common.cuh): the
+// Each operand's rows can go through a row map (logical row r at physical
+// row (r / rpg) * gstride + r % rpg, gemm::Operand): the
 // CLS block's Q GEMM reads the first `rows` rows of each N-row sample, its
 // out-projection that many rows of x as the residual, and its dW_q the same
 // rows of h1. The tensor map is then 3-D (64 columns, rows of a group,
@@ -78,18 +79,25 @@
 //                for the backward                (fc1)
 //   F_RES        bf16 C + bias + R, R through its row map (out-proj, fc2)
 //   B_PART       fp32 partial of split s at part[s][M][N] (dW, split-K)
-//   B_F32        fp32 C                          (dh)
+//   B_F32        fp32 C                          (dh; with `top`, the CLS
+//                block's dkv W_kv plus the top rows' dq W_q share, as
+//                B_LN1_TOP adds it)
 //   B_BF16       bf16 C                          (da)
 //   B_GELU_GRAD  bf16 C * gelu'(pre), and the fp32 column sums of each
 //                128-row tile at colpart[tile][N] (df1 and d_bfc1)
-//   B_ADD_F32    fp32 C added into Cf through its row map (the CLS block's
-//                dq W_q into dh's top rows)
 //   B_LN2        C is dh (N = dim <= BN: a tile holds whole rows); the
 //                LayerNorm backward of x's rows plus the bf16 residual g:
 //                dx1 fp32 into Cf and bf16 by TMA, and the column sums of
 //                dh n, dh, g and dx1 per CTA into colpart (ln_epilogue)
 //   B_LN1        the same with the fp32 residual dx1: bf16 dx, and the
 //                sums of dh n and dh
+//   B_LN1_TOP    B_LN1 for the CLS block, whose dh is dkv W_kv over every
+//                row plus the top rows' dq W_q: on row r of an N-row sample
+//                with r % N < rows, the fp32 share `top` and the residual
+//                dx1 (each (B * rows, N)), read by the threads from their
+//                rows, join dh and dx; other rows have neither. Of a
+//                thread's two rows, 8 apart, at most one may be a top row:
+//                rows <= 8 and N >= rows + 8 (run() refuses other shapes)
 //   F_LNA        bf16 C, A's rows first normalised in place in the ring by
 //                the LayerNorm (K = dim 96 or 192: the tile's K-steps hold
 //                whole rows); the training form keeps them and their
@@ -157,7 +165,7 @@ constexpr int WG_BAR = 2;             // named barriers 2, 3: one consumer warpg
 constexpr int IDENTITY = 1 << 30;     // a row map's group size when there is none
 constexpr int STAGE_BYTES = (BM + BN) * ROW_BYTES;
 
-enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_ADD_F32, B_LN2, B_LN1,
+enum Epi { F_NONE, F_GELU, F_RES, B_PART, B_F32, B_BF16, B_GELU_GRAD, B_LN2, B_LN1, B_LN1_TOP,
            F_LNA, Q_S32, Q_BF16, Q_RES_F32, Q_GELU_MAX, Q_GELU_Q8, Q_RES_BF16 };
 
 // An operand in device memory (bf16 or int8, the engine's element type):
@@ -176,7 +184,7 @@ struct Epilogue {
   int ldr = 0, r_rpg = 1, r_gstride = 1;
   bf16* cb = nullptr;         // bf16 C (ldc)
   float* cf = nullptr;        // fp32 C (ldc; B_PART: the partials; Q_S32: the int32 C)
-  int ldc = 0, c_rpg = 1, c_gstride = 1;  // B_ADD_F32: C's row map
+  int ldc = 0;
   float* pre = nullptr;       // F_GELU: fp32 C + bias out; B_GELU_GRAD: the forward's, in
   float* colpart = nullptr;   // B_GELU_GRAD: column sums per 128-row tile
   const float* resf = nullptr;  // Q_RES_BF16: the fp32 residual (ldr)
@@ -192,6 +200,11 @@ struct Epilogue {
   int ldx = 0;
   const float* stats = nullptr;
   const void* lres = nullptr;
+  // B_LN1_TOP, B_F32: the top rows' fp32 dh share (B_LN1_TOP: and lres
+  // their dx1), (B * top_rows, N): output row r with r % top_seg < top_rows
+  // takes row (r / top_seg) * top_rows + r % top_seg of it
+  const float* top = nullptr;
+  int top_rows = 0, top_seg = 1;
   // F_LNA: the LayerNorm of A's rows (gamma, beta fp32, eps) applied in the
   // prologue; the training form keeps the normalised rows (ln_out, bf16 (M,
   // K)) and each row's (mean, rstd) (ln_stats)
@@ -222,7 +235,9 @@ struct Smem {
 };
 
 // The LayerNorm backwards folded into the product that makes dh.
-__host__ __device__ constexpr bool ln_epi(int epi) { return epi == B_LN2 || epi == B_LN1; }
+__host__ __device__ constexpr bool ln_epi(int epi) {
+  return epi == B_LN2 || epi == B_LN1 || epi == B_LN1_TOP;
+}
 // Whether an epilogue writes a bf16 C (through shared memory and TMA).
 __host__ __device__ constexpr bool bf16_out(int epi) {
   return epi == F_NONE || epi == F_GELU || epi == F_RES || epi == B_BF16 ||
@@ -249,9 +264,10 @@ __host__ __device__ constexpr bool res_tile(int epi) {
 // two in flight a warpgroup, in the ring's last stage (a[3] for warpgroup
 // 0, b[3] for warpgroup 1), so that epilogue's ring has one stage fewer.
 // The LayerNorm epilogues read their residual cotangent the same way, in
-// chunks of 128-byte rows: 32 fp32 columns (B_LN1) or 64 bf16 (B_LN2).
+// chunks of 128-byte rows: 32 fp32 columns (B_LN1) or 64 bf16 (B_LN2);
+// B_LN1_TOP's few residual rows come from the threads' own loads.
 __host__ __device__ constexpr bool chunked(int epi) {
-  return epi == B_GELU_GRAD || epi == Q_RES_BF16 || ln_epi(epi);
+  return epi == B_GELU_GRAD || epi == Q_RES_BF16 || epi == B_LN2 || epi == B_LN1;
 }
 __host__ __device__ constexpr int stages(int epi) { return chunked(epi) ? STAGES - 1 : STAGES; }
 constexpr int PRE_COLS = 32, PRE_CHUNK = 64 * PRE_COLS;  // a chunk: 64 rows x 32 fp32
@@ -450,6 +466,47 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep
   const int rl[2] = {16 * warp + g, 16 * warp + g + 8};  // rows in the warpgroup's 64
   const float mu[2] = {sm.rs[wg][0][rl[0]], sm.rs[wg][0][rl[1]]};
   const float rs[2] = {sm.rs[wg][1][rl[0]], sm.rs[wg][1][rl[1]]};
+  // B_LN1_TOP: a top row's dh share joins acc before any sum, and its dx1
+  // row is the residual below. Of a thread's two rows (8 apart) at most one
+  // is a top row (htop; -1: none): top_rows <= 8 and top_seg >= top_rows +
+  // 8, which run() checks. Each row's 24 pairs are loaded together,
+  // predicated: one by one behind a branch, they took a memory latency each.
+  int htop = -1;
+  long long toff = 0;
+  float2 rtop[24];
+  if constexpr (EPI == B_LN1_TOP) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tl.m0 + 64 * wg + rl[h], i = r % ep.top_seg;
+      if (r < w.M && i < ep.top_rows) {
+        htop = h;
+        toff = ((long long)(r / ep.top_seg) * ep.top_rows + i) * w.N + 2 * t;
+      }
+    }
+    if (htop >= 0) {
+      const float* res = static_cast<const float*>(ep.lres) + toff;
+#pragma unroll
+      for (int j = 0; j < 24; ++j) {
+        const bool in = 8 * j < w.N;
+        rtop[j] = in ? *reinterpret_cast<const float2*>(ep.top + toff + 8 * j)
+                     : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < 24; ++j) {
+        if (htop == 0) {
+          acc[4 * j] += rtop[j].x;
+          acc[4 * j + 1] += rtop[j].y;
+        } else {
+          acc[4 * j + 2] += rtop[j].x;
+          acc[4 * j + 3] += rtop[j].y;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 24; ++j)  // then the residual, into the same registers
+        rtop[j] = 8 * j < w.N ? *reinterpret_cast<const float2*>(res + 8 * j)
+                              : make_float2(0.f, 0.f);
+    }
+  }
   auto x_at = [&](int h, int j) {  // x of row rl[h], columns 8 j + 2 t, + 1
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
         sm.c[j >> 3] + sw128(64 * wg + rl[h], 8 * (j & 7) + 2 * t)));
@@ -507,7 +564,7 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep
   for (int q = 0; q < NCH; ++q) {
     if (q >= nch) break;
     const int b = q & 1, uses = (nch + 1 - b) >> 1;  // uses of buffer b a tile
-    mbar_wait(&sm.pre_full[wg][b], (n * uses + (q >> 1)) & 1);
+    if constexpr (chunked(EPI)) mbar_wait(&sm.pre_full[wg][b], (n * uses + (q >> 1)) & 1);
     const float* pb = pre_buf(sm, wg, b);
 #pragma unroll
     for (int jj = 0; jj < CC / 8; ++jj) {
@@ -520,6 +577,8 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep
         if (EPI == B_LN2)  // bf16 [64][64] in the 128-byte swizzle
           rv[h] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
               reinterpret_cast<const bf16*>(pb) + sw128(rl[h], cl)));
+        else if (EPI == B_LN1_TOP)  // the top row's dx1, else none
+          rv[h] = htop == h ? rtop[j] : make_float2(0.f, 0.f);
         else  // fp32 [64][32] in the 128-byte swizzle
           rv[h] = *reinterpret_cast<const float2*>(
               pb + rl[h] * PRE_COLS + ((((cl >> 2) ^ (rl[h] & 7)) << 2) | (cl & 3)));
@@ -540,9 +599,11 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep
         acc[4 * j + 3] = o[0].y + o[1].y;
       }
     }
-    bar_sync(WG_BAR + wg, 128);  // buffer b read: the chunk two on may land in it
-    if (tid == 0 && q + 2 < nch)
-      load_pre(sm, tm_f, wg, b, tl.n0 + CC * (q + 2), tl.m0 + 64 * wg);
+    if constexpr (chunked(EPI)) {
+      bar_sync(WG_BAR + wg, 128);  // buffer b read: the chunk two on may land in it
+      if (tid == 0 && q + 2 < nch)
+        load_pre(sm, tm_f, wg, b, tl.n0 + CC * (q + 2), tl.m0 + 64 * wg);
+    }
   }
   if (EPI == B_LN2) {  // column sums of res (d_bfc2) and out (d_bout)
 #pragma unroll
@@ -663,6 +724,22 @@ __device__ __forceinline__ void epilogue(float (&acc)[96], const Epilogue& ep,
       const int rl = 64 * wg + 16 * warp + g + 8 * half;  // row in the tile
       const int r = tl.m0 + rl;
       const bool row_ok = r < w.M;
+      // B_F32 with `top`: a top row's share of the tile's columns, its 24
+      // pairs loaded together (predicated) before any is used
+      float2 share[24];
+      bool is_top = false;
+      if constexpr (EPI == B_F32) {
+        const int i = r % ep.top_seg;
+        is_top = ep.top != nullptr && row_ok && i < ep.top_rows;
+        if (is_top) {
+          const float* tp =
+              ep.top + ((long long)(r / ep.top_seg) * ep.top_rows + i) * w.N + tl.n0 + 2 * t;
+#pragma unroll
+          for (int j = 0; j < 24; ++j)
+            share[j] = tl.n0 + 8 * j < w.N ? *reinterpret_cast<const float2*>(tp + 8 * j)
+                                           : make_float2(0.f, 0.f);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 24; ++j) {
         const int c = tl.n0 + 8 * j + 2 * t;
@@ -689,16 +766,11 @@ __device__ __forceinline__ void epilogue(float (&acc)[96], const Epilogue& ep,
             *reinterpret_cast<float2*>(ep.cf + ((long long)tl.split * w.M + r) * w.N + c) =
                 make_float2(v0, v1);
         } else if (EPI == B_F32) {
-          if (ok) *reinterpret_cast<float2*>(ep.cf + o) = make_float2(v0, v1);
-        } else if (EPI == B_ADD_F32) {
-          if (ok) {
-            float2* dst = reinterpret_cast<float2*>(
-                ep.cf + map_row(r, ep.c_rpg, ep.c_gstride) * ep.ldc + c);
-            float2 a = *dst;
-            a.x += v0;
-            a.y += v1;
-            *dst = a;
+          if (is_top) {
+            v0 += share[j].x;
+            v1 += share[j].y;
           }
+          if (ok) *reinterpret_cast<float2*>(ep.cf + o) = make_float2(v0, v1);
         }
         if (bf16_out(EPI))
           *reinterpret_cast<uint32_t*>(sm.c[j >> 3] + sw128(rl, 8 * (j & 7) + 2 * t)) =
@@ -1182,10 +1254,14 @@ cudaError_t run(const Operand& a, const Operand& b, int M, int N, int K, bool sp
   if (EPI == Q_GELU_Q8 && (e = plain_map(&tm_c, ep.cq, M, N, ep.ldc, 1)) != cudaSuccess) return e;
   if (ln_epi(EPI)) {  // x in [64][64] boxes; the residual in chunks (bf16 [64][64], fp32 [64][32])
     if (N > BN) return cudaErrorInvalidValue;  // a tile holds whole rows
+    // B_LN1_TOP: at most one top row of a thread's two, 8 apart (ln_epilogue)
+    if (EPI == B_LN1_TOP && (ep.top_rows < 1 || ep.top_rows > 8 || ep.top_seg < ep.top_rows + 8))
+      return cudaErrorInvalidValue;
     if ((e = operand_map<bf16>(&tm_e, Operand{ep.x, M, N, ep.ldx}, 64, &w.r_rpg)) != cudaSuccess)
       return e;
-    e = EPI == B_LN2 ? operand_map<bf16>(&tm_f, Operand{ep.lres, M, N, ep.ldr}, 64, &unused)
-                     : plain_map(&tm_f, ep.lres, M, N, ep.ldr, 4);
+    if (chunked(EPI))
+      e = EPI == B_LN2 ? operand_map<bf16>(&tm_f, Operand{ep.lres, M, N, ep.ldr}, 64, &unused)
+                       : plain_map(&tm_f, ep.lres, M, N, ep.ldr, 4);
     if (e != cudaSuccess) return e;
   }
   if (EPI == F_LNA && ep.ln_out != nullptr &&  // the training form's normalised rows

@@ -23,7 +23,9 @@ mostly empty: each CTA loads a 64-row query tile and the keys its rows can
 see, under a block-diagonal mask.
 The backward at dh 32 up to 320 keys (``resident_bwd``: every MS-SiT fold) is
 one launch that keeps the whole sequence in shared memory, packing
-sequences of up to 32 rows into one tile (``resident_pack``); elsewhere it
+sequences of up to 32 rows into one tile (``resident_pack``); at dh 64 for
+at most 8 queries against more keys (``few_query_bwd``: the CLS block's 8
+rows) one launch that streams the keys past the few queries; elsewhere it
 streams the queries past each 64-key block once (wgmma) and sums dq in a
 fixed order in an fp32 workspace the wrapper allocates
 (``bwd_workspace_floats``). Either way its outputs repeat bit for bit. It reads
@@ -42,7 +44,9 @@ generator from (seed, sample, head, row, col) in every pass, so the
 backward regenerates it. ``flash_attention_tiled`` replaces
 ``flash_attention_tiled`` (``_fwd_tiled``, ``_bwd_tiled``), the long-sequence
 entry, over the same streamed kernels. Each public wrapper counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``; the few-query kernel's launches, from
+these wrappers and from the CLS block's backward chain, are counted in
+``few_query_bwd.launches`` too.
 
 Dispatch: tensors on the CPU run the plain versions beside the kernel; CUDA
 tensors launch the kernel or raise. There is no fallback.
@@ -57,6 +61,7 @@ from surface_vision_transformers_tpu_torch.ops import _native
 DIM_HEADS = (32, 64)  # the kernels' head dims (32 without dropout)
 DROPOUT_DIM_HEAD = 64  # the dropout kernels'
 RESIDENT_MAX_N = 320  # the resident backward's longest sequence: five 64-row tiles
+FEW_MAX_Q = 8  # the few-query backward's query rows: the n of its m64n8 products
 _BWD_TILE, _BWD_CHAINS = 64, 4  # the streamed backward's query tile and dQ sums per tile
 
 
@@ -67,6 +72,26 @@ def resident_bwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     dropout, as many queries as keys, at most ``RESIDENT_MAX_N``. Else the
     streamed kernels (a delta pass, the main pass, a dq pass)."""
     return dh == 32 and not dropout and nq == nk and nq <= RESIDENT_MAX_N
+
+
+def few_query_bwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
+    """Whether the backward at these shapes runs the few-query kernel
+    (``csrc/flash_attention.cu``: one launch, one CTA a (sample, head), K and
+    V streamed past its query rows, every product with the queries on its
+    short side, delta and dQ summed in the CTA): head dim 64, no dropout, at
+    most ``FEW_MAX_Q`` queries against more keys (the CLS block's 8 rows
+    against all N keys)."""
+    return dh == 64 and not dropout and nq <= FEW_MAX_Q < nk
+
+
+few_query_bwd.launches = 0
+
+
+def count_few_query(nq: int, nk: int, dh: int, dropout: bool = False) -> None:
+    """A backward launched at these shapes ran the few-query kernel once
+    where ``few_query_bwd`` says: add it to ``few_query_bwd.launches``."""
+    if few_query_bwd(nq, nk, dh, dropout):
+        few_query_bwd.launches += 1
 
 
 def resident_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
@@ -96,10 +121,10 @@ def resident_pack(n: int) -> int:
 
 def bwd_workspace_floats(B: int, H: int, nq: int, nk: int, dh: int) -> int:
     """Floats of fp32 scratch the backward asks for
-    (``svt_flash_attention_bwd_workspace``): none on the resident route;
-    else four dQ sums of a 64-query tile and their turn counters per
-    tile."""
-    if resident_bwd(nq, nk, dh):
+    (``svt_flash_attention_bwd_workspace``): none on the resident and
+    few-query routes; else four dQ sums of a 64-query tile and their turn
+    counters per tile."""
+    if resident_bwd(nq, nk, dh) or few_query_bwd(nq, nk, dh):
         return 0
     return _BWD_CHAINS * B * H * -(-nq // _BWD_TILE) * (_BWD_TILE * dh + 1)
 
@@ -334,6 +359,7 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         lse.data_ptr(), delta.data_ptr(), ws.data_ptr(), *(x for t in out for x in _operand(t)),
         B, H, nq, nk, vl, dh, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
+    count_few_query(nq, nk, dh, bool(rate))
     return out
 
 

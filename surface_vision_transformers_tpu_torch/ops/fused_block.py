@@ -53,6 +53,7 @@ from surface_vision_transformers_tpu_torch.ops import _native
 from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     DIM_HEADS,
     bwd_workspace_floats,
+    count_few_query,
     flash_attention,
     flash_attention_bwd_reference,
     flash_attention_reference,
@@ -385,9 +386,22 @@ def ln_in_epilogue(dim: int) -> bool:
     epilogue of the product that makes dh (``csrc/gemm.cuh``: B_LN2,
     B_LN1), so that dh never reaches device memory: widths up to the
     engine's 192-column tile, whatever the head dim (MS-SiT's stages 0-1,
-    SiT-tiny). The CLS block's LN1, whose dh is two products, and wider
+    SiT-tiny). The CLS block's LN1, whose dh is dkv W_kv over every row
+    plus dq W_q on the top rows, adds that small fp32 share, made first, in
+    the same epilogue (B_LN1_TOP) where ``cls_ln1_in_epilogue`` says. Wider
     blocks run the standalone LayerNorm backward."""
     return dim <= LN_EPILOGUE_MAX_DIM
+
+
+def cls_ln1_in_epilogue(N: int, rows: int, dim: int) -> bool:
+    """Whether the CLS block's LN1 backward runs in dkv W_kv's epilogue
+    (``csrc/gemm.cuh`` B_LN1_TOP; ``cls_ln1_epilogue`` in
+    ``csrc/fused_block_bwd.cu``): at ``ln_in_epilogue`` widths where, of an
+    epilogue thread's two rows 8 apart, at most one is a top row: rows <= 8
+    and N >= rows + 8 (N >= 16 for the 8 top rows). Else dkv W_kv's fp32
+    product takes the top rows' dq W_q share and the standalone LayerNorm
+    backward reads it."""
+    return ln_in_epilogue(dim) and rows <= _CLS_ROWS and N >= rows + 8
 
 
 FUSED_MLP_DIMS = (96, 192)  # csrc/fused_mlp.cu: fc2's output is one wgmma of n = dim
@@ -407,12 +421,14 @@ def fuses_mlp(dim: int, mlp: int, train: bool = False) -> bool:
             and 128 <= mlp <= 4 * dim)
 
 
-def block_bwd_dh_floats(B: int, N: int, dim: int, cls: bool) -> int:
+def block_bwd_dh_floats(B: int, N: int, dim: int, cls_rows: int = 0) -> int:
     """Floats of fp32 dh scratch the backward chains write
-    (``svt_block_bwd_dh_floats``): B * N * dim where a standalone LayerNorm
-    backward reads dh (widths past ``ln_in_epilogue``, and the CLS block's
-    LN1), else none."""
-    return B * N * dim if cls or not ln_in_epilogue(dim) else 0
+    (``svt_block_bwd_dh_floats``; ``cls_rows``: the CLS block's top rows, 0
+    for the full block): B * N * dim where a standalone LayerNorm backward
+    reads dh (widths past ``ln_in_epilogue``; the CLS block where
+    ``cls_ln1_in_epilogue`` is false), else none."""
+    fused = cls_ln1_in_epilogue(N, cls_rows, dim) if cls_rows else ln_in_epilogue(dim)
+    return 0 if fused else B * N * dim
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -433,14 +449,20 @@ def block_bwd_workspace(B: int, N: int, rows: int, dim: int, heads: int, dim_hea
                         mlp: int) -> int:
     """Floats of fp32 workspace the backward chains ask for
     (``svt_block_bwd_workspace``): the largest set of split-K or column
-    partials one of their steps holds, or the attention backward's
-    (``bwd_workspace_floats``: none where the resident kernel runs)."""
+    partials one of their steps holds, the CLS block's fp32 dq W_q share
+    where rows <= 8 (a full block of so few rows is counted too; with its
+    LN1 epilogue's column partials, ``cls_ln1_in_epilogue``), or the
+    attention backward's (``bwd_workspace_floats``: none where the resident
+    or the few-query kernel runs)."""
     M, Mt, hd = B * N, B * rows, heads * dim_head
     dw = [(dim, mlp, Mt), (mlp, dim, Mt), (dim, hd, Mt), (dim, mlp, M), (mlp, dim, M),
           (dim, hd, M), (3 * hd, dim, M), (hd, dim, Mt), (2 * hd, dim, M)]
     need = max(_split_k(*s) * s[0] * s[1] for s in dw)
     ln_ctas = min(_cdiv(_cdiv(M, 2), _LNB_WARPS), _LNB_CTAS)
     need = max(need, _cdiv(M, _GEMM_BM) * mlp, ln_ctas * 4 * dim)
+    if rows <= _CLS_ROWS:
+        lnc = min(_cdiv(M, _GEMM_BM), _TARGET_TILES) if cls_ln1_in_epilogue(N, rows, dim) else 0
+        need = max(need, Mt * dim + lnc * 2 * dim)
     return max(need, bwd_workspace_floats(B, heads, rows, N, dim_head))
 
 
@@ -663,7 +685,7 @@ def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
     ln1_s, _, w_qkv, w_out, _, ln2_s, _, w_fc1, _, w_fc2, _ = params
     # dh (fp32, M x dim) only where a standalone LayerNorm backward reads it:
     # the library says where, as it sizes the workspace
-    dh = f32(max(lib.svt_block_bwd_dh_floats(B, N, dim, int(cls)), 1))
+    dh = f32(max(lib.svt_block_bwd_dh_floats(B, N, dim, rows if cls else 0), 1))
     scratch = [x.new_empty((Mr, mlp)), dh, f32(Mr, dim),
                x.new_empty((Mr, dim)), x.new_empty((Mr, hd))]
     if cls:
@@ -682,6 +704,7 @@ def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
         _native.check(lib.svt_fused_block_cls_bwd(
             *ptrs, B, N, rows, dim, heads, dim_head, mlp, vl, dev.index, stream))
         fused_block_cls_bwd.launches += 1
+        count_few_query(rows, N, dim_head)  # its attention backward
     else:
         _native.check(lib.svt_fused_block_bwd(
             *ptrs, B, N, dim, heads, dim_head, mlp, vl, dev.index, stream))

@@ -8,7 +8,10 @@ keys; then the edges of the kernel's tiling at these lengths (up to 512
 keys: query tiles of 64 rows, key tiles of 64): 129 = 2 * 64 + 1 queries,
 one past a query tile, against 136 keys with valid_len 130 inside the third
 key tile, and 64 queries (one whole query tile) against 257 keys with
-valid_len 256 on a key-tile edge. The card-side gates hold the kernel
+valid_len 256 on a key-tile edge; and the few-query backward's shapes (8
+queries against 321 keys, against 328 with valid_len 321, against 130 with
+valid_len 129 inside the third 64-key tile, and 1 query against 321 keys).
+The card-side gates hold the kernel
 against the plain versions at such shapes, so these hold the plain versions
 against JAX there. The cotangent is nonzero on every row, so the rows >=
 valid_len that both sides drop are exercised. Tolerances, of the largest |JAX| value of
@@ -31,7 +34,12 @@ from surface_vision_transformers_tpu.ops.pallas.flash_attention import (
 from surface_vision_transformers_tpu_torch.ops import flash_attention as tfa
 
 CASES = {"N72_vl70": (2, 2, 72, 72, 70), "Nq8_Nk72": (2, 2, 8, 72, 70),
-         "Nq129_Nk136_vl130": (1, 2, 129, 136, 130), "Nq64_Nk257_vl256": (1, 2, 64, 257, 256)}
+         "Nq129_Nk136_vl130": (1, 2, 129, 136, 130), "Nq64_Nk257_vl256": (1, 2, 64, 257, 256),
+         # the few-query backward's shapes (``few_query_bwd``: the CLS block's 8
+         # rows against every key): N = 321, 328 with valid_len 321, valid_len
+         # inside the third 64-key tile, one query
+         "Nq8_Nk321": (1, 2, 8, 321, 321), "Nq8_Nk328_vl321": (1, 2, 8, 328, 321),
+         "Nq8_Nk130_vl129": (2, 2, 8, 130, 129), "Nq1_Nk321": (1, 2, 1, 321, 321)}
 DH = 64
 
 
