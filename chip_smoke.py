@@ -16,9 +16,14 @@ and prints no result:
 2. build   -- compiles the kernels in csrc/ (nvcc, sm_90a) and loads them.
 3. kernels -- each block kernel against a float32 plain run on the same bf16
               inputs and weights, at the full block shape, plus controls
-              (a wrong mask, a wrong softmax scale) that the same gate must
-              reject; CUDA-event times of each kernel and of the eager bf16
-              block the plain path runs.
+              (a wrong mask, a wrong softmax scale; for the CLS block also
+              Q made from the top rows of x itself, not of LN1(x), and the
+              last 64-key tile dropped) that the same gate must reject;
+              the CLS forward's route from the C entry against the Python
+              rules; CUDA-event times of each kernel and of the eager bf16
+              block the plain path runs; the 8-query attention forward
+              (the few-query kernel, Q given) at the CLS block's shape
+              against its plain version, beside SDPA (its kernels row).
 4. slice   -- ``predict`` on 300 raw surfaces at batch 256 (the last batch
               padded): the kernels' launch counts, agreement with the plain
               (eager bf16) path, controls (a dropped block, a wrong mask)
@@ -160,10 +165,14 @@ sub-ico 3 and the gather-fused patch embedding:
               ``fused_block``, ``torch._int_mm`` per GEMM and the bounds,
               and int8 against bf16 block times at dim 192, 384 and 768.
 21. patch-embed -- ``patch_embed`` against the float32 and bf16 plain
-              versions at sub-ico 2 (B 256, dim 192 and 384) and sub-ico 3
-              (B 64, dim 768), with controls (the table shifted by one
-              patch, (c v) order); times beside the plain version and
-              index_select + matmul.
+              versions at sub-ico 2 (B 256, dim 192 and 384), sub-ico 3
+              (B 64, dim 768) and sub-ico 5 (B 64, dim 96), fp32 and bf16
+              x, and a ragged case (sub-ico 2's first 300 patches, B 3:
+              items past L), with controls (the table shifted by one
+              patch, (c v) order); two calls bitwise equal; the kernel's
+              shared memory from the C entry against ``embed_plan``; times
+              beside the plain version and index_select + matmul, fp32
+              and bf16 x.
 22. int8-slice -- SiT-base ``predict(quant="int8")`` at bs_val 64: launches
               (11 fused_block_int8, 1 fused_block_cls, 1 patch_embed a
               batch), against the float32 eager model (rel-L2 under 0.02)
@@ -259,7 +268,10 @@ same width and depth, every block at dh 32:
               SiT-small width and SiT-base, whose device kernels a call are
               held to its route (one few-query attention launch, LN1 in the
               epilogue up to dim 192), as are the 8-query attention
-              backward's alone (one launch).
+              backward's alone (one launch) and the CLS forward's, serving
+              and training (``cls_fwd_kernels``: one few-query forward, LN1
+              in the K/V product and Q made in the attention at dims 96 /
+              192, ``cls_fwd_launches`` kernels a call).
 30. mssit-train -- ``mssit_scan_age.yml``: four SGD steps of ``Trainer``
               (``fused_mssit_train_forward``) at a batch of 8 against the
               eager bf16 MSSiT under autograd (losses 1e-3, every update
@@ -593,6 +605,112 @@ def zero_keys_reference(fb, x, p, rows, heads=HEADS):
     return fb._out_proj_mlp(x[:, :rows], attn, *p[3:], 1e-5, x.dtype)
 
 
+def cls_raw_q_reference(fb, x, p, heads=HEADS, valid_len=None):
+    """The CLS block in float32 with Q made from the top rows of x itself,
+    not of LN1(x) (a control of the few-query forward's own Q)."""
+    rows, hd = min(8, x.shape[1]), heads * DH
+    vl = x.shape[1] if valid_len is None else valid_len
+    kv = fb._mm(fb._layer_norm(x, p[0], p[1], 1e-5), p[2][hd:])
+    attn = fb._attention(fb._mm(x[:, :rows], p[2][:hd]), kv[..., :hd], kv[..., hd:], heads,
+                         DH, vl, x.dtype)
+    return fb._out_proj_mlp(x[:, :rows], attn, *p[3:], 1e-5, x.dtype)
+
+
+def cls_fwd_controls(fb, dist, x, p, heads, vl) -> dict:
+    """Controls of the CLS forward: Q from un-normalised top rows; the last
+    64-key tile dropped (valid_len cut by 64 in the float32 plain run)."""
+    kw = dict(heads=heads, dim_head=DH)
+    return {"Q from un-normalised top rows": dist(
+                lambda xs: cls_raw_q_reference(fb, xs.float(), p, heads, vl)),
+            f"keys {vl - 64}..{vl - 1} dropped": dist(
+                lambda xs: fb.fused_block_cls_reference(xs.float(), *p, valid_len=vl - 64, **kw))}
+
+
+def cls_fwd_route_line(fb, label, N, dim) -> str:
+    """The CLS forward's route from the C entry (``svt_cls_fwd_route``)
+    against the Python rules (``cls_fwd_route``, ``cls_ln1_in_kv``)."""
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    rows = min(8, N)
+    got = _native.library().svt_cls_fwd_route(N, rows, dim)
+    want = (1 if fb.cls_fwd_route(N, rows) else 0) | (2 if fb.cls_ln1_in_kv(N, rows, dim) else 0)
+    if got != want:
+        raise AssertionError(f"{label}: svt_cls_fwd_route {got}, the Python rules {want}")
+    return (f"{label}: the CLS forward's route {got} from the C entry (1: the few-query "
+            f"attention, 2: LN1 in the K/V product and Q made in the attention), {want} by "
+            "the rules; "
+            f"{fb.cls_fwd_launches(N, dim)} device kernels a call by cls_fwd_launches "
+            "(counted in phase 29)")
+
+
+FEW_FWD = "flash_attention 8 queries"  # the few-query forward's counter and kernels row
+
+
+def few_fwd_row(fa) -> dict:
+    """The kernels line's row of the 8-query attention forward
+    (``few_query_fwd``, Q given) at the SiT-tiny CLS block's shape (B = 256,
+    3 heads, 8 queries, 321 keys), inputs from a generator of its own:
+    against the float32 plain version (its gate), device time beside the
+    plain version, SDPA and the bound."""
+    B, H, nq, nk, _ = FEW_TINY
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    q, k, v = (dev_randn(g, (B, H, n, DH), s) for n, s in ((nq, 1.5), (nk, 1.5), (nk, 1.0)))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o32, lse32 = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    obf, _ = fa.flash_attention_reference(q, k, v)
+    err = (o.float() - o32).abs().max().item()
+    bound = BOUND_STEPS * bf16_step(o32.abs().max().item())
+    ctl = (o.float() - fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                    nk - 64)[0]).abs().max().item()
+    kernels = device_kernels(lambda: fa.flash_attention_fwd(q, k, v))
+    ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), reps=5)
+    library = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    b_ms, b_by = attention_bound(B, H, nq, nk, (q, k, v, o, lse), (q,))[0]
+    phase("kernels", f"flash_attention forward B={B} H={H} Nq={nq} Nk={nk} (the few-query "
+          f"kernel, {len(kernels)} device kernel a call: "
+          f"{[n.split('namespace)::')[-1].split('(')[0] for n in kernels]}): max abs err vs "
+          f"fp32 plain {err:.6g}, vs plain bf16 {(o.float() - obf.float()).abs().max().item():.6g}, "
+          f"lse {(lse - lse32).abs().max().item():.3g}, bound {bound:.6g}; control (the last "
+          f"64 keys dropped) {ctl:.6g}; device time {ms:.4f} ms, SDPA {library:.4f} ms "
+          f"({ms / library:.3f}x), plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+          f"({b_ms / ms:.1%} of it)")
+    if max(err, (o.float() - obf.float()).abs().max().item()) > bound or ctl <= bound:
+        raise AssertionError("the few-query attention forward disagrees with its plain version")
+    if len(kernels) != 1 or "flash_fwd_few_kernel" not in kernels[0]:
+        raise AssertionError(f"the 8-query attention forward is not one few-query launch: "
+                             f"{kernels}")
+    return {"name": FEW_FWD, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": f"{FLASH_TPU}:203", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+
+
+def cls_fwd_kernels(kernels, N, dim) -> str:
+    """One CLS forward's device kernels (``device_kernels``) against its
+    route: on ``cls_fwd_route`` one attention launch, the few-query forward,
+    no streamed forward; LN1 in the K/V product where ``cls_ln1_in_kv``
+    (LN2's the only LayerNorm pass, no Q product); ``cls_fwd_launches``
+    kernels in all. -> a summary; raises where they disagree."""
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+
+    rows = min(8, N)
+    attn = [k for k in kernels if "flash_fwd" in k]
+    few = sum("flash_fwd_few_kernel" in k for k in attn)
+    ln = sum("layer_norm_kernel" in k for k in kernels)
+    epis = [GEMM_EPIS[int(m[1])] for k in kernels
+            if (m := re.search(r"gemm_kernel<[^>]*?(\d+)>", k))]
+    msg = (f"{len(kernels)} device kernels a call (rule {fb.cls_fwd_launches(N, dim)}), "
+           f"{len(attn)} attention launches ({few} of flash_fwd_few_kernel), "
+           f"{epis.count('F_LNA')} LN1 + K/V products, {ln} LayerNorm passes")
+    if len(kernels) != fb.cls_fwd_launches(N, dim):
+        raise AssertionError(f"the CLS forward's kernels do not follow its route: {msg}")
+    if fb.cls_fwd_route(N, rows) and (len(attn) != 1 or few != 1):
+        raise AssertionError(f"the CLS forward's attention is not one few-query launch: {msg}")
+    if fb.cls_ln1_in_kv(N, rows, dim) and (ln != 1 or epis.count("F_LNA") != 1):
+        raise AssertionError(f"the CLS forward's LN1 is not in the K/V product: {msg}")
+    return msg
+
+
 def phase_kernels(rng, fb, params, layer) -> dict:
     """Phase 3: each kernel at the block shape against a float32 plain run
     on the same bf16 inputs and weights (``params``: block 0 as the slice
@@ -634,6 +752,10 @@ def phase_kernels(rng, fb, params, layer) -> dict:
                     "zero-filled keys unmasked": dist(got, zero_keys_reference(
                         fb, x.float(), mats32, got.shape[1])),
                 }
+                if name == "fused_block_cls":
+                    controls.update(cls_fwd_controls(
+                        fb, lambda fn: dist(got, fn(x)), x, mats32, HEADS, vl))
+                    phase("kernels", cls_fwd_route_line(fb, f"{name} B={B} N={N}", N, DIM))
             else:
                 controls = {"valid_len=N, keys 321..327 unmasked": dist(
                     kernel(x, *params, valid_len=N, **kw).float(), ref32)}
@@ -663,6 +785,9 @@ def phase_kernels(rng, fb, params, layer) -> dict:
                                  "replaces": REPLACES[name], "max_abs_err": err,
                                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                  "bound_by": b_by, "library_ms": None}
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    results[FEW_FWD] = few_fwd_row(fa)
     return results
 
 
@@ -1160,6 +1285,7 @@ def phase_train(table) -> dict:
                 fused_block_bwd=11 * TRAIN_STEPS, fused_block_cls_bwd=TRAIN_STEPS,
                 patch_embed=TRAIN_STEPS)
     want["flash_attention_bwd 8 queries"] = TRAIN_STEPS  # one in each CLS backward
+    want[FEW_FWD] = TRAIN_STEPS  # one in each CLS forward
     phase("train", f"{TRAIN_STEPS} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={TRAIN_B}: "
           f"launches {launches}, expected {want}")
     phase("train", "losses kernel path " + " ".join(f"{v:.6g}" for v in k_loss))
@@ -1295,6 +1421,8 @@ def kernel_counters(fb) -> dict:
             # the few-query kernel, counted where it is launched (alone and
             # in the CLS block's backward chain)
             "flash_attention_bwd 8 queries": fa.few_query_bwd,
+            # the few-query forward, likewise (alone and in the CLS forward chain)
+            FEW_FWD: fa.few_query_fwd,
             "flash_attention_qkv": fa.flash_attention_qkv_fwd,
             "flash_attention_qkv_bwd": fa.flash_attention_qkv_bwd,
             "flash_attention_qkv_dropout": fa.flash_attention_qkv_dropout_fwd,
@@ -1705,6 +1833,9 @@ def phase_base_kernels(rng, fb, sit_module, m, bs) -> dict:
             "softmax scale x1.1": dist(lambda xs: plain(xs.float(), *q_scaled, **kw)),
             "zero-filled keys to 1344 unmasked": dist(lambda xs: zero_keys_reference(
                 fb, xs.float(), pr, got.shape[1], heads))}
+        if name == "fused_block_cls":
+            controls.update(cls_fwd_controls(fb, dist, x, pr, heads, N))
+            phase("base-kernels", cls_fwd_route_line(fb, f"{name} SiT-base B={B} N={N}", N, dim))
         phase("base-kernels", f"{name} SiT-base B={B} N={N}: max abs err vs fp32 plain "
               f"{err:.6g}, vs plain bf16 {err_bf16:.6g}, bound {bound:.6g} ({BOUND_STEPS} "
               "bf16 steps at the largest output); controls (must exceed the bound): "
@@ -1807,6 +1938,7 @@ def phase_base_slice(rng, fb, fused, exp, table, state) -> None:
     launches = read_counts(counters)
     want = {k: 0 for k in counters}
     want.update(fused_block=(m.depth - 1) * 2, fused_block_cls=2, patch_embed=2)
+    want[FEW_FWD] = 2  # one in each CLS forward
     phase("base-slice", f"predict(80 surfaces, batch 64): launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError("the SiT-base serving path did not launch as expected")
@@ -1918,6 +2050,7 @@ def phase_base_train(fb, exp, table) -> dict:
                     fused_block_recompute_bwd=blocks, flash_attention=blocks,
                     flash_attention_bwd=blocks, patch_embed=1)
     per_step["flash_attention_bwd 8 queries"] = 1  # the CLS backward's
+    per_step[FEW_FWD] = 1  # the CLS forward's
     want = {k: v * steps for k, v in per_step.items()}
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_loss, e_loss))
     phase("base-train", f"{steps} SGD steps (momentum 0.9, LR {TRAIN_LR}) at B={B}: "
@@ -3190,71 +3323,106 @@ def embed_plain_cv(x, idx, w, b):
     return (t @ w[:, :C * V].float().t() + b).to(w.dtype)
 
 
-def phase_patch_embed(rng, embed_launches) -> dict:
-    """Phase 21: the gather-fused patch_embed against the float32 and bf16
-    plain versions at sub-ico 2 (B=256, dim 192 and 384) and sub-ico 3
-    (B=64, dim 768), with controls; times beside the plain version,
-    index_select + torch.matmul, and the bound. -> the kernel's row (at
-    phase 4's shape, with phase 4's launches)."""
+def embed_case(pe, rng, sub_ico, B, dim, patches, failures) -> dict:
+    """One ``patch_embed`` case of phase 21: the kernel on fp32 x and on the
+    same x rounded to bf16 (the same tokens: the outputs must be the same
+    bits) against the float32 and bf16 plain versions, with controls; two
+    calls bitwise equal; the kernel's shared memory from the C entry
+    against ``embed_plan``; times, fp32 and bf16 x, beside the plain
+    version, index_select + addmm and the bound. -> the fp32 row's numbers."""
     from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.ops import _native
+
+    table = load_patch_table(6, sub_ico).indices[:patches]
+    L, V = table.shape
+    label = f"sub-ico {sub_ico} ({L} x {V}) B={B} dim {dim}"
+    idx = pe.table_tensor(table, "cuda")
+    x = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(np.float32)).cuda()
+    bd = 1.0 / np.sqrt(4 * V)
+    kernel = torch.from_numpy(rng.uniform(-bd, bd, (4 * V, dim)).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.uniform(-bd, bd, dim).astype(np.float32)).cuda()
+    means = rng.uniform(-1, 1, (1, 4, 1)).astype(np.float32)
+    stds = rng.uniform(0.5, 2, (1, 4, 1)).astype(np.float32)
+    w, b = pe.embed_matrix(kernel, bias, V, means=means, stds=stds)
+    x16 = x.bfloat16()
+    got = pe.patch_embed(x, idx, w, b)
+    again, got16 = pe.patch_embed(x, idx, w, b), pe.patch_embed(x16, idx, w, b)
+    same, same16 = torch.equal(got, again), torch.equal(got, got16)
+    got = got.float()
+    ref32 = pe.patch_embed_reference(x, idx, w.float(), b).float()
+    ref_bf = pe.patch_embed_reference(x, idx, w, b).float()
+    step = bf16_step(ref32.abs().max().item())
+    errs = {"vs fp32 plain": (got - ref32).abs().max().item(),
+            "vs plain bf16": (got - ref_bf).abs().max().item(),
+            "plain bf16 vs fp32 plain": (ref_bf - ref32).abs().max().item()}
+    controls = {
+        "table shifted by one patch": (got - pe.patch_embed_reference(
+            x, idx.roll(1, 0), w, b).float()).abs().max().item(),
+        "(c v) order": (got - embed_plain_cv(x, idx, w, b).float()).abs().max().item()}
+    smem = (_native.library().svt_patch_embed_smem(L, V, w.shape[1], dim),
+            pe.embed_plan(L, V, w.shape[1], dim)["bytes"])
+    phase("patch-embed", f"{label} (K {4 * V} -> {w.shape[1]}): max |err| "
+          + ", ".join(f"{k} {v / step:.3f}" for k, v in errs.items())
+          + f" bf16 steps at the largest output (gate {BOUND_STEPS}); "
+          f"{(got != ref_bf).float().mean().item():.4%} of outputs differ from plain bf16; "
+          f"controls: " + ", ".join(f"{k} {v / step:.1f}" for k, v in controls.items())
+          + f"; two calls bitwise equal {same}, bf16 x gives fp32 x's bits {same16}; shared "
+          f"memory {smem[0]} bytes from the C entry, {smem[1]} by embed_plan")
+    if not bool(torch.isfinite(got).all()) or max(errs["vs fp32 plain"],
+                                                  errs["vs plain bf16"]) > BOUND_STEPS * step:
+        failures.append(f"patch_embed {label}")
+    if min(controls.values()) <= BOUND_STEPS * step:
+        failures.append(f"patch_embed {label}: a control passed the gate")
+    if not (same and same16) or smem[0] != smem[1]:
+        failures.append(f"patch_embed {label}: not bitwise repeatable, or its plan disagrees")
+    flat = idx.reshape(-1)
+    wt = w[:, :4 * V].t()
+    out = {}
+    for xx, name in ((x, "fp32"), (x16, "bf16")):
+        def library():  # index_select + torch.matmul: the library form
+            t = xx.index_select(2, flat).view(B, 4, L, V).permute(0, 2, 3, 1).reshape(B, L, 4 * V)
+            return torch.addmm(b.bfloat16(), t.bfloat16().reshape(B * L, -1), wt)
+
+        ms = cuda_ms(lambda: pe.patch_embed(xx, idx, w, b))
+        plain_ms = cuda_ms(lambda: pe.patch_embed_reference(xx, idx, w, b), reps=5)
+        lib_ms = cuda_ms(library)
+        flops = 2 * B * L * 4 * V * dim
+        nbytes = nbytes_of(xx, idx, w, b) + got.numel() * 2
+        b_ms, b_by = bound_ms(flops, nbytes)
+        phase("patch-embed", f"{label} {name} x: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_select + addmm {lib_ms:.4f} ms (CUDA-event medians of 25 / 5 / 25); bound "
+              f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, "
+              f"{b_ms / ms:.1%} of it)")
+        out[name] = {"max_abs_err": errs["vs fp32 plain"], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    del x, x16, got, got16, again, ref32, ref_bf
+    torch.cuda.empty_cache()
+    return out["fp32"]
+
+
+# phase 21's cases past EMBED_CASES, from a generator of their own (the
+# phases after 21 draw the data their gates were set on): sub-ico 5, and a
+# ragged one, sub-ico 2's first 300 patches at B = 3 (the kernel's last
+# group of 64 patches runs past L). (sub_ico, B, dim, patches kept)
+EMBED_EXTRA = [(5, 64, 96, None), (2, 3, 192, 300)]
+
+
+def phase_patch_embed(rng, embed_launches) -> dict:
+    """Phase 21: the gather-fused patch_embed (``embed_case``) at sub-ico 2
+    (B=256, dim 192 and 384) and sub-ico 3 (B=64, dim 768), then at
+    ``EMBED_EXTRA``. -> the kernel's row (at phase 4's shape, fp32 x, with
+    phase 4's launches)."""
     from surface_vision_transformers_tpu_torch.ops import patch_embed as pe
 
     failures, row = [], None
     for sub_ico, B, dim in EMBED_CASES:
-        table = load_patch_table(6, sub_ico).indices
-        L, V = table.shape
-        idx = pe.table_tensor(table, "cuda")
-        x = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(np.float32)).cuda()
-        bd = 1.0 / np.sqrt(4 * V)
-        kernel = torch.from_numpy(rng.uniform(-bd, bd, (4 * V, dim)).astype(np.float32)).cuda()
-        bias = torch.from_numpy(rng.uniform(-bd, bd, dim).astype(np.float32)).cuda()
-        means = rng.uniform(-1, 1, (1, 4, 1)).astype(np.float32)
-        stds = rng.uniform(0.5, 2, (1, 4, 1)).astype(np.float32)
-        w, b = pe.embed_matrix(kernel, bias, V, means=means, stds=stds)
-        got = pe.patch_embed(x, idx, w, b).float()
-        ref32 = pe.patch_embed_reference(x, idx, w.float(), b).float()
-        ref_bf = pe.patch_embed_reference(x, idx, w, b).float()
-        step = bf16_step(ref32.abs().max().item())
-        errs = {"vs fp32 plain": (got - ref32).abs().max().item(),
-                "vs plain bf16": (got - ref_bf).abs().max().item(),
-                "plain bf16 vs fp32 plain": (ref_bf - ref32).abs().max().item()}
-        controls = {
-            "table shifted by one patch": (got - pe.patch_embed_reference(
-                x, idx.roll(1, 0), w, b).float()).abs().max().item(),
-            "(c v) order": (got - embed_plain_cv(x, idx, w, b).float()).abs().max().item()}
-        phase("patch-embed", f"sub-ico {sub_ico} ({L} x {V}, K {4 * V} -> {w.shape[1]}) B={B} "
-              f"dim {dim}: max |err| " + ", ".join(f"{k} {v / step:.3f}" for k, v in errs.items())
-              + f" bf16 steps at the largest output (gate {BOUND_STEPS}); controls: "
-              + ", ".join(f"{k} {v / step:.1f}" for k, v in controls.items()))
-        if not bool(torch.isfinite(got).all()) or max(errs["vs fp32 plain"],
-                                                      errs["vs plain bf16"]) > BOUND_STEPS * step:
-            failures.append(f"patch_embed sub-ico {sub_ico} dim {dim}")
-        if min(controls.values()) <= BOUND_STEPS * step:
-            failures.append(f"patch_embed sub-ico {sub_ico} dim {dim}: a control passed the gate")
-        flat = idx.reshape(-1)
-        wt = w[:, :4 * V].t()
-
-        def library():  # index_select + torch.matmul: the library form
-            t = x.index_select(2, flat).view(B, 4, L, V).permute(0, 2, 3, 1).reshape(B, L, 4 * V)
-            return torch.addmm(b.bfloat16(), t.bfloat16().reshape(B * L, -1), wt)
-
-        ms = cuda_ms(lambda: pe.patch_embed(x, idx, w, b))
-        plain_ms = cuda_ms(lambda: pe.patch_embed_reference(x, idx, w, b), reps=5)
-        lib_ms = cuda_ms(library)
-        flops = 2 * B * L * 4 * V * dim
-        nbytes = nbytes_of(x, idx, w, b) + got.numel() * 2
-        b_ms, b_by = bound_ms(flops, nbytes)
-        phase("patch-embed", f"sub-ico {sub_ico} B={B} dim {dim}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, index_select + addmm {lib_ms:.4f} ms (CUDA-event medians of "
-              f"25 / 5 / 25); bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
+        nums = embed_case(pe, rng, sub_ico, B, dim, None, failures)
         if (sub_ico, B, dim) == (2, 256, 192):
             row = {"name": "patch_embed", "route": "cuda", "source": EMBED_SOURCE,
-                   "replaces": EMBED_TPU, "launches": embed_launches,
-                   "max_abs_err": errs["vs fp32 plain"], "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        del x, got, ref32, ref_bf
-        torch.cuda.empty_cache()
+                   "replaces": EMBED_TPU, "launches": embed_launches, **nums}
+    own = np.random.default_rng(SEED + 21)
+    for sub_ico, B, dim, patches in EMBED_EXTRA:
+        embed_case(pe, own, sub_ico, B, dim, patches, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     return row
@@ -3282,6 +3450,7 @@ def phase_int8_slice(rng, fb, fused, exp, table, state, tiny) -> int:
     want = {k: 0 for k in counters}
     want.update(fused_block_int8=(m.depth - 1) * n_batches, fused_block_cls=n_batches,
                 patch_embed=n_batches)
+    want[FEW_FWD] = n_batches  # one in each CLS forward
     phase("int8-slice", f"predict({INT8_SLICE_N} surfaces, batch {bs}, quant int8): launches "
           f"{launches}, expected {want}")
     if launches != want:
@@ -3394,6 +3563,7 @@ def phase_int8_entry(fb, tiny_cfg, tiny_tree, tiny_data, tiny_labels) -> None:
         want = {k: 0 for k in counters}
         want.update(fused_block_int8=(BASE_ENTRY_DEPTH - 1) * 2, fused_block_cls=2,
                     patch_embed=2)
+        want[FEW_FWD] = 2  # one in each CLS forward
         err = float(np.abs(cli_preds - same).max())
         phase("int8-entry", f"cli.test {BASE_CFG.relative_to(ROOT)} --set tpu.quant=int8 "
               f"(depth {BASE_ENTRY_DEPTH}) in {secs:.1f} s: {reported}; launches {launches}, "
@@ -4866,6 +5036,35 @@ def cls_chain_bytes(B, N, dim, heads, mlp, rows=8, ln1_epilogue=None) -> int:
     return mlp_b + rest + ln1
 
 
+def cls_fwd_chain_bytes(B, N, dim, heads, mlp, rows=8, train=False, design=None) -> int:
+    """HBM bytes of the CLS block's forward chain (``fused_block_cls``; with
+    ``train``, the training form and its saves), each launch's inputs read
+    and outputs written once, the weights aside, as ``chain_bytes`` counts
+    the full block's. ``design`` None: this tree's route
+    (``fused_block.cls_fwd_route``, ``cls_ln1_in_kv``):
+    [LN1 + K/V] (x in, kv out; training: h1 and stats1 too) or LN1 and K/V
+    (h written and read), the few-query attention reading x's top rows and
+    kv and writing attn (training: q and lse), the out-projection, LN2, fc1
+    and fc2 on the top rows. "eight":
+    the eight launches (LN1, K/V, Q, the streamed attention, out-proj, LN2,
+    fc1, fc2), the chain before the few-query forward."""
+    from surface_vision_transformers_tpu_torch.ops.fused_block import cls_fwd_route, cls_ln1_in_kv
+
+    s = _cls_sizes(B, N, dim, heads, mlp, rows)
+    x, kv, xt, ht, at = s["x"], s["kv"], s["xt"], s["ht"], s["at"]
+    saves = (s["st"] + s["lse"] + 2 * ht + s["stt"]) if train else 0  # stats1, lse, fpre, stats2
+    tail = (xt + xt) + (xt + ht) + (ht + xt + xt) + (xt + ht + xt if train else 0)  # LN2, fc1, fc2
+    if design == "eight" or not cls_fwd_route(N, rows):
+        head = (x + x) + (x + kv) + (xt + at) + (at + kv + at)  # LN1, K/V, Q, attention
+        return head + (at + xt + xt) + tail + saves
+    if cls_ln1_in_kv(N, rows, dim):
+        head = x + kv + (x if train else 0)  # h1 kept by the training form
+    else:
+        head = (x + x) + (x + kv)
+    head += xt + kv + at + (at if train else 0)  # the attention: x's top rows in, q kept
+    return head + (at + xt + xt) + tail + saves
+
+
 def phase_mssit_train_kernels(rng, fb, sit_module) -> dict:
     """Phase 29: the MS-SiT training path's kernels at dh 32 at the shapes a
     batch of 64 gives them (MSSIT_FOLDS): the attention backward (through
@@ -5438,13 +5637,14 @@ def main() -> None:
     want = {k: 0 for k in counters}
     want.update(fused_block=(DEPTH - 1) * n_batches, fused_block_cls=n_batches,
                 patch_embed=n_batches)
+    want[FEW_FWD] = n_batches  # one in each CLS forward
     phase("slice", f"predict(300 surfaces, batch 256): launches {launches}, "
           f"expected {want}")
     if launches != want:
         raise AssertionError("the main path did not launch every kernel as expected")
     if preds.shape != (300, 1) or not np.isfinite(preds).all():
         raise AssertionError(f"bad predictions: shape {preds.shape}")
-    for name in ("fused_block", "fused_block_cls"):
+    for name in ("fused_block", "fused_block_cls", FEW_FWD):
         kernels[name]["launches"] = launches[name]
     embed_launches = launches["patch_embed"]
 

@@ -18,8 +18,11 @@ beside the whole; the CLS chain also beside its floor
 (``chip_smoke.cls_chain_bytes``, with LN1 in the epilogue where this tree
 puts it and with the standalone pass), with its device kernels a call held
 to its route (``chip_smoke.cls_kernels``: one few-query attention launch,
-LN1 in dkv W_kv's epilogue up to dim 192), and the 8-query attention
-backward alone at the CLS shapes held to one launch of its kernel. ``chip_smoke.py`` phase 29 runs this
+LN1 in dkv W_kv's epilogue up to dim 192), its forward's, serving and
+training, likewise (``chip_smoke.cls_fwd_kernels``: one few-query forward,
+LN1 in the K/V product and Q made in it at dims 96 / 192), and the 8-query
+attention forward and backward alone at the CLS shapes held to one launch
+of their kernels. ``chip_smoke.py`` phase 29 runs this
 script in a process of its own: late in a long run the profiler there
 dropped launches. Needs a CUDA device; imports nothing of JAX.
 """
@@ -96,6 +99,11 @@ def cls_cases(g) -> None:
             return fb.fused_block_cls_bwd(x, gy, *pb, saved=sv, **kw)
 
         print(f"{label}: timing", file=sys.stderr, flush=True)
+        fwd = [cs.cls_fwd_kernels(cs.device_kernels(f), N, dim) for f in (
+            lambda: fb.fused_block_cls(x, *pb, **kw),
+            lambda: fb.train_forward(x, *pb, cls=True, **kw))]
+        print(f"{label}: the CLS forward's device kernels, serving: {fwd[0]}; training: "
+              f"{fwd[1]}", flush=True)
         whole = cs.device_ms(call)
         route = cs.cls_kernels(cs.device_kernels(call), N, dim)
         parts = cs.chain_parts(call, dw_names=cs.CLS_DW_NAMES)
@@ -111,11 +119,18 @@ def cls_cases(g) -> None:
 
 
 def few_route_cases(g) -> None:
-    """The attention backward of 8 query rows (``flash_attention_bwd``) at the
-    CLS shapes: one launch a call, of the few-query kernel."""
+    """The attention forward and backward of 8 query rows
+    (``flash_attention_fwd`` / ``_bwd``) at the CLS shapes: one launch a
+    call each, of the few-query kernels."""
     for B, H, nq, nk in cs.FEW_BUSY_SHAPES:
         q, do = cs.dev_randn(g, (B, H, nq, cs.DH), 1.5), cs.dev_randn(g, (B, H, nq, cs.DH))
         k, v = cs.dev_randn(g, (B, H, nk, cs.DH), 1.5), cs.dev_randn(g, (B, H, nk, cs.DH))
+        kernels = cs.device_kernels(lambda: fa.flash_attention_fwd(q, k, v))
+        print(f"flash_attention_fwd B={B} H={H} Nq={nq} Nk={nk}: device kernels a call "
+              f"{[n.split('namespace)::')[-1].split('(')[0] for n in kernels]} (must be one "
+              "flash_fwd_few_kernel)", flush=True)
+        if len(kernels) != 1 or "flash_fwd_few_kernel" not in kernels[0]:
+            raise SystemExit("bwd_chain_parts: the few-query forward is not one launch")
         o, lse = fa.flash_attention_fwd(q, k, v)
         kernels = cs.device_kernels(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
         print(f"flash_attention_bwd B={B} H={H} Nq={nq} Nk={nk}: device kernels a call "

@@ -57,8 +57,8 @@ ENTRIES = ("svt_fused_block_cls_bwd", "svt_block_bwd_workspace", "svt_block_bwd_
 class Other:
     """The other library's entries, declared with this tree's C signatures."""
 
-    def __init__(self, lib, this_lib):
-        for name in ENTRIES:
+    def __init__(self, lib, this_lib, entries=ENTRIES):
+        for name in entries:
             fn, ref = getattr(lib, name), getattr(this_lib, name)
             fn.argtypes, fn.restype = ref.argtypes, ref.restype
             setattr(self, name, fn)

@@ -463,6 +463,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
   "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
 
+// The n96 form with both operands in shared memory (the patch embedding at
+// dim 96, patch_embed.cu): d (64 x 96) (+)= A (64 x 16) B (16 x 96);
+// columns 8 j + 2 t + (e & 1) for j < 12.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " SVT_WG_R48
+               ", %48, %49, p, 1, 1, %51, %52;\n}\n"
+               : SVT_WG_D48
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // The fused MLP's fc2 (fused_mlp.cu): d (64 x 96) (+)= A (64 x 16) from
 // registers (the GELU'd fc1 chunk as an mma.sync m16k16 fragment per warp)
 // B (16 x 96) from shared memory; columns 8 j + 2 t + (e & 1) for j < 12.

@@ -27,13 +27,20 @@
 // of an SM, overlap each other's softmax and products. Three tilings, by
 // shape: past 512 keys, BK = 128 and W = 3 (192 queries, one CTA per SM)
 // where that grid still fills the card twice, else W = 1 (two CTAs per SM;
-// the CLS block's 8 queries, the long-sequence entry's few (sample,
-// head)s); up to 512 keys, BK = 64 and W = 1 (three CTAs per SM, whose
+// the long-sequence entry's few (sample, head)s); up to 512 keys, BK = 64
+// and W = 1 (three CTAs per SM, whose
 // short loops' prologues and epilogues overlap). PERF.md has the tilings
 // measured beside these and lost (two warpgroups taking turns to issue
 // their products among them). O leaves through the warpgroup's Q tile in
 // 16-byte row pieces; lse = m / 8 + log l when asked for. No CTA depends
 // on another.
+//
+// Forward at head dim 64 for at most 8 queries against more keys (up to
+// 4,096), without dropout (the CLS block's 8 query rows; few_query_fwd),
+// one launch: flash_fwd_few_kernel, one CTA a (sample, head), the queries
+// on the short side of m64n8 products, every key's scores in shared memory
+// for an exact softmax; in the CLS chain it makes its own Q (below, at the
+// kernel).
 //
 // Backward at head dim 32 up to 320 keys, queries = keys, without dropout
 // (every MS-SiT fold; resident_bwd), one launch: flash_bwd_resident_kernel
@@ -1498,6 +1505,347 @@ cudaError_t launch_few(const Strided& q, const Strided& k, const Strided& v, con
   return cudaGetLastError();
 }
 
+// -- forward, few queries (nq <= 8 < nk <= FEW_FWD_MAX_KEYS, head dim 64, no dropout) --
+//
+// The CLS block's 8 query rows against all N keys (few_query_fwd), one
+// launch: one CTA, one warpgroup, a (sample, head). Where the streamed
+// forward gave them a 64-row query tile (7/8 of every S and P.V product on
+// padding) and an online softmax rescaled across the key tiles, this one
+// puts the queries on the short side of m64n8 products and keeps the fp32
+// scores of every key in shared memory (32 bytes a key), so the softmax is
+// exact, in two passes:
+//   S^T = K Q^T       m64n8k16 (keys M, queries N), K in 64-key tiles; the
+//                     scores to shared memory as [key][query], keys >=
+//                     valid_len at -inf, and each query's max
+//   P^T               from the stored scores and the max, rounded to bf16 as
+//                     [query][key] (the B operand below); the fp32 row sums
+//                     of the unrounded P
+//   O^T += V^T P^T    m64n8k16 (dh M, queries N), V read MN-major, in 64-key
+//                     tiles
+// O = O^T / l rounded once, lse = m / 8 + log l (the streamed forward's
+// convention, which flash_bwd_few_kernel reads). K and V stream by TMA
+// (thread 0 issues, an mbarrier a stage) through a ring of 64 x 64 tiles (K
+// tiles first, then V tiles: one pass each); its depth is what three CTAs
+// an SM leave beside the scores (few_fwd_stages).
+//
+// MAKE_Q (the CLS block's chain, FewQ): the CTA makes its own Q from the
+// block's input: the LayerNorm of the sample's top rows (one warp a row,
+// layer_norm_kernel's sums in its order, so h's bits), then Q^T = W_q,h
+// h^T (m64n8k16, the head's 64 rows of W_q streamed through the same ring
+// ahead of the keys, 64 columns of dim a stage), rounded to bf16 where the
+// chain rounds q; the training form also writes Q to its save. No
+// workspace, no atomics, every sum in a fixed order: the outputs repeat bit
+// for bit.
+
+constexpr int FEW_FWD_MAX_KEYS = 4096;  // 128 KB of fp32 scores
+constexpr int FEW_Q_MAX_DIM = 256;      // MAKE_Q: the LN1 rows' values, 8 a lane of a row
+constexpr int FEW_FWD_MAX_STAGES = 8;
+constexpr int SM_SMEM = 233472;  // an H100 SM's shared memory; a CTA reserves 1 KB of it
+
+// Shared memory of the few-query forward: the ring of `stages` 64 x 64
+// tiles, Q^T's B tile, P^T's, then the scores, whose room holds the
+// normalised top rows ([8][64] tiles, MAKE_Q) before the first score.
+struct FewFwdLayout {
+  int ring, q, p, s, red, bars, bytes;
+  __host__ __device__ FewFwdLayout(int tiles, int qchunks, int stages) {
+    ring = 0;
+    q = ring + stages * 64 * 64 * 2;
+    p = q + FEW_MAX_Q * 64 * 2;
+    s = p + FEW_MAX_Q * 64 * 2;
+    const int scores = tiles * 64 * FEW_MAX_Q * 4, rows = qchunks * FEW_MAX_Q * 64 * 2;
+    red = s + (scores > rows ? scores : rows);
+    bars = red + 2 * 4 * FEW_MAX_Q * 4;
+    bytes = bars + stages * 8;
+  }
+};
+
+// Ring stages at these shapes: as many CTAs an SM as a ring of two stages
+// lets fit, then the deepest ring (up to FEW_FWD_MAX_STAGES) that keeps them
+// there. scripts/few_fwd_variants.py has the rules measured beside it.
+__host__ __device__ inline int few_fwd_stages(int tiles, int qchunks) {
+  const int stage = 64 * 64 * 2 + 8;
+  const int fixed = FewFwdLayout(tiles, qchunks, 0).bytes + 2048;  // + alignment, reservation
+  int ctas = SM_SMEM / (fixed + 2 * stage);
+  ctas = ctas < 1 ? 1 : ctas > 8 ? 8 : ctas;
+  const int room = (SM_SMEM / ctas - fixed) / stage;
+  return room < 2 ? 2 : room > FEW_FWD_MAX_STAGES ? FEW_FWD_MAX_STAGES : room;
+}
+
+template <bool MAKE_Q>
+__global__ void __launch_bounds__(128, 8)
+    flash_fwd_few_kernel(const Strided q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_w, bool hf_k, bool hf_v,
+                         const Strided o, float* __restrict__ lse, int nq, int nk,
+                         int valid_len, const FewQ fq) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int h = blockIdx.x, b = blockIdx.y, heads = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's key (or dh) rows: r0, r0 + 8
+  const int kend = min(valid_len, nk), tiles = ceil_div(kend, 64);
+  const int qc = MAKE_Q ? ceil_div(fq.dim, 64) : 0;  // W_q chunks ahead of the keys
+  const int items = qc + 2 * tiles, nst = few_fwd_stages(tiles, qc);
+  const FewFwdLayout lay(tiles, qc, nst);
+  bf16* ring = reinterpret_cast<bf16*>(base + lay.ring);
+  bf16* sq = reinterpret_cast<bf16*>(base + lay.q);  // [query][dh], 128-byte swizzle
+  bf16* sp = reinterpret_cast<bf16*>(base + lay.p);  // [query][key] of a tile, same
+  bf16* sh = reinterpret_cast<bf16*>(base + lay.s);  // MAKE_Q: [chunk][query][64], then
+  float* sc = reinterpret_cast<float*>(base + lay.s);  // the scores: [key][query] fp32
+  float* red = reinterpret_cast<float*>(base + lay.red);  // [2][warp][query]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + lay.bars);  // a ring stage has landed
+
+  // item i into ring stage i % nst by TMA (thread 0): W_q's chunk i of the
+  // head's rows (MAKE_Q), then the K tiles, then the V tiles; zeros past
+  // dim and past the tensors' rows
+  auto load_item = [&](int i) {
+    const int st = i % nst;
+    bf16* dst = ring + st * 64 * 64;
+    mbar_expect(&full[st], 64 * 64 * 2);
+    if (MAKE_Q && i < qc) {
+      tma_load_3d(dst, tm_w, &full[st], 64 * i, h * 64, 0);
+      return;
+    }
+    const int j = i - qc, isv = j >= tiles, k0 = 64 * (isv ? j - tiles : j);
+    tma_tile(dst, isv ? tm_v : tm_k, &full[st], k0, h, b, isv ? hf_v : hf_k);
+  };
+  // the top of item i's step: it has landed, and every thread is done with
+  // item i - 1's stage, which then takes item i + nst - 1
+  auto next_item = [&](int i) {
+    const int st = i % nst;
+    mbar_wait(&full[st], (i / nst) & 1);
+    __syncthreads();
+    if (tid == 0 && i + nst - 1 < items) load_item(i + nst - 1);
+    return ring + st * 64 * 64;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < nst; ++i) mbar_init(&full[i], 1);
+    fence_async_smem();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < nst - 1 && i < items; ++i) load_item(i);
+
+  if (!MAKE_Q) {  // Q's rows, zeros past nq
+    if (tid < 64) {
+      const int r = tid >> 3, ch = tid & 7;
+      const bool ok = r < nq;
+      cp_async16(sq + sw128(r, ch * 8), ok ? q.row(b, h, r) + ch * 8 : q.p, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();  // the first K step's barrier makes the tile everyone's
+  }
+
+  if (MAKE_Q) {
+    // the LayerNorm of the top rows (warp w: rows w, w + 4) into the [8][64]
+    // tiles, rows >= nq and columns >= dim zero; layer_norm_kernel's sums in
+    // its order, from the rows' values loaded once into registers
+    for (int i = tid; i < qc * FEW_MAX_Q * 8; i += 128)
+      *reinterpret_cast<uint4*>(sh + i * 8) = make_uint4(0u, 0u, 0u, 0u);
+    const int dim = fq.dim;
+    constexpr int M = FEW_Q_MAX_DIM / 32;  // values a lane of a row
+    float xv[2][M];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = warp + 4 * rr;
+      const bf16* xr = fq.x + ((long long)b * nk + row) * dim;
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        xv[rr][m] = row < nq && lane + 32 * m < dim ? __bfloat162float(xr[lane + 32 * m]) : 0.f;
+    }
+    __syncthreads();  // the zeros are down before any row's values
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = warp + 4 * rr;
+      if (row >= nq) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        if (lane + 32 * m < dim) s += xv[rr][m];
+      const float mu = warp_sum(s) / dim;
+      float var = 0.f;
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        if (lane + 32 * m < dim) {
+          const float d = xv[rr][m] - mu;
+          var += d * d;
+        }
+      const float rstd = rsqrtf(warp_sum(var) / dim + fq.eps);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int i = lane + 32 * m;
+        if (i < dim)
+          sh[(i >> 6) * FEW_MAX_Q * 64 + sw128(row, i & 63)] =
+              __float2bfloat16((xv[rr][m] - mu) * rstd * fq.gamma[i] + fq.beta[i]);
+      }
+    }
+    fence_async_smem();  // the first W step's barrier makes the rows everyone's
+    // Q^T = W_q,h h^T over the dim chunks, then bf16 into the Q tile (the
+    // rows' room then takes the scores: the first K tile's barrier is past
+    // every product that read it)
+    float qa[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < qc; ++c) {
+      const bf16* wt = next_item(c);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss<0, 0>(qa, sw128_desc(wt + ks * 16),
+                       sw128_desc(sh + c * FEW_MAX_Q * 64 + ks * 16), c > 0 || ks > 0);
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(qa);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // dh row r0 + 8 (e >> 1), query 2 t + (e & 1)
+      sq[sw128(2 * t + (e & 1), r0 + 8 * (e >> 1))] = __float2bfloat16(qa[e]);
+    fence_async_smem();
+  }
+
+  // pass 1: S^T = K Q^T per key tile; the scores to shared memory, the max
+  float mx[2] = {-INFINITY, -INFINITY};  // queries 2t, 2t + 1 over this thread's keys
+  for (int j = 0; j < tiles; ++j) {
+    const bf16* kt = next_item(qc + j);
+    if (MAKE_Q && j == 0 && fq.q_out != nullptr && tid < nq * 8) {  // the training save
+      const int r = tid >> 3, ch = tid & 7;
+      *reinterpret_cast<uint4*>(fq.q_out + ((long long)b * nq + r) * heads * 64 + h * 64 +
+                                ch * 8) = *reinterpret_cast<const uint4*>(sq + sw128(r, ch * 8));
+    }
+    float s[4];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<0, 0>(s, sw128_desc(kt + ks * 16), sw128_desc(sq + ks * 16), ks);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(s);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int key = 64 * j + r0 + 8 * rr;
+      const bool ok = key < kend;
+      const float2 val = make_float2(ok ? s[2 * rr] : -INFINITY, ok ? s[2 * rr + 1] : -INFINITY);
+      *reinterpret_cast<float2*>(sc + key * FEW_MAX_Q + 2 * t) = val;
+      mx[0] = fmaxf(mx[0], val.x);
+      mx[1] = fmaxf(mx[1], val.y);
+    }
+  }
+#pragma unroll
+  for (int x = 4; x < 32; x *= 2) {
+    mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], x));
+    mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], x));
+  }
+  if (g == 0) *reinterpret_cast<float2*>(red + warp * FEW_MAX_Q + 2 * t) = make_float2(mx[0], mx[1]);
+
+  // pass 2: P^T of each key tile from the scores, O^T += V^T P^T; thread
+  // tid forms key tid / 2 of the tile for queries qb .. qb + 3
+  const int qb = 4 * (tid & 1), kk = tid >> 1;
+  float ms[4], lsum[4] = {0.f, 0.f, 0.f, 0.f};
+  float oa[4] = {0.f, 0.f, 0.f, 0.f};  // O^T: dh rows r0, r0 + 8; queries 2t, 2t + 1
+  for (int j = 0; j < tiles; ++j) {
+    const bf16* vt = next_item(qc + tiles + j);
+    if (j == 0) {  // every warp's max is in `red` (the step's barrier)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float m = fmaxf(fmaxf(red[qb + i], red[FEW_MAX_Q + qb + i]),
+                              fmaxf(red[2 * FEW_MAX_Q + qb + i], red[3 * FEW_MAX_Q + qb + i]));
+        ms[i] = m * SoftmaxScale<ATT_DH>::slog2;
+      }
+    }
+    const float4 sv = *reinterpret_cast<const float4*>(sc + (64 * j + kk) * FEW_MAX_Q + qb);
+    const float pv[4] = {exp2_approx(fmaf(sv.x, SoftmaxScale<ATT_DH>::slog2, -ms[0])),
+                         exp2_approx(fmaf(sv.y, SoftmaxScale<ATT_DH>::slog2, -ms[1])),
+                         exp2_approx(fmaf(sv.z, SoftmaxScale<ATT_DH>::slog2, -ms[2])),
+                         exp2_approx(fmaf(sv.w, SoftmaxScale<ATT_DH>::slog2, -ms[3]))};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lsum[i] += pv[i];
+      sp[sw128(qb + i, kk)] = __float2bfloat16(pv[i]);
+    }
+    fence_async_smem();
+    __syncthreads();  // P^T of the tile is in shared memory
+    wg_fence();
+#pragma unroll
+    for (int G = 0; G < 4; ++G)
+      wgmma_ss<1, 0>(oa, sw128_desc(vt + G * 16 * 64), sw128_desc(sp + G * 16), j > 0 || G > 0);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(oa);
+  }
+
+  // l per query: over the lanes of this thread's parity, then the warps in order
+#pragma unroll
+  for (int x = 2; x < 32; x *= 2)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], x);
+  float* lred = red + 4 * FEW_MAX_Q;
+  if (lane < 2)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lred[warp * FEW_MAX_Q + qb + i] = lsum[i];
+  __syncthreads();  // and every thread is past its products: the Q tile takes O
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qq = 2 * t + e;
+    inv[e] = 1.f / (((lred[qq] + lred[FEW_MAX_Q + qq]) + lred[2 * FEW_MAX_Q + qq]) +
+                    lred[3 * FEW_MAX_Q + qq]);
+  }
+  if (lse != nullptr && tid < nq) {
+    const float l = ((lred[tid] + lred[FEW_MAX_Q + tid]) + lred[2 * FEW_MAX_Q + tid]) +
+                    lred[3 * FEW_MAX_Q + tid];
+    const float m = fmaxf(fmaxf(red[tid], red[FEW_MAX_Q + tid]),
+                          fmaxf(red[2 * FEW_MAX_Q + tid], red[3 * FEW_MAX_Q + tid]));
+    lse[((long long)b * heads + h) * nq + tid] = m * SoftmaxScale<ATT_DH>::scale + logf(l);
+  }
+  // O through the Q tile as [query][dh] rows, then out in 16-byte pieces
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    sq[(2 * t + (e & 1)) * 64 + r0 + 8 * (e >> 1)] = __float2bfloat16(oa[e] * inv[e & 1]);
+  __syncthreads();
+  if (tid < nq * 8) {
+    const int r = tid >> 3, ch = tid & 7;
+    *reinterpret_cast<uint4*>(o.row(b, h, r) + ch * 8) =
+        *reinterpret_cast<const uint4*>(sq + r * 64 + ch * 8);
+  }
+}
+
+cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
+                       bool heads_first, int rows, int dh, bool native);
+
+template <bool MAKE_Q>
+cudaError_t launch_few_fwd(const Strided& q, const Strided& k, const Strided& v,
+                           const Strided& o, float* lse, int B, int heads, int nq, int nk,
+                           int valid_len, const FewQ& fq, cudaStream_t st) {
+  static bool ready[16];  // the shared-memory limit, set once per device to the card's
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || !ready[dev]) {
+    e = cudaFuncSetAttribute(flash_fwd_few_kernel<MAKE_Q>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) ready[dev] = true;
+  }
+  const bool hf_k = k.sh < k.sr, hf_v = v.sh < v.sr;
+  CUtensorMap tm_k, tm_v, tm_w;
+  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, 64, ATT_DH, true)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, 64, ATT_DH, true)) != cudaSuccess) return e;
+  tm_w = tm_k;  // unused unless MAKE_Q
+  if (MAKE_Q) {  // W_q (heads * 64, dim): [64 rows][64 columns] boxes
+    const cuuint64_t dims[3] = {(cuuint64_t)fq.dim, (cuuint64_t)heads * 64, 1};
+    const cuuint64_t strides[2] = {(cuuint64_t)fq.dim * 2, (cuuint64_t)heads * 64 * fq.dim * 2};
+    const cuuint32_t box[3] = {64, 64, 1};
+    if ((e = encode_tiled(&tm_w, 3, fq.wq, dims, strides, box)) != cudaSuccess) return e;
+  }
+  const int tiles = ceil_div(std::min(valid_len, nk), 64), qc = MAKE_Q ? ceil_div(fq.dim, 64) : 0;
+  const FewFwdLayout lay(tiles, qc, few_fwd_stages(tiles, qc));
+  flash_fwd_few_kernel<MAKE_Q><<<dim3(heads, B), 128, lay.bytes + 1024, st>>>(
+      q, tm_k, tm_v, tm_w, hf_k, hf_v, o, lse, nq, nk, valid_len, fq);
+  return cudaGetLastError();
+}
+
 // -- forward, resident (head dim 32, N <= 320, no dropout) --------------------
 //
 // One CTA (one warpgroup) per 64-row query tile of a unit: `pack` sequences
@@ -1945,6 +2293,8 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
     return cudaErrorMisalignedAddress;
   if (resident_fwd(nq, nk, dh, dr.on))  // every MS-SiT fold: the sequences packed, one launch
     return launch_fwd_resident(q, k, v, o, lse, B, heads, nq, valid_len, st);
+  if (few_query_fwd(nq, nk, dh, dr.on))  // the queries on the short side, one launch
+    return launch_few_fwd<false>(q, k, v, o, lse, B, heads, nq, nk, valid_len, FewQ{}, st);
   // The tiling, from the tilings measured on an H100 (PERF.md): past 512
   // keys, 128-key tiles and three consumer warpgroups (192 queries) where
   // that grid still fills the card twice; else one warpgroup (64 queries,
@@ -1972,6 +2322,25 @@ bool resident_bwd(int nq, int nk, int dh, bool dropout) {
 
 bool few_query_bwd(int nq, int nk, int dh, bool dropout) {
   return dh == ATT_DH && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk;
+}
+
+bool few_query_fwd(int nq, int nk, int dh, bool dropout) {
+  return dh == ATT_DH && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk && nk <= FEW_FWD_MAX_KEYS;
+}
+
+bool few_query_makes_q(int nq, int nk, int dim) {
+  return few_query_fwd(nq, nk, ATT_DH, false) && dim % 8 == 0 && dim <= FEW_Q_MAX_DIM;
+}
+
+cudaError_t flash_fwd_few_q(const FewQ& fq, Strided k, Strided v, Strided o, float* lse, int B,
+                            int heads, int nq, int nk, int valid_len, cudaStream_t st) {
+  if (B < 1 || heads < 1 || nq < 1 || valid_len < 1 || !few_query_makes_q(nq, nk, fq.dim))
+    return cudaErrorInvalidValue;
+  if (!aligned16(k) || !aligned16(v) || !aligned16(o) ||
+      (reinterpret_cast<uintptr_t>(fq.wq) & 15) != 0 ||
+      (fq.q_out != nullptr && (reinterpret_cast<uintptr_t>(fq.q_out) & 15) != 0))
+    return cudaErrorMisalignedAddress;
+  return launch_few_fwd<true>(Strided{}, k, v, o, lse, B, heads, nq, nk, valid_len, fq, st);
 }
 
 int resident_pack(int n) { return n <= 32 ? 64 / n : 1; }

@@ -37,6 +37,20 @@ struct Dropout {
   int on = 0;
 };
 
+// What the few-query forward needs to make its own Q (the CLS block's
+// chain, fused_block.cu): the block input x (B, nk, dim) bf16, LN1's gamma
+// and beta (fp32) and eps, W_q (heads * 64, dim) bf16 in the torch Linear
+// layout; with q_out set (training), Q (B * nq, heads * 64) bf16 is kept.
+struct FewQ {
+  const bf16* x = nullptr;
+  const float* gamma = nullptr;
+  const float* beta = nullptr;
+  const bf16* wq = nullptr;
+  int dim = 0;
+  float eps = 0.f;
+  bf16* q_out = nullptr;
+};
+
 // O = softmax(Q K^T / sqrt(dh)) V over keys < valid_len, lse = the row
 // log-sum-exp (B, heads, nq) fp32 (skipped when nullptr); dh 32 or 64 (32
 // without dropout). With dropout, the max, the sum and lse are the
@@ -75,6 +89,22 @@ bool resident_bwd(int nq, int nk, int dh, bool dropout);
 // Whether the backward at these shapes takes the few-query kernel (dh 64,
 // no dropout, nq <= 8 < nk); flash_bwd refuses dropout at such shapes.
 bool few_query_bwd(int nq, int nk, int dh, bool dropout);
+
+// Whether the forward at these shapes takes the few-query kernel (dh 64,
+// no dropout, nq <= 8 < nk <= 4096: one CTA a (sample, head), the scores
+// of every key in shared memory, an exact two-pass softmax); and whether
+// that kernel makes its own Q at this width (dim a multiple of 8 up to
+// 256: the CLS block's chain at dims 96 / 192).
+bool few_query_fwd(int nq, int nk, int dh, bool dropout);
+bool few_query_makes_q(int nq, int nk, int dim);
+
+// The few-query forward with Q made in the CTA from fq: Q = bf16(LN1(x's
+// first nq rows of each sample) W_q^T), then attention as flash_fwd's
+// against k and v (dh 64) -> o, lse. Shapes outside few_query_makes_q
+// return cudaErrorInvalidValue, operands off 16 bytes
+// cudaErrorMisalignedAddress.
+cudaError_t flash_fwd_few_q(const FewQ& fq, Strided k, Strided v, Strided o, float* lse, int B,
+                            int heads, int nq, int nk, int valid_len, cudaStream_t st);
 
 // Whether the forward at these shapes takes its resident kernel (dh 32, no
 // dropout, nq == nk <= 320: every MS-SiT fold; sequences packed, see

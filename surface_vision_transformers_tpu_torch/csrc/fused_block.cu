@@ -40,6 +40,19 @@
 // moved 26. Both reproduce the chain's arithmetic, so the outputs are the
 // same bits.
 //
+// The CLS block's attention (8 top rows against at most 4,096 keys:
+// cls_fwd_route) is flash_attention.cu's few-query forward (the scores of
+// every key in shared memory). At dims 96 / 192 (cls_ln1_in_kv) the chain
+// is [LN1 + K/V] (F_LNA over W_kv), the attention launch making its own Q
+// (LN1 of the sample's top rows and their product with the head's W_q
+// inside the CTA), then the out-projection, LN2, fc1 and fc2 on the top
+// rows: six launches where there were eight, and neither h (serving) nor q
+// is written. Wider, the eight launches, the attention the few-query one:
+// Q made in the CTA (the head's W_q streamed through each CTA) took longer
+// there than the Q product. The fused MLP kernel is not used on the top
+// rows: on SiT-tiny's 2,048 it took 1.8x as long as the three launches
+// (PERF.md).
+//
 // Numerics follow the TPU kernel's rounding points (bf16 after LN, QKV,
 // P, P.V, x1, GELU; fp32 statistics, scores, softmax sums and epilogues),
 // with two deliberate differences: exact erf-GELU (the TPU kernel's tanh
@@ -203,6 +216,17 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
   return (int)cudaSuccess;
 }
 
+// Whether the CLS chain's attention is the few-query forward
+// (ops/fused_block.py::cls_fwd_route), and whether, at dims 96 / 192, it
+// makes its own Q with LN1 in the K/V product's prologue (cls_ln1_in_kv:
+// F_LNA takes K = 96 or 192; past them the LayerNorm pass writes h and the
+// Q product reads it: Q made in the CTA measured slower there, PERF.md).
+bool cls_fwd_route(int N, int rows) { return few_query_fwd(rows, N, ATT_DH, false); }
+bool cls_ln1_in_kv(int N, int rows, int dim) {
+  return cls_fwd_route(N, rows) && (dim == 96 || dim == 192) &&
+         few_query_makes_q(rows, N, dim);
+}
+
 int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out,
                   void* b_out, void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2,
                   void* b_fc2, void* out, bf16* h, bf16* kv, bf16* q, bf16* attn, bf16* x1,
@@ -214,13 +238,35 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   const int M = B * N, Mt = B * rows, hd = heads * dim_head;
   const bf16* wq = static_cast<const bf16*>(w_qkv);
   const bf16* wkv = wq + (long long)hd * dim;
-  bf16* h2 = s.h2 != nullptr ? s.h2 : h;
+  const bool train = s.h2 != nullptr;
+  bf16* h2 = train ? s.h2 : h;
 
-  SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1, st));
-  SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, wkv, 2 * hd, out_bf16(kv, 2 * hd), st));
-  SVT_TRY(launch_gemm<gemm::F_NONE>(h, Mt, dim, rows, N, wq, hd, out_bf16(q, hd), st));
-  SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, ATT_DH,
-                           valid_len, s.lse, st));
+  if (cls_ln1_in_kv(N, rows, dim)) {  // [LN1 + K/V], the few-query attention making Q
+    gemm::Epilogue ep = out_bf16(kv, 2 * hd);
+    ep.ln_gamma = (const float*)ln1_s;
+    ep.ln_beta = (const float*)ln1_b;
+    ep.ln_eps = eps;
+    ep.ln_stats = s.stats1;
+    ep.ln_out = train ? h : nullptr;
+    SVT_TRY(launch_gemm<gemm::F_LNA>(xb, M, dim, 0, 0, wkv, 2 * hd, ep, st));
+    FewQ fq;
+    fq.x = xb;
+    fq.gamma = (const float*)ln1_s;
+    fq.beta = (const float*)ln1_b;
+    fq.wq = wq;
+    fq.dim = dim;
+    fq.eps = eps;
+    fq.q_out = train ? q : nullptr;
+    SVT_TRY(flash_fwd_few_q(fq, packed(kv, N, 2 * hd), packed(kv + hd, N, 2 * hd),
+                            packed(attn, rows, hd), s.lse, B, heads, rows, N, valid_len, st));
+  } else {  // LN1, K/V, Q, then the attention (the few-query forward on cls_fwd_route)
+    SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1,
+                      st));
+    SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, wkv, 2 * hd, out_bf16(kv, 2 * hd), st));
+    SVT_TRY(launch_gemm<gemm::F_NONE>(h, Mt, dim, rows, N, wq, hd, out_bf16(q, hd), st));
+    SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, ATT_DH,
+                             valid_len, s.lse, st));
+  }
   SVT_TRY(launch_gemm<gemm::F_RES>(attn, Mt, hd, 0, 0, (const bf16*)w_out, dim,
                                    out_res(x1, dim, (const float*)b_out, xb, dim, rows, N), st));
   SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, Mt, dim, eps, s.stats2, st));
@@ -276,7 +322,10 @@ int svt_fused_block_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv, vo
 // rows <= 8. LN1 and K/V over all N rows; Q, attention, out-proj, LN2 and the
 // MLP over the first `rows` rows of each sample. Scratch: h (B*N, dim),
 // kv (B*N, 2hd), q (B*rows, hd), attn (B*rows, hd), x1 (B*rows, dim),
-// f (B*rows, mlp), all bf16.
+// f (B*rows, mlp), all bf16. Where svt_cls_fwd_route(N, rows, dim) says
+// (its bits: 1 the few-query attention makes Q, 2 LN1 in the K/V product),
+// q is not touched (any pointer), and h where bit 2 is set only as LN2's
+// output (B*rows, dim).
 int svt_fused_block_cls(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out, void* b_out,
                         void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2,
                         void* b_fc2, void* out, void* ws_h, void* ws_kv, void* ws_q,
@@ -305,6 +354,15 @@ int svt_fused_block_cls_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv
                        b_fc1, w_fc2, b_fc2, out, (bf16*)h1, (bf16*)kv, (bf16*)q, (bf16*)attn,
                        (bf16*)x1, (bf16*)f, s, B, N, rows, dim, heads, dim_head, mlp, valid_len,
                        eps, device, stream);
+}
+
+// The CLS forward's route at these shapes, as bits: 1 the attention is one
+// few-query launch that makes its own Q, 2 LN1 runs in the K/V product's
+// prologue (ops/fused_block.py: cls_fwd_route, cls_ln1_in_kv,
+// cls_fwd_launches).
+int svt_cls_fwd_route(int N, int rows, int dim) {
+  if (!cls_fwd_route(N, rows)) return 0;
+  return 1 | (cls_ln1_in_kv(N, rows, dim) ? 2 : 0);
 }
 
 // One forward product of the chain alone, for holding it against its plain

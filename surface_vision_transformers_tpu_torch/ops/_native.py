@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
     lib.svt_block_gemm_ln.restype = I
     lib.svt_block_gemm_ln_workspace.argtypes = [I] * 2
     lib.svt_block_gemm_ln_workspace.restype = ctypes.c_longlong
+    lib.svt_cls_fwd_route.argtypes = [I] * 3
+    lib.svt_cls_fwd_route.restype = I
     lib.svt_block_fused_mlp.argtypes = [I, I, I]
     lib.svt_block_fused_mlp.restype = I
     lib.svt_block_mlp.argtypes = [P] * 12 + [I] * 3 + [F, I, P]
@@ -147,6 +149,8 @@ def library() -> ctypes.CDLL:
     lib.svt_int8_scan.restype = I
     lib.svt_patch_embed.argtypes = [P, I] + [P] * 4 + [I] * 7 + [I, P]
     lib.svt_patch_embed.restype = I
+    lib.svt_patch_embed_smem.argtypes = [I] * 4
+    lib.svt_patch_embed_smem.restype = I
     lib.svt_error_string.argtypes = [I]
     lib.svt_error_string.restype = ctypes.c_char_p
     return lib

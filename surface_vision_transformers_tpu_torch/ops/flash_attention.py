@@ -21,6 +21,11 @@ the forward runs on 32-column tiles (no zero columns); where queries = keys
 lays sequences side by side (``fwd_pack``), so that no query tile is
 mostly empty: each CTA loads a 64-row query tile and the keys its rows can
 see, under a block-diagonal mask.
+At dh 64 the forward of at most 8 queries against more keys, up to
+``FEW_FWD_MAX_KEYS`` (``few_query_fwd``: the CLS block's 8 rows), is one
+launch that keeps every key's scores in shared memory (an exact softmax,
+the queries on the short side of every product); the CLS block's chain
+runs the same kernel with its Q made inside it.
 The backward at dh 32 up to 320 keys (``resident_bwd``: every MS-SiT fold) is
 one launch that keeps the whole sequence in shared memory, packing
 sequences of up to 32 rows into one tile (``resident_pack``); at dh 64 for
@@ -46,7 +51,9 @@ backward regenerates it. ``flash_attention_tiled`` replaces
 entry, over the same streamed kernels. Each public wrapper counts its
 launches in ``<wrapper>.launches``; the few-query kernel's launches, from
 these wrappers and from the CLS block's backward chain, are counted in
-``few_query_bwd.launches`` too.
+``few_query_bwd.launches`` too, and the few-query forward's, from the
+forward wrappers and the CLS block's forward chain, in
+``few_query_fwd.launches``.
 
 Dispatch: tensors on the CPU run the plain versions beside the kernel; CUDA
 tensors launch the kernel or raise. There is no fallback.
@@ -61,7 +68,8 @@ from surface_vision_transformers_tpu_torch.ops import _native
 DIM_HEADS = (32, 64)  # the kernels' head dims (32 without dropout)
 DROPOUT_DIM_HEAD = 64  # the dropout kernels'
 RESIDENT_MAX_N = 320  # the resident backward's longest sequence: five 64-row tiles
-FEW_MAX_Q = 8  # the few-query backward's query rows: the n of its m64n8 products
+FEW_MAX_Q = 8  # the few-query kernels' query rows: the n of their m64n8 products
+FEW_FWD_MAX_KEYS = 4096  # the few-query forward's fp32 scores: 32 bytes a key of shared memory
 _BWD_TILE, _BWD_CHAINS = 64, 4  # the streamed backward's query tile and dQ sums per tile
 
 
@@ -85,6 +93,28 @@ def few_query_bwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
 
 
 few_query_bwd.launches = 0
+
+
+def few_query_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
+    """Whether the forward at these shapes runs the few-query kernel
+    (``csrc/flash_attention.cu``: one launch, one CTA a (sample, head), the
+    queries on the short side of m64n8 products, the fp32 scores of every
+    key kept in shared memory, an exact two-pass softmax): head dim 64, no
+    dropout, at most ``FEW_MAX_Q`` queries against more keys, up to
+    ``FEW_FWD_MAX_KEYS`` (the scores' shared memory). The CLS block's
+    chain runs the same kernel with its Q made inside it
+    (``fused_block.cls_fwd_route``)."""
+    return dh == 64 and not dropout and nq <= FEW_MAX_Q < nk <= FEW_FWD_MAX_KEYS
+
+
+few_query_fwd.launches = 0
+
+
+def count_few_query_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> None:
+    """A forward launched at these shapes ran the few-query kernel once
+    where ``few_query_fwd`` says: add it to ``few_query_fwd.launches``."""
+    if few_query_fwd(nq, nk, dh, dropout):
+        few_query_fwd.launches += 1
 
 
 def count_few_query(nq: int, nk: int, dh: int, dropout: bool = False) -> None:
@@ -326,6 +356,7 @@ def _fwd(q, k, v, vl, rate=0.0, seed=0):
         *_operand(q), *_operand(k), *_operand(v), *_operand(o), lse.data_ptr(),
         B, H, nq, k.shape[2], vl, dh, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
+    count_few_query_fwd(nq, k.shape[2], dh, bool(rate))
     return o, lse
 
 

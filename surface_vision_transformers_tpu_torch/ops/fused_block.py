@@ -28,8 +28,12 @@ in the qkv product's prologue and the MLP half as one kernel
 the same bits. Attention is the streamed kernel of ``csrc/flash_attention.cu`` (K and
 V through shared memory in 64- or 128-key tiles, any N), which never writes
 the score matrix. The CLS variant computes Q, attention and the MLP for the
-first ``rows`` (<= 8) rows of each sample only, reading them through a
-strided row map (a 3-D TMA map) instead of a gather.
+first ``rows`` (<= 8) rows of each sample only: on ``cls_fwd_route`` its
+attention is one few-query launch (``cls_fwd_route``), which at dims 96 /
+192 makes Q itself from LN1 of the top rows (``cls_attention_reference``
+is its plain version), LN1 running in the K/V product's prologue
+(``cls_ln1_in_kv``); elsewhere the Q product reads the top rows of h
+through a strided row map (a 3-D TMA map).
 
 Numerics: the TPU kernel's rounding points (bf16 after LN, QKV, P, P.V, x1
 and GELU; fp32 LN statistics, scores, softmax sums and epilogues) with exact
@@ -54,6 +58,7 @@ from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     DIM_HEADS,
     bwd_workspace_floats,
     count_few_query,
+    few_query_fwd,
     flash_attention,
     flash_attention_bwd_reference,
     flash_attention_reference,
@@ -177,6 +182,27 @@ def fused_block_cls_reference(
         saved.update(h1=h, kv=kv, q=q)
     return _out_proj_mlp(x[:, :rows], attn, w_out, b_out, ln2_scale, ln2_bias,
                          w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved)
+
+
+def cls_attention_reference(x, ln1_scale, ln1_bias, w_q, k, v, *, heads: int,
+                            dim_head: int = 64, valid_len: int | None = None,
+                            rows: int | None = None, ln_eps: float = 1e-5,
+                            saved: dict | None = None):
+    """Plain version of the CLS chain's attention launch, which makes its own
+    Q (``csrc/flash_attention.cu``'s few-query forward on
+    ``cls_fwd_route``): LN1 of each sample's first ``rows`` (default min(8,
+    N)) rows of x (B, N, dim), Q = their product with w_q (H*dh, dim),
+    rounded to x.dtype where the chain rounds q, then attention against k
+    and v (B, N, H*dh) -> attn (B, rows, H*dh) in x.dtype. ``saved``, when
+    a dict, receives q and the row log-sum-exp lse (B, H, rows)."""
+    dt = x.dtype
+    rows = min(_CLS_ROWS, x.shape[1]) if rows is None else rows
+    vl = k.shape[1] if valid_len is None else int(valid_len)
+    h = _layer_norm(x[:, :rows], ln1_scale, ln1_bias, ln_eps).to(dt)
+    q = _mm(h, w_q).to(dt)
+    if saved is not None:
+        saved["q"] = q
+    return _attention(q, k, v, heads, dim_head, vl, dt, saved)
 
 
 # -- kernel wrappers -------------------------------------------------------------
@@ -326,15 +352,20 @@ def fused_block_cls(
     check_tma_operands(cls_rows=rows)
     lib = _native.library()
     hd, mlp, Mt = heads * dim_head, w_fc1.shape[0], B * rows
+    ln_kv = cls_ln1_in_kv(N, rows, dim)
     out = x.new_empty((B, rows, dim))
-    ws = [x.new_empty(s) for s in ((B * N, dim), (B * N, 2 * hd), (Mt, hd),
-                                   (Mt, hd), (Mt, dim), (Mt, mlp))]
+    # where LN1 runs in the K/V product, h is LN2's output alone and q is
+    # made in the attention's CTAs (svt_cls_fwd_route)
+    ws = [x.new_empty((Mt if ln_kv else B * N, dim)), x.new_empty((B * N, 2 * hd)),
+          x.new_empty(8 if ln_kv else (Mt, hd)), x.new_empty((Mt, hd)), x.new_empty((Mt, dim)),
+          x.new_empty((Mt, mlp))]
     _native.check(lib.svt_fused_block_cls(
         *[t.data_ptr() for t in (x, *params, out, *ws)],
         B, N, rows, dim, heads, dim_head, mlp, vl, ln_eps, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     ))
     fused_block_cls.launches += 1
+    _count_cls(N, rows, dim)
     return out
 
 
@@ -419,6 +450,34 @@ def fuses_mlp(dim: int, mlp: int, train: bool = False) -> bool:
     launches."""
     return ((dim == 96 or (dim == 192 and not train)) and mlp % 128 == 0
             and 128 <= mlp <= 4 * dim)
+
+
+def cls_fwd_route(N: int, rows: int) -> bool:
+    """Whether the CLS block's forward runs its attention as the few-query
+    kernel (``csrc/flash_attention.cu``; ``cls_fwd_route`` in
+    ``csrc/fused_block.cu``): where ``few_query_fwd(rows, N, 64)`` holds.
+    Else the streamed forward."""
+    return few_query_fwd(rows, N, 64)
+
+
+def cls_ln1_in_kv(N: int, rows: int, dim: int) -> bool:
+    """Whether the CLS forward runs LN1 in the K/V product's prologue
+    (``csrc/gemm.cuh`` F_LNA: K = dim 96 or 192) and makes Q inside the
+    few-query attention's CTAs (LN1 of each sample's top rows and their
+    product with the head's W_q), so that neither h (serving) nor q is
+    written: on ``cls_fwd_route`` at those dims. Wider, the LayerNorm pass
+    writes h and the Q product reads it (Q made in the CTAs took longer
+    there: PERF.md)."""
+    return cls_fwd_route(N, rows) and dim in FUSED_MLP_DIMS
+
+
+def cls_fwd_launches(N: int, dim: int) -> int:
+    """Device kernels one CLS forward runs, serving or training: where
+    ``cls_ln1_in_kv``, six ([LN1 + K/V], the few-query attention with its
+    Q, the out-projection, LN2, fc1, fc2: the fused MLP kernel took 1.8x as
+    long as these three on the CLS block's 2,048 top rows, PERF.md); else
+    eight (LN1, K/V, Q, the attention, out-projection, LN2, fc1, fc2)."""
+    return 6 if cls_ln1_in_kv(N, min(_CLS_ROWS, N), dim) else 8
 
 
 def block_bwd_dh_floats(B: int, N: int, dim: int, cls_rows: int = 0) -> int:
@@ -637,6 +696,7 @@ def train_forward(x, *params, heads: int, dim_head: int,
             *ptrs, B, N, rows, dim, heads, dim_head, mlp, vl, ln_eps,
             x.device.index, stream))
         fused_block_cls.launches += 1
+        _count_cls(N, rows, dim)
     else:
         _native.check(lib.svt_fused_block_train_fwd(
             *ptrs, B, N, dim, heads, dim_head, mlp, vl, ln_eps,
@@ -894,6 +954,16 @@ def _count_fused(fused: bool) -> None:
     if fused:
         block_ln_gemm.launches += 1
         block_mlp.launches += 1
+
+
+def _count_cls(N: int, rows: int, dim: int) -> None:
+    """A CLS forward chain on ``cls_fwd_route`` launched the few-query
+    attention once (``few_query_fwd.launches``), and its [LN1 + K/V] once
+    where ``cls_ln1_in_kv`` (``block_ln_gemm.launches``)."""
+    if cls_fwd_route(N, rows):
+        few_query_fwd.launches += 1
+        if cls_ln1_in_kv(N, rows, dim):
+            block_ln_gemm.launches += 1
 
 
 def block_mlp(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,

@@ -13,9 +13,14 @@ of the compute dtype.
 
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/patch_embed.cu``) gathers
 ``x[b, c, idx[l, v]]`` into shared memory as its GEMM's A operand, so the
-tokens never reach device memory; bf16 ``mma.sync`` against W. It takes W
-in the torch ``nn.Linear`` layout (dim, V*C), K in (v c) order,
-zero-padded to a multiple of ``K_STEP``.
+tokens never reach device memory: a persistent, warp-specialised kernel
+whose gather warps keep many loads in flight and fill 64-deep K-slices of
+the A tile through a ring, while consumer warpgroups run ``wgmma`` on the
+slices that have landed against W streamed by TMA, and store by TMA. It
+takes W in the torch ``nn.Linear`` layout (dim, V*C), K in (v c) order,
+zero-padded to a multiple of ``K_STEP``, and C = 4 channels (a vertex's
+channels are one 8-byte piece of the tile); ``embed_plan`` mirrors its
+tiling and its shared memory, and shapes it cannot take are refused.
 
 ``PatchEmbed`` is its autograd function: the kernel forward on CUDA, a
 plain backward (dW = tokens^T dout, db = sum dout, in float32, to the
@@ -29,6 +34,9 @@ kernel (bfloat16 W) or raise. There is no fallback.
 
 from __future__ import annotations
 
+import functools
+import types
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -38,6 +46,47 @@ from surface_vision_transformers_tpu_torch.ops.fused_block import _mm32
 from surface_vision_transformers_tpu_torch.ops.patchify import fold_normalization
 
 K_STEP = 64  # the kernel's K slice: W's columns are zero-padded to a multiple
+CHANNELS = 4  # the kernel's C: a vertex's channels, 8 bytes of the A tile
+_SMEM_MAX = 232448  # an H100 block's shared memory
+
+
+@functools.cache
+def embed_plan(L: int, V: int, kp: int, dim: int) -> types.MappingProxyType:
+    """The kernel's tiling at these shapes (``csrc/patch_embed.cu``'s
+    ``embed_plan``; ``svt_patch_embed_smem`` gives its ``bytes``): N-tiles
+    of ``nb`` = 192 columns (96 at dim <= 96); at dim <= 96 two consumer
+    warpgroups on an item's two 64-row halves (``mw`` 2: items of 128
+    patches, both reading each W slice), up to 192 one, past it two on
+    their own N-tiles (``nw`` 2: items of 64 patches, each consumer making
+    ``passes`` passes over the item's ``ks`` K-slices, or, where those do
+    not fit the A ring, ``reps`` items a (group, sample), one a pass, each
+    gathered again); a W ring of ``sw`` stages an N-part (3 for one
+    consumer, 2 for two; at n = 96 every slice it reads, up to 4, loaded
+    once); two 8 KB staging boxes a consumer, the group's table rows, and
+    an A ring of ``sa`` slices in what an H100 block's shared memory
+    leaves, up to 8. ``bytes`` is 0 where fewer than two slices fit.
+    Cached, and read-only."""
+    nb = 96 if dim <= 96 else 192
+    nt = -(-dim // nb)
+    mw = 2 if nb == 96 else 1
+    nw = 2 if nt > 1 else 1
+    ks = kp // K_STEP
+    passes = -(-nt // nw)
+    rows, w_item = 64 * mw, passes * ks
+    slice_bytes = rows * K_STEP * 2
+    sw = w_item if nb == 96 and w_item <= 4 else 3 if nw == 1 else 2
+    w_bytes, stage_bytes = nw * sw * nb * K_STEP * 2, mw * nw * 2 * 64 * 64 * 2
+    rest = w_bytes + stage_bytes + rows * V * 4 + (2 * 8 + 2 * nw * sw) * 8
+    sa = min(8, (_SMEM_MAX - 1024 - rest) // slice_bytes)
+    reps = passes if passes > 1 and ks > sa else 1
+    if reps > 1:
+        passes = 1
+    nbytes = (max(sa, 0) * slice_bytes + w_bytes + stage_bytes + (rows * V * 4 + 7) // 8 * 8
+              + (2 * sa + 2 * nw * sw) * 8 + 1024)
+    if sa < 2 or kp % K_STEP or kp < V * CHANNELS:
+        nbytes = 0
+    return types.MappingProxyType(dict(nb=nb, nt=nt, mw=mw, nw=nw, ks=ks, passes=passes,
+                                       reps=reps, sa=sa, sw=sw, bytes=nbytes))
 
 
 def table_tensor(indices, device) -> torch.Tensor:
@@ -98,6 +147,12 @@ def _check_cuda_args(x, indices, weight, bias):
                          f"got {tuple(weight.shape)}")
     if dim % 8:
         raise NotImplementedError(f"dim must be a multiple of 8, got {dim}")
+    if C != CHANNELS:
+        raise NotImplementedError(f"the kernel takes {CHANNELS} channels, got {C}")
+    if embed_plan(indices.shape[0], V, kp, dim)["bytes"] == 0:
+        raise NotImplementedError(
+            f"the kernel's tiles at V {V}, Kp {kp}, dim {dim} leave no room for its A ring in an "
+            f"H100 block's {_SMEM_MAX} bytes of shared memory (embed_plan)")
     if bias.dtype != torch.float32 or tuple(bias.shape) != (dim,) or not bias.is_contiguous():
         raise ValueError(f"bias must be a contiguous float32 ({dim},) tensor")
     for t in (weight, bias):

@@ -153,3 +153,86 @@ def test_routes_and_refusals(tables):
     before = tpe.patch_embed.launches
     tpe.patch_embed(torch.zeros((1, 4, 40962)), idx, w, b)
     assert tpe.patch_embed.launches == before  # the plain version launches nothing
+    # the kernel's refusals (``_check_cuda_args``, on CPU tensors here): the
+    # shipped shape passes; 3 channels, and a table whose 64 rows leave the
+    # A ring no room in shared memory (80 patches of 561 vertices), do not
+    x = torch.zeros((1, 4, 40962))
+    tpe._check_cuda_args(x, idx, w, b)
+    w3, b3 = tpe.embed_matrix(torch.zeros(idx.shape[1] * 3, DIM), torch.zeros(DIM),
+                              idx.shape[1])
+    with pytest.raises(NotImplementedError, match="4 channels"):
+        tpe._check_cuda_args(torch.zeros((1, 3, 40962)), idx, w3, b3)
+    big = torch.zeros((80, 561), dtype=torch.int32)
+    wb, bb = tpe.embed_matrix(torch.zeros(561 * 4, DIM), torch.zeros(DIM), 561)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        tpe._check_cuda_args(x, big, wb, bb)
+
+
+# The kernel's tiling (``embed_plan``, mirroring csrc/patch_embed.cu's) at
+# the shapes the port runs, and past two N-tiles at sub-ico 2, where an
+# item's ten K-slices do not fit the ring and each pass is gathered again:
+# (L, V, Kp, dim) -> (nb, mw, nw, ks, passes, reps, sa, sw)
+PLANS = {
+    "sub-ico 2, dim 192 (SiT-tiny)": ((320, 153, 640, 192), (192, 1, 1, 10, 1, 1, 8, 3)),
+    "sub-ico 2, dim 384 (SiT-small)": ((320, 153, 640, 384), (192, 1, 2, 10, 1, 1, 7, 2)),
+    "sub-ico 3, dim 768 (SiT-base)": ((1280, 45, 192, 768), (192, 1, 2, 3, 2, 1, 8, 2)),
+    "sub-ico 5, dim 96 (MS-SiT)": ((20480, 6, 64, 96), (96, 2, 1, 1, 1, 1, 8, 1)),
+    "sub-ico 2, dim 768": ((320, 153, 640, 768), (192, 1, 2, 10, 1, 2, 7, 2)),
+}
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_embed_plan(name):
+    """The tiling the kernel takes: one consumer warpgroup up to a
+    192-column N-tile, two on their own N-tiles past it, two on an item's
+    64-row halves at dim <= 96; an A ring of up to 8 K-slices in the shared
+    memory the rest leaves (at most an H100 block's 232,448 bytes)."""
+    (L, V, kp, dim), want = PLANS[name]
+    p = tpe.embed_plan(L, V, kp, dim)
+    assert tuple(p[k] for k in ("nb", "mw", "nw", "ks", "passes", "reps", "sa", "sw")) == want
+    assert 0 < p["bytes"] <= 232448
+    if p["passes"] > 1:  # an item's slices stay in the ring for every pass
+        assert p["ks"] <= p["sa"]
+
+
+def _walk_tokens(x, table, kp, dim, ctas=132):
+    """The kernel's gather walk, in numpy: CTA c takes items [c T / ctas,
+    (c + 1) T / ctas) of the T (group, sample, rep) items, groups outer; an
+    item's K-slice s holds vertices 16 s .. 16 s + 15 of its 64 mw patches in
+    (v c) order, zeros past V and past L. -> ((B, L, kp) tokens, times each
+    (sample, patch) row was gathered)."""
+    B, C, _ = x.shape
+    L, V = table.shape
+    p = tpe.embed_plan(L, V, kp, dim)
+    rows, reps = 64 * p["mw"], p["reps"]
+    items = -(-L // rows) * B * reps
+    out, seen = np.zeros((B, L, kp), x.dtype), np.zeros((B, L), int)
+    for c in range(ctas):
+        for it in range(items * c // ctas, items * (c + 1) // ctas):
+            g, b = it // (B * reps), it // reps % B
+            ls = np.arange(g * rows, min(g * rows + rows, L))
+            for s in range(p["ks"]):
+                vs = np.arange(16 * s, min(16 * s + 16, V))
+                if len(vs):
+                    vals = x[b][:, table[ls][:, vs]]  # (C, rows, vertices)
+                    cols = C * vs[:, None] + np.arange(C)  # (vertices, C)
+                    out[b, ls[:, None, None], cols[None]] = vals.transpose(1, 2, 0)
+            seen[b, ls] += 1
+    return out, seen, reps
+
+
+@pytest.mark.parametrize("sub_ico,dim", [(2, 192), (2, 768), (3, 768), (5, 96)])
+def test_kernel_walk_gathers_the_tokens(tables, sub_ico, dim):
+    """The kernel's walk of items and K-slices (``embed_plan``) gathers every
+    (sample, patch) row reps times, and its tiles hold ``_tokens`` in (v c)
+    order, zero-padded to Kp, on the shipped sub-ico 2, 3 and 5 tables."""
+    table = tables[sub_ico] if sub_ico in tables else jgeo.load_patch_table(6, sub_ico).indices
+    table = np.asarray(table)
+    L, V = table.shape
+    kp = -(-4 * V // tpe.K_STEP) * tpe.K_STEP
+    x = np.random.default_rng(sub_ico).standard_normal((2, 4, 40962)).astype(np.float32)
+    got, seen, reps = _walk_tokens(x, table, kp, dim)
+    want = tpe._tokens(torch.from_numpy(x), tpe.table_tensor(table, "cpu")).numpy()
+    np.testing.assert_array_equal(got[..., :4 * V], want)
+    assert not got[..., 4 * V:].any()
+    assert (seen == reps).all()
