@@ -292,6 +292,33 @@ same width and depth, every block at dh 32:
               in a subprocess, equal to ``run_training`` in this process,
               whose launches show the route.
 
+Phase 33 trains SiT-small in native space with augmentation
+(``configs/training/sit_small_birth_age_native.yml``: dim 384, depth 12, 6
+heads, mlp 1536, bs 256, bs_val 64, exact rotations and eight warps at
+warp_prob 0.5; the path of ``_block_bwd_split``):
+
+33. augment-stream-resume -- 512 training and 128 validation raw (4, 40962)
+              surfaces written as .npy splits, and the canonical ico-6
+              icosphere written as the sphere .surf.gii
+              (``augmentation.sphere_path``: the shipped sub-ico-2 table is
+              atlas-ordered and the dHCP sphere is not in the repository);
+              the config at full width with ``data.streaming: on``,
+              ``training.ckpt_every: 1``, ``val_epoch: 1``: two 1-epoch
+              runs (bitwise equal or not, printed), (a) 3 epochs, (b) 2
+              epochs and (c) ``cli.train --resume`` of (b)'s folder to
+              epoch 3 in a subprocess, which must continue in (b)'s folder
+              at epoch 2 and end with (a)'s best MAE, best epoch and final
+              parameters bit for bit; launches of (a) (11 fused_block_bwd
+              and 1 fused_block_cls_bwd a step, 1 patch_embed a batch);
+              the streaming loader's batches on the card against their
+              rows read on the host, across epochs and ``set_epoch``;
+              the device augmentation at B = 256 on raw and patched input
+              under the three warp laws against its numpy reference bit for
+              bit (control: one sample's rotation moved); times: the table
+              build, the augmentation a batch, the augmented training step,
+              the streamed step against the resident one and the loader's
+              host stall a step.
+
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
 same comparison tells a call with one dO element raised by 1 apart; and
@@ -350,6 +377,10 @@ REPLACES = {
     "fused_block_cls": "surface_vision_transformers_tpu/ops/pallas/fused_block.py:1381",
     "fused_block_bwd": "surface_vision_transformers_tpu/ops/pallas/fused_block.py:525",
     "fused_block_cls_bwd": "surface_vision_transformers_tpu/ops/pallas/fused_block.py:1606",
+    # at dim 384 the JAX package splits both backwards (_prefer_split)
+    "fused_block_bwd SiT-small": "surface_vision_transformers_tpu/ops/pallas/fused_block.py:917",
+    "fused_block_cls_bwd SiT-small":
+        "surface_vision_transformers_tpu/ops/pallas/fused_block.py:1791",
 }
 # The H100 SXM's dense bf16 tensor-core peak and HBM3 rate (NVIDIA's data
 # sheet): a kernel's bound is the larger of its operations and its bytes
@@ -467,6 +498,14 @@ def phase_seconds(t_end: float) -> str:
     names = list(PHASE_STARTS)
     ends = [PHASE_STARTS[n] for n in names[1:]] + [t_end]
     return ", ".join(f"{n} {e - PHASE_STARTS[n]:.1f}" for n, e in zip(names, ends))
+
+
+@functools.lru_cache(maxsize=1)
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def bf16_step(x: float) -> float:
@@ -1162,12 +1201,12 @@ def phase_train_kernels(rng, fb, sit_module) -> dict:
                           f"eager bf16 SiT block autograd backward {e_ms:.4f} ms (median of "
                           f"25, CUDA events); bound {b_ms:.4f} ms by {b_by} "
                           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-                    if width == "SiT-tiny":
-                        results[name] = {
-                            "name": name, "route": "cuda", "source": BWD_SOURCE,
-                            "replaces": REPLACES[name], "max_abs_err": err, "ms": k_ms,
-                            "plain_ms": e_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": None}
+                    row = name if width == "SiT-tiny" else f"{name} {width}"
+                    results[row] = {
+                        "name": row, "route": "cuda", "source": BWD_SOURCE,
+                        "replaces": REPLACES[row], "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": e_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None}
                 del out, serving, sv, got, ref32, ref_bf
                 torch.cuda.empty_cache()
         if width == "SiT-tiny":
@@ -5574,15 +5613,280 @@ def phase_mssit_train_entry(fb) -> None:
     torch.cuda.empty_cache()
 
 
+AUG_CFG = ROOT / "configs/training/sit_small_birth_age_native.yml"
+AUG_N_TRAIN, AUG_N_VAL = 512, 128
+AUG_EPOCHS = 3  # run (a); (b) stops one epoch short and (c) resumes it
+AUG_B = 256  # the config's bs: the augmentation's gate and times
+AUG_TIMED_REPS = 3  # turns of streamed, resident, resident, streamed epochs
+
+
+def aug_config(tmp: Path, label: str, epochs: int) -> dict:
+    """The shipped native-space config at full width on phase 33's split:
+    streamed, a rolling checkpoint and a validation every epoch, the
+    written sphere, its own run folder."""
+    import yaml
+
+    raw = yaml.safe_load(AUG_CFG.read_text())
+    raw["data"].update(data_path=str(tmp / "data"), streaming="on")
+    raw["training"].update(epochs=epochs, val_epoch=1, ckpt_every=1)
+    raw["augmentation"]["sphere_path"] = str(tmp / "sphere.surf.gii")
+    raw["logging"] = {"folder_to_save_model": str(tmp / "runs" / label)}
+    return raw
+
+
+def final_params(run_dir) -> dict:
+    with np.load(Path(run_dir) / "final_params.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def params_gap(a: dict, b: dict) -> float:
+    """Largest |difference| over every parameter of two params npz."""
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a)
+
+
+def aug_reference_gates(name, aug, x_raw, x_pat, gen) -> None:
+    """The device augmentation at B = 256 against its numpy reference, bit
+    for bit, on raw and patched input under each warp law, beside a control
+    (sample 0's rotation moved by one) the gate must reject."""
+    from surface_vision_transformers_tpu_torch.data.augment import Draws
+
+    laws = {"quota": (False, "quota"), "multinomial": (False, "multinomial"),
+            "warp_per_batch": (True, "quota")}
+    config_law = aug.warp_per_batch, aug.warp_assign
+    failed = []
+    for law, (per_batch, assign) in laws.items():
+        aug.warp_per_batch, aug.warp_assign = per_batch, assign
+        draws = aug.draw(x_raw.shape[0], gen)
+        moved = Draws(draws.rot.clone(), draws.on, draws.table)
+        moved.rot[0] = (moved.rot[0] + 1) % aug._perms.shape[0]
+        for layout, x in (("raw", x_raw), ("patched", x_pat)):
+            ref = aug.reference(x.cpu().numpy(), draws)
+            got = aug.apply(x, draws).cpu().numpy()
+            same = bool(np.array_equal(got, ref))
+            control = bool(np.array_equal(aug.apply(x, moved).cpu().numpy(), ref))
+            phase(name, f"augmentation {law} {layout} {tuple(x.shape)}, {int(draws.on.sum())} "
+                  f"warped: device == numpy reference bit for bit {same} (must be True); "
+                  f"control, sample 0's rotation moved: equal {control} (must be False)")
+            if not same or control:
+                failed.append(f"{law} {layout}")
+    aug.warp_per_batch, aug.warp_assign = config_law
+    if failed:
+        raise AssertionError(f"the device augmentation disagrees with its reference: {failed}")
+
+
+def loader_gate(name, loader, data, labels) -> None:
+    """The CUDA loader's batches (two slots, a copy stream, the next epoch's
+    first batch staged ahead) against its plan's rows read on the host, bit
+    for bit, over epochs 0 and 1 and, after ``set_epoch(5)``, epoch 5 (the
+    batch staged for epoch 2 dropped); control: epoch 0's first batch
+    against epoch 1's rows."""
+    bad, n = [], 0
+    for epoch in (0, 1, 5):
+        if epoch == 5:
+            loader.set_epoch(5)
+        plan = loader.plan(epoch)
+        for s_, ((idx, w), (x, t, wd)) in enumerate(zip(plan, loader)):
+            n += 1
+            if not (np.array_equal(x.cpu().numpy(), np.asarray(data[idx], np.float32))
+                    and np.array_equal(t.cpu().numpy(), labels[idx])
+                    and np.array_equal(wd.cpu().numpy(), w)):
+                bad.append((epoch, s_))
+            if epoch == 0 and s_ == 0:
+                control = np.array_equal(x.cpu().numpy(),
+                                         np.asarray(data[loader.plan(1)[0][0]], np.float32))
+    phase(name, f"StreamingLoader on the card, {n} batches of epochs 0, 1 and 5 (after "
+          f"set_epoch): equal to their rows read on the host bit for bit {not bad} (must be "
+          f"True); control, epoch 0's first batch against epoch 1's rows: equal {control} "
+          f"(must be False)")
+    loader.close()
+    if bad or control:
+        raise AssertionError(f"the streaming loader's batches are wrong: {bad}")
+
+
+def phase_augment_stream_resume(fb) -> dict:
+    """Phase 33: SiT-small native-space training with augmentation, streamed
+    input and resume, at full width. -> launches of the SiT-small backward
+    rows in run (a)."""
+    import shutil
+
+    from surface_vision_transformers_tpu_torch.data import gifti, npy, pipeline
+    from surface_vision_transformers_tpu_torch.data.pipeline import StreamingLoader
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.geometry.icosphere import icosphere
+    from surface_vision_transformers_tpu_torch.train import runner
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    name = "augment-stream-resume"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "data").mkdir()
+        data, labels = make_regression_dataset(AUG_N_TRAIN + AUG_N_VAL, raw_vertices=40962,
+                                               seed=SEED + 33)
+        for split, sl in (("train", slice(0, AUG_N_TRAIN)),
+                          ("validation", slice(AUG_N_TRAIN, None))):
+            np.save(tmp / "data" / f"{split}_data.npy", data[sl])
+            np.save(tmp / "data" / f"{split}_labels.npy", labels[sl])
+        del data
+        gifti.save_sphere(*icosphere(6), tmp / "sphere.surf.gii")
+        phase(name, f"{AUG_CFG.relative_to(ROOT)} at full width on {AUG_N_TRAIN} + {AUG_N_VAL} "
+              "synthetic raw surfaces (.npy, streamed); the sphere is the canonical ico-6 "
+              "icosphere written as augmentation.sphere_path: the shipped sub-ico-2 table "
+              "is atlas-ordered, so a sphere is required, and the dHCP atlas sphere is not "
+              "in the repository; on synthetic data any consistent sphere exercises the "
+              "same code")
+
+        def run(label, epochs):
+            exp = config.from_dict(aug_config(tmp, label, epochs))
+            t0 = time.perf_counter()
+            res = runner.run_training(exp, device="cuda", progress=False)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        r1, t_1 = run("once-1", 1)
+        r2, _ = run("once-2", 1)
+        gap1 = params_gap(final_params(r1["run_dir"]), final_params(r2["run_dir"]))
+        repeats = gap1 == 0 and r1["best_mae"] == r2["best_mae"]
+        phase(name, f"two uninterrupted 1-epoch runs ({t_1:.1f} s the first): best MAE "
+              f"{r1['best_mae']!r} and {r2['best_mae']!r}, final parameters max |diff| "
+              f"{gap1!r}: bitwise equal {repeats}")
+        for r in (r1, r2):
+            shutil.rmtree(r["run_dir"])
+
+        counters = zero_counts(fb)
+        ra, t_a = run("a", AUG_EPOCHS)
+        launches = read_counts(counters)
+        steps = AUG_EPOCHS * math.ceil(AUG_N_TRAIN / AUG_B)
+        batches = steps + AUG_EPOCHS * math.ceil(AUG_N_VAL / 64)  # bs_val 64
+        want = {k: 0 for k in counters}
+        want.update(fused_block=11 * batches, fused_block_cls=batches,
+                    fused_block_bwd=11 * steps, fused_block_cls_bwd=steps,
+                    patch_embed=batches)
+        want["flash_attention_bwd 8 queries"] = steps
+        want[FEW_FWD] = batches
+        phase(name, f"(a) {AUG_EPOCHS} epochs in {t_a:.1f} s ({steps} training steps, "
+              f"{batches - steps} validation batches): launches {launches}, expected {want}: "
+              f"fused_block_bwd (the port of _block_bwd_split at dim 384) "
+              f"{launches['fused_block_bwd'] / steps:g} a step, fused_block_cls_bwd "
+              f"(_block_cls_bwd_split) {launches['fused_block_cls_bwd'] / steps:g} a step, "
+              f"patch_embed {launches['patch_embed'] / batches:g} a batch; best MAE "
+              f"{ra['best_mae']!r} at epoch {ra['best_epoch']}; phases_s {ra['phases_s']}")
+        if launches != want:
+            raise AssertionError("the augmented training path did not launch every kernel "
+                                 "as expected")
+
+        rb, t_b = run("b", AUG_EPOCHS - 1)
+        (tmp / "c.json").write_text(json.dumps(aug_config(tmp, "b", AUG_EPOCHS)))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "surface_vision_transformers_tpu_torch.cli.train",
+             str(tmp / "c.json"), "--device", "cuda", "--resume", rb["run_dir"]],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        t_c = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"cli.train --resume failed ({proc.returncode}):\n{proc.stderr}")
+        rc = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+        resumed = [x for x in proc.stdout.splitlines() if x.startswith("resuming from")]
+        gap_ca = params_gap(final_params(ra["run_dir"]), final_params(rc["run_dir"]))
+        same = (gap_ca == 0 and rc["best_mae"] == ra["best_mae"]
+                and rc["best_epoch"] == ra["best_epoch"])
+        in_place = rc["run_dir"] == rb["run_dir"] and len(resumed) == 1 and resumed[0].endswith(
+            f"at epoch {AUG_EPOCHS - 1} (best mae {rb['best_mae']:.5f})")
+        phase(name, f"(b) {AUG_EPOCHS - 1} epochs in {t_b:.1f} s; (c) cli.train --resume of "
+              f"(b)'s folder in a subprocess, {t_c:.1f} s: {resumed}; in (b)'s folder at epoch "
+              f"{AUG_EPOCHS - 1}: {in_place}; best MAE {rc['best_mae']!r} at epoch "
+              f"{rc['best_epoch']} vs (a) {ra['best_mae']!r} at epoch {ra['best_epoch']}; "
+              f"final parameters max |(c) - (a)| {gap_ca!r}: bitwise equal {same}")
+        if not in_place:
+            raise AssertionError("(c) did not continue (b)'s run in place at its next epoch")
+        if repeats and not same:
+            raise AssertionError("the resumed run (c) differs from the uninterrupted run (a)")
+        if not repeats and (rc["best_epoch"] != ra["best_epoch"]
+                            or gap_ca > AUG_EPOCHS * gap1):
+            raise AssertionError("the resumed run (c) is farther from (a) than the card's "
+                                 "own repeat gap allows")
+
+        exp = config.from_dict(aug_config(tmp, "timing", 1))
+        table_obj = load_patch_table(exp.ico, exp.sub_ico)
+        t0 = time.perf_counter()
+        aug = runner.build_augment(exp, table_obj)
+        t_build = time.perf_counter() - t0
+        mm, mm_labels = npy.load_split(tmp / "data", "train", mmap=True)
+        x_raw = torch.from_numpy(np.array(mm[:AUG_B], np.float32)).cuda()
+        x_pat = x_raw[:, :, torch.from_numpy(table_obj.indices).cuda()]
+        gen = torch.Generator().manual_seed(SEED + 33)
+        aug_reference_gates(name, aug, x_raw, x_pat, gen)
+        del x_pat
+
+        loader_gate(name, StreamingLoader(mm, mm_labels, batch_size=AUG_B, seed=SEED,
+                                          device="cuda"), mm, mm_labels)
+        draws = aug.draw(AUG_B, gen)
+        aug_ms = cuda_ms(lambda: aug.apply(x_raw, draws), reps=10)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            model = runner.build_model(exp, table_obj.indices).cuda()
+        trainer = Trainer(exp, model, augment=aug)
+        y = torch.from_numpy(mm_labels[:AUG_B]).cuda()
+        w = torch.ones(AUG_B, device="cuda")
+        step_ms = cuda_ms(lambda: trainer.optimizer_step(x_raw, y, w), reps=5)
+        trainer.augment = None
+        plain_step_ms = cuda_ms(lambda: trainer.optimizer_step(x_raw, y, w), reps=5)
+        trainer.augment = aug
+
+        loader = StreamingLoader(mm, mm_labels, batch_size=AUG_B, seed=SEED, device="cuda")
+        d_train = torch.from_numpy(np.array(mm, np.float32)).cuda()
+        l_train = torch.from_numpy(mm_labels).cuda()
+        n_steps = loader.steps_per_epoch()
+
+        def epoch_s(streamed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if streamed:
+                trainer.train_epoch_streaming(loader)
+            else:
+                trainer.train_epoch(d_train, l_train)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        epoch_s(True)  # warm-up
+        times = {True: [], False: []}
+        stalls = []
+        for _ in range(AUG_TIMED_REPS):
+            for streamed in (True, False, False, True):
+                times[streamed].append(epoch_s(streamed))
+                if streamed:
+                    stalls.append(loader.wait_s)
+        loader.close()
+        n_timed = 2 * AUG_TIMED_REPS * n_steps  # steps each way
+        st_ms = 1e3 * sum(times[True]) / n_timed
+        res_ms = 1e3 * sum(times[False]) / n_timed
+        stall_ms = 1e3 * sum(stalls) / n_timed
+        phase(name, f"times ({card()}): SurfaceAugment tables at ico 6 (sphere read, 60 "
+              f"rotations, {aug.num_warps} warps, patched tables) {t_build:.2f} s on the "
+              f"host; the augmentation of a raw batch of {AUG_B} {aug_ms:.4f} ms (CUDA "
+              f"events, median of 10); one training step at B={AUG_B}, resident batch, "
+              f"augmented {step_ms:.3f} ms, without augmentation {plain_step_ms:.3f} ms "
+              f"(CUDA events, median of 5); whole epochs ({n_steps} steps, augmented, "
+              f"host clock, synchronized), order streamed, resident, resident, streamed, "
+              f"{AUG_TIMED_REPS} times, {pipeline.GATHER_THREADS} gather threads: "
+              f"streamed {st_ms:.3f} ms a step, resident {res_ms:.3f} ms a step, the "
+              f"loader's host stall {stall_ms:.3f} ms a step (the training loop's wait "
+              f"for a staged batch, while the card may still run the step before)")
+        del trainer, model, d_train, x_raw
+    torch.cuda.empty_cache()
+    phase(name, f"{time.perf_counter() - t_phase:.1f} s")
+    return {"fused_block_bwd SiT-small": launches["fused_block_bwd"],
+            "fused_block_cls_bwd SiT-small": launches["fused_block_cls_bwd"]}
+
+
 def main() -> None:
     # -- 1. device
     start("device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    print(card(), flush=True)
     kind = torch.cuda.get_device_name(0)
     phase("device", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references stay fp32
@@ -5903,6 +6207,11 @@ def main() -> None:
     # -- 32. mssit-train-entry
     start("mssit-train-entry")
     phase_mssit_train_entry(fb)
+
+    # -- 33. augment-stream-resume (every count zeroed just before run (a))
+    start("augment-stream-resume")
+    for name, n in phase_augment_stream_resume(fb).items():
+        kernels[name]["launches"] = n
     phase("records", "the attention backward rows, this run's ms beside the two-pass "
           "mma.sync backward's recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at "
           "700 W; a record, not measured in this run): " + ", ".join(

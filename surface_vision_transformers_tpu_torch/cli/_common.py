@@ -1,6 +1,7 @@
 """Shared CLI plumbing: ``python -m surface_vision_transformers_tpu_torch.cli.
-<tool> <config> [--set dotted.key=value ...] [--device DEV]``, the JAX
-package's positional-config UX plus an explicit device."""
+<tool> <config> [--set dotted.key=value ...] [--device DEV]`` (train and
+pretrain also ``[--resume RUN_DIR]``), the JAX package's positional-config UX
+plus an explicit device."""
 
 from __future__ import annotations
 
@@ -17,10 +18,16 @@ def _parse_value(text: str):
     return yaml.safe_load(text)
 
 
-def parse_config(description: str, argv=None) -> tuple[dict, str]:
-    """(raw config dict with overrides applied, device)."""
+def parse_config(description: str, argv=None, with_resume: bool = False) -> tuple:
+    """(raw config dict with overrides applied, device), and the
+    ``--resume`` run folder (or None) last under ``with_resume``."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("config", help="path to the YAML (or .json) config")
+    if with_resume:
+        p.add_argument(
+            "--resume", metavar="RUN_DIR", default=None,
+            help="continue an interrupted run in this run folder from its newest "
+            "checkpoint (last/final/best)")
     p.add_argument(
         "--set", action="append", default=[], metavar="dotted.key=value",
         help="override a config value (repeatable), e.g. --set training.bs=64")
@@ -37,4 +44,6 @@ def parse_config(description: str, argv=None) -> tuple[dict, str]:
         for k in parents:
             cur = cur.setdefault(k, {})
         cur[leaf] = _parse_value(val)
+    if with_resume:
+        return raw, args.device, args.resume
     return raw, args.device

@@ -1,7 +1,7 @@
 """MPP pretraining CLI::
 
     python -m surface_vision_transformers_tpu_torch.cli.pretrain mpp.yml \
-        [--set training.epochs=10] [--device cuda]
+        [--set training.epochs=10] [--device cuda] [--resume RUN_DIR]
 
 Forces the MPP task (``SSL: mpp``), runs ``train.runner.run_training`` and
 prints its results dict; the run folder under
@@ -14,13 +14,14 @@ from surface_vision_transformers_tpu_torch.cli._common import parse_config
 
 
 def main(argv=None) -> None:
-    raw, device = parse_config("SiT masked-patch / MS-SiT masked-window pretraining "
-                               "(PyTorch/CUDA)", argv)
+    raw, device, resume = parse_config("SiT masked-patch / MS-SiT masked-window pretraining "
+                               "(PyTorch/CUDA)", argv,
+                                       with_resume=True)
     raw.setdefault("SSL", "mpp")  # force the MPP task
     from surface_vision_transformers_tpu_torch.train.runner import run_training
     from surface_vision_transformers_tpu_torch.utils.config import from_dict
 
-    print(run_training(from_dict(raw), device=device))
+    print(run_training(from_dict(raw), device=device, resume_from=resume))
 
 
 if __name__ == "__main__":

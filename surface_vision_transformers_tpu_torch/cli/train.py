@@ -1,7 +1,7 @@
 """Supervised training CLI::
 
     python -m surface_vision_transformers_tpu_torch.cli.train cfg.yml \
-        [--set training.epochs=10] [--device cuda]
+        [--set training.epochs=10] [--device cuda] [--resume RUN_DIR]
 
 Runs ``train.runner.run_training`` and prints its results dict; the run
 folder lands under ``logging.folder_to_save_model``.
@@ -11,15 +11,16 @@ from surface_vision_transformers_tpu_torch.cli._common import parse_config
 
 
 def main(argv=None) -> None:
-    raw, device = parse_config("SiT / MS-SiT supervised phenotype-regression training "
-                               "(PyTorch/CUDA)", argv)
+    raw, device, resume = parse_config("SiT / MS-SiT supervised phenotype-regression training "
+                               "(PyTorch/CUDA)", argv,
+                                       with_resume=True)
     from surface_vision_transformers_tpu_torch.train.runner import run_training
     from surface_vision_transformers_tpu_torch.utils.config import from_dict
 
     exp = from_dict(raw)
     if exp.is_pretraining:
         raise SystemExit("config contains a pretraining_mpp block; use cli.pretrain")
-    print(run_training(exp, device=device))
+    print(run_training(exp, device=device, resume_from=resume))
 
 
 if __name__ == "__main__":

@@ -21,17 +21,22 @@ SHIPPED_LABEL_DIR = (
 
 
 def load_split(
-    data_path: str | os.PathLike, split: str
+    data_path: str | os.PathLike, split: str, *, mmap: bool = False
 ) -> tuple[np.ndarray, np.ndarray]:
-    """(data float32, labels float32 flattened) of one split."""
+    """(data, labels float32 flattened) of one split. The data come back as
+    float32 in memory, or under ``mmap=True`` as a read-only np.memmap in
+    their on-disk dtype, never read whole (the streaming loader casts each
+    batch)."""
     d = Path(data_path)
-    data = np.load(d / f"{split}_data.npy")
+    data = np.load(d / f"{split}_data.npy", mmap_mode="r" if mmap else None)
     labels = np.load(d / f"{split}_labels.npy").reshape(-1)
     if data.shape[0] != labels.shape[0]:
         raise ValueError(
             f"{split}: {data.shape[0]} samples vs {labels.shape[0]} labels"
         )
-    return data.astype(np.float32), labels.astype(np.float32)
+    if not mmap:
+        data = data.astype(np.float32)
+    return data, labels.astype(np.float32)
 
 
 def resolve_label_dir(label_path: str | os.PathLike, task: str) -> Path:

@@ -93,3 +93,11 @@ class Optimizer:
             group["lr"] = lr
         self.opt.step()
         self.count += 1
+
+    def state_dict(self) -> dict:
+        """The step count and the torch optimizer's state (moments)."""
+        return {"count": self.count, "opt": self.opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.opt.load_state_dict(state["opt"])

@@ -7,21 +7,26 @@ run_training`` and ``run_testing``).
 run initialised from a SiT checkpoint nests it as its encoder), train epoch
 by epoch with ``train.trainer.Trainer``, validate every
 ``training.val_epoch`` epochs and at the last, and keep the best by the val
-MAE (regression) or the val loss (MPP): on each improvement
-``best_params.npz`` (the weights evaluation used, in the JAX package's
-params-npz format) and ``preds.csv`` (regression) or
-``encoder_best_params.npz`` (MPP, the encoder alone for finetuning) are
-written at once, so a run that dies keeps its best. At the end
-``final_params.npz`` (and ``encoder_final_params.npz``),
-``hparams_results.yml`` (the config plus results and ``phases_s``) and,
-under ``training.testing``, the test metric (regression also
-``test_preds.csv``) from the best weights when ``training.save_ckpt`` keeps
-them, else from the final ones, as the JAX package tests. An MS-SiT config
-(``transformer.model: MS-SiT``) trains an ``MSSiT``, or under MPP an
-``MPPMSSiT`` around one; its npz files are JAX ``MSSiT`` / ``MPPMSSiT``
-trees. Not ported (they raise): resume and full-state checkpoints
-(``training.ckpt_every``), ImageNet initialisation, streaming input, meshes,
-augmentation.
+MAE (regression) or the val loss (MPP). Under ``training.save_ckpt`` each
+improvement writes at once ``best/`` (the full training state,
+``checkpoints.state``), ``best_params.npz`` (the weights evaluation used, in
+the JAX package's params-npz format) and, for MPP, ``encoder_best_params.npz``
+(the encoder alone, for finetuning); regression also writes ``preds.csv``.
+``training.ckpt_every`` writes the rolling ``last/`` every that many epochs;
+the end of the run writes ``final/``, ``final_params.npz`` (and
+``encoder_final_params.npz``), ``hparams_results.yml`` (the config plus
+results and ``phases_s``) and, under ``training.testing``, the test metric
+(regression also ``test_preds.csv``) from ``best/`` where it exists, else
+from the final state. ``resume_from`` (``--resume RUN_DIR``) continues a run
+in its folder from the checkpoint with the highest epoch, its best-so-far
+restored, on the same trajectory. ``augmentation.enabled`` augments the
+training batches (``data.augment.SurfaceAugment``; an atlas-ordered patch
+table needs ``augmentation.sphere_path``); ``data.streaming`` trains and
+validates from memmapped splits through ``data.pipeline.StreamingLoader``.
+An MS-SiT config (``transformer.model: MS-SiT``) trains an ``MSSiT``, or
+under MPP an ``MPPMSSiT`` around one; its npz files are JAX ``MSSiT`` /
+``MPPMSSiT`` trees. Not ported (they raise): ImageNet initialisation and
+meshes.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
@@ -34,7 +39,6 @@ nothing.
 
 from __future__ import annotations
 
-import copy
 import csv
 import math
 import time
@@ -62,7 +66,11 @@ from surface_vision_transformers_tpu_torch.checkpoints.convert import (
     save_params_npz,
     state_dict_from_jax,
 )
+from surface_vision_transformers_tpu_torch.checkpoints import state as ckpt
+from surface_vision_transformers_tpu_torch.data import gifti
 from surface_vision_transformers_tpu_torch.data import npy as npy_io
+from surface_vision_transformers_tpu_torch.data.augment import SurfaceAugment
+from surface_vision_transformers_tpu_torch.data.pipeline import StreamingLoader
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table
 from surface_vision_transformers_tpu_torch.models.fused import _device, predict, serving_quant
 from surface_vision_transformers_tpu_torch.models.mpp import MPP
@@ -193,19 +201,63 @@ def run_testing(exp: Experiment, *, device) -> dict:
 
 def load_datasets(exp: Experiment, splits=None) -> dict:
     """{split: (data, labels)} from the configured data path: train and
-    validation, and test under ``training.testing``."""
+    validation, and test under ``training.testing``. Under
+    ``data.streaming`` 'on' or 'auto' the data come back as read-only
+    memmaps, read only as batches are taken (or whole, where 'auto' keeps
+    them on the device)."""
     if splits is None:
         splits = ("train", "validation") + (("test",) if exp.training.testing else ())
     path = exp.data.resolved_data_path()
-    return {s: npy_io.load_split(path, s) for s in splits}
+    mmap = exp.data.streaming != "off"
+    return {s: npy_io.load_split(path, s, mmap=mmap) for s in splits}
+
+
+def use_streaming(exp: Experiment, train_data) -> bool:
+    """``data.streaming``: 'on' / 'off' as said; 'auto' streams when the
+    device-resident epoch, the split and its permuted copy in float32,
+    exceeds ``data.streaming_budget_gb``."""
+    mode = exp.data.streaming
+    if mode != "auto":
+        return mode == "on"
+    bytes_f32 = int(np.prod(np.shape(train_data))) * 4
+    return 2 * bytes_f32 > exp.data.streaming_budget_gb * 2**30
+
+
+def build_augment(exp: Experiment, table_obj) -> SurfaceAugment | None:
+    """The config's ``SurfaceAugment`` (None when augmentation is off). A
+    given ``augmentation.sphere_path`` supplies the sphere's coordinates and
+    triangles in the data's vertex order; an atlas-ordered patch table
+    without one is refused, as in the JAX package."""
+    a = exp.augment
+    if not a.enabled:
+        return None
+    verts = faces = None
+    if a.sphere_path:
+        img = gifti.load(a.sphere_path)
+        verts = np.asarray(img.darrays[0].data, np.float64)
+        verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+        faces = np.asarray(img.darrays[1].data, np.int64)
+    elif table_obj.ordering != "canonical":
+        raise ValueError(
+            "augmentation with an atlas-ordered patch table (e.g. the "
+            "shipped dHCP tables) needs the matching sphere coordinates: "
+            "set augmentation.sphere_path to the atlas sphere .surf.gii "
+            "(for dHCP data that's the ico-6 sphere shipped with every "
+            "dHCP download, e.g. "
+            "week-40_hemi-left_space-dhcpSym_dens-ico6_sphere.surf.gii). "
+            "The atlas numbering is not recoverable from the patch "
+            "tables (see assets/README.md); rotation tables built from "
+            "the canonical icosphere would scramble atlas-ordered data.")
+    return SurfaceAugment(
+        ico=exp.ico, patch_table=table_obj.indices, exact_rotations=a.exact_rotations,
+        num_warps=a.num_warps, max_warp_deg=a.max_warp_deg, warp_prob=a.warp_prob,
+        warp_per_batch=a.warp_per_batch, warp_assign=a.warp_assign, seed=a.seed,
+        mesh_verts=verts, mesh_faces=faces)
 
 
 def _refuse_unported(exp: Experiment) -> None:
     tp = exp.raw.get("tpu", {})
     checks = [
-        (exp.augment, "augmentation"),
-        (exp.data.streaming == "on", "streaming input (data.streaming: on)"),
-        (exp.training.ckpt_every > 0, "rolling full-state checkpoints (training.ckpt_every)"),
         (exp.training.load_weights_imagenet, "ImageNet initialisation"),
         (any(int(tp.get(k, 1)) > 1 for k in ("mesh_fsdp", "mesh_model", "mesh_pipe"))
          or bool(tp.get("seq_sharding", False)), "meshes (tpu.mesh_*, seq_sharding)"),
@@ -249,11 +301,19 @@ def _save_npz(path: Path, model, depth: int) -> None:
         save_params_npz(path.with_name("encoder_" + path.name), {"params": tree["encoder"]})
 
 
+def _write_best(run_dir: Path, trainer: Trainer, meta: dict, depth: int) -> None:
+    """The best-val set: ``best/`` (full state), ``best_params.npz`` of the
+    weights evaluation used (and an MPP's encoder npz)."""
+    ckpt.save_state(run_dir / "best", trainer.state_dict(), meta)
+    _save_npz(run_dir / "best_params.npz", trainer.eval_model(), depth)
+
+
 def run_training(exp: Experiment, *, device, datasets: dict | None = None,
-                 progress: bool = True) -> dict:
+                 progress: bool = True, resume_from: str | None = None) -> dict:
     """Supervised regression or MPP training per ``exp`` on ``device`` (a
-    CUDA request without CUDA raises). Returns the results dict that also
-    lands in ``hparams_results.yml``."""
+    CUDA request without CUDA raises). ``resume_from``: an existing run
+    folder, continued in place from its newest checkpoint. Returns the
+    results dict that also lands in ``hparams_results.yml``."""
     _refuse_unported(exp)
     dev = _device(device)
     t_start = time.time()
@@ -266,40 +326,74 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
     train_data, train_labels = datasets["train"]
     val_data, val_labels = datasets.get("validation", (None, None))
 
-    run_dir = Path(exp.logging_folder) / run_folder_name(exp)
-    run_dir.mkdir(parents=True, exist_ok=True)
+    if resume_from is not None:
+        run_dir = Path(resume_from)
+        if not run_dir.is_dir():
+            raise FileNotFoundError(f"resume_from {run_dir} is not an existing run directory")
+    else:
+        run_dir = Path(exp.logging_folder) / run_folder_name(exp)
+        run_dir.mkdir(parents=True, exist_ok=True)
     logger = MetricLogger(run_dir)
+    loaders: list[StreamingLoader] = []
     try:
-        table = None
-        if train_data.ndim == 3:
-            table = load_patch_table(exp.ico, exp.sub_ico).indices
+        table_obj = load_patch_table(exp.ico, exp.sub_ico)
+        augment = build_augment(exp, table_obj)
+        table = table_obj.indices if train_data.ndim == 3 else None
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(exp.training.seed)
             model = build_model(exp, table)
         _load_initial_weights(exp, model)
         model.to(dev)
-        trainer = Trainer(exp, model)
-
-        t_up = time.time()
+        trainer = Trainer(exp, model, augment=augment)
+        bs_val = exp.training.bs_val or exp.training.bs
 
         def put(a):
             return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
 
-        d_train, l_train = put(train_data), put(train_labels)
-        d_val = l_val = None
-        if val_data is not None:
-            d_val, l_val = put(val_data), put(val_labels)
-        phases["data_upload"] = time.time() - t_up
-        phases["setup"] = time.time() - t_start - phases["data_upload"]
+        def loader(data, labels, shuffle):
+            loaders.append(StreamingLoader(
+                data, labels, shuffle=shuffle, seed=exp.training.seed, device=dev,
+                batch_size=exp.training.bs if shuffle else bs_val))
+            return loaders[-1]
+
+        streaming = use_streaming(exp, train_data)
+        if streaming:
+            train_loader = loader(train_data, train_labels, True)
+            val_loader = None if val_data is None else loader(val_data, val_labels, False)
+        else:
+            t_up = time.time()
+            d_train, l_train = put(train_data), put(train_labels)
+            d_val = l_val = None
+            if val_data is not None:
+                d_val, l_val = put(val_data), put(val_labels)
+            phases["data_upload"] = time.time() - t_up
 
         depth, epochs = exp.model.depth, exp.training.epochs
         is_mpp = exp.is_pretraining
         metric = "loss" if is_mpp else "mae"
-        best, best_epoch, best_state = math.inf, -1, None
-        for epoch in range(epochs):
+        best, best_epoch, start_epoch = math.inf, -1, 0
+        if resume_from is not None:
+            name, epoch_at, meta = ckpt.newest(run_dir)
+            trainer.load_state_dict(ckpt.load_state(run_dir / name)[0])
+            start_epoch = epoch_at + 1
+            best = float(meta.get("best", meta.get(metric, math.inf)))
+            if math.isnan(best):
+                best = math.inf
+            # ``best``'s own epoch is its best epoch where the key is missing
+            best_epoch = int(meta.get("best_epoch", epoch_at if name == "best" else -1))
+            if streaming:
+                train_loader.set_epoch(start_epoch)
+            if progress:
+                print(f"resuming from {run_dir / name} at epoch {start_epoch} "
+                      f"(best {metric} {best:.5f})", flush=True)
+        phases["setup"] = time.time() - t_start - phases["data_upload"]
+
+        save = exp.training.save_ckpt
+        for epoch in range(start_epoch, epochs):
             t_ep = time.time()
-            m = trainer.train_epoch(d_train, l_train)
-            phases["first_epoch" if epoch == 0 else "train"] += time.time() - t_ep
+            m = (trainer.train_epoch_streaming(train_loader) if streaming
+                 else trainer.train_epoch(d_train, l_train))
+            phases["first_epoch" if epoch == start_epoch else "train"] += time.time() - t_ep
             if not math.isfinite(m.loss):
                 raise FloatingPointError(
                     f"non-finite training loss at epoch {epoch}: {m.loss} "
@@ -308,43 +402,59 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
             if progress and (epoch % 5 == 0 or epoch == epochs - 1):
                 print(f"epoch {epoch}: train loss {m.loss:.5f} {metric} "
                       f"{getattr(m, metric):.5f}", flush=True)
-            if d_val is None or ((epoch + 1) % exp.training.val_epoch
-                                 and epoch != epochs - 1):
-                continue
-            t_val = time.time()
-            vm, preds = trainer.evaluate(d_val, l_val)
-            phases["val"] += time.time() - t_val
-            logger.log(epoch, vm.as_dict(), prefix="val/")
-            score = getattr(vm, metric)
-            if progress:
-                print(f"epoch {epoch}: val {metric} {score:.5f}", flush=True)
-            if score < best:
-                best, best_epoch = score, epoch
+            if val_data is not None and ((epoch + 1) % exp.training.val_epoch == 0
+                                         or epoch == epochs - 1):
+                t_val = time.time()
+                vm, preds = (trainer.evaluate_streaming(val_loader) if streaming
+                             else trainer.evaluate(d_val, l_val))
+                phases["val"] += time.time() - t_val
+                logger.log(epoch, vm.as_dict(), prefix="val/")
+                score = getattr(vm, metric)
+                if progress:
+                    print(f"epoch {epoch}: val {metric} {score:.5f}", flush=True)
+                if score < best:
+                    best, best_epoch = score, epoch
+                    t_ck = time.time()
+                    if save:
+                        _write_best(run_dir, trainer, {"epoch": epoch, metric: float(score),
+                                                       "best": float(score),
+                                                       "best_epoch": epoch}, depth)
+                    if not is_mpp:
+                        write_preds_csv(run_dir / "preds.csv", preds, val_labels)
+                    phases["ckpt"] += time.time() - t_ck
+            if save and exp.training.ckpt_every and (epoch + 1) % exp.training.ckpt_every == 0:
                 t_ck = time.time()
-                if exp.training.save_ckpt:
-                    best_state = copy.deepcopy(trainer.eval_model().state_dict())
-                    _save_npz(run_dir / "best_params.npz", trainer.eval_model(), depth)
-                if not is_mpp:
-                    write_preds_csv(run_dir / "preds.csv", preds, val_labels)
+                ckpt.save_state(run_dir / "last", trainer.state_dict(),
+                                {"epoch": epoch, "best": float(best),
+                                 "best_epoch": int(best_epoch)})
                 phases["ckpt"] += time.time() - t_ck
 
         t_ck = time.time()
-        if exp.training.save_ckpt:
+        if save:
+            state = trainer.state_dict()
+            ckpt.save_state(run_dir / "final", state,
+                            {"epoch": epochs - 1, metric: float(best), "best": float(best),
+                             "best_epoch": int(best_epoch)})
             _save_npz(run_dir / "final_params.npz", model, depth)
+            if best_epoch < 0 and not (run_dir / "best").exists():
+                ckpt.save_state(run_dir / "best", state,
+                                {"epoch": epochs - 1, metric: float("nan"), "best_epoch": -1})
         phases["ckpt"] += time.time() - t_ck
         results = {f"best_{metric}": float(best), "best_epoch": int(best_epoch),
                    "epochs": int(epochs), "run_dir": str(run_dir),
                    "wall_s": round(time.time() - t_start, 2),
-                   "training_finished": True, "streaming": False}
+                   "training_finished": True, "streaming": bool(streaming)}
 
         if exp.training.testing and "test" in datasets:
             t_test = time.time()
-            # the best weights where they were saved, else the final ones (JAX:
-            # save_ckpt and best_epoch >= 0)
-            if best_state is not None:
-                trainer.eval_model().load_state_dict(best_state)
+            # the best weights where they were saved, else the final ones (a
+            # resumed run whose earlier part never wrote best/ included)
+            if save and best_epoch >= 0 and (run_dir / "best" / "state.pt").exists():
+                best_state = ckpt.load_state(run_dir / "best")[0]
+                trainer.eval_model().load_state_dict(best_state["ema"] or best_state["model"])
             test_data, test_labels = datasets["test"]
-            tm, preds = trainer.evaluate(put(test_data), put(test_labels))
+            tm, preds = (trainer.evaluate_streaming(loader(test_data, test_labels, False))
+                         if streaming else trainer.evaluate(put(test_data), put(test_labels)))
             if not is_mpp:
                 write_preds_csv(run_dir / "test_preds.csv", preds, test_labels)
             results[f"test_{metric}"] = float(getattr(tm, metric))
@@ -354,4 +464,6 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
         dump_config_with_results(exp, results, run_dir / "hparams_results.yml")
         return results
     finally:
+        for ld in loaders:
+            ld.close()
         logger.close()

@@ -26,18 +26,29 @@ themselves by width). As in the JAX package:
   means);
 * ``training.ema`` keeps an exponential moving average of the weights that
   evaluation uses;
-* MPP tokenises a dataset once per run (``mpp_tokens``), draws each step's
-  corruption from a generator seeded by ``training.seed``, evaluates with a
-  fixed corruption per batch (a generator seeded from (1234, batch index)),
-  reports the loss as its metric, and under ``optimize_decoder: false``
-  leaves ``to_original`` and ``mask_token`` untouched;
+* MPP tokenises a dataset once per run (``mpp_tokens``; under augmentation
+  each augmented batch instead), draws each step's corruption from a
+  generator seeded by ``training.seed``, evaluates with a fixed corruption
+  per batch (a generator seeded from (1234, batch index)), reports the loss
+  as its metric, and under ``optimize_decoder: false`` leaves
+  ``to_original`` and ``mask_token`` untouched;
+* with a ``data.augment.SurfaceAugment``, every training batch (never an
+  evaluation batch) is augmented before the model, on both routes, its
+  draws from a CPU generator seeded by ``training.seed``;
+* ``train_epoch_streaming`` / ``evaluate_streaming`` take a
+  ``data.pipeline.StreamingLoader`` over a host-resident split instead of a
+  device-resident one;
+* ``state_dict`` / ``load_state_dict`` carry the whole training state: the
+  model, the optimizer's moments and step, the EMA, and every generator
+  (epoch permutations, MPP corruption, dropout, augmentation), so a resumed
+  run continues the same trajectory;
 * dropout masks and attention-kernel seeds come from a ``DropoutRNG``
   seeded by ``training.seed``;
 * regression evaluation in bfloat16 serves through ``fused_forward`` with
   ``tpu.quant`` under the crossover rule (``resolve_quant``: int8 from
   ``INT8_MIN_DIM`` on, else bf16 and a notice printed once per trainer).
 
-Not ported here (they raise): meshes and pipelines, augmentation.
+Not ported: meshes and pipelines.
 """
 
 from __future__ import annotations
@@ -49,6 +60,8 @@ import math
 import numpy as np
 import torch
 
+from surface_vision_transformers_tpu_torch.data.augment import SurfaceAugment
+from surface_vision_transformers_tpu_torch.data.pipeline import StreamingLoader
 from surface_vision_transformers_tpu_torch.models.fused import (
     fused_forward,
     fused_mpp_loss,
@@ -120,9 +133,8 @@ class Trainer:
     ``SiT`` or an ``MSSiT`` on regression targets, or an ``MPP`` (an
     ``MPPMSSiT``) under an MPP config."""
 
-    def __init__(self, exp: Experiment, model: SiT | MSSiT | MPP | MPPMSSiT):
-        if exp.augment:
-            raise NotImplementedError("augmentation is not ported yet")
+    def __init__(self, exp: Experiment, model: SiT | MSSiT | MPP | MPPMSSiT,
+                 augment: SurfaceAugment | None = None):
         self.task = "mpp" if exp.is_pretraining else "regression"
         if isinstance(model, (MPP, MPPMSSiT)) != (self.task == "mpp"):
             raise TypeError(f"a {self.task} config trains "
@@ -146,6 +158,9 @@ class Trainer:
         self.corruption = torch.Generator(device=device).manual_seed(seed)
         self.rng = (DropoutRNG(seed, device)
                     if self.encoder.dropout or self.encoder.emb_dropout else None)
+        self.augment = augment
+        # a stream of its own, apart from the epoch permutations' (seed)
+        self.augment_rng = torch.Generator().manual_seed((seed << 32) + 7)
         self._token_cache: dict[int, tuple] = {}
         self._quant_noticed = False
 
@@ -167,8 +182,11 @@ class Trainer:
 
     def mpp_tokens(self, data: torch.Tensor) -> torch.Tensor:
         """MPP: the dataset as reconstruction targets (B, L, patch_dim),
-        computed once per dataset tensor; other tasks get ``data`` back."""
-        if self.task != "mpp" or (data.dim() == 3 and data.shape[-1] == self.encoder.patch_dim):
+        computed once per dataset tensor; other tasks, and MPP under
+        augmentation (each augmented batch is tokenised), get ``data``
+        back."""
+        if (self.task != "mpp" or self.augment is not None
+                or (data.dim() == 3 and data.shape[-1] == self.encoder.patch_dim)):
             return data
         cached = self._token_cache.get(id(data))
         if cached is None or cached[0] is not data:
@@ -202,6 +220,8 @@ class Trainer:
         """One optimizer step on a batch (microbatched under grad_accum);
         ``targets`` None under MPP. -> (loss, weighted |err| sum), device
         scalars."""
+        if self.augment is not None:
+            batch = self.augment(batch, self.augment_rng)
         self.optimizer.zero_grad()
         accum = self.exp.training.grad_accum
         if accum <= 1 or batch.shape[0] % accum:
@@ -250,14 +270,25 @@ class Trainer:
         loss = torch.stack(losses).mean().item()
         return EpochMetrics(loss=loss, mae=torch.stack(mae_sums).sum().item() / n)
 
+    def _predictor(self, model):
+        """Regression serving of ``model`` for evaluation: (B, ...) -> (B,)
+        predictions through ``fused_forward`` (``fused_mssit_forward`` for
+        an MS-SiT; bfloat16, ``serving_quant``) or the modular model."""
+        quant = self.serving_quant(model)
+        mssit = isinstance(model, MSSiT)
+        forward = fused_mssit_forward if mssit else fused_forward
+        if not serves_fused(model):
+            return lambda xb: model(xb).reshape(xb.shape[0], -1).squeeze(-1)
+        weights = (prepare_mssit_weights if mssit else prepare_weights)(model, quant)
+        return lambda xb: forward(model, xb, weights, quant=quant).reshape(
+            xb.shape[0], -1).squeeze(-1)
+
     @torch.no_grad()
     def evaluate(self, data: torch.Tensor, targets: torch.Tensor | None = None):
         """The whole split at ``training.bs_val`` (0 -> ``bs``). Regression:
-        ``fused_forward`` (``fused_mssit_forward`` for an MS-SiT; bfloat16,
-        ``serving_quant``) or the modular model -> (EpochMetrics
-        with the MSE as loss, predictions in row order as numpy). MPP: the
-        modular MPP on each batch's fixed corruption -> (EpochMetrics with
-        the loss as both metrics, None)."""
+        ``_predictor`` -> (EpochMetrics with the MSE as loss, predictions
+        in row order as numpy). MPP: the modular MPP on each batch's fixed
+        corruption -> (EpochMetrics with the loss as both metrics, None)."""
         model = self.eval_model()
         bs_val = self.exp.training.bs_val or self.exp.training.bs
         if self.task == "mpp":
@@ -266,18 +297,11 @@ class Trainer:
         n = data.shape[0]
         bs = min(bs_val, n)
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
-        quant = self.serving_quant(model)
-        mssit = isinstance(model, MSSiT)
-        forward, weights = fused_mssit_forward if mssit else fused_forward, None
-        if serves_fused(model):
-            weights = (prepare_mssit_weights if mssit else prepare_weights)(model, quant)
+        predict = self._predictor(model)
         preds, sq_sum, err_sum = [], 0.0, 0.0
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)
-            xb = data[s:s + bs]
-            p = (forward(model, xb, weights, quant=quant) if weights is not None
-                 else model(xb))
-            p = p.reshape(p.shape[0], -1).squeeze(-1)
+            p = predict(data[s:s + bs])
             d = p - targets[s:s + bs].reshape(p.shape)
             sq_sum = sq_sum + (d.square() * w[i]).sum()
             err_sum = err_sum + (d.abs() * w[i]).sum()
@@ -285,3 +309,79 @@ class Trainer:
         preds[-1] = preds[-1][w.shape[0] * bs - n:]  # drop the re-read rows
         flat = torch.cat(preds).cpu().numpy()
         return EpochMetrics(loss=float(sq_sum) / n, mae=float(err_sum) / n), flat
+
+    # -- host-streamed splits --------------------------------------------------
+
+    def train_epoch_streaming(self, loader: StreamingLoader) -> EpochMetrics:
+        """One epoch over ``loader`` (its order, its weight-0 padding), one
+        optimizer step a batch. Metrics are fetched once, at the end."""
+        losses, mae_sums = [], []
+        for batch, targets, w in loader:
+            loss, mae_sum = self.optimizer_step(
+                batch, None if self.task == "mpp" else targets, w)
+            losses.append(loss)
+            mae_sums.append(mae_sum)
+        loss = torch.stack(losses).mean().item()
+        return EpochMetrics(loss=loss, mae=torch.stack(mae_sums).sum().item()
+                            / loader.num_samples)
+
+    @torch.no_grad()
+    def evaluate_streaming(self, loader: StreamingLoader):
+        """``evaluate`` over a ``shuffle=False`` loader: the same forward a
+        batch, MPP batch i on its fixed corruption; the padding rows weigh 0
+        and their predictions are dropped."""
+        if loader.shuffle:
+            raise ValueError("evaluate_streaming needs a shuffle=False loader")
+        model = self.eval_model()
+        n = loader.num_samples
+        if self.task == "mpp":
+            loss_sum = 0.0
+            for i, (batch, _, w) in enumerate(loader):
+                loss, _ = model(batch, eval_generator(i, batch.device), sample_weights=w)
+                loss_sum = loss_sum + loss * w.sum()
+            loss = float(loss_sum) / n
+            return EpochMetrics(loss=loss, mae=loss), None
+        predict = self._predictor(model)
+        preds, sq_sum, err_sum = [], 0.0, 0.0
+        for batch, targets, w in loader:
+            p = predict(batch)
+            d = p - targets.reshape(p.shape)
+            sq_sum = sq_sum + (d.square() * w).sum()
+            err_sum = err_sum + (d.abs() * w).sum()
+            preds.append(p.cpu())  # the loader reuses its device buffers
+        flat = torch.cat(preds).numpy()[:n]
+        return EpochMetrics(loss=float(sq_sum) / n, mae=float(err_sum) / n), flat
+
+    # -- full state ------------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """The whole training state, as tensors and numbers that
+        ``torch.load(..., weights_only=True)`` reads back."""
+        rng = self.rng
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "ema": None if self.ema_model is None else self.ema_model.state_dict(),
+            "generator": self.generator.get_state(),
+            "corruption": self.corruption.get_state(),
+            "dropout": None if rng is None else {"masks": rng.masks.get_state(),
+                                                 "seeds": rng.seeds.get_state()},
+            "augment": self.augment_rng.get_state(),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s output (its tensors may lie on the
+        CPU). A checkpoint of a run without EMA or dropout leaves the shadow
+        seeded from its weights and the dropout generator fresh."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.ema_model is not None:
+            # a checkpoint written without ``training.ema`` seeds the shadow
+            # from its weights, as the JAX package's restore does
+            self.ema_model.load_state_dict(state["ema"] or state["model"])
+        self.generator.set_state(state["generator"])
+        self.corruption.set_state(state["corruption"])
+        if self.rng is not None and state["dropout"] is not None:
+            self.rng.masks.set_state(state["dropout"]["masks"])
+            self.rng.seeds.set_state(state["dropout"]["seeds"])
+        self.augment_rng.set_state(state["augment"])

@@ -5,12 +5,12 @@ its config files load unmodified.
 Only the keys the port reads are parsed, with the JAX package's validation:
 ``resolution``, ``transformer`` (architecture, dropout), ``mssit`` (the
 MS-SiT hierarchy, read when ``transformer.model: MS-SiT``), ``data`` (location,
-split, streaming), ``training`` (batch sizes, epochs, validation cadence,
-loss, EMA, gradient accumulation, checkpoints, initialisation, seed),
-``optimisation`` / ``SGD`` / ``Adam`` / ``AdamW`` / ``StepLR`` /
-``CosineDecay`` (optimizer and schedule), ``logging.folder_to_save_model``,
-``weights``, ``testing.path_to_ckpt``, ``augmentation.enabled``,
-``pretraining_mpp`` / ``SSL`` (masked-patch pretraining: the corruption
+split, streaming and its budget), ``training`` (batch sizes, epochs,
+validation cadence, loss, EMA, gradient accumulation, checkpoints and
+``ckpt_every``, initialisation, seed), ``optimisation`` / ``SGD`` / ``Adam`` /
+``AdamW`` / ``StepLR`` / ``CosineDecay`` (optimizer and schedule),
+``logging.folder_to_save_model``, ``weights``, ``testing.path_to_ckpt``, the
+whole ``augmentation`` block, ``pretraining_mpp`` / ``SSL`` (masked-patch pretraining: the corruption
 rates and ``optimize_decoder``) and, under ``tpu``, ``compute_dtype``,
 ``fused_train`` and ``quant``. ``tpu.scan_blocks`` is a TPU compile-time
 knob that leaves the outputs bitwise unchanged; eager PyTorch has nothing to
@@ -133,7 +133,9 @@ class TrainingConfig:
     bs_val: int = 0  # 0 -> bs
     grad_accum: int = 1  # microbatches per step, weight-sum scaled
     ema: float = 0.0  # EMA decay of the weights for evaluation; 0 = off
-    ckpt_every: int = 0  # rolling full-state checkpoints: not ported
+    # rolling full-state checkpoint ``last/`` every this many epochs (0 =
+    # off), which ``run_training(resume_from=...)`` / ``--resume`` continues
+    ckpt_every: int = 0
     epochs: int = 100
     val_epoch: int = 10
     l1loss: bool = False
@@ -165,7 +167,11 @@ class DataConfig:
     task: str = "scan_age"
     configuration: str = "template"
     split: str = "train"
-    streaming: str = "auto"  # the port loads splits whole; 'on' is refused
+    # 'on': train and validate from host-resident (memmapped) splits through
+    # ``data.pipeline.StreamingLoader``; 'auto': stream when twice the
+    # float32 training split exceeds ``streaming_budget_gb``; 'off': resident
+    streaming: str = "auto"
+    streaming_budget_gb: float = 8.0
 
     def __post_init__(self):
         if self.streaming not in ("auto", "on", "off"):
@@ -176,6 +182,28 @@ class DataConfig:
         if "{}" in self.data_path:
             return self.data_path.format(self.task, self.configuration)
         return self.data_path
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Rotation / warp augmentation of training batches (``augmentation:``
+    block, as the JAX package's ``AugmentConfig``): the 60 exact icosahedral
+    rotations, ``num_warps`` barycentric tables of random rotations up to
+    ``max_warp_deg``, applied to ``warp_prob`` of the samples by the
+    ``warp_assign`` law ('quota' or 'multinomial') or one table a batch
+    (``warp_per_batch``). ``seed`` draws the warp tables; ``sphere_path``
+    (a sphere .surf.gii in the data's vertex order) is required with an
+    atlas-ordered patch table."""
+
+    enabled: bool = False
+    exact_rotations: bool = True
+    num_warps: int = 8
+    max_warp_deg: float = 15.0
+    warp_prob: float = 0.5
+    warp_per_batch: bool = False
+    warp_assign: str = "quota"
+    seed: int = 0
+    sphere_path: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +219,7 @@ class Experiment:
     quant: str = "none"
     mpp: MPPConfig | None = None  # an MPP (``pretraining_mpp`` or ``SSL: mpp``) config
     fused_train: bool = True  # ``tpu.fused_train``: the fused-block training route
-    augment: bool = False  # ``augmentation.enabled``
+    augment: AugmentConfig = AugmentConfig()
     ico: int = 6
     sub_ico: int = 2
     ckpt_path: str = ""
@@ -292,6 +320,7 @@ def from_dict(raw: dict) -> Experiment:
         configuration=d.get("configuration", "template"),
         split=d.get("split", "train"),
         streaming=str(streaming),
+        streaming_budget_gb=float(d.get("streaming_budget_gb", 8.0)),
     )
     tp = raw.get("tpu", {})
     quant = str(tp.get("quant", "none"))
@@ -316,6 +345,7 @@ def from_dict(raw: dict) -> Experiment:
         cross_mix=str(ms.get("cross_mix", "axial")),
         mlp_ratio=float(ms.get("mlp_ratio", 4.0)),
     )
+    aug = raw.get("augmentation") or {}
     return Experiment(
         model=model,
         training=training,
@@ -326,7 +356,17 @@ def from_dict(raw: dict) -> Experiment:
         quant=quant,
         mpp=mpp,
         fused_train=bool(tp.get("fused_train", True)),
-        augment=bool(_get(raw, "augmentation.enabled", False)),
+        augment=AugmentConfig(
+            enabled=bool(aug.get("enabled", False)),
+            exact_rotations=bool(aug.get("exact_rotations", True)),
+            num_warps=int(aug.get("num_warps", 8)),
+            max_warp_deg=float(aug.get("max_warp_deg", 15.0)),
+            warp_prob=float(aug.get("warp_prob", 0.5)),
+            warp_per_batch=bool(aug.get("warp_per_batch", False)),
+            warp_assign=str(aug.get("warp_assign", "quota")),
+            seed=int(aug.get("seed", 0)),
+            sphere_path=str(aug.get("sphere_path", "")),
+        ),
         ico=ico,
         sub_ico=sub_ico,
         ckpt_path=str(_get(raw, "testing.path_to_ckpt", "")),

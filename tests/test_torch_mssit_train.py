@@ -744,9 +744,8 @@ def test_frozen_decoder_mssit(setup, mpp_setup):
                            before["encoder.patch_embedding.weight"])
 
 
-@pytest.mark.parametrize("key,val,match", [("augmentation.enabled", True, "augmentation"),
-                                           ("tpu.mesh_model", 2, "mesh"),
-                                           ("training.ckpt_every", 2, "ckpt_every")])
+@pytest.mark.parametrize("key,val,match", [("tpu.mesh_model", 2, "mesh"),
+                                           ("training.load_weights_imagenet", True, "ImageNet")])
 def test_run_training_on_mssit_refuses_unported_modes(tmp_path, key, val, match):
     """MS-SiT trains now; what stays unported raises on an MS-SiT config as
     on a SiT one."""

@@ -225,15 +225,14 @@ def test_grad_accum_and_ema():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(augment=True), "augmentation"),
     (dict(mpp=config.MPPConfig()), "MPP"),
     (dict(model=config.ModelConfig(dim=16, depth=2, heads=2, mlp_dim=32, dim_head=8,
                                    num_patches=20, num_vertices=15, num_classes=2)),
      "scalar regression"),
 ])
 def test_unported_training_modes_raise(change, match):
-    """Augmentation and classification heads are not ported; an MPP config
-    trains an MPP, not a bare SiT."""
+    """Classification heads are not ported; an MPP config trains an MPP,
+    not a bare SiT."""
     _, _, model, exp = _small_setup()
     if "model" in change:
         model = SiT(dtype=torch.float32, **{**CFG, "num_classes": 2})
@@ -348,11 +347,8 @@ def test_run_training_without_checkpoints_tests_the_final_state(tmp_path):
 
 def test_run_training_refuses_unported_modes(tmp_path):
     base = _train_cfg(tmp_path, tmp_path / "none.npz")
-    for key, val, match in [("training.ckpt_every", 2, "ckpt_every"),
-                            ("training.load_weights_imagenet", True, "ImageNet"),
-                            ("data.streaming", "on", "streaming"),
-                            ("tpu.mesh_model", 2, "mesh"),
-                            ("augmentation.enabled", True, "augmentation")]:
+    for key, val, match in [("training.load_weights_imagenet", True, "ImageNet"),
+                            ("tpu.mesh_model", 2, "mesh")]:
         raw = yaml.safe_load(yaml.safe_dump(base))
         block, leaf = key.split(".")
         raw.setdefault(block, {})[leaf] = val
