@@ -319,6 +319,29 @@ warp_prob 0.5; the path of ``_block_bwd_split``):
               the streamed step against the resident one and the loader's
               host stall a step.
 
+Phase 34 exports the serving step (``serving/artifact.py``, ``torch.export``
+programs of the ``svt::`` operators) and runs it without the package:
+
+34. export -- ``cli.export --serve`` in subprocesses: SiT-tiny
+              (``sit_tiny_scan_age.yml``, full width and depth, seeded
+              weights in a params npz) bf16 at batch sizes 1, 8 and 256;
+              SiT-base int8 (``sit_base_subico3.yml --quant int8``, cut to
+              BASE_ENTRY_DEPTH blocks) at 8 and 64; MS-SiT
+              (``mssit_scan_age.yml``, full width and depth) bf16 and int8
+              at 64; SiT-tiny ``--plain`` in float32. Each artifact's
+              ``loader.py`` then runs in one subprocess whose path excludes
+              the repository, on raw bf16 inputs saved by the phase: the
+              fused outputs must equal the in-process ``fused_forward``
+              (``fused_mssit_forward``) on the same weights bit for bit,
+              launches a batch 1 / 11 / 1 (patch_embed / fused_block /
+              fused_block_cls) at SiT-tiny, B = 7 refused; the plain
+              artifact, on the card, within EXPORT_PLAIN_TOL of the float32
+              model. Controls the same gates must reject: the SiT-tiny
+              artifact with one block's w_fc2 buffer zeroed, and its kernel
+              library with one byte changed (the loader must refuse it).
+              Export seconds, artifact bytes and the artifact's CUDA-event
+              time at B = 256 beside ``fused_forward``'s.
+
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
 same comparison tells a call with one dO element raised by 1 apart; and
@@ -355,6 +378,7 @@ import importlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -5881,6 +5905,313 @@ def phase_augment_stream_resume(fb) -> dict:
             "fused_block_cls_bwd SiT-small": launches["fused_block_cls_bwd"]}
 
 
+# Phase 34: the serving export, run by the standalone loader.
+EXPORT_TINY_CFG = ROOT / "configs/training/sit_tiny_scan_age.yml"
+EXPORT_TINY_SIZES = (1, 8, 256)
+EXPORT_BASE_SIZES = (8, 64)  # SiT-base int8, cut to BASE_ENTRY_DEPTH blocks
+EXPORT_MSSIT_B = 64  # the MS-SiT config's bs_val
+EXPORT_REFUSED_B = 7  # a batch size no artifact lists
+EXPORT_CONTROL_BLOCK = 5  # the block whose w_fc2 buffer the control zeroes
+# |plain artifact - float32 model| on the card: float32 serving's bound
+# (tests/test_torch_serving.py's run_testing float32 1e-4), the same aten
+# operators run on each side
+EXPORT_PLAIN_TOL = 1e-4
+# Runs serving artifacts through their own loader.py, in a process whose
+# path holds torch but not the repository: argv[1] a JSON list of jobs
+# {dir, device, sizes, inputs {B: file}, outputs, refuse [B], timed [B]};
+# prints one RESULT line: per job, the refusals' messages, each size's
+# launches by kernel (the svt operators' counters) and CUDA-event ms.
+EXPORT_RUNNER = """
+import importlib.util, json, sys
+import torch
+if importlib.util.find_spec("surface_vision_transformers_tpu_torch") is not None:
+    raise SystemExit("the package is importable here: the loader would not run standalone")
+results = []
+for i, job in enumerate(json.loads(open(sys.argv[1]).read())):
+    spec = importlib.util.spec_from_file_location(f"loader{i}", job["dir"] + "/loader.py")
+    loader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(loader)
+    res = {"refused": {}, "launches": {}, "ms": {}}
+    for B in job.get("refuse", []):
+        try:
+            loader.load(B, job["device"])
+            res["refused"][str(B)] = None
+        except Exception as e:
+            res["refused"][str(B)] = f"{type(e).__name__}: {e}"
+    for B in job.get("sizes", []):
+        fn, info = loader.load(B, job["device"])
+        x = torch.load(job["inputs"][str(B)]).to(info["device"])
+        counts = info.get("launches", {})
+        before = dict(counts)
+        with torch.no_grad():
+            y = fn(x)
+        torch.cuda.synchronize()
+        res["launches"][str(B)] = {k: v - before.get(k, 0) for k, v in counts.items()}
+        torch.save(y.cpu(), job["outputs"] + f"/out_{B}.pt")
+        if B in job.get("timed", []):
+            with torch.no_grad():
+                for _ in range(2):
+                    fn(x)
+                times = []
+                for _ in range(10):
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    fn(x)
+                    b.record()
+                    torch.cuda.synchronize()
+                    times.append(a.elapsed_time(b))
+            res["ms"][str(B)] = sorted(times)[len(times) // 2]
+    results.append(res)
+print("RESULT " + json.dumps(results))
+"""
+
+
+def export_clis(specs: dict) -> dict:
+    """``cli.export --serve`` of each spec, name -> (artifact dir, config,
+    params file, batch sizes, extra flags), in a subprocess each, all
+    started together -> name -> (its seconds, its last printed line)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(name, art, cfg, src, sizes, extra):
+        cmd = [sys.executable, "-m", "surface_vision_transformers_tpu_torch.cli.export",
+               "--serve", str(art), "--config", str(cfg), "--src", str(src), "--batch-sizes",
+               ",".join(map(str, sizes)), "--device", "cuda", *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if res.returncode:
+            raise AssertionError(f"cli.export of {name} failed ({res.returncode}):\n"
+                                 f"{res.stderr[-3000:]}")
+        return time.perf_counter() - t0, res.stdout.strip().splitlines()[-1]
+
+    with ThreadPoolExecutor(len(specs)) as pool:
+        futures = {k: pool.submit(run, k, *v) for k, v in specs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def phase_export() -> None:
+    """Phase 34: the serving export (``cli.export --serve``), run by each
+    artifact's standalone ``loader.py`` with the repository off the path,
+    held against the in-process forwards bit for bit, with controls."""
+    import shutil
+
+    from surface_vision_transformers_tpu_torch.checkpoints.convert import (
+        jax_params_from_mssit_state_dict,
+    )
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.models import fused_mssit as fm
+    from surface_vision_transformers_tpu_torch.serving import artifact
+    from surface_vision_transformers_tpu_torch.train.runner import (
+        build_model,
+        load_state_dict_any,
+    )
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    rng = np.random.default_rng(SEED + 34)
+    smi = card()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def model_of(cfg, npz, depth, **tpu):
+            raw = config.read_config_file(cfg)
+            raw["transformer"]["depth"] = depth
+            raw.setdefault("tpu", {}).update(tpu)
+            exp = config.from_dict(raw)
+            m = build_model(exp, load_patch_table(exp.ico, exp.sub_ico).indices)
+            m.load_state_dict(load_state_dict_any(str(npz), depth), strict=True)
+            return m.eval().cuda()
+
+        def inputs(label, sizes):
+            """Raw bf16 inputs on the card and their files, by batch size."""
+            xs, files = {}, {}
+            for B in sizes:
+                xs[B] = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(
+                    np.float32)).to("cuda", torch.bfloat16)
+                files[str(B)] = str(tmp / f"{label}_x{B}.pt")
+                torch.save(xs[B].cpu(), files[str(B)])
+            return xs, files
+
+        jobs, wants = [], {}  # the loaders' jobs; label -> (outputs dir, {B: expected})
+
+        def job(label, art, xs=None, files=None, want=None, **kw):
+            out = tmp / f"out_{len(jobs)}"
+            out.mkdir()
+            jobs.append(dict(label=label, dir=str(art), device="cuda", sizes=sorted(xs or ()),
+                             inputs=files or {}, outputs=str(out), **kw))
+            if want is not None:
+                wants[label] = (out, want)
+
+        # seeded weights: SiT-tiny full width and depth, SiT-base cut as the
+        # CLI phases cut it, MS-SiT full width and depth
+        depth = {"tiny": DEPTH, "base": BASE_ENTRY_DEPTH}
+        for name, cfg in (("tiny", EXPORT_TINY_CFG), ("base", BASE_CFG)):
+            m = config.load_config(cfg).model
+            tree = jax_shaped_params(rng, m.num_vertices,
+                                     width=(m.dim, depth[name], m.heads, m.mlp_dim),
+                                     n_tokens=m.num_patches + 1)
+            np.savez(tmp / f"{name}.npz", **flatten({"params": tree}))
+        _, _, ms, _, ms_state = mssit_models(np.random.default_rng(SEED + 34))
+        np.savez(tmp / "mssit.npz",
+                 **flatten({"params": jax_params_from_mssit_state_dict(ms_state, ms)}))
+
+        # the main path's artifact alone, for its export time; then the others together
+        secs = export_clis({"SiT-tiny bf16": (tmp / "tiny", EXPORT_TINY_CFG, tmp / "tiny.npz",
+                                              EXPORT_TINY_SIZES, ())})
+        secs.update(export_clis({
+            "SiT-tiny plain float32": (tmp / "plain", EXPORT_TINY_CFG, tmp / "tiny.npz",
+                                       EXPORT_TINY_SIZES[1:],
+                                       ("--plain", "--set", "tpu.compute_dtype=float32")),
+            "SiT-base int8": (tmp / "base", BASE_CFG, tmp / "base.npz", EXPORT_BASE_SIZES,
+                              ("--quant", "int8", "--set",
+                               f"transformer.depth={BASE_ENTRY_DEPTH}")),
+            "MS-SiT bf16": (tmp / "mssit_bf16", MSSIT_CFG, tmp / "mssit.npz",
+                            (EXPORT_MSSIT_B,), ()),
+            "MS-SiT int8": (tmp / "mssit_int8", MSSIT_CFG, tmp / "mssit.npz",
+                            (EXPORT_MSSIT_B,), ("--quant", "int8"))}))
+
+        # SiT-tiny: the in-process forward, and its time at B=256
+        tiny = model_of(EXPORT_TINY_CFG, tmp / "tiny.npz", DEPTH)
+        xs, files = inputs("tiny", EXPORT_TINY_SIZES)
+        with torch.inference_mode():
+            want = {B: fused.fused_forward(tiny, x) for B, x in xs.items()}
+            w = fused.prepare_weights(tiny)
+            art, _ = artifact.load_serving(tmp / "tiny", 256)
+            timed = {"fused_forward": lambda: fused.fused_forward(tiny, xs[256], w),
+                     "the artifact in this process (load_serving)": lambda: art(xs[256])}
+            fwd_ms = {k: (cuda_ms(f, reps=10), host_ms(f)) for k, f in timed.items()}
+        job("SiT-tiny bf16", tmp / "tiny", xs, files, want, refuse=[EXPORT_REFUSED_B],
+            timed=[256])
+        # the controls: one block's w_fc2 buffer zeroed; the library with one byte changed
+        module, _ = artifact.make_serving_fn(tiny)
+        name = module._layout.blocks[EXPORT_CONTROL_BLOCK][9].name
+        ctl = Path(shutil.copytree(tmp / "tiny", tmp / "tiny_fc2_zeroed"))
+        program = torch.export.load(str(ctl / artifact.PROGRAM))
+        program.state_dict[name].zero_()
+        torch.export.save(program, str(ctl / artifact.PROGRAM))
+        job(f"control: block {EXPORT_CONTROL_BLOCK}'s w_fc2 zeroed", ctl, {8: xs[8]},
+            {"8": files["8"]}, {8: want[8]})
+        lib_ctl = Path(shutil.copytree(tmp / "tiny", tmp / "tiny_lib_changed"))
+        so = lib_ctl / json.loads((lib_ctl / "meta.json").read_text())["library"]["file"]
+        blob = bytearray(so.read_bytes())
+        blob[len(blob) // 2] ^= 0xFF
+        so.write_bytes(bytes(blob))
+        job("control: the library with one byte changed", lib_ctl, refuse=[8])
+        del tiny, module, w, program, art, timed
+
+        # the float32 plain artifact of the same weights, traced on the CPU
+        tiny32 = model_of(EXPORT_TINY_CFG, tmp / "tiny.npz", DEPTH, compute_dtype="float32")
+        sizes32 = EXPORT_TINY_SIZES[1:]
+        with torch.inference_mode():
+            want32 = {B: tiny32(xs[B]) for B in sizes32}
+        job("SiT-tiny plain float32", tmp / "plain", {B: xs[B] for B in sizes32},
+            {str(B): files[str(B)] for B in sizes32}, want32)
+        del tiny32
+
+        base = model_of(BASE_CFG, tmp / "base.npz", BASE_ENTRY_DEPTH)
+        bxs, bfiles = inputs("base", EXPORT_BASE_SIZES)
+        with torch.inference_mode():
+            bwant = {B: fused.fused_forward(base, x, quant="int8") for B, x in bxs.items()}
+        job("SiT-base int8", tmp / "base", bxs, bfiles, bwant)
+        del base
+
+        ms_x, ms_files = inputs("mssit", (EXPORT_MSSIT_B,))
+        for label, q in (("bf16", None), ("int8", "int8")):
+            with torch.inference_mode():
+                mw = {EXPORT_MSSIT_B: fm.fused_mssit_forward(ms, ms_x[EXPORT_MSSIT_B], quant=q)}
+            job(f"MS-SiT {label}", tmp / f"mssit_{label}", ms_x, ms_files, mw)
+        del ms
+        torch.cuda.empty_cache()
+
+        (tmp / "jobs.json").write_text(json.dumps(jobs))
+        (tmp / "runner.py").write_text(EXPORT_RUNNER)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(tmp / "runner.py"), str(tmp / "jobs.json")],
+                             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        if res.returncode:
+            raise AssertionError(f"the standalone loaders failed ({res.returncode}):\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+        runner_s = time.perf_counter() - t0
+        results = json.loads(next(ln for ln in res.stdout.splitlines()
+                                  if ln.startswith("RESULT "))[len("RESULT "):])
+        by_label = {j_["label"]: r_ for j_, r_ in zip(jobs, results)}
+        want_launches = {
+            "SiT-tiny bf16": {"patch_embed": 1, "fused_block": DEPTH - 1, "fused_block_cls": 1},
+            "SiT-base int8": {"patch_embed": 1, "fused_block_int8": BASE_ENTRY_DEPTH - 1,
+                              "fused_block_cls": 1},
+            "MS-SiT bf16": {"patch_embed": 1, "fused_block": 12},
+            "MS-SiT int8": {"patch_embed": 1, "fused_block": 4, "fused_block_int8": 8}}
+        failures = []
+        for label, (out, want) in wants.items():
+            control = label.startswith("control")
+            for B, y in want.items():
+                got, y = torch.load(out / f"out_{B}.pt"), y.float().cpu()
+                gap = float((got - y).abs().max())
+                if label.endswith("plain float32"):
+                    ok = gap <= EXPORT_PLAIN_TOL
+                    what = f"|artifact - float32 model| max {gap:.6g} (tol {EXPORT_PLAIN_TOL})"
+                else:
+                    ok = torch.equal(got, y)
+                    what = f"bitwise equal to the in-process forward {ok}, max |gap| {gap:.6g}"
+                launches = {k: v for k, v in by_label[label]["launches"][str(B)].items() if v}
+                phase("export", f"{label}, B={B}, the standalone loader on {smi}: {what}"
+                      f"{' (a control: must not pass)' if control else ''}; launches {launches}")
+                if ok == control:
+                    failures.append(f"{label} B={B}")
+                kernels = {k: launches.get(k, 0) for k in svt_ops_names()}
+                expected = {**dict.fromkeys(kernels, 0), **want_launches.get(label, kernels)}
+                if not control and kernels != expected:
+                    failures.append(f"{label} B={B} launches {kernels}, expected {expected}")
+        refused = by_label["SiT-tiny bf16"]["refused"][str(EXPORT_REFUSED_B)]
+        lib_refused = by_label["control: the library with one byte changed"]["refused"]["8"]
+        phase("export", f"B={EXPORT_REFUSED_B} refused: {refused}; the library with one byte "
+              f"changed (a control: must be refused): {lib_refused}")
+        if not refused or "batch size" not in refused:
+            failures.append(f"B={EXPORT_REFUSED_B} was not refused")
+        if not lib_refused or "sha256" not in lib_refused:
+            failures.append("the changed library was not refused")
+        nbytes = {p_.name: sum(f.stat().st_size for f in p_.iterdir())
+                  for p_ in sorted(tmp.iterdir())
+                  if (p_ / "meta.json").exists() and p_ not in (ctl, lib_ctl)}
+        phase("export", f"on {smi}: cli.export seconds (a subprocess's wall time; all but "
+              "SiT-tiny bf16 four at once): " + "; ".join(
+                  f"{k} {t:.1f} ({line})" for k, (t, line) in secs.items())
+              + f"; the loaders' process {runner_s:.1f} s")
+        phase("export", f"on {smi}: artifact bytes (program, loader.py, meta.json, and for "
+              "the kernels svt_ops.py and the library): "
+              + ", ".join(f"{k} {v}" for k, v in nbytes.items()))
+        art_ms = by_label["SiT-tiny bf16"]["ms"]["256"]
+        ref_ms = fwd_ms["fused_forward"][0]
+        phase("export", f"on {smi}: SiT-tiny B=256, CUDA-event medians of 10: the artifact "
+              f"through its standalone loader {art_ms:.3f} ms = {256 / art_ms * 1e3:.1f} "
+              f"surfaces/s ({art_ms / ref_ms:.3f}x fused_forward's); in this process: " + ", ".join(
+                  f"{k} {t:.3f} ms = {256 / t * 1e3:.1f} surfaces/s (the host's enqueue of a "
+                  f"call {h:.3f} ms)" for k, (t, h) in fwd_ms.items()))
+        if failures:
+            raise AssertionError("export: " + "; ".join(failures))
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock time in ms to enqueue one call of ``fn`` on an
+    idle card (synchronised before each call, not inside it)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2]
+
+
+def svt_ops_names() -> tuple:
+    """The serving operators' kernels, as their launch counters name them."""
+    from surface_vision_transformers_tpu_torch.serving import svt_ops
+
+    return tuple(svt_ops.SCHEMAS)
+
+
 def main() -> None:
     # -- 1. device
     start("device")
@@ -6253,6 +6584,10 @@ def main() -> None:
         phase("records", f"{label_}, ms / other ms ({other_}) / bound ms: " + "; ".join(
             f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
             f"{'-' if t_[2] is None else f'{t_[2]:.4f}'}" for k_, t_ in records_.items()))
+
+    # -- 34. export (the serving artifacts, run by their standalone loaders)
+    start("export")
+    phase_export()
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

@@ -163,6 +163,39 @@ def jax_params_from_state_dict(
     return out
 
 
+# timm ViT key -> reference-layout key suffix, per block (``blocks.{i}.`` ->
+# ``transformer.layers.{i}.``); both in the torch (out, in) layout
+_TIMM_BLOCK = (("norm1.weight", "0.norm.weight"), ("norm1.bias", "0.norm.bias"),
+               ("attn.qkv.weight", "0.fn.to_qkv.weight"),
+               ("attn.proj.weight", "0.fn.to_out.0.weight"),
+               ("attn.proj.bias", "0.fn.to_out.0.bias"),
+               ("norm2.weight", "1.norm.weight"), ("norm2.bias", "1.norm.bias"),
+               ("mlp.fc1.weight", "1.fn.net.0.weight"), ("mlp.fc1.bias", "1.fn.net.0.bias"),
+               ("mlp.fc2.weight", "1.fn.net.3.weight"), ("mlp.fc2.bias", "1.fn.net.3.bias"))
+
+
+def imagenet_state_from_timm(state: Mapping[str, torch.Tensor],
+                             timm_state: Mapping[str, Any], depth: int) -> dict:
+    """A SiT's reference-layout state dict with timm ImageNet ViT weights
+    laid over it (the JAX package's ``checkpoints.torch_import.
+    imagenet_params_from_timm``, the reference's ``utils/utils.py:11-35``):
+    every block's norms, fused qkv, out-projection and MLP, and timm's final
+    ``norm`` as the head's LayerNorm. The patch and positional embeddings,
+    the CLS token and the head's Linear keep ``state``'s values. Tensors
+    come back float32, on the CPU."""
+    out = {k: v.detach().cpu().float().clone() for k, v in state.items()}
+
+    def put(key, src):
+        out[key] = torch.as_tensor(np.asarray(timm_state[src], np.float32)).clone()
+
+    for i in range(depth):
+        for src, dst in _TIMM_BLOCK:
+            put(f"transformer.layers.{i}.{dst}", f"blocks.{i}.{src}")
+    put("mlp_head.0.weight", "norm.weight")
+    put("mlp_head.0.bias", "norm.bias")
+    return out
+
+
 # (JAX leaf path, port key suffix, transpose) of one MS-SiT block's halves
 _MSSIT_BLOCK = (
     ("attn/norm/scale", "0.norm.weight", False), ("attn/norm/bias", "0.norm.bias", False),

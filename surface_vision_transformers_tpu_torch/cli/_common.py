@@ -18,6 +18,19 @@ def _parse_value(text: str):
     return yaml.safe_load(text)
 
 
+def apply_overrides(raw: dict, overrides) -> dict:
+    """``raw`` with each ``dotted.key=value`` of ``overrides`` set (the
+    value read as YAML), in place; returns it."""
+    for ov in overrides:
+        key, _, val = ov.partition("=")
+        *parents, leaf = key.split(".")
+        cur = raw
+        for k in parents:
+            cur = cur.setdefault(k, {})
+        cur[leaf] = _parse_value(val)
+    return raw
+
+
 def parse_config(description: str, argv=None, with_resume: bool = False) -> tuple:
     """(raw config dict with overrides applied, device), and the
     ``--resume`` run folder (or None) last under ``with_resume``."""
@@ -36,14 +49,7 @@ def parse_config(description: str, argv=None, with_resume: bool = False) -> tupl
         help="torch device to run on (default cuda; there is no fallback "
         "when it is missing)")
     args = p.parse_args(argv)
-    raw = read_config_file(args.config)
-    for ov in args.set:
-        key, _, val = ov.partition("=")
-        *parents, leaf = key.split(".")
-        cur = raw
-        for k in parents:
-            cur = cur.setdefault(k, {})
-        cur[leaf] = _parse_value(val)
+    raw = apply_overrides(read_config_file(args.config), args.set)
     if with_resume:
         return raw, args.device, args.resume
     return raw, args.device

@@ -153,12 +153,15 @@ def int8_block(blk) -> tuple:
             vec(ln2_b), q_fc1, s_fc1, vec(b_fc1), q_fc2, s_fc2, vec(b_fc2))
 
 
-def embed_layout(model, lin) -> tuple:
+def embed_layout(model, lin, embed_kernel: bool | None = None) -> tuple:
     """The embedding ``lin`` of ``model`` (a SiT or an MS-SiT) laid out for
     serving: (raw_embed, embed_kernel, patched_embed) as ``FusedWeights``
-    holds them."""
+    holds them. Raw input goes through ``patch_embed`` where
+    ``embed_kernel`` says (by default where the weight is on CUDA in
+    bfloat16)."""
     dt = model.dtype
-    embed_kernel = kernel_route("auto", lin.weight, dt)
+    if embed_kernel is None:
+        embed_kernel = kernel_route("auto", lin.weight, dt)
     raw_embed = None
     if model.patch_table is not None:
         args = (lin.weight.detach().t(), lin.bias.detach(), model.patch_table.shape[1])
@@ -194,15 +197,19 @@ def vec(v) -> torch.Tensor:
 
 
 @torch.no_grad()
-def prepare_weights(model: SiT, quant: str | None = None) -> FusedWeights:
+def prepare_weights(model: SiT, quant: str | None = None,
+                    embed_kernel: bool | None = None) -> FusedWeights:
     """Lay out ``model``'s parameters for ``fused_forward`` on the device
     they are on: matrices in the compute dtype, LayerNorm parameters and
     biases in float32, all contiguous; with ``quant="int8"`` every block but
-    a final CLS one as int8 codes and float32 scales."""
+    a final CLS one as int8 codes and float32 scales. ``embed_kernel``: raw
+    input through ``patch_embed`` (default: on CUDA in bfloat16; a serving
+    artifact takes it on either device, ``embed_layout``)."""
     if quant not in QUANTS:
         raise ValueError(f"unknown quant mode {quant!r}")
     dt = model.dtype
-    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.to_patch_embedding[1])
+    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.to_patch_embedding[1],
+                                                          embed_kernel)
     params = block_parameters(model)
     cls_last = model.pool == "cls"
     blocks = []

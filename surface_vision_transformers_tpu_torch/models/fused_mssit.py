@@ -108,16 +108,19 @@ def block_parameters(stage) -> list[tuple]:
 
 
 @torch.no_grad()
-def prepare_mssit_weights(model: MSSiT, quant: str | None = None) -> MSSiTWeights:
+def prepare_mssit_weights(model: MSSiT, quant: str | None = None,
+                          embed_kernel: bool | None = None) -> MSSiTWeights:
     """Lay out ``model``'s parameters for ``fused_mssit_forward`` on the
     device they are on: matrices in the compute dtype, LayerNorm parameters
     and biases in float32; with ``quant="int8"`` the blocks of every stage at
     least ``INT8_MIN_DIM`` wide as int8 codes and float32 scales (read when
-    the weights are prepared)."""
+    the weights are prepared). ``embed_kernel`` as in
+    ``models.fused.prepare_weights``."""
     if quant not in QUANTS:
         raise ValueError(f"unknown quant mode {quant!r}")
     dt = model.dtype
-    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.patch_embedding)
+    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.patch_embedding,
+                                                          embed_kernel)
     stages = []
     for st, stage in zip(stage_plan(model), model.stages):
         q = quant if quant and st["dim"] >= fused.INT8_MIN_DIM else None

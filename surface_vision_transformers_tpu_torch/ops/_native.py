@@ -5,7 +5,9 @@ package, under a name keyed on a hash of the sources and the compiler flags,
 so a fresh checkout builds once and an edited source rebuilds. Each ``.cu``
 compiles in its own nvcc process, all started together, and one link makes
 the library. It has a plain C interface (no PyTorch headers), which keeps
-the build to seconds. Nothing here runs at import time.
+the build to seconds. Nothing is built at import time: the serving
+operators (``serving/svt_ops.py``) are bound to ``build`` here and build at
+their first launch.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from surface_vision_transformers_tpu_torch.serving import svt_ops
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -90,13 +94,10 @@ def build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry's C signature."""
-    lib = ctypes.CDLL(str(build()))
+    """Build if needed, load, and declare every entry's C signature (the
+    serving operators' entries as ``serving.svt_ops`` declares them)."""
+    lib = svt_ops.declare(ctypes.CDLL(str(build())))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.svt_fused_block.argtypes = [P] * 18 + [I] * 7 + [F, I, P]
-    lib.svt_fused_block.restype = I
-    lib.svt_fused_block_cls.argtypes = [P] * 19 + [I] * 8 + [F, I, P]
-    lib.svt_fused_block_cls.restype = I
     lib.svt_fused_block_train_fwd.argtypes = [P] * 23 + [I] * 7 + [F, I, P]
     lib.svt_fused_block_train_fwd.restype = I
     lib.svt_fused_block_cls_train_fwd.argtypes = [P] * 24 + [I] * 8 + [F, I, P]
@@ -117,10 +118,6 @@ def library() -> ctypes.CDLL:
     lib.svt_block_gemm_ln.restype = I
     lib.svt_block_gemm_ln_workspace.argtypes = [I] * 2
     lib.svt_block_gemm_ln_workspace.restype = ctypes.c_longlong
-    lib.svt_cls_fwd_route.argtypes = [I] * 3
-    lib.svt_cls_fwd_route.restype = I
-    lib.svt_block_fused_mlp.argtypes = [I, I, I]
-    lib.svt_block_fused_mlp.restype = I
     lib.svt_block_mlp.argtypes = [P] * 12 + [I] * 3 + [F, I, P]
     lib.svt_block_mlp.restype = I
     lib.svt_block_ln_gemm.argtypes = [P] * 7 + [I] * 3 + [F, I, P]
@@ -137,8 +134,6 @@ def library() -> ctypes.CDLL:
     lib.svt_flash_attention_bwd.restype = I
     lib.svt_flash_attention_bwd_workspace.argtypes = [I] * 5
     lib.svt_flash_attention_bwd_workspace.restype = ctypes.c_longlong
-    lib.svt_fused_block_int8.argtypes = [P] * 25 + [I] * 8 + [F, I, P]
-    lib.svt_fused_block_int8.restype = I
     lib.svt_quant_rows.argtypes = [P, I, P, P, I, I, I, P]
     lib.svt_quant_rows.restype = I
     lib.svt_int8_gemm_s32.argtypes = [P, P, P, I, I, I, I, P]
@@ -147,13 +142,10 @@ def library() -> ctypes.CDLL:
     lib.svt_int8_block_gemm.restype = I
     lib.svt_int8_scan.argtypes = [P, I, P, I, P]
     lib.svt_int8_scan.restype = I
-    lib.svt_patch_embed.argtypes = [P, I] + [P] * 4 + [I] * 7 + [I, P]
-    lib.svt_patch_embed.restype = I
-    lib.svt_patch_embed_smem.argtypes = [I] * 4
-    lib.svt_patch_embed_smem.restype = I
-    lib.svt_error_string.argtypes = [I]
-    lib.svt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+svt_ops.bind(build)  # the serving operators build and open the library at their first launch
 
 
 def check(err: int) -> None:

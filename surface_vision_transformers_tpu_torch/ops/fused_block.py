@@ -45,7 +45,11 @@ K contiguous -- contiguous, in the compute dtype; LayerNorm parameters and
 biases are fp32. Prepare them once (``models.fused.prepare_weights``).
 
 Dispatch: tensors on the CPU run the plain PyTorch version beside each
-kernel; CUDA tensors launch the kernel or raise. There is no fallback.
+kernel; CUDA tensors launch the kernel or raise. There is no fallback. The
+serving forwards ``fused_block`` and ``fused_block_cls`` are the torch
+operators ``svt::fused_block`` / ``svt::fused_block_cls``
+(``serving/svt_ops.py``) on both devices, so that ``torch.export`` traces
+them; the training half calls its kernels directly.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.ops import _native
+from surface_vision_transformers_tpu_torch.serving import svt_ops
 from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     DIM_HEADS,
     bwd_workspace_floats,
@@ -64,7 +69,7 @@ from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 
-_CLS_ROWS = 8
+_CLS_ROWS = svt_ops.CLS_ROWS
 
 
 # -- plain versions ------------------------------------------------------------
@@ -221,22 +226,26 @@ def check_dim_head(dim_head: int, cls: bool = False) -> None:
             f"the CLS block kernels are built for dim_head 64, got {dim_head}")
 
 
-def check_vectors(vectors: dict) -> None:
+def check_vectors(vectors: dict, aligned: bool = True) -> None:
     """Raise unless each float32 vector (name: (tensor, length)) has its
-    length, is contiguous and starts on 16 bytes: the GEMM engine stages
-    biases as float4 (``csrc/gemm.cuh``)."""
+    length, is contiguous and, with ``aligned``, starts on 16 bytes: the
+    GEMM engine stages biases as float4 (``csrc/gemm.cuh``). The serving
+    operators check the address in their CUDA kernels (``serving.svt_ops``):
+    a traced tensor has none."""
     for name, (v, n) in vectors.items():
         if tuple(v.shape) != (n,) or v.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 ({n},), got "
                              f"{v.dtype} {tuple(v.shape)}")
-        if not v.is_contiguous() or v.data_ptr() % 16:
+        if not v.is_contiguous() or (aligned and v.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and start on 16 bytes "
                              "(the engine loads it as float4)")
 
 
-def _check_cuda_args(x, params, heads, dim_head, valid_len, cls=False):
+def _check_cuda_args(x, params, heads, dim_head, valid_len, cls=False, addresses=True):
     """Validate everything the kernels assume; raise on anything else.
-    ``cls``: the CLS block's chains, which take dim_head 64 only."""
+    ``cls``: the CLS block's chains, which take dim_head 64 only;
+    ``addresses`` False leaves the 16-byte checks to the serving operators'
+    CUDA kernels."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b,
      w_fc1, b_fc1, w_fc2, b_fc2) = params
     if x.dtype != torch.bfloat16:
@@ -263,12 +272,13 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, cls=False):
     check_vectors({"ln1_scale": (ln1_s, dim), "ln1_bias": (ln1_b, dim),
                    "b_out": (b_out, dim), "ln2_scale": (ln2_s, dim),
                    "ln2_bias": (ln2_b, dim), "b_fc1": (b_fc1, mlp),
-                   "b_fc2": (b_fc2, dim)})
+                   "b_fc2": (b_fc2, dim)}, aligned=addresses)
     for t in params:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("every parameter must be contiguous and on "
                              f"{x.device}")
-    check_tma_operands(x, w_qkv, w_out, w_fc1, w_fc2)
+    if addresses:
+        check_tma_operands(x, w_qkv, w_out, w_fc1, w_fc2)
 
 
 def check_tma_operands(*tensors, cls_rows: int | None = None):
@@ -299,33 +309,16 @@ def fused_block(
     valid_len: int | None = None, ln_eps: float = 1e-5,
 ):
     """One pre-norm transformer block, x (B, N, dim) -> (B, N, dim); keys
-    at positions >= ``valid_len`` are masked. CPU tensors run
-    ``fused_block_reference``; CUDA tensors run the kernel (bfloat16)."""
+    at positions >= ``valid_len`` are masked. The operator
+    ``svt::fused_block`` on either device: its CPU kernel is
+    ``fused_block_reference``, its CUDA kernel the chain (bfloat16), its
+    launches counted in ``launches`` (``serving.svt_ops``)."""
     params = (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
               w_fc1, b_fc1, w_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    if _dispatch(x) == "cpu":
-        return fused_block_reference(x, *params, heads=heads,
-                                     dim_head=dim_head, valid_len=vl,
-                                     ln_eps=ln_eps)
-    _check_cuda_args(x, params, heads, dim_head, vl)
-    lib = _native.library()
-    B, N, dim = x.shape
-    hd, mlp, M = heads * dim_head, w_fc1.shape[0], B * N
-    fused = fuses_mlp(dim, mlp)
-    out = torch.empty_like(x)
-    unused = x.new_empty(8)  # h and f: never touched where the chain fuses the MLP
-    ws = [unused if fused else x.new_empty((M, dim)), x.new_empty((M, 3 * hd)),
-          x.new_empty((M, hd)), x.new_empty((M, dim)),
-          unused if fused else x.new_empty((M, mlp))]
-    _native.check(lib.svt_fused_block(
-        *[t.data_ptr() for t in (x, *params, out, *ws)],
-        B, N, dim, heads, dim_head, mlp, vl, ln_eps, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    ))
-    fused_block.launches += 1
-    _count_fused(fused)
-    return out
+    if _dispatch(x) == "cuda":
+        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False)
+    return torch.ops.svt.fused_block(x, *params, heads, dim_head, vl, ln_eps)
 
 
 fused_block.launches = 0
@@ -337,36 +330,16 @@ def fused_block_cls(
     valid_len: int | None = None, ln_eps: float = 1e-5,
 ):
     """The final block under CLS pooling: x (B, N, dim) -> its first
-    min(8, N) output rows. CPU tensors run ``fused_block_cls_reference``;
-    CUDA tensors run the kernel (bfloat16)."""
+    min(8, N) output rows. The operator ``svt::fused_block_cls``: its CPU
+    kernel is ``fused_block_cls_reference``, its CUDA kernel the chain
+    (bfloat16)."""
     params = (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
               w_fc1, b_fc1, w_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    if _dispatch(x) == "cpu":
-        return fused_block_cls_reference(x, *params, heads=heads,
-                                         dim_head=dim_head, valid_len=vl,
-                                         ln_eps=ln_eps)
-    _check_cuda_args(x, params, heads, dim_head, vl, cls=True)
-    B, N, dim = x.shape
-    rows = min(_CLS_ROWS, N)
-    check_tma_operands(cls_rows=rows)
-    lib = _native.library()
-    hd, mlp, Mt = heads * dim_head, w_fc1.shape[0], B * rows
-    ln_kv = cls_ln1_in_kv(N, rows, dim)
-    out = x.new_empty((B, rows, dim))
-    # where LN1 runs in the K/V product, h is LN2's output alone and q is
-    # made in the attention's CTAs (svt_cls_fwd_route)
-    ws = [x.new_empty((Mt if ln_kv else B * N, dim)), x.new_empty((B * N, 2 * hd)),
-          x.new_empty(8 if ln_kv else (Mt, hd)), x.new_empty((Mt, hd)), x.new_empty((Mt, dim)),
-          x.new_empty((Mt, mlp))]
-    _native.check(lib.svt_fused_block_cls(
-        *[t.data_ptr() for t in (x, *params, out, *ws)],
-        B, N, rows, dim, heads, dim_head, mlp, vl, ln_eps, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    ))
-    fused_block_cls.launches += 1
-    _count_cls(N, rows, dim)
-    return out
+    if _dispatch(x) == "cuda":
+        _check_cuda_args(x, params, heads, dim_head, vl, cls=True, addresses=False)
+        check_tma_operands(cls_rows=min(_CLS_ROWS, x.shape[1]))
+    return torch.ops.svt.fused_block_cls(x, *params, heads, dim_head, vl, ln_eps)
 
 
 fused_block_cls.launches = 0
@@ -1204,3 +1177,26 @@ def fused_block_cls_train(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out,
     return _BlockTrain.apply(x, heads, dim_head, valid_len, ln_eps, True,
                              ln1_scale, ln1_bias, w_qkv, w_out, b_out,
                              ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2)
+
+
+# -- the serving operators' CPU kernels and launch counters --------------------------
+
+
+def register_plain(op: str, reference) -> None:
+    """Register ``reference`` (a plain block version, heads, dim_head,
+    valid_len and ln_eps by keyword) as the CPU kernel of the block operator
+    ``op``, whose schema takes them after the tensors."""
+
+    def kernel(x, *args):
+        *params, heads, dim_head, valid_len, ln_eps = args
+        return reference(x, *params, heads=heads, dim_head=dim_head, valid_len=valid_len,
+                         ln_eps=ln_eps)
+
+    torch.library.register_kernel(op, "cpu", kernel)
+
+
+register_plain("svt::fused_block", fused_block_reference)
+register_plain("svt::fused_block_cls", fused_block_cls_reference)
+svt_ops.count_into(fused_block=fused_block, fused_block_cls=fused_block_cls,
+                   block_ln_gemm=block_ln_gemm, block_mlp=block_mlp,
+                   few_query_fwd=few_query_fwd)

@@ -33,8 +33,9 @@ Weights: int8 (out, in) contiguous (the torch Linear layout, K contiguous
 as the tensor cores' B operand reads it), float32 (out,) scales, float32
 LayerNorm parameters and biases.
 
-Dispatch: CPU tensors run ``fused_block_int8_reference``; CUDA tensors
-launch the kernel chain or raise. There is no fallback.
+Dispatch: the operator ``svt::fused_block_int8`` (``serving/svt_ops.py``)
+on both devices: CPU tensors run ``fused_block_int8_reference``; CUDA
+tensors launch the kernel chain or raise. There is no fallback.
 """
 
 from __future__ import annotations
@@ -48,12 +49,14 @@ from surface_vision_transformers_tpu_torch.ops.fused_block import (
     _dispatch,
     _layer_norm,
     check_dim_head,
+    register_plain,
 )
 from surface_vision_transformers_tpu_torch.ops import quant
 from surface_vision_transformers_tpu_torch.ops.quant import int8_mm_reference, int8_product
+from surface_vision_transformers_tpu_torch.serving import svt_ops
+from surface_vision_transformers_tpu_torch.serving.svt_ops import GEMM_BN, int8_workspace
 
 INT8_ROW_ALIGN = 16  # dim and mlp: int8 rows of a multiple of 16 bytes, as TMA reads them
-GEMM_BN = 192  # csrc/gemm.cuh's BN: fc1 pass 1 keeps one absmax partial per row and BN columns
 
 
 def fused_block_int8_reference(
@@ -76,13 +79,15 @@ def fused_block_int8_reference(
     return (x1 + (int8_mm_reference(f, q_fc2, s_fc2) + b_fc2)).to(dt)
 
 
-def _check_cuda_args(x, params, heads, dim_head, valid_len):
-    """Validate everything the int8 chain assumes; raise on anything else."""
+def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
+    """Validate everything the int8 chain assumes; raise on anything else.
+    ``addresses`` False leaves the 16-byte checks to the operator's CUDA
+    kernel (``serving.svt_ops``): a traced tensor has no address."""
     (ln1_s, ln1_b, q_qkv, s_qkv, q_out, s_out, b_out, ln2_s, ln2_b,
      q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2) = params
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA int8 block takes bfloat16, got {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
+    if x.dim() != 3 or not x.is_contiguous() or (addresses and x.data_ptr() % 16):
         raise ValueError("x must be a contiguous (B, N, dim) tensor on 16 bytes")
     B, N, dim = x.shape
     hd, mlp = heads * dim_head, q_fc1.shape[0]
@@ -102,7 +107,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
         if tuple(s.shape) != (shape[0],) or s.dtype != torch.float32:
             raise ValueError(f"the scales of {name} must be float32 ({shape[0]},), got "
                              f"{s.dtype} {tuple(s.shape)}")
-        if q.data_ptr() % 16:
+        if addresses and q.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     vectors = {"ln1_scale": (ln1_s, dim), "ln1_bias": (ln1_b, dim), "b_out": (b_out, dim),
                "ln2_scale": (ln2_s, dim), "ln2_bias": (ln2_b, dim), "b_fc1": (b_fc1, mlp),
@@ -111,21 +116,9 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len):
         if tuple(v.shape) != (n,) or v.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 ({n},), got {v.dtype} {tuple(v.shape)}")
     for t in params:  # the engine stages scales and biases as float4: 16 bytes
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.device != x.device or not t.is_contiguous() or (addresses and t.data_ptr() % 16):
             raise ValueError(f"every parameter must be contiguous, on {x.device} and on "
                              "16 bytes")
-
-
-def int8_workspace(M: int, dim: int, hd: int, mlp: int) -> dict:
-    """The chain's scratch for M rows -> name: (shape, dtype), in the C
-    entry's order: the int8 rows of LN1, the attention output and LN2 (qa,
-    sa), f's codes and scales (qf, sf), fc1's absmax partials (part), qkv
-    and the attention output in bfloat16, x1 in float32. No (M, mlp)
-    float32 f."""
-    i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
-    return {"qa": ((M, max(dim, hd)), i8), "sa": ((M,), f32), "qf": ((M, mlp), i8),
-            "sf": ((M,), f32), "part": ((-(-mlp // GEMM_BN), M), f32),
-            "qkv": ((M, 3 * hd), b16), "attn": ((M, hd), b16), "x1": ((M, dim), f32)}
 
 
 def fused_block_int8(
@@ -135,31 +128,22 @@ def fused_block_int8(
 ):
     """One W8A8 pre-norm block, x (B, N, dim) -> (B, N, dim); parameters
     in the JAX order (codes and scales from ``quantize_block_weights``).
-    CPU tensors run ``fused_block_int8_reference``; CUDA tensors the kernel
-    chain (bfloat16 x)."""
+    The operator ``svt::fused_block_int8``: its CPU kernel is
+    ``fused_block_int8_reference``, its CUDA kernel the chain (bfloat16
+    x, scratch from ``int8_workspace``)."""
     params = (ln1_scale, ln1_bias, q_qkv, s_qkv, q_out, s_out, b_out, ln2_scale,
               ln2_bias, q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    if _dispatch(x) == "cpu":
-        return fused_block_int8_reference(x, *params, heads=heads, dim_head=dim_head,
-                                          valid_len=vl, ln_eps=ln_eps)
-    _check_cuda_args(x, params, heads, dim_head, vl)
-    lib = _native.library()
-    B, N, dim = x.shape
-    hd, mlp, M = heads * dim_head, q_fc1.shape[0], B * N
-    dev = x.device
-    out = torch.empty_like(x)
-    spec = int8_workspace(M, dim, hd, mlp)
-    ws = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in spec.values()]
-    _native.check(lib.svt_fused_block_int8(
-        *[t.data_ptr() for t in (x, *params, out, *ws)],
-        B, N, dim, heads, dim_head, mlp, spec["part"][0][0], vl, ln_eps, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream))
-    fused_block_int8.launches += 1
-    return out
+    if _dispatch(x) == "cuda":
+        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False)
+    return torch.ops.svt.fused_block_int8(x, *params, heads, dim_head, vl, ln_eps)
 
 
 fused_block_int8.launches = 0
+
+
+register_plain("svt::fused_block_int8", fused_block_int8_reference)
+svt_ops.count_into(fused_block_int8=fused_block_int8)
 
 
 # -- the chain's parts, for holding them bitwise against the plain versions ----

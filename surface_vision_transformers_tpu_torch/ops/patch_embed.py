@@ -28,8 +28,9 @@ folded weight and bias, so autograd carries them through
 ``fold_normalization`` to the ``nn.Linear``); x gets no gradient. The JAX
 package has no backward kernel for this function.
 
-Dispatch: CPU tensors run ``patch_embed_reference``; CUDA tensors launch the
-kernel (bfloat16 W) or raise. There is no fallback.
+Dispatch: the operator ``svt::patch_embed`` (``serving/svt_ops.py``) on
+both devices: CPU tensors run ``patch_embed_reference``; CUDA tensors
+launch the kernel (bfloat16 W) or raise. There is no fallback.
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from surface_vision_transformers_tpu_torch.ops import _native
 from surface_vision_transformers_tpu_torch.ops.fused_block import _mm32
 from surface_vision_transformers_tpu_torch.ops.patchify import fold_normalization
+from surface_vision_transformers_tpu_torch.serving import svt_ops
 
 K_STEP = 64  # the kernel's K slice: W's columns are zero-padded to a multiple
 CHANNELS = 4  # the kernel's C: a vertex's channels, 8 bytes of the A tile
@@ -140,7 +141,7 @@ def _check_cuda_args(x, indices, weight, bias):
         raise ValueError(f"indices must be a contiguous int32 (L, V) tensor on {x.device}")
     V = indices.shape[1]
     dim, kp = weight.shape
-    if weight.dtype != torch.bfloat16 or not weight.is_contiguous() or weight.data_ptr() % 16:
+    if weight.dtype != torch.bfloat16 or not weight.is_contiguous():
         raise TypeError("the CUDA patch-embed kernel takes a contiguous bfloat16 weight")
     if kp % K_STEP or kp < V * C:
         raise ValueError(f"weight must be (dim, Kp), Kp >= {V * C} a multiple of {K_STEP}, "
@@ -163,26 +164,19 @@ def _check_cuda_args(x, indices, weight, bias):
 def patch_embed(x, indices, weight, bias):
     """(B, C, G) -> (B, L, dim) embedded patches in weight.dtype; ``indices``
     the (L, V) int32 table (``table_tensor``), weight and bias from
-    ``embed_matrix``. CPU tensors run ``patch_embed_reference``; CUDA
-    tensors the kernel."""
-    if x.device.type == "cpu":
-        return patch_embed_reference(x, indices, weight, bias)
-    if x.device.type != "cuda":
+    ``embed_matrix``. The operator ``svt::patch_embed``: CPU tensors run
+    ``patch_embed_reference``; CUDA tensors the kernel, which also refuses
+    a weight off 16 bytes and a table ``embed_plan`` leaves no room for."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"patch_embed runs on cpu or cuda, not {x.device}")
-    _check_cuda_args(x, indices, weight, bias)
-    B, C, G = x.shape
-    L, V = indices.shape
-    dim, kp = weight.shape
-    out = torch.empty((B, L, dim), dtype=weight.dtype, device=x.device)
-    _native.check(_native.library().svt_patch_embed(
-        x.data_ptr(), int(x.dtype == torch.float32), indices.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), B, C, G, L, V, kp, dim, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream))
-    patch_embed.launches += 1
-    return out
+    if x.device.type == "cuda":
+        _check_cuda_args(x, indices, weight, bias)
+    return torch.ops.svt.patch_embed(x, indices, weight, bias)
 
 
 patch_embed.launches = 0
+torch.library.register_kernel("svt::patch_embed", "cpu", patch_embed_reference)
+svt_ops.count_into(patch_embed=patch_embed)
 
 
 class PatchEmbed(torch.autograd.Function):

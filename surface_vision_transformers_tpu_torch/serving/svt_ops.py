@@ -1,0 +1,246 @@
+"""The four serving kernels as torch operators, for ``torch.export``.
+
+``svt::patch_embed``, ``svt::fused_block``, ``svt::fused_block_cls`` and
+``svt::fused_block_int8`` (the JAX package's ``pallas_patch_embed``,
+``fused_block``, ``fused_block_cls`` and ``fused_block_int8``), each with a
+schema, a fake (shape) function, which ``torch.export`` traces through, and a
+CUDA kernel: the scratch the chain needs, the checks that need an address
+(every TMA operand and float4 vector on 16 bytes; the embedding's tiling
+asked of the library), the route rules asked of the C entries
+(``svt_block_fused_mlp``, ``svt_cls_fwd_route``) and the ctypes call on the
+current stream. On CUDA an operator runs the hand-written kernel or raises.
+
+This file stands alone: it imports torch, ctypes and the standard library,
+nothing of its package. A serving artifact carries a verbatim copy beside a
+copy of the kernel library, so that an exported program runs where only
+torch is installed (``bind(path)`` names the library; it is opened at the
+first launch). The package binds its own build lazily and registers each
+operator's CPU kernel as the plain version of its wrapper
+(``ops/fused_block.py``, ``ops/fused_block_int8.py``, ``ops/patch_embed.py``),
+so an exported graph holds the same ``svt::`` operators on either device.
+Where a process has defined the operators already, importing another copy
+keeps the first definition and its library.
+
+``launches`` counts, by kernel name, every launch of an operator's chain,
+and the kernels inside it it runs (``block_ln_gemm``, ``block_mlp``,
+``few_query_fwd``); ``count_into`` adds them to other counters too.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+NAMESPACE = "svt"
+_BLOCK = ("Tensor x, Tensor ln1_scale, Tensor ln1_bias, Tensor w_qkv, Tensor w_out, "
+          "Tensor b_out, Tensor ln2_scale, Tensor ln2_bias, Tensor w_fc1, Tensor b_fc1, "
+          "Tensor w_fc2, Tensor b_fc2")
+_INT8 = ("Tensor x, Tensor ln1_scale, Tensor ln1_bias, Tensor q_qkv, Tensor s_qkv, "
+         "Tensor q_out, Tensor s_out, Tensor b_out, Tensor ln2_scale, Tensor ln2_bias, "
+         "Tensor q_fc1, Tensor s_fc1, Tensor b_fc1, Tensor q_fc2, Tensor s_fc2, Tensor b_fc2")
+_INTS = "int heads, int dim_head, int valid_len, float ln_eps"
+SCHEMAS = {
+    "patch_embed": "(Tensor x, Tensor indices, Tensor weight, Tensor bias) -> Tensor",
+    "fused_block": f"({_BLOCK}, {_INTS}) -> Tensor",
+    "fused_block_cls": f"({_BLOCK}, {_INTS}) -> Tensor",
+    "fused_block_int8": f"({_INT8}, {_INTS}) -> Tensor",
+}
+CLS_ROWS = 8  # the CLS block's output rows a sample, min(8, N)
+GEMM_BN = 192  # csrc/gemm.cuh's BN: fc1's absmax partials, one a row and BN columns
+
+launches: collections.Counter = collections.Counter()
+_targets: dict = {}
+_source = None  # the library's path, or a function that gives it
+_lib = None
+
+
+def bind(path) -> None:
+    """Take the kernel library from ``path`` (a file, or a function that
+    builds and returns one), opened at the next launch."""
+    global _source, _lib
+    _source, _lib = path, None
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the entries these operators call."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, args in (("svt_fused_block", [P] * 18 + [I] * 7 + [F, I, P]),
+                       ("svt_fused_block_cls", [P] * 19 + [I] * 8 + [F, I, P]),
+                       ("svt_fused_block_int8", [P] * 25 + [I] * 8 + [F, I, P]),
+                       ("svt_patch_embed", [P, I] + [P] * 4 + [I] * 7 + [I, P]),
+                       ("svt_patch_embed_smem", [I] * 4), ("svt_cls_fwd_route", [I] * 3),
+                       ("svt_block_fused_mlp", [I] * 3), ("svt_error_string", [I])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_char_p if name == "svt_error_string" else I
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, opened (and, where bound to a function,
+    built) on first use."""
+    global _lib
+    if _lib is None:
+        if _source is None:
+            raise RuntimeError("no kernel library bound to the svt operators (svt_ops.bind)")
+        _lib = declare(ctypes.CDLL(str(_source() if callable(_source) else _source)))
+    return _lib
+
+
+def check(err: int) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err:
+        msg = library().svt_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {err})")
+
+
+def count_into(**targets) -> None:
+    """Also add each launch of kernel ``name`` to ``targets[name].launches``."""
+    _targets.update(targets)
+
+
+def _launched(*names: str) -> None:
+    for n in names:
+        launches[n] += 1
+        if n in _targets:
+            _targets[n].launches += 1
+
+
+def _on_16(what: str, *tensors) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must start on a 16-byte boundary (TMA and float4 loads)")
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def int8_workspace(M: int, dim: int, hd: int, mlp: int) -> dict:
+    """The int8 chain's scratch for M rows -> name: (shape, dtype), in the C
+    entry's order: the int8 rows of LN1, the attention output and LN2 (qa,
+    sa), f's codes and scales (qf, sf), fc1's absmax partials (part), qkv
+    and the attention output in bfloat16, x1 in float32. No (M, mlp)
+    float32 f."""
+    i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
+    return {"qa": ((M, max(dim, hd)), i8), "sa": ((M,), f32), "qf": ((M, mlp), i8),
+            "sf": ((M,), f32), "part": ((-(-mlp // GEMM_BN), M), f32),
+            "qkv": ((M, 3 * hd), b16), "attn": ((M, hd), b16), "x1": ((M, dim), f32)}
+
+
+# -- CUDA kernels ---------------------------------------------------------------------
+
+
+def _patch_embed_cuda(x, indices, weight, bias):
+    B, C, G = x.shape
+    L, V = indices.shape
+    dim, kp = weight.shape
+    _on_16("the patch-embed weight", weight)
+    lib = library()
+    if lib.svt_patch_embed_smem(L, V, kp, dim) == 0:
+        raise NotImplementedError(
+            f"the kernel's tiles at V {V}, Kp {kp}, dim {dim} leave no room for its A ring in "
+            "an H100 block's shared memory (svt_patch_embed_smem)")
+    out = torch.empty((B, L, dim), dtype=weight.dtype, device=x.device)
+    check(lib.svt_patch_embed(
+        x.data_ptr(), int(x.dtype == torch.float32), indices.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), B, C, G, L, V, kp, dim, x.device.index, _stream(x)))
+    _launched("patch_embed")
+    return out
+
+
+def _fused_block_cuda(x, *args):
+    *params, heads, dim_head, valid_len, ln_eps = args
+    _on_16("the block kernels' operands and vectors", x, *params)
+    lib = library()
+    B, N, dim = x.shape
+    hd, mlp, M = heads * dim_head, params[7].shape[0], B * N
+    fused = bool(lib.svt_block_fused_mlp(dim, mlp, 0))
+    out = torch.empty_like(x)
+    unused = x.new_empty(8)  # h and f: never touched where the chain fuses the MLP
+    ws = [unused if fused else x.new_empty((M, dim)), x.new_empty((M, 3 * hd)),
+          x.new_empty((M, hd)), x.new_empty((M, dim)),
+          unused if fused else x.new_empty((M, mlp))]
+    check(lib.svt_fused_block(*[t.data_ptr() for t in (x, *params, out, *ws)],
+                              B, N, dim, heads, dim_head, mlp, valid_len, ln_eps,
+                              x.device.index, _stream(x)))
+    _launched("fused_block", *(("block_ln_gemm", "block_mlp") if fused else ()))
+    return out
+
+
+def _fused_block_cls_cuda(x, *args):
+    *params, heads, dim_head, valid_len, ln_eps = args
+    _on_16("the block kernels' operands and vectors", x, *params)
+    lib = library()
+    B, N, dim = x.shape
+    rows = min(CLS_ROWS, N)
+    hd, mlp, Mt = heads * dim_head, params[7].shape[0], B * rows
+    route = lib.svt_cls_fwd_route(N, rows, dim)  # bit 1: few-query attention; 2: LN1 in K/V
+    ln_kv = bool(route & 2)
+    out = x.new_empty((B, rows, dim))
+    # where LN1 runs in the K/V product, h is LN2's output alone and q is
+    # made in the attention's CTAs
+    ws = [x.new_empty((Mt if ln_kv else B * N, dim)), x.new_empty((B * N, 2 * hd)),
+          x.new_empty(8 if ln_kv else (Mt, hd)), x.new_empty((Mt, hd)), x.new_empty((Mt, dim)),
+          x.new_empty((Mt, mlp))]
+    check(lib.svt_fused_block_cls(*[t.data_ptr() for t in (x, *params, out, *ws)],
+                                  B, N, rows, dim, heads, dim_head, mlp, valid_len, ln_eps,
+                                  x.device.index, _stream(x)))
+    _launched("fused_block_cls", *(("few_query_fwd",) if route & 1 else ()),
+              *(("block_ln_gemm",) if ln_kv else ()))
+    return out
+
+
+def _fused_block_int8_cuda(x, *args):
+    *params, heads, dim_head, valid_len, ln_eps = args
+    _on_16("the int8 block's operands, scales and vectors", x, *params)
+    B, N, dim = x.shape
+    hd, mlp, M = heads * dim_head, params[9].shape[0], B * N
+    out = torch.empty_like(x)
+    spec = int8_workspace(M, dim, hd, mlp)
+    ws = [torch.empty(shape, dtype=dt, device=x.device) for shape, dt in spec.values()]
+    check(library().svt_fused_block_int8(
+        *[t.data_ptr() for t in (x, *params, out, *ws)],
+        B, N, dim, heads, dim_head, mlp, spec["part"][0][0], valid_len, ln_eps,
+        x.device.index, _stream(x)))
+    _launched("fused_block_int8")
+    return out
+
+
+# -- fake (shape) functions -------------------------------------------------------------
+
+
+def _patch_embed_fake(x, indices, weight, bias):
+    return x.new_empty((x.shape[0], indices.shape[0], weight.shape[0]), dtype=weight.dtype)
+
+
+def _same_shape_fake(x, *args):
+    return torch.empty_like(x)
+
+
+def _cls_fake(x, *args):
+    return x.new_empty((x.shape[0], min(CLS_ROWS, x.shape[1]), x.shape[2]))
+
+
+KERNELS = {"patch_embed": (_patch_embed_cuda, _patch_embed_fake),
+           "fused_block": (_fused_block_cuda, _same_shape_fake),
+           "fused_block_cls": (_fused_block_cls_cuda, _cls_fake),
+           "fused_block_int8": (_fused_block_int8_cuda, _same_shape_fake)}
+
+
+def _defined() -> bool:
+    try:
+        getattr(torch.ops, NAMESPACE).fused_block
+    except (AttributeError, RuntimeError):
+        return False
+    return True
+
+
+if not _defined():
+    _LIB = torch.library.Library(NAMESPACE, "DEF")
+    for _name, (_cuda, _fake) in KERNELS.items():
+        _LIB.define(_name + SCHEMAS[_name])
+        _LIB.impl(_name, _cuda, "CUDA")
+        torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)

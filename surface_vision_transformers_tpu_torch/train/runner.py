@@ -25,8 +25,12 @@ table needs ``augmentation.sphere_path``); ``data.streaming`` trains and
 validates from memmapped splits through ``data.pipeline.StreamingLoader``.
 An MS-SiT config (``transformer.model: MS-SiT``) trains an ``MSSiT``, or
 under MPP an ``MPPMSSiT`` around one; its npz files are JAX ``MSSiT`` /
-``MPPMSSiT`` trees. Not ported (they raise): ImageNet initialisation and
-meshes.
+``MPPMSSiT`` trees. ``training.load_weights_imagenet`` with
+``weights.imagenet`` set lays a local timm ViT state dict over a SiT's
+blocks (with the flag alone, the seeded init, as in the JAX package). Not
+ported (they raise): meshes, ``tpu.profile_epoch`` and ``tpu.debug_nans``
+away from their defaults, and ImageNet initialisation of an MS-SiT or MPP
+model.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
@@ -50,6 +54,7 @@ import torch
 from surface_vision_transformers_tpu_torch.checkpoints.convert import (
     MSSIT_ENCODER,
     encoder_state,
+    imagenet_state_from_timm,
     is_mpp_mssit_tree,
     is_mpp_state,
     is_mssit_tree,
@@ -256,30 +261,52 @@ def build_augment(exp: Experiment, table_obj) -> SurfaceAugment | None:
 
 
 def _refuse_unported(exp: Experiment) -> None:
+    """Raise on what the config asks that the port does not do: meshes, the
+    TPU profiler and NaN sanitizer keys away from their defaults, and
+    ImageNet initialisation of anything but a SiT regression model (the JAX
+    transfer maps a SiT's blocks only, and fails on the others)."""
     tp = exp.raw.get("tpu", {})
     checks = [
-        (exp.training.load_weights_imagenet, "ImageNet initialisation"),
         (any(int(tp.get(k, 1)) > 1 for k in ("mesh_fsdp", "mesh_model", "mesh_pipe"))
          or bool(tp.get("seq_sharding", False)), "meshes (tpu.mesh_*, seq_sharding)"),
+        (int(tp.get("profile_epoch", -1)) != -1, "tpu.profile_epoch (the epoch's trace)"),
+        (bool(tp.get("debug_nans", False)), "tpu.debug_nans (the NaN sanitizer)"),
     ]
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
+    if (_imagenet_path(exp) and (exp.model.model == "MS-SiT" or exp.is_pretraining)):
+        raise NotImplementedError(
+            "ImageNet initialisation maps timm ViT blocks onto a SiT regression model only "
+            "(the JAX transfer has no mapping for an MS-SiT or an MPP model)")
+
+
+def _imagenet_path(exp: Experiment) -> str:
+    """The timm state-dict file to initialise from: ``weights.imagenet``
+    under ``training.load_weights_imagenet``, else '' (the seeded init, as
+    in the JAX package)."""
+    return exp.imagenet_weights if exp.training.load_weights_imagenet else ""
 
 
 def _load_initial_weights(exp: Experiment, model) -> None:
     """``training.load_weights_ssl``: the parameters that ``weights.ssl_mpp``
-    (a params npz or a reference .pth, SiT or MPP) shares with the model."""
-    if not exp.training.load_weights_ssl or exp.ssl_weights_path in ("", ".."):
-        return
-    state = _as_layout(load_state_dict_any(exp.ssl_weights_path, exp.model.depth), model)
-    own = model.state_dict()
-    shared = {k: v for k, v in state.items() if k in own}
-    if not shared:
-        raise ValueError(
-            f"SSL checkpoint {exp.ssl_weights_path!r} shares no parameter with "
-            "the model (wrong depth/format?)")
-    model.load_state_dict(shared, strict=False)
+    (a params npz or a reference .pth, SiT or MPP) shares with the model;
+    then ``training.load_weights_imagenet`` with ``weights.imagenet`` set:
+    the timm ViT blocks and final norm of that local state-dict file laid
+    over them (``imagenet_state_from_timm``), as the JAX runner does."""
+    if exp.training.load_weights_ssl and exp.ssl_weights_path not in ("", ".."):
+        state = _as_layout(load_state_dict_any(exp.ssl_weights_path, exp.model.depth), model)
+        own = model.state_dict()
+        shared = {k: v for k, v in state.items() if k in own}
+        if not shared:
+            raise ValueError(
+                f"SSL checkpoint {exp.ssl_weights_path!r} shares no parameter with "
+                "the model (wrong depth/format?)")
+        model.load_state_dict(shared, strict=False)
+    if _imagenet_path(exp):
+        timm = load_torch_state_dict(_imagenet_path(exp))
+        model.load_state_dict(imagenet_state_from_timm(model.state_dict(), timm,
+                                                       exp.model.depth))
 
 
 def _save_npz(path: Path, model, depth: int) -> None:

@@ -748,10 +748,14 @@ def test_frozen_decoder_mssit(setup, mpp_setup):
                                            ("training.load_weights_imagenet", True, "ImageNet")])
 def test_run_training_on_mssit_refuses_unported_modes(tmp_path, key, val, match):
     """MS-SiT trains now; what stays unported raises on an MS-SiT config as
-    on a SiT one."""
+    on a SiT one. ImageNet initialisation with a timm file given raises: the
+    JAX transfer maps a SiT's blocks only (with the flag alone, both
+    packages train from the seeded init)."""
     raw = _shrunk("configs/training/mssit_scan_age.yml", tmp_path, tmp_path / "none.npz")
     block, leaf = key.split(".")
     raw.setdefault(block, {})[leaf] = val
+    if leaf == "load_weights_imagenet":
+        raw.setdefault("weights", {})["imagenet"] = str(tmp_path / "vit.pth")
     with pytest.raises(NotImplementedError, match=match):
         trunner.run_training(from_dict(raw), device="cpu", datasets={})
 
