@@ -167,11 +167,14 @@ sub-ico 3 and the gather-fused patch embedding:
 21. patch-embed -- ``patch_embed`` against the float32 and bf16 plain
               versions at sub-ico 2 (B 256, dim 192 and 384), sub-ico 3
               (B 64, dim 768) and sub-ico 5 (B 64, dim 96), fp32 and bf16
-              x, and a ragged case (sub-ico 2's first 300 patches, B 3:
-              items past L), with controls (the table shifted by one
-              patch, (c v) order); two calls bitwise equal; the kernel's
-              shared memory from the C entry against ``embed_plan``; times
-              beside the plain version and index_select + matmul, fp32
+              x, a ragged case (sub-ico 2's first 300 patches, B 3: items
+              past L), then (``EMBED_GRIDS``) sub-ico 1 at B 256, dims
+              192, 384 and 768, sub-ico 2 at C = 1, 3 and 8, sub-ico 5 at
+              C = 3, with controls (the table shifted by one patch, (c v)
+              order, the last table row shifted by one vertex, channels 0
+              and 1 swapped); two calls bitwise equal; the kernel's shared
+              memory from the C entry against ``embed_plan``; times beside
+              the plain version, index_select + matmul and the bound, fp32
               and bf16 x.
 22. int8-slice -- SiT-base ``predict(quant="int8")`` at bs_val 64: launches
               (11 fused_block_int8, 1 fused_block_cls, 1 patch_embed a
@@ -341,6 +344,28 @@ programs of the ``svt::`` operators) and runs it without the package:
               library with one byte changed (the loader must refuse it).
               Export seconds, artifact bytes and the artifact's CUDA-event
               time at B = 256 beside ``fused_forward``'s.
+35. preprocess -- the ETL from GIFTI metric files: synthetic ico-6 files
+              (5 metrics, both hemispheres, 24 training and 8 validation
+              subjects with a planted age signal; label CSVs and (1, C, 1)
+              stats beside them) through ``cli.preprocess`` in three
+              subprocesses at once (sub-ico 1 and 2 at C = 4, sub-ico 2 at
+              C = 3), each file's layout and values against a numpy gather
+              of the arrays written; ``run(export_raw=True)`` in process;
+              ``cli.train`` on SiT-tiny at sub-ico 1 (N = 81, full width
+              and depth, 2 epochs) on the raw export, equal to
+              ``run_training`` in process, whose launches show the route,
+              val MAE falling, ``cli.test`` on its ``best_params.npz``
+              reporting the best val MAE, ``cli.test`` run beside the
+              in-process training; ``predict`` on the patched export
+              (linear embedding) and the raw one (the kernel) within phase
+              4's 0.03, and the two embeddings alone within two bf16 steps,
+              for the trained model and for SiT-tiny on phase 4's seeded
+              weights at sub-ico 1 and at C = 3 on sub-ico 2, controls
+              (channels 0 and 1 swapped; on the trained model, whose
+              predictions barely vary across surfaces, the prediction
+              control is printed only); four SGD steps of ``Trainer`` at
+              sub-ico 1, B = 256, against the eager bf16 SiT under
+              autograd (phase 7's gates and control).
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -3386,26 +3411,47 @@ def embed_plain_cv(x, idx, w, b):
     return (t @ w[:, :C * V].float().t() + b).to(w.dtype)
 
 
-def embed_case(pe, rng, sub_ico, B, dim, patches, failures) -> dict:
-    """One ``patch_embed`` case of phase 21: the kernel on fp32 x and on the
-    same x rounded to bf16 (the same tokens: the outputs must be the same
-    bits) against the float32 and bf16 plain versions, with controls; two
-    calls bitwise equal; the kernel's shared memory from the C entry
-    against ``embed_plan``; times, fp32 and bf16 x, beside the plain
-    version, index_select + addmm and the bound. -> the fp32 row's numbers."""
+def embed_controls(pe, x, idx, w, b, got) -> dict:
+    """max |got - the plain embedding of a wrong gather| for phase 21's
+    controls: the table's patches shifted by one, the last table row
+    shifted by one vertex (the ragged group's last row at sub-ico 1), and
+    past one channel (where the orders differ) the (c v) token order and
+    channels 0 and 1 swapped."""
+    def gap(ref):
+        return (got - ref.float()).abs().max().item()
+
+    row = idx.clone()
+    row[-1] = row[-1].roll(1)
+    out = {"table shifted by one patch": gap(pe.patch_embed_reference(x, idx.roll(1, 0), w, b)),
+           "last row shifted by one vertex": gap(pe.patch_embed_reference(x, row, w, b))}
+    if x.shape[1] > 1:
+        out["(c v) order"] = gap(embed_plain_cv(x, idx, w, b))
+        swap = x[:, [1, 0, *range(2, x.shape[1])]].contiguous()
+        out["channels 0 and 1 swapped"] = gap(pe.patch_embed_reference(swap, idx, w, b))
+    return out
+
+
+def embed_case(pe, rng, sub_ico, B, dim, patches, failures, C=4) -> dict:
+    """One ``patch_embed`` case of phase 21 at C channels: the kernel on fp32
+    x and on the same x rounded to bf16 (the same tokens: the outputs must
+    be the same bits) against the float32 and bf16 plain versions, with
+    controls (``embed_controls``); two calls bitwise equal; the kernel's
+    shared memory from the C entry against ``embed_plan``; times, fp32 and
+    bf16 x, beside the plain version, index_select + addmm and the bound.
+    -> the fp32 row's numbers."""
     from surface_vision_transformers_tpu_torch.geometry import load_patch_table
     from surface_vision_transformers_tpu_torch.ops import _native
 
     table = load_patch_table(6, sub_ico).indices[:patches]
     L, V = table.shape
-    label = f"sub-ico {sub_ico} ({L} x {V}) B={B} dim {dim}"
+    label = f"sub-ico {sub_ico} ({L} x {V}) C={C} B={B} dim {dim}"
     idx = pe.table_tensor(table, "cuda")
-    x = torch.from_numpy(rng.standard_normal((B, 4, 40962)).astype(np.float32)).cuda()
-    bd = 1.0 / np.sqrt(4 * V)
-    kernel = torch.from_numpy(rng.uniform(-bd, bd, (4 * V, dim)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((B, C, 40962)).astype(np.float32)).cuda()
+    bd = 1.0 / np.sqrt(C * V)
+    kernel = torch.from_numpy(rng.uniform(-bd, bd, (C * V, dim)).astype(np.float32)).cuda()
     bias = torch.from_numpy(rng.uniform(-bd, bd, dim).astype(np.float32)).cuda()
-    means = rng.uniform(-1, 1, (1, 4, 1)).astype(np.float32)
-    stds = rng.uniform(0.5, 2, (1, 4, 1)).astype(np.float32)
+    means = rng.uniform(-1, 1, (1, C, 1)).astype(np.float32)
+    stds = rng.uniform(0.5, 2, (1, C, 1)).astype(np.float32)
     w, b = pe.embed_matrix(kernel, bias, V, means=means, stds=stds)
     x16 = x.bfloat16()
     got = pe.patch_embed(x, idx, w, b)
@@ -3418,13 +3464,11 @@ def embed_case(pe, rng, sub_ico, B, dim, patches, failures) -> dict:
     errs = {"vs fp32 plain": (got - ref32).abs().max().item(),
             "vs plain bf16": (got - ref_bf).abs().max().item(),
             "plain bf16 vs fp32 plain": (ref_bf - ref32).abs().max().item()}
-    controls = {
-        "table shifted by one patch": (got - pe.patch_embed_reference(
-            x, idx.roll(1, 0), w, b).float()).abs().max().item(),
-        "(c v) order": (got - embed_plain_cv(x, idx, w, b).float()).abs().max().item()}
-    smem = (_native.library().svt_patch_embed_smem(L, V, w.shape[1], dim),
-            pe.embed_plan(L, V, w.shape[1], dim)["bytes"])
-    phase("patch-embed", f"{label} (K {4 * V} -> {w.shape[1]}): max |err| "
+    controls = embed_controls(pe, x, idx, w, b, got)
+    plan = pe.embed_plan(L, V, C, w.shape[1], dim)
+    smem = (_native.library().svt_patch_embed_smem(L, V, C, w.shape[1], dim), plan["bytes"])
+    phase("patch-embed", f"{label} (K {C * V} -> {w.shape[1]}; table rows "
+          f"{'in shared memory' if plan['tab'] else 'through L2'}): max |err| "
           + ", ".join(f"{k} {v / step:.3f}" for k, v in errs.items())
           + f" bf16 steps at the largest output (gate {BOUND_STEPS}); "
           f"{(got != ref_bf).float().mean().item():.4%} of outputs differ from plain bf16; "
@@ -3439,17 +3483,17 @@ def embed_case(pe, rng, sub_ico, B, dim, patches, failures) -> dict:
     if not (same and same16) or smem[0] != smem[1]:
         failures.append(f"patch_embed {label}: not bitwise repeatable, or its plan disagrees")
     flat = idx.reshape(-1)
-    wt = w[:, :4 * V].t()
+    wt = w[:, :C * V].t()
     out = {}
     for xx, name in ((x, "fp32"), (x16, "bf16")):
         def library():  # index_select + torch.matmul: the library form
-            t = xx.index_select(2, flat).view(B, 4, L, V).permute(0, 2, 3, 1).reshape(B, L, 4 * V)
+            t = xx.index_select(2, flat).view(B, C, L, V).permute(0, 2, 3, 1).reshape(B, L, C * V)
             return torch.addmm(b.bfloat16(), t.bfloat16().reshape(B * L, -1), wt)
 
         ms = cuda_ms(lambda: pe.patch_embed(xx, idx, w, b))
         plain_ms = cuda_ms(lambda: pe.patch_embed_reference(xx, idx, w, b), reps=5)
         lib_ms = cuda_ms(library)
-        flops = 2 * B * L * 4 * V * dim
+        flops = 2 * B * L * C * V * dim
         nbytes = nbytes_of(xx, idx, w, b) + got.numel() * 2
         b_ms, b_by = bound_ms(flops, nbytes)
         phase("patch-embed", f"{label} {name} x: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -3468,27 +3512,47 @@ def embed_case(pe, rng, sub_ico, B, dim, patches, failures) -> dict:
 # ragged one, sub-ico 2's first 300 patches at B = 3 (the kernel's last
 # group of 64 patches runs past L). (sub_ico, B, dim, patches kept)
 EMBED_EXTRA = [(5, 64, 96, None), (2, 3, 192, 300)]
+# Then, on the same generator, the shapes the ETL's settings reach
+# (resolution.sub_ico, data.channels): the sub-ico-1 table (80 patches of
+# 561 vertices: one full 64-patch group and one of 16 rows; the table rows
+# read through L2) at SiT-tiny, -small and -base widths, and channel counts
+# other than 4 (vertices straddle K-slices at C = 3). (sub_ico, B, dim, C)
+EMBED_GRIDS = [(1, 256, 192, 4), (1, 256, 384, 4), (1, 256, 768, 4), (2, 256, 192, 1),
+               (2, 256, 192, 3), (2, 256, 192, 8), (5, 64, 96, 3)]
+EMBED_SUB1, EMBED_C3 = "patch_embed sub-ico 1", "patch_embed C=3"  # their kernels rows
+EMBED_ROW_CASES = {EMBED_SUB1: (1, 256, 192, 4), EMBED_C3: (2, 256, 192, 3)}
 
 
 def phase_patch_embed(rng, embed_launches) -> dict:
     """Phase 21: the gather-fused patch_embed (``embed_case``) at sub-ico 2
     (B=256, dim 192 and 384) and sub-ico 3 (B=64, dim 768), then at
-    ``EMBED_EXTRA``. -> the kernel's row (at phase 4's shape, fp32 x, with
-    phase 4's launches)."""
+    ``EMBED_EXTRA`` and ``EMBED_GRIDS``. -> the kernel's rows: phase 4's
+    shape (fp32 x, with phase 4's launches), and ``EMBED_ROW_CASES``
+    (launches filled in by phase 35)."""
     from surface_vision_transformers_tpu_torch.ops import patch_embed as pe
 
-    failures, row = [], None
+    failures, rows = [], {}
+
+    def row(name, nums, launches=None):
+        rows[name] = {"name": name, "route": "cuda", "source": EMBED_SOURCE,
+                      "replaces": EMBED_TPU, "launches": launches, **nums}
+
     for sub_ico, B, dim in EMBED_CASES:
         nums = embed_case(pe, rng, sub_ico, B, dim, None, failures)
         if (sub_ico, B, dim) == (2, 256, 192):
-            row = {"name": "patch_embed", "route": "cuda", "source": EMBED_SOURCE,
-                   "replaces": EMBED_TPU, "launches": embed_launches, **nums}
+            row("patch_embed", nums, embed_launches)
     own = np.random.default_rng(SEED + 21)
     for sub_ico, B, dim, patches in EMBED_EXTRA:
         embed_case(pe, own, sub_ico, B, dim, patches, failures)
+    for case in EMBED_GRIDS:
+        sub_ico, B, dim, C = case
+        nums = embed_case(pe, own, sub_ico, B, dim, None, failures, C=C)
+        for name, at in EMBED_ROW_CASES.items():
+            if case == at:
+                row(name, nums)
     if failures:
         raise AssertionError("; ".join(failures))
-    return row
+    return rows
 
 
 def phase_int8_slice(rng, fb, fused, exp, table, state, tiny) -> int:
@@ -6191,6 +6255,341 @@ def phase_export() -> None:
             raise AssertionError("export: " + "; ".join(failures))
 
 
+# Phase 35: the preprocessing ETL, and the sub-ico-1 grid and channel counts
+# it reaches. Synthetic GIFTI metric files on the canonical ico-6 sphere:
+# PRE_SUBJECTS training / validation subjects, both hemispheres, PRE_METRICS
+# metrics a file, each metric a subject's age times a fixed random footprint
+# plus noise (the ETL keeps the first C).
+PRE_SUBJECTS = {"train": 24, "validation": 8}
+PRE_METRICS = 5
+PRE_AGES = (29.0, 45.0)  # weeks, the dHCP scan-age range
+PRE_GRIDS = [(1, 4), (2, 4), (2, 3)]  # (sub_ico, C) through cli.preprocess
+PRE_EPOCHS, PRE_BS = 2, 16  # cli.train on the raw export: 48 + 16 surfaces
+PRE_STEPS = 4  # Trainer at sub-ico 1 against the eager bf16 SiT (phase 7's gates)
+
+
+def pre_giftis(root: Path, rng) -> dict:
+    """Write the phase's GIFTI files under ``root`` -> {split: (ids, ages,
+    (2N, PRE_METRICS, G) float32 arrays, left hemispheres first)}."""
+    from surface_vision_transformers_tpu_torch.data import gifti
+
+    G = 40962
+    folder = root / "regression_template_space_features"
+    folder.mkdir(parents=True)
+    footprint = rng.standard_normal((PRE_METRICS, G)).astype(np.float32)
+    out = {}
+    for split, n in PRE_SUBJECTS.items():
+        ids = [f"SYN{split[0].upper()}{i:03d}_{100 + i}" for i in range(n)]
+        ages = np.round(rng.uniform(*PRE_AGES, n), 2).astype(np.float32)
+        hemis = {}
+        for hemi in ("L", "R"):
+            hemis[hemi] = (0.05 * (ages[:, None, None] - 37.0) * footprint
+                           + rng.standard_normal((n, PRE_METRICS, G))).astype(np.float32)
+            for sid, arr in zip(ids, hemis[hemi]):
+                sub, ses = sid.split("_")
+                gifti.save(list(arr), folder / f"sub-{sub}_ses-{ses}_{hemi}.shape.gii")
+        out[split] = (ids, ages, np.concatenate([hemis["L"], hemis["R"]]))
+    return out
+
+
+def pre_labels(root: Path, subjects: dict, C: int) -> Path:
+    """Label CSVs and (1, C, 1) float32 stats of the training arrays' first
+    C metrics -> the label path."""
+    d = root / f"labels_c{C}" / "scan_age"
+    (d / "template").mkdir(parents=True)
+    for split, (ids, ages, _) in subjects.items():
+        with open(d / f"{split}.csv", "w") as f:
+            f.write("ids,labels\n" + "".join(f"{i},{a}\n" for i, a in zip(ids, ages)))
+    train = subjects["train"][2][:, :C]
+    np.save(d / "template" / "means.npy", train.mean(axis=(0, 2)).reshape(1, C, 1))
+    np.save(d / "template" / "stds.npy", train.std(axis=(0, 2)).reshape(1, C, 1))
+    return d.parent
+
+
+def pre_config(data_path, label_path, out, sub_ico, C, split) -> dict:
+    return {"resolution": {"ico": 6, "sub_ico": sub_ico},
+            "data": {"data_path": str(data_path), "label_path": str(label_path),
+                     "task": "scan_age", "configuration": "template", "split": split,
+                     "channels": C},
+            "output": {"folder": str(out / "{}" / "{}")}}
+
+
+def pre_numpy(subjects, split, label_path, C, table) -> tuple[np.ndarray, np.ndarray]:
+    """The ETL's (data, labels) of ``split`` by numpy from the arrays the
+    phase wrote: the first C metrics normalised, gathered through the table."""
+    stats = label_path / "scan_age" / "template"
+    m, s = np.load(stats / "means.npy"), np.load(stats / "stds.npy")
+    ids, ages, arrs = subjects[split]
+    raw = (arrs[:, :C] - m) / s
+    return raw[:, :, table], np.concatenate([ages, ages])
+
+
+def phase_preprocess(fb) -> dict:
+    """Phase 35: ``cli.preprocess`` -> ``cli.train`` / ``cli.test`` /
+    ``predict`` at sub-ico 1, a SiT at C = 3, and ``Trainer`` at sub-ico 1
+    against eager bf16. -> launches of the two kernels rows it drives."""
+    from surface_vision_transformers_tpu_torch.checkpoints.convert import state_dict_from_jax
+    from surface_vision_transformers_tpu_torch.cli._common import parse_config
+    from surface_vision_transformers_tpu_torch.data import preprocess
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.train import runner
+    from surface_vision_transformers_tpu_torch.train.losses import weighted_mse
+    from surface_vision_transformers_tpu_torch.train.optim import Optimizer
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    name, t_phase = "preprocess", time.perf_counter()
+    tables = {k: load_patch_table(6, k).indices for k in (1, 2)}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        subjects = pre_giftis(tmp / "giftis", np.random.default_rng(SEED + 35))
+        labels = {C: pre_labels(tmp, subjects, C) for C in (4, 3)}
+        t_write = time.perf_counter() - t0
+
+        # 1. cli.preprocess, three processes at once, against numpy
+        t0 = time.perf_counter()
+        procs = {}
+        for sub_ico, C in PRE_GRIDS:
+            cfg = pre_config(tmp / "giftis", labels[C], tmp / f"cli_s{sub_ico}_c{C}", sub_ico, C,
+                             "train")
+            path = tmp / f"pre_s{sub_ico}_c{C}.json"
+            path.write_text(json.dumps(cfg))
+            procs[sub_ico, C] = subprocess.Popen(
+                [sys.executable, "-m", "surface_vision_transformers_tpu_torch.cli.preprocess",
+                 str(path)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        outs = {}
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode:
+                raise AssertionError(f"cli.preprocess {key} failed ({proc.returncode}):\n{err}")
+            outs[key] = ast.literal_eval(out.strip().splitlines()[-1])
+        t_cli = time.perf_counter() - t0
+        for (sub_ico, C), info in outs.items():
+            folder = Path(info["output_folder"])
+            data = np.load(folder / "train_data.npy")
+            got_labels = np.load(folder / "train_labels.npy")
+            want, want_labels = pre_numpy(subjects, "train", labels[C], C, tables[sub_ico])
+            n = 2 * PRE_SUBJECTS["train"]
+            L, V = tables[sub_ico].shape
+            ok = (info["shape"] == (n, C, L, V) == data.shape and data.dtype == np.float32
+                  and np.array_equal(data, want) and np.array_equal(got_labels, want_labels))
+            control = float(np.abs(data - np.roll(want, 1, axis=0)).max())  # hemispheres shifted
+            phase(name, f"cli.preprocess sub-ico {sub_ico} C={C}: {info}; {data.dtype} "
+                  f"{data.shape}, equal to the numpy gather {ok} (control, rows shifted by one: "
+                  f"max |diff| {control:.4g})")
+            if not ok or control == 0:
+                raise AssertionError(f"cli.preprocess sub-ico {sub_ico} C={C} disagrees with numpy")
+
+        # the raw exports, in process (the patched output at sub-ico 1 must be
+        # the CLI's bytes)
+        t0 = time.perf_counter()
+        etl = {}
+        for sub_ico, C, splits in ((1, 4, ("train", "validation")), (2, 3, ("validation",))):
+            out = tmp / f"etl_s{sub_ico}_c{C}"
+            for split in splits:
+                info = preprocess.run(pre_config(tmp / "giftis", labels[C], out, sub_ico, C, split),
+                                      export_raw=True)
+            etl[sub_ico, C] = Path(info["output_folder"])
+        t_run = time.perf_counter() - t0
+        same = ((etl[1, 4] / "train_data.npy").read_bytes()
+                == (Path(outs[1, 4]["output_folder"]) / "train_data.npy").read_bytes())
+        raw_val = np.load(etl[1, 4] / "validation_raw.npy")
+        want_raw = pre_numpy(subjects, "validation", labels[4], 4, np.arange(40962)[None])[0][
+            :, :, 0]
+        phase(name, f"GIFTI files written in {t_write:.1f} s; three cli.preprocess processes "
+              f"in {t_cli:.1f} s; run(export_raw=True) of three splits in {t_run:.1f} s: "
+              f"the sub-ico-1 patched train split equal to the CLI's bytes {same}, "
+              f"validation_raw {raw_val.dtype} {raw_val.shape} equal to numpy "
+              f"{np.array_equal(raw_val, want_raw)}")
+        if not same or not np.array_equal(raw_val, want_raw):
+            raise AssertionError("the in-process ETL disagrees with cli.preprocess or numpy")
+        raw_dir = tmp / "raw_s1"  # the raw export as a split folder
+        raw_dir.mkdir()
+        for split in ("train", "validation"):
+            os.symlink(etl[1, 4] / f"{split}_raw.npy", raw_dir / f"{split}_data.npy")
+            os.symlink(etl[1, 4] / f"{split}_labels.npy", raw_dir / f"{split}_labels.npy")
+
+        # 2. cli.train at sub-ico 1 on the raw export; then cli.test on its
+        # best_params.npz in a process of its own while run_training runs in
+        # this one on the same arguments, for its launches
+        sets = [f"data.data_path={raw_dir}", "resolution.sub_ico=1",
+                f"training.epochs={PRE_EPOCHS}", "training.val_epoch=1",
+                f"training.bs={PRE_BS}", f"training.bs_val={PRE_BS}", f"training.LR={TRAIN_LR}",
+                f"logging.folder_to_save_model={tmp / 'runs_cli'}"]
+
+        def cli(tool, extra=()):
+            args = [str(TRAIN_CFG), "--device", "cuda",
+                    *[a for s_ in [*sets, *extra] for a in ("--set", s_)]]
+            return args, subprocess.Popen(
+                [sys.executable, "-m", f"surface_vision_transformers_tpu_torch.cli.{tool}",
+                 *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def result(tool, proc):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"cli.{tool} failed ({proc.returncode}):\n{err}")
+            return ast.literal_eval(out.strip().splitlines()[-1])
+
+        t0 = time.perf_counter()
+        argv, proc = cli("train")
+        trained = result("train", proc)
+        t_train = time.perf_counter() - t0
+        best = Path(trained["run_dir"]) / "best_params.npz"
+        t0 = time.perf_counter()
+        _, testing = cli("test", ["data.split=validation", f"testing.path_to_ckpt={best}"])
+        raw, _ = parse_config("in-process", argv)
+        raw["logging"]["folder_to_save_model"] = str(tmp / "runs_in")
+        exp = config.from_dict(raw)
+        counters = zero_counts(fb)
+        mine = runner.run_training(exp, device="cuda", progress=False)
+        launches = read_counts(counters)
+        t_in = time.perf_counter() - t0
+        tested = result("test", testing)
+        t_test = time.perf_counter() - t0
+        vals = []
+        for d in (trained["run_dir"], mine["run_dir"]):
+            with open(Path(d) / "metrics_val.csv") as f:
+                vals.append([float(r["val/mae"]) for r in csv.DictReader(f)])
+        steps = PRE_EPOCHS * 2 * PRE_SUBJECTS["train"] // PRE_BS
+        evals = PRE_EPOCHS * 2 * PRE_SUBJECTS["validation"] // PRE_BS  # one a val epoch
+        want = {k: 0 for k in counters}
+        want.update(fused_block=11 * (steps + evals), fused_block_cls=steps + evals,
+                    fused_block_bwd=11 * steps, fused_block_cls_bwd=steps,
+                    patch_embed=steps + evals)
+        want[FEW_FWD] = steps + evals
+        want["flash_attention_bwd 8 queries"] = steps
+        phase(name, f"cli.train {TRAIN_CFG.relative_to(ROOT)} (SiT-tiny, sub-ico 1: N = 81) on "
+              f"the raw export in {t_train:.1f} s: best val MAE {trained['best_mae']!r} at epoch "
+              f"{trained['best_epoch']}, val by epoch {vals[0]}; in process ({t_in:.1f} s, "
+              f"beside cli.test): {mine['best_mae']!r}, val {vals[1]} (must be equal); launches "
+              f"in process {launches}, expected {want}; cli.test on best_params.npz, done "
+              f"{t_test:.1f} s after its start: {tested} (must report the best val MAE)")
+        if vals[0] != vals[1] or trained["best_mae"] != mine["best_mae"]:
+            raise AssertionError("cli.train disagrees with run_training in process")
+        if len(vals[0]) != PRE_EPOCHS or not vals[0][-1] < vals[0][0]:
+            raise AssertionError("the val MAE did not fall at sub-ico 1")
+        if launches != want:
+            raise AssertionError("training at sub-ico 1 did not launch every kernel as expected")
+        if (tested["n"] != 2 * PRE_SUBJECTS["validation"]
+                or abs(tested["mae"] - trained["best_mae"]) > 1e-4 * trained["best_mae"]):
+            raise AssertionError("cli.test disagrees with the best epoch's val MAE")
+        rows[EMBED_SUB1] = launches["patch_embed"]
+
+        # 3. predict on the patched export (linear embedding) and on the raw
+        # one (the kernel), and the two embeddings alone: the trained model
+        # (six steps from the seeded init: its predictions barely vary across
+        # surfaces, so its controls are printed and the embedding gate holds
+        # it), then SiT-tiny on phase 4's seeded weights at sub-ico 1 and at
+        # C = 3 on sub-ico 2 (their controls must fail the gates)
+        trained_model = runner.build_model(exp, tables[1])
+        runner.load_model_state(trained_model, runner._as_layout(
+            runner.load_state_dict_any(str(best), exp.model.depth), trained_model))
+        own = np.random.default_rng(SEED + 35)
+
+        def seeded(sub_ico, C):
+            L, V = tables[sub_ico].shape
+            tree = jax_shaped_params(own, V, num_channels=C, n_tokens=L + 1)
+            m = SiT(dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP, dim_head=DH,
+                    num_patches=L, num_vertices=V, num_channels=C, patch_table=tables[sub_ico],
+                    dtype=torch.bfloat16)
+            m.load_state_dict(state_dict_from_jax(tree, DEPTH), strict=True)
+            return m
+
+        for label, m, folder, gated in (
+                ("sub-ico 1, C=4, trained", trained_model, etl[1, 4], False),
+                ("sub-ico 1, C=4, seeded", seeded(1, 4), etl[1, 4], True),
+                ("sub-ico 2, C=3, seeded", seeded(2, 3), etl[2, 3], True)):
+            m = m.eval()
+            x_raw = np.load(folder / "validation_raw.npy").astype(np.float32)
+            x_pat = np.load(folder / "validation_data.npy")
+            swapped = np.ascontiguousarray(x_raw[:, [1, 0, *range(2, x_raw.shape[1])]])
+            counters = zero_counts(fb)
+            p_raw = fused.predict(m, x_raw, device="cuda", batch_size=PRE_BS)
+            n_raw = read_counts(counters)["patch_embed"]
+            counters = zero_counts(fb)
+            p_pat = fused.predict(m, x_pat, device="cuda", batch_size=PRE_BS)
+            n_pat = read_counts(counters)["patch_embed"]
+            p_ctl = fused.predict(m, swapped, device="cuda", batch_size=PRE_BS)
+            err, ctl = float(np.abs(p_raw - p_pat).max()), float(np.abs(p_ctl - p_pat).max())
+            w = fused.prepare_weights(m)
+            with torch.inference_mode():
+                def embed(x):
+                    return fused.embed_tokens(torch.from_numpy(x).cuda(), w.raw_embed,
+                                              w.embed_kernel, w.patched_embed, w.dtype).float()
+
+                e_pat = embed(x_pat)
+                step = bf16_step(e_pat.abs().max().item())
+                e_err = (embed(x_raw) - e_pat).abs().max().item() / step
+                e_ctl = (embed(swapped) - e_pat).abs().max().item() / step
+            phase(name, f"predict {label}, {len(x_raw)} validation surfaces: raw (patch_embed "
+                  f"launches {n_raw}) vs patched (launches {n_pat}) max |diff| {err:.6g} (tol "
+                  f"{SLICE_TOL}); control, channels 0 and 1 swapped: {ctl:.6g} ("
+                  + ("must exceed the tol" if gated else "printed") + f"); predictions std "
+                  f"{float(p_pat.std()):.4g}; the embeddings alone, kernel on raw vs linear on "
+                  f"patched: {e_err:.3f} bf16 steps at the largest (gate {BOUND_STEPS}), "
+                  f"control (channels swapped) {e_ctl:.1f}")
+            if not np.isfinite(p_raw).all() or err > SLICE_TOL or n_pat != 0 or n_raw < 1:
+                raise AssertionError(f"predict {label}: raw and patched input disagree")
+            if e_err > BOUND_STEPS or e_ctl <= BOUND_STEPS or (gated and ctl <= SLICE_TOL):
+                raise AssertionError(f"predict {label}: the embeddings disagree, or a control "
+                                     "passed its gate")
+            if folder == etl[2, 3]:
+                rows[EMBED_C3] = n_raw
+        del trained_model, m, w
+
+    # 4. Trainer at sub-ico 1, B = 256, against the eager bf16 SiT (phase 7)
+    L, V = tables[1].shape
+    data, labels_ = make_regression_dataset(2 * TRAIN_B, raw_vertices=40962, seed=SEED + 35)
+    data, labels_ = torch.from_numpy(data).cuda(), torch.from_numpy(labels_).cuda()
+    batches = [(data[s:s + TRAIN_B], labels_[s:s + TRAIN_B]) for s in (0, TRAIN_B)]
+    exp = config.Experiment(
+        model=config.ModelConfig(num_patches=L, num_vertices=V),
+        training=config.TrainingConfig(bs=TRAIN_B), data=config.DataConfig(),
+        optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 35)
+        init = SiT(num_patches=L, num_vertices=V, patch_table=tables[1], dtype=torch.bfloat16,
+                   attn_backend="plain").cuda()
+    start_ = init.state_dict()
+
+    def eager():
+        model = copy.deepcopy(init)
+        opt = Optimizer(exp.optim, model.parameters())
+
+        def step(xb, yb):
+            opt.zero_grad()
+            loss = weighted_mse(model(xb).reshape(-1), yb)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        return run_steps(step, model, start_, batches, PRE_STEPS)
+
+    counters = zero_counts(fb)
+    run = trainer_run(exp, copy.deepcopy(init), start_, batches, PRE_STEPS)
+    launches = read_counts(counters)
+    plain = eager()
+    control = trainer_run(exp, copy.deepcopy(init), start_, batches, PRE_STEPS, hook_block=5)
+    want = {k: 0 for k in counters}
+    want.update(fused_block=11 * PRE_STEPS, fused_block_cls=PRE_STEPS,
+                fused_block_bwd=11 * PRE_STEPS, fused_block_cls_bwd=PRE_STEPS,
+                patch_embed=PRE_STEPS)
+    want[FEW_FWD] = want["flash_attention_bwd 8 queries"] = PRE_STEPS
+    phase(name, f"{PRE_STEPS} SGD steps of Trainer at sub-ico 1 (N = 81), B={TRAIN_B}: launches "
+          f"{launches}, expected {want}; step medians (CUDA events, steps 2..{PRE_STEPS}) "
+          f"kernel path {np.median(run[2]):.3f} ms, eager bf16 {np.median(plain[2]):.3f} ms")
+    if launches != want:
+        raise AssertionError("Trainer at sub-ico 1 did not launch every kernel as expected")
+    gate_runs(name, "Trainer at sub-ico 1", run, plain, control, TRAIN_LOSS_TOL, TRAIN_UPD_TOL)
+    del data, batches, init
+    torch.cuda.empty_cache()
+    phase(name, f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Median host-clock time in ms to enqueue one call of ``fn`` on an
     idle card (synchronised before each call, not inside it)."""
@@ -6471,7 +6870,7 @@ def main() -> None:
 
     # -- 21. patch-embed
     start("patch-embed")
-    kernels["patch_embed"] = phase_patch_embed(rng, embed_launches)
+    kernels.update(phase_patch_embed(rng, embed_launches))
 
     # -- 22. int8-slice (every count zeroed just before it)
     start("int8-slice")
@@ -6588,6 +6987,11 @@ def main() -> None:
     # -- 34. export (the serving artifacts, run by their standalone loaders)
     start("export")
     phase_export()
+
+    # -- 35. preprocess (every count zeroed just before each run)
+    start("preprocess")
+    for name, n in phase_preprocess(fb).items():
+        kernels[name]["launches"] = n
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)

@@ -1,7 +1,8 @@
 """Shared CLI plumbing: ``python -m surface_vision_transformers_tpu_torch.cli.
 <tool> <config> [--set dotted.key=value ...] [--device DEV]`` (train and
-pretrain also ``[--resume RUN_DIR]``), the JAX package's positional-config UX
-plus an explicit device."""
+pretrain also ``[--resume RUN_DIR]``; preprocess, which runs on the host,
+without ``--device``), the JAX package's positional-config UX plus an
+explicit device."""
 
 from __future__ import annotations
 
@@ -31,9 +32,11 @@ def apply_overrides(raw: dict, overrides) -> dict:
     return raw
 
 
-def parse_config(description: str, argv=None, with_resume: bool = False) -> tuple:
+def parse_config(description: str, argv=None, with_resume: bool = False,
+                 with_device: bool = True):
     """(raw config dict with overrides applied, device), and the
-    ``--resume`` run folder (or None) last under ``with_resume``."""
+    ``--resume`` run folder (or None) last under ``with_resume``; the raw
+    dict alone, with no ``--device`` flag, under ``with_device=False``."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("config", help="path to the YAML (or .json) config")
     if with_resume:
@@ -44,12 +47,15 @@ def parse_config(description: str, argv=None, with_resume: bool = False) -> tupl
     p.add_argument(
         "--set", action="append", default=[], metavar="dotted.key=value",
         help="override a config value (repeatable), e.g. --set training.bs=64")
-    p.add_argument(
-        "--device", default="cuda",
-        help="torch device to run on (default cuda; there is no fallback "
-        "when it is missing)")
+    if with_device:
+        p.add_argument(
+            "--device", default="cuda",
+            help="torch device to run on (default cuda; there is no fallback "
+            "when it is missing)")
     args = p.parse_args(argv)
     raw = apply_overrides(read_config_file(args.config), args.set)
+    if not with_device:
+        return raw
     if with_resume:
         return raw, args.device, args.resume
     return raw, args.device

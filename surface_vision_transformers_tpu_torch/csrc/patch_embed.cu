@@ -4,10 +4,10 @@
 // surface_vision_transformers_tpu/ops/pallas/patch_embed.py::
 // pallas_patch_embed (_embed_kernel) -> svt_patch_embed:
 //   out[b, l, :] = bf16( sum_k tok[b, l, k] W[:, k] + bias ),
-//   tok[b, l, v * 4 + c] = bf16( x[b, c, idx[l, v]] )      ((v c) order),
+//   tok[b, l, v * C + c] = bf16( x[b, c, idx[l, v]] )      ((v c) order, C 1 .. 8),
 // fp32 accumulation and an fp32 bias, rounded once. The TPU version gathers
 // the tokens in XLA and writes them to HBM before its GEMM kernel; here the
-// gather is the GEMM's A-operand load, so the (B, L, 4 V) tokens never
+// gather is the GEMM's A-operand load, so the (B, L, C V) tokens never
 // exist in device memory.
 //
 // What bounds it on this card: bytes, and the latency of the gather. At
@@ -29,11 +29,20 @@
 //              group of the same few samples (boundary vertices shared
 //              through L2). An item's A tile is its rows x Kp in 64-deep
 //              K-slices ([64][64] bf16 blocks, 128-byte swizzle, the layout
-//              wgmma reads): 16 vertices x 4 channels a slice. A lane takes
-//              8 (row, vertex) items at a time (a slice of 128 rows, or two
-//              of 64): the table entries from shared memory, then all 32
-//              channel loads before any store, then each value rounded to
-//              bf16 once and a vertex's 4 channels stored as 8 bytes. A
+//              wgmma reads). A lane owns four adjacent columns of a slice
+//              and takes 8 rows at a time (a slice of 128 rows, or two of
+//              64): the table entries, then all 32 value loads before any
+//              store, then each value rounded to bf16 once and the four
+//              stored as 8 bytes. At C = 4 the four columns are one
+//              vertex's channels (16 vertices a slice): one table entry a
+//              row. At other C (the general walk) column k is channel k % C
+//              of vertex k / C, so a lane's columns come from up to four
+//              vertices (at C = 3, 5, 6 and 7 vertices straddle slices),
+//              and each column reads its own entry. The group's table rows
+//              sit in shared memory where they fit beside two A slices;
+//              else (sub-ico 1: 64 rows x 561 vertices, 144 KB) the entries
+//              are read through L1 / L2 (the whole table is 180 KB), one
+//              dependent load more a row. A
 //              slice has its own full and empty mbarriers in a ring of as
 //              many slices as the shared memory holds (up to 8), so the next
 //              item's gather fills the slices the products are done with.
@@ -86,8 +95,9 @@ namespace {
 
 using namespace svt;
 
-constexpr int PE_CH = 4;         // channels: the (v c) order packs a vertex into 8 bytes
-constexpr int PE_BK = 64;        // K-slice depth: 16 vertices
+constexpr int PE_CH = 4;         // the packed walk's channels: a vertex is 8 bytes of a slice
+constexpr int PE_CH_MAX = 8;     // channels the general walk takes
+constexpr int PE_BK = 64;        // K-slice depth: 16 vertices at C = 4
 constexpr int PE_GATHER = 256;   // gather threads (two warpgroups)
 constexpr int PE_ITEMS = 8;      // (row, vertex) items a gather thread loads at a time
 constexpr int PE_SMEM_MAX = 232448 - 1024;  // an H100 block's, less the alignment
@@ -108,6 +118,11 @@ struct EmbedPlan {
   int sa, sw;   // A ring slices; W ring stages an N-part
   int groups;   // patch groups of 64 MW
   int a_off, w_off, stage_off, table_off, bar_off, bytes;  // shared memory layout
+  // 1: the group's table rows in shared memory; 0: read through L2. Last,
+  // as the kernel's C is: the packed walk's parameters keep their offsets,
+  // and its machine code stays the one before the general walk existed
+  // (scripts/embed_sass_compare.py)
+  int tab;
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -116,8 +131,9 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // <= 96 two consumers on an item's two 64-row halves (MW 2), sharing each W
 // slice; up to 192 one consumer (NB 192); past 192 two on an item's
 // N-tiles (NW 2), each with its W stream. The A ring takes the shared
-// memory the rest leaves, up to 8 slices.
-__host__ __device__ inline EmbedPlan embed_plan(int L, int V, int Kp, int dim) {
+// memory the rest leaves, up to 8 slices; the group's table rows stay in
+// shared memory unless that leaves fewer than two.
+__host__ __device__ inline EmbedPlan embed_plan(int L, int V, int C, int Kp, int dim) {
   EmbedPlan p;
   p.nb = dim <= 96 ? 96 : 192;
   p.nt = cdiv(dim, p.nb);
@@ -130,8 +146,9 @@ __host__ __device__ inline EmbedPlan embed_plan(int L, int V, int Kp, int dim) {
   p.sw = p.nb == 96 && w_item <= 4 ? w_item : p.nw == 1 ? 3 : 2;
   p.groups = cdiv(L, rows);
   const int w_bytes = p.nw * p.sw * p.nb * PE_BK * 2, stage_bytes = p.mw * p.nw * 2 * 64 * 64 * 2;
-  const int rest = w_bytes + stage_bytes + rows * V * 4 + (2 * PE_MAX_SA + 2 * p.nw * p.sw) * 8;
-  p.sa = (PE_SMEM_MAX - rest) / slice;
+  const int rest = w_bytes + stage_bytes + (2 * PE_MAX_SA + 2 * p.nw * p.sw) * 8;
+  p.tab = (PE_SMEM_MAX - rest - rows * V * 4) / slice >= 2;
+  p.sa = (PE_SMEM_MAX - rest - (p.tab ? rows * V * 4 : 0)) / slice;
   if (p.sa > PE_MAX_SA) p.sa = PE_MAX_SA;
   p.reps = p.passes > 1 && p.ks > p.sa ? p.passes : 1;  // else an item's slices stay every pass
   if (p.reps > 1) p.passes = 1;
@@ -139,9 +156,9 @@ __host__ __device__ inline EmbedPlan embed_plan(int L, int V, int Kp, int dim) {
   p.w_off = p.a_off + (p.sa > 0 ? p.sa : 0) * slice;
   p.stage_off = p.w_off + w_bytes;
   p.table_off = p.stage_off + stage_bytes;
-  p.bar_off = p.table_off + ((rows * V * 4 + 7) & ~7);
+  p.bar_off = p.table_off + (p.tab ? (rows * V * 4 + 7) & ~7 : 0);
   p.bytes = p.bar_off + (2 * p.sa + 2 * p.nw * p.sw) * 8;
-  if (p.sa < 2 || Kp % PE_BK || Kp < V * PE_CH) p.bytes = 0;
+  if (p.sa < 2 || Kp % PE_BK || Kp < V * C || C < 1 || C > PE_CH_MAX) p.bytes = 0;
   return p;
 }
 
@@ -152,13 +169,23 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-template <typename T, int NB, int MW, int NW>
+// Table entry i of a group's rows: from shared memory (TAB), else through
+// the read-only data path.
+template <bool TAB>
+__device__ __forceinline__ int table_at(const int* t, int i) {
+  if constexpr (TAB) return t[i];
+  else return __ldg(t + i);
+}
+
+// CH = 4: the packed walk (a lane's four columns are one vertex's
+// channels); CH = 0: the general walk, any C in 1 .. 8. TAB: the plan's tab.
+template <typename T, int NB, int MW, int NW, int CH, bool TAB>
 __global__ void __launch_bounds__((MW * NW + 2) * 128, 1)
     patch_embed_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                        const __grid_constant__ CUtensorMap tm_w,
                        const __grid_constant__ CUtensorMap tm_out,
                        const float* __restrict__ bias, int B, int G, int L, int V, int dim,
-                       const EmbedPlan pl) {
+                       const EmbedPlan pl, int C) {
   constexpr int NC = MW * NW, ROWS = 64 * MW;
   // with two consumers on 192-column tiles the gather gives them registers
   constexpr bool SHIFT = NC == 2 && NB == 192;
@@ -192,7 +219,8 @@ __global__ void __launch_bounds__((MW * NW + 2) * 128, 1)
   if (wg >= NC) {  // -- the gather: threads 0 .. 255 of its two warpgroups
     if (SHIFT) set_max_regs_dec<112>();
     const int gt = threadIdx.x - NC * 128;
-    const int vl = gt & 15, rq = gt >> 4;  // vertex 16 s + vl of rows rq + 16 i
+    // columns 4 vl .. 4 vl + 3 of a slice (at C = 4 vertex 16 s + vl), rows rq + 16 i
+    const int vl = gt & 15, rq = gt >> 4;
     constexpr int SLICES = MW == 1 ? 2 : 1, PER = PE_ITEMS / SLICES;  // a step's
     const long long slices = (i1 - i0) * pl.ks;
     int cur = -1;  // the group whose table rows are in shared memory
@@ -200,7 +228,8 @@ __global__ void __launch_bounds__((MW * NW + 2) * 128, 1)
     auto group_of = [&](long long a) { return (int)((i0 + a / pl.ks) / per_group); };
     for (long long a = 0; a < slices;) {
       const int g = group_of(a);
-      if (g != cur) {  // the group's table rows, once every gather thread is done with the last
+      // the group's table rows, once every gather thread is done with the last
+      if (TAB && g != cur) {
         bar_sync(PE_GATHER_BAR, PE_GATHER);
         for (int e = gt; e < ROWS * V; e += PE_GATHER) {
           const int l = g * ROWS + e / V;
@@ -209,27 +238,54 @@ __global__ void __launch_bounds__((MW * NW + 2) * 128, 1)
         bar_sync(PE_GATHER_BAR, PE_GATHER);
         cur = g;
       }
+      const int* trows = TAB ? table : idx + (long long)g * ROWS * V;  // the group's rows
       const int ns = SLICES == 2 && a + 1 < slices && group_of(a + 1) == g ? 2 : 1;
-      T val[SLICES][PER][PE_CH];
+      T val[SLICES][PER][4];
 #pragma unroll
       for (int q = 0; q < SLICES; ++q) {
         if (q >= ns) continue;
         const long long aq = a + q;
         const int b = (int)((i0 + aq / pl.ks) / pl.reps % B), s = (int)(aq % pl.ks);
-        const int v = 16 * s + vl;
-        const T* xb = x + (long long)b * PE_CH * G;
+        const T* xb = x + (long long)b * (CH == PE_CH ? PE_CH : C) * G;
+        if constexpr (CH == PE_CH) {
+          const int v = 16 * s + vl;
 #pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          const int r = rq + 16 * i;
-          const bool ok = v < V && g * ROWS + r < L;
+          for (int i = 0; i < PER; ++i) {
+            const int r = rq + 16 * i;
+            const bool ok = v < V && g * ROWS + r < L;
 #if SVT_EMBED_PART == 2
 #pragma unroll
-          for (int c = 0; c < PE_CH; ++c) val[q][i][c] = T(ok ? (float)((r + v + c) & 7) : 0.f);
+            for (int c = 0; c < PE_CH; ++c) val[q][i][c] = T(ok ? (float)((r + v + c) & 7) : 0.f);
 #else
-          const int vi = ok ? table[r * V + v] : 0;
+            const int vi = ok ? table_at<TAB>(trows, r * V + v) : 0;
 #pragma unroll
-          for (int c = 0; c < PE_CH; ++c) val[q][i][c] = ok ? xb[(long long)c * G + vi] : T(0.f);
+            for (int c = 0; c < PE_CH; ++c) val[q][i][c] = ok ? xb[(long long)c * G + vi] : T(0.f);
 #endif
+          }
+        } else {
+          // column k = 64 s + 4 vl + e is channel k % C of vertex k / C
+          int ve[4], ce[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = PE_BK * s + 4 * vl + e, v = k / C;
+            ve[e] = k < V * C ? v : -1;  // -1: the K padding
+            ce[e] = k - v * C;
+          }
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            const int r = rq + 16 * i;
+            const bool row_ok = g * ROWS + r < L;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool ok = row_ok && ve[e] >= 0;
+#if SVT_EMBED_PART == 2
+              val[q][i][e] = T(ok ? (float)((r + ve[e] + ce[e]) & 7) : 0.f);
+#else
+              const int vi = ok ? table_at<TAB>(trows, r * V + ve[e]) : 0;
+              val[q][i][e] = ok ? xb[(long long)ce[e] * G + vi] : T(0.f);
+#endif
+            }
+          }
         }
       }
 #pragma unroll
@@ -244,7 +300,7 @@ __global__ void __launch_bounds__((MW * NW + 2) * 128, 1)
           const int r = rq + 16 * i;  // row r of the item: half r / 64, its row r % 64
           const uint2 pk = make_uint2(pack_bf16(to_f32(val[q][i][0]), to_f32(val[q][i][1])),
                                       pack_bf16(to_f32(val[q][i][2]), to_f32(val[q][i][3])));
-          *reinterpret_cast<uint2*>(dst + (r >> 6) * 64 * PE_BK + sw128(r & 63, vl * PE_CH)) = pk;
+          *reinterpret_cast<uint2*>(dst + (r >> 6) * 64 * PE_BK + sw128(r & 63, vl * 4)) = pk;
         }
         fence_async_smem();
         mbar_arrive(&a_full[slot]);
@@ -370,10 +426,10 @@ cudaError_t w_map(CUtensorMap* m, const bf16* W, int Kp, int dim, int nb) {
   return encode_tiled(m, 3, W, dims, strides, box);
 }
 
-template <typename T, int NB, int MW, int NW>
+template <typename T, int NB, int MW, int NW, int CH, bool TAB>
 cudaError_t launch_embed(const T* x, const int* idx, const CUtensorMap& tm_w,
-                         const CUtensorMap& tm_out, const float* bias, int B, int G, int L,
-                         int V, int dim, const EmbedPlan& pl, cudaStream_t st) {
+                         const CUtensorMap& tm_out, const float* bias, int B, int C, int G,
+                         int L, int V, int dim, const EmbedPlan& pl, cudaStream_t st) {
   static bool ready[16];
   static int sms[16];
   int dev = 0;
@@ -381,7 +437,7 @@ cudaError_t launch_embed(const T* x, const int* idx, const CUtensorMap& tm_w,
   if (e != cudaSuccess) return e;
   if (dev >= 16) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    e = cudaFuncSetAttribute(patch_embed_kernel<T, NB, MW, NW>,
+    e = cudaFuncSetAttribute(patch_embed_kernel<T, NB, MW, NW, CH, TAB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, PE_SMEM_MAX + 1024);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
@@ -389,39 +445,55 @@ cudaError_t launch_embed(const T* x, const int* idx, const CUtensorMap& tm_w,
   }
   const long long items = (long long)pl.groups * B * pl.reps;
   const int ctas = (int)std::min<long long>(items, sms[dev]);
-  patch_embed_kernel<T, NB, MW, NW><<<ctas, (MW * NW + 2) * 128, pl.bytes + 1024, st>>>(
-      x, idx, tm_w, tm_out, bias, B, G, L, V, dim, pl);
+  patch_embed_kernel<T, NB, MW, NW, CH, TAB><<<ctas, (MW * NW + 2) * 128, pl.bytes + 1024, st>>>(
+      x, idx, tm_w, tm_out, bias, B, G, L, V, dim, pl, C);
   return cudaGetLastError();
+}
+
+template <typename T, int CH, bool TAB>
+cudaError_t embed_walk(const T* x, const int* idx, const CUtensorMap& tm_w,
+                       const CUtensorMap& tm_out, const float* bias, int B, int C, int G, int L,
+                       int V, int dim, const EmbedPlan& pl, cudaStream_t st) {
+  if (pl.nb == 96)
+    return launch_embed<T, 96, 2, 1, CH, TAB>(x, idx, tm_w, tm_out, bias, B, C, G, L, V, dim,
+                                              pl, st);
+  if (pl.nw == 1)
+    return launch_embed<T, 192, 1, 1, CH, TAB>(x, idx, tm_w, tm_out, bias, B, C, G, L, V, dim,
+                                               pl, st);
+  return launch_embed<T, 192, 1, 2, CH, TAB>(x, idx, tm_w, tm_out, bias, B, C, G, L, V, dim,
+                                             pl, st);
 }
 
 template <typename T>
 cudaError_t embed(const T* x, const int* idx, const bf16* W, const float* bias, bf16* out, int B,
-                  int G, int L, int V, int Kp, int dim, cudaStream_t st) {
-  const EmbedPlan pl = embed_plan(L, V, Kp, dim);
+                  int C, int G, int L, int V, int Kp, int dim, cudaStream_t st) {
+  const EmbedPlan pl = embed_plan(L, V, C, Kp, dim);
   if (pl.bytes == 0) return cudaErrorInvalidValue;
   CUtensorMap tm_w, tm_out;
   cudaError_t e = w_map(&tm_w, W, Kp, dim, pl.nb);
   if (e == cudaSuccess) e = out_map(&tm_out, out, B, L, dim);
   if (e != cudaSuccess) return e;
-  if (pl.nb == 96)
-    return launch_embed<T, 96, 2, 1>(x, idx, tm_w, tm_out, bias, B, G, L, V, dim, pl, st);
-  if (pl.nw == 1)
-    return launch_embed<T, 192, 1, 1>(x, idx, tm_w, tm_out, bias, B, G, L, V, dim, pl, st);
-  return launch_embed<T, 192, 1, 2>(x, idx, tm_w, tm_out, bias, B, G, L, V, dim, pl, st);
+  if (C == PE_CH && pl.tab)
+    return embed_walk<T, PE_CH, true>(x, idx, tm_w, tm_out, bias, B, C, G, L, V, dim, pl, st);
+  if (C == PE_CH)
+    return embed_walk<T, PE_CH, false>(x, idx, tm_w, tm_out, bias, B, C, G, L, V, dim, pl, st);
+  if (pl.tab)
+    return embed_walk<T, 0, true>(x, idx, tm_w, tm_out, bias, B, C, G, L, V, dim, pl, st);
+  return embed_walk<T, 0, false>(x, idx, tm_w, tm_out, bias, B, C, G, L, V, dim, pl, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, 4, G) fp32 (x_is_f32) or bf16, idx (L, V) int32 vertex ids < G,
-// W (dim, Kp) bf16 with K = V * 4 in (v c) order zero-padded to Kp (a
-// multiple of 64), bias (dim,) fp32 -> out (B, L, dim) bf16. Pointers on 16
-// bytes, dim a multiple of 8. Shapes the tiling does not take
-// (svt_patch_embed_smem 0, C != 4) return cudaErrorInvalidValue.
+// x (B, C, G) fp32 (x_is_f32) or bf16, C 1 .. 8, idx (L, V) int32 vertex
+// ids < G, W (dim, Kp) bf16 with K = V * C in (v c) order zero-padded to Kp
+// (a multiple of 64), bias (dim,) fp32 -> out (B, L, dim) bf16. Pointers on
+// 16 bytes, dim a multiple of 8. Shapes the tiling does not take
+// (svt_patch_embed_smem 0) return cudaErrorInvalidValue.
 int svt_patch_embed(void* x, int x_is_f32, void* idx, void* W, void* bias, void* out, int B,
                     int C, int G, int L, int V, int Kp, int dim, int device, void* stream) {
-  if (C != PE_CH || dim % 8 || B < 1 || L < 1 || V < 1) return (int)cudaErrorInvalidValue;
+  if (dim % 8 || B < 1 || L < 1 || V < 1) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ix = static_cast<const int*>(idx);
@@ -429,14 +501,14 @@ int svt_patch_embed(void* x, int x_is_f32, void* idx, void* W, void* bias, void*
   const float* b = static_cast<const float*>(bias);
   bf16* o = static_cast<bf16*>(out);
   if (x_is_f32)
-    return (int)embed(static_cast<const float*>(x), ix, w, b, o, B, G, L, V, Kp, dim, st);
-  return (int)embed(static_cast<const bf16*>(x), ix, w, b, o, B, G, L, V, Kp, dim, st);
+    return (int)embed(static_cast<const float*>(x), ix, w, b, o, B, C, G, L, V, Kp, dim, st);
+  return (int)embed(static_cast<const bf16*>(x), ix, w, b, o, B, C, G, L, V, Kp, dim, st);
 }
 
 // Bytes of shared memory the kernel takes at these shapes (its plan), 0
 // where the tiling cannot take them (ops/patch_embed.py::embed_plan).
-int svt_patch_embed_smem(int L, int V, int Kp, int dim) {
-  const EmbedPlan p = embed_plan(L, V, Kp, dim);
+int svt_patch_embed_smem(int L, int V, int C, int Kp, int dim) {
+  const EmbedPlan p = embed_plan(L, V, C, Kp, dim);
   return p.bytes ? p.bytes + 1024 : 0;
 }
 

@@ -18,9 +18,13 @@ whose gather warps keep many loads in flight and fill 64-deep K-slices of
 the A tile through a ring, while consumer warpgroups run ``wgmma`` on the
 slices that have landed against W streamed by TMA, and store by TMA. It
 takes W in the torch ``nn.Linear`` layout (dim, V*C), K in (v c) order,
-zero-padded to a multiple of ``K_STEP``, and C = 4 channels (a vertex's
-channels are one 8-byte piece of the tile); ``embed_plan`` mirrors its
-tiling and its shared memory, and shapes it cannot take are refused.
+zero-padded to a multiple of ``K_STEP``, and 1 to ``MAX_CHANNELS``
+channels (at C = 4 a vertex's channels are one 8-byte piece of the tile;
+other counts take a walk where each of a lane's four columns finds its own
+vertex and channel). The group's table rows sit in shared memory where
+they fit, else (sub-ico 1's 561 vertices) they are read through L2;
+``embed_plan`` mirrors its tiling and its shared memory, and shapes it
+cannot take are refused.
 
 ``PatchEmbed`` is its autograd function: the kernel forward on CUDA, a
 plain backward (dW = tokens^T dout, db = sum dout, in float32, to the
@@ -47,12 +51,12 @@ from surface_vision_transformers_tpu_torch.ops.patchify import fold_normalizatio
 from surface_vision_transformers_tpu_torch.serving import svt_ops
 
 K_STEP = 64  # the kernel's K slice: W's columns are zero-padded to a multiple
-CHANNELS = 4  # the kernel's C: a vertex's channels, 8 bytes of the A tile
+MAX_CHANNELS = 8  # the kernel's C: 1 .. 8 (4 packs a vertex into 8 bytes of the A tile)
 _SMEM_MAX = 232448  # an H100 block's shared memory
 
 
 @functools.cache
-def embed_plan(L: int, V: int, kp: int, dim: int) -> types.MappingProxyType:
+def embed_plan(L: int, V: int, C: int, kp: int, dim: int) -> types.MappingProxyType:
     """The kernel's tiling at these shapes (``csrc/patch_embed.cu``'s
     ``embed_plan``; ``svt_patch_embed_smem`` gives its ``bytes``): N-tiles
     of ``nb`` = 192 columns (96 at dim <= 96); at dim <= 96 two consumer
@@ -63,10 +67,12 @@ def embed_plan(L: int, V: int, kp: int, dim: int) -> types.MappingProxyType:
     not fit the A ring, ``reps`` items a (group, sample), one a pass, each
     gathered again); a W ring of ``sw`` stages an N-part (3 for one
     consumer, 2 for two; at n = 96 every slice it reads, up to 4, loaded
-    once); two 8 KB staging boxes a consumer, the group's table rows, and
-    an A ring of ``sa`` slices in what an H100 block's shared memory
-    leaves, up to 8. ``bytes`` is 0 where fewer than two slices fit.
-    Cached, and read-only."""
+    once); two 8 KB staging boxes a consumer, the group's table rows
+    (``tab`` 1) unless they leave fewer than two A slices (``tab`` 0: the
+    entries read through L2), and an A ring of ``sa`` slices in what an
+    H100 block's shared memory leaves, up to 8. ``bytes`` is 0 where fewer
+    than two slices fit, or C is past 1 .. ``MAX_CHANNELS``, or Kp is not a
+    multiple of ``K_STEP`` at least V*C. Cached, and read-only."""
     nb = 96 if dim <= 96 else 192
     nt = -(-dim // nb)
     mw = 2 if nb == 96 else 1
@@ -77,17 +83,18 @@ def embed_plan(L: int, V: int, kp: int, dim: int) -> types.MappingProxyType:
     slice_bytes = rows * K_STEP * 2
     sw = w_item if nb == 96 and w_item <= 4 else 3 if nw == 1 else 2
     w_bytes, stage_bytes = nw * sw * nb * K_STEP * 2, mw * nw * 2 * 64 * 64 * 2
-    rest = w_bytes + stage_bytes + rows * V * 4 + (2 * 8 + 2 * nw * sw) * 8
-    sa = min(8, (_SMEM_MAX - 1024 - rest) // slice_bytes)
+    rest = w_bytes + stage_bytes + (2 * 8 + 2 * nw * sw) * 8
+    tab = int((_SMEM_MAX - 1024 - rest - rows * V * 4) // slice_bytes >= 2)
+    sa = min(8, (_SMEM_MAX - 1024 - rest - tab * rows * V * 4) // slice_bytes)
     reps = passes if passes > 1 and ks > sa else 1
     if reps > 1:
         passes = 1
-    nbytes = (max(sa, 0) * slice_bytes + w_bytes + stage_bytes + (rows * V * 4 + 7) // 8 * 8
+    nbytes = (max(sa, 0) * slice_bytes + w_bytes + stage_bytes + tab * (rows * V * 4 + 7) // 8 * 8
               + (2 * sa + 2 * nw * sw) * 8 + 1024)
-    if sa < 2 or kp % K_STEP or kp < V * CHANNELS:
+    if sa < 2 or kp % K_STEP or kp < V * C or not 1 <= C <= MAX_CHANNELS:
         nbytes = 0
     return types.MappingProxyType(dict(nb=nb, nt=nt, mw=mw, nw=nw, ks=ks, passes=passes,
-                                       reps=reps, sa=sa, sw=sw, bytes=nbytes))
+                                       reps=reps, sa=sa, sw=sw, tab=tab, bytes=nbytes))
 
 
 def table_tensor(indices, device) -> torch.Tensor:
@@ -148,9 +155,9 @@ def _check_cuda_args(x, indices, weight, bias):
                          f"got {tuple(weight.shape)}")
     if dim % 8:
         raise NotImplementedError(f"dim must be a multiple of 8, got {dim}")
-    if C != CHANNELS:
-        raise NotImplementedError(f"the kernel takes {CHANNELS} channels, got {C}")
-    if embed_plan(indices.shape[0], V, kp, dim)["bytes"] == 0:
+    if not 1 <= C <= MAX_CHANNELS:
+        raise NotImplementedError(f"the kernel takes 1 to {MAX_CHANNELS} channels, got {C}")
+    if embed_plan(indices.shape[0], V, C, kp, dim)["bytes"] == 0:
         raise NotImplementedError(
             f"the kernel's tiles at V {V}, Kp {kp}, dim {dim} leave no room for its A ring in an "
             f"H100 block's {_SMEM_MAX} bytes of shared memory (embed_plan)")

@@ -70,7 +70,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                        ("svt_fused_block_cls", [P] * 19 + [I] * 8 + [F, I, P]),
                        ("svt_fused_block_int8", [P] * 25 + [I] * 8 + [F, I, P]),
                        ("svt_patch_embed", [P, I] + [P] * 4 + [I] * 7 + [I, P]),
-                       ("svt_patch_embed_smem", [I] * 4), ("svt_cls_fwd_route", [I] * 3),
+                       ("svt_patch_embed_smem", [I] * 5), ("svt_cls_fwd_route", [I] * 3),
                        ("svt_block_fused_mlp", [I] * 3), ("svt_error_string", [I])):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -139,10 +139,11 @@ def _patch_embed_cuda(x, indices, weight, bias):
     dim, kp = weight.shape
     _on_16("the patch-embed weight", weight)
     lib = library()
-    if lib.svt_patch_embed_smem(L, V, kp, dim) == 0:
+    if lib.svt_patch_embed_smem(L, V, C, kp, dim) == 0:
         raise NotImplementedError(
-            f"the kernel's tiles at V {V}, Kp {kp}, dim {dim} leave no room for its A ring in "
-            "an H100 block's shared memory (svt_patch_embed_smem)")
+            f"the kernel does not take C {C} channels, or its tiles at V {V}, Kp {kp}, dim "
+            f"{dim} leave no room for its A ring in an H100 block's shared memory "
+            "(svt_patch_embed_smem)")
     out = torch.empty((B, L, dim), dtype=weight.dtype, device=x.device)
     check(lib.svt_patch_embed(
         x.data_ptr(), int(x.dtype == torch.float32), indices.data_ptr(), weight.data_ptr(),

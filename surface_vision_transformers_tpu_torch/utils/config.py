@@ -233,10 +233,14 @@ class Experiment:
         return self.mpp is not None
 
 
-def _get(d: dict, path: str, default):
+def _get(d: dict, path: str, default=...):
+    """The value at dotted ``path``, else ``default``; a KeyError where
+    there is no default."""
     cur = d
     for key in path.split("."):
         if not isinstance(cur, dict) or key not in cur:
+            if default is ...:
+                raise KeyError(f"missing config key: {path}")
             return default
         cur = cur[key]
     return cur

@@ -196,6 +196,14 @@ def _int8_sit():
     return m.eval()
 
 
+def _subico1_sit():
+    """A narrow bf16 SiT on the sub-ico-1 table (80 patches of 561 vertices,
+    N = 81) at 3 channels: shapes the ETL writes."""
+    m = SiT(dim=32, depth=2, heads=2, mlp_dim=64, num_patches=80, num_vertices=561,
+            num_channels=3, patch_table=load_patch_table(6, 1).indices, dtype=torch.bfloat16)
+    return m.eval()
+
+
 def _small_mssit():
     table = load_patch_table(2, 1).indices
     return MSSiT(ico=2, patch_level=1, num_vertices=6, embed_dim=64, depths=(2, 2),
@@ -208,6 +216,7 @@ def _small_mssit():
     ("int8", "int8", {"patch_embed": 1, "fused_block_int8": 1, "fused_block_cls": 1}),
     ("mssit", None, {"patch_embed": 1, "fused_block": 4}),
     ("mssit", "int8", {"patch_embed": 1, "fused_block": 4}),  # no stage reaches 384
+    ("subico1", None, {"patch_embed": 1, "fused_block": 1, "fused_block_cls": 1}),
 ])
 def test_fused_artifact_holds_the_operators_fused_forward_calls(small, tmp_path, case, quant,
                                                                 want):
@@ -216,7 +225,8 @@ def test_fused_artifact_holds_the_operators_fused_forward_calls(small, tmp_path,
     times, and its outputs are that forward's on the same weights, bit for
     bit, at every listed batch size."""
     torch.manual_seed(0)
-    model = {"small": lambda: _small_bf16(small), "int8": _int8_sit, "mssit": _small_mssit}[case]()
+    model = {"small": lambda: _small_bf16(small), "int8": _int8_sit, "mssit": _small_mssit,
+             "subico1": _subico1_sit}[case]()
     meta = artifact.export_serving(model, tmp_path, batch_sizes=(1, 3), fused=True, quant=quant)
     assert meta["numerics"] == ("int8" if quant else "bf16-fused")
     assert meta["ops"] == {f"svt::{k}": want.get(k, 0) for k in svt_ops.SCHEMAS}
