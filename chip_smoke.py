@@ -366,6 +366,25 @@ programs of the ``svt::`` operators) and runs it without the package:
               control is printed only); four SGD steps of ``Trainer`` at
               sub-ico 1, B = 256, against the eager bf16 SiT under
               autograd (phase 7's gates and control).
+36. mesh   -- (a) ``cli.train`` on the SiT-tiny config (full width and depth,
+              bs 256, synthetic surfaces) plain and under ``torchrun
+              --standalone --nproc_per_node 1 ... --multihost`` (WORLD_SIZE=1,
+              NCCL): the final parameters bitwise equal, the step times side
+              by side; (b) DP over two gloo ranks sharing the card (``chip_smoke.py
+              --mesh-rank`` processes, CUDA tensors): SiT-tiny at bs 256, 128 a
+              rank, four steps on the fused kernels against the one-process
+              run (phase 7's loss and update gates), the control rank 1 given
+              rank 0's rows must fail; (c) TP (1,1,2) the same way on the
+              SiT-small config's model (3 of 6 heads a rank, the modular model,
+              ``flash_attention_qkv`` forward and backward) at bs 32, control rank 1's
+              share of one block's dW_fc1 zeroed; FSDP on SiT-tiny at
+              WORLD_SIZE=1 over NCCL (gloo ended FSDP2 and DTensor on CUDA
+              tensors with SIGSEGV, ``scripts/gloo_cuda_probe.py``; FSDP2
+              applied on the size-1 axis), control one block's dW_fc1 zeroed.
+              Each rank's launch counts against the expected ones; the times of
+              (b) and (c) are of processes sharing one card, not a scaling
+              figure. The kernels line gains ``fused_block_bwd DP rank`` (B =
+              128) and ``flash_attention_qkv_bwd TP rank`` (3 heads) rows.
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -6590,6 +6609,403 @@ def phase_preprocess(fb) -> dict:
     return rows
 
 
+# -- 36. mesh: the launch path, DP and TP over two ranks, FSDP2 over NCCL -------------
+
+MESH_STEPS = 4  # optimizer steps of each (b) / (c) run and of its one-process reference
+MESH_B = 256  # SiT-tiny's bs: 128 a rank under DP
+MESH_TP_B = 32  # SiT-small under TP: the whole batch on each rank, every block's two
+# activations all-reduced in float32 forward and backward through gloo's host copies
+MESH_TP_CFG = AUG_CFG  # sit_small_birth_age_native.yml: dim 384, 6 heads, 3 a rank
+MESH_ENTRY = (512, 64, 3)  # (a): train / validation surfaces, epochs (2 steps an epoch)
+# (mode, mesh shape, control): (b) DP and (c) TP on two gloo ranks sharing the card;
+# gloo's CUDA collectives carry both (raw all-reduce / all-gather). FSDP2 and DTensor
+# on gloo with CUDA tensors ended both processes with SIGSEGV
+# (scripts/gloo_cuda_probe.py), so (c)'s FSDP runs at WORLD_SIZE=1 over NCCL, FSDP2
+# applied on the size-1 'fsdp' axis; its two-rank check lives in the CPU tests.
+MESH_GLOO_RUNS = [("dp", (2, 1, 1), "rank 1 given rank 0's rows"),
+                  ("tp", (1, 1, 2), "rank 1's share of block 5's dW_fc1 zeroed")]
+MESH_NCCL_RUNS = [("fsdp", (1, 1, 1), "block 5's dW_fc1 zeroed")]
+
+
+def mesh_setup(mode):
+    """(exp, model on the card, two batches) of a phase-36 run: SiT-tiny (DP
+    on the fused kernels; FSDP on the modular model) or the SiT-small
+    config's model (TP, modular, MESH_TP_B a batch), seeded init, synthetic
+    raw surfaces. Under DP the labels lie in (-1, 1) and each batch is in
+    label order, so the two halves' rows pull the weights apart, which the
+    DP control needs; elsewhere the scan-age range, whose large residuals
+    keep the relative gates above bf16's rounding. Every process makes the
+    same ones."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    table = load_patch_table(6, 2).indices
+    B = MESH_TP_B if mode == "tp" else MESH_B
+    if mode == "tp":
+        exp = config.load_config(MESH_TP_CFG)
+        exp = dataclasses.replace(exp, augment=config.AugmentConfig(), fused_train=False,
+                                  training=dataclasses.replace(exp.training, bs=B))
+    else:
+        exp = config.Experiment(
+            model=config.ModelConfig(), training=config.TrainingConfig(bs=MESH_B),
+            data=config.DataConfig(), fused_train=mode == "dp",
+            optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = SiT.from_config(exp, patch_table=table).cuda()
+    kw = dict(label_range=(-1.0, 1.0)) if mode == "dp" else {}
+    data, labels = make_regression_dataset(2 * B, raw_vertices=40962, seed=SEED + 36, **kw)
+    order = (np.concatenate([s + np.argsort(labels[s:s + B]) for s in (0, B)])
+             if mode == "dp" else np.arange(2 * B))
+    data, labels = torch.from_numpy(data[order]).cuda(), torch.from_numpy(labels[order]).cuda()
+    return exp, model, [(data[s:s + B], labels[s:s + B]) for s in (0, B)]
+
+
+def mesh_run(trainer, batches, rows=None):
+    """MESH_STEPS optimizer steps on alternating batches, under a mesh on
+    this rank's ``rows`` -> (global losses, host-clock s a step over steps
+    2.., CUDA-event ms of each of those steps, every parameter's update,
+    whole)."""
+    start = {k: v.detach().float().clone() for k, v in trainer.model_state().items()}
+    B = batches[0][0].shape[0]
+    ones = torch.ones(B, device="cuda")
+    losses, events = [], []
+    for i in range(MESH_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i >= 1:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        xb, yb = batches[i % 2]
+        if trainer.layout is None:
+            loss = trainer.optimizer_step(xb, yb, ones)[0]
+        else:
+            loss = trainer.layout.all_reduce(trainer.optimizer_step(
+                xb[rows], yb[rows], ones[rows], total=B)[0].reshape(1))
+        losses.append(loss)
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (MESH_STEPS - 1)
+    end = trainer.model_state()
+    update = {k: (end[k].float() - v).cpu() for k, v in start.items()}
+    return ([float(v) for v in losses], step_s,
+            [a.elapsed_time(b) for a, b in zip(events, events[1:])], update)
+
+
+def mesh_worker(spec_file: str) -> None:
+    """One rank of phase 36's runs (``chip_smoke.py --mesh-rank SPEC``): the
+    process group from the spec (gloo, a file rendezvous) or from torchrun's
+    environment (NCCL); each run and its control, the launches this rank
+    made, saved to the spec's folder."""
+    spec = json.loads(Path(spec_file).read_text())
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from surface_vision_transformers_tpu_torch import parallel
+    from surface_vision_transformers_tpu_torch.ops import _native
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+    from surface_vision_transformers_tpu_torch.parallel.mesh import even_split
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    if spec["rdv"]:
+        rank = parallel.initialize_multihost(f"file://{spec['rdv']}", 2, spec["rank"],
+                                             backend="gloo")
+    else:
+        rank = parallel.initialize_multihost()
+    _native.library()
+    out = {"backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size()}
+    for mode, shape, _ in spec["runs"]:
+        t0 = time.perf_counter()
+        exp, model, batches = mesh_setup(mode)
+        B = batches[0][0].shape[0]
+        for label in ("run", "control"):
+            mesh = parallel.make_mesh(*shape, device_type="cuda")
+            trainer = Trainer(exp, copy.deepcopy(model),
+                              mesh=parallel.Layout(mesh, fsdp=True if mode == "fsdp" else None))
+            lay = trainer.layout
+            rows, _ = lay.batch_index_of(B)
+            if label == "control" and mode == "dp":
+                rows = even_split(B, 0, lay.batch_count)[0]  # rank 0's, on every rank
+            if label == "control" and mode != "dp" and rank == torch.distributed.get_world_size() - 1:
+                zero_grad_before_step(trainer, trainer.model.transformer.layers[5][1].fn.net[0])
+            counters = zero_counts(fb)
+            res = mesh_run(trainer, batches, torch.from_numpy(rows).cuda())
+            out[f"{mode} {label}"] = res + (read_counts(counters),)
+            del trainer
+            torch.cuda.empty_cache()
+        del model, batches
+        torch.cuda.empty_cache()
+        out[f"{mode} seconds"] = time.perf_counter() - t0
+    torch.save(out, Path(spec["out"]) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def zero_grad_before_step(trainer, linear) -> None:
+    """A control: this rank's share of ``linear``'s weight gradient zeroed
+    before every optimizer step (its slice under TP, its FSDP2 shard)."""
+    from torch.distributed.tensor import DTensor
+
+    step = trainer.optimizer.step
+
+    def zeroed():
+        g = linear.weight.grad
+        (g.to_local() if isinstance(g, DTensor) else g).zero_()
+        step()
+
+    trainer.optimizer.step = zeroed
+
+
+def mesh_workers(tmp: Path, runs, world: int, backend: str) -> list:
+    """Run ``runs`` in ``world`` worker processes of this script (gloo:
+    file rendezvous; nccl: torchrun's variables for one rank) -> each
+    rank's results."""
+    procs = []
+    rdv = tmp / "rdv"
+    port = None
+    if backend == "nccl":
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+    for r in range(world):
+        spec = tmp / f"spec{r}.json"
+        spec.write_text(json.dumps({"rdv": str(rdv) if backend == "gloo" else "", "rank": r,
+                                    "runs": runs, "out": str(tmp)}))
+        env = dict(os.environ)
+        if backend == "nccl":
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                       RANK=str(r), LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                       "--mesh-rank", str(spec)], cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"mesh rank {r} ({backend}) failed ({p.returncode}):\n{o[-4000:]}")
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def mesh_gate(label, run, plain, control, control_label) -> None:
+    """Phase 7's gate (``gate_runs``' tolerances: TRAIN_LOSS_TOL relative
+    loss a step, TRAIN_UPD_TOL on every parameter's update) of a mesh run
+    against its one-process reference; the control must fail it."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run[0], plain[0]))
+    c_loss = max(abs(a - b) / abs(b) for a, b in zip(control[0], plain[0]))
+    r, c = upd_ratio(run[3], plain[3]), upd_ratio(control[3], plain[3])
+    worst = sorted(upd_ratios(run[3], plain[3]).items(), key=lambda kv: -kv[1])[:3]
+    phase("mesh", f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0])
+          + "; one process " + " ".join(f"{v:.6g}" for v in plain[0]))
+    phase("mesh", f"{label}: max relative loss gap {loss_err:.4g} (tol {TRAIN_LOSS_TOL}); "
+          f"worst |update - one-process update| / max |one-process update| {r:.4g} (tol "
+          f"{TRAIN_UPD_TOL}; the worst three: " + ", ".join(f"{k} {v:.4g}" for k, v in worst)
+          + f"); control, {control_label}: {c:.4g} (must exceed the tol), loss gap {c_loss:.4g}")
+    if not all(math.isfinite(v) for v in run[0]) or loss_err > TRAIN_LOSS_TOL or r > TRAIN_UPD_TOL:
+        raise AssertionError(f"{label} disagrees with the one-process run")
+    if c <= TRAIN_UPD_TOL:
+        raise AssertionError(f"{label}: the control passed the gate")
+
+
+def mesh_entry() -> None:
+    """Phase 36 (a): ``cli.train`` on the SiT-tiny config, plain and under
+    torchrun --multihost (WORLD_SIZE=1, NCCL); final parameters bitwise
+    equal; the step times side by side."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+
+    n_train, n_val, epochs = MESH_ENTRY
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data, labels = make_regression_dataset(n_train + n_val, raw_vertices=40962,
+                                               seed=SEED + 37)
+        for split, sl in (("train", slice(0, n_train)), ("validation", slice(n_train, None))):
+            np.save(tmp / f"{split}_data.npy", data[sl])
+            np.save(tmp / f"{split}_labels.npy", labels[sl])
+        del data
+        sets = ["--set", f"data.data_path={tmp}", "--set", f"training.epochs={epochs}",
+                "--set", "training.val_epoch=1", "--set", "training.bs_val=64"]
+        runs = {}
+        for label, launcher in (("plain", []), ("multihost", [
+                "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"])):
+            extra = ["--multihost"] if launcher else []
+            cmd = [sys.executable, *(launcher or []),
+                   "-m", "surface_vision_transformers_tpu_torch.cli.train", str(TRAIN_CFG),
+                   *sets, "--set", f"logging.folder_to_save_model={tmp / label}", *extra,
+                   "--device", "cuda"]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if res.returncode:
+                raise AssertionError(f"cli.train ({label}) failed ({res.returncode}):\n"
+                                     f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+            out = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+            runs[label] = (out, time.perf_counter() - t0)
+        a = np.load(Path(runs["plain"][0]["run_dir"]) / "final_params.npz")
+        b = np.load(Path(runs["multihost"][0]["run_dir"]) / "final_params.npz")
+        same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+        moved = sum(int((a[k] != b[k]).sum()) for k in a.files if a[k].shape == b[k].shape)
+        steps = (epochs - 1) * math.ceil(n_train / MESH_B)
+        pg = runs["multihost"][0].get("process_group")
+        times = {k: v[0]["phases_s"]["train"] / steps * 1e3 for k, v in runs.items()}
+        phase("mesh", f"(a) cli.train {TRAIN_CFG.relative_to(ROOT)} (dim 192, depth 12, bs "
+              f"{MESH_B}) on {n_train} + {n_val} synthetic surfaces, {epochs} epochs: plain "
+              f"{runs['plain'][1]:.1f} s, under torchrun --multihost {runs['multihost'][1]:.1f} "
+              f"s, process group {pg}; best MAE {runs['plain'][0]['best_mae']:.6g} / "
+              f"{runs['multihost'][0]['best_mae']:.6g}; final parameters bitwise equal: {same} "
+              f"(elements that differ: {moved})")
+        phase("mesh", f"(a) step time, epochs 2..{epochs} ({steps} steps, host clock, "
+              f"phases_s['train'] / steps): plain {times['plain']:.3f} ms, --multihost "
+              f"{times['multihost']:.3f} ms ({times['multihost'] / times['plain']:.4f}x); "
+              f"{card()}")
+        if pg != {"backend": "nccl", "world_size": 1}:
+            raise AssertionError(f"--multihost did not join an NCCL group of one: {pg}")
+        if not same:
+            raise AssertionError("--multihost changed the training run")
+
+
+def mesh_dp_row(rng, fb, sit_module, launches) -> dict:
+    """The kernels line's DP row: ``fused_block_bwd`` at a DP rank's rows
+    (SiT-tiny, B = 128, N = 321) against its fp32 plain version, timed
+    beside the eager bf16 block's autograd backward; ``launches`` a rank's
+    in (b)."""
+    B, N = MESH_B // 2, N_TOKENS
+    p32 = [t.cuda() for t in block_params(rng, DIM, HEADS, MLP)]
+    pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p32]
+    pr = [t.float() for t in pb]
+    kw = dict(heads=HEADS, dim_head=DH)
+    x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, DIM)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    g = torch.from_numpy((G_SCALE * rng.standard_normal((B, N, DIM))).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    _, sv = fb.train_forward(x, *pb, valid_len=N, cls=False, **kw)
+    got = fb.fused_block_bwd(x, g, *pb, saved=sv, valid_len=N, **kw)
+    ref32 = fb.fused_block_bwd_reference(x.float(), g.float(), *pr, valid_len=N, **kw)
+    r32, err = grad_bound_ratio(got, ref32, N)
+    k_ms = cuda_ms(lambda: fb.fused_block_bwd(x, g, *pb, saved=sv, valid_len=N, **kw))
+    e_ms = eager_backward_ms(sit_module, p32, x, g, HEADS, DIM, MLP, False)
+    b_ms, b_by = bound_ms(block_flops(B, N, N, DIM, HEADS, MLP, False)[1],
+                          nbytes_of(x, g, *pb, *got))
+    phase("mesh", f"DP row: fused_block_bwd SiT-tiny B={B} N={N} (a DP rank's rows): worst "
+          f"|err|/bound vs fp32 plain {r32:.4g} (bound {BWD_STEPS} bf16 steps), max abs err "
+          f"{err:.6g}; kernel {k_ms:.4f} ms, eager bf16 block autograd backward {e_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by}; launches a rank in (b) {launches}")
+    if r32 > 1:
+        raise AssertionError("fused_block_bwd at a DP rank's rows disagrees with its plain version")
+    return {"name": "fused_block_bwd DP rank", "route": "cuda", "source": BWD_SOURCE,
+            "replaces": REPLACES["fused_block_bwd"], "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": e_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def mesh_tp_row(rng, launches) -> dict:
+    """The kernels line's TP row: ``flash_attention_qkv_bwd`` on a TP rank's
+    3 of SiT-small's 6 heads (B = MESH_TP_B, N = 321) against its fp32
+    plain version, timed beside the plain backward and SDPA's; ``launches``
+    a rank's in (c)."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    B, N = MESH_TP_B, N_TOKENS
+    qkv, do = packed_qkv(rng, B, N)  # SiT-tiny's 3 heads of 64: a TP rank's share
+    o, lse = fa.flash_attention_qkv_fwd(qkv, HEADS)
+    got = fa.flash_attention_qkv_bwd(qkv, o, lse, do, HEADS)
+    ref32 = qkv_plain(fa, qkv, do, N, torch.float32)
+    r32 = step_ratio([o, got], ref32, ref32)
+    err = (got.float() - ref32[1]).abs().max().item()
+    q, k, v = fa.split_qkv(qkv, HEADS)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+    k_ms = device_ms(lambda: fa.flash_attention_qkv_bwd(qkv, o, lse, do, HEADS))
+    p_ms = cuda_ms(lambda: fa.flash_attention_qkv_bwd_reference(qkv, o, lse, do, HEADS), reps=3)
+    s_ms = device_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), heads4(do),
+                                                 retain_graph=True))
+    bound = attention_bound(B, HEADS, N, N, (qkv, o, lse), (qkv, o, lse, do, got))[1]
+    phase("mesh", f"TP row: flash_attention_qkv_bwd B={B} N={N}, 3 heads (a TP rank's share "
+          f"of SiT-small's 6): worst |err|/bound over o, dqkv vs fp32 plain {r32:.4g}, max abs "
+          f"err {err:.6g}; kernel {k_ms:.4f} ms, plain {p_ms:.4f}, SDPA {s_ms:.4f}, bound "
+          f"{bound[0]:.4f} ms by {bound[1]}; launches a rank in (c) {launches}")
+    if r32 > 1:
+        raise AssertionError("flash_attention_qkv_bwd at a TP rank's heads disagrees")
+    row = kernel_row("flash_attention_qkv_bwd TP rank", 427, err, k_ms, p_ms, bound, s_ms)
+    row["launches"] = launches
+    return row
+
+
+def phase_mesh(rng, fb, sit_module) -> dict:
+    """Phase 36: (a) the launch path; (b) DP over two gloo ranks sharing
+    the card on the fused kernels and (c) TP on them, FSDP2 at WORLD_SIZE=1
+    over NCCL, each four steps against its one-process run with a control
+    that must fail -> the DP and TP rows of the kernels line."""
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    mesh_entry()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "gloo").mkdir()
+        (tmp / "nccl").mkdir()
+        t0 = time.perf_counter()
+        gloo = mesh_workers(tmp / "gloo", MESH_GLOO_RUNS, 2, "gloo")
+        t_gloo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = mesh_workers(tmp / "nccl", MESH_NCCL_RUNS, 1, "nccl")
+        t_nccl = time.perf_counter() - t0
+    phase("mesh", f"(b)/(c) two ranks over {gloo[0]['backend']} on one card in {t_gloo:.1f} s; "
+          f"FSDP over {nccl[0]['backend']} at world size {nccl[0]['world']} in {t_nccl:.1f} s "
+          "(gloo ended FSDP2 and DTensor on CUDA tensors with SIGSEGV: "
+          "scripts/gloo_cuda_probe.py; FSDP's two-rank check runs on the CPU, "
+          "tests/test_torch_parallel.py)")
+    want = {"dp": dict(fused_block=11 * MESH_STEPS, fused_block_cls=MESH_STEPS,
+                       fused_block_bwd=11 * MESH_STEPS, fused_block_cls_bwd=MESH_STEPS,
+                       patch_embed=MESH_STEPS, **{"flash_attention_bwd 8 queries": MESH_STEPS,
+                                                  FEW_FWD: MESH_STEPS}),
+            "modular": dict(flash_attention_qkv=12 * MESH_STEPS,
+                            flash_attention_qkv_bwd=12 * MESH_STEPS, patch_embed=MESH_STEPS)}
+    per_rank = {}
+    for results, runs in ((gloo, MESH_GLOO_RUNS), (nccl, MESH_NCCL_RUNS)):
+        for mode, shape, control in runs:
+            exp, model, batches = mesh_setup(mode)
+            counters = zero_counts(fb)
+            plain = mesh_run(Trainer(exp, copy.deepcopy(model)), batches)
+            one = read_counts(counters)
+            del model, batches
+            torch.cuda.empty_cache()
+            label = {"dp": "(b) DP", "tp": "(c) TP", "fsdp": "(c) FSDP"}[mode]
+            mesh_gate(f"{label} {shape} over {results[0]['backend']}", results[0][f"{mode} run"],
+                      plain, results[0][f"{mode} control"], control)
+            expect = {k: 0 for k in one}
+            expect.update(want["dp" if mode == "dp" else "modular"])
+            ranks = [r[f"{mode} run"][4] for r in results]
+            phase("mesh", f"{label}: launches each rank {ranks}, one process {one}, expected "
+                  f"each {expect}; both runs (run, control) of the mode in "
+                  f"{results[0][f'{mode} seconds']:.1f} s a process")
+            for r in ranks + [one]:
+                if r != expect:
+                    raise AssertionError(f"{label}: the kernels were not launched as expected")
+            step = [np.median(r[f"{mode} run"][2]) for r in results]
+            phase("mesh", f"{label}: step time, steps 2..{MESH_STEPS} (CUDA-event median a "
+                  f"rank: " + ", ".join(f"{v:.3f}" for v in step) + " ms; host clock "
+                  + ", ".join(f"{r[f'{mode} run'][1] * 1e3:.3f}" for r in results)
+                  + f" ms) -- {len(results)} process(es) on one card, not a scaling figure; "
+                  f"one process {np.median(plain[2]):.3f} ms; {card()}")
+            per_rank[mode] = ranks[0]
+    return {"fused_block_bwd DP rank": mesh_dp_row(rng, fb, sit_module,
+                                                   per_rank["dp"]["fused_block_bwd"]),
+            "flash_attention_qkv_bwd TP rank": mesh_tp_row(
+                rng, per_rank["tp"]["flash_attention_qkv_bwd"])}
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Median host-clock time in ms to enqueue one call of ``fn`` on an
     idle card (synchronised before each call, not inside it)."""
@@ -6992,6 +7408,10 @@ def main() -> None:
     start("preprocess")
     for name, n in phase_preprocess(fb).items():
         kernels[name]["launches"] = n
+
+    # -- 36. mesh (every count zeroed just before each run, in each rank)
+    start("mesh")
+    kernels.update(phase_mesh(rng, fb, sit_module))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)
@@ -7001,4 +7421,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 36's runs
+        mesh_worker(sys.argv[2])
+    else:
+        main()

@@ -1,12 +1,15 @@
 """Shared CLI plumbing: ``python -m surface_vision_transformers_tpu_torch.cli.
-<tool> <config> [--set dotted.key=value ...] [--device DEV]`` (train and
-pretrain also ``[--resume RUN_DIR]``; preprocess, which runs on the host,
-without ``--device``), the JAX package's positional-config UX plus an
-explicit device."""
+<tool> <config> [--set dotted.key=value ...] [--device DEV] [--multihost]``
+(train and pretrain also ``[--resume RUN_DIR]``; preprocess, which runs on
+the host, without ``--device`` or ``--multihost``), the JAX package's
+positional-config UX plus an explicit device. ``--multihost`` joins the
+process group (``parallel.initialize_multihost``, torchrun's environment)
+before the runner, and leaves it at exit."""
 
 from __future__ import annotations
 
 import argparse
+import atexit
 
 from surface_vision_transformers_tpu_torch.utils.config import read_config_file
 
@@ -52,10 +55,29 @@ def parse_config(description: str, argv=None, with_resume: bool = False,
             "--device", default="cuda",
             help="torch device to run on (default cuda; there is no fallback "
             "when it is missing)")
+        p.add_argument(
+            "--multihost", action="store_true",
+            help="join the torch.distributed process group first (one process a "
+            "GPU, e.g. under torchrun; rank, world size and address from its "
+            "environment); tpu.mesh_* then lays the run out over the ranks")
     args = p.parse_args(argv)
     raw = apply_overrides(read_config_file(args.config), args.set)
     if not with_device:
         return raw
+    if args.multihost:
+        start_multihost()
     if with_resume:
         return raw, args.device, args.resume
     return raw, args.device
+
+
+def start_multihost() -> None:
+    """``initialize_multihost()``; a group it made is destroyed at exit."""
+    import torch.distributed as dist
+
+    from surface_vision_transformers_tpu_torch.parallel import initialize_multihost
+
+    joined = dist.is_initialized()
+    initialize_multihost()
+    if dist.is_initialized() and not joined:
+        atexit.register(dist.destroy_process_group)

@@ -1,16 +1,17 @@
 """MPP pretraining CLI::
 
     python -m surface_vision_transformers_tpu_torch.cli.pretrain mpp.yml \
-        [--set training.epochs=10] [--device cuda] [--resume RUN_DIR]
+        [--set training.epochs=10] [--device cuda] [--resume RUN_DIR] [--multihost]
 
 Forces the MPP task (``SSL: mpp``), runs ``train.runner.run_training`` and
-prints its results dict; the run folder under
+prints its results dict (``--multihost``: as ``cli.train``); the run folder under
 ``logging.folder_to_save_model`` gets ``best_params.npz`` and
 ``encoder_best_params.npz`` (the encoder alone, for ``cli.train`` with
 ``training.load_weights_ssl``).
 """
 
 from surface_vision_transformers_tpu_torch.cli._common import parse_config
+from surface_vision_transformers_tpu_torch.parallel.multihost import is_primary
 
 
 def main(argv=None) -> None:
@@ -21,7 +22,9 @@ def main(argv=None) -> None:
     from surface_vision_transformers_tpu_torch.train.runner import run_training
     from surface_vision_transformers_tpu_torch.utils.config import from_dict
 
-    print(run_training(from_dict(raw), device=device, resume_from=resume))
+    results = run_training(from_dict(raw), device=device, resume_from=resume)
+    if is_primary():
+        print(results)
 
 
 if __name__ == "__main__":

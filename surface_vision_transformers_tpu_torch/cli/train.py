@@ -1,13 +1,22 @@
 """Supervised training CLI::
 
     python -m surface_vision_transformers_tpu_torch.cli.train cfg.yml \
-        [--set training.epochs=10] [--device cuda] [--resume RUN_DIR]
+        [--set training.epochs=10] [--device cuda] [--resume RUN_DIR] [--multihost]
 
-Runs ``train.runner.run_training`` and prints its results dict; the run
-folder lands under ``logging.folder_to_save_model``.
+Under torchrun, with ``--multihost``, every rank trains its share of each
+batch on the mesh ``tpu.mesh_{data,fsdp,model}`` lays out (data
+parallelism over every rank by default)::
+
+    torchrun --nproc_per_node N -m surface_vision_transformers_tpu_torch.cli.train \
+        cfg.yml --multihost [--set tpu.mesh_fsdp=N | --set tpu.mesh_model=N]
+
+Runs ``train.runner.run_training`` and prints its results dict (rank 0
+alone under several processes); the run folder lands under
+``logging.folder_to_save_model``.
 """
 
 from surface_vision_transformers_tpu_torch.cli._common import parse_config
+from surface_vision_transformers_tpu_torch.parallel.multihost import is_primary
 
 
 def main(argv=None) -> None:
@@ -20,7 +29,9 @@ def main(argv=None) -> None:
     exp = from_dict(raw)
     if exp.is_pretraining:
         raise SystemExit("config contains a pretraining_mpp block; use cli.pretrain")
-    print(run_training(exp, device=device, resume_from=resume))
+    results = run_training(exp, device=device, resume_from=resume)
+    if is_primary():
+        print(results)
 
 
 if __name__ == "__main__":

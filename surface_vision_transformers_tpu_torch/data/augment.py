@@ -73,6 +73,12 @@ class Draws:
     on: torch.Tensor | None = None
     table: torch.Tensor | None = None
 
+    def take(self, rows: torch.Tensor) -> "Draws":
+        """The draws of samples ``rows`` of the batch (a rank's rows under a
+        mesh: the global batch's draws, cut)."""
+        return Draws(rot=self.rot[rows], on=None if self.on is None else self.on[rows],
+                     table=None if self.table is None else self.table[rows])
+
 
 class SurfaceAugment:
     """Precomputed augmentation tables and their application.

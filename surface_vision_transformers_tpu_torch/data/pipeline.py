@@ -1,5 +1,5 @@
 """Host-streaming input (counterpart of ``surface_vision_transformers_tpu.
-data.pipeline.StreamingLoader``, without meshes).
+data.pipeline.StreamingLoader``).
 
 ``StreamingLoader`` iterates shuffled, weight-padded batches of a
 host-resident split (a plain array or a read-only np.memmap, which is never
@@ -7,6 +7,10 @@ read whole) in the JAX loader's order: epoch e permutes the rows with numpy's
 ``default_rng(seed + e)``, batch s takes rows [s*bs, (s+1)*bs) of the
 permutation, and the last batch is padded with row 0 at weight 0.
 ``set_epoch`` aligns the order with an epoch index, as a resumed run needs.
+Under a mesh (``layout``) each rank stages only its rows of every global
+batch (``parallel.Layout.batch_index_of``, its share of each of
+``accum`` microbatches, padding at weight 0), in the single process's
+order.
 
 On a CUDA device a background thread stages each batch: its rows are
 gathered on the host (in chunks, on a pool of threads) into one of two
@@ -63,7 +67,7 @@ class StreamingLoader:
 
     def __init__(self, data: np.ndarray, targets: Optional[np.ndarray] = None, *,
                  batch_size: int, shuffle: bool = True, seed: int = 0,
-                 device="cpu"):
+                 device="cpu", layout=None, accum: int = 1):
         if targets is not None and data.shape[0] != targets.shape[0]:
             raise ValueError(f"{data.shape[0]} samples vs {targets.shape[0]} targets")
         self.data = data
@@ -72,6 +76,7 @@ class StreamingLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.device = torch.device(device)
+        self.layout, self.accum = layout, accum
         self.wait_s = 0.0
         self._epoch = 0
         self._slots = None
@@ -91,7 +96,7 @@ class StreamingLoader:
 
     def plan(self, epoch: int) -> list[tuple[np.ndarray, np.ndarray]]:
         """The (row indices (bs,), weights (bs,)) of every batch of epoch
-        ``epoch``."""
+        ``epoch``; under a mesh this rank's rows of each."""
         n, bs = self.num_samples, self.batch_size
         order = np.arange(n)
         if self.shuffle:
@@ -104,6 +109,9 @@ class StreamingLoader:
                 w[idx.size:] = 0.0
                 idx = np.concatenate([idx, np.zeros(bs - idx.size, idx.dtype)])
             out.append((idx, w))
+        if self.layout is not None:
+            rows, valid = self.layout.batch_index_of(bs, self.accum)
+            out = [(idx[rows], w[rows] * valid) for idx, w in out]
         return out
 
     def _gather_pool(self) -> ThreadPoolExecutor:
@@ -137,6 +145,8 @@ class StreamingLoader:
 
     def _make_slots(self) -> list[dict]:
         bs, dev = self.batch_size, self.device
+        if self.layout is not None:  # this rank's rows of a batch
+            bs = len(self.layout.batch_index_of(bs, self.accum)[0])
         shapes = {"x": (bs, *self.data.shape[1:]), "w": (bs,)}
         if self.targets is not None:
             shapes["t"] = (bs,)

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target
+from surface_vision_transformers_tpu_torch.models.mpp import MPP, mpp_target, rows_kw
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.ops.attention import kernel_route
@@ -232,6 +232,27 @@ def prepare_weights(model: SiT, quant: str | None = None,
     )
 
 
+def pure_dp(mesh) -> bool:
+    """Whether only the 'data' axis of ``mesh`` (a ``DeviceMesh``) is
+    nontrivial: weights replicated, the batch split (the JAX package's
+    ``_pure_dp``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if not names:
+        return False
+    shape = dict(zip(names, mesh.mesh.shape))
+    return "data" in shape and all(int(v) == 1 for k, v in shape.items() if k != "data")
+
+
+def check_mesh(mesh) -> None:
+    """The fused paths run under no mesh or a pure-DP one, where each rank
+    runs them on its rows with the replicated weights; FSDP and TP meshes
+    take the modular model."""
+    if mesh is not None and not pure_dp(mesh):
+        raise NotImplementedError(
+            "fused paths under a mesh require pure DP with the batch divisible by the data "
+            "axis; use the modular model")
+
+
 def fused_forward(
     model: SiT, x: torch.Tensor, weights: FusedWeights | None = None, *,
     mesh=None, quant: str | None = None, scan_blocks: bool = False,
@@ -244,8 +265,7 @@ def fused_forward(
     plain versions."""
     if quant not in QUANTS:
         raise ValueError(f"unknown quant mode {quant!r}")
-    if mesh is not None:
-        raise NotImplementedError("fused_forward under a mesh is not ported yet")
+    check_mesh(mesh)
     if scan_blocks:
         raise NotImplementedError("scan_blocks is not ported")
     w = weights if weights is not None else prepare_weights(model, quant)
@@ -281,8 +301,7 @@ def fused_train_forward(model: SiT, x: torch.Tensor, *, mesh=None,
     ``fused_block_train`` (the last ``fused_block_cls_train`` under CLS
     pooling): kernels forward and backward on CUDA, plain versions on the
     CPU."""
-    if mesh is not None:
-        raise NotImplementedError("fused_train_forward under a mesh is not ported yet")
+    check_mesh(mesh)
     if scan_blocks:
         raise NotImplementedError("scan_blocks is not ported")
     dt = model.dtype
@@ -348,9 +367,10 @@ class _MaskedMSERecon(torch.autograd.Function):
 
 
 def fused_mpp_loss(mpp: MPP, batch, generator=None, sample_weights=None, *,
-                   corruption=None) -> torch.Tensor:
+                   corruption=None, rows=None) -> torch.Tensor:
     """The MPP loss of ``mpp.forward`` over the fused-block encoder, for
-    training: corruption (from ``generator``, or ``corruption`` = (corrupted,
+    training: corruption (from ``generator``, this rank's ``rows`` of the
+    global batch's draws under a mesh, or ``corruption`` = (corrupted,
     mask, n_masked) given), the shared embedding, every block
     ``fused_block_train``, the reconstruction head and the masked MSE over
     B * n_masked * patch_dim (B the weight sum under ``sample_weights``), as
@@ -359,7 +379,7 @@ def fused_mpp_loss(mpp: MPP, batch, generator=None, sample_weights=None, *,
     dt = enc.dtype
     target = mpp_target(enc, batch)
     corrupted, mask, n_masked = (corruption if corruption is not None
-                                 else mpp.corrupt(target, generator))
+                                 else mpp.corrupt(target, generator, **rows_kw(rows)))
     lin = enc.to_patch_embedding[1]
     tokens = F.linear(corrupted.to(dt), lin.weight.to(dt), lin.bias.to(dt))
     h = _fused_encoder_blocks(enc, enc.embed_tokens(tokens))[:, 1:]

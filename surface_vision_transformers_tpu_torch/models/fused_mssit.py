@@ -54,6 +54,7 @@ from surface_vision_transformers_tpu_torch.models.fused import (
     mat,
     vec,
 )
+from surface_vision_transformers_tpu_torch.models.mpp import rows_kw
 from surface_vision_transformers_tpu_torch.models.mpp_mssit import (
     MPPMSSiT,
     corruption_window,
@@ -139,8 +140,7 @@ def prepare_mssit_weights(model: MSSiT, quant: str | None = None,
 
 
 def _unported(mesh, scan_blocks) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the fused MS-SiT paths under a mesh are not ported yet")
+    fused.check_mesh(mesh)
     if scan_blocks:
         raise NotImplementedError("scan_blocks is not ported")
 
@@ -212,7 +212,8 @@ def fused_mssit_train_forward(model: MSSiT, x: torch.Tensor, *, mesh=None,
 
 
 def fused_mssit_mpp_loss(mpp: MPPMSSiT, batch, generator=None, sample_weights=None, *,
-                         corruption=None, mesh=None, scan_blocks: bool = False):
+                         corruption=None, mesh=None, scan_blocks: bool = False,
+                         rows=None):
     """The masked-window MPP loss of ``mpp.forward`` over the fused-block
     encoder, for training (the JAX ``fused_mssit_mpp_loss``): the
     corruption (from ``generator``, or ``corruption`` = (corrupted, mask,
@@ -230,7 +231,7 @@ def fused_mssit_mpp_loss(mpp: MPPMSSiT, batch, generator=None, sample_weights=No
     target = mpp.target(batch)
     W = corruption_window(enc)
     corrupted, mask, n_masked = (corruption if corruption is not None
-                                 else mpp.corrupt(target, generator))
+                                 else mpp.corrupt(target, generator, **rows_kw(rows)))
     feats = _train_stages(enc, enc.embed(corrupted))
     B, T_last = feats.shape[:2]
     up = enc.num_patches // T_last

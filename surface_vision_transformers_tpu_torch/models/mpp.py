@@ -33,36 +33,53 @@ from surface_vision_transformers_tpu_torch.ops.patchify import (
     patchify,
     rearrange_patched,
 )
+from surface_vision_transformers_tpu_torch.parallel.tp import copy_to, reduce_from
+
+
+def rows_kw(rows) -> dict:
+    """``{'rows': rows}`` under a mesh, else nothing: a single-process
+    corruption keeps its call as it was."""
+    return {} if rows is None else {"rows": rows}
+
+
+def draw(fn, shape, rows=None) -> torch.Tensor:
+    """``fn(shape)``; with ``rows`` (a ``parallel.Rows``) drawn at the
+    global batch's shape and cut to the rank's rows."""
+    return fn(shape) if rows is None else rows.draw(fn, shape)
 
 
 def exact_count_mask(batch: int, seq_len: int, prob: float, *, generator,
-                     device=None):
+                     device=None, rows=None):
     """(batch, seq_len) bool with exactly ceil(prob * seq_len) True per row,
     the positions uniform (the top-k of uniform draws). -> (mask,
     n_masked)."""
     n_masked = math.ceil(prob * seq_len)
-    rand = torch.rand((batch, seq_len), generator=generator, device=device)
+    rand = draw(lambda s: torch.rand(s, generator=generator, device=device),
+                (batch, seq_len), rows)
     idx = rand.topk(n_masked, dim=1).indices
     mask = torch.zeros((batch, seq_len), dtype=torch.bool, device=device)
     return mask.scatter_(1, idx, True), n_masked
 
 
 def corrupt_sequence(tokens, mask_token, *, mask_prob: float, replace_prob: float,
-                     swap_prob: float, generator):
+                     swap_prob: float, generator, rows=None):
     """Corrupt (B, L, D) patch tokens. -> (corrupted (B, L, D), mask (B, L)
-    bool, n_masked). Positions outside the mask are never touched."""
+    bool, n_masked). Positions outside the mask are never touched. With
+    ``rows`` every draw is the global batch's, cut to the rank's rows."""
     B, L, D = tokens.shape
     dev = tokens.device
 
     def uniform():
-        return torch.rand((B, L), generator=generator, device=dev)
+        return draw(lambda s: torch.rand(s, generator=generator, device=dev), (B, L), rows)
 
-    mask, n_masked = exact_count_mask(B, L, mask_prob, generator=generator, device=dev)
+    mask, n_masked = exact_count_mask(B, L, mask_prob, generator=generator, device=dev,
+                                      rows=rows)
     corrupted = tokens
     if swap_prob > 0:
         # replace_prob == 1 is reachable; every masked token is replaced then
         swap_sel = mask & (uniform() < swap_prob / max(1.0 - replace_prob, 1e-9))
-        rand_idx = torch.randint(0, L, (B, L), generator=generator, device=dev)
+        rand_idx = draw(lambda s: torch.randint(0, L, s, generator=generator, device=dev),
+                        (B, L), rows)
         idx = torch.where(swap_sel, rand_idx, torch.arange(L, device=dev))
         corrupted = corrupted.gather(1, idx[:, :, None].expand(B, L, D))
     repl_sel = mask & (uniform() < replace_prob)
@@ -115,6 +132,7 @@ class MPP(nn.Module):
         self.mask_prob, self.replace_prob, self.swap_prob = mask_prob, replace_prob, swap_prob
         self.mask_token = nn.Parameter(torch.randn(1, 1, encoder.patch_dim))
         self.to_original = nn.Linear(encoder.dim, encoder.patch_dim)
+        self.tp = None  # a ``parallel.tp.TPGroup``: the decoder's outputs split
 
     @property
     def encoder(self) -> SiT:
@@ -123,26 +141,35 @@ class MPP(nn.Module):
     def target(self, batch):
         return mpp_target(self.transformer, batch)
 
-    def corrupt(self, target, generator):
+    def corrupt(self, target, generator, rows=None):
         return corrupt_sequence(target, self.mask_token, mask_prob=self.mask_prob,
                                 replace_prob=self.replace_prob, swap_prob=self.swap_prob,
-                                generator=generator)
+                                generator=generator, **rows_kw(rows))
 
     def forward(self, batch, generator=None, *, rng: DropoutRNG | None = None,
-                fixed_mask=None, fixed_corrupted=None, sample_weights=None):
-        """``generator`` draws the corruption; ``fixed_mask`` /
-        ``fixed_corrupted`` give it instead (the loss then divides by the
-        mask's own count); ``rng`` turns dropout on."""
+                fixed_mask=None, fixed_corrupted=None, sample_weights=None, rows=None):
+        """``generator`` draws the corruption (``rows``: this rank's rows of
+        the global batch's draws); ``fixed_mask`` / ``fixed_corrupted`` give
+        it instead (the loss then divides by the mask's own count); ``rng``
+        turns dropout on. Under tensor parallelism the loss is whole and the
+        reconstruction the rank's columns."""
         enc = self.transformer
         target = self.target(batch)
         if fixed_mask is not None:
             mask, corrupted, n_masked = fixed_mask, fixed_corrupted, None
         else:
-            corrupted, mask, n_masked = self.corrupt(target, generator)
+            corrupted, mask, n_masked = self.corrupt(target, generator, **rows_kw(rows))
         lin = enc.to_patch_embedding[1]
         tokens = F.linear(corrupted.to(enc.dtype), lin.weight.to(enc.dtype),
                           lin.bias.to(enc.dtype))
-        h = enc.transformer(enc.embed_tokens(tokens, rng=rng), rng=rng)
-        recon = F.linear(h[:, 1:].float(), self.to_original.weight.float(),
+        h = enc.transformer(enc.embed_tokens(tokens, rng=rng), rng=rng)[:, 1:].float()
+        tp = self.tp
+        if tp is None:
+            recon = F.linear(h, self.to_original.weight.float(), self.to_original.bias.float())
+            return masked_mse(recon, target, mask, n_masked, sample_weights), recon
+        c0, c1, _ = tp.cols(enc.patch_dim)
+        recon = F.linear(copy_to(h, tp), self.to_original.weight.float(),
                          self.to_original.bias.float())
-        return masked_mse(recon, target, mask, n_masked, sample_weights), recon
+        part = masked_mse(recon, target[..., c0:c1], mask, n_masked, sample_weights)
+        # each rank's share divides by its own D / model columns
+        return reduce_from(part, tp) / tp.size, recon

@@ -34,9 +34,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from surface_vision_transformers_tpu_torch.models.mpp import (
+    draw,
     exact_count_mask,
     masked_mse,
     mpp_target,
+    rows_kw,
 )
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG
@@ -59,24 +61,31 @@ def corruption_window(model: MSSiT) -> int:
 
 
 def corrupt_window_sequence(target, mask_token, *, window: int, mask_prob: float,
-                            replace_prob: float, swap_prob: float, generator):
+                            replace_prob: float, swap_prob: float, generator, rows=None):
     """Corrupt (B, T, P) finest-grid patch tokens a window at a time. ->
     (corrupted (B, T, P), mask (B, T) bool, constant on each window,
     n_masked windows a sample). Windows outside the mask are never
-    touched."""
+    touched. With ``rows`` every draw is the global batch's, cut to the
+    rank's rows."""
     B, T, P = target.shape
     W = min(window, T)
     nW, dev = T // W, target.device
-    wmask, n_masked = exact_count_mask(B, nW, mask_prob, generator=generator, device=dev)
+
+    def uniform():
+        return draw(lambda s: torch.rand(s, generator=generator, device=dev), (B, nW), rows)
+
+    wmask, n_masked = exact_count_mask(B, nW, mask_prob, generator=generator, device=dev,
+                                       rows=rows)
     wins = target.reshape(B, nW, W * P)
     if swap_prob > 0:
         # replace_prob == 1 is reachable; every masked window is replaced then
         swap_rate = swap_prob / max(1.0 - replace_prob, 1e-9)
-        swap_sel = wmask & (torch.rand((B, nW), generator=generator, device=dev) < swap_rate)
-        rand_idx = torch.randint(0, nW, (B, nW), generator=generator, device=dev)
+        swap_sel = wmask & (uniform() < swap_rate)
+        rand_idx = draw(lambda s: torch.randint(0, nW, s, generator=generator, device=dev),
+                        (B, nW), rows)
         idx = torch.where(swap_sel, rand_idx, torch.arange(nW, device=dev))
         wins = wins.gather(1, idx[:, :, None].expand(B, nW, W * P))
-    repl_sel = wmask & (torch.rand((B, nW), generator=generator, device=dev) < replace_prob)
+    repl_sel = wmask & (uniform() < replace_prob)
     token = mask_token.reshape(1, 1, P).to(wins.dtype).repeat(1, 1, W)
     corrupted = torch.where(repl_sel[:, :, None], token, wins).reshape(B, T, P)
     return corrupted, wmask.repeat_interleave(W, dim=1), n_masked
@@ -112,14 +121,14 @@ class MPPMSSiT(nn.Module):
     def target(self, batch):
         return mssit_target_tokens(self.encoder, batch)
 
-    def corrupt(self, target, generator):
+    def corrupt(self, target, generator, rows=None):
         return corrupt_window_sequence(
             target, self.mask_token, window=corruption_window(self.encoder),
             mask_prob=self.mask_prob, replace_prob=self.replace_prob,
-            swap_prob=self.swap_prob, generator=generator)
+            swap_prob=self.swap_prob, generator=generator, **rows_kw(rows))
 
     def forward(self, batch, generator=None, *, rng: DropoutRNG | None = None,
-                fixed_mask=None, fixed_corrupted=None, sample_weights=None):
+                fixed_mask=None, fixed_corrupted=None, sample_weights=None, rows=None):
         """``generator`` draws the corruption; ``fixed_mask`` /
         ``fixed_corrupted`` give it instead (the loss then counts the mask);
         ``rng`` turns dropout on."""
@@ -129,7 +138,7 @@ class MPPMSSiT(nn.Module):
         if fixed_mask is not None:
             mask, corrupted, n_tokens = fixed_mask, fixed_corrupted, None
         else:
-            corrupted, mask, n_masked = self.corrupt(target, generator)
+            corrupted, mask, n_masked = self.corrupt(target, generator, **rows_kw(rows))
             n_tokens = n_masked * W
         feats = enc(corrupted, rng=rng, features=True)
         recon = F.linear(feats.float(), self.to_original.weight.float(),

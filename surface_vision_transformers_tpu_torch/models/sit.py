@@ -21,15 +21,24 @@ Attention (``Attention``, after the JAX ``Attention``): with
 when dropout is on, ``multi_head_attention`` (the tiled entry) beyond
 ``MAX_PACKED_SEQ`` tokens; ``"plain"``, float32 compute and CPU tensors take
 ``plain_attention``. The sequence is not padded (the kernels mask ragged
-edges), so there is no ``seq_pad``; meshes and sequence sharding are not
+edges), so there is no ``seq_pad``. Under tensor parallelism
+(``parallel.tp``: ``Attention.tp`` / ``FeedForward.tp`` set) each rank
+computes its H / model heads -- through ``flash_attention_qkv[_dropout]``,
+the kernels on CUDA bfloat16 and their plain versions on the CPU -- and
+its share of the MLP's hidden units, and each branch's partial products
+are summed over the 'model' axis before the bias. Sequence sharding is not
 ported.
 
 Dropout (``dropout``, ``emb_dropout``) sits where the reference has it: on
 the attention probabilities, after the out-projection, after the GELU,
 after fc2, and after the positions. It is on only when a forward gets a
 ``DropoutRNG`` (the JAX ``deterministic=False`` with a dropout rng), which
-draws every mask and kernel seed from explicit generators. Serving and the
-fused training path run ``models.fused``.
+draws every mask and kernel seed from explicit generators. Under a mesh
+(``DropoutRNG.rows`` set) each mask is drawn at the global batch's shape
+and the rank keeps its rows, so the masks are the single process's; the
+attention kernel's seed is offset by the rank's shard (``salt``), as the
+JAX package offsets it, so its masks differ from the single process's and
+between ranks. Serving and the fused training path run ``models.fused``.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from surface_vision_transformers_tpu_torch.ops.patchify import (
     fused_patch_embed,
     rearrange_patched,
 )
+from surface_vision_transformers_tpu_torch.parallel.tp import copy_to, reduce_from
 
 
 class DropoutRNG:
@@ -69,23 +79,36 @@ class DropoutRNG:
     instances with one seed draw the same masks and seeds in the same
     order."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, salt: int = 0):
         self.device = torch.device(device)
         self.masks = torch.Generator(device=self.device).manual_seed(seed)
         self.seeds = torch.Generator().manual_seed(seed)
+        self.salt = salt
+        self.rows = None  # a ``parallel.Rows``: this rank's rows of the batch
 
     def kernel_seed(self) -> int:
-        return int(torch.randint(0, 2**31 - 1, (), generator=self.seeds))
+        s = int(torch.randint(0, 2**31 - 1, (), generator=self.seeds))
+        return (s + self.salt) & 0x7FFFFFFF
 
-    def keep(self, shape, rate: float) -> torch.Tensor:
-        """A keep mask of ``shape`` at ``rate``: True with probability 1 - rate."""
-        return torch.rand(shape, generator=self.masks, device=self.device) >= rate
+    def keep(self, shape, rate: float, cols=None) -> torch.Tensor:
+        """A keep mask of ``shape`` at ``rate``: True with probability 1 -
+        rate. With ``rows`` set, drawn at the global batch's shape and cut to
+        the rank's rows; ``cols`` (start, stop, total) the same on the last
+        dim (a tensor-parallel slice)."""
+        full = tuple(shape) if cols is None else (*shape[:-1], cols[2])
 
-    def drop(self, x, rate: float):
+        def draw(s):
+            return torch.rand(s, generator=self.masks, device=self.device)
+
+        u = draw(full) if self.rows is None else self.rows.draw(draw, full)
+        return (u >= rate) if cols is None else (u >= rate)[..., cols[0]:cols[1]]
+
+    def drop(self, x, rate: float, cols=None):
         """Inverted dropout of ``x`` at ``rate`` (a no-op at rate 0)."""
         if not rate:
             return x
-        return torch.where(self.keep(x.shape, rate), x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
+        keep = self.keep(x.shape, rate, cols)
+        return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
 
 
 def _linear(x, lin: nn.Linear):
@@ -136,19 +159,25 @@ class Attention(nn.Module):
         self.to_qkv = nn.Linear(dim, 3 * heads * dim_head, bias=False)
         # index 1 is the reference's (weightless) dropout slot
         self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim), nn.Identity())
+        self.tp = None  # a ``parallel.tp.TPGroup`` under tensor parallelism
 
     def forward(self, h, *, valid_len=None, rng: DropoutRNG | None = None):
         N = h.shape[1]
-        qkv = _linear(h, self.to_qkv)  # (B, N, 3 H dh), [q | k | v]
+        tp = self.tp
+        heads = self.heads if tp is None else self.heads // tp.size
+        qkv = _linear(h if tp is None else copy_to(h, tp), self.to_qkv)  # [q | k | v]
         drop = self.dropout if rng is not None else 0.0
-        if kernel_route(self.attn_backend, qkv) and (drop or N <= MAX_PACKED_SEQ):
+        # under TP the packed entry is taken on the CPU too (its plain version)
+        wrapper = kernel_route(self.attn_backend, qkv) or (
+            tp is not None and self.attn_backend == "auto" and not qkv.is_cuda)
+        if wrapper and (drop or N <= MAX_PACKED_SEQ):
             if drop:
-                out = flash_attention_qkv_dropout(qkv, self.heads, valid_len, drop,
+                out = flash_attention_qkv_dropout(qkv, heads, valid_len, drop,
                                                   rng.kernel_seed())
             else:
-                out = flash_attention_qkv(qkv, self.heads, valid_len)
+                out = flash_attention_qkv(qkv, heads, valid_len)
         else:
-            q, k, v = split_qkv(qkv, self.heads)
+            q, k, v = split_qkv(qkv, heads)
             if drop:  # the mask the dropout kernel would draw for this seed
                 keep = dropout_keep_mask(rng.kernel_seed(), *q.shape[:3], N, drop,
                                          device=q.device)
@@ -156,8 +185,19 @@ class Attention(nn.Module):
             else:
                 o = multi_head_attention(q, k, v, valid_len, backend=self.attn_backend)
             out = merge_heads(o)
-        out = _linear(out, self.to_out[0])
+        if tp is None:
+            out = _linear(out, self.to_out[0])
+        else:
+            out = _tp_out(out, self.to_out[0], tp)
         return rng.drop(out, drop) if drop else out
+
+
+def _tp_out(x, lin: nn.Linear, tp):
+    """A TP branch's last product: the rank's input columns of ``lin``
+    times its slice of ``x`` in float32, summed over the axis, plus the
+    bias, in x's dtype."""
+    part = F.linear(x.float(), lin.weight.float())
+    return (reduce_from(part, tp) + lin.bias.float()).to(x.dtype)
 
 
 class FeedForward(nn.Module):
@@ -169,13 +209,15 @@ class FeedForward(nn.Module):
         self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(),
                                  nn.Identity(), nn.Linear(hidden_dim, dim),
                                  nn.Identity())
+        self.tp = None  # a ``parallel.tp.TPGroup`` under tensor parallelism
 
     def forward(self, h, *, rng: DropoutRNG | None = None):
         drop = self.dropout if rng is not None else 0.0
-        f = F.gelu(_linear(h, self.net[0]).float()).to(h.dtype)
+        tp = self.tp
+        f = F.gelu(_linear(h if tp is None else copy_to(h, tp), self.net[0]).float()).to(h.dtype)
         if drop:
-            f = rng.drop(f, drop)
-        f = _linear(f, self.net[3])
+            f = rng.drop(f, drop, None if tp is None else tp.cols(f.shape[-1] * tp.size))
+        f = _linear(f, self.net[3]) if tp is None else _tp_out(f, self.net[3], tp)
         return rng.drop(f, drop) if drop else f
 
 

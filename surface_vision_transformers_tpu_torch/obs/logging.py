@@ -1,6 +1,8 @@
 """Run folders and metric logs (counterpart of
 ``surface_vision_transformers_tpu.obs.logging``): the same run-folder name,
-JSONL events and per-prefix CSV files. No TensorBoard.
+JSONL events and per-prefix CSV files. No TensorBoard. Under several
+processes only rank 0 keeps the logs and prints (``MetricLogger(enabled=
+parallel.is_primary())``, the runner's ``progress``).
 """
 
 from __future__ import annotations
@@ -37,15 +39,20 @@ def run_folder_name(exp: Experiment, date: str | None = None) -> str:
 class MetricLogger:
     """``metrics.jsonl`` (one record per event) and one CSV per metric
     prefix (``metrics_train.csv``, ``metrics_val.csv``), written at epoch
-    granularity and flushed on every record. Close it when the run ends."""
+    granularity and flushed on every record. Close it when the run ends.
+    ``enabled=False`` (a rank other than 0) writes nothing."""
 
-    def __init__(self, run_dir: str | os.PathLike):
+    def __init__(self, run_dir: str | os.PathLike, enabled: bool = True):
         self.run_dir = Path(run_dir)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
-        self._jsonl = open(self.run_dir / "metrics.jsonl", "a")
+        self.enabled = enabled
         self._csv: dict[str, tuple] = {}
+        if enabled:
+            self.run_dir.mkdir(parents=True, exist_ok=True)
+            self._jsonl = open(self.run_dir / "metrics.jsonl", "a")
 
     def log(self, step: int, scalars: dict[str, Any], prefix: str = "") -> None:
+        if not self.enabled:
+            return
         rec = {"step": step, "time": time.time()}
         rec.update({prefix + k: v for k, v in scalars.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -63,6 +70,8 @@ class MetricLogger:
         f.flush()
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.close()
         for f, _ in self._csv.values():
             f.close()

@@ -8,7 +8,10 @@ gradient before the moments (optax ``add_decayed_weights`` first, as torch's
 own SGD/Adam do), AdamW decays decoupled and scaled by the step's learning
 rate. The schedules are optax's formulas as per-step functions: step k (0
 for the first update) uses ``schedule(k)``. A global-norm clip of the raw
-gradients runs before the update when ``grad_clip > 0``.
+gradients runs before the update when ``grad_clip > 0``. The parameters
+may be DTensors (FSDP2) or tensor-parallel slices: the updates act on each
+rank's shard, and the clip's norm comes from ``sq_norm``, which counts
+every shard once.
 """
 
 from __future__ import annotations
@@ -57,9 +60,11 @@ class Optimizer:
     this step's learning rate and applies the update to the ``.grad`` of
     every parameter."""
 
-    def __init__(self, cfg: OptimConfig, params):
+    def __init__(self, cfg: OptimConfig, params, sq_norm=None):
         self.cfg = cfg
         self.params = [p for p in params if p.requires_grad]
+        # params -> the squared global gradient norm (sharded parameters)
+        self.sq_norm = sq_norm
         self.schedule = build_schedule(cfg)
         self.count = 0
         wd = cfg.weight_decay
@@ -80,10 +85,16 @@ class Optimizer:
     def clip(self) -> None:
         """optax.clip_by_global_norm: g -> g / |g| * max where |g| > max."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        if self.sq_norm is None:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        else:
+            norm = torch.sqrt(self.sq_norm(self.params))
         if norm > self.cfg.grad_clip:
-            for g in grads:
-                g.div_(norm).mul_(self.cfg.grad_clip)
+            from torch.distributed.tensor import DTensor
+
+            for g in grads:  # a DTensor's shard in place
+                (g.to_local() if isinstance(g, DTensor) else g).div_(norm).mul_(
+                    self.cfg.grad_clip)
 
     def step(self) -> None:
         if self.cfg.grad_clip > 0:

@@ -27,10 +27,14 @@ An MS-SiT config (``transformer.model: MS-SiT``) trains an ``MSSiT``, or
 under MPP an ``MPPMSSiT`` around one; its npz files are JAX ``MSSiT`` /
 ``MPPMSSiT`` trees. ``training.load_weights_imagenet`` with
 ``weights.imagenet`` set lays a local timm ViT state dict over a SiT's
-blocks (with the flag alone, the seeded init, as in the JAX package). Not
-ported (they raise): meshes, ``tpu.profile_epoch`` and ``tpu.debug_nans``
-away from their defaults, and ImageNet initialisation of an MS-SiT or MPP
-model.
+blocks (with the flag alone, the seeded init, as in the JAX package).
+``tpu.mesh_{data,fsdp,model}`` (or more than one process) train under a
+mesh (``parallel.mesh_from_config``; ``train.trainer`` says how): every
+rank computes, rank 0 alone writes files and prints, and the results gain
+``mesh``. Not ported (they raise): pipelines (``tpu.mesh_pipe``), sequence
+sharding, MS-SiT under tensor parallelism, FSDP with tensor parallelism,
+``tpu.profile_epoch`` and ``tpu.debug_nans`` away from their defaults, and
+ImageNet initialisation of an MS-SiT or MPP model.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
@@ -86,6 +90,8 @@ from surface_vision_transformers_tpu_torch.obs.logging import (
     MetricLogger,
     run_folder_name,
 )
+from surface_vision_transformers_tpu_torch.parallel.mesh import mesh_from_config, mesh_shape
+from surface_vision_transformers_tpu_torch.parallel.multihost import is_primary
 from surface_vision_transformers_tpu_torch.train.trainer import Trainer, evaluate_mpp
 from surface_vision_transformers_tpu_torch.utils.config import (
     Experiment,
@@ -198,8 +204,9 @@ def run_testing(exp: Experiment, *, device) -> dict:
     out_dir = Path(exp.ckpt_path)
     if out_dir.is_file() or out_dir.suffix in (".npz", ".pt", ".pth"):
         out_dir = out_dir.parent
-    out_dir.mkdir(parents=True, exist_ok=True)
-    write_preds_csv(out_dir / "results.csv", preds, labels)
+    if is_primary():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        write_preds_csv(out_dir / "results.csv", preds, labels)
     return {"n": int(data.shape[0]), "split": split,
             "mae": float(np.mean(np.abs(preds - labels.reshape(-1))))}
 
@@ -261,14 +268,17 @@ def build_augment(exp: Experiment, table_obj) -> SurfaceAugment | None:
 
 
 def _refuse_unported(exp: Experiment) -> None:
-    """Raise on what the config asks that the port does not do: meshes, the
-    TPU profiler and NaN sanitizer keys away from their defaults, and
-    ImageNet initialisation of anything but a SiT regression model (the JAX
-    transfer maps a SiT's blocks only, and fails on the others)."""
+    """Raise on what the config asks that the port does not do: pipelines
+    and sequence sharding, MS-SiT under tensor parallelism, the TPU
+    profiler and NaN sanitizer keys away from their defaults, and ImageNet
+    initialisation of anything but a SiT regression model (the JAX transfer
+    maps a SiT's blocks only, and fails on the others)."""
     tp = exp.raw.get("tpu", {})
     checks = [
-        (any(int(tp.get(k, 1)) > 1 for k in ("mesh_fsdp", "mesh_model", "mesh_pipe"))
-         or bool(tp.get("seq_sharding", False)), "meshes (tpu.mesh_*, seq_sharding)"),
+        (int(tp.get("mesh_pipe", 1)) > 1 or bool(tp.get("seq_sharding", False)),
+         "pipelines and sequence sharding (tpu.mesh_pipe, tpu.seq_sharding)"),
+        (exp.mesh_model > 1 and exp.model.model == "MS-SiT",
+         "MS-SiT under tensor parallelism (tpu.mesh_model > 1)"),
         (int(tp.get("profile_epoch", -1)) != -1, "tpu.profile_epoch (the epoch's trace)"),
         (bool(tp.get("debug_nans", False)), "tpu.debug_nans (the NaN sanitizer)"),
     ]
@@ -309,12 +319,12 @@ def _load_initial_weights(exp: Experiment, model) -> None:
                                                        exp.model.depth))
 
 
-def _save_npz(path: Path, model, depth: int) -> None:
-    """``model``'s params npz, a JAX tree of its kind; an MPP's (an
-    MPPMSSiT's) encoder alone (without the head MPP never runs, as the JAX
-    package writes it) also goes to ``encoder_<name>`` beside it, for
-    finetuning."""
-    state = model.state_dict()
+def _save_npz(path: Path, model, depth: int, state: dict | None = None) -> None:
+    """``model``'s params npz (of ``state``, its state dict, where given),
+    a JAX tree of its kind; an MPP's (an MPPMSSiT's) encoder alone (without
+    the head MPP never runs, as the JAX package writes it) also goes to
+    ``encoder_<name>`` beside it, for finetuning."""
+    state = model.state_dict() if state is None else state
     if isinstance(model, MSSiT):
         tree = jax_params_from_mssit_state_dict(state, model)
     elif isinstance(model, SiT):
@@ -330,9 +340,24 @@ def _save_npz(path: Path, model, depth: int) -> None:
 
 def _write_best(run_dir: Path, trainer: Trainer, meta: dict, depth: int) -> None:
     """The best-val set: ``best/`` (full state), ``best_params.npz`` of the
-    weights evaluation used (and an MPP's encoder npz)."""
-    ckpt.save_state(run_dir / "best", trainer.state_dict(), meta)
-    _save_npz(run_dir / "best_params.npz", trainer.eval_model(), depth)
+    weights evaluation used (and an MPP's encoder npz). Every rank gathers
+    the state; rank 0 writes it."""
+    state = trainer.state_dict()
+    eval_state = trainer.model_state(trainer.eval_model())
+    if is_primary():
+        ckpt.save_state(run_dir / "best", state, meta)
+        _save_npz(run_dir / "best_params.npz", trainer.eval_model(), depth, eval_state)
+
+
+def _resolve_mesh(exp: Experiment, dev: torch.device):
+    """The run's mesh from ``tpu.mesh_{data,fsdp,model}`` over the
+    world's ranks (None for one process asking for none)."""
+    return mesh_from_config(exp, device_type=dev.type)
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        torch.distributed.barrier()
 
 
 def run_training(exp: Experiment, *, device, datasets: dict | None = None,
@@ -343,6 +368,9 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
     results dict that also lands in ``hparams_results.yml``."""
     _refuse_unported(exp)
     dev = _device(device)
+    mesh = _resolve_mesh(exp, dev)
+    primary = is_primary()
+    progress = progress and primary
     t_start = time.time()
     phases = {k: 0.0 for k in ("setup", "data_upload", "first_epoch", "train",
                                "val", "ckpt", "test")}
@@ -358,9 +386,13 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
         if not run_dir.is_dir():
             raise FileNotFoundError(f"resume_from {run_dir} is not an existing run directory")
     else:
-        run_dir = Path(exp.logging_folder) / run_folder_name(exp)
-        run_dir.mkdir(parents=True, exist_ok=True)
-    logger = MetricLogger(run_dir)
+        name = [run_folder_name(exp)]
+        if mesh is not None:  # rank 0's clock names the run
+            torch.distributed.broadcast_object_list(name, src=0)
+        run_dir = Path(exp.logging_folder) / name[0]
+        if primary:
+            run_dir.mkdir(parents=True, exist_ok=True)
+    logger = MetricLogger(run_dir, enabled=primary)
     loaders: list[StreamingLoader] = []
     try:
         table_obj = load_patch_table(exp.ico, exp.sub_ico)
@@ -371,7 +403,7 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
             model = build_model(exp, table)
         _load_initial_weights(exp, model)
         model.to(dev)
-        trainer = Trainer(exp, model, augment=augment)
+        trainer = Trainer(exp, model, augment=augment, mesh=mesh)
         bs_val = exp.training.bs_val or exp.training.bs
 
         def put(a):
@@ -380,7 +412,8 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
         def loader(data, labels, shuffle):
             loaders.append(StreamingLoader(
                 data, labels, shuffle=shuffle, seed=exp.training.seed, device=dev,
-                batch_size=exp.training.bs if shuffle else bs_val))
+                batch_size=exp.training.bs if shuffle else bs_val, layout=trainer.layout,
+                accum=exp.training.grad_accum if shuffle else 1))
             return loaders[-1]
 
         streaming = use_streaming(exp, train_data)
@@ -446,49 +479,61 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
                         _write_best(run_dir, trainer, {"epoch": epoch, metric: float(score),
                                                        "best": float(score),
                                                        "best_epoch": epoch}, depth)
-                    if not is_mpp:
+                    if not is_mpp and primary:
                         write_preds_csv(run_dir / "preds.csv", preds, val_labels)
                     phases["ckpt"] += time.time() - t_ck
             if save and exp.training.ckpt_every and (epoch + 1) % exp.training.ckpt_every == 0:
                 t_ck = time.time()
-                ckpt.save_state(run_dir / "last", trainer.state_dict(),
-                                {"epoch": epoch, "best": float(best),
-                                 "best_epoch": int(best_epoch)})
+                state = trainer.state_dict()
+                if primary:
+                    ckpt.save_state(run_dir / "last", state,
+                                    {"epoch": epoch, "best": float(best),
+                                     "best_epoch": int(best_epoch)})
                 phases["ckpt"] += time.time() - t_ck
 
         t_ck = time.time()
         if save:
             state = trainer.state_dict()
-            ckpt.save_state(run_dir / "final", state,
-                            {"epoch": epochs - 1, metric: float(best), "best": float(best),
-                             "best_epoch": int(best_epoch)})
-            _save_npz(run_dir / "final_params.npz", model, depth)
-            if best_epoch < 0 and not (run_dir / "best").exists():
-                ckpt.save_state(run_dir / "best", state,
-                                {"epoch": epochs - 1, metric: float("nan"), "best_epoch": -1})
+            if primary:
+                ckpt.save_state(run_dir / "final", state,
+                                {"epoch": epochs - 1, metric: float(best), "best": float(best),
+                                 "best_epoch": int(best_epoch)})
+                _save_npz(run_dir / "final_params.npz", model, depth, state["model"])
+                if best_epoch < 0 and not (run_dir / "best").exists():
+                    ckpt.save_state(run_dir / "best", state,
+                                    {"epoch": epochs - 1, metric: float("nan"),
+                                     "best_epoch": -1})
         phases["ckpt"] += time.time() - t_ck
         results = {f"best_{metric}": float(best), "best_epoch": int(best_epoch),
                    "epochs": int(epochs), "run_dir": str(run_dir),
                    "wall_s": round(time.time() - t_start, 2),
                    "training_finished": True, "streaming": bool(streaming)}
+        if mesh is not None:
+            results["mesh"] = mesh_shape(mesh)
+        if torch.distributed.is_initialized():
+            results["process_group"] = {"backend": str(torch.distributed.get_backend()),
+                                        "world_size": torch.distributed.get_world_size()}
 
         if exp.training.testing and "test" in datasets:
             t_test = time.time()
+            _barrier(mesh)  # rank 0's files are written
             # the best weights where they were saved, else the final ones (a
             # resumed run whose earlier part never wrote best/ included)
             if save and best_epoch >= 0 and (run_dir / "best" / "state.pt").exists():
                 best_state = ckpt.load_state(run_dir / "best")[0]
-                trainer.eval_model().load_state_dict(best_state["ema"] or best_state["model"])
+                trainer.load_model_state(best_state["ema"] or best_state["model"],
+                                         trainer.eval_model())
             test_data, test_labels = datasets["test"]
             tm, preds = (trainer.evaluate_streaming(loader(test_data, test_labels, False))
                          if streaming else trainer.evaluate(put(test_data), put(test_labels)))
-            if not is_mpp:
+            if not is_mpp and primary:
                 write_preds_csv(run_dir / "test_preds.csv", preds, test_labels)
             results[f"test_{metric}"] = float(getattr(tm, metric))
             phases["test"] = time.time() - t_test
 
         results["phases_s"] = {k: round(v, 2) for k, v in phases.items()}
-        dump_config_with_results(exp, results, run_dir / "hparams_results.yml")
+        if primary:
+            dump_config_with_results(exp, results, run_dir / "hparams_results.yml")
         return results
     finally:
         for ld in loaders:

@@ -1,12 +1,13 @@
 """Supervised regression and MPP pretraining (counterpart of
-``surface_vision_transformers_tpu.train.trainer.Trainer`` without meshes).
+``surface_vision_transformers_tpu.train.trainer.Trainer``), in one process
+or under a ('data', 'fsdp', 'model') mesh.
 
 The model holds float32 master parameters on the training device: a ``SiT``
 or an ``MSSiT`` for regression, an ``MPP`` around a SiT or an ``MPPMSSiT``
 around an MS-SiT for pretraining. Every step runs a forward, a weighted
 loss, and the optimizer from ``train.optim``. The route
-(``Trainer.uses_fused_train``, the JAX ``_use_fused_train`` without its mesh
-terms): bfloat16 compute, no dropout and ``tpu.fused_train`` take the
+(``Trainer.uses_fused_train``, the JAX ``_use_fused_train``): bfloat16
+compute, no dropout, ``tpu.fused_train`` and no mesh or a pure-DP one take the
 fused-block kernels forward and backward (``fused_train_forward``,
 ``fused_mpp_loss``; for an MS-SiT ``fused_mssit_train_forward``,
 ``fused_mssit_mpp_loss``); everything else -- float32 compute, dropout > 0,
@@ -48,7 +49,24 @@ themselves by width). As in the JAX package:
   ``tpu.quant`` under the crossover rule (``resolve_quant``: int8 from
   ``INT8_MIN_DIM`` on, else bf16 and a notice printed once per trainer).
 
-Not ported: meshes and pipelines.
+Under a mesh (``parallel.make_mesh``; every rank builds the same seeded
+model and calls every method) a step computes what the single process
+computes on the same global batch: every rank draws what the single
+process draws -- the epoch permutation, MPP's corruption, augmentation,
+dropout masks (``DropoutRNG.rows``) -- and keeps its rows of the batch
+(``parallel.Layout.batch_index_of``: its share of each microbatch under
+``grad_accum``, padded at weight 0 where the shards do not divide it). Each
+rank's weighted loss sum is divided by the global weight sum and the
+gradients are summed over ('data', 'fsdp'): one flat all-reduce under DP
+and TP, FSDP2's reduce-scatter (whose mean the loss's scale undoes) under
+FSDP. Pure DP keeps the fused kernels on every rank with replicated
+weights; FSDP (``fully_shard``) and TP (``parallel.tp``) run the modular
+model. Evaluation runs each rank's rows and gathers the predictions, so
+the metrics are over the whole split; ``state_dict`` gathers every
+parameter and moment whole, so checkpoints are the single-process format.
+The attention-dropout kernel's masks under a mesh differ from the single
+process's (its seed is offset by the rank's shard). Not ported: pipelines
+and sequence sharding.
 """
 
 from __future__ import annotations
@@ -80,6 +98,8 @@ from surface_vision_transformers_tpu_torch.models.mpp import MPP
 from surface_vision_transformers_tpu_torch.models.mpp_mssit import MPPMSSiT
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
+from surface_vision_transformers_tpu_torch.parallel.mesh import Layout
+from surface_vision_transformers_tpu_torch.parallel.sharding import ShardedModel
 from surface_vision_transformers_tpu_torch.train.losses import get_loss_fn
 from surface_vision_transformers_tpu_torch.train.optim import Optimizer
 from surface_vision_transformers_tpu_torch.utils.config import Experiment
@@ -110,31 +130,49 @@ def eval_generator(i: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((1234 << 32) + i)
 
 
+def _rank_rows(layout: Layout, B: int, device, accum: int = 1):
+    """(rows, valid) of a batch of B that this rank holds, as tensors."""
+    rows, valid = layout.batch_index_of(B, accum)
+    return torch.from_numpy(rows).to(device), torch.from_numpy(valid).to(device)
+
+
 @torch.no_grad()
-def evaluate_mpp(model: MPP | MPPMSSiT, tokens: torch.Tensor, bs: int) -> float:
+def evaluate_mpp(model: MPP | MPPMSSiT, tokens: torch.Tensor, bs: int,
+                 layout: Layout | None = None) -> float:
     """The MPP loss over (n, L, patch_dim) ``tokens`` in clamped contiguous
     batches of ``bs``, each with its fixed corruption (``eval_generator``),
     weighted by sample: the modular MPP (or MPPMSSiT), its attention on
-    ``flash_attention_qkv`` for CUDA bfloat16."""
+    ``flash_attention_qkv`` for CUDA bfloat16. Under a mesh ``layout`` each
+    rank runs its rows and the sums are added over the batch shards."""
     n = tokens.shape[0]
     bs = min(bs, n)
     w = torch.from_numpy(batch_weights(n, bs)).to(tokens.device)
     loss_sum = 0.0
     for i in range(w.shape[0]):
         s = min(i * bs, n - bs)
-        loss, _ = model(tokens[s:s + bs], eval_generator(i, tokens.device),
-                        sample_weights=w[i])
-        loss_sum = loss_sum + loss * w[i].sum()
+        gen = eval_generator(i, tokens.device)
+        if layout is None:
+            loss, _ = model(tokens[s:s + bs], gen, sample_weights=w[i])
+            loss_sum = loss_sum + loss * w[i].sum()
+            continue
+        rows, valid = _rank_rows(layout, bs, tokens.device)
+        wb = w[i][rows] * valid
+        loss, _ = model(tokens[s:s + bs].index_select(0, rows), gen, sample_weights=wb,
+                        rows=layout.micro_rows(bs))
+        loss_sum = loss_sum + loss * wb.sum()
+    if layout is not None:
+        loss_sum = layout.all_reduce(torch.as_tensor(loss_sum, device=tokens.device))
     return float(loss_sum) / n
 
 
 class Trainer:
     """Trains ``model`` (float32 parameters, already on its device): a
     ``SiT`` or an ``MSSiT`` on regression targets, or an ``MPP`` (an
-    ``MPPMSSiT``) under an MPP config."""
+    ``MPPMSSiT``) under an MPP config; under ``mesh`` (a ``DeviceMesh``, or
+    a ``parallel.Layout`` over one) laid out on it."""
 
     def __init__(self, exp: Experiment, model: SiT | MSSiT | MPP | MPPMSSiT,
-                 augment: SurfaceAugment | None = None):
+                 augment: SurfaceAugment | None = None, mesh=None):
         self.task = "mpp" if exp.is_pretraining else "regression"
         if isinstance(model, (MPP, MPPMSSiT)) != (self.task == "mpp"):
             raise TypeError(f"a {self.task} config trains "
@@ -150,13 +188,24 @@ class Trainer:
         self.exp = exp
         self.model = model
         self.loss_fn = get_loss_fn(exp.training.l1loss)
-        self.optimizer = Optimizer(exp.optim, model.parameters())
         self.ema_model = copy.deepcopy(model) if exp.training.ema > 0 else None
+        # under a mesh: the model (and its EMA shadow) laid out on it
+        self.layout = mesh if isinstance(mesh, Layout) or mesh is None else Layout(mesh)
+        self.mesh = None if mesh is None else self.layout.mesh
+        self.sharded = self.ema_sharded = None
+        if self.layout is not None:
+            self.sharded = ShardedModel(model, self.layout)
+            if self.ema_model is not None:
+                self.ema_sharded = ShardedModel(self.ema_model, self.layout)
+        self.optimizer = Optimizer(exp.optim, model.parameters(),
+                                   sq_norm=None if mesh is None else self.sharded.grad_sq_norm)
         seed = exp.training.seed
         self.generator = torch.Generator().manual_seed(seed)  # epoch permutations
         device = next(model.parameters()).device
+        self.device = device
         self.corruption = torch.Generator(device=device).manual_seed(seed)
-        self.rng = (DropoutRNG(seed, device)
+        salt = 0 if self.layout is None else self.layout.seed_salt
+        self.rng = (DropoutRNG(seed, device, salt)
                     if self.encoder.dropout or self.encoder.emb_dropout else None)
         self.augment = augment
         # a stream of its own, apart from the epoch permutations' (seed)
@@ -166,9 +215,16 @@ class Trainer:
 
     def uses_fused_train(self) -> bool:
         """The fused-block training route: bfloat16 compute, no dropout,
-        ``tpu.fused_train``. Otherwise the modular model under autograd."""
+        ``tpu.fused_train``, and no mesh or a pure-DP one (FSDP and TP run
+        the modular model). Otherwise the modular model under autograd."""
         return (self.exp.fused_train and self.encoder.dtype == torch.bfloat16
-                and self.rng is None)
+                and self.rng is None and (self.layout is None or self.layout.pure_dp))
+
+    def _fused_batch_ok(self, b: int) -> bool:
+        """Under a mesh the fused route takes a (micro)batch the batch
+        shards divide (the JAX ``_fused_batch_ok``); another takes the
+        modular model."""
+        return self.layout is None or b % self.layout.batch_count == 0
 
     def serving_quant(self, model) -> str | None:
         """``tpu.quant`` for evaluating ``model`` (``fused.serving_quant``);
@@ -194,20 +250,22 @@ class Trainer:
             self._token_cache[id(data)] = cached
         return cached[1]
 
-    def _loss(self, batch, targets, weights):
-        fused = self.uses_fused_train()
+    def _loss(self, batch, targets, weights, rows=None, fused=None):
+        """(weighted mean loss, weighted mean |err|) of a (micro)batch;
+        ``rows`` its rows of the global batch under a mesh."""
+        fused = self.uses_fused_train() if fused is None else fused
         mssit = isinstance(self.encoder, MSSiT)
         if self.task == "mpp":
             if fused:
                 loss = (fused_mssit_mpp_loss if mssit else fused_mpp_loss)(
-                    self.model, batch, self.corruption, weights)
+                    self.model, batch, self.corruption, weights, rows=rows)
             else:
                 loss, _ = self.model(batch, self.corruption, rng=self.rng,
-                                     sample_weights=weights)
+                                     sample_weights=weights, rows=rows)
             return loss, loss  # MPP has no MAE; the loss stands in
         if fused:
             preds = (fused_mssit_train_forward if mssit else fused_train_forward)(
-                self.model, batch)
+                self.model, batch, mesh=self.mesh)
         else:
             preds = self.model(batch, rng=self.rng)
         preds = preds.reshape(preds.shape[0], -1).squeeze(-1)
@@ -216,10 +274,15 @@ class Trainer:
             torch.clamp(weights.sum(), min=1e-9))
         return loss, mae
 
-    def optimizer_step(self, batch, targets, weights):
+    def optimizer_step(self, batch, targets, weights, total: int | None = None):
         """One optimizer step on a batch (microbatched under grad_accum);
         ``targets`` None under MPP. -> (loss, weighted |err| sum), device
-        scalars."""
+        scalars. Under a mesh ``batch``, ``targets`` and ``weights`` are this
+        rank's rows (``Layout.batch_index_of``, weight 0 on padding) of a
+        global batch of ``total``, and the results this rank's shares of
+        the global batch's (summed over the batch shards by the caller)."""
+        if self.layout is not None:
+            return self._mesh_step(batch, targets, weights, total)
         if self.augment is not None:
             batch = self.augment(batch, self.augment_rng)
         self.optimizer.zero_grad()
@@ -242,12 +305,49 @@ class Trainer:
                 mae = mae + m_k.detach() * w_k
             loss, mae = loss / w_tot, mae / w_tot
         self.optimizer.step()
+        self._update_ema()
+        return loss, mae * weights.sum()
+
+    def _update_ema(self) -> None:
         if self.ema_model is not None:
             d = self.exp.training.ema
             with torch.no_grad():
                 for e, p in zip(self.ema_model.parameters(), self.model.parameters()):
                     e.copy_(e * d + p * (1.0 - d))
-        return loss, mae * weights.sum()
+
+    def _mesh_step(self, batch, targets, weights, total: int):
+        """``optimizer_step`` under a mesh: the draws are the global
+        batch's; each microbatch's weighted loss sum over the global weight
+        sum, its gradients summed over the batch shards."""
+        lay = self.layout
+        accum = lay.accum_steps(total, self.exp.training.grad_accum)
+        if self.augment is not None:
+            rows, _ = lay.batch_index_of(total, self.exp.training.grad_accum)
+            draws = self.augment.draw(total, self.augment_rng)
+            batch = self.augment.apply(batch, draws.take(torch.from_numpy(rows)))
+        self.optimizer.zero_grad()
+        w_tot = torch.clamp(lay.all_reduce(weights.sum().clone()), min=1e-9)
+        mbs, mbl = total // accum, batch.shape[0] // accum
+        rows = lay.micro_rows(mbs)
+        fused = self.uses_fused_train() and self._fused_batch_ok(mbs)
+        scale = self.sharded.grad_scale
+        loss = mae = 0.0
+        for k in range(accum):
+            sl = slice(k * mbl, (k + 1) * mbl)
+            if self.rng is not None:
+                self.rng.rows = rows
+            l_k, m_k = self._loss(batch[sl], None if targets is None else targets[sl],
+                                  weights[sl], rows=rows, fused=fused)
+            w_k = weights[sl].sum()
+            (l_k * (w_k / w_tot * scale)).backward()
+            loss = loss + l_k.detach() * w_k
+            mae = mae + m_k.detach() * w_k
+        if self.rng is not None:
+            self.rng.rows = None
+        self.sharded.sync_grads(self.optimizer.params)
+        self.optimizer.step()
+        self._update_ema()
+        return loss / w_tot, mae
 
     def train_epoch(self, data: torch.Tensor, targets: torch.Tensor | None = None
                     ) -> EpochMetrics:
@@ -260,15 +360,31 @@ class Trainer:
         data_p = data[perm]
         targets_p = None if targets is None else targets[perm]
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
+        if self.layout is not None:
+            rows, valid = _rank_rows(self.layout, bs, data.device, self.exp.training.grad_accum)
         losses, mae_sums = [], []
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)
-            loss, mae_sum = self.optimizer_step(
-                data_p[s:s + bs], None if targets_p is None else targets_p[s:s + bs], w[i])
+            if self.layout is None:
+                loss, mae_sum = self.optimizer_step(
+                    data_p[s:s + bs], None if targets_p is None else targets_p[s:s + bs],
+                    w[i])
+            else:
+                loss, mae_sum = self.optimizer_step(
+                    data_p.index_select(0, rows + s),
+                    None if targets_p is None else targets_p.index_select(0, rows + s),
+                    w[i][rows] * valid, total=bs)
             losses.append(loss)
             mae_sums.append(mae_sum)
-        loss = torch.stack(losses).mean().item()
-        return EpochMetrics(loss=loss, mae=torch.stack(mae_sums).sum().item() / n)
+        return self._epoch_metrics(losses, mae_sums, n)
+
+    def _epoch_metrics(self, losses, mae_sums, n: int) -> EpochMetrics:
+        """The epoch's mean step loss and MAE from each step's (shares of)
+        loss and |err| sum, added over the batch shards under a mesh."""
+        both = torch.stack([torch.stack(losses), torch.stack(mae_sums)])
+        if self.layout is not None:
+            both = self.layout.all_reduce(both)
+        return EpochMetrics(loss=both[0].mean().item(), mae=both[1].sum().item() / n)
 
     def _predictor(self, model):
         """Regression serving of ``model`` for evaluation: (B, ...) -> (B,)
@@ -277,7 +393,7 @@ class Trainer:
         quant = self.serving_quant(model)
         mssit = isinstance(model, MSSiT)
         forward = fused_mssit_forward if mssit else fused_forward
-        if not serves_fused(model):
+        if not serves_fused(model) or not (self.layout is None or self.layout.pure_dp):
             return lambda xb: model(xb).reshape(xb.shape[0], -1).squeeze(-1)
         weights = (prepare_mssit_weights if mssit else prepare_weights)(model, quant)
         return lambda xb: forward(model, xb, weights, quant=quant).reshape(
@@ -292,16 +408,21 @@ class Trainer:
         model = self.eval_model()
         bs_val = self.exp.training.bs_val or self.exp.training.bs
         if self.task == "mpp":
-            loss = evaluate_mpp(model, self.mpp_tokens(data), bs_val)
+            loss = evaluate_mpp(model, self.mpp_tokens(data), bs_val, self.layout)
             return EpochMetrics(loss=loss, mae=loss), None
         n = data.shape[0]
         bs = min(bs_val, n)
         w = torch.from_numpy(batch_weights(n, bs)).to(data.device)
         predict = self._predictor(model)
+        if self.layout is not None:
+            rows, _ = _rank_rows(self.layout, bs, data.device)
         preds, sq_sum, err_sum = [], 0.0, 0.0
         for i in range(w.shape[0]):
             s = min(i * bs, n - bs)
-            p = predict(data[s:s + bs])
+            if self.layout is None:
+                p = predict(data[s:s + bs])
+            else:  # this rank's rows, then every rank's in order
+                p = self.layout.gather_rows(predict(data.index_select(0, rows + s)))[:bs]
             d = p - targets[s:s + bs].reshape(p.shape)
             sq_sum = sq_sum + (d.square() * w[i]).sum()
             err_sum = err_sum + (d.abs() * w[i]).sum()
@@ -318,12 +439,11 @@ class Trainer:
         losses, mae_sums = [], []
         for batch, targets, w in loader:
             loss, mae_sum = self.optimizer_step(
-                batch, None if self.task == "mpp" else targets, w)
+                batch, None if self.task == "mpp" else targets, w,
+                total=loader.batch_size)
             losses.append(loss)
             mae_sums.append(mae_sum)
-        loss = torch.stack(losses).mean().item()
-        return EpochMetrics(loss=loss, mae=torch.stack(mae_sums).sum().item()
-                            / loader.num_samples)
+        return self._epoch_metrics(losses, mae_sums, loader.num_samples)
 
     @torch.no_grad()
     def evaluate_streaming(self, loader: StreamingLoader):
@@ -334,17 +454,26 @@ class Trainer:
             raise ValueError("evaluate_streaming needs a shuffle=False loader")
         model = self.eval_model()
         n = loader.num_samples
+        lay = self.layout
         if self.task == "mpp":
             loss_sum = 0.0
             for i, (batch, _, w) in enumerate(loader):
-                loss, _ = model(batch, eval_generator(i, batch.device), sample_weights=w)
+                rows = None if lay is None else lay.micro_rows(loader.batch_size)
+                loss, _ = model(batch, eval_generator(i, batch.device), sample_weights=w,
+                                rows=rows)
                 loss_sum = loss_sum + loss * w.sum()
+            if lay is not None:
+                loss_sum = lay.all_reduce(torch.as_tensor(loss_sum, device=self.device))
             loss = float(loss_sum) / n
             return EpochMetrics(loss=loss, mae=loss), None
         predict = self._predictor(model)
         preds, sq_sum, err_sum = [], 0.0, 0.0
         for batch, targets, w in loader:
             p = predict(batch)
+            if lay is not None:  # every rank's rows, in order
+                bs = loader.batch_size
+                p, targets, w = lay.gather_rows(
+                    torch.stack([p.float(), targets.reshape(p.shape), w], 1))[:bs].unbind(1)
             d = p - targets.reshape(p.shape)
             sq_sum = sq_sum + (d.square() * w).sum()
             err_sum = err_sum + (d.abs() * w).sum()
@@ -354,14 +483,35 @@ class Trainer:
 
     # -- full state ------------------------------------------------------------
 
+    def model_state(self, model=None) -> dict:
+        """``model``'s (default the trained model's) state dict as the
+        single process holds it: under a mesh gathered whole (a collective:
+        every rank calls it)."""
+        model = self.model if model is None else model
+        if self.layout is None:
+            return model.state_dict()
+        return (self.ema_sharded if model is self.ema_model else self.sharded).full_state_dict()
+
+    def load_model_state(self, state: dict, model=None) -> None:
+        """Load a single-process state dict into ``model`` (default the
+        trained model), laid out on the mesh where there is one."""
+        model = self.model if model is None else model
+        if self.layout is None:
+            model.load_state_dict(state)
+        else:
+            (self.ema_sharded if model is self.ema_model else self.sharded
+             ).load_full_state_dict(state)
+
     def state_dict(self) -> dict:
         """The whole training state, as tensors and numbers that
-        ``torch.load(..., weights_only=True)`` reads back."""
+        ``torch.load(..., weights_only=True)`` reads back; under a mesh
+        every parameter and moment whole (the single-process format)."""
         rng = self.rng
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "ema": None if self.ema_model is None else self.ema_model.state_dict(),
+            "model": self.model_state(),
+            "optimizer": (self.optimizer.state_dict() if self.layout is None else
+                          self.sharded.full_optimizer_state(self.optimizer)),
+            "ema": None if self.ema_model is None else self.model_state(self.ema_model),
             "generator": self.generator.get_state(),
             "corruption": self.corruption.get_state(),
             "dropout": None if rng is None else {"masks": rng.masks.get_state(),
@@ -373,12 +523,15 @@ class Trainer:
         """Restore ``state_dict()``'s output (its tensors may lie on the
         CPU). A checkpoint of a run without EMA or dropout leaves the shadow
         seeded from its weights and the dropout generator fresh."""
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.load_model_state(state["model"])
+        if self.layout is None:
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            self.sharded.load_full_optimizer_state(self.optimizer, state["optimizer"])
         if self.ema_model is not None:
             # a checkpoint written without ``training.ema`` seeds the shadow
             # from its weights, as the JAX package's restore does
-            self.ema_model.load_state_dict(state["ema"] or state["model"])
+            self.load_model_state(state["ema"] or state["model"], self.ema_model)
         self.generator.set_state(state["generator"])
         self.corruption.set_state(state["corruption"])
         if self.rng is not None and state["dropout"] is not None:

@@ -12,7 +12,8 @@ validation cadence, loss, EMA, gradient accumulation, checkpoints and
 ``logging.folder_to_save_model``, ``weights``, ``testing.path_to_ckpt``, the
 whole ``augmentation`` block, ``pretraining_mpp`` / ``SSL`` (masked-patch pretraining: the corruption
 rates and ``optimize_decoder``) and, under ``tpu``, ``compute_dtype``,
-``fused_train`` and ``quant``. ``tpu.scan_blocks`` is a TPU compile-time
+``fused_train``, ``quant`` and the mesh axes ``mesh_data`` / ``mesh_fsdp`` /
+``mesh_model`` (``parallel.mesh_from_config``). ``tpu.scan_blocks`` is a TPU compile-time
 knob that leaves the outputs bitwise unchanged; eager PyTorch has nothing to
 compile, so it is not read. A ``.json`` file is read with the standard
 library; anything else with PyYAML, imported only when needed.
@@ -219,6 +220,10 @@ class Experiment:
     quant: str = "none"
     mpp: MPPConfig | None = None  # an MPP (``pretraining_mpp`` or ``SSL: mpp``) config
     fused_train: bool = True  # ``tpu.fused_train``: the fused-block training route
+    # ``tpu.mesh_*``: the ('data', 'fsdp', 'model') mesh; -1 on data takes the rest
+    mesh_data: int = -1
+    mesh_fsdp: int = 1
+    mesh_model: int = 1
     augment: AugmentConfig = AugmentConfig()
     ico: int = 6
     sub_ico: int = 2
@@ -360,6 +365,9 @@ def from_dict(raw: dict) -> Experiment:
         quant=quant,
         mpp=mpp,
         fused_train=bool(tp.get("fused_train", True)),
+        mesh_data=int(tp.get("mesh_data", -1)),
+        mesh_fsdp=int(tp.get("mesh_fsdp", 1)),
+        mesh_model=int(tp.get("mesh_model", 1)),
         augment=AugmentConfig(
             enabled=bool(aug.get("enabled", False)),
             exact_rotations=bool(aug.get("exact_rotations", True)),

@@ -1,0 +1,164 @@
+"""One rank of the CPU gloo runs behind ``tests/test_torch_parallel.py``.
+
+    python tests/torch_parallel_worker.py RENDEZVOUS_FILE RANK WORLD JOBS_JSON
+
+Imports only torch and the port (never JAX). Joins the process group
+through ``initialize_multihost`` with a ``file://`` rendezvous, runs every
+job of JOBS_JSON in order, and writes each job's result (rank 0's, unless
+the job says otherwise) where the job names. A job that raises writes the
+error instead, so the parent test reports it.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from surface_vision_transformers_tpu_torch import parallel  # noqa: E402
+from surface_vision_transformers_tpu_torch.models import sit as sit_mod  # noqa: E402
+from surface_vision_transformers_tpu_torch.models.sit import SiT  # noqa: E402
+from surface_vision_transformers_tpu_torch.train import runner  # noqa: E402
+from surface_vision_transformers_tpu_torch.train.trainer import Trainer  # noqa: E402
+from surface_vision_transformers_tpu_torch.utils.config import from_dict  # noqa: E402
+
+
+def _datasets(job):
+    return {k: (np.load(v[0]), np.load(v[1])) for k, v in job["datasets"].items()}
+
+
+def job_step(job):
+    """One optimizer step of a SiT from a given state on a given batch."""
+    exp = from_dict(job["cfg"])
+    model = SiT.from_config(exp)
+    model.load_state_dict(torch.load(job["init"], weights_only=True))
+    mesh = parallel.make_mesh(*job["shape"], device_type="cpu")
+    trainer = Trainer(exp, model, mesh=mesh)
+    x, y, w = (torch.from_numpy(np.load(job[k])) for k in ("x", "y", "w"))
+    rows, valid = trainer.layout.batch_index_of(x.shape[0], exp.training.grad_accum)
+    rows = torch.from_numpy(rows)
+    loss, _ = trainer.optimizer_step(x[rows], y[rows], w[rows] * torch.from_numpy(valid),
+                                     total=x.shape[0])
+    loss = trainer.layout.all_reduce(loss.detach().reshape(1))
+    state = trainer.model_state()
+    if parallel.is_primary():
+        torch.save({"state": state, "loss": float(loss)}, job["out"])
+
+
+def job_train(job):
+    """``run_training`` of a config (its ``tpu.mesh_*`` keys lay it out),
+    with the attention entries counted."""
+    calls = {"qkv": 0}
+    orig = sit_mod.flash_attention_qkv
+
+    def counting(*a, **k):
+        calls["qkv"] += 1
+        return orig(*a, **k)
+
+    sit_mod.flash_attention_qkv = counting
+    try:
+        res = runner.run_training(from_dict(job["cfg"]), device="cpu",
+                                  datasets=_datasets(job), progress=False)
+    finally:
+        sit_mod.flash_attention_qkv = orig
+    res["qkv_calls"] = calls["qkv"]
+    if parallel.is_primary():
+        Path(job["out"]).write_text(json.dumps(res))
+
+
+def job_resume(job):
+    """``run_training`` resumed under this job's mesh from a copy of the
+    run folder an earlier job wrote."""
+    import shutil
+
+    torch.distributed.barrier()
+    src = Path(json.loads(Path(job["from"]).read_text())["run_dir"])
+    dst = Path(job["copy"])
+    if parallel.is_primary():
+        shutil.copytree(src, dst)
+    torch.distributed.barrier()
+    res = runner.run_training(from_dict(job["cfg"]), device="cpu", datasets=_datasets(job),
+                              progress=False, resume_from=str(dst))
+    if parallel.is_primary():
+        Path(job["out"]).write_text(json.dumps(res))
+
+
+def job_cli(job):
+    """``cli.train --multihost`` in this process, which has joined the
+    group already: the runner lays the run out over both ranks."""
+    import contextlib
+    import io
+
+    from surface_vision_transformers_tpu_torch.cli import train
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train.main([job["config"], "--multihost", "--device", "cpu"])
+    Path(job["out"] + f".rank{parallel.multihost.process_index()}").write_text(out.getvalue())
+
+
+def _refusal(fn):
+    try:
+        fn()
+    except (NotImplementedError, ValueError, RuntimeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def job_refusals(job):
+    """What a mesh refuses, each as 'Type: message' (None where it ran)."""
+    from surface_vision_transformers_tpu_torch.models.fused import fused_train_forward
+
+    cfg = job["cfg"]
+    out = {}
+
+    def trainer(shape, **model_kw):
+        exp = from_dict(cfg)
+        model = SiT.from_config(exp, **model_kw)
+        return Trainer(exp, model, mesh=parallel.make_mesh(*shape, device_type="cpu"))
+
+    out["heads"] = _refusal(lambda: trainer((1, 1, 2), heads=3, dim_head=16))
+    exp = from_dict(cfg)
+    out["fsdp_tp"] = _refusal(lambda: Trainer(exp, SiT.from_config(exp), mesh=parallel.Layout(
+        parallel.make_mesh(1, 1, 2, device_type="cpu"), fsdp=True)))
+    x = torch.zeros(2, 4, 20, 15)
+    for name, shape in (("fused_fsdp", (1, 2, 1)), ("fused_tp", (1, 1, 2))):
+        tr = trainer(shape)
+        out[name] = _refusal(lambda: fused_train_forward(tr.model, x, mesh=tr.mesh))
+        out[name + "_route"] = tr.uses_fused_train()
+    tr = trainer((2, 1, 1))
+    out["fused_dp"] = _refusal(lambda: fused_train_forward(tr.model, x[:1], mesh=tr.mesh))
+    out["init_again"] = _refusal(lambda: parallel.initialize_multihost(
+        "127.0.0.1:1", 3, 0))
+    out["init_same"] = parallel.initialize_multihost()
+    if parallel.is_primary():
+        Path(job["out"]).write_text(json.dumps(out))
+
+
+JOBS = {"step": job_step, "train": job_train, "resume": job_resume, "cli": job_cli,
+        "refusals": job_refusals}
+
+
+def main():
+    rdv, rank, world, jobs = sys.argv[1:5]
+    torch.set_num_threads(1)
+    parallel.initialize_multihost(f"file://{rdv}", int(world), int(rank))
+    for job in json.loads(Path(jobs).read_text()):
+        try:
+            JOBS[job["kind"]](job)
+        except Exception:
+            Path(job["out"] + f".error{rank}").write_text(traceback.format_exc())
+            torch.distributed.destroy_process_group()
+            raise
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
