@@ -385,6 +385,28 @@ programs of the ``svt::`` operators) and runs it without the package:
               (b) and (c) are of processes sharing one card, not a scaling
               figure. The kernels line gains ``fused_block_bwd DP rank`` (B =
               128) and ``flash_attention_qkv_bwd TP rank`` (3 heads) rows.
+37. mesh-rest -- on two gloo ranks sharing the card (the phase-36 worker
+              processes), each four steps against its one-process run on the
+              modular route (phase 7's gates), a control that must fail, and
+              each rank's launch counts: (a) GPipe, ``sit_tiny_scan_age.yml``
+              at full width and depth, 6 blocks a stage, bs 256 in 4
+              microbatches (``flash_attention_qkv`` 6 x 4 a step each way on
+              each stage, ``patch_embed`` on stage 0), control stage 1's
+              block 8 dW_fc1 zeroed; (b) sequence sharding, SiT-tiny at bs 32
+              (``flash_attention`` on 161 local queries against 322 keys,
+              valid_len 321, 12 a step each way), control rank 0's block 5
+              dW_fc1 zeroed, and the kernel at that shape against its plain
+              version both ways (control: the pad key unmasked), timed
+              beside SDPA; (c) ``mssit_scan_age.yml`` and ``mssit_mpp.yml`` at
+              full width and depth, bs 4, ``mesh_model`` 2 (stage 0's 3 heads
+              split 1 / 2), phase 30's SGD for their AdamW and its update
+              gate (a float32 one-process run beside), control rank 1's
+              share of stage 2 block 0's dW_fc1 zeroed; (d) the pipeline config through ``run_training``
+              in those workers and ``cli.train --multihost --dist-backend
+              gloo`` under ``torchrun --nproc_per_node 2``: best MAE equal.
+              The kernels line gains the SP shape's ``flash_attention`` rows
+              and ``flash_attention_qkv_bwd`` rows at a PP microbatch and at
+              an MS-SiT TP rank's one head of dh 32.
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -424,6 +446,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4740,9 +4763,9 @@ def phase_mssit_slice(rng, fb, fused, models) -> dict:
 def phase_mssit_entry(fb, fused, models) -> None:
     """Phase 28: ``cli.test`` on ``configs/training/mssit_scan_age.yml`` (a
     synthetic npy split of MSSIT_ENTRY_N raw surfaces, a params npz written
-    from the port's weights), in a subprocess, bf16 and ``--set
-    tpu.quant=int8``: results.csv equal to in-process ``predict`` bit for
-    bit; then ``--set tpu.compute_dtype=float32`` in process: the modular
+    from the port's weights), in two subprocesses started together, bf16
+    and ``--set tpu.quant=int8``: results.csv equal to in-process
+    ``predict`` bit for bit; then ``--set tpu.compute_dtype=float32`` in process: the modular
     model, no kernel launches, results.csv equal to float32 ``predict`` bit
     for bit."""
     from surface_vision_transformers_tpu_torch.checkpoints.convert import (
@@ -4767,29 +4790,44 @@ def phase_mssit_entry(fb, fused, models) -> None:
         raw["testing"] = {"path_to_ckpt": str(tmp / "best_params.npz")}
         (tmp / "cfg.json").write_text(json.dumps(raw))
 
-        def csv_preds():
-            with open(tmp / "results.csv") as f:
+        def csv_preds(folder=tmp):
+            with open(folder / "results.csv") as f:
                 rows = list(csv.DictReader(f))
             targets = np.array([float(r["target"]) for r in rows], np.float32)
             if len(rows) != n or not np.array_equal(targets, labels):
                 raise AssertionError(f"results.csv: {len(rows)} rows, targets out of order")
             return np.array([float(r["pred"]) for r in rows], np.float32)
 
-        for label, extra, q in (("bf16", [], None), ("int8", ["--set", "tpu.quant=int8"], "int8")):
+        def cli_test(label, extra):
+            """cli.test in a subprocess on the weights in a folder of its own
+            (its results.csv lands beside them) -> (printed dict, seconds)."""
+            (tmp / label).mkdir()
+            shutil.copy(tmp / "best_params.npz", tmp / label / "best_params.npz")
+            cfg = dict(raw, testing={"path_to_ckpt": str(tmp / label / "best_params.npz")})
+            (tmp / label / "cfg.json").write_text(json.dumps(cfg))
             cmd = [sys.executable, "-m", "surface_vision_transformers_tpu_torch.cli.test",
-                   str(tmp / "cfg.json"), "--device", "cuda", *extra]
+                   str(tmp / label / "cfg.json"), "--device", "cuda", *extra]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
             if res.returncode:
                 raise AssertionError(f"cli.test ({label}) failed ({res.returncode}):\n{res.stderr}")
-            reported = ast.literal_eval(res.stdout.strip().splitlines()[-1])
-            got = csv_preds()
+            return ast.literal_eval(res.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        runs = (("bf16", [], None), ("int8", ["--set", "tpu.quant=int8"], "int8"))
+        with ThreadPoolExecutor(2) as pool:  # the two subprocesses started together
+            futures = [pool.submit(cli_test, label, extra) for label, extra, _ in runs]
+            done = [f.result() for f in futures]
+        for (label, extra, q), (reported, secs) in zip(runs, done):
+            got = csv_preds(tmp / label)
             same = fused.predict(model, sub, device="cuda", batch_size=bs, quant=q).reshape(-1)
             err = float(np.abs(got - same).max())
             shifted = float(np.abs(got - np.roll(same, 1)).max())
             mae = float(np.abs(got - labels).mean())
             phase("mssit-entry", f"cli.test {MSSIT_CFG.relative_to(ROOT)} ({label}) in "
-                  f"{time.perf_counter() - t0:.1f} s: {reported}; |results.csv - predict(batch "
+                  f"{secs:.1f} s (bf16 and int8 started together): {reported}; |results.csv - "
+                  f"predict(batch "
                   f"{bs}{', int8' if q else ''})| max {err:.6g} (must be 0; control, rows shifted "
                   f"by one: {shifted:.6g}); MAE of the csv {mae:.6f}")
             if err != 0 or shifted == 0 or abs(reported["mae"] - mae) > 1e-6:
@@ -5656,9 +5694,9 @@ def phase_mssit_train_entry(fb) -> None:
     MS-SiT configs (two epochs on a synthetic split of 64 + 64 raw
     surfaces), and ``cli.train --set tpu.fused_train=False`` (the modular
     bf16 model, its attention on ``flash_attention_qkv`` forward and
-    backward; batch cut to 16), each in a subprocess and equal to
-    ``run_training`` in this process on the same ``--set`` overrides, whose
-    launches show the route."""
+    backward; batch cut to 16), each in a subprocess (the three started
+    together) and equal to ``run_training`` in this process on the same
+    ``--set`` overrides, whose launches show the route."""
     from surface_vision_transformers_tpu_torch.cli._common import parse_config
     from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
     from surface_vision_transformers_tpu_torch.train.runner import run_training
@@ -5675,18 +5713,33 @@ def phase_mssit_train_entry(fb) -> None:
                 ("pretrain", MSSIT_MPP_CFG, [], "fused"),
                 ("train", MSSIT_CFG, ["tpu.fused_train=False", "training.bs=16",
                                       "training.bs_val=16"], "modular")]
-        for i, (tool, cfg, extra, route) in enumerate(runs):
+
+        def argv_of(i, cfg, extra):
             sets = [f"data.data_path={tmp}", "training.epochs=2", "training.val_epoch=1",
                     f"logging.folder_to_save_model={tmp / f'cli{i}'}", *extra]
-            argv = [str(cfg), "--device", "cuda", *[a for s_ in sets for a in ("--set", s_)]]
+            return [str(cfg), "--device", "cuda", *[a for s_ in sets for a in ("--set", s_)]]
+
+        def cli_run(i, tool, cfg, extra):
             t0 = time.perf_counter()
             res = subprocess.run(
                 [sys.executable, "-m", f"surface_vision_transformers_tpu_torch.cli.{tool}",
-                 *argv], cwd=ROOT, capture_output=True, text=True, timeout=900)
+                 *argv_of(i, cfg, extra)], cwd=ROOT, capture_output=True, text=True,
+                timeout=900)
             if res.returncode:
                 raise AssertionError(f"cli.{tool} failed ({res.returncode}):\n{res.stderr}")
-            cli = ast.literal_eval(res.stdout.strip().splitlines()[-1])
-            t_cli = time.perf_counter() - t0
+            return ast.literal_eval(res.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+        # the three subprocesses started together (each its own run folder); the
+        # in-process runs after them, one at a time
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(len(runs)) as pool:
+            futures = [pool.submit(cli_run, i, tool, cfg, extra)
+                       for i, (tool, cfg, extra, _) in enumerate(runs)]
+            clis = [f.result() for f in futures]
+        for i, (tool, cfg, extra, route) in enumerate(runs):
+            cli, t_cli = clis[i]
+            argv = argv_of(i, cfg, extra)
             raw, _ = parse_config("in-process", argv)
             raw["logging"]["folder_to_save_model"] = str(tmp / f"in{i}")
             if tool == "pretrain":
@@ -5705,7 +5758,8 @@ def phase_mssit_train_entry(fb) -> None:
             bwd = launches["fused_block_bwd"], launches["flash_attention_qkv_bwd"]
             want_bwd = (12 * steps, 0) if route == "fused" else (0, 12 * steps)
             phase("mssit-train-entry", f"cli.{tool} {Path(cfg).relative_to(ROOT)} "
-                  f"{' '.join('--set ' + e for e in extra)} in {t_cli:.1f} s: {metric} "
+                  f"{' '.join('--set ' + e for e in extra)} in {t_cli:.1f} s (the three "
+                  f"started together): {metric} "
                   f"{cli[metric]!r} at epoch {cli['best_epoch']}, val by epoch {vals[0]}; "
                   f"in process ({time.perf_counter() - t0:.1f} s): {mine[metric]!r}, val "
                   f"{vals[1]} (must be equal); tpu.fused_train read as {exp.fused_train}; "
@@ -6684,7 +6738,7 @@ def mesh_run(trainer, batches, rows=None):
             loss = trainer.optimizer_step(xb, yb, ones)[0]
         else:
             loss = trainer.layout.all_reduce(trainer.optimizer_step(
-                xb[rows], yb[rows], ones[rows], total=B)[0].reshape(1))
+                xb[rows], None if yb is None else yb[rows], ones[rows], total=B)[0].reshape(1))
         losses.append(loss)
     events.append(torch.cuda.Event(enable_timing=True))
     events[-1].record()
@@ -6697,10 +6751,11 @@ def mesh_run(trainer, batches, rows=None):
 
 
 def mesh_worker(spec_file: str) -> None:
-    """One rank of phase 36's runs (``chip_smoke.py --mesh-rank SPEC``): the
-    process group from the spec (gloo, a file rendezvous) or from torchrun's
-    environment (NCCL); each run and its control, the launches this rank
-    made, saved to the spec's folder."""
+    """One rank of phase 36's and 37's runs (``chip_smoke.py --mesh-rank
+    SPEC``): the process group from the spec (gloo, a file rendezvous) or
+    from torchrun's environment (NCCL); each run and its control, the
+    launches this rank made, and the spec's ``entry`` config through
+    ``run_training`` where it has one, saved to the spec's folder."""
     spec = json.loads(Path(spec_file).read_text())
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6721,17 +6776,21 @@ def mesh_worker(spec_file: str) -> None:
            "world": torch.distributed.get_world_size()}
     for mode, shape, _ in spec["runs"]:
         t0 = time.perf_counter()
-        exp, model, batches = mesh_setup(mode)
+        exp, model, batches = (rest_setup if mode in REST_LABELS else mesh_setup)(mode)
         B = batches[0][0].shape[0]
         for label in ("run", "control"):
             mesh = parallel.make_mesh(*shape, device_type="cuda")
             trainer = Trainer(exp, copy.deepcopy(model),
-                              mesh=parallel.Layout(mesh, fsdp=True if mode == "fsdp" else None))
+                              mesh=parallel.Layout(mesh, fsdp=True if mode == "fsdp" else None,
+                                                   seq=exp.seq_sharding))
             lay = trainer.layout
             rows, _ = lay.batch_index_of(B)
             if label == "control" and mode == "dp":
                 rows = even_split(B, 0, lay.batch_count)[0]  # rank 0's, on every rank
-            if label == "control" and mode != "dp" and rank == torch.distributed.get_world_size() - 1:
+            elif label == "control" and mode in REST_LABELS:
+                if rank == REST_CONTROL_RANK[mode]:
+                    zero_grad_before_step(trainer, rest_control(mode, trainer.model))
+            elif label == "control" and rank == torch.distributed.get_world_size() - 1:
                 zero_grad_before_step(trainer, trainer.model.transformer.layers[5][1].fn.net[0])
             counters = zero_counts(fb)
             res = mesh_run(trainer, batches, torch.from_numpy(rows).cuda())
@@ -6741,6 +6800,11 @@ def mesh_worker(spec_file: str) -> None:
         del model, batches
         torch.cuda.empty_cache()
         out[f"{mode} seconds"] = time.perf_counter() - t0
+    if spec.get("entry"):
+        from surface_vision_transformers_tpu_torch.train.runner import run_training
+        from surface_vision_transformers_tpu_torch.utils.config import from_dict
+
+        out["entry"] = run_training(from_dict(spec["entry"]), device="cuda", progress=False)
     torch.save(out, Path(spec["out"]) / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -6760,10 +6824,10 @@ def zero_grad_before_step(trainer, linear) -> None:
     trainer.optimizer.step = zeroed
 
 
-def mesh_workers(tmp: Path, runs, world: int, backend: str) -> list:
-    """Run ``runs`` in ``world`` worker processes of this script (gloo:
-    file rendezvous; nccl: torchrun's variables for one rank) -> each
-    rank's results."""
+def mesh_workers(tmp: Path, runs, world: int, backend: str, entry=None) -> list:
+    """Run ``runs`` (and ``entry``, a raw config for ``run_training``) in
+    ``world`` worker processes of this script (gloo: file rendezvous; nccl:
+    torchrun's variables for one rank) -> each rank's results."""
     procs = []
     rdv = tmp / "rdv"
     port = None
@@ -6776,7 +6840,7 @@ def mesh_workers(tmp: Path, runs, world: int, backend: str) -> list:
     for r in range(world):
         spec = tmp / f"spec{r}.json"
         spec.write_text(json.dumps({"rdv": str(rdv) if backend == "gloo" else "", "rank": r,
-                                    "runs": runs, "out": str(tmp)}))
+                                    "runs": runs, "out": str(tmp), "entry": entry}))
         env = dict(os.environ)
         if backend == "nccl":
             env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
@@ -6799,7 +6863,7 @@ def mesh_workers(tmp: Path, runs, world: int, backend: str) -> list:
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def mesh_gate(label, run, plain, control, control_label) -> None:
+def mesh_gate(label, run, plain, control, control_label, name="mesh") -> None:
     """Phase 7's gate (``gate_runs``' tolerances: TRAIN_LOSS_TOL relative
     loss a step, TRAIN_UPD_TOL on every parameter's update) of a mesh run
     against its one-process reference; the control must fail it."""
@@ -6807,9 +6871,9 @@ def mesh_gate(label, run, plain, control, control_label) -> None:
     c_loss = max(abs(a - b) / abs(b) for a, b in zip(control[0], plain[0]))
     r, c = upd_ratio(run[3], plain[3]), upd_ratio(control[3], plain[3])
     worst = sorted(upd_ratios(run[3], plain[3]).items(), key=lambda kv: -kv[1])[:3]
-    phase("mesh", f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0])
+    phase(name, f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0])
           + "; one process " + " ".join(f"{v:.6g}" for v in plain[0]))
-    phase("mesh", f"{label}: max relative loss gap {loss_err:.4g} (tol {TRAIN_LOSS_TOL}); "
+    phase(name, f"{label}: max relative loss gap {loss_err:.4g} (tol {TRAIN_LOSS_TOL}); "
           f"worst |update - one-process update| / max |one-process update| {r:.4g} (tol "
           f"{TRAIN_UPD_TOL}; the worst three: " + ", ".join(f"{k} {v:.4g}" for k, v in worst)
           + f"); control, {control_label}: {c:.4g} (must exceed the tol), loss gap {c_loss:.4g}")
@@ -6955,14 +7019,21 @@ def phase_mesh(rng, fb, sit_module) -> dict:
         tmp = Path(tmp)
         (tmp / "gloo").mkdir()
         (tmp / "nccl").mkdir()
-        t0 = time.perf_counter()
-        gloo = mesh_workers(tmp / "gloo", MESH_GLOO_RUNS, 2, "gloo")
-        t_gloo = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        nccl = mesh_workers(tmp / "nccl", MESH_NCCL_RUNS, 1, "nccl")
-        t_nccl = time.perf_counter() - t0
+        from concurrent.futures import ThreadPoolExecutor
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            return mesh_workers(*args), time.perf_counter() - t0
+
+        # the gloo pair and the NCCL rank started together (their step times
+        # are of processes sharing the card either way)
+        with ThreadPoolExecutor(2) as pool:
+            g = pool.submit(timed, tmp / "gloo", MESH_GLOO_RUNS, 2, "gloo")
+            c = pool.submit(timed, tmp / "nccl", MESH_NCCL_RUNS, 1, "nccl")
+            (gloo, t_gloo), (nccl, t_nccl) = g.result(), c.result()
     phase("mesh", f"(b)/(c) two ranks over {gloo[0]['backend']} on one card in {t_gloo:.1f} s; "
           f"FSDP over {nccl[0]['backend']} at world size {nccl[0]['world']} in {t_nccl:.1f} s "
+          "(started together) "
           "(gloo ended FSDP2 and DTensor on CUDA tensors with SIGSEGV: "
           "scripts/gloo_cuda_probe.py; FSDP's two-rank check runs on the CPU, "
           "tests/test_torch_parallel.py)")
@@ -7004,6 +7075,361 @@ def phase_mesh(rng, fb, sit_module) -> dict:
                                                    per_rank["dp"]["fused_block_bwd"]),
             "flash_attention_qkv_bwd TP rank": mesh_tp_row(
                 rng, per_rank["tp"]["flash_attention_qkv_bwd"])}
+
+
+# -- 37. mesh-rest: the pipeline, sequence sharding, MS-SiT (and MPP) under TP -----
+
+REST_PP_MB = 4  # (a): microbatches of 64 on the two stages at bs 256
+REST_SP_B = 32  # (b): every K|V all-gather goes through gloo's host copies
+REST_MS_B = 4  # (c): MS-SiT at 20,480 tokens a surface, its TP all-reduces through the host
+# (mode, mesh shape, control): two gloo ranks sharing the card, each run four steps
+# against its one-process run (phase 7's gates); the control must fail them
+REST_RUNS = [("pp", (1, 1, 1, 2), "stage 1's block 8 dW_fc1 zeroed"),
+             ("sp", (1, 1, 2), "rank 0's block 5 dW_fc1 zeroed"),
+             ("mssit_tp", (1, 1, 2), "rank 1's share of stage 2 block 0's dW_fc1 zeroed"),
+             ("mpp_tp", (1, 1, 2), "rank 1's share of stage 2 block 0's dW_fc1 zeroed")]
+REST_ENTRY = (256, 64, 2)  # (d): train / validation surfaces, epochs (1 step an epoch)
+REST_LABELS = {"pp": "(a) PP", "sp": "(b) SP", "mssit_tp": "(c) MS-SiT TP",
+               "mpp_tp": "(c) MPP-MS-SiT TP"}
+
+
+def rest_setup(mode):
+    """(exp, model on the card, two batches) of a phase-37 run, seeded init,
+    synthetic raw surfaces (MPP: no labels): SiT-tiny at full depth (PP,
+    bs 256, four microbatches; SP, bs REST_SP_B), or the shipped MS-SiT
+    configs at full width and depth (bs REST_MS_B) with phase 30's SGD in
+    place of their AdamW (whose first steps move every weight by about lr
+    whatever its gradient's size, so bf16 noise in a near-zero gradient
+    reads as a whole update); all on the modular route (fused_train off,
+    as in the JAX package under these meshes)."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.train.runner import build_model
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    cfg = {"pp": TRAIN_CFG, "sp": TRAIN_CFG, "mssit_tp": MSSIT_CFG, "mpp_tp": MSSIT_MPP_CFG}[mode]
+    exp = config.load_config(cfg)
+    B = {"pp": exp.training.bs, "sp": REST_SP_B}.get(mode, REST_MS_B)
+    exp = dataclasses.replace(exp, fused_train=False, mesh_pipe=2 if mode == "pp" else 1,
+                              pipe_microbatches=REST_PP_MB, seq_sharding=mode == "sp",
+                              training=dataclasses.replace(exp.training, bs=B))
+    if mode in ("mssit_tp", "mpp_tp"):
+        exp = dataclasses.replace(exp, optim=config.OptimConfig(name="SGD", lr=TRAIN_LR,
+                                                                momentum=0.9))
+    table = load_patch_table(exp.ico, exp.sub_ico).indices
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_model(exp, table).cuda()
+    data, labels = make_regression_dataset(2 * B, raw_vertices=40962, seed=SEED + 37)
+    data, labels = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+    return exp, model, [(data[s:s + B], None if exp.is_pretraining else labels[s:s + B])
+                        for s in (0, B)]
+
+
+REST_CONTROL_RANK = {"pp": 1, "sp": 0, "mssit_tp": 1, "mpp_tp": 1}
+
+
+def rest_control(mode, model) -> torch.nn.Linear:
+    """The fc1 whose weight gradient a phase-37 run's control zeroes, on
+    the rank ``REST_CONTROL_RANK`` names (stage 1 holds blocks 6-11)."""
+    if mode == "pp":
+        return model.transformer.layers[8][1].fn.net[0]
+    if mode == "sp":
+        return model.transformer.layers[5][1].fn.net[0]
+    enc = model.encoder if mode == "mpp_tp" else model
+    return enc.stages[2].blocks[0][1].fn.net[0]
+
+
+def rest_fp32_run(exp, model, batches):
+    """(c)'s float32 reference: the one-process run of the same masters in
+    float32 (plain attention), for ``mssit_update_gate``."""
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.train.runner import build_model
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    exp32 = dataclasses.replace(exp, compute_dtype="float32")
+    m32 = build_model(exp32, load_patch_table(exp.ico, exp.sub_ico).indices)
+    m32.load_state_dict(model.state_dict())
+    return mesh_run(Trainer(exp32, m32.cuda()), batches)
+
+
+def rest_mssit_gate(label, run, plain, fp32, control, control_label) -> None:
+    """(c)'s gate: phase 7's loss gate, and the update gate of phases 30-31
+    (``mssit_update_gate``: within MSSIT_UPD_TOL of the one-process bf16
+    update, or, for a tensor that bf16 itself updates farther than that
+    from float32, within MSSIT_FP32_MARGIN of bf16's distance to it); the
+    control must fail it."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run[0], plain[0]))
+    ok, worst, held = mssit_update_gate(run, plain, fp32)
+    c_ok, c_worst, _ = mssit_update_gate(control, plain, fp32)
+    phase("mesh-rest", f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0])
+          + "; one process bf16 " + " ".join(f"{v:.6g}" for v in plain[0]) + ", fp32 "
+          + " ".join(f"{v:.6g}" for v in fp32[0]))
+    phase("mesh-rest", f"{label}: max relative loss gap {loss_err:.4g} (tol {TRAIN_LOSS_TOL}); "
+          "worst |update - one-process update| / max |one-process update|: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + f" (tol {MSSIT_UPD_TOL}); "
+          f"held to the float32 rule (TP / one-process bf16 distance to the fp32 update, TP "
+          f"within {MSSIT_FP32_MARGIN}x): " + (", ".join(
+              f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in held.items()) or "none")
+          + f"; gate passed {ok}; control, {control_label}: worst " + ", ".join(
+              f"{k} {v:.4g}" for k, v in c_worst.items()) + f", gate passed {c_ok} (must be "
+          "False)")
+    if not all(math.isfinite(v) for v in run[0]) or loss_err > TRAIN_LOSS_TOL or not ok:
+        raise AssertionError(f"{label} disagrees with the one-process run")
+    if c_ok:
+        raise AssertionError(f"{label}: the control passed the gate")
+
+
+def rest_entry_config(data_dir: Path, out: Path) -> dict:
+    """(d)'s config: ``sit_tiny_scan_age.yml`` on the synthetic split, two
+    stages of four microbatches, validation every epoch."""
+    from surface_vision_transformers_tpu_torch.cli._common import apply_overrides
+    from surface_vision_transformers_tpu_torch.utils.config import read_config_file
+
+    epochs = REST_ENTRY[2]
+    return apply_overrides(read_config_file(TRAIN_CFG), [
+        f"data.data_path={data_dir}", f"training.epochs={epochs}", "training.val_epoch=1",
+        "training.bs_val=64", "tpu.mesh_pipe=2", f"tpu.pipe_microbatches={REST_PP_MB}",
+        f"logging.folder_to_save_model={out}"])
+
+
+def rest_qkv_row(rng, name, B, N, heads, dh, launches, label) -> dict:
+    """A kernels-line row: ``flash_attention_qkv_bwd`` on a rank's ``heads``
+    (B, N, dh) against its fp32 plain version, timed beside the plain
+    backward and SDPA's."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    hd = heads * dh
+    qkv = torch.cat([bf16_randn(rng, (B, N, 2 * hd), 1.5), bf16_randn(rng, (B, N, hd))], -1)
+    do = bf16_randn(rng, (B, N, hd))
+    o, lse = fa.flash_attention_qkv_fwd(qkv, heads)
+    got = fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads)
+    parts = []
+    for s in range(0, B, 64):
+        x, g = qkv[s:s + 64].float(), do[s:s + 64].float()
+        o32, lse32 = fa.flash_attention_qkv_reference(x, heads)
+        parts.append((o32, fa.flash_attention_qkv_bwd_reference(x, o32, lse32, g, heads)))
+    ref32 = [torch.cat(p) for p in zip(*parts)]
+    r32 = step_ratio([o, got], ref32, ref32)
+    err = (got.float() - ref32[1]).abs().max().item()
+    q, k, v = (t.detach().requires_grad_() for t in fa.split_qkv(qkv, heads))
+    sdpa_out = F.scaled_dot_product_attention(q, k, v)
+    do4 = do.view(B, N, heads, dh).transpose(1, 2)
+    k_ms = device_ms(lambda: fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads))
+    p_ms = cuda_ms(lambda: fa.flash_attention_qkv_bwd_reference(qkv, o, lse, do, heads), reps=3)
+    s_ms = device_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), do4, retain_graph=True))
+    flops = attention_flops(B, heads, N, N, dh)[1]
+    bound = bound_ms(flops, nbytes_of(qkv, o, lse, do, got))
+    phase("mesh-rest", f"{label}: flash_attention_qkv_bwd B={B} N={N} {heads} head(s) of "
+          f"{dh}: worst |err|/bound over o, dqkv vs fp32 plain {r32:.4g}, max abs err {err:.6g}; "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f}, SDPA "
+          f"{s_ms:.4f}, bound {bound[0]:.4f} ms by {bound[1]}; launches a rank {launches}")
+    if r32 > 1:
+        raise AssertionError(f"{label}: flash_attention_qkv_bwd disagrees with its plain version")
+    row = kernel_row(name, 427, err, k_ms, p_ms, bound, s_ms)
+    row["launches"] = launches
+    return row
+
+
+def rest_sp_rows(rng, launches) -> dict:
+    """The kernels-line rows of (b)'s shape: ``flash_attention`` forward and
+    backward on an SP rank's 161 queries against all 322 keys (valid_len
+    321), SiT-tiny's 3 heads at B = REST_SP_B, against their fp32 plain
+    versions, with a control (the pad key unmasked), timed beside the plain
+    versions and SDPA (a key mask)."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    B, nq, nk, vl = REST_SP_B, (N_TOKENS + 1) // 2, N_TOKENS + 1, N_TOKENS
+    qkv = torch.cat([bf16_randn(rng, (B, nk, 2 * HD), 1.5), bf16_randn(rng, (B, nk, HD))], -1)
+    q = heads4(qkv[:, nq:, :HD])  # rank 1's queries: the pad row among them
+    k, v = heads4(qkv[:, :, HD:2 * HD]), heads4(qkv[:, :, 2 * HD:])
+    do = heads4(bf16_randn(rng, (B, nq, HD)))
+    o, lse = fa.flash_attention_fwd(q, k, v, vl)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, vl)
+    o32, lse32 = fa.flash_attention_reference(q.float(), k.float(), v.float(), vl)
+    ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o32, lse32,
+                                           do.float(), vl)
+    r_fwd = step_ratio([o], [o32], [o32])
+    r_bwd = step_ratio(got, ref, ref)
+    c_fwd = step_ratio([fa.flash_attention_fwd(q, k, v, nk)[0]], [o32], [o32])  # control
+    err_f = (o.float() - o32).abs().max().item()
+    err_b = max((a.float() - b).abs().max().item() for a, b in zip(got, ref))
+    mask = (torch.arange(nk, device="cuda") < vl)[None, None, None, :]
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+    ms = {"fwd": device_ms(lambda: fa.flash_attention_fwd(q, k, v, vl)),
+          "bwd": device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, vl)),
+          "plain fwd": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, vl), reps=5),
+          "plain bwd": cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                                         vl), reps=5),
+          "sdpa fwd": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+          "sdpa bwd": device_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do,
+                                                            retain_graph=True))}
+    fwd_b, bwd_b = attention_bound(B, HEADS, nq, vl, (q, k, v, o, lse),
+                                   (q, k, v, o, lse, do, *got))
+    phase("mesh-rest", f"(b) SP shape: flash_attention B={B} {HEADS} heads, {nq} queries vs "
+          f"{nk} keys (valid {vl}): worst |err|/bound vs fp32 plain, forward {r_fwd:.4g}, "
+          f"backward {r_bwd:.4g} (max abs err {err_f:.6g} / {err_b:.6g}); control, the pad "
+          f"key unmasked: {c_fwd:.4g} (must exceed 1); ms: " + ", ".join(
+              f"{k_} {v_:.4f}" for k_, v_ in ms.items())
+          + f"; bounds {fwd_b[0]:.4f} ms by {fwd_b[1]} / {bwd_b[0]:.4f} ms by {bwd_b[1]}; "
+          f"launches a rank in (b) {launches}")
+    if max(r_fwd, r_bwd) > 1 or c_fwd <= 1:
+        raise AssertionError("(b): flash_attention at the SP shape disagrees with its plain "
+                             "version, or the control passed")
+    rows = {}
+    for key, line, err, bound in (("fwd", 203, err_f, fwd_b), ("bwd", 233, err_b, bwd_b)):
+        name = "flash_attention SP rank" + ("" if key == "fwd" else " bwd")
+        rows[name] = kernel_row(name, line, err, ms[key], ms[f"plain {key}"], bound,
+                                ms[f"sdpa {key}"])
+        rows[name]["launches"] = launches["flash_attention" + ("" if key == "fwd" else "_bwd")]
+    return rows
+
+
+def stop(proc) -> None:
+    """End ``proc`` if it still runs: SIGTERM (torchrun passes it to its
+    workers), then SIGKILL after 30 s."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def rest_cli(tmp: Path):
+    """(d): start ``cli.train --multihost --dist-backend gloo`` under
+    torchrun with two processes on the card and ``tpu.mesh_pipe=2`` -> (the
+    process, its start time)."""
+    sets = [f"{k}={v}" for k, v in (("data.data_path", tmp / "entry"),
+                                    ("training.epochs", REST_ENTRY[2]), ("training.val_epoch", 1),
+                                    ("training.bs_val", 64), ("tpu.mesh_pipe", 2),
+                                    ("tpu.pipe_microbatches", REST_PP_MB),
+                                    ("logging.folder_to_save_model", tmp / "cli"))]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "surface_vision_transformers_tpu_torch.cli.train", str(TRAIN_CFG),
+           *[a for s in sets for a in ("--set", s)], "--multihost", "--dist-backend", "gloo",
+           "--device", "cuda"]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), time.perf_counter()
+
+
+def rest_cli_gate(proc, t0, want: dict) -> None:
+    """(d)'s gate: the CLI's best MAE must equal the same config's
+    ``run_training`` in the mesh workers."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        stop(proc)
+    if proc.returncode:
+        raise AssertionError(f"cli.train under torchrun failed ({proc.returncode}):\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    out = ast.literal_eval(stdout.strip().splitlines()[-1])
+    steps = (REST_ENTRY[2] - 1) * math.ceil(REST_ENTRY[0] / MESH_B)
+    phase("mesh-rest", f"(d) cli.train --multihost --dist-backend gloo under torchrun "
+          f"--nproc_per_node 2, tpu.mesh_pipe=2, {REST_PP_MB} microbatches, on {REST_ENTRY[0]} + "
+          f"{REST_ENTRY[1]} synthetic surfaces, {REST_ENTRY[2]} epochs (started beside the mesh "
+          f"workers): {time.perf_counter() - t0:.1f} "
+          f"s, mesh {out.get('mesh')}, process group {out.get('process_group')}; best MAE "
+          f"{out['best_mae']!r} vs run_training in the mesh workers {want['best_mae']!r}; step "
+          f"time (host clock, epochs 2..{REST_ENTRY[2]}) "
+          f"{out['phases_s']['train'] / steps * 1e3:.3f} ms; {card()} (the backend is named by "
+          "--dist-backend: NCCL refuses two ranks on one card)")
+    if out.get("process_group") != {"backend": "gloo", "world_size": 2} or out.get(
+            "mesh", {}).get("pipe") != 2:
+        raise AssertionError(f"(d) did not run a two-stage pipeline over gloo: {out}")
+    if out["best_mae"] != want["best_mae"] or out["best_epoch"] != want["best_epoch"]:
+        raise AssertionError("(d): cli.train's best MAE differs from run_training's")
+
+
+def phase_mesh_rest(rng, fb) -> dict:
+    """Phase 37: (a) GPipe over two stages, (b) sequence sharding, (c)
+    MS-SiT and MPP-MS-SiT under TP at uneven heads, each on two gloo ranks
+    sharing the card, four steps against its one-process run with a
+    control that must fail; (d) cli.train --multihost under torchrun
+    through the pipeline -> the kernels line's rows of these ranks."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "gloo").mkdir()
+        (tmp / "entry").mkdir()
+        n_train, n_val, _ = REST_ENTRY
+        data, labels = make_regression_dataset(n_train + n_val, raw_vertices=40962,
+                                               seed=SEED + 38)
+        for split, sl in (("train", slice(0, n_train)), ("validation", slice(n_train, None))):
+            np.save(tmp / "entry" / f"{split}_data.npy", data[sl])
+            np.save(tmp / "entry" / f"{split}_labels.npy", labels[sl])
+        del data
+        cli, t_cli = rest_cli(tmp)
+        try:
+            t0 = time.perf_counter()
+            gloo = mesh_workers(tmp / "gloo", REST_RUNS, 2, "gloo",
+                                entry=rest_entry_config(tmp / "entry", tmp / "inproc"))
+            phase("mesh-rest", f"(a)-(c) and (d)'s run_training on two gloo ranks sharing the "
+                  f"card in {time.perf_counter() - t0:.1f} s, (d)'s CLI beside them (" + ", ".join(
+                      f"{REST_LABELS[m]} {gloo[0][f'{m} seconds']:.1f} s" for m, _, _ in REST_RUNS)
+                  + f"; {card()})")
+        except BaseException:
+            stop(cli)
+            raise
+        rest_cli_gate(cli, t_cli, gloo[0]["entry"])
+    ms_want = dict(flash_attention_qkv=12 * MESH_STEPS, flash_attention_qkv_bwd=12 * MESH_STEPS)
+    want = {
+        "pp": [dict(flash_attention_qkv=6 * REST_PP_MB * MESH_STEPS,
+                    flash_attention_qkv_bwd=6 * REST_PP_MB * MESH_STEPS,
+                    patch_embed=REST_PP_MB * MESH_STEPS),
+               dict(flash_attention_qkv=6 * REST_PP_MB * MESH_STEPS,
+                    flash_attention_qkv_bwd=6 * REST_PP_MB * MESH_STEPS)],
+        "sp": [dict(flash_attention=12 * MESH_STEPS, flash_attention_bwd=12 * MESH_STEPS,
+                    patch_embed=MESH_STEPS)] * 2,
+        "mssit_tp": [dict(ms_want, patch_embed=MESH_STEPS)] * 2,
+        "mpp_tp": [ms_want] * 2}
+    one_want = {"pp": dict(ms_want, patch_embed=MESH_STEPS),
+                "sp": dict(ms_want, patch_embed=MESH_STEPS),
+                "mssit_tp": dict(ms_want, patch_embed=MESH_STEPS), "mpp_tp": ms_want}
+    per_rank = {}
+    for mode, shape, control in REST_RUNS:
+        exp, model, batches = rest_setup(mode)
+        counters = zero_counts(fb)
+        plain = mesh_run(Trainer(exp, copy.deepcopy(model)), batches)
+        one = read_counts(counters)
+        label = f"{REST_LABELS[mode]} {shape} over {gloo[0]['backend']}"
+        if mode in ("mssit_tp", "mpp_tp"):
+            rest_mssit_gate(label, gloo[0][f"{mode} run"], plain,
+                            rest_fp32_run(exp, model, batches),
+                            gloo[0][f"{mode} control"], control)
+        else:
+            mesh_gate(label, gloo[0][f"{mode} run"], plain, gloo[0][f"{mode} control"], control,
+                      name="mesh-rest")
+        del model, batches
+        torch.cuda.empty_cache()
+        label = REST_LABELS[mode]
+        ranks = [r[f"{mode} run"][4] for r in gloo]
+        expect = [{**{k: 0 for k in one}, **w} for w in want[mode]]
+        expect_one = {**{k: 0 for k in one}, **one_want[mode]}
+        phase("mesh-rest", f"{label}: launches rank 0 {ranks[0]}, rank 1 {ranks[1]}, one process "
+              f"{one}; expected {expect}, one process {expect_one}")
+        if ranks != expect or one != expect_one:
+            raise AssertionError(f"{label}: the kernels were not launched as expected")
+        step = [np.median(r[f"{mode} run"][2]) for r in gloo]
+        phase("mesh-rest", f"{label}: step time, steps 2..{MESH_STEPS} (CUDA-event median a rank: "
+              + ", ".join(f"{v:.3f}" for v in step) + " ms; host clock "
+              + ", ".join(f"{r[f'{mode} run'][1] * 1e3:.3f}" for r in gloo)
+              + f" ms) -- two processes on one card through gloo's host copies, not a scaling "
+              f"figure; one process {np.median(plain[2]):.3f} ms; {card()}")
+        per_rank[mode] = ranks
+    rows = rest_sp_rows(rng, per_rank["sp"][0])
+    rows["flash_attention_qkv_bwd PP rank"] = rest_qkv_row(
+        rng, "flash_attention_qkv_bwd PP rank", MESH_B // REST_PP_MB, N_TOKENS, HEADS, DH,
+        per_rank["pp"][0]["flash_attention_qkv_bwd"], "(a) a microbatch of a stage")
+    # stage 0's axial fold at bs 4: 256 sequences of 320, rank 0's one head of 3
+    rows["flash_attention_qkv_bwd dh32 TP rank"] = rest_qkv_row(
+        rng, "flash_attention_qkv_bwd dh32 TP rank", 64 * REST_MS_B, 320, 1, 32,
+        per_rank["mssit_tp"][0]["flash_attention_qkv_bwd"], "(c) rank 0 at stage 0's axial fold")
+    return rows
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -7412,6 +7838,10 @@ def main() -> None:
     # -- 36. mesh (every count zeroed just before each run, in each rank)
     start("mesh")
     kernels.update(phase_mesh(rng, fb, sit_module))
+
+    # -- 37. mesh-rest (every count zeroed just before each run, in each rank)
+    start("mesh-rest")
+    kernels.update(phase_mesh_rest(np.random.default_rng(SEED + 37), fb))
     print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)
@@ -7421,7 +7851,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 36's runs
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 36's or 37's runs
         mesh_worker(sys.argv[2])
     else:
         main()

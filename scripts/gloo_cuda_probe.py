@@ -9,12 +9,17 @@ file rendezvous under /tmp, both ranks on cuda:0), so one that crashes its
 process does not hide the next: all_reduce (fp32 and bf16), broadcast,
 all_gather, all_gather_into_tensor, reduce_scatter_tensor,
 broadcast_object_list, barrier, a ('data', 'fsdp', 'model') DeviceMesh's
-group, FSDP2 (``fully_shard``) on two Linear layers for one SGD step, and a
-DTensor's ``distribute_tensor`` / ``full_tensor``. Prints one line a rank
-and collective: ``ok`` with the result, ``FAIL`` with the exception, or the
+group, FSDP2 (``fully_shard``) on two Linear layers for one SGD step, a
+DTensor's ``distribute_tensor`` / ``full_tensor``, and point-to-point
+``send`` / ``recv`` (fp32 and bf16, a (2, 3) slice of a wider tensor too)
+and ``isend`` / ``irecv`` both ways at once. Prints one line a rank and
+collective: ``ok`` with the result, ``FAIL`` with the exception, or the
 return code of a process that died (-11: SIGSEGV). Phase 36 of
 ``chip_smoke.py`` runs DP and TP over gloo and FSDP over NCCL by what this
-finds.
+finds, and the pipeline's handoff (``parallel/pipeline.py``) stages through
+the host or not by it.
+
+    python3 scripts/gloo_cuda_probe.py send_recv isend_irecv   # some only
 """
 
 from __future__ import annotations
@@ -103,6 +108,32 @@ def _broadcast_object_list(rank, dev):
     return names
 
 
+def _send_recv(rank, dev, dtype=torch.float32):
+    """Rank 0 sends a slice of a wider tensor to rank 1, which receives it
+    into a slice of its own, then the other way."""
+    out = []
+    for src in (0, 1):
+        buf = torch.zeros(4, 6, device=dev, dtype=dtype)
+        if rank == src:
+            buf[:2, :3] = torch.arange(6, device=dev, dtype=dtype).view(2, 3) + 10 * src
+            dist.send(buf[:2, :3].contiguous(), 1 - src)
+        else:
+            part = torch.empty(2, 3, device=dev, dtype=dtype)
+            dist.recv(part, src)
+            out.append(part.float().sum().item())
+    return out
+
+
+def _isend_irecv(rank, dev):
+    """Both ranks send and receive at once (a ring of two)."""
+    mine = torch.full((3,), float(rank + 1), device=dev)
+    got = torch.empty(3, device=dev)
+    ops = [dist.P2POp(dist.isend, mine, 1 - rank), dist.P2POp(dist.irecv, got, 1 - rank)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return got.tolist()
+
+
 OPS = {
     "all_reduce": _all_reduce,
     "all_reduce_bf16": lambda r, d: _all_reduce(r, d, torch.bfloat16),
@@ -115,6 +146,9 @@ OPS = {
     "device_mesh": _mesh_group,
     "fsdp2": _fsdp2,
     "dtensor": _dtensor,
+    "send_recv": _send_recv,
+    "send_recv_bf16": lambda r, d: _send_recv(r, d, torch.bfloat16),
+    "isend_irecv": _isend_irecv,
 }
 
 
@@ -128,8 +162,8 @@ def rank_main(name: str, rank: int, rdv: str) -> None:
     dist.destroy_process_group()
 
 
-def main() -> None:
-    for name in OPS:
+def main(names=None) -> None:
+    for name in names or OPS:
         rdv = f"/tmp/gloo_cuda_probe_{os.getpid()}_{name}"
         t0 = time.time()
         procs = [subprocess.Popen([sys.executable, __file__, name, str(r), rdv],
@@ -150,7 +184,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1:
+    if len(sys.argv) == 4 and sys.argv[2] in ("0", "1"):
         rank_main(sys.argv[1], int(sys.argv[2]), sys.argv[3])
     else:
-        main()
+        main(sys.argv[1:])

@@ -1,10 +1,12 @@
 """Shared CLI plumbing: ``python -m surface_vision_transformers_tpu_torch.cli.
-<tool> <config> [--set dotted.key=value ...] [--device DEV] [--multihost]``
-(train and pretrain also ``[--resume RUN_DIR]``; preprocess, which runs on
-the host, without ``--device`` or ``--multihost``), the JAX package's
-positional-config UX plus an explicit device. ``--multihost`` joins the
-process group (``parallel.initialize_multihost``, torchrun's environment)
-before the runner, and leaves it at exit."""
+<tool> <config> [--set dotted.key=value ...] [--device DEV] [--multihost
+[--dist-backend nccl|gloo]]`` (train and pretrain also ``[--resume
+RUN_DIR]``; preprocess, which runs on the host, without ``--device`` or
+``--multihost``), the JAX package's positional-config UX plus an explicit
+device. ``--multihost`` joins the process group
+(``parallel.initialize_multihost``, torchrun's environment) before the
+runner, and leaves it at exit; ``--dist-backend`` names its backend where
+the default (NCCL on CUDA) will not do, as for ranks sharing one GPU."""
 
 from __future__ import annotations
 
@@ -60,24 +62,30 @@ def parse_config(description: str, argv=None, with_resume: bool = False,
             help="join the torch.distributed process group first (one process a "
             "GPU, e.g. under torchrun; rank, world size and address from its "
             "environment); tpu.mesh_* then lays the run out over the ranks")
+        p.add_argument(
+            "--dist-backend", choices=("nccl", "gloo"), default=None,
+            help="with --multihost, the torch.distributed backend (default nccl on "
+            "CUDA, gloo on the CPU); gloo lets several ranks share one GPU, which "
+            "NCCL refuses")
     args = p.parse_args(argv)
     raw = apply_overrides(read_config_file(args.config), args.set)
     if not with_device:
         return raw
     if args.multihost:
-        start_multihost()
+        start_multihost(args.dist_backend)
     if with_resume:
         return raw, args.device, args.resume
     return raw, args.device
 
 
-def start_multihost() -> None:
-    """``initialize_multihost()``; a group it made is destroyed at exit."""
+def start_multihost(backend: str | None = None) -> None:
+    """``initialize_multihost(backend=backend)``; a group it made is
+    destroyed at exit."""
     import torch.distributed as dist
 
     from surface_vision_transformers_tpu_torch.parallel import initialize_multihost
 
     joined = dist.is_initialized()
-    initialize_multihost()
+    initialize_multihost(backend=backend)
     if dist.is_initialized() and not joined:
         atexit.register(dist.destroy_process_group)

@@ -42,6 +42,7 @@ from surface_vision_transformers_tpu_torch.models.mpp import (
 )
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG
+from surface_vision_transformers_tpu_torch.parallel.tp import copy_to, reduce_from
 
 # The JAX package's name for the reconstruction targets: raw (B, C, G)
 # input gathered through the encoder's table (and normalised as its
@@ -104,6 +105,30 @@ def window_mse(recon, target, mask, n_tokens, sample_weights=None):
     return masked_mse(recon, target, mask, n_tokens, sample_weights)
 
 
+def window_mse_cols(recon, target, mask, n_tokens, sample_weights, cols):
+    """A tensor-parallel rank's share of ``window_mse``: ``recon`` (B,
+    T_last, c1 - c0) its columns ``cols`` = (c0, c1) of the decoder's up *
+    P outputs a final-stage token, scored against the same columns of the
+    target and of the mask, over ``window_mse``'s whole denominator, so the
+    ranks' shares add up to the loss."""
+    B, T, P = target.shape
+    up = T // recon.shape[1]  # finest tokens a final-stage token
+    c0, c1 = cols
+    tgt = target.reshape(B, -1, up * P)[..., c0:c1]
+    m = mask.reshape(B, -1, up).repeat_interleave(P, -1)[..., c0:c1]
+    err = torch.where(m, (recon - tgt.float()).square(), 0.0)
+    if sample_weights is not None:
+        err = err * sample_weights[:, None, None]
+    if n_tokens is None and sample_weights is not None:
+        den = torch.clamp((sample_weights[:, None] * mask).sum() * P, min=1e-9)
+    elif n_tokens is None:
+        den = torch.clamp(mask.sum() * P, min=1)
+    else:
+        count = B if sample_weights is None else torch.clamp(sample_weights.sum(), min=1e-9)
+        den = count * n_tokens * P
+    return err.sum() / den
+
+
 class MPPMSSiT(nn.Module):
     """Masked-window pretraining around a (shared) MS-SiT encoder, with the
     call of ``models.mpp.MPP``: ``forward(batch, generator)`` -> (loss,
@@ -117,6 +142,7 @@ class MPPMSSiT(nn.Module):
         up = 4 ** (encoder.num_stages - 1)  # finest tokens per final-stage token
         self.mask_token = nn.Parameter(torch.randn(1, 1, encoder.patch_dim))
         self.to_original = nn.Linear(encoder.stage_dims()[-1], up * encoder.patch_dim)
+        self.tp = None  # a ``parallel.tp.TPGroup``: the decoder's outputs split
 
     def target(self, batch):
         return mssit_target_tokens(self.encoder, batch)
@@ -141,6 +167,13 @@ class MPPMSSiT(nn.Module):
             corrupted, mask, n_masked = self.corrupt(target, generator, **rows_kw(rows))
             n_tokens = n_masked * W
         feats = enc(corrupted, rng=rng, features=True)
+        tp = self.tp
+        if tp is not None:  # the rank's decoder columns; the loss summed over the axis
+            recon = F.linear(copy_to(feats.float(), tp), self.to_original.weight.float(),
+                             self.to_original.bias.float())
+            c0, c1, _ = tp.cols(self.to_original.weight.shape[0] * tp.size)
+            part = window_mse_cols(recon, target, mask, n_tokens, sample_weights, (c0, c1))
+            return reduce_from(part, tp), recon
         recon = F.linear(feats.float(), self.to_original.weight.float(),
                          self.to_original.bias.float())
         recon = recon.reshape(target.shape[0], enc.num_patches, enc.patch_dim)

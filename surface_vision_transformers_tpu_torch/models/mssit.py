@@ -58,6 +58,7 @@ from surface_vision_transformers_tpu_torch.models.sit import (
     _layer_norm,
     _linear,
     _PreNorm,
+    _tp_out,
     embed_raw,
 )
 from surface_vision_transformers_tpu_torch.ops.attention import kernel_route, plain_attention
@@ -68,6 +69,7 @@ from surface_vision_transformers_tpu_torch.ops.flash_attention import (
 )
 from surface_vision_transformers_tpu_torch.ops.patch_embed import table_tensor
 from surface_vision_transformers_tpu_torch.ops.patchify import rearrange_patched
+from surface_vision_transformers_tpu_torch.parallel.tp import copy_to
 
 CROSS_MIXES = ("axial", "parent", "none")
 
@@ -141,7 +143,10 @@ class WindowAttention(nn.Module):
     fused qkv projection, attention per group, a biased out-projection.
     With ``rng`` and ``dropout`` > 0: the plain softmax, dropout on its
     weights and after the out-projection (the JAX route rule takes no
-    kernel then)."""
+    kernel then). Under tensor parallelism (``tp`` set, ``parallel.tp``)
+    the rank computes its whole heads (uneven where the axis does not
+    divide them; their dropout masks cut from the whole heads' mask) and its
+    share of the out-projection, summed over the axis before the bias."""
 
     def __init__(self, dim, heads, dim_head, window, mix="window", attn_backend="auto",
                  dropout=0.0):
@@ -150,23 +155,33 @@ class WindowAttention(nn.Module):
         self.window, self.mix, self.attn_backend = window, mix, attn_backend
         self.to_qkv = nn.Linear(dim, 3 * heads * dim_head, bias=False)
         self.to_out = nn.Linear(heads * dim_head, dim)
+        self.tp = None  # a ``parallel.tp.TPGroup`` under tensor parallelism
 
     def forward(self, h, *, rng: DropoutRNG | None = None):
         B, T, _ = h.shape
         drop = self.dropout if rng is not None else 0.0
-        qkv = _linear(h, self.to_qkv)  # (B, T, 3 H dh), [q | k | v]
+        tp = self.tp
+        heads = self.heads if tp is None else tp.head_count(self.heads)
+        qkv = _linear(h if tp is None else copy_to(h, tp), self.to_qkv)  # [q | k | v]
         folded = fold_tokens(qkv, self.window, self.mix)
         if drop:
-            q, k, v = split_qkv(folded, self.heads)
-            keep = rng.keep(q.shape[:3] + (k.shape[2],), drop)
+            q, k, v = split_qkv(folded, heads)
+            if tp is None:
+                keep = rng.keep(q.shape[:3] + (k.shape[2],), drop)
+            else:
+                lo, hi = tp.heads(self.heads)
+                keep = rng.keep((q.shape[0], self.heads, *q.shape[2:3], k.shape[2]),
+                                drop)[:, lo:hi]
             out = merge_heads(plain_attention(q, k, v, None, keep, drop))
-        elif kernel_route(self.attn_backend, folded):
-            out = flash_attention_qkv(folded, self.heads)
+        elif kernel_route(self.attn_backend, folded) or (
+                tp is not None and self.attn_backend == "auto" and not folded.is_cuda):
+            # under TP the kernel's entry is taken on the CPU too (its plain version)
+            out = flash_attention_qkv(folded, heads)
         else:
-            out = merge_heads(plain_attention(*split_qkv(folded, self.heads)))
+            out = merge_heads(plain_attention(*split_qkv(folded, heads)))
         if folded is not qkv:
             out = unfold_tokens(out, B, T, self.window, self.mix)
-        out = _linear(out, self.to_out)
+        out = _linear(out, self.to_out) if tp is None else _tp_out(out, self.to_out, tp)
         return rng.drop(out, drop) if drop else out
 
 

@@ -23,11 +23,16 @@ when dropout is on, ``multi_head_attention`` (the tiled entry) beyond
 ``plain_attention``. The sequence is not padded (the kernels mask ragged
 edges), so there is no ``seq_pad``. Under tensor parallelism
 (``parallel.tp``: ``Attention.tp`` / ``FeedForward.tp`` set) each rank
-computes its H / model heads -- through ``flash_attention_qkv[_dropout]``,
-the kernels on CUDA bfloat16 and their plain versions on the CPU -- and
-its share of the MLP's hidden units, and each branch's partial products
-are summed over the 'model' axis before the bias. Sequence sharding is not
-ported.
+computes its whole heads (uneven where the axis does not divide them) --
+through ``flash_attention_qkv[_dropout]``, the kernels on CUDA bfloat16 and
+their plain versions on the CPU -- and its share of the MLP's hidden
+units, and each branch's partial products are summed over the 'model' axis
+before the bias. Under sequence sharding (``parallel.seq``: ``SiT.sp`` and
+``Attention.sp`` set) each rank computes its rows of the padded sequence
+and attends with its local queries to the all-gathered keys through
+``flash_attention`` (the kernel on CUDA bfloat16, its plain version on the
+CPU; the plain softmax under dropout, as the JAX route rule takes the
+explicit path there).
 
 Dropout (``dropout``, ``emb_dropout``) sits where the reference has it: on
 the attention probabilities, after the out-projection, after the GELU,
@@ -35,10 +40,12 @@ after fc2, and after the positions. It is on only when a forward gets a
 ``DropoutRNG`` (the JAX ``deterministic=False`` with a dropout rng), which
 draws every mask and kernel seed from explicit generators. Under a mesh
 (``DropoutRNG.rows`` set) each mask is drawn at the global batch's shape
-and the rank keeps its rows, so the masks are the single process's; the
-attention kernel's seed is offset by the rank's shard (``salt``), as the
-JAX package offsets it, so its masks differ from the single process's and
-between ranks. Serving and the fused training path run ``models.fused``.
+and the rank keeps its rows, so the masks are the single process's (under
+sequence sharding drawn at the padded sequence's shape and cut to the
+rank's rows, so they differ from the single process's where the padding
+does); the attention kernel's seed is offset by the rank's shard
+(``salt``), as the JAX package offsets it, so its masks differ from the
+single process's and between ranks. Serving and the fused training path run ``models.fused``.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from surface_vision_transformers_tpu_torch.ops.attention import (
 )
 from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     dropout_keep_mask,
+    flash_attention,
     flash_attention_qkv,
     flash_attention_qkv_dropout,
     merge_heads,
@@ -68,6 +76,12 @@ from surface_vision_transformers_tpu_torch.ops.patch_embed import (
 from surface_vision_transformers_tpu_torch.ops.patchify import (
     fused_patch_embed,
     rearrange_patched,
+)
+from surface_vision_transformers_tpu_torch.parallel.seq import (
+    gather_tokens,
+    local_rows,
+    pool,
+    zero_pad_rows,
 )
 from surface_vision_transformers_tpu_torch.parallel.tp import copy_to, reduce_from
 
@@ -85,6 +99,8 @@ class DropoutRNG:
         self.seeds = torch.Generator().manual_seed(seed)
         self.salt = salt
         self.rows = None  # a ``parallel.Rows``: this rank's rows of the batch
+        # (start, stop, padded length): this rank's tokens under sequence sharding
+        self.tokens = None
 
     def kernel_seed(self) -> int:
         s = int(torch.randint(0, 2**31 - 1, (), generator=self.seeds))
@@ -94,13 +110,19 @@ class DropoutRNG:
         """A keep mask of ``shape`` at ``rate``: True with probability 1 -
         rate. With ``rows`` set, drawn at the global batch's shape and cut to
         the rank's rows; ``cols`` (start, stop, total) the same on the last
-        dim (a tensor-parallel slice)."""
+        dim (a tensor-parallel slice); with ``tokens`` set, a (B, n, F)
+        mask the same on dim 1 (the rank's tokens)."""
         full = tuple(shape) if cols is None else (*shape[:-1], cols[2])
+        tok = self.tokens if len(full) == 3 else None
+        if tok is not None:
+            full = (full[0], tok[2], full[2])
 
         def draw(s):
             return torch.rand(s, generator=self.masks, device=self.device)
 
         u = draw(full) if self.rows is None else self.rows.draw(draw, full)
+        if tok is not None:
+            u = u[:, tok[0]:tok[1]]
         return (u >= rate) if cols is None else (u >= rate)[..., cols[0]:cols[1]]
 
     def drop(self, x, rate: float, cols=None):
@@ -160,17 +182,23 @@ class Attention(nn.Module):
         # index 1 is the reference's (weightless) dropout slot
         self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim), nn.Identity())
         self.tp = None  # a ``parallel.tp.TPGroup`` under tensor parallelism
+        self.sp = None  # a ``parallel.seq.SeqGroup`` under sequence sharding
 
     def forward(self, h, *, valid_len=None, rng: DropoutRNG | None = None):
+        """``h`` (B, N, dim); under sequence sharding the rank's rows, and
+        ``valid_len`` the sequence's length."""
         N = h.shape[1]
         tp = self.tp
-        heads = self.heads if tp is None else self.heads // tp.size
+        heads = self.heads if tp is None else tp.head_count(self.heads)
         qkv = _linear(h if tp is None else copy_to(h, tp), self.to_qkv)  # [q | k | v]
         drop = self.dropout if rng is not None else 0.0
-        # under TP the packed entry is taken on the CPU too (its plain version)
+        # under TP or SP the kernel's entry is taken on the CPU too (its plain version)
         wrapper = kernel_route(self.attn_backend, qkv) or (
-            tp is not None and self.attn_backend == "auto" and not qkv.is_cuda)
-        if wrapper and (drop or N <= MAX_PACKED_SEQ):
+            (tp is not None or self.sp is not None) and self.attn_backend == "auto"
+            and not qkv.is_cuda)
+        if self.sp is not None:
+            out = self._seq_attention(qkv, valid_len, rng, drop, wrapper)
+        elif wrapper and (drop or N <= MAX_PACKED_SEQ):
             if drop:
                 out = flash_attention_qkv_dropout(qkv, heads, valid_len, drop,
                                                   rng.kernel_seed())
@@ -190,6 +218,27 @@ class Attention(nn.Module):
         else:
             out = _tp_out(out, self.to_out[0], tp)
         return rng.drop(out, drop) if drop else out
+
+    def _seq_attention(self, qkv, n, rng, drop, wrapper):
+        """The rank's queries (its rows of qkv) against every rank's keys
+        and values (all-gathered), the keys past ``n`` masked, the pad rows'
+        outputs zeroed -> (B, n_local, H*dh)."""
+        B, nl, _ = qkv.shape
+        H, dh = self.heads, self.dim_head
+        inner = H * dh
+        kv = gather_tokens(qkv[..., inner:], self.sp)
+        q = qkv[..., :inner].reshape(B, nl, H, dh).transpose(1, 2)
+        k, v = (t.transpose(1, 2) for t in kv.view(B, kv.shape[1], 2, H, dh).unbind(2))
+        if drop:  # the plain softmax, as the JAX explicit path; rows of the whole mask
+            start = self.sp.rank * nl
+            keep = rng.keep((B, H, k.shape[2], k.shape[2]), drop)[:, :, start:start + nl]
+            o = plain_attention(q, k, v, n, keep, drop)
+        elif wrapper:
+            o = (multi_head_attention(q, k, v, n, backend=self.attn_backend) if qkv.is_cuda
+                 else flash_attention(q, k, v, n))
+        else:
+            o = plain_attention(q, k, v, n)
+        return zero_pad_rows(merge_heads(o), n, self.sp)
 
 
 def _tp_out(x, lin: nn.Linear, tp):
@@ -270,6 +319,7 @@ class SiT(nn.Module):
                                         attn_backend)
         self.mlp_head = nn.Sequential(nn.LayerNorm(dim, eps=1e-5),
                                       nn.Linear(dim, num_classes))
+        self.sp = None  # a ``parallel.seq.SeqGroup`` under sequence sharding
 
     @property
     def patch_dim(self) -> int:
@@ -300,14 +350,33 @@ class SiT(nn.Module):
         return self.embed_tokens(self.embed_patches(x), rng=rng)
 
     def encode(self, x, *, rng: DropoutRNG | None = None):
-        """Input -> (B, L+1, dim) encoded sequence."""
-        return self.transformer(self.embed(x, rng=rng), rng=rng)
+        """Input -> (B, L+1, dim) encoded sequence; under sequence sharding
+        the rank's rows of it, padded (``parallel.seq.local_rows``)."""
+        h = self.embed(x, rng=rng)
+        if self.sp is None:
+            return self.transformer(h, rng=rng)
+        n = h.shape[1]
+        if rng is not None:
+            rng.tokens = self.sp.rows(n)
+        try:
+            return self.transformer(local_rows(h, self.sp), valid_len=n, rng=rng)
+        finally:
+            if rng is not None:
+                rng.tokens = None
+
+    def pool_head(self, h):
+        """Encoded sequence (the rank's rows under sequence sharding) ->
+        (B, num_classes) float32: cls or mean pooling, float32 LayerNorm,
+        Linear."""
+        if self.sp is not None:
+            pooled = pool(h, self.num_patches + 1, self.pool, self.sp)
+        else:
+            pooled = h.mean(dim=1) if self.pool == "mean" else h[:, 0]
+        return _linear(_layer_norm(pooled, self.mlp_head[0]), self.mlp_head[1])
 
     def forward(self, x, *, rng: DropoutRNG | None = None):
         """-> (B, num_classes) float32; dropout on only with ``rng``."""
-        h = self.encode(x, rng=rng)
-        pooled = h.mean(dim=1) if self.pool == "mean" else h[:, 0]
-        return _linear(_layer_norm(pooled, self.mlp_head[0]), self.mlp_head[1])
+        return self.pool_head(self.encode(x, rng=rng))
 
     @classmethod
     def from_config(cls, cfg, **overrides) -> "SiT":

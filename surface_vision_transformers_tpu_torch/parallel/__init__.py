@@ -1,14 +1,16 @@
-"""Data, fully sharded and tensor parallelism over torch.distributed
-(counterpart of ``surface_vision_transformers_tpu.parallel``): the
-('data', 'fsdp', 'model') mesh, its placement rules and the per-rank feed
-(``mesh``), multi-process start-up (``multihost``), tensor parallelism
-(``tp``) and a model's training state on a mesh (``sharding``). The GPipe
-schedule (``tpu.mesh_pipe``) and sequence sharding (``tpu.seq_sharding``)
-are not ported yet.
+"""Data, fully sharded, tensor, sequence and pipeline parallelism over
+torch.distributed (counterpart of ``surface_vision_transformers_tpu.
+parallel``): the ('data', 'fsdp', 'model'[, 'pipe']) mesh, its placement
+rules and the per-rank feed (``mesh``), multi-process start-up
+(``multihost``), tensor parallelism by whole heads (``tp``), sequence
+sharding over 'model' (``seq``, ``tpu.seq_sharding``), the GPipe schedule
+over 'pipe' (``pipeline``, ``tpu.mesh_pipe``) and a model's training state
+on a mesh (``sharding``).
 """
 
 from surface_vision_transformers_tpu_torch.parallel.mesh import (
     AXES,
+    PIPE,
     Layout,
     Rows,
     batch_axes,
@@ -26,6 +28,7 @@ from surface_vision_transformers_tpu_torch.parallel.multihost import (
 
 __all__ = [
     "AXES",
+    "PIPE",
     "Layout",
     "Rows",
     "batch_axes",

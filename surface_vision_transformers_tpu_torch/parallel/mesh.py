@@ -4,16 +4,20 @@
 A run under a mesh computes what the single-process run of the same global
 batch computes. The mesh is a ``DeviceMesh`` of the world's ranks with axes
 
-    ('data', 'fsdp', 'model')
+    ('data', 'fsdp', 'model'[, 'pipe'])
 
-The batch is split over ('data', 'fsdp'): every rank draws what the single
-process draws (epoch order, corruption, augmentation, dropout masks) and
-keeps its rows (``Layout.batch_index_of``). Parameters are replicated on
-'data', sharded on dim 0 by FSDP2 (``fully_shard``) on 'fsdp', and split
-Megatron-style on 'model' (``parallel.tp``): the packed qkv and fc1 by their
-output features, the out-projection and fc2 by their input features, so
-each residual branch ends in one all-reduce. ``Layout`` holds a mesh's
-coordinates and process groups for the trainer.
+('pipe' only where ``pipe > 1``, as in the JAX package, so meshes without
+a pipeline keep their three axes). The batch is split over ('data',
+'fsdp'): every rank draws what the single process draws (epoch order,
+corruption, augmentation, dropout masks) and keeps its rows
+(``Layout.batch_index_of``). Parameters are replicated on 'data', sharded
+on dim 0 by FSDP2 (``fully_shard``) on 'fsdp', and split Megatron-style on
+'model' (``parallel.tp``): the packed qkv and fc1 by their output features,
+the out-projection and fc2 by their input features, so each residual branch
+ends in one all-reduce. Under ``tpu.seq_sharding`` the 'model' axis splits
+the tokens instead (``parallel.seq``) and the parameters stay whole there.
+'pipe' holds contiguous stages of the blocks (``parallel.pipeline``).
+``Layout`` holds a mesh's coordinates and process groups for the trainer.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.distributed as dist
 from surface_vision_transformers_tpu_torch.parallel.multihost import process_count
 
 AXES = ("data", "fsdp", "model")
+PIPE = "pipe"  # the fourth axis, present where mesh_pipe > 1
 
 
 def batch_axes(mesh) -> tuple:
@@ -37,32 +42,36 @@ def batch_axes(mesh) -> tuple:
     return tuple(a for a in ("data", "fsdp") if a in (mesh.mesh_dim_names or ()))
 
 
-def make_mesh(data: int = -1, fsdp: int = 1, model: int = 1, devices=None,
+def make_mesh(data: int = -1, fsdp: int = 1, model: int = 1, pipe: int = 1, devices=None,
               device_type: str | None = None):
     """The ('data', 'fsdp', 'model') ``DeviceMesh`` over the first
-    data * fsdp * model ranks. ``data=-1`` takes every rank the other axes
-    leave; ``devices`` is a rank count or a sequence of ranks (default: the
-    world). ``device_type`` defaults to 'cuda' where CUDA is available.
-    Needs torch.distributed initialised (``initialize_multihost``)."""
+    data * fsdp * model * pipe ranks, with a fourth axis 'pipe' where
+    ``pipe > 1``. ``data=-1`` takes every rank the other axes leave;
+    ``devices`` is a rank count or a sequence of ranks (default: the world).
+    ``device_type`` defaults to 'cuda' where CUDA is available. Needs
+    torch.distributed initialised (``initialize_multihost``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if devices is None:
         n = process_count()
     else:
         n = devices if isinstance(devices, int) else len(list(devices))
-    rest = fsdp * model
+    rest = fsdp * model * pipe
     if data == -1:
         if n % rest:
-            raise ValueError(f"{n} devices not divisible by fsdp*model={rest}")
+            raise ValueError(f"{n} devices not divisible by fsdp*model*pipe={rest}")
         data = n // rest
     if data * rest > n:
-        raise ValueError(f"mesh {data}x{fsdp}x{model} > {n} devices")
+        raise ValueError(f"mesh {data}x{fsdp}x{model}x{pipe} > {n} devices")
     if data * rest < n:
         # legal, but never silent: idle ranks must be a visible choice
-        warnings.warn(f"mesh {data}x{fsdp}x{model} uses {data * rest} of {n} "
+        warnings.warn(f"mesh {data}x{fsdp}x{model}x{pipe} uses {data * rest} of {n} "
                       f"devices; set mesh_data=-1 to consume the rest", stacklevel=2)
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if pipe > 1:
+        return init_device_mesh(device_type, (data, fsdp, model, pipe),
+                                mesh_dim_names=AXES + (PIPE,))
     return init_device_mesh(device_type, (data, fsdp, model), mesh_dim_names=AXES)
 
 
@@ -73,7 +82,7 @@ def _key(cfg, name: str, default: int) -> int:
 
 
 def mesh_from_config(tpu_cfg, devices=None, device_type: str | None = None):
-    """The run's mesh from the ``tpu.mesh_{data,fsdp,model}`` keys (an
+    """The run's mesh from the ``tpu.mesh_{data,fsdp,model,pipe}`` keys (an
     ``Experiment``, or the raw ``tpu`` dict); None when the run is one
     process and asks for no sharding, so that case runs as before."""
     n = process_count() if devices is None else (
@@ -81,14 +90,16 @@ def mesh_from_config(tpu_cfg, devices=None, device_type: str | None = None):
     data = _key(tpu_cfg, "mesh_data", -1)
     fsdp = _key(tpu_cfg, "mesh_fsdp", 1)
     model = _key(tpu_cfg, "mesh_model", 1)
-    if fsdp == 1 and model == 1 and data in (-1, 1) and n == 1:
+    pipe = _key(tpu_cfg, "mesh_pipe", 1)
+    if fsdp == 1 and model == 1 and pipe == 1 and data in (-1, 1) and n == 1:
         return None
-    return make_mesh(data=data, fsdp=fsdp, model=model, devices=devices,
+    return make_mesh(data=data, fsdp=fsdp, model=model, pipe=pipe, devices=devices,
                      device_type=device_type)
 
 
 def mesh_shape(mesh) -> dict:
-    """{'data': d, 'fsdp': f, 'model': m} of a mesh (the JAX results key)."""
+    """{'data': d, 'fsdp': f, 'model': m[, 'pipe': p]} of a mesh (the JAX
+    results key)."""
     return {name: int(size) for name, size in zip(mesh.mesh_dim_names, mesh.mesh.shape)}
 
 
@@ -96,13 +107,16 @@ def mesh_shape(mesh) -> dict:
 
 # Megatron-style TP by module name (JAX ``_TP_RULES``; torch Linear weights
 # are (out, in), JAX kernels (in, out)): qkv (``to_qkv``) and fc1 (``net.0``)
-# split their output features, the out-projection (``to_out.0``) and fc2
-# (``net.3``) their input features, the MPP decoder (``to_original``) its
-# output features. The packed qkv splits each of q, k and v by heads: the
-# rank's rows are a (3, H, dh, dim) view's [:, heads of the rank].
+# split their output features, the out-projection (a SiT's ``to_out.0``, an
+# MS-SiT window attention's ``to_out``) and fc2 (``net.3``) their input
+# features, the MPP decoders (``to_original``) their output features. The
+# packed qkv splits each of q, k and v by whole heads: the rank's rows are a
+# (3, H, dh, dim) view's [:, heads of the rank], the out-projection's
+# columns the same heads'.
 TP_RULES: list[tuple[str, int]] = [
     ("to_qkv.weight", 0),
     ("to_out.0.weight", 1),
+    ("to_out.weight", 1),
     ("net.0.weight", 0),  # fc1
     ("net.0.bias", 0),
     ("net.3.weight", 1),  # fc2
@@ -177,25 +191,35 @@ def even_split(n: int, index: int, count: int) -> tuple[np.ndarray, np.ndarray]:
 
 class Layout:
     """A mesh seen from this rank: its coordinates, the process groups of
-    its batch shard and its model axis, and the row rules. ``fsdp=True``
-    shards with FSDP2 on an 'fsdp' axis of size 1 too (default: where it is
-    wider), which runs FSDP2's machinery in one process."""
+    its batch shard, its model axis and its pipeline, and the row rules.
+    ``fsdp=True`` shards with FSDP2 on an 'fsdp' axis of size 1 too
+    (default: where it is wider), which runs FSDP2's machinery in one
+    process. ``seq=True`` (``tpu.seq_sharding``) gives the 'model' axis the
+    tokens instead of the heads."""
 
-    def __init__(self, mesh, fsdp: bool | None = None):
+    def __init__(self, mesh, fsdp: bool | None = None, seq: bool = False):
         self.mesh = mesh
         self.shape = mesh_shape(mesh)
         coord = mesh.get_coordinate()
         if coord is None:
             raise RuntimeError(f"rank {dist.get_rank()} lies outside the mesh {self.shape}")
-        self.data_index, self.fsdp_index, self.model_index = coord
+        self.data_index, self.fsdp_index, self.model_index = coord[:3]
         d, f, m = (self.shape[a] for a in AXES)
+        p = self.shape.get(PIPE, 1)
+        self.pipe_size, self.stage = p, (coord[3] if p > 1 else 0)
         self.batch_count = d * f
         self.batch_index = self.data_index * f + self.fsdp_index
         self.model_size = m
         self.fsdp = f > 1 if fsdp is None else fsdp
-        self.tp = m > 1
-        self.pure_dp = not self.fsdp and not self.tp
+        self.seq = seq and m > 1
+        self.tp = m > 1 and not seq
+        self.pipe = p > 1
+        self.pure_dp = not (self.fsdp or self.tp or self.seq or self.pipe)
         self.model_group = mesh.get_group("model") if m > 1 else None
+        self.pipe_group = mesh.get_group(PIPE) if p > 1 else None
+        # the global ranks of this rank's pipeline, stage by stage
+        self.pipe_ranks = (mesh.mesh[self.data_index, self.fsdp_index, self.model_index].tolist()
+                           if p > 1 else None)
         self.batch_group = None
         if self.batch_count > 1:
             if f == 1:
@@ -203,10 +227,10 @@ class Layout:
             elif d == 1:
                 self.batch_group = mesh.get_group("fsdp")
             else:  # every rank makes every group, in one order
-                ranks = mesh.mesh.reshape(d * f, m)
-                for j in range(m):
+                ranks = mesh.mesh.reshape(d * f, m * p)
+                for j in range(m * p):
                     g = dist.new_group(ranks[:, j].tolist())
-                    if j == self.model_index:
+                    if j == self.model_index * p + self.stage:
                         self.batch_group = g
 
     @property

@@ -1,6 +1,8 @@
 """A model and its training state on a mesh: placement (tensor
-parallelism on 'model', FSDP2 on 'fsdp'), the gradient sum over the batch
-shards, the clip norm, and full state dicts gathered for checkpoints and
+parallelism or sequence sharding on 'model', FSDP2 on 'fsdp', the stages
+of a pipeline on 'pipe'), the gradient sums over the batch shards (and over
+'model' under sequence sharding, over 'pipe' for the parameters every stage
+holds), the clip norm, and full state dicts gathered for checkpoints and
 laid out again on load, so the files are the single-process format and a
 run saved under one mesh resumes under another or under none.
 """
@@ -12,6 +14,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from surface_vision_transformers_tpu_torch.parallel.mesh import Layout
+from surface_vision_transformers_tpu_torch.parallel.pipeline import stage_blocks
+from surface_vision_transformers_tpu_torch.parallel.seq import SeqGroup
 from surface_vision_transformers_tpu_torch.parallel.tp import (
     TPGroup,
     apply_tensor_parallel,
@@ -23,25 +27,37 @@ from surface_vision_transformers_tpu_torch.parallel.tp import (
 
 class ShardedModel:
     """How one model lies on a mesh: ``split`` {parameter name: dim} of
-    its tensor-parallel slices; FSDP2 holds every parameter as a DTensor."""
+    its tensor-parallel slices; FSDP2 holds every parameter as a DTensor;
+    a pipeline stage holds the embedding, positions, CLS token and head and
+    its own blocks (the others are dropped: ``shapes`` keeps the whole
+    model's state-dict shapes, ``names`` its parameters' names in order)."""
 
     def __init__(self, model: torch.nn.Module, layout: Layout):
-        from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
-        from surface_vision_transformers_tpu_torch.models.sit import _PreNorm
+        from surface_vision_transformers_tpu_torch.models.sit import Attention, SiT, _PreNorm
 
         self.model, self.layout = model, layout
         self.tp = (TPGroup(layout.model_group, layout.model_size, layout.model_index)
                    if layout.tp else None)
         self.split: dict[str, int] = {}
-        if layout.tp and layout.fsdp:
+        if layout.fsdp and (layout.tp or layout.seq or layout.pipe):
             raise NotImplementedError(
-                "FSDP and tensor parallelism together (tpu.mesh_fsdp > 1 with "
-                "tpu.mesh_model > 1) are not ported yet")
+                "FSDP together with tensor parallelism, sequence sharding or a pipeline "
+                "(tpu.mesh_fsdp > 1 with tpu.mesh_model > 1 or tpu.mesh_pipe > 1) is not "
+                "ported yet")
+        self.shapes = {k: (v.shape, v.dtype) for k, v in model.state_dict().items()}
+        self.full_names = [n for n, p in model.named_parameters() if p.requires_grad]
         if self.tp is not None:
-            if any(isinstance(m, MSSiT) for m in model.modules()):
-                raise NotImplementedError(
-                    "MS-SiT under tensor parallelism (tpu.mesh_model > 1) is not ported yet")
             self.split = apply_tensor_parallel(model, self.tp)
+        if layout.seq:
+            sp = SeqGroup(layout.model_group, layout.model_size, layout.model_index)
+            for m in model.modules():
+                if isinstance(m, (SiT, Attention)):
+                    m.sp = sp
+        if layout.pipe:  # this stage's blocks only
+            mine = stage_blocks(model.depth, layout)
+            for i in range(model.depth):
+                if i not in mine:
+                    model.transformer.layers[i] = torch.nn.ModuleList()
         if layout.fsdp:
             from torch.distributed.fsdp import fully_shard
 
@@ -53,6 +69,17 @@ class ShardedModel:
             fully_shard(model, mesh=sub)
         self.names = {id(p): n for n, p in model.named_parameters()}
 
+    def _block_of(self, name: str) -> int | None:
+        """The encoder block a pipelined SiT's parameter belongs to, else
+        None (a parameter every stage holds)."""
+        if not name.startswith("transformer.layers."):
+            return None
+        return int(name.split(".")[2])
+
+    def _stage_of(self, name: str) -> int | None:
+        i = self._block_of(name)
+        return None if i is None else i // (self.model.depth // self.layout.pipe_size)
+
     # -- gradients --------------------------------------------------------------
 
     @property
@@ -62,42 +89,66 @@ class ShardedModel:
         sum."""
         return float(self.layout.batch_count) if self.layout.fsdp else 1.0
 
-    def sync_grads(self, params) -> None:
-        """Sum the gradients over the batch shards, in one flat all-reduce
-        (FSDP2 reduces its own in backward)."""
-        if self.layout.batch_group is None or self.layout.fsdp:
+    def _all_reduce(self, grads, group) -> None:
+        """Sum ``grads`` over ``group`` in place, in one flat all-reduce."""
+        if not grads or group is None:
             return
-        grads = [p.grad for p in params if p.grad is not None]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        self.layout.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         off = 0
         for g in grads:
             g.copy_(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
 
+    def sync_grads(self, params) -> None:
+        """Sum the gradients over the batch shards, in one flat all-reduce
+        (FSDP2 reduces its own in backward); first, under sequence sharding,
+        those of every parameter but the head's over 'model', and in a
+        pipeline those of the parameters every stage holds over 'pipe' (a
+        stage that did not use one gives zeros)."""
+        lay = self.layout
+        if lay.seq:
+            self._all_reduce([p.grad for p in params if p.grad is not None
+                              and not self.names[id(p)].startswith("mlp_head.")],
+                             lay.model_group)
+        if lay.pipe:
+            shared = [p for p in params if self._block_of(self.names[id(p)]) is None]
+            for p in shared:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self._all_reduce([p.grad for p in shared], lay.pipe_group)
+        if lay.fsdp:
+            return
+        self._all_reduce([p.grad for p in params if p.grad is not None], lay.batch_group)
+
     def grad_sq_norm(self, params) -> torch.Tensor:
         """The squared global norm of the gradients of ``params``: each
-        slice counted once (FSDP2 shards and TP slices summed over their
-        axis, replicated gradients taken as they are)."""
-        rep = fsdp = tp = 0.0
+        slice counted once (FSDP2 shards, TP slices and pipeline stages'
+        blocks summed over their axis, replicated gradients taken as they
+        are)."""
+        lay = self.layout
+        rep = fsdp = part = 0.0
+        dev = params[0].device
         for p in params:
             g = p.grad
             if g is None:
                 continue
+            name = self.names.get(id(p))
             if isinstance(g, DTensor):
                 fsdp = fsdp + g.to_local().float().square().sum()
-            elif self.names.get(id(p)) in self.split:
-                tp = tp + g.float().square().sum()
+            elif name in self.split or (lay.pipe and self._block_of(name) is not None):
+                part = part + g.float().square().sum()
             else:
                 rep = rep + g.float().square().sum()
-        total = rep
-        for part, group in ((fsdp, self.layout.mesh.get_group("fsdp") if self.layout.fsdp
-                             else None), (tp, self.layout.model_group)):
-            if isinstance(part, torch.Tensor) and group is not None:
-                part = part.clone()
-                dist.all_reduce(part, group=group)
-                total = total + part
-        return torch.as_tensor(total)
+        total = torch.zeros((), device=dev) + rep
+        sums = [(fsdp, lay.mesh.get_group("fsdp") if lay.fsdp else None),
+                (part, lay.pipe_group if lay.pipe else lay.model_group if lay.tp else None)]
+        for x, group in sums:
+            if group is not None:  # every rank of the group joins, with or without a share
+                x = torch.zeros((), device=dev) + x
+                dist.all_reduce(x, group=group)
+                total = total + x
+        return total
 
     # -- full state ---------------------------------------------------------------
 
@@ -118,22 +169,41 @@ class ShardedModel:
                                heads_of(self.model, name)).to(like.device)
         return full
 
+    def _from_stage(self, name: str, local, shape, dtype, device) -> torch.Tensor:
+        """A pipelined parameter's value (or moment) whole on every stage:
+        broadcast over 'pipe' from the stage that holds it (a collective)."""
+        lay = self.layout
+        owner = self._stage_of(name)
+        t = (local.contiguous() if owner == lay.stage
+             else torch.empty(shape, dtype=dtype, device=device))
+        dist.broadcast(t, lay.pipe_ranks[owner], group=lay.pipe_group)
+        return t
+
     def full_state_dict(self) -> dict:
         """``model.state_dict()`` as the single process holds it (a
         collective: every rank calls it)."""
-        return {k: self._full(k, v) for k, v in self.model.state_dict().items()}
+        own = {k: self._full(k, v) for k, v in self.model.state_dict().items()}
+        if not self.layout.pipe:
+            return own
+        dev = next(self.model.parameters()).device
+        return {k: own[k] if self._stage_of(k) is None else
+                self._from_stage(k, own.get(k), shape, dtype, dev)
+                for k, (shape, dtype) in self.shapes.items()}
 
     def load_full_state_dict(self, state: dict) -> None:
-        """Load a single-process state dict into the sharded model."""
+        """Load a single-process state dict into the sharded model (a
+        pipeline stage its own blocks of it)."""
         own = self.model.state_dict()
         self.model.load_state_dict({k: self._local(k, v, own[k]) if k in own else v
-                                    for k, v in state.items()})
+                                    for k, v in state.items() if k in own
+                                    or not self.layout.pipe})
 
     def _param_names(self, optimizer) -> list[str]:
         return [self.names[id(p)] for p in optimizer.params]
 
     def full_optimizer_state(self, optimizer) -> dict:
-        """``optimizer.state_dict()`` with every moment whole."""
+        """``optimizer.state_dict()`` with every moment whole (a pipeline's
+        in the single process's parameter order)."""
         sd = optimizer.state_dict()
         names = self._param_names(optimizer)
         opt = sd["opt"]
@@ -141,11 +211,42 @@ class ShardedModel:
         for i, st in opt["state"].items():
             state[i] = {k: (self._full(names[i], v) if isinstance(v, torch.Tensor)
                             and v.dim() else v) for k, v in st.items()}
+        if self.layout.pipe:
+            state = self._pipe_state(names, state)
+            groups = [{**g, "params": list(range(len(self.full_names)))}
+                      for g in opt["param_groups"]]
+            opt = {**opt, "param_groups": groups}
         return {**sd, "opt": {**opt, "state": state}}
+
+    def _pipe_state(self, names: list[str], state: dict) -> dict:
+        """The moments of every parameter of the whole model, by its index
+        in the single process's order, each broadcast from the stage that
+        holds it (empty before the first step, as on every stage)."""
+        if not state:
+            return state
+        by_name = {names[i]: st for i, st in state.items()}
+        like = next(iter(state.values()))
+        dev = next(self.model.parameters()).device
+        out = {}
+        for j, name in enumerate(self.full_names):
+            mine = by_name.get(name)
+            shape = self.shapes[name][0]
+            out[j] = {k: (self._from_stage(name, None if mine is None else mine[k], shape,
+                                           v.dtype, dev)
+                          if self._stage_of(name) is not None and v.dim() else
+                          (mine or like)[k]) for k, v in like.items()}
+        return out
 
     def load_full_optimizer_state(self, optimizer, sd: dict) -> None:
         names = self._param_names(optimizer)
         opt = sd["opt"]
+        if self.layout.pipe:  # the stage's parameters' entries, renumbered
+            index = {n: j for j, n in enumerate(self.full_names)}
+            pick = [index[n] for n in names]
+            opt = {**opt, "state": {i: opt["state"][j] for i, j in enumerate(pick)
+                                    if j in opt["state"]},
+                   "param_groups": [{**g, "params": list(range(len(names)))}
+                                    for g in opt["param_groups"]]}
         state = {}
         for i, st in opt["state"].items():
             p = optimizer.params[int(i)]

@@ -28,13 +28,14 @@ under MPP an ``MPPMSSiT`` around one; its npz files are JAX ``MSSiT`` /
 ``MPPMSSiT`` trees. ``training.load_weights_imagenet`` with
 ``weights.imagenet`` set lays a local timm ViT state dict over a SiT's
 blocks (with the flag alone, the seeded init, as in the JAX package).
-``tpu.mesh_{data,fsdp,model}`` (or more than one process) train under a
-mesh (``parallel.mesh_from_config``; ``train.trainer`` says how): every
-rank computes, rank 0 alone writes files and prints, and the results gain
-``mesh``. Not ported (they raise): pipelines (``tpu.mesh_pipe``), sequence
-sharding, MS-SiT under tensor parallelism, FSDP with tensor parallelism,
-``tpu.profile_epoch`` and ``tpu.debug_nans`` away from their defaults, and
-ImageNet initialisation of an MS-SiT or MPP model.
+``tpu.mesh_{data,fsdp,model,pipe}`` (or more than one process) train under
+a mesh (``parallel.mesh_from_config``; ``train.trainer`` says how; with
+``tpu.seq_sharding`` the 'model' axis splits the tokens): every rank
+computes, rank 0 alone writes files and prints, and the results gain
+``mesh``. Not ported (they raise): FSDP with tensor parallelism, sequence
+sharding or a pipeline, ``tpu.profile_epoch`` and ``tpu.debug_nans`` away
+from their defaults, and ImageNet initialisation of an MS-SiT or MPP
+model.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
@@ -42,7 +43,9 @@ crossover rule, ``serving_quant``; float32: the modular model; an MS-SiT
 config the same way, its stages gating int8 by width), reports the
 MAE and writes ``results.csv`` of (pred, target) rows in split order; MPP
 reports the loss under the evaluation's fixed corruption and writes
-nothing.
+nothing. In a process group with ``tpu.mesh_pipe > 1`` it evaluates
+through the pipeline's schedule (``Trainer.evaluate`` under the mesh)
+instead.
 """
 
 from __future__ import annotations
@@ -191,6 +194,8 @@ def run_testing(exp: Experiment, *, device) -> dict:
                                        model))
     model.eval()
     bs = exp.training.bs_val or exp.training.bs
+    if exp.mesh_pipe > 1 and torch.distributed.is_initialized() and not exp.is_pretraining:
+        return _pipe_testing(exp, model, data, labels, split, device)
     if exp.is_pretraining:
         dev = _device(device)
         model.to(dev)
@@ -201,6 +206,24 @@ def run_testing(exp: Experiment, *, device) -> dict:
     preds = predict(model, data, device=device, batch_size=bs,
                     quant=serving_quant(model, exp.quant)).reshape(-1)
 
+    out_dir = Path(exp.ckpt_path)
+    if out_dir.is_file() or out_dir.suffix in (".npz", ".pt", ".pth"):
+        out_dir = out_dir.parent
+    if is_primary():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        write_preds_csv(out_dir / "results.csv", preds, labels)
+    return {"n": int(data.shape[0]), "split": split,
+            "mae": float(np.mean(np.abs(preds - labels.reshape(-1))))}
+
+
+def _pipe_testing(exp: Experiment, model, data, labels, split: str, device) -> dict:
+    """``run_testing`` in a pipeline: the model laid out on the config's
+    mesh (each stage its blocks) and the split evaluated through the
+    schedule's forward; rank 0 writes results.csv."""
+    dev = _device(device)
+    trainer = Trainer(exp, model.to(dev), mesh=_resolve_mesh(exp, dev))
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    metrics, preds = trainer.evaluate(put(data), put(labels))
     out_dir = Path(exp.ckpt_path)
     if out_dir.is_file() or out_dir.suffix in (".npz", ".pt", ".pth"):
         out_dir = out_dir.parent
@@ -268,17 +291,12 @@ def build_augment(exp: Experiment, table_obj) -> SurfaceAugment | None:
 
 
 def _refuse_unported(exp: Experiment) -> None:
-    """Raise on what the config asks that the port does not do: pipelines
-    and sequence sharding, MS-SiT under tensor parallelism, the TPU
+    """Raise on what the config asks that the port does not do: the TPU
     profiler and NaN sanitizer keys away from their defaults, and ImageNet
     initialisation of anything but a SiT regression model (the JAX transfer
     maps a SiT's blocks only, and fails on the others)."""
     tp = exp.raw.get("tpu", {})
     checks = [
-        (int(tp.get("mesh_pipe", 1)) > 1 or bool(tp.get("seq_sharding", False)),
-         "pipelines and sequence sharding (tpu.mesh_pipe, tpu.seq_sharding)"),
-        (exp.mesh_model > 1 and exp.model.model == "MS-SiT",
-         "MS-SiT under tensor parallelism (tpu.mesh_model > 1)"),
         (int(tp.get("profile_epoch", -1)) != -1, "tpu.profile_epoch (the epoch's trace)"),
         (bool(tp.get("debug_nans", False)), "tpu.debug_nans (the NaN sanitizer)"),
     ]
@@ -350,7 +368,7 @@ def _write_best(run_dir: Path, trainer: Trainer, meta: dict, depth: int) -> None
 
 
 def _resolve_mesh(exp: Experiment, dev: torch.device):
-    """The run's mesh from ``tpu.mesh_{data,fsdp,model}`` over the
+    """The run's mesh from ``tpu.mesh_{data,fsdp,model,pipe}`` over the
     world's ranks (None for one process asking for none)."""
     return mesh_from_config(exp, device_type=dev.type)
 

@@ -51,8 +51,9 @@ themselves by width). As in the JAX package:
 
 Under a mesh (``parallel.make_mesh``; every rank builds the same seeded
 model and calls every method) a step computes what the single process
-computes on the same global batch: every rank draws what the single
-process draws -- the epoch permutation, MPP's corruption, augmentation,
+computes on the same global batch (the JAX ``Trainer`` under the same
+mesh): every rank draws what the single process draws -- the epoch
+permutation, MPP's corruption, augmentation,
 dropout masks (``DropoutRNG.rows``) -- and keeps its rows of the batch
 (``parallel.Layout.batch_index_of``: its share of each microbatch under
 ``grad_accum``, padded at weight 0 where the shards do not divide it). Each
@@ -60,13 +61,18 @@ rank's weighted loss sum is divided by the global weight sum and the
 gradients are summed over ('data', 'fsdp'): one flat all-reduce under DP
 and TP, FSDP2's reduce-scatter (whose mean the loss's scale undoes) under
 FSDP. Pure DP keeps the fused kernels on every rank with replicated
-weights; FSDP (``fully_shard``) and TP (``parallel.tp``) run the modular
-model. Evaluation runs each rank's rows and gathers the predictions, so
-the metrics are over the whole split; ``state_dict`` gathers every
-parameter and moment whole, so checkpoints are the single-process format.
-The attention-dropout kernel's masks under a mesh differ from the single
-process's (its seed is offset by the rank's shard). Not ported: pipelines
-and sequence sharding.
+weights; FSDP (``fully_shard``), TP (``parallel.tp``; a SiT's, an
+MS-SiT's, and their MPP decoders) and sequence sharding (``tpu.seq_sharding``,
+``parallel.seq``: SiT regression) run the modular model. A pipeline
+(``tpu.mesh_pipe > 1``, ``parallel.pipeline``: SiT regression, no dropout,
+no ``grad_accum``, the JAX refusals and messages) runs the GPipe schedule
+over the stages, the modular blocks on each, and evaluates through the
+schedule's forward. Evaluation runs each rank's rows and gathers the
+predictions, so the metrics are over the whole split; ``state_dict``
+gathers every parameter and moment whole, so checkpoints are the
+single-process format. The attention-dropout kernel's masks under a mesh
+differ from the single process's (its seed is offset by the rank's shard).
+Not ported: FSDP together with TP, sequence sharding or a pipeline.
 """
 
 from __future__ import annotations
@@ -98,6 +104,7 @@ from surface_vision_transformers_tpu_torch.models.mpp import MPP
 from surface_vision_transformers_tpu_torch.models.mpp_mssit import MPPMSSiT
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG, SiT
+from surface_vision_transformers_tpu_torch.parallel import pipeline
 from surface_vision_transformers_tpu_torch.parallel.mesh import Layout
 from surface_vision_transformers_tpu_torch.parallel.sharding import ShardedModel
 from surface_vision_transformers_tpu_torch.train.losses import get_loss_fn
@@ -190,9 +197,18 @@ class Trainer:
         self.loss_fn = get_loss_fn(exp.training.l1loss)
         self.ema_model = copy.deepcopy(model) if exp.training.ema > 0 else None
         # under a mesh: the model (and its EMA shadow) laid out on it
-        self.layout = mesh if isinstance(mesh, Layout) or mesh is None else Layout(mesh)
+        self.layout = (mesh if isinstance(mesh, Layout) or mesh is None
+                       else Layout(mesh, seq=exp.seq_sharding))
         self.mesh = None if mesh is None else self.layout.mesh
-        self.sharded = self.ema_sharded = None
+        self.sharded = self.ema_sharded = self.handoff = None
+        if self.layout is not None and self.layout.pipe:
+            pipeline.check_pipeline(exp, self.encoder, self.task, self.layout)
+            self.handoff = pipeline.Handoff(self.layout)
+        if self.layout is not None and self.layout.seq and (
+                self.task == "mpp" or isinstance(self.encoder, MSSiT)):
+            raise NotImplementedError(
+                "sequence sharding (tpu.seq_sharding) is ported for SiT regression; MPP "
+                "and MS-SiT under it are not ported yet")
         if self.layout is not None:
             self.sharded = ShardedModel(model, self.layout)
             if self.ema_model is not None:
@@ -327,6 +343,8 @@ class Trainer:
             batch = self.augment.apply(batch, draws.take(torch.from_numpy(rows)))
         self.optimizer.zero_grad()
         w_tot = torch.clamp(lay.all_reduce(weights.sum().clone()), min=1e-9)
+        if lay.pipe:
+            return self._pipe_step(batch, targets, weights, total, w_tot)
         mbs, mbl = total // accum, batch.shape[0] // accum
         rows = lay.micro_rows(mbs)
         fused = self.uses_fused_train() and self._fused_batch_ok(mbs)
@@ -348,6 +366,22 @@ class Trainer:
         self.optimizer.step()
         self._update_ema()
         return loss / w_tot, mae
+
+    def _pipe_step(self, batch, targets, weights, total: int, w_tot):
+        """``_mesh_step`` in a pipeline: the GPipe schedule on this rank's
+        rows; the step's shares of the loss and |err| sum, which only the
+        last stage computes, handed to every stage."""
+        lay = self.layout
+        M = pipeline.microbatches(self.exp)
+        pipeline.check_batch(total, lay, M)
+        loss, mae = pipeline.train_step(self.model, lay, self.handoff, batch, targets,
+                                        weights, w_tot, M, self.exp.training.l1loss)
+        self.sharded.sync_grads(self.optimizer.params)
+        self.optimizer.step()
+        self._update_ema()
+        both = torch.stack([loss, mae])
+        torch.distributed.all_reduce(both, group=lay.pipe_group)
+        return both[0], both[1]
 
     def train_epoch(self, data: torch.Tensor, targets: torch.Tensor | None = None
                     ) -> EpochMetrics:
@@ -389,10 +423,14 @@ class Trainer:
     def _predictor(self, model):
         """Regression serving of ``model`` for evaluation: (B, ...) -> (B,)
         predictions through ``fused_forward`` (``fused_mssit_forward`` for
-        an MS-SiT; bfloat16, ``serving_quant``) or the modular model."""
+        an MS-SiT; bfloat16, ``serving_quant``), the modular model, or in a
+        pipeline the schedule's forward."""
         quant = self.serving_quant(model)
         mssit = isinstance(model, MSSiT)
         forward = fused_mssit_forward if mssit else fused_forward
+        if self.layout is not None and self.layout.pipe:
+            M = pipeline.microbatches(self.exp)
+            return lambda xb: pipeline.predict(model, self.layout, self.handoff, xb, M)
         if not serves_fused(model) or not (self.layout is None or self.layout.pure_dp):
             return lambda xb: model(xb).reshape(xb.shape[0], -1).squeeze(-1)
         weights = (prepare_mssit_weights if mssit else prepare_weights)(model, quant)

@@ -12,8 +12,9 @@ validation cadence, loss, EMA, gradient accumulation, checkpoints and
 ``logging.folder_to_save_model``, ``weights``, ``testing.path_to_ckpt``, the
 whole ``augmentation`` block, ``pretraining_mpp`` / ``SSL`` (masked-patch pretraining: the corruption
 rates and ``optimize_decoder``) and, under ``tpu``, ``compute_dtype``,
-``fused_train``, ``quant`` and the mesh axes ``mesh_data`` / ``mesh_fsdp`` /
-``mesh_model`` (``parallel.mesh_from_config``). ``tpu.scan_blocks`` is a TPU compile-time
+``fused_train``, ``quant``, the mesh axes ``mesh_data`` / ``mesh_fsdp`` /
+``mesh_model`` / ``mesh_pipe`` (``parallel.mesh_from_config``),
+``pipe_microbatches`` and ``seq_sharding``. ``tpu.scan_blocks`` is a TPU compile-time
 knob that leaves the outputs bitwise unchanged; eager PyTorch has nothing to
 compile, so it is not read. A ``.json`` file is read with the standard
 library; anything else with PyYAML, imported only when needed.
@@ -220,10 +221,14 @@ class Experiment:
     quant: str = "none"
     mpp: MPPConfig | None = None  # an MPP (``pretraining_mpp`` or ``SSL: mpp``) config
     fused_train: bool = True  # ``tpu.fused_train``: the fused-block training route
-    # ``tpu.mesh_*``: the ('data', 'fsdp', 'model') mesh; -1 on data takes the rest
+    # ``tpu.mesh_*``: the ('data', 'fsdp', 'model'[, 'pipe']) mesh; -1 on data
+    # takes the rest
     mesh_data: int = -1
     mesh_fsdp: int = 1
     mesh_model: int = 1
+    mesh_pipe: int = 1  # GPipe stages (``parallel.pipeline``)
+    pipe_microbatches: int = 0  # 0: one microbatch a stage
+    seq_sharding: bool = False  # the 'model' axis splits the tokens (``parallel.seq``)
     augment: AugmentConfig = AugmentConfig()
     ico: int = 6
     sub_ico: int = 2
@@ -368,6 +373,9 @@ def from_dict(raw: dict) -> Experiment:
         mesh_data=int(tp.get("mesh_data", -1)),
         mesh_fsdp=int(tp.get("mesh_fsdp", 1)),
         mesh_model=int(tp.get("mesh_model", 1)),
+        mesh_pipe=int(tp.get("mesh_pipe", 1)),
+        pipe_microbatches=int(tp.get("pipe_microbatches", 0)),
+        seq_sharding=bool(tp.get("seq_sharding", False)),
         augment=AugmentConfig(
             enabled=bool(aug.get("enabled", False)),
             exact_rotations=bool(aug.get("exact_rotations", True)),

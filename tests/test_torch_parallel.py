@@ -17,9 +17,10 @@ At dim 64, depth 2, ico 2 / sub-ico 0 (the JAX dryrun's size):
   under TP under FSDP, from single-process files;
 * DP x FSDP and DP x TP on four ranks against the single process;
 * dropout under DP and TP trains;
-* the refusals (heads the model axis does not divide, FSDP with TP, the
-  fused paths under FSDP / TP, a second initialisation) and the rules that need no
-  process group (placements, the rows a rank holds, ``mesh_from_config``).
+* the refusals (FSDP with TP, the fused paths under FSDP / TP, a second
+  initialisation), uneven heads taken, the pipeline and sequence keys read
+  on one process, and the rules that need no process group (placements,
+  the rows a rank holds, ``mesh_from_config``).
 """
 
 from __future__ import annotations
@@ -370,11 +371,13 @@ def test_fsdp_checkpoint_resumes_without_a_mesh(ranks, data, tmp_path):
 
 
 def test_refusals_under_a_mesh(ranks):
-    """Heads the model axis does not divide, the fused paths under FSDP and
-    TP (whose trainers take the modular route) and a second, different
-    initialisation are refused with a message; pure DP runs fused."""
+    """FSDP with TP, the fused paths under FSDP and TP (whose trainers take
+    the modular route) and a second, different initialisation are refused
+    with a message; pure DP runs fused. Heads the model axis does not
+    divide are no longer refused: 3 heads over 2 ranks split 1 / 2 (their
+    step against JAX: ``tests/test_torch_mssit_tp.py``)."""
     out = json.loads((ranks / "refusals.json").read_text())
-    assert out["heads"].startswith("NotImplementedError") and "whole heads" in out["heads"]
+    assert out["heads"] is None
     assert out["fsdp_tp"].startswith("NotImplementedError") and "together" in out["fsdp_tp"]
     for name in ("fused_fsdp", "fused_tp"):
         assert out[name].startswith("NotImplementedError") and "pure DP" in out[name]
@@ -385,13 +388,28 @@ def test_refusals_under_a_mesh(ranks):
     assert out["init_same"] == 0
 
 
-@pytest.mark.parametrize("key,val", [("tpu.mesh_pipe", 2), ("tpu.seq_sharding", True)])
-def test_pipelines_and_sequence_sharding_stay_refused(tmp_path, key, val):
+@pytest.mark.parametrize("key,val", [("tpu.seq_sharding", True), ("tpu.mesh_pipe", 1),
+                                     ("tpu.mesh_pipe", 2)])
+def test_pipeline_and_sequence_keys_train_on_one_process(tmp_path, data, single, key, val):
+    """The pipeline and sequence-sharding keys are read, no longer refused:
+    on one process ``tpu.seq_sharding`` (no 'model' axis to split the
+    tokens over) and ``tpu.mesh_pipe: 1`` (with four microbatches asked for)
+    train the single process's run; ``tpu.mesh_pipe: 2`` asks for two
+    devices and is refused for want of them, as the JAX ``make_mesh``
+    refuses it. Their meshes run in ``tests/test_torch_pipeline.py`` and
+    ``tests/test_torch_seq_sharding.py``."""
     raw = raw_cfg(tmp_path)
     block, leaf = key.split(".")
     raw[block][leaf] = val
-    with pytest.raises(NotImplementedError, match="mesh_pipe, tpu.seq_sharding"):
-        runner.run_training(from_dict(raw), device="cpu", datasets={})
+    raw["tpu"]["pipe_microbatches"] = 4
+    if val == 2:
+        with pytest.raises(ValueError, match=r"not divisible by fsdp\*model\*pipe=2"):
+            runner.run_training(from_dict(raw), device="cpu", datasets={})
+        return
+    got = runner.run_training(from_dict(raw), device="cpu", datasets=copy.deepcopy(data),
+                              progress=False)
+    assert "mesh" not in got
+    assert got["best_mae"] == single["dp"]["best_mae"]
 
 
 def test_one_process_needs_no_process_group():

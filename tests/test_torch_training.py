@@ -346,14 +346,15 @@ def test_run_training_without_checkpoints_tests_the_final_state(tmp_path):
 
 
 def test_run_training_refuses_unported_modes(tmp_path):
-    """Pipelines raise (meshes of the data, fsdp and model axes run:
-    ``tests/test_torch_parallel.py``). ImageNet initialisation follows the
+    """The NaN sanitizer's key raises (every mesh axis runs:
+    ``tests/test_torch_parallel.py``, ``test_torch_pipeline.py``,
+    ``test_torch_seq_sharding.py``). ImageNet initialisation follows the
     JAX rule: the flag with an empty ``weights.imagenet`` trains from the
     seeded init, so it is not refused (``tests/test_torch_imagenet.py``
     runs both cases)."""
     base = _train_cfg(tmp_path, tmp_path / "none.npz")
     for key, val, match in [("training.load_weights_imagenet", True, None),
-                            ("tpu.mesh_pipe", 2, "mesh")]:
+                            ("tpu.debug_nans", True, "debug_nans")]:
         raw = yaml.safe_load(yaml.safe_dump(base))
         block, leaf = key.split(".")
         raw.setdefault(block, {})[leaf] = val

@@ -23,6 +23,9 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from surface_vision_transformers_tpu_torch import parallel  # noqa: E402
+from surface_vision_transformers_tpu_torch.geometry import load_patch_table  # noqa: E402
+from surface_vision_transformers_tpu_torch.models import mpp_mssit as mpp_mssit_mod  # noqa: E402
+from surface_vision_transformers_tpu_torch.models import mssit as mssit_mod  # noqa: E402
 from surface_vision_transformers_tpu_torch.models import sit as sit_mod  # noqa: E402
 from surface_vision_transformers_tpu_torch.models.sit import SiT  # noqa: E402
 from surface_vision_transformers_tpu_torch.train import runner  # noqa: E402
@@ -34,42 +37,92 @@ def _datasets(job):
     return {k: (np.load(v[0]), np.load(v[1])) for k, v in job["datasets"].items()}
 
 
+def fixed_window_corruption(target, mask_token, *, window, mask_prob, replace_prob,
+                            swap_prob, generator, rows=None):
+    """An MS-SiT window corruption that is a function of each sample's
+    values alone, so that the JAX side can build the same one: with o the
+    count of positive values in the sample's first window, window w masked
+    where (w + o) % nW < n_masked, replaced by the mask token on even w."""
+    import math
+
+    B, T, P = target.shape
+    nW, n = T // window, math.ceil(mask_prob * (T // window))
+    wins = target.reshape(B, nW, window * P)
+    w = torch.arange(nW)
+    wmask = (w[None, :] + (wins[:, 0] > 0).sum(-1)[:, None]) % nW < n
+    repl = wmask & (w[None, :] % 2 == 0)
+    token = mask_token.reshape(1, 1, P).to(wins.dtype).repeat(1, 1, window)
+    return (torch.where(repl[:, :, None], token, wins).reshape(B, T, P),
+            wmask.repeat_interleave(window, dim=1), n)
+
+
 def job_step(job):
-    """One optimizer step of a SiT from a given state on a given batch."""
+    """One optimizer step of the config's model (a SiT, an MS-SiT or an
+    MPP-MS-SiT) from a given state on a given batch, under the job's mesh
+    (three or four axes)."""
     exp = from_dict(job["cfg"])
-    model = SiT.from_config(exp)
+    x, w = (torch.from_numpy(np.load(job[k])) for k in ("x", "w"))
+    y = torch.from_numpy(np.load(job["y"])) if job.get("y") else None
+    table = load_patch_table(exp.ico, exp.sub_ico).indices if x.dim() == 3 else None
+    model = runner.build_model(exp, table)
     model.load_state_dict(torch.load(job["init"], weights_only=True))
     mesh = parallel.make_mesh(*job["shape"], device_type="cpu")
     trainer = Trainer(exp, model, mesh=mesh)
-    x, y, w = (torch.from_numpy(np.load(job[k])) for k in ("x", "y", "w"))
     rows, valid = trainer.layout.batch_index_of(x.shape[0], exp.training.grad_accum)
     rows = torch.from_numpy(rows)
-    loss, _ = trainer.optimizer_step(x[rows], y[rows], w[rows] * torch.from_numpy(valid),
-                                     total=x.shape[0])
+    drawn = mpp_mssit_mod.corrupt_window_sequence
+    if job.get("fixed_corruption"):
+        mpp_mssit_mod.corrupt_window_sequence = fixed_window_corruption
+    try:
+        loss, _ = trainer.optimizer_step(x[rows], None if y is None else y[rows],
+                                         w[rows] * torch.from_numpy(valid), total=x.shape[0])
+    finally:
+        mpp_mssit_mod.corrupt_window_sequence = drawn
     loss = trainer.layout.all_reduce(loss.detach().reshape(1))
     state = trainer.model_state()
     if parallel.is_primary():
         torch.save({"state": state, "loss": float(loss)}, job["out"])
 
 
+# the attention entries a run's modules call: {count's name: (module, entry)}
+COUNTED = {"qkv": (sit_mod, "flash_attention_qkv"), "fa": (sit_mod, "flash_attention"),
+           "mssit_qkv": (mssit_mod, "flash_attention_qkv")}
+
+
 def job_train(job):
     """``run_training`` of a config (its ``tpu.mesh_*`` keys lay it out),
-    with the attention entries counted."""
-    calls = {"qkv": 0}
-    orig = sit_mod.flash_attention_qkv
+    with the attention entries counted (``COUNTED``: ``<name>_calls``) and,
+    for ``job['heads']``, the heads each call of the MS-SiT entry got."""
+    calls = {k: 0 for k in COUNTED}
+    heads = []
+    saved = {k: getattr(mod, attr) for k, (mod, attr) in COUNTED.items()}
 
-    def counting(*a, **k):
-        calls["qkv"] += 1
-        return orig(*a, **k)
+    def counting(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            if name == "mssit_qkv":
+                heads.append(a[1])
+            return fn(*a, **k)
+        return call
 
-    sit_mod.flash_attention_qkv = counting
+    for k, (mod, attr) in COUNTED.items():
+        setattr(mod, attr, counting(k, saved[k]))
     try:
         res = runner.run_training(from_dict(job["cfg"]), device="cpu",
                                   datasets=_datasets(job), progress=False)
+    except ValueError as e:  # a refusal the job expects
+        if not job.get("refusal"):
+            raise
+        res = {"error": f"{type(e).__name__}: {e}"}
     finally:
-        sit_mod.flash_attention_qkv = orig
-    res["qkv_calls"] = calls["qkv"]
-    if parallel.is_primary():
+        for k, (mod, attr) in COUNTED.items():
+            setattr(mod, attr, saved[k])
+    res.update({f"{k}_calls": v for k, v in calls.items()})
+    res["mssit_heads"] = sorted(set(heads))
+    if job.get("all_ranks"):
+        Path(job["out"] + f".rank{parallel.multihost.process_index()}").write_text(
+            json.dumps(res))
+    elif parallel.is_primary():
         Path(job["out"]).write_text(json.dumps(res))
 
 
@@ -86,6 +139,14 @@ def job_resume(job):
     torch.distributed.barrier()
     res = runner.run_training(from_dict(job["cfg"]), device="cpu", datasets=_datasets(job),
                               progress=False, resume_from=str(dst))
+    if parallel.is_primary():
+        Path(job["out"]).write_text(json.dumps(res))
+
+
+def job_testing(job):
+    """``run_testing`` of a config with ``testing.path_to_ckpt`` set, in the
+    group (a pipeline evaluates through its schedule)."""
+    res = runner.run_testing(from_dict(job["cfg"]), device="cpu")
     if parallel.is_primary():
         Path(job["out"]).write_text(json.dumps(res))
 
@@ -143,7 +204,7 @@ def job_refusals(job):
 
 
 JOBS = {"step": job_step, "train": job_train, "resume": job_resume, "cli": job_cli,
-        "refusals": job_refusals}
+        "refusals": job_refusals, "testing": job_testing}
 
 
 def main():
