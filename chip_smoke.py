@@ -400,13 +400,28 @@ programs of the ``svt::`` operators) and runs it without the package:
               beside SDPA; (c) ``mssit_scan_age.yml`` and ``mssit_mpp.yml`` at
               full width and depth, bs 4, ``mesh_model`` 2 (stage 0's 3 heads
               split 1 / 2), phase 30's SGD for their AdamW and its update
-              gate (a float32 one-process run beside), control rank 1's
+              gate (a float32 one-process run beside), and MS-SiT once more
+              with its own AdamW under that gate, control rank 1's
               share of stage 2 block 0's dW_fc1 zeroed; (d) the pipeline config through ``run_training``
               in those workers and ``cli.train --multihost --dist-backend
-              gloo`` under ``torchrun --nproc_per_node 2``: best MAE equal.
+              gloo`` under ``torchrun --nproc_per_node 2``: best MAE equal;
+              (e) MPP under sequence sharding, ``sit_tiny_mpp.yml`` at full
+              width and depth, bs 32 (phase 17's loss gate;
+              ``flash_attention`` 12 a step each way, no ``patch_embed``:
+              MPP embeds its corrupted tokens with a plain linear), control
+              rank 0's block 5 dW_fc1 zeroed; (f) ``mssit_scan_age.yml``
+              at bs 4 under ``tpu.seq_sharding``, which the Trainer lays out
+              as TP, as the JAX package does: its first step bit for bit a
+              first TP step's; (g) FSDP x TP, SiT-tiny at bs 32, FSDP2
+              over a one-rank NCCL group a process (``DeviceMesh.
+              from_group``) beside TP over the gloo pair, control rank 1's
+              share of block 5's dW_fc1 zeroed. The update gates of (c),
+              (e) and (g) count differences past one float32 spacing of
+              each parameter's largest value (``master_floor``).
               The kernels line gains the SP shape's ``flash_attention`` rows
               and ``flash_attention_qkv_bwd`` rows at a PP microbatch and at
-              an MS-SiT TP rank's one head of dh 32.
+              an MS-SiT TP rank's one head of dh 32. The whole run's seconds
+              print last before the kernels line.
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -2694,16 +2709,18 @@ def phase_dropout(rng) -> dict:
     return rows
 
 
-def upd_ratios(upd, ref) -> dict:
+def upd_ratios(upd, ref, floor=None) -> dict:
     """|update - reference update| / max |reference update| of each
-    parameter the reference moved."""
-    return {k: ((upd[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
-            for k in ref if ref[k].abs().max() > 0}
+    parameter the reference moved; with ``floor`` {name: float}, the part
+    of the difference past that parameter's floor."""
+    f = floor or {}
+    return {k: ((upd[k] - ref[k]).abs().max() - f.get(k, 0.0)).clamp(min=0).div(
+        ref[k].abs().max()).item() for k in ref if ref[k].abs().max() > 0}
 
 
-def upd_ratio(upd, ref) -> float:
+def upd_ratio(upd, ref, floor=None) -> float:
     """The worst of ``upd_ratios``."""
-    return max(upd_ratios(upd, ref).values())
+    return max(upd_ratios(upd, ref, floor).values())
 
 
 def trainer_run(exp, model, start, batches, steps, hook_block=None):
@@ -5510,14 +5527,14 @@ def mssit_run(exp, init, start, batches, steps, *, eager=False, hook=False):
     return run_steps(step, model, start, batches, steps)
 
 
-def mssit_update_gate(run, plain, fp32) -> tuple[bool, dict, dict]:
+def mssit_update_gate(run, plain, fp32, floor=None) -> tuple[bool, dict, dict]:
     """(every tensor passes, the worst ratios against eager bf16, the
     tensors held to the float32 rule with (kernel, eager bf16) distances
     to the float32 update): a tensor passes within MSSIT_UPD_TOL of the
     eager bf16 update, or, where eager bf16 is itself farther than that
     from eager float32, within MSSIT_FP32_MARGIN of eager bf16's distance
-    to it."""
-    to_bf, to_32, bf_32 = (upd_ratios(a[3], b[3]) for a, b in
+    to it (``floor``: as ``upd_ratios``)."""
+    to_bf, to_32, bf_32 = (upd_ratios(a[3], b[3], floor) for a, b in
                            ((run, plain), (run, fp32), (plain, fp32)))
     held = {k: (to_32[k], bf_32[k]) for k in to_bf
             if bf_32.get(k, 0.0) > MSSIT_UPD_TOL}
@@ -6717,16 +6734,16 @@ def mesh_setup(mode):
     return exp, model, [(data[s:s + B], labels[s:s + B]) for s in (0, B)]
 
 
-def mesh_run(trainer, batches, rows=None):
-    """MESH_STEPS optimizer steps on alternating batches, under a mesh on
+def mesh_run(trainer, batches, rows=None, steps=MESH_STEPS):
+    """``steps`` optimizer steps on alternating batches, under a mesh on
     this rank's ``rows`` -> (global losses, host-clock s a step over steps
-    2.., CUDA-event ms of each of those steps, every parameter's update,
-    whole)."""
+    2.. (nan for one step), CUDA-event ms of each of those steps, every
+    parameter's update, whole)."""
     start = {k: v.detach().float().clone() for k, v in trainer.model_state().items()}
     B = batches[0][0].shape[0]
     ones = torch.ones(B, device="cuda")
-    losses, events = [], []
-    for i in range(MESH_STEPS):
+    losses, events, t0 = [], [], None
+    for i in range(steps):
         if i == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -6743,7 +6760,7 @@ def mesh_run(trainer, batches, rows=None):
     events.append(torch.cuda.Event(enable_timing=True))
     events[-1].record()
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / (MESH_STEPS - 1)
+    step_s = float("nan") if t0 is None else (time.perf_counter() - t0) / (steps - 1)
     end = trainer.model_state()
     update = {k: (end[k].float() - v).cpu() for k, v in start.items()}
     return ([float(v) for v in losses], step_s,
@@ -6778,11 +6795,13 @@ def mesh_worker(spec_file: str) -> None:
         t0 = time.perf_counter()
         exp, model, batches = (rest_setup if mode in REST_LABELS else mesh_setup)(mode)
         B = batches[0][0].shape[0]
-        for label in ("run", "control"):
+        # (f): one step under sequence sharding, then one under TP, to compare
+        for label in ("run", "tp") if mode == "mssit_sp" else ("run", "control"):
             mesh = parallel.make_mesh(*shape, device_type="cuda")
-            trainer = Trainer(exp, copy.deepcopy(model),
-                              mesh=parallel.Layout(mesh, fsdp=True if mode == "fsdp" else None,
-                                                   seq=exp.seq_sharding))
+            trainer = Trainer(exp, copy.deepcopy(model), mesh=parallel.Layout(
+                mesh, fsdp=True if mode in ("fsdp", "fsdp_tp") else None,
+                seq=exp.seq_sharding and label != "tp",
+                fsdp_mesh=fsdp_self_mesh() if mode == "fsdp_tp" else None))
             lay = trainer.layout
             rows, _ = lay.batch_index_of(B)
             if label == "control" and mode == "dp":
@@ -6793,7 +6812,8 @@ def mesh_worker(spec_file: str) -> None:
             elif label == "control" and rank == torch.distributed.get_world_size() - 1:
                 zero_grad_before_step(trainer, trainer.model.transformer.layers[5][1].fn.net[0])
             counters = zero_counts(fb)
-            res = mesh_run(trainer, batches, torch.from_numpy(rows).cuda())
+            res = mesh_run(trainer, batches, torch.from_numpy(rows).cuda(),
+                           steps=1 if mode == "mssit_sp" else MESH_STEPS)
             out[f"{mode} {label}"] = res + (read_counts(counters),)
             del trainer
             torch.cuda.empty_cache()
@@ -6807,6 +6827,18 @@ def mesh_worker(spec_file: str) -> None:
         out["entry"] = run_training(from_dict(spec["entry"]), device="cuda", progress=False)
     torch.save(out, Path(spec["out"]) / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
+
+
+def fsdp_self_mesh():
+    """(g)'s FSDP mesh: a ``DeviceMesh`` over a one-rank NCCL group of this
+    process (every rank makes every group, in one order), so FSDP2 runs on
+    NCCL while TP's collectives go over the gloo world, which ends FSDP2 on
+    CUDA tensors (``scripts/gloo_cuda_probe.py fsdp2 fsdp2_nccl_self``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    groups = [dist.new_group([r], backend="nccl") for r in range(dist.get_world_size())]
+    return DeviceMesh.from_group(groups[dist.get_rank()], "cuda", mesh_dim_names=("fsdp",))
 
 
 def zero_grad_before_step(trainer, linear) -> None:
@@ -6863,21 +6895,24 @@ def mesh_workers(tmp: Path, runs, world: int, backend: str, entry=None) -> list:
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def mesh_gate(label, run, plain, control, control_label, name="mesh") -> None:
-    """Phase 7's gate (``gate_runs``' tolerances: TRAIN_LOSS_TOL relative
-    loss a step, TRAIN_UPD_TOL on every parameter's update) of a mesh run
-    against its one-process reference; the control must fail it."""
+def mesh_gate(label, run, plain, control, control_label, name="mesh",
+              loss_tol=TRAIN_LOSS_TOL, floor=None) -> None:
+    """Phase 7's gate (``gate_runs``' tolerances: ``loss_tol`` relative
+    loss a step, TRAIN_LOSS_TOL unless said otherwise (phase 17's MPP
+    gate: MPP_LOSS_TOL), TRAIN_UPD_TOL on every parameter's update, past
+    ``floor`` where given: ``master_floor``) of a mesh run against its
+    one-process reference; the control must fail it."""
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(run[0], plain[0]))
     c_loss = max(abs(a - b) / abs(b) for a, b in zip(control[0], plain[0]))
-    r, c = upd_ratio(run[3], plain[3]), upd_ratio(control[3], plain[3])
-    worst = sorted(upd_ratios(run[3], plain[3]).items(), key=lambda kv: -kv[1])[:3]
+    r, c = upd_ratio(run[3], plain[3], floor), upd_ratio(control[3], plain[3], floor)
+    worst = sorted(upd_ratios(run[3], plain[3], floor).items(), key=lambda kv: -kv[1])[:3]
     phase(name, f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0])
           + "; one process " + " ".join(f"{v:.6g}" for v in plain[0]))
-    phase(name, f"{label}: max relative loss gap {loss_err:.4g} (tol {TRAIN_LOSS_TOL}); "
+    phase(name, f"{label}: max relative loss gap {loss_err:.4g} (tol {loss_tol}); "
           f"worst |update - one-process update| / max |one-process update| {r:.4g} (tol "
           f"{TRAIN_UPD_TOL}; the worst three: " + ", ".join(f"{k} {v:.4g}" for k, v in worst)
           + f"); control, {control_label}: {c:.4g} (must exceed the tol), loss gap {c_loss:.4g}")
-    if not all(math.isfinite(v) for v in run[0]) or loss_err > TRAIN_LOSS_TOL or r > TRAIN_UPD_TOL:
+    if not all(math.isfinite(v) for v in run[0]) or loss_err > loss_tol or r > TRAIN_UPD_TOL:
         raise AssertionError(f"{label} disagrees with the one-process run")
     if c <= TRAIN_UPD_TOL:
         raise AssertionError(f"{label}: the control passed the gate")
@@ -7084,36 +7119,52 @@ REST_SP_B = 32  # (b): every K|V all-gather goes through gloo's host copies
 REST_MS_B = 4  # (c): MS-SiT at 20,480 tokens a surface, its TP all-reduces through the host
 # (mode, mesh shape, control): two gloo ranks sharing the card, each run four steps
 # against its one-process run (phase 7's gates); the control must fail them
+# (c) also runs the MS-SiT config's AdamW under TP, held to phase 31's fp32 rule; (e)
+# MPP around the sequence-sharded SiT-tiny; (f) MS-SiT under tpu.seq_sharding, one step
+# (the Trainer lays it out as TP, as the JAX package does) against a one-step TP run,
+# bit for bit, no control; (g) FSDP x TP: FSDP2 over a one-rank NCCL group a process
+# beside TP over the gloo pair (scripts/gloo_cuda_probe.py fsdp2_nccl_self)
 REST_RUNS = [("pp", (1, 1, 1, 2), "stage 1's block 8 dW_fc1 zeroed"),
              ("sp", (1, 1, 2), "rank 0's block 5 dW_fc1 zeroed"),
              ("mssit_tp", (1, 1, 2), "rank 1's share of stage 2 block 0's dW_fc1 zeroed"),
-             ("mpp_tp", (1, 1, 2), "rank 1's share of stage 2 block 0's dW_fc1 zeroed")]
+             ("mpp_tp", (1, 1, 2), "rank 1's share of stage 2 block 0's dW_fc1 zeroed"),
+             ("mssit_adamw", (1, 1, 2), "rank 1's share of stage 2 block 0's dW_fc1 zeroed"),
+             ("mpp_sp", (1, 1, 2), "rank 0's block 5 dW_fc1 zeroed"),
+             ("mssit_sp", (1, 1, 2), None),
+             ("fsdp_tp", (1, 1, 2), "rank 1's share of block 5's dW_fc1 zeroed")]
 REST_ENTRY = (256, 64, 2)  # (d): train / validation surfaces, epochs (1 step an epoch)
 REST_LABELS = {"pp": "(a) PP", "sp": "(b) SP", "mssit_tp": "(c) MS-SiT TP",
-               "mpp_tp": "(c) MPP-MS-SiT TP"}
+               "mpp_tp": "(c) MPP-MS-SiT TP", "mssit_adamw": "(c) MS-SiT TP, AdamW",
+               "mpp_sp": "(e) MPP SP", "mssit_sp": "(f) MS-SiT SP",
+               "fsdp_tp": "(g) FSDP x TP"}
 
 
 def rest_setup(mode):
     """(exp, model on the card, two batches) of a phase-37 run, seeded init,
     synthetic raw surfaces (MPP: no labels): SiT-tiny at full depth (PP,
-    bs 256, four microbatches; SP, bs REST_SP_B), or the shipped MS-SiT
-    configs at full width and depth (bs REST_MS_B) with phase 30's SGD in
-    place of their AdamW (whose first steps move every weight by about lr
-    whatever its gradient's size, so bf16 noise in a near-zero gradient
-    reads as a whole update); all on the modular route (fused_train off,
-    as in the JAX package under these meshes)."""
+    bs 256, four microbatches; SP, bs REST_SP_B; FSDP x TP, bs MESH_TP_B),
+    its MPP config at its bs 32 under SP, or the shipped MS-SiT configs at
+    full width and depth (bs REST_MS_B) with phase 30's SGD in place of
+    their AdamW (whose first steps move every weight by about lr whatever
+    its gradient's size, so bf16 noise in a near-zero gradient reads as a
+    whole update), and once with the config's AdamW; all on the modular
+    route (fused_train off, as in the JAX package under these meshes)."""
     from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
     from surface_vision_transformers_tpu_torch.geometry import load_patch_table
     from surface_vision_transformers_tpu_torch.train.runner import build_model
     from surface_vision_transformers_tpu_torch.utils import config
 
-    cfg = {"pp": TRAIN_CFG, "sp": TRAIN_CFG, "mssit_tp": MSSIT_CFG, "mpp_tp": MSSIT_MPP_CFG}[mode]
+    cfg = {"pp": TRAIN_CFG, "sp": TRAIN_CFG, "mssit_tp": MSSIT_CFG, "mpp_tp": MSSIT_MPP_CFG,
+           "mssit_adamw": MSSIT_CFG, "mpp_sp": MPP_CFG, "mssit_sp": MSSIT_CFG,
+           "fsdp_tp": TRAIN_CFG}[mode]
     exp = config.load_config(cfg)
-    B = {"pp": exp.training.bs, "sp": REST_SP_B}.get(mode, REST_MS_B)
+    B = {"pp": exp.training.bs, "sp": REST_SP_B, "mpp_sp": exp.training.bs,
+         "fsdp_tp": MESH_TP_B}.get(mode, REST_MS_B)
     exp = dataclasses.replace(exp, fused_train=False, mesh_pipe=2 if mode == "pp" else 1,
-                              pipe_microbatches=REST_PP_MB, seq_sharding=mode == "sp",
+                              pipe_microbatches=REST_PP_MB,
+                              seq_sharding=mode in ("sp", "mpp_sp", "mssit_sp"),
                               training=dataclasses.replace(exp.training, bs=B))
-    if mode in ("mssit_tp", "mpp_tp"):
+    if mode in ("mssit_tp", "mpp_tp", "mssit_sp"):
         exp = dataclasses.replace(exp, optim=config.OptimConfig(name="SGD", lr=TRAIN_LR,
                                                                 momentum=0.9))
     table = load_patch_table(exp.ico, exp.sub_ico).indices
@@ -7126,7 +7177,8 @@ def rest_setup(mode):
                         for s in (0, B)]
 
 
-REST_CONTROL_RANK = {"pp": 1, "sp": 0, "mssit_tp": 1, "mpp_tp": 1}
+REST_CONTROL_RANK = {"pp": 1, "sp": 0, "mssit_tp": 1, "mpp_tp": 1, "mssit_adamw": 1,
+                     "mpp_sp": 0, "fsdp_tp": 1}
 
 
 def rest_control(mode, model) -> torch.nn.Linear:
@@ -7134,8 +7186,10 @@ def rest_control(mode, model) -> torch.nn.Linear:
     the rank ``REST_CONTROL_RANK`` names (stage 1 holds blocks 6-11)."""
     if mode == "pp":
         return model.transformer.layers[8][1].fn.net[0]
-    if mode == "sp":
+    if mode in ("sp", "fsdp_tp"):
         return model.transformer.layers[5][1].fn.net[0]
+    if mode == "mpp_sp":
+        return model.encoder.transformer.layers[5][1].fn.net[0]
     enc = model.encoder if mode == "mpp_tp" else model
     return enc.stages[2].blocks[0][1].fn.net[0]
 
@@ -7153,15 +7207,46 @@ def rest_fp32_run(exp, model, batches):
     return mesh_run(Trainer(exp32, m32.cuda()), batches)
 
 
-def rest_mssit_gate(label, run, plain, fp32, control, control_label) -> None:
+def master_floor(model) -> dict:
+    """{parameter: one float32 spacing at its largest |value|}: the float32
+    master rounds w + update to it, so two updates that differ by less are
+    one update to the master's resolution. Under MPP the LayerNorm gains
+    and positions move by a few such steps in four SGD steps: MPP-MS-SiT's
+    gains by 8-12, and a second one-process bf16 run (``grad_accum`` 2, the
+    same function) differs from the first by one of them on three gains;
+    MPP's positions under (e) by 3 (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    out = {}
+    for k, v in model.state_dict().items():
+        top = v.detach().float().abs().max().item() if v.numel() else 0.0
+        out[k] = 2.0 ** (math.floor(math.log2(top)) - 23) if top > 0 else 0.0
+    return out
+
+
+def off_updates(upd, ref) -> int:
+    """How many elements of ``upd`` lie off ``ref`` by more than half the
+    largest |ref| of their tensor: under AdamW an element whose gradient is
+    near zero moves by about lr either way, so bf16 noise shows as whole
+    steps of the opposite sign, element by element."""
+    return sum(int(((upd[k] - ref[k]).abs() > 0.5 * ref[k].abs().max()).sum()) for k in ref)
+
+
+def rest_mssit_gate(label, run, plain, fp32, control, control_label, floor) -> None:
     """(c)'s gate: phase 7's loss gate, and the update gate of phases 30-31
     (``mssit_update_gate``: within MSSIT_UPD_TOL of the one-process bf16
     update, or, for a tensor that bf16 itself updates farther than that
-    from float32, within MSSIT_FP32_MARGIN of bf16's distance to it); the
-    control must fail it."""
+    from float32, within MSSIT_FP32_MARGIN of bf16's distance to it), each
+    difference past the master's resolution (``floor``, ``master_floor``);
+    and, over the whole model, no more elements off the float32 update
+    (``off_updates``) than MSSIT_FP32_MARGIN times the one-process bf16
+    run's: under AdamW bf16's own distance on a large matrix reaches about
+    one whole update, so the per-tensor rule alone does not see a slice of
+    zeroed gradients. The control must fail it."""
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(run[0], plain[0]))
-    ok, worst, held = mssit_update_gate(run, plain, fp32)
-    c_ok, c_worst, _ = mssit_update_gate(control, plain, fp32)
+    ok, worst, held = mssit_update_gate(run, plain, fp32, floor)
+    c_ok, c_worst, _ = mssit_update_gate(control, plain, fp32, floor)
+    off = [off_updates(r[3], fp32[3]) for r in (run, plain, control)]
+    ok = ok and off[0] <= MSSIT_FP32_MARGIN * off[1]
+    c_ok = c_ok and off[2] <= MSSIT_FP32_MARGIN * off[1]
     phase("mesh-rest", f"{label}: losses " + " ".join(f"{v:.6g}" for v in run[0])
           + "; one process bf16 " + " ".join(f"{v:.6g}" for v in plain[0]) + ", fp32 "
           + " ".join(f"{v:.6g}" for v in fp32[0]))
@@ -7171,13 +7256,57 @@ def rest_mssit_gate(label, run, plain, fp32, control, control_label) -> None:
           f"held to the float32 rule (TP / one-process bf16 distance to the fp32 update, TP "
           f"within {MSSIT_FP32_MARGIN}x): " + (", ".join(
               f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in held.items()) or "none")
-          + f"; gate passed {ok}; control, {control_label}: worst " + ", ".join(
+          + f"; elements off the fp32 update by over half its largest: TP {off[0]}, one-process "
+          f"bf16 {off[1]} (TP within {MSSIT_FP32_MARGIN}x), control {off[2]}; gate passed {ok}; "
+          f"control, {control_label}: worst " + ", ".join(
               f"{k} {v:.4g}" for k, v in c_worst.items()) + f", gate passed {c_ok} (must be "
           "False)")
     if not all(math.isfinite(v) for v in run[0]) or loss_err > TRAIN_LOSS_TOL or not ok:
         raise AssertionError(f"{label} disagrees with the one-process run")
     if c_ok:
         raise AssertionError(f"{label}: the control passed the gate")
+
+
+def rest_references(fb) -> dict:
+    """{mode: (the one-process run of its four steps, that run's launch
+    counts, for (c) the float32 run beside (else None), the update gate's
+    floor (``master_floor``) where the mode's gate takes one, else None)}
+    of every phase-37 run but (f), made while the workers run."""
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    refs = {}
+    for mode, _, _ in REST_RUNS:
+        if mode == "mssit_sp":
+            continue
+        exp, model, batches = rest_setup(mode)
+        counters = zero_counts(fb)
+        plain = mesh_run(Trainer(exp, copy.deepcopy(model)), batches)
+        one = read_counts(counters)
+        mssit = mode in ("mssit_tp", "mpp_tp", "mssit_adamw")
+        fp32 = rest_fp32_run(exp, model, batches) if mssit else None
+        floor = master_floor(model) if mssit or mode in ("mpp_sp", "fsdp_tp") else None
+        refs[mode] = (plain, one, fp32, floor)
+        del model, batches
+        torch.cuda.empty_cache()
+    return refs
+
+
+def rest_sp_as_tp_gate(label, gloo, want) -> None:
+    """(f)'s gate: MS-SiT's first step under ``tpu.seq_sharding`` (which the
+    Trainer lays out as TP, as the JAX package does) equals a first TP step
+    from the same seeds bit for bit -- the loss and every parameter's
+    update -- and each rank launched the TP step's kernels."""
+    sp, tp = gloo[0]["mssit_sp run"], gloo[0]["mssit_sp tp"]
+    differ = sorted(k for k in tp[3] if not torch.equal(sp[3][k], tp[3][k]))
+    counts = [[r[f"mssit_sp {k}"][4] for k in ("run", "tp")] for r in gloo]
+    expect = [{**{k: 0 for k in counts[0][0]}, **w} for w in want]
+    phase("mesh-rest", f"{label}: first-step loss {sp[0][0]!r} under seq_sharding, {tp[0][0]!r} "
+          f"under TP; tensors whose update differs: {len(differ)} of {len(tp[3])} "
+          f"{differ[:3]}; launches a rank (SP, TP) {counts}, expected each {expect}")
+    if sp[0] != tp[0] or differ:
+        raise AssertionError(f"{label}: the sequence-sharded step is not the TP step")
+    if any(c != [e, e] for c, e in zip(counts, expect)):
+        raise AssertionError(f"{label}: the kernels were not launched as expected")
 
 
 def rest_entry_config(data_dir: Path, out: Path) -> dict:
@@ -7345,12 +7474,16 @@ def rest_cli_gate(proc, t0, want: dict) -> None:
 
 def phase_mesh_rest(rng, fb) -> dict:
     """Phase 37: (a) GPipe over two stages, (b) sequence sharding, (c)
-    MS-SiT and MPP-MS-SiT under TP at uneven heads, each on two gloo ranks
-    sharing the card, four steps against its one-process run with a
-    control that must fail; (d) cli.train --multihost under torchrun
-    through the pipeline -> the kernels line's rows of these ranks."""
+    MS-SiT and MPP-MS-SiT under TP at uneven heads (MS-SiT also with its
+    AdamW), (e) MPP under sequence sharding, (g) FSDP x TP, each on two
+    gloo ranks sharing the card, four steps against its one-process run
+    with a control that must fail; (f) MS-SiT under sequence sharding, its
+    first step the TP step's bit for bit; (d) cli.train --multihost under
+    torchrun through the pipeline -> the kernels line's rows of these
+    ranks."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
-    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -7366,10 +7499,14 @@ def phase_mesh_rest(rng, fb) -> dict:
         cli, t_cli = rest_cli(tmp)
         try:
             t0 = time.perf_counter()
-            gloo = mesh_workers(tmp / "gloo", REST_RUNS, 2, "gloo",
-                                entry=rest_entry_config(tmp / "entry", tmp / "inproc"))
-            phase("mesh-rest", f"(a)-(c) and (d)'s run_training on two gloo ranks sharing the "
-                  f"card in {time.perf_counter() - t0:.1f} s, (d)'s CLI beside them (" + ", ".join(
+            with ThreadPoolExecutor(1) as pool:  # the one-process references beside the workers
+                workers = pool.submit(mesh_workers, tmp / "gloo", REST_RUNS, 2, "gloo",
+                                      entry=rest_entry_config(tmp / "entry", tmp / "inproc"))
+                refs = rest_references(fb)
+                gloo = workers.result()
+            phase("mesh-rest", f"(a)-(c), (e)-(g) and (d)'s run_training on two gloo ranks sharing the "
+                  f"card in {time.perf_counter() - t0:.1f} s, (d)'s CLI and the one-process "
+                  "references beside them (" + ", ".join(
                       f"{REST_LABELS[m]} {gloo[0][f'{m} seconds']:.1f} s" for m, _, _ in REST_RUNS)
                   + f"; {card()})")
         except BaseException:
@@ -7377,37 +7514,42 @@ def phase_mesh_rest(rng, fb) -> dict:
             raise
         rest_cli_gate(cli, t_cli, gloo[0]["entry"])
     ms_want = dict(flash_attention_qkv=12 * MESH_STEPS, flash_attention_qkv_bwd=12 * MESH_STEPS)
+    sp_want = dict(flash_attention=12 * MESH_STEPS, flash_attention_bwd=12 * MESH_STEPS)
     want = {
         "pp": [dict(flash_attention_qkv=6 * REST_PP_MB * MESH_STEPS,
                     flash_attention_qkv_bwd=6 * REST_PP_MB * MESH_STEPS,
                     patch_embed=REST_PP_MB * MESH_STEPS),
                dict(flash_attention_qkv=6 * REST_PP_MB * MESH_STEPS,
                     flash_attention_qkv_bwd=6 * REST_PP_MB * MESH_STEPS)],
-        "sp": [dict(flash_attention=12 * MESH_STEPS, flash_attention_bwd=12 * MESH_STEPS,
-                    patch_embed=MESH_STEPS)] * 2,
+        "sp": [dict(sp_want, patch_embed=MESH_STEPS)] * 2,
         "mssit_tp": [dict(ms_want, patch_embed=MESH_STEPS)] * 2,
-        "mpp_tp": [ms_want] * 2}
+        "mpp_tp": [ms_want] * 2,
+        "mssit_adamw": [dict(ms_want, patch_embed=MESH_STEPS)] * 2,
+        # MPP corrupts the tokens before the embedding: a plain linear, no patch_embed
+        "mpp_sp": [sp_want] * 2,
+        "mssit_sp": [dict(flash_attention_qkv=12, flash_attention_qkv_bwd=12, patch_embed=1)] * 2,
+        "fsdp_tp": [dict(ms_want, patch_embed=MESH_STEPS)] * 2}
     one_want = {"pp": dict(ms_want, patch_embed=MESH_STEPS),
                 "sp": dict(ms_want, patch_embed=MESH_STEPS),
-                "mssit_tp": dict(ms_want, patch_embed=MESH_STEPS), "mpp_tp": ms_want}
+                "mssit_tp": dict(ms_want, patch_embed=MESH_STEPS), "mpp_tp": ms_want,
+                "mssit_adamw": dict(ms_want, patch_embed=MESH_STEPS), "mpp_sp": ms_want,
+                "fsdp_tp": dict(ms_want, patch_embed=MESH_STEPS)}
     per_rank = {}
     for mode, shape, control in REST_RUNS:
-        exp, model, batches = rest_setup(mode)
-        counters = zero_counts(fb)
-        plain = mesh_run(Trainer(exp, copy.deepcopy(model)), batches)
-        one = read_counts(counters)
         label = f"{REST_LABELS[mode]} {shape} over {gloo[0]['backend']}"
-        if mode in ("mssit_tp", "mpp_tp"):
-            rest_mssit_gate(label, gloo[0][f"{mode} run"], plain,
-                            rest_fp32_run(exp, model, batches),
-                            gloo[0][f"{mode} control"], control)
+        ranks = [r[f"{mode} run"][4] for r in gloo]
+        if mode == "mssit_sp":  # (f): one SP step against one TP step, bit for bit
+            rest_sp_as_tp_gate(label, gloo, want[mode])
+            continue
+        plain, one, fp32, floor = refs[mode]
+        if fp32 is not None:
+            rest_mssit_gate(label, gloo[0][f"{mode} run"], plain, fp32,
+                            gloo[0][f"{mode} control"], control, floor)
         else:
             mesh_gate(label, gloo[0][f"{mode} run"], plain, gloo[0][f"{mode} control"], control,
-                      name="mesh-rest")
-        del model, batches
-        torch.cuda.empty_cache()
+                      name="mesh-rest", loss_tol=MPP_LOSS_TOL if mode == "mpp_sp"
+                      else TRAIN_LOSS_TOL, floor=floor)
         label = REST_LABELS[mode]
-        ranks = [r[f"{mode} run"][4] for r in gloo]
         expect = [{**{k: 0 for k in one}, **w} for w in want[mode]]
         expect_one = {**{k: 0 for k in one}, **one_want[mode]}
         phase("mesh-rest", f"{label}: launches rank 0 {ranks[0]}, rank 1 {ranks[1]}, one process "
@@ -7419,7 +7561,7 @@ def phase_mesh_rest(rng, fb) -> dict:
               + ", ".join(f"{v:.3f}" for v in step) + " ms; host clock "
               + ", ".join(f"{r[f'{mode} run'][1] * 1e3:.3f}" for r in gloo)
               + f" ms) -- two processes on one card through gloo's host copies, not a scaling "
-              f"figure; one process {np.median(plain[2]):.3f} ms; {card()}")
+              f"figure; one process {np.median(plain[2]):.3f} ms beside them; {card()}")
         per_rank[mode] = ranks
     rows = rest_sp_rows(rng, per_rank["sp"][0])
     rows["flash_attention_qkv_bwd PP rank"] = rest_qkv_row(
@@ -7842,7 +7984,9 @@ def main() -> None:
     # -- 37. mesh-rest (every count zeroed just before each run, in each rank)
     start("mesh-rest")
     kernels.update(phase_mesh_rest(np.random.default_rng(SEED + 37), fb))
-    print(f"seconds per phase: {phase_seconds(time.perf_counter())}", flush=True)
+    t_end = time.perf_counter()
+    print(f"seconds per phase: {phase_seconds(t_end)}", flush=True)
+    print(f"whole run: {t_end - T0:.1f} s (limit 1200 s); {card()}", flush=True)
 
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

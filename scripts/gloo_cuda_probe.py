@@ -10,9 +10,13 @@ process does not hide the next: all_reduce (fp32 and bf16), broadcast,
 all_gather, all_gather_into_tensor, reduce_scatter_tensor,
 broadcast_object_list, barrier, a ('data', 'fsdp', 'model') DeviceMesh's
 group, FSDP2 (``fully_shard``) on two Linear layers for one SGD step, a
-DTensor's ``distribute_tensor`` / ``full_tensor``, and point-to-point
+DTensor's ``distribute_tensor`` / ``full_tensor``, point-to-point
 ``send`` / ``recv`` (fp32 and bf16, a (2, 3) slice of a wider tensor too)
-and ``isend`` / ``irecv`` both ways at once. Prints one line a rank and
+and ``isend`` / ``irecv`` both ways at once, and FSDP x TP as phase 37 (g)
+would run it (``fsdp2_nccl_self``): FSDP2 on a ``DeviceMesh`` over a
+one-rank NCCL group of each process, beside a tensor-parallel all-reduce
+of CUDA tensors over the gloo world in forward and backward, one SGD step
+and a ``full_tensor``. Prints one line a rank and
 collective: ``ok`` with the result, ``FAIL`` with the exception, or the
 return code of a process that died (-11: SIGSEGV). Phase 36 of
 ``chip_smoke.py`` runs DP and TP over gloo and FSDP over NCCL by what this
@@ -65,6 +69,52 @@ def _dtensor(rank, dev):
     d = distribute_tensor(torch.arange(8.0, device=dev).reshape(4, 2), m, [Shard(0)],
                           src_data_rank=None)
     return d.to_local().tolist(), float(d.full_tensor().sum())
+
+
+class _WorldSum(torch.autograd.Function):
+    """A TP branch's exit and entry in one: the forward sums over the
+    world, the backward sums the gradient over it (gloo, CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.clone()
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def _fsdp2_nccl_self(rank, dev):
+    """FSDP2 over a one-rank NCCL group (``DeviceMesh.from_group``; every
+    rank makes every group, in one order) beside gloo all-reduces over the
+    world, forward and backward; one SGD step."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.fsdp import fully_shard
+
+    class Net(torch.nn.Module):  # a TP branch between two units
+        def __init__(self):
+            super().__init__()
+            self.a, self.b = torch.nn.Linear(8, 16), torch.nn.Linear(16, 1)
+
+        def forward(self, x):
+            return self.b(_WorldSum.apply(self.a(x)))
+
+    own = [dist.new_group([r], backend="nccl") for r in range(2)][rank]
+    m = DeviceMesh.from_group(own, "cuda", mesh_dim_names=("fsdp",))
+    torch.manual_seed(0)
+    net = Net().to(dev)
+    fully_shard(net.a, mesh=m)
+    fully_shard(net, mesh=m)
+    opt = torch.optim.SGD(net.parameters(), lr=0.1)
+    net(torch.randn(4, 8, device=dev)).sum().backward()
+    opt.step()
+    norm = net.a.weight.grad.to_local().square().sum()
+    dist.all_reduce(norm, group=own)
+    return float(net.a.weight.full_tensor().sum()), float(norm)
 
 
 def _filled(rank, dev, dtype=torch.float32):
@@ -149,6 +199,7 @@ OPS = {
     "send_recv": _send_recv,
     "send_recv_bf16": lambda r, d: _send_recv(r, d, torch.bfloat16),
     "isend_irecv": _isend_irecv,
+    "fsdp2_nccl_self": _fsdp2_nccl_self,
 }
 
 

@@ -8,7 +8,11 @@ validation improvement) -- holding ``state.pt``, the trainer's
 that ``torch.load(..., weights_only=True)`` reads, and ``metadata.json``
 with the JAX package's keys (``epoch``, the metric, ``best``,
 ``best_epoch``). ``state.pt`` is written beside and renamed into place, so a
-run killed while writing keeps the checkpoint before.
+run killed while writing keeps the checkpoint before. Under a mesh every
+rank gathers the state whole (``parallel.sharding.ShardedModel``: FSDP2
+shards, TP slices and pipeline stages) and rank 0 alone writes it, so a
+file is the single-process format whatever mesh wrote it, and loads under
+any other.
 """
 
 from __future__ import annotations

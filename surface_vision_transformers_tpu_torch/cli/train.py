@@ -4,11 +4,12 @@
         [--set training.epochs=10] [--device cuda] [--resume RUN_DIR] [--multihost]
 
 Under torchrun, with ``--multihost``, every rank trains its share of each
-batch on the mesh ``tpu.mesh_{data,fsdp,model}`` lays out (data
-parallelism over every rank by default)::
+batch on the mesh ``tpu.mesh_{data,fsdp,model,pipe}`` lays out (data
+parallelism over every rank by default; the axes compose, e.g. DP x FSDP x
+TP on eight ranks with ``--set tpu.mesh_fsdp=2 --set tpu.mesh_model=2``)::
 
     torchrun --nproc_per_node N -m surface_vision_transformers_tpu_torch.cli.train \
-        cfg.yml --multihost [--set tpu.mesh_fsdp=N | --set tpu.mesh_model=N]
+        cfg.yml --multihost [--set tpu.mesh_fsdp=F] [--set tpu.mesh_model=M]
 
 Runs ``train.runner.run_training`` and prints its results dict (rank 0
 alone under several processes); the run folder lands under

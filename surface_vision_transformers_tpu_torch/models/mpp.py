@@ -33,7 +33,8 @@ from surface_vision_transformers_tpu_torch.ops.patchify import (
     patchify,
     rearrange_patched,
 )
-from surface_vision_transformers_tpu_torch.parallel.tp import copy_to, reduce_from
+from surface_vision_transformers_tpu_torch.parallel.seq import seq_sum
+from surface_vision_transformers_tpu_torch.parallel.tp import branch_in, reduce_from
 
 
 def rows_kw(rows) -> dict:
@@ -105,10 +106,14 @@ def mpp_target(encoder: SiT, batch):
     raise ValueError(f"bad MPP input shape {tuple(batch.shape)}")
 
 
-def masked_mse(recon, target, mask, n_masked: int | None, sample_weights=None):
+def masked_mse(recon, target, mask, n_masked: int | None, sample_weights=None, *,
+               total=None, whole_mask=None):
     """sum over masked positions of (recon - target)^2 / (B n_masked
     patch_dim); with ``sample_weights`` weight-0 samples count for nothing
-    and B is their sum. ``n_masked`` None: the mask's own count."""
+    and B is their sum. ``n_masked`` None: the mask's own count. Under
+    sequence sharding ``recon``, ``target`` and ``mask`` are a rank's rows:
+    ``total`` adds the ranks' sums, and ``whole_mask`` is the sequence's
+    mask, whose count the denominator takes."""
     err = (recon - target.float()).square()
     masked = torch.where(mask[:, :, None], err, 0.0)
     if sample_weights is not None:
@@ -116,9 +121,11 @@ def masked_mse(recon, target, mask, n_masked: int | None, sample_weights=None):
         batch_count = torch.clamp(sample_weights.sum(), min=1e-9)
     else:
         batch_count = target.shape[0]
+    num = masked.sum() if total is None else total(masked.sum())
     if n_masked is None:
-        return masked.sum() / torch.clamp(mask.sum() * target.shape[-1], min=1)
-    return masked.sum() / (batch_count * n_masked * target.shape[-1])
+        count = (mask if whole_mask is None else whole_mask).sum()
+        return num / torch.clamp(count * target.shape[-1], min=1)
+    return num / (batch_count * n_masked * target.shape[-1])
 
 
 class MPP(nn.Module):
@@ -152,7 +159,8 @@ class MPP(nn.Module):
         the global batch's draws); ``fixed_mask`` / ``fixed_corrupted`` give
         it instead (the loss then divides by the mask's own count); ``rng``
         turns dropout on. Under tensor parallelism the loss is whole and the
-        reconstruction the rank's columns."""
+        reconstruction the rank's columns; under sequence sharding the loss
+        is whole and the reconstruction the rank's token rows."""
         enc = self.transformer
         target = self.target(batch)
         if fixed_mask is not None:
@@ -162,14 +170,33 @@ class MPP(nn.Module):
         lin = enc.to_patch_embedding[1]
         tokens = F.linear(corrupted.to(enc.dtype), lin.weight.to(enc.dtype),
                           lin.bias.to(enc.dtype))
-        h = enc.transformer(enc.embed_tokens(tokens, rng=rng), rng=rng)[:, 1:].float()
+        h = enc.encode_tokens(enc.embed_tokens(tokens, rng=rng), rng=rng)
+        if enc.sp is not None:
+            return self._seq_loss(h, target, mask, n_masked, sample_weights)
+        h = h[:, 1:].float()
         tp = self.tp
         if tp is None:
             recon = F.linear(h, self.to_original.weight.float(), self.to_original.bias.float())
             return masked_mse(recon, target, mask, n_masked, sample_weights), recon
         c0, c1, _ = tp.cols(enc.patch_dim)
-        recon = F.linear(copy_to(h, tp), self.to_original.weight.float(),
-                         self.to_original.bias.float())
+        recon = branch_in(h, self.to_original, tp)
         part = masked_mse(recon, target[..., c0:c1], mask, n_masked, sample_weights)
         # each rank's share divides by its own D / model columns
         return reduce_from(part, tp) / tp.size, recon
+
+    def _seq_loss(self, h, target, mask, n_masked, sample_weights):
+        """The loss under sequence sharding from the rank's rows ``h`` of
+        the encoded sequence (CLS at global row 0, the pad rows past L):
+        the rank's tokens decoded, their masked squared errors summed and
+        added over 'model' (pad rows and CLS contribute nothing), over the
+        JAX denominator; every rank ends with the same loss. -> (loss, the
+        rank's tokens' reconstruction)."""
+        sp = self.transformer.sp
+        start, L = sp.rank * h.shape[1], target.shape[1]
+        lo, hi = max(start, 1), min(start + h.shape[1], L + 1)  # the rank's token rows
+        hi = max(hi, lo)
+        recon = F.linear(h[:, lo - start:hi - start].float(), self.to_original.weight.float(),
+                         self.to_original.bias.float())
+        loss = masked_mse(recon, target[:, lo - 1:hi - 1], mask[:, lo - 1:hi - 1], n_masked,
+                          sample_weights, total=lambda x: seq_sum(x, sp), whole_mask=mask)
+        return loss, recon

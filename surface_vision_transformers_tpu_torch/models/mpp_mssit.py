@@ -42,7 +42,7 @@ from surface_vision_transformers_tpu_torch.models.mpp import (
 )
 from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import DropoutRNG
-from surface_vision_transformers_tpu_torch.parallel.tp import copy_to, reduce_from
+from surface_vision_transformers_tpu_torch.parallel.tp import branch_in, reduce_from
 
 # The JAX package's name for the reconstruction targets: raw (B, C, G)
 # input gathered through the encoder's table (and normalised as its
@@ -169,8 +169,7 @@ class MPPMSSiT(nn.Module):
         feats = enc(corrupted, rng=rng, features=True)
         tp = self.tp
         if tp is not None:  # the rank's decoder columns; the loss summed over the axis
-            recon = F.linear(copy_to(feats.float(), tp), self.to_original.weight.float(),
-                             self.to_original.bias.float())
+            recon = branch_in(feats.float(), self.to_original, tp)
             c0, c1, _ = tp.cols(self.to_original.weight.shape[0] * tp.size)
             part = window_mse_cols(recon, target, mask, n_tokens, sample_weights, (c0, c1))
             return reduce_from(part, tp), recon

@@ -69,7 +69,7 @@ from surface_vision_transformers_tpu_torch.ops.flash_attention import (
 )
 from surface_vision_transformers_tpu_torch.ops.patch_embed import table_tensor
 from surface_vision_transformers_tpu_torch.ops.patchify import rearrange_patched
-from surface_vision_transformers_tpu_torch.parallel.tp import copy_to
+from surface_vision_transformers_tpu_torch.parallel.tp import branch_in
 
 CROSS_MIXES = ("axial", "parent", "none")
 
@@ -162,9 +162,14 @@ class WindowAttention(nn.Module):
         drop = self.dropout if rng is not None else 0.0
         tp = self.tp
         heads = self.heads if tp is None else tp.head_count(self.heads)
-        qkv = _linear(h if tp is None else copy_to(h, tp), self.to_qkv)  # [q | k | v]
+        qkv = _linear(h, self.to_qkv) if tp is None else branch_in(h, self.to_qkv, tp)
         folded = fold_tokens(qkv, self.window, self.mix)
-        if drop:
+        if not heads:  # a TP rank without a head: nothing to attend, the graph kept
+            if drop:
+                n = folded.shape[1]  # the mask stream stays in step with the other ranks'
+                rng.keep((folded.shape[0], self.heads, n, n), drop)
+            out = folded[..., :0]
+        elif drop:
             q, k, v = split_qkv(folded, heads)
             if tp is None:
                 keep = rng.keep(q.shape[:3] + (k.shape[2],), drop)

@@ -27,7 +27,9 @@ computes its whole heads (uneven where the axis does not divide them) --
 through ``flash_attention_qkv[_dropout]``, the kernels on CUDA bfloat16 and
 their plain versions on the CPU -- and its share of the MLP's hidden
 units, and each branch's partial products are summed over the 'model' axis
-before the bias. Under sequence sharding (``parallel.seq``: ``SiT.sp`` and
+before the bias (a rank that holds no head adds nothing there but joins
+every collective of the branch). Under sequence sharding (``parallel.seq``:
+``SiT.sp`` and
 ``Attention.sp`` set) each rank computes its rows of the padded sequence
 and attends with its local queries to the all-gathered keys through
 ``flash_attention`` (the kernel on CUDA bfloat16, its plain version on the
@@ -83,7 +85,7 @@ from surface_vision_transformers_tpu_torch.parallel.seq import (
     pool,
     zero_pad_rows,
 )
-from surface_vision_transformers_tpu_torch.parallel.tp import copy_to, reduce_from
+from surface_vision_transformers_tpu_torch.parallel.tp import branch_in, reduce_from
 
 
 class DropoutRNG:
@@ -190,7 +192,7 @@ class Attention(nn.Module):
         N = h.shape[1]
         tp = self.tp
         heads = self.heads if tp is None else tp.head_count(self.heads)
-        qkv = _linear(h if tp is None else copy_to(h, tp), self.to_qkv)  # [q | k | v]
+        qkv = _linear(h, self.to_qkv) if tp is None else branch_in(h, self.to_qkv, tp)
         drop = self.dropout if rng is not None else 0.0
         # under TP or SP the kernel's entry is taken on the CPU too (its plain version)
         wrapper = kernel_route(self.attn_backend, qkv) or (
@@ -198,6 +200,10 @@ class Attention(nn.Module):
             and not qkv.is_cuda)
         if self.sp is not None:
             out = self._seq_attention(qkv, valid_len, rng, drop, wrapper)
+        elif not heads:  # a TP rank without a head: nothing to attend, the graph kept
+            if drop:
+                rng.kernel_seed()  # the seed stream stays in step with the other ranks'
+            out = qkv[..., :0]
         elif wrapper and (drop or N <= MAX_PACKED_SEQ):
             if drop:
                 out = flash_attention_qkv_dropout(qkv, heads, valid_len, drop,
@@ -243,10 +249,13 @@ class Attention(nn.Module):
 
 def _tp_out(x, lin: nn.Linear, tp):
     """A TP branch's last product: the rank's input columns of ``lin``
-    times its slice of ``x`` in float32, summed over the axis, plus the
-    bias, in x's dtype."""
-    part = F.linear(x.float(), lin.weight.float())
-    return (reduce_from(part, tp) + lin.bias.float()).to(x.dtype)
+    (rounded to x's dtype, as ``_linear`` rounds them) times its slice of
+    ``x``, accumulated in float32, summed over the axis, plus the bias
+    (rounded alike), rounded once to x's dtype: the single process's one
+    product but for the order of the float32 sums."""
+    dt = x.dtype
+    part = F.linear(x.float(), lin.weight.to(dt).float())
+    return (reduce_from(part, tp) + lin.bias.to(dt).float()).to(dt)
 
 
 class FeedForward(nn.Module):
@@ -263,7 +272,8 @@ class FeedForward(nn.Module):
     def forward(self, h, *, rng: DropoutRNG | None = None):
         drop = self.dropout if rng is not None else 0.0
         tp = self.tp
-        f = F.gelu(_linear(h if tp is None else copy_to(h, tp), self.net[0]).float()).to(h.dtype)
+        f = _linear(h, self.net[0]) if tp is None else branch_in(h, self.net[0], tp)
+        f = F.gelu(f.float()).to(h.dtype)
         if drop:
             f = rng.drop(f, drop, None if tp is None else tp.cols(f.shape[-1] * tp.size))
         f = _linear(f, self.net[3]) if tp is None else _tp_out(f, self.net[3], tp)
@@ -352,7 +362,11 @@ class SiT(nn.Module):
     def encode(self, x, *, rng: DropoutRNG | None = None):
         """Input -> (B, L+1, dim) encoded sequence; under sequence sharding
         the rank's rows of it, padded (``parallel.seq.local_rows``)."""
-        h = self.embed(x, rng=rng)
+        return self.encode_tokens(self.embed(x, rng=rng), rng=rng)
+
+    def encode_tokens(self, h, *, rng: DropoutRNG | None = None):
+        """(B, L+1, dim) embedded sequence -> the encoded sequence; under
+        sequence sharding the rank's rows of it, padded."""
         if self.sp is None:
             return self.transformer(h, rng=rng)
         n = h.shape[1]

@@ -17,11 +17,17 @@ the out-projection and fc2 by their input features, so each residual branch
 ends in one all-reduce. Under ``tpu.seq_sharding`` the 'model' axis splits
 the tokens instead (``parallel.seq``) and the parameters stay whole there.
 'pipe' holds contiguous stages of the blocks (``parallel.pipeline``).
-``Layout`` holds a mesh's coordinates and process groups for the trainer.
+FSDP is a batch axis beside each of them, as in the JAX package: under
+TP or sequence sharding FSDP2 shards each 'model' rank's parameters (its TP
+slices, or the whole ones) over the ('data', 'fsdp') ranks at its 'model'
+coordinate, and in a pipeline a stage's over the ranks at its 'pipe'
+coordinate. ``Layout`` holds a mesh's coordinates and process groups for
+the trainer.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import warnings
@@ -191,13 +197,16 @@ def even_split(n: int, index: int, count: int) -> tuple[np.ndarray, np.ndarray]:
 
 class Layout:
     """A mesh seen from this rank: its coordinates, the process groups of
-    its batch shard, its model axis and its pipeline, and the row rules.
-    ``fsdp=True`` shards with FSDP2 on an 'fsdp' axis of size 1 too
-    (default: where it is wider), which runs FSDP2's machinery in one
-    process. ``seq=True`` (``tpu.seq_sharding``) gives the 'model' axis the
-    tokens instead of the heads."""
+    its batch shard (('data', 'fsdp') at its 'model' and 'pipe'
+    coordinates), of its model axis and of its pipeline (each at its batch
+    coordinate), and the row rules. ``fsdp=True`` shards with FSDP2 on an
+    'fsdp' axis of size 1 too (default: where it is wider), which runs
+    FSDP2's machinery in one process; ``fsdp_mesh`` (a ``DeviceMesh`` with
+    an axis 'fsdp') is the one FSDP2 shards over, by default the rank's
+    ('data', 'fsdp') sub-mesh. ``seq=True`` (``tpu.seq_sharding``) gives
+    the 'model' axis the tokens instead of the heads."""
 
-    def __init__(self, mesh, fsdp: bool | None = None, seq: bool = False):
+    def __init__(self, mesh, fsdp: bool | None = None, seq: bool = False, fsdp_mesh=None):
         self.mesh = mesh
         self.shape = mesh_shape(mesh)
         coord = mesh.get_coordinate()
@@ -232,6 +241,20 @@ class Layout:
                     g = dist.new_group(ranks[:, j].tolist())
                     if j == self.model_index * p + self.stage:
                         self.batch_group = g
+        self.fsdp_mesh = fsdp_mesh
+        if self.fsdp and fsdp_mesh is None:
+            self.fsdp_mesh = mesh["fsdp"] if d == 1 else mesh["data", "fsdp"]
+        # the ranks whose FSDP2 shards make up a parameter
+        self.fsdp_group = self.fsdp_mesh.get_group("fsdp") if self.fsdp else None
+
+    def tensor_parallel(self) -> "Layout":
+        """This layout with the 'model' axis holding heads, not tokens: the
+        JAX package's MS-SiT under ``tpu.seq_sharding`` (its model takes the
+        sequence fields and uses them nowhere; the TP placement rules lay
+        its parameters out over 'model')."""
+        lay = copy.copy(self)
+        lay.seq, lay.tp = False, self.model_size > 1
+        return lay
 
     @property
     def seed_salt(self) -> int:

@@ -13,13 +13,24 @@ A step splits the rank's rows of the batch into M microbatches
 (``tpu.pipe_microbatches``, 0: one a stage) and runs all M forwards, then
 all M backwards, in reverse order (fill, then drain: GPipe). Activations go
 to the next stage and their gradients come back through ``Handoff``,
-point-to-point sends between neighbours. Each stage runs its blocks as the
-modular model does (``flash_attention_qkv`` on CUDA bfloat16), as the JAX
-pipeline runs its ``_block_modules``. The loss is the JAX
-``pipeline_loss``'s: the last stage's weighted sums of squared and absolute
-errors over the global weight sum (the batch shards' total). Evaluation
-runs the same schedule's forward and hands the last stage's predictions to
-every stage.
+point-to-point sends between neighbours. Each stage runs one microbatch
+through ``Stage``, one module (the embedding on stage 0, its blocks as the
+modular model runs them, with ``flash_attention_qkv`` on CUDA bfloat16, as
+the JAX pipeline runs its ``_block_modules``, and the head on the last).
+The loss is the JAX ``pipeline_loss``'s: the last stage's weighted sums of
+squared and absolute errors over the global weight sum (the batch shards'
+total). Evaluation runs the same schedule's forward and hands the last
+stage's predictions to every stage.
+
+Under FSDP ('fsdp' > 1 beside 'pipe', a batch axis as in the JAX package)
+FSDP2 shards a stage over the ranks at its 'pipe' coordinate: its blocks a
+unit each, the ``Stage`` the root unit of the rest. A step unshards each
+unit once, at its first microbatch's forward, and keeps it whole until the
+last backward; the gradients of the first M - 1 backwards accumulate
+unsharded, and the last reduce-scatters them once
+(``set_requires_gradient_sync``). Once a step rather than once a
+microbatch: the sum is the same and the traffic M times smaller; the
+single process, too, adds the microbatches' gradients before the update.
 """
 
 from __future__ import annotations
@@ -107,46 +118,68 @@ class Handoff:
         return buf.to(device, non_blocking=True) if on_host else buf
 
 
-def _run_stage(model, blocks: range, h: torch.Tensor) -> torch.Tensor:
-    """The stage's blocks on ``h``, as ``_Transformer.forward`` runs them."""
-    for i in blocks:
-        attn, ff = model.transformer.layers[i]
-        h = h + attn(h)
-        h = h + ff(h)
-    return h
+class Stage(torch.nn.Module):
+    """This rank's stage of a pipelined SiT as one module: ``forward`` runs
+    a microbatch through it -- raw or patched input embedded on stage 0,
+    an activation (mb, N, dim) handed on elsewhere -- and returns the
+    activation to hand on, or on the last stage the predictions (mb,)
+    float32. FSDP2's root unit under FSDP."""
+
+    def __init__(self, model, layout: Layout):
+        super().__init__()
+        self.model = model
+        self.blocks = stage_blocks(model.depth, layout)
+        self.first, self.last = layout.stage == 0, layout.stage == layout.pipe_size - 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        model = self.model
+        h = model.embed(x) if self.first else x
+        for i in self.blocks:  # as ``_Transformer.forward`` runs them
+            attn, ff = model.transformer.layers[i]
+            h = h + attn(h)
+            h = h + ff(h)
+        return model.pool_head(h).reshape(h.shape[0], -1).squeeze(-1) if self.last else h
 
 
-def _forward(model, layout: Layout, handoff: Handoff, x: torch.Tensor, mb: int):
+def _fsdp(stage: Stage) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(stage, FSDPModule)
+
+
+def _forward(stage: Stage, layout: Layout, handoff: Handoff, x: torch.Tensor, mb: int):
     """One microbatch's forward on this stage: -> (the stage's input, its
     output; on the last stage the predictions (mb,) float32)."""
     S, s = layout.pipe_size, layout.stage
-    shape = (mb, model.num_patches + 1, model.dim)
-    if s == 0:
-        h_in = model.embed(x)
-    else:
+    model = stage.model
+    h_in = x
+    if s > 0:
+        shape = (mb, model.num_patches + 1, model.dim)
         h_in = handoff.recv(shape, model.dtype, x.device, s - 1)
         h_in.requires_grad_(torch.is_grad_enabled())
-    h = _run_stage(model, stage_blocks(model.depth, layout), h_in)
+    out = stage(h_in)
     if s < S - 1:
-        handoff.send(h, s + 1)
-        return h_in, h
-    return h_in, model.pool_head(h).reshape(mb, -1).squeeze(-1)
+        handoff.send(out, s + 1)
+    return h_in, out
 
 
-def train_step(model, layout: Layout, handoff: Handoff, batch, targets, weights, w_tot,
-               M: int, l1: bool):
+def train_step(stage: Stage, layout: Layout, handoff: Handoff, batch, targets, weights, w_tot,
+               M: int, l1: bool, scale: float = 1.0):
     """The GPipe schedule of one step on this rank's rows: every
     microbatch's forward, then every backward (last microbatch first); the
     gradients of the stage's blocks and its share of the shared parameters
-    are left in ``.grad``. -> (this rank's share of the step's loss, of its
-    weighted |err| sum), nonzero on the last stage only."""
+    are left in ``.grad`` (under FSDP reduce-scattered once, after the last
+    backward; ``scale`` multiplies the loss, as ``ShardedModel.grad_scale``
+    asks). -> (this rank's share of the step's loss, of its weighted |err|
+    sum), nonzero on the last stage only."""
     S, s = layout.pipe_size, layout.stage
     B = batch.shape[0]
     mb = B // M
+    fsdp = _fsdp(stage)
     saved, sq, ab = [], [], []
     for j in range(M):
         sl = slice(j * mb, (j + 1) * mb)
-        h_in, out = _forward(model, layout, handoff, batch[sl], mb)
+        h_in, out = _forward(stage, layout, handoff, batch[sl], mb)
         if s == S - 1:
             d = out - targets[sl].reshape(out.shape)
             w = weights[sl]
@@ -155,8 +188,12 @@ def train_step(model, layout: Layout, handoff: Handoff, batch, targets, weights,
         saved.append((h_in, out))
     for j in reversed(range(M)):
         h_in, out = saved[j]
+        if fsdp:  # reduce, and reshard, after the last backward only
+            stage.set_is_last_backward(j == 0)
+            stage.set_reshard_after_backward(j == 0)
+            stage.set_requires_gradient_sync(j == 0)
         if s == S - 1:
-            ((ab[j] if l1 else sq[j]) / w_tot).backward()
+            ((ab[j] if l1 else sq[j]) / w_tot * scale).backward()
         else:
             g = handoff.recv(out.shape, out.dtype, out.device, s + 1)
             torch.autograd.backward(out, g)
@@ -171,15 +208,22 @@ def train_step(model, layout: Layout, handoff: Handoff, batch, targets, weights,
 
 
 @torch.no_grad()
-def predict(model, layout: Layout, handoff: Handoff, batch, M: int) -> torch.Tensor:
+def predict(stage: Stage, layout: Layout, handoff: Handoff, batch, M: int) -> torch.Tensor:
     """The schedule's forward on this rank's rows (M microbatches where
     they divide the rows, else one) -> the predictions (B,) float32 on every
-    stage (broadcast from the last)."""
+    stage (broadcast from the last). Under FSDP every unit is back to its
+    shard after."""
     B = batch.shape[0]
     M = M if B % M == 0 else 1
     mb = B // M
-    outs = [_forward(model, layout, handoff, batch[j * mb:(j + 1) * mb], mb)[1]
+    outs = [_forward(stage, layout, handoff, batch[j * mb:(j + 1) * mb], mb)[1]
             for j in range(M)]
+    if _fsdp(stage):
+        from torch.distributed.fsdp import FSDPModule
+
+        for m in stage.modules():
+            if isinstance(m, FSDPModule):
+                m.reshard()
     last = layout.pipe_size - 1
     preds = (torch.cat(outs).float().contiguous() if layout.stage == last
              else torch.empty(B, dtype=torch.float32, device=batch.device))

@@ -1,10 +1,19 @@
 """A model and its training state on a mesh: placement (tensor
-parallelism or sequence sharding on 'model', FSDP2 on 'fsdp', the stages
-of a pipeline on 'pipe'), the gradient sums over the batch shards (and over
-'model' under sequence sharding, over 'pipe' for the parameters every stage
-holds), the clip norm, and full state dicts gathered for checkpoints and
-laid out again on load, so the files are the single-process format and a
-run saved under one mesh resumes under another or under none.
+parallelism or sequence sharding on 'model', FSDP2 on 'fsdp' beside either
+and beside a pipeline, the stages of a pipeline on 'pipe'), the gradient
+sums over the batch shards (and over 'model' under sequence sharding, over
+'pipe' for the parameters every stage holds), the clip norm, and full state
+dicts gathered for checkpoints and laid out again on load, so the files are
+the single-process format and a run saved under one mesh resumes under
+another or under none.
+
+Under FSDP a parameter is a DTensor over the rank's FSDP mesh
+(``Layout.fsdp_mesh``) whose value is what the rank holds without FSDP:
+under TP its slice, in a pipeline its stage's. FSDP2 reduce-scatters the
+gradients over the batch shards in backward; the sums over 'model' (the
+token-acting parameters under sequence sharding) and over 'pipe' (the
+shared parameters) then add the local shards, which line up because every
+'model' and 'pipe' coordinate shards alike.
 """
 
 from __future__ import annotations
@@ -14,15 +23,21 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from surface_vision_transformers_tpu_torch.parallel.mesh import Layout
-from surface_vision_transformers_tpu_torch.parallel.pipeline import stage_blocks
+from surface_vision_transformers_tpu_torch.parallel.pipeline import Stage, stage_blocks
 from surface_vision_transformers_tpu_torch.parallel.seq import SeqGroup
 from surface_vision_transformers_tpu_torch.parallel.tp import (
     TPGroup,
     apply_tensor_parallel,
+    dim_head_of,
     gather_param,
     heads_of,
     shard_param,
 )
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view), another tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 class ShardedModel:
@@ -30,7 +45,8 @@ class ShardedModel:
     its tensor-parallel slices; FSDP2 holds every parameter as a DTensor;
     a pipeline stage holds the embedding, positions, CLS token and head and
     its own blocks (the others are dropped: ``shapes`` keeps the whole
-    model's state-dict shapes, ``names`` its parameters' names in order)."""
+    model's state-dict shapes, ``names`` its parameters' names in order),
+    and runs them through ``stage`` (``pipeline.Stage``)."""
 
     def __init__(self, model: torch.nn.Module, layout: Layout):
         from surface_vision_transformers_tpu_torch.models.sit import Attention, SiT, _PreNorm
@@ -39,11 +55,6 @@ class ShardedModel:
         self.tp = (TPGroup(layout.model_group, layout.model_size, layout.model_index)
                    if layout.tp else None)
         self.split: dict[str, int] = {}
-        if layout.fsdp and (layout.tp or layout.seq or layout.pipe):
-            raise NotImplementedError(
-                "FSDP together with tensor parallelism, sequence sharding or a pipeline "
-                "(tpu.mesh_fsdp > 1 with tpu.mesh_model > 1 or tpu.mesh_pipe > 1) is not "
-                "ported yet")
         self.shapes = {k: (v.shape, v.dtype) for k, v in model.state_dict().items()}
         self.full_names = [n for n, p in model.named_parameters() if p.requires_grad]
         if self.tp is not None:
@@ -53,20 +64,29 @@ class ShardedModel:
             for m in model.modules():
                 if isinstance(m, (SiT, Attention)):
                     m.sp = sp
+        self.stage = None
         if layout.pipe:  # this stage's blocks only
             mine = stage_blocks(model.depth, layout)
             for i in range(model.depth):
                 if i not in mine:
                     model.transformer.layers[i] = torch.nn.ModuleList()
+            self.stage = Stage(model, layout)
         if layout.fsdp:
             from torch.distributed.fsdp import fully_shard
 
-            mesh = layout.mesh
-            sub = mesh["fsdp"] if layout.shape["data"] == 1 else mesh["data", "fsdp"]
-            for m in model.modules():  # a unit a pre-norm branch, then the rest
+            # a unit a pre-norm branch, then the rest. Outside a step every
+            # parameter is its shard (the root too: EMA and state dicts read
+            # them); a pipeline's units stay whole from a step's first
+            # forward to its last backward (``pipeline.train_step``). A TP
+            # rank's empty slices (it holds no head) stay out: FSDP2 cannot
+            # reduce-scatter an empty gradient, and there is nothing to shard
+            keep = layout.pipe
+            kw = dict(mesh=layout.fsdp_mesh, reshard_after_forward=not keep,
+                      ignored_params={p for p in model.parameters() if not p.numel()})
+            for m in model.modules():
                 if isinstance(m, _PreNorm):
-                    fully_shard(m, mesh=sub)
-            fully_shard(model, mesh=sub)
+                    fully_shard(m, **kw)
+            fully_shard(self.stage if keep else model, **kw)
         self.names = {id(p): n for n, p in model.named_parameters()}
 
     def _block_of(self, name: str) -> int | None:
@@ -90,7 +110,9 @@ class ShardedModel:
         return float(self.layout.batch_count) if self.layout.fsdp else 1.0
 
     def _all_reduce(self, grads, group) -> None:
-        """Sum ``grads`` over ``group`` in place, in one flat all-reduce."""
+        """Sum ``grads`` (their local shards) over ``group`` in place, in
+        one flat all-reduce."""
+        grads = [_local(g) for g in grads]
         if not grads or group is None:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
@@ -102,7 +124,7 @@ class ShardedModel:
 
     def sync_grads(self, params) -> None:
         """Sum the gradients over the batch shards, in one flat all-reduce
-        (FSDP2 reduces its own in backward); first, under sequence sharding,
+        (FSDP2 reduces its own in backward); then, under sequence sharding,
         those of every parameter but the head's over 'model', and in a
         pipeline those of the parameters every stage holds over 'pipe' (a
         stage that did not use one gives zeros)."""
@@ -123,50 +145,56 @@ class ShardedModel:
 
     def grad_sq_norm(self, params) -> torch.Tensor:
         """The squared global norm of the gradients of ``params``: each
-        slice counted once (FSDP2 shards, TP slices and pipeline stages'
-        blocks summed over their axis, replicated gradients taken as they
-        are)."""
+        slice counted once. An FSDP2 shard's square sum goes over the FSDP
+        group, a TP slice's or a pipeline stage's block's over 'model' or
+        'pipe' (an FSDP shard of one first over the FSDP group, then over
+        that axis); replicated gradients are taken as they are."""
         lay = self.layout
-        rep = fsdp = part = 0.0
         dev = params[0].device
+        zero = torch.zeros((), device=dev)
+        # (replicated, split over 'model' / 'pipe'), each apart for FSDP shards
+        plain, sharded = [zero, zero], [zero, zero]
         for p in params:
             g = p.grad
             if g is None:
                 continue
             name = self.names.get(id(p))
-            if isinstance(g, DTensor):
-                fsdp = fsdp + g.to_local().float().square().sum()
-            elif name in self.split or (lay.pipe and self._block_of(name) is not None):
-                part = part + g.float().square().sum()
-            else:
-                rep = rep + g.float().square().sum()
-        total = torch.zeros((), device=dev) + rep
-        sums = [(fsdp, lay.mesh.get_group("fsdp") if lay.fsdp else None),
-                (part, lay.pipe_group if lay.pipe else lay.model_group if lay.tp else None)]
-        for x, group in sums:
-            if group is not None:  # every rank of the group joins, with or without a share
-                x = torch.zeros((), device=dev) + x
+            part = int(name in self.split or (lay.pipe and self._block_of(name) is not None))
+            acc = sharded if isinstance(g, DTensor) else plain
+            acc[part] = acc[part] + _local(g).float().square().sum()
+
+        def over(x, group):  # every rank of the group joins, with or without a share
+            if group is not None:
+                x = x.clone()
                 dist.all_reduce(x, group=group)
-                total = total + x
-        return total
+            return x
+
+        part_group = lay.pipe_group if lay.pipe else lay.model_group if lay.tp else None
+        return (plain[0] + over(sharded[0], lay.fsdp_group)
+                + over(plain[1] + over(sharded[1], lay.fsdp_group), part_group))
 
     # -- full state ---------------------------------------------------------------
 
     def _full(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """A parameter's (or moment's) whole value: its FSDP2 shards
+        gathered, then its TP slices."""
         if isinstance(value, DTensor):
-            return value.full_tensor()
+            value = value.full_tensor()
         if name in self.split:
-            return gather_param(value, name, self.tp, heads_of(self.model, name))
+            return gather_param(value, name, self.tp, heads_of(self.model, name),
+                                dim_head_of(self.model, name))
         return value
 
     def _local(self, name: str, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """What this rank holds of a whole value, laid out as ``like``: its TP
+        slice, then its FSDP2 shard of that."""
+        if name in self.split:
+            full = shard_param(full, name, self.tp.size, self.tp.rank,
+                               heads_of(self.model, name)).to(like.device)
         if isinstance(like, DTensor):
             # every rank holds the whole value: each keeps its shard, no traffic
             return distribute_tensor(full.to(device=like.device, dtype=like.dtype),
                                      like.device_mesh, like.placements, src_data_rank=None)
-        if name in self.split:
-            return shard_param(full, name, self.tp.size, self.tp.rank,
-                               heads_of(self.model, name)).to(like.device)
         return full
 
     def _from_stage(self, name: str, local, shape, dtype, device) -> torch.Tensor:
@@ -185,7 +213,7 @@ class ShardedModel:
         own = {k: self._full(k, v) for k, v in self.model.state_dict().items()}
         if not self.layout.pipe:
             return own
-        dev = next(self.model.parameters()).device
+        dev = _local(next(self.model.parameters())).device
         return {k: own[k] if self._stage_of(k) is None else
                 self._from_stage(k, own.get(k), shape, dtype, dev)
                 for k, (shape, dtype) in self.shapes.items()}
@@ -226,7 +254,7 @@ class ShardedModel:
             return state
         by_name = {names[i]: st for i, st in state.items()}
         like = next(iter(state.values()))
-        dev = next(self.model.parameters()).device
+        dev = _local(next(self.model.parameters())).device
         out = {}
         for j, name in enumerate(self.full_names):
             mine = by_name.get(name)

@@ -8,13 +8,20 @@ of q, k and v, in [q | k | v] order, so the attention kernel
 hidden units, the out-projection and fc2 the matching input columns, the
 MPP decoders their output features. Rank r of m keeps heads [floor(r H /
 m), floor((r + 1) H / m)), so a head count the axis does not divide splits
-unevenly (3 heads over 2 ranks: 1 and 2), which computes the function the
-JAX package's contiguous column split computes under GSPMD; hidden and
-decoder widths split evenly and are refused otherwise. A branch enters
-through ``copy_to`` (identity forward, the input gradient summed over the
-axis) and leaves through ``reduce_from`` (the partial products summed, in
-float32, before the replicated bias). Every other parameter is replicated
-and gets the same gradient on every rank of the axis.
+unevenly (3 heads over 2 ranks: 1 and 2; 1 head over 2 ranks: none and 1),
+which computes the function the JAX package's contiguous column split
+computes under GSPMD. A rank that holds no head keeps empty qkv and
+out-projection slices: its attention adds nothing, but it joins every
+collective of the branch, forward and backward. Hidden and decoder widths
+split evenly; a width the axis does not divide is refused with
+``ValueError``, as the JAX ``shard_params`` (``jax.device_put``) refuses
+it. A branch enters through ``branch_in`` (the rank's slice of its first
+product, in the activations' dtype; the input gradient's partial products
+made and summed over the axis in float32 and rounded once, as the single
+process rounds its one product once) and leaves through ``reduce_from``
+(the partial products summed, in float32, before the replicated bias).
+Every other parameter is replicated and gets the same gradient on every
+rank of the axis.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.parallel.mesh import tp_rule
 
@@ -51,19 +59,6 @@ class TPGroup:
         return hi - lo
 
 
-class _CopyTo(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.tp.group)
-        return g, None
-
-
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
@@ -76,9 +71,34 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
-def copy_to(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    """``x`` (replicated) entering a TP branch: its gradient is summed."""
-    return _CopyTo.apply(x, tp)
+class _BranchIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, tp):
+        w = weight.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.tp, ctx.dtypes = tp, (weight.dtype, None if bias is None else bias.dtype)
+        return F.linear(x, w, None if bias is None else bias.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.flatten(0, -2)  # (rows, out); out may be 0 on a rank without a head
+        # the partial input gradient in float32, summed over the axis, rounded once
+        dx = (g2.float() @ w.float()).view(*g.shape[:-1], w.shape[1])
+        dist.all_reduce(dx, group=ctx.tp.group)
+        dw = db = None
+        if ctx.needs_input_grad[1]:  # as autograd makes a linear's, in x's dtype
+            dw = (g2.t() @ x.flatten(0, -2)).to(ctx.dtypes[0])
+        if ctx.dtypes[1] is not None and ctx.needs_input_grad[2]:
+            db = g2.sum(0).to(ctx.dtypes[1])
+        return dx.to(x.dtype), dw, db, None
+
+
+def branch_in(x: torch.Tensor, lin: torch.nn.Linear, tp: TPGroup) -> torch.Tensor:
+    """``x`` (replicated) times the rank's slice of ``lin`` (its output
+    features), in x's dtype: a TP branch's first product. Its input
+    gradient is summed over the axis from float32 partial products."""
+    return _BranchIn.apply(x, lin.weight, lin.bias, tp)
 
 
 def reduce_from(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
@@ -118,14 +138,16 @@ def unshard_param(parts: list[torch.Tensor], name: str, heads: int | None = None
     """A TP parameter's full value from every rank's slice, in rank order."""
     if name.endswith("to_qkv.weight"):
         dim = parts[0].shape[-1]
-        return torch.cat([p.reshape(3, -1, dim) for p in parts], 1).reshape(-1, dim)
+        return torch.cat([p.reshape(3, p.shape[0] // 3, dim) for p in parts], 1).reshape(-1, dim)
     return torch.cat(parts, tp_rule(name))
 
 
-def gather_param(local: torch.Tensor, name: str, tp: TPGroup, heads: int | None = None):
+def gather_param(local: torch.Tensor, name: str, tp: TPGroup, heads: int | None = None,
+                 dim_head: int | None = None):
     """The full value of a TP parameter (a collective over the axis). The
-    slices of uneven heads differ in size: each is padded to the most heads
-    a rank holds for the all-gather and cut back after."""
+    slices of uneven heads differ in size (a rank may hold none): each is
+    padded to the most heads a rank holds for the all-gather and cut back
+    after; ``dim_head`` is the heads' width."""
     if heads is None:
         parts = [torch.empty_like(local) for _ in range(tp.size)]
         dist.all_gather(parts, local.contiguous(), group=tp.group)
@@ -134,8 +156,8 @@ def gather_param(local: torch.Tensor, name: str, tp: TPGroup, heads: int | None 
     mine = b[tp.rank + 1] - b[tp.rank]
     qkv = name.endswith("to_qkv.weight")
     # heads on dim 1: (3, h, dh, dim) for the packed qkv, (dim, h, dh) for to_out
-    view = (local.reshape(3, mine, -1, local.shape[-1]) if qkv
-            else local.reshape(local.shape[0], mine, -1))
+    view = (local.reshape(3, mine, dim_head, local.shape[-1]) if qkv
+            else local.reshape(local.shape[0], mine, dim_head))
     pad = view.new_zeros((view.shape[0], max(np_ - n for n, np_ in zip(b, b[1:])),
                           *view.shape[2:]))
     pad[:, :mine] = view
@@ -145,13 +167,28 @@ def gather_param(local: torch.Tensor, name: str, tp: TPGroup, heads: int | None 
     return full.reshape(-1, local.shape[-1]) if qkv else full.reshape(local.shape[0], -1)
 
 
-def heads_of(model, name: str) -> int | None:
-    """The head count of the attention that owns parameter ``name`` (its
-    packed qkv or out-projection weight), else None."""
+def _attention_of(model, name: str):
+    """The attention module that owns parameter ``name`` (its packed qkv or
+    out-projection weight), else None."""
     if not name.endswith(("to_qkv.weight", "to_out.0.weight", "to_out.weight")):
         return None
     owner = name.rsplit(".", 3 if name.endswith("to_out.0.weight") else 2)[0]
-    return getattr(model.get_submodule(owner), "heads", None)
+    mod = model.get_submodule(owner)
+    return mod if hasattr(mod, "heads") else None
+
+
+def heads_of(model, name: str) -> int | None:
+    """The head count of the attention that owns parameter ``name`` (its
+    packed qkv or out-projection weight), else None."""
+    mod = _attention_of(model, name)
+    return None if mod is None else mod.heads
+
+
+def dim_head_of(model, name: str) -> int | None:
+    """The head width of the attention that owns parameter ``name``, else
+    None."""
+    mod = _attention_of(model, name)
+    return None if mod is None else mod.dim_head
 
 
 def apply_tensor_parallel(model: torch.nn.Module, tp: TPGroup) -> dict[str, int]:
@@ -159,27 +196,26 @@ def apply_tensor_parallel(model: torch.nn.Module, tp: TPGroup) -> dict[str, int]
     of the value it holds, which the seeded init made equal on every rank)
     and hand ``tp`` to its attention, MLP and MPP modules (a SiT's or an
     MS-SiT's). -> {parameter name: split dim}. Heads split whole, unevenly
-    where the axis does not divide them; refuses fewer heads than ranks, and
-    hidden or decoder widths the axis does not divide."""
+    where the axis does not divide them (a rank may hold none); hidden and
+    decoder widths the axis does not divide are refused (``ValueError``), as
+    the JAX placement refuses them."""
     from surface_vision_transformers_tpu_torch.models.mpp import MPP
     from surface_vision_transformers_tpu_torch.models.mpp_mssit import MPPMSSiT
     from surface_vision_transformers_tpu_torch.models.mssit import WindowAttention
     from surface_vision_transformers_tpu_torch.models.sit import Attention, FeedForward
 
     attns, decoders = (Attention, WindowAttention), (MPP, MPPMSSiT)
+    jax_too = ("; the JAX package's placement (shard_params, jax.device_put) refuses the "
+               "same")
     for name, mod in model.named_modules():
-        if isinstance(mod, attns) and mod.heads < tp.size:
-            raise NotImplementedError(
-                f"tensor parallelism splits attention by whole heads: {mod.heads} heads "
-                f"leave a rank of tpu.mesh_model={tp.size} without one ({name})")
         if isinstance(mod, FeedForward) and mod.net[0].out_features % tp.size:
-            raise NotImplementedError(
+            raise ValueError(
                 f"mlp_dim {mod.net[0].out_features} does not divide over "
-                f"tpu.mesh_model={tp.size} ({name})")
+                f"tpu.mesh_model={tp.size} ({name}){jax_too}")
         if isinstance(mod, decoders) and mod.to_original.out_features % tp.size:
-            raise NotImplementedError(
+            raise ValueError(
                 f"the MPP decoder's {mod.to_original.out_features} outputs do not divide "
-                f"over tpu.mesh_model={tp.size}")
+                f"over tpu.mesh_model={tp.size}{jax_too}")
     split = {}
     with torch.no_grad():
         for name, p in list(model.named_parameters()):

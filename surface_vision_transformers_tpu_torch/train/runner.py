@@ -31,11 +31,11 @@ blocks (with the flag alone, the seeded init, as in the JAX package).
 ``tpu.mesh_{data,fsdp,model,pipe}`` (or more than one process) train under
 a mesh (``parallel.mesh_from_config``; ``train.trainer`` says how; with
 ``tpu.seq_sharding`` the 'model' axis splits the tokens): every rank
-computes, rank 0 alone writes files and prints, and the results gain
-``mesh``. Not ported (they raise): FSDP with tensor parallelism, sequence
-sharding or a pipeline, ``tpu.profile_epoch`` and ``tpu.debug_nans`` away
-from their defaults, and ImageNet initialisation of an MS-SiT or MPP
-model.
+computes, rank 0 alone writes files and prints (full-state checkpoints
+gathered whole), and the results gain ``mesh``; FSDP composes with each
+other axis. Not ported (they raise): ``tpu.profile_epoch`` and
+``tpu.debug_nans`` away from their defaults, and ImageNet initialisation
+of an MS-SiT or MPP model.
 
 ``run_testing``: load a split and a checkpoint; regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the

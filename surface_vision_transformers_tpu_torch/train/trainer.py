@@ -62,17 +62,20 @@ gradients are summed over ('data', 'fsdp'): one flat all-reduce under DP
 and TP, FSDP2's reduce-scatter (whose mean the loss's scale undoes) under
 FSDP. Pure DP keeps the fused kernels on every rank with replicated
 weights; FSDP (``fully_shard``), TP (``parallel.tp``; a SiT's, an
-MS-SiT's, and their MPP decoders) and sequence sharding (``tpu.seq_sharding``,
-``parallel.seq``: SiT regression) run the modular model. A pipeline
-(``tpu.mesh_pipe > 1``, ``parallel.pipeline``: SiT regression, no dropout,
-no ``grad_accum``, the JAX refusals and messages) runs the GPipe schedule
-over the stages, the modular blocks on each, and evaluates through the
-schedule's forward. Evaluation runs each rank's rows and gathers the
-predictions, so the metrics are over the whole split; ``state_dict``
-gathers every parameter and moment whole, so checkpoints are the
-single-process format. The attention-dropout kernel's masks under a mesh
-differ from the single process's (its seed is offset by the rank's shard).
-Not ported: FSDP together with TP, sequence sharding or a pipeline.
+MS-SiT's, and their MPP decoders; fewer heads than ranks too) and sequence
+sharding (``tpu.seq_sharding``, ``parallel.seq``: SiT regression and MPP;
+an MS-SiT, and MPP around one, takes the TP layout there, as the JAX
+package's does) run the modular model. A pipeline (``tpu.mesh_pipe > 1``,
+``parallel.pipeline``: SiT regression, no dropout, no ``grad_accum``, no
+TP, the JAX refusals and messages) runs the GPipe schedule over the
+stages, the modular blocks on each, and evaluates through the schedule's
+forward. FSDP composes with each of TP, sequence sharding and a pipeline
+(``parallel.sharding``): DP x FSDP x TP from the config alone. Evaluation
+runs each rank's rows and gathers the predictions, so the metrics are over
+the whole split; ``state_dict`` gathers every parameter and moment whole,
+so checkpoints are the single-process format. The attention-dropout
+kernel's masks under a mesh differ from the single process's (its seed is
+offset by the rank's shard).
 """
 
 from __future__ import annotations
@@ -199,16 +202,15 @@ class Trainer:
         # under a mesh: the model (and its EMA shadow) laid out on it
         self.layout = (mesh if isinstance(mesh, Layout) or mesh is None
                        else Layout(mesh, seq=exp.seq_sharding))
+        if self.layout is not None and self.layout.seq and isinstance(self.encoder, MSSiT):
+            # the JAX MS-SiT takes the sequence fields and uses them nowhere:
+            # under tpu.seq_sharding its parameters get the TP placement
+            self.layout = self.layout.tensor_parallel()
         self.mesh = None if mesh is None else self.layout.mesh
         self.sharded = self.ema_sharded = self.handoff = None
         if self.layout is not None and self.layout.pipe:
             pipeline.check_pipeline(exp, self.encoder, self.task, self.layout)
             self.handoff = pipeline.Handoff(self.layout)
-        if self.layout is not None and self.layout.seq and (
-                self.task == "mpp" or isinstance(self.encoder, MSSiT)):
-            raise NotImplementedError(
-                "sequence sharding (tpu.seq_sharding) is ported for SiT regression; MPP "
-                "and MS-SiT under it are not ported yet")
         if self.layout is not None:
             self.sharded = ShardedModel(model, self.layout)
             if self.ema_model is not None:
@@ -374,8 +376,9 @@ class Trainer:
         lay = self.layout
         M = pipeline.microbatches(self.exp)
         pipeline.check_batch(total, lay, M)
-        loss, mae = pipeline.train_step(self.model, lay, self.handoff, batch, targets,
-                                        weights, w_tot, M, self.exp.training.l1loss)
+        loss, mae = pipeline.train_step(self.sharded.stage, lay, self.handoff, batch, targets,
+                                        weights, w_tot, M, self.exp.training.l1loss,
+                                        self.sharded.grad_scale)
         self.sharded.sync_grads(self.optimizer.params)
         self.optimizer.step()
         self._update_ema()
@@ -430,7 +433,8 @@ class Trainer:
         forward = fused_mssit_forward if mssit else fused_forward
         if self.layout is not None and self.layout.pipe:
             M = pipeline.microbatches(self.exp)
-            return lambda xb: pipeline.predict(model, self.layout, self.handoff, xb, M)
+            stage = (self.ema_sharded if model is self.ema_model else self.sharded).stage
+            return lambda xb: pipeline.predict(stage, self.layout, self.handoff, xb, M)
         if not serves_fused(model) or not (self.layout is None or self.layout.pure_dp):
             return lambda xb: model(xb).reshape(xb.shape[0], -1).squeeze(-1)
         weights = (prepare_mssit_weights if mssit else prepare_weights)(model, quant)

@@ -17,10 +17,16 @@ At dim 64, depth 2, ico 2 / sub-ico 0 (the JAX dryrun's size):
   under TP under FSDP, from single-process files;
 * DP x FSDP and DP x TP on four ranks against the single process;
 * dropout under DP and TP trains;
-* the refusals (FSDP with TP, the fused paths under FSDP / TP, a second
-  initialisation), uneven heads taken, the pipeline and sequence keys read
-  on one process, and the rules that need no process group (placements,
-  the rows a rank holds, ``mesh_from_config``).
+* FSDP beside TP trains (FSDP2 on the size-1 'fsdp' axis); the refusals
+  (the fused paths under FSDP / TP, a second initialisation, MLP and MPP
+  decoder widths the 'model' axis does not divide, as JAX's placement
+  refuses them), uneven heads and fewer heads than ranks taken, the
+  pipeline and sequence keys read on one process, and the rules that need
+  no process group (placements, the rows a rank holds,
+  ``mesh_from_config``).
+
+FSDP beside TP, sequence sharding and a pipeline on four ranks:
+``tests/test_torch_mesh_compose.py``.
 """
 
 from __future__ import annotations
@@ -371,14 +377,16 @@ def test_fsdp_checkpoint_resumes_without_a_mesh(ranks, data, tmp_path):
 
 
 def test_refusals_under_a_mesh(ranks):
-    """FSDP with TP, the fused paths under FSDP and TP (whose trainers take
-    the modular route) and a second, different initialisation are refused
-    with a message; pure DP runs fused. Heads the model axis does not
-    divide are no longer refused: 3 heads over 2 ranks split 1 / 2 (their
-    step against JAX: ``tests/test_torch_mssit_tp.py``)."""
+    """The fused paths under FSDP and TP (whose trainers take the modular
+    route) and a second, different initialisation are refused with a
+    message; pure DP runs fused. FSDP with TP is no longer refused: a step
+    of FSDP2 on the size-1 'fsdp' axis beside TP trains to a finite loss.
+    Heads the model axis does not divide are taken (3 heads over 2 ranks
+    split 1 / 2), and so are fewer heads than ranks (1 head over 2: none on
+    rank 0); their steps against JAX: ``tests/test_torch_mssit_tp.py``."""
     out = json.loads((ranks / "refusals.json").read_text())
-    assert out["heads"] is None
-    assert out["fsdp_tp"].startswith("NotImplementedError") and "together" in out["fsdp_tp"]
+    assert out["heads"] is None and out["heads_1"] is None
+    assert out["fsdp_tp"] is None and np.isfinite(out["fsdp_tp_loss"])
     for name in ("fused_fsdp", "fused_tp"):
         assert out[name].startswith("NotImplementedError") and "pure DP" in out[name]
         assert out[name + "_route"] is False
@@ -386,6 +394,33 @@ def test_refusals_under_a_mesh(ranks):
     assert out["init_again"].startswith("RuntimeError") and "already initialised" in (
         out["init_again"])
     assert out["init_same"] == 0
+
+
+# widths the 'model' axis does not divide: fc1's 129 hidden units; the MPP
+# decoder's 45 outputs (3 channels of 15 vertices)
+WIDTH_CASES = {"mlp": lambda r: r["transformer"].update(mlp_dim=129),
+               "mpp_decoder": lambda r: _mpp(r)["transformer"].update(num_channels=3)}
+
+
+@pytest.mark.parametrize("case", list(WIDTH_CASES))
+def test_widths_the_model_axis_does_not_divide_are_refused_as_jax_refuses_them(case):
+    """An MLP or MPP-decoder width that 'model' = 2 does not divide: the
+    JAX ``shard_params`` on ``make_mesh(1, 1, 2)`` (``jax.device_put``)
+    refuses it with a ValueError, and so does the port's
+    ``apply_tensor_parallel``, with a message that says JAX refuses the
+    same."""
+    from surface_vision_transformers_tpu_torch.parallel.tp import TPGroup, apply_tensor_parallel
+
+    raw = raw_cfg()
+    WIDTH_CASES[case](raw)
+    x = np.zeros((1, raw["transformer"].get("num_channels", 4), 20, 15), np.float32)
+    params = JaxTrainer(jax_from_dict(raw)).init_state(x).params
+    with pytest.raises(ValueError, match="divisible"):
+        shard_params(params, jax_make_mesh(1, 1, 2))
+    model = runner.build_model(from_dict(raw), None)
+    with pytest.raises(ValueError, match="does not divide|do not divide") as e:
+        apply_tensor_parallel(model, TPGroup(None, 2, 0))
+    assert "refuses the same" in str(e.value)
 
 
 @pytest.mark.parametrize("key,val", [("tpu.seq_sharding", True), ("tpu.mesh_pipe", 1),

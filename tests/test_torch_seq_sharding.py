@@ -12,8 +12,16 @@ the dryrun's size (dim 64, depth 2, ico 2 / sub-ico 0: 21 tokens, padded to
 * ``run_training``: best MAE within 1e-6 of the single process, the
   attention through ``flash_attention`` (its plain version on the CPU) on
   11 local queries against 22 keys;
+* MPP around the sequence-sharded SiT (the JAX ``MPP`` wraps the JAX
+  sequence-sharded encoder): one unclipped SGD step on a corruption that
+  is a function of the data, built alike in both packages, within 2e-5 of
+  the JAX step (each rank decodes its own token rows; the masked squared
+  errors are summed over 'model' and divided by JAX's denominator), and
+  ``run_training``: best loss within 1e-6 of the single process;
 * dropout under sequence sharding trains (the explicit path);
 * the rows, padding and pooling helpers alone.
+
+FSDP beside sequence sharding: ``tests/test_torch_mesh_compose.py``.
 """
 
 from __future__ import annotations
@@ -27,10 +35,12 @@ import pytest
 import torch
 
 from surface_vision_transformers_tpu.checkpoints.torch_import import sit_params_to_torch
+from surface_vision_transformers_tpu.models import mpp as jmpp
 from surface_vision_transformers_tpu.parallel import make_mesh as jax_make_mesh
 from surface_vision_transformers_tpu.parallel import shard_batch, shard_params
 from surface_vision_transformers_tpu.train import Trainer as JaxTrainer
 from surface_vision_transformers_tpu.utils.config import from_dict as jax_from_dict
+from surface_vision_transformers_tpu_torch.checkpoints.convert import mpp_state_dict_from_jax
 from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
 from surface_vision_transformers_tpu_torch.parallel import seq
 from surface_vision_transformers_tpu_torch.train import runner
@@ -40,6 +50,24 @@ from tests.test_torch_parallel import run_ranks
 # case: (pool, clip); unclipped, the first SGD step is lr times the gradient,
 # so a wrong term of it shows; clipped, the norm over the ranks' gradients
 STEP_CASES = {"sp_cls": ("cls", 0.0), "sp_mean": ("mean", 0.0), "sp_cls_clip": ("cls", 0.05)}
+
+
+def _mpp(raw):
+    raw["SSL"] = "mpp"
+    raw["pretraining_mpp"] = {"mask_prob": 0.5, "replace_prob": 0.8, "swap_prob": 0.1}
+    return raw
+
+
+def _fixed_corruption_jax(key, tokens, mask_token, *, mask_prob, replace_prob, swap_prob):
+    """``torch_parallel_worker.fixed_token_corruption`` in JAX."""
+    import math
+
+    B, L, D = tokens.shape
+    n = math.ceil(mask_prob * L)
+    pos = jax.numpy.arange(L)
+    mask = (pos[None, :] + (tokens[:, 0] > 0).sum(-1)[:, None]) % L < n
+    repl = mask & (pos[None, :] % 2 == 0)
+    return jax.numpy.where(repl[:, :, None], mask_token.astype(tokens.dtype), tokens), mask, n
 
 
 def raw_cfg(root=None, sp=True, pool="cls", clip=0.05, **training):
@@ -99,6 +127,18 @@ def ranks(tmp_path_factory, data):
         sets[name] = [str(tmp / f"{name}_d.npy"), str(tmp / f"{name}_l.npy")]
     jobs.append(dict(kind="train", cfg=raw_cfg(tmp / "train"), datasets=sets,
                      out=str(tmp / "train.json")))
+    # MPP around the sequence-sharded encoder: a step on a fixed corruption, a run
+    _, _, state = _jax_trainer(_mpp(raw_cfg(clip=0.0)), x)
+    init = {k: torch.from_numpy(np.array(v)) for k, v in mpp_state_dict_from_jax(
+        jax.device_get(state.params), 2).items()}
+    init.update({k: v for k, v in runner.build_model(from_dict(_mpp(raw_cfg())), None)
+                 .state_dict().items() if k.startswith("transformer.mlp_head")})
+    torch.save(init, tmp / "init_mpp.pt")
+    jobs.append(dict(kind="step", shape=(1, 1, 2), cfg=_mpp(raw_cfg(clip=0.0)),
+                     init=str(tmp / "init_mpp.pt"), x=str(tmp / "x.npy"), y="",
+                     w=str(tmp / "w.npy"), fixed_corruption=True, out=str(tmp / "step_mpp.pt")))
+    jobs.append(dict(kind="train", cfg=_mpp(raw_cfg(tmp / "mpp")), datasets=sets,
+                     out=str(tmp / "mpp.json")))
     drop = raw_cfg(tmp / "dropout")
     drop["transformer"].update(dropout=0.1, emb_dropout=0.1)
     jobs.append(dict(kind="train", cfg=drop, datasets=sets, out=str(tmp / "dropout.json")))
@@ -138,10 +178,53 @@ def test_one_step_matches_jax_sequence_parallel(ranks, data, case):
         np.testing.assert_allclose(moved, raw["training"]["LR"] * clip, rtol=1e-3)
 
 
+def test_mpp_step_matches_jax_sequence_parallel(ranks, data, monkeypatch):
+    """MPP around the sequence-sharded SiT: the port's unclipped SGD step on
+    two gloo ranks (each rank embeds the corrupted sequence, encodes and
+    decodes its own rows; the masked squared errors, pad rows and CLS left
+    out, summed over 'model' over JAX's denominator, so every rank holds the
+    same loss) equals the JAX Trainer's under the same mesh (fp32, 2e-5),
+    from the same parameters, on one corruption built alike in both
+    packages and a batch with zero-weight rows; every matrix moved."""
+    monkeypatch.setattr(jmpp, "corrupt_sequence", _fixed_corruption_jax)
+    x = data["train"][0][:16]
+    w = np.load(ranks / "w.npy")
+    tr, mesh, state = _jax_trainer(_mpp(raw_cfg(clip=0.0)), x)
+    assert tr.model.seq_shard_axis == "model" and tr.mpp.encoder is tr.model
+    batch = tr._mpp_tokens(jax.numpy.asarray(x))
+    with mesh:
+        state = state.replace(params=shard_params(state.params, mesh))
+        state, loss, _ = tr._build_step_fn()(state, shard_batch(batch, mesh), None,
+                                             jax.numpy.asarray(w))
+    want = mpp_state_dict_from_jax(jax.device_get(state.params), 2)
+    got = torch.load(ranks / "step_mpp.pt", weights_only=True)
+    init = torch.load(ranks / "init_mpp.pt", weights_only=True)
+    assert abs(got["loss"] - float(loss)) < 1e-5, (got["loss"], float(loss))
+    for k, v in want.items():
+        np.testing.assert_allclose(got["state"][k].numpy(), v.numpy(), atol=2e-5, rtol=0,
+                                   err_msg=k)
+        if v.dim() == 2:
+            assert (got["state"][k] - init[k]).abs().max() > 1e-5, k
+
+
 @pytest.fixture(scope="module")
 def single(tmp_path_factory, data):
     return runner.run_training(from_dict(raw_cfg(tmp_path_factory.mktemp("one"), sp=False)),
                                device="cpu", datasets=copy.deepcopy(data), progress=False)
+
+
+def test_mpp_training_under_sequence_sharding_matches_the_single_process(
+        ranks, data, tmp_path):
+    """Two epochs of MPP ``run_training`` under (1, 1, 2) with sequence
+    sharding: best loss within 1e-6 of the single process's, the attention
+    through ``flash_attention`` on local queries."""
+    got = json.loads((ranks / "mpp.json").read_text())
+    want = runner.run_training(from_dict(_mpp(raw_cfg(tmp_path, sp=False))), device="cpu",
+                               datasets=copy.deepcopy(data), progress=False)
+    assert got["mesh"] == {"data": 1, "fsdp": 1, "model": 2}
+    assert got["best_epoch"] == want["best_epoch"]
+    assert abs(got["best_loss"] - want["best_loss"]) < 1e-6, (got, want)
+    assert got["fa_calls"] > 0 and got["qkv_calls"] == 0
 
 
 def test_sequence_parallel_training_matches_the_single_process(ranks, single):

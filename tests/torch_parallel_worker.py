@@ -24,6 +24,7 @@ sys.path.insert(0, str(REPO))
 
 from surface_vision_transformers_tpu_torch import parallel  # noqa: E402
 from surface_vision_transformers_tpu_torch.geometry import load_patch_table  # noqa: E402
+from surface_vision_transformers_tpu_torch.models import mpp as mpp_mod  # noqa: E402
 from surface_vision_transformers_tpu_torch.models import mpp_mssit as mpp_mssit_mod  # noqa: E402
 from surface_vision_transformers_tpu_torch.models import mssit as mssit_mod  # noqa: E402
 from surface_vision_transformers_tpu_torch.models import sit as sit_mod  # noqa: E402
@@ -56,10 +57,26 @@ def fixed_window_corruption(target, mask_token, *, window, mask_prob, replace_pr
             wmask.repeat_interleave(window, dim=1), n)
 
 
+def fixed_token_corruption(tokens, mask_token, *, mask_prob, replace_prob, swap_prob,
+                           generator, rows=None):
+    """A SiT MPP corruption that is a function of each sample's values
+    alone, so that the JAX side can build the same one: with o the count
+    of positive values in the sample's first token, position l masked where
+    (l + o) % L < n_masked, replaced by the mask token on even l."""
+    import math
+
+    B, L, D = tokens.shape
+    n = math.ceil(mask_prob * L)
+    pos = torch.arange(L)
+    mask = (pos[None, :] + (tokens[:, 0] > 0).sum(-1)[:, None]) % L < n
+    repl = mask & (pos[None, :] % 2 == 0)
+    return torch.where(repl[:, :, None], mask_token.to(tokens.dtype), tokens), mask, n
+
+
 def job_step(job):
-    """One optimizer step of the config's model (a SiT, an MS-SiT or an
-    MPP-MS-SiT) from a given state on a given batch, under the job's mesh
-    (three or four axes)."""
+    """One optimizer step (``job['steps']`` where given) of the config's
+    model (a SiT, an MS-SiT or an MPP-MS-SiT) from a given state on a given
+    batch, under the job's mesh (three or four axes)."""
     exp = from_dict(job["cfg"])
     x, w = (torch.from_numpy(np.load(job[k])) for k in ("x", "w"))
     y = torch.from_numpy(np.load(job["y"])) if job.get("y") else None
@@ -70,14 +87,16 @@ def job_step(job):
     trainer = Trainer(exp, model, mesh=mesh)
     rows, valid = trainer.layout.batch_index_of(x.shape[0], exp.training.grad_accum)
     rows = torch.from_numpy(rows)
-    drawn = mpp_mssit_mod.corrupt_window_sequence
+    drawn = mpp_mssit_mod.corrupt_window_sequence, mpp_mod.corrupt_sequence
     if job.get("fixed_corruption"):
         mpp_mssit_mod.corrupt_window_sequence = fixed_window_corruption
+        mpp_mod.corrupt_sequence = fixed_token_corruption
     try:
-        loss, _ = trainer.optimizer_step(x[rows], None if y is None else y[rows],
-                                         w[rows] * torch.from_numpy(valid), total=x.shape[0])
+        for _ in range(job.get("steps", 1)):
+            loss, _ = trainer.optimizer_step(x[rows], None if y is None else y[rows],
+                                             w[rows] * torch.from_numpy(valid), total=x.shape[0])
     finally:
-        mpp_mssit_mod.corrupt_window_sequence = drawn
+        mpp_mssit_mod.corrupt_window_sequence, mpp_mod.corrupt_sequence = drawn
     loss = trainer.layout.all_reduce(loss.detach().reshape(1))
     state = trainer.model_state()
     if parallel.is_primary():
@@ -186,10 +205,17 @@ def job_refusals(job):
         return Trainer(exp, model, mesh=parallel.make_mesh(*shape, device_type="cpu"))
 
     out["heads"] = _refusal(lambda: trainer((1, 1, 2), heads=3, dim_head=16))
+    out["heads_1"] = _refusal(lambda: trainer((1, 1, 2), heads=1, dim_head=64))
     exp = from_dict(cfg)
-    out["fsdp_tp"] = _refusal(lambda: Trainer(exp, SiT.from_config(exp), mesh=parallel.Layout(
-        parallel.make_mesh(1, 1, 2, device_type="cpu"), fsdp=True)))
     x = torch.zeros(2, 4, 20, 15)
+
+    def fsdp_tp_step():  # FSDP2 on the size-1 'fsdp' axis beside TP: one step
+        tr = Trainer(exp, SiT.from_config(exp), mesh=parallel.Layout(
+            parallel.make_mesh(1, 1, 2, device_type="cpu"), fsdp=True))
+        loss, _ = tr.optimizer_step(x, torch.ones(2), torch.ones(2), total=2)
+        out["fsdp_tp_loss"] = float(loss)
+
+    out["fsdp_tp"] = _refusal(fsdp_tp_step)
     for name, shape in (("fused_fsdp", (1, 2, 1)), ("fused_tp", (1, 1, 2))):
         tr = trainer(shape)
         out[name] = _refusal(lambda: fused_train_forward(tr.model, x, mesh=tr.mesh))
@@ -203,8 +229,27 @@ def job_refusals(job):
         Path(job["out"]).write_text(json.dumps(out))
 
 
+def job_groups(job):
+    """Each of the job's mesh shapes as this rank's ``Layout`` sees it: the
+    ranks of its batch, 'model', pipeline and FSDP groups, its seed salt and
+    its rows of a batch of 16, one file a rank."""
+    import torch.distributed as dist
+
+    def ranks(group):
+        return None if group is None else dist.get_process_group_ranks(group)
+
+    out = {}
+    for shape in job["shapes"]:
+        lay = parallel.Layout(parallel.make_mesh(*shape, device_type="cpu"))
+        out[str(tuple(shape))] = {
+            "batch": ranks(lay.batch_group), "model": ranks(lay.model_group),
+            "pipe": lay.pipe_ranks, "fsdp": ranks(lay.fsdp_group), "salt": lay.seed_salt,
+            "rows": lay.batch_index_of(16)[0].tolist()}
+    Path(job["out"] + f".rank{parallel.multihost.process_index()}").write_text(json.dumps(out))
+
+
 JOBS = {"step": job_step, "train": job_train, "resume": job_resume, "cli": job_cli,
-        "refusals": job_refusals, "testing": job_testing}
+        "refusals": job_refusals, "testing": job_testing, "groups": job_groups}
 
 
 def main():
