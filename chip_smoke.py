@@ -8,7 +8,8 @@ Drives the port's serving and training paths
 (ico-6 sub-ico-2, dim 192, depth 12, 3 heads, mlp 768) and of SiT-base
 (ico-6 sub-ico-3, below), its MPP pretraining and dropout training
 (phases 14-19), MS-SiT serving (phases 26-28), and MS-SiT training and
-MPP (phases 29-32), with random weights made from a numpy seed.
+MPP (phases 29-32), with random weights made from a numpy seed, and
+the SiT-tiny reference recipe trained for 100 epochs (phase 38).
 Phases, one line each; any failure raises, so the script exits non-zero
 and prints no result:
 
@@ -420,8 +421,27 @@ programs of the ``svt::`` operators) and runs it without the package:
               each parameter's largest value (``master_floor``).
               The kernels line gains the SP shape's ``flash_attention`` rows
               and ``flash_attention_qkv_bwd`` rows at a PP microbatch and at
-              an MS-SiT TP rank's one head of dh 32. The whole run's seconds
-              print last before the kernels line.
+              an MS-SiT TP rank's one head of dh 32.
+38. recipe -- in a process of its own (``chip_smoke.py --recipe OUT``),
+              started with phase 36 and joined after 37: the SiT-tiny
+              reference recipe (``sit_tiny_scan_age.yml`` at full width,
+              depth and length: 100 epochs, bs 256, SGD) in bf16 (the fused
+              kernels, ``tpu.profile_epoch: 50``) and fp32 (the modular model)
+              at seed 0 on ``scripts/run_recipe_torch.py``'s data, each
+              ``run_training`` then ``run_testing`` on its run folder, with
+              the counts zeroed just before each and read just after, against
+              the expected launches; gates, each beside a control that must
+              fail it: (a) each best val MAE within ``RECIPE_TOL`` of the JAX
+              record (control: the epoch-9 val MAE), (b) bf16 within
+              ``RECIPE_DTYPE_TOL`` of fp32 (control: bf16's epoch 9), (c) the
+              test driver within 1e-6 of the run (control: epoch 9), (d) one
+              trace, of epoch 50 only, holding the port's kernels, its
+              ``flash_bwd_few_kernel`` count equal to that epoch's launches
+              (control: two epochs' launches), (e) ``tpu.debug_nans`` on one
+              fused step at B = 256 with a NaN in a sample: it raises before
+              the update; without the key the loss is NaN; on clean data the
+              key's update is the update without it bit for bit. The whole
+              run's seconds print last before the kernels line.
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -7574,6 +7594,280 @@ def phase_mesh_rest(rng, fb) -> dict:
     return rows
 
 
+# -- 38. recipe: the SiT-tiny reference recipe, 100 epochs in bf16 and fp32 ---------------
+
+RECIPE_SCRIPT = ROOT / "scripts/run_recipe_torch.py"
+RECIPE_SEED = 0
+RECIPE_PROFILE_EPOCH = 50  # the bf16 run's tpu.profile_epoch (four steps, no validation)
+# Gate (a): each dtype's best val MAE within RECIPE_TOL of the JAX package's
+# record (RECIPE_r05.json: 4.85917 bf16, 4.85712 fp32; a TPU run, whose
+# draws the port cannot replay, so the two are compared as draws). The
+# tolerance comes from the port's seed spread (RECIPE_torch.json, six
+# 100-epoch runs on an H100 80GB HBM3 at 700 W, run_recipe_torch.
+# recipe_tolerance): the seed-0 run and JAX's may differ by twice the widest
+# range over seeds 0-2, 2 x 0.2675 = 0.535 MAE (std 0.1466), capped at 0.10,
+# 2% of the reference, which binds. The seed mean lies 0.0218 (bf16) and
+# 0.0209 (fp32) below JAX's; seed 0 0.048 from it.
+RECIPE_TOL = 0.10
+# (b): |bf16 - fp32| best val MAE at one seed: 0.00121, 0.00146, 0.00106 at
+# seeds 0-2 (RECIPE_torch.json; JAX's own gap 0.00205); about 7x the widest
+RECIPE_DTYPE_TOL = 0.01
+RECIPE_TEST_TOL = 1e-6  # (c): the test driver's MAE against the run's best val MAE
+# (d): a wrapper that launches one device kernel, once in each step's CLS backward
+RECIPE_KERNEL = ("flash_attention_bwd 8 queries", "flash_bwd_few_kernel")
+# the port's device kernels by name (csrc/*.cu), as torch.profiler names them
+PORT_KERNEL_RE = re.compile(r"\b(gemm_kernel|flash_\w+_kernel|layer_norm_kernel|ln_bwd_kernel|"
+                            r"fused_mlp_kernel|patch_embed_kernel|quant_rows_kernel|"
+                            r"ln_quant_kernel|reduce_(?:chunks|sums)_kernel)\b")
+
+
+def recipe_module():
+    """``scripts/run_recipe_torch.py`` (the recipe's data, config and runs)."""
+    spec = importlib.util.spec_from_file_location("run_recipe_torch", RECIPE_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def epoch_launches(counters, out: list):
+    """Each ``Trainer.train_epoch`` call's launches appended to ``out``."""
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+
+    orig = Trainer.train_epoch
+
+    def counted(self, *a, **k):
+        before = read_counts(counters)
+        try:
+            return orig(self, *a, **k)
+        finally:
+            out.append({n: v - before[n] for n, v in read_counts(counters).items()})
+
+    Trainer.train_epoch = counted
+    try:
+        yield
+    finally:
+        Trainer.train_epoch = orig
+
+
+def recipe_expected(exp, n_train: int, n_val: int, epochs: int) -> dict:
+    """The bf16 run's launches through ``run_training`` then ``run_testing``
+    on the fused route: a step 11 + 1 block forwards and backwards and one
+    few-query attention each way; every validation (and the test driver)
+    11 + 1 forwards a batch. The patched input embeds by a linear, not
+    ``patch_embed``."""
+    t = exp.training
+    steps = epochs * math.ceil(n_train / t.bs)
+    vals = len([e for e in range(epochs) if (e + 1) % t.val_epoch == 0 or e == epochs - 1])
+    fwd = steps + (vals + 1) * math.ceil(n_val / (t.bs_val or t.bs))
+    return {"fused_block": 11 * fwd, "fused_block_cls": fwd, FEW_FWD: fwd,
+            "fused_block_bwd": 11 * steps, "fused_block_cls_bwd": steps,
+            "flash_attention_bwd 8 queries": steps}
+
+
+def recipe_trace_gate(say, run, per_epoch, fp32_run) -> None:
+    """(d): one trace, of epoch RECIPE_PROFILE_EPOCH only, holding the port's
+    kernels; its count of one kernel equal to that epoch's launch count."""
+    traces = sorted((Path(run["run_dir"]) / "profile").glob("*.pt.trace.json"))
+    other = (Path(fp32_run["run_dir"]) / "profile").exists()
+    if len(traces) != 1 or other:
+        raise AssertionError(f"(d) expected one trace in the bf16 run and none in the fp32 run, "
+                             f"got {[t.name for t in traces]} and {other}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    port = sorted({m.group(1) for k in kernels for m in [PORT_KERNEL_RE.search(k)] if m})
+    counter, name = RECIPE_KERNEL
+    in_trace = sum(name in k for k in kernels)
+    launched = per_epoch[RECIPE_PROFILE_EPOCH][counter]
+    control = launched + per_epoch[RECIPE_PROFILE_EPOCH + 1][counter]
+    say(f"(d) tpu.profile_epoch {RECIPE_PROFILE_EPOCH}: {traces[0].name} "
+        f"({traces[0].stat().st_size} bytes), the only trace (none in the fp32 run, which asked "
+        f"for none); {len(kernels)} device kernel events, {len(events)} events in all; the port's "
+        f"kernels in it: {port}; {name} {in_trace} times, the launch counter of epoch "
+        f"{RECIPE_PROFILE_EPOCH} {launched} (must be equal; control, epochs "
+        f"{RECIPE_PROFILE_EPOCH}-{RECIPE_PROFILE_EPOCH + 1}'s counter {control} must differ)")
+    if not kernels:
+        raise AssertionError("(d) the trace holds no device kernel: CUDA activity was not "
+                             "recorded (CUPTI?)")
+    if not {"gemm_kernel", "flash_fwd_few_kernel", name} <= set(port):
+        raise AssertionError(f"(d) the trace lacks the port's kernels: {port}")
+    if in_trace != launched or in_trace == control:
+        raise AssertionError(f"(d) {name} in the trace {in_trace} != launches {launched}")
+
+
+def recipe_nan_gate(say, rr, work: Path, fb, dev="cuda") -> None:
+    """(e): ``tpu.debug_nans`` on the fused bf16 path, one SiT-tiny step at
+    B = 256 on the recipe's data: a NaN in one sample raises
+    ``FloatingPointError`` with the key on and leaves the parameters as they
+    were; with the key off the same step runs to a NaN loss; on clean data
+    the key on gives the key off's update bit for bit (and launches the
+    kernels)."""
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.train import runner
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+    from surface_vision_transformers_tpu_torch.utils.config import from_dict
+
+    raw = rr.recipe_config(work, "nan", "bfloat16", RECIPE_SEED)
+    exp = from_dict(raw)
+    torch.manual_seed(RECIPE_SEED)
+    init = runner.build_model(exp, load_patch_table(exp.ico, exp.sub_ico).indices).state_dict()
+    d = work / "scan_age" / "template"
+    B = exp.training.bs
+    x = torch.from_numpy(np.load(d / "train_data.npy", mmap_mode="r")[:B].copy()).to(dev)
+    y = torch.from_numpy(np.load(d / "train_labels.npy")[:B]).to(dev)
+    w = torch.ones(B, device=dev)
+    bad = x.clone()
+    bad[7, 2, 100, 50] = float("nan")
+
+    def step(data, debug):
+        e = from_dict({**raw, "tpu": {**raw["tpu"], "debug_nans": debug}})
+        model = runner.build_model(e, load_patch_table(e.ico, e.sub_ico).indices)
+        model.load_state_dict(init)
+        trainer = Trainer(e, model.to(dev))
+        assert trainer.uses_fused_train() and trainer.debug_nans == debug
+        counters = zero_counts(fb)
+        try:
+            loss, _ = trainer.optimizer_step(data, y, w)
+            err = None
+        except FloatingPointError as exc:
+            loss, err = None, exc
+        params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        return loss, err, params, read_counts(counters)
+
+    _, err_on, p_on, _ = step(bad, True)
+    loss_off, err_off, _, _ = step(bad, False)
+    _, e1, clean_on, n_on = step(x, True)
+    _, e2, clean_off, n_off = step(x, False)
+    kept = all(torch.equal(p_on[k], init[k]) for k in init)
+    same = [k for k in init if torch.equal(clean_on[k], clean_off[k])]
+    moved = sum(not torch.equal(clean_off[k], init[k]) for k in init)
+    say(f"(e) tpu.debug_nans, one step at B={B} on the fused bf16 path, a NaN in sample 7: "
+        f"key on raised {type(err_on).__name__}: {err_on}; parameters unchanged {kept}; key off "
+        f"raised {err_off!r}, loss {None if loss_off is None else float(loss_off)} (must be "
+        f"NaN); clean data: key on vs key off update bitwise equal in {len(same)} of "
+        f"{len(init)} tensors ({moved} moved; control, the NaN step must raise); launches key "
+        f"on { {k: v for k, v in n_on.items() if v} }, key off "
+        f"{ {k: v for k, v in n_off.items() if v} }")
+    if not isinstance(err_on, FloatingPointError) or not kept:
+        raise AssertionError("(e) a NaN step with tpu.debug_nans did not raise before its update")
+    if err_off is not None or loss_off is None or not math.isnan(float(loss_off)):
+        raise AssertionError("(e) without tpu.debug_nans the NaN step should run to a NaN loss")
+    if e1 or e2 or len(same) != len(init) or not moved or n_on != n_off or not n_on[
+            "fused_block_bwd"]:
+        raise AssertionError("(e) tpu.debug_nans changed a clean step")
+
+
+def recipe_worker(out_file: str, dev: str = "cuda") -> None:
+    """Phase 38's process (``python3 chip_smoke.py --recipe OUT``): the
+    recipe's bf16 and fp32 runs at seed 0, full width and depth, 100 epochs,
+    each ``run_training`` then ``run_testing`` on its run folder, with
+    gates (a)-(e); the readings to ``OUT`` as JSON."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 recipe stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT))
+    from surface_vision_transformers_tpu_torch.ops import _native
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+    from surface_vision_transformers_tpu_torch.utils.config import from_dict
+
+    def say(msg):
+        print(f"[recipe] {msg}", flush=True)
+
+    t0 = time.perf_counter()
+    _native.build()
+    _native.library()
+    rr = recipe_module()
+    runs, per_epoch = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        rr.make_data(work)
+        n_train, n_val = 2 * rr.N_TRAIN_SUBJ, 2 * rr.N_VAL_SUBJ
+        say(f"data: scripts/run_recipe_torch.py's (run_recipe_r05.py's byte for byte), {n_train} "
+            f"train / {n_val} validation surfaces (4, 320, 153), in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for dtype in ("bfloat16", "float32"):
+            bf16 = dtype == "bfloat16"
+            counters = zero_counts(fb)
+            with epoch_launches(counters, per_epoch if bf16 else []):
+                run = rr.one_run(work, dtype, RECIPE_SEED, device=dev, tpu={"profile_epoch": (
+                    RECIPE_PROFILE_EPOCH if bf16 else -1)})
+            run["launches"] = read_counts(counters)
+            runs[dtype] = run
+            say(f"{dtype}: best val MAE {run['best_val_mae']!r} at epoch {run['best_epoch']}, "
+                f"epoch-9 val MAE {run['epoch9_val_mae']!r}, test driver MAE "
+                f"{run['test_driver_mae']!r} (n {run['test_n']}); {run['steps']} steps, median "
+                f"step {run['step_ms_median']:.3f} ms (CUDA events); train wall "
+                f"{run['train_wall_s']} s, phases_s {run['phases_s']}; launches "
+                f"{run['launches']} (beside phases 36-37's processes on the card; {card()})")
+        exp = from_dict(runs["bfloat16"]["raw"])
+        want = {k: 0 for k in runs["bfloat16"]["launches"]}
+        want.update(recipe_expected(exp, n_train, n_val, exp.training.epochs))
+        fp32_want = {k: 0 for k in want}
+        say(f"launches, bf16 (the fused route) {runs['bfloat16']['launches']}, expected {want}; "
+            f"fp32 (the modular model, plain attention) {runs['float32']['launches']}, expected "
+            f"{fp32_want}")
+        if runs["bfloat16"]["launches"] != want or runs["float32"]["launches"] != fp32_want:
+            raise AssertionError("the recipe did not launch the kernels as expected")
+
+        gaps = {}
+        for dtype, run in runs.items():  # (a)
+            ref = rr.JAX_BEST[dtype]
+            gap, control = abs(run["best_val_mae"] - ref), abs(run["epoch9_val_mae"] - ref)
+            gaps[dtype] = gap
+            say(f"(a) {dtype}: |best val MAE - JAX's {ref!r}| {gap:.5f} (tol RECIPE_TOL "
+                f"{RECIPE_TOL}; control, the epoch-9 val MAE: {control:.5f} must exceed it; JAX's "
+                f"own epoch-9 bf16 MAE {rr.JAX_EPOCH9_BF16:.5f})")
+            if gap > RECIPE_TOL or control <= RECIPE_TOL:
+                raise AssertionError(f"(a) the {dtype} recipe is off the JAX record")
+        b16, f32 = runs["bfloat16"], runs["float32"]
+        dgap = abs(b16["best_val_mae"] - f32["best_val_mae"])  # (b)
+        dcontrol = abs(b16["epoch9_val_mae"] - f32["best_val_mae"])
+        say(f"(b) |bf16 - fp32| best val MAE {dgap:.5f} (tol {RECIPE_DTYPE_TOL}; JAX's 0.00205; "
+            f"control, bf16's epoch-9 MAE against fp32's best: {dcontrol:.5f} must exceed it)")
+        if dgap > RECIPE_DTYPE_TOL or dcontrol <= RECIPE_DTYPE_TOL:
+            raise AssertionError("(b) the bf16 and fp32 recipes disagree")
+        for dtype, run in runs.items():  # (c)
+            tgap = abs(run["test_driver_mae"] - run["best_val_mae"])
+            tcontrol = abs(run["test_driver_mae"] - run["epoch9_val_mae"])
+            say(f"(c) {dtype}: |test driver MAE - best val MAE| {tgap:.3g} (tol {RECIPE_TEST_TOL}; "
+                f"JAX's 0.0; control, against the epoch-9 val MAE: {tcontrol:.5f} must exceed it)")
+            if tgap > RECIPE_TEST_TOL or tcontrol <= RECIPE_TEST_TOL:
+                raise AssertionError(f"(c) the {dtype} test driver disagrees with its run")
+        recipe_trace_gate(say, b16, per_epoch, f32)  # (d)
+        t_nan = time.perf_counter()
+        recipe_nan_gate(say, rr, work, fb, dev)  # (e)
+        say(f"(e) in {time.perf_counter() - t_nan:.1f} s; the phase's process in "
+            f"{time.perf_counter() - t0:.1f} s")
+    Path(out_file).write_text(json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "runs": {k: {n: v for n, v in r.items() if n not in ("raw", "run_dir")}
+                 for k, r in runs.items()}}))
+
+
+def recipe_start(tmp: Path):
+    """Start phase 38's process -> (it, its output file, its result file)."""
+    log, out = tmp / "recipe.log", tmp / "recipe.json"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--recipe",
+                                 str(out)], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    return proc, log, out
+
+
+def phase_recipe(proc, log: Path, out: Path) -> None:
+    """Phase 38: join the recipe's process and print what it printed."""
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        stop(proc)
+    text = log.read_text()
+    lines = [ln for ln in text.splitlines() if ln.startswith("[recipe]")]
+    for ln in lines:
+        print(ln, flush=True)
+    if rc or not out.exists():
+        raise AssertionError(f"the recipe's process failed ({rc}):\n{text[-6000:]}")
+    phase("recipe", f"its process took {json.loads(out.read_text())['seconds']:.1f} s "
+          "(started with phase 36)")
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Median host-clock time in ms to enqueue one call of ``fn`` on an
     idle card (synchronised before each call, not inside it)."""
@@ -7977,13 +8271,24 @@ def main() -> None:
     for name, n in phase_preprocess(fb).items():
         kernels[name]["launches"] = n
 
-    # -- 36. mesh (every count zeroed just before each run, in each rank)
+    # -- 36. mesh (every count zeroed just before each run, in each rank); phase
+    # 38's process starts beside it
     start("mesh")
-    kernels.update(phase_mesh(rng, fb, sit_module))
+    recipe_tmp = tempfile.TemporaryDirectory()
+    recipe = recipe_start(Path(recipe_tmp.name))
+    try:
+        kernels.update(phase_mesh(rng, fb, sit_module))
 
-    # -- 37. mesh-rest (every count zeroed just before each run, in each rank)
-    start("mesh-rest")
-    kernels.update(phase_mesh_rest(np.random.default_rng(SEED + 37), fb))
+        # -- 37. mesh-rest (every count zeroed just before each run, in each rank)
+        start("mesh-rest")
+        kernels.update(phase_mesh_rest(np.random.default_rng(SEED + 37), fb))
+
+        # -- 38. recipe (its counts zeroed just before each run, in its process)
+        start("recipe")
+        phase_recipe(*recipe)
+    finally:
+        stop(recipe[0])
+        recipe_tmp.cleanup()
     t_end = time.perf_counter()
     print(f"seconds per phase: {phase_seconds(t_end)}", flush=True)
     print(f"whole run: {t_end - T0:.1f} s (limit 1200 s); {card()}", flush=True)
@@ -7997,5 +8302,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 36's or 37's runs
         mesh_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--recipe"]:  # phase 38's process
+        recipe_worker(sys.argv[2])
     else:
         main()

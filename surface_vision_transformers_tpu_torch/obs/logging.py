@@ -1,16 +1,22 @@
-"""Run folders and metric logs (counterpart of
+"""Run folders, metric logs and the profiler (counterpart of
 ``surface_vision_transformers_tpu.obs.logging``): the same run-folder name,
-JSONL events and per-prefix CSV files. No TensorBoard. Under several
-processes only rank 0 keeps the logs and prints (``MetricLogger(enabled=
-parallel.is_primary())``, the runner's ``progress``).
+JSONL events, per-prefix CSV files and TensorBoard scalars (written where
+``torch.utils.tensorboard`` imports, else none, as in the JAX package).
+``profile_trace`` records one epoch with ``torch.profiler`` where the JAX
+package runs ``jax.profiler``. Under several processes only rank 0 keeps the
+logs and prints (``MetricLogger(enabled=parallel.is_primary())``, the
+runner's ``progress``); every rank writes its own trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
+import socket
 import time
+import warnings
 from datetime import datetime
 from pathlib import Path
 from typing import Any
@@ -37,18 +43,30 @@ def run_folder_name(exp: Experiment, date: str | None = None) -> str:
 
 
 class MetricLogger:
-    """``metrics.jsonl`` (one record per event) and one CSV per metric
-    prefix (``metrics_train.csv``, ``metrics_val.csv``), written at epoch
-    granularity and flushed on every record. Close it when the run ends.
-    ``enabled=False`` (a rank other than 0) writes nothing."""
+    """``metrics.jsonl`` (one record per event), one CSV per metric prefix
+    (``metrics_train.csv``, ``metrics_val.csv``) and, under
+    ``use_tensorboard`` where ``torch.utils.tensorboard`` imports, an event
+    file of every int or float scalar (tag ``prefix + key``), written at
+    epoch granularity and flushed on every record. Close it when the run
+    ends. ``enabled=False`` (a rank other than 0) writes nothing."""
 
-    def __init__(self, run_dir: str | os.PathLike, enabled: bool = True):
+    def __init__(self, run_dir: str | os.PathLike, enabled: bool = True,
+                 use_tensorboard: bool = True):
         self.run_dir = Path(run_dir)
         self.enabled = enabled
         self._csv: dict[str, tuple] = {}
-        if enabled:
-            self.run_dir.mkdir(parents=True, exist_ok=True)
-            self._jsonl = open(self.run_dir / "metrics.jsonl", "a")
+        self._tb = None
+        if not enabled:
+            return
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.run_dir / "metrics.jsonl", "a")
+        if use_tensorboard:
+            try:  # tensorboard is optional, as in the JAX package
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=str(self.run_dir))
+            except Exception:
+                self._tb = None
 
     def log(self, step: int, scalars: dict[str, Any], prefix: str = "") -> None:
         if not self.enabled:
@@ -68,6 +86,10 @@ class MetricLogger:
         f, w = self._csv[key]
         w.writerow(rec)
         f.flush()
+        if self._tb is not None:
+            for k, v in scalars.items():
+                if isinstance(v, (int, float)):
+                    self._tb.add_scalar(prefix + k, v, step)
 
     def close(self) -> None:
         if not self.enabled:
@@ -75,3 +97,37 @@ class MetricLogger:
         self._jsonl.close()
         for f, _ in self._csv.values():
             f.close()
+        if self._tb is not None:
+            self._tb.close()
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | os.PathLike, enabled: bool = True, device="cpu"):
+    """``torch.profiler`` over the block (the JAX package's ``jax.profiler``
+    trace): CPU activity always, CUDA activity where ``device`` is CUDA. On
+    exit one Chrome trace a process, ``{host}.rank{rank}.pt.trace.json``
+    under ``log_dir`` (Perfetto or chrome://tracing read it). Does nothing
+    where ``enabled`` is false. A CUDA trace that holds no kernel (no CUPTI
+    on the machine) is written with a warning."""
+    if not enabled:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        yield
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(log_dir / f"{socket.gethostname()}.rank{_rank()}.pt.trace.json"))
+    if cuda and not any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+        warnings.warn("profile_trace: CUDA activity was asked for but the trace holds no "
+                      "device event (is CUPTI missing?)", RuntimeWarning, stacklevel=3)

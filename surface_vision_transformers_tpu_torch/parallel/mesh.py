@@ -54,8 +54,10 @@ def make_mesh(data: int = -1, fsdp: int = 1, model: int = 1, pipe: int = 1, devi
     data * fsdp * model * pipe ranks, with a fourth axis 'pipe' where
     ``pipe > 1``. ``data=-1`` takes every rank the other axes leave;
     ``devices`` is a rank count or a sequence of ranks (default: the world).
-    ``device_type`` defaults to 'cuda' where CUDA is available. Needs
-    torch.distributed initialised (``initialize_multihost``)."""
+    ``device_type`` defaults to 'cuda', which raises where CUDA is not
+    available (as a CUDA device request does everywhere in the port): a CPU
+    mesh is asked for by name. Needs torch.distributed initialised
+    (``initialize_multihost``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if devices is None:
@@ -74,7 +76,10 @@ def make_mesh(data: int = -1, fsdp: int = 1, model: int = 1, pipe: int = 1, devi
         warnings.warn(f"mesh {data}x{fsdp}x{model}x{pipe} uses {data * rest} of {n} "
                       f"devices; set mesh_data=-1 to consume the rest", stacklevel=2)
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        device_type = "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA mesh requested but torch.cuda.is_available() is False "
+                           "(pass device_type='cpu' for a CPU mesh)")
     if pipe > 1:
         return init_device_mesh(device_type, (data, fsdp, model, pipe),
                                 mesh_dim_names=AXES + (PIPE,))

@@ -33,11 +33,17 @@ a mesh (``parallel.mesh_from_config``; ``train.trainer`` says how; with
 ``tpu.seq_sharding`` the 'model' axis splits the tokens): every rank
 computes, rank 0 alone writes files and prints (full-state checkpoints
 gathered whole), and the results gain ``mesh``; FSDP composes with each
-other axis. Not ported (they raise): ``tpu.profile_epoch`` and
-``tpu.debug_nans`` away from their defaults, and ImageNet initialisation
-of an MS-SiT or MPP model.
+other axis. ``tpu.profile_epoch`` records that epoch's training with
+``obs.logging.profile_trace`` (a Chrome trace a process under
+``profile/``); ``tpu.debug_nans`` makes the trainer raise
+``FloatingPointError`` at the first step or evaluation batch with a NaN
+(``train.trainer``); the metrics also go to TensorBoard where it imports.
+Not ported (it raises, as the JAX transfer fails there): ImageNet
+initialisation of an MS-SiT or MPP model.
 
-``run_testing``: load a split and a checkpoint; regression serves it
+``run_testing``: load a split and a checkpoint (a params npz, a reference
+.pth, or a run folder, whose ``best/`` it takes, as the JAX package does);
+regression serves it
 through ``predict`` (bfloat16: the fused blocks, ``tpu.quant`` under the
 crossover rule, ``serving_quant``; float32: the modular model; an MS-SiT
 config the same way, its stages gating int8 by width), reports the
@@ -91,6 +97,7 @@ from surface_vision_transformers_tpu_torch.models.mssit import MSSiT
 from surface_vision_transformers_tpu_torch.models.sit import SiT
 from surface_vision_transformers_tpu_torch.obs.logging import (
     MetricLogger,
+    profile_trace,
     run_folder_name,
 )
 from surface_vision_transformers_tpu_torch.parallel.mesh import mesh_from_config, mesh_shape
@@ -124,6 +131,19 @@ def load_state_dict_any(path: str, depth: int) -> dict:
             return mssit_state_dict_from_jax(tree)
         return state_dict_from_jax(tree, depth)
     return load_torch_state_dict(p)
+
+
+def checkpoint_weights(path: str, depth: int) -> dict:
+    """The weights at ``testing.path_to_ckpt``: a run folder or one of its
+    checkpoint directories (``best/`` first where there is one, as the JAX
+    ``run_testing`` restores it) gives its evaluation weights, the EMA
+    shadow where the run kept one; a file goes to ``load_state_dict_any``."""
+    p = Path(path)
+    for d in (p / "best", p):
+        if (d / "state.pt").exists():
+            state = ckpt.load_state(d)[0]
+            return state["ema"] or state["model"]
+    return load_state_dict_any(path, depth)
 
 
 def build_model(exp: Experiment, table=None) -> SiT | MSSiT | MPP | MPPMSSiT:
@@ -176,7 +196,9 @@ def run_testing(exp: Experiment, *, device) -> dict:
     """Evaluate on ``exp.data.split`` (default 'validation') at
     ``training.bs_val`` (0 -> ``training.bs``) on ``device``, with the
     weights at ``testing.path_to_ckpt`` (loaded strictly). MPP configs
-    report the reconstruction loss (``loss``) and write no results.csv."""
+    report the reconstruction loss (``loss``) and write no results.csv.
+    ``testing.path_to_ckpt`` names a params npz, a reference .pth, or a run
+    folder (``checkpoint_weights``), beside which results.csv goes."""
     if not exp.is_pretraining and exp.model.num_classes != 1:
         raise NotImplementedError("run_testing covers scalar regression and MPP configs")
     if not exp.ckpt_path:
@@ -190,7 +212,7 @@ def run_testing(exp: Experiment, *, device) -> dict:
     if data.ndim == 3:
         table = load_patch_table(exp.ico, exp.sub_ico).indices
     model = build_model(exp, table)
-    load_model_state(model, _as_layout(load_state_dict_any(exp.ckpt_path, exp.model.depth),
+    load_model_state(model, _as_layout(checkpoint_weights(exp.ckpt_path, exp.model.depth),
                                        model))
     model.eval()
     bs = exp.training.bs_val or exp.training.bs
@@ -291,18 +313,9 @@ def build_augment(exp: Experiment, table_obj) -> SurfaceAugment | None:
 
 
 def _refuse_unported(exp: Experiment) -> None:
-    """Raise on what the config asks that the port does not do: the TPU
-    profiler and NaN sanitizer keys away from their defaults, and ImageNet
+    """Raise on what the config asks that the port does not do: ImageNet
     initialisation of anything but a SiT regression model (the JAX transfer
     maps a SiT's blocks only, and fails on the others)."""
-    tp = exp.raw.get("tpu", {})
-    checks = [
-        (int(tp.get("profile_epoch", -1)) != -1, "tpu.profile_epoch (the epoch's trace)"),
-        (bool(tp.get("debug_nans", False)), "tpu.debug_nans (the NaN sanitizer)"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
     if (_imagenet_path(exp) and (exp.model.model == "MS-SiT" or exp.is_pretraining)):
         raise NotImplementedError(
             "ImageNet initialisation maps timm ViT blocks onto a SiT regression model only "
@@ -469,8 +482,10 @@ def run_training(exp: Experiment, *, device, datasets: dict | None = None,
         save = exp.training.save_ckpt
         for epoch in range(start_epoch, epochs):
             t_ep = time.time()
-            m = (trainer.train_epoch_streaming(train_loader) if streaming
-                 else trainer.train_epoch(d_train, l_train))
+            with profile_trace(run_dir / "profile", enabled=epoch == exp.profile_epoch,
+                               device=dev):
+                m = (trainer.train_epoch_streaming(train_loader) if streaming
+                     else trainer.train_epoch(d_train, l_train))
             phases["first_epoch" if epoch == start_epoch else "train"] += time.time() - t_ep
             if not math.isfinite(m.loss):
                 raise FloatingPointError(

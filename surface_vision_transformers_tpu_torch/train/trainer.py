@@ -47,7 +47,18 @@ themselves by width). As in the JAX package:
   seeded by ``training.seed``;
 * regression evaluation in bfloat16 serves through ``fused_forward`` with
   ``tpu.quant`` under the crossover rule (``resolve_quant``: int8 from
-  ``INT8_MIN_DIM`` on, else bf16 and a notice printed once per trainer).
+  ``INT8_MIN_DIM`` on, else bf16 and a notice printed once per trainer);
+* ``tpu.debug_nans`` (the JAX package's ``jax_debug_nans``) raises
+  ``FloatingPointError`` at the first training step or evaluation batch
+  whose computation yields a NaN (not an inf, as in JAX): a step checks its
+  loss before the backward and every gradient before the update, so the
+  parameters stay as they were; in one process the backward runs under
+  ``torch.autograd.detect_anomaly(check_nan=True)``, which names the first
+  autograd node (a fused kernel's ``autograd.Function`` too) that returns a
+  NaN. Under a mesh each rank checks its own rows and every rank raises
+  where any finds a NaN (no anomaly mode there: one rank raising inside a
+  backward would leave the others in its collectives). With the key off a
+  step adds no check and no host sync.
 
 Under a mesh (``parallel.make_mesh``; every rank builds the same seeded
 model and calls every method) a step computes what the single process
@@ -80,6 +91,7 @@ offset by the rank's shard).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -146,14 +158,51 @@ def _rank_rows(layout: Layout, B: int, device, accum: int = 1):
     return torch.from_numpy(rows).to(device), torch.from_numpy(valid).to(device)
 
 
+def raise_on_nan(what: str, tensors, layout: Layout | None = None) -> None:
+    """``tpu.debug_nans``: raise ``FloatingPointError`` where any of
+    ``tensors`` holds a NaN; under a mesh ``layout``, on every rank where any
+    rank's do (one host sync; collectives over the mesh's groups)."""
+    flag = torch.stack([torch.isnan(_local(t)).any() for t in tensors]).any().float()
+    if layout is not None:
+        for group in (layout.batch_group, layout.model_group, layout.pipe_group):
+            if group is not None:
+                torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                             group=group)
+    if flag.item():
+        raise FloatingPointError(f"tpu.debug_nans: invalid value (nan) in {what}")
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``t`` (a ``DTensor``'s local shard)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+@contextlib.contextmanager
+def nan_anomaly(enabled: bool, where: str):
+    """``torch.autograd.detect_anomaly(check_nan=True)`` over the block where
+    ``enabled``; its error (the autograd node that returned a NaN) comes out
+    as ``FloatingPointError`` naming ``where``."""
+    if not enabled:
+        yield
+        return
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            yield
+    except RuntimeError as e:
+        if "nan" not in str(e):
+            raise
+        raise FloatingPointError(f"tpu.debug_nans: invalid value (nan) in {where}: {e}") from e
+
+
 @torch.no_grad()
 def evaluate_mpp(model: MPP | MPPMSSiT, tokens: torch.Tensor, bs: int,
-                 layout: Layout | None = None) -> float:
+                 layout: Layout | None = None, debug_nans: bool = False) -> float:
     """The MPP loss over (n, L, patch_dim) ``tokens`` in clamped contiguous
     batches of ``bs``, each with its fixed corruption (``eval_generator``),
     weighted by sample: the modular MPP (or MPPMSSiT), its attention on
     ``flash_attention_qkv`` for CUDA bfloat16. Under a mesh ``layout`` each
-    rank runs its rows and the sums are added over the batch shards."""
+    rank runs its rows and the sums are added over the batch shards.
+    ``debug_nans``: a batch whose loss is NaN raises ``FloatingPointError``."""
     n = tokens.shape[0]
     bs = min(bs, n)
     w = torch.from_numpy(batch_weights(n, bs)).to(tokens.device)
@@ -163,12 +212,15 @@ def evaluate_mpp(model: MPP | MPPMSSiT, tokens: torch.Tensor, bs: int,
         gen = eval_generator(i, tokens.device)
         if layout is None:
             loss, _ = model(tokens[s:s + bs], gen, sample_weights=w[i])
-            loss_sum = loss_sum + loss * w[i].sum()
-            continue
-        rows, valid = _rank_rows(layout, bs, tokens.device)
-        wb = w[i][rows] * valid
-        loss, _ = model(tokens[s:s + bs].index_select(0, rows), gen, sample_weights=wb,
-                        rows=layout.micro_rows(bs))
+            wb = w[i]
+        else:
+            rows, valid = _rank_rows(layout, bs, tokens.device)
+            wb = w[i][rows] * valid
+            loss, _ = model(tokens[s:s + bs].index_select(0, rows), gen, sample_weights=wb,
+                            rows=layout.micro_rows(bs))
+        if debug_nans:
+            raise_on_nan(f"the loss of evaluation batch {i} (rows {s}..{s + bs - 1})",
+                         [loss], layout)
         loss_sum = loss_sum + loss * wb.sum()
     if layout is not None:
         loss_sum = layout.all_reduce(torch.as_tensor(loss_sum, device=tokens.device))
@@ -230,6 +282,7 @@ class Trainer:
         self.augment_rng = torch.Generator().manual_seed((seed << 32) + 7)
         self._token_cache: dict[int, tuple] = {}
         self._quant_noticed = False
+        self.debug_nans = exp.debug_nans
 
     def uses_fused_train(self) -> bool:
         """The fused-block training route: bfloat16 compute, no dropout,
@@ -305,26 +358,54 @@ class Trainer:
             batch = self.augment(batch, self.augment_rng)
         self.optimizer.zero_grad()
         accum = self.exp.training.grad_accum
-        if accum <= 1 or batch.shape[0] % accum:
-            loss, mae = self._loss(batch, targets, weights)
-            loss.backward()
-            loss, mae = loss.detach(), mae.detach()
-        else:
-            mbs = batch.shape[0] // accum
-            w_tot = torch.clamp(weights.sum(), min=1e-9)
-            loss = mae = 0.0
-            for k in range(accum):
-                sl = slice(k * mbs, (k + 1) * mbs)
-                l_k, m_k = self._loss(batch[sl], None if targets is None else targets[sl],
-                                      weights[sl])
-                w_k = weights[sl].sum()
-                (l_k * (w_k / w_tot)).backward()
-                loss = loss + l_k.detach() * w_k
-                mae = mae + m_k.detach() * w_k
-            loss, mae = loss / w_tot, mae / w_tot
+        with nan_anomaly(self.debug_nans, f"the backward of step {self.optimizer.count}"):
+            if accum <= 1 or batch.shape[0] % accum:
+                loss, mae = self._loss(batch, targets, weights)
+                self._check_loss(loss)
+                loss.backward()
+                loss, mae = loss.detach(), mae.detach()
+            else:
+                mbs = batch.shape[0] // accum
+                w_tot = torch.clamp(weights.sum(), min=1e-9)
+                loss = mae = 0.0
+                for k in range(accum):
+                    sl = slice(k * mbs, (k + 1) * mbs)
+                    l_k, m_k = self._loss(batch[sl], None if targets is None else targets[sl],
+                                          weights[sl])
+                    self._check_loss(l_k, k)
+                    w_k = weights[sl].sum()
+                    (l_k * (w_k / w_tot)).backward()
+                    loss = loss + l_k.detach() * w_k
+                    mae = mae + m_k.detach() * w_k
+                loss, mae = loss / w_tot, mae / w_tot
+        self._check_grads()
         self.optimizer.step()
         self._update_ema()
         return loss, mae * weights.sum()
+
+    def _check_loss(self, loss, micro: int | None = None) -> None:
+        """``tpu.debug_nans``: raise where the (micro)batch's loss is NaN,
+        before its backward."""
+        if self.debug_nans:
+            at = "" if micro is None else f", microbatch {micro}"
+            raise_on_nan(f"the training loss of step {self.optimizer.count}{at}", [loss],
+                         self.layout)
+
+    def _check_grads(self) -> None:
+        """``tpu.debug_nans``: raise where a gradient holds a NaN, before the
+        update, naming the first such parameter this rank holds."""
+        if not self.debug_nans:
+            return
+        named = [(n, p.grad) for n, p in self.model.named_parameters() if p.grad is not None]
+        grads = [g for _, g in named] or [torch.zeros((), device=self.device)]
+        try:  # a rank holding no gradient still joins the check
+            raise_on_nan("a gradient", grads, self.layout)
+        except FloatingPointError:
+            bad = next((n for n, g in named if torch.isnan(_local(g)).any()), None)
+            raise FloatingPointError(
+                f"tpu.debug_nans: invalid value (nan) in the gradient of "
+                f"{bad or 'a parameter another rank holds'} at step {self.optimizer.count}"
+            ) from None
 
     def _update_ema(self) -> None:
         if self.ema_model is not None:
@@ -358,6 +439,7 @@ class Trainer:
                 self.rng.rows = rows
             l_k, m_k = self._loss(batch[sl], None if targets is None else targets[sl],
                                   weights[sl], rows=rows, fused=fused)
+            self._check_loss(l_k, k if accum > 1 else None)
             w_k = weights[sl].sum()
             (l_k * (w_k / w_tot * scale)).backward()
             loss = loss + l_k.detach() * w_k
@@ -365,6 +447,7 @@ class Trainer:
         if self.rng is not None:
             self.rng.rows = None
         self.sharded.sync_grads(self.optimizer.params)
+        self._check_grads()
         self.optimizer.step()
         self._update_ema()
         return loss / w_tot, mae
@@ -380,6 +463,8 @@ class Trainer:
                                         weights, w_tot, M, self.exp.training.l1loss,
                                         self.sharded.grad_scale)
         self.sharded.sync_grads(self.optimizer.params)
+        self._check_loss(loss)  # the schedule interleaves forwards and backwards
+        self._check_grads()
         self.optimizer.step()
         self._update_ema()
         both = torch.stack([loss, mae])
@@ -450,7 +535,8 @@ class Trainer:
         model = self.eval_model()
         bs_val = self.exp.training.bs_val or self.exp.training.bs
         if self.task == "mpp":
-            loss = evaluate_mpp(model, self.mpp_tokens(data), bs_val, self.layout)
+            loss = evaluate_mpp(model, self.mpp_tokens(data), bs_val, self.layout,
+                                self.debug_nans)
             return EpochMetrics(loss=loss, mae=loss), None
         n = data.shape[0]
         bs = min(bs_val, n)
@@ -465,6 +551,7 @@ class Trainer:
                 p = predict(data[s:s + bs])
             else:  # this rank's rows, then every rank's in order
                 p = self.layout.gather_rows(predict(data.index_select(0, rows + s)))[:bs]
+            self._check_preds(p, f"{i} (rows {s}..{s + bs - 1})")
             d = p - targets[s:s + bs].reshape(p.shape)
             sq_sum = sq_sum + (d.square() * w[i]).sum()
             err_sum = err_sum + (d.abs() * w[i]).sum()
@@ -472,6 +559,12 @@ class Trainer:
         preds[-1] = preds[-1][w.shape[0] * bs - n:]  # drop the re-read rows
         flat = torch.cat(preds).cpu().numpy()
         return EpochMetrics(loss=float(sq_sum) / n, mae=float(err_sum) / n), flat
+
+    def _check_preds(self, p, batch: str) -> None:
+        """``tpu.debug_nans``: raise where an evaluation batch's predictions
+        (every rank's, gathered) hold a NaN."""
+        if self.debug_nans:
+            raise_on_nan(f"the predictions of evaluation batch {batch}", [p])
 
     # -- host-streamed splits --------------------------------------------------
 
@@ -503,6 +596,8 @@ class Trainer:
                 rows = None if lay is None else lay.micro_rows(loader.batch_size)
                 loss, _ = model(batch, eval_generator(i, batch.device), sample_weights=w,
                                 rows=rows)
+                if self.debug_nans:
+                    raise_on_nan(f"the loss of evaluation batch {i}", [loss], lay)
                 loss_sum = loss_sum + loss * w.sum()
             if lay is not None:
                 loss_sum = lay.all_reduce(torch.as_tensor(loss_sum, device=self.device))
@@ -510,12 +605,13 @@ class Trainer:
             return EpochMetrics(loss=loss, mae=loss), None
         predict = self._predictor(model)
         preds, sq_sum, err_sum = [], 0.0, 0.0
-        for batch, targets, w in loader:
+        bs = loader.batch_size
+        for i, (batch, targets, w) in enumerate(loader):
             p = predict(batch)
             if lay is not None:  # every rank's rows, in order
-                bs = loader.batch_size
                 p, targets, w = lay.gather_rows(
                     torch.stack([p.float(), targets.reshape(p.shape), w], 1))[:bs].unbind(1)
+            self._check_preds(p, str(i))
             d = p - targets.reshape(p.shape)
             sq_sum = sq_sum + (d.square() * w).sum()
             err_sum = err_sum + (d.abs() * w).sum()

@@ -14,9 +14,10 @@ whole ``augmentation`` block, ``pretraining_mpp`` / ``SSL`` (masked-patch pretra
 rates and ``optimize_decoder``) and, under ``tpu``, ``compute_dtype``,
 ``fused_train``, ``quant``, the mesh axes ``mesh_data`` / ``mesh_fsdp`` /
 ``mesh_model`` / ``mesh_pipe`` (``parallel.mesh_from_config``),
-``pipe_microbatches`` and ``seq_sharding``. ``tpu.scan_blocks`` is a TPU compile-time
-knob that leaves the outputs bitwise unchanged; eager PyTorch has nothing to
-compile, so it is not read. A ``.json`` file is read with the standard
+``pipe_microbatches``, ``seq_sharding``, ``profile_epoch`` and
+``debug_nans``. ``tpu.scan_blocks`` is a TPU compile-time knob that leaves
+the outputs bitwise unchanged; eager PyTorch has nothing to compile, so it
+is not read. A ``.json`` file is read with the standard
 library; anything else with PyYAML, imported only when needed.
 """
 
@@ -229,6 +230,8 @@ class Experiment:
     mesh_pipe: int = 1  # GPipe stages (``parallel.pipeline``)
     pipe_microbatches: int = 0  # 0: one microbatch a stage
     seq_sharding: bool = False  # the 'model' axis splits the tokens (``parallel.seq``)
+    profile_epoch: int = -1  # ``tpu.profile_epoch``: the epoch ``profile_trace`` records
+    debug_nans: bool = False  # ``tpu.debug_nans``: raise at the first step or batch with a NaN
     augment: AugmentConfig = AugmentConfig()
     ico: int = 6
     sub_ico: int = 2
@@ -376,6 +379,8 @@ def from_dict(raw: dict) -> Experiment:
         mesh_pipe=int(tp.get("mesh_pipe", 1)),
         pipe_microbatches=int(tp.get("pipe_microbatches", 0)),
         seq_sharding=bool(tp.get("seq_sharding", False)),
+        profile_epoch=int(tp.get("profile_epoch", -1)),
+        debug_nans=bool(tp.get("debug_nans", False)),
         augment=AugmentConfig(
             enabled=bool(aug.get("enabled", False)),
             exact_rotations=bool(aug.get("exact_rotations", True)),

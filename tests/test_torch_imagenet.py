@@ -5,8 +5,9 @@ file of ``weights.imagenet`` is laid over the model only where
 ``training.load_weights_imagenet`` is on and the path is set; with the flag
 alone both packages train from their seeded init. The timm state dicts are
 synthetic (``tests/test_imagenet_transfer.py``'s layout): the real weights
-are a download. Also the keys the port still refuses (``tpu.profile_epoch``
-and ``tpu.debug_nans`` away from their defaults).
+are a download. Also the refusal check at the tail keys' defaults and on
+the shipped configs (``tpu.profile_epoch`` and ``tpu.debug_nans`` run away
+from them too: ``tests/test_torch_tail.py``).
 
 Tolerances: the transfer is a copy, compared exactly; two ``run_training``
 runs at LR 0 keep their initial parameters, compared exactly."""
@@ -163,17 +164,6 @@ def test_a_path_lays_the_timm_weights_over_the_model(tmp_path, jax_init):
                                   timm["blocks.1.mlp.fc2.weight"].numpy().T)
     np.testing.assert_array_equal(a["head_norm/scale"], timm["norm.weight"].numpy())
     np.testing.assert_array_equal(a["pos_embedding"], jax_init["params"]["pos_embedding"])
-
-
-@pytest.mark.parametrize("key,val,match", [
-    ("tpu.profile_epoch", 0, "profile_epoch"), ("tpu.profile_epoch", 3, "profile_epoch"),
-    ("tpu.debug_nans", True, "debug_nans")])
-def test_tail_keys_away_from_their_defaults_raise(tmp_path, key, val, match):
-    raw = _cfg(tmp_path, None)
-    block, leaf = key.split(".")
-    raw.setdefault(block, {})[leaf] = val
-    with pytest.raises(NotImplementedError, match=match):
-        runner.run_training(config.from_dict(raw), device="cpu", datasets=_data())
 
 
 def test_tail_keys_at_their_defaults_run(tmp_path):

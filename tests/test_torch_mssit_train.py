@@ -744,12 +744,11 @@ def test_frozen_decoder_mssit(setup, mpp_setup):
                            before["encoder.patch_embedding.weight"])
 
 
-@pytest.mark.parametrize("key,val,match", [("tpu.profile_epoch", 1, "profile_epoch"),
-                                           ("training.load_weights_imagenet", True, "ImageNet")])
+@pytest.mark.parametrize("key,val,match", [("training.load_weights_imagenet", True, "ImageNet")])
 def test_run_training_on_mssit_refuses_unported_modes(tmp_path, key, val, match):
     """MS-SiT trains now (under tensor parallelism too:
-    ``tests/test_torch_mssit_tp.py``); what stays unported raises on an
-    MS-SiT config as on a SiT one. ImageNet initialisation with a timm file
+    ``tests/test_torch_mssit_tp.py``; profiled and under the NaN sanitizer:
+    ``tests/test_torch_tail.py``). ImageNet initialisation with a timm file
     given raises: the JAX transfer maps a SiT's blocks only (with the flag
     alone, both packages train from the seeded init)."""
     raw = _shrunk("configs/training/mssit_scan_age.yml", tmp_path, tmp_path / "none.npz")

@@ -346,24 +346,18 @@ def test_run_training_without_checkpoints_tests_the_final_state(tmp_path):
 
 
 def test_run_training_refuses_unported_modes(tmp_path):
-    """The NaN sanitizer's key raises (every mesh axis runs:
-    ``tests/test_torch_parallel.py``, ``test_torch_pipeline.py``,
-    ``test_torch_seq_sharding.py``). ImageNet initialisation follows the
-    JAX rule: the flag with an empty ``weights.imagenet`` trains from the
+    """Nothing of a SiT regression config is refused now (every mesh axis
+    runs: ``tests/test_torch_parallel.py``, ``test_torch_pipeline.py``,
+    ``test_torch_seq_sharding.py``; the NaN sanitizer and the profiler:
+    ``tests/test_torch_tail.py``). ImageNet initialisation follows the JAX
+    rule: the flag with an empty ``weights.imagenet`` trains from the
     seeded init, so it is not refused (``tests/test_torch_imagenet.py``
     runs both cases)."""
-    base = _train_cfg(tmp_path, tmp_path / "none.npz")
-    for key, val, match in [("training.load_weights_imagenet", True, None),
-                            ("tpu.debug_nans", True, "debug_nans")]:
-        raw = yaml.safe_load(yaml.safe_dump(base))
-        block, leaf = key.split(".")
-        raw.setdefault(block, {})[leaf] = val
-        if match is None:
-            assert raw.get("weights", {}).get("imagenet", "") == ""
-            runner._refuse_unported(config.from_dict(raw))
-            continue
-        with pytest.raises(NotImplementedError, match=match):
-            runner.run_training(config.from_dict(raw), device="cpu", datasets={})
+    raw = _train_cfg(tmp_path, tmp_path / "none.npz")
+    raw["training"]["load_weights_imagenet"] = True
+    raw["tpu"].update(debug_nans=True, profile_epoch=1)
+    assert raw.get("weights", {}).get("imagenet", "") == ""
+    runner._refuse_unported(config.from_dict(raw))
 
 
 # -- config and logging -----------------------------------------------------------
