@@ -9,7 +9,8 @@ Drives the port's serving and training paths
 (ico-6 sub-ico-3, below), its MPP pretraining and dropout training
 (phases 14-19), MS-SiT serving (phases 26-28), and MS-SiT training and
 MPP (phases 29-32), with random weights made from a numpy seed, and
-the SiT-tiny reference recipe trained for 100 epochs (phase 38).
+the SiT-tiny reference recipe trained for 100 epochs (phase 38), and every
+head width the config takes (phase 39).
 Phases, one line each; any failure raises, so the script exits non-zero
 and prints no result:
 
@@ -440,8 +441,35 @@ programs of the ``svt::`` operators) and runs it without the package:
               (control: two epochs' launches), (e) ``tpu.debug_nans`` on one
               fused step at B = 256 with a NaN in a sample: it raises before
               the update; without the key the loss is NaN; on clean data the
-              key's update is the update without it bit for bit. The whole
-              run's seconds print last before the kernels line.
+              key's update is the update without it bit for bit.
+39. head-widths -- every head dim a multiple of 8 from 8 to 128 (``HW_WIDTHS``:
+              dh 8, 16, 32, 48, 80, 96 at SiT-tiny's width, 128 at
+              SiT-small's), in a process of its own (``chip_smoke.py
+              --width-paths OUT``) started with phase 34 and read back
+              after phase 38 (head-widths-paths): the attention forward and backward
+              (packed, at B = 256, N = 321 and N = 328 with valid_len 321),
+              with dropout (the plain versions fed the kernel's mask), the
+              8-query (few-query) kernels and the tiled entry at N = 5121,
+              each against its float32 and bf16 plain versions with phase
+              14's gate and controls (the plain version at the tile's
+              softmax scale, 1 / sqrt(64) at dh 48; dh 32's mask from
+              another seed); the block chains (serving, the training
+              forwards, both backwards, and the int8 block at dh 128) with
+              phases 3, 6 and 20's gates; device times beside dh 64 at the
+              same inner width and SDPA (taken beside phases 34-35: noisier
+              than a quiet card's); then paths 1-3, ``cli.train`` then
+              ``cli.test`` on ``sit_tiny_scan_age.yml`` as 6 heads of 32,
+              the same with attention dropout 0.1, and
+              ``sit_small_birth_age_native.yml`` as 3 heads of 128 (bf16
+              and ``tpu.quant=int8``; augmentation off), each against its
+              expected launches, the predictions finite and within
+              ``SLICE_TOL`` of the eager float32 model (int8: twice that).
+              Then, in this process: each width's launches on ``Trainer``
+              steps and ``predict`` (counts zeroed just before each run),
+              and paths 1 and 3's widths at full depth beside SiT-tiny's and
+              SiT-small's: a ``Trainer`` step and the serving rate at B =
+              256.
+              The whole run's seconds print last before the kernels line.
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -791,20 +819,21 @@ def cls_fwd_controls(fb, dist, x, p, heads, vl) -> dict:
                 lambda xs: fb.fused_block_cls_reference(xs.float(), *p, valid_len=vl - 64, **kw))}
 
 
-def cls_fwd_route_line(fb, label, N, dim) -> str:
+def cls_fwd_route_line(fb, label, N, dim, dh=DH) -> str:
     """The CLS forward's route from the C entry (``svt_cls_fwd_route``)
     against the Python rules (``cls_fwd_route``, ``cls_ln1_in_kv``)."""
     from surface_vision_transformers_tpu_torch.ops import _native
 
     rows = min(8, N)
-    got = _native.library().svt_cls_fwd_route(N, rows, dim)
-    want = (1 if fb.cls_fwd_route(N, rows) else 0) | (2 if fb.cls_ln1_in_kv(N, rows, dim) else 0)
+    got = _native.library().svt_cls_fwd_route(N, rows, dim, dh)
+    want = ((1 if fb.cls_fwd_route(N, rows, dh) else 0)
+            | (2 if fb.cls_ln1_in_kv(N, rows, dim, dh) else 0))
     if got != want:
         raise AssertionError(f"{label}: svt_cls_fwd_route {got}, the Python rules {want}")
     return (f"{label}: the CLS forward's route {got} from the C entry (1: the few-query "
             f"attention, 2: LN1 in the K/V product and Q made in the attention), {want} by "
             "the rules; "
-            f"{fb.cls_fwd_launches(N, dim)} device kernels a call by cls_fwd_launches "
+            f"{fb.cls_fwd_launches(N, dim, dh)} device kernels a call by cls_fwd_launches "
             "(counted in phase 29)")
 
 
@@ -2495,22 +2524,23 @@ def packed_qkv(rng, B, N):
     return qkv, bf16_randn(rng, (B, N, HD))
 
 
-def qkv_plain(fa, qkv, do, vl, dtype=None, keep=None, keep_bwd=True, scale=1.0):
+def qkv_plain(fa, qkv, do, vl, dtype=None, keep=None, keep_bwd=True, scale=1.0, heads=HEADS):
     """(o, dqkv) of the packed plain versions in ``dtype`` (float32: the
     exact reference; None: the inputs' bf16), 32 samples at a time; dropout
-    with ``keep`` (in the backward too unless ``keep_bwd`` is False)."""
-    parts = []
+    with ``keep`` (in the backward too unless ``keep_bwd`` is False); q
+    scaled by ``scale`` (a control's wrong softmax scale)."""
+    parts, hd = [], qkv.shape[-1] // 3
     for s in range(0, qkv.shape[0], 32):
         x, g = qkv[s:s + 32], do[s:s + 32]
         if dtype is not None:
             x, g = x.to(dtype), g.to(dtype)
         if scale != 1.0:
-            x = torch.cat([x[..., :HD] * scale, x[..., HD:]], -1)
+            x = torch.cat([x[..., :hd] * scale, x[..., hd:]], -1)
         kp = None if keep is None else keep[s:s + 32]
         rate = DROP_RATE if keep is not None else 0.0
-        o, lse = fa.flash_attention_qkv_reference(x, HEADS, vl, kp, rate)
+        o, lse = fa.flash_attention_qkv_reference(x, heads, vl, kp, rate)
         d = fa.flash_attention_qkv_bwd_reference(
-            x, o, lse, g, HEADS, vl, kp if keep_bwd else None, rate if keep_bwd else 0.0)
+            x, o, lse, g, heads, vl, kp if keep_bwd else None, rate if keep_bwd else 0.0)
         parts.append((o, d))
     return [torch.cat(p) for p in zip(*parts)]
 
@@ -7868,6 +7898,689 @@ def phase_recipe(proc, log: Path, out: Path) -> None:
           "(started with phase 36)")
 
 
+# Phase 39: every head width the JAX package runs, a multiple of 8 from 8 to
+# 128 (dh 32 and 64 on kernels built for them, the others on
+# csrc/flash_attention_widths.cu). Kernel cases, dh: (dim, heads, mlp):
+# SiT-tiny's width at 24, 12, 6, 4, 3 (80 x 3: an inner width of 240, past
+# dim) and 2 heads; SiT-small's at 3 heads of 128. At the main path's B =
+# 256, N = 321; the few-query kernels at the CLS block's 8 query rows; the
+# tiled entry at N = 5121 (B = 1) at HW_TILED_DH; a padded N = 328
+# (valid_len 321) at B = 32. Gates: phase 14's (BOUND_STEPS) on attention, phase 3's on the serving
+# blocks, phase 6's (BWD_STEPS) on the backwards, phase 20's on int8.
+HW_WIDTHS = {8: (192, 24, 768), 16: (192, 12, 768), 32: (192, 6, 768), 48: (192, 4, 768),
+             80: (192, 3, 768), 96: (192, 2, 768), 128: (384, 3, 1536)}
+HW_B, HW_TILED_N, HW_PAD = 256, 5121, (32, 328, 321)
+HW_TILED_DH = (8, 48, 128)  # the tiled entry's cases: one a tile width (32, 64, 128)
+HW_SOURCE = "surface_vision_transformers_tpu_torch/csrc/flash_attention_widths.cu"
+# Paths 1-3 through cli.train and cli.test (phase 39's worker process, run
+# beside phases 34-38): SiT-tiny as 6 heads of 32, the same with attention
+# dropout 0.1, SiT-small as 3 heads of 128 (bf16 and int8 serving), each on
+# HW_N_TRAIN + HW_N_VAL synthetic raw surfaces, HW_EPOCHS epochs.
+HW_PATHS = {
+    "path 1 (6 x 32)": (TRAIN_CFG, ["transformer.heads=6", "transformer.dim_head=32"]),
+    "path 2 (6 x 32, dropout 0.1)": (TRAIN_CFG, ["transformer.heads=6", "transformer.dim_head=32",
+                                                 "transformer.dropout=0.1"]),
+    "path 3 (3 x 128)": (ROOT / "configs/training/sit_small_birth_age_native.yml",
+                         ["transformer.heads=3", "transformer.dim_head=128",
+                          "augmentation.enabled=false"]),
+}
+HW_N_TRAIN, HW_N_VAL, HW_EPOCHS = 512, 128, 2
+HW_RECORDS: dict = {}  # this run's: name -> (ms, dh-64 ms at the same inner width, SDPA, bound)
+
+
+def hw_row(name, source, replaces, err, ms, plain_ms, bound, library_ms) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def hw_wrong_scale(fa, dh) -> float:
+    """The factor on q that makes the plain version take its tile's softmax
+    scale 1 / sqrt(tile) (1 / 8 where the tile is dh's own) in place of
+    1 / sqrt(dh): the controls' wrong scale."""
+    tw = fa.tile_width(dh)
+    return math.sqrt(dh / (tw if tw != dh else 64))
+
+
+def hw_gate(name, label, got, ref32, ref_bf, controls, failures) -> float:
+    """Phase 14's gate on outputs ``got`` against the float32 and bf16 plain
+    runs, each control (name: outputs) must fail it; -> max abs error."""
+    r32, rbf = step_ratio(got, ref32, ref32), step_ratio(got, ref_bf, ref32)
+    ctl = {k: step_ratio(v, ref32, ref32) for k, v in controls.items()}
+    err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref32))
+    phase(name, f"{label}: worst |err|/bound vs fp32 plain {r32:.4g}, vs plain bf16 {rbf:.4g} "
+          f"(bound {BOUND_STEPS} bf16 steps at each output's largest value); max abs err "
+          f"{err:.6g}; controls (must exceed 1): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in ctl.items()))
+    if not all(bool(torch.isfinite(x).all()) for x in got) or max(r32, rbf) > 1:
+        failures.append(f"{label} disagrees with its plain version")
+    failures += [f"{label}: control {k} passed the gate" for k, v in ctl.items() if v <= 1]
+    return err
+
+
+def hw_attention(fa, dh, heads, failures) -> dict:
+    """Kernels (a)-(d) and dropout at head dim dh: parity, controls, times
+    (device time beside dh 64 at the same inner width where heads x dh is a
+    multiple of 64, the plain bf16 version and SDPA). -> kernels rows."""
+    name, hd, B, N = "head-widths", heads * dh, HW_B, N_TOKENS
+    rng = np.random.default_rng(SEED + 39 + dh)
+    wrong = hw_wrong_scale(fa, dh)
+    tag = f"dh{dh}"
+    rows = {}
+
+    # (a), (b): packed, at the main shape and at a padded one
+    for Bc, Nc, vl in [(B, N, N), HW_PAD]:
+        qkv = torch.cat([bf16_randn(rng, (Bc, Nc, 2 * hd), 1.5), bf16_randn(rng, (Bc, Nc, hd))],
+                        -1)
+        do = bf16_randn(rng, (Bc, Nc, hd))
+        o, lse = fa.flash_attention_qkv_fwd(qkv, heads, vl)
+        got = [o, fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads, vl)]
+        ref32 = qkv_plain(fa, qkv, do, vl, torch.float32, heads=heads)
+        controls = {f"softmax scale 1/sqrt({fa.tile_width(dh) if fa.tile_width(dh) != dh else 64})":
+                    qkv_plain(fa, qkv, do, vl, torch.float32, scale=wrong, heads=heads)}
+        if Nc > vl:
+            controls[f"keys {vl}..{Nc - 1} unmasked"] = qkv_plain(fa, qkv, do, Nc, torch.float32,
+                                                                  heads=heads)
+        err = hw_gate(name, f"flash_attention_qkv {tag} B={Bc} N={Nc} valid_len={vl}", got, ref32,
+                      qkv_plain(fa, qkv, do, vl, heads=heads), controls, failures)
+        if Nc != N:
+            continue
+        errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref32)]
+        q, k, v = fa.split_qkv(qkv, heads)
+        do4 = do.view(B, N, heads, dh).transpose(1, 2)
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+        t = {"fwd": device_ms(lambda: fa.flash_attention_qkv_fwd(qkv, heads)),
+             "bwd": device_ms(lambda: fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads)),
+             "plain_fwd": cuda_ms(lambda: fa.flash_attention_qkv_reference(qkv, heads), reps=3),
+             "plain_bwd": cuda_ms(lambda: fa.flash_attention_qkv_bwd_reference(
+                 qkv, o, lse, do, heads), reps=3),
+             "sdpa_fwd": device_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+             "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
+                 sdpa_out, (qr, kr, vr), do4, retain_graph=True))}
+        del sdpa_out, qr, kr, vr
+        h64 = hd // 64
+        if hd % 64 == 0:  # dh 64 at the same inner width, the same call
+            q64 = torch.cat([bf16_randn(rng, (B, N, 2 * hd), 1.5), bf16_randn(rng, (B, N, hd))], -1)
+            o64, l64 = fa.flash_attention_qkv_fwd(q64, h64)
+            t["fwd64"] = device_ms(lambda: fa.flash_attention_qkv_fwd(q64, h64))
+            t["bwd64"] = device_ms(lambda: fa.flash_attention_qkv_bwd(q64, o64, l64, do, h64))
+            del q64, o64, l64
+        fwd_f, bwd_f = attention_flops(B, heads, N, N, dh)
+        bounds = (bound_ms(fwd_f, nbytes_of(qkv, o, lse)),
+                  bound_ms(bwd_f, nbytes_of(qkv, o, lse, do, got[1])))
+        dh64 = (f"dh 64 x {h64} heads {t['fwd64']:.4f} / {t['bwd64']:.4f}" if "fwd64" in t
+                else f"dh 64: {hd} is no multiple of 64")
+        phase(name, f"{tag} ({heads} heads, inner width {hd}) B={B} N={N}, forward / backward "
+              f"ms (device time): kernel {t['fwd']:.4f} / {t['bwd']:.4f}; {dh64}; SDPA "
+              f"{t['sdpa_fwd']:.4f} / {t['sdpa_bwd']:.4f}; plain bf16 {t['plain_fwd']:.4f} / "
+              f"{t['plain_bwd']:.4f} (CUDA-event median of 3); bound {bounds[0][0]:.4f} by "
+              f"{bounds[0][1]} ({bounds[0][0] / t['fwd']:.1%}) / {bounds[1][0]:.4f} by "
+              f"{bounds[1][1]} ({bounds[1][0] / t['bwd']:.1%})")
+        HW_RECORDS[f"flash_attention_fwd {tag}"] = (t["fwd"], t.get("fwd64"), t["sdpa_fwd"],
+                                                     bounds[0][0])
+        HW_RECORDS[f"flash_attention_bwd {tag}"] = (t["bwd"], t.get("bwd64"), t["sdpa_bwd"],
+                                                     bounds[1][0])
+        if dh != 32:  # dh 32's streamed rows are phase 26's and 29's
+            rows[f"flash_attention_fwd {tag}"] = hw_row(
+                f"flash_attention_fwd {tag}", HW_SOURCE, f"{FLASH_TPU}:395", errs[0], t["fwd"],
+                t["plain_fwd"], bounds[0], t["sdpa_fwd"])
+            rows[f"flash_attention_bwd {tag}"] = hw_row(
+                f"flash_attention_bwd {tag}", HW_SOURCE, f"{FLASH_TPU}:427", errs[1], t["bwd"],
+                t["plain_bwd"], bounds[1], t["sdpa_bwd"])
+        del qkv, o, lse, got, ref32
+        torch.cuda.empty_cache()
+
+    # dropout at rate DROP_RATE, the plain versions fed the kernel's mask; the
+    # control: another seed's mask at dh 32, the mask shifted by one key elsewhere
+    qkv = torch.cat([bf16_randn(rng, (B, N, 2 * hd), 1.5), bf16_randn(rng, (B, N, hd))], -1)
+    do = bf16_randn(rng, (B, N, hd))
+    o, lse = fa.flash_attention_qkv_dropout_fwd(qkv, heads, N, DROP_RATE, DROP_SEED)
+    got = [o, fa.flash_attention_qkv_dropout_bwd(qkv, o, lse, do, heads, N, DROP_RATE, DROP_SEED)]
+    keep = fa.dropout_keep_mask(DROP_SEED, B, heads, N, N, DROP_RATE, device="cuda")
+    other = (fa.dropout_keep_mask(DROP_SEED + 1, B, heads, N, N, DROP_RATE, device="cuda")
+             if dh == 32 else keep.roll(1, -1))
+    ref32 = qkv_plain(fa, qkv, do, N, torch.float32, keep=keep, heads=heads)
+    err = hw_gate(name, f"flash_attention_qkv_dropout {tag} B={B} N={N} rate {DROP_RATE}", got,
+                  ref32, qkv_plain(fa, qkv, do, N, keep=keep, heads=heads),
+                  {"another seed's mask" if dh == 32 else "the mask shifted by one key":
+                   qkv_plain(fa, qkv, do, N, torch.float32, keep=other, heads=heads)}, failures)
+    errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref32)]
+    del other, ref32
+    q, k, v = fa.split_qkv(qkv, heads)
+    t = {"fwd": device_ms(lambda: fa.flash_attention_qkv_dropout_fwd(qkv, heads, N, DROP_RATE,
+                                                                    DROP_SEED)),
+         "bwd": device_ms(lambda: fa.flash_attention_qkv_dropout_bwd(
+             qkv, o, lse, do, heads, N, DROP_RATE, DROP_SEED)),
+         "sdpa": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=DROP_RATE))}
+    t["plain_fwd"] = cuda_ms(lambda: qkv_plain(fa, qkv[:32], do[:32], N, keep=keep[:32],
+                                               heads=heads), reps=3) * B / 32
+    del keep
+    fwd_f, bwd_f = attention_flops(B, heads, N, N, dh)
+    bounds = (bound_ms(fwd_f, nbytes_of(qkv, o, lse)),
+              bound_ms(bwd_f, nbytes_of(qkv, o, lse, do, got[1])))
+    phase(name, f"flash_attention_qkv_dropout {tag} B={B} N={N}: forward {t['fwd']:.4f} ms, "
+          f"backward {t['bwd']:.4f} ms (device time); SDPA forward with dropout_p "
+          f"{t['sdpa']:.4f}; plain bf16 forward + backward {t['plain_fwd']:.4f} (32 samples x "
+          f"{B // 32}); bound {bounds[0][0]:.4f} / {bounds[1][0]:.4f}")
+    rows[f"flash_attention_qkv_dropout {tag}"] = hw_row(
+        f"flash_attention_qkv_dropout {tag}", HW_SOURCE, f"{FLASH_TPU}:684", errs[0], t["fwd"],
+        t["plain_fwd"], bounds[0], t["sdpa"])
+    rows[f"flash_attention_qkv_dropout_bwd {tag}"] = hw_row(
+        f"flash_attention_qkv_dropout_bwd {tag}", HW_SOURCE, f"{FLASH_TPU}:724", errs[1],
+        t["bwd"], t["plain_fwd"], bounds[1], None)
+    del qkv, o, lse, got
+    torch.cuda.empty_cache()
+
+    # (c), (d): the CLS block's 8 queries against the N keys
+    q, k, v = (bf16_randn(rng, (B, heads, n, dh), 1.5 if i < 2 else 1.0)
+               for i, n in enumerate((8, N, N)))
+    do = bf16_randn(rng, (B, heads, 8, dh))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = [o, *fa.flash_attention_bwd(q, k, v, o, lse, do)]
+
+    def few_plain(dtype=None, scale=1.0, vl=None):
+        cast = (lambda x: x.to(dtype)) if dtype else (lambda x: x)
+        qq, kk, vv, dd = cast(q) * scale, cast(k), cast(v), cast(do)
+        oo, ll = fa.flash_attention_reference(qq, kk, vv, vl)
+        return [oo, *fa.flash_attention_bwd_reference(qq, kk, vv, oo, ll, dd, vl)]
+
+    ref32 = few_plain(torch.float32)
+    last = (N - 1) // 64 * 64
+    err = hw_gate(name, f"flash_attention 8 queries {tag} B={B} N={N}", got, ref32, few_plain(),
+                  {"softmax scale of the tile": few_plain(torch.float32, wrong),
+                   f"keys {last}..{N - 1} skipped": few_plain(torch.float32, vl=last)}, failures)
+    errs = [(got[0].float() - ref32[0]).abs().max().item(),
+            max((a.float() - r).abs().max().item() for a, r in zip(got[1:], ref32[1:]))]
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qr, kr, vr)
+    t = {"fwd": device_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+         "bwd": device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)),
+         "plain": cuda_ms(few_plain, reps=3),
+         "sdpa_fwd": device_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+         "sdpa_bwd": device_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do,
+                                                           retain_graph=True))}
+    del sdpa_out, qr, kr, vr
+    fwd_f, bwd_f = attention_flops(B, heads, 8, N, dh)
+    bounds = (bound_ms(fwd_f, nbytes_of(q, k, v, o, lse)),
+              bound_ms(bwd_f, nbytes_of(q, k, v, o, lse, do, *got[1:])))
+    phase(name, f"flash_attention 8 queries {tag} B={B} N={N} (the few-query kernels): forward "
+          f"{t['fwd']:.4f} ms, backward {t['bwd']:.4f} ms (device time); SDPA {t['sdpa_fwd']:.4f}"
+          f" / {t['sdpa_bwd']:.4f}; plain bf16 both {t['plain']:.4f}; bound "
+          f"{bounds[0][0]:.4f} by {bounds[0][1]} / {bounds[1][0]:.4f} by {bounds[1][1]}")
+    rows[f"{FEW_FWD} {tag}"] = hw_row(f"{FEW_FWD} {tag}", HW_SOURCE if dh != 64 else FLASH_SOURCE,
+                                      f"{FLASH_TPU}:203", errs[0], t["fwd"], t["plain"],
+                                      bounds[0], t["sdpa_fwd"])
+    rows[f"flash_attention_bwd 8 queries {tag}"] = hw_row(
+        f"flash_attention_bwd 8 queries {tag}", HW_SOURCE, f"{FLASH_TPU}:233", errs[1], t["bwd"],
+        t["plain"], bounds[1], t["sdpa_bwd"])
+    del q, k, v, o, lse, do, got, ref32
+    torch.cuda.empty_cache()
+
+    # the tiled entry past MAX_SINGLE_BLOCK_SEQ keys, once a tile width
+    if dh not in HW_TILED_DH:
+        return rows
+    q, k, v = (bf16_randn(rng, (1, heads, HW_TILED_N, dh), 1.5 if i < 2 else 1.0)
+               for i in range(3))
+    do = bf16_randn(rng, (1, heads, HW_TILED_N, dh))
+    o, lse = fa.flash_attention_tiled_fwd(q, k, v)
+    got = [o, *fa.flash_attention_tiled_bwd(q, k, v, o, lse, do)]
+
+    def tiled_plain(dtype=None, scale=1.0):
+        cast = (lambda x: x.to(dtype)) if dtype else (lambda x: x)
+        qq, kk, vv, dd = cast(q) * scale, cast(k), cast(v), cast(do)
+        oo, ll = fa.flash_attention_reference(qq, kk, vv)
+        return [oo, *fa.flash_attention_bwd_reference(qq, kk, vv, oo, ll, dd)]
+
+    hw_gate(name, f"flash_attention_tiled {tag} B=1 N={HW_TILED_N}", got,
+            tiled_plain(torch.float32), tiled_plain(),
+            {"softmax scale of the tile": tiled_plain(torch.float32, wrong)}, failures)
+    del q, k, v, o, lse, do, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hw_blocks(fb, dh, dim, heads, mlp, failures) -> dict:
+    """The block chains at head dim dh, B = 256, N = 321: serving
+    (``fused_block``, ``fused_block_cls``), the training forwards and their
+    backwards against the plain versions (phases 3 and 6's gates, the
+    softmax-scale controls), and at dh 128 (dim 384) the int8 block (phase
+    20's gates). -> kernels rows at dh 32 (the CLS block's) and 128."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+    from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8
+    from surface_vision_transformers_tpu_torch.ops import quant
+
+    name, tag, B, N = "head-widths", f"dh{dh}", HW_B, N_TOKENS
+    rng = np.random.default_rng(SEED + 390 + dh)
+    hd, kw, rows = heads * dh, dict(heads=heads, dim_head=dh), {}
+    p32 = [t.cuda() for t in block_params(rng, dim, heads, mlp, dh)]
+    pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p32]
+    pr = [t.float() for t in pb]
+    pw = list(pr)
+    pw[2] = pr[2].clone()
+    pw[2][:hd] *= hw_wrong_scale(fa, dh)
+    x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    record = dh in (32, 128)
+    for kname, cls in (("fused_block", False), ("fused_block_cls", True)):
+        kernel = fb.fused_block_cls if cls else fb.fused_block
+        plain = fb.fused_block_cls_reference if cls else fb.fused_block_reference
+        got = kernel(x, *pb, **kw).float()
+        ref32 = sliced(lambda xs: plain(xs.float(), *pr, **kw), x, chunk=32)
+        ref_bf = sliced(lambda xs: plain(xs, *pb, **kw).float(), x, chunk=32)
+        wrong = sliced(lambda xs: plain(xs.float(), *pw, **kw), x, chunk=32)
+        bound = BOUND_STEPS * bf16_step(ref32.abs().max().item())
+        err, err_bf = (got - ref32).abs().max().item(), (got - ref_bf).abs().max().item()
+        ctl = (wrong - got).abs().max().item()
+        phase(name, f"{kname} {tag} dim {dim} B={B} N={N}: max abs err vs fp32 plain {err:.6g}, "
+              f"vs plain bf16 {err_bf:.6g}, bound {bound:.6g} ({BOUND_STEPS} bf16 steps at the "
+              f"largest output); control, the tile's softmax scale: {ctl:.6g} (must exceed)"
+              + (f"; route: {cls_fwd_route_line(fb, kname, N, dim, dh)}" if cls else ""))
+        if not bool(torch.isfinite(got).all()) or max(err, err_bf) > bound:
+            failures.append(f"{kname} {tag} disagrees with its plain version")
+        if ctl <= bound:
+            failures.append(f"{kname} {tag}: the softmax-scale control passed the gate")
+        if record and (cls or dh == 128):
+            ms = cuda_ms(lambda: kernel(x, *pb, **kw))
+            plain_ms = cuda_ms(lambda: sliced(lambda xs: plain(xs, *pb, **kw), x, chunk=32), reps=3)
+            flops = block_flops(B, N, N, dim, heads, mlp, cls, dh)[0]
+            b = bound_ms(flops, nbytes_of(x, *pb) + got.numel() * 2)
+            rows[f"{kname} {tag}"] = hw_row(f"{kname} {tag}", SOURCE, REPLACES[kname], err, ms,
+                                            plain_ms, b, None)
+            phase(name, f"{kname} {tag} B={B} N={N}: {ms:.4f} ms (CUDA-event median of 25), "
+                  f"plain bf16 {plain_ms:.4f}, bound {rows[f'{kname} {tag}']['bound_ms']:.4f}")
+        del got, ref32, ref_bf, wrong
+
+        # the training forward and its backward
+        rows_n = 8 if cls else N
+        gy = torch.from_numpy((G_SCALE * rng.standard_normal((B, rows_n, dim))).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        bwd = fb.fused_block_cls_bwd if cls else fb.fused_block_bwd
+        bwd_plain = fb.fused_block_cls_bwd_reference if cls else fb.fused_block_bwd_reference
+        out, sv = fb.train_forward(x, *pb, valid_len=N, cls=cls, **kw)
+        same_fwd = bool(torch.equal(out, kernel(x, *pb, **kw)))
+        got = bwd(x, gy, *pb, saved=sv, valid_len=N, **kw)
+        ref32 = sliced(lambda xs, gs: bwd_plain(xs.float(), gs.float(), *pr, **kw), x, gy)
+        ref_bf = sliced(lambda xs, gs: bwd_plain(xs, gs, *pb, **kw), x, gy)
+        r32, err = grad_bound_ratio(got, ref32, N)
+        rbf, _ = grad_bound_ratio(got, ref_bf, N)
+
+        def control(vl_bwd=N, **patches):
+            return bwd_control(fb, x, gy, pr, heads, N, cls, got, vl_bwd, chunk=16, dh=dh,
+                               **patches)
+
+        controls = bwd_controls(fb, control)
+        bname = f"{kname}_bwd"
+        phase(name, f"{bname} {tag} dim {dim} B={B} N={N}: worst |err|/bound over the 12 "
+              f"gradients vs fp32 plain {r32:.4g}, vs plain bf16 {rbf:.4g} ({BWD_STEPS} bf16 "
+              f"steps); max abs err {err:.6g}; training forward == serving forward {same_fwd}; "
+              "controls (must exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in controls.items()))
+        if not all(bool(torch.isfinite(t).all()) for t in got) or max(r32, rbf) > 1:
+            failures.append(f"{bname} {tag} disagrees with its plain backward")
+        if not same_fwd:
+            failures.append(f"{bname} {tag}: the training forward changed the forward's output")
+        failures += [f"{bname} {tag}: control {k} passed" for k, v in controls.items() if v <= 1]
+        if record and (cls or dh == 128):
+            ms = cuda_ms(lambda: bwd(x, gy, *pb, saved=sv, valid_len=N, **kw))
+            plain_ms = cuda_ms(lambda: sliced(lambda xs, gs: bwd_plain(xs, gs, *pb, **kw), x, gy),
+                               reps=3)
+            flops = block_flops(B, N, N, dim, heads, mlp, cls, dh)[1]
+            b = bound_ms(flops, nbytes_of(x, gy, *pb, *got))
+            rows[f"{bname} {tag}"] = hw_row(f"{bname} {tag}", BWD_SOURCE, REPLACES[bname], err,
+                                            ms, plain_ms, b, None)
+            phase(name, f"{bname} {tag} B={B} N={N}: {ms:.4f} ms (CUDA-event median of 25), "
+                  f"plain bf16 {plain_ms:.4f}, bound {b[0]:.4f} by {b[1]}")
+        del out, sv, got, ref32, ref_bf
+        torch.cuda.empty_cache()
+
+    if dh == 128:  # the int8 block at SiT-small's width (INT8_MIN_DIM)
+        p8, _ = int8_block_params(rng, dim, heads, mlp, dh)
+        got = fbi8.fused_block_int8(x, *p8, **kw).float()
+
+        def plain(dtype=None):
+            return sliced(lambda xs: fbi8.fused_block_int8_reference(
+                xs.to(dtype) if dtype else xs, *p8, **kw).float(), x, chunk=32)
+
+        ref32, ref_bf = plain(torch.float32), plain()
+        with mock.patch.object(quant, "quant_rows", per_tensor_rows):
+            per_tensor = plain(torch.float32)
+
+        def steps(a, r=ref32):
+            return ((a - r).abs().max() / bf16_step(r.abs().max().item())).item()
+
+        def rel(a, r=ref32):
+            return (torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r)).item()
+
+        rel_bf = rel(ref_bf)
+
+        def passes(a):
+            return (bool(torch.isfinite(a).all()) and max(steps(a), steps(a, ref_bf)) <= INT8_STEPS
+                    and rel(a) <= INT8_REL_RATIO * rel_bf)
+
+        phase(name, f"fused_block_int8 {tag} dim {dim} B={B} N={N}: max |err| {steps(got):.3f} "
+              f"bf16 steps vs fp32 plain, {steps(got, ref_bf):.3f} vs plain bf16; rel-L2 "
+              f"{rel(got):.4g} (plain bf16 {rel_bf:.4g}); control, one scale per tensor: "
+              f"{steps(per_tensor):.3f} steps, rel-L2 {rel(per_tensor):.4g} (must fail); gates "
+              f"{INT8_STEPS} steps, {INT8_REL_RATIO} x plain bf16's rel-L2")
+        if not passes(got):
+            failures.append(f"fused_block_int8 {tag} failed its gates")
+        if passes(per_tensor):
+            failures.append(f"fused_block_int8 {tag}: the control passed the gates")
+        ms = cuda_ms(lambda: fbi8.fused_block_int8(x, *p8, **kw))
+        plain_ms = cuda_ms(lambda: plain(), reps=3)
+        gemm_ops, att_ops = int8_block_ops(B, N, N, dim, heads, mlp, dh)
+        t_ops = (gemm_ops / 1979e12 + att_ops / PEAK_FLOPS) * 1e3
+        t_bytes = (nbytes_of(x, *p8) + x.numel() * 2) / PEAK_BYTES * 1e3
+        b = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        rows[f"fused_block_int8 {tag}"] = hw_row(
+            f"fused_block_int8 {tag}", "surface_vision_transformers_tpu_torch/csrc/"
+            "fused_block_int8.cu", "surface_vision_transformers_tpu/ops/pallas/fused_block_int8.py"
+            ":145", (got - ref32).abs().max().item(), ms, plain_ms, b, None)
+        phase(name, f"fused_block_int8 {tag} B={B} N={N}: {ms:.4f} ms, plain {plain_ms:.4f}, "
+              f"bound {b[0]:.4f} by {b[1]}")
+    return rows
+
+
+def phase_head_widths(fb) -> dict:
+    """Phase 39, the kernels: every family at each width of HW_WIDTHS
+    against its plain version, with controls, and timed. -> kernels rows
+    (their launches come from ``hw_path_launches``)."""
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    failures, rows = [], {}
+    for dh, (dim, heads, mlp) in HW_WIDTHS.items():
+        t0 = time.perf_counter()
+        rows.update(hw_attention(fa, dh, heads, failures))
+        rows.update(hw_blocks(fb, dh, dim, heads, mlp, failures))
+        phase("head-widths", f"dh{dh}: {time.perf_counter() - t0:.1f} s")
+    for f_ in failures:
+        phase("head-widths", "FAILED: " + f_)
+    if failures:
+        raise AssertionError(f"phase 39: {len(failures)} gate(s) failed")
+    return rows
+
+
+def hw_path_launches(fb, table, dh, dim, heads, mlp, data) -> dict:
+    """Launches of each kernel family at head dim dh on the main path's
+    entry points at that width, in process, every count zeroed just before:
+    two ``Trainer`` steps of a SiT of this width cut to 2 blocks at B = 256
+    (fused route), ``predict`` of 256 surfaces, two steps of the same SiT
+    with attention dropout 0.1 (modular route), on ``data`` ((256, 4,
+    40962) surfaces, labels). -> row name: launches."""
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    data, labels = data
+    xb, yb = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+    ones = torch.ones(256, device="cuda")
+    exp = config.Experiment(
+        model=config.ModelConfig(), training=config.TrainingConfig(bs=256),
+        data=config.DataConfig(), optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
+
+    def model(dropout):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            return SiT(dim=dim, depth=2, heads=heads, mlp_dim=mlp, dim_head=dh, dropout=dropout,
+                       patch_table=table, dtype=torch.bfloat16).cuda()
+
+    counters = zero_counts(fb)
+    trainer = Trainer(exp, model(0.0))
+    losses = [float(trainer.optimizer_step(xb, yb, ones)[0]) for _ in range(2)]
+    preds = fused.predict(trainer.model, data, device="cuda", batch_size=256)
+    fused_run = read_counts(counters)
+    counters = zero_counts(fb)
+    trainer = Trainer(exp, model(0.1))
+    losses += [float(trainer.optimizer_step(xb, yb, ones)[0]) for _ in range(2)]
+    drop_run = read_counts(counters)
+    tag = f"dh{dh}"
+    launches = {f"flash_attention_fwd {tag}": fused_run["fused_block"],
+                f"flash_attention_bwd {tag}": fused_run["fused_block_bwd"],
+                f"{FEW_FWD} {tag}": fused_run[FEW_FWD],
+                f"flash_attention_bwd 8 queries {tag}": fused_run["flash_attention_bwd 8 queries"],
+                f"flash_attention_qkv_dropout {tag}": drop_run["flash_attention_qkv_dropout"],
+                f"flash_attention_qkv_dropout_bwd {tag}":
+                    drop_run["flash_attention_qkv_dropout_bwd"],
+                f"fused_block {tag}": fused_run["fused_block"],
+                f"fused_block_bwd {tag}": fused_run["fused_block_bwd"],
+                f"fused_block_cls {tag}": fused_run["fused_block_cls"],
+                f"fused_block_cls_bwd {tag}": fused_run["fused_block_cls_bwd"]}
+    # two steps (1 + 1 blocks each) and one predict batch (1 + 1)
+    want = {"fused_block": 3, "fused_block_bwd": 2, "fused_block_cls": 3,
+            "fused_block_cls_bwd": 2, FEW_FWD: 3, "flash_attention_bwd 8 queries": 2}
+    bad = {k: fused_run[k] for k, v in want.items() if fused_run[k] != v}
+    if drop_run["flash_attention_qkv_dropout"] != 4 or drop_run[
+            "flash_attention_qkv_dropout_bwd"] != 4:
+        bad["dropout"] = (drop_run["flash_attention_qkv_dropout"],
+                          drop_run["flash_attention_qkv_dropout_bwd"])
+    phase("head-widths", f"{tag} on the entry points (SiT of {heads} x {dh} at dim {dim}, 2 "
+          f"blocks, B=256): fused route, 2 Trainer steps + predict: {fused_run}; dropout 0.1, "
+          f"2 steps (modular): dropout forward {drop_run['flash_attention_qkv_dropout']}, "
+          f"backward {drop_run['flash_attention_qkv_dropout_bwd']}; losses "
+          + " ".join(f"{v:.6g}" for v in losses) + f"; predictions finite "
+          f"{bool(np.isfinite(preds).all())}")
+    if bad or not all(math.isfinite(v) for v in losses) or not np.isfinite(preds).all():
+        raise AssertionError(f"phase 39 {tag}: the entry points' launches {bad} or outputs")
+    return launches
+
+
+HW_RATE_STEPS = 6  # Trainer steps a rate run; steps 2.. timed
+
+
+def hw_rates(table) -> None:
+    """Paths 1 and 3 at full width and depth beside the shipped head widths
+    they reshape, in this call (seeded bf16 SiTs, raw input on the card): a
+    ``Trainer`` step at B = 256 (SGD, CUDA-event median over steps
+    2..HW_RATE_STEPS) and ``fused_forward``'s serving rate at B = 256
+    (CUDA-event median of 10; the SiT-small widths also int8)."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    data, labels = make_regression_dataset(512, raw_vertices=40962, seed=SEED + 391)
+    data, labels = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+    batches = [(data[s:s + 256], labels[s:s + 256]) for s in (0, 256)]
+    ones = torch.ones(256, device="cuda")
+    exp = config.Experiment(
+        model=config.ModelConfig(), training=config.TrainingConfig(bs=256),
+        data=config.DataConfig(), optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
+    for label, (dim, heads, mlp, dh) in {
+            "SiT-tiny (3 x 64)": (192, 3, 768, 64), "path 1 (6 x 32)": (192, 6, 768, 32),
+            "SiT-small (6 x 64)": (384, 6, 1536, 64),
+            "path 3 (3 x 128)": (384, 3, 1536, 128)}.items():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            model = SiT(dim=dim, depth=DEPTH, heads=heads, mlp_dim=mlp, dim_head=dh,
+                        patch_table=table, dtype=torch.bfloat16).cuda()
+        trainer = Trainer(exp, model)
+        start = {k: v.detach().clone() for k, v in model.named_parameters()}
+        _, _, step_ms, _ = run_steps(lambda xb, yb: trainer.optimizer_step(xb, yb, ones)[0],
+                                     model, start, batches, HW_RATE_STEPS)
+        model.eval()
+        x16 = batches[0][0].bfloat16()
+        rates = {}
+        with torch.inference_mode():
+            for quant in ((None, "int8") if dim >= 384 else (None,)):
+                w = fused.prepare_weights(model, quant)
+                ms = cuda_ms(lambda: fused.fused_forward(model, x16, w, quant=quant), reps=10)
+                rates[quant or "bf16"] = (ms, 256 / ms * 1e3)
+        phase("head-widths", f"{label}, dim {dim}, depth {DEPTH}, B=256: a Trainer step "
+              f"{np.median(step_ms):.3f} ms (CUDA-event median of steps 2..{HW_RATE_STEPS}) = "
+              f"{256 / np.median(step_ms) * 1e3:.1f} training surfaces/s; serving "
+              + ", ".join(f"{q} {ms:.3f} ms = {r:.1f} surfaces/s" for q, (ms, r) in rates.items()))
+        del model, trainer, start
+        torch.cuda.empty_cache()
+
+def hw_cli(tool: str, argv: list) -> tuple[dict, str]:
+    """``python -m surface_vision_transformers_tpu_torch.cli.<tool>`` run in
+    this process (so that its launches reach this process's counters) ->
+    (its printed results dict, its whole stdout)."""
+    import io
+    import runpy
+
+    buf, saved = io.StringIO(), sys.argv
+    sys.argv = [f"surface_vision_transformers_tpu_torch.cli.{tool}", *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(f"surface_vision_transformers_tpu_torch.cli.{tool}",
+                             run_name="__main__", alter_sys=False)
+    finally:
+        sys.argv = saved
+    out = buf.getvalue()
+    return ast.literal_eval(out.strip().splitlines()[-1]), out
+
+
+def hw_paths_worker(out_file: str) -> None:
+    """Phase 39's kernels (``phase_head_widths``) and paths 1-3, in a
+    process of their own beside phases 34-38: ``cli.train`` (HW_EPOCHS
+    epochs on HW_N_TRAIN synthetic raw surfaces, validation every epoch)
+    then ``cli.test`` on its best_params.npz (path 3 also with
+    ``tpu.quant=int8``), every count zeroed just before each; the eager
+    float32 model on the same weights beside. -> JSON to ``out_file``: the
+    kernels rows, the width records, the paths' results."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+    from surface_vision_transformers_tpu_torch.train import runner
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    rows = phase_head_widths(fb)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data, labels = make_regression_dataset(HW_N_TRAIN + HW_N_VAL, raw_vertices=40962,
+                                               seed=SEED + 39)
+        for split, sl in (("train", slice(0, HW_N_TRAIN)), ("validation", slice(HW_N_TRAIN, None))):
+            np.save(tmp / f"{split}_data.npy", data[sl])
+            np.save(tmp / f"{split}_labels.npy", labels[sl])
+        val = data[HW_N_TRAIN:]
+        del data
+        table = load_patch_table(6, 2).indices
+        for label, (cfg, sets) in HW_PATHS.items():
+            t0 = time.perf_counter()
+            run_sets = [*sets, f"data.data_path={tmp}", f"training.epochs={HW_EPOCHS}",
+                        "training.val_epoch=1", "training.bs_val=64",
+                        f"logging.folder_to_save_model={tmp / 'runs'}"]
+            argv = [str(cfg), "--device", "cuda", *(x for s in run_sets for x in ("--set", s))]
+            counters = zero_counts(fb)
+            trained, _ = hw_cli("train", argv)
+            train_launches = read_counts(counters)
+            ckpt = Path(trained["run_dir"]) / "best_params.npz"
+            tests = {}
+            for quant in (("none", "int8") if "128" in label else ("none",)):
+                counters = zero_counts(fb)
+                tested, _ = hw_cli("test", argv + ["--set", f"testing.path_to_ckpt={ckpt}",
+                                                   "--set", "data.split=validation",
+                                                   "--set", f"tpu.quant={quant}"])
+                launches = read_counts(counters)
+                with open(ckpt.parent / "results.csv") as f:
+                    preds = np.array([float(r["pred"]) for r in csv.DictReader(f)], np.float32)
+                tests[quant] = (tested, launches, preds.tolist())
+            exp = config.from_dict(_hw_raw(cfg, run_sets))
+            model = runner.build_model(exp, table)
+            runner.load_model_state(model, runner.load_state_dict_any(str(ckpt), exp.model.depth))
+            model = model.eval().cuda()
+            with torch.inference_mode():
+                eager = torch.cat([model(torch.from_numpy(val[s:s + 32]).cuda())
+                                   for s in range(0, len(val), 32)]).float().cpu().numpy()
+            results[label] = {"trained": {k: v for k, v in trained.items()
+                                          if isinstance(v, (int, float, str))},
+                              "train_launches": train_launches, "tests": tests,
+                              "eager": eager.reshape(-1).tolist(),
+                              "seconds": time.perf_counter() - t0}
+            shutil.rmtree(tmp / "runs")
+            torch.cuda.empty_cache()
+    Path(out_file).write_text(json.dumps({"rows": rows, "records": HW_RECORDS,
+                                          "paths": results}))
+
+
+def _hw_raw(cfg: Path, sets: list) -> dict:
+    """The config at ``cfg`` with ``--set`` overrides applied."""
+    from surface_vision_transformers_tpu_torch.cli._common import apply_overrides
+    from surface_vision_transformers_tpu_torch.utils.config import read_config_file
+
+    return apply_overrides(read_config_file(str(cfg)), sets)
+
+
+def hw_paths_start(tmp: Path):
+    """Phase 39's paths worker started (this script with --width-paths) ->
+    (process, its log, its result file)."""
+    log, out = tmp / "paths.log", tmp / "paths.json"
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--width-paths",
+                             str(out)], cwd=ROOT, stdout=open(log, "w"),
+                            stderr=subprocess.STDOUT)
+    return proc, log, out
+
+
+def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
+    """Phase 39's worker read back: its kernel lines printed, then the
+    paths gated: each run's launches as its route says (the fused route: 11
+    + 1 blocks forward a batch, backward a step, one few-query attention
+    each way; dropout: the modular model's 12 dropout attentions a step
+    each way, validation on the fused route), the predictions finite and
+    within SLICE_TOL of the eager float32 model's (int8: twice that). ->
+    (the kernels rows, each path's launches)."""
+    name = "head-widths-paths"
+    code = proc.wait(timeout=900)
+    text = log.read_text()
+    print("".join(line + "\n" for line in text.splitlines() if line.startswith("[head-widths]")),
+          end="", flush=True)
+    if code:
+        raise AssertionError(f"phase 39's worker failed ({code}):\n{text[-4000:]}")
+    got = json.loads(out.read_text())
+    HW_RECORDS.update({k: tuple(v) for k, v in got["records"].items()})
+    runs = got["paths"]
+    steps = HW_EPOCHS * math.ceil(HW_N_TRAIN / 256)
+    vals = HW_EPOCHS * math.ceil(HW_N_VAL / 64)
+    test_b = math.ceil(HW_N_VAL / 64)
+    fails, launches = [], {}
+    for label, r in runs.items():
+        tl = r["train_launches"]
+        if "dropout" in label:
+            want = {"flash_attention_qkv_dropout": 12 * steps,
+                    "flash_attention_qkv_dropout_bwd": 12 * steps,
+                    "fused_block": 11 * vals, "fused_block_cls": vals, FEW_FWD: vals,
+                    "fused_block_bwd": 0, "fused_block_cls_bwd": 0}
+        else:
+            want = {"fused_block": 11 * (steps + vals), "fused_block_cls": steps + vals,
+                    "fused_block_bwd": 11 * steps, "fused_block_cls_bwd": steps,
+                    FEW_FWD: steps + vals, "flash_attention_bwd 8 queries": steps,
+                    "patch_embed": steps + vals}
+        bad = {k: (tl[k], v) for k, v in want.items() if tl[k] != v}
+        eager = np.array(r["eager"], np.float32)
+        phase(name, f"{label}: cli.train {HW_EPOCHS} epochs ({steps} steps, {vals} validation "
+              f"batches) in {r['seconds']:.1f} s with cli.test: {r['trained']}; launches "
+              f"{ {k: v for k, v in tl.items() if v} }; expected {want}")
+        if bad:
+            fails.append(f"{label}: cli.train's launches (got, want) {bad}")
+        for quant, (tested, tlaunch, preds) in r["tests"].items():
+            preds = np.array(preds, np.float32)
+            err = float(np.abs(preds - eager).max()) if preds.shape == eager.shape else math.inf
+            tol = SLICE_TOL * (2 if quant == "int8" else 1)
+            block = "fused_block_int8" if quant == "int8" else "fused_block"
+            twant = {block: 11 * test_b, "fused_block_cls": test_b, FEW_FWD: test_b}
+            tbad = {k: (tlaunch[k], v) for k, v in twant.items() if tlaunch[k] != v}
+            phase(name, f"{label}: cli.test tpu.quant={quant}: {tested}; launches "
+                  f"{ {k: v for k, v in tlaunch.items() if v} }; predictions finite "
+                  f"{bool(np.isfinite(preds).all())}, max |cli.test - eager float32| {err:.6g} "
+                  f"(tol {tol}), std across surfaces {eager.std():.4g}")
+            if tbad:
+                fails.append(f"{label}: cli.test {quant} launches (got, want) {tbad}")
+            if not np.isfinite(preds).all() or err > tol:
+                fails.append(f"{label}: cli.test {quant} predictions off the eager model's")
+        launches[label] = (tl, {q: t[1] for q, t in r["tests"].items()})
+    for f_ in fails:
+        phase(name, "FAILED: " + f_)
+    if fails:
+        raise AssertionError(f"phase 39's paths: {len(fails)} check(s) failed")
+    return got["rows"], launches
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Median host-clock time in ms to enqueue one call of ``fn`` on an
     idle card (synchronised before each call, not inside it)."""
@@ -8262,14 +8975,23 @@ def main() -> None:
             f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
             f"{'-' if t_[2] is None else f'{t_[2]:.4f}'}" for k_, t_ in records_.items()))
 
-    # -- 34. export (the serving artifacts, run by their standalone loaders)
-    start("export")
-    phase_export()
+    # -- 34. export (the serving artifacts, run by their standalone loaders);
+    # phase 39's process (its kernels, then paths 1-3) starts beside it, where
+    # the card is mostly idle: host-side tracing, loader processes, the ETL
+    hw_tmp = tempfile.TemporaryDirectory()
+    hw = hw_paths_start(Path(hw_tmp.name))
+    try:
+        start("export")
+        phase_export()
 
-    # -- 35. preprocess (every count zeroed just before each run)
-    start("preprocess")
-    for name, n in phase_preprocess(fb).items():
-        kernels[name]["launches"] = n
+        # -- 35. preprocess (every count zeroed just before each run)
+        start("preprocess")
+        for name, n in phase_preprocess(fb).items():
+            kernels[name]["launches"] = n
+    except BaseException:
+        stop(hw[0])
+        hw_tmp.cleanup()
+        raise
 
     # -- 36. mesh (every count zeroed just before each run, in each rank); phase
     # 38's process starts beside it
@@ -8286,9 +9008,52 @@ def main() -> None:
         # -- 38. recipe (its counts zeroed just before each run, in its process)
         start("recipe")
         phase_recipe(*recipe)
+        stop(recipe[0])
+
+        # -- 39. head-widths (every multiple of 8 from 8 to 128: the kernels and
+        # the block chains against their plain versions, and paths 1-3
+        # through cli.train and cli.test, in the process started with phase
+        # 34; then each width's launches on the entry points, every count
+        # zeroed just before each run, and the rates)
+        start("head-widths-paths")
+        hw_rows, cli_runs = hw_paths_check(*hw)
+        start("head-widths")
+        from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+
+        hw_data = make_regression_dataset(256, raw_vertices=40962, seed=SEED + 39)
+        for dh, (dim_, heads_, mlp_) in HW_WIDTHS.items():
+            for row_, n_ in hw_path_launches(fb, table, dh, dim_, heads_, mlp_, hw_data).items():
+                if row_ in hw_rows:
+                    hw_rows[row_]["launches"] = n_
+        hw_rates(table)
+        for label_, tag_ in (("path 1 (6 x 32)", "dh32"), ("path 3 (3 x 128)", "dh128")):
+            tl_, tests_ = cli_runs[label_]
+            for row_, key_ in ((f"flash_attention_fwd {tag_}", "fused_block"),
+                               (f"flash_attention_bwd {tag_}", "fused_block_bwd"),
+                               (f"{FEW_FWD} {tag_}", FEW_FWD),
+                               (f"flash_attention_bwd 8 queries {tag_}",
+                                "flash_attention_bwd 8 queries"),
+                               (f"fused_block {tag_}", "fused_block"),
+                               (f"fused_block_bwd {tag_}", "fused_block_bwd"),
+                               (f"fused_block_cls {tag_}", "fused_block_cls"),
+                               (f"fused_block_cls_bwd {tag_}", "fused_block_cls_bwd")):
+                if row_ in hw_rows:
+                    hw_rows[row_]["launches"] = tl_[key_]
+        hw_rows["fused_block_int8 dh128"]["launches"] = cli_runs["path 3 (3 x 128)"][1][
+            "int8"]["fused_block_int8"]
+        for row_ in ("flash_attention_qkv_dropout dh32", "flash_attention_qkv_dropout_bwd dh32"):
+            hw_rows[row_]["launches"] = cli_runs["path 2 (6 x 32, dropout 0.1)"][0][
+                row_.replace(" dh32", "")]
+        kernels.update(hw_rows)
+        phase("records", "the head widths' attention rows, ms / dh 64 at the same inner width "
+              "(- where none) / SDPA / bound, forward then backward (phase 39, this run): "
+              + "; ".join(f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
+                          f"{t_[2]:.4f} / {t_[3]:.4f}" for k_, t_ in HW_RECORDS.items()))
     finally:
         stop(recipe[0])
         recipe_tmp.cleanup()
+        stop(hw[0])
+        hw_tmp.cleanup()
     t_end = time.perf_counter()
     print(f"seconds per phase: {phase_seconds(t_end)}", flush=True)
     print(f"whole run: {t_end - T0:.1f} s (limit 1200 s); {card()}", flush=True)
@@ -8304,5 +9069,7 @@ if __name__ == "__main__":
         mesh_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--recipe"]:  # phase 38's process
         recipe_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--width-paths"]:  # phase 39's paths
+        hw_paths_worker(sys.argv[2])
     else:
         main()

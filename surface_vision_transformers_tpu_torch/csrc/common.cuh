@@ -488,6 +488,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// ... the n128 form (j < 16; the attention at head dims past 64: an MN-major
+// B spans two [16][64] pieces, `lbo` bytes apart in its descriptor) ...
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SVT_WG_R64
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+               : SVT_WG_D64
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // ... and the n192 form (j < 24).
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db,
@@ -660,7 +672,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da, uint64_t db
                : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// -- attention, head dim 64 (forward and backward)
+// -- attention: dh 64, the width of the 128-byte-swizzled tiles (flash_attention.cu)
 
 constexpr int ATT_DH = 64;
 

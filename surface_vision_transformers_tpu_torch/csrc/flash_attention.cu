@@ -1,5 +1,6 @@
-// Hopper (sm_90a) streamed attention, forward and backward, head dim 32 or
-// 64.
+// Hopper (sm_90a) streamed attention, forward and backward, at every head
+// dim that is a multiple of 8 from 8 to 128: dh 32 and 64 here, the others
+// built from these kernels in flash_attention_widths.cu (its header).
 //
 // Replaces the TPU kernel
 // surface_vision_transformers_tpu/ops/pallas/flash_attention.py::flash_attention
@@ -35,8 +36,8 @@
 // 16-byte row pieces; lse = m / 8 + log l when asked for. No CTA depends
 // on another.
 //
-// Forward at head dim 64 for at most 8 queries against more keys (up to
-// 4,096), without dropout (the CLS block's 8 query rows; few_query_fwd),
+// Forward for at most 8 queries against more keys (up to 4,096), without
+// dropout (the CLS block's 8 query rows; few_query_fwd),
 // one launch: flash_fwd_few_kernel, one CTA a (sample, head), the queries
 // on the short side of m64n8 products, every key's scores in shared memory
 // for an exact softmax; in the CLS chain it makes its own Q (below, at the
@@ -62,9 +63,8 @@
 // block sums 80 KB, a 64 x 64 staging tile a warpgroup for P~ and then dS).
 // PERF.md has its times against the streamed kernel's and SDPA's.
 //
-// Backward at head dim 64 for at most 8 queries against more keys, without
-// dropout (the CLS block's 8 query rows; few_query_bwd), one launch:
-// flash_bwd_few_kernel, one CTA a (sample, head), K and V streamed by
+// Backward for at most 8 queries against more keys, without dropout (the
+// CLS block's 8 query rows; few_query_bwd), one launch: flash_bwd_few_kernel, one CTA a (sample, head), K and V streamed by
 // cp.async in 64-key tiles, every product with the queries on its short
 // side (m64n8 wgmma for S^T, dP^T and dQ^T; dV and dK from P^T and dS^T in
 // registers), dQ summed in registers over the key tiles in order: no
@@ -228,7 +228,57 @@ struct SoftmaxScale<32> {
   static constexpr float slog2 = (float)(0.17677669529663688 * 1.4426950408889634);
 };
 
+// The softmax scale of a kernel built for head dim DH (32 or 64), or, where
+// DH is 0 (the other widths: flash_attention_widths.cu), of the launch's own
+// dh, given at run time as w (the host's 1 / sqrt(dh) and its product with
+// log2(e), each rounded once, as SoftmaxScale's).
+template <int DH>
+__device__ __forceinline__ float att_scale(const Width& w) {
+  if constexpr (DH == 0) return w.scale;
+  else return SoftmaxScale<DH>::scale;
+}
+template <int DH>
+__device__ __forceinline__ float att_slog2(const Width& w) {
+  if constexpr (DH == 0) return w.slog2;
+  else return SoftmaxScale<DH>::slog2;
+}
+// The head's columns: DH, or the launch's dh.
+template <int DH>
+__device__ __forceinline__ int att_dh(const Width& w) {
+  if constexpr (DH == 0) return w.dh;
+  else return DH;
+}
+
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Tiles of TW columns (a head's dh columns in the smallest that holds them,
+// zeros past dh): [rows][32] in the 64-byte swizzle (TW 32), [rows][64] in
+// the 128-byte swizzle (TW 64), or two such [rows][64] tiles side by side,
+// columns 0-63 then 64-127 (TW 128: the 128-byte swizzle spans 64 columns,
+// and so does a TMA box in it).
+template <int TW>
+__device__ __forceinline__ int tile_at(int r, int c, int rows) {
+  if constexpr (TW == 32) return sw64(r, c);
+  else if constexpr (TW == 64) return sw128(r, c);
+  else return (c >> 6) * rows * 64 + sw128(r, c & 63);
+}
+// The K-major descriptor of k16 step ks (columns 16 ks ..) of a tile of
+// `rows` rows at p.
+template <int TW>
+__device__ __forceinline__ uint64_t tile_kdesc(const bf16* p, int ks, int rows) {
+  if constexpr (TW == 32) return sw64_desc(p + ks * 16);
+  else if constexpr (TW == 64) return sw128_desc(p + ks * 16);
+  else return sw128_desc(p + (ks >> 2) * rows * 64 + (ks & 3) * 16);
+}
+// The MN-major descriptor of k16 step kk (rows 16 kk ..) of a tile of `rows`
+// rows at p, its TW columns the product's N (TW 128: the n128 form, the
+// second 64 columns `rows` x 128 bytes on).
+template <int TW>
+__device__ __forceinline__ uint64_t tile_ndesc(const bf16* p, int kk, int rows) {
+  if constexpr (TW == 32) return sw64_desc(p + kk * 16 * 32);
+  else if constexpr (TW == 64) return sw128_desc(p + kk * 16 * 64);
+  else return sw128_desc(p + kk * 16 * 64, rows * 128);
+}
 
 // 2^x on the special-function unit; 2^-inf = 0.
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -250,8 +300,16 @@ __device__ __forceinline__ float quad_sum(float v) {
 // One tile of a 4-D tensor map (columns; rows and heads in the map's order;
 // samples) into shared memory, counted on `bar`; the map's box sets its rows.
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& m, uint64_t* bar, int row,
-                                         int h, int b, bool heads_first) {
-  tma_load_4d(dst, m, bar, 0, heads_first ? h : row, heads_first ? row : h, b);
+                                         int h, int b, bool heads_first, int col = 0) {
+  tma_load_4d(dst, m, bar, col, heads_first ? h : row, heads_first ? row : h, b);
+}
+// A tile of TW columns and `rows` rows: one box, or at TW 128 two boxes of
+// 64 columns into its two halves.
+template <int TW>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap& m, uint64_t* bar, int rows,
+                                         int row, int h, int b, bool heads_first) {
+  tma_tile(dst, m, bar, row, h, b, heads_first);
+  if constexpr (TW == 128) tma_tile(dst + rows * 64, m, bar, row, h, b, heads_first, 64);
 }
 
 // -- forward -----------------------------------------------------------------
@@ -269,10 +327,11 @@ constexpr int FWD_WG_BAR = 1;     // named barriers 1 .. NWG: one warpgroup's ow
 // CTAs per SM and the consumers' registers of a (warpgroups, key tile)
 // variant: the producer gives back all but 24 of its registers and the
 // consumers take the rest of the CTA's share of the SM's 65536.
-template <int NWG, int BK>
+template <int NWG, int BK, int TW = 64>
 struct FwdCfg {
   static constexpr int threads = (NWG + 1) * 128;
-  static constexpr int ctas = NWG == 1 ? (BK == 64 ? 3 : 2) : 1;
+  // TW 128 (one tiling: NWG 1, BK 64): 80 KB of shared memory, two CTAs
+  static constexpr int ctas = TW == 128 ? 2 : NWG == 1 ? (BK == 64 ? 3 : 2) : 1;
   static constexpr int regs = 65536 / (ctas * threads) / 8 * 8;  // at launch
   static constexpr int consumer_regs =
       (regs * threads - FWD_PRODUCER_REGS * 128) / (NWG * 128) / 8 * 8;
@@ -298,12 +357,13 @@ __device__ unsigned long long fwd_profile[8];
   } while (0)
 #endif
 
-// Tiles of DH columns: [rows][64] in the 128-byte swizzle at dh 64, [rows][32]
-// in the 64-byte swizzle at dh 32 (native: no zero columns).
-template <int NWG, int BK, int DH>
+// Tiles of TW columns (tile_at): [rows][64] in the 128-byte swizzle at dh 64,
+// [rows][32] in the 64-byte swizzle at dh 32 (native: no zero columns); a
+// head of another dh in the smallest that holds it, zeros past dh.
+template <int NWG, int BK, int TW>
 struct FwdSmem {
-  bf16 q[NWG][64 * DH];  // a warpgroup's Q tile; its O on the way out
-  bf16 k[FWD_STAGES][BK * DH], v[FWD_STAGES][BK * DH];
+  bf16 q[NWG][64 * TW];  // a warpgroup's Q tile; its O on the way out
+  bf16 k[FWD_STAGES][BK * TW], v[FWD_STAGES][BK * TW];
   uint64_t q_full, k_full[FWD_STAGES], v_full[FWD_STAGES];
   uint64_t k_empty[FWD_STAGES], v_empty[FWD_STAGES];
 };
@@ -317,7 +377,9 @@ struct FwdSmem {
 template <int SA, bool DROP, bool MASK, int DH>
 __device__ __forceinline__ void softmax_tile(float (&s)[SA], float (&m)[2], float (&l)[2],
                                              float (&a)[2], int kvalid, int key0, int row,
-                                             uint32_t bh, const Dropout& dr, int t) {
+                                             uint32_t bh, const Dropout& dr, int t,
+                                             const Width& wd) {
+  const float slog2 = att_slog2<DH>(wd);
   if constexpr (MASK) {
 #pragma unroll
     for (int j = 0; j < SA / 4; ++j)
@@ -343,15 +405,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[SA], float (&m)[2], floa
   for (int r = 0; r < 2; ++r) {  // every tile holds a key < kend: the new max is finite
     const float mn =
         fmaxf(m[r], quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]))));
-    a[r] = exp2_approx((m[r] - mn) * SoftmaxScale<DH>::slog2);  // 0 at the first tile
+    a[r] = exp2_approx((m[r] - mn) * slog2);  // 0 at the first tile
     m[r] = mn;
-    ms[r] = mn * SoftmaxScale<DH>::slog2;
+    ms[r] = mn * slog2;
   }
 #pragma unroll
   for (int j = 0; j < SA / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], SoftmaxScale<DH>::slog2, -ms[e >> 1]));
+      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], slog2, -ms[e >> 1]));
       sum[e >> 1][j & 3] += s[4 * j + e];
     }
 #pragma unroll
@@ -388,16 +450,20 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[SA / 8][4], const float (&s
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-template <int NWG, int BK, bool DROP, int DH>
-__global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::ctas)
+// DH: the head dim the kernel is built for (32, 64), or 0: the launch's wd.dh
+// (a multiple of 8 up to TW, flash_attention_widths.cu), in tiles of TW
+// columns zero past dh; its products skip the k16 steps wholly past dh, the
+// softmax takes wd's scale and O's stores stop at dh.
+template <int NWG, int BK, bool DROP, int DH, int TW = DH>
+__global__ void __launch_bounds__(FwdCfg<NWG, BK, TW>::threads, FwdCfg<NWG, BK, TW>::ctas)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, bool hf_q, bool hf_k, bool hf_v,
                      const Strided o, float* __restrict__ lse, int nq, int nk, int valid_len,
-                     const Dropout dr) {
+                     const Dropout dr, const Width wd) {
   constexpr int SA = BK / 2;  // score accumulators per thread
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  FwdSmem<NWG, BK, DH>& sm = *reinterpret_cast<FwdSmem<NWG, BK, DH>*>(
+  FwdSmem<NWG, BK, TW>& sm = *reinterpret_cast<FwdSmem<NWG, BK, TW>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int q0 = blockIdx.x * 64 * NWG;
@@ -419,35 +485,36 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   if (wg == 0) {  // the producer
     set_max_regs_dec<FWD_PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      mbar_expect(&sm.q_full, active * 64 * DH * 2);
+      mbar_expect(&sm.q_full, active * 64 * TW * 2);
       for (int w = 0; w < active; ++w)
-        tma_tile(sm.q[w], tm_q, &sm.q_full, q0 + 64 * w, h, b, hf_q);
+        tma_rows<TW>(sm.q[w], tm_q, &sm.q_full, 64, q0 + 64 * w, h, b, hf_q);
       for (int j = 0; j < ntiles; ++j) {
         const int st = j % FWD_STAGES, use = j / FWD_STAGES;
         if (use > 0) mbar_wait(&sm.k_empty[st], (use - 1) & 1);
-        mbar_expect(&sm.k_full[st], BK * DH * 2);
-        tma_tile(sm.k[st], tm_k, &sm.k_full[st], j * BK, h, b, hf_k);
+        mbar_expect(&sm.k_full[st], BK * TW * 2);
+        tma_rows<TW>(sm.k[st], tm_k, &sm.k_full[st], BK, j * BK, h, b, hf_k);
         if (use > 0) mbar_wait(&sm.v_empty[st], (use - 1) & 1);
-        mbar_expect(&sm.v_full[st], BK * DH * 2);
-        tma_tile(sm.v[st], tm_v, &sm.v_full[st], j * BK, h, b, hf_v);
+        mbar_expect(&sm.v_full[st], BK * TW * 2);
+        tma_rows<TW>(sm.v[st], tm_v, &sm.v_full[st], BK, j * BK, h, b, hf_v);
       }
     }
     return;
   }
 
   // a consumer warpgroup: query rows q0 + 64 w ..
-  set_max_regs_inc<FwdCfg<NWG, BK>::consumer_regs>();
+  set_max_regs_inc<FwdCfg<NWG, BK, TW>::consumer_regs>();
   const int w = wg - 1;
   if (w >= active) return;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + 64 * w, row = row0 + 16 * warp + g;  // this thread's rows: row, row + 8
   const uint32_t bh = (uint32_t)(b * heads + h);
+  const int dh = att_dh<DH>(wd), ksteps = (dh + 15) / 16;  // S's k16 steps holding a column
 
-  float acc[DH / 2], s[SA], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
+  float acc[TW / 2], s[SA], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
   uint32_t p[SA / 8][4];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < TW / 2; ++i) acc[i] = 0.f;
   const bf16* sq = sm.q[w];
 
   auto issue_s = [&](int j) {  // S = Q K_j^T
@@ -455,25 +522,19 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
     mbar_wait(&sm.k_full[st], (j / FWD_STAGES) & 1);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-      if constexpr (DH == 32)
-        wgmma_ss<0, 0>(s, sw64_desc(sq + ks * 16), sw64_desc(sm.k[st] + ks * 16), ks);
-      else
-        wgmma_ss<0, 0>(s, sw128_desc(sq + ks * 16), sw128_desc(sm.k[st] + ks * 16), ks);
-    }
+    for (int ks = 0; ks < TW / 16; ++ks)
+      if (ks < ksteps)
+        wgmma_ss<0, 0>(s, tile_kdesc<TW>(sq, ks, 64), tile_kdesc<TW>(sm.k[st], ks, BK), ks);
     wg_commit();
   };
-  auto issue_pv = [&](int j, int ksteps) {  // O += P V_j, V read MN-major
+  auto issue_pv = [&](int j, int kv_steps) {  // O += P V_j, V read MN-major
     const int st = j % FWD_STAGES;
     mbar_wait(&sm.v_full[st], (j / FWD_STAGES) & 1);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      if (kk >= ksteps) continue;
-      if constexpr (DH == 32)
-        wgmma_rs<1>(acc, p[kk], sw64_desc(sm.v[st] + kk * 16 * DH), 1);
-      else
-        wgmma_rs<1>(acc, p[kk], sw128_desc(sm.v[st] + kk * 16 * DH), 1);
+      if (kk >= kv_steps) continue;
+      wgmma_rs<1>(acc, p[kk], tile_ndesc<TW>(sm.v[st], kk, BK), 1);
     }
     wg_commit();
   };
@@ -488,9 +549,9 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   release(&sm.k_empty[0]);
   auto softmax = [&](int j) {  // tile j's scores in s -> P
     if (kend - j * BK < BK)
-      softmax_tile<SA, DROP, true, DH>(s, m, l, a, kend - j * BK, j * BK, row, bh, dr, t);
+      softmax_tile<SA, DROP, true, DH>(s, m, l, a, kend - j * BK, j * BK, row, bh, dr, t, wd);
     else
-      softmax_tile<SA, DROP, false, DH>(s, m, l, a, BK, j * BK, row, bh, dr, t);
+      softmax_tile<SA, DROP, false, DH>(s, m, l, a, BK, j * BK, row, bh, dr, t, wd);
   };
   softmax(0);
   pack_p<SA>(p, s);
@@ -519,7 +580,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
     SVT_FWD_MARK(5);
     release(&sm.v_empty[j % FWD_STAGES]);
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] *= a[(i >> 1) & 1];
+    for (int i = 0; i < TW / 2; ++i) acc[i] *= a[(i >> 1) & 1];
     pack_p<SA>(p, s);
     SVT_FWD_MARK(6);
   }
@@ -534,7 +595,7 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   wg_wait<0>();
   wg_hold(acc);
 
-  // O = acc / l (x 1 / (1 - rate)), lse = m / sqrt(DH) + log l
+  // O = acc / l (x 1 / (1 - rate)), lse = m / sqrt(dh) + log l
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -543,27 +604,26 @@ __global__ void __launch_bounds__(FwdCfg<NWG, BK>::threads, FwdCfg<NWG, BK>::cta
   }
   if (lse != nullptr && t == 0) {
     float* lrow = lse + (long long)bh * nq;
-    if (row < nq) lrow[row] = m[0] * SoftmaxScale<DH>::scale + logf(l[0]);
-    if (row + 8 < nq) lrow[row + 8] = m[1] * SoftmaxScale<DH>::scale + logf(l[1]);
+    if (row < nq) lrow[row] = m[0] * att_scale<DH>(wd) + logf(l[0]);
+    if (row + 8 < nq) lrow[row + 8] = m[1] * att_scale<DH>(wd) + logf(l[1]);
   }
-  // O's DH columns through this warpgroup's Q tile (its last reader, the
-  // last S, is done), then out in 16-byte row pieces
+  // O's TW columns through this warpgroup's Q tile (its last reader, the
+  // last S, is done), then its dh columns out in 16-byte row pieces
   bf16* so = sm.q[w];
-  auto at = [](int r, int c) { return DH == 32 ? sw64(r, c) : sw128(r, c); };
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < TW / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(so + at(16 * warp + g + 8 * r, 8 * j + 2 * t)) =
+      *reinterpret_cast<uint32_t*>(so + tile_at<TW>(16 * warp + g + 8 * r, 8 * j + 2 * t, 64)) =
           pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
   bar_sync(FWD_WG_BAR + w, 128);
-  constexpr int PIECES = DH / 8;  // of a row
+  constexpr int PIECES = TW / 8;  // of a row
 #pragma unroll
   for (int i = 0; i < 64 * PIECES / 128; ++i) {
     const int r = (128 / PIECES) * i + tid / PIECES, c = (tid % PIECES) * 8;
-    if (row0 + r < nq)
+    if (row0 + r < nq && c < dh)
       *reinterpret_cast<uint4*>(o.row(b, h, row0 + r) + c) =
-          *reinterpret_cast<const uint4*>(so + at(r, c));
+          *reinterpret_cast<const uint4*>(so + tile_at<TW>(r, c, 64));
   }
 }
 
@@ -578,7 +638,6 @@ constexpr int BWD_BK = 64, BWD_BQ = 64;    // keys per CTA, queries per step
 constexpr int BWD_STAGES = 2;              // Q / dO tiles: this step's and the next one's
 constexpr int BWD_SLOTS = 2;               // dQ shares between the warpgroup and the writer
 constexpr int BWD_THREADS = 128 + 32;      // one compute warpgroup + the writer warp
-constexpr int BWD_TILE = BWD_BQ * ATT_DH;  // floats of a dQ share's slot (dh 64)
 constexpr int BWD_CHAINS = 4;              // ordered sums per query tile (see add_place)
 
 // Floats of one query tile's dQ share, and of a sum in the workspace, at DH.
@@ -587,13 +646,16 @@ __host__ __device__ constexpr int bwd_tile() {
   return BWD_BQ * DH;
 }
 
-// Shared memory of the main pass: 64-row bf16 tiles of 64 columns in the
-// 128-byte swizzle, at either dh (at dh 32 columns 32-63 hold zeros).
+// Shared memory of the main pass: 64-row bf16 tiles of TW columns
+// (tile_at): 64 in the 128-byte swizzle at dh <= 64 (at dh 32 and the other
+// widths below 64 the columns past dh hold zeros), two such halves at dh
+// 72-128 (TW 128: 176 KB, one CTA an SM).
+template <int TW>
 struct BwdSmem {
-  bf16 k[BWD_BK * ATT_DH], v[BWD_BK * ATT_DH];  // key rows in the permuted order kperm()
-  bf16 q[BWD_STAGES][BWD_BQ * ATT_DH], d_o[BWD_STAGES][BWD_BQ * ATT_DH];  // ring filled by TMA
+  bf16 k[BWD_BK * TW], v[BWD_BK * TW];  // key rows in the permuted order kperm()
+  bf16 q[BWD_STAGES][BWD_BQ * TW], d_o[BWD_STAGES][BWD_BQ * TW];  // ring filled by TMA
   bf16 p[BWD_BQ * BWD_BK], ds[BWD_BQ * BWD_BK];  // P~ and dS of the step, [query][key column]
-  float4 dq[BWD_SLOTS][BWD_TILE / 4];           // dQ shares, in the accumulator's order (below)
+  float4 dq[BWD_SLOTS][BWD_BQ * TW / 4];        // dQ shares, in the accumulator's order (below)
   uint64_t loaded[BWD_STAGES];                  // a Q / dO stage has landed
   uint64_t full[BWD_SLOTS], empty[BWD_SLOTS];   // a share written / read by the copy engine
 };
@@ -602,8 +664,8 @@ struct BwdSmem {
 // holds them: float4 m of thread i (d[4m .. 4m + 3]: rows 16 (i / 32) + (i
 // % 32) / 4 and 8 below, columns 8m + 2 (i % 4) and the next) at m * 128 +
 // i, so the threads' stores are conflict-free and one bulk copy moves a
-// tile; flash_bwd_dq_kernel undoes it. At dh 32 the share is the first half
-// (m < 4: columns 0-31).
+// tile; flash_bwd_dq_kernel undoes it. At dh < TW the share is its first
+// dh / 8 float4s a thread (m < dh / 8: columns 0 .. dh - 1).
 
 // Key column c of a tile holds key kperm(c): the columns a thread holds
 // (2t, 2t + 1, 8 + 2t, 9 + 2t of each 16) are then the four consecutive keys
@@ -612,16 +674,17 @@ __device__ __forceinline__ int kperm(int c) {
   return (c & 48) | ((c & 6) << 1) | ((c >> 2) & 2) | (c & 1);
 }
 
-// Key rows k0 .. k0 + 63 of (b, h) into a swizzled tile, row r holding key
-// k0 + kperm(r); zeros past n and past column DH.
-template <int DH>
+// Key rows k0 .. k0 + 63 of (b, h) into a swizzled tile of TW columns, row r
+// holding key k0 + kperm(r); zeros past n and past column dh.
+template <int TW>
 __device__ __forceinline__ void load_key_tile(bf16* dst, const Strided& t, int b, int h, int k0,
-                                              int n, int tid) {
-  for (int i = tid; i < 64 * 8; i += 128) {
-    const int r = i >> 3, ch = i & 7;
+                                              int n, int tid, int dh) {
+  constexpr int CH = TW / 8;  // 16-byte pieces of a row
+  for (int i = tid; i < 64 * CH; i += 128) {
+    const int r = i / CH, ch = i % CH;
     const int src = k0 + kperm(r);
-    const bool ok = src < n && ch < DH / 8;
-    cp_async16(dst + sw128(r, ch * 8), ok ? t.row(b, h, src) + ch * 8 : t.p, ok);
+    const bool ok = src < n && ch < dh / 8;
+    cp_async16(dst + tile_at<TW>(r, ch * 8, 64), ok ? t.row(b, h, src) + ch * 8 : t.p, ok);
   }
 }
 
@@ -629,13 +692,14 @@ __device__ __forceinline__ void load_key_tile(bf16* dst, const Strided& t, int b
 __device__ __forceinline__ void wg_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
 
 // delta = rowsum(dO . O) over (B, heads, nq) rows, DH / 8 threads a row, one
-// 16-byte load of each operand per thread; zeroes the nsem turn counters.
+// 16-byte load of each operand per thread (DH 0: eight threads a row, the
+// row's dh / 8 pieces in turn); zeroes the nsem turn counters.
 template <int DH>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta_kernel(const Strided o, const Strided d_o, float* __restrict__ delta,
                            int* __restrict__ sems, long long nsem, int heads, int nq,
-                           long long rows) {
-  constexpr int PARTS = DH / 8;  // threads of a row
+                           long long rows, int dh) {
+  constexpr int PARTS = DH ? DH / 8 : 8;  // threads of a row
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid < nsem) sems[gid] = 0;
   const long long r = gid / PARTS;
@@ -643,16 +707,23 @@ __global__ void __launch_bounds__(256)
   float s = 0.f;
   if (r < rows) {
     const int row = (int)(r % nq), bh = (int)(r / nq);
-    const uint4 a = *reinterpret_cast<const uint4*>(o.row(bh / heads, bh % heads, row) + part * 8);
-    const uint4 c =
-        *reinterpret_cast<const uint4*>(d_o.row(bh / heads, bh % heads, row) + part * 8);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+    auto piece = [&](int pc) {
+      const uint4 a =
+          *reinterpret_cast<const uint4*>(o.row(bh / heads, bh % heads, row) + pc * 8);
+      const uint4 c =
+          *reinterpret_cast<const uint4*>(d_o.row(bh / heads, bh % heads, row) + pc * 8);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(c2[i]);
-      s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
-    }
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(c2[i]);
+        s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+      }
+    };
+    if constexpr (DH != 0)
+      piece(part);
+    else
+      for (int pc = part; pc < dh / 8; pc += PARTS) piece(pc);
   }
 #pragma unroll
   for (int x = 1; x < PARTS; x *= 2) s += __shfl_xor_sync(0xffffffffu, s, x);
@@ -705,13 +776,12 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 // The writer (one thread): the share of each step into its tile's sum once
 // the add before it in that sum is done, with one bulk copy (the first add)
 // or bulk reduce-add, then the turn passes on. sums: (BWD_CHAINS, B *
-// heads, nqt_all) tiles of bwd_tile<DH>() floats; sems: (BWD_CHAINS, B *
+// heads, nqt_all) tiles of `tile` floats (64 dh); sems: (BWD_CHAINS, B *
 // heads, nqt_all) counters.
-template <int DH>
-__device__ __forceinline__ void dq_writer(BwdSmem& sm, float* sums, int* sems,
-                                          long long chain_tiles, int kb, int nqt,
-                                          bool rotate) {
-  constexpr int TILE = bwd_tile<DH>();
+template <int TW>
+__device__ __forceinline__ void dq_writer(BwdSmem<TW>& sm, float* sums, int* sems,
+                                          long long chain_tiles, int kb, int nqt, bool rotate,
+                                          int tile_floats) {
   for (int step = 0; step < nqt; ++step) {
     const int slot = step % BWD_SLOTS, tile = step_tile(kb, step, nqt, rotate);
     const int2 place = add_place(kb, tile, rotate);
@@ -722,17 +792,17 @@ __device__ __forceinline__ void dq_writer(BwdSmem& sm, float* sums, int* sems,
       asm volatile("fence.proxy.async.global;\n" ::: "memory");
     }
     mbar_wait(&sm.full[slot], (step / BWD_SLOTS) & 1);
-    float* dst = sums + (chain * chain_tiles + tile) * TILE;
+    float* dst = sums + (chain * chain_tiles + tile) * tile_floats;
     const uint32_t src = smem_u32(sm.dq[slot]);
     if (rank == 0)
       asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-                   "r"(src), "r"(TILE * 4)
+                   "r"(src), "r"(tile_floats * 4)
                    : "memory");
     else
       asm volatile(
           "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
               dst),
-          "r"(src), "r"(TILE * 4)
+          "r"(src), "r"(tile_floats * 4)
           : "memory");
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -748,17 +818,20 @@ __device__ __forceinline__ void dq_writer(BwdSmem& sm, float* sums, int* sems,
 // keep bits, P~ and dS in registers; P~ and dS to shared memory; dV += P~^T
 // dO, dK += dS^T Q (wgmma, P~ and dS read MN-major) and the tile's dQ share
 // dS K (wgmma, dS from registers), which goes to shared memory for the
-// writer warp.
-template <bool DROP, int DH>
-__global__ void __launch_bounds__(BWD_THREADS, 2)
+// writer warp. DH 0: the launch's wd.dh (a multiple of 8 up to TW), S and
+// dP over its k16 steps, wd's scale, the stores and the share to dh
+// columns; at TW 128 dV and dK are n128 products (64 accumulators each) and
+// the dQ share two n64 ones into S's and dP's registers.
+template <bool DROP, int DH, int TW = 64>
+__global__ void __launch_bounds__(BWD_THREADS, TW == 128 ? 1 : 2)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_do, bool hf_q, bool hf_do,
                      const Strided k, const Strided v, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ sums,
                      int* __restrict__ sems, const Strided dk, const Strided dv, int nq, int nk,
-                     int valid_len, bool rotate, const Dropout dr) {
+                     int valid_len, bool rotate, const Dropout dr, const Width wd) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(
+  BwdSmem<TW>& sm = *reinterpret_cast<BwdSmem<TW>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -770,6 +843,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
   const int kb = blockIdx.x, k0 = kb * BWD_BK;
   const int steps = k0 < kend ? nqt : 0;  // a block past kend holds no valid key
   const int r0 = warp * 16 + g, r1 = r0 + 8;  // this thread's rows of a 64-row accumulator
+  const int dh = att_dh<DH>(wd), dsteps = (dh + 15) / 16;  // S's and dP's k16 steps
+  const float slog2 = att_slog2<DH>(wd), scale = att_scale<DH>(wd);
 
   if (tid == 0) {
     for (int i = 0; i < BWD_SLOTS; ++i) {
@@ -782,27 +857,29 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
   if (warp == 4) {  // the writer
     const long long chain_tiles = (long long)gridDim.z * heads * nqt_all;
     if (lane == 0 && steps > 0)
-      dq_writer<DH>(sm, sums + (long long)bh * nqt_all * bwd_tile<DH>(),
-                    sems + (long long)bh * nqt_all, chain_tiles, kb, nqt, rotate);
+      dq_writer<TW>(sm, sums + (long long)bh * nqt_all * BWD_BQ * dh,
+                    sems + (long long)bh * nqt_all, chain_tiles, kb, nqt, rotate, BWD_BQ * dh);
     return;
   }
 
   // Q and dO rows of step s (one thread issues)
   auto load_step = [&](int s) {
     const int st = s % BWD_STAGES, q0 = step_tile(kb, s, nqt, rotate) * BWD_BQ;
-    mbar_expect(&sm.loaded[st], 2 * BWD_BQ * ATT_DH * 2);  // whole boxes, zero fill included
-    tma_tile(sm.q[st], tm_q, &sm.loaded[st], q0, h, b, hf_q);
-    tma_tile(sm.d_o[st], tm_do, &sm.loaded[st], q0, h, b, hf_do);
+    mbar_expect(&sm.loaded[st], 2 * BWD_BQ * TW * 2);  // whole boxes, zero fill included
+    tma_rows<TW>(sm.q[st], tm_q, &sm.loaded[st], BWD_BQ, q0, h, b, hf_q);
+    tma_rows<TW>(sm.d_o[st], tm_do, &sm.loaded[st], BWD_BQ, q0, h, b, hf_do);
   };
   if (tid == 0 && steps > 0) load_step(0);  // each step then fetches the next one's
 
-  float s[32], dp[32], dva[32], dka[32];
+  float s[32], dp[32], dva[TW / 2], dka[TW / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = dp[i] = dva[i] = dka[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TW / 2; ++i) dva[i] = dka[i] = 0.f;
   if (steps > 0) {
     const int kvalid = min(BWD_BK, kend - k0);
-    load_key_tile<DH>(sm.k, k, b, h, k0, nk, tid);
-    load_key_tile<DH>(sm.v, v, b, h, k0, nk, tid);
+    load_key_tile<TW>(sm.k, k, b, h, k0, nk, tid, dh);
+    load_key_tile<TW>(sm.v, v, b, h, k0, nk, tid, dh);
     cp_async_commit();
     cp_async_wait<0>();
     fence_async_smem();
@@ -822,11 +899,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
       // S = Q K^T, dP = dO V^T
       wg_fence();
 #pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks)
-        wgmma_ss<0, 0>(s, sw128_desc(sm.q[st] + ks * 16), sw128_desc(sm.k + ks * 16), ks);
+      for (int ks = 0; ks < TW / 16; ++ks)
+        if (ks < dsteps)
+          wgmma_ss<0, 0>(s, tile_kdesc<TW>(sm.q[st], ks, BWD_BQ), tile_kdesc<TW>(sm.k, ks, BWD_BK),
+                         ks);
 #pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks)
-        wgmma_ss<0, 0>(dp, sw128_desc(sm.d_o[st] + ks * 16), sw128_desc(sm.v + ks * 16), ks);
+      for (int ks = 0; ks < TW / 16; ++ks)
+        if (ks < dsteps)
+          wgmma_ss<0, 0>(dp, tile_kdesc<TW>(sm.d_o[st], ks, BWD_BQ),
+                         tile_kdesc<TW>(sm.v, ks, BWD_BK), ks);
       wg_commit();
       wg_wait<0>();
       wg_hold(s);
@@ -872,15 +953,14 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
           const float ml = rr ? ml1 : ml0, dl = rr ? dl1 : dl0;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float pr = exp2_approx(fmaf(x[rr][e], SoftmaxScale<DH>::slog2, -ml));
+            const float pr = exp2_approx(fmaf(x[rr][e], slog2, -ml));
             if constexpr (DROP) {
               const bool kept = (keep[rr] >> e) & 1;
               pt[rr][e] = kept ? pr * dr.inv_keep : 0.f;
-              dsv[rr][e] =
-                  pr * ((kept ? y[rr][e] * dr.inv_keep : 0.f) - dl) * SoftmaxScale<DH>::scale;
+              dsv[rr][e] = pr * ((kept ? y[rr][e] * dr.inv_keep : 0.f) - dl) * scale;
             } else {
               pt[rr][e] = pr;
-              dsv[rr][e] = pr * (y[rr][e] - dl) * SoftmaxScale<DH>::scale;
+              dsv[rr][e] = pr * (y[rr][e] - dl) * scale;
             }
           }
         }
@@ -903,34 +983,41 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
       wg_sync();  // P~ and dS are in shared memory
 
       // dV += P~^T dO, dK += dS^T Q over the valid queries; dQ share = dS K
+      // (TW 128: its columns 0-63 into s, 64-127 into dp)
       const int qsteps = min(BWD_BQ, qend - q0 + 15) / 16, ksteps = (kvalid + 15) / 16;
       wg_fence();
 #pragma unroll
       for (int kq = 0; kq < BWD_BQ / 16; ++kq) {
         if (kq < qsteps) {
           wgmma_ss<1, 1>(dva, sw128_desc(sm.p + kq * 16 * BWD_BK),
-                         sw128_desc(sm.d_o[st] + kq * 16 * ATT_DH), 1);
+                         tile_ndesc<TW>(sm.d_o[st], kq, BWD_BQ), 1);
           wgmma_ss<1, 1>(dka, sw128_desc(sm.ds + kq * 16 * BWD_BK),
-                         sw128_desc(sm.q[st] + kq * 16 * ATT_DH), 1);
+                         tile_ndesc<TW>(sm.q[st], kq, BWD_BQ), 1);
         }
       }
 #pragma unroll
       for (int G = 0; G < 4; ++G)
-        if (G < ksteps)  // S is spent: it takes the dQ share
-          wgmma_rs<1>(s, dsf[G], sw128_desc(sm.k + G * 16 * ATT_DH), G);
+        if (G < ksteps) {  // S is spent: it takes the dQ share
+          wgmma_rs<1>(s, dsf[G], sw128_desc(sm.k + G * 16 * 64), G);
+          if constexpr (TW == 128)
+            wgmma_rs<1>(dp, dsf[G], sw128_desc(sm.k + BWD_BK * 64 + G * 16 * 64), G);
+        }
       wg_commit();
       wg_wait<0>();
       wg_hold(dva);
       wg_hold(dka);
       wg_hold(s);
+      if constexpr (TW == 128) wg_hold(dp);
 
       // the share to a free slot for the writer
       const int slot = step % BWD_SLOTS;
       if (step >= BWD_SLOTS) mbar_wait(&sm.empty[slot], (step / BWD_SLOTS - 1) & 1);
 #pragma unroll
-      for (int m = 0; m < DH / 8; ++m)
-        sm.dq[slot][m * 128 + tid] =
-            make_float4(s[4 * m], s[4 * m + 1], s[4 * m + 2], s[4 * m + 3]);
+      for (int m = 0; m < TW / 8; ++m)
+        if (8 * m < dh) {
+          const float* d = m < 8 ? s + 4 * m : dp + 4 * (m - 8);
+          sm.dq[slot][m * 128 + tid] = make_float4(d[0], d[1], d[2], d[3]);
+        }
       fence_async_smem();
       mbar_arrive(&sm.full[slot]);
     }
@@ -944,8 +1031,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
     bf16* dkr = dk.row(b, h, key);
     bf16* dvr = dv.row(b, h, key);
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < TW / 8; ++j) {
       const int d = 8 * j + 2 * t;
+      if (8 * j >= dh) continue;
       *reinterpret_cast<__nv_bfloat162*>(dkr + d) =
           __floats2bfloat162_rn(dka[4 * j + 2 * rr], dka[4 * j + 2 * rr + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dvr + d) =
@@ -1286,12 +1374,12 @@ cudaError_t launch_resident(const Strided& q, const Strided& k, const Strided& v
   return cudaGetLastError();
 }
 
-// -- backward, few queries (nq <= 8 < nk, head dim 64, no dropout) ------------
+// -- backward, few queries (nq <= 8 < nk, no dropout) ---------------------------
 //
 // The CLS block's 8 query rows against all N keys (few_query_bwd). One CTA,
 // one warpgroup, per (head, sample): its Q and dO rows land once, zero-padded
 // to 16 rows; it forms delta = rowsum(dO . O) and lse log2(e) for its rows
-// itself; K and V stream in 64-key tiles through a ring of FEW_STAGES by
+// itself; K and V stream in 64-key tiles through a ring (FewCfg) by
 // cp.async. The queries are the short side of every product:
 //   S^T = K Q^T, dP^T = V dO^T    m64n8 (keys M, queries N)
 //   P^T, dS^T                      in the accumulators' registers
@@ -1313,25 +1401,37 @@ cudaError_t launch_resident(const Strided& q, const Strided& k, const Strided& v
 // are K and V read and dK and dV written once.
 
 constexpr int FEW_MAX_Q = 8;   // query rows: the n of the m64n8 products
-// The K / V ring's depth and CTAs an SM (~70 KB of shared memory each); 3
-// stages and 4 CTAs read within 3% of these at the CLS shapes, 2 and 5 up
-// to 7% slower (scripts/few_bwd_variants.py).
-constexpr int FEW_STAGES = 4;
-constexpr int FEW_CTAS = 3;
+// The K / V ring's depth and CTAs an SM: at TW 64 (dh <= 64, ~70 KB of
+// shared memory each) 4 and 3, where 3 stages and 4 CTAs read within 3% at
+// the CLS shapes, 2 and 5 up to 7% slower (scripts/few_bwd_variants.py); at
+// TW 128 (dh 72-128, 64-key tiles of 32 KB, dV and dK 64 accumulators each)
+// 3 and 2.
+template <int TW>
+struct FewCfg {
+  static constexpr int stages = TW == 128 ? 3 : 4, ctas = TW == 128 ? 2 : 3;
+};
 
+template <int TW>
 struct FewSmem {
-  bf16 k[FEW_STAGES][64 * 64], v[FEW_STAGES][64 * 64];  // [key][dh], 128-byte swizzle
-  bf16 q[16 * 64], d_o[16 * 64];  // [query][dh], rows >= nq zero (dV's and dK's k16 depth)
+  // [key][dh] tiles of TW columns (tile_at)
+  bf16 k[FewCfg<TW>::stages][64 * TW], v[FewCfg<TW>::stages][64 * TW];
+  bf16 q[16 * TW], d_o[16 * TW];  // [query][dh], rows >= nq zero (dV's and dK's k16 depth)
   bf16 ds[FEW_MAX_Q * 64];        // the tile's dS, [query][key], 128-byte swizzle
   float ml[FEW_MAX_Q], dl[FEW_MAX_Q];  // per query: lse log2(e) (+inf past qend), delta
 };
 
-__global__ void __launch_bounds__(128, FEW_CTAS)
+// DH 0: the launch's wd.dh (a multiple of 8 up to TW), zeros past it in the
+// tiles, S^T and dP^T over its k16 steps, wd's scale; at TW 128 dV and dK
+// are n128 products and dQ^T two m64 halves of dh.
+template <int DH, int TW = 64>
+__global__ void __launch_bounds__(128, FewCfg<TW>::ctas)
     flash_bwd_few_kernel(const Strided q, const Strided k, const Strided v, const Strided o,
                          const Strided d_o, const float* __restrict__ lse, const Strided dq,
-                         const Strided dk, const Strided dv, int nq, int nk, int valid_len) {
+                         const Strided dk, const Strided dv, int nq, int nk, int valid_len,
+                         const Width wd) {
+  constexpr int ST = FewCfg<TW>::stages, CH = TW / 8, HALVES = TW / 64;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  FewSmem& sm = *reinterpret_cast<FewSmem*>(
+  FewSmem<TW>& sm = *reinterpret_cast<FewSmem<TW>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int h = blockIdx.x, b = blockIdx.y, heads = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1339,42 +1439,57 @@ __global__ void __launch_bounds__(128, FEW_CTAS)
   const int r0 = 16 * warp + g;  // this thread's key (or dh) rows: r0, r0 + 8
   const int kend = min(valid_len, nk), qend = min(valid_len, nq);
   const int tiles = ceil_div(kend, 64);  // key tiles holding a valid key
+  const int dh = att_dh<DH>(wd), dsteps = (dh + 15) / 16;
+  const float slog2 = att_slog2<DH>(wd), scale = att_scale<DH>(wd);
 
-  // K and V of key tile j into its stage: 16-byte pieces, zeros past kend
+  // K and V of key tile j into its stage: 16-byte pieces, zeros past kend and dh
   auto load_tile = [&](int j) {
-    const int st = j % FEW_STAGES, k0 = 64 * j;
-    for (int i = tid; i < 64 * 8; i += 128) {
-      const int r = i >> 3, ch = i & 7;
-      const bool ok = k0 + r < kend;
-      cp_async16(sm.k[st] + sw128(r, ch * 8), ok ? k.row(b, h, k0 + r) + ch * 8 : k.p, ok);
-      cp_async16(sm.v[st] + sw128(r, ch * 8), ok ? v.row(b, h, k0 + r) + ch * 8 : v.p, ok);
+    const int st = j % ST, k0 = 64 * j;
+    for (int i = tid; i < 64 * CH; i += 128) {
+      const int r = i / CH, ch = i % CH;
+      const bool ok = k0 + r < kend && ch < dh / 8;
+      cp_async16(sm.k[st] + tile_at<TW>(r, ch * 8, 64), ok ? k.row(b, h, k0 + r) + ch * 8 : k.p,
+                 ok);
+      cp_async16(sm.v[st] + tile_at<TW>(r, ch * 8, 64), ok ? v.row(b, h, k0 + r) + ch * 8 : v.p,
+                 ok);
     }
   };
-  {  // Q and dO, 16 rows (one piece a thread each), with the first key tile
-    const int r = tid >> 3, ch = tid & 7;
-    const bool ok = r < nq;
-    cp_async16(sm.q + sw128(r, ch * 8), ok ? q.row(b, h, r) + ch * 8 : q.p, ok);
-    cp_async16(sm.d_o + sw128(r, ch * 8), ok ? d_o.row(b, h, r) + ch * 8 : d_o.p, ok);
+  // Q and dO, 16 rows, with the first key tile
+  for (int i = tid; i < 16 * CH; i += 128) {
+    const int r = i / CH, ch = i % CH;
+    const bool ok = r < nq && ch < dh / 8;
+    cp_async16(sm.q + tile_at<TW>(r, ch * 8, 16), ok ? q.row(b, h, r) + ch * 8 : q.p, ok);
+    cp_async16(sm.d_o + tile_at<TW>(r, ch * 8, 16), ok ? d_o.row(b, h, r) + ch * 8 : d_o.p, ok);
   }
   load_tile(0);
   cp_async_commit();
 #pragma unroll
-  for (int j = 1; j < FEW_STAGES - 1; ++j) {
+  for (int j = 1; j < ST - 1; ++j) {
     if (j < tiles) load_tile(j);
     cp_async_commit();
   }
-  {  // delta and lse of query row tid / 16: sixteen threads a row, 4 columns each
+  {  // delta and lse of query row tid / 16: sixteen threads a row, TW / 16 columns each
     const int r = tid >> 4, part = tid & 15;
     float s = 0.f;
-    if (r < qend) {
-      const uint2 a = *reinterpret_cast<const uint2*>(o.row(b, h, r) + 4 * part);
-      const uint2 c = *reinterpret_cast<const uint2*>(d_o.row(b, h, r) + 4 * part);
-      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-      const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
+    auto add = [&](const __nv_bfloat162* a2, const __nv_bfloat162* c2, int n2) {
+      for (int e = 0; e < n2; ++e) {
         const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(c2[e]);
         s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+      }
+    };
+    if constexpr (TW == 64) {
+      if (r < qend && 4 * part < dh) {
+        const uint2 a = *reinterpret_cast<const uint2*>(o.row(b, h, r) + 4 * part);
+        const uint2 c = *reinterpret_cast<const uint2*>(d_o.row(b, h, r) + 4 * part);
+        add(reinterpret_cast<const __nv_bfloat162*>(&a), reinterpret_cast<const __nv_bfloat162*>(&c),
+            2);
+      }
+    } else {
+      if (r < qend && 8 * part < dh) {
+        const uint4 a = *reinterpret_cast<const uint4*>(o.row(b, h, r) + 8 * part);
+        const uint4 c = *reinterpret_cast<const uint4*>(d_o.row(b, h, r) + 8 * part);
+        add(reinterpret_cast<const __nv_bfloat162*>(&a), reinterpret_cast<const __nv_bfloat162*>(&c),
+            4);
       }
     }
 #pragma unroll
@@ -1385,17 +1500,21 @@ __global__ void __launch_bounds__(128, FEW_CTAS)
     }
   }
 
-  float dqa[4] = {0.f, 0.f, 0.f, 0.f};  // dQ^T: rows dh r0, r0 + 8; columns queries 2t, 2t + 1
-  float dva[32], dka[32];
+  float dqa[HALVES][4];  // dQ^T: rows dh 64 half + r0, + 8; columns queries 2t, 2t + 1
+  float dva[TW / 2], dka[TW / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dva[i] = dka[i] = 0.f;
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[hh][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TW / 2; ++i) dva[i] = dka[i] = 0.f;
   for (int j = 0; j < tiles; ++j) {
-    const int st = j % FEW_STAGES, k0 = 64 * j;
-    cp_async_wait<FEW_STAGES - 2>();  // this thread's pieces of tile j have landed
-    bulk_wait_read<0>();              // and its row of tile j - 1's dK or dV has left
+    const int st = j % ST, k0 = 64 * j;
+    cp_async_wait<ST - 2>();  // this thread's pieces of tile j have landed
+    bulk_wait_read<0>();      // and its row of tile j - 1's dK or dV has left
     fence_async_smem();
     __syncthreads();  // everyone's; and every thread is done with tile j - 1's stage
-    if (j + FEW_STAGES - 1 < tiles) load_tile(j + FEW_STAGES - 1);
+    if (j + ST - 1 < tiles) load_tile(j + ST - 1);
     cp_async_commit();
     const bf16* kt = sm.k[st];
 
@@ -1403,11 +1522,13 @@ __global__ void __launch_bounds__(128, FEW_CTAS)
     float s[4], dp[4];
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < ATT_DH / 16; ++ks)
-      wgmma_ss<0, 0>(s, sw128_desc(kt + ks * 16), sw128_desc(sm.q + ks * 16), ks);
+    for (int ks = 0; ks < TW / 16; ++ks)
+      if (ks < dsteps)
+        wgmma_ss<0, 0>(s, tile_kdesc<TW>(kt, ks, 64), tile_kdesc<TW>(sm.q, ks, 16), ks);
 #pragma unroll
-    for (int ks = 0; ks < ATT_DH / 16; ++ks)
-      wgmma_ss<0, 0>(dp, sw128_desc(sm.v[st] + ks * 16), sw128_desc(sm.d_o + ks * 16), ks);
+    for (int ks = 0; ks < TW / 16; ++ks)
+      if (ks < dsteps)
+        wgmma_ss<0, 0>(dp, tile_kdesc<TW>(sm.v[st], ks, 64), tile_kdesc<TW>(sm.d_o, ks, 16), ks);
     wg_commit();
     wg_wait<0>();
     wg_hold(s);
@@ -1420,8 +1541,8 @@ __global__ void __launch_bounds__(128, FEW_CTAS)
     for (int e = 0; e < 4; ++e) {
       const int kr = r0 + 8 * (e >> 1), qq = 2 * t + (e & 1);
       const float x = k0 + kr < kend ? s[e] : -INFINITY;
-      pv[e] = exp2_approx(fmaf(x, kScaleLog2, -sm.ml[qq]));
-      dsv[e] = pv[e] * (dp[e] - sm.dl[qq]) * kScale;
+      pv[e] = exp2_approx(fmaf(x, slog2, -sm.ml[qq]));
+      dsv[e] = pv[e] * (dp[e] - sm.dl[qq]) * scale;
       sm.ds[sw128(qq, kr)] = __float2bfloat16(dsv[e]);
     }
     const uint32_t pa[4] = {pack_bf16(pv[0], pv[1]), pack_bf16(pv[2], pv[3]), 0u, 0u};
@@ -1431,31 +1552,35 @@ __global__ void __launch_bounds__(128, FEW_CTAS)
 
     // dV = P^T dO, dK = dS^T Q (dO and Q read MN-major); dQ^T += K^T dS^T
     wg_fence();
-    wgmma_rs<1>(dva, pa, sw128_desc(sm.d_o), 0);
-    wgmma_rs<1>(dka, da, sw128_desc(sm.q), 0);
+    wgmma_rs<1>(dva, pa, tile_ndesc<TW>(sm.d_o, 0, 16), 0);
+    wgmma_rs<1>(dka, da, tile_ndesc<TW>(sm.q, 0, 16), 0);
 #pragma unroll
     for (int G = 0; G < 4; ++G)
-      wgmma_ss<1, 0>(dqa, sw128_desc(kt + G * 16 * 64), sw128_desc(sm.ds + G * 16), 1);
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh)
+        wgmma_ss<1, 0>(dqa[hh], sw128_desc(kt + hh * 64 * 64 + G * 16 * 64),
+                       sw128_desc(sm.ds + G * 16), 1);
     wg_commit();
     wg_wait<0>();
     wg_hold(dva);
     wg_hold(dka);
-    wg_hold(dqa);
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh) wg_hold(dqa[hh]);
 
     // the tile's dK, dV rows (keys in [kend, nk) come out 0), through the
     // stage its K and V held (read by now; refilled only after the next
-    // step's barrier, once these copies have read it) as [key][dh] rows,
-    // then out by the copy engine, a 128-byte row a thread, under the next
-    // step's work: stored from the accumulators in 4-byte pieces (8 rows'
-    // 16 bytes a warp's store) the kernel took 1.5x as long
+    // step's barrier, once these copies have read it) as [key][TW] rows,
+    // then out by the copy engine, a row's dh columns a thread, under the
+    // next step's work: stored from the accumulators in 4-byte pieces (8
+    // rows' 16 bytes a warp's store) the kernel took 1.5x as long
     // (scripts/few_bwd_variants.py)
     __syncthreads();  // every warp is past the products that read the stage
     bf16* const stg[2] = {sm.k[st], sm.v[st]};
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int at = (r0 + 8 * rr) * 64 + 8 * jj + 2 * t;
+      for (int jj = 0; jj < TW / 8; ++jj) {
+        const int at = (r0 + 8 * rr) * TW + 8 * jj + 2 * t;
         *reinterpret_cast<uint32_t*>(stg[0] + at) =
             pack_bf16(dka[4 * jj + 2 * rr], dka[4 * jj + 2 * rr + 1]);
         *reinterpret_cast<uint32_t*>(stg[1] + at) =
@@ -1465,47 +1590,52 @@ __global__ void __launch_bounds__(128, FEW_CTAS)
     __syncthreads();
     {
       const int which = tid >> 6, r = tid & 63;
-      if (k0 + r < nk) bulk_store((which ? dv : dk).row(b, h, k0 + r), stg[which] + r * 64, 128);
+      if (k0 + r < nk)
+        bulk_store((which ? dv : dk).row(b, h, k0 + r), stg[which] + r * TW, dh * 2);
       bulk_commit();
     }
   }
   cp_async_wait<0>();  // no copy may land after the CTA exits
   bulk_wait<0>();
   // keys past the last tile holding a valid key: dK = dV = 0
-  for (int i = tid; i < (nk - 64 * tiles) * 8; i += 128) {
-    const int key = 64 * tiles + (i >> 3), ch = i & 7;
+  for (int i = tid; i < (nk - 64 * tiles) * CH; i += 128) {
+    const int key = 64 * tiles + i / CH, ch = i % CH;
+    if (ch >= dh / 8) continue;
     *reinterpret_cast<uint4*>(dk.row(b, h, key) + ch * 8) = make_uint4(0u, 0u, 0u, 0u);
     *reinterpret_cast<uint4*>(dv.row(b, h, key) + ch * 8) = make_uint4(0u, 0u, 0u, 0u);
   }
   // dQ, rounded once; query rows >= qend are 0
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int qq = 2 * t + (e & 1), d = r0 + 8 * (e >> 1);
-    if (qq < nq) dq.row(b, h, qq)[d] = __float2bfloat16(qq < qend ? dqa[e] : 0.f);
-  }
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qq = 2 * t + (e & 1), d = 64 * hh + r0 + 8 * (e >> 1);
+      if (qq < nq && d < dh) dq.row(b, h, qq)[d] = __float2bfloat16(qq < qend ? dqa[hh][e] : 0.f);
+    }
 }
 
+template <int DH, int TW>
 cudaError_t launch_few(const Strided& q, const Strided& k, const Strided& v, const Strided& o,
                        const Strided& d_o, const float* lse, const Strided& dq, const Strided& dk,
                        const Strided& dv, int B, int heads, int nq, int nk, int valid_len,
-                       cudaStream_t st) {
-  constexpr int smem = sizeof(FewSmem) + 1024;  // + alignment to 1024 bytes
+                       const Width& wd, cudaStream_t st) {
+  constexpr int smem = sizeof(FewSmem<TW>) + 1024;  // + alignment to 1024 bytes
   static bool ready[16];  // the shared-memory limit, set once per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_bwd_few_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+    e = cudaFuncSetAttribute(flash_bwd_few_kernel<DH, TW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     if (dev < 16) ready[dev] = true;
   }
-  flash_bwd_few_kernel<<<dim3(heads, B), 128, smem, st>>>(q, k, v, o, d_o, lse, dq, dk, dv, nq,
-                                                         nk, valid_len);
+  flash_bwd_few_kernel<DH, TW><<<dim3(heads, B), 128, smem, st>>>(q, k, v, o, d_o, lse, dq, dk,
+                                                                  dv, nq, nk, valid_len, wd);
   return cudaGetLastError();
 }
 
-// -- forward, few queries (nq <= 8 < nk <= FEW_FWD_MAX_KEYS, head dim 64, no dropout) --
+// -- forward, few queries (nq <= 8 < nk <= FEW_FWD_MAX_KEYS, no dropout) ------------
 //
 // The CLS block's 8 query rows against all N keys (few_query_fwd), one
 // launch: one CTA, one warpgroup, a (sample, head). Where the streamed
@@ -1537,20 +1667,20 @@ cudaError_t launch_few(const Strided& q, const Strided& k, const Strided& v, con
 // workspace, no atomics, every sum in a fixed order: the outputs repeat bit
 // for bit.
 
-constexpr int FEW_FWD_MAX_KEYS = 4096;  // 128 KB of fp32 scores
+constexpr int FEW_FWD_MAX_KEYS = 4096;  // 128 KB of fp32 scores, beside two ring stages at any TW
 constexpr int FEW_Q_MAX_DIM = 256;      // MAKE_Q: the LN1 rows' values, 8 a lane of a row
 constexpr int FEW_FWD_MAX_STAGES = 8;
 constexpr int SM_SMEM = 233472;  // an H100 SM's shared memory; a CTA reserves 1 KB of it
 
-// Shared memory of the few-query forward: the ring of `stages` 64 x 64
+// Shared memory of the few-query forward: the ring of `stages` 64 x tw
 // tiles, Q^T's B tile, P^T's, then the scores, whose room holds the
 // normalised top rows ([8][64] tiles, MAKE_Q) before the first score.
 struct FewFwdLayout {
   int ring, q, p, s, red, bars, bytes;
-  __host__ __device__ FewFwdLayout(int tiles, int qchunks, int stages) {
+  __host__ __device__ FewFwdLayout(int tiles, int qchunks, int stages, int tw = 64) {
     ring = 0;
-    q = ring + stages * 64 * 64 * 2;
-    p = q + FEW_MAX_Q * 64 * 2;
+    q = ring + stages * 64 * tw * 2;
+    p = q + FEW_MAX_Q * tw * 2;
     s = p + FEW_MAX_Q * 64 * 2;
     const int scores = tiles * 64 * FEW_MAX_Q * 4, rows = qchunks * FEW_MAX_Q * 64 * 2;
     red = s + (scores > rows ? scores : rows);
@@ -1561,23 +1691,30 @@ struct FewFwdLayout {
 
 // Ring stages at these shapes: as many CTAs an SM as a ring of two stages
 // lets fit, then the deepest ring (up to FEW_FWD_MAX_STAGES) that keeps them
-// there. scripts/few_fwd_variants.py has the rules measured beside it.
-__host__ __device__ inline int few_fwd_stages(int tiles, int qchunks) {
-  const int stage = 64 * 64 * 2 + 8;
-  const int fixed = FewFwdLayout(tiles, qchunks, 0).bytes + 2048;  // + alignment, reservation
+// there. scripts/few_fwd_variants.py has the rules measured beside it (TW
+// 64). At TW 128 and 4,096 keys: one CTA, six stages.
+__host__ __device__ inline int few_fwd_stages(int tiles, int qchunks, int tw = 64) {
+  const int stage = 64 * tw * 2 + 8;
+  const int fixed = FewFwdLayout(tiles, qchunks, 0, tw).bytes + 2048;  // + alignment, reservation
   int ctas = SM_SMEM / (fixed + 2 * stage);
   ctas = ctas < 1 ? 1 : ctas > 8 ? 8 : ctas;
   const int room = (SM_SMEM / ctas - fixed) / stage;
   return room < 2 ? 2 : room > FEW_FWD_MAX_STAGES ? FEW_FWD_MAX_STAGES : room;
 }
 
-template <bool MAKE_Q>
+// DH 0: the launch's wd.dh (a multiple of 8 up to TW) in tiles of TW
+// columns, zeros past dh; S^T over its k16 steps, wd's scale, O^T in TW / 64
+// m64 halves of dh and O's stores to dh. MAKE_Q at TW 64 only: the head's
+// W_q rows start at h dh, and Q's rows past dh are zeroed.
+template <bool MAKE_Q, int DH = 64, int TW = 64>
 __global__ void __launch_bounds__(128, 8)
     flash_fwd_few_kernel(const Strided q, const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_w, bool hf_k, bool hf_v,
                          const Strided o, float* __restrict__ lse, int nq, int nk,
-                         int valid_len, const FewQ fq) {
+                         int valid_len, const FewQ fq, const Width wd) {
+  static_assert(!MAKE_Q || TW == 64, "Q is made in 64-row products");
+  constexpr int CH = TW / 8, HALVES = TW / 64;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -1586,12 +1723,14 @@ __global__ void __launch_bounds__(128, 8)
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g;  // this thread's key (or dh) rows: r0, r0 + 8
   const int kend = min(valid_len, nk), tiles = ceil_div(kend, 64);
+  const int dh = att_dh<DH>(wd), dsteps = (dh + 15) / 16;
+  const float slog2 = att_slog2<DH>(wd);
   const int qc = MAKE_Q ? ceil_div(fq.dim, 64) : 0;  // W_q chunks ahead of the keys
-  const int items = qc + 2 * tiles, nst = few_fwd_stages(tiles, qc);
-  const FewFwdLayout lay(tiles, qc, nst);
+  const int items = qc + 2 * tiles, nst = few_fwd_stages(tiles, qc, TW);
+  const FewFwdLayout lay(tiles, qc, nst, TW);
   bf16* ring = reinterpret_cast<bf16*>(base + lay.ring);
-  bf16* sq = reinterpret_cast<bf16*>(base + lay.q);  // [query][dh], 128-byte swizzle
-  bf16* sp = reinterpret_cast<bf16*>(base + lay.p);  // [query][key] of a tile, same
+  bf16* sq = reinterpret_cast<bf16*>(base + lay.q);  // [query][dh] (tile_at, 8 rows)
+  bf16* sp = reinterpret_cast<bf16*>(base + lay.p);  // [query][key] of a tile, 128-byte swizzle
   bf16* sh = reinterpret_cast<bf16*>(base + lay.s);  // MAKE_Q: [chunk][query][64], then
   float* sc = reinterpret_cast<float*>(base + lay.s);  // the scores: [key][query] fp32
   float* red = reinterpret_cast<float*>(base + lay.red);  // [2][warp][query]
@@ -1599,17 +1738,17 @@ __global__ void __launch_bounds__(128, 8)
 
   // item i into ring stage i % nst by TMA (thread 0): W_q's chunk i of the
   // head's rows (MAKE_Q), then the K tiles, then the V tiles; zeros past
-  // dim and past the tensors' rows
+  // dim and past the tensors' rows and columns
   auto load_item = [&](int i) {
     const int st = i % nst;
-    bf16* dst = ring + st * 64 * 64;
-    mbar_expect(&full[st], 64 * 64 * 2);
+    bf16* dst = ring + st * 64 * TW;
+    mbar_expect(&full[st], 64 * TW * 2);
     if (MAKE_Q && i < qc) {
-      tma_load_3d(dst, tm_w, &full[st], 64 * i, h * 64, 0);
+      tma_load_3d(dst, tm_w, &full[st], 64 * i, h * dh, 0);
       return;
     }
     const int j = i - qc, isv = j >= tiles, k0 = 64 * (isv ? j - tiles : j);
-    tma_tile(dst, isv ? tm_v : tm_k, &full[st], k0, h, b, isv ? hf_v : hf_k);
+    tma_rows<TW>(dst, isv ? tm_v : tm_k, &full[st], 64, k0, h, b, isv ? hf_v : hf_k);
   };
   // the top of item i's step: it has landed, and every thread is done with
   // item i - 1's stage, which then takes item i + nst - 1
@@ -1618,7 +1757,7 @@ __global__ void __launch_bounds__(128, 8)
     mbar_wait(&full[st], (i / nst) & 1);
     __syncthreads();
     if (tid == 0 && i + nst - 1 < items) load_item(i + nst - 1);
-    return ring + st * 64 * 64;
+    return ring + st * 64 * TW;
   };
 
   if (tid == 0) {
@@ -1629,11 +1768,11 @@ __global__ void __launch_bounds__(128, 8)
   if (tid == 0)
     for (int i = 0; i < nst - 1 && i < items; ++i) load_item(i);
 
-  if (!MAKE_Q) {  // Q's rows, zeros past nq
-    if (tid < 64) {
-      const int r = tid >> 3, ch = tid & 7;
-      const bool ok = r < nq;
-      cp_async16(sq + sw128(r, ch * 8), ok ? q.row(b, h, r) + ch * 8 : q.p, ok);
+  if (!MAKE_Q) {  // Q's rows, zeros past nq and dh
+    for (int i = tid; i < FEW_MAX_Q * CH; i += 128) {
+      const int r = i / CH, ch = i % CH;
+      const bool ok = r < nq && ch < dh / 8;
+      cp_async16(sq + tile_at<TW>(r, ch * 8, FEW_MAX_Q), ok ? q.row(b, h, r) + ch * 8 : q.p, ok);
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -1686,7 +1825,7 @@ __global__ void __launch_bounds__(128, 8)
     fence_async_smem();  // the first W step's barrier makes the rows everyone's
     // Q^T = W_q,h h^T over the dim chunks, then bf16 into the Q tile (the
     // rows' room then takes the scores: the first K tile's barrier is past
-    // every product that read it)
+    // every product that read it); rows past dh (the next head's) zero
     float qa[4] = {0.f, 0.f, 0.f, 0.f};
     for (int c = 0; c < qc; ++c) {
       const bf16* wt = next_item(c);
@@ -1700,8 +1839,10 @@ __global__ void __launch_bounds__(128, 8)
       wg_hold(qa);
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e)  // dh row r0 + 8 (e >> 1), query 2 t + (e & 1)
-      sq[sw128(2 * t + (e & 1), r0 + 8 * (e >> 1))] = __float2bfloat16(qa[e]);
+    for (int e = 0; e < 4; ++e) {  // dh row r0 + 8 (e >> 1), query 2 t + (e & 1)
+      const int d = r0 + 8 * (e >> 1);
+      sq[sw128(2 * t + (e & 1), d)] = __float2bfloat16(d < dh ? qa[e] : 0.f);
+    }
     fence_async_smem();
   }
 
@@ -1709,16 +1850,17 @@ __global__ void __launch_bounds__(128, 8)
   float mx[2] = {-INFINITY, -INFINITY};  // queries 2t, 2t + 1 over this thread's keys
   for (int j = 0; j < tiles; ++j) {
     const bf16* kt = next_item(qc + j);
-    if (MAKE_Q && j == 0 && fq.q_out != nullptr && tid < nq * 8) {  // the training save
-      const int r = tid >> 3, ch = tid & 7;
-      *reinterpret_cast<uint4*>(fq.q_out + ((long long)b * nq + r) * heads * 64 + h * 64 +
+    if (MAKE_Q && j == 0 && fq.q_out != nullptr && tid < nq * 8 && (tid & 7) < dh / 8) {
+      const int r = tid >> 3, ch = tid & 7;  // the training save
+      *reinterpret_cast<uint4*>(fq.q_out + ((long long)b * nq + r) * heads * dh + h * dh +
                                 ch * 8) = *reinterpret_cast<const uint4*>(sq + sw128(r, ch * 8));
     }
     float s[4];
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss<0, 0>(s, sw128_desc(kt + ks * 16), sw128_desc(sq + ks * 16), ks);
+    for (int ks = 0; ks < TW / 16; ++ks)
+      if (ks < dsteps)
+        wgmma_ss<0, 0>(s, tile_kdesc<TW>(kt, ks, 64), tile_kdesc<TW>(sq, ks, FEW_MAX_Q), ks);
     wg_commit();
     wg_wait<0>();
     wg_hold(s);
@@ -1743,7 +1885,11 @@ __global__ void __launch_bounds__(128, 8)
   // tid forms key tid / 2 of the tile for queries qb .. qb + 3
   const int qb = 4 * (tid & 1), kk = tid >> 1;
   float ms[4], lsum[4] = {0.f, 0.f, 0.f, 0.f};
-  float oa[4] = {0.f, 0.f, 0.f, 0.f};  // O^T: dh rows r0, r0 + 8; queries 2t, 2t + 1
+  float oa[HALVES][4];  // O^T: dh rows 64 half + r0, + 8; queries 2t, 2t + 1
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oa[hh][e] = 0.f;
   for (int j = 0; j < tiles; ++j) {
     const bf16* vt = next_item(qc + tiles + j);
     if (j == 0) {  // every warp's max is in `red` (the step's barrier)
@@ -1751,14 +1897,14 @@ __global__ void __launch_bounds__(128, 8)
       for (int i = 0; i < 4; ++i) {
         const float m = fmaxf(fmaxf(red[qb + i], red[FEW_MAX_Q + qb + i]),
                               fmaxf(red[2 * FEW_MAX_Q + qb + i], red[3 * FEW_MAX_Q + qb + i]));
-        ms[i] = m * SoftmaxScale<ATT_DH>::slog2;
+        ms[i] = m * slog2;
       }
     }
     const float4 sv = *reinterpret_cast<const float4*>(sc + (64 * j + kk) * FEW_MAX_Q + qb);
-    const float pv[4] = {exp2_approx(fmaf(sv.x, SoftmaxScale<ATT_DH>::slog2, -ms[0])),
-                         exp2_approx(fmaf(sv.y, SoftmaxScale<ATT_DH>::slog2, -ms[1])),
-                         exp2_approx(fmaf(sv.z, SoftmaxScale<ATT_DH>::slog2, -ms[2])),
-                         exp2_approx(fmaf(sv.w, SoftmaxScale<ATT_DH>::slog2, -ms[3]))};
+    const float pv[4] = {exp2_approx(fmaf(sv.x, slog2, -ms[0])),
+                         exp2_approx(fmaf(sv.y, slog2, -ms[1])),
+                         exp2_approx(fmaf(sv.z, slog2, -ms[2])),
+                         exp2_approx(fmaf(sv.w, slog2, -ms[3]))};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       lsum[i] += pv[i];
@@ -1769,10 +1915,14 @@ __global__ void __launch_bounds__(128, 8)
     wg_fence();
 #pragma unroll
     for (int G = 0; G < 4; ++G)
-      wgmma_ss<1, 0>(oa, sw128_desc(vt + G * 16 * 64), sw128_desc(sp + G * 16), j > 0 || G > 0);
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh)
+        wgmma_ss<1, 0>(oa[hh], sw128_desc(vt + hh * 64 * 64 + G * 16 * 64),
+                       sw128_desc(sp + G * 16), j > 0 || G > 0);
     wg_commit();
     wg_wait<0>();
-    wg_hold(oa);
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh) wg_hold(oa[hh]);
   }
 
   // l per query: over the lanes of this thread's parity, then the warps in order
@@ -1797,52 +1947,57 @@ __global__ void __launch_bounds__(128, 8)
                     lred[3 * FEW_MAX_Q + tid];
     const float m = fmaxf(fmaxf(red[tid], red[FEW_MAX_Q + tid]),
                           fmaxf(red[2 * FEW_MAX_Q + tid], red[3 * FEW_MAX_Q + tid]));
-    lse[((long long)b * heads + h) * nq + tid] = m * SoftmaxScale<ATT_DH>::scale + logf(l);
+    lse[((long long)b * heads + h) * nq + tid] = m * att_scale<DH>(wd) + logf(l);
   }
-  // O through the Q tile as [query][dh] rows, then out in 16-byte pieces
+  // O through the Q tile as [query][TW] rows, then its dh columns out in
+  // 16-byte pieces
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    sq[(2 * t + (e & 1)) * 64 + r0 + 8 * (e >> 1)] = __float2bfloat16(oa[e] * inv[e & 1]);
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sq[(2 * t + (e & 1)) * TW + 64 * hh + r0 + 8 * (e >> 1)] =
+          __float2bfloat16(oa[hh][e] * inv[e & 1]);
   __syncthreads();
-  if (tid < nq * 8) {
-    const int r = tid >> 3, ch = tid & 7;
-    *reinterpret_cast<uint4*>(o.row(b, h, r) + ch * 8) =
-        *reinterpret_cast<const uint4*>(sq + r * 64 + ch * 8);
+  for (int i = tid; i < nq * CH; i += 128) {
+    const int r = i / CH, ch = i % CH;
+    if (ch < dh / 8)
+      *reinterpret_cast<uint4*>(o.row(b, h, r) + ch * 8) =
+          *reinterpret_cast<const uint4*>(sq + r * TW + ch * 8);
   }
 }
 
 cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
-                       bool heads_first, int rows, int dh, bool native);
+                       bool heads_first, int rows, int dh, int box);
 
-template <bool MAKE_Q>
+template <bool MAKE_Q, int DH, int TW>
 cudaError_t launch_few_fwd(const Strided& q, const Strided& k, const Strided& v,
                            const Strided& o, float* lse, int B, int heads, int nq, int nk,
-                           int valid_len, const FewQ& fq, cudaStream_t st) {
+                           int valid_len, const FewQ& fq, int dh, cudaStream_t st) {
   static bool ready[16];  // the shared-memory limit, set once per device to the card's
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_few_kernel<MAKE_Q>,
+    e = cudaFuncSetAttribute(flash_fwd_few_kernel<MAKE_Q, DH, TW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (e != cudaSuccess) return e;
     if (dev < 16) ready[dev] = true;
   }
   const bool hf_k = k.sh < k.sr, hf_v = v.sh < v.sr;
   CUtensorMap tm_k, tm_v, tm_w;
-  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, 64, ATT_DH, true)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, 64, ATT_DH, true)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, 64, dh, 64)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, 64, dh, 64)) != cudaSuccess) return e;
   tm_w = tm_k;  // unused unless MAKE_Q
-  if (MAKE_Q) {  // W_q (heads * 64, dim): [64 rows][64 columns] boxes
-    const cuuint64_t dims[3] = {(cuuint64_t)fq.dim, (cuuint64_t)heads * 64, 1};
-    const cuuint64_t strides[2] = {(cuuint64_t)fq.dim * 2, (cuuint64_t)heads * 64 * fq.dim * 2};
+  if (MAKE_Q) {  // W_q (heads * dh, dim): [64 rows][64 columns] boxes
+    const cuuint64_t dims[3] = {(cuuint64_t)fq.dim, (cuuint64_t)heads * dh, 1};
+    const cuuint64_t strides[2] = {(cuuint64_t)fq.dim * 2, (cuuint64_t)heads * dh * fq.dim * 2};
     const cuuint32_t box[3] = {64, 64, 1};
     if ((e = encode_tiled(&tm_w, 3, fq.wq, dims, strides, box)) != cudaSuccess) return e;
   }
   const int tiles = ceil_div(std::min(valid_len, nk), 64), qc = MAKE_Q ? ceil_div(fq.dim, 64) : 0;
-  const FewFwdLayout lay(tiles, qc, few_fwd_stages(tiles, qc));
-  flash_fwd_few_kernel<MAKE_Q><<<dim3(heads, B), 128, lay.bytes + 1024, st>>>(
-      q, tm_k, tm_v, tm_w, hf_k, hf_v, o, lse, nq, nk, valid_len, fq);
+  const FewFwdLayout lay(tiles, qc, few_fwd_stages(tiles, qc, TW), TW);
+  flash_fwd_few_kernel<MAKE_Q, DH, TW><<<dim3(heads, B), 128, lay.bytes + 1024, st>>>(
+      q, tm_k, tm_v, tm_w, hf_k, hf_v, o, lse, nq, nk, valid_len, fq, width_of(dh));
   return cudaGetLastError();
 }
 
@@ -2063,6 +2218,7 @@ __global__ void __launch_bounds__(128, 4)
           *reinterpret_cast<const uint4*>(sq + sw64(i, 8 * (tid & 3)));
 }
 
+#ifndef SVT_ATT_WIDTHS
 cudaError_t launch_fwd_resident(const Strided& q, const Strided& k, const Strided& v,
                                 const Strided& o, float* lse, int B, int heads, int n,
                                 int valid_len, cudaStream_t st) {
@@ -2099,6 +2255,7 @@ cudaError_t launch_fwd_resident(const Strided& q, const Strided& k, const Stride
                                                                      kcap);
   return cudaGetLastError();
 }
+#endif
 
 __device__ __forceinline__ void add4(float4& a, const float4& x) {
   a.x += x.x;
@@ -2110,12 +2267,12 @@ __device__ __forceinline__ void add4(float4& a, const float4& x) {
 // dq = bf16((sum 0 + sum 1) + (sum 2 + sum 3)) through dq's strides, each
 // sum only where its turn counter says it took an add: one thread per
 // float4 of a tile (rows r and r + 8, two columns); rows >= qend (never
-// summed) are 0.
+// summed) are 0. DH 0: tiles of 64 dh floats (the launch's dh).
 template <int DH>
 __global__ void __launch_bounds__(256)
     flash_bwd_dq_kernel(const float* __restrict__ sums, const int* __restrict__ sems,
-                        const Strided dq, int heads, int nq, int qend, long long chunks) {
-  constexpr int TILE4 = bwd_tile<DH>() / 4;
+                        const Strided dq, int heads, int nq, int qend, long long chunks, int dh) {
+  const int TILE4 = DH ? bwd_tile<DH>() / 4 : BWD_BQ * dh / 4;
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= chunks) return;
   const int nqt_all = ceil_div(nq, BWD_BQ);
@@ -2144,30 +2301,30 @@ __global__ void __launch_bounds__(256)
         row + 8 < qend ? pack_bf16(a.z, a.w) : 0u;
 }
 
-// A TMA map of the (B, heads, n, dh) operand t, boxes of `rows` x 64 in the
-// 128-byte swizzle (columns past dh zero-filled); the two middle dimensions
-// in increasing stride (heads first for the packed (B, n, heads * dh)
-// layouts).
+// A TMA map of the (B, heads, n, dh) operand t, boxes of `rows` x `box`
+// columns (columns past dh zero-filled), in the 64-byte swizzle for 32-column
+// boxes, else the 128-byte one; the two middle dimensions in increasing
+// stride (heads first for the packed (B, n, heads * dh) layouts).
 cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n,
-                       bool heads_first, int rows = 64, int dh = ATT_DH, bool native = false) {
+                       bool heads_first, int rows, int dh, int box) {
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)(heads_first ? heads : n),
                               (cuuint64_t)(heads_first ? n : heads), (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(heads_first ? t.sh : t.sr) * 2,
                                  (cuuint64_t)(heads_first ? t.sr : t.sh) * 2,
                                  (cuuint64_t)t.sb * 2};
-  const cuuint32_t box[4] = {native ? (cuuint32_t)dh : ATT_DH, heads_first ? 1u : (cuuint32_t)rows,
-                             heads_first ? (cuuint32_t)rows : 1u, 1};
-  return encode_tiled(m, 4, t.p, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      native && dh == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint32_t boxes[4] = {(cuuint32_t)box, heads_first ? 1u : (cuuint32_t)rows,
+                               heads_first ? (cuuint32_t)rows : 1u, 1};
+  return encode_tiled(m, 4, t.p, dims, strides, boxes, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      box == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <bool DROP, int DH>
+template <bool DROP, int DH, int TW>
 cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const Strided& k,
                             const Strided& v, const Strided& d_o, const float* lse,
                             const float* delta, float* sums, int* sems, const Strided& dk,
                             const Strided& dv, int B, int heads, int nq, int nk, int valid_len,
-                            const Dropout& dr) {
-  constexpr int smem = sizeof(BwdSmem) + 1024;  // + alignment to 1024 bytes
+                            const Dropout& dr, const Width& wd, int dh) {
+  constexpr int smem = sizeof(BwdSmem<TW>) + 1024;  // + alignment to 1024 bytes
   // The shared-memory limit, set once per device (a launch's host work
   // counts where the kernels are short).
   static bool ready[16];
@@ -2175,7 +2332,7 @@ cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const 
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_bwd_kernel<DROP, DH>,
+    e = cudaFuncSetAttribute(flash_bwd_kernel<DROP, DH, TW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     if (dev < 16) ready[dev] = true;
@@ -2185,11 +2342,11 @@ cudaError_t launch_bwd_main(dim3 grid, cudaStream_t st, const Strided& q, const 
   const bool rotate = qt == kt;
   const bool hf_q = q.sh < q.sr, hf_do = d_o.sh < d_o.sr;
   CUtensorMap tm_q, tm_do;
-  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, BWD_BQ, DH)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_do, d_o, B, heads, nq, hf_do, BWD_BQ, DH)) != cudaSuccess) return e;
-  flash_bwd_kernel<DROP, DH><<<grid, BWD_THREADS, smem, st>>>(
+  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, BWD_BQ, dh, 64)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_do, d_o, B, heads, nq, hf_do, BWD_BQ, dh, 64)) != cudaSuccess) return e;
+  flash_bwd_kernel<DROP, DH, TW><<<grid, BWD_THREADS, smem, st>>>(
       tm_q, tm_do, hf_q, hf_do, k, v, lse, delta, sums, sems, dk, dv, nq, nk, valid_len, rotate,
-      dr);
+      dr, wd);
   return cudaGetLastError();
 }
 
@@ -2200,29 +2357,30 @@ bool aligned16(const Strided& t) {
          t.sr % 8 == 0;
 }
 
-template <int NWG, int BK, bool DROP, int DH>
+template <int NWG, int BK, bool DROP, int DH, int TW>
 cudaError_t launch_fwd(cudaStream_t st, const Strided& q, const Strided& k, const Strided& v,
                        const Strided& o, float* lse, int B, int heads, int nq, int nk,
-                       int valid_len, const Dropout& dr) {
-  constexpr int smem = sizeof(FwdSmem<NWG, BK, DH>) + 1024;  // + alignment to 1024 bytes
+                       int valid_len, const Dropout& dr, const Width& wd, int dh) {
+  constexpr int smem = sizeof(FwdSmem<NWG, BK, TW>) + 1024;  // + alignment to 1024 bytes
   static bool ready[16];  // the shared-memory limit, set once per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_kernel<NWG, BK, DROP, DH>,
+    e = cudaFuncSetAttribute(flash_fwd_kernel<NWG, BK, DROP, DH, TW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     if (dev < 16) ready[dev] = true;
   }
   const bool hf_q = q.sh < q.sr, hf_k = k.sh < k.sr, hf_v = v.sh < v.sr;
+  constexpr int box = TW < 64 ? TW : 64;
   CUtensorMap tm_q, tm_k, tm_v;
-  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, 64, DH, true)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, BK, DH, true)) != cudaSuccess) return e;
-  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, BK, DH, true)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_q, q, B, heads, nq, hf_q, 64, dh, box)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_k, k, B, heads, nk, hf_k, BK, dh, box)) != cudaSuccess) return e;
+  if ((e = tensor_map(&tm_v, v, B, heads, nk, hf_v, BK, dh, box)) != cudaSuccess) return e;
   const dim3 grid(ceil_div(nq, 64 * NWG), heads, B);
-  flash_fwd_kernel<NWG, BK, DROP, DH><<<grid, FwdCfg<NWG, BK>::threads, smem, st>>>(
-      tm_q, tm_k, tm_v, hf_q, hf_k, hf_v, o, lse, nq, nk, valid_len, dr);
+  flash_fwd_kernel<NWG, BK, DROP, DH, TW><<<grid, FwdCfg<NWG, BK, TW>::threads, smem, st>>>(
+      tm_q, tm_k, tm_v, hf_q, hf_k, hf_v, o, lse, nq, nk, valid_len, dr, wd);
   return cudaGetLastError();
 }
 
@@ -2240,43 +2398,69 @@ int sm_count() {
 
 // The tiling by shape (flash_fwd): 64-key tiles and one consumer warpgroup
 // up to 512 keys; past them 128-key tiles and three warpgroups (wide) or
-// one; the same for both head dims.
-template <bool DROP, int DH>
+// one; the same for tiles of 32 and 64 columns. Tiles of 128 columns (dh
+// 72-128) take one tiling, 64-key tiles and one warpgroup: its O (64
+// accumulators a thread) leaves no room for a 128-key tile's scores, or for
+// three warpgroups.
+template <bool DROP, int DH, int TW = DH>
 cudaError_t launch_rule(bool long_keys, bool wide, cudaStream_t st, const Strided& q,
                         const Strided& k, const Strided& v, const Strided& o, float* lse, int B,
-                        int heads, int nq, int nk, int valid_len, const Dropout& dr) {
-  if (!long_keys)
-    return launch_fwd<1, 64, DROP, DH>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
-  if (wide)
-    return launch_fwd<3, 128, DROP, DH>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
-  return launch_fwd<1, 128, DROP, DH>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr);
+                        int heads, int nq, int nk, int valid_len, const Dropout& dr,
+                        const Width& wd = Width{}) {
+  const int dh = DH ? DH : wd.dh;
+  if constexpr (TW == 128) {
+    return launch_fwd<1, 64, DROP, DH, TW>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len, dr,
+                                           wd, dh);
+  } else {
+    if (!long_keys)
+      return launch_fwd<1, 64, DROP, DH, TW>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len,
+                                             dr, wd, dh);
+    if (wide)
+      return launch_fwd<3, 128, DROP, DH, TW>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len,
+                                              dr, wd, dh);
+    return launch_fwd<1, 128, DROP, DH, TW>(st, q, k, v, o, lse, B, heads, nq, nk, valid_len,
+                                            dr, wd, dh);
+  }
 }
 
-// The three launches at head dim DH (see the header).
-template <int DH>
+// The streamed forward's tiling by shape: past 512 keys, 128-key tiles and
+// three consumer warpgroups (192 queries) where that grid still fills the
+// card twice; else one warpgroup (64 queries, two or three CTAs per SM,
+// whose prologues and epilogues overlap each other's loops), with 64-key
+// tiles up to 512 keys (the tilings measured on an H100: PERF.md).
+bool fwd_long_keys(int nk, int valid_len) { return std::min(valid_len, nk) > 512; }
+bool fwd_wide(int B, int heads, int nq, int nk, int valid_len) {
+  return fwd_long_keys(nk, valid_len) && nq > 64 &&
+         (long long)ceil_div(nq, 192) * heads * B >= 2ll * sm_count();
+}
+
+// The three launches at head dim DH, or at wd.dh where DH is 0 (see the
+// header).
+template <int DH, int TW = 64>
 cudaError_t bwd_launches(const Strided& q, const Strided& k, const Strided& v, const Strided& o,
                          const Strided& d_o, const float* lse, float* delta, float* ws,
                          const Strided& dq, const Strided& dk, const Strided& dv, int B,
                          int heads, int nq, int nk, int valid_len, cudaStream_t st,
-                         const Dropout& dr) {
+                         const Dropout& dr, const Width& wd = Width{}) {
+  const int dh = DH ? DH : wd.dh;
   const long long rows = (long long)B * heads * nq;
   const long long tiles = (long long)B * heads * ceil_div(nq, BWD_BQ);  // per chain
   float* sums = ws;
-  int* sems = reinterpret_cast<int*>(ws + BWD_CHAINS * tiles * bwd_tile<DH>());
-  const long long threads = std::max(rows * (DH / 8), BWD_CHAINS * tiles);
+  int* sems = reinterpret_cast<int*>(ws + BWD_CHAINS * tiles * BWD_BQ * dh);
+  const long long threads = std::max(rows * (DH ? DH / 8 : 8), BWD_CHAINS * tiles);
   flash_bwd_delta_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
-      o, d_o, delta, sems, BWD_CHAINS * tiles, heads, nq, rows);
+      o, d_o, delta, sems, BWD_CHAINS * tiles, heads, nq, rows, dh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid(ceil_div(nk, BWD_BK), heads, B);
-  e = dr.on ? launch_bwd_main<true, DH>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv,
-                                        B, heads, nq, nk, valid_len, dr)
-            : launch_bwd_main<false, DH>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk, dv,
-                                         B, heads, nq, nk, valid_len, dr);
+  e = dr.on ? launch_bwd_main<true, DH, TW>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk,
+                                            dv, B, heads, nq, nk, valid_len, dr, wd, dh)
+            : launch_bwd_main<false, DH, TW>(grid, st, q, k, v, d_o, lse, delta, sums, sems, dk,
+                                             dv, B, heads, nq, nk, valid_len, dr, wd, dh);
   if (e != cudaSuccess) return e;
-  const long long chunks = tiles * (bwd_tile<DH>() / 4);
+  const long long chunks = tiles * (BWD_BQ * dh / 4);
   flash_bwd_dq_kernel<DH><<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
-      sums, sems, dq, heads, nq, std::min(valid_len, nq), chunks);
+      sums, sems, dq, heads, nq, std::min(valid_len, nq), chunks, dh);
   return cudaGetLastError();
 }
 
@@ -2284,25 +2468,27 @@ cudaError_t bwd_launches(const Strided& q, const Strided& k, const Strided& v, c
 
 namespace svt {
 
+#ifndef SVT_ATT_WIDTHS
+
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
                       int nq, int nk, int valid_len, int dh, cudaStream_t st, Dropout dr) {
-  if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1) return cudaErrorInvalidValue;
-  // dh 32 is built without dropout (MS-SiT serves with none)
-  if (dh != ATT_DH && (dh != 32 || dr.on)) return cudaErrorInvalidValue;
+  if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1 || !dim_head_ok(dh))
+    return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return cudaErrorMisalignedAddress;
   if (resident_fwd(nq, nk, dh, dr.on))  // every MS-SiT fold: the sequences packed, one launch
     return launch_fwd_resident(q, k, v, o, lse, B, heads, nq, valid_len, st);
-  if (few_query_fwd(nq, nk, dh, dr.on))  // the queries on the short side, one launch
-    return launch_few_fwd<false>(q, k, v, o, lse, B, heads, nq, nk, valid_len, FewQ{}, st);
-  // The tiling, from the tilings measured on an H100 (PERF.md): past 512
-  // keys, 128-key tiles and three consumer warpgroups (192 queries) where
-  // that grid still fills the card twice; else one warpgroup (64 queries,
-  // two or three CTAs per SM, whose prologues and epilogues overlap each
-  // other's loops), with 64-key tiles up to 512 keys.
-  const bool long_keys = std::min(valid_len, nk) > 512;
-  const bool wide = long_keys && nq > 64 &&
-                    (long long)ceil_div(nq, 192) * heads * B >= 2ll * sm_count();
+  // dh 64, and dh 32's streamed forward without dropout, here; the other
+  // widths (and dh 32 with dropout or few queries) on the kernels built for
+  // any dh, flash_attention_widths.cu
+  const bool few = few_query_fwd(nq, nk, dh, dr.on);
+  if (dh != ATT_DH && (dh != 32 || dr.on || few))
+    return flash_fwd_widths(q, k, v, o, lse, B, heads, nq, nk, valid_len, dh, st, dr);
+  if (few)  // the queries on the short side, one launch
+    return launch_few_fwd<false, ATT_DH, ATT_DH>(q, k, v, o, lse, B, heads, nq, nk, valid_len,
+                                                 FewQ{}, dh, st);
+  const bool long_keys = fwd_long_keys(nk, valid_len);
+  const bool wide = fwd_wide(B, heads, nq, nk, valid_len);
   if (dh == 32)
     return launch_rule<false, 32>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq, nk,
                                   valid_len, dr);
@@ -2321,33 +2507,38 @@ bool resident_bwd(int nq, int nk, int dh, bool dropout) {
 }
 
 bool few_query_bwd(int nq, int nk, int dh, bool dropout) {
-  return dh == ATT_DH && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk;
+  return dim_head_ok(dh) && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk;
 }
 
 bool few_query_fwd(int nq, int nk, int dh, bool dropout) {
-  return dh == ATT_DH && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk && nk <= FEW_FWD_MAX_KEYS;
+  return dim_head_ok(dh) && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk &&
+         nk <= FEW_FWD_MAX_KEYS;
 }
 
-bool few_query_makes_q(int nq, int nk, int dim) {
-  return few_query_fwd(nq, nk, ATT_DH, false) && dim % 8 == 0 && dim <= FEW_Q_MAX_DIM;
+bool few_query_makes_q(int nq, int nk, int dim, int dh) {
+  return few_query_fwd(nq, nk, dh, false) && dh <= ATT_DH && dim % 8 == 0 &&
+         dim <= FEW_Q_MAX_DIM;
 }
 
 cudaError_t flash_fwd_few_q(const FewQ& fq, Strided k, Strided v, Strided o, float* lse, int B,
-                            int heads, int nq, int nk, int valid_len, cudaStream_t st) {
-  if (B < 1 || heads < 1 || nq < 1 || valid_len < 1 || !few_query_makes_q(nq, nk, fq.dim))
+                            int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st) {
+  if (B < 1 || heads < 1 || nq < 1 || valid_len < 1 || !few_query_makes_q(nq, nk, fq.dim, dh))
     return cudaErrorInvalidValue;
   if (!aligned16(k) || !aligned16(v) || !aligned16(o) ||
       (reinterpret_cast<uintptr_t>(fq.wq) & 15) != 0 ||
       (fq.q_out != nullptr && (reinterpret_cast<uintptr_t>(fq.q_out) & 15) != 0))
     return cudaErrorMisalignedAddress;
-  return launch_few_fwd<true>(Strided{}, k, v, o, lse, B, heads, nq, nk, valid_len, fq, st);
+  if (dh != ATT_DH)
+    return flash_fwd_few_q_widths(fq, k, v, o, lse, B, heads, nq, nk, valid_len, dh, st);
+  return launch_few_fwd<true, ATT_DH, ATT_DH>(Strided{}, k, v, o, lse, B, heads, nq, nk,
+                                              valid_len, fq, dh, st);
 }
 
 int resident_pack(int n) { return n <= 32 ? 64 / n : 1; }
 
 long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh) {
-  // one launch, no dQ sums (dh 32 runs without dropout; flash_bwd refuses
-  // dropout at the few-query shapes)
+  // one launch, no dQ sums (the resident kernel runs without dropout;
+  // flash_bwd refuses dropout at the few-query shapes)
   if (resident_bwd(nq, nk, dh, false) || few_query_bwd(nq, nk, dh, false)) return 0;
   // the sums and a turn counter per sum and tile
   return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) * ((long long)BWD_BQ * dh + 1);
@@ -2357,7 +2548,8 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
                       float* delta, float* ws, Strided dq, Strided dk, Strided dv, int B,
                       int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
                       Dropout dr) {
-  if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1) return cudaErrorInvalidValue;
+  if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1 || !dim_head_ok(dh))
+    return cudaErrorInvalidValue;
   if (resident_bwd(nq, nk, dh, dr.on)) {  // one launch, the sequence in shared memory
     if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(d_o))
       return cudaErrorMisalignedAddress;
@@ -2379,14 +2571,19 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
     if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(d_o) ||
         !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
       return cudaErrorMisalignedAddress;
-    return launch_few(q, k, v, o, d_o, lse, dq, dk, dv, B, heads, nq, nk, valid_len, st);
-  }
-  if (dh == 32 && !dr.on)  // dh 32 past 320 keys, or nq != nk: the streamed kernels
+    if (dh == ATT_DH)
+      return launch_few<ATT_DH, ATT_DH>(q, k, v, o, d_o, lse, dq, dk, dv, B, heads, nq, nk,
+                                        valid_len, Width{}, st);
+  } else if (dh == 32 && !dr.on) {  // dh 32 past 320 keys, or nq != nk: the streamed kernels
     return bwd_launches<32>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
                             valid_len, st, dr);
-  if (dh != ATT_DH) return cudaErrorInvalidValue;
-  return bwd_launches<ATT_DH>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
-                              valid_len, st, dr);
+  } else if (dh == ATT_DH) {
+    return bwd_launches<ATT_DH>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
+                                valid_len, st, dr);
+  }
+  // the other widths (and dh 32 with dropout): flash_attention_widths.cu
+  return flash_bwd_widths(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
+                          valid_len, dh, st, dr);
 }
 
 Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) {
@@ -2398,15 +2595,76 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) 
   return dr;
 }
 
+#else  // SVT_ATT_WIDTHS: the kernels built for any dh (flash_attention_widths.cu)
+
+// Tiles of 32, 64 or 128 columns: the smallest that holds dh.
+int tile_width(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
+
+cudaError_t flash_fwd_widths(Strided q, Strided k, Strided v, Strided o, float* lse, int B,
+                             int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
+                             Dropout dr) {
+  if (few_query_fwd(nq, nk, dh, dr.on))  // the queries on the short side, one launch
+    return dh <= 64 ? launch_few_fwd<false, 0, 64>(q, k, v, o, lse, B, heads, nq, nk, valid_len,
+                                                   FewQ{}, dh, st)
+                    : launch_few_fwd<false, 0, 128>(q, k, v, o, lse, B, heads, nq, nk,
+                                                    valid_len, FewQ{}, dh, st);
+  const bool long_keys = fwd_long_keys(nk, valid_len);
+  const bool wide = fwd_wide(B, heads, nq, nk, valid_len);
+  const Width wd = width_of(dh);
+  switch (tile_width(dh) * 2 + (dr.on ? 1 : 0)) {
+    case 64: return launch_rule<false, 0, 32>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
+                                              nk, valid_len, dr, wd);
+    case 65: return launch_rule<true, 0, 32>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
+                                             nk, valid_len, dr, wd);
+    case 128: return launch_rule<false, 0, 64>(long_keys, wide, st, q, k, v, o, lse, B, heads,
+                                               nq, nk, valid_len, dr, wd);
+    case 129: return launch_rule<true, 0, 64>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
+                                              nk, valid_len, dr, wd);
+    case 256: return launch_rule<false, 0, 128>(long_keys, wide, st, q, k, v, o, lse, B, heads,
+                                                nq, nk, valid_len, dr, wd);
+    default: return launch_rule<true, 0, 128>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
+                                              nk, valid_len, dr, wd);
+  }
+}
+
+cudaError_t flash_fwd_few_q_widths(const FewQ& fq, Strided k, Strided v, Strided o, float* lse,
+                                   int B, int heads, int nq, int nk, int valid_len, int dh,
+                                   cudaStream_t st) {
+  return launch_few_fwd<true, 0, 64>(Strided{}, k, v, o, lse, B, heads, nq, nk, valid_len, fq,
+                                     dh, st);
+}
+
+cudaError_t flash_bwd_widths(Strided q, Strided k, Strided v, Strided o, Strided d_o,
+                             const float* lse, float* delta, float* ws, Strided dq, Strided dk,
+                             Strided dv, int B, int heads, int nq, int nk, int valid_len, int dh,
+                             cudaStream_t st, Dropout dr) {
+  const Width wd = width_of(dh);
+  if (few_query_bwd(nq, nk, dh, false))  // flash_bwd checked dropout and the operands
+    return dh <= 64 ? launch_few<0, 64>(q, k, v, o, d_o, lse, dq, dk, dv, B, heads, nq, nk,
+                                        valid_len, wd, st)
+                    : launch_few<0, 128>(q, k, v, o, d_o, lse, dq, dk, dv, B, heads, nq, nk,
+                                         valid_len, wd, st);
+  if (dh <= 64)
+    return bwd_launches<0, 64>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
+                               valid_len, st, dr, wd);
+  return bwd_launches<0, 128>(q, k, v, o, d_o, lse, delta, ws, dq, dk, dv, B, heads, nq, nk,
+                              valid_len, st, dr, wd);
+}
+
+#endif  // SVT_ATT_WIDTHS
+
 }  // namespace svt
+
+#ifndef SVT_ATT_WIDTHS
 
 extern "C" {
 
 // flash_attention forward: q (B, heads, nq, dh), k and v (B, heads, nk,
 // dh), o (B, heads, nq, dh), each bf16 at (batch, head, row) strides in
 // elements with its last dimension contiguous; lse (B, heads, nq) fp32
-// contiguous; dh 32 or 64. Dropout on the probabilities when `drop` (seed,
-// threshold on the Philox word, inv_keep = 1 / (1 - rate); dh 64 only).
+// contiguous; dh a multiple of 8 from 8 to 128. Dropout on the
+// probabilities when `drop` (seed, threshold on the Philox word, inv_keep =
+// 1 / (1 - rate)).
 int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
@@ -2423,11 +2681,12 @@ int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q
 }
 
 // flash_attention backward: the forward's operands, o and lse, the output
-// cotangent d_o (as o) -> dq (as q), dk, dv (as k); dh 32 or 64; delta (B,
-// heads, nq) fp32 scratch; ws svt_flash_attention_bwd_workspace(B, heads,
-// nq, nk, dh) floats of scratch (the fp32 dQ sums and their turn counters;
-// none for the resident and few-query kernels). Dropout as the forward's,
-// which gave o (dh 64, not at nq <= 8 < nk).
+// cotangent d_o (as o) -> dq (as q), dk, dv (as k); dh a multiple of 8 from
+// 8 to 128; delta (B, heads, nq) fp32 scratch; ws
+// svt_flash_attention_bwd_workspace(B, heads, nq, nk, dh) floats of scratch
+// (the fp32 dQ sums and their turn counters; none for the resident and
+// few-query kernels). Dropout as the forward's, which gave o (not at nq <= 8
+// < nk).
 int svt_flash_attention_bwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
                             long long k_sb, long long k_sh, long long k_sr, void* v,
                             long long v_sb, long long v_sh, long long v_sr, void* o,
@@ -2462,9 +2721,11 @@ int svt_flash_fwd_profile(unsigned long long* out) {
 
 // Floats of scratch svt_flash_attention_bwd needs in `ws` at head dim dh (0
 // where the resident kernel runs: dh 32, nq == nk <= 320; and the few-query
-// kernel: dh 64, nq <= 8 < nk).
+// kernel: nq <= 8 < nk).
 long long svt_flash_attention_bwd_workspace(int B, int heads, int nq, int nk, int dh) {
   return flash_bwd_workspace(B, heads, nq, nk, dh);
 }
 
 }  // extern "C"
+
+#endif  // SVT_ATT_WIDTHS

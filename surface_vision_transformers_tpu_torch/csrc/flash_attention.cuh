@@ -1,9 +1,11 @@
 // Streamed attention (flash_attention.cu): the launchers the block chains
 // (fused_block.cu, fused_block_int8.cu, fused_block_bwd.cu) share with the
 // public flash_attention entries. Both directions read their operands by
-// TMA and run their products on wgmma. Both take head dims 32 and 64
-// (dropout at 64 only).
+// TMA and run their products on wgmma. Both take every head dim that is a
+// multiple of 8 from 8 to 128, with or without dropout.
 #pragma once
+
+#include <cmath>
 
 #include "common.cuh"
 
@@ -37,10 +39,30 @@ struct Dropout {
   int on = 0;
 };
 
+// A head width at run time: the kernels built for any dh (the widths other
+// than 32 and 64, flash_attention_widths.cu) take dh columns in tiles of 32,
+// 64 or 128 and the softmax scale 1 / sqrt(dh) from here, rounded once to
+// fp32 as the plain version's fp32 multiply rounds it, and its product with
+// log2(e) (the exponent) rounded once from double, as SoftmaxScale's at dh
+// 32.
+struct Width {
+  int dh = 0;
+  float scale = 0.f, slog2 = 0.f;
+};
+inline Width width_of(int dh) {
+  const double s = std::pow((double)dh, -0.5);
+  return Width{dh, (float)s, (float)(s * 1.4426950408889634)};
+}
+
+// The head widths the attention kernels take: multiples of 8 (a head's
+// columns start on 16 bytes, as TMA needs) from 8 to 128 (a tile of 128
+// columns, the widest built).
+inline bool dim_head_ok(int dh) { return dh % 8 == 0 && dh >= 8 && dh <= 128; }
+
 // What the few-query forward needs to make its own Q (the CLS block's
 // chain, fused_block.cu): the block input x (B, nk, dim) bf16, LN1's gamma
-// and beta (fp32) and eps, W_q (heads * 64, dim) bf16 in the torch Linear
-// layout; with q_out set (training), Q (B * nq, heads * 64) bf16 is kept.
+// and beta (fp32) and eps, W_q (heads * dh, dim) bf16 in the torch Linear
+// layout; with q_out set (training), Q (B * nq, heads * dh) bf16 is kept.
 struct FewQ {
   const bf16* x = nullptr;
   const float* gamma = nullptr;
@@ -52,19 +74,22 @@ struct FewQ {
 };
 
 // O = softmax(Q K^T / sqrt(dh)) V over keys < valid_len, lse = the row
-// log-sum-exp (B, heads, nq) fp32 (skipped when nullptr); dh 32 or 64 (32
-// without dropout). With dropout, the max, the sum and lse are the
+// log-sum-exp (B, heads, nq) fp32 (skipped when nullptr); dh a multiple of
+// 8 from 8 to 128 (dim_head_ok), with or without dropout. With dropout, the max, the sum and lse are the
 // undropped softmax's and O = keep(P) V / l * inv_keep. One kernel: a
 // producer warpgroup (one thread issues the TMA loads), one or three
 // consumer warpgroups of 64 query rows on wgmma; the tiling by shape is in
 // flash_attention.cu. A base or stride off 16 bytes returns
-// cudaErrorMisalignedAddress; another dh cudaErrorInvalidValue.
+// cudaErrorMisalignedAddress; another dh cudaErrorInvalidValue. dh 32
+// (without dropout) and 64 run kernels built for that width; the others
+// kernels built for any dh in tiles of 32, 64 or 128 columns
+// (flash_fwd_widths, flash_attention_widths.cu).
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
                       int nq, int nk, int valid_len, int dh, cudaStream_t st,
                       Dropout dr = Dropout{});
 
-// The backward from the forward's O and lse -> dQ, dK, dV, dh 32 or 64 (32
-// without dropout); delta = rowsum(dO . O) (B, heads, nq) fp32 and ws
+// The backward from the forward's O and lse -> dQ, dK, dV, dh as
+// flash_fwd's; delta = rowsum(dO . O) (B, heads, nq) fp32 and ws
 // (flash_bwd_workspace floats: the fp32 dQ sums and their turn counters)
 // are scratch. Sums in a fixed order, so the outputs repeat bit for bit.
 // With dropout, O must be the dropped output the forward returned. Another
@@ -78,33 +103,48 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
 // against nk keys at head dim dh: 0 where the resident kernel runs (dh 32,
 // no dropout, nq == nk <= 320: the whole sequence in one CTA's shared
 // memory, delta and dQ summed there, one launch) and where the few-query
-// kernel does (dh 64, no dropout, nq <= 8 < nk: the CLS block's 8 query
-// rows against every key, one CTA a (sample, head), one launch).
+// kernel does (no dropout, nq <= 8 < nk: the CLS block's 8 query rows
+// against every key, one CTA a (sample, head), one launch).
 long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh);
 
 // Whether the backward at these shapes takes the resident kernel, and how
 // many sequences it packs into one 64-row tile (N <= 32).
 bool resident_bwd(int nq, int nk, int dh, bool dropout);
 
-// Whether the backward at these shapes takes the few-query kernel (dh 64,
-// no dropout, nq <= 8 < nk); flash_bwd refuses dropout at such shapes.
+// Whether the backward at these shapes takes the few-query kernel (no
+// dropout, nq <= 8 < nk); flash_bwd refuses dropout at such shapes.
 bool few_query_bwd(int nq, int nk, int dh, bool dropout);
 
-// Whether the forward at these shapes takes the few-query kernel (dh 64,
-// no dropout, nq <= 8 < nk <= 4096: one CTA a (sample, head), the scores
-// of every key in shared memory, an exact two-pass softmax); and whether
-// that kernel makes its own Q at this width (dim a multiple of 8 up to
+// Whether the forward at these shapes takes the few-query kernel (no
+// dropout, nq <= 8 < nk <= 4096: one CTA a (sample, head), the scores of
+// every key in shared memory, an exact two-pass softmax); and whether that
+// kernel makes its own Q at this width (dh <= 64, dim a multiple of 8 up to
 // 256: the CLS block's chain at dims 96 / 192).
 bool few_query_fwd(int nq, int nk, int dh, bool dropout);
-bool few_query_makes_q(int nq, int nk, int dim);
+bool few_query_makes_q(int nq, int nk, int dim, int dh);
 
 // The few-query forward with Q made in the CTA from fq: Q = bf16(LN1(x's
 // first nq rows of each sample) W_q^T), then attention as flash_fwd's
-// against k and v (dh 64) -> o, lse. Shapes outside few_query_makes_q
+// against k and v (head dim dh) -> o, lse. Shapes outside few_query_makes_q
 // return cudaErrorInvalidValue, operands off 16 bytes
 // cudaErrorMisalignedAddress.
 cudaError_t flash_fwd_few_q(const FewQ& fq, Strided k, Strided v, Strided o, float* lse, int B,
-                            int heads, int nq, int nk, int valid_len, cudaStream_t st);
+                            int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st);
+
+// The entries above at the head widths other than 32 (without dropout) and
+// 64, on the kernels built for any dh (flash_attention_widths.cu, a
+// translation unit of its own so that the build compiles both at once);
+// the entries call them after their checks.
+cudaError_t flash_fwd_widths(Strided q, Strided k, Strided v, Strided o, float* lse, int B,
+                             int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
+                             Dropout dr);
+cudaError_t flash_bwd_widths(Strided q, Strided k, Strided v, Strided o, Strided d_o,
+                             const float* lse, float* delta, float* ws, Strided dq, Strided dk,
+                             Strided dv, int B, int heads, int nq, int nk, int valid_len, int dh,
+                             cudaStream_t st, Dropout dr);
+cudaError_t flash_fwd_few_q_widths(const FewQ& fq, Strided k, Strided v, Strided o, float* lse,
+                                   int B, int heads, int nq, int nk, int valid_len, int dh,
+                                   cudaStream_t st);
 
 // Whether the forward at these shapes takes its resident kernel (dh 32, no
 // dropout, nq == nk <= 320: every MS-SiT fold; sequences packed, see

@@ -13,9 +13,9 @@
 // The CLS variant runs LN1 and the K/V GEMM over every row and the rest on
 // the first `rows` (<= 8) rows of each sample only. Attention is the
 // streamed kernel of flash_attention.cu, at any N (SiT-tiny's 321, SiT-base
-// on sub-ico 3's 1,281, MS-SiT's folded windows of 20 to 320) and head dim
-// 64 or 32 (MS-SiT, serving and training); the CLS block keeps dh 64, the
-// only width its backward takes (no MS-SiT pools by CLS).
+// on sub-ico 3's 1,281, MS-SiT's folded windows of 20 to 320) and every
+// head dim the attention takes (flash_attention.cuh dim_head_ok: a multiple
+// of 8 from 8 to 128), the CLS block's too.
 // The training entries (svt_fused_block[_cls]_train_fwd) run the same chain
 // and also keep what the backward (fused_block_bwd.cu) reads: LN
 // statistics, the fp32 fc1 pre-activation and the attention row
@@ -170,7 +170,7 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
               void* out, bf16* h, bf16* qkv, bf16* attn, bf16* x1, bf16* f, const Saves& s,
               int B, int N, int dim, int heads, int dim_head, int mlp, int valid_len, float eps,
               int device, void* stream) {
-  if (dim_head != ATT_DH && dim_head != 32) return (int)cudaErrorInvalidValue;
+  if (!dim_head_ok(dim_head)) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * dim_head;
@@ -220,11 +220,12 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
 // (ops/fused_block.py::cls_fwd_route), and whether, at dims 96 / 192, it
 // makes its own Q with LN1 in the K/V product's prologue (cls_ln1_in_kv:
 // F_LNA takes K = 96 or 192; past them the LayerNorm pass writes h and the
-// Q product reads it: Q made in the CTA measured slower there, PERF.md).
-bool cls_fwd_route(int N, int rows) { return few_query_fwd(rows, N, ATT_DH, false); }
-bool cls_ln1_in_kv(int N, int rows, int dim) {
-  return cls_fwd_route(N, rows) && (dim == 96 || dim == 192) &&
-         few_query_makes_q(rows, N, dim);
+// Q product reads it: Q made in the CTA measured slower there, PERF.md; and
+// Q is made in 64-row products, so up to dh 64).
+bool cls_fwd_route(int N, int rows, int dh) { return few_query_fwd(rows, N, dh, false); }
+bool cls_ln1_in_kv(int N, int rows, int dim, int dh) {
+  return cls_fwd_route(N, rows, dh) && (dim == 96 || dim == 192) &&
+         few_query_makes_q(rows, N, dim, dh);
 }
 
 int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out,
@@ -232,7 +233,7 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
                   void* b_fc2, void* out, bf16* h, bf16* kv, bf16* q, bf16* attn, bf16* x1,
                   bf16* f, const Saves& s, int B, int N, int rows, int dim, int heads,
                   int dim_head, int mlp, int valid_len, float eps, int device, void* stream) {
-  if (dim_head != ATT_DH || rows < 1 || rows > N) return (int)cudaErrorInvalidValue;
+  if (!dim_head_ok(dim_head) || rows < 1 || rows > N) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, Mt = B * rows, hd = heads * dim_head;
@@ -241,7 +242,7 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   const bool train = s.h2 != nullptr;
   bf16* h2 = train ? s.h2 : h;
 
-  if (cls_ln1_in_kv(N, rows, dim)) {  // [LN1 + K/V], the few-query attention making Q
+  if (cls_ln1_in_kv(N, rows, dim, dim_head)) {  // [LN1 + K/V], the few-query attention making Q
     gemm::Epilogue ep = out_bf16(kv, 2 * hd);
     ep.ln_gamma = (const float*)ln1_s;
     ep.ln_beta = (const float*)ln1_b;
@@ -257,14 +258,15 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
     fq.dim = dim;
     fq.eps = eps;
     fq.q_out = train ? q : nullptr;
-    SVT_TRY(flash_fwd_few_q(fq, packed(kv, N, 2 * hd), packed(kv + hd, N, 2 * hd),
-                            packed(attn, rows, hd), s.lse, B, heads, rows, N, valid_len, st));
+    SVT_TRY(flash_fwd_few_q(fq, packed(kv, N, 2 * hd, dim_head),
+                            packed(kv + hd, N, 2 * hd, dim_head), packed(attn, rows, hd, dim_head),
+                            s.lse, B, heads, rows, N, valid_len, dim_head, st));
   } else {  // LN1, K/V, Q, then the attention (the few-query forward on cls_fwd_route)
     SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1,
                       st));
     SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, wkv, 2 * hd, out_bf16(kv, 2 * hd), st));
     SVT_TRY(launch_gemm<gemm::F_NONE>(h, Mt, dim, rows, N, wq, hd, out_bf16(q, hd), st));
-    SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, ATT_DH,
+    SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, dim_head,
                              valid_len, s.lse, st));
   }
   SVT_TRY(launch_gemm<gemm::F_RES>(attn, Mt, hd, 0, 0, (const bf16*)w_out, dim,
@@ -284,7 +286,8 @@ extern "C" {
 
 const char* svt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// x (B, N, dim) -> out (B, N, dim), dim_head 32 or 64. Weights in torch
+// x (B, N, dim) -> out (B, N, dim), dim_head a multiple of 8 from 8 to
+// 128. Weights in torch
 // Linear layout (out, in),
 // bf16: w_qkv (3hd, dim), w_out (dim, hd), w_fc1 (mlp, dim), w_fc2 (dim, mlp);
 // LN parameters and biases fp32. Scratch: h (B*N, dim), qkv (B*N, 3hd),
@@ -322,7 +325,7 @@ int svt_fused_block_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv, vo
 // rows <= 8. LN1 and K/V over all N rows; Q, attention, out-proj, LN2 and the
 // MLP over the first `rows` rows of each sample. Scratch: h (B*N, dim),
 // kv (B*N, 2hd), q (B*rows, hd), attn (B*rows, hd), x1 (B*rows, dim),
-// f (B*rows, mlp), all bf16. Where svt_cls_fwd_route(N, rows, dim) says
+// f (B*rows, mlp), all bf16. Where svt_cls_fwd_route(N, rows, dim, dim_head) says
 // (its bits: 1 the few-query attention makes Q, 2 LN1 in the K/V product),
 // q is not touched (any pointer), and h where bit 2 is set only as LN2's
 // output (B*rows, dim).
@@ -357,12 +360,12 @@ int svt_fused_block_cls_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv
 }
 
 // The CLS forward's route at these shapes, as bits: 1 the attention is one
-// few-query launch that makes its own Q, 2 LN1 runs in the K/V product's
-// prologue (ops/fused_block.py: cls_fwd_route, cls_ln1_in_kv,
-// cls_fwd_launches).
-int svt_cls_fwd_route(int N, int rows, int dim) {
-  if (!cls_fwd_route(N, rows)) return 0;
-  return 1 | (cls_ln1_in_kv(N, rows, dim) ? 2 : 0);
+// few-query launch (that makes its own Q where bit 2 is set), 2 LN1 runs in
+// the K/V product's prologue (ops/fused_block.py: cls_fwd_route,
+// cls_ln1_in_kv, cls_fwd_launches).
+int svt_cls_fwd_route(int N, int rows, int dim, int dim_head) {
+  if (!cls_fwd_route(N, rows, dim_head)) return 0;
+  return 1 | (cls_ln1_in_kv(N, rows, dim, dim_head) ? 2 : 0);
 }
 
 // One forward product of the chain alone, for holding it against its plain

@@ -7,8 +7,9 @@
 //                          _attn_bwd_kernel)            -> svt_fused_block_bwd
 //   fused_block_cls_train  backward: _block_cls_bwd (_block_cls_bwd_kernel)
 //                          and _block_cls_bwd_split     -> svt_fused_block_cls_bwd
-// Both JAX routes compute the same gradients; one chain serves every width,
-// at head dim 64 or (svt_fused_block_bwd: MS-SiT's blocks) 32. MS-SiT's
+// Both JAX routes compute the same gradients; one chain serves every width
+// up to dim 768 and every head dim the attention takes (a multiple of 8 from
+// 8 to 128). MS-SiT's
 // first stage (dim 96, qkv 288) makes the dX products' N and K and the
 // weight gradients' Mout and Nout ragged against the engine's 128 x 192
 // tiles; TMA zero-fills them and the epilogues skip them, as in the forward.
@@ -538,8 +539,7 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                         void* da, void* dqkv, void* delta, void* ws, int B, int N, int dim,
                         int heads, int dim_head, int mlp, int valid_len, int device,
                         void* stream) {
-  if ((dim_head != ATT_DH && dim_head != 32) || dim > LNB_MAX_DIM)
-    return (int)cudaErrorInvalidValue;
+  if (!dim_head_ok(dim_head) || dim > LNB_MAX_DIM) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * dim_head;
@@ -594,7 +594,8 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                             void* dq, void* dkv, void* delta, void* ws, int B, int N, int rows,
                             int dim, int heads, int dim_head, int mlp, int valid_len, int device,
                             void* stream) {
-  if (dim_head != ATT_DH || dim > LNB_MAX_DIM || rows < 1 || rows > std::min(N, CLS_MAX_ROWS))
+  if (!dim_head_ok(dim_head) || dim > LNB_MAX_DIM || rows < 1 ||
+      rows > std::min(N, CLS_MAX_ROWS))
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -621,7 +622,7 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                            st));
   SVT_TRY(attn_bwd((const bf16*)q, hd, rows, kv_, kv_ + hd, 2 * hd, N, (const bf16*)attn,
                    (const bf16*)da, hd, (const float*)lse, (float*)delta, part, dq_, hd, dkv_,
-                   dkv_ + hd, 2 * hd, B, heads, ATT_DH, valid_len, st));
+                   dkv_ + hd, 2 * hd, B, heads, dim_head, valid_len, st));
   // dW_qkv rows [0, hd) from the top rows' dq, rows [hd, 3hd) from every row's dk/dv
   SVT_TRY(weight_grad(dq_, hd, (const bf16*)h1, dim, rows, N, hd, dim, Mt, (float*)d_wqkv, part,
                       st));

@@ -280,7 +280,8 @@ extern "C" {
 // the attention output's and LN2's codes), qf (B*N, mlp) int8 and sf
 // (B*N,) fp32 (f's), part (parts, B*N) fp32 with parts = ceil(mlp / 192)
 // (any other count returns cudaErrorInvalidValue), qkv (B*N, 3hd) and attn
-// (B*N, hd) bf16, x1 (B*N, dim) fp32. dim and mlp multiples of 16.
+// (B*N, hd) bf16, x1 (B*N, dim) fp32. dim, mlp and hd multiples of 16 (int8
+// rows on 16 bytes), dim_head a multiple of 8 from 8 to 128.
 int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s_qkv,
                          void* q_out, void* s_out, void* b_out, void* ln2_s, void* ln2_b,
                          void* q_fc1, void* s_fc1, void* b_fc1, void* q_fc2, void* s_fc2,
@@ -288,8 +289,8 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
                          void* ws_sf, void* ws_part, void* ws_qkv, void* ws_attn, void* ws_x1,
                          int B, int N, int dim, int heads, int dim_head, int mlp, int parts,
                          int valid_len, float eps, int device, void* stream) {
-  if ((dim_head != ATT_DH && dim_head != 32) || parts != fc1_parts(mlp) || dim % 16 ||
-      mlp % 16)
+  if (!dim_head_ok(dim_head) || parts != fc1_parts(mlp) || dim % 16 || mlp % 16 ||
+      heads * dim_head % 16)
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -13,24 +13,28 @@ after it; the backward forms P from the kept LSE.
 
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/flash_attention.cu``) streams K
 and V through shared memory in tiles with an online softmax, so it takes any
-sequence length, bfloat16. Both directions take dh 64 and, without
-dropout, dh 32 (MS-SiT's heads). The plain versions take any dh. At dh 32
+sequence length, bfloat16. Both directions, with or without dropout, take
+every head dim that is a multiple of 8 from 8 to 128 (``check_dim_head``):
+dh 64 and dh 32 (MS-SiT's heads) on kernels built for them, the others
+(``csrc/flash_attention_widths.cu``) in the smallest tile of 32, 64 or 128
+columns that holds the head, zeros past dh, the softmax scale dh ** -0.5
+given at run time. The plain versions take any dh. At dh 32
 the forward runs on 32-column tiles (no zero columns); where queries = keys
 <= 320 and the sequence is not a whole number of 64-row tiles
 (``resident_fwd``: MS-SiT's axial folds of 20 and 80) a kernel of its own
 lays sequences side by side (``fwd_pack``), so that no query tile is
 mostly empty: each CTA loads a 64-row query tile and the keys its rows can
 see, under a block-diagonal mask.
-At dh 64 the forward of at most 8 queries against more keys, up to
+At every width the forward of at most 8 queries against more keys, up to
 ``FEW_FWD_MAX_KEYS`` (``few_query_fwd``: the CLS block's 8 rows), is one
 launch that keeps every key's scores in shared memory (an exact softmax,
 the queries on the short side of every product); the CLS block's chain
 runs the same kernel with its Q made inside it.
 The backward at dh 32 up to 320 keys (``resident_bwd``: every MS-SiT fold) is
 one launch that keeps the whole sequence in shared memory, packing
-sequences of up to 32 rows into one tile (``resident_pack``); at dh 64 for
-at most 8 queries against more keys (``few_query_bwd``: the CLS block's 8
-rows) one launch that streams the keys past the few queries; elsewhere it
+sequences of up to 32 rows into one tile (``resident_pack``); for at most
+8 queries against more keys (``few_query_bwd``: the CLS block's 8 rows)
+one launch that streams the keys past the few queries; elsewhere it
 streams the queries past each 64-key block once (wgmma) and sums dq in a
 fixed order in an fp32 workspace the wrapper allocates
 (``bwd_workspace_floats``). Either way its outputs repeat bit for bit. It reads
@@ -65,11 +69,13 @@ import torch
 
 from surface_vision_transformers_tpu_torch.ops import _native
 
-DIM_HEADS = (32, 64)  # the kernels' head dims (32 without dropout)
-DROPOUT_DIM_HEAD = 64  # the dropout kernels'
+DIM_HEAD_STEP, MAX_DIM_HEAD = 8, 128  # the kernels' head dims: multiples of 8 up to 128
+DIM_HEADS = tuple(range(DIM_HEAD_STEP, MAX_DIM_HEAD + 1, DIM_HEAD_STEP))
 RESIDENT_MAX_N = 320  # the resident backward's longest sequence: five 64-row tiles
 FEW_MAX_Q = 8  # the few-query kernels' query rows: the n of their m64n8 products
-FEW_FWD_MAX_KEYS = 4096  # the few-query forward's fp32 scores: 32 bytes a key of shared memory
+# The few-query forward's fp32 scores: 32 bytes a key of shared memory, beside
+# two ring stages of 64 keys at every tile width (16 KB at 128 columns)
+FEW_FWD_MAX_KEYS = 4096
 _BWD_TILE, _BWD_CHAINS = 64, 4  # the streamed backward's query tile and dQ sums per tile
 
 
@@ -86,10 +92,10 @@ def few_query_bwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     """Whether the backward at these shapes runs the few-query kernel
     (``csrc/flash_attention.cu``: one launch, one CTA a (sample, head), K and
     V streamed past its query rows, every product with the queries on its
-    short side, delta and dQ summed in the CTA): head dim 64, no dropout, at
-    most ``FEW_MAX_Q`` queries against more keys (the CLS block's 8 rows
-    against all N keys)."""
-    return dh == 64 and not dropout and nq <= FEW_MAX_Q < nk
+    short side, delta and dQ summed in the CTA): any head dim the kernels
+    take, no dropout, at most ``FEW_MAX_Q`` queries against more keys (the
+    CLS block's 8 rows against all N keys)."""
+    return dh in DIM_HEADS and not dropout and nq <= FEW_MAX_Q < nk
 
 
 few_query_bwd.launches = 0
@@ -99,12 +105,12 @@ def few_query_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     """Whether the forward at these shapes runs the few-query kernel
     (``csrc/flash_attention.cu``: one launch, one CTA a (sample, head), the
     queries on the short side of m64n8 products, the fp32 scores of every
-    key kept in shared memory, an exact two-pass softmax): head dim 64, no
-    dropout, at most ``FEW_MAX_Q`` queries against more keys, up to
-    ``FEW_FWD_MAX_KEYS`` (the scores' shared memory). The CLS block's
-    chain runs the same kernel with its Q made inside it
-    (``fused_block.cls_fwd_route``)."""
-    return dh == 64 and not dropout and nq <= FEW_MAX_Q < nk <= FEW_FWD_MAX_KEYS
+    key kept in shared memory, an exact two-pass softmax): any head dim the
+    kernels take, no dropout, at most ``FEW_MAX_Q`` queries against more
+    keys, up to ``FEW_FWD_MAX_KEYS`` (the scores' shared memory). The CLS
+    block's chain runs the same kernel, with its Q made inside it up to dh
+    64 (``fused_block.cls_fwd_route``, ``cls_ln1_in_kv``)."""
+    return dh in DIM_HEADS and not dropout and nq <= FEW_MAX_Q < nk <= FEW_FWD_MAX_KEYS
 
 
 few_query_fwd.launches = 0
@@ -130,9 +136,16 @@ def resident_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     rows see in shared memory, sequences packed): the shapes of
     ``resident_bwd`` whose sequence is not a whole number of 64-row tiles
     (MS-SiT's axial folds of 20 and 80 rows). Else the streamed kernel (K
-    and V through a ring of 64- or 128-key tiles; 32-column tiles at dh
-    32)."""
+    and V through a ring of 64- or 128-key tiles of 32, 64 or 128 columns:
+    ``tile_width``)."""
     return resident_bwd(nq, nk, dh, dropout) and nq % 64 != 0
+
+
+def tile_width(dh: int) -> int:
+    """Columns of the tiles a head of dh columns runs in (the smallest of
+    32, 64 and 128 that holds it; zeros past dh). The streamed backward and
+    the few-query kernels take 64 where this says 32."""
+    return 32 if dh <= 32 else 64 if dh <= 64 else 128
 
 
 def fwd_pack(n: int) -> int:
@@ -302,25 +315,27 @@ def _heads_last_empty(like, n):
     return like.new_empty((B, n, H, dh)).transpose(1, 2)
 
 
-def check_dim_head(dh: int, *, dropout: bool = False) -> None:
-    """Raise ``NotImplementedError`` on a head dim the kernels are not built
-    for: forward and backward take 32 and 64, with dropout 64 only."""
-    if dropout and dh != DROPOUT_DIM_HEAD:
+def check_dim_head(dh: int) -> None:
+    """Raise ``NotImplementedError`` on a head dim the kernels do not take:
+    they take every multiple of 8 from 8 to 128, with or without dropout."""
+    if dh % DIM_HEAD_STEP or dh < DIM_HEAD_STEP:
         raise NotImplementedError(
-            f"the attention dropout kernels are built for dim_head {DROPOUT_DIM_HEAD}, "
-            f"got {dh}")
-    if dh not in DIM_HEADS:
+            f"the attention kernels take dim_head a multiple of {DIM_HEAD_STEP}, got {dh}: "
+            f"a head's columns start at head * dim_head * 2 bytes, and TMA loads them "
+            f"from 16-byte boundaries")
+    if dh > MAX_DIM_HEAD:
         raise NotImplementedError(
-            f"the attention kernels are built for dim_head {DIM_HEADS}, got {dh}")
+            f"the attention kernels take dim_head up to {MAX_DIM_HEAD}, got {dh}: the "
+            f"widest tile built is {MAX_DIM_HEAD} columns")
 
 
-def _check_cuda(q, k, v, valid_len, *extra, dropout=False):
+def _check_cuda(q, k, v, valid_len, *extra):
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.dtype != torch.bfloat16 or t.dim() != 4 or t.device != q.device:
             raise ValueError(f"{name} must be a bfloat16 (B, H, N, dh) tensor on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     B, H, _, dh = q.shape
-    check_dim_head(dh, dropout=dropout)
+    check_dim_head(dh)
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != dh:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
@@ -347,7 +362,7 @@ def _fwd(q, k, v, vl, rate=0.0, seed=0):
     if _dispatch(q) == "cpu":
         keep = None if not rate else dropout_keep_mask(seed, *q.shape[:3], k.shape[2], rate)
         return flash_attention_reference(q, k, v, vl, keep, rate)
-    _check_cuda(q, k, v, vl, dropout=bool(rate))
+    _check_cuda(q, k, v, vl)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, H, nq, dh = q.shape
     o = _heads_last_empty(q, nq)
@@ -371,7 +386,7 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         for dst, g in zip(out, grads):
             dst.copy_(g)
         return out
-    _check_cuda(q, k, v, vl, ("o", o), ("do", do), dropout=bool(rate))
+    _check_cuda(q, k, v, vl, ("o", o), ("do", do))
     B, H, nq, dh = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("o and do must have q's shape")

@@ -60,8 +60,8 @@ import torch.nn.functional as F
 from surface_vision_transformers_tpu_torch.ops import _native
 from surface_vision_transformers_tpu_torch.serving import svt_ops
 from surface_vision_transformers_tpu_torch.ops.flash_attention import (
-    DIM_HEADS,
     bwd_workspace_floats,
+    check_dim_head,
     count_few_query,
     few_query_fwd,
     flash_attention,
@@ -213,19 +213,6 @@ def cls_attention_reference(x, ln1_scale, ln1_bias, w_q, k, v, *, heads: int,
 # -- kernel wrappers -------------------------------------------------------------
 
 
-def check_dim_head(dim_head: int, cls: bool = False) -> None:
-    """Raise ``NotImplementedError`` on a head dim the chain is not built
-    for: ``fused_block``, its training forward and ``fused_block_bwd`` take
-    32 (MS-SiT) and 64; the CLS block and its backward 64 (no MS-SiT pools
-    by CLS)."""
-    if dim_head not in DIM_HEADS:
-        raise NotImplementedError(
-            f"the block kernels are built for dim_head 32 or 64, got {dim_head}")
-    if cls and dim_head != 64:
-        raise NotImplementedError(
-            f"the CLS block kernels are built for dim_head 64, got {dim_head}")
-
-
 def check_vectors(vectors: dict, aligned: bool = True) -> None:
     """Raise unless each float32 vector (name: (tensor, length)) has its
     length, is contiguous and, with ``aligned``, starts on 16 bytes: the
@@ -241,11 +228,11 @@ def check_vectors(vectors: dict, aligned: bool = True) -> None:
                              "(the engine loads it as float4)")
 
 
-def _check_cuda_args(x, params, heads, dim_head, valid_len, cls=False, addresses=True):
-    """Validate everything the kernels assume; raise on anything else.
-    ``cls``: the CLS block's chains, which take dim_head 64 only;
-    ``addresses`` False leaves the 16-byte checks to the serving operators'
-    CUDA kernels."""
+def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
+    """Validate everything the kernels assume; raise on anything else. Both
+    blocks take the attention kernels' head dims (``check_dim_head``: every
+    multiple of 8 from 8 to 128); ``addresses`` False leaves the 16-byte
+    checks to the serving operators' CUDA kernels."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b,
      w_fc1, b_fc1, w_fc2, b_fc2) = params
     if x.dtype != torch.bfloat16:
@@ -255,7 +242,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, cls=False, addresses
     B, N, dim = x.shape
     hd = heads * dim_head
     mlp = w_fc1.shape[0]
-    check_dim_head(dim_head, cls)
+    check_dim_head(dim_head)
     if dim % 8 or mlp % 8:
         raise NotImplementedError("dim and mlp_dim must be multiples of 8")
     if not 1 <= valid_len <= N:
@@ -337,7 +324,7 @@ def fused_block_cls(
               w_fc1, b_fc1, w_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
     if _dispatch(x) == "cuda":
-        _check_cuda_args(x, params, heads, dim_head, vl, cls=True, addresses=False)
+        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False)
         check_tma_operands(cls_rows=min(_CLS_ROWS, x.shape[1]))
     return torch.ops.svt.fused_block_cls(x, *params, heads, dim_head, vl, ln_eps)
 
@@ -364,8 +351,10 @@ fused_block_cls.launches = 0
 # ``_xla_block_ref(attn="flash")``, the forward is the serving ``fused_block``
 # keeping only x and the backward recomputes the block under autograd
 # (``fused_block_recompute_bwd``): torch GEMMs and LayerNorms around the
-# ``flash_attention`` kernel. The CLS block always takes the chain, as the
-# JAX package takes ``_block_cls_bwd_split`` there.
+# ``flash_attention`` kernel. The CLS block takes the chain at any N, as the
+# JAX package takes ``_block_cls_bwd_split`` there, up to ``_MAX_BWD_DIM``
+# width; past it (``cls_uses_recompute``) the recompute route of
+# ``fused_block_cls``, as the JAX package sends it to its XLA mirror.
 
 # What the training forward keeps, by name (shapes for x (B, N, dim)):
 # h1 (B, N, dim), qkv (B, N, 3hd), attn (B, N, hd), lse (B, H, N) fp32,
@@ -425,32 +414,34 @@ def fuses_mlp(dim: int, mlp: int, train: bool = False) -> bool:
             and 128 <= mlp <= 4 * dim)
 
 
-def cls_fwd_route(N: int, rows: int) -> bool:
+def cls_fwd_route(N: int, rows: int, dim_head: int = 64) -> bool:
     """Whether the CLS block's forward runs its attention as the few-query
     kernel (``csrc/flash_attention.cu``; ``cls_fwd_route`` in
-    ``csrc/fused_block.cu``): where ``few_query_fwd(rows, N, 64)`` holds.
-    Else the streamed forward."""
-    return few_query_fwd(rows, N, 64)
+    ``csrc/fused_block.cu``): where ``few_query_fwd(rows, N, dim_head)``
+    holds, at every head dim the kernels take. Else the streamed
+    forward."""
+    return few_query_fwd(rows, N, dim_head)
 
 
-def cls_ln1_in_kv(N: int, rows: int, dim: int) -> bool:
+def cls_ln1_in_kv(N: int, rows: int, dim: int, dim_head: int = 64) -> bool:
     """Whether the CLS forward runs LN1 in the K/V product's prologue
     (``csrc/gemm.cuh`` F_LNA: K = dim 96 or 192) and makes Q inside the
     few-query attention's CTAs (LN1 of each sample's top rows and their
     product with the head's W_q), so that neither h (serving) nor q is
-    written: on ``cls_fwd_route`` at those dims. Wider, the LayerNorm pass
-    writes h and the Q product reads it (Q made in the CTAs took longer
-    there: PERF.md)."""
-    return cls_fwd_route(N, rows) and dim in FUSED_MLP_DIMS
+    written: on ``cls_fwd_route`` at those dims, up to dh 64 (the CTA makes
+    Q^T in one m64 product: C ``few_query_makes_q``). Wider, or wider heads,
+    the LayerNorm pass writes h and the Q product reads it (Q made in the
+    CTAs took longer there: PERF.md)."""
+    return cls_fwd_route(N, rows, dim_head) and dim in FUSED_MLP_DIMS and dim_head <= 64
 
 
-def cls_fwd_launches(N: int, dim: int) -> int:
+def cls_fwd_launches(N: int, dim: int, dim_head: int = 64) -> int:
     """Device kernels one CLS forward runs, serving or training: where
     ``cls_ln1_in_kv``, six ([LN1 + K/V], the few-query attention with its
     Q, the out-projection, LN2, fc1, fc2: the fused MLP kernel took 1.8x as
     long as these three on the CLS block's 2,048 top rows, PERF.md); else
     eight (LN1, K/V, Q, the attention, out-projection, LN2, fc1, fc2)."""
-    return 6 if cls_ln1_in_kv(N, min(_CLS_ROWS, N), dim) else 8
+    return 6 if cls_ln1_in_kv(N, min(_CLS_ROWS, N), dim, dim_head) else 8
 
 
 def block_bwd_dh_floats(B: int, N: int, dim: int, cls_rows: int = 0) -> int:
@@ -503,6 +494,14 @@ def uses_recompute(n_tokens: int, dim: int) -> bool:
     (else the chain): beyond ``CHAIN_MAX_SEQ_LEN`` tokens or
     ``_MAX_BWD_DIM`` width."""
     return n_tokens > CHAIN_MAX_SEQ_LEN or dim > _MAX_BWD_DIM
+
+
+def cls_uses_recompute(dim: int) -> bool:
+    """Whether the CLS block trains on the recompute route (else the
+    chain): past ``_MAX_BWD_DIM`` width, where the JAX package sends it to
+    its XLA mirror too (``_split_cls_bwd_feasible``); at any N the chain,
+    as the JAX package takes ``_block_cls_bwd_split``."""
+    return dim > _MAX_BWD_DIM
 
 
 def _gelu_grad(f):
@@ -642,7 +641,7 @@ def train_forward(x, *params, heads: int, dim_head: int,
         out = ref(x, *params, heads=heads, dim_head=dim_head, valid_len=vl,
                   ln_eps=ln_eps, saved=sv)
         return out, sv
-    _check_cuda_args(x, params, heads, dim_head, vl, cls)
+    _check_cuda_args(x, params, heads, dim_head, vl)
     B, N, dim = x.shape
     hd, mlp, H = heads * dim_head, params[7].shape[0], heads
     rows = min(_CLS_ROWS, N) if cls else N
@@ -669,7 +668,7 @@ def train_forward(x, *params, heads: int, dim_head: int,
             *ptrs, B, N, rows, dim, heads, dim_head, mlp, vl, ln_eps,
             x.device.index, stream))
         fused_block_cls.launches += 1
-        _count_cls(N, rows, dim)
+        _count_cls(N, rows, dim, dim_head)
     else:
         _native.check(lib.svt_fused_block_train_fwd(
             *ptrs, B, N, dim, heads, dim_head, mlp, vl, ln_eps,
@@ -680,7 +679,7 @@ def train_forward(x, *params, heads: int, dim_head: int,
 
 
 def _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls):
-    _check_cuda_args(x, params, heads, dim_head, vl, cls)
+    _check_cuda_args(x, params, heads, dim_head, vl)
     B, N, dim = x.shape
     rows = min(_CLS_ROWS, N) if cls else N
     if dim > _MAX_BWD_DIM:
@@ -929,13 +928,13 @@ def _count_fused(fused: bool) -> None:
         block_mlp.launches += 1
 
 
-def _count_cls(N: int, rows: int, dim: int) -> None:
+def _count_cls(N: int, rows: int, dim: int, dim_head: int) -> None:
     """A CLS forward chain on ``cls_fwd_route`` launched the few-query
     attention once (``few_query_fwd.launches``), and its [LN1 + K/V] once
     where ``cls_ln1_in_kv`` (``block_ln_gemm.launches``)."""
-    if cls_fwd_route(N, rows):
+    if cls_fwd_route(N, rows, dim_head):
         few_query_fwd.launches += 1
-        if cls_ln1_in_kv(N, rows, dim):
+        if cls_ln1_in_kv(N, rows, dim, dim_head):
             block_ln_gemm.launches += 1
 
 
@@ -1077,21 +1076,29 @@ class _Round(torch.autograd.Function):
 def block_recompute(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
                     ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int,
                     dim_head: int, valid_len: int | None = None,
-                    ln_eps: float = 1e-5):
+                    ln_eps: float = 1e-5, cls: bool = False):
     """``fused_block`` in torch ops under autograd (the counterpart of the
     JAX package's ``_xla_block_ref(attn="flash")``), at the chain's rounding
     points in x.dtype: bf16 LN outputs, qkv, x1 and GELU output, fp32 fc1
     pre-activation, exact-erf GELU. Attention is ``flash_attention`` (the
     kernel on CUDA). Parameters of any float dtype (matrices cast to x.dtype
-    inside, gradients in their own dtypes)."""
+    inside, gradients in their own dtypes). ``cls``: ``fused_block_cls``
+    (K and V over every row; Q, the attention and the rest on the top
+    min(8, N) rows) -> (B, rows, dim)."""
     dt, (B, N, dim) = x.dtype, x.shape
     vl = N if valid_len is None else int(valid_len)
     xf = x.float()
     h = F.layer_norm(xf, (dim,), ln1_scale.float(), ln1_bias.float(), ln_eps)
-    qkv = _Linear32.apply(h, w_qkv, dt).to(dt)
-    q, k, v = (t.transpose(1, 2) for t in
-               qkv.view(B, N, 3, heads, dim_head).unbind(2))
-    attn = flash_attention(q, k, v, vl).transpose(1, 2).reshape(B, N, heads * dim_head)
+    if cls:
+        rows, hd = min(_CLS_ROWS, N), heads * dim_head
+        kv = _Linear32.apply(h, w_qkv[hd:], dt).to(dt)
+        q = _Linear32.apply(h[:, :rows], w_qkv[:hd], dt).to(dt)
+        k, v = (t.transpose(1, 2) for t in kv.view(B, N, 2, heads, dim_head).unbind(2))
+        q, xf = q.view(B, rows, heads, dim_head).transpose(1, 2), xf[:, :rows]
+    else:
+        q, k, v = (t.transpose(1, 2) for t in
+                   _Linear32.apply(h, w_qkv, dt).to(dt).view(B, N, 3, heads, dim_head).unbind(2))
+    attn = flash_attention(q, k, v, vl).transpose(1, 2).flatten(2)
     x1 = _Round.apply(xf + _Linear32.apply(attn, w_out, dt) + b_out.float(), dt)
     h2 = F.layer_norm(x1, (dim,), ln2_scale.float(), ln2_bias.float(), ln_eps)
     f = F.gelu(_Linear32.apply(h2, w_fc1, dt) + b_fc1.float())
@@ -1099,15 +1106,17 @@ def block_recompute(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
 
 
 def fused_block_recompute_bwd(x, g, *params, heads: int, dim_head: int,
-                              valid_len: int | None = None, ln_eps: float = 1e-5):
-    """The recompute route's backward of ``fused_block``: ``block_recompute``
-    from x, then autograd with cotangent g. -> (dx, the 11 parameter
-    gradients in the parameters' dtypes). On CUDA, counted in ``launches``."""
+                              valid_len: int | None = None, ln_eps: float = 1e-5,
+                              cls: bool = False):
+    """The recompute route's backward of ``fused_block`` (``cls``:
+    ``fused_block_cls``, g (B, min(8, N), dim)): ``block_recompute`` from x,
+    then autograd with cotangent g. -> (dx, the 11 parameter gradients in
+    the parameters' dtypes). On CUDA, counted in ``launches``."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_()
         ps = [p.detach().requires_grad_() for p in params]
         out = block_recompute(xr, *ps, heads=heads, dim_head=dim_head,
-                              valid_len=valid_len, ln_eps=ln_eps)
+                              valid_len=valid_len, ln_eps=ln_eps, cls=cls)
         grads = torch.autograd.grad(out, [xr, *ps], g)
     if x.device.type == "cuda":
         fused_block_recompute_bwd.launches += 1
@@ -1121,7 +1130,8 @@ class _BlockTrain(torch.autograd.Function):
     """Differentiable block over master parameters of any float dtype: the
     matrices are cast to x.dtype (the compute dtype) inside, the vectors to
     float32, and the gradients come back in the masters' dtypes. The route
-    (chain or recompute) follows ``uses_recompute``."""
+    (chain or recompute) follows ``uses_recompute`` (the CLS block:
+    ``cls_uses_recompute``)."""
 
     @staticmethod
     def forward(ctx, x, heads, dim_head, valid_len, ln_eps, cls, *masters):
@@ -1132,9 +1142,9 @@ class _BlockTrain(torch.autograd.Function):
         vl = x.shape[1] if valid_len is None else int(valid_len)
         kw = dict(heads=heads, dim_head=dim_head, valid_len=vl, ln_eps=ln_eps)
         ctx.dtypes, ctx.cls = [m.dtype for m in masters], cls
-        if not cls and uses_recompute(x.shape[1], x.shape[2]):
+        if cls_uses_recompute(x.shape[2]) if cls else uses_recompute(x.shape[1], x.shape[2]):
             ctx.state = (x, masters, None, kw)
-            return fused_block(x, *params, **kw)
+            return (fused_block_cls if cls else fused_block)(x, *params, **kw)
         out, sv = train_forward(x, *params, cls=cls, **kw)
         ctx.state = (x, params, sv, kw)
         return out
@@ -1145,7 +1155,7 @@ class _BlockTrain(torch.autograd.Function):
         del ctx.state  # the kept activations go as soon as they are used
         g = g.to(x.dtype).contiguous()
         if sv is None:
-            dx, *grads = fused_block_recompute_bwd(x, g, *params, **kw)
+            dx, *grads = fused_block_recompute_bwd(x, g, *params, cls=ctx.cls, **kw)
         else:
             del kw["ln_eps"]
             bwd = fused_block_cls_bwd if ctx.cls else fused_block_bwd

@@ -70,7 +70,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                        ("svt_fused_block_cls", [P] * 19 + [I] * 8 + [F, I, P]),
                        ("svt_fused_block_int8", [P] * 25 + [I] * 8 + [F, I, P]),
                        ("svt_patch_embed", [P, I] + [P] * 4 + [I] * 7 + [I, P]),
-                       ("svt_patch_embed_smem", [I] * 5), ("svt_cls_fwd_route", [I] * 3),
+                       ("svt_patch_embed_smem", [I] * 5), ("svt_cls_fwd_route", [I] * 4),
                        ("svt_block_fused_mlp", [I] * 3), ("svt_error_string", [I])):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -178,7 +178,8 @@ def _fused_block_cls_cuda(x, *args):
     B, N, dim = x.shape
     rows = min(CLS_ROWS, N)
     hd, mlp, Mt = heads * dim_head, params[7].shape[0], B * rows
-    route = lib.svt_cls_fwd_route(N, rows, dim)  # bit 1: few-query attention; 2: LN1 in K/V
+    # bit 1: few-query attention; 2: LN1 in K/V (and Q made in the attention)
+    route = lib.svt_cls_fwd_route(N, rows, dim, dim_head)
     ln_kv = bool(route & 2)
     out = x.new_empty((B, rows, dim))
     # where LN1 runs in the K/V product, h is LN2's output alone and q is

@@ -518,17 +518,18 @@ def test_bf16_wrapper_refuses_fp32_vectors_off_16_bytes(name):
         tfb.check_vectors({"bias": (off, off.numel())})
 
 
-@pytest.mark.parametrize("dim_head,heads,cls,error", [
-    (64, 1, False, None), (64, 1, True, None), (32, 2, False, None),
-    (32, 2, True, NotImplementedError), (16, 4, False, NotImplementedError),
+@pytest.mark.parametrize("dim_head,heads,error", [
+    (64, 1, None), (32, 2, None), (16, 4, None), (128, 1, None),
+    (20, 4, NotImplementedError), (136, 1, NotImplementedError),
 ])
-def test_bf16_wrapper_head_dims(dim_head, heads, cls, error):
-    """``fused_block``, its training forward and ``fused_block_bwd`` take
-    dim_head 32 (MS-SiT) and 64; the CLS block and its backward 64, the one
-    width no MS-SiT needs beyond."""
+def test_bf16_wrapper_head_dims(dim_head, heads, error):
+    """``fused_block``, its training forward and ``fused_block_bwd``, and the
+    CLS block and its backward (one check for both), take every head dim
+    the attention kernels take: a multiple of 8 from 8 to 128 (dh 20 and
+    136 are refused)."""
     x, args = _cuda_check_args(dim_head, heads)
     if error is None:
-        tfb._check_cuda_args(x, args, heads, dim_head, VALID, cls=cls)
+        tfb._check_cuda_args(x, args, heads, dim_head, VALID)
     else:
         with pytest.raises(error, match="dim_head"):
-            tfb._check_cuda_args(x, args, heads, dim_head, VALID, cls=cls)
+            tfb._check_cuda_args(x, args, heads, dim_head, VALID)

@@ -246,9 +246,10 @@ def test_int8_workspace_holds_no_float32_f():
 
 def test_int8_wrapper_argument_checks():
     """What the CUDA wrapper refuses, reached with CPU tensors: rows the
-    engine's TMA cannot read (dim or mlp off 16), a head width other than
-    32 or 64 (32 is MS-SiT's: taken), a bad valid_len, non-int8 codes, a
-    bias off 16 bytes; the part wrappers take CUDA tensors only."""
+    engine's TMA cannot read (dim or mlp off 16), a head width the
+    attention kernels do not take (a multiple of 8 from 8 to 128: 32, MS-SiT's,
+    and 48 are taken, 20 is not), a bad valid_len, non-int8 codes, a bias
+    off 16 bytes; the part wrappers take CUDA tensors only."""
     rng = np.random.default_rng(6)
 
     def params(dim, heads, mlp):
@@ -266,8 +267,9 @@ def test_int8_wrapper_argument_checks():
     with pytest.raises(NotImplementedError, match="multiples of 16"):
         tq8._check_cuda_args(x, params(192, 3, 760), 3, 64, 10)
     tq8._check_cuda_args(x, params(192, 3, 768), 6, 32, 10)  # dh 32: taken
-    with pytest.raises(NotImplementedError, match="dim_head 32 or 64"):
-        tq8._check_cuda_args(x, params(192, 3, 768), 4, 48, 10)
+    tq8._check_cuda_args(x, params(192, 3, 768), 4, 48, 10)  # dh 48: taken
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        tq8._check_cuda_args(x, params(192, 3, 768), 4, 20, 10)
     with pytest.raises(ValueError, match="valid_len"):
         tq8._check_cuda_args(x, params(192, 3, 768), 3, 64, 11)
     with pytest.raises(TypeError, match="bfloat16"):

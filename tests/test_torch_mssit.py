@@ -274,28 +274,32 @@ def test_attention_forward_route_and_pack(nq, nk, dh, dropout, resident, pack):
         assert tfa.fwd_pack(nq) * nq <= 320
 
 
-@pytest.mark.parametrize("dh,taken", [(32, True), (64, True), (48, False)])
+@pytest.mark.parametrize("dh,taken", [(32, True), (64, True), (48, True), (20, False),
+                                      (136, False)])
 def test_wrapper_head_dim_checks_take_dh32_training(dh, taken):
     """What the CUDA wrappers take, reached through their checks with CPU
     tensors: the attention (forward and backward), ``fused_block`` (serving,
-    its training forward and ``fused_block_bwd``) and ``fused_block_int8``
-    dh 32 and 64, 48 nowhere; the CLS block 64 only (no MS-SiT pools by
-    CLS)."""
+    its training forward and ``fused_block_bwd``), the CLS block and its
+    backward and ``fused_block_int8`` take every multiple of 8 from 8 to 128
+    (32, 48, 64); 20 and 136 nowhere."""
     for check in (tfa.check_dim_head, tfb.check_dim_head):
         if taken:
             check(dh)
         else:
             with pytest.raises(NotImplementedError, match="dim_head"):
                 check(dh)
-    if dh == 64:
-        tfb.check_dim_head(dh, cls=True)
-    else:
-        with pytest.raises(NotImplementedError, match="dim_head"):
-            tfb.check_dim_head(dh, cls=True)
     heads = 192 // dh if 192 % dh == 0 else 4
     x = torch.zeros((2, 10, 192), dtype=torch.bfloat16)
     w = [torch.zeros(n, dtype=torch.float32) for n in (192, 192, 192, 192, 192, 768, 192)]
     hd = heads * dh
+    bf = lambda o, i: torch.zeros((o, i), dtype=torch.bfloat16)  # noqa: E731
+    pb = (w[0], w[1], bf(3 * hd, 192), bf(192, hd), w[2], w[3], w[4], bf(768, 192), w[5],
+          bf(192, 768), w[6])
+    if taken:
+        tfb._check_cuda_args(x, pb, heads, dh, 10)
+    else:
+        with pytest.raises(NotImplementedError, match="dim_head"):
+            tfb._check_cuda_args(x, pb, heads, dh, 10)
     q8 = lambda o, i: torch.zeros((o, i), dtype=torch.int8)  # noqa: E731
     params = (w[0], w[1], q8(3 * hd, 192), torch.ones(3 * hd), q8(192, hd), torch.ones(192),
               w[2], w[3], w[4], q8(768, 192), torch.ones(768), w[5], q8(192, 768),
@@ -310,17 +314,15 @@ def test_wrapper_head_dim_checks_take_dh32_training(dh, taken):
 @pytest.mark.parametrize("dh", [32, 64])
 def test_attention_cuda_checks_take_the_dh32_backward(dh):
     """The CUDA attention wrappers' checks, before any launch: the forward
-    and the backward (q, k, v, o, dO) pass at dh 32 as at 64; the dropout
-    kernels stay dh 64 only (MS-SiT's dropout runs the plain softmax, as in
-    JAX)."""
+    and the backward (q, k, v, o, dO) pass at dh 32 as at 64, the dropout
+    kernels' too (one check for both: every multiple of 8 from 8 to 128;
+    MS-SiT's dropout still runs the plain softmax, as in JAX)."""
     q = torch.zeros((1, 2, 8, dh), dtype=torch.bfloat16)
     tfa._check_cuda(q, q, q, 8)
     tfa._check_cuda(q, q, q, 8, ("o", q), ("do", q))
-    if dh == 64:
-        tfa._check_cuda(q, q, q, 8, ("o", q), ("do", q), dropout=True)
-    else:
-        with pytest.raises(NotImplementedError, match="dim_head 64"):
-            tfa._check_cuda(q, q, q, 8, ("o", q), ("do", q), dropout=True)
+    tfa.check_dim_head(dh)
+    with pytest.raises(ValueError, match="k .* and v"):
+        tfa._check_cuda(q, q[..., :8], q[..., :8], 8)
 
 
 # -- run_testing and the CLIs ---------------------------------------------------------------------
