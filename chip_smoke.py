@@ -469,7 +469,26 @@ programs of the ``svt::`` operators) and runs it without the package:
               and paths 1 and 3's widths at full depth beside SiT-tiny's and
               SiT-small's: a ``Trainer`` step and the serving rate at B =
               256.
-              The whole run's seconds print last before the kernels line.
+40. head-widths -- the last widths the JAX package runs (``HW40_WIDTHS``:
+              dh 4, 12, 20, 60, 100 off 8, laid out in padded heads; 136,
+              192, 256, 384 past the widest tile, on the wide kernels), in
+              phase 39's process after its kernels (``chip_smoke.py
+              --phase40 [dh ...]`` runs it alone): the same families and
+              gates as phase 39's, the controls at the padded layout's
+              softmax scale (the trap of a kernel built for that layout),
+              the tiled entry at dh 20 and 192, the block chains timed at
+              20 and 192; the int8 block at 5 x 72 and 3 x 136 (heads x dh
+              off 16) with phase 20's gates and its integer parts in the
+              chain's padded layout bit for bit against the true width's;
+              then paths 4-6 beside paths 1-3: ``sit_tiny_scan_age.yml`` as
+              3 heads of 20, ``sit_small_birth_age_native.yml`` as 3 heads
+              of 192 and as 5 of 72 (bf16 and int8 serving), with their
+              launches (the wide kernels' counted in ``wide_fwd`` /
+              ``wide_bwd``), and their widths' launches and rates in this
+              process as phase 39's.
+              Every kernels row must hold every key and a launch on the main
+              path. The whole run's seconds print last before the kernels
+              line.
 
 Phases 9 and 14-16 also check that the attention backward repeats bit for
 bit: two calls on the same inputs give identical dq, dk and dv, and the
@@ -1617,6 +1636,8 @@ def kernel_counters(fb) -> dict:
             "flash_attention_bwd 8 queries": fa.few_query_bwd,
             # the few-query forward, likewise (alone and in the CLS forward chain)
             FEW_FWD: fa.few_query_fwd,
+            # the wide kernels (heads past 128 columns), counted where launched
+            "wide_fwd": fa.wide_fwd, "wide_bwd": fa.wide_bwd,
             "flash_attention_qkv": fa.flash_attention_qkv_fwd,
             "flash_attention_qkv_bwd": fa.flash_attention_qkv_bwd,
             "flash_attention_qkv_dropout": fa.flash_attention_qkv_dropout_fwd,
@@ -7898,7 +7919,7 @@ def phase_recipe(proc, log: Path, out: Path) -> None:
           "(started with phase 36)")
 
 
-# Phase 39: every head width the JAX package runs, a multiple of 8 from 8 to
+# Phase 39: the head widths that are a multiple of 8 from 8 to
 # 128 (dh 32 and 64 on kernels built for them, the others on
 # csrc/flash_attention_widths.cu). Kernel cases, dh: (dim, heads, mlp):
 # SiT-tiny's width at 24, 12, 6, 4, 3 (80 x 3: an inner width of 240, past
@@ -7926,6 +7947,40 @@ HW_PATHS = {
 }
 HW_N_TRAIN, HW_N_VAL, HW_EPOCHS = 512, 128, 2
 HW_RECORDS: dict = {}  # this run's: name -> (ms, dh-64 ms at the same inner width, SDPA, bound)
+# Phase 40: the last widths the JAX package runs. dh off 8 (4, 12, 20, 60,
+# 100: padded heads, csrc/flash_attention_widths.cu at the layout's columns
+# with the true width's softmax scale) and past 128 (136, 192, 256 and 384,
+# past the widest tile: csrc/flash_attention_wide.cu), dh: (dim, heads,
+# mlp), heads x dh = dim where dh divides it (phase 39's rule), else paths
+# 4-6's widths or the nearest heads; the same families and gates as phase
+# 39's at B = 256, N = 321 (the
+# tiled entry at HW40_TILED_DH); the block chains timed at HW40_TIMED; the
+# int8 block where heads x dh is off 16 (HW40_INT8), its integer parts
+# (the attention rows' codes and scales, the out-projection's int32 sums in
+# the padded layout) bit for bit against the plain ones at the true width.
+HW40_WIDTHS = {4: (192, 48, 768), 12: (192, 16, 768), 20: (192, 3, 768), 60: (192, 3, 768),
+               100: (192, 2, 768), 136: (384, 3, 1536), 192: (384, 3, 1536),
+               256: (384, 2, 1536), 384: (384, 1, 1536)}
+HW40_INT8 = {72: (384, 5, 1536), 136: (384, 3, 1536)}
+HW40_TILED_DH = (20, 192)
+HW40_TIMED = (20, 192)
+# Which block chains phases 39 and 40 time into kernels rows, by width.
+HW_TIMED = {32: ("fused_block_cls",), 128: ("fused_block", "fused_block_cls"),
+            **{dh: ("fused_block", "fused_block_cls") for dh in HW40_TIMED}}
+WIDE_SOURCE = "surface_vision_transformers_tpu_torch/csrc/flash_attention_wide.cu"
+SMALL_CFG = ROOT / "configs/training/sit_small_birth_age_native.yml"
+# Paths 4-6, beside paths 1-3 in the same process: SiT-tiny as 3 heads of 20
+# (padded heads), SiT-small native as 3 heads of 192 (past the widest tile)
+# and as 5 heads of 72 (the int8 block's inner width 360, off 16), bf16
+# training and serving, int8 serving at SiT-small's width.
+HW_PATHS.update({
+    "path 4 (3 x 20)": (TRAIN_CFG, ["transformer.heads=3", "transformer.dim_head=20"]),
+    "path 5 (3 x 192)": (SMALL_CFG, ["transformer.heads=3", "transformer.dim_head=192",
+                                     "augmentation.enabled=false"]),
+    "path 6 (5 x 72)": (SMALL_CFG, ["transformer.heads=5", "transformer.dim_head=72",
+                                    "augmentation.enabled=false"]),
+})
+HW_INT8_PATHS = ("path 3 (3 x 128)", "path 5 (3 x 192)", "path 6 (5 x 72)")
 
 
 def hw_row(name, source, replaces, err, ms, plain_ms, bound, library_ms) -> dict:
@@ -7934,12 +7989,28 @@ def hw_row(name, source, replaces, err, ms, plain_ms, bound, library_ms) -> dict
             "bound_by": bound[1], "library_ms": library_ms}
 
 
-def hw_wrong_scale(fa, dh) -> float:
-    """The factor on q that makes the plain version take its tile's softmax
-    scale 1 / sqrt(tile) (1 / 8 where the tile is dh's own) in place of
-    1 / sqrt(dh): the controls' wrong scale."""
+def hw_wrong_width(fa, dh) -> int:
+    """The width whose softmax scale the controls take in place of dh's:
+    a padded head's layout (``head_cols``: the scale a kernel built for
+    that layout would take), else dh's tile (64 where the tile is dh's own,
+    or past the widest tile: the dh-64 kernel's built-in 1 / 8)."""
+    dp = fa.head_cols(dh)
+    if dp != dh:
+        return dp
     tw = fa.tile_width(dh)
-    return math.sqrt(dh / (tw if tw != dh else 64))
+    return 64 if tw == dh or fa.wide_fwd(dh) else tw
+
+
+def hw_wrong_scale(fa, dh) -> float:
+    """The factor on q that makes the plain version take the softmax scale
+    of ``hw_wrong_width`` in place of 1 / sqrt(dh): the controls' wrong
+    scale."""
+    return math.sqrt(dh / hw_wrong_width(fa, dh))
+
+
+def hw_source(fa, dh) -> str:
+    """The attention kernels' source at head dim dh."""
+    return WIDE_SOURCE if fa.wide_fwd(dh) else HW_SOURCE
 
 
 def hw_gate(name, label, got, ref32, ref_bf, controls, failures) -> float:
@@ -7958,14 +8029,15 @@ def hw_gate(name, label, got, ref32, ref_bf, controls, failures) -> float:
     return err
 
 
-def hw_attention(fa, dh, heads, failures) -> dict:
+def hw_attention(fa, dh, heads, failures, tiled=HW_TILED_DH) -> dict:
     """Kernels (a)-(d) and dropout at head dim dh: parity, controls, times
     (device time beside dh 64 at the same inner width where heads x dh is a
-    multiple of 64, the plain bf16 version and SDPA). -> kernels rows."""
+    multiple of 64, the plain bf16 version and SDPA); the tiled entry where
+    dh is in ``tiled``. -> kernels rows."""
     name, hd, B, N = "head-widths", heads * dh, HW_B, N_TOKENS
     rng = np.random.default_rng(SEED + 39 + dh)
     wrong = hw_wrong_scale(fa, dh)
-    tag = f"dh{dh}"
+    tag, source = f"dh{dh}", hw_source(fa, dh)
     rows = {}
 
     # (a), (b): packed, at the main shape and at a padded one
@@ -7976,7 +8048,7 @@ def hw_attention(fa, dh, heads, failures) -> dict:
         o, lse = fa.flash_attention_qkv_fwd(qkv, heads, vl)
         got = [o, fa.flash_attention_qkv_bwd(qkv, o, lse, do, heads, vl)]
         ref32 = qkv_plain(fa, qkv, do, vl, torch.float32, heads=heads)
-        controls = {f"softmax scale 1/sqrt({fa.tile_width(dh) if fa.tile_width(dh) != dh else 64})":
+        controls = {f"softmax scale 1/sqrt({hw_wrong_width(fa, dh)})":
                     qkv_plain(fa, qkv, do, vl, torch.float32, scale=wrong, heads=heads)}
         if Nc > vl:
             controls[f"keys {vl}..{Nc - 1} unmasked"] = qkv_plain(fa, qkv, do, Nc, torch.float32,
@@ -8023,10 +8095,10 @@ def hw_attention(fa, dh, heads, failures) -> dict:
                                                      bounds[1][0])
         if dh != 32:  # dh 32's streamed rows are phase 26's and 29's
             rows[f"flash_attention_fwd {tag}"] = hw_row(
-                f"flash_attention_fwd {tag}", HW_SOURCE, f"{FLASH_TPU}:395", errs[0], t["fwd"],
+                f"flash_attention_fwd {tag}", source, f"{FLASH_TPU}:395", errs[0], t["fwd"],
                 t["plain_fwd"], bounds[0], t["sdpa_fwd"])
             rows[f"flash_attention_bwd {tag}"] = hw_row(
-                f"flash_attention_bwd {tag}", HW_SOURCE, f"{FLASH_TPU}:427", errs[1], t["bwd"],
+                f"flash_attention_bwd {tag}", source, f"{FLASH_TPU}:427", errs[1], t["bwd"],
                 t["plain_bwd"], bounds[1], t["sdpa_bwd"])
         del qkv, o, lse, got, ref32
         torch.cuda.empty_cache()
@@ -8064,10 +8136,10 @@ def hw_attention(fa, dh, heads, failures) -> dict:
           f"{t['sdpa']:.4f}; plain bf16 forward + backward {t['plain_fwd']:.4f} (32 samples x "
           f"{B // 32}); bound {bounds[0][0]:.4f} / {bounds[1][0]:.4f}")
     rows[f"flash_attention_qkv_dropout {tag}"] = hw_row(
-        f"flash_attention_qkv_dropout {tag}", HW_SOURCE, f"{FLASH_TPU}:684", errs[0], t["fwd"],
+        f"flash_attention_qkv_dropout {tag}", source, f"{FLASH_TPU}:684", errs[0], t["fwd"],
         t["plain_fwd"], bounds[0], t["sdpa"])
     rows[f"flash_attention_qkv_dropout_bwd {tag}"] = hw_row(
-        f"flash_attention_qkv_dropout_bwd {tag}", HW_SOURCE, f"{FLASH_TPU}:724", errs[1],
+        f"flash_attention_qkv_dropout_bwd {tag}", source, f"{FLASH_TPU}:724", errs[1],
         t["bwd"], t["plain_fwd"], bounds[1], None)
     del qkv, o, lse, got
     torch.cuda.empty_cache()
@@ -8088,7 +8160,8 @@ def hw_attention(fa, dh, heads, failures) -> dict:
     ref32 = few_plain(torch.float32)
     last = (N - 1) // 64 * 64
     err = hw_gate(name, f"flash_attention 8 queries {tag} B={B} N={N}", got, ref32, few_plain(),
-                  {"softmax scale of the tile": few_plain(torch.float32, wrong),
+                  {f"softmax scale 1/sqrt({hw_wrong_width(fa, dh)})":
+                   few_plain(torch.float32, wrong),
                    f"keys {last}..{N - 1} skipped": few_plain(torch.float32, vl=last)}, failures)
     errs = [(got[0].float() - ref32[0]).abs().max().item(),
             max((a.float() - r).abs().max().item() for a, r in zip(got[1:], ref32[1:]))]
@@ -8108,17 +8181,17 @@ def hw_attention(fa, dh, heads, failures) -> dict:
           f"{t['fwd']:.4f} ms, backward {t['bwd']:.4f} ms (device time); SDPA {t['sdpa_fwd']:.4f}"
           f" / {t['sdpa_bwd']:.4f}; plain bf16 both {t['plain']:.4f}; bound "
           f"{bounds[0][0]:.4f} by {bounds[0][1]} / {bounds[1][0]:.4f} by {bounds[1][1]}")
-    rows[f"{FEW_FWD} {tag}"] = hw_row(f"{FEW_FWD} {tag}", HW_SOURCE if dh != 64 else FLASH_SOURCE,
+    rows[f"{FEW_FWD} {tag}"] = hw_row(f"{FEW_FWD} {tag}", source if dh != 64 else FLASH_SOURCE,
                                       f"{FLASH_TPU}:203", errs[0], t["fwd"], t["plain"],
                                       bounds[0], t["sdpa_fwd"])
     rows[f"flash_attention_bwd 8 queries {tag}"] = hw_row(
-        f"flash_attention_bwd 8 queries {tag}", HW_SOURCE, f"{FLASH_TPU}:233", errs[1], t["bwd"],
+        f"flash_attention_bwd 8 queries {tag}", source, f"{FLASH_TPU}:233", errs[1], t["bwd"],
         t["plain"], bounds[1], t["sdpa_bwd"])
     del q, k, v, o, lse, do, got, ref32
     torch.cuda.empty_cache()
 
     # the tiled entry past MAX_SINGLE_BLOCK_SEQ keys, once a tile width
-    if dh not in HW_TILED_DH:
+    if dh not in tiled:
         return rows
     q, k, v = (bf16_randn(rng, (1, heads, HW_TILED_N, dh), 1.5 if i < 2 else 1.0)
                for i in range(3))
@@ -8134,7 +8207,8 @@ def hw_attention(fa, dh, heads, failures) -> dict:
 
     hw_gate(name, f"flash_attention_tiled {tag} B=1 N={HW_TILED_N}", got,
             tiled_plain(torch.float32), tiled_plain(),
-            {"softmax scale of the tile": tiled_plain(torch.float32, wrong)}, failures)
+            {f"softmax scale 1/sqrt({hw_wrong_width(fa, dh)})": tiled_plain(torch.float32, wrong)},
+            failures)
     del q, k, v, o, lse, do, got
     torch.cuda.empty_cache()
     return rows
@@ -8144,11 +8218,9 @@ def hw_blocks(fb, dh, dim, heads, mlp, failures) -> dict:
     """The block chains at head dim dh, B = 256, N = 321: serving
     (``fused_block``, ``fused_block_cls``), the training forwards and their
     backwards against the plain versions (phases 3 and 6's gates, the
-    softmax-scale controls), and at dh 128 (dim 384) the int8 block (phase
-    20's gates). -> kernels rows at dh 32 (the CLS block's) and 128."""
+    softmax-scale controls). -> kernels rows of the chains ``HW_TIMED``
+    names at dh, timed."""
     from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
-    from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8
-    from surface_vision_transformers_tpu_torch.ops import quant
 
     name, tag, B, N = "head-widths", f"dh{dh}", HW_B, N_TOKENS
     rng = np.random.default_rng(SEED + 390 + dh)
@@ -8161,7 +8233,7 @@ def hw_blocks(fb, dh, dim, heads, mlp, failures) -> dict:
     pw[2][:hd] *= hw_wrong_scale(fa, dh)
     x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(np.float32)).to(
         "cuda", torch.bfloat16)
-    record = dh in (32, 128)
+    timed = HW_TIMED.get(dh, ())
     for kname, cls in (("fused_block", False), ("fused_block_cls", True)):
         kernel = fb.fused_block_cls if cls else fb.fused_block
         plain = fb.fused_block_cls_reference if cls else fb.fused_block_reference
@@ -8180,7 +8252,7 @@ def hw_blocks(fb, dh, dim, heads, mlp, failures) -> dict:
             failures.append(f"{kname} {tag} disagrees with its plain version")
         if ctl <= bound:
             failures.append(f"{kname} {tag}: the softmax-scale control passed the gate")
-        if record and (cls or dh == 128):
+        if kname in timed:
             ms = cuda_ms(lambda: kernel(x, *pb, **kw))
             plain_ms = cuda_ms(lambda: sliced(lambda xs: plain(xs, *pb, **kw), x, chunk=32), reps=3)
             flops = block_flops(B, N, N, dim, heads, mlp, cls, dh)[0]
@@ -8220,7 +8292,7 @@ def hw_blocks(fb, dh, dim, heads, mlp, failures) -> dict:
         if not same_fwd:
             failures.append(f"{bname} {tag}: the training forward changed the forward's output")
         failures += [f"{bname} {tag}: control {k} passed" for k, v in controls.items() if v <= 1]
-        if record and (cls or dh == 128):
+        if kname in timed:
             ms = cuda_ms(lambda: bwd(x, gy, *pb, saved=sv, valid_len=N, **kw))
             plain_ms = cuda_ms(lambda: sliced(lambda xs, gs: bwd_plain(xs, gs, *pb, **kw), x, gy),
                                reps=3)
@@ -8232,71 +8304,127 @@ def hw_blocks(fb, dh, dim, heads, mlp, failures) -> dict:
                   f"plain bf16 {plain_ms:.4f}, bound {b[0]:.4f} by {b[1]}")
         del out, sv, got, ref32, ref_bf
         torch.cuda.empty_cache()
-
-    if dh == 128:  # the int8 block at SiT-small's width (INT8_MIN_DIM)
-        p8, _ = int8_block_params(rng, dim, heads, mlp, dh)
-        got = fbi8.fused_block_int8(x, *p8, **kw).float()
-
-        def plain(dtype=None):
-            return sliced(lambda xs: fbi8.fused_block_int8_reference(
-                xs.to(dtype) if dtype else xs, *p8, **kw).float(), x, chunk=32)
-
-        ref32, ref_bf = plain(torch.float32), plain()
-        with mock.patch.object(quant, "quant_rows", per_tensor_rows):
-            per_tensor = plain(torch.float32)
-
-        def steps(a, r=ref32):
-            return ((a - r).abs().max() / bf16_step(r.abs().max().item())).item()
-
-        def rel(a, r=ref32):
-            return (torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r)).item()
-
-        rel_bf = rel(ref_bf)
-
-        def passes(a):
-            return (bool(torch.isfinite(a).all()) and max(steps(a), steps(a, ref_bf)) <= INT8_STEPS
-                    and rel(a) <= INT8_REL_RATIO * rel_bf)
-
-        phase(name, f"fused_block_int8 {tag} dim {dim} B={B} N={N}: max |err| {steps(got):.3f} "
-              f"bf16 steps vs fp32 plain, {steps(got, ref_bf):.3f} vs plain bf16; rel-L2 "
-              f"{rel(got):.4g} (plain bf16 {rel_bf:.4g}); control, one scale per tensor: "
-              f"{steps(per_tensor):.3f} steps, rel-L2 {rel(per_tensor):.4g} (must fail); gates "
-              f"{INT8_STEPS} steps, {INT8_REL_RATIO} x plain bf16's rel-L2")
-        if not passes(got):
-            failures.append(f"fused_block_int8 {tag} failed its gates")
-        if passes(per_tensor):
-            failures.append(f"fused_block_int8 {tag}: the control passed the gates")
-        ms = cuda_ms(lambda: fbi8.fused_block_int8(x, *p8, **kw))
-        plain_ms = cuda_ms(lambda: plain(), reps=3)
-        gemm_ops, att_ops = int8_block_ops(B, N, N, dim, heads, mlp, dh)
-        t_ops = (gemm_ops / 1979e12 + att_ops / PEAK_FLOPS) * 1e3
-        t_bytes = (nbytes_of(x, *p8) + x.numel() * 2) / PEAK_BYTES * 1e3
-        b = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        rows[f"fused_block_int8 {tag}"] = hw_row(
-            f"fused_block_int8 {tag}", "surface_vision_transformers_tpu_torch/csrc/"
-            "fused_block_int8.cu", "surface_vision_transformers_tpu/ops/pallas/fused_block_int8.py"
-            ":145", (got - ref32).abs().max().item(), ms, plain_ms, b, None)
-        phase(name, f"fused_block_int8 {tag} B={B} N={N}: {ms:.4f} ms, plain {plain_ms:.4f}, "
-              f"bound {b[0]:.4f} by {b[1]}")
     return rows
 
 
-def phase_head_widths(fb) -> dict:
-    """Phase 39, the kernels: every family at each width of HW_WIDTHS
-    against its plain version, with controls, and timed. -> kernels rows
-    (their launches come from ``hw_path_launches``)."""
+def int8_row(dh, heads) -> str:
+    """The int8 block's kernels-row name at (heads, dh)."""
+    return f"fused_block_int8 dh{dh}" if heads * dh % 16 == 0 else f"fused_block_int8 {heads}x{dh}"
+
+
+def hw_int8(dh, dim, heads, mlp, failures) -> dict:
+    """The int8 block at head dim dh, B = 256, N = 321, against the float32
+    and bf16 plain int8 blocks (phase 20's gates, the per-tensor control),
+    timed; where heads x dh is off 16 (or dh off 8) also its integer parts
+    in the chain's layout (heads in ``head_cols`` columns, rows of
+    ``int8_cols``: ``svt_ops.pad_int8_block``) bit for bit against the plain
+    ones at the true width: the attention rows' codes and scales
+    (``quant_rows_kernel``) and the out-projection's int32 sums
+    (``int8_gemm_kernel``). -> its kernels row."""
+    from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8
+    from surface_vision_transformers_tpu_torch.ops import quant
+    from surface_vision_transformers_tpu_torch.serving import svt_ops
+
+    name, tag, B, N = "head-widths", f"{heads} x {dh}", HW_B, N_TOKENS
+    rng = np.random.default_rng(SEED + 400 + dh)
+    kw, hd, rows = dict(heads=heads, dim_head=dh), heads * dh, {}
+    x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    p8, _ = int8_block_params(rng, dim, heads, mlp, dh)
+    hp = heads * svt_ops.head_cols(dh)
+    if svt_ops.int8_cols(hp) != hd:  # the chain's own layout
+        attn = bf16_randn(rng, (B * N, hd), 2.0)
+        attn[0] = 0.0  # an all-zero row: the 1e-30 floor
+        padded = svt_ops.pad_heads(attn, heads, dh, 1)
+        padded = F.pad(padded, (0, svt_ops.int8_cols(hp) - hp)).contiguous()
+        q, sc = fbi8.quant_rows_kernel(padded)
+        qp, sp = quant.quant_rows(attn)
+        q_true = svt_ops.crop_heads(q[:, :hp], heads, dh, 1)
+        pad_codes = int((q[:, :hp].view(-1, heads, svt_ops.head_cols(dh))[..., dh:] != 0).sum()
+                        + (q[:, hp:] != 0).sum())
+        bad = int((q_true != qp).sum()) + int((sc != sp.reshape(-1)).sum()) + pad_codes
+        q_out = svt_ops.pad_int8_block(p8, heads, dh)[4]
+        acc = fbi8.int8_gemm_kernel(q, q_out)
+        bad_acc = int((acc != quant.int8_product(qp, p8[4])).sum())
+        phase(name, f"fused_block_int8 {tag}, its integer parts in the chain's layout (heads in "
+              f"{svt_ops.head_cols(dh)} columns, rows of {svt_ops.int8_cols(hp)} bytes) M={B * N}"
+              f": {bad} attention-row codes and scales differ from quant_rows at the true width "
+              f"{hd} (must be 0), {bad_acc} out-projection int32 sums from the exact product "
+              "(must be 0)")
+        if bad or bad_acc:
+            failures.append(f"fused_block_int8 {tag}: its integer parts in the padded layout")
+        del attn, padded, q, sc, qp, sp, q_true, acc
+    got = fbi8.fused_block_int8(x, *p8, **kw).float()
+
+    def plain(dtype=None):
+        return sliced(lambda xs: fbi8.fused_block_int8_reference(
+            xs.to(dtype) if dtype else xs, *p8, **kw).float(), x, chunk=32)
+
+    ref32, ref_bf = plain(torch.float32), plain()
+    with mock.patch.object(quant, "quant_rows", per_tensor_rows):
+        per_tensor = plain(torch.float32)
+
+    def steps(a, r=ref32):
+        return ((a - r).abs().max() / bf16_step(r.abs().max().item())).item()
+
+    def rel(a, r=ref32):
+        return (torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r)).item()
+
+    rel_bf = rel(ref_bf)
+
+    def passes(a):
+        return (bool(torch.isfinite(a).all()) and max(steps(a), steps(a, ref_bf)) <= INT8_STEPS
+                and rel(a) <= INT8_REL_RATIO * rel_bf)
+
+    phase(name, f"fused_block_int8 {tag} dim {dim} B={B} N={N}: max |err| {steps(got):.3f} "
+          f"bf16 steps vs fp32 plain, {steps(got, ref_bf):.3f} vs plain bf16; rel-L2 "
+          f"{rel(got):.4g} (plain bf16 {rel_bf:.4g}); control, one scale per tensor: "
+          f"{steps(per_tensor):.3f} steps, rel-L2 {rel(per_tensor):.4g} (must fail); gates "
+          f"{INT8_STEPS} steps, {INT8_REL_RATIO} x plain bf16's rel-L2")
+    if not passes(got):
+        failures.append(f"fused_block_int8 {tag} failed its gates")
+    if passes(per_tensor):
+        failures.append(f"fused_block_int8 {tag}: the control passed the gates")
+    ms = cuda_ms(lambda: fbi8.fused_block_int8(x, *p8, **kw))
+    plain_ms = cuda_ms(lambda: plain(), reps=3)
+    gemm_ops, att_ops = int8_block_ops(B, N, N, dim, heads, mlp, dh)
+    t_ops = (gemm_ops / 1979e12 + att_ops / PEAK_FLOPS) * 1e3
+    t_bytes = (nbytes_of(x, *p8) + x.numel() * 2) / PEAK_BYTES * 1e3
+    b = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    key = int8_row(dh, heads)
+    rows[key] = hw_row(
+        key, "surface_vision_transformers_tpu_torch/csrc/"
+        "fused_block_int8.cu", "surface_vision_transformers_tpu/ops/pallas/fused_block_int8.py"
+        ":145", (got - ref32).abs().max().item(), ms, plain_ms, b, None)
+    phase(name, f"fused_block_int8 {tag} B={B} N={N}: {ms:.4f} ms, plain {plain_ms:.4f}, "
+          f"bound {b[0]:.4f} by {b[1]}")
+    return rows
+
+
+def phase_head_widths(fb, widths=None, tiled=HW_TILED_DH, int8=None, label="phase 39") -> dict:
+    """Phase 39 (phase 40 with HW40_WIDTHS, HW40_TILED_DH, HW40_INT8), the
+    kernels: every family at each width of ``widths`` against its plain
+    version, with controls, and timed; the int8 block at each of ``int8``
+    (dh: (dim, heads, mlp)). -> kernels rows (their launches come from
+    ``hw_path_launches`` and the paths)."""
     from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
 
+    widths = HW_WIDTHS if widths is None else widths
+    int8 = {128: HW_WIDTHS[128]} if int8 is None else int8
     failures, rows = [], {}
-    for dh, (dim, heads, mlp) in HW_WIDTHS.items():
+    for dh, (dim, heads, mlp) in widths.items():
         t0 = time.perf_counter()
-        rows.update(hw_attention(fa, dh, heads, failures))
+        rows.update(hw_attention(fa, dh, heads, failures, tiled))
         rows.update(hw_blocks(fb, dh, dim, heads, mlp, failures))
         phase("head-widths", f"dh{dh}: {time.perf_counter() - t0:.1f} s")
+    for dh, (dim, heads, mlp) in int8.items():
+        t0 = time.perf_counter()
+        rows.update(hw_int8(dh, dim, heads, mlp, failures))
+        phase("head-widths", f"int8 {heads} x {dh}: {time.perf_counter() - t0:.1f} s")
     for f_ in failures:
         phase("head-widths", "FAILED: " + f_)
     if failures:
-        raise AssertionError(f"phase 39: {len(failures)} gate(s) failed")
+        raise AssertionError(f"{label}: {len(failures)} gate(s) failed")
     return rows
 
 
@@ -8311,6 +8439,8 @@ def hw_path_launches(fb, table, dh, dim, heads, mlp, data) -> dict:
     from surface_vision_transformers_tpu_torch.models.sit import SiT
     from surface_vision_transformers_tpu_torch.train.trainer import Trainer
     from surface_vision_transformers_tpu_torch.utils import config
+
+    from surface_vision_transformers_tpu_torch.ops import flash_attention as fa
 
     data, labels = data
     xb, yb = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
@@ -8334,11 +8464,14 @@ def hw_path_launches(fb, table, dh, dim, heads, mlp, data) -> dict:
     trainer = Trainer(exp, model(0.1))
     losses += [float(trainer.optimizer_step(xb, yb, ones)[0]) for _ in range(2)]
     drop_run = read_counts(counters)
-    tag = f"dh{dh}"
+    tag, wide = f"dh{dh}", fa.wide_fwd(dh)
+    # past the widest tile the CLS block's 8 queries run the wide kernels,
+    # one launch each way a CLS chain
     launches = {f"flash_attention_fwd {tag}": fused_run["fused_block"],
                 f"flash_attention_bwd {tag}": fused_run["fused_block_bwd"],
-                f"{FEW_FWD} {tag}": fused_run[FEW_FWD],
-                f"flash_attention_bwd 8 queries {tag}": fused_run["flash_attention_bwd 8 queries"],
+                f"{FEW_FWD} {tag}": fused_run["fused_block_cls" if wide else FEW_FWD],
+                f"flash_attention_bwd 8 queries {tag}":
+                    fused_run["fused_block_cls_bwd" if wide else "flash_attention_bwd 8 queries"],
                 f"flash_attention_qkv_dropout {tag}": drop_run["flash_attention_qkv_dropout"],
                 f"flash_attention_qkv_dropout_bwd {tag}":
                     drop_run["flash_attention_qkv_dropout_bwd"],
@@ -8348,12 +8481,16 @@ def hw_path_launches(fb, table, dh, dim, heads, mlp, data) -> dict:
                 f"fused_block_cls_bwd {tag}": fused_run["fused_block_cls_bwd"]}
     # two steps (1 + 1 blocks each) and one predict batch (1 + 1)
     want = {"fused_block": 3, "fused_block_bwd": 2, "fused_block_cls": 3,
-            "fused_block_cls_bwd": 2, FEW_FWD: 3, "flash_attention_bwd 8 queries": 2}
+            "fused_block_cls_bwd": 2, FEW_FWD: 0 if wide else 3,
+            "flash_attention_bwd 8 queries": 0 if wide else 2,
+            "wide_fwd": 6 if wide else 0, "wide_bwd": 4 if wide else 0}
     bad = {k: fused_run[k] for k, v in want.items() if fused_run[k] != v}
     if drop_run["flash_attention_qkv_dropout"] != 4 or drop_run[
-            "flash_attention_qkv_dropout_bwd"] != 4:
+            "flash_attention_qkv_dropout_bwd"] != 4 or (
+            (drop_run["wide_fwd"], drop_run["wide_bwd"]) != ((4, 4) if wide else (0, 0))):
         bad["dropout"] = (drop_run["flash_attention_qkv_dropout"],
-                          drop_run["flash_attention_qkv_dropout_bwd"])
+                          drop_run["flash_attention_qkv_dropout_bwd"], drop_run["wide_fwd"],
+                          drop_run["wide_bwd"])
     phase("head-widths", f"{tag} on the entry points (SiT of {heads} x {dh} at dim {dim}, 2 "
           f"blocks, B=256): fused route, 2 Trainer steps + predict: {fused_run}; dropout 0.1, "
           f"2 steps (modular): dropout forward {drop_run['flash_attention_qkv_dropout']}, "
@@ -8361,17 +8498,46 @@ def hw_path_launches(fb, table, dh, dim, heads, mlp, data) -> dict:
           + " ".join(f"{v:.6g}" for v in losses) + f"; predictions finite "
           f"{bool(np.isfinite(preds).all())}")
     if bad or not all(math.isfinite(v) for v in losses) or not np.isfinite(preds).all():
-        raise AssertionError(f"phase 39 {tag}: the entry points' launches {bad} or outputs")
+        raise AssertionError(f"head widths {tag}: the entry points' launches {bad} or outputs")
     return launches
+
+
+def hw_int8_launches(fb, table, dh, dim, heads, mlp, data) -> int:
+    """Launches of the int8 block at (heads, dh) on ``predict`` with
+    ``quant="int8"`` of a SiT of that width cut to 2 blocks (one int8 block,
+    the CLS block in bf16), 256 surfaces of ``data``, every count zeroed
+    just before; -> its launches (one)."""
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = SiT(dim=dim, depth=2, heads=heads, mlp_dim=mlp, dim_head=dh,
+                    patch_table=table, dtype=torch.bfloat16).cuda().eval()
+    counters = zero_counts(fb)
+    preds = fused.predict(model, data[0], device="cuda", batch_size=256, quant="int8")
+    run = read_counts(counters)
+    phase("head-widths", f"int8 {heads} x {dh} on predict (dim {dim}, 2 blocks, B=256): "
+          f"{ {k: v for k, v in run.items() if v} }; predictions finite "
+          f"{bool(np.isfinite(preds).all())}")
+    if run["fused_block_int8"] != 1 or not np.isfinite(preds).all():
+        raise AssertionError(f"head widths int8 {heads} x {dh}: launches {run} or outputs")
+    return run["fused_block_int8"]
 
 
 HW_RATE_STEPS = 6  # Trainer steps a rate run; steps 2.. timed
 
 
+HW_RATES = {"SiT-tiny (3 x 64)": (192, 3, 768, 64), "path 1 (6 x 32)": (192, 6, 768, 32),
+            "path 4 (3 x 20)": (192, 3, 768, 20), "SiT-small (6 x 64)": (384, 6, 1536, 64),
+            "path 3 (3 x 128)": (384, 3, 1536, 128), "path 5 (3 x 192)": (384, 3, 1536, 192),
+            "path 6 (5 x 72)": (384, 5, 1536, 72)}
+
+
 def hw_rates(table) -> None:
-    """Paths 1 and 3 at full width and depth beside the shipped head widths
-    they reshape, in this call (seeded bf16 SiTs, raw input on the card): a
-    ``Trainer`` step at B = 256 (SGD, CUDA-event median over steps
+    """Paths 1 and 3-6 at full width and depth beside the shipped head
+    widths they reshape, in this call (seeded bf16 SiTs, raw input on the
+    card): a ``Trainer`` step at B = 256 (SGD, CUDA-event median over steps
     2..HW_RATE_STEPS) and ``fused_forward``'s serving rate at B = 256
     (CUDA-event median of 10; the SiT-small widths also int8)."""
     from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
@@ -8387,10 +8553,7 @@ def hw_rates(table) -> None:
     exp = config.Experiment(
         model=config.ModelConfig(), training=config.TrainingConfig(bs=256),
         data=config.DataConfig(), optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
-    for label, (dim, heads, mlp, dh) in {
-            "SiT-tiny (3 x 64)": (192, 3, 768, 64), "path 1 (6 x 32)": (192, 6, 768, 32),
-            "SiT-small (6 x 64)": (384, 6, 1536, 64),
-            "path 3 (3 x 128)": (384, 3, 1536, 128)}.items():
+    for label, (dim, heads, mlp, dh) in HW_RATES.items():
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(SEED)
             model = SiT(dim=dim, depth=DEPTH, heads=heads, mlp_dim=mlp, dim_head=dh,
@@ -8434,10 +8597,10 @@ def hw_cli(tool: str, argv: list) -> tuple[dict, str]:
 
 
 def hw_paths_worker(out_file: str) -> None:
-    """Phase 39's kernels (``phase_head_widths``) and paths 1-3, in a
-    process of their own beside phases 34-38: ``cli.train`` (HW_EPOCHS
+    """Phase 39's and 40's kernels (``phase_head_widths``) and paths 1-6, in
+    a process of their own beside phases 34-38: ``cli.train`` (HW_EPOCHS
     epochs on HW_N_TRAIN synthetic raw surfaces, validation every epoch)
-    then ``cli.test`` on its best_params.npz (path 3 also with
+    then ``cli.test`` on its best_params.npz (HW_INT8_PATHS also with
     ``tpu.quant=int8``), every count zeroed just before each; the eager
     float32 model on the same weights beside. -> JSON to ``out_file``: the
     kernels rows, the width records, the paths' results."""
@@ -8450,6 +8613,9 @@ def hw_paths_worker(out_file: str) -> None:
     from surface_vision_transformers_tpu_torch.utils import config
 
     rows = phase_head_widths(fb)
+    t40 = time.perf_counter()
+    rows.update(phase_head_widths(fb, HW40_WIDTHS, HW40_TILED_DH, HW40_INT8, "phase 40"))
+    phase("head-widths", f"phase 40's kernels: {time.perf_counter() - t40:.1f} s")
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -8472,7 +8638,7 @@ def hw_paths_worker(out_file: str) -> None:
             train_launches = read_counts(counters)
             ckpt = Path(trained["run_dir"]) / "best_params.npz"
             tests = {}
-            for quant in (("none", "int8") if "128" in label else ("none",)):
+            for quant in (("none", "int8") if label in HW_INT8_PATHS else ("none",)):
                 counters = zero_counts(fb)
                 tested, _ = hw_cli("test", argv + ["--set", f"testing.path_to_ckpt={ckpt}",
                                                    "--set", "data.split=validation",
@@ -8485,18 +8651,59 @@ def hw_paths_worker(out_file: str) -> None:
             model = runner.build_model(exp, table)
             runner.load_model_state(model, runner.load_state_dict_any(str(ckpt), exp.model.depth))
             model = model.eval().cuda()
+            # beside it the same model in bf16 on its plain routes (attention,
+            # embedding): how far bf16's own rounding moves the predictions
+            plain_bf = copy.deepcopy(model)
+            plain_bf.dtype = torch.bfloat16
+            for mod in plain_bf.modules():
+                if hasattr(mod, "attn_backend"):
+                    mod.attn_backend = "plain"
             with torch.inference_mode():
-                eager = torch.cat([model(torch.from_numpy(val[s:s + 32]).cuda())
-                                   for s in range(0, len(val), 32)]).float().cpu().numpy()
+                eager, eager_bf = (torch.cat([m(torch.from_numpy(val[s:s + 32]).cuda())
+                                              for s in range(0, len(val), 32)]).float().cpu()
+                                   .numpy() for m in (model, plain_bf))
+            del plain_bf
             results[label] = {"trained": {k: v for k, v in trained.items()
                                           if isinstance(v, (int, float, str))},
                               "train_launches": train_launches, "tests": tests,
                               "eager": eager.reshape(-1).tolist(),
+                              "eager_bf16": eager_bf.reshape(-1).tolist(),
                               "seconds": time.perf_counter() - t0}
             shutil.rmtree(tmp / "runs")
             torch.cuda.empty_cache()
     Path(out_file).write_text(json.dumps({"rows": rows, "records": HW_RECORDS,
                                           "paths": results}))
+
+
+def phase40_alone(only: list) -> None:
+    """Phase 40 by itself (``chip_smoke.py --phase40 [dh ...]``): the
+    build, the kernels at each width of HW40_WIDTHS (or those named) and the
+    int8 cases, then each width's launches on the entry points; prints the
+    kernels rows as JSON. Paths 4-6 run in the ``--width-paths`` worker."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.ops import _native
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+
+    print(card(), flush=True)
+    t0 = time.perf_counter()
+    _native.build()
+    phase("build", f"{time.perf_counter() - t0:.1f} s")
+    widths = {dh: HW40_WIDTHS[dh] for dh in map(int, only)} if only else HW40_WIDTHS
+    rows = phase_head_widths(fb, widths, HW40_TILED_DH, {} if only else HW40_INT8, "phase 40")
+    table = load_patch_table(6, 2).indices
+    data = make_regression_dataset(256, raw_vertices=40962, seed=SEED + 39)
+    for dh, (dim, heads, mlp) in widths.items():
+        for row, n in hw_path_launches(fb, table, dh, dim, heads, mlp, data).items():
+            if row in rows:
+                rows[row]["launches"] = n
+    for dh, (dim, heads, mlp) in ({} if only else HW40_INT8).items():
+        rows[int8_row(dh, heads)]["launches"] = hw_int8_launches(fb, table, dh, dim, heads, mlp,
+                                                                 data)
+    print(f"phase 40 alone: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
 
 
 def _hw_raw(cfg: Path, sets: list) -> dict:
@@ -8541,6 +8748,7 @@ def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
     fails, launches = [], {}
     for label, r in runs.items():
         tl = r["train_launches"]
+        wide = "192" in label  # past the widest tile: the wide kernels, the CLS block's too
         if "dropout" in label:
             want = {"flash_attention_qkv_dropout": 12 * steps,
                     "flash_attention_qkv_dropout_bwd": 12 * steps,
@@ -8549,10 +8757,15 @@ def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
         else:
             want = {"fused_block": 11 * (steps + vals), "fused_block_cls": steps + vals,
                     "fused_block_bwd": 11 * steps, "fused_block_cls_bwd": steps,
-                    FEW_FWD: steps + vals, "flash_attention_bwd 8 queries": steps,
-                    "patch_embed": steps + vals}
+                    FEW_FWD: 0 if wide else steps + vals,
+                    "flash_attention_bwd 8 queries": 0 if wide else steps,
+                    "wide_fwd": 12 * (steps + vals) if wide else 0,
+                    "wide_bwd": 12 * steps if wide else 0, "patch_embed": steps + vals}
         bad = {k: (tl[k], v) for k, v in want.items() if tl[k] != v}
         eager = np.array(r["eager"], np.float32)
+        plain_gap = float(np.abs(np.array(r["eager_bf16"], np.float32) - eager).max())
+        phase(name, f"{label}: the model in bf16 on its plain routes reads {plain_gap:.6g} from "
+              "the eager float32 model (max |difference|, the validation surfaces)")
         phase(name, f"{label}: cli.train {HW_EPOCHS} epochs ({steps} steps, {vals} validation "
               f"batches) in {r['seconds']:.1f} s with cli.test: {r['trained']}; launches "
               f"{ {k: v for k, v in tl.items() if v} }; expected {want}")
@@ -8563,7 +8776,8 @@ def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
             err = float(np.abs(preds - eager).max()) if preds.shape == eager.shape else math.inf
             tol = SLICE_TOL * (2 if quant == "int8" else 1)
             block = "fused_block_int8" if quant == "int8" else "fused_block"
-            twant = {block: 11 * test_b, "fused_block_cls": test_b, FEW_FWD: test_b}
+            twant = {block: 11 * test_b, "fused_block_cls": test_b,
+                     FEW_FWD: 0 if wide else test_b, "wide_fwd": 12 * test_b if wide else 0}
             tbad = {k: (tlaunch[k], v) for k, v in twant.items() if tlaunch[k] != v}
             phase(name, f"{label}: cli.test tpu.quant={quant}: {tested}; launches "
                   f"{ {k: v for k, v in tlaunch.items() if v} }; predictions finite "
@@ -8577,7 +8791,7 @@ def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
     for f_ in fails:
         phase(name, "FAILED: " + f_)
     if fails:
-        raise AssertionError(f"phase 39's paths: {len(fails)} check(s) failed")
+        raise AssertionError(f"phases 39-40's paths: {len(fails)} check(s) failed")
     return got["rows"], launches
 
 
@@ -9010,10 +9224,11 @@ def main() -> None:
         phase_recipe(*recipe)
         stop(recipe[0])
 
-        # -- 39. head-widths (every multiple of 8 from 8 to 128: the kernels and
-        # the block chains against their plain versions, and paths 1-3
-        # through cli.train and cli.test, in the process started with phase
-        # 34; then each width's launches on the entry points, every count
+        # -- 39-40. head-widths (39: every multiple of 8 from 8 to 128; 40: dh
+        # off 8, past 128 and the int8 block off 16: the kernels and the
+        # block chains against their plain versions, and paths 1-6 through
+        # cli.train and cli.test, in the process started with phase 34;
+        # then each width's launches on the entry points, every count
         # zeroed just before each run, and the rates)
         start("head-widths-paths")
         hw_rows, cli_runs = hw_paths_check(*hw)
@@ -9021,17 +9236,22 @@ def main() -> None:
         from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
 
         hw_data = make_regression_dataset(256, raw_vertices=40962, seed=SEED + 39)
-        for dh, (dim_, heads_, mlp_) in HW_WIDTHS.items():
+        for dh, (dim_, heads_, mlp_) in {**HW_WIDTHS, **HW40_WIDTHS}.items():
             for row_, n_ in hw_path_launches(fb, table, dh, dim_, heads_, mlp_, hw_data).items():
                 if row_ in hw_rows:
                     hw_rows[row_]["launches"] = n_
+        hw_rows[int8_row(136, 3)]["launches"] = hw_int8_launches(
+            fb, table, 136, *HW40_INT8[136], hw_data)
         hw_rates(table)
-        for label_, tag_ in (("path 1 (6 x 32)", "dh32"), ("path 3 (3 x 128)", "dh128")):
+        for label_, tag_ in (("path 1 (6 x 32)", "dh32"), ("path 3 (3 x 128)", "dh128"),
+                             ("path 4 (3 x 20)", "dh20"), ("path 5 (3 x 192)", "dh192")):
             tl_, tests_ = cli_runs[label_]
+            wide_ = tag_ == "dh192"  # the CLS block's 8 queries on the wide kernels
             for row_, key_ in ((f"flash_attention_fwd {tag_}", "fused_block"),
                                (f"flash_attention_bwd {tag_}", "fused_block_bwd"),
-                               (f"{FEW_FWD} {tag_}", FEW_FWD),
+                               (f"{FEW_FWD} {tag_}", "fused_block_cls" if wide_ else FEW_FWD),
                                (f"flash_attention_bwd 8 queries {tag_}",
+                                "fused_block_cls_bwd" if wide_ else
                                 "flash_attention_bwd 8 queries"),
                                (f"fused_block {tag_}", "fused_block"),
                                (f"fused_block_bwd {tag_}", "fused_block_bwd"),
@@ -9039,8 +9259,9 @@ def main() -> None:
                                (f"fused_block_cls_bwd {tag_}", "fused_block_cls_bwd")):
                 if row_ in hw_rows:
                     hw_rows[row_]["launches"] = tl_[key_]
-        hw_rows["fused_block_int8 dh128"]["launches"] = cli_runs["path 3 (3 x 128)"][1][
-            "int8"]["fused_block_int8"]
+        for label_, row_ in (("path 3 (3 x 128)", "fused_block_int8 dh128"),
+                             ("path 6 (5 x 72)", "fused_block_int8 5x72")):
+            hw_rows[row_]["launches"] = cli_runs[label_][1]["int8"]["fused_block_int8"]
         for row_ in ("flash_attention_qkv_dropout dh32", "flash_attention_qkv_dropout_bwd dh32"):
             hw_rows[row_]["launches"] = cli_runs["path 2 (6 x 32, dropout 0.1)"][0][
                 row_.replace(" dh32", "")]
@@ -9054,6 +9275,13 @@ def main() -> None:
         recipe_tmp.cleanup()
         stop(hw[0])
         hw_tmp.cleanup()
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    incomplete = [k for k, r in kernels.items() if any(x not in r for x in keys)
+                  or not r["launches"]]
+    if incomplete:
+        raise AssertionError(f"kernels rows without every key or without a launch on the main "
+                             f"path: {incomplete}")
     t_end = time.perf_counter()
     print(f"seconds per phase: {phase_seconds(t_end)}", flush=True)
     print(f"whole run: {t_end - T0:.1f} s (limit 1200 s); {card()}", flush=True)
@@ -9069,7 +9297,9 @@ if __name__ == "__main__":
         mesh_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--recipe"]:  # phase 38's process
         recipe_worker(sys.argv[2])
-    elif sys.argv[1:2] == ["--width-paths"]:  # phase 39's paths
+    elif sys.argv[1:2] == ["--width-paths"]:  # phases 39-40's kernels and paths
         hw_paths_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--phase40"]:  # phase 40's kernels and launches alone
+        phase40_alone(sys.argv[2:])
     else:
         main()

@@ -4,9 +4,10 @@
     python3 scripts/head_width_compare.py OTHER_CHECKOUT
 
 Builds ``flash_attention.cu``, ``fused_block.cu``, ``fused_block_bwd.cu`` and
-``fused_mlp.cu`` of OTHER_CHECKOUT's ``surface_vision_transformers_tpu_torch/csrc``
-into one temporary library beside this tree's kernels (its attention and
-block entries must take this tree's arguments), then, at the shapes whose
+``fused_mlp.cu`` (and ``flash_attention_widths.cu`` where it has one) of
+OTHER_CHECKOUT's ``surface_vision_transformers_tpu_torch/csrc`` into one
+temporary library beside this tree's kernels (its attention and block
+entries must take this tree's arguments), then, at the shapes whose
 route is the same in both trees, calls each through this tree's wrappers on
 either library:
 
@@ -92,8 +93,11 @@ def main() -> None:
     this_lib = _native.library()
     with tempfile.TemporaryDirectory() as tmp:
         so = Path(tmp) / "libhw_other.so"
+        # the other tree's attention at the other widths, where it has a file for them
+        srcs = [other_csrc / f for f in (*SOURCES, "flash_attention_widths.cu")
+                if (other_csrc / f).exists()]
         subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(so),
-                        *(str(other_csrc / f) for f in SOURCES)],
+                        *map(str, srcs)],
                        check=True, capture_output=True, timeout=900)
         libs = {"other": Other(ctypes.CDLL(str(so)), this_lib), "this": this_lib}
 

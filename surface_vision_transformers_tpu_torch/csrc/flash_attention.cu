@@ -1,6 +1,8 @@
 // Hopper (sm_90a) streamed attention, forward and backward, at every head
-// dim that is a multiple of 8 from 8 to 128: dh 32 and 64 here, the others
-// built from these kernels in flash_attention_widths.cu (its header).
+// dim laid out in up to 128 columns (flash_attention.cuh head_cols: dh
+// rounded up to 8): dh 32 and 64 here, the others built from these kernels
+// in flash_attention_widths.cu (its header); wider heads in
+// flash_attention_wide.cu.
 //
 // Replaces the TPU kernel
 // surface_vision_transformers_tpu/ops/pallas/flash_attention.py::flash_attention
@@ -1972,7 +1974,8 @@ cudaError_t tensor_map(CUtensorMap* m, const Strided& t, int B, int heads, int n
 template <bool MAKE_Q, int DH, int TW>
 cudaError_t launch_few_fwd(const Strided& q, const Strided& k, const Strided& v,
                            const Strided& o, float* lse, int B, int heads, int nq, int nk,
-                           int valid_len, const FewQ& fq, int dh, cudaStream_t st) {
+                           int valid_len, const FewQ& fq, const Width& wd, cudaStream_t st) {
+  const int dh = wd.dh;  // the head's layout columns
   static bool ready[16];  // the shared-memory limit, set once per device to the card's
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1997,7 +2000,7 @@ cudaError_t launch_few_fwd(const Strided& q, const Strided& k, const Strided& v,
   const int tiles = ceil_div(std::min(valid_len, nk), 64), qc = MAKE_Q ? ceil_div(fq.dim, 64) : 0;
   const FewFwdLayout lay(tiles, qc, few_fwd_stages(tiles, qc, TW), TW);
   flash_fwd_few_kernel<MAKE_Q, DH, TW><<<dim3(heads, B), 128, lay.bytes + 1024, st>>>(
-      q, tm_k, tm_v, tm_w, hf_k, hf_v, o, lse, nq, nk, valid_len, fq, width_of(dh));
+      q, tm_k, tm_v, tm_w, hf_k, hf_v, o, lse, nq, nk, valid_len, fq, wd);
   return cudaGetLastError();
 }
 
@@ -2476,17 +2479,21 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
     return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return cudaErrorMisalignedAddress;
+  if (head_cols(dh) > MAX_TILE_COLS)  // past the widest tile: flash_attention_wide.cu
+    return flash_fwd_wide(q, k, v, o, lse, B, heads, nq, nk, valid_len, dh, st, dr);
   if (resident_fwd(nq, nk, dh, dr.on))  // every MS-SiT fold: the sequences packed, one launch
     return launch_fwd_resident(q, k, v, o, lse, B, heads, nq, valid_len, st);
   // dh 64, and dh 32's streamed forward without dropout, here; the other
   // widths (and dh 32 with dropout or few queries) on the kernels built for
-  // any dh, flash_attention_widths.cu
+  // any dh, flash_attention_widths.cu: the padded heads of dh 25-31 and
+  // 57-63 too, laid out in 32 and 64 columns, since the kernels built for 32
+  // and 64 take their layout's softmax scale
   const bool few = few_query_fwd(nq, nk, dh, dr.on);
   if (dh != ATT_DH && (dh != 32 || dr.on || few))
     return flash_fwd_widths(q, k, v, o, lse, B, heads, nq, nk, valid_len, dh, st, dr);
   if (few)  // the queries on the short side, one launch
     return launch_few_fwd<false, ATT_DH, ATT_DH>(q, k, v, o, lse, B, heads, nq, nk, valid_len,
-                                                 FewQ{}, dh, st);
+                                                 FewQ{}, width_of(dh), st);
   const bool long_keys = fwd_long_keys(nk, valid_len);
   const bool wide = fwd_wide(B, heads, nq, nk, valid_len);
   if (dh == 32)
@@ -2507,12 +2514,13 @@ bool resident_bwd(int nq, int nk, int dh, bool dropout) {
 }
 
 bool few_query_bwd(int nq, int nk, int dh, bool dropout) {
-  return dim_head_ok(dh) && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk;
+  return dim_head_ok(dh) && head_cols(dh) <= MAX_TILE_COLS && !dropout && nq <= FEW_MAX_Q &&
+         FEW_MAX_Q < nk;
 }
 
 bool few_query_fwd(int nq, int nk, int dh, bool dropout) {
-  return dim_head_ok(dh) && !dropout && nq <= FEW_MAX_Q && FEW_MAX_Q < nk &&
-         nk <= FEW_FWD_MAX_KEYS;
+  return dim_head_ok(dh) && head_cols(dh) <= MAX_TILE_COLS && !dropout && nq <= FEW_MAX_Q &&
+         FEW_MAX_Q < nk && nk <= FEW_FWD_MAX_KEYS;
 }
 
 bool few_query_makes_q(int nq, int nk, int dim, int dh) {
@@ -2531,17 +2539,21 @@ cudaError_t flash_fwd_few_q(const FewQ& fq, Strided k, Strided v, Strided o, flo
   if (dh != ATT_DH)
     return flash_fwd_few_q_widths(fq, k, v, o, lse, B, heads, nq, nk, valid_len, dh, st);
   return launch_few_fwd<true, ATT_DH, ATT_DH>(Strided{}, k, v, o, lse, B, heads, nq, nk,
-                                              valid_len, fq, dh, st);
+                                              valid_len, fq, width_of(dh), st);
 }
 
 int resident_pack(int n) { return n <= 32 ? 64 / n : 1; }
 
 long long flash_bwd_workspace(int B, int heads, int nq, int nk, int dh) {
   // one launch, no dQ sums (the resident kernel runs without dropout;
-  // flash_bwd refuses dropout at the few-query shapes)
-  if (resident_bwd(nq, nk, dh, false) || few_query_bwd(nq, nk, dh, false)) return 0;
-  // the sums and a turn counter per sum and tile
-  return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) * ((long long)BWD_BQ * dh + 1);
+  // flash_bwd refuses dropout at the few-query shapes); the wide kernels
+  // need none either
+  if (resident_bwd(nq, nk, dh, false) || few_query_bwd(nq, nk, dh, false) ||
+      head_cols(dh) > MAX_TILE_COLS)
+    return 0;
+  // the sums (of the head's layout columns) and a turn counter per sum and tile
+  return (long long)BWD_CHAINS * B * heads * ceil_div(nq, BWD_BQ) *
+         ((long long)BWD_BQ * head_cols(dh) + 1);
 }
 
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
@@ -2550,6 +2562,13 @@ cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, c
                       Dropout dr) {
   if (B < 1 || heads < 1 || nq < 1 || nk < 1 || valid_len < 1 || !dim_head_ok(dh))
     return cudaErrorInvalidValue;
+  if (head_cols(dh) > MAX_TILE_COLS) {  // past the widest tile: flash_attention_wide.cu
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(d_o) ||
+        !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
+      return cudaErrorMisalignedAddress;
+    return flash_bwd_wide(q, k, v, o, d_o, lse, delta, dq, dk, dv, B, heads, nq, nk, valid_len,
+                          dh, st, dr);
+  }
   if (resident_bwd(nq, nk, dh, dr.on)) {  // one launch, the sequence in shared memory
     if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(d_o))
       return cudaErrorMisalignedAddress;
@@ -2597,20 +2616,21 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float inv_keep, int on) 
 
 #else  // SVT_ATT_WIDTHS: the kernels built for any dh (flash_attention_widths.cu)
 
-// Tiles of 32, 64 or 128 columns: the smallest that holds dh.
+// Tiles of 32, 64 or 128 columns: the smallest that holds the head's
+// head_cols(dh) columns.
 int tile_width(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
 
 cudaError_t flash_fwd_widths(Strided q, Strided k, Strided v, Strided o, float* lse, int B,
                              int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
                              Dropout dr) {
+  const Width wd = width_of(dh);
   if (few_query_fwd(nq, nk, dh, dr.on))  // the queries on the short side, one launch
     return dh <= 64 ? launch_few_fwd<false, 0, 64>(q, k, v, o, lse, B, heads, nq, nk, valid_len,
-                                                   FewQ{}, dh, st)
+                                                   FewQ{}, wd, st)
                     : launch_few_fwd<false, 0, 128>(q, k, v, o, lse, B, heads, nq, nk,
-                                                    valid_len, FewQ{}, dh, st);
+                                                    valid_len, FewQ{}, wd, st);
   const bool long_keys = fwd_long_keys(nk, valid_len);
   const bool wide = fwd_wide(B, heads, nq, nk, valid_len);
-  const Width wd = width_of(dh);
   switch (tile_width(dh) * 2 + (dr.on ? 1 : 0)) {
     case 64: return launch_rule<false, 0, 32>(long_keys, wide, st, q, k, v, o, lse, B, heads, nq,
                                               nk, valid_len, dr, wd);
@@ -2631,7 +2651,7 @@ cudaError_t flash_fwd_few_q_widths(const FewQ& fq, Strided k, Strided v, Strided
                                    int B, int heads, int nq, int nk, int valid_len, int dh,
                                    cudaStream_t st) {
   return launch_few_fwd<true, 0, 64>(Strided{}, k, v, o, lse, B, heads, nq, nk, valid_len, fq,
-                                     dh, st);
+                                     width_of(dh), st);
 }
 
 cudaError_t flash_bwd_widths(Strided q, Strided k, Strided v, Strided o, Strided d_o,
@@ -2662,7 +2682,8 @@ extern "C" {
 // flash_attention forward: q (B, heads, nq, dh), k and v (B, heads, nk,
 // dh), o (B, heads, nq, dh), each bf16 at (batch, head, row) strides in
 // elements with its last dimension contiguous; lse (B, heads, nq) fp32
-// contiguous; dh a multiple of 8 from 8 to 128. Dropout on the
+// contiguous; any dh >= 1, each head laid out in (dh + 7) / 8 * 8 columns
+// (the last dimension of every operand), those past dh zero. Dropout on the
 // probabilities when `drop` (seed, threshold on the Philox word, inv_keep =
 // 1 / (1 - rate)).
 int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q_sr, void* k,
@@ -2681,8 +2702,8 @@ int svt_flash_attention_fwd(void* q, long long q_sb, long long q_sh, long long q
 }
 
 // flash_attention backward: the forward's operands, o and lse, the output
-// cotangent d_o (as o) -> dq (as q), dk, dv (as k); dh a multiple of 8 from
-// 8 to 128; delta (B, heads, nq) fp32 scratch; ws
+// cotangent d_o (as o) -> dq (as q), dk, dv (as k); dh as the forward's;
+// delta (B, heads, nq) fp32 scratch; ws
 // svt_flash_attention_bwd_workspace(B, heads, nq, nk, dh) floats of scratch
 // (the fp32 dQ sums and their turn counters; none for the resident and
 // few-query kernels). Dropout as the forward's, which gave o (not at nq <= 8

@@ -1,8 +1,9 @@
 // Streamed attention (flash_attention.cu): the launchers the block chains
 // (fused_block.cu, fused_block_int8.cu, fused_block_bwd.cu) share with the
 // public flash_attention entries. Both directions read their operands by
-// TMA and run their products on wgmma. Both take every head dim that is a
-// multiple of 8 from 8 to 128, with or without dropout.
+// TMA and run their products on wgmma up to heads laid out in 128 columns;
+// wider heads run the wide kernels (flash_attention_wide.cu). Both take
+// every head dim >= 1, with or without dropout (head_cols below).
 #pragma once
 
 #include <cmath>
@@ -39,25 +40,38 @@ struct Dropout {
   int on = 0;
 };
 
+// The columns a head of dh columns is laid out in: dh rounded up to 8, so
+// that every head's first column starts on 16 bytes, as TMA and the 16-byte
+// row pieces need. The columns past dh are zero in every operand (the
+// callers see to it: zero rows of W_qkv and zero columns of W_out in the
+// block chains, a zero-padded copy in the public entries), so they add
+// nothing to a score, and O, dQ, dK and dV come out zero there.
+inline int head_cols(int dh) { return (dh + 7) / 8 * 8; }
+
+// The widest tile the wgmma kernels are built for; heads laid out wider run
+// the wide kernels (flash_attention_wide.cu).
+constexpr int MAX_TILE_COLS = 128;
+
 // A head width at run time: the kernels built for any dh (the widths other
-// than 32 and 64, flash_attention_widths.cu) take dh columns in tiles of 32,
-// 64 or 128 and the softmax scale 1 / sqrt(dh) from here, rounded once to
-// fp32 as the plain version's fp32 multiply rounds it, and its product with
-// log2(e) (the exponent) rounded once from double, as SoftmaxScale's at dh
-// 32.
+// than 32 and 64, flash_attention_widths.cu, and the wide kernels) take the
+// head's layout, head_cols(dh) columns, in tiles of 32, 64 or 128 (wide:
+// steps of 64, passes of up to 128), and the softmax scale 1 / sqrt(dh) of
+// the true width from here, rounded once to fp32 as the plain version's
+// fp32 multiply rounds it, and its product with log2(e) (the exponent)
+// rounded once from double, as SoftmaxScale's at dh 32. A padded head is
+// never run on the kernels built for 32 or 64, whose scale is the layout's.
 struct Width {
   int dh = 0;
   float scale = 0.f, slog2 = 0.f;
 };
 inline Width width_of(int dh) {
   const double s = std::pow((double)dh, -0.5);
-  return Width{dh, (float)s, (float)(s * 1.4426950408889634)};
+  return Width{head_cols(dh), (float)s, (float)(s * 1.4426950408889634)};
 }
 
-// The head widths the attention kernels take: multiples of 8 (a head's
-// columns start on 16 bytes, as TMA needs) from 8 to 128 (a tile of 128
-// columns, the widest built).
-inline bool dim_head_ok(int dh) { return dh % 8 == 0 && dh >= 8 && dh <= 128; }
+// The head widths the attention kernels take: every dh >= 1 (laid out in
+// head_cols(dh) columns).
+inline bool dim_head_ok(int dh) { return dh >= 1; }
 
 // What the few-query forward needs to make its own Q (the CLS block's
 // chain, fused_block.cu): the block input x (B, nk, dim) bf16, LN1's gamma
@@ -74,16 +88,18 @@ struct FewQ {
 };
 
 // O = softmax(Q K^T / sqrt(dh)) V over keys < valid_len, lse = the row
-// log-sum-exp (B, heads, nq) fp32 (skipped when nullptr); dh a multiple of
-// 8 from 8 to 128 (dim_head_ok), with or without dropout. With dropout, the max, the sum and lse are the
-// undropped softmax's and O = keep(P) V / l * inv_keep. One kernel: a
+// log-sum-exp (B, heads, nq) fp32 (skipped when nullptr); any dh >= 1, the
+// operands laid out in head_cols(dh) columns a head, with or without
+// dropout. With dropout, the max, the sum and lse are the undropped
+// softmax's and O = keep(P) V / l * inv_keep. One kernel: a
 // producer warpgroup (one thread issues the TMA loads), one or three
 // consumer warpgroups of 64 query rows on wgmma; the tiling by shape is in
 // flash_attention.cu. A base or stride off 16 bytes returns
-// cudaErrorMisalignedAddress; another dh cudaErrorInvalidValue. dh 32
-// (without dropout) and 64 run kernels built for that width; the others
-// kernels built for any dh in tiles of 32, 64 or 128 columns
-// (flash_fwd_widths, flash_attention_widths.cu).
+// cudaErrorMisalignedAddress; dh < 1 cudaErrorInvalidValue. dh 32 (without
+// dropout) and 64 run kernels built for that width; the others up to
+// head_cols 128 kernels built for any dh in tiles of 32, 64 or 128 columns
+// (flash_fwd_widths, flash_attention_widths.cu); wider heads the wide
+// kernels (flash_fwd_wide).
 cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, int B, int heads,
                       int nq, int nk, int valid_len, int dh, cudaStream_t st,
                       Dropout dr = Dropout{});
@@ -92,8 +108,8 @@ cudaError_t flash_fwd(Strided q, Strided k, Strided v, Strided o, float* lse, in
 // flash_fwd's; delta = rowsum(dO . O) (B, heads, nq) fp32 and ws
 // (flash_bwd_workspace floats: the fp32 dQ sums and their turn counters)
 // are scratch. Sums in a fixed order, so the outputs repeat bit for bit.
-// With dropout, O must be the dropped output the forward returned. Another
-// dh returns cudaErrorInvalidValue.
+// With dropout, O must be the dropped output the forward returned. dh < 1
+// returns cudaErrorInvalidValue.
 cudaError_t flash_bwd(Strided q, Strided k, Strided v, Strided o, Strided d_o, const float* lse,
                       float* delta, float* ws, Strided dq, Strided dk, Strided dv, int B,
                       int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
@@ -145,6 +161,21 @@ cudaError_t flash_bwd_widths(Strided q, Strided k, Strided v, Strided o, Strided
 cudaError_t flash_fwd_few_q_widths(const FewQ& fq, Strided k, Strided v, Strided o, float* lse,
                                    int B, int heads, int nq, int nk, int valid_len, int dh,
                                    cudaStream_t st);
+
+// The attention at heads laid out past MAX_TILE_COLS columns (any dh >= 1
+// whose head_cols exceeds 128; flash_attention_wide.cu): the same functions
+// as flash_fwd and flash_bwd, with the same operands, lse and delta, on
+// mma.sync kernels that step the scores' sums over the head 64 columns at a
+// time and make O and dQ (dK, dV) in passes of at most 128 (64) columns over
+// the same keys; no workspace. flash_fwd and flash_bwd call them after their
+// checks.
+cudaError_t flash_fwd_wide(Strided q, Strided k, Strided v, Strided o, float* lse, int B,
+                           int heads, int nq, int nk, int valid_len, int dh, cudaStream_t st,
+                           Dropout dr);
+cudaError_t flash_bwd_wide(Strided q, Strided k, Strided v, Strided o, Strided d_o,
+                           const float* lse, float* delta, Strided dq, Strided dk, Strided dv,
+                           int B, int heads, int nq, int nk, int valid_len, int dh,
+                           cudaStream_t st, Dropout dr);
 
 // Whether the forward at these shapes takes its resident kernel (dh 32, no
 // dropout, nq == nk <= 320: every MS-SiT fold; sequences packed, see

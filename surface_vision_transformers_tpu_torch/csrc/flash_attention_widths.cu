@@ -1,18 +1,21 @@
-// The attention kernels at every head width the SiT config takes besides 32
-// and 64: dh a multiple of 8 from 8 to 128, with or without dropout (dh 32
-// with dropout too).
+// The attention kernels at every head width laid out in up to 128 columns
+// besides 32 and 64: heads of head_cols(dh) = dh rounded up to 8 columns
+// (the padded heads of dh off 8 too, 25-31 and 57-63 included, whose layout
+// is 32 or 64 columns but whose scale is dh's), with or without dropout (dh
+// 32 with dropout too).
 //
 // Replaces the same TPU kernels as flash_attention.cu
 // (surface_vision_transformers_tpu/ops/pallas/flash_attention.py: _fwd,
 // _bwd_impl, _fwd_packed, _bwd_packed, _fwd_packed_drop, _bwd_packed_drop,
 // _fwd_tiled, _bwd_tiled, whose BlockSpecs span the whole head at any D) at
 // those widths. The kernels are flash_attention.cu's own, built with DH = 0:
-// a head of dh columns runs in the smallest tile of 32, 64 or 128 columns
-// that holds it, the TMA boxes and cp.async loads zero-fill the columns past
-// dh (a head's columns start at h dh 2 bytes: 16-byte aligned for every
-// multiple of 8), the products skip the k16 steps wholly past dh, the
-// softmax takes 1 / sqrt(dh) at run time (Width: the plain version's scale,
-// not the tile's), and the stores stop at dh. At 128 columns (dh 72-128) a
+// a head laid out in dp = head_cols(dh) columns runs in the smallest tile of
+// 32, 64 or 128 columns that holds it, the TMA boxes and cp.async loads
+// zero-fill the columns past dp (a head's columns start at h dp 2 bytes:
+// 16-byte aligned), the products skip the k16 steps wholly past dp, the
+// softmax takes 1 / sqrt(dh) of the true width at run time (Width: the plain
+// version's scale, not the tile's or the layout's), and the stores stop at
+// dp (the columns past dh come out zero). At 128 columns (dp 72-128) a
 // tile is two 64-column halves in the 128-byte swizzle; the forward keeps
 // one tiling (64 queries, 64-key tiles: O takes 64 registers a thread), the
 // backward's key block 176 KB of shared memory (one CTA an SM) and n128

@@ -14,8 +14,12 @@
 // the first `rows` (<= 8) rows of each sample only. Attention is the
 // streamed kernel of flash_attention.cu, at any N (SiT-tiny's 321, SiT-base
 // on sub-ico 3's 1,281, MS-SiT's folded windows of 20 to 320) and every
-// head dim the attention takes (flash_attention.cuh dim_head_ok: a multiple
-// of 8 from 8 to 128), the CLS block's too.
+// head dim >= 1, the CLS block's too: a head of dim_head columns is laid out
+// in head_cols(dim_head) (dim_head rounded up to 8; flash_attention.cuh), so
+// qkv and the attention output are (rows, 3 heads head_cols) and (rows,
+// heads head_cols) with zero columns past each head's dim_head: the caller
+// gives W_qkv zero rows and W_out zero columns there (ops/fused_block.py
+// pads them), and the attention takes the softmax scale of dim_head.
 // The training entries (svt_fused_block[_cls]_train_fwd) run the same chain
 // and also keep what the backward (fused_block_bwd.cu) reads: LN
 // statistics, the fp32 fc1 pre-activation and the attention row
@@ -144,13 +148,14 @@ gemm::Epilogue out_res(bf16* C, int ldc, const float* bias, const bf16* R, int l
 }
 
 // Attention on the packed activations (B, rows, ld), head h at columns
-// h * dh: the streamed kernel of flash_attention.cu (K and V through shared
+// h * head_cols(dh): the streamed kernel of flash_attention.cu (K and V through shared
 // memory in 64- or 128-key tiles by TMA, wgmma, online softmax, any N).
 cudaError_t launch_attention(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V,
                              int ldkv, int n, bf16* O, int ldo, int B, int heads, int dh,
                              int valid_len, float* lse, cudaStream_t st) {
-  return flash_fwd(packed(Q, nq, ldq, dh), packed(K, n, ldkv, dh), packed(V, n, ldkv, dh),
-                   packed(O, nq, ldo, dh), lse, B, heads, nq, n, valid_len, dh, st);
+  const int dp = head_cols(dh);
+  return flash_fwd(packed(Q, nq, ldq, dp), packed(K, n, ldkv, dp), packed(V, n, ldkv, dp),
+                   packed(O, nq, ldo, dp), lse, B, heads, nq, n, valid_len, dh, st);
 }
 
 // What a training forward keeps for the backward (fused_block_bwd.cu). The
@@ -173,7 +178,7 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
   if (!dim_head_ok(dim_head)) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N, hd = heads * dim_head;
+  const int M = B * N, hd = heads * head_cols(dim_head);
   bf16* h2 = s.h2 != nullptr ? s.h2 : h;
 
   const bool fused = fused_mlp_route(dim, mlp, s.h2 != nullptr);
@@ -236,7 +241,7 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   if (!dim_head_ok(dim_head) || rows < 1 || rows > N) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N, Mt = B * rows, hd = heads * dim_head;
+  const int M = B * N, Mt = B * rows, dp = head_cols(dim_head), hd = heads * dp;
   const bf16* wq = static_cast<const bf16*>(w_qkv);
   const bf16* wkv = wq + (long long)hd * dim;
   const bool train = s.h2 != nullptr;
@@ -258,9 +263,9 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
     fq.dim = dim;
     fq.eps = eps;
     fq.q_out = train ? q : nullptr;
-    SVT_TRY(flash_fwd_few_q(fq, packed(kv, N, 2 * hd, dim_head),
-                            packed(kv + hd, N, 2 * hd, dim_head), packed(attn, rows, hd, dim_head),
-                            s.lse, B, heads, rows, N, valid_len, dim_head, st));
+    SVT_TRY(flash_fwd_few_q(fq, packed(kv, N, 2 * hd, dp), packed(kv + hd, N, 2 * hd, dp),
+                            packed(attn, rows, hd, dp), s.lse, B, heads, rows, N, valid_len,
+                            dim_head, st));
   } else {  // LN1, K/V, Q, then the attention (the few-query forward on cls_fwd_route)
     SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1,
                       st));
@@ -286,8 +291,8 @@ extern "C" {
 
 const char* svt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// x (B, N, dim) -> out (B, N, dim), dim_head a multiple of 8 from 8 to
-// 128. Weights in torch
+// x (B, N, dim) -> out (B, N, dim), any dim_head >= 1, heads laid out in
+// hd = heads head_cols(dim_head) columns (see the top). Weights in torch
 // Linear layout (out, in),
 // bf16: w_qkv (3hd, dim), w_out (dim, hd), w_fc1 (mlp, dim), w_fc2 (dim, mlp);
 // LN parameters and biases fp32. Scratch: h (B*N, dim), qkv (B*N, 3hd),

@@ -8,8 +8,8 @@
 //   fused_block_cls_train  backward: _block_cls_bwd (_block_cls_bwd_kernel)
 //                          and _block_cls_bwd_split     -> svt_fused_block_cls_bwd
 // Both JAX routes compute the same gradients; one chain serves every width
-// up to dim 768 and every head dim the attention takes (a multiple of 8 from
-// 8 to 128). MS-SiT's
+// up to dim 768 and every head dim >= 1 (heads laid out in head_cols columns,
+// as fused_block.cu's). MS-SiT's
 // first stage (dim 96, qkv 288) makes the dX products' N and K and the
 // weight gradients' Mout and Nout ragged against the engine's 128 x 192
 // tiles; TMA zero-fills them and the epilogues skip them, as in the forward.
@@ -447,14 +447,16 @@ cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const flo
 }
 
 // The attention backward on the chain's packed activations (B, rows, ld),
-// head h at columns h * dh: the streamed kernels of flash_attention.cu.
+// head h at columns h * head_cols(dh): the streamed kernels of
+// flash_attention.cu.
 cudaError_t attn_bwd(const bf16* Q, int ldq, int nq, const bf16* K, const bf16* V, int ldkv, int n,
                      const bf16* O, const bf16* dO, int ldo, const float* lse, float* delta,
                      float* ws, bf16* dQ, int lddq, bf16* dK, bf16* dV, int lddkv, int B,
                      int heads, int dh, int valid_len, cudaStream_t st) {
-  return flash_bwd(packed(Q, nq, ldq, dh), packed(K, n, ldkv, dh), packed(V, n, ldkv, dh),
-                   packed(O, nq, ldo, dh), packed(dO, nq, ldo, dh), lse, delta, ws,
-                   packed(dQ, nq, lddq, dh), packed(dK, n, lddkv, dh), packed(dV, n, lddkv, dh), B,
+  const int dp = head_cols(dh);
+  return flash_bwd(packed(Q, nq, ldq, dp), packed(K, n, ldkv, dp), packed(V, n, ldkv, dp),
+                   packed(O, nq, ldo, dp), packed(dO, nq, ldo, dp), lse, delta, ws,
+                   packed(dQ, nq, lddq, dp), packed(dK, n, lddkv, dp), packed(dV, n, lddkv, dp), B,
                    heads, nq, n, valid_len, dh, st);
 }
 
@@ -490,7 +492,7 @@ extern "C" {
 // attention backward's dQ sums.
 long long svt_block_bwd_workspace(int B, int N, int rows, int dim, int heads, int dim_head,
                                   int mlp) {
-  const int M = B * N, Mt = B * rows, hd = heads * dim_head;
+  const int M = B * N, Mt = B * rows, hd = heads * head_cols(dim_head);
   long long need = 0;
   const int dw[][3] = {{dim, mlp, Mt},    {mlp, dim, Mt},    {dim, hd, Mt}, {dim, mlp, M},
                        {mlp, dim, M},     {dim, hd, M},      {3 * hd, dim, M},
@@ -542,7 +544,7 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
   if (!dim_head_ok(dim_head) || dim > LNB_MAX_DIM) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N, hd = heads * dim_head;
+  const int M = B * N, hd = heads * head_cols(dim_head);
   float* part = static_cast<float*>(ws);
   bf16* dx1b_ = static_cast<bf16*>(dx1b);
   bf16* dqkv_ = static_cast<bf16*>(dqkv);
@@ -599,7 +601,7 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N, Mt = B * rows, hd = heads * dim_head;
+  const int M = B * N, Mt = B * rows, hd = heads * head_cols(dim_head);
   float* part = static_cast<float*>(ws);
   const bf16* wq = static_cast<const bf16*>(w_qkv);
   const bf16* wkv = wq + (long long)hd * dim;

@@ -275,13 +275,18 @@ extern "C" {
 
 // x (B, N, dim) bf16 -> out (B, N, dim) bf16. Weights int8 in the torch
 // Linear layout (out, in) with fp32 (out,) scales: q_qkv (3hd, dim), q_out
-// (dim, hd), q_fc1 (mlp, dim), q_fc2 (dim, mlp); LN parameters and biases
-// fp32. Scratch: qa (B*N, max(dim, hd)) int8 and sa (B*N,) fp32 (LN1's,
+// (dim, hq), q_fc1 (mlp, dim), q_fc2 (dim, mlp); LN parameters and biases
+// fp32. Scratch: qa (B*N, max(dim, hq)) int8 and sa (B*N,) fp32 (LN1's,
 // the attention output's and LN2's codes), qf (B*N, mlp) int8 and sf
 // (B*N,) fp32 (f's), part (parts, B*N) fp32 with parts = ceil(mlp / 192)
 // (any other count returns cudaErrorInvalidValue), qkv (B*N, 3hd) and attn
-// (B*N, hd) bf16, x1 (B*N, dim) fp32. dim, mlp and hd multiples of 16 (int8
-// rows on 16 bytes), dim_head a multiple of 8 from 8 to 128.
+// (B*N, hq) bf16, x1 (B*N, dim) fp32. dim and mlp multiples of 16 (int8 rows
+// on 16 bytes), any dim_head >= 1. Heads are laid out as the bf16 chain's,
+// in head_cols(dim_head) columns (hd = heads head_cols): q_qkv's rows past
+// each head's dim_head are zero. The attention output's int8 rows take hq
+// = hd rounded up to 16 bytes: its columns past hd are zeroed here, and so
+// are q_out's (dim, hq) columns past each head's dim_head and past hd, so
+// no row's absmax, scale or int32 sum changes.
 int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s_qkv,
                          void* q_out, void* s_out, void* b_out, void* ln2_s, void* ln2_b,
                          void* q_fc1, void* s_fc1, void* b_fc1, void* q_fc2, void* s_fc2,
@@ -289,12 +294,11 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
                          void* ws_sf, void* ws_part, void* ws_qkv, void* ws_attn, void* ws_x1,
                          int B, int N, int dim, int heads, int dim_head, int mlp, int parts,
                          int valid_len, float eps, int device, void* stream) {
-  if (!dim_head_ok(dim_head) || parts != fc1_parts(mlp) || dim % 16 || mlp % 16 ||
-      heads * dim_head % 16)
+  if (!dim_head_ok(dim_head) || parts != fc1_parts(mlp) || dim % 16 || mlp % 16)
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N, hd = heads * dim_head;
+  const int M = B * N, dp = head_cols(dim_head), hd = heads * dp, hq = (hd + 15) / 16 * 16;
   const bf16* xb = static_cast<const bf16*>(x);
   int8_t* qa = static_cast<int8_t*>(ws_qa);
   float* sa = static_cast<float*>(ws_sa);
@@ -311,17 +315,19 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
   e_qkv.cb = qkv;
   e_qkv.ldc = 3 * hd;
   SVT_TRY(int8_gemm<gemm::Q_BF16>(qa, sa, i8(q_qkv), f32(s_qkv), M, 3 * hd, dim, e_qkv, st));
-  SVT_TRY(flash_fwd(packed(qkv, N, 3 * hd, dim_head), packed(qkv + hd, N, 3 * hd, dim_head),
-                    packed(qkv + 2 * hd, N, 3 * hd, dim_head), packed(attn, N, hd, dim_head),
-                    nullptr, B, heads, N, N, valid_len, dim_head, st));
-  SVT_TRY(launch_quant_rows(static_cast<const bf16*>(attn), qa, sa, M, hd, st));
+  if (hq > hd)  // the attention output's columns past hd: zeros in its 16-byte rows
+    SVT_TRY(cudaMemset2DAsync(attn + hd, (size_t)hq * 2, 0, (size_t)(hq - hd) * 2, M, st));
+  SVT_TRY(flash_fwd(packed(qkv, N, 3 * hd, dp), packed(qkv + hd, N, 3 * hd, dp),
+                    packed(qkv + 2 * hd, N, 3 * hd, dp), packed(attn, N, hq, dp), nullptr, B,
+                    heads, N, N, valid_len, dim_head, st));
+  SVT_TRY(launch_quant_rows(static_cast<const bf16*>(attn), qa, sa, M, hq, st));
   gemm::Epilogue e_out;
   e_out.bias = f32(b_out);
   e_out.res = xb;
   e_out.ldr = dim;
   e_out.cf = x1;
   e_out.ldc = dim;
-  SVT_TRY(int8_gemm<gemm::Q_RES_F32>(qa, sa, i8(q_out), f32(s_out), M, dim, hd, e_out, st));
+  SVT_TRY(int8_gemm<gemm::Q_RES_F32>(qa, sa, i8(q_out), f32(s_out), M, dim, hq, e_out, st));
   SVT_TRY(launch_ln_quant(static_cast<const float*>(x1), f32(ln2_s), f32(ln2_b), qa, sa, M, dim,
                           eps, st));
   SVT_TRY(fc1_codes(qa, sa, i8(q_fc1), f32(s_fc1), f32(b_fc1), static_cast<float*>(ws_part), qf,

@@ -14,11 +14,24 @@ after it; the backward forms P from the kept LSE.
 The kernel (CUDA C++ for ``sm_90a``, ``csrc/flash_attention.cu``) streams K
 and V through shared memory in tiles with an online softmax, so it takes any
 sequence length, bfloat16. Both directions, with or without dropout, take
-every head dim that is a multiple of 8 from 8 to 128 (``check_dim_head``):
-dh 64 and dh 32 (MS-SiT's heads) on kernels built for them, the others
-(``csrc/flash_attention_widths.cu``) in the smallest tile of 32, 64 or 128
-columns that holds the head, zeros past dh, the softmax scale dh ** -0.5
-given at run time. The plain versions take any dh. At dh 32
+every head dim dh >= 1 (``check_dim_head``), the JAX package's widths. The
+kernels lay a head out in ``head_cols(dh)`` columns (dh rounded up to 8,
+so that every head starts on 16 bytes, as TMA needs), the columns past dh
+zero; the wrappers give them a zero-padded copy where dh is no multiple of
+8 (``pad_heads``) and crop the outputs. Zero columns add nothing to any
+score, and O, dQ, dK and dV come out zero there, so this is exact; the
+kernels take the softmax scale of dh, not of the layout. dh 64 and dh 32
+(MS-SiT's heads) run on kernels built for them, the other layouts up to 128
+columns (``csrc/flash_attention_widths.cu``) in the smallest tile of 32, 64
+or 128 columns that holds the head, the softmax scale dh ** -0.5 given at
+run time (a padded head of dh 25-31 or 57-63 there too, never on the
+kernels built for 32 or 64, whose scale is their layout's). Heads laid out
+past 128 columns (``wide_fwd``, ``csrc/flash_attention_wide.cu``) run
+kernels of ``mma.sync`` products that sum the scores over the head in steps
+of 64 columns and make O and dQ in passes of 128 columns, dK and dV of 64,
+over the same keys (each pass recomputes the scores; PERF.md has their
+times), at every shape, the few-query ones too, with or without dropout.
+The plain versions take any dh. At dh 32
 the forward runs on 32-column tiles (no zero columns); where queries = keys
 <= 320 and the sequence is not a whole number of 64-row tiles
 (``resident_fwd``: MS-SiT's axial folds of 20 and 80) a kernel of its own
@@ -57,7 +70,8 @@ launches in ``<wrapper>.launches``; the few-query kernel's launches, from
 these wrappers and from the CLS block's backward chain, are counted in
 ``few_query_bwd.launches`` too, and the few-query forward's, from the
 forward wrappers and the CLS block's forward chain, in
-``few_query_fwd.launches``.
+``few_query_fwd.launches``; the wide kernels', from every wrapper and
+chain, in ``wide_fwd.launches`` and ``wide_bwd.launches``.
 
 Dispatch: tensors on the CPU run the plain versions beside the kernel; CUDA
 tensors launch the kernel or raise. There is no fallback.
@@ -66,10 +80,16 @@ tensors launch the kernel or raise. There is no fallback.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from surface_vision_transformers_tpu_torch.ops import _native
+from surface_vision_transformers_tpu_torch.serving import svt_ops
+from surface_vision_transformers_tpu_torch.serving.svt_ops import head_cols
 
-DIM_HEAD_STEP, MAX_DIM_HEAD = 8, 128  # the kernels' head dims: multiples of 8 up to 128
+# A head's layout: its columns rounded up to DIM_HEAD_STEP; MAX_DIM_HEAD the
+# widest wgmma tile (heads laid out wider run the wide kernels); DIM_HEADS
+# the widths laid out as they are on those tiles
+DIM_HEAD_STEP, MAX_DIM_HEAD = 8, svt_ops.MAX_TILE_COLS
 DIM_HEADS = tuple(range(DIM_HEAD_STEP, MAX_DIM_HEAD + 1, DIM_HEAD_STEP))
 RESIDENT_MAX_N = 320  # the resident backward's longest sequence: five 64-row tiles
 FEW_MAX_Q = 8  # the few-query kernels' query rows: the n of their m64n8 products
@@ -93,9 +113,10 @@ def few_query_bwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     (``csrc/flash_attention.cu``: one launch, one CTA a (sample, head), K and
     V streamed past its query rows, every product with the queries on its
     short side, delta and dQ summed in the CTA): any head dim the kernels
-    take, no dropout, at most ``FEW_MAX_Q`` queries against more keys (the
-    CLS block's 8 rows against all N keys)."""
-    return dh in DIM_HEADS and not dropout and nq <= FEW_MAX_Q < nk
+    take up to ``MAX_DIM_HEAD`` columns, no dropout, at most ``FEW_MAX_Q``
+    queries against more keys (the CLS block's 8 rows against all N keys).
+    Wider heads run the wide kernels at these shapes too."""
+    return 1 <= dh <= MAX_DIM_HEAD and not dropout and nq <= FEW_MAX_Q < nk
 
 
 few_query_bwd.launches = 0
@@ -105,12 +126,13 @@ def few_query_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     """Whether the forward at these shapes runs the few-query kernel
     (``csrc/flash_attention.cu``: one launch, one CTA a (sample, head), the
     queries on the short side of m64n8 products, the fp32 scores of every
-    key kept in shared memory, an exact two-pass softmax): any head dim the
-    kernels take, no dropout, at most ``FEW_MAX_Q`` queries against more
+    key kept in shared memory, an exact two-pass softmax): any head dim up
+    to ``MAX_DIM_HEAD``, no dropout, at most ``FEW_MAX_Q`` queries against more
     keys, up to ``FEW_FWD_MAX_KEYS`` (the scores' shared memory). The CLS
     block's chain runs the same kernel, with its Q made inside it up to dh
     64 (``fused_block.cls_fwd_route``, ``cls_ln1_in_kv``)."""
-    return dh in DIM_HEADS and not dropout and nq <= FEW_MAX_Q < nk <= FEW_FWD_MAX_KEYS
+    return (1 <= dh <= MAX_DIM_HEAD and not dropout
+            and nq <= FEW_MAX_Q < nk <= FEW_FWD_MAX_KEYS)
 
 
 few_query_fwd.launches = 0
@@ -130,6 +152,28 @@ def count_few_query(nq: int, nk: int, dh: int, dropout: bool = False) -> None:
         few_query_bwd.launches += 1
 
 
+def wide_fwd(dh: int) -> bool:
+    """Whether the forward at head dim dh runs the wide kernel
+    (``csrc/flash_attention_wide.cu``): heads laid out past
+    ``MAX_DIM_HEAD`` columns (dh > 128), at every shape, with or without
+    dropout: a CTA a 64-query tile, the scores summed in steps of 64
+    columns, O made in passes of up to 128 columns over the same keys."""
+    return head_cols(dh) > MAX_DIM_HEAD
+
+
+wide_fwd.launches = 0
+
+
+def wide_bwd(dh: int) -> bool:
+    """Whether the backward at head dim dh runs the wide kernels (a delta
+    pass; dK and dV a 64-key block a CTA, in passes of up to 64 columns; dQ
+    a 64-query tile a CTA, in passes of up to 128): where ``wide_fwd``."""
+    return wide_fwd(dh)
+
+
+wide_bwd.launches = 0
+
+
 def resident_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
     """Whether the forward at these shapes runs its resident kernel
     (``csrc/flash_attention.cu``: one 64-row query tile a CTA, the keys its
@@ -142,9 +186,11 @@ def resident_fwd(nq: int, nk: int, dh: int, dropout: bool = False) -> bool:
 
 
 def tile_width(dh: int) -> int:
-    """Columns of the tiles a head of dh columns runs in (the smallest of
-    32, 64 and 128 that holds it; zeros past dh). The streamed backward and
-    the few-query kernels take 64 where this says 32."""
+    """Columns of the tiles a head of dh columns runs in up to
+    ``MAX_DIM_HEAD`` (the smallest of 32, 64 and 128 that holds its
+    ``head_cols(dh)``; zeros past dh). The streamed backward and the
+    few-query kernels take 64 where this says 32; wider heads run the wide
+    kernels (``wide_fwd``)."""
     return 32 if dh <= 32 else 64 if dh <= 64 else 128
 
 
@@ -164,17 +210,19 @@ def resident_pack(n: int) -> int:
 
 def bwd_workspace_floats(B: int, H: int, nq: int, nk: int, dh: int) -> int:
     """Floats of fp32 scratch the backward asks for
-    (``svt_flash_attention_bwd_workspace``): none on the resident and
-    few-query routes; else four dQ sums of a 64-query tile and their turn
-    counters per tile."""
-    if resident_bwd(nq, nk, dh) or few_query_bwd(nq, nk, dh):
+    (``svt_flash_attention_bwd_workspace``): none on the resident,
+    few-query and wide routes; else four dQ sums of a 64-query tile of the
+    head's ``head_cols(dh)`` columns and their turn counters per tile."""
+    if resident_bwd(nq, nk, dh) or few_query_bwd(nq, nk, dh) or wide_bwd(dh):
         return 0
-    return _BWD_CHAINS * B * H * -(-nq // _BWD_TILE) * (_BWD_TILE * dh + 1)
+    return _BWD_CHAINS * B * H * -(-nq // _BWD_TILE) * (_BWD_TILE * head_cols(dh) + 1)
 
 
-def _masked_scores(q, k, valid_len):
-    """fp32 scaled scores (B, H, Nq, Nk), keys >= valid_len at -inf."""
-    s = q.float() @ k.float().transpose(-1, -2) * q.shape[-1] ** -0.5
+def _masked_scores(q, k, valid_len, scale=None):
+    """fp32 scaled scores (B, H, Nq, Nk), keys >= valid_len at -inf; the
+    scale dh ** -0.5 of q's width unless given."""
+    s = q.float() @ k.float().transpose(-1, -2) * (q.shape[-1] ** -0.5 if scale is None
+                                                   else scale)
     if valid_len < k.shape[-2]:
         s[..., valid_len:] = float("-inf")
     return s
@@ -185,13 +233,15 @@ def _inv_keep(rate):
 
 
 def flash_attention_reference(q, k, v, valid_len: int | None = None, keep=None,
-                              rate: float = 0.0):
+                              rate: float = 0.0, scale: float | None = None):
     """Plain forward: -> (o (B, H, Nq, dh) in q.dtype, lse (B, H, Nq)
     float32). In float32 nothing is rounded. With ``keep`` (a (B, H, Nq, Nk)
     bool mask), dropout at ``rate`` on the probabilities: lse and the sum
-    are the undropped softmax's, o = keep(P) V / l / (1 - rate)."""
+    are the undropped softmax's, o = keep(P) V / l / (1 - rate). ``scale``:
+    the softmax scale, dh ** -0.5 of q's width unless given (a padded head
+    takes its true width's: ``padded_attention_reference``)."""
     vl = k.shape[-2] if valid_len is None else int(valid_len)
-    s = _masked_scores(q, k, vl)
+    s = _masked_scores(q, k, vl, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -205,16 +255,17 @@ def flash_attention_reference(q, k, v, valid_len: int | None = None, keep=None,
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, valid_len: int | None = None,
-                                  keep=None, rate: float = 0.0):
+                                  keep=None, rate: float = 0.0, scale: float | None = None):
     """Plain backward from the forward's o and lse: P = exp(s - lse) on keys
     and query rows < valid_len (0 elsewhere), delta = rowsum(dO . O),
     dS = P (dP - delta) / sqrt(dh); P and dS rounded to q.dtype before their
     products. -> (dq, dk, dv) in q.dtype. With ``keep``: dV = P~^T dO with
     P~ = keep(P) / (1 - rate), dP = keep(dO V^T) / (1 - rate); o must be the
-    dropped output."""
+    dropped output. ``scale`` as the forward's."""
     vl = k.shape[-2] if valid_len is None else int(valid_len)
     dt = q.dtype
-    p = torch.exp(_masked_scores(q, k, vl) - lse[..., None])
+    sc = q.shape[-1] ** -0.5 if scale is None else scale
+    p = torch.exp(_masked_scores(q, k, vl, sc) - lse[..., None])
     p[..., vl:, :] = 0.0
     dof = do.float()
     delta = (dof * o.float()).sum(-1, keepdim=True)
@@ -224,7 +275,7 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, valid_len: int | None = N
         pv = torch.where(keep, p * _inv_keep(rate), 0.0)
         dp = torch.where(keep, dp * _inv_keep(rate), 0.0)
     dv = pv.to(dt).float().transpose(-1, -2) @ dof
-    ds = (p * (dp - delta) * q.shape[-1] ** -0.5).to(dt).float()
+    ds = (p * (dp - delta) * sc).to(dt).float()
     return ((ds @ k.float()).to(dt), (ds.transpose(-1, -2) @ q.float()).to(dt),
             dv.to(dt))
 
@@ -316,17 +367,34 @@ def _heads_last_empty(like, n):
 
 
 def check_dim_head(dh: int) -> None:
-    """Raise ``NotImplementedError`` on a head dim the kernels do not take:
-    they take every multiple of 8 from 8 to 128, with or without dropout."""
-    if dh % DIM_HEAD_STEP or dh < DIM_HEAD_STEP:
-        raise NotImplementedError(
-            f"the attention kernels take dim_head a multiple of {DIM_HEAD_STEP}, got {dh}: "
-            f"a head's columns start at head * dim_head * 2 bytes, and TMA loads them "
-            f"from 16-byte boundaries")
-    if dh > MAX_DIM_HEAD:
-        raise NotImplementedError(
-            f"the attention kernels take dim_head up to {MAX_DIM_HEAD}, got {dh}: the "
-            f"widest tile built is {MAX_DIM_HEAD} columns")
+    """Raise ``ValueError`` on a head dim that is no width: the kernels take
+    every dh >= 1, with or without dropout (laid out in ``head_cols(dh)``
+    columns; past ``MAX_DIM_HEAD`` on the wide kernels)."""
+    if dh < 1:
+        raise ValueError(f"dim_head must be >= 1, got {dh}")
+
+
+def pad_heads(t, dp: int):
+    """(B, H, N, dh) -> a contiguous (B, H, N, dp) copy, zeros past dh: the
+    kernels' layout of a head (``head_cols``)."""
+    return F.pad(t, (0, dp - t.shape[-1]))
+
+
+def padded_attention_reference(q, k, v, valid_len: int | None = None, do=None):
+    """The padded route's host transform around the plain versions: q, k, v
+    (and the cotangent do) padded to ``head_cols(dh)`` columns
+    (``pad_heads``), the plain forward (and backward) at that width with
+    the softmax scale of dh, the outputs cropped to dh. -> (o, lse) or,
+    with ``do``, (o, lse, dq, dk, dv): equal to the plain versions at dh."""
+    dh = q.shape[-1]
+    dp, sc = head_cols(dh), dh ** -0.5
+    qp, kp, vp = (pad_heads(t, dp) for t in (q, k, v))
+    o, lse = flash_attention_reference(qp, kp, vp, valid_len, scale=sc)
+    if do is None:
+        return o[..., :dh], lse
+    grads = flash_attention_bwd_reference(qp, kp, vp, o, lse, pad_heads(do, dp), valid_len,
+                                          scale=sc)
+    return (o[..., :dh], lse, *(g[..., :dh] for g in grads))
 
 
 def _check_cuda(q, k, v, valid_len, *extra):
@@ -357,14 +425,19 @@ def _drop_args(rate, seed):
 
 
 def _fwd(q, k, v, vl, rate=0.0, seed=0):
-    """The forward on either device (no launch count): the kernel on CUDA,
-    the plain version (with the kernel's dropout mask) on the CPU."""
+    """The forward on either device (no launch count): the kernel on CUDA
+    (on zero-padded copies where dh is no multiple of 8, the output
+    cropped), the plain version (with the kernel's dropout mask) on the
+    CPU."""
     if _dispatch(q) == "cpu":
         keep = None if not rate else dropout_keep_mask(seed, *q.shape[:3], k.shape[2], rate)
         return flash_attention_reference(q, k, v, vl, keep, rate)
     _check_cuda(q, k, v, vl)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, H, nq, dh = q.shape
+    dp = head_cols(dh)
+    if dp != dh:
+        q, k, v = (pad_heads(t, dp) for t in (q, k, v))
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = _heads_last_empty(q, nq)
     lse = torch.empty((B, H, nq), dtype=torch.float32, device=q.device)
     _native.check(_native.library().svt_flash_attention_fwd(
@@ -372,12 +445,14 @@ def _fwd(q, k, v, vl, rate=0.0, seed=0):
         B, H, nq, k.shape[2], vl, dh, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
     count_few_query_fwd(nq, k.shape[2], dh, bool(rate))
-    return o, lse
+    wide_fwd.launches += wide_fwd(dh)
+    return o[..., :dh], lse
 
 
 def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
     """The backward on either device (no launch count), into ``out`` (three
-    (B, H, N, dh) views) when given."""
+    (B, H, N, dh) views) when given; on CUDA on zero-padded copies where dh
+    is no multiple of 8, the gradients cropped."""
     if _dispatch(q) == "cpu":
         keep = None if not rate else dropout_keep_mask(seed, *q.shape[:3], k.shape[2], rate)
         grads = flash_attention_bwd_reference(q, k, v, o, lse, do, vl, keep, rate)
@@ -392,6 +467,10 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         raise ValueError("o and do must have q's shape")
     if lse.shape != (B, H, nq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 {(B, H, nq)} tensor")
+    dp, dest = head_cols(dh), out
+    if dp != dh:
+        q, k, v, o, do = (pad_heads(t, dp) for t in (q, k, v, o, do))
+        out = None
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     nk = k.shape[2]
     if out is None:
@@ -406,7 +485,15 @@ def _bwd(q, k, v, o, lse, do, vl, rate=0.0, seed=0, out=None):
         B, H, nq, nk, vl, dh, *_drop_args(rate, seed), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream))
     count_few_query(nq, nk, dh, bool(rate))
-    return out
+    wide_bwd.launches += wide_bwd(dh)
+    if dp == dh:
+        return out
+    grads = tuple(g[..., :dh] for g in out)
+    if dest is None:
+        return grads
+    for dst, g in zip(dest, grads):
+        dst.copy_(g)
+    return dest
 
 
 def _counted(fn):

@@ -67,7 +67,11 @@ from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_reference,
     flash_attention_reference,
+    head_cols,
+    wide_bwd,
+    wide_fwd,
 )
+from surface_vision_transformers_tpu_torch.serving.svt_ops import crop_heads, pad_block
 
 _CLS_ROWS = svt_ops.CLS_ROWS
 
@@ -231,8 +235,10 @@ def check_vectors(vectors: dict, aligned: bool = True) -> None:
 def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
     """Validate everything the kernels assume; raise on anything else. Both
     blocks take the attention kernels' head dims (``check_dim_head``: every
-    multiple of 8 from 8 to 128); ``addresses`` False leaves the 16-byte
-    checks to the serving operators' CUDA kernels."""
+    dim_head >= 1; the weights in the reference layout, which the CUDA
+    entries lay out per head in ``head_cols(dim_head)`` columns,
+    ``svt_ops.pad_block``); ``addresses`` False leaves the 16-byte checks
+    to the serving operators' CUDA kernels."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b,
      w_fc1, b_fc1, w_fc2, b_fc2) = params
     if x.dtype != torch.bfloat16:
@@ -477,7 +483,7 @@ def block_bwd_workspace(B: int, N: int, rows: int, dim: int, heads: int, dim_hea
     LN1 epilogue's column partials, ``cls_ln1_in_epilogue``), or the
     attention backward's (``bwd_workspace_floats``: none where the resident
     or the few-query kernel runs)."""
-    M, Mt, hd = B * N, B * rows, heads * dim_head
+    M, Mt, hd = B * N, B * rows, heads * head_cols(dim_head)
     dw = [(dim, mlp, Mt), (mlp, dim, Mt), (dim, hd, Mt), (dim, mlp, M), (mlp, dim, M),
           (dim, hd, M), (3 * hd, dim, M), (hd, dim, Mt), (2 * hd, dim, M)]
     need = max(_split_k(*s) * s[0] * s[1] for s in dw)
@@ -642,8 +648,9 @@ def train_forward(x, *params, heads: int, dim_head: int,
                   ln_eps=ln_eps, saved=sv)
         return out, sv
     _check_cuda_args(x, params, heads, dim_head, vl)
+    params = pad_block(params, heads, dim_head)  # heads in head_cols(dim_head) columns
     B, N, dim = x.shape
-    hd, mlp, H = heads * dim_head, params[7].shape[0], heads
+    hd, mlp, H = heads * head_cols(dim_head), params[7].shape[0], heads
     rows = min(_CLS_ROWS, N) if cls else N
     if cls:
         check_tma_operands(cls_rows=rows)
@@ -669,12 +676,14 @@ def train_forward(x, *params, heads: int, dim_head: int,
             x.device.index, stream))
         fused_block_cls.launches += 1
         _count_cls(N, rows, dim, dim_head)
+        wide_fwd.launches += wide_fwd(dim_head)
     else:
         _native.check(lib.svt_fused_block_train_fwd(
             *ptrs, B, N, dim, heads, dim_head, mlp, vl, ln_eps,
             x.device.index, stream))
         fused_block.launches += 1
         _count_fused(fuses_mlp(dim, mlp, train=True))
+        wide_fwd.launches += wide_fwd(dim_head)
     return out, sv
 
 
@@ -702,9 +711,10 @@ def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
         plain = _block_cls_bwd_plain if cls else _block_bwd_plain
         return plain(x, g, params, sv, heads, dim_head, vl)
     _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls)
+    params = pad_block(params, heads, dim_head)  # heads in head_cols(dim_head) columns
     lib = _native.library()
     B, N, dim = x.shape
-    hd, mlp = heads * dim_head, params[7].shape[0]
+    hd, mlp = heads * head_cols(dim_head), params[7].shape[0]
     rows = min(_CLS_ROWS, N) if cls else N
     M, Mr = B * N, B * rows
     dev = x.device
@@ -741,6 +751,10 @@ def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
         _native.check(lib.svt_fused_block_bwd(
             *ptrs, B, N, dim, heads, dim_head, mlp, vl, dev.index, stream))
         fused_block_bwd.launches += 1
+    wide_bwd.launches += wide_bwd(dim_head)
+    # d_wqkv's rows and d_wout's columns back in the reference layout
+    grads[2] = crop_heads(grads[2], 3 * heads, dim_head, 0)
+    grads[3] = crop_heads(grads[3], heads, dim_head, 1)
     return (dx, *grads)
 
 
@@ -1209,4 +1223,4 @@ register_plain("svt::fused_block", fused_block_reference)
 register_plain("svt::fused_block_cls", fused_block_cls_reference)
 svt_ops.count_into(fused_block=fused_block, fused_block_cls=fused_block_cls,
                    block_ln_gemm=block_ln_gemm, block_mlp=block_mlp,
-                   few_query_fwd=few_query_fwd)
+                   few_query_fwd=few_query_fwd, wide_fwd=wide_fwd)

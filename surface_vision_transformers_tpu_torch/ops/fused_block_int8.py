@@ -92,10 +92,10 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
     B, N, dim = x.shape
     hd, mlp = heads * dim_head, q_fc1.shape[0]
     check_dim_head(dim_head)
-    if dim % INT8_ROW_ALIGN or mlp % INT8_ROW_ALIGN or hd % INT8_ROW_ALIGN:
+    if dim % INT8_ROW_ALIGN or mlp % INT8_ROW_ALIGN:
         raise NotImplementedError(
-            f"dim, mlp_dim and heads * dim_head must be multiples of {INT8_ROW_ALIGN} (int8 "
-            "rows on 16 bytes, as TMA reads them)")
+            f"dim and mlp_dim must be multiples of {INT8_ROW_ALIGN} (int8 rows on 16 bytes, "
+            "as TMA reads them)")
     if not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside [1, {N}]")
     mats = {"q_qkv": (q_qkv, s_qkv, (3 * hd, dim)), "q_out": (q_out, s_out, (dim, hd)),

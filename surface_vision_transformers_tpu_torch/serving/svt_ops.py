@@ -23,7 +23,18 @@ keeps the first definition and its library.
 
 ``launches`` counts, by kernel name, every launch of an operator's chain,
 and the kernels inside it it runs (``block_ln_gemm``, ``block_mlp``,
-``few_query_fwd``); ``count_into`` adds them to other counters too.
+``few_query_fwd``, ``wide_fwd``); ``count_into`` adds them to other
+counters too.
+
+Head widths: the operators take the reference layout, heads of dim_head
+columns. The kernels lay a head out in ``head_cols(dim_head)`` columns
+(dim_head rounded up to 8, so that every head starts on 16 bytes), the
+columns past dim_head zero: where they differ the CUDA kernels copy W_qkv
+(and the int8 block's q_qkv and s_qkv) with zero rows and W_out (q_out)
+with zero columns per head (``pad_heads``), the int8 block's q_out also
+to a multiple of 16 columns, before the launch. A zero column adds nothing
+to any score or product, and the chain takes the softmax scale of
+dim_head, so the output is the unpadded block's.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ SCHEMAS = {
     "fused_block_int8": f"({_INT8}, {_INTS}) -> Tensor",
 }
 CLS_ROWS = 8  # the CLS block's output rows a sample, min(8, N)
+MAX_TILE_COLS = 128  # the widest wgmma tile; heads laid out wider run the wide kernels
 GEMM_BN = 192  # csrc/gemm.cuh's BN: fc1's absmax partials, one a row and BN columns
 
 launches: collections.Counter = collections.Counter()
@@ -118,16 +130,81 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def head_cols(dh: int) -> int:
+    """Columns a head of dh columns is laid out in on the card: dh rounded
+    up to 8 (``csrc/flash_attention.cuh``)."""
+    return -(-dh // 8) * 8
+
+
+def int8_cols(hd: int) -> int:
+    """Columns of the int8 block's attention-output rows (and q_out's K)
+    for an inner width hd: hd rounded up to 16, the int8 rows' 16 bytes."""
+    return -(-hd // 16) * 16
+
+
+def pad_heads(t: torch.Tensor, groups: int, dh: int, dim: int) -> torch.Tensor:
+    """t with each of the ``groups`` runs of dh entries along dimension
+    ``dim`` (heads, or q / k / v heads) padded with zeros to
+    ``head_cols(dh)``, contiguous; t itself where dh is a multiple of 8."""
+    dp = head_cols(dh)
+    if dp == dh:
+        return t
+    v = t.unflatten(dim, (groups, dh))
+    pad = (0, 0) * (v.dim() - dim - 2) + (0, dp - dh)
+    return torch.nn.functional.pad(v, pad).flatten(dim, dim + 1).contiguous()
+
+
+def crop_heads(t: torch.Tensor, groups: int, dh: int, dim: int) -> torch.Tensor:
+    """``pad_heads`` undone: the first dh of each run of ``head_cols(dh)``
+    along ``dim``."""
+    dp = head_cols(dh)
+    if dp == dh:
+        return t
+    return t.unflatten(dim, (groups, dp)).narrow(dim + 1, 0, dh).flatten(dim, dim + 1)
+
+
+def pad_block(params, heads: int, dim_head: int) -> list:
+    """The bf16 block's 11 parameters as the kernels take them: W_qkv's rows
+    and W_out's columns laid out per head in ``head_cols(dim_head)``."""
+    p = list(params)
+    p[2] = pad_heads(p[2], 3 * heads, dim_head, 0)
+    p[3] = pad_heads(p[3], heads, dim_head, 1)
+    return p
+
+
+def pad_int8_block(params, heads: int, dim_head: int) -> list:
+    """The int8 block's 15 parameters as its chain takes them: q_qkv's rows
+    and s_qkv laid out per head in ``head_cols(dim_head)`` (zero codes and
+    scales), q_out's columns per head and then to ``int8_cols`` (zero
+    codes)."""
+    p = list(params)
+    p[2] = pad_heads(p[2], 3 * heads, dim_head, 0)
+    p[3] = pad_heads(p[3], 3 * heads, dim_head, 0)
+    q_out = pad_heads(p[4], heads, dim_head, 1)
+    hd = q_out.shape[1]
+    if int8_cols(hd) != hd:
+        q_out = torch.nn.functional.pad(q_out, (0, int8_cols(hd) - hd))
+    p[4] = q_out
+    return p
+
+
 def int8_workspace(M: int, dim: int, hd: int, mlp: int) -> dict:
-    """The int8 chain's scratch for M rows -> name: (shape, dtype), in the C
-    entry's order: the int8 rows of LN1, the attention output and LN2 (qa,
-    sa), f's codes and scales (qf, sf), fc1's absmax partials (part), qkv
-    and the attention output in bfloat16, x1 in float32. No (M, mlp)
+    """The int8 chain's scratch for M rows at inner width hd (heads x
+    ``head_cols``) -> name: (shape, dtype), in the C entry's order: the int8
+    rows of LN1, the attention output (``int8_cols(hd)`` bytes) and LN2
+    (qa, sa), f's codes and scales (qf, sf), fc1's absmax partials (part),
+    qkv and the attention output in bfloat16, x1 in float32. No (M, mlp)
     float32 f."""
     i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
-    return {"qa": ((M, max(dim, hd)), i8), "sa": ((M,), f32), "qf": ((M, mlp), i8),
+    hq = int8_cols(hd)
+    return {"qa": ((M, max(dim, hq)), i8), "sa": ((M,), f32), "qf": ((M, mlp), i8),
             "sf": ((M,), f32), "part": ((-(-mlp // GEMM_BN), M), f32),
-            "qkv": ((M, 3 * hd), b16), "attn": ((M, hd), b16), "x1": ((M, dim), f32)}
+            "qkv": ((M, 3 * hd), b16), "attn": ((M, hq), b16), "x1": ((M, dim), f32)}
+
+
+def _wide(dim_head: int) -> tuple:
+    """('wide_fwd',) where the chain's attention runs the wide kernels."""
+    return ("wide_fwd",) if head_cols(dim_head) > MAX_TILE_COLS else ()
 
 
 # -- CUDA kernels ---------------------------------------------------------------------
@@ -154,10 +231,11 @@ def _patch_embed_cuda(x, indices, weight, bias):
 
 def _fused_block_cuda(x, *args):
     *params, heads, dim_head, valid_len, ln_eps = args
+    params = pad_block(params, heads, dim_head)
     _on_16("the block kernels' operands and vectors", x, *params)
     lib = library()
     B, N, dim = x.shape
-    hd, mlp, M = heads * dim_head, params[7].shape[0], B * N
+    hd, mlp, M = heads * head_cols(dim_head), params[7].shape[0], B * N
     fused = bool(lib.svt_block_fused_mlp(dim, mlp, 0))
     out = torch.empty_like(x)
     unused = x.new_empty(8)  # h and f: never touched where the chain fuses the MLP
@@ -167,17 +245,19 @@ def _fused_block_cuda(x, *args):
     check(lib.svt_fused_block(*[t.data_ptr() for t in (x, *params, out, *ws)],
                               B, N, dim, heads, dim_head, mlp, valid_len, ln_eps,
                               x.device.index, _stream(x)))
-    _launched("fused_block", *(("block_ln_gemm", "block_mlp") if fused else ()))
+    _launched("fused_block", *(("block_ln_gemm", "block_mlp") if fused else ()),
+              *_wide(dim_head))
     return out
 
 
 def _fused_block_cls_cuda(x, *args):
     *params, heads, dim_head, valid_len, ln_eps = args
+    params = pad_block(params, heads, dim_head)
     _on_16("the block kernels' operands and vectors", x, *params)
     lib = library()
     B, N, dim = x.shape
     rows = min(CLS_ROWS, N)
-    hd, mlp, Mt = heads * dim_head, params[7].shape[0], B * rows
+    hd, mlp, Mt = heads * head_cols(dim_head), params[7].shape[0], B * rows
     # bit 1: few-query attention; 2: LN1 in K/V (and Q made in the attention)
     route = lib.svt_cls_fwd_route(N, rows, dim, dim_head)
     ln_kv = bool(route & 2)
@@ -191,15 +271,16 @@ def _fused_block_cls_cuda(x, *args):
                                   B, N, rows, dim, heads, dim_head, mlp, valid_len, ln_eps,
                                   x.device.index, _stream(x)))
     _launched("fused_block_cls", *(("few_query_fwd",) if route & 1 else ()),
-              *(("block_ln_gemm",) if ln_kv else ()))
+              *(("block_ln_gemm",) if ln_kv else ()), *_wide(dim_head))
     return out
 
 
 def _fused_block_int8_cuda(x, *args):
     *params, heads, dim_head, valid_len, ln_eps = args
+    params = pad_int8_block(params, heads, dim_head)
     _on_16("the int8 block's operands, scales and vectors", x, *params)
     B, N, dim = x.shape
-    hd, mlp, M = heads * dim_head, params[9].shape[0], B * N
+    hd, mlp, M = heads * head_cols(dim_head), params[9].shape[0], B * N
     out = torch.empty_like(x)
     spec = int8_workspace(M, dim, hd, mlp)
     ws = [torch.empty(shape, dtype=dt, device=x.device) for shape, dt in spec.values()]
@@ -207,7 +288,7 @@ def _fused_block_int8_cuda(x, *args):
         *[t.data_ptr() for t in (x, *params, out, *ws)],
         B, N, dim, heads, dim_head, mlp, spec["part"][0][0], valid_len, ln_eps,
         x.device.index, _stream(x)))
-    _launched("fused_block_int8")
+    _launched("fused_block_int8", *_wide(dim_head))
     return out
 
 

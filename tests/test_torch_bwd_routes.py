@@ -146,14 +146,14 @@ def test_cls_ln1_epilogue_invariant():
 
 
 def test_few_query_limits():
-    """The few-query kernel's edges: every head dim the kernels take (a
-    multiple of 8 up to 128: 32 and 128 too, not 20 or 136), 1 to 8 queries,
-    more keys than 8; never with dropout."""
+    """The few-query kernel's edges: every head dim up to 128 (32, 128 and
+    20, in padded heads, too; 136 runs the wide kernels at these shapes), 1
+    to 8 queries, more keys than 8; never with dropout."""
     assert fa.few_query_bwd(8, 9, 64) and fa.few_query_bwd(1, 1281, 64)
     assert not fa.few_query_bwd(9, 321, 64) and not fa.few_query_bwd(8, 8, 64)
     assert not fa.few_query_bwd(4, 4, 64) and fa.few_query_bwd(8, 321, 32)
-    assert fa.few_query_bwd(8, 321, 128) and not fa.few_query_bwd(8, 321, 20)
-    assert not fa.few_query_bwd(8, 321, 136)
+    assert fa.few_query_bwd(8, 321, 128) and fa.few_query_bwd(8, 321, 20)
+    assert not fa.few_query_bwd(8, 321, 136) and fa.wide_bwd(136) and not fa.wide_bwd(128)
     assert not fa.few_query_bwd(8, 321, 64, dropout=True)
 
 

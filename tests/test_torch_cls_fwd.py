@@ -208,16 +208,17 @@ def test_cls_forward_route(name):
 
 
 def test_few_query_forward_limits():
-    """The few-query forward's edges: every head dim the kernels take (32
-    and 128 too, not 20 or 136), 1 to 8 queries, more keys than 8 and at
-    most 4,096; never with dropout; its backward twin takes any number of
-    keys."""
+    """The few-query forward's edges: every head dim up to 128 (32, 128 and
+    20, in padded heads, too; 136 runs the wide kernel at these shapes), 1
+    to 8 queries, more keys than 8 and at most 4,096; never with dropout;
+    its backward twin takes any number of keys."""
     assert tfa.few_query_fwd(8, 9, 64) and tfa.few_query_fwd(1, 4096, 64)
     assert not tfa.few_query_fwd(9, 321, 64) and not tfa.few_query_fwd(8, 8, 64)
     assert not tfa.few_query_fwd(8, 4097, 64) and tfa.few_query_bwd(8, 4097, 64)
     assert tfa.few_query_fwd(8, 321, 32) and not tfa.few_query_fwd(8, 321, 64, dropout=True)
     assert tfa.few_query_fwd(8, 321, 128) and tfa.few_query_fwd(1, 4096, 128)
-    assert not tfa.few_query_fwd(8, 321, 20) and not tfa.few_query_fwd(8, 321, 136)
+    assert tfa.few_query_fwd(8, 321, 20) and not tfa.few_query_fwd(8, 321, 136)
+    assert tfa.wide_fwd(136) and not tfa.wide_fwd(128) and tfa.wide_fwd(129)
 
 
 def test_cpu_forward_counts_no_few_query_launch():

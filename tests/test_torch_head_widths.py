@@ -1,6 +1,8 @@
-"""The attention at every head width the port's kernels take (a multiple of
-8 from 8 to 128), on the CPU, against the JAX package, and the rules that
-route and refuse widths.
+"""The attention at the head widths the port's wgmma tiles hold as they are
+(a multiple of 8 from 8 to 128), on the CPU, against the JAX package, and
+the rules that route and refuse widths
+(``tests/test_torch_head_widths_padded.py`` holds the others: dh off 8 and
+past 128).
 
 - ``flash_attention`` (forward and backward: the plain versions beside the
   kernels) against the JAX package's ``flash_attention`` and ``jax.vjp`` of
@@ -10,9 +12,9 @@ route and refuse widths.
   128 columns);
 - the route rules at the new widths (``tile_width``, the few-query and
   resident rules, the backward's workspace, the CLS forward's route and
-  launches, the CLS block's recompute route past dim 768) and the refusals:
-  dh 20 (not a multiple of 8) and 136 (past 128) raise
-  ``NotImplementedError`` naming the reason, in every wrapper's check.
+  launches, the CLS block's recompute route past dim 768) and the checks:
+  dh 20 and 4 (padded heads), 136 (past the widest tile) taken in every
+  wrapper's check, dh 0 refused naming the reason.
 
 Tolerances, of the largest |JAX| value of each output: float32 2e-5 (the
 same algorithm, sums in another order; the ``tests/test_golden_sit.py``
@@ -134,17 +136,13 @@ def test_cls_block_recompute_route(dim, recompute):
     assert not tfb.cls_uses_recompute(192) and tfb.uses_recompute(1281, 192)
 
 
-@pytest.mark.parametrize("dh,reason", [(20, "multiple of 8"), (136, "up to 128"),
-                                       (4, "multiple of 8"), (0, "multiple of 8")])
+@pytest.mark.parametrize("dh,reason", [(20, None), (136, None), (4, None), (0, ">= 1")])
 def test_refused_widths_name_the_reason(dh, reason):
-    """dh 20 (a head's columns would start off 16 bytes) and 136 (past the
-    widest tile) raise in the attention's check, with and without dropout,
-    and in the block chains' and the int8 block's checks."""
-    with pytest.raises(NotImplementedError, match=reason):
-        tfa.check_dim_head(dh)
-    q = torch.zeros((1, 2, 8, max(dh, 1)), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=reason):
-        tfa._check_cuda(q, q, q, 8)
+    """dh 20 and 4 (laid out in padded heads: a head's columns would start
+    off 16 bytes) and 136 (past the widest tile: the wide kernels) are taken
+    by the attention's check, with and without dropout, and by the block
+    chains' and the int8 block's checks (heads x dh off 16 too); only a
+    width below 1 is refused, naming the reason."""
     heads, dim = 2, 192
     hd = heads * dh
     x = torch.zeros((2, 10, dim), dtype=torch.bfloat16)
@@ -153,21 +151,35 @@ def test_refused_widths_name_the_reason(dh, reason):
               torch.zeros((dim, hd), dtype=torch.bfloat16), vec[2], vec[3], vec[4],
               torch.zeros((768, dim), dtype=torch.bfloat16), vec[5],
               torch.zeros((dim, 768), dtype=torch.bfloat16), vec[6])
-    with pytest.raises(NotImplementedError, match=reason):
-        tfb._check_cuda_args(x, params, heads, dh, 10)
     q8 = lambda o, i: torch.zeros((o, i), dtype=torch.int8)  # noqa: E731
     p8 = (vec[0], vec[1], q8(3 * hd, dim), torch.ones(3 * hd), q8(dim, hd), torch.ones(dim),
           vec[2], vec[3], vec[4], q8(768, dim), torch.ones(768), vec[5], q8(dim, 768),
           torch.ones(dim), vec[6])
-    with pytest.raises(NotImplementedError, match=reason):
+    q = torch.zeros((1, 2, 8, dh), dtype=torch.bfloat16)
+    if reason is None:
+        tfa.check_dim_head(dh)
+        tfa._check_cuda(q, q, q, 8)
+        tfb._check_cuda_args(x, params, heads, dh, 10)
+        tq8._check_cuda_args(x, p8, heads, dh, 10)
+        assert tfa.wide_fwd(dh) is (dh > 128)
+        return
+    with pytest.raises(ValueError, match=reason):
+        tfa.check_dim_head(dh)
+    with pytest.raises(ValueError, match=reason):
+        tfa._check_cuda(q, q, q, 8)
+    with pytest.raises(ValueError, match=reason):
+        tfb._check_cuda_args(x, params, heads, dh, 10)
+    with pytest.raises(ValueError, match=reason):
         tq8._check_cuda_args(x, p8, heads, dh, 10)
 
 
 @pytest.mark.parametrize("dh,heads", [(8, 24), (48, 4), (80, 3), (128, 3)])
 def test_taken_widths_pass_every_check(dh, heads):
     """At a taken width the block chains' checks pass for both blocks, and
-    the int8 block's where heads x dh makes int8 rows of a multiple of 16
-    bytes (3 x 80 = 240 does; an odd multiple of 8 would not)."""
+    the int8 block's at any heads x dh (3 x 80 = 240 makes int8 rows of a
+    multiple of 16 bytes; 3 x 8 = 24 does not, and is taken too: the chain
+    pads the attention's int8 rows to 16 bytes); dim off 16 is still
+    refused."""
     dim = 384 if dh == 128 else 192
     hd = heads * dh
     x = torch.zeros((2, 10, dim), dtype=torch.bfloat16)
@@ -182,6 +194,8 @@ def test_taken_widths_pass_every_check(dh, heads):
           vec[2], vec[3], vec[4], q8(768, dim), torch.ones(768), vec[5], q8(dim, 768),
           torch.ones(dim), vec[6])
     tq8._check_cuda_args(x, p8, heads, dh, 10)
+    tq8._check_cuda_args(x, (*p8[:2], q8(3 * 24, dim), torch.ones(3 * 24), q8(dim, 24),
+                             *p8[5:]), 3, 8, 10)
     with pytest.raises(NotImplementedError, match="multiples of 16"):
-        tq8._check_cuda_args(x, (*p8[:2], q8(3 * 24, dim), torch.ones(3 * 24), q8(dim, 24),
-                                 *p8[5:]), 3, 8, 10)
+        tq8._check_cuda_args(torch.zeros((2, 10, dim - 8), dtype=torch.bfloat16), p8, heads,
+                             dh, 10)

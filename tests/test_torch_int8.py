@@ -268,8 +268,13 @@ def test_int8_wrapper_argument_checks():
         tq8._check_cuda_args(x, params(192, 3, 760), 3, 64, 10)
     tq8._check_cuda_args(x, params(192, 3, 768), 6, 32, 10)  # dh 32: taken
     tq8._check_cuda_args(x, params(192, 3, 768), 4, 48, 10)  # dh 48: taken
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        tq8._check_cuda_args(x, params(192, 3, 768), 4, 20, 10)
+    # 4 x 20: padded heads, and heads x dh = 80 off 16 (the chain pads the rows)
+    p20 = {k: torch.from_numpy(np.ascontiguousarray(v.T) if v.ndim == 2 else v)
+           for k, v in _block_weights(rng, 192, 4, 20, 768).items()}
+    q20 = quant.quantize_block_weights(p20["w_qkv"], p20["w_out"], p20["w_fc1"], p20["w_fc2"])
+    tq8._check_cuda_args(x, (p20["ln1_s"], p20["ln1_b"], *q20[:4], p20["b_out"], p20["ln2_s"],
+                             p20["ln2_b"], q20[4], q20[5], p20["b_fc1"], q20[6], q20[7],
+                             p20["b_fc2"]), 4, 20, 10)
     with pytest.raises(ValueError, match="valid_len"):
         tq8._check_cuda_args(x, params(192, 3, 768), 3, 64, 11)
     with pytest.raises(TypeError, match="bfloat16"):
