@@ -445,7 +445,7 @@ programs of the ``svt::`` operators) and runs it without the package:
 39. head-widths -- every head dim a multiple of 8 from 8 to 128 (``HW_WIDTHS``:
               dh 8, 16, 32, 48, 80, 96 at SiT-tiny's width, 128 at
               SiT-small's), in a process of its own (``chip_smoke.py
-              --width-paths OUT``) started with phase 34 and read back
+              --width-paths OUT``) started with phase 33 and read back
               after phase 38 (head-widths-paths): the attention forward and backward
               (packed, at B = 256, N = 321 and N = 328 with valid_len 321),
               with dropout (the plain versions fed the kernel's mask), the
@@ -464,7 +464,7 @@ programs of the ``svt::`` operators) and runs it without the package:
               and ``tpu.quant=int8``; augmentation off), each against its
               expected launches, the predictions finite and within
               ``SLICE_TOL`` of the eager float32 model (int8: twice that).
-              Then, in this process: each width's launches on ``Trainer``
+              Then, in that process: each width's launches on ``Trainer``
               steps and ``predict`` (counts zeroed just before each run),
               and paths 1 and 3's widths at full depth beside SiT-tiny's and
               SiT-small's: a ``Trainer`` step and the serving rate at B =
@@ -484,8 +484,32 @@ programs of the ``svt::`` operators) and runs it without the package:
               3 heads of 20, ``sit_small_birth_age_native.yml`` as 3 heads
               of 192 and as 5 of 72 (bf16 and int8 serving), with their
               launches (the wide kernels' counted in ``wide_fwd`` /
-              ``wide_bwd``), and their widths' launches and rates in this
+              ``wide_bwd``), and their widths' launches and rates in that
               process as phase 39's.
+41. dim-widths -- the last row widths the JAX package runs: dim and mlp_dim
+              off 8 (off 16 in the int8 block), laid out padded with every
+              LayerNorm counting the true width (``ln_dim``), in phase 39's
+              process after phase 40's kernels (``chip_smoke.py --phase41``
+              runs it alone): the block chains at ``DW_WIDTHS`` (dims 100,
+              94 and 188, padded onto 96 and 192, 300, and 770 on the
+              recompute route at B = 32) through the public entries,
+              serving, the training forwards and both backwards against
+              the float32 and bf16 plain versions with phases 3 and 6's
+              gates and controls, plus the control this layout traps (the
+              LayerNorms counted at the padded width), the laid-out stream
+              bit for bit the public entries'; the int8 block at 392 and
+              390 (phase 20's gates, both controls, its integer parts in the
+              padded layout bit for bit the true width's); ``patch_embed``
+              at dims 100, 188 and 390 (phase 21's case); then paths 7-9
+              after paths 1-6: ``sit_tiny_scan_age.yml`` as dim 188 (4 x
+              47, mlp 750; also through ``cli.export`` and its standalone
+              loader), ``sit_small_birth_age_native.yml`` as dim 390 (6 x
+              65, mlp 1550; bf16 and int8) and ``mssit_scan_age.yml`` with
+              embed_dim 100, heads (4, 8, 16, 32), mlp_ratio 3.5 (bf16 and
+              int8), each against its launches and the eager float32
+              model; then in that process each width's launches on
+              ``Trainer`` and ``predict`` and the rates at full depth beside
+              SiT-tiny's, SiT-small's and MS-SiT's.
               Every kernels row must hold every key and a launch on the main
               path. The whole run's seconds print last before the kernels
               line.
@@ -1121,7 +1145,7 @@ def block_params(rng, dim, heads, mlp, dh=DH):
 
 def ln_bwd_without_mean(fb):
     """The plain LayerNorm backward with its mean(d) term dropped (control)."""
-    def ln_bwd(dh, x, stats, scale):
+    def ln_bwd(dh, x, stats, scale, ln_dim=None):
         n = (x.float() - stats[..., :1]) * stats[..., 1:]
         d = dh * scale
         dx = (d - n * (d * n).mean(-1, keepdim=True)) * stats[..., 1:]
@@ -7934,7 +7958,7 @@ HW_B, HW_TILED_N, HW_PAD = 256, 5121, (32, 328, 321)
 HW_TILED_DH = (8, 48, 128)  # the tiled entry's cases: one a tile width (32, 64, 128)
 HW_SOURCE = "surface_vision_transformers_tpu_torch/csrc/flash_attention_widths.cu"
 # Paths 1-3 through cli.train and cli.test (phase 39's worker process, run
-# beside phases 34-38): SiT-tiny as 6 heads of 32, the same with attention
+# beside phases 33-38): SiT-tiny as 6 heads of 32, the same with attention
 # dropout 0.1, SiT-small as 3 heads of 128 (bf16 and int8 serving), each on
 # HW_N_TRAIN + HW_N_VAL synthetic raw surfaces, HW_EPOCHS epochs.
 HW_PATHS = {
@@ -8534,12 +8558,13 @@ HW_RATES = {"SiT-tiny (3 x 64)": (192, 3, 768, 64), "path 1 (6 x 32)": (192, 6, 
             "path 6 (5 x 72)": (384, 5, 1536, 72)}
 
 
-def hw_rates(table) -> None:
-    """Paths 1 and 3-6 at full width and depth beside the shipped head
-    widths they reshape, in this call (seeded bf16 SiTs, raw input on the
-    card): a ``Trainer`` step at B = 256 (SGD, CUDA-event median over steps
+def hw_rates(table, cases=None, name="head-widths") -> None:
+    """Paths 1 and 3-6 (``cases``: label -> (dim, heads, mlp, dh), default
+    ``HW_RATES``) at full width and depth beside the shipped widths they
+    reshape, in this call (seeded bf16 SiTs, raw input on the card): a
+    ``Trainer`` step at B = 256 (SGD, CUDA-event median over steps
     2..HW_RATE_STEPS) and ``fused_forward``'s serving rate at B = 256
-    (CUDA-event median of 10; the SiT-small widths also int8)."""
+    (CUDA-event median of 10; from dim 384 also int8)."""
     from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
     from surface_vision_transformers_tpu_torch.models import fused
     from surface_vision_transformers_tpu_torch.models.sit import SiT
@@ -8553,7 +8578,7 @@ def hw_rates(table) -> None:
     exp = config.Experiment(
         model=config.ModelConfig(), training=config.TrainingConfig(bs=256),
         data=config.DataConfig(), optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
-    for label, (dim, heads, mlp, dh) in HW_RATES.items():
+    for label, (dim, heads, mlp, dh) in (HW_RATES if cases is None else cases).items():
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(SEED)
             model = SiT(dim=dim, depth=DEPTH, heads=heads, mlp_dim=mlp, dim_head=dh,
@@ -8570,7 +8595,7 @@ def hw_rates(table) -> None:
                 w = fused.prepare_weights(model, quant)
                 ms = cuda_ms(lambda: fused.fused_forward(model, x16, w, quant=quant), reps=10)
                 rates[quant or "bf16"] = (ms, 256 / ms * 1e3)
-        phase("head-widths", f"{label}, dim {dim}, depth {DEPTH}, B=256: a Trainer step "
+        phase(name, f"{label}, dim {dim}, depth {DEPTH}, B=256: a Trainer step "
               f"{np.median(step_ms):.3f} ms (CUDA-event median of steps 2..{HW_RATE_STEPS}) = "
               f"{256 / np.median(step_ms) * 1e3:.1f} training surfaces/s; serving "
               + ", ".join(f"{q} {ms:.3f} ms = {r:.1f} surfaces/s" for q, (ms, r) in rates.items()))
@@ -8597,82 +8622,169 @@ def hw_cli(tool: str, argv: list) -> tuple[dict, str]:
 
 
 def hw_paths_worker(out_file: str) -> None:
-    """Phase 39's and 40's kernels (``phase_head_widths``) and paths 1-6, in
-    a process of their own beside phases 34-38: ``cli.train`` (HW_EPOCHS
-    epochs on HW_N_TRAIN synthetic raw surfaces, validation every epoch)
-    then ``cli.test`` on its best_params.npz (HW_INT8_PATHS also with
-    ``tpu.quant=int8``), every count zeroed just before each; the eager
-    float32 model on the same weights beside. -> JSON to ``out_file``: the
-    kernels rows, the width records, the paths' results."""
+    """Phase 39's, 40's and 41's kernels (``phase_head_widths``,
+    ``phase_dim_widths``), paths 1-9 (``hw_run_paths``) and the widths'
+    launches and rates (``width_launches``), in a process of their own
+    beside phases 33-38. -> JSON to ``out_file``: the kernels rows, the
+    width records, the paths' results."""
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
-    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
-    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
     from surface_vision_transformers_tpu_torch.ops import fused_block as fb
-    from surface_vision_transformers_tpu_torch.train import runner
-    from surface_vision_transformers_tpu_torch.utils import config
 
     rows = phase_head_widths(fb)
     t40 = time.perf_counter()
     rows.update(phase_head_widths(fb, HW40_WIDTHS, HW40_TILED_DH, HW40_INT8, "phase 40"))
     phase("head-widths", f"phase 40's kernels: {time.perf_counter() - t40:.1f} s")
-    results = {}
+    t41 = time.perf_counter()
+    rows.update(phase_dim_widths(fb))
+    phase("dim-widths", f"phase 41's kernels: {time.perf_counter() - t41:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        data, labels = make_regression_dataset(HW_N_TRAIN + HW_N_VAL, raw_vertices=40962,
-                                               seed=SEED + 39)
-        for split, sl in (("train", slice(0, HW_N_TRAIN)), ("validation", slice(HW_N_TRAIN, None))):
-            np.save(tmp / f"{split}_data.npy", data[sl])
-            np.save(tmp / f"{split}_labels.npy", labels[sl])
-        val = data[HW_N_TRAIN:]
-        del data
-        table = load_patch_table(6, 2).indices
-        for label, (cfg, sets) in HW_PATHS.items():
-            t0 = time.perf_counter()
-            run_sets = [*sets, f"data.data_path={tmp}", f"training.epochs={HW_EPOCHS}",
-                        "training.val_epoch=1", "training.bs_val=64",
-                        f"logging.folder_to_save_model={tmp / 'runs'}"]
-            argv = [str(cfg), "--device", "cuda", *(x for s in run_sets for x in ("--set", s))]
-            counters = zero_counts(fb)
-            trained, _ = hw_cli("train", argv)
-            train_launches = read_counts(counters)
-            ckpt = Path(trained["run_dir"]) / "best_params.npz"
-            tests = {}
-            for quant in (("none", "int8") if label in HW_INT8_PATHS else ("none",)):
-                counters = zero_counts(fb)
-                tested, _ = hw_cli("test", argv + ["--set", f"testing.path_to_ckpt={ckpt}",
-                                                   "--set", "data.split=validation",
-                                                   "--set", f"tpu.quant={quant}"])
-                launches = read_counts(counters)
-                with open(ckpt.parent / "results.csv") as f:
-                    preds = np.array([float(r["pred"]) for r in csv.DictReader(f)], np.float32)
-                tests[quant] = (tested, launches, preds.tolist())
-            exp = config.from_dict(_hw_raw(cfg, run_sets))
-            model = runner.build_model(exp, table)
-            runner.load_model_state(model, runner.load_state_dict_any(str(ckpt), exp.model.depth))
-            model = model.eval().cuda()
-            # beside it the same model in bf16 on its plain routes (attention,
-            # embedding): how far bf16's own rounding moves the predictions
-            plain_bf = copy.deepcopy(model)
-            plain_bf.dtype = torch.bfloat16
-            for mod in plain_bf.modules():
-                if hasattr(mod, "attn_backend"):
-                    mod.attn_backend = "plain"
-            with torch.inference_mode():
-                eager, eager_bf = (torch.cat([m(torch.from_numpy(val[s:s + 32]).cuda())
-                                              for s in range(0, len(val), 32)]).float().cpu()
-                                   .numpy() for m in (model, plain_bf))
-            del plain_bf
-            results[label] = {"trained": {k: v for k, v in trained.items()
-                                          if isinstance(v, (int, float, str))},
-                              "train_launches": train_launches, "tests": tests,
-                              "eager": eager.reshape(-1).tolist(),
-                              "eager_bf16": eager_bf.reshape(-1).tolist(),
-                              "seconds": time.perf_counter() - t0}
-            shutil.rmtree(tmp / "runs")
-            torch.cuda.empty_cache()
+        results = hw_run_paths(fb, Path(tmp), {**HW_PATHS, **DW_PATHS},
+                               (*HW_INT8_PATHS, *DW_INT8_PATHS), DW_EXPORTED)
+    width_launches(fb, rows)
     Path(out_file).write_text(json.dumps({"rows": rows, "records": HW_RECORDS,
                                           "paths": results}))
+
+
+def width_launches(fb, rows) -> None:
+    """Phases 39-41's widths on the main path's entry points (every count
+    zeroed just before each run: ``hw_path_launches``,
+    ``hw_int8_launches``, ``dw_path_launches``) into ``rows``, then the
+    rates at full depth (``hw_rates``, ``dw_mssit_rates``), in the worker:
+    on a slow host the main process's phases 34-38 set the run's length."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+
+    table = load_patch_table(6, 2).indices
+    data = make_regression_dataset(256, raw_vertices=40962, seed=SEED + 39)
+    launches = {}
+    for dh, (dim, heads, mlp) in {**HW_WIDTHS, **HW40_WIDTHS}.items():
+        launches.update(hw_path_launches(fb, table, dh, dim, heads, mlp, data))
+    launches[int8_row(136, 3)] = hw_int8_launches(fb, table, 136, *HW40_INT8[136], data)
+    for key, (dim, heads, dh, mlp, *_) in {**DW_WIDTHS, **DW_INT8}.items():
+        launches.update(dw_path_launches(fb, table, key, dim, heads, dh, mlp, data))
+    for row, n in launches.items():
+        if row in rows:
+            rows[row]["launches"] = n
+    hw_rates(table)
+    hw_rates(table, DW_RATES, "dim-widths")
+    dw_mssit_rates()
+
+
+def dw_export(cfg: Path, run_sets: list, ckpt: Path, model, val, tmp: Path) -> dict:
+    """``cli.export --serve`` of a path's best checkpoint (bf16, B = 8), its
+    artifact run by its standalone ``loader.py`` in a process where the
+    package is not importable (phase 34's runner) on 8 validation surfaces,
+    against ``fused_forward`` of ``model`` (the same weights, bf16) in this
+    process. -> the artifact's launches and whether its output is the
+    in-process forward's, bit for bit."""
+    from surface_vision_transformers_tpu_torch.models import fused
+
+    art, out = tmp / "export", tmp / "export_out"
+    out.mkdir()
+    cmd = [sys.executable, "-m", "surface_vision_transformers_tpu_torch.cli.export", "--serve",
+           str(art), "--config", str(cfg), "--src", str(ckpt), "--batch-sizes", "8", "--device",
+           "cuda", "--set", *run_sets]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        raise AssertionError(f"cli.export failed ({res.returncode}):\n{res.stderr[-3000:]}")
+    x = torch.from_numpy(val[:8]).to("cuda", torch.bfloat16)
+    torch.save(x.cpu(), tmp / "export_x8.pt")
+    jobs = [dict(label="export", dir=str(art), device="cuda", sizes=[8],
+                 inputs={"8": str(tmp / "export_x8.pt")}, outputs=str(out))]
+    (tmp / "jobs.json").write_text(json.dumps(jobs))
+    (tmp / "runner.py").write_text(EXPORT_RUNNER)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run([sys.executable, str(tmp / "runner.py"), str(tmp / "jobs.json")],
+                         cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"the standalone loader failed ({run.returncode}):\n"
+                             f"{run.stderr[-3000:]}")
+    result = json.loads(next(ln for ln in run.stdout.splitlines()
+                             if ln.startswith("RESULT "))[len("RESULT "):])[0]
+    bf = copy.deepcopy(model)
+    bf.dtype = torch.bfloat16
+    with torch.inference_mode():
+        want = fused.fused_forward(bf, x).float().cpu()
+    got = torch.load(out / "out_8.pt").float()
+    shutil.rmtree(art)
+    shutil.rmtree(out)
+    return {"launches": {k: v for k, v in result["launches"]["8"].items() if v},
+            "bitwise": bool(torch.equal(got, want)),
+            "gap": float((got - want).abs().max())}
+
+
+def hw_run_paths(fb, tmp: Path, paths: dict, int8_paths, exported=()) -> dict:
+    """Each path of ``paths`` (label: (config, --set overrides)) through
+    ``cli.train`` (HW_EPOCHS epochs on HW_N_TRAIN synthetic raw surfaces,
+    validation every epoch) then ``cli.test`` on its best_params.npz
+    (``int8_paths`` also with ``tpu.quant=int8``), every count zeroed just
+    before each; the eager float32 model on the same weights beside, and the
+    same model in bf16 on its plain routes; ``exported`` paths also through
+    ``cli.export`` (``dw_export``). -> label: results."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.train import runner
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    results = {}
+    data, labels = make_regression_dataset(HW_N_TRAIN + HW_N_VAL, raw_vertices=40962,
+                                           seed=SEED + 39)
+    for split, sl in (("train", slice(0, HW_N_TRAIN)), ("validation", slice(HW_N_TRAIN, None))):
+        np.save(tmp / f"{split}_data.npy", data[sl])
+        np.save(tmp / f"{split}_labels.npy", labels[sl])
+    val = data[HW_N_TRAIN:]
+    del data
+    for label, (cfg, sets) in paths.items():
+        t0 = time.perf_counter()
+        run_sets = [*sets, f"data.data_path={tmp}", f"training.epochs={HW_EPOCHS}",
+                    "training.val_epoch=1", "training.bs_val=64",
+                    f"logging.folder_to_save_model={tmp / 'runs'}"]
+        argv = [str(cfg), "--device", "cuda", *(x for s in run_sets for x in ("--set", s))]
+        counters = zero_counts(fb)
+        trained, _ = hw_cli("train", argv)
+        train_launches = read_counts(counters)
+        ckpt = Path(trained["run_dir"]) / "best_params.npz"
+        tests = {}
+        for quant in (("none", "int8") if label in int8_paths else ("none",)):
+            counters = zero_counts(fb)
+            tested, _ = hw_cli("test", argv + ["--set", f"testing.path_to_ckpt={ckpt}",
+                                               "--set", "data.split=validation",
+                                               "--set", f"tpu.quant={quant}"])
+            launches = read_counts(counters)
+            with open(ckpt.parent / "results.csv") as f:
+                preds = np.array([float(r["pred"]) for r in csv.DictReader(f)], np.float32)
+            tests[quant] = (tested, launches, preds.tolist())
+        exp = config.from_dict(_hw_raw(cfg, run_sets))
+        model = runner.build_model(exp, load_patch_table(exp.ico, exp.sub_ico).indices)
+        runner.load_model_state(model, runner.load_state_dict_any(str(ckpt), exp.model.depth))
+        model = model.eval().cuda()
+        # the eager float32 model (the config's compute dtype is bf16: the
+        # modular model computes in its ``dtype``), and beside it the same
+        # model in bf16 on its plain routes (attention, embedding): how far
+        # bf16's own rounding moves the predictions
+        eager32, plain_bf = copy.deepcopy(model), copy.deepcopy(model)
+        eager32.dtype, plain_bf.dtype = torch.float32, torch.bfloat16
+        for mod in plain_bf.modules():
+            if hasattr(mod, "attn_backend"):
+                mod.attn_backend = "plain"
+        with torch.inference_mode():
+            eager, eager_bf = (torch.cat([m(torch.from_numpy(val[s:s + 32]).cuda())
+                                          for s in range(0, len(val), 32)]).float().cpu()
+                               .numpy() for m in (eager32, plain_bf))
+        del eager32, plain_bf
+        results[label] = {"trained": {k: v for k, v in trained.items()
+                                      if isinstance(v, (int, float, str))},
+                          "train_launches": train_launches, "tests": tests,
+                          "eager": eager.reshape(-1).tolist(),
+                          "eager_bf16": eager_bf.reshape(-1).tolist(),
+                          "bs": exp.training.bs}
+        if label in exported:
+            results[label]["export"] = dw_export(cfg, run_sets, ckpt, model, val, tmp)
+        results[label]["seconds"] = time.perf_counter() - t0
+        shutil.rmtree(tmp / "runs")
+        torch.cuda.empty_cache()
+    return results
 
 
 def phase40_alone(only: list) -> None:
@@ -8706,6 +8818,495 @@ def phase40_alone(only: list) -> None:
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
 
 
+# Phase 41: the last row widths the JAX package runs: dim and mlp_dim off 8
+# (off 16 in the int8 block), laid out padded (serving/svt_ops.py:
+# padded_width, pad_dims, pad_int8_dims) with every LayerNorm counting the
+# true width (ln_dim). key: (dim, heads, dh, mlp, B) at N = 321: the
+# epilogue LayerNorms (100), a width padded onto 96 and onto 192 (where the
+# padded width alone would take the fused dim-96 / 192 routes: 94, 188),
+# the standalone LayerNorms (300), the recompute route past dim 768 (770,
+# at a small B).
+DW_WIDTHS = {"d100": (100, 4, 25, 300, 256), "d94": (94, 2, 47, 384, 256),
+             "d188": (188, 4, 47, 750, 256), "d300": (300, 5, 60, 1200, 256),
+             "d770": (770, 10, 77, 3080, 32)}
+# the int8 block off 16 (392: on 8; 390: off 8): (dim, heads, dh, mlp)
+DW_INT8 = {"d392": (392, 8, 49, 1560), "d390": (390, 6, 65, 1550)}
+DW_EMBED = (100, 188, 390)  # patch_embed at sub-ico 2, B = 256
+DW_ROW_MEAN = 2.0  # the spread of the blocks' row means, in units of the rows' spread
+# Paths 7-9 through cli.train and cli.test (phase 39's worker, after paths
+# 1-6): SiT-tiny as dim 188 (4 x 47, mlp 750: padded onto 192), SiT-small
+# native as dim 390 (6 x 65, mlp 1550; bf16 on 392, int8 on 400), MS-SiT
+# with embed_dim 100 (stage dims 100-800, dh 25, mlp_ratio 3.5: hidden widths
+# 350-2800; stage 3 trains on the recompute route).
+DW_PATHS = {
+    "path 7 (dim 188)": (TRAIN_CFG, ["transformer.dim=188", "transformer.heads=4",
+                                     "transformer.dim_head=47", "transformer.mlp_dim=750"]),
+    "path 8 (dim 390)": (SMALL_CFG, ["transformer.dim=390", "transformer.heads=6",
+                                     "transformer.dim_head=65", "transformer.mlp_dim=1550",
+                                     "augmentation.enabled=false"]),
+    "path 9 (MS-SiT embed 100)": (MSSIT_CFG, ["mssit.embed_dim=100", "mssit.heads=[4,8,16,32]",
+                                              "mssit.mlp_ratio=3.5"]),
+}
+DW_INT8_PATHS = ("path 8 (dim 390)", "path 9 (MS-SiT embed 100)")
+DW_EXPORTED = ("path 7 (dim 188)",)  # also through cli.export and its standalone loader
+# full depth, beside the shipped widths they reshape (whose rates the whole
+# run takes in phase 39's HW_RATES): (dim, heads, mlp, dh)
+DW_RATES = {"path 7 (dim 188)": (188, 4, 750, 47), "path 8 (dim 390)": (390, 6, 1550, 65)}
+DW_SHIPPED = {"SiT-tiny (dim 192)": (192, 3, 768, 64), "SiT-small (dim 384)": (384, 6, 1536, 64)}
+
+
+def zero_past(t, shape) -> bool:
+    """Whether t is zero outside its leading ``shape`` block."""
+    z = t.detach().clone()
+    z[tuple(slice(0, n) for n in shape)] = 0
+    return not bool(z.any())
+
+
+def dw_blocks(fb, key, dim, heads, dh, mlp, B, failures) -> dict:
+    """The block chains at a row width ``dim`` off 8 (B, N = 321): serving
+    (``fused_block``, ``fused_block_cls``), the training forwards and their
+    backwards (past dim 768 the recompute route's) through the public
+    entries (x at the true width: copied into a padded buffer, the output
+    and gradients cropped) against the float32 and bf16 plain versions with
+    phases 3 and 6's gates and controls, the laid-out stream (x and the
+    parameters padded once, ``ln_dim`` the true width: the models' path)
+    bit for bit the public entries' outputs, and the control this layout
+    traps: the LayerNorms counted at the padded width. -> kernels rows,
+    timed beside the plain version and the bound."""
+    from surface_vision_transformers_tpu_torch.serving import svt_ops
+
+    name, N = "dim-widths", N_TOKENS
+    rng = np.random.default_rng(SEED + 410 + dim)
+    kw, rows = dict(heads=heads, dim_head=dh), {}
+    dp, mp = svt_ops.padded_width(dim), svt_ops.padded_width(mlp)
+    p32 = [t.cuda() for t in block_params(rng, dim, heads, mlp, dh)]
+    pb = [(t.bfloat16() if t.dim() == 2 else t).contiguous() for t in p32]
+    pr = [t.float() for t in pb]
+    pc = [t.float() for t in svt_ops.pad_dims(pr, dp, mp)]  # the control: counted at dp
+    # rows with a mean of their own, as a model's residual stream has: zero
+    # columns counted in a LayerNorm's variance add (dp - dim) mean^2
+    x = torch.from_numpy(X_SCALE * (rng.standard_normal((B, N, dim)) + DW_ROW_MEAN
+                                    * rng.standard_normal((B, N, 1))).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    # the stream and parameters laid out once, as the models lay them out
+    xl, pl, _ = svt_ops.laid_out(x, pb, 7, svt_ops.ROW_ALIGN, svt_ops.pad_dims)
+    recompute = fb.uses_recompute(N, dim)
+    tag = f"{key} (dim {dim} in {dp} columns, mlp {mlp} in {mp}, {heads} x {dh})"
+    for kname, cls in (("fused_block", False), ("fused_block_cls", True)):
+        kernel = fb.fused_block_cls if cls else fb.fused_block
+        plain = fb.fused_block_cls_reference if cls else fb.fused_block_reference
+        got = kernel(x, *pb, **kw)
+        laid = kernel(xl, *pl, ln_dim=dim, **kw)
+        same = bool(torch.equal(laid[..., :dim], got)) and not bool(laid[..., dim:].any())
+        got = got.float()
+        ref32 = sliced(lambda xs: plain(xs.float(), *pr, **kw), x, chunk=32)
+        ref_bf = sliced(lambda xs: plain(xs, *pb, **kw).float(), x, chunk=32)
+        wrong = sliced(lambda xs: plain(svt_ops.pad_to(xs.float(), (*xs.shape[:2], dp)),
+                                        *pc, **kw)[..., :dim], x, chunk=32)
+        bound = BOUND_STEPS * bf16_step(ref32.abs().max().item())
+        err, err_bf = (got - ref32).abs().max().item(), (got - ref_bf).abs().max().item()
+        ctl = (wrong - got).abs().max().item()
+        phase(name, f"{kname} {tag} B={B} N={N}: max abs err vs fp32 plain {err:.6g}, vs plain "
+              f"bf16 {err_bf:.6g}, bound {bound:.6g} ({BOUND_STEPS} bf16 steps at the largest "
+              f"output); the laid-out stream gives the same bits, zeros past {dim}: {same}; "
+              f"control, LayerNorms counting {dp} columns: {ctl:.6g} (must exceed)")
+        if not bool(torch.isfinite(got).all()) or max(err, err_bf) > bound or not same:
+            failures.append(f"{kname} {key} disagrees with its plain version")
+        if ctl <= bound:
+            failures.append(f"{kname} {key}: the LayerNorm-count control passed the gate")
+        # timed as the models run it (the stream and parameters laid out
+        # once), and through the public entry (their copies each call)
+        ms = cuda_ms(lambda: kernel(xl, *pl, ln_dim=dim, **kw))
+        public_ms = cuda_ms(lambda: kernel(x, *pb, **kw))
+        plain_ms = cuda_ms(lambda: sliced(lambda xs: plain(xs, *pb, **kw), x, chunk=32), reps=3)
+        b = bound_ms(block_flops(B, N, N, dim, heads, mlp, cls, dh)[0],
+                     nbytes_of(x, *pb) + got.numel() * 2)
+        rows[f"{kname} {key}"] = hw_row(f"{kname} {key}", SOURCE, REPLACES[kname], err, ms,
+                                        plain_ms, b, None)
+        phase(name, f"{kname} {key} B={B} N={N}: {ms:.4f} ms laid out (CUDA-event median of "
+              f"25), {public_ms:.4f} through the public entry; plain bf16 {plain_ms:.4f}, bound "
+              f"{b[0]:.4f} by {b[1]}")
+        del got, laid, ref32, ref_bf, wrong
+
+        # the training forward and its backward (or the recompute route's)
+        rows_n = 8 if cls else N
+        gy = torch.from_numpy((G_SCALE * rng.standard_normal((B, rows_n, dim))).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        gl = svt_ops.pad_to(gy, (B, rows_n, dp)).contiguous()
+        bwd_plain = fb.fused_block_cls_bwd_reference if cls else fb.fused_block_bwd_reference
+        if recompute:  # float32 masters, as the trainer passes them
+            bname = "fused_block_recompute_bwd"
+
+            def run():
+                return fb.fused_block_recompute_bwd(x, gy, *p32, cls=cls, **kw)
+
+            def run_laid():
+                return fb.fused_block_recompute_bwd(xl, gl, *svt_ops.pad_dims(p32, dp, mp),
+                                                    ln_dim=dim, cls=cls, **kw)
+
+            got = run()
+            laid = run_laid()
+            same_fwd = True
+        else:
+            bname = f"{kname}_bwd"
+            bwd = fb.fused_block_cls_bwd if cls else fb.fused_block_bwd
+            out, sv = fb.train_forward(x, *pb, valid_len=N, cls=cls, **kw)
+            same_fwd = bool(torch.equal(out, kernel(x, *pb, **kw)))
+
+            def run():
+                return bwd(x, gy, *pb, saved=sv, valid_len=N, **kw)
+
+            got = run()
+            _, svl = fb.train_forward(xl, *pl, valid_len=N, cls=cls, ln_dim=dim, **kw)
+
+            def run_laid():
+                return bwd(xl, gl, *pl, saved=svl, valid_len=N, ln_dim=dim, **kw)
+
+            laid = run_laid()
+            del out
+        shapes = [tuple(t.shape) for t in (x, *pb)]
+        laid_zero = all(zero_past(t, s) for t, s in zip(laid, shapes))
+        laid = [svt_ops.crop_to(t, s) for t, s in zip(laid, shapes)]
+        same_bwd = all(torch.equal(a, b_) for a, b_ in zip(laid, got))
+        ref32 = sliced(lambda xs, gs: bwd_plain(xs.float(), gs.float(), *pr, **kw), x, gy)
+        ref_bf = sliced(lambda xs, gs: bwd_plain(xs, gs, *pb, **kw), x, gy)
+        r32, err = grad_bound_ratio(got, ref32, N)
+        rbf, _ = grad_bound_ratio(got, ref_bf, N)
+        r_laid, _ = grad_bound_ratio(laid, ref32, N)
+
+        def wrong_count(xs, gs):  # the plain backward with LayerNorms counting dp columns
+            out_ = bwd_plain(svt_ops.pad_to(xs.float(), (*xs.shape[:2], dp)),
+                             svt_ops.pad_to(gs.float(), (*gs.shape[:2], dp)), *pc, **kw)
+            return [svt_ops.crop_to(t, s) for t, s in zip(out_, shapes)]
+
+        def control(vl_bwd=N, **patches):
+            return bwd_control(fb, x, gy, pr, heads, N, cls, got, vl_bwd, chunk=16, dh=dh,
+                               **patches)
+
+        controls = bwd_controls(fb, control)
+        controls[f"LayerNorms counting {dp} columns"] = grad_bound_ratio(
+            got, sliced(wrong_count, x, gy), N)[0]
+        phase(name, f"{bname} {'(CLS) ' if recompute and cls else ''}{tag} B={B} N={N}: worst "
+              f"|err|/bound over the 12 gradients vs fp32 plain {r32:.4g}, vs plain bf16 "
+              f"{rbf:.4g} ({BWD_STEPS} bf16 steps); max abs err {err:.6g}; the laid-out stream: "
+              f"{r_laid:.4g} vs fp32 plain, the same bits {same_bwd}, zeros past the true widths "
+              f"{laid_zero}; training forward == serving forward {same_fwd}; controls (must "
+              "exceed 1): " + ", ".join(f"{k} {v:.4g}" for k, v in controls.items()))
+        if (not all(bool(torch.isfinite(t).all()) for t in got) or max(r32, rbf, r_laid) > 1
+                or not laid_zero or not same_fwd or not (same_bwd or recompute)):
+            failures.append(f"{bname} {kname} {key} disagrees with its plain backward")
+        failures += [f"{bname} {kname} {key}: control {k} passed"
+                     for k, v in controls.items() if v <= 1]
+        del laid, ref32, ref_bf
+        torch.cuda.empty_cache()
+        row = f"{bname} {key}" + (" (CLS)" if recompute and cls else "")
+        ms, public_ms = cuda_ms(run_laid), cuda_ms(run)
+        plain_ms = cuda_ms(lambda: sliced(lambda xs, gs: bwd_plain(xs, gs, *pb, **kw), x, gy),
+                           reps=3)
+        b = bound_ms(block_flops(B, N, N, dim, heads, mlp, cls, dh)[1],
+                     nbytes_of(x, gy, *pb, *got))
+        if not recompute:  # the recompute route is torch ops around flash_attention: no row
+            rows[row] = hw_row(row, BWD_SOURCE, REPLACES[bname], err, ms, plain_ms, b, None)
+        phase(name, f"{row} B={B} N={N}: {ms:.4f} ms laid out (CUDA-event median of 25), "
+              f"{public_ms:.4f} through the public entry; plain bf16 {plain_ms:.4f}, bound "
+              f"{b[0]:.4f} by {b[1]}")
+        del got
+        if not recompute:
+            del sv, svl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dw_int8(key, dim, heads, dh, mlp, failures) -> dict:
+    """The int8 block at a row width off 16 (B = 256, N = 321) against the
+    float32 and bf16 plain int8 blocks (phase 20's gates; controls: one
+    scale per tensor, and the LayerNorms counted at the padded width), the
+    laid-out stream bit for bit the public entry's; its integer parts in
+    the padded layout (rows of 16 bytes: ``pad_int8_dims``) bit for bit
+    against the plain ones at the true width: LN1's rows' codes and scales
+    (``quant_rows_kernel``), qkv's int32 sums (``int8_gemm_kernel``) and
+    fc1's codes and scales (``fc1_codes_kernel``). -> its kernels row."""
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+    from surface_vision_transformers_tpu_torch.ops import fused_block_int8 as fbi8
+    from surface_vision_transformers_tpu_torch.ops import quant
+    from surface_vision_transformers_tpu_torch.serving import svt_ops
+
+    name, B, N = "dim-widths", HW_B, N_TOKENS
+    rng = np.random.default_rng(SEED + 420 + dim)
+    kw = dict(heads=heads, dim_head=dh)
+    dp, mp = svt_ops.padded_width(dim, 16), svt_ops.padded_width(mlp, 16)
+    x = torch.from_numpy(X_SCALE * rng.standard_normal((B, N, dim)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    p8, _ = int8_block_params(rng, dim, heads, mlp, dh)
+    pl = svt_ops.pad_int8_dims(p8, dp, mp)
+    xl = svt_ops.pad_to(x, (B, N, dp)).contiguous()
+    # the integer parts: LN1's rows, qkv's sums, fc1's codes
+    h = fb._layer_norm(x.float(), p8[0], p8[1], 1e-5)
+    hl = svt_ops.pad_to(h, (B, N, dp)).reshape(B * N, dp).contiguous()
+    qa, sa = fbi8.quant_rows_kernel(hl)
+    qp, sp = quant.quant_rows(h.reshape(B * N, dim))
+    bad_rows = int((qa[:, :dim] != qp).sum()) + int((sa != sp.reshape(-1)).sum()) \
+        + int((qa[:, dim:] != 0).sum())
+    # qkv's rows laid out per head (int32 rows of 16 bytes), as the chain's
+    acc = svt_ops.crop_heads(fbi8.int8_gemm_kernel(qa, svt_ops.pad_heads(pl[2], 3 * heads, dh, 0)),
+                             3 * heads, dh, 1)
+    bad_acc = int((acc != quant.int8_product(qp, p8[2])).sum())
+    h2 = torch.from_numpy((2 * rng.standard_normal((4096, dim))).astype(np.float32)).cuda()
+    qh, sh = quant.quant_rows(h2)
+    qhl = svt_ops.pad_to(qh, (4096, dp)).contiguous()
+    codes, scales = fbi8.fc1_codes_kernel(qhl, sh.reshape(-1).contiguous(), pl[9], pl[10],
+                                          pl[11])
+    want_codes, want_scales = fbi8.fc1_codes_reference(qh, sh.reshape(-1), p8[9], p8[10], p8[11])
+    bad_fc1 = int((codes[:, :mlp] != want_codes).sum()) + int((codes[:, mlp:] != 0).sum()) \
+        + int((scales.reshape(-1) != want_scales.reshape(-1)).sum())
+    phase(name, f"fused_block_int8 {key} (dim {dim} in {dp} columns, mlp {mlp} in {mp}, {heads} "
+          f"x {dh}), its integer parts in the padded layout: {bad_rows} LN1 row codes and scales "
+          f"differ from quant_rows at the true width, {bad_acc} qkv int32 sums from the exact "
+          f"product, {bad_fc1} fc1 codes and scales from fc1_codes_reference (each must be 0)")
+    if bad_rows or bad_acc or bad_fc1:
+        failures.append(f"fused_block_int8 {key}: its integer parts in the padded layout")
+    del h, hl, qa, sa, qp, sp, acc, h2, qh, sh, qhl, codes, scales
+    got = fbi8.fused_block_int8(x, *p8, **kw)
+    laid = fbi8.fused_block_int8(xl, *pl, ln_dim=dim, **kw)
+    same = bool(torch.equal(laid[..., :dim], got)) and not bool(laid[..., dim:].any())
+    got = got.float()
+
+    def plain(dtype=None, params=p8, xx=x, **extra):
+        return sliced(lambda xs: fbi8.fused_block_int8_reference(
+            xs.to(dtype) if dtype else xs, *params, **kw, **extra).float(), xx, chunk=32)
+
+    ref32, ref_bf = plain(torch.float32), plain()
+    with mock.patch.object(quant, "quant_rows", per_tensor_rows):
+        per_tensor = plain(torch.float32)
+    counted = plain(torch.float32, pl, xl)[..., :dim]  # LayerNorms counting dp columns
+
+    def steps(a, r=ref32):
+        return ((a - r).abs().max() / bf16_step(r.abs().max().item())).item()
+
+    def rel(a, r=ref32):
+        return (torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r)).item()
+
+    rel_bf = rel(ref_bf)
+
+    def passes(a):
+        return (bool(torch.isfinite(a).all()) and max(steps(a), steps(a, ref_bf)) <= INT8_STEPS
+                and rel(a) <= INT8_REL_RATIO * rel_bf)
+
+    phase(name, f"fused_block_int8 {key} B={B} N={N}: max |err| {steps(got):.3f} bf16 steps vs "
+          f"fp32 plain, {steps(got, ref_bf):.3f} vs plain bf16; rel-L2 {rel(got):.4g} (plain "
+          f"bf16 {rel_bf:.4g}); the laid-out stream gives the same bits, zeros past {dim}: "
+          f"{same}; controls (must fail): one scale per tensor {steps(per_tensor):.3f} steps, "
+          f"rel-L2 {rel(per_tensor):.4g}; LayerNorms counting {dp} columns "
+          f"{steps(counted):.3f} steps, rel-L2 {rel(counted):.4g}; gates {INT8_STEPS} steps, "
+          f"{INT8_REL_RATIO} x plain bf16's rel-L2")
+    if not passes(got) or not same:
+        failures.append(f"fused_block_int8 {key} failed its gates")
+    if passes(per_tensor) or passes(counted):
+        failures.append(f"fused_block_int8 {key}: a control passed the gates")
+    ms = cuda_ms(lambda: fbi8.fused_block_int8(xl, *pl, ln_dim=dim, **kw))
+    public_ms = cuda_ms(lambda: fbi8.fused_block_int8(x, *p8, **kw))
+    plain_ms = cuda_ms(lambda: plain(), reps=3)
+    gemm_ops, att_ops = int8_block_ops(B, N, N, dim, heads, mlp, dh)
+    t_ops = (gemm_ops / 1979e12 + att_ops / PEAK_FLOPS) * 1e3
+    t_bytes = (nbytes_of(x, *p8) + x.numel() * 2) / PEAK_BYTES * 1e3
+    b = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    row = f"fused_block_int8 {key}"
+    phase(name, f"{row} B={B} N={N}: {ms:.4f} ms laid out, {public_ms:.4f} through the public "
+          f"entry; plain {plain_ms:.4f}, bound {b[0]:.4f} by {b[1]}")
+    return {row: hw_row(row, "surface_vision_transformers_tpu_torch/csrc/fused_block_int8.cu",
+                        "surface_vision_transformers_tpu/ops/pallas/fused_block_int8.py:145",
+                        (got - ref32).abs().max().item(), ms, plain_ms, b, None)}
+
+
+def phase_dim_widths(fb) -> dict:
+    """Phase 41's kernels: the block chains at ``DW_WIDTHS``, the int8 block
+    at ``DW_INT8``, ``patch_embed`` at ``DW_EMBED`` (phase 21's case, sub-ico
+    2, B = 256), each against its plain version with controls and timed.
+    -> kernels rows (their launches come from ``dw_path_launches`` and the
+    paths)."""
+    from surface_vision_transformers_tpu_torch.ops import patch_embed as pe
+
+    failures, rows = [], {}
+    for key, (dim, heads, dh, mlp, B) in DW_WIDTHS.items():
+        t0 = time.perf_counter()
+        rows.update(dw_blocks(fb, key, dim, heads, dh, mlp, B, failures))
+        phase("dim-widths", f"{key}: {time.perf_counter() - t0:.1f} s")
+    for key, (dim, heads, dh, mlp) in DW_INT8.items():
+        t0 = time.perf_counter()
+        rows.update(dw_int8(key, dim, heads, dh, mlp, failures))
+        phase("dim-widths", f"int8 {key}: {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 41)
+    for dim in DW_EMBED:
+        nums = embed_case(pe, rng, 2, 256, dim, None, failures)
+        rows[f"patch_embed d{dim}"] = {"name": f"patch_embed d{dim}", "route": "cuda",
+                                       "source": EMBED_SOURCE, "replaces": EMBED_TPU, **nums}
+    for f_ in failures:
+        phase("dim-widths", "FAILED: " + f_)
+    if failures:
+        raise AssertionError(f"phase 41: {len(failures)} gate(s) failed")
+    return rows
+
+
+def dw_path_launches(fb, table, key, dim, heads, dh, mlp, data) -> dict:
+    """Launches of each chain at a row width off 8 on the main path's entry
+    points, in process, every count zeroed just before: two ``Trainer``
+    steps of a SiT of this width cut to 2 blocks at B = 256 and ``predict``
+    of 256 surfaces (``quant="int8"`` too where ``DW_INT8`` has the width),
+    on ``data``. -> kernels row name: launches."""
+    from surface_vision_transformers_tpu_torch.models import fused
+    from surface_vision_transformers_tpu_torch.models.sit import SiT
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    data, labels = data
+    xb, yb = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+    ones = torch.ones(256, device="cuda")
+    exp = config.Experiment(
+        model=config.ModelConfig(), training=config.TrainingConfig(bs=256),
+        data=config.DataConfig(), optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = SiT(dim=dim, depth=2, heads=heads, mlp_dim=mlp, dim_head=dh, patch_table=table,
+                    dtype=torch.bfloat16).cuda()
+    counters = zero_counts(fb)
+    trainer = Trainer(exp, model)
+    losses = [float(trainer.optimizer_step(xb, yb, ones)[0]) for _ in range(2)]
+    preds = fused.predict(trainer.model, data, device="cuda", batch_size=256)
+    run = read_counts(counters)
+    recompute = fb.uses_recompute(N_TOKENS, dim)
+    # two steps (1 + 1 blocks each) and one predict batch (1 + 1)
+    want = {"fused_block": 3, "fused_block_cls": 3, "patch_embed": 3,
+            "fused_block_bwd": 0 if recompute else 2,
+            "fused_block_cls_bwd": 0 if recompute else 2,
+            "fused_block_recompute_bwd": 4 if recompute else 0}
+    bad = {k: (run[k], v) for k, v in want.items() if run[k] != v}
+    int8 = {}
+    if f"d{dim}" in DW_INT8:
+        counters = zero_counts(fb)
+        preds8 = fused.predict(trainer.model.eval(), data, device="cuda", batch_size=256,
+                               quant="int8")
+        int8 = read_counts(counters)
+        if int8["fused_block_int8"] != 1 or not np.isfinite(preds8).all():
+            bad["int8"] = int8["fused_block_int8"]
+    phase("dim-widths", f"d{dim} on the entry points (SiT of {heads} x {dh} at dim {dim}, mlp "
+          f"{mlp}, 2 blocks, B=256): 2 Trainer steps + predict: "
+          f"{ {k: v for k, v in run.items() if v} }; expected {want}"
+          + (f"; predict int8: { {k: v for k, v in int8.items() if v} }" if int8 else "")
+          + "; losses " + " ".join(f"{v:.6g}" for v in losses)
+          + f"; predictions finite {bool(np.isfinite(preds).all())}")
+    if bad or not all(math.isfinite(v) for v in losses) or not np.isfinite(preds).all():
+        raise AssertionError(f"dim widths d{dim}: the entry points' launches {bad} or outputs")
+    out = {f"fused_block {key}": run["fused_block"], f"fused_block_cls {key}":
+           run["fused_block_cls"]}
+    if not recompute:
+        out[f"fused_block_bwd {key}"] = run["fused_block_bwd"]
+        out[f"fused_block_cls_bwd {key}"] = run["fused_block_cls_bwd"]
+    if int8:
+        out[f"fused_block_int8 d{dim}"] = int8["fused_block_int8"]
+    out[f"patch_embed d{dim}"] = run["patch_embed"]
+    return out
+
+
+def dw_mssit_rates() -> None:
+    """MS-SiT at the shipped config and as path 9 (embed_dim 100, dh 25,
+    mlp_ratio 3.5), full depth: a ``Trainer`` step at bs 64 (SGD,
+    CUDA-event median over steps 2..HW_RATE_STEPS) and
+    ``fused_mssit_forward``'s serving rate at B = 64, bf16 and int8
+    (CUDA-event median of 10), on seeded weights and raw synthetic input."""
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.models import fused_mssit
+    from surface_vision_transformers_tpu_torch.train import runner
+    from surface_vision_transformers_tpu_torch.train.trainer import Trainer
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    data, labels = make_regression_dataset(128, raw_vertices=40962, seed=SEED + 419)
+    data, labels = torch.from_numpy(data).cuda(), torch.from_numpy(labels).cuda()
+    batches = [(data[s:s + 64], labels[s:s + 64]) for s in (0, 64)]
+    ones = torch.ones(64, device="cuda")
+    for label, sets in (("MS-SiT (embed 96)", []),
+                        ("path 9 (MS-SiT embed 100)", DW_PATHS["path 9 (MS-SiT embed 100)"][1])):
+        exp = dataclasses.replace(config.from_dict(_hw_raw(MSSIT_CFG, sets)),
+                                  optim=config.OptimConfig(name="SGD", lr=TRAIN_LR, momentum=0.9))
+        table = load_patch_table(exp.ico, exp.sub_ico).indices
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            model = runner.build_model(exp, table).cuda()
+        trainer = Trainer(exp, model)
+        start_ = {k: v.detach().clone() for k, v in model.named_parameters()}
+        _, _, step_ms, _ = run_steps(lambda xb, yb: trainer.optimizer_step(xb, yb, ones)[0],
+                                     model, start_, batches, HW_RATE_STEPS)
+        model.eval()
+        rates = {}
+        with torch.inference_mode():
+            for quant in (None, "int8"):
+                w = fused_mssit.prepare_mssit_weights(model, quant)
+                ms = cuda_ms(lambda: fused_mssit.fused_mssit_forward(model, batches[0][0], w,
+                                                                      quant=quant), reps=10)
+                rates[quant or "bf16"] = (ms, 64 / ms * 1e3)
+        phase("dim-widths", f"{label}, dims {exp.mssit.embed_dim}.., depths {exp.mssit.depths}, "
+              f"bs 64: a Trainer step {np.median(step_ms):.3f} ms (CUDA-event median of steps "
+              f"2..{HW_RATE_STEPS}) = {64 / np.median(step_ms) * 1e3:.1f} training surfaces/s; "
+              "serving " + ", ".join(f"{q} {ms:.3f} ms = {r:.1f} surfaces/s"
+                                     for q, (ms, r) in rates.items()))
+        del model, trainer, start_
+        torch.cuda.empty_cache()
+
+
+def phase41_alone() -> None:
+    """Phase 41 by itself (``chip_smoke.py --phase41``): the build, the
+    kernels (``phase_dim_widths``), each width's launches on the entry
+    points, paths 7-9 through cli.train and cli.test (``hw_run_paths``,
+    ``check_paths``) and the rates; prints the kernels rows as JSON and the
+    seconds."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
+    from surface_vision_transformers_tpu_torch.geometry import load_patch_table
+    from surface_vision_transformers_tpu_torch.ops import _native
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+
+    print(card(), flush=True)
+    t0 = time.perf_counter()
+    _native.build()
+    phase("build", f"{time.perf_counter() - t0:.1f} s")
+    rows = phase_dim_widths(fb)
+    phase("dim-widths", f"phase 41's kernels: {time.perf_counter() - t0:.1f} s")
+    table = load_patch_table(6, 2).indices
+    data = make_regression_dataset(256, raw_vertices=40962, seed=SEED + 41)
+    launches = {}
+    for key, (dim, heads, dh, mlp, _) in DW_WIDTHS.items():
+        launches.update(dw_path_launches(fb, table, key, dim, heads, dh, mlp, data))
+    for key, (dim, heads, dh, mlp) in DW_INT8.items():
+        launches.update(dw_path_launches(fb, table, key, dim, heads, dh, mlp, data))
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = check_paths(hw_run_paths(fb, Path(tmp), DW_PATHS, DW_INT8_PATHS, DW_EXPORTED),
+                           "dim-widths-paths")
+    dw_fill_launches(rows, launches, runs)
+    hw_rates(table, {**DW_SHIPPED, **DW_RATES}, "dim-widths")
+    dw_mssit_rates()
+    print(f"phase 41 alone: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+
+
+def dw_fill_launches(rows, launches, cli_runs) -> None:
+    """Each phase-41 kernels row's launches: a path's where one runs that
+    width (path 7: dim 188; path 8: 390; path 9's embedding: 100), else the
+    in-process entry-point runs' (``dw_path_launches``). ``cli_runs``:
+    ``check_paths``'s."""
+    for row, n in launches.items():
+        if row in rows:
+            rows[row]["launches"] = n
+    tl7 = cli_runs["path 7 (dim 188)"][0]
+    for key in ("fused_block", "fused_block_bwd", "fused_block_cls", "fused_block_cls_bwd",
+                "patch_embed"):
+        rows[f"{key} d188"]["launches"] = tl7[key]
+    rows["patch_embed d390"]["launches"] = cli_runs["path 8 (dim 390)"][0]["patch_embed"]
+    rows["patch_embed d100"]["launches"] = cli_runs["path 9 (MS-SiT embed 100)"][0]["patch_embed"]
+    rows["fused_block_int8 d390"]["launches"] = cli_runs["path 8 (dim 390)"][1]["int8"][
+        "fused_block_int8"]
+
+
 def _hw_raw(cfg: Path, sets: list) -> dict:
     """The config at ``cfg`` with ``--set`` overrides applied."""
     from surface_vision_transformers_tpu_torch.cli._common import apply_overrides
@@ -8726,30 +9327,64 @@ def hw_paths_start(tmp: Path):
 
 def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
     """Phase 39's worker read back: its kernel lines printed, then the
-    paths gated: each run's launches as its route says (the fused route: 11
-    + 1 blocks forward a batch, backward a step, one few-query attention
-    each way; dropout: the modular model's 12 dropout attentions a step
-    each way, validation on the fused route), the predictions finite and
-    within SLICE_TOL of the eager float32 model's (int8: twice that). ->
-    (the kernels rows, each path's launches)."""
-    name = "head-widths-paths"
+    paths gated (``check_paths``). -> (the kernels rows, each path's
+    launches)."""
     code = proc.wait(timeout=900)
     text = log.read_text()
-    print("".join(line + "\n" for line in text.splitlines() if line.startswith("[head-widths]")),
-          end="", flush=True)
+    print("".join(line + "\n" for line in text.splitlines()
+                  if line.startswith(("[head-widths]", "[dim-widths]"))), end="", flush=True)
     if code:
         raise AssertionError(f"phase 39's worker failed ({code}):\n{text[-4000:]}")
     got = json.loads(out.read_text())
     HW_RECORDS.update({k: tuple(v) for k, v in got["records"].items()})
-    runs = got["paths"]
-    steps = HW_EPOCHS * math.ceil(HW_N_TRAIN / 256)
-    vals = HW_EPOCHS * math.ceil(HW_N_VAL / 64)
-    test_b = math.ceil(HW_N_VAL / 64)
+    return got["rows"], check_paths(got["paths"])
+
+
+def mssit_path_launches(cfg: Path, sets: list, steps: int, vals: int, test_b: int) -> tuple:
+    """The launches an MS-SiT path's ``cli.train`` and ``cli.test`` must
+    show, from its config and the route rules: a training step embeds once,
+    runs every block forward and, per ``uses_recompute`` at the stage's
+    width (its folds hold at most 320 tokens), the chain's or the recompute
+    route's backward; a validation or test batch embeds once and runs every
+    block, int8 in the stages of at least ``INT8_MIN_DIM``. -> (training
+    launches, {quant: test launches})."""
+    from surface_vision_transformers_tpu_torch.models.fused import INT8_MIN_DIM
+    from surface_vision_transformers_tpu_torch.ops import fused_block as fb
+    from surface_vision_transformers_tpu_torch.utils import config
+
+    ms = config.from_dict(_hw_raw(cfg, sets)).mssit
+    dims = [ms.embed_dim * 2 ** i for i in range(len(ms.depths))]
+    n = sum(ms.depths)
+    rec = sum(d for d, dim in zip(ms.depths, dims) if fb.uses_recompute(320, dim))
+    n8 = sum(d for d, dim in zip(ms.depths, dims) if dim >= INT8_MIN_DIM)
+    train = {"patch_embed": steps + vals, "fused_block": n * (steps + vals),
+             "fused_block_bwd": (n - rec) * steps, "fused_block_recompute_bwd": rec * steps,
+             "fused_block_cls": 0}
+    return train, {"none": {"patch_embed": test_b, "fused_block": n * test_b},
+                   "int8": {"patch_embed": test_b, "fused_block": (n - n8) * test_b,
+                            "fused_block_int8": n8 * test_b}}
+
+
+def check_paths(runs: dict, name: str = "head-widths-paths") -> dict:
+    """The paths gated: each run's launches as its route says (a SiT on the
+    fused route: 11 + 1 blocks forward a batch, backward a step, one
+    few-query attention each way; dropout: the modular model's 12 dropout
+    attentions a step each way, validation on the fused route; an MS-SiT:
+    ``mssit_path_launches``), the predictions finite and within SLICE_TOL of
+    the eager float32 model's (int8: twice that). -> each path's launches,
+    (training, {quant: test})."""
     fails, launches = [], {}
     for label, r in runs.items():
         tl = r["train_launches"]
+        steps = HW_EPOCHS * math.ceil(HW_N_TRAIN / r["bs"])
+        vals = HW_EPOCHS * math.ceil(HW_N_VAL / 64)
+        test_b = math.ceil(HW_N_VAL / 64)
         wide = "192" in label  # past the widest tile: the wide kernels, the CLS block's too
-        if "dropout" in label:
+        mssit = "MS-SiT" in label
+        if mssit:
+            cfg, sets = DW_PATHS[label]
+            want, test_want = mssit_path_launches(cfg, sets, steps, vals, test_b)
+        elif "dropout" in label:
             want = {"flash_attention_qkv_dropout": 12 * steps,
                     "flash_attention_qkv_dropout_bwd": 12 * steps,
                     "fused_block": 11 * vals, "fused_block_cls": vals, FEW_FWD: vals,
@@ -8776,8 +9411,9 @@ def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
             err = float(np.abs(preds - eager).max()) if preds.shape == eager.shape else math.inf
             tol = SLICE_TOL * (2 if quant == "int8" else 1)
             block = "fused_block_int8" if quant == "int8" else "fused_block"
-            twant = {block: 11 * test_b, "fused_block_cls": test_b,
-                     FEW_FWD: 0 if wide else test_b, "wide_fwd": 12 * test_b if wide else 0}
+            twant = (test_want[quant] if mssit else
+                     {block: 11 * test_b, "fused_block_cls": test_b,
+                      FEW_FWD: 0 if wide else test_b, "wide_fwd": 12 * test_b if wide else 0})
             tbad = {k: (tlaunch[k], v) for k, v in twant.items() if tlaunch[k] != v}
             phase(name, f"{label}: cli.test tpu.quant={quant}: {tested}; launches "
                   f"{ {k: v for k, v in tlaunch.items() if v} }; predictions finite "
@@ -8787,12 +9423,23 @@ def hw_paths_check(proc, log: Path, out: Path) -> tuple[dict, dict]:
                 fails.append(f"{label}: cli.test {quant} launches (got, want) {tbad}")
             if not np.isfinite(preds).all() or err > tol:
                 fails.append(f"{label}: cli.test {quant} predictions off the eager model's")
+        if "export" in r:
+            ex = r["export"]
+            phase(name, f"{label}: cli.export --serve of its best checkpoint (bf16, B=8), run "
+                  f"by its standalone loader.py without the package: bitwise equal to "
+                  f"fused_forward in process {ex['bitwise']} (max |gap| {ex['gap']:.6g}); "
+                  f"launches {ex['launches']}")
+            egot = {k: ex["launches"].get(k, 0) for k in svt_ops_names()}
+            ewant = {**dict.fromkeys(egot, 0), "patch_embed": 1, "fused_block": 11,
+                     "fused_block_cls": 1}
+            if not ex["bitwise"] or egot != ewant:
+                fails.append(f"{label}: its exported artifact (launches, want) {egot}, {ewant}")
         launches[label] = (tl, {q: t[1] for q, t in r["tests"].items()})
     for f_ in fails:
         phase(name, "FAILED: " + f_)
     if fails:
-        raise AssertionError(f"phases 39-40's paths: {len(fails)} check(s) failed")
-    return got["rows"], launches
+        raise AssertionError(f"the width paths: {len(fails)} check(s) failed")
+    return launches
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -9143,58 +9790,58 @@ def main() -> None:
     start("mssit-train-entry")
     phase_mssit_train_entry(fb)
 
-    # -- 33. augment-stream-resume (every count zeroed just before run (a))
-    start("augment-stream-resume")
-    for name, n in phase_augment_stream_resume(fb).items():
-        kernels[name]["launches"] = n
-    phase("records", "the attention backward rows, this run's ms beside the two-pass "
-          "mma.sync backward's recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at "
-          "700 W; a record, not measured in this run): " + ", ".join(
-              f"{k_} {kernels[k_]['ms']:.4f} (two-pass {v_})"
-              for k_, v_ in TWO_PASS_MS.items()))
-    def fwd_record(name):
-        ms, sdpa, bound = FWD_RECORDS[name]
-        return f"{ms:.4f}, {ms / sdpa:.3f}x SDPA, {bound / ms:.1%} of the bound"
-
-    phase("records", "the attention forward rows, this run's ms, ratio to SDPA in this call "
-          "and share of the bound, beside the mma.sync forward's recorded ms (PERF.md section "
-          "6, NVIDIA H100 80GB HBM3 at 700 W; a record, not measured in this run): "
-          + "; ".join(f"{k_} {fwd_record(k_)} (mma.sync {v_})"
-                      for k_, v_ in MMA_SYNC_FWD_MS.items()))
-    block_ms = {"fused_block": kernels["fused_block"]["ms"],
-                "fused_block SiT-base B=32": base_times["fused_block"],
-                "fused_block_cls": kernels["fused_block_cls"]["ms"],
-                "fused_block_bwd": kernels["fused_block_bwd"]["ms"],
-                "fused_block_cls_bwd": kernels["fused_block_cls_bwd"]["ms"]}
-    phase("records", "the block rows, this run's ms beside the mma.sync "
-          "GEMMs' recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W; a record, "
-          "not measured in this run): " + "; ".join(
-              f"{k_} {block_ms[k_]:.4f} (mma.sync {v_})" for k_, v_ in MMA_SYNC_BLOCK_MS.items())
-          + "; the GEMMs alone against torch.mm, ms: " + "; ".join(
-              f"{r_['gemm'].split(' M')[0]} {r_['ms']:.4f} / {r_['library_ms']:.4f}"
-              for r_ in gemm_rows))
-    phase("records", "the int8 rows, this run's ms beside the mma.sync s8 design's recorded "
-          "ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W; a record, not measured in "
-          "this run), with torch._int_mm and the bound of this run: " + "; ".join(
-              f"{k_} {INT8_RECORDS[k_][0]:.4f} (mma.sync {v_}"
-              + ("" if INT8_RECORDS[k_][1] is None
-                 else f"; torch._int_mm {INT8_RECORDS[k_][1]:.4f}")
-              + f"; bound {INT8_RECORDS[k_][2]:.4f})" for k_, v_ in MMA_SYNC_INT8_MS.items()))
-    for label_, records_, other_ in (
-            ("the MS-SiT path's kernels at dh 32 in this run (phase 26)", MSSIT_RECORDS,
-             "SDPA, index_select + addmm, torch.mm"),
-            ("the MS-SiT training path's kernels at dh 32 in this run (phase 29)",
-             MSSIT_BWD_RECORDS, "SDPA's backward, the eager block's autograd backward")):
-        phase("records", f"{label_}, ms / other ms ({other_}) / bound ms: " + "; ".join(
-            f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
-            f"{'-' if t_[2] is None else f'{t_[2]:.4f}'}" for k_, t_ in records_.items()))
-
-    # -- 34. export (the serving artifacts, run by their standalone loaders);
-    # phase 39's process (its kernels, then paths 1-3) starts beside it, where
-    # the card is mostly idle: host-side tracing, loader processes, the ETL
+    # -- 33. augment-stream-resume (every count zeroed just before run (a));
+    # phase 39's process (phases 39-41's kernels, paths 1-9, the widths'
+    # launches and rates) starts beside it and runs beside phases 33-38
     hw_tmp = tempfile.TemporaryDirectory()
     hw = hw_paths_start(Path(hw_tmp.name))
     try:
+        start("augment-stream-resume")
+        for name, n in phase_augment_stream_resume(fb).items():
+            kernels[name]["launches"] = n
+        phase("records", "the attention backward rows, this run's ms beside the two-pass "
+              "mma.sync backward's recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at "
+              "700 W; a record, not measured in this run): " + ", ".join(
+                  f"{k_} {kernels[k_]['ms']:.4f} (two-pass {v_})"
+                  for k_, v_ in TWO_PASS_MS.items()))
+        def fwd_record(name):
+            ms, sdpa, bound = FWD_RECORDS[name]
+            return f"{ms:.4f}, {ms / sdpa:.3f}x SDPA, {bound / ms:.1%} of the bound"
+
+        phase("records", "the attention forward rows, this run's ms, ratio to SDPA in this call "
+              "and share of the bound, beside the mma.sync forward's recorded ms (PERF.md section "
+              "6, NVIDIA H100 80GB HBM3 at 700 W; a record, not measured in this run): "
+              + "; ".join(f"{k_} {fwd_record(k_)} (mma.sync {v_})"
+                          for k_, v_ in MMA_SYNC_FWD_MS.items()))
+        block_ms = {"fused_block": kernels["fused_block"]["ms"],
+                    "fused_block SiT-base B=32": base_times["fused_block"],
+                    "fused_block_cls": kernels["fused_block_cls"]["ms"],
+                    "fused_block_bwd": kernels["fused_block_bwd"]["ms"],
+                    "fused_block_cls_bwd": kernels["fused_block_cls_bwd"]["ms"]}
+        phase("records", "the block rows, this run's ms beside the mma.sync "
+              "GEMMs' recorded ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W; a record, "
+              "not measured in this run): " + "; ".join(
+                  f"{k_} {block_ms[k_]:.4f} (mma.sync {v_})" for k_, v_ in MMA_SYNC_BLOCK_MS.items())
+              + "; the GEMMs alone against torch.mm, ms: " + "; ".join(
+                  f"{r_['gemm'].split(' M')[0]} {r_['ms']:.4f} / {r_['library_ms']:.4f}"
+                  for r_ in gemm_rows))
+        phase("records", "the int8 rows, this run's ms beside the mma.sync s8 design's recorded "
+              "ms (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W; a record, not measured in "
+              "this run), with torch._int_mm and the bound of this run: " + "; ".join(
+                  f"{k_} {INT8_RECORDS[k_][0]:.4f} (mma.sync {v_}"
+                  + ("" if INT8_RECORDS[k_][1] is None
+                     else f"; torch._int_mm {INT8_RECORDS[k_][1]:.4f}")
+                  + f"; bound {INT8_RECORDS[k_][2]:.4f})" for k_, v_ in MMA_SYNC_INT8_MS.items()))
+        for label_, records_, other_ in (
+                ("the MS-SiT path's kernels at dh 32 in this run (phase 26)", MSSIT_RECORDS,
+                 "SDPA, index_select + addmm, torch.mm"),
+                ("the MS-SiT training path's kernels at dh 32 in this run (phase 29)",
+                 MSSIT_BWD_RECORDS, "SDPA's backward, the eager block's autograd backward")):
+            phase("records", f"{label_}, ms / other ms ({other_}) / bound ms: " + "; ".join(
+                f"{k_} {t_[0]:.4f} / {'-' if t_[1] is None else f'{t_[1]:.4f}'} / "
+                f"{'-' if t_[2] is None else f'{t_[2]:.4f}'}" for k_, t_ in records_.items()))
+
+        # -- 34. export (the serving artifacts, run by their standalone loaders)
         start("export")
         phase_export()
 
@@ -9224,25 +9871,15 @@ def main() -> None:
         phase_recipe(*recipe)
         stop(recipe[0])
 
-        # -- 39-40. head-widths (39: every multiple of 8 from 8 to 128; 40: dh
-        # off 8, past 128 and the int8 block off 16: the kernels and the
-        # block chains against their plain versions, and paths 1-6 through
-        # cli.train and cli.test, in the process started with phase 34;
-        # then each width's launches on the entry points, every count
-        # zeroed just before each run, and the rates)
+        # -- 39-41. head-widths, dim-widths (39: every multiple of 8 from 8
+        # to 128; 40: dh off 8, past 128 and the int8 block off 16; 41: dim
+        # and mlp_dim off 8: the kernels and the block chains against their
+        # plain versions, paths 1-9 through cli.train and cli.test, each
+        # width's launches on the entry points, every count zeroed just
+        # before each run, and the rates, in the process started with
+        # phase 33), read back here
         start("head-widths-paths")
         hw_rows, cli_runs = hw_paths_check(*hw)
-        start("head-widths")
-        from surface_vision_transformers_tpu_torch.data.synthetic import make_regression_dataset
-
-        hw_data = make_regression_dataset(256, raw_vertices=40962, seed=SEED + 39)
-        for dh, (dim_, heads_, mlp_) in {**HW_WIDTHS, **HW40_WIDTHS}.items():
-            for row_, n_ in hw_path_launches(fb, table, dh, dim_, heads_, mlp_, hw_data).items():
-                if row_ in hw_rows:
-                    hw_rows[row_]["launches"] = n_
-        hw_rows[int8_row(136, 3)]["launches"] = hw_int8_launches(
-            fb, table, 136, *HW40_INT8[136], hw_data)
-        hw_rates(table)
         for label_, tag_ in (("path 1 (6 x 32)", "dh32"), ("path 3 (3 x 128)", "dh128"),
                              ("path 4 (3 x 20)", "dh20"), ("path 5 (3 x 192)", "dh192")):
             tl_, tests_ = cli_runs[label_]
@@ -9265,6 +9902,7 @@ def main() -> None:
         for row_ in ("flash_attention_qkv_dropout dh32", "flash_attention_qkv_dropout_bwd dh32"):
             hw_rows[row_]["launches"] = cli_runs["path 2 (6 x 32, dropout 0.1)"][0][
                 row_.replace(" dh32", "")]
+        dw_fill_launches(hw_rows, {}, cli_runs)  # phase 41's rows on paths 7-9
         kernels.update(hw_rows)
         phase("records", "the head widths' attention rows, ms / dh 64 at the same inner width "
               "(- where none) / SDPA / bound, forward then backward (phase 39, this run): "
@@ -9301,5 +9939,7 @@ if __name__ == "__main__":
         hw_paths_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--phase40"]:  # phase 40's kernels and launches alone
         phase40_alone(sys.argv[2:])
+    elif sys.argv[1:2] == ["--phase41"]:  # phase 41's kernels, launches, paths and rates alone
+        phase41_alone()
     else:
         main()

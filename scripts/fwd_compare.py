@@ -88,7 +88,7 @@ def cls_chain(lib, x, pb, heads, vl, train):
         ws = [x.new_empty(s) for s in ((B * N, dim), (B * N, 2 * hd), (B * rows, hd),
                                        (B * rows, hd), (B * rows, dim), (B * rows, mlp))]
         _native.check(lib.svt_fused_block_cls(
-            *[t.data_ptr() for t in (x, *pb, out, *ws)], B, N, rows, dim, heads, cs.DH, mlp,
+            *[t.data_ptr() for t in (x, *pb, out, *ws)], B, N, rows, dim, dim, heads, cs.DH, mlp,
             vl, 1e-5, 0, stream))
         return out, [ws[3]]  # attn
     bf, f32 = torch.bfloat16, torch.float32
@@ -100,7 +100,7 @@ def cls_chain(lib, x, pb, heads, vl, train):
     sv = [torch.empty(shapes[k][0], dtype=shapes[k][1], device="cuda")
           for k in fb.TRAIN_SAVED_CLS]
     _native.check(lib.svt_fused_block_cls_train_fwd(
-        *[t.data_ptr() for t in (x, *pb, out, *sv)], B, N, rows, dim, heads, cs.DH, mlp, vl,
+        *[t.data_ptr() for t in (x, *pb, out, *sv)], B, N, rows, dim, dim, heads, cs.DH, mlp, vl,
         1e-5, 0, stream))
     return out, sv
 

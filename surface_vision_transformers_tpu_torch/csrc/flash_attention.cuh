@@ -73,6 +73,12 @@ inline Width width_of(int dh) {
 // head_cols(dh) columns).
 inline bool dim_head_ok(int dh) { return dh >= 1; }
 
+// The block chains' row widths (fused_block.cu, fused_block_bwd.cu,
+// fused_block_int8.cu): a row of ln_dim values laid out in dim >= ln_dim
+// columns, zeros past ln_dim (a width off the tensor maps' 16 bytes is laid
+// out padded); every LayerNorm counts the first ln_dim.
+inline bool ln_dim_ok(int dim, int ln_dim) { return ln_dim >= 1 && ln_dim <= dim; }
+
 // What the few-query forward needs to make its own Q (the CLS block's
 // chain, fused_block.cu): the block input x (B, nk, dim) bf16, LN1's gamma
 // and beta (fp32) and eps, W_q (heads * dh, dim) bf16 in the torch Linear

@@ -20,6 +20,15 @@
 // heads head_cols) with zero columns past each head's dim_head: the caller
 // gives W_qkv zero rows and W_out zero columns there (ops/fused_block.py
 // pads them), and the attention takes the softmax scale of dim_head.
+// Every dim and mlp >= 1: a row whose width is off the tensor maps' 16
+// bytes is laid out padded (ops/fused_block.py, serving/svt_ops.py), dim
+// columns of which the first ln_dim are the row's and the rest zero, and
+// the zero rows and columns of the weights, LayerNorm parameters and biases
+// that go with them (mlp likewise, with no count: GELU(0) = 0). Each
+// LayerNorm takes its statistics over the first ln_dim columns and writes
+// zeros past them, so every product, residual and output is the unpadded
+// block's; the routes that count every column (F_LNA, the fused MLP, the
+// CTA's LN1) take only unpadded widths (ln_dim == dim).
 // The training entries (svt_fused_block[_cls]_train_fwd) run the same chain
 // and also keep what the backward (fused_block_bwd.cu) reads: LN
 // statistics, the fp32 fc1 pre-activation and the attention row
@@ -76,45 +85,48 @@ namespace {
 using namespace svt;
 
 // ---------------------------------------------------------------------------
-// LayerNorm: one warp per row, fp32 statistics (two-pass), bf16 out. With
-// `stats` set (training), (mean, rstd) of each row are kept for the backward.
+// LayerNorm: one warp per row, fp32 statistics (two-pass) over the row's
+// first n of its dim columns (n < dim: a padded layout, see the top), bf16
+// out, zeros past n. With `stats` set (training), (mean, rstd) of each row
+// are kept for the backward.
 
 constexpr int LN_THREADS = 256;
 
 __global__ void __launch_bounds__(LN_THREADS)
     layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ beta, bf16* __restrict__ y, int rows, int dim,
-                      float eps, float* __restrict__ stats) {
+                      int n, float eps, float* __restrict__ stats) {
   const int row = (blockIdx.x * LN_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const bf16* xr = x + (long long)row * dim;
   float s = 0.f;
-  for (int i = lane; i < dim; i += 32) s += __bfloat162float(xr[i]);
-  const float mu = warp_sum(s) / dim;
+  for (int i = lane; i < n; i += 32) s += __bfloat162float(xr[i]);
+  const float mu = warp_sum(s) / n;
   float v = 0.f;
-  for (int i = lane; i < dim; i += 32) {
+  for (int i = lane; i < n; i += 32) {
     float d = __bfloat162float(xr[i]) - mu;
     v += d * d;
   }
-  const float rstd = rsqrtf(warp_sum(v) / dim + eps);
+  const float rstd = rsqrtf(warp_sum(v) / n + eps);
   if (stats != nullptr && lane == 0) {
     stats[2LL * row] = mu;
     stats[2LL * row + 1] = rstd;
   }
   bf16* yr = y + (long long)row * dim;
   for (int i = lane; i < dim; i += 32)
-    yr[i] = __float2bfloat16((__bfloat162float(xr[i]) - mu) * rstd * gamma[i] + beta[i]);
+    yr[i] = i < n ? __float2bfloat16((__bfloat162float(xr[i]) - mu) * rstd * gamma[i] + beta[i])
+                  : __float2bfloat16(0.f);
 }
 
 // ---------------------------------------------------------------------------
 // Host-side launch helpers (all on `stream`, no synchronisation).
 
 cudaError_t launch_ln(const bf16* x, const float* g, const float* b, bf16* y, int rows, int dim,
-                      float eps, float* stats, cudaStream_t st) {
+                      int n, float eps, float* stats, cudaStream_t st) {
   const int per_block = LN_THREADS / 32;
   layer_norm_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, st>>>(x, g, b, y, rows,
-                                                                              dim, eps, stats);
+                                                                              dim, n, eps, stats);
   return cudaGetLastError();
 }
 
@@ -173,15 +185,15 @@ struct Saves {
 int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out, void* b_out,
               void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2, void* b_fc2,
               void* out, bf16* h, bf16* qkv, bf16* attn, bf16* x1, bf16* f, const Saves& s,
-              int B, int N, int dim, int heads, int dim_head, int mlp, int valid_len, float eps,
-              int device, void* stream) {
-  if (!dim_head_ok(dim_head)) return (int)cudaErrorInvalidValue;
+              int B, int N, int dim, int ln_dim, int heads, int dim_head, int mlp, int valid_len,
+              float eps, int device, void* stream) {
+  if (!dim_head_ok(dim_head) || !ln_dim_ok(dim, ln_dim)) return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * head_cols(dim_head);
   bf16* h2 = s.h2 != nullptr ? s.h2 : h;
 
-  const bool fused = fused_mlp_route(dim, mlp, s.h2 != nullptr);
+  const bool fused = ln_dim == dim && fused_mlp_route(dim, mlp, s.h2 != nullptr);
   if (fused) {  // LN1 in qkv's prologue; the training form keeps h1 and its statistics
     gemm::Epilogue ep = out_bf16(qkv, 3 * hd);
     ep.ln_gamma = (const float*)ln1_s;
@@ -191,8 +203,8 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
     ep.ln_out = s.h2 != nullptr ? h : nullptr;
     SVT_TRY(launch_gemm<gemm::F_LNA>(xb, M, dim, 0, 0, (const bf16*)w_qkv, 3 * hd, ep, st));
   } else {
-    SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1,
-                      st));
+    SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, ln_dim, eps,
+                      s.stats1, st));
     SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, (const bf16*)w_qkv, 3 * hd,
                                       out_bf16(qkv, 3 * hd), st));
   }
@@ -212,7 +224,8 @@ int block_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out
                           (const float*)b_fc1, (const bf16*)w_fc2, (const float*)b_fc2,
                           static_cast<bf16*>(out), M, dim, mlp, eps, ms, st);
   }
-  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, M, dim, eps, s.stats2, st));
+  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, M, dim, ln_dim, eps,
+                    s.stats2, st));
   SVT_TRY(launch_gemm<gemm::F_GELU>(h2, M, dim, 0, 0, (const bf16*)w_fc1, mlp,
                                     out_bf16(f, mlp, (const float*)b_fc1, s.fpre), st));
   SVT_TRY(launch_gemm<gemm::F_RES>(
@@ -236,9 +249,10 @@ bool cls_ln1_in_kv(int N, int rows, int dim, int dh) {
 int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out,
                   void* b_out, void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2,
                   void* b_fc2, void* out, bf16* h, bf16* kv, bf16* q, bf16* attn, bf16* x1,
-                  bf16* f, const Saves& s, int B, int N, int rows, int dim, int heads,
+                  bf16* f, const Saves& s, int B, int N, int rows, int dim, int ln_dim, int heads,
                   int dim_head, int mlp, int valid_len, float eps, int device, void* stream) {
-  if (!dim_head_ok(dim_head) || rows < 1 || rows > N) return (int)cudaErrorInvalidValue;
+  if (!dim_head_ok(dim_head) || !ln_dim_ok(dim, ln_dim) || rows < 1 || rows > N)
+    return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, Mt = B * rows, dp = head_cols(dim_head), hd = heads * dp;
@@ -247,7 +261,9 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   const bool train = s.h2 != nullptr;
   bf16* h2 = train ? s.h2 : h;
 
-  if (cls_ln1_in_kv(N, rows, dim, dim_head)) {  // [LN1 + K/V], the few-query attention making Q
+  // [LN1 + K/V], the few-query attention making Q (an unpadded width: F_LNA
+  // and the CTA's LN1 count every column)
+  if (ln_dim == dim && cls_ln1_in_kv(N, rows, dim, dim_head)) {
     gemm::Epilogue ep = out_bf16(kv, 2 * hd);
     ep.ln_gamma = (const float*)ln1_s;
     ep.ln_beta = (const float*)ln1_b;
@@ -267,8 +283,8 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
                             packed(attn, rows, hd, dp), s.lse, B, heads, rows, N, valid_len,
                             dim_head, st));
   } else {  // LN1, K/V, Q, then the attention (the few-query forward on cls_fwd_route)
-    SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, eps, s.stats1,
-                      st));
+    SVT_TRY(launch_ln(xb, (const float*)ln1_s, (const float*)ln1_b, h, M, dim, ln_dim, eps,
+                      s.stats1, st));
     SVT_TRY(launch_gemm<gemm::F_NONE>(h, M, dim, 0, 0, wkv, 2 * hd, out_bf16(kv, 2 * hd), st));
     SVT_TRY(launch_gemm<gemm::F_NONE>(h, Mt, dim, rows, N, wq, hd, out_bf16(q, hd), st));
     SVT_TRY(launch_attention(q, hd, rows, kv, kv + hd, 2 * hd, N, attn, hd, B, heads, dim_head,
@@ -276,7 +292,8 @@ int block_cls_fwd(const bf16* xb, void* ln1_s, void* ln1_b, void* w_qkv, void* w
   }
   SVT_TRY(launch_gemm<gemm::F_RES>(attn, Mt, hd, 0, 0, (const bf16*)w_out, dim,
                                    out_res(x1, dim, (const float*)b_out, xb, dim, rows, N), st));
-  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, Mt, dim, eps, s.stats2, st));
+  SVT_TRY(launch_ln(x1, (const float*)ln2_s, (const float*)ln2_b, h2, Mt, dim, ln_dim, eps,
+                    s.stats2, st));
   SVT_TRY(launch_gemm<gemm::F_GELU>(h2, Mt, dim, 0, 0, (const bf16*)w_fc1, mlp,
                                     out_bf16(f, mlp, (const float*)b_fc1, s.fpre), st));
   SVT_TRY(launch_gemm<gemm::F_RES>(
@@ -291,7 +308,8 @@ extern "C" {
 
 const char* svt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// x (B, N, dim) -> out (B, N, dim), any dim_head >= 1, heads laid out in
+// x (B, N, dim) -> out (B, N, dim), LayerNorm over each row's first ln_dim
+// columns (the rest zero; see the top), any dim_head >= 1, heads laid out in
 // hd = heads head_cols(dim_head) columns (see the top). Weights in torch
 // Linear layout (out, in),
 // bf16: w_qkv (3hd, dim), w_out (dim, hd), w_fc1 (mlp, dim), w_fc2 (dim, mlp);
@@ -301,12 +319,12 @@ const char* svt_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 int svt_fused_block(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_out, void* b_out,
                     void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2, void* b_fc2,
                     void* out, void* ws_h, void* ws_qkv, void* ws_attn, void* ws_x1, void* ws_f,
-                    int B, int N, int dim, int heads, int dim_head, int mlp, int valid_len,
-                    float eps, int device, void* stream) {
+                    int B, int N, int dim, int ln_dim, int heads, int dim_head, int mlp,
+                    int valid_len, float eps, int device, void* stream) {
   return block_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1,
                    w_fc2, b_fc2, out, (bf16*)ws_h, (bf16*)ws_qkv, (bf16*)ws_attn, (bf16*)ws_x1,
-                   (bf16*)ws_f, Saves{}, B, N, dim, heads, dim_head, mlp, valid_len, eps, device,
-                   stream);
+                   (bf16*)ws_f, Saves{}, B, N, dim, ln_dim, heads, dim_head, mlp, valid_len, eps,
+                   device, stream);
 }
 
 // The training forward: svt_fused_block's arithmetic, with every buffer the
@@ -317,13 +335,13 @@ int svt_fused_block_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv, vo
                               void* b_out, void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1,
                               void* w_fc2, void* b_fc2, void* out, void* h1, void* qkv,
                               void* attn, void* lse, void* x1, void* h2, void* fpre, void* f,
-                              void* stats1, void* stats2, int B, int N, int dim,
+                              void* stats1, void* stats2, int B, int N, int dim, int ln_dim,
                               int heads, int dim_head, int mlp, int valid_len, float eps,
                               int device, void* stream) {
   const Saves s{(bf16*)h2, (float*)stats1, (float*)stats2, (float*)fpre, (float*)lse};
   return block_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1,
                    w_fc2, b_fc2, out, (bf16*)h1, (bf16*)qkv, (bf16*)attn, (bf16*)x1, (bf16*)f, s,
-                   B, N, dim, heads, dim_head, mlp, valid_len, eps, device, stream);
+                   B, N, dim, ln_dim, heads, dim_head, mlp, valid_len, eps, device, stream);
 }
 
 // The final block under CLS pooling: x (B, N, dim) -> out (B, rows, dim),
@@ -338,12 +356,12 @@ int svt_fused_block_cls(void* x, void* ln1_s, void* ln1_b, void* w_qkv, void* w_
                         void* ln2_s, void* ln2_b, void* w_fc1, void* b_fc1, void* w_fc2,
                         void* b_fc2, void* out, void* ws_h, void* ws_kv, void* ws_q,
                         void* ws_attn, void* ws_x1, void* ws_f, int B, int N, int rows, int dim,
-                        int heads, int dim_head, int mlp, int valid_len, float eps, int device,
-                        void* stream) {
+                        int ln_dim, int heads, int dim_head, int mlp, int valid_len, float eps,
+                        int device, void* stream) {
   return block_cls_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1,
                        b_fc1, w_fc2, b_fc2, out, (bf16*)ws_h, (bf16*)ws_kv, (bf16*)ws_q,
-                       (bf16*)ws_attn, (bf16*)ws_x1, (bf16*)ws_f, Saves{}, B, N, rows, dim, heads,
-                       dim_head, mlp, valid_len, eps, device, stream);
+                       (bf16*)ws_attn, (bf16*)ws_x1, (bf16*)ws_f, Saves{}, B, N, rows, dim,
+                       ln_dim, heads, dim_head, mlp, valid_len, eps, device, stream);
 }
 
 // Training forward of the CLS block: as svt_fused_block_cls, keeping (the
@@ -355,13 +373,13 @@ int svt_fused_block_cls_train_fwd(void* x, void* ln1_s, void* ln1_b, void* w_qkv
                                   void* b_fc1, void* w_fc2, void* b_fc2, void* out, void* h1,
                                   void* kv, void* q, void* attn, void* lse, void* x1, void* h2,
                                   void* fpre, void* f, void* stats1, void* stats2, int B, int N,
-                                  int rows, int dim, int heads, int dim_head, int mlp,
+                                  int rows, int dim, int ln_dim, int heads, int dim_head, int mlp,
                                   int valid_len, float eps, int device, void* stream) {
   const Saves s{(bf16*)h2, (float*)stats1, (float*)stats2, (float*)fpre, (float*)lse};
   return block_cls_fwd((const bf16*)x, ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1,
                        b_fc1, w_fc2, b_fc2, out, (bf16*)h1, (bf16*)kv, (bf16*)q, (bf16*)attn,
-                       (bf16*)x1, (bf16*)f, s, B, N, rows, dim, heads, dim_head, mlp, valid_len,
-                       eps, device, stream);
+                       (bf16*)x1, (bf16*)f, s, B, N, rows, dim, ln_dim, heads, dim_head, mlp,
+                       valid_len, eps, device, stream);
 }
 
 // The CLS forward's route at these shapes, as bits: 1 the attention is one

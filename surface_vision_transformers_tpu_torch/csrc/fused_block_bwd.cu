@@ -137,7 +137,9 @@ __global__ void reduce_sums_kernel(const float* __restrict__ part, int P, int ns
 // with the grid's stride:
 //   n = (x - mean) * rstd, d = dh * gamma,
 //   out = (d - mean(d) - n * mean(d * n)) * rstd + res
-// with res the row's residual cotangent: row r = (sample r / seg, i = r % seg)
+// over the row's first n_true of its dim columns (the means divide by
+// n_true; a padded layout, fused_block.cu) and 0 past them, with res the
+// row's residual cotangent: row r = (sample r / seg, i = r % seg)
 // has one iff i < res_seg, at res[(r / seg) * res_seg + i]. Thread L of a
 // group holds C4 pieces of 4 columns (4 (L + 32 G p) ..): 16-byte loads of dh
 // and of an fp32 residual, 8-byte ones of x and of a bf16 residual, kept
@@ -184,7 +186,8 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
     ln_bwd_kernel(const float* __restrict__ dh, const bf16* __restrict__ x,
                   const float* __restrict__ stats, const float* __restrict__ gamma,
                   const RT* __restrict__ res, int seg, int res_seg, float* __restrict__ out_f,
-                  bf16* __restrict__ out_b, float* __restrict__ colpart, int rows, int dim) {
+                  bf16* __restrict__ out_b, float* __restrict__ colpart, int rows, int dim,
+                  int n_true) {
   using Raw = typename std::conditional<sizeof(RT) == 4, float4, uint2>::type;
   constexpr int GROUPS = LNB_WARPS / G;
   __shared__ __align__(16) float sgam[LNB_MAX_DIM];
@@ -245,7 +248,7 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = 4 * (L + 32 * G * p) + e;
-          const float d = get(dv[k][p], e) * (c < dim ? sgam[c] : 0.f);
+          const float d = get(dv[k][p], e) * (c < n_true ? sgam[c] : 0.f);
           s1[k] += d;
           s2[k] += d * ((get(xv[k][p], e) - mu[k]) * rstd[k]);
         }
@@ -270,7 +273,7 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
     for (int k = 0; k < 2; ++k) {
       const int r = 2 * pr + k;
       const long long off = (long long)r * dim;
-      const float m1 = s1[k] / dim, m2 = s2[k] / dim;
+      const float m1 = s1[k] / n_true, m2 = s2[k] / n_true;
 #pragma unroll
       for (int p = 0; p < C4; ++p) {
         const int c = 4 * (L + 32 * G * p);
@@ -279,8 +282,8 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
         for (int e = 0; e < 4; ++e) {
           const float dhv = get(dv[k][p], e), rres = has_res[k] ? get(rv[k][p], e) : 0.f;
           const float n = (get(xv[k][p], e) - mu[k]) * rstd[k];
-          const float d = dhv * (c + e < dim ? sgam[c + e] : 0.f);
-          o[e] = (d - m1 - n * m2) * rstd[k] + rres;
+          const float d = dhv * (c + e < n_true ? sgam[c + e] : 0.f);
+          o[e] = c + e < n_true ? (d - m1 - n * m2) * rstd[k] + rres : 0.f;
           acc[0][p][e] += dhv * n;
           acc[1][p][e] += dhv;
           if constexpr (NSUM == 4) {
@@ -394,7 +397,8 @@ cudaError_t gemm_nn(const bf16* A, int lda, const bf16* W, int M, int N, int K, 
 }
 
 // dh = A W (A (M, K), W the torch (out = K, in = N = dim) weight) with the
-// LayerNorm backward in the product's epilogue (dim <= LN_EPILOGUE_MAX_DIM):
+// LayerNorm backward (over each row's first ln_n columns) in the product's
+// epilogue (dim <= LN_EPILOGUE_MAX_DIM):
 // B_LN2 -> dx1 fp32 (out_f) and bf16 (out_b) with residual g (bf16); B_LN1
 // -> dx bf16 (out_b) with residual dx1 (fp32); B_LN1_TOP the same where dh
 // and the residual dx1 ((B * top_rows, N) fp32 each) join on the first
@@ -402,7 +406,8 @@ cudaError_t gemm_nn(const bf16* A, int lda, const bf16* W, int M, int N, int K, 
 // vecs[q] (dscale, dbias; B_LN2 also sum res, sum out). dh never exists in
 // device memory.
 template <int EPI>
-cudaError_t gemm_ln(const bf16* A, int lda, const bf16* W, int M, int N, int K, const bf16* x,
+cudaError_t gemm_ln(const bf16* A, int lda, const bf16* W, int M, int N, int ln_n, int K,
+                    const bf16* x,
                     const float* stats, const float* gamma, const void* res, float* out_f,
                     bf16* out_b, float* part, float* const* vecs, cudaStream_t st,
                     const float* top = nullptr, int top_rows = 0, int top_seg = 1) {
@@ -420,6 +425,7 @@ cudaError_t gemm_ln(const bf16* A, int lda, const bf16* W, int M, int N, int K, 
   ep.cb = out_b;
   ep.ldc = N;
   ep.colpart = part;
+  ep.ln_n = ln_n;
   const cudaError_t e = gemm::linear_dx<EPI>(gemm::Operand{A, M, K, lda}, W, N, ep, st);
   if (e != cudaSuccess) return e;
   return reduce_sums(part, gemm::ln_ctas(M), EPI == gemm::B_LN2 ? 4 : 2, N, vecs, st);
@@ -430,7 +436,8 @@ cudaError_t gemm_ln(const bf16* A, int lda, const bf16* W, int M, int N, int K, 
 template <typename RT>
 cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const float* gamma,
                    const RT* res, int seg, int res_seg, float* out_f, bf16* out_b, int rows,
-                   int dim, float* part, int nsum, float* const* vecs, cudaStream_t st) {
+                   int dim, int ln_dim, float* part, int nsum, float* const* vecs,
+                   cudaStream_t st) {
   if (dim % 4 || (nsum != 2 && nsum != 4)) return cudaErrorInvalidValue;  // 4-column pieces
   const int ctas = ln_bwd_ctas(rows);
   auto kernel = nsum == 2 ? (dim <= 256   ? ln_bwd_kernel<RT, 2, 2, 1>
@@ -440,7 +447,7 @@ cudaError_t ln_bwd(const float* dh, const bf16* x, const float* stats, const flo
                              : dim <= 384 ? ln_bwd_kernel<RT, 3, 4, 1>
                                           : ln_bwd_kernel<RT, 3, 4, 2>);
   kernel<<<ctas, LNB_WARPS * 32, 0, st>>>(dh, x, stats, gamma, res, seg, res_seg, out_f, out_b,
-                                          part, rows, dim);
+                                          part, rows, dim, ln_dim);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return reduce_sums(part, ctas, nsum, dim, vecs, st);
@@ -467,7 +474,7 @@ int mlp_branch_bwd(const bf16* g, const bf16* w_fc1, const bf16* w_fc2, const fl
                    const float* stats2, float* d_ln2_s, float* d_ln2_b, float* d_wfc1,
                    float* d_bfc1, float* d_wfc2, float* d_bfc2, float* d_bout, bf16* df1,
                    float* dh, float* dx1, bf16* dx1b, float* part, int Mr, int seg, int dim,
-                   int mlp, cudaStream_t st) {
+                   int ln_dim, int mlp, cudaStream_t st) {
   SVT_TRY(weight_grad(g, dim, f, mlp, 0, 0, dim, mlp, Mr, d_wfc2, part, st));
   SVT_TRY(gemm_nn<gemm::B_GELU_GRAD>(g, dim, w_fc2, Mr, mlp, dim, nullptr, df1, mlp, st, fpre,
                                      part));
@@ -475,11 +482,11 @@ int mlp_branch_bwd(const bf16* g, const bf16* w_fc1, const bf16* w_fc2, const fl
   SVT_TRY(weight_grad(df1, mlp, h2, dim, 0, 0, mlp, dim, Mr, d_wfc1, part, st));
   float* const vecs[4] = {d_ln2_s, d_ln2_b, d_bfc2, d_bout};
   if (dim <= LN_EPILOGUE_MAX_DIM)
-    return (int)gemm_ln<gemm::B_LN2>(df1, mlp, w_fc1, Mr, dim, mlp, x1, stats2, ln2_s, g, dx1,
-                                     dx1b, part, vecs, st);
+    return (int)gemm_ln<gemm::B_LN2>(df1, mlp, w_fc1, Mr, dim, ln_dim, mlp, x1, stats2, ln2_s, g,
+                                     dx1, dx1b, part, vecs, st);
   SVT_TRY(gemm_nn<gemm::B_F32>(df1, mlp, w_fc1, Mr, dim, mlp, dh, nullptr, dim, st));
-  SVT_TRY(ln_bwd<bf16>(dh, x1, stats2, ln2_s, g, seg, seg, dx1, dx1b, Mr, dim, part, 4, vecs,
-                       st));
+  SVT_TRY(ln_bwd<bf16>(dh, x1, stats2, ln2_s, g, seg, seg, dx1, dx1b, Mr, dim, ln_dim, part, 4,
+                       vecs, st));
   return (int)cudaSuccess;
 }
 
@@ -523,7 +530,9 @@ long long svt_block_bwd_dh_floats(int B, int N, int dim, int cls_rows) {
 }
 
 // Backward of svt_fused_block_train_fwd. In: x (B, N, dim) and g = dL/dout
-// (B, N, dim) bf16; the bf16 weights; what the training forward kept. Out:
+// (B, N, dim) bf16, their LayerNorms over each row's first ln_dim columns
+// (a padded layout, fused_block.cu: dx is 0 past them); the bf16 weights;
+// what the training forward kept. Out:
 // dx (B, N, dim) bf16; d_ln1_s, d_ln1_b, d_bout, d_ln2_s, d_ln2_b, d_bfc1,
 // d_bfc2 (vectors) and d_wqkv (3hd, dim), d_wout (dim, hd), d_wfc1
 // (mlp, dim), d_wfc2 (dim, mlp), all fp32 in the torch (out, in) layout.
@@ -539,9 +548,10 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                         void* d_bout, void* d_ln2_s, void* d_ln2_b, void* d_wfc1, void* d_bfc1,
                         void* d_wfc2, void* d_bfc2, void* df1, void* dh, void* dx1, void* dx1b,
                         void* da, void* dqkv, void* delta, void* ws, int B, int N, int dim,
-                        int heads, int dim_head, int mlp, int valid_len, int device,
+                        int ln_dim, int heads, int dim_head, int mlp, int valid_len, int device,
                         void* stream) {
-  if (!dim_head_ok(dim_head) || dim > LNB_MAX_DIM) return (int)cudaErrorInvalidValue;
+  if (!dim_head_ok(dim_head) || !ln_dim_ok(dim, ln_dim) || dim > LNB_MAX_DIM)
+    return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N, hd = heads * head_cols(dim_head);
@@ -555,7 +565,7 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
       (const bf16*)x1, (const bf16*)h2, (const float*)fpre, (const bf16*)f, (const float*)stats2,
       (float*)d_ln2_s, (float*)d_ln2_b, (float*)d_wfc1, (float*)d_bfc1, (float*)d_wfc2,
       (float*)d_bfc2, (float*)d_bout, (bf16*)df1, (float*)dh, (float*)dx1, dx1b_, part, M, N, dim,
-      mlp, st);
+      ln_dim, mlp, st);
   if (err) return err;
   SVT_TRY(weight_grad(dx1b_, dim, (const bf16*)attn, hd, 0, 0, dim, hd, M, (float*)d_wout, part,
                       st));
@@ -568,14 +578,14 @@ int svt_fused_block_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_out,
                       part, st));
   float* const vecs[2] = {(float*)d_ln1_s, (float*)d_ln1_b};
   if (dim <= LN_EPILOGUE_MAX_DIM)
-    return (int)gemm_ln<gemm::B_LN1>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd,
+    return (int)gemm_ln<gemm::B_LN1>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, ln_dim, 3 * hd,
                                      (const bf16*)x, (const float*)stats1, (const float*)ln1_s,
                                      dx1, nullptr, (bf16*)dx, part, vecs, st);
   SVT_TRY(gemm_nn<gemm::B_F32>(dqkv_, 3 * hd, (const bf16*)w_qkv, M, dim, 3 * hd, (float*)dh,
                                nullptr, dim, st));
   SVT_TRY(ln_bwd<float>((const float*)dh, (const bf16*)x, (const float*)stats1,
                         (const float*)ln1_s, (const float*)dx1, N, N, nullptr, (bf16*)dx, M, dim,
-                        part, 2, vecs, st));
+                        ln_dim, part, 2, vecs, st));
   return (int)cudaSuccess;
 }
 
@@ -594,9 +604,9 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
                             void* d_ln2_b, void* d_wfc1, void* d_bfc1, void* d_wfc2,
                             void* d_bfc2, void* df1, void* dh, void* dx1, void* dx1b, void* da,
                             void* dq, void* dkv, void* delta, void* ws, int B, int N, int rows,
-                            int dim, int heads, int dim_head, int mlp, int valid_len, int device,
-                            void* stream) {
-  if (!dim_head_ok(dim_head) || dim > LNB_MAX_DIM || rows < 1 ||
+                            int dim, int ln_dim, int heads, int dim_head, int mlp, int valid_len,
+                            int device, void* stream) {
+  if (!dim_head_ok(dim_head) || !ln_dim_ok(dim, ln_dim) || dim > LNB_MAX_DIM || rows < 1 ||
       rows > std::min(N, CLS_MAX_ROWS))
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
@@ -616,7 +626,7 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
       (const bf16*)x1, (const bf16*)h2, (const float*)fpre, (const bf16*)f, (const float*)stats2,
       (float*)d_ln2_s, (float*)d_ln2_b, (float*)d_wfc1, (float*)d_bfc1, (float*)d_wfc2,
       (float*)d_bfc2, (float*)d_bout, (bf16*)df1, dh_, (float*)dx1, dx1b_, part, Mt, rows, dim,
-      mlp, st);
+      ln_dim, mlp, st);
   if (err) return err;
   SVT_TRY(weight_grad(dx1b_, dim, (const bf16*)attn, hd, 0, 0, dim, hd, Mt, (float*)d_wout, part,
                       st));
@@ -636,15 +646,16 @@ int svt_fused_block_cls_bwd(void* x, void* g, void* ln1_s, void* w_qkv, void* w_
   float* dqw = part;
   SVT_TRY(gemm_nn<gemm::B_F32>(dq_, hd, wq, Mt, dim, hd, dqw, nullptr, dim, st));
   if (cls_ln1_epilogue(N, rows, dim))  // with LN1's backward in the epilogue: dh never written
-    return (int)gemm_ln<gemm::B_LN1_TOP>(dkv_, 2 * hd, wkv, M, dim, 2 * hd, (const bf16*)x,
-                                         (const float*)stats1, (const float*)ln1_s, dx1,
+    return (int)gemm_ln<gemm::B_LN1_TOP>(dkv_, 2 * hd, wkv, M, dim, ln_dim, 2 * hd,
+                                         (const bf16*)x, (const float*)stats1,
+                                         (const float*)ln1_s, dx1,
                                          nullptr, (bf16*)dx, part + (long long)Mt * dim, vecs,
                                          st, dqw, rows, N);
   SVT_TRY(gemm_nn<gemm::B_F32>(dkv_, 2 * hd, wkv, M, dim, 2 * hd, dh_, nullptr, dim, st, nullptr,
                                nullptr, dqw, rows, N));
   SVT_TRY(ln_bwd<float>(dh_, (const bf16*)x, (const float*)stats1, (const float*)ln1_s,
-                        (const float*)dx1, N, rows, nullptr, (bf16*)dx, M, dim, part, 2, vecs,
-                        st));
+                        (const float*)dx1, N, rows, nullptr, (bf16*)dx, M, dim, ln_dim, part, 2,
+                        vecs, st));
   return (int)cudaSuccess;
 }
 
@@ -682,7 +693,7 @@ int svt_block_gemm_ln(int ln, void* A, void* W, void* x, void* stats, void* gamm
   float* v = static_cast<float*>(vecs);
   float* const rows[4] = {v, v + N, v + 2 * N, v + 3 * N};
   auto launch = ln == 2 ? gemm_ln<gemm::B_LN2> : gemm_ln<gemm::B_LN1>;
-  return (int)launch((const bf16*)A, K, (const bf16*)W, M, N, K, (const bf16*)x,
+  return (int)launch((const bf16*)A, K, (const bf16*)W, M, N, N, K, (const bf16*)x,
                      (const float*)stats, (const float*)gamma, res, (float*)Cf, (bf16*)Cb,
                      (float*)part, rows, st, nullptr, 0, 1);
 }

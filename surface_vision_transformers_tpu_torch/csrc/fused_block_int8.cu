@@ -130,14 +130,16 @@ __global__ void __launch_bounds__(RQ_THREADS)
   }
 }
 
-// LayerNorm in fp32 (two-pass statistics, as fused_block.cu's) quantized
-// per row from fp32: the normalised row is recomputed for the absmax and
-// for the codes, never stored.
+// LayerNorm in fp32 (two-pass statistics over a row's first n of its dim
+// columns, as fused_block.cu's; the rest are a padded layout's zeros, and
+// gamma and beta are 0 there, so their codes are 0 and the absmax is the
+// row's) quantized per row from fp32: the normalised row is recomputed for
+// the absmax and for the codes, never stored.
 template <typename T>
 __global__ void __launch_bounds__(RQ_THREADS)
     ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                     const float* __restrict__ beta, int8_t* __restrict__ q,
-                    float* __restrict__ s, int rows, int dim, float eps) {
+                    float* __restrict__ s, int rows, int dim, int n, float eps) {
   constexpr int V = 16 / sizeof(T);
   const int row = (blockIdx.x * RQ_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -148,19 +150,19 @@ __global__ void __launch_bounds__(RQ_THREADS)
   for (int i = V * lane; i < dim; i += 32 * V) {
     load16(xr + i, v);
 #pragma unroll
-    for (int e = 0; e < V; ++e) sum += v[e];
+    for (int e = 0; e < V; ++e) sum += i + e < n ? v[e] : 0.f;
   }
-  const float mu = warp_sum(sum) / dim;
+  const float mu = warp_sum(sum) / n;
   float var = 0.f;
   for (int i = V * lane; i < dim; i += 32 * V) {
     load16(xr + i, v);
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      const float d = v[e] - mu;
+      const float d = i + e < n ? v[e] - mu : 0.f;
       var += d * d;
     }
   }
-  const float rstd = rsqrtf(warp_sum(var) / dim + eps);
+  const float rstd = rsqrtf(warp_sum(var) / n + eps);
   auto normed = [&](int i) {  // v <- the normalised values at columns i .. i + V - 1
     load16(xr + i, v);
 #pragma unroll
@@ -235,8 +237,8 @@ cudaError_t launch_quant_rows(const T* h, int8_t* q, float* s, int rows, int col
 
 template <typename T>
 cudaError_t launch_ln_quant(const T* x, const float* g, const float* b, int8_t* q, float* s,
-                            int rows, int dim, float eps, cudaStream_t st) {
-  ln_quant_kernel<T><<<rows_grid(rows), RQ_THREADS, 0, st>>>(x, g, b, q, s, rows, dim, eps);
+                            int rows, int dim, int n, float eps, cudaStream_t st) {
+  ln_quant_kernel<T><<<rows_grid(rows), RQ_THREADS, 0, st>>>(x, g, b, q, s, rows, dim, n, eps);
   return cudaGetLastError();
 }
 
@@ -281,8 +283,11 @@ extern "C" {
 // (B*N,) fp32 (f's), part (parts, B*N) fp32 with parts = ceil(mlp / 192)
 // (any other count returns cudaErrorInvalidValue), qkv (B*N, 3hd) and attn
 // (B*N, hq) bf16, x1 (B*N, dim) fp32. dim and mlp multiples of 16 (int8 rows
-// on 16 bytes), any dim_head >= 1. Heads are laid out as the bf16 chain's,
-// in head_cols(dim_head) columns (hd = heads head_cols): q_qkv's rows past
+// on 16 bytes: a width off 16 is laid out padded with zeros, the LayerNorms
+// over each row's first ln_dim columns, as fused_block.cu's; zero codes and
+// scales add nothing to any absmax or int32 sum), any dim_head >= 1. Heads
+// are laid out as the bf16 chain's, in head_cols(dim_head) columns (hd =
+// heads head_cols): q_qkv's rows past
 // each head's dim_head are zero. The attention output's int8 rows take hq
 // = hd rounded up to 16 bytes: its columns past hd are zeroed here, and so
 // are q_out's (dim, hq) columns past each head's dim_head and past hd, so
@@ -292,9 +297,10 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
                          void* q_fc1, void* s_fc1, void* b_fc1, void* q_fc2, void* s_fc2,
                          void* b_fc2, void* out, void* ws_qa, void* ws_sa, void* ws_qf,
                          void* ws_sf, void* ws_part, void* ws_qkv, void* ws_attn, void* ws_x1,
-                         int B, int N, int dim, int heads, int dim_head, int mlp, int parts,
-                         int valid_len, float eps, int device, void* stream) {
-  if (!dim_head_ok(dim_head) || parts != fc1_parts(mlp) || dim % 16 || mlp % 16)
+                         int B, int N, int dim, int ln_dim, int heads, int dim_head, int mlp,
+                         int parts, int valid_len, float eps, int device, void* stream) {
+  if (!dim_head_ok(dim_head) || !ln_dim_ok(dim, ln_dim) || parts != fc1_parts(mlp) || dim % 16 ||
+      mlp % 16)
     return (int)cudaErrorInvalidValue;
   SVT_TRY(cudaSetDevice(device));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -310,7 +316,7 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
   auto i8 = [](void* p) { return static_cast<const int8_t*>(p); };
   auto f32 = [](void* p) { return static_cast<const float*>(p); };
 
-  SVT_TRY(launch_ln_quant(xb, f32(ln1_s), f32(ln1_b), qa, sa, M, dim, eps, st));
+  SVT_TRY(launch_ln_quant(xb, f32(ln1_s), f32(ln1_b), qa, sa, M, dim, ln_dim, eps, st));
   gemm::Epilogue e_qkv;
   e_qkv.cb = qkv;
   e_qkv.ldc = 3 * hd;
@@ -329,7 +335,7 @@ int svt_fused_block_int8(void* x, void* ln1_s, void* ln1_b, void* q_qkv, void* s
   e_out.ldc = dim;
   SVT_TRY(int8_gemm<gemm::Q_RES_F32>(qa, sa, i8(q_out), f32(s_out), M, dim, hq, e_out, st));
   SVT_TRY(launch_ln_quant(static_cast<const float*>(x1), f32(ln2_s), f32(ln2_b), qa, sa, M, dim,
-                          eps, st));
+                          ln_dim, eps, st));
   SVT_TRY(fc1_codes(qa, sa, i8(q_fc1), f32(s_fc1), f32(b_fc1), static_cast<float*>(ws_part), qf,
                     sf, M, mlp, dim, st));
   gemm::Epilogue e_fc2;

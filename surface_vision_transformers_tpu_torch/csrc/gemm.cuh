@@ -200,6 +200,7 @@ struct Epilogue {
   int ldx = 0;
   const float* stats = nullptr;
   const void* lres = nullptr;
+  int ln_n = 0;  // the columns the LayerNorm counts (0: all N); out is 0 past them
   // B_LN1_TOP, B_F32: the top rows' fp32 dh share (B_LN1_TOP: and lres
   // their dx1), (B * top_rows, N): output row r with r % top_seg < top_rows
   // takes row (r / top_seg) * top_rows + r % top_seg of it
@@ -451,7 +452,9 @@ __device__ __forceinline__ int col_of(int g, int t, int i) {
 // rstd and d = dh gamma,
 //   out = (d - mean(d) - n mean(d n)) rstd + res
 // (B_LN2: res = g bf16, out fp32 into cf and bf16; B_LN1: res = dx1 fp32,
-// out bf16), as fused_block_bwd.cu's ln_bwd_kernel. x came into sm.c at the
+// out bf16), as fused_block_bwd.cu's ln_bwd_kernel: the means over a row's
+// first ep.ln_n columns, out 0 past them (a padded layout, fused_block.cu;
+// gamma and dh are 0 there). x came into sm.c at the
 // tile's start, res comes in chunks through the ring's last stage; the row
 // sums are quad shuffles over the accumulator fragment. The column sums
 // (sum dh n, sum dh; B_LN2 also sum res, sum out) add into colacc across
@@ -527,7 +530,8 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep
       s2[h] += d0 * ((xv.x - mu[h]) * rs[h]) + d1 * ((xv.y - mu[h]) * rs[h]);
     }
   }
-  const float inv_dim = 1.f / (float)w.N;
+  const int ln_n = ep.ln_n ? ep.ln_n : w.N;  // a padded layout's true width
+  const float inv_dim = 1.f / (float)ln_n;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     s1[h] = (s1[h] + __shfl_xor_sync(0xffffffffu, s1[h], 1));
@@ -586,6 +590,8 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[96], const Epilogue& ep
         const float n0 = (xv.x - mu[h]) * rs[h], n1 = (xv.y - mu[h]) * rs[h];
         o[h].x = (acc[4 * j + 2 * h] * gm.x - s1[h] - n0 * s2[h]) * rs[h] + rv[h].x;
         o[h].y = (acc[4 * j + 2 * h + 1] * gm.y - s1[h] - n1 * s2[h]) * rs[h] + rv[h].y;
+        if (c >= ln_n) o[h].x = 0.f;  // padded columns: 0, as ln_bwd_kernel writes
+        if (c + 1 >= ln_n) o[h].y = 0.f;
         const int r = tl.m0 + 64 * wg + rl[h];
         if (EPI == B_LN2 && r < w.M && c < w.N)
           *reinterpret_cast<float2*>(ep.cf + (long long)r * ep.ldc + c) = o[h];

@@ -30,6 +30,14 @@ Differences from the JAX path, by design:
   scales of every int8 block, quantized from the float32 parameters as the
   JAX package quantizes from its uncast tree. Nothing is transposed or
   quantized per forward.
+* A width off the kernels' 16-byte rows (dim or mlp_dim off 8, off 16
+  where any block is int8) is laid out padded with zeros
+  (``serving.svt_ops.pad_dims``): the embedding, CLS token and positions
+  write the padded width, every block runs on that stream with its
+  LayerNorms counting ``model.dim`` (``ln_dim``), and the stream is
+  cropped once before pooling. Serving pads the weights once; training
+  pads the masters by a differentiable copy each step, so their gradients,
+  state dicts and checkpoints keep the reference shapes.
 
 ``resolve_quant`` is the JAX trainer's crossover rule (``_resolve_quant``):
 ``tpu.quant: int8`` serves int8 from ``INT8_MIN_DIM`` on and bf16, with a
@@ -67,6 +75,14 @@ from surface_vision_transformers_tpu_torch.ops.patchify import (
     rearrange_patched,
 )
 from surface_vision_transformers_tpu_torch.ops.quant import quantize_block_weights
+from surface_vision_transformers_tpu_torch.serving.svt_ops import (
+    INT8_ROW_ALIGN,
+    ROW_ALIGN,
+    pad_dims,
+    pad_int8_dims,
+    pad_to,
+    padded_width,
+)
 
 # The JAX package's int8 crossover (``models/fused_mssit.py::INT8_MIN_DIM``),
 # kept so that a config means the same in both packages: ``tpu.quant: int8``
@@ -123,8 +139,10 @@ class FusedWeights:
     cls_token: torch.Tensor
     pos_embedding: torch.Tensor
     # per block: the 11 fused_block parameters, in order; under quant int8
-    # the 15 fused_block_int8 parameters for every block but a CLS one
+    # the 15 fused_block_int8 parameters for every block but a CLS one; all
+    # laid out at the stream's width (``stream_width``)
     blocks: list
+    width: int  # the stream's columns: model.dim, or more in a padded layout
     quant: str | None
     head_norm: tuple  # float32 (weight, bias)
     head: tuple  # float32 (weight, bias)
@@ -143,35 +161,68 @@ def block_parameters(model: SiT) -> list[tuple]:
     return out
 
 
-def int8_block(blk) -> tuple:
+def int8_block(blk, width: int | None = None) -> tuple:
     """The 15 ``fused_block_int8`` parameters of one block's 11, its four
-    matrices quantized from their float32 values."""
+    matrices quantized from their float32 values; with ``width``, laid out
+    for a stream of that many columns and the hidden width rounded up to
+    ``INT8_ROW_ALIGN`` (``pad_int8_dims``: zero codes and scales)."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1, w_fc2, b_fc2) = blk
     q_qkv, s_qkv, q_out, s_out, q_fc1, s_fc1, q_fc2, s_fc2 = quantize_block_weights(
         w_qkv, w_out, w_fc1, w_fc2)
-    return (vec(ln1_s), vec(ln1_b), q_qkv, s_qkv, q_out, s_out, vec(b_out), vec(ln2_s),
-            vec(ln2_b), q_fc1, s_fc1, vec(b_fc1), q_fc2, s_fc2, vec(b_fc2))
+    out = (vec(ln1_s), vec(ln1_b), q_qkv, s_qkv, q_out, s_out, vec(b_out), vec(ln2_s),
+           vec(ln2_b), q_fc1, s_fc1, vec(b_fc1), q_fc2, s_fc2, vec(b_fc2))
+    if width is None:
+        return out
+    return tuple(pad_int8_dims(out, width, padded_width(w_fc1.shape[0], INT8_ROW_ALIGN)))
 
 
-def embed_layout(model, lin, embed_kernel: bool | None = None) -> tuple:
+def block_layout(blk, width: int, dt, align: int = ROW_ALIGN) -> tuple:
+    """One block's 11 parameters as the bf16 kernels take them for a stream
+    of ``width`` columns: matrices in ``dt``, vectors in float32, padded
+    with zeros to the width and the hidden width rounded up to ``align``
+    (``pad_dims``), contiguous."""
+    p = [mat(t, dt) if t.dim() == 2 else vec(t) for t in blk]
+    return tuple(pad_dims(p, width, padded_width(blk[7].shape[0], align)))
+
+
+def stream_width(dim: int, quant: str | None = None) -> int:
+    """The columns a stream of width ``dim`` is laid out in: dim rounded up
+    to 8 values (16 where any block runs int8: its rows are int8)."""
+    return padded_width(dim, INT8_ROW_ALIGN if quant == "int8" else ROW_ALIGN)
+
+
+def padded_blocks(blocks, width: int) -> list:
+    """Per block, its 11 parameters (any float dtype) padded for a stream of
+    ``width`` columns, the hidden width rounded up to 8 (``pad_dims``, a
+    differentiable copy where they are off it): the training forwards'
+    layout, made each step from the masters."""
+    return [pad_dims(blk, width, padded_width(blk[7].shape[0])) for blk in blocks]
+
+
+def embed_layout(model, lin, embed_kernel: bool | None = None,
+                 width: int | None = None) -> tuple:
     """The embedding ``lin`` of ``model`` (a SiT or an MS-SiT) laid out for
     serving: (raw_embed, embed_kernel, patched_embed) as ``FusedWeights``
-    holds them. Raw input goes through ``patch_embed`` where
+    holds them, writing ``width`` columns (default the model's; more:
+    zero columns past it). Raw input goes through ``patch_embed`` where
     ``embed_kernel`` says (by default where the weight is on CUDA in
     bfloat16)."""
     dt = model.dtype
     if embed_kernel is None:
         embed_kernel = kernel_route("auto", lin.weight, dt)
+    weight, bias = lin.weight.detach(), lin.bias.detach()
+    if width is not None:
+        weight, bias = pad_to(weight, (width, weight.shape[1])), pad_to(bias, (width,))
     raw_embed = None
     if model.patch_table is not None:
-        args = (lin.weight.detach().t(), lin.bias.detach(), model.patch_table.shape[1])
+        args = (weight.t(), bias, model.patch_table.shape[1])
         stats = dict(means=model.norm_means, stds=model.norm_stds, compute_dtype=dt)
         if embed_kernel:
             raw_embed = (model.patch_index, *embed_matrix(*args, **stats))
         else:
             flat = model.patch_index.reshape(-1).long()
             raw_embed = (flat, *embed_weights(*args, **stats))
-    return raw_embed, embed_kernel, (mat(lin.weight, dt), lin.bias.detach().to(dt))
+    return raw_embed, embed_kernel, (mat(weight, dt), bias.to(dt))
 
 
 def embed_tokens(x, raw_embed, embed_kernel, patched_embed, dt) -> torch.Tensor:
@@ -208,25 +259,29 @@ def prepare_weights(model: SiT, quant: str | None = None,
     if quant not in QUANTS:
         raise ValueError(f"unknown quant mode {quant!r}")
     dt = model.dtype
+    width = stream_width(model.dim, quant)
     raw_embed, embed_kernel, patched_embed = embed_layout(model, model.to_patch_embedding[1],
-                                                          embed_kernel)
+                                                          embed_kernel, width)
     params = block_parameters(model)
     cls_last = model.pool == "cls"
+    align = INT8_ROW_ALIGN if quant == "int8" else ROW_ALIGN
     blocks = []
     for i, blk in enumerate(params):
         if quant == "int8" and not (cls_last and i == len(params) - 1):
-            blocks.append(int8_block(blk))
+            blocks.append(int8_block(blk, width))
         else:
-            blocks.append(tuple(mat(p, dt) if p.dim() == 2 else vec(p) for p in blk))
+            blocks.append(block_layout(blk, width, dt, align))
+    pos = model.pos_embedding
     return FusedWeights(
         dtype=dt,
         raw_embed=raw_embed,
         embed_kernel=embed_kernel,
         quant=quant,
         patched_embed=patched_embed,
-        cls_token=mat(model.cls_token, dt),
-        pos_embedding=mat(model.pos_embedding, dt),
+        cls_token=mat(pad_to(model.cls_token, (1, 1, width)), dt),
+        pos_embedding=mat(pad_to(pos, (*pos.shape[:2], width)), dt),
         blocks=blocks,
+        width=width,
         head_norm=(vec(model.mlp_head[0].weight), vec(model.mlp_head[0].bias)),
         head=(vec(model.mlp_head[1].weight), vec(model.mlp_head[1].bias)),
     )
@@ -275,7 +330,7 @@ def fused_forward(
     B, n = tokens.shape[0], tokens.shape[1]
     h = torch.cat([w.cls_token.expand(B, -1, -1), tokens], dim=1)
     h = h + w.pos_embedding[:, : n + 1]
-    kw = dict(heads=model.heads, dim_head=model.dim_head)
+    kw = dict(heads=model.heads, dim_head=model.dim_head, ln_dim=model.dim)
     cls_last = model.pool == "cls"
     for i, blk in enumerate(w.blocks):
         if cls_last and i == len(w.blocks) - 1:
@@ -284,6 +339,7 @@ def fused_forward(
             h = fused_block_int8(h, *blk, **kw)
         else:
             h = fused_block(h, *blk, **kw)
+    h = h[..., :model.dim]  # the stream's padded columns, if any
     pooled = h.mean(dim=1) if model.pool == "mean" else h[:, 0]
     out = F.layer_norm(pooled.float(), (model.dim,), *w.head_norm, eps=1e-5)
     return F.linear(out, *w.head)
@@ -314,11 +370,14 @@ def fused_train_forward(model: SiT, x: torch.Tensor, *, mesh=None,
         tokens = F.linear(rearrange_patched(x).to(dt), lin.weight.to(dt),
                           lin.bias.to(dt))
     h = model.embed_tokens(tokens)
-    kw = dict(heads=model.heads, dim_head=model.dim_head)
-    blocks = block_parameters(model)
+    width = stream_width(model.dim)
+    h = pad_to(h, (*h.shape[:2], width))
+    kw = dict(heads=model.heads, dim_head=model.dim_head, ln_dim=model.dim)
+    blocks = padded_blocks(block_parameters(model), width)
     for i, blk in enumerate(blocks):
         last_cls = model.pool == "cls" and i == len(blocks) - 1
         h = (fused_block_cls_train if last_cls else fused_block_train)(h, *blk, **kw)
+    h = h[..., :model.dim]
     pooled = h.mean(dim=1) if model.pool == "mean" else h[:, 0]
     norm, head = model.mlp_head
     out = F.layer_norm(pooled.float(), (model.dim,), norm.weight.float(),
@@ -328,11 +387,14 @@ def fused_train_forward(model: SiT, x: torch.Tensor, *, mesh=None,
 
 def _fused_encoder_blocks(model: SiT, h: torch.Tensor) -> torch.Tensor:
     """Every block of ``model`` as ``fused_block_train`` (no CLS block):
-    (B, N, dim) -> (B, N, dim) in the compute dtype."""
-    kw = dict(heads=model.heads, dim_head=model.dim_head)
-    for blk in block_parameters(model):
+    (B, N, dim) -> (B, N, dim) in the compute dtype (on a padded stream
+    where the widths ask for one, ``stream_width``)."""
+    width = stream_width(model.dim)
+    h = pad_to(h, (*h.shape[:2], width))
+    kw = dict(heads=model.heads, dim_head=model.dim_head, ln_dim=model.dim)
+    for blk in padded_blocks(block_parameters(model), width):
         h = fused_block_train(h, *blk, **kw)
-    return h
+    return h[..., :model.dim]
 
 
 class _MaskedMSERecon(torch.autograd.Function):

@@ -28,6 +28,13 @@ every block runs at head dim 32: a batch of 64 surfaces launches one
 false at N <= 320 and dim <= 768), and MPP (``mssit_mpp.yml``) embeds the
 corrupted tokens with a plain product, so it launches no ``patch_embed``.
 
+A stage whose width is off the kernels' 16-byte rows (``embed_dim`` off 8,
+or a hidden width ``int(dim * mlp_ratio)`` off 8; off 16 in an int8 stage)
+runs on a padded stream, as ``models.fused`` lays a SiT out: padded at the
+stage's entry (stage 0's embedding and positions write it), its blocks'
+LayerNorms counting the stage's dim, cropped at its exit, before the
+merge.
+
 Differences from the JAX path, by design: the folded groups are not padded
 to N % 8 (the kernels mask their ragged edges; the axial fold of stage 2
 runs at N = 20, not 24), and the weights are prepared once for serving
@@ -48,10 +55,13 @@ from surface_vision_transformers_tpu_torch.models import fused
 from surface_vision_transformers_tpu_torch.models.fused import (
     QUANTS,
     _MaskedMSERecon,
+    block_layout,
     embed_layout,
     embed_tokens,
     int8_block,
     mat,
+    padded_blocks,
+    stream_width,
     vec,
 )
 from surface_vision_transformers_tpu_torch.models.mpp import rows_kw
@@ -71,6 +81,7 @@ from surface_vision_transformers_tpu_torch.ops.fused_block import (
     fused_block_train,
 )
 from surface_vision_transformers_tpu_torch.ops.fused_block_int8 import fused_block_int8
+from surface_vision_transformers_tpu_torch.serving.svt_ops import pad_to
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +89,10 @@ class StageWeights:
     """One stage's parameters laid out for the block kernels."""
 
     quant: str | None  # "int8" where the stage's blocks run fused_block_int8
-    # per block: the 11 fused_block parameters, or the 15 fused_block_int8 ones
+    # per block: the 11 fused_block parameters, or the 15 fused_block_int8
+    # ones, laid out for the stage's stream of ``width`` columns
     blocks: list
+    width: int  # the stage's dim, or more in a padded layout (``stream_width``)
     merge: tuple | None  # float32 LayerNorm (weight, bias), reduce weight; None last
 
 
@@ -120,21 +133,24 @@ def prepare_mssit_weights(model: MSSiT, quant: str | None = None,
     if quant not in QUANTS:
         raise ValueError(f"unknown quant mode {quant!r}")
     dt = model.dtype
-    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.patch_embedding,
-                                                          embed_kernel)
     stages = []
     for st, stage in zip(stage_plan(model), model.stages):
         q = quant if quant and st["dim"] >= fused.INT8_MIN_DIM else None
-        blocks = [int8_block(blk) if q else
-                  tuple(mat(p, dt) if p.dim() == 2 else vec(p) for p in blk)
+        width = stream_width(st["dim"], q)
+        blocks = [int8_block(blk, width) if q else block_layout(blk, width, dt)
                   for blk in block_parameters(stage)]
         mg = stage.merge
         merge = (None if mg is None else
                  (vec(mg.norm.weight), vec(mg.norm.bias), mat(mg.reduce.weight, dt)))
-        stages.append(StageWeights(quant=q, blocks=blocks, merge=merge))
+        stages.append(StageWeights(quant=q, blocks=blocks, merge=merge, width=width))
+    # the embedding and positions write stage 0's stream
+    raw_embed, embed_kernel, patched_embed = embed_layout(model, model.patch_embedding,
+                                                          embed_kernel, stages[0].width)
+    pos = model.pos_embedding
     return MSSiTWeights(
         dtype=dt, quant=quant, raw_embed=raw_embed, embed_kernel=embed_kernel,
-        patched_embed=patched_embed, pos_embedding=mat(model.pos_embedding, dt),
+        patched_embed=patched_embed,
+        pos_embedding=mat(pad_to(pos, (*pos.shape[:-1], stages[0].width)), dt),
         stages=stages, head_norm=(vec(model.head_norm.weight), vec(model.head_norm.bias)),
         head=(vec(model.head.weight), vec(model.head.bias)))
 
@@ -165,13 +181,15 @@ def fused_mssit_forward(model: MSSiT, x: torch.Tensor, weights: MSSiTWeights | N
         tokens = embed_tokens(x, w.raw_embed, w.embed_kernel, w.patched_embed, w.dtype)
     h = tokens + w.pos_embedding
     for st, sw in zip(stage_plan(model), w.stages):
-        B, T, dim = h.shape
-        kw = dict(heads=st["heads"], dim_head=dim // st["heads"])
+        B, T, dim = h.shape[0], h.shape[1], st["dim"]
+        kw = dict(heads=st["heads"], dim_head=dim // st["heads"], ln_dim=dim)
         block = fused_block_int8 if sw.quant else fused_block
+        h = pad_to(h, (B, T, sw.width))  # the stage's stream (stage 0's: embedded so)
         for mix, blk in zip(st["mixes"], sw.blocks):
             folded = fold_tokens(h, st["window"], mix)
             out = block(folded, *blk, **kw)
             h = out if folded is h else unfold_tokens(out, B, T, st["window"], mix)
+        h = h[..., :dim]
         if sw.merge is not None:
             ln_w, ln_b, reduce = sw.merge
             y = F.layer_norm(h.reshape(B, T // 4, 4 * dim).float(), (4 * dim,), ln_w, ln_b,
@@ -187,11 +205,14 @@ def _train_stages(model: MSSiT, h: torch.Tensor) -> torch.Tensor:
     without padding), the merges plain under autograd."""
     for st, stage in zip(stage_plan(model), model.stages):
         B, T, dim = h.shape
-        kw = dict(heads=st["heads"], dim_head=dim // st["heads"])
-        for mix, blk in zip(st["mixes"], block_parameters(stage)):
+        kw = dict(heads=st["heads"], dim_head=dim // st["heads"], ln_dim=dim)
+        width = stream_width(dim)  # a padded stream where the widths ask for one
+        h = pad_to(h, (B, T, width))
+        for mix, blk in zip(st["mixes"], padded_blocks(block_parameters(stage), width)):
             folded = fold_tokens(h, st["window"], mix)
             out = fused_block_train(folded, *blk, **kw)
             h = out if folded is h else unfold_tokens(out, B, T, st["window"], mix)
+        h = h[..., :dim]
         if stage.merge is not None:
             h = stage.merge(h)
     return h

@@ -98,13 +98,13 @@ def library() -> ctypes.CDLL:
     serving operators' entries as ``serving.svt_ops`` declares them)."""
     lib = svt_ops.declare(ctypes.CDLL(str(build())))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.svt_fused_block_train_fwd.argtypes = [P] * 23 + [I] * 7 + [F, I, P]
+    lib.svt_fused_block_train_fwd.argtypes = [P] * 23 + [I] * 8 + [F, I, P]
     lib.svt_fused_block_train_fwd.restype = I
-    lib.svt_fused_block_cls_train_fwd.argtypes = [P] * 24 + [I] * 8 + [F, I, P]
+    lib.svt_fused_block_cls_train_fwd.argtypes = [P] * 24 + [I] * 9 + [F, I, P]
     lib.svt_fused_block_cls_train_fwd.restype = I
-    lib.svt_fused_block_bwd.argtypes = [P] * 38 + [I] * 8 + [P]
+    lib.svt_fused_block_bwd.argtypes = [P] * 38 + [I] * 9 + [P]
     lib.svt_fused_block_bwd.restype = I
-    lib.svt_fused_block_cls_bwd.argtypes = [P] * 40 + [I] * 9 + [P]
+    lib.svt_fused_block_cls_bwd.argtypes = [P] * 40 + [I] * 10 + [P]
     lib.svt_fused_block_cls_bwd.restype = I
     lib.svt_block_bwd_workspace.argtypes = [I] * 7
     lib.svt_block_bwd_workspace.restype = ctypes.c_longlong

@@ -71,7 +71,14 @@ from surface_vision_transformers_tpu_torch.ops.flash_attention import (
     wide_bwd,
     wide_fwd,
 )
-from surface_vision_transformers_tpu_torch.serving.svt_ops import crop_heads, pad_block
+from surface_vision_transformers_tpu_torch.serving.svt_ops import (
+    ROW_ALIGN,
+    crop_heads,
+    crop_to,
+    pad_block,
+    pad_dims,
+    pad_to,
+)
 
 _CLS_ROWS = svt_ops.CLS_ROWS
 
@@ -79,8 +86,14 @@ _CLS_ROWS = svt_ops.CLS_ROWS
 # -- plain versions ------------------------------------------------------------
 
 
-def _layer_norm(x, scale, bias, eps, saved=None, key=None):
-    """fp32 LayerNorm; with ``saved``, (mean, rstd) per row go to saved[key]."""
+def _layer_norm(x, scale, bias, eps, saved=None, key=None, n=None):
+    """fp32 LayerNorm; with ``saved``, (mean, rstd) per row go to saved[key].
+    ``n`` below x's width: a padded layout, the statistics over the first n
+    columns and zeros past them, as the kernels count."""
+    width = x.shape[-1]
+    if n is not None and n < width:
+        out = _layer_norm(x[..., :n], scale[:n], bias[:n], eps, saved, key)
+        return F.pad(out, (0, width - n))
     h = x.float()
     mu = h.mean(-1, keepdim=True)
     var = (h - mu).square().mean(-1, keepdim=True)
@@ -119,13 +132,14 @@ def _attention(q, k, v, heads, dim_head, valid_len, dt, saved=None):
 
 
 def mlp_reference(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
-                  ln_eps: float = 1e-5, saved: dict | None = None):
+                  ln_eps: float = 1e-5, saved: dict | None = None, ln_dim: int | None = None):
     """Plain MLP half of the block (``block_mlp``): x1 (..., dim) -> x1 +
     fc2(GELU(fc1(LN2(x1)))) in x1.dtype, rounded where the kernels round
     (h2, f, the output). ``saved``, when a dict, receives h2, fpre, f and
-    stats2, as the training forward keeps them."""
+    stats2, as the training forward keeps them. ``ln_dim``: the width LN2
+    counts (default x1's; less in a padded layout, ``svt_ops.pad_dims``)."""
     dt = x1.dtype
-    h2 = _layer_norm(x1, ln2_scale, ln2_bias, ln_eps, saved, "stats2").to(dt)
+    h2 = _layer_norm(x1, ln2_scale, ln2_bias, ln_eps, saved, "stats2", ln_dim).to(dt)
     fpre = _mm(h2, w_fc1) + b_fc1
     f = F.gelu(fpre).to(dt)  # exact erf
     if saved is not None:
@@ -133,56 +147,63 @@ def mlp_reference(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
     return (x1.float() + (_mm(f, w_fc2) + b_fc2)).to(dt)
 
 
-def ln_gemm_reference(x, ln_scale, ln_bias, w, *, ln_eps: float = 1e-5):
+def ln_gemm_reference(x, ln_scale, ln_bias, w, *, ln_eps: float = 1e-5,
+                      ln_dim: int | None = None):
     """Plain ``block_ln_gemm`` (the qkv product with LN1 in its
     prologue): -> (LN(x) @ w.T rounded to x.dtype, LN(x) rounded, the
-    (mean, rstd) of each row, float32 (..., 2))."""
+    (mean, rstd) of each row, float32 (..., 2)); ``ln_dim`` as in
+    ``fused_block_reference``."""
     sv = {}
-    h = _layer_norm(x, ln_scale, ln_bias, ln_eps, sv, "stats").to(x.dtype)
+    h = _layer_norm(x, ln_scale, ln_bias, ln_eps, sv, "stats", ln_dim).to(x.dtype)
     return _mm(h, w).to(x.dtype), h, sv["stats"]
 
 
 def _out_proj_mlp(x, attn, w_out, b_out, ln2_scale, ln2_bias,
-                  w_fc1, b_fc1, w_fc2, b_fc2, eps, dt, saved=None):
+                  w_fc1, b_fc1, w_fc2, b_fc2, eps, dt, saved=None, ln_dim=None):
     x1 = (x.float() + (_mm(attn, w_out) + b_out)).to(dt)
     if saved is not None:
         saved.update(attn=attn, x1=x1)
     return mlp_reference(x1, ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2,
-                         ln_eps=eps, saved=saved)
+                         ln_eps=eps, saved=saved, ln_dim=ln_dim)
 
 
 def fused_block_reference(
     x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
     valid_len: int | None = None, ln_eps: float = 1e-5, saved: dict | None = None,
+    ln_dim: int | None = None,
 ):
     """Plain PyTorch ``fused_block``: x (B, N, dim) -> (B, N, dim) in
     x.dtype. In float32 nothing is rounded. ``saved``, when a dict, receives
     what the backward reads (``TRAIN_SAVED``), as the training kernel keeps
-    it."""
+    it. ``ln_dim``: the width the LayerNorms count (default dim; less where
+    x and the parameters are laid out padded, ``svt_ops.pad_dims``: the
+    columns past it zero)."""
     dt, hd = x.dtype, heads * dim_head
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    qkv, h, stats1 = ln_gemm_reference(x, ln1_scale, ln1_bias, w_qkv, ln_eps=ln_eps)
+    qkv, h, stats1 = ln_gemm_reference(x, ln1_scale, ln1_bias, w_qkv, ln_eps=ln_eps,
+                                       ln_dim=ln_dim)
     attn = _attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
                       heads, dim_head, vl, dt, saved)
     if saved is not None:
         saved.update(h1=h, qkv=qkv, stats1=stats1)
     return _out_proj_mlp(x, attn, w_out, b_out, ln2_scale, ln2_bias,
-                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved)
+                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved, ln_dim)
 
 
 def fused_block_cls_reference(
     x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
     valid_len: int | None = None, ln_eps: float = 1e-5, saved: dict | None = None,
+    ln_dim: int | None = None,
 ):
     """Plain PyTorch ``fused_block_cls``: x (B, N, dim) -> the block's first
     min(8, N) output rows (B, rows, dim); row 0 is the CLS token. ``saved``
-    as in ``fused_block_reference`` (``TRAIN_SAVED_CLS``)."""
+    and ``ln_dim`` as in ``fused_block_reference`` (``TRAIN_SAVED_CLS``)."""
     dt, hd = x.dtype, heads * dim_head
     rows = min(_CLS_ROWS, x.shape[1])
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps, saved, "stats1").to(dt)
+    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps, saved, "stats1", ln_dim).to(dt)
     kv = _mm(h, w_qkv[hd:]).to(dt)
     q = _mm(h[:, :rows], w_qkv[:hd]).to(dt)
     attn = _attention(q, kv[..., :hd], kv[..., hd:], heads, dim_head, vl, dt,
@@ -190,7 +211,7 @@ def fused_block_cls_reference(
     if saved is not None:
         saved.update(h1=h, kv=kv, q=q)
     return _out_proj_mlp(x[:, :rows], attn, w_out, b_out, ln2_scale, ln2_bias,
-                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved)
+                         w_fc1, b_fc1, w_fc2, b_fc2, ln_eps, dt, saved, ln_dim)
 
 
 def cls_attention_reference(x, ln1_scale, ln1_bias, w_q, k, v, *, heads: int,
@@ -232,13 +253,26 @@ def check_vectors(vectors: dict, aligned: bool = True) -> None:
                              "(the engine loads it as float4)")
 
 
-def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
+def check_ln_dim(dim: int, ln_dim: int | None, align: int = ROW_ALIGN) -> None:
+    """Raise unless ``ln_dim`` (the width the LayerNorms count) is dim, or
+    less where dim is a padded layout's width (a multiple of ``align``)."""
+    if ln_dim is None or ln_dim == dim:
+        return
+    if not 1 <= ln_dim < dim or dim % align:
+        raise ValueError(f"ln_dim {ln_dim} must be dim {dim}, or less where dim is a padded "
+                         f"layout's width (a multiple of {align})")
+
+
+def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True, ln_dim=None):
     """Validate everything the kernels assume; raise on anything else. Both
     blocks take the attention kernels' head dims (``check_dim_head``: every
     dim_head >= 1; the weights in the reference layout, which the CUDA
     entries lay out per head in ``head_cols(dim_head)`` columns,
-    ``svt_ops.pad_block``); ``addresses`` False leaves the 16-byte checks
-    to the serving operators' CUDA kernels."""
+    ``svt_ops.pad_block``) and every dim and mlp_dim (a width off 8 laid
+    out padded by the CUDA entries, ``svt_ops.pad_dims``; ``ln_dim`` below
+    x's width: x and the parameters come laid out so, ``check_ln_dim``);
+    ``addresses`` False leaves the 16-byte checks to the serving operators'
+    CUDA kernels."""
     (ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b,
      w_fc1, b_fc1, w_fc2, b_fc2) = params
     if x.dtype != torch.bfloat16:
@@ -249,8 +283,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
     hd = heads * dim_head
     mlp = w_fc1.shape[0]
     check_dim_head(dim_head)
-    if dim % 8 or mlp % 8:
-        raise NotImplementedError("dim and mlp_dim must be multiples of 8")
+    check_ln_dim(dim, ln_dim)
     if not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside [1, {N}]")
     shapes = {
@@ -276,8 +309,8 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
 
 def check_tma_operands(*tensors, cls_rows: int | None = None):
     """Raise on what the GEMM engine's TMA loads do not take: each operand
-    must start on 16 bytes (its rows are multiples of 8 values, checked with
-    the shapes), and the CLS block's row count must divide 64, the rows of
+    must start on 16 bytes (its rows are multiples of 8 values, as the
+    entries lay them out), and the CLS block's row count must divide 64, the rows of
     its row-mapped tiles (min(8, N): every N >= 8, or 1, 2, 4)."""
     for t in tensors:
         if t.data_ptr() % 16:
@@ -299,19 +332,22 @@ def _dispatch(x):
 def fused_block(
     x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, ln_dim: int | None = None,
 ):
     """One pre-norm transformer block, x (B, N, dim) -> (B, N, dim); keys
-    at positions >= ``valid_len`` are masked. The operator
+    at positions >= ``valid_len`` are masked. ``ln_dim``: the width the
+    LayerNorms count, default dim; less where x and the parameters come laid
+    out padded (``svt_ops.pad_dims``, zeros past it). The operator
     ``svt::fused_block`` on either device: its CPU kernel is
     ``fused_block_reference``, its CUDA kernel the chain (bfloat16), its
     launches counted in ``launches`` (``serving.svt_ops``)."""
     params = (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
               w_fc1, b_fc1, w_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
+    n = x.shape[-1] if ln_dim is None else int(ln_dim)
     if _dispatch(x) == "cuda":
-        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False)
-    return torch.ops.svt.fused_block(x, *params, heads, dim_head, vl, ln_eps)
+        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False, ln_dim=n)
+    return torch.ops.svt.fused_block(x, *params, heads, dim_head, vl, ln_eps, n)
 
 
 fused_block.launches = 0
@@ -320,19 +356,20 @@ fused_block.launches = 0
 def fused_block_cls(
     x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, ln_dim: int | None = None,
 ):
     """The final block under CLS pooling: x (B, N, dim) -> its first
-    min(8, N) output rows. The operator ``svt::fused_block_cls``: its CPU
-    kernel is ``fused_block_cls_reference``, its CUDA kernel the chain
-    (bfloat16)."""
+    min(8, N) output rows; ``ln_dim`` as in ``fused_block``. The operator
+    ``svt::fused_block_cls``: its CPU kernel is ``fused_block_cls_reference``,
+    its CUDA kernel the chain (bfloat16)."""
     params = (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
               w_fc1, b_fc1, w_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
+    n = x.shape[-1] if ln_dim is None else int(ln_dim)
     if _dispatch(x) == "cuda":
-        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False)
+        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False, ln_dim=n)
         check_tma_operands(cls_rows=min(_CLS_ROWS, x.shape[1]))
-    return torch.ops.svt.fused_block_cls(x, *params, heads, dim_head, vl, ln_eps)
+    return torch.ops.svt.fused_block_cls(x, *params, heads, dim_head, vl, ln_eps, n)
 
 
 fused_block_cls.launches = 0
@@ -406,7 +443,7 @@ def cls_ln1_in_epilogue(N: int, rows: int, dim: int) -> bool:
 FUSED_MLP_DIMS = (96, 192)  # csrc/fused_mlp.cu: fc2's output is one wgmma of n = dim
 
 
-def fuses_mlp(dim: int, mlp: int, train: bool = False) -> bool:
+def fuses_mlp(dim: int, mlp: int, train: bool = False, ln_dim: int | None = None) -> bool:
     """Whether a forward chain (``train``: the training forward) runs LN1 in
     the qkv product's prologue and LN2 -> fc1 -> GELU -> fc2 (+ residual) as
     one kernel (``csrc/fused_mlp.cu``; ``svt_block_fused_mlp``): four
@@ -415,9 +452,11 @@ def fuses_mlp(dim: int, mlp: int, train: bool = False) -> bool:
     multiple of 128 up to 4 dim; the training forward, which writes h1, h2,
     f and fpre all the same, at dim 96 only (at dim 192 the seven launches
     measured faster, PERF.md). Elsewhere, and in the CLS block, the seven
-    launches."""
-    return ((dim == 96 or (dim == 192 and not train)) and mlp % 128 == 0
-            and 128 <= mlp <= 4 * dim)
+    launches; also in a padded layout (``ln_dim`` below dim: 94 and 188 laid
+    out in 96 and 192 columns), since the fused kernels' LayerNorms count
+    every column."""
+    return ((ln_dim is None or ln_dim == dim) and (dim == 96 or (dim == 192 and not train))
+            and mlp % 128 == 0 and 128 <= mlp <= 4 * dim)
 
 
 def cls_fwd_route(N: int, rows: int, dim_head: int = 64) -> bool:
@@ -429,7 +468,8 @@ def cls_fwd_route(N: int, rows: int, dim_head: int = 64) -> bool:
     return few_query_fwd(rows, N, dim_head)
 
 
-def cls_ln1_in_kv(N: int, rows: int, dim: int, dim_head: int = 64) -> bool:
+def cls_ln1_in_kv(N: int, rows: int, dim: int, dim_head: int = 64,
+                  ln_dim: int | None = None) -> bool:
     """Whether the CLS forward runs LN1 in the K/V product's prologue
     (``csrc/gemm.cuh`` F_LNA: K = dim 96 or 192) and makes Q inside the
     few-query attention's CTAs (LN1 of each sample's top rows and their
@@ -437,17 +477,19 @@ def cls_ln1_in_kv(N: int, rows: int, dim: int, dim_head: int = 64) -> bool:
     written: on ``cls_fwd_route`` at those dims, up to dh 64 (the CTA makes
     Q^T in one m64 product: C ``few_query_makes_q``). Wider, or wider heads,
     the LayerNorm pass writes h and the Q product reads it (Q made in the
-    CTAs took longer there: PERF.md)."""
-    return cls_fwd_route(N, rows, dim_head) and dim in FUSED_MLP_DIMS and dim_head <= 64
+    CTAs took longer there: PERF.md), as in a padded layout (``ln_dim``
+    below dim, as ``fuses_mlp``)."""
+    return ((ln_dim is None or ln_dim == dim) and cls_fwd_route(N, rows, dim_head)
+            and dim in FUSED_MLP_DIMS and dim_head <= 64)
 
 
-def cls_fwd_launches(N: int, dim: int, dim_head: int = 64) -> int:
+def cls_fwd_launches(N: int, dim: int, dim_head: int = 64, ln_dim: int | None = None) -> int:
     """Device kernels one CLS forward runs, serving or training: where
     ``cls_ln1_in_kv``, six ([LN1 + K/V], the few-query attention with its
     Q, the out-projection, LN2, fc1, fc2: the fused MLP kernel took 1.8x as
     long as these three on the CLS block's 2,048 top rows, PERF.md); else
     eight (LN1, K/V, Q, the attention, out-projection, LN2, fc1, fc2)."""
-    return 6 if cls_ln1_in_kv(N, min(_CLS_ROWS, N), dim, dim_head) else 8
+    return 6 if cls_ln1_in_kv(N, min(_CLS_ROWS, N), dim, dim_head, ln_dim) else 8
 
 
 def block_bwd_dh_floats(B: int, N: int, dim: int, cls_rows: int = 0) -> int:
@@ -526,8 +568,14 @@ def _colsum(t):
     return t.reshape(-1, t.shape[-1]).float().sum(0)
 
 
-def _ln_bwd(dh, x, stats, scale):
-    """LayerNorm backward from the kept (mean, rstd): (dx, dscale, dbias)."""
+def _ln_bwd(dh, x, stats, scale, ln_dim=None):
+    """LayerNorm backward from the kept (mean, rstd): (dx, dscale, dbias).
+    ``ln_dim`` below x's width: the padded layout of ``_layer_norm``, zeros
+    past it."""
+    width = x.shape[-1]
+    if ln_dim is not None and ln_dim < width:
+        return tuple(F.pad(t, (0, width - ln_dim)) for t in
+                     _ln_bwd(dh[..., :ln_dim], x[..., :ln_dim], stats, scale[:ln_dim]))
     n = (x.float() - stats[..., :1]) * stats[..., 1:]
     d = dh * scale
     dx = (d - d.mean(-1, keepdim=True) - n * (d * n).mean(-1, keepdim=True)) \
@@ -544,13 +592,13 @@ def _attention_bwd(q, k, v, o, do, lse, heads, dim_head, valid_len, dt):
     return tuple(_merge_heads(t, dt) for t in grads)
 
 
-def _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt):
+def _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt, ln_dim=None):
     """g = dL/dout -> dx1 (fp32) and the MLP / LN2 / out-bias gradients."""
     gf = g.float()
     df1 = (gf @ w_fc2.float()) * _gelu_grad(sv["fpre"])
     df1b = df1.to(dt)
     dx1_ln, d_ln2_s, d_ln2_b = _ln_bwd(df1b.float() @ w_fc1.float(), sv["x1"],
-                                       sv["stats2"], ln2_s)
+                                       sv["stats2"], ln2_s, ln_dim)
     dx1 = gf + dx1_ln
     grads = dict(d_ln2_s=d_ln2_s, d_ln2_b=d_ln2_b, d_wfc1=_tmm(df1b, sv["h2"]),
                  d_bfc1=_colsum(df1), d_wfc2=_tmm(g, sv["f"]), d_bfc2=_colsum(gf),
@@ -563,10 +611,10 @@ def _grads_tuple(dx, d_ln1_s, d_ln1_b, d_wqkv, d_wout, gr):
             gr["d_ln2_b"], gr["d_wfc1"], gr["d_bfc1"], gr["d_wfc2"], gr["d_bfc2"])
 
 
-def _block_bwd_plain(x, g, params, sv, heads, dim_head, valid_len):
+def _block_bwd_plain(x, g, params, sv, heads, dim_head, valid_len, ln_dim=None):
     dt, hd = x.dtype, heads * dim_head
     ln1_s, w_qkv, w_out, ln2_s, w_fc1, w_fc2 = (params[i] for i in (0, 2, 3, 5, 7, 9))
-    dx1, gr = _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt)
+    dx1, gr = _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt, ln_dim)
     dx1b = dx1.to(dt)
     da = (dx1b.float() @ w_out.float()).to(dt)
     qkv = sv["qkv"]
@@ -574,15 +622,15 @@ def _block_bwd_plain(x, g, params, sv, heads, dim_head, valid_len):
         qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], sv["attn"], da,
         sv["lse"], heads, dim_head, valid_len, dt), -1)
     dx_ln, d_ln1_s, d_ln1_b = _ln_bwd(dqkv.float() @ w_qkv.float(), x,
-                                      sv["stats1"], ln1_s)
+                                      sv["stats1"], ln1_s, ln_dim)
     return _grads_tuple((dx1 + dx_ln).to(dt), d_ln1_s, d_ln1_b,
                         _tmm(dqkv, sv["h1"]), _tmm(dx1b, sv["attn"]), gr)
 
 
-def _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, valid_len):
+def _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, valid_len, ln_dim=None):
     dt, hd, rows = x.dtype, heads * dim_head, g.shape[1]
     ln1_s, w_qkv, w_out, ln2_s, w_fc1, w_fc2 = (params[i] for i in (0, 2, 3, 5, 7, 9))
-    dx1, gr = _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt)
+    dx1, gr = _mlp_branch_bwd(g, sv, ln2_s, w_fc1, w_fc2, dt, ln_dim)
     dx1b = dx1.to(dt)
     da = (dx1b.float() @ w_out.float()).to(dt)
     kv, h1 = sv["kv"], sv["h1"]
@@ -591,7 +639,7 @@ def _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, valid_len):
     dkv = torch.cat([dk, dv], -1)
     dh1 = dkv.float() @ w_qkv[hd:].float()
     dh1[:, :rows] += dq.float() @ w_qkv[:hd].float()
-    dx_ln, d_ln1_s, d_ln1_b = _ln_bwd(dh1, x, sv["stats1"], ln1_s)
+    dx_ln, d_ln1_s, d_ln1_b = _ln_bwd(dh1, x, sv["stats1"], ln1_s, ln_dim)
     dx_ln[:, :rows] += dx1
     d_wqkv = torch.cat([_tmm(dq, h1[:, :rows]), _tmm(dkv, h1)], 0)
     return _grads_tuple(dx_ln.to(dt), d_ln1_s, d_ln1_b, d_wqkv,
@@ -601,25 +649,26 @@ def _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, valid_len):
 def fused_block_bwd_reference(
     x, g, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, ln_dim: int | None = None,
 ):
     """Plain PyTorch backward of ``fused_block`` at the kernel's rounding
     points: the plain forward (keeping ``TRAIN_SAVED``), then explicit
     gradients. -> (dx, and the 11 parameter gradients in parameter order,
-    float32, matrices in the torch (out, in) layout)."""
+    float32, matrices in the torch (out, in) layout). ``ln_dim`` as in
+    ``fused_block_reference``."""
     params = (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
               w_fc1, b_fc1, w_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
     sv = {}
     fused_block_reference(x, *params, heads=heads, dim_head=dim_head,
-                          valid_len=vl, ln_eps=ln_eps, saved=sv)
-    return _block_bwd_plain(x, g, params, sv, heads, dim_head, vl)
+                          valid_len=vl, ln_eps=ln_eps, saved=sv, ln_dim=ln_dim)
+    return _block_bwd_plain(x, g, params, sv, heads, dim_head, vl, ln_dim)
 
 
 def fused_block_cls_bwd_reference(
     x, g, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias,
     w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, ln_dim: int | None = None,
 ):
     """Plain PyTorch backward of ``fused_block_cls``: g (B, rows, dim) on the
     top rows -> dx (B, N, dim) and the 11 parameter gradients."""
@@ -628,27 +677,42 @@ def fused_block_cls_bwd_reference(
     vl = x.shape[1] if valid_len is None else int(valid_len)
     sv = {}
     fused_block_cls_reference(x, *params, heads=heads, dim_head=dim_head,
-                              valid_len=vl, ln_eps=ln_eps, saved=sv)
-    return _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, vl)
+                              valid_len=vl, ln_eps=ln_eps, saved=sv, ln_dim=ln_dim)
+    return _block_cls_bwd_plain(x, g, params, sv, heads, dim_head, vl, ln_dim)
+
+
+def _lay_out(x, params, heads, dim_head, vl, n):
+    """Check the training entries' arguments and lay them out as the chains
+    take them: -> (x, params, width) with x's width and the hidden width
+    rounded up to 8 (``svt_ops.pad_dims``, copies only where they are off
+    it) and the heads in ``head_cols(dim_head)`` columns; ``width`` x's own
+    width."""
+    _check_cuda_args(x, params, heads, dim_head, vl, addresses=False, ln_dim=n)
+    x, params, width = svt_ops.laid_out(x, params, 7, ROW_ALIGN, pad_dims)
+    _check_cuda_args(x, params, heads, dim_head, vl, ln_dim=n)
+    return x, pad_block(params, heads, dim_head), width
 
 
 def train_forward(x, *params, heads: int, dim_head: int,
                   valid_len: int | None = None, ln_eps: float = 1e-5,
-                  cls: bool = False):
+                  cls: bool = False, ln_dim: int | None = None):
     """The block forward (``fused_block``, or ``fused_block_cls`` with
     ``cls``) keeping what its backward reads: -> (out, saved dict of
-    ``TRAIN_SAVED`` / ``TRAIN_SAVED_CLS``). CPU tensors run the plain
-    version; CUDA tensors the forward kernel chain with saves, counted as a
-    launch of ``fused_block`` / ``fused_block_cls``."""
+    ``TRAIN_SAVED`` / ``TRAIN_SAVED_CLS``); ``ln_dim`` as in
+    ``fused_block``. CPU tensors run the plain version; CUDA tensors the
+    forward kernel chain with saves, counted as a launch of ``fused_block``
+    / ``fused_block_cls``. Given x at a width off 8 the chain runs on a
+    padded copy (``svt_ops.pad_dims``): out is cropped, the saves stay laid
+    out, as ``fused_block_bwd`` takes them."""
     vl = x.shape[1] if valid_len is None else int(valid_len)
+    n = x.shape[-1] if ln_dim is None else int(ln_dim)
     if _dispatch(x) == "cpu":
         sv = {}
         ref = fused_block_cls_reference if cls else fused_block_reference
         out = ref(x, *params, heads=heads, dim_head=dim_head, valid_len=vl,
-                  ln_eps=ln_eps, saved=sv)
+                  ln_eps=ln_eps, saved=sv, ln_dim=n)
         return out, sv
-    _check_cuda_args(x, params, heads, dim_head, vl)
-    params = pad_block(params, heads, dim_head)  # heads in head_cols(dim_head) columns
+    x, params, width = _lay_out(x, params, heads, dim_head, vl, n)
     B, N, dim = x.shape
     hd, mlp, H = heads * head_cols(dim_head), params[7].shape[0], heads
     rows = min(_CLS_ROWS, N) if cls else N
@@ -672,23 +736,23 @@ def train_forward(x, *params, heads: int, dim_head: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if cls:
         _native.check(lib.svt_fused_block_cls_train_fwd(
-            *ptrs, B, N, rows, dim, heads, dim_head, mlp, vl, ln_eps,
+            *ptrs, B, N, rows, dim, n, heads, dim_head, mlp, vl, ln_eps,
             x.device.index, stream))
         fused_block_cls.launches += 1
-        _count_cls(N, rows, dim, dim_head)
+        _count_cls(N, rows, dim, dim_head, n)
         wide_fwd.launches += wide_fwd(dim_head)
     else:
         _native.check(lib.svt_fused_block_train_fwd(
-            *ptrs, B, N, dim, heads, dim_head, mlp, vl, ln_eps,
+            *ptrs, B, N, dim, n, heads, dim_head, mlp, vl, ln_eps,
             x.device.index, stream))
         fused_block.launches += 1
-        _count_fused(fuses_mlp(dim, mlp, train=True))
+        _count_fused(fuses_mlp(dim, mlp, train=True, ln_dim=n))
         wide_fwd.launches += wide_fwd(dim_head)
-    return out, sv
+    return crop_to(out, (B, rows, width)).contiguous(), sv
 
 
-def _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls):
-    _check_cuda_args(x, params, heads, dim_head, vl)
+def _check_cuda_bwd_args(x, g, sv, cls):
+    """The backward's own checks, on the laid-out x, g and saves."""
     B, N, dim = x.shape
     rows = min(_CLS_ROWS, N) if cls else N
     if dim > _MAX_BWD_DIM:
@@ -705,17 +769,21 @@ def _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls):
     check_tma_operands(g, *sv.values(), cls_rows=rows if cls else None)
 
 
-def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
+def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls, ln_dim=None):
     vl = x.shape[1] if valid_len is None else int(valid_len)
+    n = x.shape[-1] if ln_dim is None else int(ln_dim)
     if _dispatch(x) == "cpu":
         plain = _block_cls_bwd_plain if cls else _block_bwd_plain
-        return plain(x, g, params, sv, heads, dim_head, vl)
-    _check_cuda_bwd_args(x, g, params, sv, heads, dim_head, vl, cls)
-    params = pad_block(params, heads, dim_head)  # heads in head_cols(dim_head) columns
+        return plain(x, g, params, sv, heads, dim_head, vl, n)
+    shapes = [p.shape for p in params]
+    x, params, width = _lay_out(x, params, heads, dim_head, vl, n)
     lib = _native.library()
     B, N, dim = x.shape
     hd, mlp = heads * head_cols(dim_head), params[7].shape[0]
     rows = min(_CLS_ROWS, N) if cls else N
+    if tuple(g.shape) == (B, rows, width) and g.dtype == torch.bfloat16:
+        g = pad_to(g, (B, rows, dim)).contiguous()
+    _check_cuda_bwd_args(x, g, sv, cls)
     M, Mr = B * N, B * rows
     dev = x.device
 
@@ -744,38 +812,42 @@ def _block_bwd(x, g, params, sv, heads, dim_head, valid_len, cls):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if cls:
         _native.check(lib.svt_fused_block_cls_bwd(
-            *ptrs, B, N, rows, dim, heads, dim_head, mlp, vl, dev.index, stream))
+            *ptrs, B, N, rows, dim, n, heads, dim_head, mlp, vl, dev.index, stream))
         fused_block_cls_bwd.launches += 1
         count_few_query(rows, N, dim_head)  # its attention backward
     else:
         _native.check(lib.svt_fused_block_bwd(
-            *ptrs, B, N, dim, heads, dim_head, mlp, vl, dev.index, stream))
+            *ptrs, B, N, dim, n, heads, dim_head, mlp, vl, dev.index, stream))
         fused_block_bwd.launches += 1
     wide_bwd.launches += wide_bwd(dim_head)
-    # d_wqkv's rows and d_wout's columns back in the reference layout
+    # d_wqkv's rows and d_wout's columns back in the reference layout, then
+    # every gradient in its parameter's shape (the padded rows and columns
+    # of a width off 8 cropped)
     grads[2] = crop_heads(grads[2], 3 * heads, dim_head, 0)
     grads[3] = crop_heads(grads[3], heads, dim_head, 1)
-    return (dx, *grads)
+    grads = [crop_to(t, shape) for t, shape in zip(grads, shapes)]
+    return (crop_to(dx, (B, N, width)).contiguous(), *grads)
 
 
 def fused_block_bwd(x, g, *params, saved, heads: int, dim_head: int,
-                    valid_len: int | None = None):
+                    valid_len: int | None = None, ln_dim: int | None = None):
     """Backward of the training ``fused_block``: x and g = dL/dout (B, N,
-    dim), the 11 block parameters, ``saved`` from the training forward.
-    -> (dx, 11 float32 parameter gradients). CPU tensors run the plain
-    backward; CUDA tensors launch the kernel chain (bfloat16)."""
-    return _block_bwd(x, g, params, saved, heads, dim_head, valid_len, cls=False)
+    dim), the 11 block parameters, ``saved`` from the training forward,
+    ``ln_dim`` as there. -> (dx, 11 float32 parameter gradients, in the
+    shapes of x and the parameters). CPU tensors run the plain backward;
+    CUDA tensors launch the kernel chain (bfloat16)."""
+    return _block_bwd(x, g, params, saved, heads, dim_head, valid_len, False, ln_dim)
 
 
 fused_block_bwd.launches = 0
 
 
 def fused_block_cls_bwd(x, g, *params, saved, heads: int, dim_head: int,
-                        valid_len: int | None = None):
+                        valid_len: int | None = None, ln_dim: int | None = None):
     """Backward of the training ``fused_block_cls``: g (B, rows, dim) ->
     (dx (B, N, dim), 11 float32 parameter gradients). Dispatch as
     ``fused_block_bwd``."""
-    return _block_bwd(x, g, params, saved, heads, dim_head, valid_len, cls=True)
+    return _block_bwd(x, g, params, saved, heads, dim_head, valid_len, True, ln_dim)
 
 
 fused_block_cls_bwd.launches = 0
@@ -942,13 +1014,13 @@ def _count_fused(fused: bool) -> None:
         block_mlp.launches += 1
 
 
-def _count_cls(N: int, rows: int, dim: int, dim_head: int) -> None:
+def _count_cls(N: int, rows: int, dim: int, dim_head: int, ln_dim: int | None = None) -> None:
     """A CLS forward chain on ``cls_fwd_route`` launched the few-query
     attention once (``few_query_fwd.launches``), and its [LN1 + K/V] once
     where ``cls_ln1_in_kv`` (``block_ln_gemm.launches``)."""
     if cls_fwd_route(N, rows, dim_head):
         few_query_fwd.launches += 1
-        if cls_ln1_in_kv(N, rows, dim, dim_head):
+        if cls_ln1_in_kv(N, rows, dim, dim_head, ln_dim):
             block_ln_gemm.launches += 1
 
 
@@ -1090,7 +1162,7 @@ class _Round(torch.autograd.Function):
 def block_recompute(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
                     ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int,
                     dim_head: int, valid_len: int | None = None,
-                    ln_eps: float = 1e-5, cls: bool = False):
+                    ln_eps: float = 1e-5, cls: bool = False, ln_dim: int | None = None):
     """``fused_block`` in torch ops under autograd (the counterpart of the
     JAX package's ``_xla_block_ref(attn="flash")``), at the chain's rounding
     points in x.dtype: bf16 LN outputs, qkv, x1 and GELU output, fp32 fc1
@@ -1098,7 +1170,16 @@ def block_recompute(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
     kernel on CUDA). Parameters of any float dtype (matrices cast to x.dtype
     inside, gradients in their own dtypes). ``cls``: ``fused_block_cls``
     (K and V over every row; Q, the attention and the rest on the top
-    min(8, N) rows) -> (B, rows, dim)."""
+    min(8, N) rows) -> (B, rows, dim). ``ln_dim`` below dim (a padded
+    layout, ``svt_ops.pad_dims``): the block of the first ln_dim columns,
+    zeros past them (the products take any width)."""
+    width = x.shape[-1]
+    if ln_dim is not None and ln_dim < width:
+        out = block_recompute(x[..., :ln_dim], *crop_dims(
+            (ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale, ln2_bias, w_fc1, b_fc1,
+             w_fc2, b_fc2), ln_dim), heads=heads, dim_head=dim_head, valid_len=valid_len,
+            ln_eps=ln_eps, cls=cls)
+        return F.pad(out, (0, width - ln_dim))
     dt, (B, N, dim) = x.dtype, x.shape
     vl = N if valid_len is None else int(valid_len)
     xf = x.float()
@@ -1119,9 +1200,17 @@ def block_recompute(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
     return (x1 + _Linear32.apply(f, w_fc2, dt) + b_fc2.float()).to(dt)
 
 
+def crop_dims(params, dim: int) -> list:
+    """The 11 block parameters at row width ``dim``: ``svt_ops.pad_dims``'s
+    padded rows and columns of the width cropped (the hidden width kept)."""
+    ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1, w_fc2, b_fc2 = params
+    return [ln1_s[:dim], ln1_b[:dim], w_qkv[:, :dim], w_out[:dim], b_out[:dim], ln2_s[:dim],
+            ln2_b[:dim], w_fc1[:, :dim], b_fc1, w_fc2[:dim], b_fc2[:dim]]
+
+
 def fused_block_recompute_bwd(x, g, *params, heads: int, dim_head: int,
                               valid_len: int | None = None, ln_eps: float = 1e-5,
-                              cls: bool = False):
+                              cls: bool = False, ln_dim: int | None = None):
     """The recompute route's backward of ``fused_block`` (``cls``:
     ``fused_block_cls``, g (B, min(8, N), dim)): ``block_recompute`` from x,
     then autograd with cotangent g. -> (dx, the 11 parameter gradients in
@@ -1130,7 +1219,7 @@ def fused_block_recompute_bwd(x, g, *params, heads: int, dim_head: int,
         xr = x.detach().requires_grad_()
         ps = [p.detach().requires_grad_() for p in params]
         out = block_recompute(xr, *ps, heads=heads, dim_head=dim_head,
-                              valid_len=valid_len, ln_eps=ln_eps, cls=cls)
+                              valid_len=valid_len, ln_eps=ln_eps, cls=cls, ln_dim=ln_dim)
         grads = torch.autograd.grad(out, [xr, *ps], g)
     if x.device.type == "cuda":
         fused_block_recompute_bwd.launches += 1
@@ -1145,18 +1234,19 @@ class _BlockTrain(torch.autograd.Function):
     matrices are cast to x.dtype (the compute dtype) inside, the vectors to
     float32, and the gradients come back in the masters' dtypes. The route
     (chain or recompute) follows ``uses_recompute`` (the CLS block:
-    ``cls_uses_recompute``)."""
+    ``cls_uses_recompute``) at the width the LayerNorms count."""
 
     @staticmethod
-    def forward(ctx, x, heads, dim_head, valid_len, ln_eps, cls, *masters):
+    def forward(ctx, x, heads, dim_head, valid_len, ln_eps, cls, ln_dim, *masters):
         params = tuple(
             (m.to(x.dtype) if m.dim() == 2 else m.float()).contiguous()
             for m in masters)
         x = x.contiguous()
         vl = x.shape[1] if valid_len is None else int(valid_len)
-        kw = dict(heads=heads, dim_head=dim_head, valid_len=vl, ln_eps=ln_eps)
+        n = x.shape[2] if ln_dim is None else int(ln_dim)
+        kw = dict(heads=heads, dim_head=dim_head, valid_len=vl, ln_eps=ln_eps, ln_dim=n)
         ctx.dtypes, ctx.cls = [m.dtype for m in masters], cls
-        if cls_uses_recompute(x.shape[2]) if cls else uses_recompute(x.shape[1], x.shape[2]):
+        if cls_uses_recompute(n) if cls else uses_recompute(x.shape[1], n):
             ctx.state = (x, masters, None, kw)
             return (fused_block_cls if cls else fused_block)(x, *params, **kw)
         out, sv = train_forward(x, *params, cls=cls, **kw)
@@ -1174,19 +1264,22 @@ class _BlockTrain(torch.autograd.Function):
             del kw["ln_eps"]
             bwd = fused_block_cls_bwd if ctx.cls else fused_block_bwd
             dx, *grads = bwd(x, g, *params, saved=sv, **kw)
-        return (dx, None, None, None, None, None,
+        return (dx, None, None, None, None, None, None,
                 *(d.to(t) for d, t in zip(grads, ctx.dtypes)))
 
 
 def fused_block_train(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
                       ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *, heads: int,
                       dim_head: int, valid_len: int | None = None,
-                      ln_eps: float = 1e-5):
+                      ln_eps: float = 1e-5, ln_dim: int | None = None):
     """Differentiable ``fused_block`` (the JAX package's
     ``fused_block_train``): x (B, N, dim) in the compute dtype, parameters
-    as masters (e.g. float32 ``nn.Parameter``s, torch layout). The backward
-    is ``fused_block_bwd``."""
-    return _BlockTrain.apply(x, heads, dim_head, valid_len, ln_eps, False,
+    as masters (e.g. float32 ``nn.Parameter``s, torch layout); ``ln_dim``
+    as in ``fused_block`` (a model lays its stream and parameters out padded
+    with ``svt_ops.pad_dims``, a differentiable copy, so that the masters'
+    gradients come back in their own shapes). The backward is
+    ``fused_block_bwd``."""
+    return _BlockTrain.apply(x, heads, dim_head, valid_len, ln_eps, False, ln_dim,
                              ln1_scale, ln1_bias, w_qkv, w_out, b_out,
                              ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2)
 
@@ -1194,11 +1287,13 @@ def fused_block_train(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out, ln2_scale,
 def fused_block_cls_train(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out,
                           ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
                           heads: int, dim_head: int,
-                          valid_len: int | None = None, ln_eps: float = 1e-5):
+                          valid_len: int | None = None, ln_eps: float = 1e-5,
+                          ln_dim: int | None = None):
     """Differentiable ``fused_block_cls`` (the JAX package's
     ``fused_block_cls_train``): x (B, N, dim) -> (B, min(8, N), dim); the
-    backward is ``fused_block_cls_bwd``."""
-    return _BlockTrain.apply(x, heads, dim_head, valid_len, ln_eps, True,
+    backward is ``fused_block_cls_bwd``; ``ln_dim`` as in
+    ``fused_block_train``."""
+    return _BlockTrain.apply(x, heads, dim_head, valid_len, ln_eps, True, ln_dim,
                              ln1_scale, ln1_bias, w_qkv, w_out, b_out,
                              ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2)
 
@@ -1208,13 +1303,13 @@ def fused_block_cls_train(x, ln1_scale, ln1_bias, w_qkv, w_out, b_out,
 
 def register_plain(op: str, reference) -> None:
     """Register ``reference`` (a plain block version, heads, dim_head,
-    valid_len and ln_eps by keyword) as the CPU kernel of the block operator
+    valid_len, ln_eps and ln_dim by keyword) as the CPU kernel of the block operator
     ``op``, whose schema takes them after the tensors."""
 
     def kernel(x, *args):
-        *params, heads, dim_head, valid_len, ln_eps = args
+        params, heads, dim_head, valid_len, ln_eps, ln_dim = svt_ops.block_args(x, args)
         return reference(x, *params, heads=heads, dim_head=dim_head, valid_len=valid_len,
-                         ln_eps=ln_eps)
+                         ln_eps=ln_eps, ln_dim=ln_dim)
 
     torch.library.register_kernel(op, "cpu", kernel)
 

@@ -49,38 +49,46 @@ from surface_vision_transformers_tpu_torch.ops.fused_block import (
     _dispatch,
     _layer_norm,
     check_dim_head,
+    check_ln_dim,
     register_plain,
 )
 from surface_vision_transformers_tpu_torch.ops import quant
 from surface_vision_transformers_tpu_torch.ops.quant import int8_mm_reference, int8_product
 from surface_vision_transformers_tpu_torch.serving import svt_ops
-from surface_vision_transformers_tpu_torch.serving.svt_ops import GEMM_BN, int8_workspace
-
-INT8_ROW_ALIGN = 16  # dim and mlp: int8 rows of a multiple of 16 bytes, as TMA reads them
+from surface_vision_transformers_tpu_torch.serving.svt_ops import (
+    GEMM_BN,
+    INT8_ROW_ALIGN,  # dim and mlp: int8 rows of a multiple of 16 bytes, as TMA reads them
+    int8_workspace,
+)
 
 
 def fused_block_int8_reference(
     x, ln1_scale, ln1_bias, q_qkv, s_qkv, q_out, s_out, b_out, ln2_scale, ln2_bias,
     q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, ln_dim: int | None = None,
 ):
     """Plain PyTorch ``fused_block_int8``: x (B, N, dim) -> (B, N, dim) in
-    x.dtype, keys >= ``valid_len`` masked. In float32 only the int8
-    quantization rounds."""
+    x.dtype, keys >= ``valid_len`` masked; ``ln_dim`` as in
+    ``ops.fused_block.fused_block_reference`` (the padded layout of
+    ``svt_ops.pad_int8_dims``). In float32 only the int8 quantization
+    rounds."""
     dt, hd = x.dtype, heads * dim_head
     vl = x.shape[1] if valid_len is None else int(valid_len)
-    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps)
+    h = _layer_norm(x, ln1_scale, ln1_bias, ln_eps, n=ln_dim)
     qkv = int8_mm_reference(h, q_qkv, s_qkv).to(dt)
     attn = _attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
                       heads, dim_head, vl, dt)
     x1 = x.float() + (int8_mm_reference(attn, q_out, s_out) + b_out)
-    h2 = _layer_norm(x1, ln2_scale, ln2_bias, ln_eps)
+    h2 = _layer_norm(x1, ln2_scale, ln2_bias, ln_eps, n=ln_dim)
     f = F.gelu(int8_mm_reference(h2, q_fc1, s_fc1) + b_fc1)  # exact erf
     return (x1 + (int8_mm_reference(f, q_fc2, s_fc2) + b_fc2)).to(dt)
 
 
-def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
+def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True, ln_dim=None):
     """Validate everything the int8 chain assumes; raise on anything else.
+    Every dim and mlp_dim: the CUDA kernel lays a width off
+    ``INT8_ROW_ALIGN`` out padded (``svt_ops.pad_int8_dims``), or x and the
+    parameters come laid out so, with ``ln_dim`` below x's width.
     ``addresses`` False leaves the 16-byte checks to the operator's CUDA
     kernel (``serving.svt_ops``): a traced tensor has no address."""
     (ln1_s, ln1_b, q_qkv, s_qkv, q_out, s_out, b_out, ln2_s, ln2_b,
@@ -92,10 +100,7 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
     B, N, dim = x.shape
     hd, mlp = heads * dim_head, q_fc1.shape[0]
     check_dim_head(dim_head)
-    if dim % INT8_ROW_ALIGN or mlp % INT8_ROW_ALIGN:
-        raise NotImplementedError(
-            f"dim and mlp_dim must be multiples of {INT8_ROW_ALIGN} (int8 rows on 16 bytes, "
-            "as TMA reads them)")
+    check_ln_dim(dim, ln_dim, INT8_ROW_ALIGN)
     if not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside [1, {N}]")
     mats = {"q_qkv": (q_qkv, s_qkv, (3 * hd, dim)), "q_out": (q_out, s_out, (dim, hd)),
@@ -124,19 +129,21 @@ def _check_cuda_args(x, params, heads, dim_head, valid_len, addresses=True):
 def fused_block_int8(
     x, ln1_scale, ln1_bias, q_qkv, s_qkv, q_out, s_out, b_out, ln2_scale, ln2_bias,
     q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2, *, heads: int, dim_head: int,
-    valid_len: int | None = None, ln_eps: float = 1e-5,
+    valid_len: int | None = None, ln_eps: float = 1e-5, ln_dim: int | None = None,
 ):
     """One W8A8 pre-norm block, x (B, N, dim) -> (B, N, dim); parameters
-    in the JAX order (codes and scales from ``quantize_block_weights``).
-    The operator ``svt::fused_block_int8``: its CPU kernel is
-    ``fused_block_int8_reference``, its CUDA kernel the chain (bfloat16
-    x, scratch from ``int8_workspace``)."""
+    in the JAX order (codes and scales from ``quantize_block_weights``);
+    ``ln_dim`` as in ``ops.fused_block.fused_block`` (a padded layout of
+    ``INT8_ROW_ALIGN``). The operator ``svt::fused_block_int8``: its CPU
+    kernel is ``fused_block_int8_reference``, its CUDA kernel the chain
+    (bfloat16 x, scratch from ``int8_workspace``)."""
     params = (ln1_scale, ln1_bias, q_qkv, s_qkv, q_out, s_out, b_out, ln2_scale,
               ln2_bias, q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2)
     vl = x.shape[1] if valid_len is None else int(valid_len)
+    n = x.shape[-1] if ln_dim is None else int(ln_dim)
     if _dispatch(x) == "cuda":
-        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False)
-    return torch.ops.svt.fused_block_int8(x, *params, heads, dim_head, vl, ln_eps)
+        _check_cuda_args(x, params, heads, dim_head, vl, addresses=False, ln_dim=n)
+    return torch.ops.svt.fused_block_int8(x, *params, heads, dim_head, vl, ln_eps, n)
 
 
 fused_block_int8.launches = 0

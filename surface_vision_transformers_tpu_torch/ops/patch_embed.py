@@ -24,7 +24,10 @@ other counts take a walk where each of a lane's four columns finds its own
 vertex and channel). The group's table rows sit in shared memory where
 they fit, else (sub-ico 1's 561 vertices) they are read through L2;
 ``embed_plan`` mirrors its tiling and its shared memory, and shapes it
-cannot take are refused.
+cannot take are refused. Any dim: the kernel writes rows of 16 bytes, so
+at a dim off 8 its CUDA entry pads W's rows and the bias with zeros and
+crops the output (``svt_ops.padded_width``); a model that lays its stream
+out padded gives W and the bias padded and keeps the padded output.
 
 ``PatchEmbed`` is its autograd function: the kernel forward on CUDA, a
 plain backward (dW = tokens^T dout, db = sum dout, in float32, to the
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 from surface_vision_transformers_tpu_torch.ops.fused_block import _mm32
 from surface_vision_transformers_tpu_torch.ops.patchify import fold_normalization
 from surface_vision_transformers_tpu_torch.serving import svt_ops
+from surface_vision_transformers_tpu_torch.serving.svt_ops import padded_width
 
 K_STEP = 64  # the kernel's K slice: W's columns are zero-padded to a multiple
 MAX_CHANNELS = 8  # the kernel's C: 1 .. 8 (4 packs a vertex into 8 bytes of the A tile)
@@ -153,11 +157,9 @@ def _check_cuda_args(x, indices, weight, bias):
     if kp % K_STEP or kp < V * C:
         raise ValueError(f"weight must be (dim, Kp), Kp >= {V * C} a multiple of {K_STEP}, "
                          f"got {tuple(weight.shape)}")
-    if dim % 8:
-        raise NotImplementedError(f"dim must be a multiple of 8, got {dim}")
     if not 1 <= C <= MAX_CHANNELS:
         raise NotImplementedError(f"the kernel takes 1 to {MAX_CHANNELS} channels, got {C}")
-    if embed_plan(indices.shape[0], V, C, kp, dim)["bytes"] == 0:
+    if embed_plan(indices.shape[0], V, C, kp, padded_width(dim))["bytes"] == 0:
         raise NotImplementedError(
             f"the kernel's tiles at V {V}, Kp {kp}, dim {dim} leave no room for its A ring in an "
             f"H100 block's {_SMEM_MAX} bytes of shared memory (embed_plan)")

@@ -35,6 +35,19 @@ with zero columns per head (``pad_heads``), the int8 block's q_out also
 to a multiple of 16 columns, before the launch. A zero column adds nothing
 to any score or product, and the chain takes the softmax scale of
 dim_head, so the output is the unpadded block's.
+
+Row widths: every dim and mlp >= 1. The kernels' tensor maps need rows of
+16 bytes, so a width off 8 values (off 16 in the int8 block) is laid out
+padded (``padded_width``), the columns past it zero, with the zero rows
+and columns of the weights, LayerNorm parameters and biases that go with
+them (``pad_dims``, ``pad_int8_dims``). The operators take ``ln_dim``, the
+width the LayerNorms count: x's own width, or less where x and the
+parameters come laid out padded (the models lay a stream out once; 0, the
+default, means x's width). Given
+x at a true width off the layout, the CUDA kernels copy it into a padded
+buffer, pad the parameters and crop the output; the chains' LayerNorms
+take their statistics over the first ln_dim columns, so every product and
+residual is the unpadded block's.
 """
 
 from __future__ import annotations
@@ -51,7 +64,7 @@ _BLOCK = ("Tensor x, Tensor ln1_scale, Tensor ln1_bias, Tensor w_qkv, Tensor w_o
 _INT8 = ("Tensor x, Tensor ln1_scale, Tensor ln1_bias, Tensor q_qkv, Tensor s_qkv, "
          "Tensor q_out, Tensor s_out, Tensor b_out, Tensor ln2_scale, Tensor ln2_bias, "
          "Tensor q_fc1, Tensor s_fc1, Tensor b_fc1, Tensor q_fc2, Tensor s_fc2, Tensor b_fc2")
-_INTS = "int heads, int dim_head, int valid_len, float ln_eps"
+_INTS = "int heads, int dim_head, int valid_len, float ln_eps, int ln_dim=0"  # 0: x's width
 SCHEMAS = {
     "patch_embed": "(Tensor x, Tensor indices, Tensor weight, Tensor bias) -> Tensor",
     "fused_block": f"({_BLOCK}, {_INTS}) -> Tensor",
@@ -78,9 +91,9 @@ def bind(path) -> None:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of the entries these operators call."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, args in (("svt_fused_block", [P] * 18 + [I] * 7 + [F, I, P]),
-                       ("svt_fused_block_cls", [P] * 19 + [I] * 8 + [F, I, P]),
-                       ("svt_fused_block_int8", [P] * 25 + [I] * 8 + [F, I, P]),
+    for name, args in (("svt_fused_block", [P] * 18 + [I] * 8 + [F, I, P]),
+                       ("svt_fused_block_cls", [P] * 19 + [I] * 9 + [F, I, P]),
+                       ("svt_fused_block_int8", [P] * 25 + [I] * 9 + [F, I, P]),
                        ("svt_patch_embed", [P, I] + [P] * 4 + [I] * 7 + [I, P]),
                        ("svt_patch_embed_smem", [I] * 5), ("svt_cls_fwd_route", [I] * 4),
                        ("svt_block_fused_mlp", [I] * 3), ("svt_error_string", [I])):
@@ -163,6 +176,71 @@ def crop_heads(t: torch.Tensor, groups: int, dh: int, dim: int) -> torch.Tensor:
     return t.unflatten(dim, (groups, dp)).narrow(dim + 1, 0, dh).flatten(dim, dim + 1)
 
 
+ROW_ALIGN, INT8_ROW_ALIGN = 8, 16  # values a row: 16 bytes of bf16, of int8
+
+
+def padded_width(n: int, align: int = ROW_ALIGN) -> int:
+    """The columns a row of n values is laid out in: n rounded up to
+    ``align``."""
+    return -(-n // align) * align
+
+
+def pad_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """t with zeros appended along each dimension up to ``shape`` (a
+    differentiable copy); t itself where it has that shape."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    pad = []
+    for have, want in zip(reversed(t.shape), reversed(tuple(shape))):
+        pad += [0, want - have]
+    return torch.nn.functional.pad(t, pad)
+
+
+def crop_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """``pad_to`` undone: the leading ``shape`` block of t."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    return t[tuple(slice(0, n) for n in shape)]
+
+
+def pad_dims(params, dim: int, mlp: int) -> list:
+    """The bf16 block's 11 parameters (torch layout) laid out for rows of
+    ``dim`` columns and a hidden width of ``mlp``, zeros appended: the
+    LayerNorm parameters, b_out and b_fc2 to dim, W_qkv's columns and
+    W_out's rows to dim, W_fc1 to (mlp, dim), b_fc1 to mlp, W_fc2 to (dim,
+    mlp). No copy where they have those widths."""
+    ln1_s, ln1_b, w_qkv, w_out, b_out, ln2_s, ln2_b, w_fc1, b_fc1, w_fc2, b_fc2 = params
+    v = (dim,)
+    return [pad_to(ln1_s, v), pad_to(ln1_b, v), pad_to(w_qkv, (w_qkv.shape[0], dim)),
+            pad_to(w_out, (dim, w_out.shape[1])), pad_to(b_out, v), pad_to(ln2_s, v),
+            pad_to(ln2_b, v), pad_to(w_fc1, (mlp, dim)), pad_to(b_fc1, (mlp,)),
+            pad_to(w_fc2, (dim, mlp)), pad_to(b_fc2, v)]
+
+
+def pad_int8_dims(params, dim: int, mlp: int) -> list:
+    """``pad_dims`` for the int8 block's 15 parameters: the codes as the
+    matrices, the scales of the padded output channels 0."""
+    (ln1_s, ln1_b, q_qkv, s_qkv, q_out, s_out, b_out, ln2_s, ln2_b,
+     q_fc1, s_fc1, b_fc1, q_fc2, s_fc2, b_fc2) = params
+    v = (dim,)
+    return [pad_to(ln1_s, v), pad_to(ln1_b, v), pad_to(q_qkv, (q_qkv.shape[0], dim)), s_qkv,
+            pad_to(q_out, (dim, q_out.shape[1])), pad_to(s_out, v), pad_to(b_out, v),
+            pad_to(ln2_s, v), pad_to(ln2_b, v), pad_to(q_fc1, (mlp, dim)),
+            pad_to(s_fc1, (mlp,)), pad_to(b_fc1, (mlp,)), pad_to(q_fc2, (dim, mlp)),
+            pad_to(s_fc2, v), pad_to(b_fc2, v)]
+
+
+def laid_out(x, params, mlp_at: int, align: int, pad):
+    """x (B, N, width) and a block's parameters as a chain takes them:
+    -> (x, params, width) with x's width and the hidden width rounded up to
+    ``align`` (x copied and the parameters padded where they are off it)."""
+    B, N, width = x.shape
+    dp = padded_width(width, align)
+    mp = padded_width(params[mlp_at].shape[0], align)
+    return pad_to(x, (B, N, dp)).contiguous(), [t.contiguous() for t in pad(params, dp, mp)], \
+        width
+
+
 def pad_block(params, heads: int, dim_head: int) -> list:
     """The bf16 block's 11 parameters as the kernels take them: W_qkv's rows
     and W_out's columns laid out per head in ``head_cols(dim_head)``."""
@@ -207,13 +285,25 @@ def _wide(dim_head: int) -> tuple:
     return ("wide_fwd",) if head_cols(dim_head) > MAX_TILE_COLS else ()
 
 
+def block_args(x, args) -> tuple:
+    """A block operator's arguments after x -> (the parameters, heads,
+    dim_head, valid_len, ln_eps, ln_dim), ln_dim x's width where the caller
+    left it out or gave 0 (the dispatcher passes only the arguments given)."""
+    n = next(i for i, a in enumerate(args) if not isinstance(a, torch.Tensor))
+    heads, dim_head, valid_len, ln_eps, *rest = args[n:]
+    return list(args[:n]), heads, dim_head, valid_len, ln_eps, (rest[0] if rest else 0) or \
+        x.shape[-1]
+
+
 # -- CUDA kernels ---------------------------------------------------------------------
 
 
 def _patch_embed_cuda(x, indices, weight, bias):
     B, C, G = x.shape
     L, V = indices.shape
-    dim, kp = weight.shape
+    width, kp = weight.shape
+    dim = padded_width(width)  # a width off 8: W's rows and the bias padded, the output cropped
+    weight, bias = pad_to(weight, (dim, kp)).contiguous(), pad_to(bias, (dim,)).contiguous()
     _on_16("the patch-embed weight", weight)
     lib = library()
     if lib.svt_patch_embed_smem(L, V, C, kp, dim) == 0:
@@ -226,32 +316,34 @@ def _patch_embed_cuda(x, indices, weight, bias):
         x.data_ptr(), int(x.dtype == torch.float32), indices.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), out.data_ptr(), B, C, G, L, V, kp, dim, x.device.index, _stream(x)))
     _launched("patch_embed")
-    return out
+    return crop_to(out, (B, L, width)).contiguous()
 
 
 def _fused_block_cuda(x, *args):
-    *params, heads, dim_head, valid_len, ln_eps = args
+    params, heads, dim_head, valid_len, ln_eps, ln_dim = block_args(x, args)
+    x, params, width = laid_out(x, params, 7, ROW_ALIGN, pad_dims)
     params = pad_block(params, heads, dim_head)
     _on_16("the block kernels' operands and vectors", x, *params)
     lib = library()
     B, N, dim = x.shape
     hd, mlp, M = heads * head_cols(dim_head), params[7].shape[0], B * N
-    fused = bool(lib.svt_block_fused_mlp(dim, mlp, 0))
+    fused = ln_dim == dim and bool(lib.svt_block_fused_mlp(dim, mlp, 0))
     out = torch.empty_like(x)
     unused = x.new_empty(8)  # h and f: never touched where the chain fuses the MLP
     ws = [unused if fused else x.new_empty((M, dim)), x.new_empty((M, 3 * hd)),
           x.new_empty((M, hd)), x.new_empty((M, dim)),
           unused if fused else x.new_empty((M, mlp))]
     check(lib.svt_fused_block(*[t.data_ptr() for t in (x, *params, out, *ws)],
-                              B, N, dim, heads, dim_head, mlp, valid_len, ln_eps,
+                              B, N, dim, ln_dim, heads, dim_head, mlp, valid_len, ln_eps,
                               x.device.index, _stream(x)))
     _launched("fused_block", *(("block_ln_gemm", "block_mlp") if fused else ()),
               *_wide(dim_head))
-    return out
+    return crop_to(out, (B, N, width)).contiguous()
 
 
 def _fused_block_cls_cuda(x, *args):
-    *params, heads, dim_head, valid_len, ln_eps = args
+    params, heads, dim_head, valid_len, ln_eps, ln_dim = block_args(x, args)
+    x, params, width = laid_out(x, params, 7, ROW_ALIGN, pad_dims)
     params = pad_block(params, heads, dim_head)
     _on_16("the block kernels' operands and vectors", x, *params)
     lib = library()
@@ -260,7 +352,7 @@ def _fused_block_cls_cuda(x, *args):
     hd, mlp, Mt = heads * head_cols(dim_head), params[7].shape[0], B * rows
     # bit 1: few-query attention; 2: LN1 in K/V (and Q made in the attention)
     route = lib.svt_cls_fwd_route(N, rows, dim, dim_head)
-    ln_kv = bool(route & 2)
+    ln_kv = ln_dim == dim and bool(route & 2)
     out = x.new_empty((B, rows, dim))
     # where LN1 runs in the K/V product, h is LN2's output alone and q is
     # made in the attention's CTAs
@@ -268,15 +360,16 @@ def _fused_block_cls_cuda(x, *args):
           x.new_empty(8 if ln_kv else (Mt, hd)), x.new_empty((Mt, hd)), x.new_empty((Mt, dim)),
           x.new_empty((Mt, mlp))]
     check(lib.svt_fused_block_cls(*[t.data_ptr() for t in (x, *params, out, *ws)],
-                                  B, N, rows, dim, heads, dim_head, mlp, valid_len, ln_eps,
-                                  x.device.index, _stream(x)))
+                                  B, N, rows, dim, ln_dim, heads, dim_head, mlp, valid_len,
+                                  ln_eps, x.device.index, _stream(x)))
     _launched("fused_block_cls", *(("few_query_fwd",) if route & 1 else ()),
               *(("block_ln_gemm",) if ln_kv else ()), *_wide(dim_head))
-    return out
+    return crop_to(out, (B, rows, width)).contiguous()
 
 
 def _fused_block_int8_cuda(x, *args):
-    *params, heads, dim_head, valid_len, ln_eps = args
+    params, heads, dim_head, valid_len, ln_eps, ln_dim = block_args(x, args)
+    x, params, width = laid_out(x, params, 9, INT8_ROW_ALIGN, pad_int8_dims)
     params = pad_int8_block(params, heads, dim_head)
     _on_16("the int8 block's operands, scales and vectors", x, *params)
     B, N, dim = x.shape
@@ -286,10 +379,10 @@ def _fused_block_int8_cuda(x, *args):
     ws = [torch.empty(shape, dtype=dt, device=x.device) for shape, dt in spec.values()]
     check(library().svt_fused_block_int8(
         *[t.data_ptr() for t in (x, *params, out, *ws)],
-        B, N, dim, heads, dim_head, mlp, spec["part"][0][0], valid_len, ln_eps,
+        B, N, dim, ln_dim, heads, dim_head, mlp, spec["part"][0][0], valid_len, ln_eps,
         x.device.index, _stream(x)))
     _launched("fused_block_int8", *_wide(dim_head))
-    return out
+    return crop_to(out, (B, N, width)).contiguous()
 
 
 # -- fake (shape) functions -------------------------------------------------------------

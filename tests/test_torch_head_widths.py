@@ -178,8 +178,8 @@ def test_taken_widths_pass_every_check(dh, heads):
     """At a taken width the block chains' checks pass for both blocks, and
     the int8 block's at any heads x dh (3 x 80 = 240 makes int8 rows of a
     multiple of 16 bytes; 3 x 8 = 24 does not, and is taken too: the chain
-    pads the attention's int8 rows to 16 bytes); dim off 16 is still
-    refused."""
+    pads the attention's int8 rows to 16 bytes); dim off 16 is taken too
+    (the chain lays the rows out padded, ``svt_ops.pad_int8_dims``)."""
     dim = 384 if dh == 128 else 192
     hd = heads * dh
     x = torch.zeros((2, 10, dim), dtype=torch.bfloat16)
@@ -196,6 +196,9 @@ def test_taken_widths_pass_every_check(dh, heads):
     tq8._check_cuda_args(x, p8, heads, dh, 10)
     tq8._check_cuda_args(x, (*p8[:2], q8(3 * 24, dim), torch.ones(3 * 24), q8(dim, 24),
                              *p8[5:]), 3, 8, 10)
-    with pytest.raises(NotImplementedError, match="multiples of 16"):
-        tq8._check_cuda_args(torch.zeros((2, 10, dim - 8), dtype=torch.bfloat16), p8, heads,
-                             dh, 10)
+    d8 = dim - 8  # off 16: taken
+    tq8._check_cuda_args(torch.zeros((2, 10, d8), dtype=torch.bfloat16),
+                         (vec[0][:d8], vec[1][:d8], q8(3 * hd, d8), torch.ones(3 * hd),
+                          q8(d8, hd), torch.ones(d8), vec[2][:d8], vec[3][:d8], vec[4][:d8],
+                          q8(768, d8), torch.ones(768), vec[5], q8(d8, 768), torch.ones(d8),
+                          vec[6][:d8]), heads, dh, 10)

@@ -245,8 +245,9 @@ def test_int8_workspace_holds_no_float32_f():
 
 
 def test_int8_wrapper_argument_checks():
-    """What the CUDA wrapper refuses, reached with CPU tensors: rows the
-    engine's TMA cannot read (dim or mlp off 16), a head width the
+    """What the CUDA wrapper takes and refuses, reached with CPU tensors:
+    dim or mlp off 16 taken (the chain lays the rows out padded,
+    ``svt_ops.pad_int8_dims``), a head width the
     attention kernels do not take (a multiple of 8 from 8 to 128: 32, MS-SiT's,
     and 48 are taken, 20 is not), a bad valid_len, non-int8 codes, a bias
     off 16 bytes; the part wrappers take CUDA tensors only."""
@@ -261,11 +262,9 @@ def test_int8_wrapper_argument_checks():
 
     x = torch.zeros((2, 10, 192), dtype=torch.bfloat16)
     tq8._check_cuda_args(x, params(192, 3, 768), 3, 64, 10)  # SiT-tiny width: taken
-    with pytest.raises(NotImplementedError, match="multiples of 16"):
-        tq8._check_cuda_args(torch.zeros((2, 10, 200), dtype=torch.bfloat16),
-                             params(200, 3, 768), 3, 64, 10)
-    with pytest.raises(NotImplementedError, match="multiples of 16"):
-        tq8._check_cuda_args(x, params(192, 3, 760), 3, 64, 10)
+    tq8._check_cuda_args(torch.zeros((2, 10, 200), dtype=torch.bfloat16),
+                         params(200, 3, 768), 3, 64, 10)  # dim off 16: taken
+    tq8._check_cuda_args(x, params(192, 3, 760), 3, 64, 10)  # mlp off 16: taken
     tq8._check_cuda_args(x, params(192, 3, 768), 6, 32, 10)  # dh 32: taken
     tq8._check_cuda_args(x, params(192, 3, 768), 4, 48, 10)  # dh 48: taken
     # 4 x 20: padded heads, and heads x dh = 80 off 16 (the chain pads the rows)

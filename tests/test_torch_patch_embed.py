@@ -167,8 +167,9 @@ def test_routes_and_refusals(tables):
     assert tpe.patch_embed.launches == before  # the plain version launches nothing
     # the kernel's checks (``_check_cuda_args``, on CPU tensors here): the
     # shipped shape, 1, 3 and 8 channels, and the sub-ico-1 table (80
-    # patches of 561 vertices, whose 64 rows are read through L2) pass; 9
-    # channels and a dim off 8 do not
+    # patches of 561 vertices, whose 64 rows are read through L2) and a dim
+    # off 8 (its CUDA entry pads W's rows and the bias) pass; 9 channels do
+    # not
     x = torch.zeros((1, 4, 40962))
     tpe._check_cuda_args(x, idx, w, b)
     for C in (1, 3, 8):
@@ -185,8 +186,7 @@ def test_routes_and_refusals(tables):
         tpe._check_cuda_args(torch.zeros((1, 9, 40962)), idx, w9, b9)
     w36, b36 = tpe.embed_matrix(torch.zeros(idx.shape[1] * 4, 36), torch.zeros(36),
                                 idx.shape[1])
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        tpe._check_cuda_args(x, idx, w36, b36)
+    tpe._check_cuda_args(x, idx, w36, b36)  # dim off 8: taken (W and the bias padded)
 
 
 # The kernel's tiling (``embed_plan``, mirroring csrc/patch_embed.cu's) at
