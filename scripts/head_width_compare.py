@@ -93,8 +93,10 @@ def main() -> None:
     this_lib = _native.library()
     with tempfile.TemporaryDirectory() as tmp:
         so = Path(tmp) / "libhw_other.so"
-        # the other tree's attention at the other widths, where it has a file for them
-        srcs = [other_csrc / f for f in (*SOURCES, "flash_attention_widths.cu")
+        # the other tree's attention at the other widths and past 128 columns,
+        # where it has a file for them
+        srcs = [other_csrc / f for f in (*SOURCES, "flash_attention_widths.cu",
+                                         "flash_attention_wide.cu")
                 if (other_csrc / f).exists()]
         subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(so),
                         *map(str, srcs)],

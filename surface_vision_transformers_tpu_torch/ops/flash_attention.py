@@ -27,9 +27,11 @@ or 128 columns that holds the head, the softmax scale dh ** -0.5 given at
 run time (a padded head of dh 25-31 or 57-63 there too, never on the
 kernels built for 32 or 64, whose scale is their layout's). Heads laid out
 past 128 columns (``wide_fwd``, ``csrc/flash_attention_wide.cu``) run
-kernels of ``mma.sync`` products that sum the scores over the head in steps
-of 64 columns and make O and dQ in passes of 128 columns, dK and dV of 64,
-over the same keys (each pass recomputes the scores; PERF.md has their
+a ``wgmma`` forward fed by TMA in 32-column panels, whose scores are summed
+over the whole head once a key block, O made in one pass up to 256 columns;
+and a backward of ``mma.sync`` products that sums the scores over the head
+in steps of 64 columns and makes dQ in passes of 128 columns, dK and dV of
+64, over the same keys (each pass recomputes the scores; PERF.md has their
 times), at every shape, the few-query ones too, with or without dropout.
 The plain versions take any dh. At dh 32
 the forward runs on 32-column tiles (no zero columns); where queries = keys
@@ -156,8 +158,10 @@ def wide_fwd(dh: int) -> bool:
     """Whether the forward at head dim dh runs the wide kernel
     (``csrc/flash_attention_wide.cu``): heads laid out past
     ``MAX_DIM_HEAD`` columns (dh > 128), at every shape, with or without
-    dropout: a CTA a 64-query tile, the scores summed in steps of 64
-    columns, O made in passes of up to 128 columns over the same keys."""
+    dropout: a CTA two 64-query warpgroups, Q resident, K and V through a
+    ring of 32-column panels filled by TMA; S over the whole head a key
+    block, O in registers, one column pass up to 256 columns (two at
+    384)."""
     return head_cols(dh) > MAX_DIM_HEAD
 
 
